@@ -1,0 +1,100 @@
+"""The port stands alone: no module of ``tikv_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, serving a request
+loads neither, and nothing falls back to the CPU without being asked."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tikv_tpu_torch.device import hash_agg as ha
+from tikv_tpu_torch.device import resolve_device
+from tikv_tpu_torch.device.runner import DeviceRunner
+
+ROOT = Path(__file__).resolve().parent.parent
+# the package's sources; ``_build/`` holds build outputs, not sources
+SOURCES = sorted(str(p.relative_to(ROOT))
+                 for p in (ROOT / "tikv_tpu_torch").rglob("*.py")
+                 if "_build" not in p.relative_to(ROOT).parts) + \
+    ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "tikv_tpu")
+
+
+def _imported(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_imports_no_jax(source):
+    for name in _imported(ROOT / source):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{source} imports {name}"
+
+
+_SERVE_ONE = """
+import sys
+from tikv_tpu_torch.convert import dag_from_wire
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.testing import configs
+table, snap = configs.build_table(5000, 64)
+dag = dag_from_wire(enc_dag(configs.dag_hash_agg(table)))
+rows = DeviceRunner(device="cpu").handle_request(dag, snap).rows()
+assert sum(r[0] for r in rows) == 5000, rows
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("served", len(rows))
+"""
+
+
+def test_serving_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE_ONE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "served 64"
+
+
+def test_runner_refuses_to_start_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceRunner()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert DeviceRunner(device="cpu").device == torch.device("cpu")
+
+
+def test_kernel_wrapper_never_picks_another_device():
+    with pytest.raises(ValueError):
+        ha.hash_agg("simple", 4, 1, 1, device="meta")
+    key = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32"):
+        ha._check(key, "key", torch.int32, 4, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_the_card(where, tmp_path):
+    """Without CUDA (here) or outside a checkout it exits non-zero and
+    prints no result line."""
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        cwd = ROOT
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

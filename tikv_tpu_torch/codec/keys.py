@@ -1,0 +1,22 @@
+"""Record-key layout (table codec ``t{table_id}_r{handle}``).
+
+Reference: the tidb-side table codec as consumed by the coprocessor
+executors' key ranges; only what record ranges and handle bounds need.
+"""
+
+from __future__ import annotations
+
+from .number import encode_i64
+
+_TABLE_PREFIX = b"t"
+_RECORD_SEP = b"_r"
+
+
+def table_record_key(table_id: int, handle: int) -> bytes:
+    return _TABLE_PREFIX + encode_i64(table_id) + _RECORD_SEP + encode_i64(handle)
+
+
+def table_record_range(table_id: int) -> tuple[bytes, bytes]:
+    """[start, end) covering all records of a table."""
+    prefix = _TABLE_PREFIX + encode_i64(table_id) + _RECORD_SEP
+    return prefix + encode_i64(-(2**63)), prefix + b"\xff" * 9

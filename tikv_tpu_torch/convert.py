@@ -1,0 +1,47 @@
+"""Carry a snapshot and a request into the port from plain data.
+
+For this system the state a request runs against is a table snapshot
+(handles + columns) and the request itself; both cross from any producer
+— the JAX package, a loader, a client — as numpy arrays and wire dicts:
+
+- ``table_from_wire(table_id, [(name, col_id, ft_dict, is_pk)])``
+- ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
+  validity)})``
+- ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .copr.dag import DAGRequest
+from .copr.wire import dec_dag, dec_field_type
+from .datatype import Column, EvalType
+from .executors.columnar import ColumnarTable
+from .testing.fixture import Table, TableColumn
+
+
+def table_from_wire(table_id: int, columns: Sequence[tuple]) -> Table:
+    """``columns``: (name, col_id, field-type dict, is_pk_handle) each."""
+    return Table(table_id, tuple(
+        TableColumn(name, col_id, dec_field_type(ft), bool(is_pk))
+        for name, col_id, ft, is_pk in columns))
+
+
+def snapshot_from_arrays(table: Table, handles,
+                         columns: dict) -> ColumnarTable:
+    """``columns``: {name: (eval type name, values, validity or None)}."""
+    named = {}
+    for name, (et, values, validity) in columns.items():
+        values = np.asarray(values)
+        valid: Optional[np.ndarray] = None if validity is None \
+            else np.asarray(validity, dtype=np.bool_)
+        named[name] = Column.from_values(EvalType(et), values, valid)
+    return ColumnarTable.from_arrays(table, np.asarray(handles, np.int64),
+                                     named)
+
+
+def dag_from_wire(d: dict) -> DAGRequest:
+    return dec_dag(d)

@@ -1,0 +1,193 @@
+"""DAG plan descriptors — the tipb-compatible LINEAR fragment surface.
+
+Reference: the ``tipb`` protobuf (DAGRequest, Executor, TableScan,
+IndexScan, Selection, Projection, Aggregation, TopN, Limit, ColumnInfo)
+consumed by runner.rs:181 ``build_executors``, kept as plain
+dataclasses; the wire encoding is in copr/wire.py.
+
+tipb runs only *leaf* fragments — it deliberately omits
+Join/Window/Sort/Exchange (runner.rs:139-166) — and this module keeps
+that executor vocabulary EXACTLY, so every ``DAGRequest`` stays
+wire-compatible with a tipb-shaped client, and ``plan_key()`` is the
+same tuple the JAX package computes for the same request.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Union
+
+from ..datatype import EvalType, FieldType, device_const_dtype
+from ..expr import Expr
+
+
+@dataclass(frozen=True)
+class ColumnInfo:
+    """Reference: tipb ColumnInfo (column_id, tp, flags, pk handle)."""
+
+    col_id: int
+    field_type: FieldType
+    is_pk_handle: bool = False
+    default_value: object = None
+
+
+@dataclass(frozen=True)
+class TableScanDesc:
+    table_id: int
+    columns: tuple  # tuple[ColumnInfo]
+    desc: bool = False
+
+    @property
+    def schema(self) -> list[FieldType]:
+        return [c.field_type for c in self.columns]
+
+
+@dataclass(frozen=True)
+class IndexScanDesc:
+    table_id: int
+    index_id: int
+    columns: tuple          # indexed columns, in index order (+ handle col last if requested)
+    desc: bool = False
+    unique: bool = False
+
+    @property
+    def schema(self) -> list[FieldType]:
+        return [c.field_type for c in self.columns]
+
+
+@dataclass(frozen=True)
+class SelectionDesc:
+    conditions: tuple  # tuple[Expr] — ANDed
+
+
+@dataclass(frozen=True)
+class ProjectionDesc:
+    exprs: tuple  # tuple[Expr]
+
+
+@dataclass(frozen=True)
+class AggExprDesc:
+    """One aggregate call. kind ∈ count|count_star|sum|avg|min|max|first|
+    var_pop|var_samp|stddev_pop|stddev_samp|bit_and|bit_or|bit_xor
+    (reference: tidb_query_aggr impl_variance.rs, impl_bit_op.rs)."""
+
+    kind: str
+    arg: Optional[Expr] = None  # None for count_star
+
+
+@dataclass(frozen=True)
+class AggregationDesc:
+    group_by: tuple    # tuple[Expr]
+    aggs: tuple        # tuple[AggExprDesc]
+    streamed: bool = False  # stream agg requires input sorted by group key
+
+
+@dataclass(frozen=True)
+class TopNDesc:
+    order_by: tuple    # tuple[(Expr, desc: bool)]
+    limit: int
+
+
+@dataclass(frozen=True)
+class PartitionTopNDesc:
+    """Per-partition TopN (reference: tipb PartitionTopN executor,
+    tidb_query_executors/src/partition_top_n_executor.rs)."""
+
+    partition_by: tuple  # tuple[Expr]
+    order_by: tuple      # tuple[(Expr, desc: bool)]
+    limit: int
+
+
+@dataclass(frozen=True)
+class LimitDesc:
+    limit: int
+
+
+ExecDesc = Union[TableScanDesc, IndexScanDesc, SelectionDesc, ProjectionDesc,
+                 AggregationDesc, TopNDesc, PartitionTopNDesc, LimitDesc]
+
+
+@dataclass(frozen=True)
+class DAGRequest:
+    """Reference: tipb DAGRequest + coppb Request key ranges.
+
+    ``executors[0]`` must be a scan; ``output_offsets`` select the final
+    schema columns to encode into the response.
+    """
+
+    executors: tuple              # tuple[ExecDesc]
+    ranges: tuple                 # tuple[KeyRange]
+    start_ts: int = 0
+    output_offsets: Optional[tuple] = None
+    # response encoding: "rows" (python rows) | "chunk" (columnar)
+    encode_type: str = "chunk"
+
+    def plan_key(self) -> tuple:
+        """Hashable plan identity for the device-kernel jit cache."""
+        def expr_key(e: Expr):
+            if e.kind == "const":
+                return ("c", e.value, e.eval_type.value if e.eval_type else None)
+            if e.kind == "column":
+                return ("col", e.col_idx,
+                        e.eval_type.value if e.eval_type else None)
+            return ("f", e.sig, tuple(expr_key(c) for c in e.children))
+
+        return self._plan_parts(expr_key)
+
+    def class_key(self) -> tuple:
+        """Const-blind COMPILE-CLASS identity: ``plan_key`` with numeric
+        constant VALUES erased (bucketed by device dtype only).  Two
+        requests differing solely in predicate/aggregate int/float
+        constants map to one class — the same hoisted-parameter grid the
+        device selection kernels share one trace over
+        (device/selection.py split_params/shape_key) — so per-class
+        service-time EWMAs (read-pool shedding) and the cross-request
+        coalescer group requests that are batchable into one dispatch.
+        A constant crossing the int32/int64 boundary is a genuine new
+        trace and keys separately."""
+        def expr_key(e: Expr):
+            if e.kind == "const":
+                v = e.value
+                if isinstance(v, bool) or v is None or \
+                        not isinstance(v, (int, float)):
+                    return ("c", repr(v),
+                            e.eval_type.value if e.eval_type else None)
+                return ("c?", device_const_dtype(v),
+                        e.eval_type.value if e.eval_type else None)
+            if e.kind == "column":
+                return ("col", e.col_idx,
+                        e.eval_type.value if e.eval_type else None)
+            return ("f", e.sig, tuple(expr_key(c) for c in e.children))
+
+        return self._plan_parts(expr_key)
+
+    def _plan_parts(self, expr_key) -> tuple:
+        parts = []
+        for ex in self.executors:
+            if isinstance(ex, TableScanDesc):
+                parts.append(("tscan", ex.table_id,
+                              tuple((c.col_id, c.field_type.tp,
+                                     c.is_pk_handle) for c in ex.columns),
+                              ex.desc))
+            elif isinstance(ex, IndexScanDesc):
+                parts.append(("iscan", ex.table_id, ex.index_id, ex.desc))
+            elif isinstance(ex, SelectionDesc):
+                parts.append(("sel", tuple(expr_key(e) for e in ex.conditions)))
+            elif isinstance(ex, ProjectionDesc):
+                parts.append(("proj", tuple(expr_key(e) for e in ex.exprs)))
+            elif isinstance(ex, AggregationDesc):
+                parts.append(("agg", tuple(expr_key(e) for e in ex.group_by),
+                              tuple((a.kind, expr_key(a.arg) if a.arg else None)
+                                    for a in ex.aggs), ex.streamed))
+            elif isinstance(ex, TopNDesc):
+                parts.append(("topn",
+                              tuple((expr_key(e), d) for e, d in ex.order_by),
+                              ex.limit))
+            elif isinstance(ex, PartitionTopNDesc):
+                parts.append(("ptopn",
+                              tuple(expr_key(e) for e in ex.partition_by),
+                              tuple((expr_key(e), d) for e, d in ex.order_by),
+                              ex.limit))
+            elif isinstance(ex, LimitDesc):
+                parts.append(("limit", ex.limit))
+        return tuple(parts) + (self.output_offsets,)

@@ -1,0 +1,26 @@
+"""Device dtype policy for feed columns.
+
+- INT → int32 when the column's values fit, else int64; aggregation
+  accumulators are always int64.
+- REAL → float32 on the device.
+
+Kept identical to the reference's policy so feed shapes, dtypes and the
+int32 wraparound of device arithmetic agree.  Other eval types have no
+device form in the port yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .eval_type import EvalType
+
+
+def _device_dtype(eval_type: EvalType, values: np.ndarray) -> np.dtype:
+    if eval_type is EvalType.INT:
+        if values.size and (values.min() < -(2**31) or values.max() >= 2**31):
+            return np.dtype(np.int64)
+        return np.dtype(np.int32)
+    if eval_type is EvalType.REAL:
+        return np.dtype(np.float32)
+    raise ValueError(f"{eval_type} has no device representation in the port")
