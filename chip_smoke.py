@@ -8,21 +8,31 @@ Run from the repository root on a machine with one CUDA card:
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the CUDA kernel from ``tikv_tpu_torch/csrc`` (timed);
-3. every kernel against its plain PyTorch version on the card, exactly
-   (integer states), over the edge cases of the CPU tests and at 2^24 rows;
+2. build the CUDA kernels from ``tikv_tpu_torch/csrc`` (one ``nvcc`` per
+   source, started together; timed, with the ptxas report);
+3. every kernel against its plain PyTorch version on the card over the
+   edge cases of the CPU tests: ``hash_agg`` exactly (integer states, and
+   at 2^24 rows); ``twolevel`` exactly for its int8 planes and within
+   1e-9·Σ|v| per cell for its float planes (float64 sums in another
+   order), and at the shapes of the Pallas prototypes it replaces, with
+   each prototype's own check (count by ``bincount``, sum rebuilt with the
+   prototype's bias formula, against numpy);
 4. the aggregation path through ``DeviceRunner().handle_request`` for
-   configs 3 (50·2^20 rows), 4 (100·2^20 rows) and 4s (2^24 rows: its
-   extra cost over config 4 is the host ``np.unique`` recode), each request
-   wire-encoded first, each answer held exactly against a numpy truth:
-   one cold and five warm requests, with the kernel launch count read
-   around the run (it must be > 0);
-5. the kernel against its plain version at each config's main-path
-   shape (exactly) and timed there with CUDA events, beside one library
-   call that computes the same sums (a yardstick the port never calls);
+   eight configurations (``tikv_tpu_torch.testing.configs``): 3
+   (50·2^20 rows), 4, 4n and 4w (100·2^20 rows), and 4s, 4r, 4m and 3n
+   (2^24 rows), each request wire-encoded first, each answer held against
+   a numpy truth (exactly for integer and MIN/MAX results, within 1e-9 of
+   the error scale of ``configs.truth`` for REAL sums and variances): one
+   cold and five warm requests, the kernels' launch counts read around
+   the run (each config must launch the kernels of its route and no
+   other), and one profiled warm request;
+5. each kernel against its plain version at the main path's shapes, and
+   timed there with CUDA events beside its bound and one library call
+   that computes the same function (a yardstick the port never calls);
 6. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
-   times at config 4's shape, and the least time the card could take;
+   times at its main shape (config 4 for ``hash_agg``, config 4n for
+   ``twolevel``), and the least time the card could take;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -37,12 +47,22 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit peak
+SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
+
+KERNELS = ("hash_agg", "twolevel")
+# config → rows on the card; the route's kernel counts must be > 0
+SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
+         "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
+ROUTE = {"3": "hash_agg", "4": "hash_agg", "4s": "hash_agg",
+         "4n": "twolevel", "4w": "twolevel", "4r": "twolevel",
+         "4m": None, "3n": None}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -58,6 +78,44 @@ def cuda_ms(fn, iters: int) -> float:
     end.synchronize()
     return start.elapsed_time(end) / iters
 
+
+def bound_ms(bytes_moved: float, ops: float) -> dict:
+    b_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
+def counts() -> dict:
+    from tikv_tpu_torch.device import hash_agg, twolevel
+    return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches}
+
+
+def set_counts(values: dict) -> None:
+    from tikv_tpu_torch.device import hash_agg, twolevel
+    hash_agg.launches = values["hash_agg"]
+    twolevel.launches = values["twolevel"]
+
+
+def build_kernels() -> None:
+    from tikv_tpu_torch.device import build
+
+    def one(name):
+        t0 = time.perf_counter()
+        log = build.build(name)
+        return name, time.perf_counter() - t0, log
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for name, secs, log in pool.map(one, KERNELS):
+            print(f"build: {name} in {secs:.3f} s", flush=True)
+            for line in log.splitlines():
+                if "registers" in line or "smem" in line or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# hash_agg against its plain version
+# ---------------------------------------------------------------------------
 
 def kernel_cases(dev, big: int):
     """(name, hash_agg keyword arguments) pairs on the card."""
@@ -136,55 +194,172 @@ def check_kernels(dev, big: int) -> int:
     return worst
 
 
-def truth_rows(config: str, snap) -> list:
-    """The exact answer, from numpy alone."""
-    k = snap.columns[2].values
-    v = snap.columns[3].values
-    if config == "3":
-        s = int(v.sum())
-        return [(s, len(v), float(s) / len(v))]
-    keys, inv = np.unique(k, return_inverse=True)
-    cnt = np.bincount(inv, minlength=len(keys))
-    sums = np.bincount(inv, weights=v, minlength=len(keys))
-    assert np.abs(sums).max() < 2**53      # float64 sums are exact here
-    return [(int(c), int(s), int(key))
-            for c, s, key in zip(cnt, sums.astype(np.int64), keys)]
+# ---------------------------------------------------------------------------
+# twolevel against its plain version
+# ---------------------------------------------------------------------------
 
+def twolevel_err(idx, L8, Lf, LO, HI) -> float:
+    """Kernel against plain version: S8 exactly; Sf within SF_TOL·Σ|v| per
+    cell.  Returns the largest absolute difference."""
+    from tikv_tpu_torch.device import twolevel as tl
+    got8, gotf = tl.twolevel(idx, L8, Lf, LO, HI)
+    torch.cuda.synchronize()
+    want8, wantf = tl.twolevel_plain(idx, L8, Lf, LO, HI)
+    assert torch.equal(got8, want8), "twolevel int8 planes disagree"
+    if Lf is None:
+        assert gotf is None
+        return 0.0
+    _w, mag = tl.twolevel_plain(idx, L8[:1], Lf.abs(), LO, HI)
+    diff = (gotf - wantf).abs()
+    assert bool((diff <= SF_TOL * mag).all()), \
+        "twolevel float planes beyond tolerance"
+    return float(diff.max())
+
+
+def twolevel_cases(dev):
+    """(name, idx, L8, Lf, LO, HI) on the card: the CPU tests' edge cases
+    (plane counts, both routes, NULL/scrap/out-of-range slots, padding
+    rows, int8 extremes, a hot slot past the per-block row cap)."""
+    from tikv_tpu_torch.device import kernels as kn
+    g = torch.Generator(device="cpu").manual_seed(12)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    def floats(shape):
+        return (torch.randn(shape, generator=g) * 1000).to(dev)
+
+    n = 1 << 18
+    for p8, pf in ((1, 0), (3, 1), (8, 2), (32, 0)):
+        for slots in (1026, 65538, (1 << 20) + 2):
+            LO, HI = kn.twolevel_dims(slots, p8, pf)
+            idx = ints(-2, HI * LO + 3, (n,))           # beyond both ends
+            L8 = ints(-128, 128, (p8, n), torch.int8)
+            Lf = floats((pf, n)) if pf else None
+            yield f"p8={p8}_pf={pf}_slots={slots}", idx, L8, Lf, LO, HI
+    LO, HI = 16, 72
+    idx = torch.full((n,), 1025, dtype=torch.int32, device=dev)  # scrap
+    idx[: n // 2] = 1024                                         # NULL slot
+    yield "null_and_scrap_slots", idx, ints(-128, 128, (8, n), torch.int8), \
+        None, LO, HI
+    yield "ragged_n", ints(0, 1026, (n - 12345,)), \
+        ints(-128, 128, (8, n - 12345), torch.int8), None, LO, HI
+    yield "one_row", ints(0, 1026, (1,)), ints(-128, 128, (3, 1), torch.int8), \
+        floats((1, 1)), 32, 40
+    hot = (1 << 24) + 777
+    extremes = torch.tensor([-128, 127], dtype=torch.int8,
+                            device=dev)[ints(0, 2, (hot,)).long()]
+    yield "hot_slot_int8_extremes", \
+        torch.zeros(hot, dtype=torch.int32, device=dev), \
+        torch.stack([torch.full((hot,), -128, dtype=torch.int8, device=dev),
+                     extremes]), None, 32, 40
+
+
+# the Pallas prototypes' shapes: rows, HI, LO, numpy seed of their data
+PROTOTYPES = {"prof_pallas": (1 << 23, 32, 32, 0),
+              "prof_pl": (100 << 20, 40, 32, 7)}
+
+
+def prototype_inputs(name: str, dev):
+    """A Pallas prototype's own shape and data, as (idx, L8, LO, HI, k, v):
+    ``prof/prof_pallas.py`` (planes [mask, mask, b0, b1]) or
+    ``prof/prof_pl.py`` (planes [mask, b0, b1]; idx = k), with k uniform
+    over 1024 slots and v over [-1000, 1000)."""
+    N, HI, LO, seed = PROTOTYPES[name]
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1024, N).astype(np.int32)
+    v = rng.integers(-1000, 1000, N).astype(np.int32)
+    kt = torch.from_numpy(k).to(dev)
+    biased = torch.from_numpy(v).to(dev) + (1 << 15)
+    mask = torch.ones(N, dtype=torch.int8, device=dev)
+    b0 = ((biased & 0xFF) - 128).to(torch.int8)
+    b1 = (((biased >> 8) & 0xFF) - 128).to(torch.int8)
+    planes = [mask, mask, b0, b1] if name == "prof_pallas" \
+        else [mask, b0, b1]
+    return kt, torch.stack(planes), LO, HI, k, v
+
+
+def prototype_check(name: str, S8, LO: int, HI: int, k, v) -> None:
+    """The prototype's own check: count by bincount and the sum rebuilt
+    with its bias formula equal numpy's."""
+    P = S8.shape[1] // LO
+    S = S8.cpu().numpy().reshape(HI, P, LO).transpose(1, 0, 2) \
+        .reshape(P, HI * LO)[:, :1024]
+    want_cnt = np.bincount(k, minlength=1024)
+    want_sum = np.bincount(k, weights=v, minlength=1024).astype(np.int64)
+    if name == "prof_pallas":
+        ok = S[1]
+        cnt = S[0]
+        got_sum = (S[2] + 128 * ok) + 256 * (S[3] + 128 * ok) - (1 << 15) * ok
+    else:
+        cnt = S[0]
+        got_sum = S[1] + (S[2] << 8) + S[0] * (128 + (128 << 8) - (1 << 15))
+    assert np.array_equal(cnt, want_cnt), f"{name}: count differs"
+    assert np.array_equal(got_sum, want_sum), f"{name}: sum differs"
+    print(f"prototype {name}: count exact, sum exact", flush=True)
+
+
+def check_twolevel(dev) -> float:
+    worst = 0.0
+    for name, idx, L8, Lf, LO, HI in twolevel_cases(dev):
+        err = twolevel_err(idx, L8, Lf, LO, HI)
+        print(f"kernel twolevel {name}: max_abs_err={err} (int8 planes "
+              f"exact, float planes within {SF_TOL}·Σ|v|)", flush=True)
+        worst = max(worst, err)
+    for name in PROTOTYPES:
+        idx, L8, LO, HI, k, v = prototype_inputs(name, dev)
+        err = twolevel_err(idx, L8, None, LO, HI)
+        from tikv_tpu_torch.device import twolevel as tl
+        prototype_check(name, tl.twolevel(idx, L8, None, LO, HI)[0],
+                        LO, HI, k, v)
+        print(f"kernel twolevel {name} shape ({idx.shape[0]} rows): "
+              f"max_abs_err={err}", flush=True)
+        del idx, L8
+        gc.collect()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the aggregation path
+# ---------------------------------------------------------------------------
 
 def run_config(config: str, n: int, runner) -> dict:
     from tikv_tpu_torch.convert import dag_from_wire
     from tikv_tpu_torch.copr.wire import enc_dag
-    from tikv_tpu_torch.device import hash_agg as ha
     from tikv_tpu_torch.testing import configs as cf
 
-    build = cf.build_sparse_table if config == "4s" else cf.build_table
+    build, make = cf.CONFIGS[config]
     table, snap = build(n)
-    make = cf.dag_simple_agg if config == "3" else cf.dag_hash_agg
     dag = dag_from_wire(enc_dag(make(table)))
-    want = truth_rows(config, snap)
+    want, scales = cf.truth(config, snap)
 
-    ha.launches = 0
+    def agrees(rows) -> bool:
+        return cf.rows_agree(rows, want, scales, SF_TOL)
+
+    set_counts({k: 0 for k in KERNELS})
     t0 = time.perf_counter()
     rows = runner.handle_request(dag, snap).rows()
     cold = time.perf_counter() - t0
-    assert rows == want, f"config {config}: wrong answer on the cold request"
+    assert agrees(rows), f"config {config}: wrong answer on the cold request"
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
         rows = runner.handle_request(dag, snap).rows()
         warm.append(time.perf_counter() - t0)
-        assert rows == want, f"config {config}: wrong answer when warm"
-    launches = ha.launches
-    assert launches > 0, f"config {config} never launched hash_agg"
+        assert agrees(rows), f"config {config}: wrong answer when warm"
+    launches = counts()
+    for name in KERNELS:
+        if name == ROUTE[config]:
+            assert launches[name] > 0, f"config {config} never launched {name}"
+        else:
+            assert launches[name] == 0, f"config {config} launched {name}"
     p50 = float(np.percentile(warm, 50))
     out = {"config": config, "rows": n, "cold_ms": cold * 1e3,
            "warm_p50_ms": p50 * 1e3, "rows_per_s": n / p50,
            "launches": launches, "groups": len(want)}
-    note = " (4s at 2^24 rows: its extra cost is the host np.unique " \
-        "recode)" if config == "4s" else ""
     print(f"config {config}: " + " ".join(f"{k}={v}" for k, v in out.items()
-                                          if k != "config") + note,
-          flush=True)
+                                          if k != "config"), flush=True)
     profile_request(config, runner, dag, snap)
     del snap
     gc.collect()
@@ -195,11 +370,13 @@ def profile_request(config: str, runner, dag, snap) -> None:
     """One warm request under torch.profiler: device time by kernel and
     the device's idle share of the (profiled) request wall."""
     from torch.profiler import ProfilerActivity, profile
+    saved = counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.handle_request(dag, snap)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    set_counts(saved)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -210,14 +387,17 @@ def profile_request(config: str, runner, dag, snap) -> None:
               for e in top), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
 def main_path_inputs(config: str, n: int, dev) -> dict:
     """hash_agg's arguments exactly as the runner builds them for one
     config: the int32 feed planes, the slot layout and one lane per
     SUM/AVG (config 3's SUM(v) and AVG(v) are two lanes over one plane)."""
     from tikv_tpu_torch.device import hash_agg as ha
     from tikv_tpu_torch.testing import configs as cf
-    build = cf.build_sparse_table if config == "4s" else cf.build_table
-    _table, snap = build(n)
+    _table, snap = cf.CONFIGS[config][0](n)
     v = torch.from_numpy(snap.columns[3].values.astype(np.int32)).to(dev)
     kw = dict(n=n, device=dev)
     if config == "3":
@@ -235,33 +415,30 @@ def main_path_inputs(config: str, n: int, dev) -> dict:
     return kw
 
 
-def kernel_at_main_shapes(dev, sizes: dict) -> tuple:
-    """The kernel against its plain version (exact) and timed, at each
-    config's main-path shape; → (largest difference, config 4 timing)."""
+def kernel_at_main_shapes(dev) -> tuple:
+    """hash_agg against its plain version (exact) and timed, at each of
+    configs 3, 4 and 4s's main-path shapes; → (largest difference,
+    config 4 timing)."""
     from tikv_tpu_torch.device import hash_agg as ha
     worst, timing = 0, None
     for config in ("3", "4", "4s"):
-        n = sizes[config]
+        n = SIZES[config]
         kw = main_path_inputs(config, n, dev)
-        saved = ha.launches
+        saved = counts()
         err = max_abs_diff(ha.hash_agg(**kw), ha.hash_agg_plain(**kw))
         assert err == 0, f"hash_agg disagrees with its plain version " \
             f"at config {config}'s shape"
         worst = max(worst, err)
         ms = cuda_ms(lambda: ha.hash_agg(**kw), 20)
-        ha.launches = saved             # measurement launches do not count
+        set_counts(saved)               # measurement launches do not count
         plain_ms = cuda_ms(lambda: ha.hash_agg_plain(**kw), 3)
         # inputs read once (config 3's two lanes share one plane), states
         # written once; ops: slot, count add, one add per lane
         planes = 1 if config == "3" else 2
         lanes = len(kw["lanes"])
-        bytes_moved = 4 * n * planes + 8 * kw["slots"] * (1 + lanes)
-        ops = n * (2 + lanes)
-        b_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        b_ops = ops / SCALAR_OPS_PER_S * 1e3
         out = {"ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(b_bytes, b_ops),
-               "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+               **bound_ms(4 * n * planes + 8 * kw["slots"] * (1 + lanes),
+                          n * (2 + lanes))}
         # yardstick only (the port never calls it): one library call over
         # the same values: an int64 sum (config 3; its COUNT is n), or a
         # scatter-add into the 1026 int64 slots by key or slot id
@@ -285,12 +462,85 @@ def kernel_at_main_shapes(dev, sizes: dict) -> tuple:
     return worst, timing
 
 
+def captured_twolevel_inputs(config: str, runner) -> tuple:
+    """twolevel's arguments exactly as the runner passes them on one
+    request of ``config`` (recorded around the call; not counted)."""
+    import tikv_tpu_torch.device.runner as rmod
+    from tikv_tpu_torch.testing import configs as cf
+    build, make = cf.CONFIGS[config]
+    table, snap = build(SIZES[config])
+    seen = []
+    real = rmod.twolevel
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    saved = counts()
+    rmod.twolevel = record
+    try:
+        runner.handle_request(make(table), snap)
+    finally:
+        rmod.twolevel = real
+        set_counts(saved)
+    return seen[0]
+
+
+def time_twolevel(label: str, idx, L8, Lf, LO, HI, dev) -> dict:
+    """twolevel against its plain version and timed at one shape."""
+    from tikv_tpu_torch.device import twolevel as tl
+    saved = counts()
+    err = twolevel_err(idx, L8, Lf, LO, HI)
+    ms = cuda_ms(lambda: tl.twolevel(idx, L8, Lf, LO, HI), 10)
+    set_counts(saved)
+    plain_ms = cuda_ms(lambda: tl.twolevel_plain(idx, L8, Lf, LO, HI), 2)
+    n, p8 = idx.shape[0], L8.shape[0]
+    pf = 0 if Lf is None else Lf.shape[0]
+    # bytes: slot id, p8 int8 and pf float32 values per row read once, the
+    # int64/float64 states written once; ops: one add per plane and row
+    out = {"ms": ms, "plain_ms": plain_ms,
+           **bound_ms(n * (4 + p8 + 4 * pf) + 8 * HI * LO * (p8 + pf),
+                      n * (p8 + pf))}
+    # yardstick only (the port never calls it): one index_add_ of the
+    # stacked int64 planes into (p8, slots) along dim 1
+    idx64, L64 = idx.to(torch.int64), L8.to(torch.int64)
+    out["library_ms"] = cuda_ms(lambda: torch.zeros(
+        p8, HI * LO, dtype=torch.int64, device=dev).index_add_(
+            1, idx64, L64), 5)
+    del idx64, L64
+    out["max_abs_err"] = err
+    print(f"kernel twolevel at {label} ({n} rows, p8={p8} pf={pf} LO={LO} "
+          f"HI={HI}, table_bytes={tl.table_bytes(p8, pf, LO, HI)}): " +
+          " ".join(f"{k}={v}" for k, v in out.items()), flush=True)
+    return out
+
+
+def twolevel_at_main_shapes(runner, dev) -> tuple:
+    """→ (largest difference, config 4n timing)."""
+    worst, timing = 0.0, None
+    for config in ("4n", "4w", "4r"):
+        args = captured_twolevel_inputs(config, runner)
+        out = time_twolevel(f"config {config} shape", *args, dev)
+        worst = max(worst, out["max_abs_err"])
+        if config == "4n":
+            timing = out
+        del args
+        gc.collect()
+    for name in PROTOTYPES:
+        idx, L8, LO, HI, _k, _v = prototype_inputs(name, dev)
+        out = time_twolevel(f"{name} shape", idx, L8, None, LO, HI, dev)
+        worst = max(worst, out["max_abs_err"])
+        del idx, L8
+        gc.collect()
+    return worst, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tikv_tpu_torch.device import DeviceRunner, build
+    from tikv_tpu_torch.device import DeviceRunner
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -299,28 +549,33 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-
-    t0 = time.perf_counter()
-    log = build.build("hash_agg")
-    print(f"build: hash_agg in {time.perf_counter() - t0:.3f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"ptxas hash_agg: {line.strip()}", flush=True)
+    build_kernels()
 
     dev = torch.device("cuda", 0)
-    sizes = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24}
-    worst = check_kernels(dev, 1 << 24)
+    worst = {"hash_agg": check_kernels(dev, 1 << 24),
+             "twolevel": check_twolevel(dev)}
 
     runner = DeviceRunner()
-    runs = [run_config(c, sizes[c], runner) for c in ("3", "4", "4s")]
-    launches = sum(r["launches"] for r in runs)
-    err, timing = kernel_at_main_shapes(dev, sizes)
-    worst = max(worst, err)
+    runs = [run_config(c, SIZES[c], runner) for c in SIZES]
+    launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+    err, hash_timing = kernel_at_main_shapes(dev)
+    worst["hash_agg"] = max(worst["hash_agg"], err)
+    err, two_timing = twolevel_at_main_shapes(runner, dev)
+    worst["twolevel"] = max(worst["twolevel"], err)
+    two_timing.pop("max_abs_err")
 
-    kernels = [{"name": "hash_agg", "route": "cuda",
-                "source": "tikv_tpu_torch/csrc/hash_agg.cu",
-                "replaces": "tikv_tpu/device/pallas_hash.py:199",
-                "launches": launches, "max_abs_err": worst, **timing}]
+    kernels = [
+        {"name": "hash_agg", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/hash_agg.cu",
+         "replaces": "tikv_tpu/device/pallas_hash.py:199",
+         "launches": launches["hash_agg"], "max_abs_err": worst["hash_agg"],
+         **hash_timing},
+        {"name": "twolevel", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/twolevel.cu",
+         "replaces": "prof/prof_pl.py:44, prof/prof_pl2.py:43, "
+                     "prof/prof_pallas.py:92 and :147",
+         "launches": launches["twolevel"], "max_abs_err": worst["twolevel"],
+         **two_timing}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@ equal where valid, validity and dtypes identical — exactly, since the
 inputs are small integers and quarter-step floats whose float32 results
 are exact on both sides.  ``wide_const`` puts an int64 constant beside an
 int32 column, where torch's weak 0-d scalars would otherwise wrap it.
+
+One exception: the float32 transcendental functions of the math family
+(``LIBM``) come from two libm implementations (XLA's and torch's), which
+round some results differently; on the device path they must agree within
+4 ulp.  The float64 host path stays exact.
 """
 
 import numpy as np
@@ -28,6 +33,8 @@ from tikv_tpu_torch.datatype import EvalType as PortEvalType
 
 N = 257
 WIDE = 2**40 + 3
+LIBM = {"Exp", "Ln", "Log2", "Log10", "Sin", "Cos", "Tan", "Cot", "Asin",
+        "Acos", "Atan1Arg", "Atan2Args", "Pow"}
 
 
 def _variants():
@@ -96,4 +103,7 @@ def test_function_matches_reference(sig, variant):
     assert got[0].dtype == want[0].dtype
     np.testing.assert_array_equal(got[1], want[1])
     valid = want[1]
-    np.testing.assert_array_equal(got[0][valid], want[0][valid])
+    if sig in LIBM and variant == "device":
+        np.testing.assert_array_max_ulp(got[0][valid], want[0][valid], 4)
+    else:
+        np.testing.assert_array_equal(got[0][valid], want[0][valid])

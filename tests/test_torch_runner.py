@@ -5,9 +5,13 @@ The same seeded ``ColumnarTable`` (exported as arrays) and the same
 wire-encoded DAG go to the reference runner on one CPU device and, through
 ``tikv_tpu_torch.convert``, to the port's ``DeviceRunner(device="cpu")``.
 Groups come out in ascending key order on both sides, so ``rows()`` must
-be equal as lists — exactly: every state is an integer and AVG is the same
-``float(sum) / count`` on both sides.
+be equal as lists — exactly where every state is an integer (AVG and the
+variance kinds are then the same float64 formula of the same states on
+both sides).  REAL sums are compared within a stated tolerance: the
+reference sums each tile in float32, the port in float64.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -24,8 +28,12 @@ from tikv_tpu.server import wire
 from tikv_tpu.testing.dag import DagSelect
 from tikv_tpu.testing.fixture import Table, TableColumn
 
+from tikv_tpu.expr import Expr
+
 from tikv_tpu_torch import convert
+from tikv_tpu_torch.copr import wire as port_wire
 from tikv_tpu_torch.device import hash_agg as ha
+from tikv_tpu_torch.device import twolevel as tl
 from tikv_tpu_torch.device.runner import DeviceRunner
 from tikv_tpu_torch.testing import configs
 
@@ -255,57 +263,64 @@ def test_warm_request_reuses_the_feed(port):
 
 
 def test_sum_over_nulls_is_refused(ref, port):
-    """NULLs in a kernel input are outside the kernel's gate
-    (pallas_hash.py:193-195); the reference serves them on its XLA path,
-    the port raises until that path is ported."""
+    """NULLs in a kernel input are outside the fused kernel's gate
+    (pallas_hash.py:193-195).  The reference serves them on its two-level
+    route, and so does the port now: the answers agree with the truth."""
     table, snap, k, v, v_valid = table_kv(N, seed=13, nullable_v=True)
     s = DagSelect.from_table(table, ["id", "k", "v"])
     dag = s.aggregate([s.col("k")], [("sum", s.col("v"))]).build()
-    want = ref.handle_request(dag, snap).rows()
     rows = []
     for key in np.unique(k):
         sel = (k == key) & v_valid
         rows.append((int(v[sel].sum()), int(key)))
-    assert want == rows
     pdag = convert.dag_from_wire(wire.enc_dag(dag))
     assert port.supports(pdag)
-    with pytest.raises(NotImplementedError, match="NULLs.*ROADMAP"):
-        port.handle_request(pdag, port_snapshot(table, snap))
+    before = tl.launches
+    want, got = run_both(ref, port, dag, snap)
+    assert want == rows
+    assert got == want
+    assert tl.launches == before        # the plain version, on the CPU
 
 
 @pytest.mark.parametrize("kind", ["min", "max"])
 def test_min_max_plans_are_refused(kind, ref, port):
+    """MIN and MAX, once refused, are served on the scatter route and
+    agree with the reference's scatter body and the truth exactly."""
     table, snap, k, v, _ = table_kv(1000, seed=14)
     s = DagSelect.from_table(table, ["id", "k", "v"])
     dag = s.aggregate([s.col("k")], [(kind, s.col("v"))]).build()
     assert ref.supports(dag)
-    pdag = convert.dag_from_wire(wire.enc_dag(dag))
-    assert not port.supports(pdag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.handle_request(pdag, port_snapshot(table, snap))
+    assert port.supports(convert.dag_from_wire(wire.enc_dag(dag)))
+    pick = np.min if kind == "min" else np.max
+    truth = [(int(pick(v[k == key])), int(key)) for key in np.unique(k)]
+    want, got = run_both(ref, port, dag, snap)
+    assert want == truth
+    assert got == want
 
 
-def test_too_many_slots_and_int64_sums_are_refused(port):
-    """5000 distinct keys need more than 4096 slots even dictionary-encoded,
-    and an argument that evaluates to int64 is outside the int32 kernel."""
+def test_too_many_slots_and_int64_sums_are_refused(ref, port):
+    """5000 distinct keys need more than the fused kernel's 4096 slots,
+    and ``v + 2**40`` evaluates to int64: both, once refused, are served
+    (the two-level route, 8-byte planes) and agree with the truth."""
     table, snap, k, v, _ = table_kv(20_000, seed=15, groups=5000)
-    psnap = port_snapshot(table, snap)
     s = DagSelect.from_table(table, ["id", "k", "v"])
-    dag = convert.dag_from_wire(wire.enc_dag(s.aggregate(
-        [s.col("k")], [("count_star", None)]).build()))
-    with pytest.raises(NotImplementedError, match="slots"):
-        port.handle_request(dag, psnap)
+    dag = s.aggregate([s.col("k")], [("count_star", None)]).build()
+    keys, counts = np.unique(k, return_counts=True)
+    want, got = run_both(ref, port, dag, snap)
+    assert want == [(int(c), int(key)) for key, c in zip(keys, counts)]
+    assert got == want
     s = DagSelect.from_table(table, ["id", "k", "v"])
-    dag = convert.dag_from_wire(wire.enc_dag(s.aggregate(
-        [], [("sum", s.col("v") + 2**40)]).build()))
-    with pytest.raises(NotImplementedError, match="int64"):
-        port.handle_request(dag, psnap)
+    dag = s.aggregate([], [("sum", s.col("v") + 2**40)]).build()
+    want, got = run_both(ref, port, dag, snap)
+    assert want == [(int(v.sum()) + len(v) * 2**40,)]
+    assert got == want
 
 
 def test_reference_device_truncates_int64_group_sums(ref, port):
     """ROADMAP.md queue 3, fault 3: the reference's device GROUP BY sums an
     int64 argument as its int32 wraparound, while its host pipeline returns
-    the true sums.  The port refuses the plan rather than truncate."""
+    the true sums.  The port sizes the byte planes from the evaluated
+    dtype and returns the host pipeline's true sums."""
     table, snap, k, v, _ = table_kv(1000, seed=18, groups=10)
     s = DagSelect.from_table(table, ["id", "k", "v"])
     dag = s.aggregate([s.col("k")], [("sum", s.col("k") + 2**40)]).build()
@@ -315,24 +330,238 @@ def test_reference_device_truncates_int64_group_sums(ref, port):
     host = BatchExecutorsRunner(dag, snap).handle_request().rows()
     assert sorted(host, key=lambda r: r[-1]) == truth
     # (key + 2**40) wraps to key in int32
-    assert ref.handle_request(dag, snap).rows() == [
-        (int(c) * int(key), int(key)) for key, c in zip(keys, counts)]
-    with pytest.raises(NotImplementedError, match="int64"):
-        port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
-                            port_snapshot(table, snap))
+    want, got = run_both(ref, port, dag, snap)
+    assert want == [(int(c) * int(key), int(key))
+                    for key, c in zip(keys, counts)]
+    assert got == truth
+
+
+def test_reference_device_cannot_split_eight_byte_values(ref, port):
+    """ROADMAP.md queue 3, fault 4: an int64 column whose values pass
+    ±2^31 needs 8 byte planes; the reference's ``make_planes`` adds
+    ``1 << 63`` in int64 and raises OverflowError.  The port flips the
+    sign bit instead and returns the exact sums."""
+    table, snap, k, v, _ = table_kv(3000, seed=19, groups=10)
+    big = np.random.default_rng(19).integers(-(1 << 50), 1 << 50, 3000)
+    snap.columns[3] = Column(EvalType.INT, big, np.ones(3000, np.bool_))
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    dag = s.aggregate([s.col("k")], [("sum", s.col("v")),
+                                     ("avg", s.col("v"))]).build()
+    sums = [(int(big[k == key].sum()), int(key)) for key in np.unique(k)]
+    host = BatchExecutorsRunner(dag, snap).handle_request().rows()
+    assert sorted(((r[0], r[2]) for r in host), key=lambda r: r[1]) == sums
+    truth = [(s, float(s) / int((k == key).sum()), key) for s, key in sums]
+    with pytest.raises(OverflowError):
+        ref.handle_request(dag, snap)
+    got = port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
+                              port_snapshot(table, snap)).rows()
+    assert got == truth
+
+
+@pytest.mark.parametrize("plan", ["bit_and", "first_group_by",
+                                  "two_keys"])
+def test_host_pipeline_plans_are_refused(plan, ref, port):
+    """What the reference sends to its host pipeline, the port refuses
+    with the ROADMAP item that will serve it."""
+    table, snap, k, v, _ = table_kv(1000, seed=22)
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    if plan == "bit_and":
+        dag = s.aggregate([s.col("k")], [("bit_and", s.col("v"))]).build()
+    elif plan == "first_group_by":
+        dag = s.aggregate([s.col("k")], [("first", s.col("v"))]).build()
+    else:
+        dag = s.aggregate([s.col("k"), s.col("v")],
+                          [("count_star", None)]).build()
+    assert not ref.supports(dag)
+    pdag = convert.dag_from_wire(wire.enc_dag(dag))
+    assert not port.supports(pdag)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+        port.handle_request(pdag, port_snapshot(table, snap))
+
+
+def test_more_distinct_keys_than_the_device_holds_are_refused(port):
+    """A key span beyond 2^20 with more than 2^20 distinct keys: the
+    reference falls back to its host pipeline, the port refuses."""
+    n = (1 << 20) + 7
+    table, snap, k, v, _ = table_kv(n, seed=23)
+    snap.columns[2] = Column(EvalType.INT, np.arange(n, dtype=np.int64) * 3,
+                             np.ones(n, np.bool_))
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    dag = convert.dag_from_wire(wire.enc_dag(s.aggregate(
+        [s.col("k")], [("count_star", None)]).build()))
+    with pytest.raises(NotImplementedError, match="distinct GROUP BY keys"):
+        port.handle_request(dag, port_snapshot(table, snap))
+
+
+# ---------------------------------------------------------------------------
+# the configurations of the slices, at small size
+# ---------------------------------------------------------------------------
+
+CONFIG_ROWS = 40_000
+
+
+def ref_config(name, n=CONFIG_ROWS):
+    """The reference's (table, snapshot, DAG) of a port configuration:
+    ``bench.py``'s arrays, with the port builders' NULL mask for 4n/3n,
+    and the port's plan decoded by the reference's wire codec."""
+    groups = configs.WIDE_GROUPS if name == "4w" else configs.GROUPS
+    if name == "4s":
+        table, snap = bench.build_sparse_table(n, groups)
+    else:
+        table, snap = bench.build_table(n, groups, real_v=name == "4r")
+    if name in ("4n", "3n"):
+        valid = np.random.default_rng(7 + 2).random(n) >= configs.NULL_SHARE
+        v = snap.columns[3]
+        snap.columns[3] = Column(v.eval_type, np.where(valid, v.values, 0),
+                                 valid)
+    pdag = configs.CONFIGS[name][1](configs.bench_table(name == "4r"))
+    dag = wire.dec_dag(port_wire.enc_dag(pdag))
+    return table, snap, dag
+
+
+@pytest.mark.parametrize("name", sorted(configs.CONFIGS))
+def test_config_matches_reference_and_truth(name, ref, port):
+    """Each configuration at small size: the port equals the numpy truth
+    (exactly for integer and MIN/MAX results, within 1e-9 of each cell's
+    error scale for REAL sums and variances) and the reference runner
+    (within 1e-6: the reference sums REAL tiles in float32)."""
+    table, snap, dag = ref_config(name)
+    psnap = port_snapshot(table, snap)
+    want = ref.handle_request(dag, snap).rows()
+    got = port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
+                              psnap).rows()
+    truth, scales = configs.truth(name, psnap)
+    assert configs.rows_agree(got, truth, scales, 1e-9)
+    assert configs.rows_agree(want, truth, scales, 1e-6)
+    assert configs.rows_agree(got, want, scales, 1e-6)
+
+
+def real_table(n, seed):
+    """(table, snapshot, k, r, r_valid): REAL ``r`` with NULLs, INT ``k``
+    with NULLs (a NULL group)."""
+    rng = np.random.default_rng(seed)
+    tid = 5300 + seed
+    table = Table(tid, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("k", 2, FieldType.long()),
+        TableColumn("r", 3, FieldType.double()),
+    ))
+    _TABLES[tid] = table
+    k = rng.integers(-20, 20, n).astype(np.int64)
+    k_valid = rng.random(n) > 0.05
+    r = rng.normal(0.0, 100.0, n).astype(np.float32).astype(np.float64)
+    r_valid = rng.random(n) > 0.1
+    snap = ColumnarTable.from_arrays(
+        table, np.arange(n, dtype=np.int64),
+        {"k": Column(EvalType.INT, np.where(k_valid, k, 0), k_valid),
+         "r": Column(EvalType.REAL, np.where(r_valid, r, 0.0), r_valid)})
+    return table, snap, k, r, r_valid
+
+
+def rows_close(got, want, scale):
+    """Equal rows; float cells within 1e-6·``scale`` (REAL sums: the
+    reference sums tiles in float32)."""
+    assert len(got) == len(want)
+    for g_row, w_row in zip(got, want):
+        assert len(g_row) == len(w_row)
+        for g, w in zip(g_row, w_row):
+            if isinstance(w, float) and g is not None:
+                assert abs(g - w) <= 1e-6 * scale, (g, w)
+            else:
+                assert g == w
+
+
+def real_plan(table, which):
+    s = DagSelect.from_table(table, ["id", "k", "r"])
+    r, k = s.col("r"), s.col("k")
+    zero, minus1 = Expr.const(0.0, EvalType.REAL), Expr.const(-1.0,
+                                                              EvalType.REAL)
+    plans = [
+        # REAL selection, scatter route
+        lambda: s.where(r > 10.5).aggregate(
+            [k], [("min", r), ("max", r), ("var_samp", r), ("count", r)]),
+        # REAL selection over a computed value, two-level route (f32 planes)
+        lambda: s.where((r * 2.0) < 50.0).aggregate(
+            [k], [("sum", r), ("avg", r), ("count_star", None)]),
+        # no GROUP BY: the simple body
+        lambda: s.where(r >= 0.0).aggregate(
+            [], [("sum", r), ("avg", r), ("min", r), ("first", r),
+                 ("stddev_pop", r)]),
+        # control and math signatures as REAL arguments
+        lambda: s.aggregate(
+            [k], [("sum", Expr.call("IfReal", r > 0.0, r, zero)),
+                  ("avg", Expr.call("Sqrt", Expr.call("AbsReal", r))),
+                  ("max", Expr.call("IfNullReal", r, minus1))]),
+        # control, cast and math signatures as INT arguments
+        lambda: s.aggregate(
+            [k], [("sum", Expr.call("IfInt", k > 0, k,
+                                    Expr.const(0, EvalType.INT))),
+                  ("avg", Expr.call("CastIntAsInt", k)),
+                  ("sum", Expr.call("CoalesceInt", k,
+                                    Expr.const(7, EvalType.INT))),
+                  ("min", Expr.call("TruncateInt", k * 123,
+                                    Expr.const(-1, EvalType.INT)))]),
+    ]
+    return plans[which]().build()
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_real_and_expression_plans_match_reference(which, ref, port):
+    """REAL selections and aggregates, a NULL group key, and the control,
+    cast and math signatures as aggregate arguments."""
+    table, snap, k, r, r_valid = real_table(20_000, seed=which)
+    dag = real_plan(table, which)
+    assert ref.supports(dag)
+    want, got = run_both(ref, port, dag, snap)
+    rows_close(got, want, np.abs(np.where(r_valid, r, 0.0)).sum())
+
+
+def test_sparse_keys_beyond_the_fused_slots(ref, port):
+    """Keys spread past 2^20 are dictionary-encoded; 6000 distinct keys
+    need more slots than the fused kernel holds, so the two-level route
+    (COUNT/SUM) and the scatter route (MIN/VAR) run on the slot ids."""
+    dom = np.sort(np.random.default_rng(21).choice(1 << 40, 6000,
+                                                   replace=False))
+    table, snap, k, v, v_valid = table_kv(30_000, seed=20, key_dom=dom,
+                                          groups=6000, nullable_v=True)
+    for aggs in ([("count_star", None), ("sum", "v")],
+                 [("min", "v"), ("var_pop", "v")]):
+        s = DagSelect.from_table(table, ["id", "k", "v"])
+        dag = s.aggregate([s.col("k")], [
+            (kd, None if c is None else s.col(c)) for kd, c in aggs]).build()
+        want, got = run_both(ref, port, dag, snap)
+        assert got == want
+        assert len(got) == len(np.unique(k))
 
 
 def test_port_builders_draw_the_benchmark_arrays():
     """The port's config builders reproduce bench.py's tables exactly."""
+    real = functools.partial(bench.build_table, real_v=True)
     for port_build, ref_build in (
             (configs.build_table, bench.build_table),
-            (configs.build_sparse_table, bench.build_sparse_table)):
-        _pt, psnap = port_build(5000, 1024)
+            (configs.build_sparse_table, bench.build_sparse_table),
+            (configs.CONFIGS["4w"][0], lambda n, g: bench.build_table(
+                n, configs.WIDE_GROUPS)),
+            (configs.CONFIGS["4r"][0], lambda n, g: real(n, g))):
+        _pt, psnap = port_build(5000) if port_build in (
+            configs.CONFIGS["4w"][0], configs.CONFIGS["4r"][0]) \
+            else port_build(5000, 1024)
         _rt, rsnap = ref_build(5000, 1024)
         np.testing.assert_array_equal(psnap.handles, rsnap.handles)
         for cid in (2, 3):
             np.testing.assert_array_equal(psnap.columns[cid].values,
                                           rsnap.columns[cid].values)
+            assert psnap.columns[cid].eval_type.value == \
+                rsnap.columns[cid].eval_type.value
+    # the NULL-bearing configs: config 4's arrays under the seeded mask
+    _pt, psnap = configs.build_null_table(5000)
+    _rt, rsnap, _dag = ref_config("4n", 5000)
+    for cid in (2, 3):
+        np.testing.assert_array_equal(psnap.columns[cid].values,
+                                      rsnap.columns[cid].values)
+        np.testing.assert_array_equal(psnap.columns[cid].validity,
+                                      rsnap.columns[cid].validity)
     assert configs.dag_hash_agg(configs.bench_table()).plan_key() == \
         bench._dag_hash_agg(bench.build_table(10, 4)[0]).plan_key()
     assert configs.dag_simple_agg(configs.bench_table()).plan_key() == \

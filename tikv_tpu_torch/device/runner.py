@@ -2,25 +2,39 @@
 
 Counterpart of the JAX package's ``device/runner.py`` ``DeviceRunner``,
 reduced to its single-device, synchronous aggregation path.  A DAG
-request of the form TableScan → Selection* → Aggregation (COUNT/SUM/AVG,
-at most one INT GROUP BY key) over a columnar snapshot runs as:
+request of the form TableScan → Selection* → Aggregation (COUNT, SUM,
+AVG, MIN, MAX, FIRST, VAR_POP/VAR_SAMP/STDDEV_POP/STDDEV_SAMP, at most one
+INT GROUP BY key) over a columnar snapshot runs as:
 
 - the used columns are uploaded once per snapshot as a padded feed that
   stays on the device (``_pad_rows``/``_build_flat``, the reference's
-  feed buckets, so feed shapes line up with the reference);
+  feed buckets, so feed shapes line up with the reference); INT columns
+  are int32 when their values fit, else int64, REAL columns float32;
 - the selection predicates and any computed key/argument expressions
   are evaluated by ``eval_rpn`` over torch tensors on the device;
-- one ``hash_agg`` pass (the CUDA kernel, ``csrc/hash_agg.cu``) turns
-  every live row into its slot's int64 states, in ``simple``, ``dense``
-  or ``sparse`` mode (host dictionary-encoded keys, cached per snapshot);
-- the states come back in one transfer and the host finalizes them.
+- the rows are folded into per-slot states by the first route that
+  takes the plan and its data, in the reference's order
+  (``_run_simple``/``_run_hash``):
 
-Cases outside this slice are refused, never served elsewhere: plans
-(``supports`` is False; ``handle_request`` raises NotImplementedError) and
-data outside the kernel's gate (NULLs or int64 values in a kernel input,
-more than ``hash_agg.MAX_SLOTS`` slots; ``handle_request`` raises
-NotImplementedError).  Each refusal names the ROADMAP.md item that will
-serve it.  An empty scan gets the finalize of empty states.
+  1. ``hash_agg`` (the CUDA kernel ``csrc/hash_agg.cu``): COUNT/SUM/AVG
+     inside its gate — int32 non-NULL inputs, int32 arguments, at most
+     ``hash_agg.MAX_SLOTS`` slots;
+  2. the two-level route (GROUP BY only): COUNT/SUM/AVG outside that
+     gate.  The arguments become int8 byte planes and float32 planes
+     (``kernels.make_planes``) and ``twolevel`` (the CUDA kernel
+     ``csrc/twolevel.cu``) contracts them into per-slot sums;
+  3. the scatter route (GROUP BY) and the simple body (no GROUP BY):
+     every other plan, as composed torch ops (``ops/agg.py``);
+- GROUP BY keys index their slots directly while the key span is at most
+  ``MAX_HASH_CAPACITY``; wider spans are dictionary-encoded on the host
+  once per snapshot (``_sparse_slots``);
+- the states come back to the host, which finalizes them.
+
+Cases outside this port are refused, never served elsewhere: plans
+(``supports`` is False; ``handle_request`` raises NotImplementedError)
+and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY keys (the reference
+sends those to its host pipeline).  Each refusal names the ROADMAP.md item
+that will serve it.  An empty scan gets the finalize of empty states.
 """
 
 from __future__ import annotations
@@ -38,17 +52,29 @@ from ..datatype import Column, ColumnBatch, EvalType, FieldType
 from ..datatype.tile import _device_dtype
 from ..executors.result import SelectResult, _agg_ret_ft
 from ..expr import FUNCTIONS, build_rpn, eval_rpn
+from ..expr.eval import _TORCH_DTYPES
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
-from ..ops.agg import AggSpec, finalize_hash, finalize_simple
+from ..ops.agg import (_BIG, AggSpec, finalize_hash, finalize_simple,
+                       hash_agg_tile, simple_agg_tile)
 from . import hash_agg as ha
+from . import kernels as kn
 from . import resolve_device
+from .twolevel import twolevel
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
-_SLICE_AGGS = ("count", "count_star", "sum", "avg")
+# the reference's device aggregate set (runner.py:1401-1407)
+_DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
+                "var_pop", "var_samp", "stddev_pop", "stddev_samp")
 
-# where each case outside this slice is to be served (ROADMAP.md, queue 1)
+# widest dense GROUP BY key span (the reference's max_hash_capacity,
+# runner.py:632); beyond it the keys are dictionary-encoded
+MAX_HASH_CAPACITY = 1 << 20
+
+# where each case outside this port is to be served (ROADMAP.md, queue 1)
 _TODO_EXPR = "ROADMAP.md queue 1 item 2 (device expression families)"
-_TODO_AGG = "ROADMAP.md queue 1 item 3 (aggregation outside the kernel gate)"
+_TODO_AGG = ("ROADMAP.md queue 1 item 3 (bit aggregates, multi-key GROUP "
+             "BY, FIRST with GROUP BY and over 2^20 distinct keys: the "
+             "reference's host pipeline)")
 _TODO_ROUTES = ("ROADMAP.md queue 1 item 5 (selection, top-k and "
                 "index-scan routes)")
 _TODO_STORAGE = "ROADMAP.md queue 1 item 6 (production read path)"
@@ -101,6 +127,26 @@ def _bare_col(rpn: Optional[RpnExpression]) -> Optional[int]:
     return None
 
 
+def _to_host(dicts: list) -> list:
+    """Dicts of device tensors → dicts of numpy arrays, in one transfer
+    per class: integers and bools as int64, floats as float64 (exact for
+    the int32/float32 values MIN/MAX/FIRST keep)."""
+    flat = [(i, k, t) for i, d in enumerate(dicts) for k, t in d.items()]
+    out: list = [{} for _ in dicts]
+    for is_float in (False, True):
+        part = [x for x in flat if x[2].is_floating_point() == is_float]
+        if not part:
+            continue
+        dt = torch.float64 if is_float else torch.int64
+        host = torch.cat([t.reshape(-1).to(dt) for _i, _k, t in part]) \
+            .cpu().numpy()
+        at = 0
+        for i, k, t in part:
+            out[i][k] = host[at:at + t.numel()].reshape(t.shape)
+            at += t.numel()
+    return out
+
+
 @dataclass
 class _Plan:
     """Analyzed plan (rpns remapped onto ``used_cols`` positions)."""
@@ -115,7 +161,7 @@ class _Plan:
 
 
 class DeviceRunner:
-    """Executes the slice's aggregation plans on one device.
+    """Executes the port's aggregation plans on one device.
 
     ``device``: ``None`` (``cuda:0``), a CUDA device, or ``"cpu"`` — the
     plain PyTorch version of every kernel, which the tests use.  Without
@@ -167,8 +213,10 @@ class DeviceRunner:
         if len(terminal.group_by) > 1:
             return None, f"multi-key GROUP BY: {_TODO_AGG}"
         for a in terminal.aggs:
-            if a.kind not in _SLICE_AGGS:
+            if a.kind not in _DEVICE_AGGS:
                 return None, f"{a.kind.upper()} aggregate: {_TODO_AGG}"
+            if a.kind == "first" and terminal.group_by:
+                return None, f"FIRST with GROUP BY: {_TODO_AGG}"
         exprs = sel_exprs + [a.arg for a in terminal.aggs
                              if a.arg is not None] + list(terminal.group_by)
         unknown = set().union(*map(_expr_sigs, exprs)) - set(FUNCTIONS) \
@@ -184,8 +232,6 @@ class DeviceRunner:
                 specs.append(AggSpec(a.kind, i))
                 continue
             r = build_rpn(a.arg)
-            if a.kind in ("sum", "avg") and r.ret_type is EvalType.REAL:
-                return None, f"{a.kind.upper()} over REAL: {_TODO_AGG}"
             agg_rpns.append(r)
             specs.append(AggSpec(a.kind, i, r.ret_type))
         key_rpn = None
@@ -193,17 +239,11 @@ class DeviceRunner:
             key_rpn = build_rpn(terminal.group_by[0])
             if key_rpn.ret_type is not EvalType.INT:
                 return None, f"non-INT GROUP BY key: {_TODO_AGG}"
-        inputs = sel_rpns + [r for r in agg_rpns if r is not None]
-        rpns = inputs + ([key_rpn] if key_rpn is not None else [])
+        rpns = sel_rpns + [r for r in agg_rpns if r is not None] + \
+            ([key_rpn] if key_rpn is not None else [])
         for r in rpns:
             if not _rpn_device_safe(r, scan_ets):
-                return None, f"non-numeric column or constant: {_TODO_AGG}"
-        # selection and aggregate inputs are always kernel inputs, and a
-        # REAL column is never int32 on the device
-        for r in inputs:
-            if any(scan_ets[i] is not EvalType.INT
-                   for i in _rpn_col_indices(r)):
-                return None, f"REAL column as a kernel input: {_TODO_AGG}"
+                return None, f"non-numeric column or constant: {_TODO_EXPR}"
 
         used = sorted(set().union(*map(_rpn_col_indices, rpns))) \
             if rpns else []
@@ -327,11 +367,15 @@ class DeviceRunner:
         feed = st["feeds"].get(feed_key)
         if feed is None:
             feed = st["feeds"][feed_key] = self._build_flat(host_cols(), n)
+        if "arg_nbytes" not in meta:
+            meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols, dtypes)
+        arg_nbytes = meta["arg_nbytes"]
 
         if plan.kind == "simple_agg":
-            result = self._run_simple(plan, feed, dtypes, n)
+            result = self._run_simple(plan, feed, dtypes, n, arg_nbytes)
         else:
-            result = self._run_hash(plan, host_cols, feed, dtypes, n, meta)
+            result = self._run_hash(plan, host_cols, feed, dtypes, n, meta,
+                                    arg_nbytes)
         return self._apply_output_offsets(dag, result)
 
     @staticmethod
@@ -343,24 +387,45 @@ class DeviceRunner:
                 [b.columns[i] for i in dag.output_offsets])
         return result
 
-    def _refuse_data(self, plan, feed, dtypes, capacity, mode):
-        """NotImplementedError naming the kernel-gate clause the data
-        fails (hash_agg.supported)."""
-        reasons = []
-        n_sl = ha.n_slots(plan, capacity, mode)
-        if n_sl > ha.MAX_SLOTS:
-            reasons.append(f"{n_sl} slots > {ha.MAX_SLOTS}")
-        for i in ha.kernel_col_ids(plan, mode):
-            ci = plan.scan.columns[plan.used_cols[i]]
-            if feed["null_flags"][i]:
-                reasons.append(f"column {ci.col_id} holds NULLs")
-            if dtypes[i] != "int32":
-                reasons.append(f"column {ci.col_id} is {dtypes[i]}")
-        raise NotImplementedError(
-            f"data outside the aggregation kernel's gate "
-            f"({'; '.join(reasons)}): {_TODO_AGG}")
+    # ------------------------------------------------------------- routing
 
-    # ---------------------------------------------------------- aggregate
+    @staticmethod
+    def _arg_nbytes(plan, host_cols, dtypes) -> tuple:
+        """Byte planes per SUM/AVG argument on the two-level route (0 for
+        REAL and for the other kinds).
+
+        The reference's ``_arg_nbytes`` (runner.py:4148) with its fault 3
+        repaired: a bare column takes the bytes of its value range, and a
+        computed argument the width of the dtype it evaluates to on the
+        device (8 for int64; the reference takes its input column's width
+        and truncates).  The dtype comes from evaluating the expression
+        over one row of zeros in the feed's dtypes, with the device's
+        typing rules."""
+        probe = [(torch.zeros(1, dtype=_TORCH_DTYPES[d]),
+                  torch.ones(1, dtype=torch.bool)) for d in dtypes]
+        out = []
+        for spec, r in zip(plan.specs, plan.agg_rpns):
+            if spec.kind not in ("sum", "avg") or r.ret_type is EvalType.REAL:
+                out.append(0)
+                continue
+            ci = _bare_col(r)
+            if ci is None:
+                out.append(eval_rpn(r, probe, 1, torch, "cpu")[0]
+                           .element_size())
+                continue
+            v = host_cols()[ci][0]
+            out.append(kn.int_planes_needed(int(v.min()), int(v.max()))
+                       if v.size else 1)
+        return tuple(out)
+
+    @staticmethod
+    def _fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes) -> bool:
+        """The ``hash_agg`` kernel's gate: COUNT/SUM/AVG only, its data
+        gate (``hash_agg.supported``), and SUM/AVG arguments that
+        evaluate to int32."""
+        return kn.matmul_supported(plan.specs) and \
+            ha.supported(plan, feed, dtypes, capacity, mode) and \
+            all(nb <= 4 for nb in arg_nbytes)
 
     def _arg_ok_is_mask(self, plan, feed) -> list:
         """Per-agg flag: the arg's validity provably equals the row mask
@@ -368,19 +433,35 @@ class DeviceRunner:
         return [ci is not None and not feed["null_flags"][ci]
                 for ci in map(_bare_col, plan.agg_rpns)]
 
-    def _aggregate(self, plan, feed, n, mode, base, capacity, slots, n_sl,
-                   slot_ids=None):
-        """One kernel pass → (present, states) as numpy, ops/agg layout."""
+    def _inputs(self, plan, feed, n):
+        """(per-column (value, validity) pairs over rows [0, n), the
+        selection mask or None when there is no selection)."""
         dev = self.device
-        planes = self._planes(feed)
         true = torch.ones((), dtype=torch.bool, device=dev)
-        pairs = [(v[:n], true if ok is None else ok[:n]) for v, ok in planes]
-
+        pairs = [(v[:n], true if ok is None else ok[:n])
+                 for v, ok in self._planes(feed)]
         mask = None
         for rpn in plan.sel_rpns:
             v, ok = eval_rpn(rpn, pairs, n, torch, dev)
             m = ok & (v != 0)
             mask = m if mask is None else mask & m
+        return pairs, mask
+
+    def _agg_cols(self, plan, pairs, n, mask) -> list:
+        """Per aggregate: its argument's (values, validity) — for
+        COUNT(*), (zeros, mask), as the reference's bodies build it."""
+        return [(torch.zeros(n, dtype=torch.int32, device=self.device), mask)
+                if r is None else eval_rpn(r, pairs, n, torch, self.device)
+                for r in plan.agg_rpns]
+
+    # ------------------------------------------- route 1: hash_agg kernel
+
+    def _aggregate(self, plan, feed, n, mode, base, capacity, slots, n_sl,
+                   slot_ids=None):
+        """One kernel pass → (present, states) as numpy, ops/agg layout."""
+        dev = self.device
+        planes = self._planes(feed)
+        pairs, mask = self._inputs(plan, feed, n)
         if mask is not None:
             mask = mask.contiguous()
 
@@ -412,12 +493,9 @@ class DeviceRunner:
             v, ok = eval_rpn(rpn, pairs, n, torch, dev)
             if spec.kind == "count":
                 lanes.append(ha.Lane(ok=ok.contiguous()))
-                continue
-            if v.dtype != torch.int32:
-                raise NotImplementedError(
-                    f"{spec.kind.upper()} argument evaluates to {v.dtype}, "
-                    f"the kernel sums int32: {_TODO_AGG}")
-            lanes.append(ha.Lane(values=v.contiguous(), ok=ok.contiguous()))
+            else:       # an int32 argument (the gate's arg_nbytes clause)
+                lanes.append(ha.Lane(values=v.contiguous(),
+                                     ok=ok.contiguous()))
 
         count, outs = ha.hash_agg(mode, n, slots, n_sl, key=key,
                                   key_ok=key_ok, base=base,
@@ -432,7 +510,7 @@ class DeviceRunner:
                    for pair in outs]
         return ha.states_from_lanes(plan.specs, lane_of, count_np, outs_np)
 
-    # -- simple agg --
+    # ------------------------------------------------------- simple agg
 
     def _simple_result(self, plan, merged) -> SelectResult:
         finals = finalize_simple(plan.specs, merged)
@@ -444,25 +522,32 @@ class DeviceRunner:
             cols.append(Column.from_list(ft.eval_type, [val]))
         return SelectResult(ColumnBatch(schema, cols))
 
-    def _run_simple(self, plan, feed, dtypes, n) -> SelectResult:
-        if not ha.supported(plan, feed, dtypes, 1, ha.MODE_SIMPLE):
-            self._refuse_data(plan, feed, dtypes, 1, ha.MODE_SIMPLE)
-        _present, states = self._aggregate(plan, feed, n, ha.MODE_SIMPLE,
-                                           0, 1, 1, 1)
-        merged = [{k: v[0] for k, v in s.items()} for s in states]
-        return self._simple_result(plan, merged)
+    def _run_simple(self, plan, feed, dtypes, n, arg_nbytes) -> SelectResult:
+        if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
+            _present, states = self._aggregate(plan, feed, n, ha.MODE_SIMPLE,
+                                               0, 1, 1, 1)
+            merged = [{k: v[0] for k, v in s.items()} for s in states]
+            return self._simple_result(plan, merged)
+        # the simple body (runner.py:2668): one masked reduction per state
+        pairs, mask = self._inputs(plan, feed, n)
+        if mask is None:
+            mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        cols = [(v, ok & mask)
+                for v, ok in self._agg_cols(plan, pairs, n, mask)]
+        states = simple_agg_tile(plan.specs, cols,
+                                 mask.sum(dtype=torch.int64))
+        return self._simple_result(plan, _to_host(states))
 
-    # -- hash agg --
+    # --------------------------------------------------------- hash agg
 
     def _sparse_slots(self, plan, host_cols, n, feed, meta):
         """Host recode of a sparse GROUP BY key into dense slot ids.
 
-        A sparse int64 key domain cannot direct-index into [0, capacity);
-        the distinct keys are dictionary-encoded once per snapshot on the
-        host (``np.unique``) and the int32 slot plane is cached on the
-        device next to the feed.  Returns (uniq, capacity, slot plane), or
-        (uniq, capacity, None) when the distinct keys need more slots than
-        the kernel holds.
+        A key span beyond ``MAX_HASH_CAPACITY`` cannot direct-index; the
+        distinct keys are dictionary-encoded once per snapshot on the host
+        (``np.unique``) and the int32 slot plane is cached on the device
+        next to the feed.  Returns (uniq, capacity, slot plane); raises
+        NotImplementedError beyond ``MAX_HASH_CAPACITY`` distinct keys.
         """
         if "sparse_slots" in meta:
             return meta["sparse_slots"]
@@ -471,17 +556,19 @@ class DeviceRunner:
         km = np.broadcast_to(km, (n,))
         valid = kv[km] if not km.all() else kv
         uniq, inv = np.unique(valid, return_inverse=True)
+        if len(uniq) > MAX_HASH_CAPACITY:
+            raise NotImplementedError(
+                f"{len(uniq)} distinct GROUP BY keys > {MAX_HASH_CAPACITY}: "
+                f"{_TODO_AGG}")
         capacity = max(1024, _next_pow2(len(uniq)))
-        slot_ids = None
-        if ha.n_slots(plan, capacity, ha.MODE_SPARSE) <= ha.MAX_SLOTS:
-            idx = np.full(n, capacity, np.int32)           # NULL slot
-            if km.all():
-                idx[:] = inv.astype(np.int32)
-            else:
-                idx[km] = inv.astype(np.int32)
-            padded = np.full(feed["n_pad"], capacity + 1, np.int32)
-            padded[:n] = idx                                # pad: scrap
-            slot_ids = torch.from_numpy(padded).to(self.device)
+        idx = np.full(n, capacity, np.int32)               # NULL slot
+        if km.all():
+            idx[:] = inv.astype(np.int32)
+        else:
+            idx[km] = inv.astype(np.int32)
+        padded = np.full(feed["n_pad"], capacity + 1, np.int32)
+        padded[:n] = idx                                    # pad: scrap
+        slot_ids = torch.from_numpy(padded).to(self.device)
         got = meta["sparse_slots"] = (uniq, capacity, slot_ids)
         return got
 
@@ -499,7 +586,7 @@ class DeviceRunner:
         cols.append(Column.from_list(EvalType.INT, keys))
         return SelectResult(ColumnBatch(schema, cols))
 
-    def _run_hash(self, plan, host_cols, feed, dtypes, n, meta):
+    def _run_hash(self, plan, host_cols, feed, dtypes, n, meta, arg_nbytes):
         if "hash_bounds" in meta:
             base, span = meta["hash_bounds"]
         else:
@@ -511,34 +598,113 @@ class DeviceRunner:
             else:
                 base, span = 0, 1
             meta["hash_bounds"] = (base, span)
-        # dense direct indexing while the key span fits the kernel's slots;
+        # dense direct indexing while the key span fits MAX_HASH_CAPACITY;
         # beyond that, host dictionary-encoded slot ids (sparse)
         slot_keys = slot_ids = None
-        capacity = max(1024, _next_pow2(span))
         mode = ha.MODE_DENSE
-        if ha.n_slots(plan, capacity, mode) > ha.MAX_SLOTS:
+        if span > MAX_HASH_CAPACITY:
             mode = ha.MODE_SPARSE
             slot_keys, capacity, slot_ids = self._sparse_slots(
                 plan, host_cols, n, feed, meta)
-        if not ha.supported(plan, feed, dtypes, capacity, mode):
-            self._refuse_data(plan, feed, dtypes, capacity, mode)
-        present, states = self._aggregate(
-            plan, feed, n, mode, base, capacity, capacity + 2,
-            ha.n_slots(plan, capacity, mode), slot_ids)
+        else:
+            capacity = max(1024, _next_pow2(span))
+        slots = capacity + 2
+
+        layouts = None
+        if kn.matmul_supported(plan.specs):
+            arg_is_real = [r is not None and r.ret_type is EvalType.REAL
+                           for r in plan.agg_rpns]
+            layouts, p8, pf = kn.build_layouts(
+                plan.specs, arg_is_real, arg_nbytes,
+                self._arg_ok_is_mask(plan, feed))
+        if self._fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes):
+            present, states = self._aggregate(
+                plan, feed, n, mode, base, capacity, slots,
+                ha.n_slots(plan, capacity, mode), slot_ids)
+        elif layouts is not None and kn.twolevel_lo(p8, pf) is not None:
+            present, states = self._run_twolevel(
+                plan, feed, n, base, capacity, slot_ids, layouts, p8, pf)
+        else:
+            present, states = self._run_scatter(plan, feed, n, base,
+                                                capacity, slot_ids)
         return self._hash_result(plan, {"present": present,
                                         "states": states},
                                  base, capacity, slot_keys)
+
+    def _slot_ids(self, plan, pairs, n, mask, base, capacity, slot_ids):
+        """(int32 slot per row, overflow flag | None): the sparse plane
+        under the mask, or the dense key's slot (``kernels.slot_index``)."""
+        if slot_ids is not None:
+            scrap = torch.full((), capacity + 1, dtype=torch.int32,
+                               device=self.device)
+            return torch.where(mask, slot_ids[:n], scrap), None
+        key_pair = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
+        return kn.slot_index(key_pair, capacity, base, mask)
+
+    @staticmethod
+    def _check_overflow(overflow) -> None:
+        # a live key outside [base, base + capacity): the bounds came from
+        # this snapshot's keys, so this is a fault, never data to drop
+        if overflow is not None and int(overflow):
+            raise AssertionError("hash agg key range overflow")
+
+    # -- route 2: the two-level contraction (runner.py:2743, :3816-3849)
+
+    def _run_twolevel(self, plan, feed, n, base, capacity, slot_ids,
+                      layouts, p8, pf):
+        slots = capacity + 2
+        pairs, mask = self._inputs(plan, feed, n)
+        if mask is None:
+            mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        cols = self._agg_cols(plan, pairs, n, mask)
+        idx, overflow = self._slot_ids(plan, pairs, n, mask, base, capacity,
+                                       slot_ids)
+        L8, Lf = kn.make_planes(layouts, plan.specs, cols, mask)
+        del cols
+        LO, HI = kn.twolevel_dims(slots, p8, pf)
+        S8p, Sfp = twolevel(idx.contiguous(), L8, Lf, LO, HI)
+        got = {"S8": S8p}
+        if Sfp is not None:
+            got["Sf"] = Sfp
+        if overflow is not None:
+            got["overflow"] = overflow
+        host, = _to_host([got])
+        self._check_overflow(host.get("overflow"))
+        S8 = kn.twolevel_unpack(host["S8"], p8, LO, slots)
+        Sf = kn.twolevel_unpack(host["Sf"], pf, LO, slots) if pf else None
+        return kn.states_from_matmul(layouts, plan.specs, S8, Sf)
+
+    # -- route 3: the scatter body (runner.py:2701)
+
+    def _run_scatter(self, plan, feed, n, base, capacity, slot_ids):
+        pairs, mask = self._inputs(plan, feed, n)
+        if mask is None:
+            mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        cols = self._agg_cols(plan, pairs, n, mask)
+        if slot_ids is not None:
+            key_pair, tile_base = None, ("precomp", slot_ids[:n])
+        else:
+            key_pair = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
+            tile_base = base
+        st = hash_agg_tile(plan.specs, key_pair, cols, capacity, tile_base,
+                           mask)
+        host = _to_host([{"present": st["present"],
+                          "overflow": st["overflow"]}] + st["states"])
+        self._check_overflow(host[0]["overflow"])
+        return host[0]["present"] != 0, host[1:]
 
     # -- empty scan --
 
     def _empty_result(self, plan) -> SelectResult:
         """The finalize of empty states — the reference's host answer for
-        a scan that covers no row."""
+        a scan that covers no row (every aggregate NULL, COUNT 0)."""
         if plan.kind == "simple_agg":
-            empty = {"count": 0, "sum": 0, "nonnull": 0}
+            empty = {"count": 0, "sum": 0, "nonnull": 0, "min": 0, "max": 0,
+                     "pos": _BIG, "value": 0, "sumsq": 0.0}
             return self._simple_result(plan, [empty] * len(plan.specs))
         zero = np.zeros(2, np.int64)        # the NULL and scrap slots
-        empty = {"count": zero, "sum": zero, "nonnull": zero}
+        empty = dict.fromkeys(("count", "sum", "nonnull", "min", "max",
+                               "sumsq"), zero)
         return self._hash_result(plan, {"present": zero > 0,
                                         "states": [empty] * len(plan.specs)},
                                  0, 0)

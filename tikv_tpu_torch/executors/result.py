@@ -24,9 +24,12 @@ class SelectResult:
 
 
 def _agg_ret_ft(kind: str, arg_et: Optional[EvalType]) -> FieldType:
-    """Output field type of COUNT/SUM/AVG (the slice's aggregates)."""
+    """Output field type of a device aggregate over an INT or REAL
+    argument: COUNT is a NOT NULL BIGINT; AVG and the variance kinds are
+    DOUBLE; SUM, MIN, MAX and FIRST keep the argument's type."""
     if kind in ("count", "count_star"):
         return FieldType.long(not_null=True)
-    if kind == "avg" or arg_et is EvalType.REAL:
+    if kind in ("avg", "var_pop", "var_samp", "stddev_pop", "stddev_samp") \
+            or arg_et is EvalType.REAL:
         return FieldType.double()
     return FieldType.long()

@@ -74,13 +74,16 @@ def eval_rpn(rpn: RpnExpression, columns: Sequence[tuple], n_rows: int,
                 del stack[-node.n_args:]
             else:
                 args = []
-            if xp is not np:
+            if xp is not np and node.meta.widen:
                 args = _widen(args)
             stack.append(node.meta.fn(xp, *args))
         else:  # pragma: no cover
             raise AssertionError(node)
     assert len(stack) == 1, f"malformed RPN: stack depth {len(stack)}"
     values, validity = stack[0]
+    if xp is not np and device is not None:
+        # a constant-only expression (``Pi()``) is made on the host
+        values, validity = values.to(device), validity.to(device)
     if values.ndim == 0:
         values = xp.broadcast_to(values, (n_rows,))
     if validity.ndim == 0:

@@ -1,8 +1,9 @@
 """ScalarFuncSig registry — the device-safe families of the slice.
 
 Reference: components/tidb_query_expr/src/lib.rs ``map_expr_node_to_rpn_func``
-(impl_arithmetic.rs, impl_compare.rs, impl_op.rs).  Signature names match
-the reference's ScalarFuncSig variants one-for-one.
+(impl_arithmetic.rs, impl_compare.rs, impl_op.rs, impl_control.rs,
+impl_cast.rs, impl_math.rs).  Signature names match the reference's
+ScalarFuncSig variants one-for-one.
 
 Each implementation is written against an array namespace ``xp`` —
 ``numpy`` for host-side bounds and recodes, ``torch`` on the device — and
@@ -13,18 +14,21 @@ maps ``(values, validity) × arity → (values, validity)``:
 - division by zero yields NULL;
 - boolean-valued results are int32 (0/1).
 
-Only the families the device gate admits are here: arithmetic,
-comparison, logic and the NULL tests.  A plan calling any other sig is
-outside the port's envelope (``DeviceRunner.supports`` is False).
-Integer overflow wraps in the operands' dtype, as in the reference.
+Only the signatures the reference's device gate admits are here: the
+arithmetic, comparison, logic, NULL-test, control, cast and math families
+over INT and REAL.  A plan calling any other sig is outside the port's
+envelope (``DeviceRunner.supports`` is False).  Integer overflow wraps in
+the operands' dtype, as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..datatype import EvalType
 
@@ -38,15 +42,20 @@ class RpnFnMeta:
     ret: EvalType
     args: tuple                   # arg EvalTypes; for variadic, the repeated type
     fn: Callable                  # fn(xp, *pairs) -> pair
+    # torch path: widen integer operands to a common dtype before the
+    # call (eval.py); off where an argument never meets the others in
+    # arithmetic, so the result keeps the first argument's dtype
+    widen: bool = True
 
 
 FUNCTIONS: dict[str, RpnFnMeta] = {}
 
 
-def rpn_fn(name: str, arity: Optional[int], ret: EvalType, args: tuple):
+def rpn_fn(name: str, arity: Optional[int], ret: EvalType, args: tuple,
+           widen: bool = True):
 
     def deco(fn):
-        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn)
+        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn, widen)
         return fn
     return deco
 
@@ -256,6 +265,174 @@ def _register_logic():
         return ~av, am
 
 
+# ---------------------------------------------------------------------------
+# Control — reference: impl_control.rs
+# ---------------------------------------------------------------------------
+
+def _register_control():
+    I, R = EvalType.INT, EvalType.REAL
+    for suffix, ty in (("Int", I), ("Real", R)):
+        @rpn_fn("If" + suffix, 3, ty, (I, ty, ty))
+        def if_fn(xp, c, t, f):
+            (cv, cm), (tv, tm), (fv, fm) = c, t, f
+            cond = cm & (cv != 0)
+            return xp.where(cond, tv, fv), xp.where(cond, tm, fm)
+
+        @rpn_fn("IfNull" + suffix, 2, ty, (ty, ty))
+        def if_null(xp, a, b):
+            (av, am), (bv, bm) = a, b
+            return xp.where(am, av, bv), am | bm
+
+        @rpn_fn("CaseWhen" + suffix, None, ty, (ty,))
+        def case_when(xp, *pairs):
+            # cond1, res1, cond2, res2, ..., [else]: the first true cond wins
+            n = len(pairs)
+            conds = [(pairs[i], pairs[i + 1]) for i in range(0, n - 1, 2)]
+            if n % 2 == 1:
+                out_v, out_m = pairs[-1]
+            else:
+                (v0, m0) = conds[0][1]
+                out_v, out_m = xp.zeros_like(v0), xp.zeros_like(m0)
+            for (cv, cm), (rv, rm) in reversed(conds):
+                hit = cm & (cv != 0)
+                out_v = xp.where(hit, rv, out_v)
+                out_m = xp.where(hit, rm, out_m)
+            return out_v, out_m
+
+        @rpn_fn("Coalesce" + suffix, None, ty, (ty,))
+        def coalesce(xp, *pairs):
+            out_v, out_m = pairs[-1]
+            for (v, m) in reversed(pairs[:-1]):
+                out_v = xp.where(m, v, out_v)
+                out_m = m | out_m
+            return out_v, out_m
+
+
+# ---------------------------------------------------------------------------
+# Casts — reference: impl_cast.rs (the identity casts; the reference runs
+# the converting casts on its host pipeline only)
+# ---------------------------------------------------------------------------
+
+def _register_cast():
+    I, R = EvalType.INT, EvalType.REAL
+
+    @rpn_fn("CastIntAsInt", 1, I, (I,))
+    def cast_int_int(xp, a):
+        return a
+
+    @rpn_fn("CastRealAsReal", 1, R, (R,))
+    def cast_real_real(xp, a):
+        return a
+
+
+# ---------------------------------------------------------------------------
+# Math — reference: impl_math.rs
+# ---------------------------------------------------------------------------
+
+def _power(xp, base, exponent):
+    return np.power(base, exponent) if xp is np else torch.pow(base, exponent)
+
+
+def _register_math():
+    I, R = EvalType.INT, EvalType.REAL
+
+    def unary_real(name, op, domain=None):
+        @rpn_fn(name, 1, R, (R,))
+        def _f(xp, a, _op=op, _dom=domain):
+            (av, am) = a
+            if _dom is not None:
+                ok = _dom(xp, av)
+                safe = xp.where(ok, av, xp.ones_like(av))
+                return _op(xp, safe), am & ok
+            return _op(xp, av), am
+
+    unary_real("Sqrt", lambda xp, v: xp.sqrt(v), lambda xp, v: v >= 0)
+    unary_real("Exp", lambda xp, v: xp.exp(v))
+    unary_real("Ln", lambda xp, v: xp.log(v), lambda xp, v: v > 0)
+    unary_real("Log2", lambda xp, v: xp.log2(v), lambda xp, v: v > 0)
+    unary_real("Log10", lambda xp, v: xp.log10(v), lambda xp, v: v > 0)
+    unary_real("Sin", lambda xp, v: xp.sin(v))
+    unary_real("Cos", lambda xp, v: xp.cos(v))
+    unary_real("Tan", lambda xp, v: xp.tan(v))
+    unary_real("Cot", lambda xp, v: 1.0 / xp.tan(v),
+               lambda xp, v: xp.sin(v) != 0)
+    unary_real("Asin", lambda xp, v: xp.arcsin(v),
+               lambda xp, v: xp.abs(v) <= 1)
+    unary_real("Acos", lambda xp, v: xp.arccos(v),
+               lambda xp, v: xp.abs(v) <= 1)
+    unary_real("Atan1Arg", lambda xp, v: xp.arctan(v))
+    unary_real("CeilReal", lambda xp, v: xp.ceil(v))
+    unary_real("FloorReal", lambda xp, v: xp.floor(v))
+    unary_real("RoundReal", lambda xp, v: xp.where(
+        v >= 0, xp.floor(v + 0.5), xp.ceil(v - 0.5)))
+    unary_real("Radians", lambda xp, v: v * (math.pi / 180.0))
+    unary_real("Degrees", lambda xp, v: v * (180.0 / math.pi))
+
+    @rpn_fn("Atan2Args", 2, R, (R, R))
+    def atan2(xp, a, b):
+        (av, am), (bv, bm) = a, b
+        return xp.arctan2(av, bv), am & bm
+
+    @rpn_fn("Pow", 2, R, (R, R))
+    def pow_(xp, a, b):
+        (av, am), (bv, bm) = a, b
+        # guard 0^negative and negative^fractional
+        bad = ((av == 0) & (bv < 0)) | ((av < 0) & (bv != xp.trunc(bv)))
+        safe_a = xp.where(bad, xp.ones_like(av), av)
+        return _power(xp, safe_a, bv), am & bm & ~bad
+
+    @rpn_fn("Pi", 0, R, ())
+    def pi(xp):
+        # float64, as the reference's weakly typed jnp scalar: beside a
+        # float32 column it yields to the column's dtype in both packages
+        if xp is np:
+            return np.asarray(math.pi), np.ones((), dtype=np.bool_)
+        return (torch.tensor(math.pi, dtype=torch.float64),
+                torch.ones((), dtype=torch.bool))
+
+    @rpn_fn("SignReal", 1, I, (R,))
+    def sign(xp, a):
+        (av, am) = a
+        s = xp.sign(av)
+        return (s.astype(np.int32) if xp is np else s.to(torch.int32)), am
+
+    @rpn_fn("SignInt", 1, I, (I,))
+    def sign_int(xp, a):
+        (av, am) = a
+        return xp.sign(av), am
+
+    for name in ("CeilIntToInt", "FloorIntToInt", "RoundInt"):
+        @rpn_fn(name, 1, I, (I,))
+        def int_identity(xp, a):
+            return a
+
+    @rpn_fn("TruncateReal", 2, R, (R, I))
+    def truncate_real(xp, a, d):
+        (av, am), (dv, dm) = a, d
+        dv = dv.astype(av.dtype) if xp is np else dv.to(av.dtype)
+        scale = _power(xp, 10.0, dv)
+        return xp.trunc(av * scale) / scale, am & dm
+
+    # the digit count only masks and scales: the result keeps the value's
+    # dtype, as under the reference's per-operation promotion
+    @rpn_fn("TruncateInt", 2, I, (I, I), widen=False)
+    def truncate_int(xp, a, d):
+        (av, am), (dv, dm) = a, d
+        neg = xp.where(dv < 0, -dv, xp.zeros_like(dv))
+        if xp is np:
+            neg = np.minimum(neg, 18)
+            p = np.asarray(10, dtype=av.dtype) ** neg.astype(av.dtype)
+        else:
+            p = torch.pow(10, neg.clamp(max=18).to(av.dtype))
+        # MySQL truncates toward zero; // floors — correct negative values
+        q = av // p
+        q = xp.where((av < 0) & (q * p != av), q + 1, q)
+        return xp.where(dv < 0, q * p, av), am & dm
+
+
 _register_arith()
 _register_compare()
 _register_logic()
+_register_control()
+_register_cast()
+_register_math()
