@@ -14,9 +14,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    edge cases of the CPU tests: ``hash_agg`` exactly (integer states, and
    at 2^24 rows); ``twolevel`` exactly for its int8 planes and within
    1e-9·Σ|v| per cell for its float planes (float64 sums in another
-   order), and at the shapes of the Pallas prototypes it replaces, with
-   each prototype's own check (count by ``bincount``, sum rebuilt with the
-   prototype's bias formula, against numpy);
+   order) through both entries: the fused entry over raw columns (int32,
+   int64 and sparse keys, NULL keys, no / partial / all-false selection,
+   1-4 and 8 byte planes with their extremes, REAL lanes, aliased
+   validity, 4n's repeated planes, the overflow flag) at slot counts that
+   take each of its routes (1026: shared, 65,538: cluster, 2^20 + 2:
+   global; the route is printed, and each must be taken), with a hot slot
+   past the per-table row cap; and the planes entry, also at the shapes of
+   the Pallas prototypes it replaces, with each prototype's own check
+   (count by ``bincount``, sum rebuilt with the prototype's bias formula,
+   against numpy);
 4. the aggregation path through ``DeviceRunner().handle_request`` for
    eight configurations (``tikv_tpu_torch.testing.configs``): 3
    (50·2^20 rows), 4, 4n and 4w (100·2^20 rows), and 4s, 4r, 4m and 3n
@@ -25,14 +32,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the error scale of ``configs.truth`` for REAL sums and variances): one
    cold and five warm requests, the kernels' launch counts read around
    the run (each config must launch the kernels of its route and no
-   other), and one profiled warm request;
+   other), the peak device memory of one more warm request beyond what
+   was resident before it, and one profiled warm request;
 5. each kernel against its plain version at the main path's shapes, and
    timed there with CUDA events beside its bound and one library call
    that computes the same function (a yardstick the port never calls);
+   ``twolevel``'s fused entry at 4n, 4w and 4r on the runner's own
+   arguments, also beside the planes path it replaced (``slot_index`` +
+   ``make_planes`` + the planes kernel, on the same inputs), with the
+   peak device memory of each, and on every route its table can take;
 6. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, config 4n for
-   ``twolevel``), and the least time the card could take;
+   ``twolevel``'s fused entry, with its route at each config), and the
+   least time the card could take;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -55,6 +68,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit peak
 SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
+CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
 KERNELS = ("hash_agg", "twolevel")
 # config → rows on the card; the route's kernel counts must be > 0
@@ -65,16 +79,33 @@ ROUTE = {"3": "hash_agg", "4": "hash_agg", "4s": "hash_agg",
          "4m": None, "3n": None}
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def cuda_ms(fn, iters: int, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.
+
+    ``queued``: ``fn`` never waits for the device, and its calls are
+    queued behind a device sleep three times as long as the host takes to
+    issue them, so the device runs them back to back and the host's
+    Python does not show (fails if the sleep ended first).  Otherwise the
+    calls run as issued (for the plain versions and library calls, whose
+    device time dwarfs their host time)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event()
+    if queued:
+        t0 = time.perf_counter()
+        fn()                            # the host's issue time
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(max(1 << 24, 3 * iters * issue_s * CLOCK_HZ)))
+        slept.record()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    assert not (queued and slept.query()), \
+        "the host issued the calls too slowly to time"
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -321,6 +352,160 @@ def check_twolevel(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
+# twolevel's fused entry against its plain version
+# ---------------------------------------------------------------------------
+
+def fused_route(n, layouts, cols, LO, HI, kw, dev) -> str:
+    """The route the fused kernel takes for these arguments."""
+    from tikv_tpu_torch.device import twolevel as tl
+    _lanes, src8, srcf = tl.plan_lanes(layouts, cols)
+    source = "sparse" if kw.get("slot_ids") is not None else \
+        "dense32" if kw["key"].dtype == torch.int32 else "dense64"
+    name, cs = tl.route(max(src8) + 1, max(srcf, default=-1) + 1, LO, HI,
+                        source, dev)
+    return name if name != "cluster" else f"cluster{cs}"
+
+
+def fused_err(n, layouts, cols, LO, HI, kw) -> float:
+    """Fused kernel against its plain version: S8 exactly, the overflow
+    flag, Sf within SF_TOL·Σ|v| per cell.  Returns the largest absolute
+    difference."""
+    from tikv_tpu_torch.device import twolevel as tl
+    got8, gotf, got_ovf = tl.twolevel_fused(n, layouts, cols, LO, HI, **kw)
+    torch.cuda.synchronize()
+    want8, wantf, want_ovf = tl.twolevel_fused_plain(n, layouts, cols, LO,
+                                                     HI, **kw)
+    assert torch.equal(got8, want8), "twolevel_fused int8 planes disagree"
+    assert (got_ovf is None) == (want_ovf is None)
+    assert got_ovf is None or bool(got_ovf) == bool(want_ovf), \
+        "twolevel_fused overflow flag disagrees"
+    if wantf is None:
+        assert gotf is None
+        return 0.0
+    mags = [col if col is None or not col[0].is_floating_point()
+            else (col[0].abs(), col[1]) for col in cols]
+    mag = tl.twolevel_fused_plain(n, layouts, mags, LO, HI, **kw)[1]
+    diff = (gotf - wantf).abs()
+    assert bool((diff <= SF_TOL * mag).all()), \
+        "twolevel_fused float planes beyond tolerance"
+    return float(diff.max())
+
+
+def fused_cases(dev):
+    """(name, n, layouts, cols, LO, HI, keyword arguments) on the card: the
+    CPU tests' cases at slot counts that take each route, a hot slot past
+    the per-table row cap, and a live key out of range."""
+    from tikv_tpu_torch.device import kernels as kn
+    from tikv_tpu_torch.ops.agg import AggSpec
+    g = torch.Generator(device="cpu").manual_seed(13)
+    n = 1 << 18
+
+    def ints(lo, hi, count, dtype=torch.int32):
+        return torch.randint(lo, hi, (count,), generator=g,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    def bools(p, count):
+        return (torch.rand(count, generator=g) < p).to(dev)
+
+    def column(nb, dtype, nullable, count=n):
+        lo, hi = -(1 << (8 * nb - 1)), (1 << (8 * nb - 1)) - 1
+        v = torch.randint(lo, hi, (count,), generator=g, dtype=torch.int64)
+        v[:4] = torch.tensor([lo, hi, 0, -1])
+        ok = bools(0.85, count) if nullable else \
+            torch.ones(count, dtype=torch.bool, device=dev)
+        return v.to(dtype).to(dev), ok, nb
+
+    def case(aggs, columns, slots, key_kind="int32", mask_kind="partial",
+             count=n):
+        specs = [AggSpec(kind, i) for i, (kind, _c) in enumerate(aggs)]
+        real = [c is not None and columns[c][0].is_floating_point()
+                for _k, c in aggs]
+        nbytes = [0 if c is None or r or k == "count" else columns[c][2]
+                  for (k, c), r in zip(aggs, real)]
+        aliased = [c is not None and bool(columns[c][1].all())
+                   for _k, c in aggs]
+        layouts, p8, pf = kn.build_layouts(specs, real, nbytes, aliased)
+        LO, HI = kn.twolevel_dims(slots, p8, pf)
+        capacity = slots - 2
+        pairs = {c: (v, ok) for c, (v, ok, _nb) in columns.items()}
+        cols = [None if c is None else pairs[c] for _k, c in aggs]
+        kw = {"capacity": capacity, "mask": {
+            "none": None, "partial": bools(0.7, count),
+            "all_false": torch.zeros(count, dtype=torch.bool, device=dev),
+        }[mask_kind]}
+        if key_kind == "sparse":
+            kw["slot_ids"] = ints(0, capacity + 2, count)
+        else:
+            base = -300 if key_kind == "int32" else (1 << 40) - 300
+            dtype = torch.int32 if key_kind == "int32" else torch.int64
+            kw.update(base=base, key=(base + ints(0, capacity, count,
+                                                  torch.int64)).to(dtype),
+                      key_ok=bools(0.92, count))
+        return count, layouts, cols, LO, HI, kw
+
+    four_w = [("count_star", None), ("sum", "a")]
+    four_n = [("count_star", None), ("count", "v"), ("sum", "v"),
+              ("avg", "v")]
+    for slots in (1026, 65538, (1 << 20) + 2):
+        cols = {"a": column(2, torch.int32, False),
+                "v": column(2, torch.int32, True)}
+        for key_kind in ("int32", "int64", "sparse"):
+            for mask_kind in ("none", "partial", "all_false"):
+                yield (f"4w_aggs_slots={slots}_{key_kind}_key_{mask_kind}",
+                       *case(four_w, cols, slots, key_kind, mask_kind))
+        yield f"4n_aggs_slots={slots}", *case(four_n, cols, slots)
+        r = (torch.randn(n, generator=g) * 1000).to(dev)
+        r_ok = bools(0.8, n)
+        yield f"real_lanes_slots={slots}", *case(
+            [("sum", "r"), ("avg", "r"), ("count", "r"), ("sum", "q")],
+            {"r": (torch.where(r_ok, r, 0.0), r_ok, 0),
+             "q": (r, torch.ones(n, dtype=torch.bool, device=dev), 0)},
+            slots)
+        if slots > 65538:
+            continue
+        for nb, dtype in ((1, torch.int32), (2, torch.int32),
+                          (3, torch.int32), (4, torch.int32),
+                          (3, torch.int64), (8, torch.int64)):
+            yield f"bytes_nb={nb}_{dtype}_slots={slots}", *case(
+                [("sum", "w"), ("count", "w"), ("avg", "a")],
+                {"w": column(nb, dtype, True), "a": column(nb, dtype, False)},
+                slots, "int64" if dtype == torch.int64 else "int32")
+    # a live key outside [base, base + capacity): the overflow flag
+    count, layouts, cols, LO, HI, kw = case(four_w, {
+        "a": column(2, torch.int32, False)}, 1026)
+    kw["key"][kw["mask"].nonzero()[:3, 0]] = -300 + 5000
+    kw["key_ok"][kw["mask"].nonzero()[:3, 0]] = True
+    yield "overflow", count, layouts, cols, LO, HI, kw
+    # one hot slot, every byte -128, past the per-table row cap (2^23)
+    hot = (1 << 24) + 777
+    low = torch.full((hot,), -(1 << 15), dtype=torch.int32, device=dev)
+    for slots in (1026, 65538):
+        count, layouts, cols, LO, HI, kw = case(
+            four_w, {"a": (low, torch.ones(hot, dtype=torch.bool,
+                                           device=dev), 2)},
+            slots, "int32", "none", hot)
+        kw.update(key=torch.full((hot,), 777, dtype=torch.int32, device=dev),
+                  key_ok=None, base=0)
+        yield f"hot_slot_slots={slots}", count, layouts, cols, LO, HI, kw
+
+
+def check_fused(dev) -> float:
+    worst, routes = 0.0, set()
+    for name, n, layouts, cols, LO, HI, kw in fused_cases(dev):
+        err = fused_err(n, layouts, cols, LO, HI, kw)
+        route = fused_route(n, layouts, cols, LO, HI, kw, dev)
+        routes.add(route.rstrip("2468"))
+        print(f"kernel twolevel_fused {name}: route={route} "
+              f"max_abs_err={err} (int8 planes exact, float planes within "
+              f"{SF_TOL}·Σ|v|)", flush=True)
+        worst = max(worst, err)
+        del cols, kw
+    assert routes == {"shared", "cluster", "global"}, routes
+    gc.collect()
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # the aggregation path
 # ---------------------------------------------------------------------------
 
@@ -357,7 +542,8 @@ def run_config(config: str, n: int, runner) -> dict:
     p50 = float(np.percentile(warm, 50))
     out = {"config": config, "rows": n, "cold_ms": cold * 1e3,
            "warm_p50_ms": p50 * 1e3, "rows_per_s": n / p50,
-           "launches": launches, "groups": len(want)}
+           "launches": launches, "groups": len(want),
+           "peak_request_bytes": peak_request_bytes(runner, dag, snap)}
     print(f"config {config}: " + " ".join(f"{k}={v}" for k, v in out.items()
                                           if k != "config"), flush=True)
     profile_request(config, runner, dag, snap)
@@ -366,19 +552,40 @@ def run_config(config: str, n: int, runner) -> dict:
     return out
 
 
+def peak_bytes(fn) -> int:
+    """Peak device memory of one call of ``fn`` beyond what was resident
+    before it; its launches do not count."""
+    saved = counts()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    set_counts(saved)
+    return torch.cuda.max_memory_allocated() - resident
+
+
+def peak_request_bytes(runner, dag, snap) -> int:
+    """Peak device memory of one warm request beyond the resident feed."""
+    return peak_bytes(lambda: runner.handle_request(dag, snap))
+
+
 def profile_request(config: str, runner, dag, snap) -> None:
     """One warm request under torch.profiler: device time by kernel and
     the device's idle share of the (profiled) request wall."""
     from torch.profiler import ProfilerActivity, profile
     saved = counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.handle_request(dag, snap)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    for _attempt in range(3):           # the tracer now and then sees none
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.handle_request(dag, snap)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     set_counts(saved)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     print(f"profile config {config}: wall_ms={wall_ms} device_ms={dev_ms} "
@@ -429,7 +636,7 @@ def kernel_at_main_shapes(dev) -> tuple:
         assert err == 0, f"hash_agg disagrees with its plain version " \
             f"at config {config}'s shape"
         worst = max(worst, err)
-        ms = cuda_ms(lambda: ha.hash_agg(**kw), 20)
+        ms = cuda_ms(lambda: ha.hash_agg(**kw), 20, queued=True)
         set_counts(saved)               # measurement launches do not count
         plain_ms = cuda_ms(lambda: ha.hash_agg_plain(**kw), 3)
         # inputs read once (config 3's two lanes share one plane), states
@@ -463,35 +670,157 @@ def kernel_at_main_shapes(dev) -> tuple:
 
 
 def captured_twolevel_inputs(config: str, runner) -> tuple:
-    """twolevel's arguments exactly as the runner passes them on one
+    """twolevel_fused's arguments exactly as the runner passes them on one
     request of ``config`` (recorded around the call; not counted)."""
     import tikv_tpu_torch.device.runner as rmod
     from tikv_tpu_torch.testing import configs as cf
     build, make = cf.CONFIGS[config]
     table, snap = build(SIZES[config])
     seen = []
-    real = rmod.twolevel
+    real = rmod.twolevel_fused
 
-    def record(*args):
-        seen.append(args)
-        return real(*args)
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
 
     saved = counts()
-    rmod.twolevel = record
+    rmod.twolevel_fused = record
     try:
         runner.handle_request(make(table), snap)
     finally:
-        rmod.twolevel = real
+        rmod.twolevel_fused = real
         set_counts(saved)
     return seen[0]
 
 
+def fused_bytes(n, layouts, cols, LO, HI, kw) -> int:
+    """Bytes the fused entry must move: each distinct raw column read once
+    (rows [0, n)), the int64 / float64 states written once."""
+    from tikv_tpu_torch.device import twolevel as tl
+    lanes, _src8, _srcf = tl.plan_lanes(layouts, cols)
+    inputs = [kw.get("key"), kw.get("key_ok"), kw.get("slot_ids"),
+              kw.get("mask")] + [t for ln in lanes for t in (ln.values,
+                                                              ln.ok)]
+    seen, total = set(), 0
+    for t in inputs:
+        if t is not None and t.stride(0) != 0 and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += n * t.element_size()
+    p8, pf = tl.plane_counts(layouts)
+    return total + 8 * HI * LO * (p8 + pf)
+
+
+def planes_path(n, layouts, cols, LO, HI, kw, dev):
+    """The planes path on the same inputs: slot ids and planes built by
+    torch ops (``slot_index``, ``make_planes``), then the planes kernel —
+    the runner's path before the fused entry."""
+    from tikv_tpu_torch.device import kernels as kn
+    from tikv_tpu_torch.device import twolevel as tl
+    mask = kw["mask"] if kw["mask"] is not None else \
+        torch.ones(n, dtype=torch.bool, device=dev)
+    if kw.get("slot_ids") is not None:
+        idx = torch.where(mask, kw["slot_ids"][:n],
+                          torch.full((), kw["capacity"] + 1,
+                                     dtype=torch.int32, device=dev))
+    else:
+        km = kw["key_ok"] if kw["key_ok"] is not None else \
+            torch.ones((), dtype=torch.bool, device=dev)
+        idx, _ovf = kn.slot_index((kw["key"], km), kw["capacity"],
+                                  kw["base"], mask)
+    L8, Lf = kn.make_planes(layouts, cols, mask)
+    return idx.contiguous(), L8, Lf, tl.twolevel(idx.contiguous(), L8, Lf,
+                                                 LO, HI)
+
+
+def time_fused(config: str, args, kwargs, dev) -> dict:
+    """The fused entry against its plain version and timed at one config's
+    shape, beside the planes path it replaced, its bound and a library
+    yardstick."""
+    from tikv_tpu_torch.device import twolevel as tl
+    n, layouts, cols, LO, HI, capacity = args
+    kw = dict(kwargs, capacity=capacity)
+    saved = counts()
+    err = fused_err(n, layouts, cols, LO, HI, kw)
+    route = fused_route(n, layouts, cols, LO, HI, kw, dev)
+    ms = cuda_ms(lambda: tl.twolevel_fused(n, layouts, cols, LO, HI, **kw),
+                 10, queued=True)
+    planes_ms = cuda_ms(
+        lambda: planes_path(n, layouts, cols, LO, HI, kw, dev), 5,
+        queued=True)
+    set_counts(saved)
+    peaks = {"fused_peak_bytes": peak_bytes(
+        lambda: tl.twolevel_fused(n, layouts, cols, LO, HI, **kw)),
+             "planes_peak_bytes": peak_bytes(
+        lambda: planes_path(n, layouts, cols, LO, HI, kw, dev))}
+    plain_ms = cuda_ms(lambda: tl.twolevel_fused_plain(
+        n, layouts, cols, LO, HI, **kw), 2)
+    p8, pf = tl.plane_counts(layouts)
+    lanes, src8, srcf = tl.plan_lanes(layouts, cols)
+    d8, df = max(src8) + 1, max(srcf, default=-1) + 1
+    # bytes: the raw columns read once and the states written once; ops:
+    # one add per distinct plane and row
+    out = {"ms": ms, "plain_ms": plain_ms, "planes_ms": planes_ms,
+           **bound_ms(fused_bytes(n, layouts, cols, LO, HI, kw),
+                      n * (d8 + df))}
+    # yardstick only (the port never calls it): one index_add_ of the
+    # stacked int64 planes into (p8, slots) along dim 1, the planes built
+    # beforehand
+    idx, L8, _Lf, _S = planes_path(n, layouts, cols, LO, HI, kw, dev)
+    set_counts(saved)
+    idx64, L64 = idx.to(torch.int64), L8.to(torch.int64)
+    del L8, _Lf, _S
+    out["library_ms"] = cuda_ms(lambda: torch.zeros(
+        p8, HI * LO, dtype=torch.int64, device=dev).index_add_(
+            1, idx64, L64), 5)
+    del idx, idx64, L64
+    route_sweep(config, args, kw, dev)
+    out["max_abs_err"] = err
+    out["table_route"] = route
+    print(f"kernel twolevel_fused at config {config} shape ({n} rows, "
+          f"p8={p8} pf={pf} distinct={d8}+{df} LO={LO} HI={HI}): " +
+          " ".join(f"{k}={v}" for k, v in {**out, **peaks}.items()),
+          flush=True)
+    return out
+
+
+def route_sweep(config: str, args, kw, dev) -> dict:
+    """The fused kernel at one config's shape on every route its table can
+    take (the launcher's choice replaced; a route the card refuses is
+    skipped), each held against the plain version: route → ms."""
+    from tikv_tpu_torch.device import twolevel as tl
+    n, layouts, cols, LO, HI, _capacity = args
+    chosen, out = tl.route, {}
+    want = tl.twolevel_fused_plain(n, layouts, cols, LO, HI, **kw)[0]
+    saved = counts()
+    try:
+        for name, cs in (("shared", 1), ("cluster", 2), ("cluster", 4),
+                         ("cluster", 8), ("global", 0)):
+            tl.route = lambda *_a, _r=(name, cs), **_k: _r
+            try:
+                got = tl.twolevel_fused(n, layouts, cols, LO, HI, **kw)[0]
+                torch.cuda.synchronize()
+            except RuntimeError:        # refused: the table does not fit
+                continue
+            assert torch.equal(got, want), f"{config} {name}{cs} disagrees"
+            out[f"{name}{cs if name == 'cluster' else ''}"] = cuda_ms(
+                lambda: tl.twolevel_fused(n, layouts, cols, LO, HI, **kw),
+                10, queued=True)
+    finally:
+        tl.route = chosen
+        set_counts(saved)
+    print(f"kernel twolevel_fused at config {config} shape, every route "
+          f"(ms): " + " ".join(f"{k}={v}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
 def time_twolevel(label: str, idx, L8, Lf, LO, HI, dev) -> dict:
-    """twolevel against its plain version and timed at one shape."""
+    """The planes entry against its plain version and timed at one
+    shape."""
     from tikv_tpu_torch.device import twolevel as tl
     saved = counts()
     err = twolevel_err(idx, L8, Lf, LO, HI)
-    ms = cuda_ms(lambda: tl.twolevel(idx, L8, Lf, LO, HI), 10)
+    ms = cuda_ms(lambda: tl.twolevel(idx, L8, Lf, LO, HI), 10, queued=True)
     set_counts(saved)
     plain_ms = cuda_ms(lambda: tl.twolevel_plain(idx, L8, Lf, LO, HI), 2)
     n, p8 = idx.shape[0], L8.shape[0]
@@ -509,22 +838,25 @@ def time_twolevel(label: str, idx, L8, Lf, LO, HI, dev) -> dict:
             1, idx64, L64), 5)
     del idx64, L64
     out["max_abs_err"] = err
+    name, cs = tl.route(p8, pf, LO, HI, "planes", dev)
     print(f"kernel twolevel at {label} ({n} rows, p8={p8} pf={pf} LO={LO} "
-          f"HI={HI}, table_bytes={tl.table_bytes(p8, pf, LO, HI)}): " +
+          f"HI={HI}, route={name}{cs if cs > 1 else ''}): " +
           " ".join(f"{k}={v}" for k, v in out.items()), flush=True)
     return out
 
 
 def twolevel_at_main_shapes(runner, dev) -> tuple:
-    """→ (largest difference, config 4n timing)."""
-    worst, timing = 0.0, None
+    """→ (largest difference, config 4n timing with the route per
+    config)."""
+    worst, timing, routes = 0.0, None, {}
     for config in ("4n", "4w", "4r"):
-        args = captured_twolevel_inputs(config, runner)
-        out = time_twolevel(f"config {config} shape", *args, dev)
-        worst = max(worst, out["max_abs_err"])
+        args, kwargs = captured_twolevel_inputs(config, runner)
+        out = time_fused(config, args, kwargs, dev)
+        worst = max(worst, out.pop("max_abs_err"))
+        routes[config] = out.pop("table_route")
         if config == "4n":
             timing = out
-        del args
+        del args, kwargs
         gc.collect()
     for name in PROTOTYPES:
         idx, L8, LO, HI, _k, _v = prototype_inputs(name, dev)
@@ -532,6 +864,7 @@ def twolevel_at_main_shapes(runner, dev) -> tuple:
         worst = max(worst, out["max_abs_err"])
         del idx, L8
         gc.collect()
+    timing["table_routes"] = routes
     return worst, timing
 
 
@@ -553,7 +886,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     worst = {"hash_agg": check_kernels(dev, 1 << 24),
-             "twolevel": check_twolevel(dev)}
+             "twolevel": max(check_fused(dev), check_twolevel(dev))}
 
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
@@ -562,7 +895,6 @@ def main() -> int:
     worst["hash_agg"] = max(worst["hash_agg"], err)
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
-    two_timing.pop("max_abs_err")
 
     kernels = [
         {"name": "hash_agg", "route": "cuda",

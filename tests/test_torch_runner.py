@@ -12,11 +12,13 @@ reference sums each tile in float32, the port in float64.
 """
 
 import functools
+import inspect
 
 import numpy as np
 import pytest
 
 import jax
+import torch
 
 import bench
 from tikv_tpu.datatype import Column, EvalType, FieldType
@@ -533,6 +535,32 @@ def test_sparse_keys_beyond_the_fused_slots(ref, port):
         want, got = run_both(ref, port, dag, snap)
         assert got == want
         assert len(got) == len(np.unique(k))
+
+
+@pytest.mark.parametrize("name", ["4n", "4w", "4r"])
+def test_twolevel_route_makes_one_fused_call(name, port, monkeypatch):
+    """A two-level request calls the fused entry once, with the raw columns
+    (no plane building in the runner), and answers as the reference."""
+    import tikv_tpu_torch.device.runner as rmod
+    calls = []
+    real = rmod.twolevel_fused
+
+    def record(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(rmod, "twolevel_fused", record)
+    table, snap, dag = ref_config(name, 5000)
+    psnap = port_snapshot(table, snap)
+    got = port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
+                              psnap).rows()
+    truth, scales = configs.truth(name, psnap)
+    assert configs.rows_agree(got, truth, scales, 1e-9)
+    assert len(calls) == 1
+    assert calls[0]["key"].dtype == torch.int32 and \
+        calls[0]["key_ok"] is None and calls[0]["mask"] is None
+    src = inspect.getsource(rmod)
+    assert "make_planes" not in src and "slot_index(" not in src
 
 
 def test_port_builders_draw_the_benchmark_arrays():

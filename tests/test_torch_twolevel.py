@@ -12,6 +12,15 @@ The rows are a feed's: live rows on random slots, the NULL slot
 (``capacity``) and the scrap slot (``capacity + 1``), ids outside the
 layout, and padding rows (scrap slot, zero planes).  The layout helpers of
 ``device/kernels.py`` are held against the reference's one by one.
+
+The fused entry (``twolevel_fused``: raw key, mask and argument columns
+in) is held against the reference's own composition, ``slot_index`` →
+``make_planes`` → ``twolevel_partial``, over int32 / int64 / sparse keys,
+NULL keys, every selection, 1-4 byte planes and REAL lanes (8 byte planes
+against numpy's uint64 split: the reference cannot build them), with the
+overflow flag; its lane plan (each distinct plane once) is held against
+``make_planes``' repeated planes, and the route policy against a model of
+the H100's occupancy.
 """
 
 import numpy as np
@@ -231,7 +240,7 @@ def test_make_planes_bytes_match_reference(nb):
         ref_lays, _, _ = ref_kn.build_layouts(ref_specs, [False] * 3, nbytes)
         cols = [(vals, ok)] * 3
         got8, gotf = kn.make_planes(
-            lays, specs, [(torch.from_numpy(a), torch.from_numpy(b))
+            lays, [(torch.from_numpy(a), torch.from_numpy(b))
                           for a, b in cols], torch.from_numpy(mask))
         want8, wantf = ref_kn.make_planes(
             ref_lays, ref_specs, [(jnp.asarray(a), jnp.asarray(b))
@@ -254,7 +263,7 @@ def test_make_planes_eight_bytes_are_exact():
     mask = rng.random(n) > 0.1
     specs = [AggSpec("sum", 0)]
     lays, p8, pf = kn.build_layouts(specs, [False], [8])
-    L8, _ = kn.make_planes(lays, specs, [(torch.from_numpy(v),
+    L8, _ = kn.make_planes(lays, [(torch.from_numpy(v),
                                           torch.from_numpy(ok))],
                            torch.from_numpy(mask))
     biased = v.astype(np.uint64) + np.uint64(1 << 63)
@@ -319,3 +328,319 @@ def test_slot_index_matches_reference(key_dtype):
         assert got_idx.dtype == torch.int32
         np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
         assert bool(got_ovf) == bool(want_ovf)
+
+
+# ---------------------------------------------------------------------------
+# the fused entry: raw columns in, the reference composition's sums out
+# ---------------------------------------------------------------------------
+
+FUSED_N, FUSED_CHUNK, CAPACITY = 3000, 1024, 1024
+
+
+def value_column(rng, n, dtype, nb, nullable):
+    """(values, validity, nb): values spanning nb bytes with their extremes."""
+    v = _edge_values(nb, n, rng).astype(dtype)
+    ok = rng.random(n) > 0.15 if nullable else np.ones(n, bool)
+    return np.where(ok, v, 0).astype(dtype), ok, nb
+
+
+def fused_inputs(key_kind="int32", mask_kind="partial", aggs=None,
+                 columns=None, seed=0, n=FUSED_N, capacity=CAPACITY):
+    """Seeded raw columns of one two-level request.
+
+    ``key_kind``: "int32" (base -300), "int32_wrapped" (int32 keys, base
+    2^32 - 300: the key shifts against base's int32 wraparound), "int64"
+    (base 2^40 - 300, beyond int32) or "sparse" (precomputed slot ids);
+    dense keys are NULL on 8% of the rows.  ``mask_kind``: "none",
+    "partial" or "all_false".  ``aggs``: (kind, column name | None);
+    aggregates over one column share its (values, validity).  Keys stay
+    inside [base, base + capacity), so nothing overflows.
+    """
+    rng = np.random.default_rng(seed)
+    base = {"int32": -300, "int32_wrapped": (1 << 32) - 300,
+            "int64": (1 << 40) - 300, "sparse": 0}[key_kind]
+    inp = {"n": n, "capacity": capacity, "base": base, "kv": None,
+           "km": None, "slot_ids": None, "mask": None}
+    if key_kind == "sparse":
+        inp["slot_ids"] = rng.integers(0, capacity + 2, n).astype(np.int32)
+    else:
+        dtype = np.int64 if key_kind == "int64" else np.int32
+        low = -300 if key_kind == "int32_wrapped" else base
+        inp["kv"] = (low + rng.integers(0, capacity, n)).astype(dtype)
+        inp["km"] = rng.random(n) > 0.08
+    if mask_kind == "partial":
+        inp["mask"] = rng.random(n) > 0.3
+    elif mask_kind == "all_false":
+        inp["mask"] = np.zeros(n, bool)
+    if columns is None:
+        columns = {"v": value_column(rng, n, np.int32, 2, True)}
+    inp["columns"] = columns
+    inp["aggs"] = aggs if aggs is not None else \
+        [("count_star", None), ("count", "v"), ("sum", "v"), ("avg", "v")]
+    return inp
+
+
+def fused_layout(inp, module, spec_cls):
+    """``module.build_layouts`` over the case's aggregates.  A column is
+    aliased (its validity is the row mask) when it has no NULL."""
+    specs = [spec_cls(kind, i) for i, (kind, _c) in enumerate(inp["aggs"])]
+    real, nbytes, aliased = [], [], []
+    for kind, name in inp["aggs"]:
+        col = inp["columns"].get(name)
+        is_real = col is not None and col[0].dtype == np.float32
+        real.append(is_real)
+        nbytes.append(0 if col is None or is_real or kind == "count"
+                      else col[2])
+        aliased.append(col is not None and bool(col[1].all()))
+    return specs, module.build_layouts(specs, real, nbytes, aliased)
+
+
+def reference_fused(inp):
+    """The JAX package's composition: ``slot_index`` (or the sparse ids
+    under the mask) → ``make_planes`` → ``twolevel_partial`` per chunk,
+    summed in int64 / float64.  → (S8, Sf, overflow, Lf, idx, LO, HI)."""
+    n, capacity = inp["n"], inp["capacity"]
+    ref_specs, (lays, p8, pf) = fused_layout(inp, ref_kn, RefAggSpec)
+    LO, HI = ref_kn.twolevel_dims(capacity + 2, p8, pf)
+    mask = np.ones(n, bool) if inp["mask"] is None else inp["mask"]
+    if inp["slot_ids"] is not None:
+        idx = np.where(mask, inp["slot_ids"], capacity + 1).astype(np.int32)
+        overflow = False
+    else:
+        ji, jo = ref_kn.slot_index(
+            (jnp.asarray(inp["kv"]), jnp.asarray(inp["km"])), capacity,
+            jnp.asarray(inp["base"], jnp.int64), jnp.asarray(mask))
+        idx, overflow = np.asarray(ji), bool(jo)
+    cols = [(jnp.zeros(n, jnp.int32), jnp.asarray(mask)) if name is None
+            else (jnp.asarray(inp["columns"][name][0]),
+                  jnp.asarray(inp["columns"][name][1]))
+            for _kind, name in inp["aggs"]]
+    L8, Lf = ref_kn.make_planes(lays, ref_specs, cols, jnp.asarray(mask))
+    Lf = None if Lf is None else np.asarray(Lf)
+    S8, Sf = reference_sums(idx, np.asarray(L8), Lf, LO, HI, FUSED_CHUNK)
+    return S8, Sf, overflow, Lf, idx, LO, HI
+
+
+def port_fused_args(inp):
+    """The port's (layouts, cols, keyword arguments) of a case: torch
+    tensors, one (values, validity) tuple per column."""
+    _specs, (lays, _p8, _pf) = fused_layout(inp, kn, AggSpec)
+    t = {name: (torch.from_numpy(v), torch.from_numpy(ok))
+         for name, (v, ok, _nb) in inp["columns"].items()}
+    cols = [None if name is None else t[name] for _k, name in inp["aggs"]]
+
+    def opt(a):
+        return None if a is None else torch.from_numpy(a)
+
+    kw = dict(capacity=inp["capacity"], base=inp["base"], key=opt(inp["kv"]),
+              key_ok=opt(inp["km"]), slot_ids=opt(inp["slot_ids"]),
+              mask=opt(inp["mask"]))
+    return lays, cols, kw
+
+
+def check_fused_against_reference(inp):
+    want8, wantf, want_ovf, Lf, idx, LO, HI = reference_fused(inp)
+    lays, cols, kw = port_fused_args(inp)
+    got8, gotf, got_ovf = tl.twolevel_fused(inp["n"], lays, cols, LO, HI,
+                                            **kw)
+    np.testing.assert_array_equal(got8.numpy(), want8)
+    assert (got_ovf is None) == (inp["slot_ids"] is not None)
+    assert bool(got_ovf is not None and got_ovf) == want_ovf
+    if wantf is None:
+        assert gotf is None
+    else:
+        tol = 1e-6 * cell_magnitude(idx, Lf, LO, HI)
+        assert np.all(np.abs(gotf.numpy() - wantf) <= tol)
+    return lays, cols, kw, LO, HI
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "partial", "all_false"])
+@pytest.mark.parametrize("key_kind",
+                         ["int32", "int32_wrapped", "int64", "sparse"])
+def test_fused_plain_matches_reference_composition(key_kind, mask_kind):
+    """4n's aggregates (COUNT(*), COUNT(v), SUM(v), AVG(v) over a NULL-able
+    int32 column) over every key kind and selection: S8 exactly, and no
+    overflow."""
+    check_fused_against_reference(fused_inputs(key_kind, mask_kind,
+                                               seed=len(key_kind)))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_fused_plain_bytes_match_reference(nb, dtype):
+    """Byte planes of int32 and int64 columns at each width the reference
+    builds, with the width's extremes; a NULL-able and a NOT NULL column
+    (validity aliased to the row mask), NULL keys and a selection."""
+    rng = np.random.default_rng(nb * 10 + (dtype == np.int64))
+    columns = {"w": value_column(rng, FUSED_N, dtype, nb, True),
+               "a": value_column(rng, FUSED_N, dtype, nb, False)}
+    aggs = [("sum", "w"), ("avg", "a"), ("count", "w"), ("sum", "a"),
+            ("count_star", None)]
+    check_fused_against_reference(fused_inputs(
+        "int64" if dtype == np.int64 else "int32", "partial", aggs, columns,
+        seed=nb))
+
+
+@pytest.mark.parametrize("aliased", [False, True])
+def test_fused_plain_real_lanes_match_reference(aliased):
+    """REAL SUM/AVG lanes (float32 values, float64 sums) beside an integer
+    lane: Sf within 1e-6·Σ|v| per cell (the reference sums each chunk in
+    float32)."""
+    rng = np.random.default_rng(21 + aliased)
+    r = rng.normal(0.0, 1000.0, FUSED_N).astype(np.float32)
+    ok = np.ones(FUSED_N, bool) if aliased else rng.random(FUSED_N) > 0.2
+    columns = {"r": (np.where(ok, r, 0).astype(np.float32), ok, 0),
+               "v": value_column(rng, FUSED_N, np.int32, 2, True)}
+    aggs = [("sum", "r"), ("count", "r"), ("avg", "r"), ("sum", "v")]
+    check_fused_against_reference(fused_inputs("int32", "partial", aggs,
+                                               columns, seed=5))
+
+
+def test_fused_plain_eight_bytes_are_exact():
+    """nb = 8 over an int64 column with INT64_MIN and INT64_MAX: the bytes
+    are the uint64 split (the reference cannot build these planes, fault
+    4), so the group sums rebuilt from S8 are exact."""
+    rng = np.random.default_rng(88)
+    v = _edge_values(8, FUSED_N, rng)
+    v[4:] //= FUSED_N                   # every group sum fits int64
+    ok = rng.random(FUSED_N) > 0.2
+    inp = fused_inputs("int64", "partial", [("sum", "w")],
+                       {"w": (np.where(ok, v, 0), ok, 8)}, seed=8,
+                       capacity=8)
+    inp["kv"] = (inp["base"] + rng.integers(0, 8, FUSED_N)).astype(np.int64)
+    lays, cols, kw = port_fused_args(inp)
+    p8, pf = tl.plane_counts(lays)
+    LO, HI = kn.twolevel_dims(10, p8, pf)
+    S8p, _Sf, ovf = tl.twolevel_fused(FUSED_N, lays, cols, LO, HI, **kw)
+    assert not bool(ovf)
+    S8 = kn.twolevel_unpack(S8p.numpy(), p8, LO, 10)
+    _present, states = kn.states_from_matmul(lays, [AggSpec("sum", 0)], S8,
+                                             None)
+    live = inp["mask"] & ok
+    slot = np.where(inp["km"], inp["kv"] - inp["base"], 8)
+    want = [sum(int(x) for x in v[live & (slot == g)]) for g in range(9)]
+    assert [int(x) for x in states[0]["sum"][:9]] == want
+    biased = v.astype(np.uint64) + np.uint64(1 << 63)
+    rows = live & (slot == 3)
+    for k in range(8):
+        byte = ((biased >> np.uint64(8 * k)) & np.uint64(0xFF)) \
+            .astype(np.int64) - 128
+        assert int(S8[lays[0].byte_planes[k]][3]) == int(byte[rows].sum())
+
+
+@pytest.mark.parametrize("key_kind", ["int32", "int64"])
+def test_fused_overflow_flag_matches_reference(key_kind):
+    """A live key outside [base, base + capacity) raises the overflow flag
+    on both; one that the selection drops, or a NULL key, does not."""
+    inp = fused_inputs(key_kind, "partial", seed=3)
+    for live, want in ((True, True), (False, False)):
+        bad = inp["kv"].copy()
+        rows = np.flatnonzero(inp["mask"] == live)[:5]
+        bad[rows] = inp["base"] + CAPACITY + 7 if key_kind == "int64" \
+            else -300 + CAPACITY + 7
+        case = dict(inp, kv=bad, km=inp["km"].copy())
+        if not live:                    # a NULL key never overflows either
+            case["km"][np.flatnonzero(inp["mask"])[:3]] = False
+        _S8, _Sf, ovf, *_rest = reference_fused(case)
+        assert ovf == want
+        check_fused_against_reference(case)
+
+
+def planes_from_lanes(lanes, src8, srcf, mask, n):
+    """The planes the fused kernel's lanes stand for, rebuilt with torch
+    ops: each distinct plane once, then repeated per ``src8``/``srcf``."""
+    d8, df = max(src8) + 1, max(srcf, default=-1) + 1
+    dist8, distf = [None] * d8, [None] * df
+    for ln in lanes:
+        ok = mask if ln.ok is None else mask & ln.ok
+        if ln.ok_plane >= 0:
+            dist8[ln.ok_plane] = ok.to(torch.int8)
+        if ln.kind == tl.LANE_REAL:
+            distf[ln.val_plane] = torch.where(ok, ln.values, 0.0) \
+                .to(torch.float32)
+        elif ln.kind != tl.LANE_COUNT:
+            for k, byte in enumerate(kn.value_bytes(ln.values, ln.nb)):
+                dist8[ln.val_plane + k] = torch.where(ok, byte, 0) \
+                    .to(torch.int8)
+    assert all(p is not None for p in dist8 + distf)
+    return (torch.stack([dist8[d] for d in src8]),
+            torch.stack([distf[e] for e in srcf]) if srcf else None)
+
+
+@pytest.mark.parametrize("which", ["4n", "bytes", "real", "aliased_count"])
+def test_lane_plan_repeats_every_plane(which):
+    """The fused kernel accumulates each distinct plane once and copies the
+    repeats: its lanes rebuild ``make_planes``' non-deduplicated planes
+    exactly.  4n's 8 output planes come from 4 distinct ones."""
+    rng = np.random.default_rng(31)
+    n = 500
+    columns = {"v": value_column(rng, n, np.int32, 2, True),
+               "w": value_column(rng, n, np.int64, 3, True),
+               "a": value_column(rng, n, np.int32, 1, False),
+               "r": (rng.normal(0, 10, n).astype(np.float32),
+                     rng.random(n) > 0.3, 0)}
+    aggs = {"4n": [("count_star", None), ("count", "v"), ("sum", "v"),
+                   ("avg", "v")],
+            "bytes": [("sum", "w"), ("sum", "v"), ("avg", "w"),
+                      ("count", "v"), ("count", "w")],
+            "real": [("sum", "r"), ("avg", "r"), ("count", "r"),
+                     ("sum", "a")],
+            "aliased_count": [("count", "a"), ("sum", "a"), ("avg", "a"),
+                              ("count_star", None)]}[which]
+    inp = fused_inputs("int32", "partial", aggs, columns, n=n)
+    lays, cols, _kw = port_fused_args(inp)
+    mask = torch.from_numpy(inp["mask"])
+    want8, wantf = kn.make_planes(lays, cols, mask)
+    lanes, src8, srcf = tl.plan_lanes(lays, cols)
+    got8, gotf = planes_from_lanes(lanes, src8, srcf, mask, n)
+    assert torch.equal(got8, want8)
+    assert (gotf is None) == (wantf is None)
+    if gotf is not None:
+        assert torch.equal(gotf, wantf)
+    distinct = {"4n": 4, "bytes": 8, "real": 3, "aliased_count": 2}[which]
+    assert max(src8) + 1 == distinct
+    assert len(src8) == want8.shape[0]
+
+
+def fake_h100_clusters(cs, slice_bytes):
+    """Clusters an H100 holds at once: 132 SMs of 228 KB, 1 KB reserved
+    per block, at most 8 blocks of 256 threads per SM (GPC limits
+    ignored)."""
+    per_sm = min(8, (228 * 1024) // (slice_bytes + 1024))
+    return 132 * per_sm // cs
+
+
+@pytest.mark.parametrize("slots,d8,df,want", [
+    (1026, 4, 0, ("shared", 1)),                 # 4n: 18 KB
+    (1026, 1, 1, ("shared", 1)),                 # 4r
+    (65538, 3, 0, ("cluster", 4)),               # 4w: 4 × 197 KB
+    (65538, 3, 1, ("cluster", 8)),               # 8 × 164 KB
+    ((1 << 20) + 2, 1, 0, ("global", 0)),        # 4.2 MB
+])
+def test_route_follows_table_size(slots, d8, df, want):
+    """Shared while one block's table fits the opt-in limit, a cluster
+    while a cluster's does (4w: 4 or 8 blocks keep 33 clusters resident;
+    the smaller sends fewer updates to another block), global atomics
+    beyond."""
+    LO, HI = kn.twolevel_dims(slots, d8, df)
+    assert tl.choose_route(4 * d8 + 8 * df, LO, HI, 232448,
+                           fake_h100_clusters) == want
+
+
+def test_fused_wrapper_takes_the_plain_version_on_the_cpu_only():
+    inp = fused_inputs("int32", "partial", seed=2)
+    lays, cols, kw = port_fused_args(inp)
+    p8, pf = tl.plane_counts(lays)
+    LO, HI = kn.twolevel_dims(CAPACITY + 2, p8, pf)
+    before = tl.launches
+    got = tl.twolevel_fused(FUSED_N, lays, cols, LO, HI, **kw)
+    assert tl.launches == before
+    want = tl.twolevel_fused_plain(FUSED_N, lays, cols, LO, HI, **kw)
+    assert torch.equal(got[0], want[0]) and bool(got[2]) == bool(want[2])
+    with pytest.raises(ValueError, match="not both"):
+        tl.twolevel_fused(FUSED_N, lays, cols, LO, HI,
+                          **dict(kw, slot_ids=kw["key"]))
+    with pytest.raises(ValueError, match="HI"):
+        tl.twolevel_fused(FUSED_N, lays, cols, LO, 8, **kw)
+    with pytest.raises(ValueError, match="rows"):
+        tl.twolevel_fused(FUSED_N + 1, lays, cols, LO, HI, **kw)

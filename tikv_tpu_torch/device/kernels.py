@@ -11,11 +11,13 @@ states as one contraction over stacked planes:
 - a REAL SUM/AVG adds one float32 plane instead.
 
 The contraction itself is ``device/twolevel.py`` (the CUDA kernel
-``csrc/twolevel.cu`` and its plain version); ``states_from_matmul`` turns
-its unpacked sums back into the ops/agg.py state dicts on the host.
+``csrc/twolevel.cu``, which builds the slots and planes in registers, and
+its plain version); ``states_from_matmul`` turns its unpacked sums back
+into the ops/agg.py state dicts on the host.
 
-``make_planes`` and ``slot_index`` run on torch tensors; the layout and
-finalize helpers on plain Python and numpy.
+``make_planes`` and ``slot_index`` run on torch tensors (the plain
+version's composition); the layout and finalize helpers on plain Python
+and numpy.
 """
 
 from __future__ import annotations
@@ -118,7 +120,7 @@ def value_bytes(values: torch.Tensor, nb: int) -> list:
             for k in range(nb)]
 
 
-def make_planes(layouts, specs, cols, mask: torch.Tensor):
+def make_planes(layouts, cols, mask: torch.Tensor):
     """Stacked planes for the rows of ``mask``.
 
     ``cols[i]``: (values, validity) of spec i (ignored for COUNT(*)).
@@ -216,7 +218,7 @@ def slot_index(key_pair, capacity: int, base: int, row_mask: torch.Tensor):
     kv, km = key_pair
     if kv.dtype == torch.int32:
         b32 = ((int(base) + (1 << 31)) % (1 << 32)) - (1 << 31)
-        shifted = kv - torch.tensor(b32, dtype=torch.int32, device=kv.device)
+        shifted = kv - b32      # a Python int keeps int32, wrapping
     else:
         shifted = kv.to(torch.int64) - int(base)
     in_range = (shifted >= 0) & (shifted < capacity)

@@ -20,9 +20,10 @@ INT GROUP BY key) over a columnar snapshot runs as:
      inside its gate — int32 non-NULL inputs, int32 arguments, at most
      ``hash_agg.MAX_SLOTS`` slots;
   2. the two-level route (GROUP BY only): COUNT/SUM/AVG outside that
-     gate.  The arguments become int8 byte planes and float32 planes
-     (``kernels.make_planes``) and ``twolevel`` (the CUDA kernel
-     ``csrc/twolevel.cu``) contracts them into per-slot sums;
+     gate.  ``twolevel_fused`` (the CUDA kernel ``csrc/twolevel.cu``)
+     reads the key, the mask and the arguments' columns, splits each row
+     into its slot and its int8 byte / float32 planes in registers
+     (``kernels.build_layouts``' layout) and sums them per slot;
   3. the scatter route (GROUP BY) and the simple body (no GROUP BY):
      every other plan, as composed torch ops (``ops/agg.py``);
 - GROUP BY keys index their slots directly while the key span is at most
@@ -59,7 +60,7 @@ from ..ops.agg import (_BIG, AggSpec, finalize_hash, finalize_simple,
 from . import hash_agg as ha
 from . import kernels as kn
 from . import resolve_device
-from .twolevel import twolevel
+from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
 # the reference's device aggregate set (runner.py:1401-1407)
@@ -631,16 +632,6 @@ class DeviceRunner:
                                         "states": states},
                                  base, capacity, slot_keys)
 
-    def _slot_ids(self, plan, pairs, n, mask, base, capacity, slot_ids):
-        """(int32 slot per row, overflow flag | None): the sparse plane
-        under the mask, or the dense key's slot (``kernels.slot_index``)."""
-        if slot_ids is not None:
-            scrap = torch.full((), capacity + 1, dtype=torch.int32,
-                               device=self.device)
-            return torch.where(mask, slot_ids[:n], scrap), None
-        key_pair = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
-        return kn.slot_index(key_pair, capacity, base, mask)
-
     @staticmethod
     def _check_overflow(overflow) -> None:
         # a live key outside [base, base + capacity): the bounds came from
@@ -654,15 +645,25 @@ class DeviceRunner:
                       layouts, p8, pf):
         slots = capacity + 2
         pairs, mask = self._inputs(plan, feed, n)
-        if mask is None:
-            mask = torch.ones(n, dtype=torch.bool, device=self.device)
-        cols = self._agg_cols(plan, pairs, n, mask)
-        idx, overflow = self._slot_ids(plan, pairs, n, mask, base, capacity,
-                                       slot_ids)
-        L8, Lf = kn.make_planes(layouts, plan.specs, cols, mask)
-        del cols
+        # each distinct argument once: aggregates over one expression
+        # share its tensors, so the kernel reads its column once
+        evaluated: dict = {}
+        cols = []
+        for r in plan.agg_rpns:
+            if r is not None and r not in evaluated:
+                evaluated[r] = eval_rpn(r, pairs, n, torch, self.device)
+            cols.append(None if r is None else evaluated[r])
+        key = key_ok = None
+        if slot_ids is None:
+            key, key_ok = eval_rpn(plan.key_rpn, pairs, n, torch,
+                                   self.device)
+            ci = _bare_col(plan.key_rpn)
+            if ci is not None and not feed["null_flags"][ci]:
+                key_ok = None           # no NULL key: nothing to read
         LO, HI = kn.twolevel_dims(slots, p8, pf)
-        S8p, Sfp = twolevel(idx.contiguous(), L8, Lf, LO, HI)
+        S8p, Sfp, overflow = twolevel_fused(
+            n, layouts, cols, LO, HI, capacity, base=base, key=key,
+            key_ok=key_ok, slot_ids=slot_ids, mask=mask)
         got = {"S8": S8p}
         if Sfp is not None:
             got["Sf"] = Sfp
