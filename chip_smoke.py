@@ -9,10 +9,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``tikv_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together; timed, with the ptxas report);
+   source, started together; timed, with the ptxas report and the shared
+   atomics in ``hash_agg``'s SASS);
 3. every kernel against its plain PyTorch version on the card over the
-   edge cases of the CPU tests: ``hash_agg`` exactly (integer states, and
-   at 2^24 rows); ``twolevel`` exactly for its int8 planes and within
+   edge cases of the CPU tests: ``hash_agg`` exactly (integer states) in
+   both cell formats, at 2^24 rows, on one hot slot over 2^24 rows at the
+   int32 (packed cells) and int16 (split cells) extremes, with repeated
+   lanes and validity planes, planes 1-3 rows off a 16-byte boundary (at
+   one phase or at several), ``n`` not a multiple of 4, and 4096 slots over
+   several launches; ``twolevel`` exactly for its int8 planes and within
    1e-9·Σ|v| per cell for its float planes (float64 sums in another
    order) through both entries: the fused entry over raw columns (int32,
    int64 and sparse keys, NULL keys, no / partial / all-false selection,
@@ -33,19 +38,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cold and five warm requests, the kernels' launch counts read around
    the run (each config must launch the kernels of its route and no
    other), the peak device memory of one more warm request beyond what
-   was resident before it, and one profiled warm request;
+   was resident before it, and one profiled warm request; for 3, 4 and 4s
+   one line of host-clock phases of a warm request (analyze, inputs,
+   launch, D2H wait, finalize);
 5. each kernel against its plain version at the main path's shapes, and
    timed there with CUDA events beside its bound and one library call
-   that computes the same function (a yardstick the port never calls);
+   that computes the same function (a yardstick the port never calls):
+   ``hash_agg`` at configs 3, 4 and 4s (4 and 4s also with packed cells);
    ``twolevel``'s fused entry at 4n, 4w and 4r on the runner's own
    arguments, also beside the planes path it replaced (``slot_index`` +
    ``make_planes`` + the planes kernel, on the same inputs), with the
    peak device memory of each, and on every route its table can take;
 6. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
-   times at its main shape (config 4 for ``hash_agg``, config 4n for
-   ``twolevel``'s fused entry, with its route at each config), and the
-   least time the card could take;
+   times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
+   and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
+   its route at each config), and the least time the card could take;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -139,9 +147,45 @@ def build_kernels() -> None:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         for name, secs, log in pool.map(one, KERNELS):
             print(f"build: {name} in {secs:.3f} s", flush=True)
-            for line in log.splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}", flush=True)
+            print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
+    shared_atomics("hash_agg")
+
+
+def ptxas_summary(log: str) -> str:
+    """One line from ``-Xptxas -v``'s report: kernels, the most registers
+    any uses, and the largest stack frame and spills."""
+    regs, frames, spills, kernels = [0], [0], [0], 0
+    for line in log.splitlines():
+        words = line.replace(",", " ").split()
+        if "Compiling entry function" in line:
+            kernels += 1
+        for i, w in enumerate(words[1:], 1):
+            if w == "registers" and words[i - 1].isdigit():
+                regs.append(int(words[i - 1]))
+            if w == "bytes" and words[i - 1].isdigit() and i + 1 < len(words):
+                if words[i + 1] == "stack":
+                    frames.append(int(words[i - 1]))
+                elif words[i + 1] == "spill":
+                    spills.append(int(words[i - 1]))
+    return (f"{kernels} kernels, at most {max(regs)} registers, largest "
+            f"stack frame {max(frames)} B, largest spill {max(spills)} B")
+
+
+def shared_atomics(name: str) -> None:
+    """Print the shared-memory atomic instructions of a built library's
+    SASS by kind (``cuobjdump -sass``), e.g. whether a 64-bit add is one
+    ATOMS.ADD.64 or a compare-and-swap loop."""
+    from tikv_tpu_torch.device import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.lib_path(name))],
+                          capture_output=True, text=True).stdout
+    kinds: dict = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith("ATOMS"):
+                kinds[word] = kinds.get(word, 0) + 1
+    print(f"sass {name}: shared atomics " + (" ".join(
+        f"{k}x{v}" for k, v in sorted(kinds.items())) or "none"), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +241,95 @@ def kernel_cases(dev, big: int):
     yield f"dense_{big}_rows", dict(mode="dense", n=big, slots=1026,
                                     n_slots=1024, key=kb, base=0,
                                     capacity=1024, lanes=[Lane(values=vb)])
+    # the redesign's edges: one hot slot over 2^24 rows at the int32
+    # extremes (the packed cells fold every 2^15 rows), in each mode
+    hot = 1 << 24
+    ext = torch.tensor([2**31 - 1, -2**31], dtype=torch.int32,
+                       device=dev)[ints(0, 2, hot).long()]
+    ext[: hot // 2] = 2**31 - 1                 # a sum far past int32
+    for mode, key in (("dense", torch.full((hot,), 1000, dtype=torch.int32,
+                                           device=dev)),
+                      ("sparse", torch.full((hot,), 7, dtype=torch.int32,
+                                            device=dev))):
+        yield f"hot_slot_{mode}_int32_extremes_{hot}_rows", dict(
+            mode=mode, n=hot, slots=1026, n_slots=1024, key=key, base=0,
+            capacity=1024, lanes=[Lane(values=ext), Lane(values=ext),
+                                  Lane(ok=bools(0.5, hot))])
+    yield f"hot_slot_simple_int32_extremes_{hot}_rows", dict(
+        mode="simple", n=hot, slots=1, n_slots=1,
+        lanes=[Lane(values=ext), Lane(values=ext, ok=bools(0.5, hot))])
+    yield f"hot_slot_narrow_values_{hot}_rows", dict(
+        mode="dense", n=hot, slots=1026, n_slots=1024, value_bytes=1,
+        key=torch.full((hot,), 3, dtype=torch.int32, device=dev), base=0,
+        capacity=1024, lanes=[Lane(values=torch.full(
+            (hot,), -128, dtype=torch.int32, device=dev))])
+    del ext
+    # values of 2 bytes: 32-bit split cells, folded every 2^16 rows
+    e16 = torch.tensor([2**15 - 1, -2**15], dtype=torch.int32,
+                       device=dev)[ints(0, 2, hot).long()]
+    for mode, key in (("dense", torch.full((hot,), 1023, dtype=torch.int32,
+                                           device=dev)),
+                      ("sparse", torch.zeros(hot, dtype=torch.int32,
+                                             device=dev))):
+        yield f"hot_slot_{mode}_int16_extremes_{hot}_rows_split", dict(
+            mode=mode, n=hot, slots=1026, n_slots=1024, key=key, base=0,
+            capacity=1024, value_bytes=2,
+            lanes=[Lane(values=e16), Lane(values=e16, ok=bools(0.5, hot)),
+                   Lane(ok=bools(0.5, hot))])
+    del e16
+    yield "dense_split", dict(dense, value_bytes=2, lanes=[Lane(values=v)])
+    yield "sparse_split", dict(mode="sparse", n=B, slots=1026, n_slots=1025,
+                               key=ints(0, 1026, B), capacity=1024,
+                               value_bytes=2, lanes=[Lane(values=v)])
+    yield "dense_expr_key_split", dict(
+        dense, n_slots=1025, key=ints(-3, 1003, B), key_ok=bools(0.9, B),
+        base=-3, mask=bools(0.7, B), value_bytes=2,
+        lanes=[Lane(values=v, ok=bools(0.8, B)), Lane(ok=bools(0.5, B))])
+    yield "4096_slots_split_cells_3_lanes", dict(
+        mode="dense", n=B, slots=4098, n_slots=4096, key=ints(0, 4096, B),
+        base=0, capacity=4096, value_bytes=1,
+        lanes=[Lane(values=ints(-128, 128, B)) for _ in range(3)])
+    # repeated lanes: one values plane under two validity planes, a lane
+    # repeated, and a COUNT lane sharing a validity plane
+    a, b = bools(0.6, B), bools(0.3, B)
+    for vb in (2, 4):
+        yield f"repeated_lanes_two_validities_{vb}_byte_values", dict(
+            dense, mask=bools(0.8, B), value_bytes=vb,
+            lanes=[Lane(values=v, ok=a), Lane(values=v, ok=b),
+                   Lane(values=v, ok=a), Lane(ok=b), Lane(values=v)])
+    yield "config_3_lanes_one_plane", dict(
+        mode="simple", n=B, slots=1, n_slots=1, value_bytes=2,
+        lanes=[Lane(values=v), Lane(values=v)])
+    # planes 1-3 elements off a 16-byte boundary: all at one phase (a
+    # scalar head, then 16-byte loads), or at different phases (scalar)
+    K, V = ints(0, 1024, B + 8), ints(-1000, 1000, B + 8)
+    M, O = bools(0.7, B + 8), bools(0.6, B + 8)
+    for off in (1, 2, 3):
+        for mode, vb in (("dense", 4), ("dense", 2), ("simple", 4)):
+            yield f"{mode}_{vb}_byte_planes_off_by_{off}", dict(
+                dense, mode=mode, n=B - 5, key=K[off:], mask=M[off:],
+                slots=1026 if mode == "dense" else 1,
+                n_slots=1024 if mode == "dense" else 1, value_bytes=vb,
+                lanes=[Lane(values=V[off:], ok=O[off:])])
+            yield f"{mode}_{vb}_byte_planes_off_by_{off}_phases_differ", dict(
+                dense, mode=mode, n=B - 5, key=K[off:], mask=M[4 - off:],
+                slots=1026 if mode == "dense" else 1,
+                n_slots=1024 if mode == "dense" else 1, value_bytes=vb,
+                lanes=[Lane(values=V[(off + 1) % 4:])])
+    for n in (1, 3, 4097, B - 1):
+        for vb in (2, 4):
+            yield f"n_{n}_not_a_multiple_of_4_{vb}_byte_values", dict(
+                dense, n=n, mask=M, value_bytes=vb, lanes=[Lane(values=v)])
+    yield "4096_slots_8_lanes", dict(
+        mode="dense", n=B, slots=4098, n_slots=4096, key=ints(0, 4096, B),
+        base=0, capacity=4096,
+        lanes=[Lane(values=ints(-(1 << 30), 1 << 30, B), ok=bools(0.5, B))
+               for _ in range(8)])
+
+
+def plain_args(kw: dict) -> dict:
+    """hash_agg's arguments without the kernel's value width."""
+    return {k: v for k, v in kw.items() if k != "value_bytes"}
 
 
 def max_abs_diff(got, want) -> int:
@@ -216,7 +349,7 @@ def check_kernels(dev, big: int) -> int:
     for name, kw in kernel_cases(dev, big):
         got = ha.hash_agg(device=dev, **kw)
         torch.cuda.synchronize()
-        want = ha.hash_agg_plain(device=dev, **kw)
+        want = ha.hash_agg_plain(device=dev, **plain_args(kw))
         torch.cuda.synchronize()
         err = max_abs_diff(got, want)
         print(f"kernel hash_agg {name}: max_abs_err={err}", flush=True)
@@ -547,9 +680,64 @@ def run_config(config: str, n: int, runner) -> dict:
     print(f"config {config}: " + " ".join(f"{k}={v}" for k, v in out.items()
                                           if k != "config"), flush=True)
     profile_request(config, runner, dag, snap)
+    if ROUTE[config] == "hash_agg":
+        out["host_phases_ms"] = host_phases(runner, dag, snap)
     del snap
     gc.collect()
     return out
+
+
+def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
+    """Host-clock phases (ms, the median of ``repeats`` warm requests) of a
+    request on the hash_agg route: analyze (``_analyze``), inputs
+    (``_inputs``: the feed's planes and the selection), launch
+    (``hash_agg``: lane plan and kernel launch), d2h_wait (the rest of
+    ``_aggregate``: the lane list, then the one D2H copy, which waits for
+    the kernel), finalize (``states_from_lanes`` and the result columns)
+    and other (the rest of ``handle_request``: feed and meta lookups)."""
+    from tikv_tpu_torch.device import hash_agg as ha
+    saved = counts()
+    names = ("_analyze", "_inputs", "_aggregate", "_simple_result",
+             "_hash_result", "hash_agg", "states_from_lanes")
+    runs = []
+    for _ in range(repeats):
+        spent = dict.fromkeys(names, 0.0)
+
+        def timed(name, fn):
+            def wrap(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[name] += time.perf_counter() - t0
+            return wrap
+
+        originals = {n: getattr(ha, n) for n in names[5:]}
+        for n in names[:5]:
+            setattr(runner, n, timed(n, getattr(runner, n)))
+        for n, fn in originals.items():
+            setattr(ha, n, timed(n, fn))
+        try:
+            t0 = time.perf_counter()
+            runner.handle_request(dag, snap)
+            total = time.perf_counter() - t0
+        finally:
+            for n in names[:5]:
+                delattr(runner, n)
+            for n, fn in originals.items():
+                setattr(ha, n, fn)
+        ms = {k: v * 1e3 for k, v in spent.items()}
+        result = ms["_simple_result"] + ms["_hash_result"]
+        runs.append({
+            "analyze": ms["_analyze"], "inputs": ms["_inputs"],
+            "launch": ms["hash_agg"],
+            "d2h_wait": ms["_aggregate"] - ms["_inputs"] - ms["hash_agg"]
+            - ms["states_from_lanes"],
+            "finalize": ms["states_from_lanes"] + result,
+            "other": total * 1e3 - ms["_analyze"] - ms["_aggregate"] - result,
+            "total": total * 1e3})
+    set_counts(saved)
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
 
 
 def peak_bytes(fn) -> int:
@@ -600,13 +788,17 @@ def profile_request(config: str, runner, dag, snap) -> None:
 
 def main_path_inputs(config: str, n: int, dev) -> dict:
     """hash_agg's arguments exactly as the runner builds them for one
-    config: the int32 feed planes, the slot layout and one lane per
-    SUM/AVG (config 3's SUM(v) and AVG(v) are two lanes over one plane)."""
+    config: the int32 feed planes, the slot layout, one lane per SUM/AVG
+    (config 3's SUM(v) and AVG(v) are two lanes over one plane) and the
+    value width of ``_arg_nbytes`` (v's range)."""
     from tikv_tpu_torch.device import hash_agg as ha
+    from tikv_tpu_torch.device import kernels as kn
     from tikv_tpu_torch.testing import configs as cf
     _table, snap = cf.CONFIGS[config][0](n)
-    v = torch.from_numpy(snap.columns[3].values.astype(np.int32)).to(dev)
-    kw = dict(n=n, device=dev)
+    vn = snap.columns[3].values
+    v = torch.from_numpy(vn.astype(np.int32)).to(dev)
+    kw = dict(n=n, device=dev, value_bytes=kn.int_planes_needed(
+        int(vn.min()), int(vn.max())))
     if config == "3":
         kw.update(mode="simple", slots=1, n_slots=1,
                   lanes=[ha.Lane(values=v), ha.Lane(values=v)])
@@ -625,27 +817,47 @@ def main_path_inputs(config: str, n: int, dev) -> dict:
 def kernel_at_main_shapes(dev) -> tuple:
     """hash_agg against its plain version (exact) and timed, at each of
     configs 3, 4 and 4s's main-path shapes; → (largest difference,
-    config 4 timing)."""
+    config → timing)."""
     from tikv_tpu_torch.device import hash_agg as ha
-    worst, timing = 0, None
+    worst, timings = 0, {}
     for config in ("3", "4", "4s"):
         n = SIZES[config]
         kw = main_path_inputs(config, n, dev)
         saved = counts()
-        err = max_abs_diff(ha.hash_agg(**kw), ha.hash_agg_plain(**kw))
+        err = max_abs_diff(ha.hash_agg(**kw),
+                           ha.hash_agg_plain(**plain_args(kw)))
         assert err == 0, f"hash_agg disagrees with its plain version " \
             f"at config {config}'s shape"
         worst = max(worst, err)
+        plan = ha.plan_lanes(kw["lanes"])
         ms = cuda_ms(lambda: ha.hash_agg(**kw), 20, queued=True)
+        fmt = "registers" if kw["mode"] == "simple" else ha.plan_launches(
+            kw["mode"], kw["n_slots"], plan.lanes,
+            ha._smem_limit(ha._kernel_lib(), dev.index or 0),
+            kw["value_bytes"])[0].fmt
+        other = {}
+        if config != "3":               # packed cells on the same inputs
+            chosen = ha.cell_format
+            ha.cell_format = lambda *_a: ha.FMT_PACKED
+            try:
+                assert max_abs_diff(ha.hash_agg(**kw), ha.hash_agg_plain(
+                    **plain_args(kw))) == 0
+                other["packed_ms"] = cuda_ms(lambda: ha.hash_agg(**kw), 20,
+                                             queued=True)
+            finally:
+                ha.cell_format = chosen
         set_counts(saved)               # measurement launches do not count
-        plain_ms = cuda_ms(lambda: ha.hash_agg_plain(**kw), 3)
+        plain_ms = cuda_ms(lambda: ha.hash_agg_plain(**plain_args(kw)), 3)
         # inputs read once (config 3's two lanes share one plane), states
         # written once; ops: slot, count add, one add per lane
         planes = 1 if config == "3" else 2
         lanes = len(kw["lanes"])
         out = {"ms": ms, "plain_ms": plain_ms,
                **bound_ms(4 * n * planes + 8 * kw["slots"] * (1 + lanes),
-                          n * (2 + lanes))}
+                          n * (2 + lanes)),
+               "distinct_lanes": len(plan.lanes),
+               "value_bytes": kw["value_bytes"], "cell_format": fmt,
+               **other}
         # yardstick only (the port never calls it): one library call over
         # the same values: an int64 sum (config 3; its COUNT is n), or a
         # scatter-add into the 1026 int64 slots by key or slot id
@@ -659,14 +871,14 @@ def kernel_at_main_shapes(dev) -> tuple:
                 1026, dtype=torch.int64, device=dev).index_add_(
                     0, slots64, v64), 10)
             del slots64, v64
-        if config == "4":
-            timing = out
+        out["rows"] = n
+        timings[config] = out
         print(f"kernel hash_agg at config {config} shape ({n} rows): "
               f"max_abs_err={err} tolerance=0 (integer states) " +
               " ".join(f"{k}={v}" for k, v in out.items()), flush=True)
         del kw, v
         gc.collect()
-    return worst, timing
+    return worst, timings
 
 
 def captured_twolevel_inputs(config: str, runner) -> tuple:
@@ -891,8 +1103,16 @@ def main() -> int:
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
-    err, hash_timing = kernel_at_main_shapes(dev)
+    print("host phases of one warm request (ms, host clock, median of 5): "
+          + "; ".join(f"config {r['config']}: " + " ".join(
+              f"{k}={v}" for k, v in r["host_phases_ms"].items())
+                      for r in runs if "host_phases_ms" in r), flush=True)
+    err, hash_timings = kernel_at_main_shapes(dev)
     worst["hash_agg"] = max(worst["hash_agg"], err)
+    hash_timing = {k: v for k, v in hash_timings["4"].items()
+                   if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}
+    hash_timing["configs"] = hash_timings
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
 

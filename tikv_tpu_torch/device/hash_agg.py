@@ -22,6 +22,13 @@ kernel refuses plans whose kernel reads no column (a zero-input
 ``hash_agg`` takes the plain version only for a device of type ``cpu``;
 on a CUDA device it launches the kernel or raises.  ``launches`` counts
 kernel launches and nothing else.
+
+The launcher's plan is pure Python, so the CPU tests reach it: lanes that
+hold the same tensors are read once (``plan_lanes``, ``plane_sources``),
+the table modes take 32-bit or 64-bit shared cells (``cell_format``) and
+fold them before they can overflow (``geometry``), and misaligned planes
+get a scalar head (``row_phase``).  The card's limits are queried once per
+kernel shape and cached.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ MAX_SLOTS = 1 << 12
 
 # lanes per launch the CUDA kernel is instantiated for
 MAX_LANES = 8
+MAX_CELLS = 2 * MAX_LANES + 1
 
 MODE_DENSE = "dense"
 MODE_SPARSE = "sparse"
@@ -190,10 +198,245 @@ def _as_int32(v: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the kernel's lanes and launch geometry (pure Python: the CPU tests reach it)
+# ---------------------------------------------------------------------------
+
+THREADS = 256          # threads per block (csrc/hash_agg.cu)
+WARPS = THREADS // 32
+
+
+def _ident(t):
+    """Tensors with one identity hold the same rows (they are checked to be
+    contiguous and 1-D)."""
+    return None if t is None else (t.device, t.dtype, t.data_ptr())
+
+
+@dataclass
+class LanePlan:
+    """``lanes``: the distinct lanes the kernel reads, in first-seen order
+    (two lanes are one where they hold the same values and validity
+    tensors); ``of[i]``: the distinct lane given lane i repeats, or -1 for
+    a lane that reads nothing (no values, no validity)."""
+
+    lanes: list
+    of: list
+
+
+def plan_lanes(lanes: Sequence[Lane]) -> LanePlan:
+    """The distinct lanes of ``lanes`` (see ``LanePlan``)."""
+    distinct, of, index = [], [], {}
+    for ln in lanes:
+        if ln.values is None and ln.ok is None:
+            of.append(-1)
+            continue
+        key = (_ident(ln.values), _ident(ln.ok))
+        if key not in index:
+            index[key] = len(distinct)
+            distinct.append(ln)
+        of.append(index[key])
+    return LanePlan(distinct, of)
+
+
+def plane_sources(lanes: Sequence[Lane]) -> tuple:
+    """(vsrc, osrc): per lane of one launch, the first lane of that launch
+    with the same values (validity) tensor — the one whose load it
+    shares.  A lane without such a plane is its own source."""
+    vfirst, ofirst, vsrc, osrc = {}, {}, [], []
+    for j, ln in enumerate(lanes):
+        vsrc.append(j if ln.values is None
+                    else vfirst.setdefault(_ident(ln.values), j))
+        osrc.append(j if ln.ok is None
+                    else ofirst.setdefault(_ident(ln.ok), j))
+    return vsrc, osrc
+
+
+FMT_PACKED = "packed"
+FMT_SPLIT = "split"
+_FMT_CODE = {FMT_PACKED: 0, FMT_SPLIT: 1}
+
+
+@dataclass
+class Launch:
+    """One kernel launch: its distinct lanes, whether it adds the row count
+    (the first launch does), its cell format, its cells per slot and its
+    dynamic shared memory in bytes.
+
+    ``packed``: one 64-bit cell per lane (count << shift | biased sum), and
+    one for the row count unless ``row_lane`` (a lane with values and no
+    validity of its own) carries it.  ``split``: 32-bit cells — ``cells[c]``
+    is ("sum" | "count", lane) or ("rows", -1), sums first — each with an
+    int64 twin in the table its folds add into."""
+
+    lanes: list
+    count: bool
+    fmt: str
+    row_lane: int
+    n_cells: int
+    smem: int
+    cells: list
+
+
+def split_cells(lanes: Sequence[Lane]) -> list:
+    """The ``split`` format's cells for ``lanes``: each SUM, each lane's own
+    non-NULL count, the row count."""
+    return [("sum", j) for j, ln in enumerate(lanes)
+            if ln.values is not None] \
+        + [("count", j) for j, ln in enumerate(lanes) if ln.ok is not None] \
+        + [("rows", -1)]
+
+
+def cell_format(n_slots: int, lanes: Sequence[Lane], value_bytes: int,
+                smem_limit: int) -> str:
+    """``split`` where a 32-bit sum cell lasts 2^16 rows or more (values
+    of at most 2 bytes) and every lane fits one launch's table (4 + 8
+    bytes per cell); else ``packed``.  A 64-bit shared atomic add is a
+    compare-and-swap loop on Hopper (``ATOMS.CAST.SPIN.64``), a 32-bit one
+    a single instruction, so two 32-bit adds beat one 64-bit add."""
+    if value_bytes > 2 or len(lanes) > MAX_LANES:
+        return FMT_PACKED
+    fits = 12 * n_slots * len(split_cells(lanes)) <= smem_limit
+    return FMT_SPLIT if fits else FMT_PACKED
+
+
+def lanes_per_launch(n_slots: int, smem_limit: int) -> int:
+    """How many lanes fit one block's table of 8-byte packed cells, one
+    cell per slot kept for the row count."""
+    fit = smem_limit // (8 * n_slots) - 1
+    if fit < 1:
+        raise ValueError(f"{n_slots} slots do not fit {smem_limit} B of "
+                         "shared memory")
+    return min(MAX_LANES, fit)
+
+
+def plan_launches(mode: str, n_slots: int, lanes: Sequence[Lane],
+                  smem_limit: int, value_bytes: int = 4) -> list:
+    """The launches that add ``lanes`` (distinct) for ``n_slots`` slots,
+    with values of ``value_bytes`` bytes.  Simple mode sums in registers
+    (its format is nominal) and needs shared memory only for the final
+    per-warp reduction."""
+    if mode == MODE_SIMPLE:
+        groups = [list(lanes[i:i + MAX_LANES])
+                  for i in range(0, len(lanes), MAX_LANES)] or [[]]
+        return [Launch(group, g == 0, FMT_PACKED, -1, 0,
+                       8 * WARPS * (1 + 2 * len(group)), [])
+                for g, group in enumerate(groups)]
+    if cell_format(n_slots, lanes, value_bytes, smem_limit) == FMT_SPLIT:
+        cells = split_cells(lanes)
+        return [Launch(list(lanes), True, FMT_SPLIT, -1, len(cells),
+                       12 * n_slots * len(cells), cells)]
+    per = lanes_per_launch(n_slots, smem_limit)
+    groups = [list(lanes[i:i + per]) for i in range(0, len(lanes), per)] \
+        or [[]]
+    out = []
+    for g, group in enumerate(groups):
+        count = g == 0
+        row_lane = next((j for j, ln in enumerate(group)
+                         if ln.values is not None and ln.ok is None), -1) \
+            if count else -1
+        cells = len(group) + (1 if count and row_lane < 0 else 0)
+        out.append(Launch(group, count, FMT_PACKED, row_lane, cells,
+                          8 * n_slots * cells, []))
+    return out
+
+
+def unroll(mode: str, n_lanes: int) -> int:
+    """4-row groups each thread loads before adding any (csrc Unroll)."""
+    if mode == MODE_SIMPLE:
+        return 4 if n_lanes <= 2 else 2 if n_lanes <= 4 else 1
+    return 2 if n_lanes <= 4 else 1
+
+
+def tile_rows(mode: str, n_lanes: int) -> int:
+    """Rows a block reads per step."""
+    return THREADS * 4 * unroll(mode, n_lanes)
+
+
+def fold_bits(value_bytes: int, fmt: str = FMT_PACKED) -> int:
+    """log2 of the rows a block may add into its cells between two folds,
+    for values of ``value_bytes`` bytes (0: no values).  ``packed``: the
+    cell holds count << shift | Σ(v + 2^(8nb-1)); with 2^k rows both fields
+    fit 64 bits while 8nb + 2k ≤ 63.  ``split``: a 32-bit sum of 2^k values
+    of nb bytes stays within int32 while 8nb - 1 + k ≤ 31 (a count cell
+    within uint32 while k ≤ 32)."""
+    if fmt == FMT_SPLIT:
+        return 32 - 8 * value_bytes if value_bytes else 32
+    return (63 - 8 * value_bytes) // 2
+
+
+def cell_shift(value_bytes: int) -> int:
+    """Bit where a packed cell's count starts."""
+    return 8 * value_bytes + fold_bits(value_bytes)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    grid: int           # blocks
+    fold_every: int     # steps (tiles) a block takes between two folds
+    shift: int          # packed cell = count << shift | biased sum
+    bias: int           # 2^(8nb-1), added to every value (packed)
+
+
+def geometry(mode: str, n: int, n_lanes: int, value_bytes: int,
+             resident: int, fmt: str = FMT_PACKED) -> Geometry:
+    """Launch geometry for ``n`` rows: at most ``resident`` blocks (as
+    many as the card holds at once) striding over tiles, and folds often
+    enough that no cell overflows: a block adds at most ``fold_every``
+    tiles plus the (< 4) head rows between two folds, fewer than
+    2^fold_bits rows."""
+    if resident < 1:
+        raise ValueError("the kernel does not fit the card")
+    if not 0 <= value_bytes <= 4 or (fmt == FMT_SPLIT and value_bytes > 2):
+        raise ValueError(f"value_bytes={value_bytes} does not suit {fmt}")
+    tile = tile_rows(mode, n_lanes)
+    tiles = -(-max(n, 0) // tile)
+    k = fold_bits(value_bytes, fmt)
+    fold_every = (1 << k) // tile - 1
+    assert fold_every >= 1 and fold_every * tile + 3 < 1 << k
+    return Geometry(grid=max(1, min(tiles, resident)), fold_every=fold_every,
+                    shift=cell_shift(value_bytes),
+                    bias=(1 << (8 * value_bytes - 1)) if value_bytes else 0)
+
+
+def row_phase(int_ptrs: Sequence[int], bool_ptrs: Sequence[int]):
+    """Rows to read one by one before every int32 plane (``int_ptrs``)
+    sits on a 16-byte boundary and every bool plane on a 4-byte one; None
+    where the planes disagree (the kernel then reads every row alone)."""
+    if any(p % 4 for p in int_ptrs):
+        raise ValueError("an int32 plane is not 4-byte aligned")
+    phases = {(-p // 4) % 4 for p in int_ptrs} | {(-p) % 4 for p in bool_ptrs}
+    if len(phases) > 1:
+        return None
+    return phases.pop() if phases else 0
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel launcher
 # ---------------------------------------------------------------------------
 
 _lib = None
+_SMEM_LIMIT: dict = {}      # device index → opt-in shared bytes per block
+_RESIDENT: dict = {}        # (device, mode, format, lanes, smem) → blocks
+
+
+class _Params(ctypes.Structure):
+    """``struct Params`` of csrc/hash_agg.cu."""
+    _p = ctypes.c_void_p
+    _fields_ = [
+        ("key", _p), ("key_ok", _p), ("mask", _p),
+        ("n", ctypes.c_longlong), ("head", ctypes.c_longlong),
+        ("vec", ctypes.c_int), ("base", ctypes.c_int),
+        ("capacity", ctypes.c_int), ("n_slots", ctypes.c_int),
+        ("n_lanes", ctypes.c_int), ("row_lane", ctypes.c_int),
+        ("n_cells", ctypes.c_int), ("shift", ctypes.c_int),
+        ("bias", ctypes.c_uint), ("fold_every", ctypes.c_int),
+        ("values", _p * MAX_LANES), ("ok", _p * MAX_LANES),
+        ("vsrc", ctypes.c_int * MAX_LANES), ("osrc", ctypes.c_int * MAX_LANES),
+        ("sum_out", _p * MAX_LANES), ("nonnull_out", _p * MAX_LANES),
+        ("count_out", _p),
+        ("sum_cell", ctypes.c_int * MAX_LANES),
+        ("cnt_cell", ctypes.c_int * MAX_LANES),
+        ("row_cell", ctypes.c_int), ("n_sum", ctypes.c_int),
+        ("cell_out", _p * MAX_CELLS)]
 
 
 def _kernel_lib():
@@ -201,19 +444,47 @@ def _kernel_lib():
     if _lib is None:
         from .build import load
         lib = load("hash_agg")
-        p = ctypes.c_void_p
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        lib.hash_agg_launch.argtypes = [
-            ctypes.c_int, p, p, p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            pp, pp, pp, pp, p, p]
-        lib.hash_agg_launch.restype = ctypes.c_int
-        lib.hash_agg_smem_limit.argtypes = [ctypes.c_int]
-        lib.hash_agg_smem_limit.restype = ctypes.c_int
-        lib.hash_agg_error_string.argtypes = [ctypes.c_int]
+        i = ctypes.c_int
+        lib.hash_agg_prepare.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+        lib.hash_agg_prepare.restype = i
+        lib.hash_agg_launch.argtypes = [i, ctypes.POINTER(_Params), i, i, i,
+                                        i, ctypes.c_void_p]
+        lib.hash_agg_launch.restype = i
+        lib.hash_agg_smem_limit.argtypes = [i]
+        lib.hash_agg_smem_limit.restype = i
+        lib.hash_agg_error_string.argtypes = [i]
         lib.hash_agg_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"hash_agg {what} failed: "
+                           + lib.hash_agg_error_string(err).decode())
+
+
+def _smem_limit(lib, dev_index: int) -> int:
+    limit = _SMEM_LIMIT.get(dev_index)
+    if limit is None:
+        limit = lib.hash_agg_smem_limit(dev_index)
+        if limit < 0:
+            raise RuntimeError("hash_agg: cannot read the shared memory limit")
+        _SMEM_LIMIT[dev_index] = limit
+    return limit
+
+
+def _resident(lib, dev_index: int, mode: str, fmt: str, n_lanes: int,
+              smem: int) -> int:
+    key = (dev_index, mode, fmt, n_lanes, smem)
+    blocks = _RESIDENT.get(key)
+    if blocks is None:
+        out = ctypes.c_int(0)
+        _raise_on(lib, lib.hash_agg_prepare(
+            dev_index, _MODE_CODE[mode], _FMT_CODE[fmt], n_lanes, smem,
+            ctypes.byref(out)), "occupancy query")
+        blocks = _RESIDENT[key] = out.value
+    return blocks
 
 
 def _check(t, name, dtype, n, device):
@@ -229,17 +500,51 @@ def _check(t, name, dtype, n, device):
     return t.data_ptr()
 
 
-def lanes_per_launch(n_slots: int, smem_limit: int) -> int:
-    """How many lanes fit one block's shared-memory table."""
-    fit = (smem_limit - 4 * n_slots) // (12 * n_slots)
-    if fit < 1:
-        raise ValueError(f"{n_slots} slots do not fit {smem_limit} B of "
-                         "shared memory")
-    return min(MAX_LANES, fit)
+def _params(mode, n, key_p, key_ok_p, mask_p, base, capacity, n_slots,
+            launch: Launch, outs, count, geo: Geometry) -> _Params:
+    """One launch's ``_Params``; ``outs``: the launch's lanes' (sum,
+    nonnull) outputs.  Entries past the launch's lanes and cells stay zero
+    (the kernel never reads them)."""
+    lanes = launch.lanes
+    nl = len(lanes)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    values = [ptr(ln.values) for ln in lanes]
+    oks = [ptr(ln.ok) for ln in lanes]
+    # the planes this launch reads (simple mode reads no key)
+    ints = [q for q in [key_p if mode != MODE_SIMPLE else None] + values
+            if q is not None]
+    bools = [q for q in [key_ok_p if mode == MODE_DENSE else None, mask_p]
+             + oks if q is not None]
+    head = row_phase(ints, bools)
+    p = _Params(
+        key=key_p, key_ok=key_ok_p, mask=mask_p, n=n,
+        head=0 if head is None else min(head, n), vec=head is not None,
+        base=_as_int32(base), capacity=capacity, n_slots=n_slots,
+        n_lanes=nl, row_lane=launch.row_lane, n_cells=launch.n_cells,
+        shift=geo.shift, bias=geo.bias, fold_every=geo.fold_every,
+        count_out=count.data_ptr() if launch.count else None, row_cell=-1)
+    vsrc, osrc = plane_sources(lanes)
+    p.values[:nl], p.ok[:nl], p.vsrc[:nl], p.osrc[:nl] = values, oks, vsrc, \
+        osrc
+    p.sum_out[:nl] = [ptr(s) for s, _nn in outs]
+    p.nonnull_out[:nl] = [ptr(nn) for _s, nn in outs]
+    p.sum_cell[:nl] = p.cnt_cell[:nl] = [-1] * nl
+    for c, (kind, j) in enumerate(launch.cells):
+        if kind == "sum":
+            p.sum_cell[j], p.cell_out[c] = c, ptr(outs[j][0])
+            p.n_sum += 1
+        elif kind == "count":
+            p.cnt_cell[j], p.cell_out[c] = c, ptr(outs[j][1])
+        else:
+            p.row_cell, p.cell_out[c] = c, count.data_ptr()
+    return p
 
 
 def _hash_agg_cuda(mode, n, slots, n_slots, key, key_ok, base, capacity,
-                   mask, lanes, device):
+                   mask, lanes, value_bytes, device):
     global launches
     lib = _kernel_lib()
     dev_index = device.index if device.index is not None \
@@ -249,58 +554,83 @@ def _hash_agg_cuda(mode, n, slots, n_slots, key, key_ok, base, capacity,
         raise ValueError(f"{mode} mode needs a key plane")
     key_ok_p = _check(key_ok, "key_ok", torch.bool, n, device)
     mask_p = _check(mask, "mask", torch.bool, n, device)
-    count = torch.zeros(slots, dtype=torch.int64, device=device)
-    outs = []
-    ptrs = []
     for j, lane in enumerate(lanes):
-        vp = _check(lane.values, f"lane {j} values", torch.int32, n, device)
-        op = _check(lane.ok, f"lane {j} ok", torch.bool, n, device)
-        s = torch.zeros(slots, dtype=torch.int64, device=device) \
-            if vp is not None else None
-        nn = torch.zeros(slots, dtype=torch.int64, device=device) \
-            if op is not None else None
-        outs.append((s, nn))
-        ptrs.append((vp, op, None if s is None else s.data_ptr(),
-                     None if nn is None else nn.data_ptr()))
-    per = lanes_per_launch(n_slots, lib.hash_agg_smem_limit(dev_index))
+        _check(lane.values, f"lane {j} values", torch.int32, n, device)
+        _check(lane.ok, f"lane {j} ok", torch.bool, n, device)
+
+    plan = plan_lanes(lanes)
+    # every output is a row of one zeroed buffer (one fill on the device)
+    rows = iter(torch.zeros((1 + sum((ln.values is not None) + (ln.ok is not
+                                                                None)
+                                     for ln in plan.lanes), slots),
+                            dtype=torch.int64, device=device))
+    count = next(rows)
+    outs = [(None if ln.values is None else next(rows),
+             None if ln.ok is None else next(rows)) for ln in plan.lanes]
     stream = torch.cuda.current_stream(device).cuda_stream
-    groups = [ptrs[i:i + per] for i in range(0, len(ptrs), per)] or [[]]
-    for g, group in enumerate(groups):
-        arr = [(ctypes.c_void_p * MAX_LANES)(*[p[f] for p in group])
-               for f in range(4)]
-        err = lib.hash_agg_launch(
-            dev_index, key_p, key_ok_p, mask_p, n, _MODE_CODE[mode],
-            _as_int32(base), capacity, n_slots, len(group), *arr,
-            count.data_ptr() if g == 0 else None, stream)
-        if err != 0:
-            raise RuntimeError("hash_agg kernel launch failed: "
-                               + lib.hash_agg_error_string(err).decode())
+    launch_list = plan_launches(mode, n_slots, plan.lanes,
+                                _smem_limit(lib, dev_index),
+                                value_bytes) if n > 0 else []
+    first = 0
+    for launch in launch_list:
+        nl = len(launch.lanes)
+        mine = outs[first:first + nl]
+        first += nl
+        nb = value_bytes if any(ln.values is not None
+                                for ln in launch.lanes) else 0
+        geo = geometry(mode, n, nl, nb, _resident(
+            lib, dev_index, mode, launch.fmt, nl, launch.smem), launch.fmt)
+        p = _params(mode, n, key_p, key_ok_p, mask_p, base, capacity,
+                    n_slots, launch, mine, count, geo)
+        _raise_on(lib, lib.hash_agg_launch(
+            dev_index, ctypes.byref(p), _MODE_CODE[mode],
+            _FMT_CODE[launch.fmt], geo.grid, launch.smem, stream),
+            "kernel launch")
         launches += 1
-    return count, outs
+    # a repeated lane's outputs are copies of its first one's (one device
+    # copy each: nothing waits on the host)
+    seen, result = set(), []
+    for j in plan.of:
+        if j < 0:
+            result.append((None, None))
+        elif j in seen:
+            result.append(tuple(None if t is None else t.clone()
+                                for t in outs[j]))
+        else:
+            seen.add(j)
+            result.append(outs[j])
+    return count, result
 
 
 def hash_agg(mode: str, n: int, slots: int, n_slots: int, key=None,
              key_ok=None, base: int = 0, capacity: int = 0, mask=None,
-             lanes: Sequence[Lane] = (), device="cuda"):
+             lanes: Sequence[Lane] = (), device="cuda",
+             value_bytes: int = 4):
     """Per-slot aggregation states over rows ``[0, n)``.
 
     ``slots``: length of every output (the full layout, e.g. capacity+2);
     ``n_slots``: how many of them the kernel materializes (the rest stay
     zero).  ``key``: int32 key values (dense) or slot ids (sparse);
     ``key_ok``/``mask``/lane ``ok``: bool planes or None (all valid).
+    ``value_bytes``: every lane value lies in [-2^(8b-1), 2^(8b-1)) for
+    b = value_bytes (1-4; the runner's ``_arg_nbytes``); the kernel biases
+    values by 2^(8b-1), and a narrower width folds its packed cells less
+    often.  Lanes that hold the same tensors are read once.
     Returns ``(count, [(sum | None, nonnull | None) per lane])``, int64.
     """
     device = torch.device(device)
     if mode not in _MODE_CODE or n < 0 or not 0 < n_slots <= slots:
         raise ValueError(f"bad layout: mode={mode!r} n={n} "
                          f"n_slots={n_slots} slots={slots}")
+    if value_bytes not in (1, 2, 3, 4):
+        raise ValueError(f"value_bytes={value_bytes} is not 1-4")
     if device.type == "cpu":
         return hash_agg_plain(mode, n, slots, n_slots, key, key_ok, base,
                               capacity, mask, lanes, device)
     if device.type != "cuda":
         raise ValueError(f"hash_agg runs on cuda or cpu, not {device}")
     return _hash_agg_cuda(mode, n, slots, n_slots, key, key_ok, base,
-                          capacity, mask, lanes, device)
+                          capacity, mask, lanes, value_bytes, device)
 
 
 def states_from_lanes(specs, lane_of, count, outs):

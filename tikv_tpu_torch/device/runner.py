@@ -458,8 +458,10 @@ class DeviceRunner:
     # ------------------------------------------- route 1: hash_agg kernel
 
     def _aggregate(self, plan, feed, n, mode, base, capacity, slots, n_sl,
-                   slot_ids=None):
-        """One kernel pass → (present, states) as numpy, ops/agg layout."""
+                   slot_ids=None, arg_nbytes=()):
+        """One kernel pass → (present, states) as numpy, ops/agg layout.
+        ``arg_nbytes``: ``_arg_nbytes`` of the plan, the value width the
+        kernel may assume (4 bytes where it is not given)."""
         dev = self.device
         planes = self._planes(feed)
         pairs, mask = self._inputs(plan, feed, n)
@@ -501,7 +503,8 @@ class DeviceRunner:
         count, outs = ha.hash_agg(mode, n, slots, n_sl, key=key,
                                   key_ok=key_ok, base=base,
                                   capacity=capacity, mask=mask, lanes=lanes,
-                                  device=dev)
+                                  device=dev, value_bytes=max(
+                                      [nb for nb in arg_nbytes if nb] or [4]))
         # one device→host transfer for every output plane
         tensors = [count] + [t for pair in outs for t in pair
                              if t is not None]
@@ -526,7 +529,8 @@ class DeviceRunner:
     def _run_simple(self, plan, feed, dtypes, n, arg_nbytes) -> SelectResult:
         if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
             _present, states = self._aggregate(plan, feed, n, ha.MODE_SIMPLE,
-                                               0, 1, 1, 1)
+                                               0, 1, 1, 1,
+                                               arg_nbytes=arg_nbytes)
             merged = [{k: v[0] for k, v in s.items()} for s in states]
             return self._simple_result(plan, merged)
         # the simple body (runner.py:2668): one masked reduction per state
@@ -621,7 +625,7 @@ class DeviceRunner:
         if self._fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes):
             present, states = self._aggregate(
                 plan, feed, n, mode, base, capacity, slots,
-                ha.n_slots(plan, capacity, mode), slot_ids)
+                ha.n_slots(plan, capacity, mode), slot_ids, arg_nbytes)
         elif layouts is not None and kn.twolevel_lo(p8, pf) is not None:
             present, states = self._run_twolevel(
                 plan, feed, n, base, capacity, slot_ids, layouts, p8, pf)
