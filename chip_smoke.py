@@ -49,12 +49,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    arguments, also beside the planes path it replaced (``slot_index`` +
    ``make_planes`` + the planes kernel, on the same inputs), with the
    peak device memory of each, and on every route its table can take;
-6. one JSON line listing every ported kernel: launches on the main path,
+6. the selection and top-k kernels against their plain versions on the
+   card, exactly (every output is an integer or a copied element):
+   ``sel_mask`` (n not a multiple of 8, one and many blocks, all-false and
+   all-true masks, a mask off a 16-byte boundary, config 2's 10·2^20
+   rows), ``sel_compact`` in index mode (capacity above and below the
+   count: the overflow flag) and in planes mode (int32, int64, float64 and
+   bool planes), ``topn_select`` (DESC and ASC, int32, int64 and float64
+   keys, NULLs first and last, a selection inside, a limit beyond the live
+   rows, 10·2^20 tied keys and 10·2^20 NULL keys, the int64 extremes, -0.0
+   beside 0.0, n not a multiple of the segment, config 5's 100·2^20 rows);
+7. the selection, top-k and index-scan routes through
+   ``DeviceRunner().handle_request`` (``configs.ROW_CONFIGS``): configs 1
+   (its probe over 2^20 rows), 2 (10·2^20), 5 (an IndexScan, 100·2^20) and
+   5t (100·2^20), and config 2s (10·2^20 rows at 0.1%, 1%, 10% and 50%
+   selected, which must take the compact, index, mask and mask routes),
+   each answer held exactly against a numpy truth, with the same cold /
+   warm / peak / profile / launch-count lines as step 4 and a line of
+   host-clock phases of a warm request (``row_phases``);
+8. each of those kernels timed at the main path's shapes beside its
+   bound, its plain version and a library yardstick the port never calls:
+   ``sel_mask`` at config 2 (``torch.count_nonzero``), ``sel_compact`` at
+   config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``),
+   ``topn_select`` at configs 5 and 5t (``torch.topk`` on the (segments,
+   segment length) view), with its passes over each segment;
+9. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
-   its route at each config), and the least time the card could take;
-7. the last line: ``{"ok": true, "device": {...}}``.
+   its route at each config; config 2 for ``sel_mask``; config 2s's 1% for
+   ``sel_compact``; config 5 for ``topn_select``), and the least time the
+   card could take;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -76,15 +102,24 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12        # H100 SXM non-tensor 32-bit peak
 SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
+HEADER_BYTES = 16               # sel_compact's count and overflow flag
 CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
-KERNELS = ("hash_agg", "twolevel")
+KERNELS = ("hash_agg", "twolevel", "sel_mask", "sel_compact", "topn_select")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
 ROUTE = {"3": "hash_agg", "4": "hash_agg", "4s": "hash_agg",
          "4n": "twolevel", "4w": "twolevel", "4r": "twolevel",
          "4m": None, "3n": None}
+# the configs that return rows: rows on the card, the kernels they launch
+ROW_SIZES = {"1": 1 << 20, "2": 10 << 20, "5": 100 << 20, "5t": 100 << 20}
+ROW_ROUTE = {"1": {"sel_mask"}, "2": {"sel_mask"}, "5": {"topn_select"},
+             "5t": {"topn_select"}}
+SWEEP_ROWS = 10 << 20
+# config 2s: the route each selectivity must take once its EWMA is warm
+SWEEP_ROUTE = {"0.1%": "compact", "1%": "index", "10%": "mask",
+               "50%": "mask"}
 
 
 def cuda_ms(fn, iters: int, queued: bool = False) -> float:
@@ -126,14 +161,20 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 
 def counts() -> dict:
-    from tikv_tpu_torch.device import hash_agg, twolevel
-    return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches}
+    from tikv_tpu_torch.device import hash_agg, selection, topn, twolevel
+    return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
+            "sel_mask": selection.mask_launches,
+            "sel_compact": selection.compact_launches,
+            "topn_select": topn.launches}
 
 
 def set_counts(values: dict) -> None:
-    from tikv_tpu_torch.device import hash_agg, twolevel
+    from tikv_tpu_torch.device import hash_agg, selection, topn, twolevel
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
+    selection.mask_launches = values["sel_mask"]
+    selection.compact_launches = values["sel_compact"]
+    topn.launches = values["topn_select"]
 
 
 def build_kernels() -> None:
@@ -144,8 +185,8 @@ def build_kernels() -> None:
         log = build.build(name)
         return name, time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for name, secs, log in pool.map(one, KERNELS):
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        for name, secs, log in pool.map(one, build.SOURCES):
             print(f"build: {name} in {secs:.3f} s", flush=True)
             print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
     shared_atomics("hash_agg")
@@ -642,6 +683,50 @@ def check_fused(dev) -> float:
 # the aggregation path
 # ---------------------------------------------------------------------------
 
+def serve(label: str, n: int, runner, dag, snap, answer, agrees,
+          expect: set, **extra) -> dict:
+    """One cold and five warm requests of ``dag``, each ``answer(result)``
+    (inside the timed window) held against the truth by ``agrees``; the
+    kernels of ``expect`` must launch and no other (``sel_compact`` may
+    beside ``sel_mask``: the route decides); the route of each request
+    (``runner.sel_routes``), peak bytes of one more and one profile."""
+    set_counts({k: 0 for k in KERNELS})
+    routes0 = dict(runner.sel_routes)
+    t0 = time.perf_counter()
+    got = answer(runner.handle_request(dag, snap))
+    cold = time.perf_counter() - t0
+    assert agrees(got), f"config {label}: wrong answer on the cold request"
+    warm, last = [], {}
+    for _ in range(5):
+        before = dict(runner.sel_routes)
+        t0 = time.perf_counter()
+        got = answer(runner.handle_request(dag, snap))
+        warm.append(time.perf_counter() - t0)
+        assert agrees(got), f"config {label}: wrong answer when warm"
+        last = {k: v - before.get(k, 0) for k, v in runner.sel_routes.items()
+                if v != before.get(k, 0)}
+    launches = counts()
+    for name in KERNELS:
+        if name in expect:
+            assert launches[name] > 0, f"config {label} never launched {name}"
+        elif name != "sel_compact" or "sel_mask" not in expect:
+            assert launches[name] == 0, f"config {label} launched {name}"
+    p50 = float(np.percentile(warm, 50))
+    out = {"config": label, "rows": n, **extra, "cold_ms": cold * 1e3,
+           "warm_p50_ms": p50 * 1e3, "rows_per_s": n / p50,
+           "launches": launches}
+    if "sel_mask" in expect:
+        out["routes"] = {k: v - routes0.get(k, 0)
+                         for k, v in runner.sel_routes.items()
+                         if v != routes0.get(k, 0)}
+        out["last_route"] = last
+    out["peak_request_bytes"] = peak_request_bytes(runner, dag, snap)
+    print(f"config {label}: " + " ".join(f"{k}={v}" for k, v in out.items()
+                                         if k != "config"), flush=True)
+    profile_request(label, runner, dag, snap)
+    return out
+
+
 def run_config(config: str, n: int, runner) -> dict:
     from tikv_tpu_torch.convert import dag_from_wire
     from tikv_tpu_torch.copr.wire import enc_dag
@@ -651,35 +736,9 @@ def run_config(config: str, n: int, runner) -> dict:
     table, snap = build(n)
     dag = dag_from_wire(enc_dag(make(table)))
     want, scales = cf.truth(config, snap)
-
-    def agrees(rows) -> bool:
-        return cf.rows_agree(rows, want, scales, SF_TOL)
-
-    set_counts({k: 0 for k in KERNELS})
-    t0 = time.perf_counter()
-    rows = runner.handle_request(dag, snap).rows()
-    cold = time.perf_counter() - t0
-    assert agrees(rows), f"config {config}: wrong answer on the cold request"
-    warm = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        rows = runner.handle_request(dag, snap).rows()
-        warm.append(time.perf_counter() - t0)
-        assert agrees(rows), f"config {config}: wrong answer when warm"
-    launches = counts()
-    for name in KERNELS:
-        if name == ROUTE[config]:
-            assert launches[name] > 0, f"config {config} never launched {name}"
-        else:
-            assert launches[name] == 0, f"config {config} launched {name}"
-    p50 = float(np.percentile(warm, 50))
-    out = {"config": config, "rows": n, "cold_ms": cold * 1e3,
-           "warm_p50_ms": p50 * 1e3, "rows_per_s": n / p50,
-           "launches": launches, "groups": len(want),
-           "peak_request_bytes": peak_request_bytes(runner, dag, snap)}
-    print(f"config {config}: " + " ".join(f"{k}={v}" for k, v in out.items()
-                                          if k != "config"), flush=True)
-    profile_request(config, runner, dag, snap)
+    out = serve(config, n, runner, dag, snap, lambda r: r.rows(),
+                lambda rows: cf.rows_agree(rows, want, scales, SF_TOL),
+                {ROUTE[config]} - {None}, groups=len(want))
     if ROUTE[config] == "hash_agg":
         out["host_phases_ms"] = host_phases(runner, dag, snap)
     del snap
@@ -763,7 +822,8 @@ def profile_request(config: str, runner, dag, snap) -> None:
     the device's idle share of the (profiled) request wall."""
     from torch.profiler import ProfilerActivity, profile
     saved = counts()
-    for _attempt in range(3):           # the tracer now and then sees none
+    # the tracer now and then sees no kernel of the request
+    for _attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -771,7 +831,7 @@ def profile_request(config: str, runner, dag, snap) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        if any(not e.key.startswith(("Memcpy", "Memset")) for e in events):
             break
     set_counts(saved)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -1080,6 +1140,379 @@ def twolevel_at_main_shapes(runner, dev) -> tuple:
     return worst, timing
 
 
+# ---------------------------------------------------------------------------
+# selection and top-k kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def mask_equal(got, want) -> bool:
+    """sel_mask outputs: the count, the packed region and the per-block
+    counts (the header's pad bytes are not outputs)."""
+    return bool(got.count == want.count) and \
+        torch.equal(got.packed, want.packed) and \
+        torch.equal(got.block_counts, want.block_counts)
+
+
+def selection_cases(dev):
+    """(name, pred, n, [(k_cap, planes), ...]) on the card: the CPU
+    tests' edge cases and config 2's size."""
+    g = torch.Generator(device="cpu").manual_seed(14)
+
+    def bools(p, count):
+        return (torch.rand(count, generator=g) < p).to(dev)
+
+    def plane(dtype, count):
+        if dtype == torch.bool:
+            return bools(0.5, count)
+        if dtype == torch.float64:
+            return torch.randn(count, generator=g, dtype=dtype).to(dev)
+        return torch.randint(-(1 << 30), 1 << 30, (count,), generator=g,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    for n in (1, 7, 8, 9, 4095, 32767, 32768, 32769, (1 << 20) + 3):
+        pred = bools(0.3, n)
+        planes = [plane(d, n) for d in (torch.int32, torch.int64,
+                                         torch.float64, torch.bool)]
+        yield f"n={n}", pred, n, [(64, ()), (1 << 21, ()), (64, planes),
+                                  (1 << 21, planes)]
+    n = 100_003
+    yield "all_false", torch.zeros(n, dtype=torch.bool, device=dev), n, \
+        [(64, ()), (64, [plane(torch.int32, n)])]
+    yield "all_true", torch.ones(n, dtype=torch.bool, device=dev), n, \
+        [(64, ()), (1 << 17, ()), (1 << 17, [plane(torch.int64, n)])]
+    base = bools(0.5, n + 16)
+    yield "pred_off_16_bytes", base[3:], n, [(1 << 16, ())]
+    big = SWEEP_ROWS
+    pred = bools(0.1, big)
+    yield f"config_2_size_{big}", pred, big, [
+        (1 << 17, ()), (1 << 21, ()), (1 << 14, [plane(torch.int32, big)])]
+
+
+def check_selection(dev) -> tuple:
+    """→ (largest difference of sel_mask, of sel_compact): 0 or raises."""
+    from tikv_tpu_torch.device import selection as sm
+    for name, pred, n, compacts in selection_cases(dev):
+        got = sm.sel_mask(pred, n)
+        torch.cuda.synchronize()
+        want = sm.sel_mask_plain(pred, n)
+        assert mask_equal(got, want), f"sel_mask {name} disagrees"
+        for k_cap, planes in compacts:
+            c_got = sm.sel_compact(got, k_cap, planes)
+            torch.cuda.synchronize()
+            c_want = sm.sel_compact_plain(want, k_cap, planes)
+            assert torch.equal(c_got.buf, c_want.buf), \
+                f"sel_compact {name} k_cap={k_cap} disagrees"
+            print(f"kernel sel_compact {name} k_cap={k_cap} planes="
+                  f"{[str(t.dtype) for t in planes]}: count="
+                  f"{int(c_got.count)} overflow={int(c_got.overflow)} "
+                  f"max_abs_err=0", flush=True)
+        print(f"kernel sel_mask {name}: count={int(got.count)} "
+              f"max_abs_err=0", flush=True)
+    gc.collect()
+    return 0, 0
+
+
+def topn_cases(dev):
+    """(name, keyword arguments of topn_select) on the card."""
+    from tikv_tpu_torch.device import topn as tn
+    g = torch.Generator(device="cpu").manual_seed(15)
+
+    def bools(p, count):
+        return (torch.rand(count, generator=g) < p).to(dev)
+
+    def values(dtype, count, lo=-1000, hi=1000):
+        if dtype == torch.float64:
+            return (torch.randn(count, generator=g, dtype=dtype) * 1000
+                    ).to(dev)
+        return torch.randint(lo, hi, (count,), generator=g,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    def case(vals, n, k, desc=True, ok=None, mask=None, n_pad=None):
+        n_used, seglen = tn.segments(n, n_pad or -(-n // (1 << 18)) * (1 << 18))
+        return dict(values=vals, ok=ok, mask=mask, desc=desc, n=n,
+                    n_used=n_used, seglen=seglen, k=k)
+
+    n = 5 * (1 << 17) + 777
+    for dtype in (torch.int32, torch.int64, torch.float64):
+        for desc in (True, False):
+            d = "desc" if desc else "asc"
+            v = values(dtype, n)
+            yield f"{dtype}_{d}", case(v, n, 1000, desc)
+            yield f"{dtype}_{d}_nulls_selection", case(
+                v, n, 1000, desc, ok=bools(0.9, n), mask=bools(0.5, n))
+    yield "small_n", case(values(torch.float64, 1000), 1000, 10)
+    yield "limit_past_live_rows", case(values(torch.int32, n), n, 1000,
+                                       mask=bools(1e-4, n))
+    yield "limit_16384", case(values(torch.float64, n), n, 1 << 14, False,
+                              ok=bools(0.7, n))
+    ext = torch.tensor([-(1 << 63), -(1 << 63) + 1, -(1 << 63) + 2,
+                        (1 << 63) - 1, (1 << 63) - 2, 0, -1], dtype=torch.int64,
+                       device=dev)
+    idx = torch.randint(0, 7, (n,), generator=g).to(dev)
+    for desc in (True, False):
+        yield f"int64_extremes_{'desc' if desc else 'asc'}", case(
+            ext[idx], n, 1000, desc, ok=bools(0.95, n))
+    zeros = torch.tensor([0.0, -0.0, 1.0, -1.0], dtype=torch.float64,
+                         device=dev)[torch.randint(0, 4, (n,),
+                                                   generator=g).to(dev)]
+    yield "minus_zero_ties_zero", case(zeros, n, 1 << 14)
+    big = 10 << 20
+    tied = torch.full((big,), 1.5, dtype=torch.float64, device=dev)
+    for desc in (True, False):
+        d = "desc" if desc else "asc"
+        yield f"10M_tied_keys_{d}", case(tied, big, 1000, desc)
+        yield f"10M_null_keys_{d}", case(
+            tied, big, 1000, desc,
+            ok=torch.zeros(big, dtype=torch.bool, device=dev))
+
+
+def check_topn(dev) -> int:
+    from tikv_tpu_torch.device import topn as tn
+    for name, kw in topn_cases(dev):
+        got = tn.topn_select(**kw)
+        torch.cuda.synchronize()
+        want = tn.topn_plain(kw["values"], kw["ok"], kw["mask"], kw["desc"],
+                             kw["n"], kw["n_used"], kw["k"])
+        assert torch.equal(got, want), f"topn_select {name} disagrees"
+        print(f"kernel topn_select {name}: n={kw['n']} k={kw['k']} "
+              f"live={int((got[1] & 1).sum())} max_abs_err=0", flush=True)
+    gc.collect()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the selection, top-k and index-scan routes
+# ---------------------------------------------------------------------------
+
+def row_phases(runner, dag, snap, repeats: int = 5) -> dict:
+    """Host-clock phases (ms, the median of ``repeats`` warm requests) of a
+    request on the selection or top-k route: analyze (``_analyze``),
+    inputs (``_inputs``: the feed's planes and the predicate evaluated by
+    torch ops, queued), launch (the ``sel_mask``/``sel_compact``/
+    ``topn_select`` wrappers), kernel_wait (a synchronize right after each
+    wrapper: the device work queued so far), d2h (the selection's one copy
+    of its result buffer; a top-k's copy is in "other"), rows (the host
+    gather or take of the result rows, and for a top-k the scan's views)
+    and other (the rest: EWMA, unpacking, the top-k refine)."""
+    from tikv_tpu_torch.datatype import ColumnBatch
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.device import topn as tn
+    saved = counts()
+    runs = []
+    for _ in range(repeats):
+        spent = dict.fromkeys(("analyze", "inputs", "launch", "kernel_wait",
+                               "d2h", "rows"), 0.0)
+        patched = []
+
+        def timed(owner, name, phase, wait=False):
+            fn = getattr(owner, name)
+
+            def wrap(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[phase] += time.perf_counter() - t0
+                    if wait:
+                        t1 = time.perf_counter()
+                        torch.cuda.synchronize()
+                        spent["kernel_wait"] += time.perf_counter() - t1
+            patched.append((owner, name, owner.__dict__.get(name)))
+            setattr(owner, name, wrap)
+
+        timed(runner, "_analyze", "analyze")
+        timed(runner, "_inputs", "inputs")
+        for owner, name in ((sm, "sel_mask"), (sm, "sel_compact"),
+                            (tn, "topn_select")):
+            timed(owner, name, "launch", wait=True)
+        timed(sm.MaskOut, "host", "d2h")
+        timed(sm.CompactOut, "host", "d2h")
+        for name in ("gather_rows", "scan_columns"):
+            timed(snap, name, "rows")
+        for name in ("take", "filter"):
+            timed(ColumnBatch, name, "rows")
+        try:
+            t0 = time.perf_counter()
+            runner.handle_request(dag, snap)
+            total = time.perf_counter() - t0
+        finally:     # a module's or class's own attribute comes back;
+            # an instance's shadow of its class's method goes
+            for owner, name, own in reversed(patched):
+                if own is None:
+                    delattr(owner, name)
+                else:
+                    setattr(owner, name, own)
+        ms = {k: v * 1e3 for k, v in spent.items()}
+        ms["other"] = total * 1e3 - sum(ms.values())
+        ms["total"] = total * 1e3
+        runs.append(ms)
+    set_counts(saved)
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
+
+def run_row_config(config: str, n: int, runner) -> dict:
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    build, make = cf.ROW_CONFIGS[config]
+    t0 = time.perf_counter()
+    table, snap = build(n)
+    dag = dag_from_wire(enc_dag(make(table)))
+    want = cf.row_truth_columns(config, snap)
+    print(f"config {config}: table and truth in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = serve(config, n, runner, dag, snap, lambda r: r.batch,
+                lambda batch: cf.columns_agree(batch, want),
+                ROW_ROUTE[config], selected=len(want[0][0]))
+    out["host_phases_ms"] = row_phases(runner, dag, snap)
+    del snap
+    gc.collect()
+    return out
+
+
+def run_sweep(runner) -> list:
+    """Config 2s: config 2's table at each selectivity of the sweep; the
+    last warm request must take the route of ``SWEEP_ROUTE``."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    table, snap = cf.build_table(SWEEP_ROWS)
+    runs = []
+    for point, frac in cf.SWEEP.items():
+        thr = cf.sweep_threshold(snap, frac)
+        dag = dag_from_wire(enc_dag(cf.dag_selection(table, thr)))
+        want = cf.row_truth_columns("2s", snap, thr)
+        out = serve(f"2s@{point}", SWEEP_ROWS, runner, dag, snap,
+                    lambda r: r.batch,
+                    lambda batch: cf.columns_agree(batch, want),
+                    {"sel_mask"}, selected=len(want[0][0]))
+        assert set(out["last_route"]) == {SWEEP_ROUTE[point]}, \
+            f"config 2s@{point} took {out['last_route']}"
+        out["host_phases_ms"] = row_phases(runner, dag, snap)
+        runs.append(out)
+    del snap
+    gc.collect()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# selection and top-k kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def selection_at_main_shapes(dev) -> tuple:
+    """sel_mask at config 2 and sel_compact at config 2s's 1% (index mode)
+    and 0.1% (planes mode), exact against their plain versions and timed;
+    → (sel_mask timing, sel_compact timing)."""
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.testing import configs as cf
+    _table, snap = cf.build_table(SWEEP_ROWS)
+    n = SWEEP_ROWS
+    planes = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        snap.handles, snap.columns[2].values, snap.columns[3].values)]
+    v = planes[2]
+    saved = counts()
+    pred = v > 800
+    got = sm.sel_mask(pred, n)
+    assert mask_equal(got, sm.sel_mask_plain(pred, n)), \
+        "sel_mask disagrees at config 2's shape"
+    nb = sm.n_blocks(n)
+    mask_t = {"ms": cuda_ms(lambda: sm.sel_mask(pred, n), 50, queued=True),
+              "plain_ms": cuda_ms(lambda: sm.sel_mask_plain(pred, n), 5),
+              "library_ms": cuda_ms(lambda: torch.count_nonzero(pred), 50),
+              # the bools read once, the packed bytes, counts and count
+              # written once; one pack step per row
+              **bound_ms(n + -(-n // 8) + 4 * nb + 8, n),
+              "rows": n, "selected": int(got.count)}
+    print(f"kernel sel_mask at config 2 shape ({n} rows): max_abs_err=0 " +
+          " ".join(f"{k}={x}" for k, x in mask_t.items()), flush=True)
+    modes = {}
+    for point, planes_here in (("1%", []), ("0.1%", planes)):
+        pred = v > cf.sweep_threshold(snap, cf.SWEEP[point])
+        mout = sm.sel_mask(pred, n)
+        k = int(mout.count)
+        cap = sm.index_capacity(k * 1.5 + 64, n)
+        c_got = sm.sel_compact(mout, cap, planes_here)
+        assert torch.equal(c_got.buf, sm.sel_compact_plain(
+            sm.sel_mask_plain(pred, n), cap, planes_here).buf), \
+            f"sel_compact disagrees at config 2s {point}"
+        esize = sum(t.element_size() for t in planes_here)
+        t = {"ms": cuda_ms(lambda: sm.sel_compact(mout, cap, planes_here),
+                           50, queued=True),
+             "plain_ms": cuda_ms(lambda: sm.sel_compact_plain(
+                 mout, cap, planes_here), 5),
+             "library_ms": cuda_ms(lambda: torch.nonzero(pred), 20),
+             # the packed mask and block counts read once, each selected
+             # row's plane elements gathered once; the header, indices and
+             # gathered planes written once; a scan step per row
+             **bound_ms(-(-n // 8) + 4 * nb + min(k, cap) * esize
+                        + HEADER_BYTES + cap * (4 + esize), n),
+             "rows": n, "selected": k, "k_cap": cap,
+             "planes": len(planes_here)}
+        modes["index" if not planes_here else "planes"] = t
+        print(f"kernel sel_compact at config 2s {point} shape ({n} rows, "
+              f"{len(planes_here)} planes): max_abs_err=0 " +
+              " ".join(f"{k}={x}" for k, x in t.items()), flush=True)
+    set_counts(saved)
+    compact_t = {k: x for k, x in modes["index"].items()}
+    compact_t["modes"] = modes
+    del snap, planes, v, pred
+    gc.collect()
+    return mask_t, compact_t
+
+
+def topn_at_main_shapes(runner, dev) -> dict:
+    """topn_select at configs 5 and 5t on the runner's own feed planes,
+    exact against its plain version and timed; → config 5's timing with
+    5t's under ``configs``."""
+    from tikv_tpu_torch.device import topn as tn
+    from tikv_tpu_torch.testing import configs as cf
+    timings = {}
+    for config in ("5", "5t"):
+        n = ROW_SIZES[config]
+        _table, snap = cf.ROW_CONFIGS[config][0](n)
+        vcol, kcol = snap.columns[3], snap.columns[2]
+        n_pad = runner._pad_rows(n)
+        values = torch.zeros(n_pad, dtype=torch.float64, device=dev)
+        values[:n] = torch.from_numpy(vcol.values).to(dev)
+        ok = mask = None
+        if config == "5t":
+            ok = torch.from_numpy(vcol.validity).to(dev)
+            mask = torch.from_numpy(kcol.values < 512).to(dev)
+        n_used, seglen = tn.segments(n, n_pad)
+        k = cf.TOPN_LIMIT
+        kw = dict(values=values, ok=ok, mask=mask, desc=True, n=n,
+                  n_used=n_used, seglen=seglen, k=k)
+        saved = counts()
+        passes = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = tn.topn_select(**kw, passes=passes)
+        want = tn.topn_plain(values, ok, mask, True, n, n_used, k)
+        assert torch.equal(got, want), \
+            f"topn_select disagrees at config {config}'s shape"
+        nseg = n_used // seglen
+        ms = cuda_ms(lambda: tn.topn_select(**kw), 10, queued=True)
+        set_counts(saved)
+        plain_ms = cuda_ms(lambda: tn.topn_plain(values, ok, mask, True, n,
+                                                 n_used, k), 2)
+        view = values[:n_used].view(nseg, seglen)
+        library_ms = cuda_ms(lambda: torch.topk(view, min(k, seglen), dim=1),
+                             5)
+        extra = n * ((ok is not None) + (mask is not None))
+        t = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+             # the order plane (and validity and selection) read once, the
+             # result written once; one key and compare per row
+             **bound_ms(8 * n + extra + 16 * min(k, n_used), n),
+             "rows": n, "segments": nseg, "seglen": seglen, "k": k,
+             "passes_per_segment": int(passes) / nseg}
+        timings[config] = t
+        print(f"kernel topn_select at config {config} shape ({n} rows): "
+              f"max_abs_err=0 " + " ".join(f"{k}={x}" for k, x in t.items()),
+              flush=True)
+        del values, ok, mask, view, snap, want, got
+        gc.collect()
+    out = dict(timings["5"])
+    out["configs"] = timings
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1099,9 +1532,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     worst = {"hash_agg": check_kernels(dev, 1 << 24),
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
+    worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
+    worst["topn_select"] = check_topn(dev)
 
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
+    runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
+    runs += run_sweep(runner)
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -1115,6 +1552,8 @@ def main() -> int:
     hash_timing["configs"] = hash_timings
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
+    mask_timing, compact_timing = selection_at_main_shapes(dev)
+    topn_timing = topn_at_main_shapes(runner, dev)
 
     kernels = [
         {"name": "hash_agg", "route": "cuda",
@@ -1127,7 +1566,22 @@ def main() -> int:
          "replaces": "prof/prof_pl.py:44, prof/prof_pl2.py:43, "
                      "prof/prof_pallas.py:92 and :147",
          "launches": launches["twolevel"], "max_abs_err": worst["twolevel"],
-         **two_timing}]
+         **two_timing},
+        {"name": "sel_mask", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "replaces": "tikv_tpu/device/selection.py:227",
+         "launches": launches["sel_mask"], "max_abs_err": worst["sel_mask"],
+         **mask_timing},
+        {"name": "sel_compact", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "replaces": "tikv_tpu/device/selection.py:323 and :357",
+         "launches": launches["sel_compact"],
+         "max_abs_err": worst["sel_compact"], **compact_timing},
+        {"name": "topn_select", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/topn.cu",
+         "replaces": "tikv_tpu/device/runner.py:2825",
+         "launches": launches["topn_select"],
+         "max_abs_err": worst["topn_select"], **topn_timing}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,15 @@ inputs are small integers and quarter-step floats whose float32 results
 are exact on both sides.  ``wide_const`` puts an int64 constant beside an
 int32 column, where torch's weak 0-d scalars would otherwise wrap it.
 
-One exception: the float32 transcendental functions of the math family
+Two exceptions: the float32 transcendental functions of the math family
 (``LIBM``) come from two libm implementations (XLA's and torch's), which
 round some results differently; on the device path they must agree within
-4 ulp.  The float64 host path stays exact.
+4 ulp.  The float64 host path stays exact.  And the INT arithmetic
+signatures (``RpnFnMeta.int64``) evaluate int32 columns in int64 on the
+port's device path, where the reference's wraps at int32 (ROADMAP.md
+queue 3, fault 5): their values must be equal (these inputs do not wrap),
+their dtype int64; ``test_int_arithmetic_does_not_wrap`` pins the inputs
+that wrap.
 """
 
 import numpy as np
@@ -100,6 +105,9 @@ def test_function_matches_reference(sig, variant):
                                   for v, m in cols], N, torch, "cpu")
         got = tuple(x.numpy() for x in got)
     want = tuple(np.asarray(x) for x in want)
+    if meta.int64 and variant == "device":
+        assert got[0].dtype == np.int64
+        want = (want[0].astype(np.int64), want[1])
     assert got[0].dtype == want[0].dtype
     np.testing.assert_array_equal(got[1], want[1])
     valid = want[1]
@@ -107,3 +115,43 @@ def test_function_matches_reference(sig, variant):
         np.testing.assert_array_max_ulp(got[0][valid], want[0][valid], 4)
     else:
         np.testing.assert_array_equal(got[0][valid], want[0][valid])
+
+
+@pytest.mark.parametrize("sig", ["PlusInt", "MinusInt", "MultiplyInt",
+                                 "UnaryMinusInt"])
+def test_int_arithmetic_does_not_wrap(sig):
+    """ROADMAP.md queue 3, fault 5: over an int32 column of 2^31 - 10 the
+    reference's device path wraps at int32; the port's gives the int64
+    answer of the host (numpy over int64), and keeps int32 only where the
+    column bounds prove it exact (``narrow_int32``)."""
+    from tikv_tpu_torch.expr.eval import narrow_int32
+    big = np.full(N, 2**31 - 10, dtype=np.int32)
+    ok = np.ones(N, dtype=bool)
+    arity = FUNCTIONS[sig].arity
+    const = {"PlusInt": 100, "MinusInt": -100, "MultiplyInt": 3}.get(sig)
+
+    def tree(ExprCls, et):
+        return ExprCls.call(sig, *[ExprCls.column(0, et)] + (
+            [ExprCls.const(const, et)] if arity == 2 else []))
+
+    ref_rpn = ref_build_rpn(tree(RefExpr, EvalType.INT))
+    port_rpn = build_rpn(tree(Expr, PortEvalType.INT))
+    host = ref_eval_rpn(ref_rpn, [(big.astype(np.int64), ok)], N, np)[0]
+    ref_dev = np.asarray(ref_eval_rpn(ref_rpn, [(jnp.asarray(big),
+                                                 jnp.asarray(ok))], N,
+                                      jnp)[0])
+    got = eval_rpn(port_rpn, [(torch.from_numpy(big), torch.from_numpy(ok))],
+                   N, torch, "cpu")[0].numpy()
+    if sig != "UnaryMinusInt":      # -(2^31 - 10) fits: nothing wraps
+        assert not np.array_equal(ref_dev.astype(np.int64), host)
+    np.testing.assert_array_equal(got, host)
+    assert got.dtype == np.int64
+    # bounds that fit int32 keep the call in int32, exactly
+    small = np.full(N, 1000, dtype=np.int32)
+    narrow = narrow_int32(port_rpn, [(1000, 1000)])
+    got = eval_rpn(narrow, [(torch.from_numpy(small), torch.from_numpy(ok))],
+                   N, torch, "cpu")[0].numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, ref_eval_rpn(
+        ref_rpn, [(small.astype(np.int64), ok)], N, np)[0])
+    assert narrow_int32(port_rpn, [(-2**31, 2**31 - 10)]) == port_rpn

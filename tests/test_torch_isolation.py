@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``tikv_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, serving a request
-loads neither, and nothing falls back to the CPU without being asked."""
+"""The port stands alone: no module of ``tikv_tpu_torch`` (every source
+under it, the selection and top-k modules included, and
+``chip_smoke.py``) imports JAX or the JAX package, serving an
+aggregation, a selection and an index-scan top-k loads neither, and
+nothing falls back to the CPU without being asked."""
 
 import ast
 import os
@@ -49,9 +51,16 @@ from tikv_tpu_torch.copr.wire import enc_dag
 from tikv_tpu_torch.device import DeviceRunner
 from tikv_tpu_torch.testing import configs
 table, snap = configs.build_table(5000, 64)
+runner = DeviceRunner(device="cpu")
 dag = dag_from_wire(enc_dag(configs.dag_hash_agg(table)))
-rows = DeviceRunner(device="cpu").handle_request(dag, snap).rows()
+rows = runner.handle_request(dag, snap).rows()
 assert sum(r[0] for r in rows) == 5000, rows
+sel = dag_from_wire(enc_dag(configs.dag_selection(table)))
+assert len(runner.handle_request(sel, snap).rows()) == \
+    int((snap.columns[3].values > 800).sum())
+t5, s5 = configs.ROW_CONFIGS["5"][0](5000)
+top = dag_from_wire(enc_dag(configs.dag_topn_index(t5, 10)))
+assert len(runner.handle_request(top, s5).rows()) == 10
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
 assert not bad, bad

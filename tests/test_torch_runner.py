@@ -601,3 +601,76 @@ def test_host_answer_agrees_for_slice_plans(ref):
     dag, snap, truth = case_config4()
     host = BatchExecutorsRunner(dag, snap).handle_request().rows()
     assert sorted(host, key=lambda r: r[-1]) == truth
+
+
+@pytest.mark.parametrize("plan", ["sum_k_times_3", "count_where_k_plus_100",
+                                  "max_v_group_by_k_plus_1"])
+def test_reference_device_wraps_int_arithmetic(plan, ref, port):
+    """ROADMAP.md queue 3, fault 5: INT arithmetic over an int32 column
+    wraps at int32 on the reference's device path.  Over k = 2^31 - 10 (and
+    2^31 - 1 for the GROUP BY), the reference gives SUM(k*3) =
+    2147483618000 and COUNT(*) WHERE k+100 > 0 = 0, and raises on MAX(v)
+    GROUP BY k+1; the port evaluates the arithmetic in int64 and returns
+    the host pipeline's answers."""
+    n = 100 if plan.startswith("max") else 1000
+    big = 2**31 - 1 if plan.startswith("max") else 2**31 - 10
+    table, snap, k, v, _ = table_kv(n, seed=24)
+    snap.columns[2] = Column(EvalType.INT, np.full(n, big, np.int64),
+                             np.ones(n, np.bool_))
+    snap.columns[3] = Column(EvalType.INT, np.arange(n, dtype=np.int64) % 7,
+                             np.ones(n, np.bool_))
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    if plan == "sum_k_times_3":
+        dag = s.aggregate([], [("sum", s.col("k") * 3)]).build()
+        wrapped, right = [(2147483618000,)], [(6442450914000,)]
+    elif plan == "count_where_k_plus_100":
+        dag = s.where((s.col("k") + 100) > 0).aggregate(
+            [], [("count_star", None)]).build()
+        wrapped, right = [(0,)], [(1000,)]
+    else:
+        dag = s.aggregate([s.col("k") + 1], [("max", s.col("v"))]).build()
+        wrapped, right = None, [(6, 2**31)]
+    host = BatchExecutorsRunner(dag, snap).handle_request().rows()
+    assert host == right
+    if wrapped is None:
+        with pytest.raises(AssertionError, match="key range overflow"):
+            ref.handle_request(dag, snap)
+    else:
+        assert ref.handle_request(dag, snap).rows() == wrapped
+    got = port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
+                              port_snapshot(table, snap)).rows()
+    assert got == right
+
+
+@pytest.mark.parametrize("arg", ["v_times_3", "v_plus_2_31_minus_500"])
+def test_int_arithmetic_route_follows_the_bounds_proof(arg, ref, port,
+                                                       monkeypatch):
+    """SUM(v*3) with v in [-1000, 1000): the column bounds prove the
+    product exact in int32, so it stays on the fused ``hash_agg`` route;
+    SUM(v + 2^31 - 500) leaves int32 for v ≥ 500, so it evaluates in int64
+    and takes the two-level route (8-byte planes).  Both equal the truth and
+    the reference (whose int32 wraparound does not reach these values)."""
+    import tikv_tpu_torch.device.runner as rmod
+    calls = []
+    for name in ("hash_agg", "twolevel_fused"):
+        real = getattr(rmod.ha if name == "hash_agg" else rmod, name)
+
+        def record(*a, _n=name, _f=real, **k):
+            calls.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(rmod.ha if name == "hash_agg" else rmod, name,
+                            record)
+    table, snap, k, v, _ = table_kv(5000, seed=25)
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    expr = s.col("v") * 3 if arg == "v_times_3" else \
+        s.col("v") + (2**31 - 500)
+    dag = s.aggregate([s.col("k")], [("sum", expr)]).build()
+    add = 3 * v if arg == "v_times_3" else v + (2**31 - 500)
+    truth = [(int(add[k == key].sum()), int(key)) for key in np.unique(k)]
+    got = port.handle_request(convert.dag_from_wire(wire.enc_dag(dag)),
+                              port_snapshot(table, snap)).rows()
+    assert got == truth
+    assert calls == (["hash_agg"] if arg == "v_times_3"
+                     else ["twolevel_fused"])
+    if arg == "v_times_3":
+        assert ref.handle_request(dag, snap).rows() == truth

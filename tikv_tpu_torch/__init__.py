@@ -1,10 +1,10 @@
 """tikv_tpu_torch — the coprocessor of the KV framework in PyTorch and CUDA.
 
 The port of the JAX package ``tikv_tpu`` to one NVIDIA H100, slice by
-slice, with the JAX package kept as the reference.  This slice serves the
-aggregation path (COUNT/SUM/AVG with and without one integer GROUP BY key)
-over a columnar snapshot held on the card, through the hand-written CUDA
-kernel ``csrc/hash_agg.cu``.
+slice, with the JAX package kept as the reference.  It serves the
+coprocessor's device plans — aggregation, selection and top-k over a table
+or single-column index scan — over a columnar snapshot held on the card,
+through hand-written CUDA kernels (``csrc/``).
 
 The package imports torch and numpy only; it keeps its own copies of the
 host helpers it needs.  Exports are lazy (PEP 562).

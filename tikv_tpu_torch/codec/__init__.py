@@ -1,7 +1,8 @@
-"""Key codecs: the record-key subset the columnar scan needs."""
+"""Key codecs: the record- and index-key subset the columnar scans need."""
 
-from .keys import table_record_key, table_record_range
+from .keys import index_key_prefix, table_record_key, table_record_range
+from .mc_datum import decode_mc_datum, encode_mc_datum
 from .number import decode_i64, encode_i64
 
-__all__ = ["table_record_key", "table_record_range", "decode_i64",
-           "encode_i64"]
+__all__ = ["index_key_prefix", "table_record_key", "table_record_range",
+           "decode_mc_datum", "encode_mc_datum", "decode_i64", "encode_i64"]

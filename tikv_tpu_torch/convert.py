@@ -6,7 +6,7 @@ For this system the state a request runs against is a table snapshot
 
 - ``table_from_wire(table_id, [(name, col_id, ft_dict, is_pk)])``
 - ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
-  validity)})``
+  validity)}, alive=None)``
 - ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package.
 """
 
@@ -30,9 +30,10 @@ def table_from_wire(table_id: int, columns: Sequence[tuple]) -> Table:
         for name, col_id, ft, is_pk in columns))
 
 
-def snapshot_from_arrays(table: Table, handles,
-                         columns: dict) -> ColumnarTable:
-    """``columns``: {name: (eval type name, values, validity or None)}."""
+def snapshot_from_arrays(table: Table, handles, columns: dict,
+                         alive=None) -> ColumnarTable:
+    """``columns``: {name: (eval type name, values, validity or None)};
+    ``alive``: the rows that exist (delete tombstones), or None."""
     named = {}
     for name, (et, values, validity) in columns.items():
         values = np.asarray(values)
@@ -40,7 +41,7 @@ def snapshot_from_arrays(table: Table, handles,
             else np.asarray(validity, dtype=np.bool_)
         named[name] = Column.from_values(EvalType(et), values, valid)
     return ColumnarTable.from_arrays(table, np.asarray(handles, np.int64),
-                                     named)
+                                     named, alive)
 
 
 def dag_from_wire(d: dict) -> DAGRequest:

@@ -79,6 +79,13 @@ class Column:
             return v.item()
         return v
 
+    def take(self, indices: np.ndarray) -> "Column":
+        return Column(self.eval_type, self.values[indices],
+                      self.validity[indices])
+
+    def filter(self, mask: np.ndarray) -> "Column":
+        return Column(self.eval_type, self.values[mask], self.validity[mask])
+
     def __repr__(self) -> str:
         return f"Column<{self.eval_type.value}>[{len(self)}]"
 
@@ -103,6 +110,12 @@ class ColumnBatch:
     @property
     def num_rows(self) -> int:
         return len(self.columns[0]) if self.columns else 0
+
+    def filter(self, mask: np.ndarray) -> "ColumnBatch":
+        return ColumnBatch(self.schema, [c.filter(mask) for c in self.columns])
+
+    def take(self, indices: np.ndarray) -> "ColumnBatch":
+        return ColumnBatch(self.schema, [c.take(indices) for c in self.columns])
 
     def rows(self) -> list[tuple]:
         """Materialize as Python rows (tests / response encoding)."""

@@ -4,9 +4,11 @@
   accumulators are always int64.
 - REAL → float32 on the device.
 
-Kept identical to the reference's policy so feed shapes, dtypes and the
-int32 wraparound of device arithmetic agree.  Other eval types have no
-device form in the port yet.
+Kept identical to the reference's policy so feed shapes and dtypes agree.
+INT arithmetic over an int32 column evaluates in int64 unless its bounds
+prove int32 exact (``expr/eval.py``), where the reference's wraps.  A REAL
+column that a TopN orders by also gets a float64 plane (the runner).
+Other eval types have no device form in the port yet.
 """
 
 from __future__ import annotations

@@ -1,18 +1,30 @@
-"""Device coprocessor backend — the aggregation path on one CUDA device.
+"""Device coprocessor backend on one CUDA device.
 
 Counterpart of the JAX package's ``device/runner.py`` ``DeviceRunner``,
-reduced to its single-device, synchronous aggregation path.  A DAG
-request of the form TableScan → Selection* → Aggregation (COUNT, SUM,
-AVG, MIN, MAX, FIRST, VAR_POP/VAR_SAMP/STDDEV_POP/STDDEV_SAMP, at most one
-INT GROUP BY key) over a columnar snapshot runs as:
+reduced to its single-device, synchronous path.  A DAG request is a scan
+head — a TableScan, or an IndexScan over one indexed column (and the
+handle) — then Selection*, then one terminal or none (the reference's
+analyzer, runner.py:1362-1487):
+
+- Aggregation (COUNT, SUM, AVG, MIN, MAX, FIRST, VAR_POP/VAR_SAMP/
+  STDDEV_POP/STDDEV_SAMP, at most one INT GROUP BY key);
+- TopN with one order key and ``limit ≤ topn.MAX_LIMIT`` (``topn``);
+- none, with at least one selection (``scan_sel``).
+
+It runs as:
 
 - the used columns are uploaded once per snapshot as a padded feed that
   stays on the device (``_pad_rows``/``_build_flat``, the reference's
-  feed buckets, so feed shapes line up with the reference); INT columns
-  are int32 when their values fit, else int64, REAL columns float32;
-- the selection predicates and any computed key/argument expressions
-  are evaluated by ``eval_rpn`` over torch tensors on the device;
-- the rows are folded into per-slot states by the first route that
+  feed buckets, so feed shapes line up with the reference's); INT columns
+  are int32 when their values fit, else int64, REAL columns float32 —
+  except a REAL column that a TopN orders by, which also gets a float64
+  plane, so the order is exact (ROADMAP queue 3 fault 6 stays open for
+  predicates and MIN/MAX);
+- the selection predicates and any computed key/argument/order
+  expressions are evaluated by ``eval_rpn`` over torch tensors on the
+  device; INT arithmetic evaluates in int64 unless the columns' bounds
+  prove it exact in int32 (``narrow_int32``, fault 5's repair);
+- aggregations fold the rows into per-slot states by the first route that
   takes the plan and its data, in the reference's order
   (``_run_simple``/``_run_hash``):
 
@@ -26,40 +38,52 @@ INT GROUP BY key) over a columnar snapshot runs as:
      (``kernels.build_layouts``' layout) and sums them per slot;
   3. the scatter route (GROUP BY) and the simple body (no GROUP BY):
      every other plan, as composed torch ops (``ops/agg.py``);
-- GROUP BY keys index their slots directly while the key span is at most
+  GROUP BY keys index their slots directly while the key span is at most
   ``MAX_HASH_CAPACITY``; wider spans are dictionary-encoded on the host
   once per snapshot (``_sparse_slots``);
-- the states come back to the host, which finalizes them.
+- a selection packs and counts its mask (``selection.sel_mask``, the CUDA
+  kernel ``csrc/selection.cu``) and ships the mask, the selected row
+  indices or the selected rows themselves (``selection.sel_compact``),
+  routed by a per-plan selectivity EWMA (``_run_scan_sel``);
+- a TopN takes the top rows per segment and then overall on the device
+  (``topn.topn_select``, the CUDA kernel ``csrc/topn.cu``) and orders the
+  candidates exactly on the host (``_run_topn``);
+- the results come back to the host, which finalizes them.
 
 Cases outside this port are refused, never served elsewhere: plans
 (``supports`` is False; ``handle_request`` raises NotImplementedError)
 and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY keys (the reference
 sends those to its host pipeline).  Each refusal names the ROADMAP.md item
-that will serve it.  An empty scan gets the finalize of empty states.
+that will serve it.  An empty scan gets the host pipeline's answer: the
+finalize of empty states, or no rows.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..copr.dag import (AggregationDesc, DAGRequest, SelectionDesc,
-                        TableScanDesc)
+from ..copr.dag import (AggregationDesc, DAGRequest, IndexScanDesc,
+                        SelectionDesc, TableScanDesc, TopNDesc)
 from ..datatype import Column, ColumnBatch, EvalType, FieldType
 from ..datatype.tile import _device_dtype
 from ..executors.result import SelectResult, _agg_ret_ft
 from ..expr import FUNCTIONS, build_rpn, eval_rpn
-from ..expr.eval import _TORCH_DTYPES
+from ..expr.eval import _TORCH_DTYPES, narrow_int32
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
 from ..ops.agg import (_BIG, AggSpec, finalize_hash, finalize_simple,
                        hash_agg_tile, simple_agg_tile)
 from . import hash_agg as ha
 from . import kernels as kn
 from . import resolve_device
+from . import selection as sm
+from . import topn as tn
 from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
@@ -76,8 +100,9 @@ _TODO_EXPR = "ROADMAP.md queue 1 item 2 (device expression families)"
 _TODO_AGG = ("ROADMAP.md queue 1 item 3 (bit aggregates, multi-key GROUP "
              "BY, FIRST with GROUP BY and over 2^20 distinct keys: the "
              "reference's host pipeline)")
-_TODO_ROUTES = ("ROADMAP.md queue 1 item 5 (selection, top-k and "
-                "index-scan routes)")
+_TODO_HOST = ("ROADMAP.md queue 1 item 6 (the host pipeline: bare scans, "
+              "projections, limits, multi-column indexes and the other "
+              "plans the reference serves on the host)")
 _TODO_STORAGE = "ROADMAP.md queue 1 item 6 (production read path)"
 
 
@@ -150,19 +175,40 @@ def _to_host(dicts: list) -> list:
 
 @dataclass
 class _Plan:
-    """Analyzed plan (rpns remapped onto ``used_cols`` positions)."""
+    """Analyzed plan (rpns remapped onto the feed's planes: ``used_cols``
+    in their device dtypes, then ``f64_cols`` in float64)."""
 
-    scan: TableScanDesc
-    kind: str                        # simple_agg | hash_agg
+    scan: object                     # TableScanDesc | IndexScanDesc
+    kind: str                        # simple_agg | hash_agg | topn | scan_sel
     used_cols: list                  # scan column offsets shipped to device
     sel_rpns: list = field(default_factory=list)
     specs: list = field(default_factory=list)        # AggSpec per agg
     agg_rpns: list = field(default_factory=list)     # RpnExpression | None
     key_rpn: Optional[RpnExpression] = None
+    # REAL scan columns a TopN orders by, shipped again as float64 planes
+    f64_cols: list = field(default_factory=list)
+    order_rpn: Optional[RpnExpression] = None        # over the feed planes
+    order_host_rpn: Optional[RpnExpression] = None   # over the scan columns
+    order_desc: bool = False
+    limit: int = 0
+    compact_ok: bool = False         # scan_sel: every scan column shipped
+    sel_params: Optional[tuple] = None   # selection.split_params, lazily
+    sel_stat_key: Optional[tuple] = None
+
+
+def _scan_key(scan) -> tuple:
+    """What decides a scan's row order, for feed identity."""
+    return (type(scan).__name__, getattr(scan, "index_id", None),
+            bool(scan.desc))
+
+
+def _has_int64_calls(rpns) -> bool:
+    return any(isinstance(nd, RpnFnCall) and nd.meta.int64
+               for r in rpns if r is not None for nd in r.nodes)
 
 
 class DeviceRunner:
-    """Executes the port's aggregation plans on one device.
+    """Executes the port's plans on one device.
 
     ``device``: ``None`` (``cuda:0``), a CUDA device, or ``"cpu"`` — the
     plain PyTorch version of every kernel, which the tests use.  Without
@@ -178,6 +224,12 @@ class DeviceRunner:
         # snapshot → {"feeds": {feed_key: feed}, "meta": {meta_key: dict}};
         # entries die with their snapshot
         self._snaps: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        # selectivity EWMA per exact plan key and per const-blind shape key
+        # (LRU), and the selection routes taken, by name
+        self._sel_stats: OrderedDict = OrderedDict()
+        self.sel_routes: dict = {}
+        # hoisted predicate constants as 0-d device tensors, FIFO-bounded
+        self._params: dict = {}
 
     # ---------------------------------------------------------------- plan
 
@@ -196,69 +248,111 @@ class DeviceRunner:
 
     def _analyze_uncached(self, dag: DAGRequest) -> tuple:
         execs = dag.executors
-        if not execs or not isinstance(execs[0], TableScanDesc):
-            return None, f"plan does not start with a TableScan: {_TODO_ROUTES}"
+        if not execs or not isinstance(execs[0],
+                                       (TableScanDesc, IndexScanDesc)):
+            return None, f"plan does not start with a scan: {_TODO_HOST}"
         scan = execs[0]
+        if isinstance(scan, IndexScanDesc):
+            n_idx = len(scan.columns) - (
+                1 if scan.columns and scan.columns[-1].is_pk_handle else 0)
+            if n_idx != 1:
+                return None, f"index scan over {n_idx} columns: {_TODO_HOST}"
         scan_ets = [c.field_type.eval_type for c in scan.columns]
         sel_exprs: list = []
         terminal = None
         for d in execs[1:]:
             if isinstance(d, SelectionDesc) and terminal is None:
                 sel_exprs.extend(d.conditions)
-            elif isinstance(d, AggregationDesc) and terminal is None:
+            elif isinstance(d, (AggregationDesc, TopNDesc)) and \
+                    terminal is None:
                 terminal = d
             else:
-                return None, f"{type(d).__name__} in the plan: {_TODO_ROUTES}"
-        if terminal is None:
-            return None, f"scan without aggregation: {_TODO_ROUTES}"
-        if len(terminal.group_by) > 1:
-            return None, f"multi-key GROUP BY: {_TODO_AGG}"
-        for a in terminal.aggs:
-            if a.kind not in _DEVICE_AGGS:
-                return None, f"{a.kind.upper()} aggregate: {_TODO_AGG}"
-            if a.kind == "first" and terminal.group_by:
-                return None, f"FIRST with GROUP BY: {_TODO_AGG}"
-        exprs = sel_exprs + [a.arg for a in terminal.aggs
-                             if a.arg is not None] + list(terminal.group_by)
+                return None, f"{type(d).__name__} in the plan: {_TODO_HOST}"
+        if terminal is None and not sel_exprs:
+            return None, f"bare scan: {_TODO_HOST}"
+        exprs = list(sel_exprs)
+        if isinstance(terminal, AggregationDesc):
+            if len(terminal.group_by) > 1:
+                return None, f"multi-key GROUP BY: {_TODO_AGG}"
+            for a in terminal.aggs:
+                if a.kind not in _DEVICE_AGGS:
+                    return None, f"{a.kind.upper()} aggregate: {_TODO_AGG}"
+                if a.kind == "first" and terminal.group_by:
+                    return None, f"FIRST with GROUP BY: {_TODO_AGG}"
+            exprs += [a.arg for a in terminal.aggs if a.arg is not None] + \
+                list(terminal.group_by)
+        elif isinstance(terminal, TopNDesc):
+            if len(terminal.order_by) != 1 or \
+                    terminal.limit > tn.MAX_LIMIT:
+                return None, (f"TopN over {len(terminal.order_by)} keys, "
+                              f"limit {terminal.limit}: {_TODO_HOST}")
+            exprs.append(terminal.order_by[0][0])
         unknown = set().union(*map(_expr_sigs, exprs)) - set(FUNCTIONS) \
             if exprs else set()
         if unknown:
             return None, f"functions {sorted(unknown)}: {_TODO_EXPR}"
 
         sel_rpns = [build_rpn(e) for e in sel_exprs]
-        agg_rpns, specs = [], []
-        for i, a in enumerate(terminal.aggs):
-            if a.arg is None:
-                agg_rpns.append(None)
-                specs.append(AggSpec(a.kind, i))
-                continue
-            r = build_rpn(a.arg)
-            agg_rpns.append(r)
-            specs.append(AggSpec(a.kind, i, r.ret_type))
-        key_rpn = None
-        if terminal.group_by:
-            key_rpn = build_rpn(terminal.group_by[0])
-            if key_rpn.ret_type is not EvalType.INT:
-                return None, f"non-INT GROUP BY key: {_TODO_AGG}"
-        rpns = sel_rpns + [r for r in agg_rpns if r is not None] + \
-            ([key_rpn] if key_rpn is not None else [])
-        for r in rpns:
+        plan = _Plan(scan=scan, kind="scan_sel", used_cols=[])
+        rpns = list(sel_rpns)
+        order_cols: set = set()
+        if isinstance(terminal, AggregationDesc):
+            for i, a in enumerate(terminal.aggs):
+                if a.arg is None:
+                    plan.agg_rpns.append(None)
+                    plan.specs.append(AggSpec(a.kind, i))
+                    continue
+                r = build_rpn(a.arg)
+                plan.agg_rpns.append(r)
+                plan.specs.append(AggSpec(a.kind, i, r.ret_type))
+            rpns += [r for r in plan.agg_rpns if r is not None]
+            plan.kind = "simple_agg"
+            if terminal.group_by:
+                plan.kind = "hash_agg"
+                plan.key_rpn = build_rpn(terminal.group_by[0])
+                if plan.key_rpn.ret_type is not EvalType.INT:
+                    return None, f"non-INT GROUP BY key: {_TODO_AGG}"
+                rpns.append(plan.key_rpn)
+        elif isinstance(terminal, TopNDesc):
+            order_expr, plan.order_desc = terminal.order_by[0]
+            plan.order_host_rpn = build_rpn(order_expr)
+            if plan.order_host_rpn.ret_type not in _DEVICE_ETS:
+                return None, f"non-numeric TopN key: {_TODO_HOST}"
+            plan.kind = "topn"
+            plan.limit = terminal.limit
+            order_cols = _rpn_col_indices(plan.order_host_rpn)
+        for r in rpns + [r for r in [plan.order_host_rpn] if r is not None]:
             if not _rpn_device_safe(r, scan_ets):
                 return None, f"non-numeric column or constant: {_TODO_EXPR}"
 
-        used = sorted(set().union(*map(_rpn_col_indices, rpns))) \
-            if rpns else []
-        mapping = {old: new for new, old in enumerate(used)}
-        return _Plan(
-            scan=scan,
-            kind="hash_agg" if key_rpn is not None else "simple_agg",
-            used_cols=used,
-            sel_rpns=[_remap_rpn(r, mapping) for r in sel_rpns],
-            specs=specs,
-            agg_rpns=[None if r is None else _remap_rpn(r, mapping)
-                      for r in agg_rpns],
-            key_rpn=None if key_rpn is None else _remap_rpn(key_rpn, mapping),
-        ), ""
+        # the order expression reads REAL columns in float64, INT ones in
+        # their device dtype beside the other expressions' columns
+        f64 = sorted(c for c in order_cols if scan_ets[c] is EvalType.REAL)
+        used = set().union(*map(_rpn_col_indices, rpns)) if rpns else set()
+        used |= order_cols - set(f64)
+        if plan.kind == "scan_sel" and isinstance(scan, TableScanDesc) and \
+                all(c.is_pk_handle or (c.field_type.eval_type is EvalType.INT
+                                       and not c.field_type.is_unsigned)
+                    for c in scan.columns):
+            # every scan column round-trips its device dtype: ship them
+            # all, so the compact route can gather the selected rows on
+            # the device (runner.py:1456-1477)
+            used = set(range(len(scan.columns)))
+            plan.compact_ok = 2 * len(scan.columns) <= sm.MAX_PLANES
+        plan.used_cols = sorted(used)
+        plan.f64_cols = f64
+        mapping = {old: new for new, old in enumerate(plan.used_cols)}
+        plan.sel_rpns = [_remap_rpn(r, mapping) for r in sel_rpns]
+        plan.agg_rpns = [None if r is None else _remap_rpn(r, mapping)
+                         for r in plan.agg_rpns]
+        if plan.key_rpn is not None:
+            plan.key_rpn = _remap_rpn(plan.key_rpn, mapping)
+        if plan.order_host_rpn is not None:
+            order_map = dict(mapping)
+            order_map.update({c: len(plan.used_cols) + j
+                              for j, c in enumerate(f64)})
+            plan.order_rpn = _remap_rpn(plan.order_host_rpn, order_map)
+        return plan, ""
 
     # ---------------------------------------------------------------- feed
 
@@ -330,12 +424,6 @@ class DeviceRunner:
                 f"{_TODO_STORAGE}")
         st = self._snap(storage)
         meta = st["meta"].setdefault((dag.plan_key(), dag.ranges), {})
-        if "n_rows" not in meta:
-            meta["n_rows"] = storage.count_rows(dag.ranges)
-        n = meta["n_rows"]
-        if n == 0:
-            return self._apply_output_offsets(dag, self._empty_result(plan))
-
         memo: dict = {}
 
         def get_batch() -> ColumnBatch:
@@ -343,12 +431,25 @@ class DeviceRunner:
                 memo["batch"] = storage.scan_columns(plan.scan, dag.ranges)
             return memo["batch"]
 
+        if "n_rows" not in meta:
+            # an index scan's ranges are index keys: count its output
+            meta["n_rows"] = storage.count_rows(dag.ranges) \
+                if isinstance(plan.scan, TableScanDesc) \
+                else get_batch().num_rows
+        n = meta["n_rows"]
+        if n == 0:
+            result = self._empty_result(plan) if plan.kind in (
+                "simple_agg", "hash_agg") else SelectResult(get_batch())
+            return self._apply_output_offsets(dag, result)
+
+        planes = [(ci, None) for ci in plan.used_cols] + \
+            [(ci, "float64") for ci in plan.f64_cols]
         if "dtypes" not in meta:
             batch = get_batch()
             meta["dtypes"] = tuple(
-                str(_device_dtype(batch.columns[ci].eval_type,
-                                  batch.columns[ci].values))
-                for ci in plan.used_cols)
+                dt or str(_device_dtype(batch.columns[ci].eval_type,
+                                        batch.columns[ci].values))
+                for ci, dt in planes)
         dtypes = meta["dtypes"]
 
         def host_cols() -> list:
@@ -360,24 +461,60 @@ class DeviceRunner:
                     (np.ascontiguousarray(batch.columns[ci].values.astype(
                         np.dtype(ds), copy=False)),
                      np.ascontiguousarray(batch.columns[ci].validity))
-                    for ci, ds in zip(plan.used_cols, dtypes)]
+                    for (ci, _), ds in zip(planes, dtypes)]
             return memo["host_cols"]
 
-        feed_key = (tuple(plan.scan.columns[ci].col_id
-                          for ci in plan.used_cols), dtypes, dag.ranges)
+        feed_key = (_scan_key(plan.scan),
+                    tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
+                    dtypes, dag.ranges)
         feed = st["feeds"].get(feed_key)
         if feed is None:
             feed = st["feeds"][feed_key] = self._build_flat(host_cols(), n)
-        if "arg_nbytes" not in meta:
-            meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols, dtypes)
-        arg_nbytes = meta["arg_nbytes"]
+        if "plan" not in meta:
+            meta["plan"] = self._narrowed(plan, host_cols, dtypes)
+        plan = meta["plan"]
 
-        if plan.kind == "simple_agg":
-            result = self._run_simple(plan, feed, dtypes, n, arg_nbytes)
+        if plan.kind == "scan_sel":
+            result = self._run_scan_sel(dag, plan, feed, n, get_batch,
+                                        storage)
+        elif plan.kind == "topn":
+            result = self._run_topn(dag, plan, feed, n, get_batch, storage)
         else:
-            result = self._run_hash(plan, host_cols, feed, dtypes, n, meta,
-                                    arg_nbytes)
+            if "arg_nbytes" not in meta:
+                meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols,
+                                                      dtypes)
+            arg_nbytes = meta["arg_nbytes"]
+            if plan.kind == "simple_agg":
+                result = self._run_simple(plan, feed, dtypes, n, arg_nbytes)
+            else:
+                result = self._run_hash(plan, host_cols, feed, dtypes, n,
+                                        meta, arg_nbytes)
         return self._apply_output_offsets(dag, result)
+
+    @staticmethod
+    def _narrowed(plan, host_cols, dtypes):
+        """``plan`` with its INT arithmetic kept in int32 wherever this
+        snapshot's column bounds prove it exact (``narrow_int32``); every
+        other INT arithmetic call evaluates in int64."""
+        rpns = plan.sel_rpns + plan.agg_rpns + [plan.key_rpn, plan.order_rpn]
+        if not _has_int64_calls(rpns):
+            return plan
+        bounds = []
+        for (v, _ok), d in zip(host_cols(), dtypes):
+            if np.dtype(d).kind == "f":
+                bounds.append(None)
+            else:   # NULL slots hold 0, and count: they are computed too
+                bounds.append((int(v.min()), int(v.max())) if v.size
+                              else (0, 0))
+
+        def narrow(r):
+            return None if r is None else narrow_int32(r, bounds)
+
+        return dataclasses.replace(
+            plan, sel_params=None,
+            sel_rpns=[narrow(r) for r in plan.sel_rpns],
+            agg_rpns=[narrow(r) for r in plan.agg_rpns],
+            key_rpn=narrow(plan.key_rpn), order_rpn=narrow(plan.order_rpn))
 
     @staticmethod
     def _apply_output_offsets(dag, result):
@@ -436,17 +573,26 @@ class DeviceRunner:
 
     def _inputs(self, plan, feed, n):
         """(per-column (value, validity) pairs over rows [0, n), the
-        selection mask or None when there is no selection)."""
-        dev = self.device
-        true = torch.ones((), dtype=torch.bool, device=dev)
+        selection mask or None when there is no selection).  The
+        selection's numeric constants are hoisted (``split_params``) into
+        0-d device tensors cached across requests, so a request copies
+        nothing to the device."""
+        true = torch.ones((), dtype=torch.bool, device=self.device)
         pairs = [(v[:n], true if ok is None else ok[:n])
                  for v, ok in self._planes(feed)]
+        if not plan.sel_rpns:
+            return pairs, None
+        if plan.sel_params is None:
+            plan.sel_params = sm.split_params(plan.sel_rpns, len(pairs))
+        rpns, values, dts = plan.sel_params
+        cols = pairs + [(self._param(v, dt), true)
+                        for v, dt in zip(values, dts)]
         mask = None
-        for rpn in plan.sel_rpns:
-            v, ok = eval_rpn(rpn, pairs, n, torch, dev)
+        for rpn in rpns:
+            v, ok = eval_rpn(rpn, cols, n, torch, self.device)
             m = ok & (v != 0)
             mask = m if mask is None else mask & m
-        return pairs, mask
+        return pairs, mask.contiguous()
 
     def _agg_cols(self, plan, pairs, n, mask) -> list:
         """Per aggregate: its argument's (values, validity) — for
@@ -697,6 +843,172 @@ class DeviceRunner:
                           "overflow": st["overflow"]}] + st["states"])
         self._check_overflow(host[0]["overflow"])
         return host[0]["present"] != 0, host[1:]
+
+    # -------------------------------------------- selection (scan_sel)
+
+    _SEL_EWMA_ALPHA = 0.3
+    _SEL_STATS_MAX = 256
+
+    def _sel_keys(self, dag, plan) -> tuple:
+        """(exact, shape) statistic keys: the const-inclusive plan key, and
+        the table plus the const-blind predicate structure, so a workload
+        rotating constants still warms (runner.py:1264-1327)."""
+        if plan.sel_stat_key is None:
+            plan.sel_stat_key = ("shape", getattr(plan.scan, "table_id", 0),
+                                 sm.shape_key(plan))
+        return dag.plan_key(), plan.sel_stat_key
+
+    def _sel_stat(self, key, create: bool):
+        st = self._sel_stats.get(key)
+        if st is None and create:
+            st = self._sel_stats[key] = {"ewma": None, "n_obs": 0}
+            while len(self._sel_stats) > self._SEL_STATS_MAX:
+                self._sel_stats.popitem(last=False)
+        elif st is not None:
+            self._sel_stats.move_to_end(key)
+        return st
+
+    def _sel_observe(self, keys, sel: float) -> None:
+        a = self._SEL_EWMA_ALPHA
+        for key in keys:
+            st = self._sel_stat(key, True)
+            st["ewma"] = sel if st["ewma"] is None else \
+                a * sel + (1 - a) * st["ewma"]
+            st["n_obs"] += 1
+
+    def _sel_predict(self, keys) -> Optional[float]:
+        """The EWMA selectivity after 3 observations (exact key first),
+        else None: the request takes the mask route."""
+        for key in keys:
+            st = self._sel_stat(key, False)
+            if st is not None and st["n_obs"] >= 3:
+                return st["ewma"]
+        return None
+
+    def _note_route(self, route: str) -> None:
+        self.sel_routes[route] = self.sel_routes.get(route, 0) + 1
+
+    def _param(self, value, dtype: str) -> torch.Tensor:
+        """A hoisted constant as a cached 0-d device tensor."""
+        key = (type(value), value, dtype)
+        t = self._params.get(key)
+        if t is None:
+            if len(self._params) >= self._plan_cache_max:
+                self._params.pop(next(iter(self._params)))
+            t = self._params[key] = torch.tensor(
+                value, dtype=_TORCH_DTYPES[dtype], device=self.device)
+        return t
+
+    def _run_scan_sel(self, dag, plan, feed, n, get_batch, storage):
+        """Selection with no terminal (runner.py:4186): one ``sel_mask``
+        pass counts and packs the predicate mask, then the route the
+        selectivity EWMA predicts ships the packed mask, the row indices
+        or the rows themselves.  A cold plan takes the mask route; its
+        count seeds the EWMA.  An index or compact capacity that proves
+        too small falls back to the packed mask, still on the device."""
+        mout = sm.sel_mask(self._inputs(plan, feed, n)[1], n)
+        keys = self._sel_keys(dag, plan)
+        pred = self._sel_predict(keys)
+        route, cap = sm.ROUTE_MASK, 0
+        if pred is not None:
+            k_est = pred * n
+            cap = sm.index_capacity(k_est * 1.5 + 64, n)
+            route = sm.choose_route(n, k_est, plan.compact_ok,
+                                    idx_bytes=4 * cap)
+
+        def observe(count: int) -> None:
+            self._sel_observe(keys, count / n)
+
+        def gather(rows):
+            """rows: a bool mask over the scan output, or its ascending
+            positions."""
+            if isinstance(plan.scan, TableScanDesc) and \
+                    hasattr(storage, "gather_rows"):
+                out = storage.gather_rows(plan.scan, dag.ranges, rows)
+            else:
+                b = get_batch()
+                out = b.filter(rows) if rows.dtype == np.bool_ \
+                    else b.take(rows)
+            return SelectResult(out)
+
+        def mask_route(fallback: bool):
+            count, packed = mout.host()
+            if fallback:
+                self._note_route("mask_fallback")
+            else:
+                observe(count)
+                self._note_route(sm.ROUTE_MASK)
+            return gather(np.unpackbits(packed, count=n).view(np.bool_))
+
+        if route == sm.ROUTE_MASK:
+            return mask_route(False)
+        planes = []
+        if route == sm.ROUTE_COMPACT:
+            planes = [t for v, ok in self._planes(feed)
+                      for t in ((v,) if ok is None else (v, ok))]
+        count, overflow, idx, outs = sm.sel_compact(mout, cap, planes).host()
+        observe(count)
+        if overflow:
+            return mask_route(True)
+        self._note_route(route)
+        if route == sm.ROUTE_INDEX:
+            return gather(idx[:count].astype(np.int64))
+        schema, cols = [], []
+        at = iter(outs)
+        for info, has_nulls in zip(plan.scan.columns, feed["null_flags"]):
+            vals = next(at)[:count].astype(np.int64)
+            valid = next(at)[:count].astype(np.bool_) if has_nulls \
+                else np.ones(count, np.bool_)
+            schema.append(info.field_type)
+            cols.append(Column(EvalType.INT, vals, valid))
+        return SelectResult(ColumnBatch(schema, cols))
+
+    # ---------------------------------------------------------------- top-n
+
+    def _run_topn(self, dag, plan, feed, n, get_batch, storage):
+        """TopN (runner.py:4391): the candidates on the device
+        (``topn_select``: per segment, then overall), then the exact
+        order on the host — MySQL NULL order (first for ASC, last for
+        DESC), rows the selection drops never, ties by row position."""
+        if plan.limit == 0:
+            return SelectResult(get_batch().take(np.empty(0, np.int64)))
+        pairs, mask = self._inputs(plan, feed, n)
+        ci = _bare_col(plan.order_rpn)
+        if ci is not None:
+            values, ok = self._planes(feed)[ci]
+        else:
+            # REAL columns are float64 planes here, REAL constants float64
+            values, ok = eval_rpn(plan.order_rpn, pairs, n, torch,
+                                  self.device, real=torch.float64)
+            values, ok = values.contiguous(), ok.contiguous()
+        n_used, seglen = tn.segments(n, feed["n_pad"])
+        host = tn.topn_select(values, ok, mask, plan.order_desc, n, n_used,
+                              seglen, plan.limit).cpu().numpy()
+        gidx = host[0]
+        live = (host[1] & 1 != 0) & (gidx < n)
+        gidx, okk = gidx[live], host[1][live] & 2 != 0
+        # the candidate rows only (a table scan gathers them from the
+        # snapshot; an index scan's output is views of its sorted index)
+        if isinstance(plan.scan, TableScanDesc) and \
+                hasattr(storage, "gather_rows"):
+            cand = storage.gather_rows(plan.scan, dag.ranges, gidx)
+        else:
+            cand = get_batch().take(gidx)
+        ov, _ = eval_rpn(plan.order_host_rpn, [
+            (c.values, c.validity) for c in cand.columns], len(gidx), np)
+        ov = np.broadcast_to(ov, (len(gidx),))
+        if plan.order_host_rpn.ret_type is EvalType.INT:
+            # NULL smallest: first for ASC, last for DESC; clamped so the
+            # negation cannot overflow
+            lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+            vals = np.maximum(np.asarray(ov).astype(np.int64), lo + 2)
+            skey = np.where(okk, -vals, hi) if plan.order_desc \
+                else np.where(okk, vals, lo)
+            order = np.lexsort((gidx, skey))
+        else:
+            keyf = np.where(okk, np.asarray(ov, np.float64), -np.inf)
+            order = np.lexsort((gidx, -keyf if plan.order_desc else keyf))
+        return SelectResult(cand.take(order[:plan.limit]))
 
     # -- empty scan --
 

@@ -17,8 +17,13 @@ maps ``(values, validity) × arity → (values, validity)``:
 Only the signatures the reference's device gate admits are here: the
 arithmetic, comparison, logic, NULL-test, control, cast and math families
 over INT and REAL.  A plan calling any other sig is outside the port's
-envelope (``DeviceRunner.supports`` is False).  Integer overflow wraps in
-the operands' dtype, as in the reference.
+envelope (``DeviceRunner.supports`` is False).
+
+INT arithmetic (``PlusInt``, ``MinusInt``, ``MultiplyInt``,
+``UnaryMinusInt``: ``RpnFnMeta.int64``) evaluates in int64 on the torch
+path, so an int32 column does not wrap where the host's int64 pipeline
+does not; ``eval.narrow_int32`` keeps a call in int32 where the columns'
+bounds prove its result fits.
 """
 
 from __future__ import annotations
@@ -46,16 +51,19 @@ class RpnFnMeta:
     # call (eval.py); off where an argument never meets the others in
     # arithmetic, so the result keeps the first argument's dtype
     widen: bool = True
+    # torch path: int32 operands are cast to int64 before the call (INT
+    # arithmetic, whose int32 result could wrap)
+    int64: bool = False
 
 
 FUNCTIONS: dict[str, RpnFnMeta] = {}
 
 
 def rpn_fn(name: str, arity: Optional[int], ret: EvalType, args: tuple,
-           widen: bool = True):
+           widen: bool = True, int64: bool = False):
 
     def deco(fn):
-        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn, widen)
+        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn, widen, int64)
         return fn
     return deco
 
@@ -75,7 +83,7 @@ def _register_arith():
     I, R = EvalType.INT, EvalType.REAL
 
     def binop(name, ret, ty, op):
-        @rpn_fn(name, 2, ret, (ty, ty))
+        @rpn_fn(name, 2, ret, (ty, ty), int64=ty is I)
         def _f(xp, a, b, _op=op):
             (av, am), (bv, bm) = a, b
             return _op(av, bv), am & bm
@@ -126,7 +134,7 @@ def _register_arith():
         return m, am & bm & ~zero
 
     for suffix, ty in (("Int", I), ("Real", R)):
-        @rpn_fn("UnaryMinus" + suffix, 1, ty, (ty,))
+        @rpn_fn("UnaryMinus" + suffix, 1, ty, (ty,), int64=ty is I)
         def unary_minus(xp, a):
             (av, am) = a
             return -av, am

@@ -19,7 +19,21 @@ arrays from the same seed):
 - config 3n: config 3's table with ``v`` NULL on 10%; SUM(v), COUNT(v),
   AVG(v), MIN(v), MAX(v), FIRST(v).
 
-``CONFIGS`` maps each name to its table builder and its plan.
+``CONFIGS`` maps each name to its table builder and its plan.  The
+configurations that return rows are in ``ROW_CONFIGS`` (``bench.py``'s
+configs 1, 2 and 5, plus 5t), with ``row_truth``:
+
+- config 1: a bare scan of 2^20 rows; it is a host plan (bare scans are
+  decode-bound), so its device figure is its probe, ``v > -10^9`` — a
+  predicate that keeps every row (``bench.py:2408-2422``);
+- config 2: ``WHERE v > 800`` over 10·2^20 rows (about 10% selected);
+- config 2s: config 2's table at the selectivities of ``SWEEP``
+  (``sweep_threshold``), which take the compact, index and mask routes;
+- config 5: an IndexScan of REAL ``v`` (and the handle), ``ORDER BY v DESC
+  LIMIT 1000``, over 100·2^20 rows;
+- config 5t: config 5's table with a TableScan head and ``v`` NULL on 10%:
+  ``WHERE k < 512 ORDER BY v DESC LIMIT 1000`` — unsorted rows, a
+  selection inside the top-k and NULL keys.
 """
 
 from __future__ import annotations
@@ -85,6 +99,17 @@ def build_null_table(n: int, groups: int = GROUPS, seed: int = 7):
     return table, snap
 
 
+def build_real_null_table(n: int, groups: int = GROUPS, seed: int = 7):
+    """Config 5's table (REAL ``v``) with ``v`` NULL on ``NULL_SHARE`` of
+    the rows (the mask of ``build_null_table``)."""
+    table, snap = build_table(n, groups, seed=seed, real_v=True)
+    valid = np.random.default_rng(seed + 2).random(n) >= NULL_SHARE
+    v = snap.columns[3]
+    snap.columns[3] = Column(v.eval_type, np.where(valid, v.values, 0.0),
+                             valid)
+    return table, snap
+
+
 def dag_simple_agg(table: Table):
     s = DagSelect.from_table(table, ["id", "k", "v"])
     return s.aggregate([], [("sum", s.col("v")), ("count_star", None),
@@ -141,9 +166,106 @@ CONFIGS = {
 }
 
 
+PROBE_THRESHOLD = -(10 ** 9)
+TOPN_LIMIT = 1000
+# config 2s: the sweep's selectivities (bench.py:2263)
+SWEEP = {"0.1%": 0.001, "1%": 0.01, "10%": 0.10, "50%": 0.50}
+
+
+def dag_selection(table: Table, threshold: int = 800):
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    return s.where(s.col("v") > threshold).build()
+
+
+def dag_scan_probe(table: Table):
+    return dag_selection(table, PROBE_THRESHOLD)
+
+
+def dag_topn_index(table: Table, limit: int = TOPN_LIMIT):
+    s = DagSelect.from_index(table, "v", with_handle=True)
+    return s.order_by(s.col("v"), desc=True, limit=limit).build()
+
+
+def dag_topn_table(table: Table, limit: int = TOPN_LIMIT):
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    return s.where(s.col("k") < 512).order_by(s.col("v"), desc=True,
+                                             limit=limit).build()
+
+
+def sweep_threshold(snap, frac: float) -> int:
+    """The ``v > t`` threshold that keeps about ``frac`` of the rows."""
+    return int(np.quantile(snap.columns[3].values, 1.0 - frac))
+
+
+# name → (table builder of n rows, plan builder); the plans return rows
+ROW_CONFIGS = {
+    "1": (build_table, dag_scan_probe),
+    "2": (build_table, dag_selection),
+    "5": (_real, dag_topn_index),
+    "5t": (build_real_null_table, dag_topn_table),
+}
+
+
 # ---------------------------------------------------------------------------
 # numpy truth
 # ---------------------------------------------------------------------------
+
+def top_rows(values, valid, desc: bool, limit: int) -> np.ndarray:
+    """Positions of the ``limit`` best rows by (value, NULL last for DESC
+    and first for ASC, then position), best first; O(n)."""
+    key = np.where(valid, values if desc else -values,
+                   -np.inf if desc else np.inf)
+    n = len(key)
+    if limit < n:
+        kth = np.partition(key, n - limit)[n - limit]
+        above = np.flatnonzero(key > kth)
+        tied = np.flatnonzero(key == kth)[:limit - len(above)]
+        chosen = np.concatenate([above, tied])
+    else:
+        chosen = np.arange(n)
+    return chosen[np.lexsort((chosen, -key[chosen]))]
+
+
+def row_truth_columns(name: str, snap, threshold: int = 800) -> list:
+    """The output columns, as (values, validity) numpy pairs, of a
+    ``ROW_CONFIGS`` plan (or of config 2s at ``threshold``) over ``snap``,
+    from numpy alone."""
+    ids, k, v = snap.handles, snap.columns[2], snap.columns[3]
+    if name in ("1", "2", "2s"):
+        t = PROBE_THRESHOLD if name == "1" else threshold
+        rows = np.flatnonzero(v.validity & (v.values > t))
+    elif name == "5":
+        # the index orders equal values by handle, as the table does
+        rows = top_rows(v.values, v.validity, True, TOPN_LIMIT)
+        return [(v.values[rows], v.validity[rows]),
+                (ids[rows], np.ones(len(rows), np.bool_))]
+    else:
+        keep = np.flatnonzero(k.values < 512)
+        rows = keep[top_rows(v.values[keep], v.validity[keep], True,
+                             TOPN_LIMIT)]
+    return [(ids[rows], np.ones(len(rows), np.bool_)),
+            (k.values[rows], k.validity[rows]),
+            (v.values[rows], v.validity[rows])]
+
+
+def row_truth(name: str, snap, threshold: int = 800) -> list:
+    """``row_truth_columns`` as a list of row tuples (None for NULL)."""
+    cols = row_truth_columns(name, snap, threshold)
+    return list(zip(*[[x if ok else None for x, ok in zip(v.tolist(), m)]
+                      for v, m in cols]))
+
+
+def columns_agree(batch, cols) -> bool:
+    """A result batch equals truth columns exactly: the same validity, and
+    the same values where valid."""
+    if len(batch.columns) != len(cols):
+        return False
+    for c, (v, m) in zip(batch.columns, cols):
+        if len(c.values) != len(v) or not np.array_equal(c.validity, m) or \
+                not np.array_equal(c.values[m], v[m]):
+            return False
+    return True
+
 
 def _first_valid(v, ok):
     at = np.flatnonzero(ok)

@@ -8,9 +8,10 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from ..codec.keys import table_record_range
+from ..codec.keys import index_key_prefix, table_record_range
 from ..copr.dag import (AggExprDesc, AggregationDesc, DAGRequest,
-                        SelectionDesc, TableScanDesc)
+                        IndexScanDesc, LimitDesc, SelectionDesc,
+                        TableScanDesc, TopNDesc)
 from ..executors.ranges import KeyRange
 from ..expr import Expr
 from .fixture import Table, TableColumn
@@ -38,6 +39,24 @@ class DagSelect:
         s._ranges = [KeyRange(start, end)]
         return s
 
+    @staticmethod
+    def from_index(table: Table, column: str,
+                   with_handle: bool = True) -> "DagSelect":
+        """A covering scan of ``column``'s index (and the handle) over the
+        whole index."""
+        s = DagSelect(table)
+        col = table[column]
+        assert col.index_id is not None, f"{column} has no index"
+        cols = [col]
+        if with_handle:
+            cols.append(next(c for c in table.columns if c.is_pk_handle))
+        s._scan_cols = cols
+        s._scan = IndexScanDesc(table.table_id, col.index_id, tuple(
+            table.column_info(c.name) for c in cols))
+        prefix = index_key_prefix(table.table_id, col.index_id)
+        s._ranges = [KeyRange(prefix, prefix + b"\xff" * 10)]
+        return s
+
     def col(self, name: str) -> Expr:
         """Column reference by name → offset in the scan output."""
         for i, c in enumerate(self._scan_cols):
@@ -56,6 +75,15 @@ class DagSelect:
         """aggs: [(kind, arg_expr_or_None)]"""
         specs = tuple(AggExprDesc(kind, arg) for kind, arg in aggs)
         self._execs.append(AggregationDesc(tuple(group_by), specs, streamed))
+        return self
+
+    def order_by(self, expr: Expr, desc: bool = False,
+                 limit: int = 10) -> "DagSelect":
+        self._execs.append(TopNDesc(((expr, desc),), limit))
+        return self
+
+    def limit(self, n: int) -> "DagSelect":
+        self._execs.append(LimitDesc(n))
         return self
 
     def build(self, start_ts: int = 0) -> DAGRequest:
