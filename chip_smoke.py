@@ -38,7 +38,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cold and five warm requests, the kernels' launch counts read around
    the run (each config must launch the kernels of its route and no
    other), the peak device memory of one more warm request beyond what
-   was resident before it, and one profiled warm request; for 3, 4 and 4s
+   was resident before it, and one profiled warm request (traced again
+   until the trace holds the route's kernels); for 3, 4 and 4s
    one line of host-clock phases of a warm request (analyze, inputs,
    launch, D2H wait, finalize);
 5. each kernel against its plain version at the main path's shapes, and
@@ -58,7 +59,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bool planes), ``topn_select`` (DESC and ASC, int32, int64 and float64
    keys, NULLs first and last, a selection inside, a limit beyond the live
    rows, 10·2^20 tied keys and 10·2^20 NULL keys, the int64 extremes, -0.0
-   beside 0.0, n not a multiple of the segment, config 5's 100·2^20 rows);
+   beside 0.0, n not a multiple of the segment, config 5's 100·2^20 rows,
+   a crossing bin of exactly the candidate buffer's rows and one row more,
+   narrow int32 keys with and without their bounds, misaligned planes; the
+   route each case takes equals ``topn.plan_route``'s, and both the common
+   and the overflow route are taken), and ``agg_fold`` (every state kind
+   over int32, int64, float32 and float64 values with NULLs, no / partial /
+   all-false selections, dense keys with NULL keys, sparse slot ids and
+   the simple mode with FIRST, at 1026, 65,538 and 2^20 + 2 slots, lanes
+   sharing a values plane, an int64 key, the overflow flag, hot slots over
+   2^24 rows at the int32 extremes, n not a multiple of 4, planes 1-3
+   elements off a 16-byte boundary; integer, MIN/MAX and FIRST states
+   exactly, float64 sums within 1e-9·Σ|v| per cell; the route of each case
+   is printed and every route, shared, global and registers, is taken);
 7. the selection, top-k and index-scan routes through
    ``DeviceRunner().handle_request`` (``configs.ROW_CONFIGS``): configs 1
    (its probe over 2^20 rows), 2 (10·2^20), 5 (an IndexScan, 100·2^20) and
@@ -72,14 +85,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``sel_mask`` at config 2 (``torch.count_nonzero``), ``sel_compact`` at
    config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``),
    ``topn_select`` at configs 5 and 5t (``torch.topk`` on the (segments,
-   segment length) view), with its passes over each segment;
+   segment length) view), with its route and its reads of the order plane
+   per row (and at config 5 the overflow route's time on the same
+   inputs); ``agg_fold`` at configs 4m and 3n on the runner's own
+   arguments, with its route and peak bytes (no single PyTorch call
+   computes the fold: one ``scatter_reduce_`` (amax) over the same keys
+   and values is the yardstick);
 9. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
    its route at each config; config 2 for ``sel_mask``; config 2s's 1% for
-   ``sel_compact``; config 5 for ``topn_select``), and the least time the
-   card could take;
+   ``sel_compact``; config 5 for ``topn_select``; config 4m for
+   ``agg_fold``, with 3n under ``configs``), and the least time the card
+   could take;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -105,13 +124,14 @@ SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
 HEADER_BYTES = 16               # sel_compact's count and overflow flag
 CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
-KERNELS = ("hash_agg", "twolevel", "sel_mask", "sel_compact", "topn_select")
+KERNELS = ("hash_agg", "twolevel", "sel_mask", "sel_compact", "topn_select",
+           "agg_fold")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
 ROUTE = {"3": "hash_agg", "4": "hash_agg", "4s": "hash_agg",
          "4n": "twolevel", "4w": "twolevel", "4r": "twolevel",
-         "4m": None, "3n": None}
+         "4m": "agg_fold", "3n": "agg_fold"}
 # the configs that return rows: rows on the card, the kernels they launch
 ROW_SIZES = {"1": 1 << 20, "2": 10 << 20, "5": 100 << 20, "5t": 100 << 20}
 ROW_ROUTE = {"1": {"sel_mask"}, "2": {"sel_mask"}, "5": {"topn_select"},
@@ -161,20 +181,23 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 
 def counts() -> dict:
-    from tikv_tpu_torch.device import hash_agg, selection, topn, twolevel
+    from tikv_tpu_torch.device import (agg_fold, hash_agg, selection, topn,
+                                       twolevel)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_mask": selection.mask_launches,
             "sel_compact": selection.compact_launches,
-            "topn_select": topn.launches}
+            "topn_select": topn.launches, "agg_fold": agg_fold.launches}
 
 
 def set_counts(values: dict) -> None:
-    from tikv_tpu_torch.device import hash_agg, selection, topn, twolevel
+    from tikv_tpu_torch.device import (agg_fold, hash_agg, selection, topn,
+                                       twolevel)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.mask_launches = values["sel_mask"]
     selection.compact_launches = values["sel_compact"]
     topn.launches = values["topn_select"]
+    agg_fold.launches = values["agg_fold"]
 
 
 def build_kernels() -> None:
@@ -190,6 +213,7 @@ def build_kernels() -> None:
             print(f"build: {name} in {secs:.3f} s", flush=True)
             print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
     shared_atomics("hash_agg")
+    shared_atomics("agg_fold")
 
 
 def ptxas_summary(log: str) -> str:
@@ -723,7 +747,8 @@ def serve(label: str, n: int, runner, dag, snap, answer, agrees,
     out["peak_request_bytes"] = peak_request_bytes(runner, dag, snap)
     print(f"config {label}: " + " ".join(f"{k}={v}" for k, v in out.items()
                                          if k != "config"), flush=True)
-    profile_request(label, runner, dag, snap)
+    profile_request(label, runner, dag, snap,
+                    {k for k in expect if k != "sel_compact"})
     return out
 
 
@@ -817,29 +842,49 @@ def peak_request_bytes(runner, dag, snap) -> int:
     return peak_bytes(lambda: runner.handle_request(dag, snap))
 
 
-def profile_request(config: str, runner, dag, snap) -> None:
+# kernel → substrings of its device functions' names in a trace
+SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
+           "twolevel": ("twolevel_kernel",),
+           "sel_mask": ("sel_mask_kernel",),
+           "sel_compact": ("sel_compact_kernel",),
+           "topn_select": ("topn_hist",),
+           "agg_fold": ("fold_shared", "fold_global", "fold_simple")}
+
+
+def profile_request(config: str, runner, dag, snap, expect=()) -> dict:
     """One warm request under torch.profiler: device time by kernel and
-    the device's idle share of the (profiled) request wall."""
+    the device's idle share of the (profiled) request wall.  The trace
+    must hold a device function of every kernel in ``expect``: the tracer
+    now and then misses them, so the request is traced again (up to three
+    times with CPU and CUDA activity, then up to three times with CUDA
+    activity alone); the line says whether it ever held them."""
     from torch.profiler import ProfilerActivity, profile
     saved = counts()
-    # the tracer now and then sees no kernel of the request
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    attempts = [[ProfilerActivity.CPU, ProfilerActivity.CUDA]] * 3 + \
+        [[ProfilerActivity.CUDA]] * 3
+    for tried, activities in enumerate(attempts, 1):
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             runner.handle_request(dag, snap)
+            torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any(not e.key.startswith(("Memcpy", "Memset")) for e in events):
+        names = [e.key for e in events]
+        seen = all(any(sym in k for k in names for sym in SYMBOLS[name])
+                   for name in expect)
+        if seen and any(not k.startswith(("Memcpy", "Memset"))
+                        for k in names):
             break
     set_counts(saved)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     print(f"profile config {config}: wall_ms={wall_ms} device_ms={dev_ms} "
-          f"idle_share={1 - dev_ms / wall_ms} top=" + "; ".join(
+          f"idle_share={1 - dev_ms / wall_ms} traces={tried} "
+          f"route_kernels_traced={seen} top=" + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3}ms"
               for e in top), flush=True)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "traced": seen}
 
 
 # ---------------------------------------------------------------------------
@@ -941,26 +986,27 @@ def kernel_at_main_shapes(dev) -> tuple:
     return worst, timings
 
 
-def captured_twolevel_inputs(config: str, runner) -> tuple:
-    """twolevel_fused's arguments exactly as the runner passes them on one
-    request of ``config`` (recorded around the call; not counted)."""
+def captured_inputs(config: str, runner, name: str) -> tuple:
+    """(args, kwargs) of the runner's call of ``name`` (``twolevel_fused``
+    or ``agg_fold``, as ``device/runner.py`` imports them) on one request
+    of ``config`` (recorded around the call; not counted)."""
     import tikv_tpu_torch.device.runner as rmod
     from tikv_tpu_torch.testing import configs as cf
     build, make = cf.CONFIGS[config]
     table, snap = build(SIZES[config])
     seen = []
-    real = rmod.twolevel_fused
+    real = getattr(rmod, name)
 
     def record(*args, **kwargs):
         seen.append((args, kwargs))
         return real(*args, **kwargs)
 
     saved = counts()
-    rmod.twolevel_fused = record
+    setattr(rmod, name, record)
     try:
         runner.handle_request(make(table), snap)
     finally:
-        rmod.twolevel_fused = real
+        setattr(rmod, name, real)
         set_counts(saved)
     return seen[0]
 
@@ -1122,7 +1168,7 @@ def twolevel_at_main_shapes(runner, dev) -> tuple:
     config)."""
     worst, timing, routes = 0.0, None, {}
     for config in ("4n", "4w", "4r"):
-        args, kwargs = captured_twolevel_inputs(config, runner)
+        args, kwargs = captured_inputs(config, runner, "twolevel_fused")
         out = time_fused(config, args, kwargs, dev)
         worst = max(worst, out.pop("max_abs_err"))
         routes[config] = out.pop("table_route")
@@ -1137,6 +1183,73 @@ def twolevel_at_main_shapes(runner, dev) -> tuple:
         del idx, L8
         gc.collect()
     timing["table_routes"] = routes
+    return worst, timing
+
+
+def fold_bytes(kw: dict) -> int:
+    """Bytes the fold must move: the key (or slot ids), the selection and
+    each distinct lane's values and validity read once over rows [0, n),
+    the state buffer written once."""
+    from tikv_tpu_torch.device import agg_fold as af
+    plan = af.plan_fold(kw["specs"], kw["cols"], kw["mode"])
+    n = kw["n"]
+    planes = [kw.get("key"), kw.get("key_ok"), kw.get("slot_ids"),
+              kw.get("mask")] + [t for ln in plan.lanes
+                                 for t in (ln.values, ln.ok)]
+    slots = 1 if kw["mode"] == "simple" else kw["capacity"] + 2
+    return sum(n * t.element_size() for t in planes if t is not None) + \
+        8 * (1 + len(plan.rows) * slots)
+
+
+def fold_at_main_shapes(runner, dev) -> tuple:
+    """agg_fold at configs 4m and 3n on the runner's own arguments, against
+    its plain version and timed beside its bound, its plain version and a
+    yardstick; → (largest difference, config 4m's timing with 3n's under
+    ``configs``)."""
+    from tikv_tpu_torch.device import agg_fold as af
+    worst, timings = 0.0, {}
+    for config in ("4m", "3n"):
+        (specs, cols, n, mode), kw = captured_inputs(config, runner,
+                                                     "agg_fold")
+        kw = dict(specs=specs, cols=cols, n=n, mode=mode,
+                  **{k: v for k, v in kw.items() if k != "device"})
+        saved = counts()
+        err = fold_err(kw, dev)
+        slots = 1 if kw["mode"] == "simple" else kw["capacity"] + 2
+        route = af.route(kw["specs"], kw["cols"], kw["mode"], slots, dev)
+        ms = cuda_ms(lambda: af.agg_fold(**kw, device=dev), 20, queued=True)
+        peak = peak_bytes(lambda: af.agg_fold(**kw, device=dev))
+        set_counts(saved)
+        plain_ms = cuda_ms(lambda: af.agg_fold_plain(**kw, device=dev), 3)
+        plan = af.plan_fold(kw["specs"], kw["cols"], kw["mode"])
+        n = kw["n"]
+        # ops: a slot and one update per state row and row
+        out = {"ms": ms, "plain_ms": plain_ms,
+               **bound_ms(fold_bytes(kw), n * len(plan.rows)),
+               "rows": n, "slots": slots, "state_rows": len(plan.rows),
+               "lanes": len(plan.lanes), "fold_route": route,
+               "peak_bytes": peak}
+        # yardstick only (the port never calls it, and no one PyTorch call
+        # computes the fold): one scatter_reduce_ (amax) of the same values
+        # over the same keys (slot 0 for 3n's single group)
+        v = plan.lanes[0].values[:n]
+        index = torch.zeros(n, dtype=torch.int64, device=dev) \
+            if kw["mode"] == "simple" else \
+            (kw["key"][:n].to(torch.int64) - kw.get("base", 0))
+        out["library_ms"] = cuda_ms(lambda: torch.full(
+            (slots,), -(1 << 31), dtype=v.dtype, device=dev).scatter_reduce_(
+                0, index, v, reduce="amax"), 10)
+        out["library_call"] = "scatter_reduce_ amax (yardstick)"
+        out["max_abs_err"] = err
+        worst = max(worst, err)
+        timings[config] = out
+        print(f"kernel agg_fold at config {config} shape ({n} rows): " +
+              " ".join(f"{k}={x}" for k, x in out.items()), flush=True)
+        del kw, v, index
+        gc.collect()
+    timing = {k: x for k, x in timings["4m"].items()
+              if k not in ("max_abs_err",)}
+    timing["configs"] = timings
     return worst, timing
 
 
@@ -1226,10 +1339,19 @@ def topn_cases(dev):
         return torch.randint(lo, hi, (count,), generator=g,
                              dtype=torch.int64).to(dtype).to(dev)
 
-    def case(vals, n, k, desc=True, ok=None, mask=None, n_pad=None):
+    def case(vals, n, k, desc=True, ok=None, mask=None, n_pad=None,
+             bounds="data"):
+        """``bounds``: "data" (the valid values' least and greatest, as the
+        runner passes a bare column's), a pair, or None (the default
+        placement)."""
         n_used, seglen = tn.segments(n, n_pad or -(-n // (1 << 18)) * (1 << 18))
+        if bounds == "data":
+            live = vals[:n] if ok is None else vals[:n][ok[:n]]
+            bounds = (live.min().item(), live.max().item()) \
+                if live.numel() else None
         return dict(values=vals, ok=ok, mask=mask, desc=desc, n=n,
-                    n_used=n_used, seglen=seglen, k=k)
+                    n_used=n_used, seglen=seglen, k=k,
+                    placement=tn.digit_placement(vals.dtype, desc, bounds))
 
     n = 5 * (1 << 17) + 777
     for dtype in (torch.int32, torch.int64, torch.float64):
@@ -1263,20 +1385,216 @@ def topn_cases(dev):
         yield f"10M_null_keys_{d}", case(
             tied, big, 1000, desc,
             ok=torch.zeros(big, dtype=torch.bool, device=dev))
+    # the common route's buffer: a crossing bin of exactly its rows, and
+    # one row more (one value per bin: bounds (0, 1000))
+    cap = tn.cand_capacity(1000)
+    n = 3 << 20
+    for extra, label in ((0, "at"), (1, "one_past")):
+        v = torch.zeros(n, dtype=torch.int32, device=dev)
+        v[torch.randperm(n, generator=g)[:cap + extra].to(dev)] = 1000
+        yield f"crossing_bin_{label}_the_buffer", case(v, n, 1000)
+    # narrow int32 keys: with their bounds one value per bin (common); with
+    # the default placement a few bins hold every row (overflow)
+    n = 1 << 22
+    v = values(torch.int32, n, -100, 100)
+    for desc in (True, False):
+        d = "desc" if desc else "asc"
+        yield f"narrow_int32_{d}_with_bounds", case(v, n, 1000, desc)
+        yield f"narrow_int32_{d}_default_placement", case(v, n, 1000, desc,
+                                                          bounds=None)
+    yield "misaligned_planes", case(
+        values(torch.float64, n + 3)[3:], n, 1000,
+        ok=bools(0.9, n + 1)[1:], mask=bools(0.7, n + 2)[2:])
 
 
 def check_topn(dev) -> int:
+    """Every case equal to the plain version, the route the kernel took
+    equal to ``plan_route``'s, and both routes taken."""
     from tikv_tpu_torch.device import topn as tn
+    routes = set()
     for name, kw in topn_cases(dev):
-        got = tn.topn_select(**kw)
+        passes = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = tn.topn_select(**kw, passes=passes)
         torch.cuda.synchronize()
         want = tn.topn_plain(kw["values"], kw["ok"], kw["mask"], kw["desc"],
                              kw["n"], kw["n_used"], kw["k"])
         assert torch.equal(got, want), f"topn_select {name} disagrees"
+        route, _bin, cands = tn.plan_route(
+            kw["values"], kw["ok"], kw["mask"], kw["desc"], kw["n"],
+            kw["n_used"], kw["k"], kw["placement"])
+        took = (tn.ROUTE_COMMON, tn.ROUTE_OVERFLOW)[int(passes[1])]
+        assert took == route, f"topn_select {name} took {took}, not {route}"
+        routes.add(took)
         print(f"kernel topn_select {name}: n={kw['n']} k={kw['k']} "
-              f"live={int((got[1] & 1).sum())} max_abs_err=0", flush=True)
+              f"live={int((got[1] & 1).sum())} route={took} "
+              f"candidates={cands} reads_per_row={int(passes[0]) / kw['n']} "
+              f"max_abs_err=0", flush=True)
+    assert routes == {tn.ROUTE_COMMON, tn.ROUTE_OVERFLOW}, routes
     gc.collect()
     return 0
+
+
+# ---------------------------------------------------------------------------
+# agg_fold against its plain version
+# ---------------------------------------------------------------------------
+
+FOLD_KINDS = ("count", "count_star", "sum", "avg", "min", "max", "var_pop",
+              "var_samp", "stddev_pop", "stddev_samp")
+
+
+def fold_mag(kw: dict, dev):
+    """The plain fold over |v| (each distinct values tensor replaced by one
+    tensor of its magnitudes, so the lanes stay the same): per float64
+    cell the Σ|v| its tolerance scales with."""
+    from tikv_tpu_torch.device import agg_fold as af
+    absolute: dict = {}
+
+    def mag(t):
+        if t.data_ptr() not in absolute:
+            absolute[t.data_ptr()] = t.abs()
+        return absolute[t.data_ptr()]
+
+    cols = [None if c is None else (mag(c[0]), c[1]) for c in kw["cols"]]
+    return af.agg_fold_plain(**dict(kw, cols=cols), device=dev)
+
+
+def fold_err(kw: dict, dev) -> float:
+    """agg_fold against its plain version: every integer, MIN/MAX, FIRST
+    and count row bit-equal (MIN/MAX images fold -0.0 into +0.0 on both
+    sides), the float64 sums within SF_TOL·Σ|v| of their cell.  Returns
+    the largest difference."""
+    from tikv_tpu_torch.device import agg_fold as af
+    got = af.agg_fold(**kw, device=dev)
+    torch.cuda.synchronize()
+    want = af.agg_fold_plain(**kw, device=dev)
+    assert got.plan.rows == want.plan.rows
+    S = got.n_slots
+    g, w = got.buf[1:].view(-1, S), want.buf[1:].view(-1, S)
+    assert int(got.buf[0]) == int(want.buf[0]), "agg_fold overflow flag"
+    floats = [r for r, (state, _j) in enumerate(got.plan.rows)
+              if state in ("fsum", "sumsq")]
+    ints = [r for r in range(len(got.plan.rows)) if r not in floats]
+    assert torch.equal(g[ints], w[ints]), "agg_fold integer states disagree"
+    if not floats:
+        return 0.0
+    m = fold_mag(kw, dev).buf[1:].view(-1, S)[floats].view(torch.float64)
+    diff = (g[floats].view(torch.float64) - w[floats].view(torch.float64)
+            ).abs()
+    assert bool((diff <= SF_TOL * m).all()), \
+        "agg_fold float64 sums beyond tolerance"
+    print(f"  float64 sums: largest difference over its cell's Σ|v| "
+          f"{float((diff / m.clamp(min=1e-300)).max())}", flush=True)
+    return float(diff.max())
+
+
+def agg_fold_cases(dev):
+    """(name, agg_fold keyword arguments) on the card: every state kind
+    and value dtype, NULLs, selections, dense / sparse / simple slots at
+    1026, 65,538 and 2^20 + 2 slots, the overflow flag, hot slots over
+    2^24 rows, int32 extremes, ragged n and misaligned planes."""
+    from tikv_tpu_torch.ops.agg import AggSpec
+    g = torch.Generator(device="cpu").manual_seed(16)
+    n = 1 << 18
+
+    def bools(p, count=n):
+        return (torch.rand(count, generator=g) < p).to(dev)
+
+    def col(dtype, count=n, lo=-1000, hi=1000):
+        if dtype.is_floating_point:
+            return (torch.randn(count, generator=g, dtype=torch.float64)
+                    * 1000).to(dtype).to(dev)
+        return torch.randint(lo, hi, (count,), generator=g,
+                             dtype=torch.int64).to(dtype).to(dev)
+
+    def spec_cols(kinds, v, ok, real):
+        from tikv_tpu_torch.datatype import EvalType
+        et = EvalType.REAL if real else EvalType.INT
+        specs = [AggSpec(k, i, et) for i, k in enumerate(kinds)]
+        return specs, [None if k == "count_star" else (v, ok) for k in kinds]
+
+    for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
+        v, ok = col(dtype), bools(0.85)
+        specs, cols = spec_cols(FOLD_KINDS, v, ok, dtype.is_floating_point)
+        for slots in (1026, 65538, (1 << 20) + 2):
+            cap = slots - 2
+            for mask_kind in ("none", "partial", "all_false"):
+                mask = {"none": None, "partial": bools(0.7),
+                        "all_false": torch.zeros(n, dtype=torch.bool,
+                                                 device=dev)}[mask_kind]
+                key = (-300 + torch.randint(0, cap, (n,), generator=g)
+                       ).to(dev)
+                yield (f"{dtype}_dense_slots={slots}_{mask_kind}", dict(
+                    specs=specs, cols=cols, n=n, mode="dense",
+                    key=key.to(torch.int32), key_ok=bools(0.95), base=-300,
+                    capacity=cap, mask=mask))
+            yield f"{dtype}_sparse_slots={slots}", dict(
+                specs=specs, cols=cols, n=n, mode="sparse",
+                slot_ids=torch.randint(0, slots, (n,), generator=g).to(
+                    torch.int32).to(dev), capacity=cap, mask=bools(0.6))
+        fspecs, fcols = spec_cols(FOLD_KINDS + ("first",), v, ok,
+                                  dtype.is_floating_point)
+        yield f"{dtype}_simple", dict(specs=fspecs, cols=fcols, n=n,
+                                      mode="simple", mask=bools(0.5))
+        yield f"{dtype}_simple_no_validity", dict(
+            specs=fspecs, cols=[None if c is None else (v, None)
+                                for c in fcols], n=n, mode="simple")
+    # two lanes sharing a values plane, an int64 key, and the overflow flag
+    v, a, b = col(torch.int32), bools(0.6), bools(0.3)
+    specs = [AggSpec("min", 0), AggSpec("sum", 1), AggSpec("var_pop", 2),
+             AggSpec("max", 3), AggSpec("count_star", 4)]
+    cols = [(v, a), (v, b), (v, a), (v, None), None]
+    key = (torch.randint(0, 1024, (n,), generator=g) + (1 << 40)).to(dev)
+    key[:5] = (1 << 40) + 5000                  # live keys out of range
+    yield "shared_values_int64_key_overflow", dict(
+        specs=specs, cols=cols, n=n, mode="dense", key=key, base=1 << 40,
+        capacity=1024)
+    # hot slots over 2^24 rows at the int32 extremes
+    hot = 1 << 24
+    ext = torch.tensor([2**31 - 1, -2**31], dtype=torch.int32,
+                       device=dev)[torch.randint(0, 2, (hot,), generator=g)
+                                   .to(dev)]
+    ext[: hot // 2] = 2**31 - 1
+    specs, cols = spec_cols(("sum", "min", "max", "var_pop", "count"), ext,
+                            bools(0.5, hot), False)
+    for slots in (1026, 65538):
+        yield f"hot_slot_int32_extremes_{hot}_rows_slots={slots}", dict(
+            specs=specs, cols=cols, n=hot, mode="dense",
+            key=torch.full((hot,), 7, dtype=torch.int32, device=dev),
+            base=0, capacity=slots - 2)
+    sspecs, scols = spec_cols(("sum", "min", "max", "first", "avg"), ext,
+                              bools(0.5, hot), False)
+    yield f"simple_int32_extremes_{hot}_rows", dict(
+        specs=sspecs, cols=scols, n=hot, mode="simple")
+    del ext
+    # ragged n and planes 1-3 elements off a 16-byte boundary
+    big = col(torch.float32, n + 8)
+    ks = torch.randint(0, 1024, (n + 8,), generator=g).to(torch.int32).to(dev)
+    okb, mb = bools(0.8, n + 8), bools(0.7, n + 8)
+    for off in (1, 2, 3):
+        specs, cols = spec_cols(FOLD_KINDS, big[off:], okb[4 - off:], True)
+        for count in (n - 5, 4097, 3, 1):
+            yield f"off_by_{off}_n={count}", dict(
+                specs=specs, cols=cols, n=count, mode="dense",
+                key=ks[off:], base=0, capacity=1024, mask=mb[off:])
+
+
+def check_agg_fold(dev) -> float:
+    from tikv_tpu_torch.device import agg_fold as af
+    worst, routes = 0.0, set()
+    for name, kw in agg_fold_cases(dev):
+        err = fold_err(kw, dev)
+        route = af.route(kw["specs"], kw["cols"], kw["mode"],
+                         1 if kw["mode"] == "simple" else kw["capacity"] + 2,
+                         dev)
+        routes.add(route)
+        print(f"kernel agg_fold {name}: route={route} max_abs_err={err} "
+              f"(integer, MIN/MAX, FIRST states exact; float64 sums within "
+              f"{SF_TOL}·Σ|v|)", flush=True)
+        worst = max(worst, err)
+    assert routes == {af.ROUTE_SHARED, af.ROUTE_GLOBAL,
+                      af.ROUTE_REGISTERS}, routes
+    gc.collect()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1479,17 +1797,21 @@ def topn_at_main_shapes(runner, dev) -> dict:
             mask = torch.from_numpy(kcol.values < 512).to(dev)
         n_used, seglen = tn.segments(n, n_pad)
         k = cf.TOPN_LIMIT
+        # the runner's placement: the valid values' bounds
+        live = vcol.values[vcol.validity]
         kw = dict(values=values, ok=ok, mask=mask, desc=True, n=n,
-                  n_used=n_used, seglen=seglen, k=k)
+                  n_used=n_used, seglen=seglen, k=k,
+                  placement=tn.digit_placement(
+                      torch.float64, True,
+                      (float(live.min()), float(live.max()))))
         saved = counts()
-        passes = torch.zeros(1, dtype=torch.int64, device=dev)
+        passes = torch.zeros(2, dtype=torch.int64, device=dev)
         got = tn.topn_select(**kw, passes=passes)
         want = tn.topn_plain(values, ok, mask, True, n, n_used, k)
         assert torch.equal(got, want), \
             f"topn_select disagrees at config {config}'s shape"
         nseg = n_used // seglen
         ms = cuda_ms(lambda: tn.topn_select(**kw), 10, queued=True)
-        set_counts(saved)
         plain_ms = cuda_ms(lambda: tn.topn_plain(values, ok, mask, True, n,
                                                  n_used, k), 2)
         view = values[:n_used].view(nseg, seglen)
@@ -1500,8 +1822,18 @@ def topn_at_main_shapes(runner, dev) -> dict:
              # the order plane (and validity and selection) read once, the
              # result written once; one key and compare per row
              **bound_ms(8 * n + extra + 16 * min(k, n_used), n),
-             "rows": n, "segments": nseg, "seglen": seglen, "k": k,
-             "passes_per_segment": int(passes) / nseg}
+             "rows": n, "k": k,
+             "topn_route": (tn.ROUTE_COMMON, tn.ROUTE_OVERFLOW)[
+                 int(passes[1])],
+             "reads_per_row": int(passes[0]) / n}
+        if config == "5":
+            # the overflow route alone on the same inputs (a placement that
+            # puts every row in one bin), beside the common route
+            flat = dict(kw, placement=(0, 63))
+            assert torch.equal(tn.topn_select(**flat), want)
+            t["overflow_route_ms"] = cuda_ms(lambda: tn.topn_select(**flat),
+                                             5, queued=True)
+        set_counts(saved)
         timings[config] = t
         print(f"kernel topn_select at config {config} shape ({n} rows): "
               f"max_abs_err=0 " + " ".join(f"{k}={x}" for k, x in t.items()),
@@ -1534,6 +1866,7 @@ def main() -> int:
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
     worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
     worst["topn_select"] = check_topn(dev)
+    worst["agg_fold"] = check_agg_fold(dev)
 
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
@@ -1554,6 +1887,8 @@ def main() -> int:
     worst["twolevel"] = max(worst["twolevel"], err)
     mask_timing, compact_timing = selection_at_main_shapes(dev)
     topn_timing = topn_at_main_shapes(runner, dev)
+    err, fold_timing = fold_at_main_shapes(runner, dev)
+    worst["agg_fold"] = max(worst["agg_fold"], err)
 
     kernels = [
         {"name": "hash_agg", "route": "cuda",
@@ -1581,7 +1916,13 @@ def main() -> int:
          "source": "tikv_tpu_torch/csrc/topn.cu",
          "replaces": "tikv_tpu/device/runner.py:2825",
          "launches": launches["topn_select"],
-         "max_abs_err": worst["topn_select"], **topn_timing}]
+         "max_abs_err": worst["topn_select"], **topn_timing},
+        {"name": "agg_fold", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/agg_fold.cu",
+         "replaces": "tikv_tpu/device/runner.py:2701 and :2668",
+         "launches": launches["agg_fold"], "max_abs_err": worst["agg_fold"],
+         **fold_timing}]
+    assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -323,3 +323,164 @@ def test_config_5t_builder_draws_the_benchmark_arrays():
                                   np.where(valid, rsnap.columns[3].values, 0))
     np.testing.assert_array_equal(psnap.columns[2].values,
                                   rsnap.columns[2].values)
+
+
+# ------------------------------------- the kernel's digit and its routes
+
+
+def unsigned_keys(values, ok, mask, desc, n, n_used):
+    key = tn.order_keys(values, ok, mask, desc, n, n_used).numpy()
+    return key.view(np.uint64) ^ np.uint64(1 << 63)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+@pytest.mark.parametrize("desc", [True, False])
+def test_key_image_is_the_order_key(dtype, desc):
+    """``key_image`` is the kernel's unsigned key: ``order_keys`` + 2^63."""
+    vals = {torch.int32: [-(1 << 31), -5, 0, 7, (1 << 31) - 1],
+            torch.int64: [-(1 << 63), -(1 << 63) + 1, -3, 0, (1 << 63) - 1],
+            torch.float64: [-np.inf, -1e300, -0.0, 0.0, 2.5, np.inf]}[dtype]
+    t = torch.tensor(vals, dtype=dtype)
+    want = unsigned_keys(t, None, None, desc, len(vals), len(vals))
+    assert [tn.key_image(v, dtype, desc) for v in vals] == \
+        [int(x) for x in want]
+
+
+@pytest.mark.parametrize("dtype,bounds", [
+    (torch.int32, None), (torch.int32, (0, 1000)), (torch.int32, (-100, 99)),
+    (torch.int32, (7, 7)), (torch.int64, None),
+    (torch.int64, (-(1 << 62), 1 << 62)), (torch.int64, (-3, 3)),
+    (torch.float64, None), (torch.float64, (-5500.25, 5499.5)),
+    (torch.float64, (-0.0, 0.0)), (torch.float64, (1.5, 1.5))])
+@pytest.mark.parametrize("desc", [True, False])
+def test_digit_placement_covers_the_bounds_with_the_narrowest_bins(
+        dtype, bounds, desc):
+    """Every value within the bounds lands in the window (bins 1 to BINS -
+    2), the window starts on a multiple of 2^shift, and one shift less
+    would not cover it; narrow int ranges get one value per bin; ±0.0 is
+    one key; NULL and excluded keys fall to the edge bins (or into the
+    window only where the full key range is the window)."""
+    lo, shift = tn.digit_placement(dtype, desc, bounds)
+    assert lo % (1 << shift) == 0
+    if bounds is None:
+        bounds = {torch.int32: (-(1 << 31), (1 << 31) - 1),
+                  torch.int64: (-(1 << 63), (1 << 63) - 1),
+                  torch.float64: (-np.inf, np.inf)}[dtype]
+    imgs = sorted(tn.key_image(b, dtype, desc) for b in bounds)
+    bins = tn.bin_of(np.array(imgs, np.uint64), lo, shift)
+    assert ((bins >= 1) & (bins <= tn.BINS - 2)).all()
+    if shift:
+        base = imgs[0] >> (shift - 1) << (shift - 1)
+        assert (imgs[1] - base) >> (shift - 1) > tn.BINS - 3
+    if dtype != torch.float64 and bounds[1] - bounds[0] < tn.BINS - 2:
+        assert shift == 0                      # one value per bin
+    if dtype == torch.float64:
+        assert tn.key_image(-0.0, dtype, desc) == \
+            tn.key_image(0.0, dtype, desc)
+    null = tn.bin_of(np.array([0, 1 if desc else (1 << 64) - 1], np.uint64),
+                     lo, shift)
+    if lo > 1:
+        assert null[0] == 0 and (not desc or null[1] == 0)
+    if not desc and imgs[1] < (1 << 64) - (1 << shift):
+        assert null[1] > bins.max() or null[1] == tn.BINS - 1
+
+
+def test_bins_are_monotone_in_the_key():
+    rng = np.random.default_rng(11)
+    keys = np.sort(rng.integers(0, 1 << 63, 5000, dtype=np.uint64) * 2)
+    for lo, shift in ((0, 53), (1 << 62, 40), (12345 << 20, 20), (77, 0)):
+        bins = tn.bin_of(keys, lo - lo % (1 << shift), shift)
+        assert (np.diff(bins) >= 0).all()
+        assert bins.min() >= 0 and bins.max() <= tn.BINS - 1
+
+
+@pytest.mark.parametrize("case", ["spread", "at_capacity", "past_capacity",
+                                  "ties", "nulls_first", "few_live_rows",
+                                  "default_placement"])
+def test_route_and_buffer_choice(case):
+    """``plan_route`` against a brute-force reading of the same bins: the
+    crossing bin holds the k-th key, the candidates are every row in bins
+    at or above it, and the common route is taken exactly when they fit
+    ``cand_capacity(k)`` (max(4k, 2^16) rows)."""
+    rng = np.random.default_rng(12)
+    k, n, desc = 1000, 200_000, True
+    ok = mask = None
+    bounds = "data"
+    if case in ("at_capacity", "past_capacity"):
+        v = np.zeros(n, np.int32)
+        top = tn.cand_capacity(k) + (case == "past_capacity")
+        v[rng.permutation(n)[:top]] = 1000
+    elif case == "ties":
+        v = np.full(n, 3, np.int32)
+    else:
+        v = rng.integers(-100_000, 100_000, n).astype(np.int32)
+    if case == "nulls_first":
+        desc, ok = False, rng.random(n) < 0.5
+    if case == "few_live_rows":
+        mask = rng.random(n) < 0.002
+    if case == "default_placement":
+        v = rng.integers(-100, 100, n).astype(np.int32)
+        bounds = None
+    vt = torch.from_numpy(v)
+    okt = None if ok is None else torch.from_numpy(ok)
+    mt = None if mask is None else torch.from_numpy(mask)
+    if bounds == "data":
+        live = v if ok is None else v[ok]
+        bounds = (int(live.min()), int(live.max()))
+    n_used, _seglen = tn.segments(n, 1 << 18)
+    placement = tn.digit_placement(torch.int32, desc, bounds)
+    route, c, cands = tn.plan_route(vt, okt, mt, desc, n, n_used, k,
+                                    placement)
+    bins = tn.bin_of(unsigned_keys(vt, okt, mt, desc, n, n_used), *placement)
+    kth = np.sort(bins)[::-1][min(k, n_used) - 1]
+    assert c == kth and cands == int((bins >= c).sum())
+    assert route == ("common" if cands <= tn.cand_capacity(k)
+                     else "overflow")
+    want = {"spread": "common", "at_capacity": "common",
+            "past_capacity": "overflow", "ties": "overflow",
+            "nulls_first": "overflow", "few_live_rows": "overflow",
+            "default_placement": "overflow"}[case]
+    assert route == want
+
+
+def test_topn_wrapper_checks_placement_and_passes():
+    v = torch.arange(100, dtype=torch.float64)
+    out = tn.topn_select(v, None, None, True, 100, 1 << 17, 1 << 17, 3,
+                         placement=tn.digit_placement(torch.float64, True,
+                                                      (0.0, 99.0)))
+    assert out[0].tolist() == [97, 98, 99]
+    assert tn.cand_capacity(1000) == 1 << 16
+    assert tn.cand_capacity(1 << 14) == 1 << 16
+    assert tn.cand_capacity(20_000) == 80_000
+
+
+@pytest.mark.parametrize("key", ["k", "r", "k_times_3_plus_id"])
+@pytest.mark.parametrize("desc", [True, False])
+def test_runner_places_the_digit_by_the_column_bounds(key, desc, ref,
+                                                      monkeypatch):
+    """A bare order column's digit sits where its valid values' least and
+    greatest keys differ (memoized per snapshot); a computed order
+    expression takes the dtype's default; the answer equals the
+    reference's and the host pipeline's either way."""
+    seen = []
+    real = tn.topn_select
+
+    def record(*args, **kw):
+        seen.append((args[0].dtype, kw["placement"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tn, "topn_select", record)
+    table, snap = make_table(seed=21)
+    port = DeviceRunner(device="cpu")
+    dag = topn_dag(table, KEYS[key], desc, 100)
+    want, got, host = run_three(ref, port, dag, snap, reps=2)
+    assert got == want == host
+    dtype, placement = seen[-1]
+    assert len({p for _d, p in seen}) == 1
+    if key == "k_times_3_plus_id":
+        assert placement == tn.digit_placement(dtype, desc)
+        return
+    col = snap.columns[2 if key == "k" else 3]
+    live = col.values[col.validity]
+    assert placement == tn.digit_placement(
+        dtype, desc, (live.min().item(), live.max().item()))

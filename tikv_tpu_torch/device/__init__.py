@@ -1,9 +1,9 @@
 """Device (CUDA) execution backend of the coprocessor: aggregation,
 selection and top-k over a snapshot held on the card.
 
-The kernels (``build.SOURCES``): ``hash_agg`` and ``twolevel``
-(aggregation), ``selection`` (``sel_mask``, ``sel_compact``) and ``topn``
-(``topn_select``), each wrapped by the module of its name.
+The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
+``agg_fold`` (aggregation), ``selection`` (``sel_mask``, ``sel_compact``)
+and ``topn`` (``topn_select``), each wrapped by the module of its name.
 
 Lazy exports (PEP 562): importing a sibling such as ``device.hash_agg``
 does not build the runner module.  Entry points run on ``cuda:0`` unless

@@ -37,7 +37,10 @@ It runs as:
      into its slot and its int8 byte / float32 planes in registers
      (``kernels.build_layouts``' layout) and sums them per slot;
   3. the scatter route (GROUP BY) and the simple body (no GROUP BY):
-     every other plan, as composed torch ops (``ops/agg.py``);
+     every other plan (MIN, MAX, FIRST, the variances, NULL-bearing or
+     wide arguments), one pass of ``agg_fold`` (the CUDA kernel
+     ``csrc/agg_fold.cu``) over the key, the selection and each distinct
+     argument, into one state buffer;
   GROUP BY keys index their slots directly while the key span is at most
   ``MAX_HASH_CAPACITY``; wider spans are dictionary-encoded on the host
   once per snapshot (``_sparse_slots``);
@@ -45,9 +48,10 @@ It runs as:
   kernel ``csrc/selection.cu``) and ships the mask, the selected row
   indices or the selected rows themselves (``selection.sel_compact``),
   routed by a per-plan selectivity EWMA (``_run_scan_sel``);
-- a TopN takes the top rows per segment and then overall on the device
-  (``topn.topn_select``, the CUDA kernel ``csrc/topn.cu``) and orders the
-  candidates exactly on the host (``_run_topn``);
+- a TopN takes the top rows on the device (``topn.topn_select``, the CUDA
+  kernel ``csrc/topn.cu``: a histogram of one digit placed by the order
+  column's bounds, then the rows at or above the k-th key's bin) and
+  orders the candidates exactly on the host (``_run_topn``);
 - the results come back to the host, which finalizes them.
 
 Cases outside this port are refused, never served elsewhere: plans
@@ -77,13 +81,14 @@ from ..executors.result import SelectResult, _agg_ret_ft
 from ..expr import FUNCTIONS, build_rpn, eval_rpn
 from ..expr.eval import _TORCH_DTYPES, narrow_int32
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
-from ..ops.agg import (_BIG, AggSpec, finalize_hash, finalize_simple,
-                       hash_agg_tile, simple_agg_tile)
+from ..ops.agg import _BIG, AggSpec, finalize_hash, finalize_simple
+from . import agg_fold as af
 from . import hash_agg as ha
 from . import kernels as kn
 from . import resolve_device
 from . import selection as sm
 from . import topn as tn
+from .agg_fold import agg_fold
 from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
@@ -478,7 +483,10 @@ class DeviceRunner:
             result = self._run_scan_sel(dag, plan, feed, n, get_batch,
                                         storage)
         elif plan.kind == "topn":
-            result = self._run_topn(dag, plan, feed, n, get_batch, storage)
+            if "order_bounds" not in meta:
+                meta["order_bounds"] = self._order_bounds(plan, host_cols)
+            result = self._run_topn(dag, plan, feed, n, get_batch, storage,
+                                    meta["order_bounds"])
         else:
             if "arg_nbytes" not in meta:
                 meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols,
@@ -594,13 +602,6 @@ class DeviceRunner:
             mask = m if mask is None else mask & m
         return pairs, mask.contiguous()
 
-    def _agg_cols(self, plan, pairs, n, mask) -> list:
-        """Per aggregate: its argument's (values, validity) — for
-        COUNT(*), (zeros, mask), as the reference's bodies build it."""
-        return [(torch.zeros(n, dtype=torch.int32, device=self.device), mask)
-                if r is None else eval_rpn(r, pairs, n, torch, self.device)
-                for r in plan.agg_rpns]
-
     # ------------------------------------------- route 1: hash_agg kernel
 
     def _aggregate(self, plan, feed, n, mode, base, capacity, slots, n_sl,
@@ -679,15 +680,13 @@ class DeviceRunner:
                                                arg_nbytes=arg_nbytes)
             merged = [{k: v[0] for k, v in s.items()} for s in states]
             return self._simple_result(plan, merged)
-        # the simple body (runner.py:2668): one masked reduction per state
+        # the simple body (runner.py:2668): the agg_fold kernel
         pairs, mask = self._inputs(plan, feed, n)
-        if mask is None:
-            mask = torch.ones(n, dtype=torch.bool, device=self.device)
-        cols = [(v, ok & mask)
-                for v, ok in self._agg_cols(plan, pairs, n, mask)]
-        states = simple_agg_tile(plan.specs, cols,
-                                 mask.sum(dtype=torch.int64))
-        return self._simple_result(plan, _to_host(states))
+        out = agg_fold(plan.specs, self._fold_cols(plan, feed, pairs, n), n,
+                       af.MODE_SIMPLE, mask=mask, device=self.device)
+        _present, _overflow, states = out.host()
+        merged = [{k: v[0] for k, v in s.items()} for s in states]
+        return self._simple_result(plan, merged)
 
     # --------------------------------------------------------- hash agg
 
@@ -805,11 +804,7 @@ class DeviceRunner:
             cols.append(None if r is None else evaluated[r])
         key = key_ok = None
         if slot_ids is None:
-            key, key_ok = eval_rpn(plan.key_rpn, pairs, n, torch,
-                                   self.device)
-            ci = _bare_col(plan.key_rpn)
-            if ci is not None and not feed["null_flags"][ci]:
-                key_ok = None           # no NULL key: nothing to read
+            key, key_ok = self._key(plan, feed, pairs, n)
         LO, HI = kn.twolevel_dims(slots, p8, pf)
         S8p, Sfp, overflow = twolevel_fused(
             n, layouts, cols, LO, HI, capacity, base=base, key=key,
@@ -828,21 +823,51 @@ class DeviceRunner:
     # -- route 3: the scatter body (runner.py:2701)
 
     def _run_scatter(self, plan, feed, n, base, capacity, slot_ids):
+        """The scatter body: one ``agg_fold`` pass over the key (or slot
+        ids), the selection and each distinct argument, one D2H copy."""
         pairs, mask = self._inputs(plan, feed, n)
-        if mask is None:
-            mask = torch.ones(n, dtype=torch.bool, device=self.device)
-        cols = self._agg_cols(plan, pairs, n, mask)
+        cols = self._fold_cols(plan, feed, pairs, n)
         if slot_ids is not None:
-            key_pair, tile_base = None, ("precomp", slot_ids[:n])
+            out = agg_fold(plan.specs, cols, n, af.MODE_SPARSE,
+                           capacity=capacity, slot_ids=slot_ids, mask=mask,
+                           device=self.device)
         else:
-            key_pair = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
-            tile_base = base
-        st = hash_agg_tile(plan.specs, key_pair, cols, capacity, tile_base,
-                           mask)
-        host = _to_host([{"present": st["present"],
-                          "overflow": st["overflow"]}] + st["states"])
-        self._check_overflow(host[0]["overflow"])
-        return host[0]["present"] != 0, host[1:]
+            key, key_ok = self._key(plan, feed, pairs, n)
+            out = agg_fold(plan.specs, cols, n, af.MODE_DENSE, key=key,
+                           key_ok=key_ok, base=base, capacity=capacity,
+                           mask=mask, device=self.device)
+        present, overflow, states = out.host()
+        self._check_overflow(overflow)
+        return present, states
+
+    def _key(self, plan, feed, pairs, n) -> tuple:
+        """The GROUP BY key's (values, validity), no validity for a bare
+        column without NULLs (nothing to read)."""
+        key, key_ok = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
+        ci = _bare_col(plan.key_rpn)
+        if ci is not None and not feed["null_flags"][ci]:
+            key_ok = None
+        return key, key_ok
+
+    def _fold_cols(self, plan, feed, pairs, n) -> list:
+        """Per aggregate its argument's (values, validity), None for
+        COUNT(*); each distinct expression evaluated once (so aggregates
+        over one argument share its tensors: one lane), and no validity
+        for a bare column without NULLs."""
+        evaluated: dict = {}
+        cols = []
+        for r in plan.agg_rpns:
+            if r is None:
+                cols.append(None)
+                continue
+            if r not in evaluated:
+                v, ok = eval_rpn(r, pairs, n, torch, self.device)
+                ci = _bare_col(r)
+                if ci is not None and not feed["null_flags"][ci]:
+                    ok = None
+                evaluated[r] = (v, ok)
+            cols.append(evaluated[r])
+        return cols
 
     # -------------------------------------------- selection (scan_sel)
 
@@ -965,11 +990,26 @@ class DeviceRunner:
 
     # ---------------------------------------------------------------- top-n
 
-    def _run_topn(self, dag, plan, feed, n, get_batch, storage):
+    @staticmethod
+    def _order_bounds(plan, host_cols) -> Optional[tuple]:
+        """(least, greatest) non-NULL value of a bare order column in this
+        snapshot — where ``topn_select`` places its digit — or None (a
+        computed order expression, or no value)."""
+        ci = _bare_col(plan.order_rpn)
+        if ci is None:
+            return None
+        v, ok = host_cols()[ci]
+        v = v[ok] if not ok.all() else v
+        if not v.size:
+            return None
+        return v.min().item(), v.max().item()
+
+    def _run_topn(self, dag, plan, feed, n, get_batch, storage, bounds):
         """TopN (runner.py:4391): the candidates on the device
-        (``topn_select``: per segment, then overall), then the exact
-        order on the host — MySQL NULL order (first for ASC, last for
-        DESC), rows the selection drops never, ties by row position."""
+        (``topn_select``, its digit placed by the order column's
+        ``bounds``), then the exact order on the host — MySQL NULL order
+        (first for ASC, last for DESC), rows the selection drops never,
+        ties by row position."""
         if plan.limit == 0:
             return SelectResult(get_batch().take(np.empty(0, np.int64)))
         pairs, mask = self._inputs(plan, feed, n)
@@ -982,8 +1022,11 @@ class DeviceRunner:
                                   self.device, real=torch.float64)
             values, ok = values.contiguous(), ok.contiguous()
         n_used, seglen = tn.segments(n, feed["n_pad"])
+        placement = tn.digit_placement(values.dtype, plan.order_desc,
+                                       bounds)
         host = tn.topn_select(values, ok, mask, plan.order_desc, n, n_used,
-                              seglen, plan.limit).cpu().numpy()
+                              seglen, plan.limit,
+                              placement=placement).cpu().numpy()
         gidx = host[0]
         live = (host[1] & 1 != 0) & (gidx < n)
         gidx, okk = gidx[live], host[1][live] & 2 != 0
