@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``tikv_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together; timed, with the ptxas report and the shared
-   atomics in ``hash_agg``'s SASS);
+   atomics in ``hash_agg``'s and ``agg_fold``'s SASS — none a float64
+   compare-and-swap loop in ``agg_fold``'s integer shared route);
 3. every kernel against its plain PyTorch version on the card over the
    edge cases of the CPU tests: ``hash_agg`` exactly (integer states) in
    both cell formats, at 2^24 rows, on one hot slot over 2^24 rows at the
@@ -52,7 +53,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    peak device memory of each, and on every route its table can take;
 6. the selection and top-k kernels against their plain versions on the
    card, exactly (every output is an integer or a copied element):
-   ``sel_mask`` (n not a multiple of 8, one and many blocks, all-false and
+   ``sel_pred`` (random predicates nested two or three deep over
+   NULL-bearing int32 — with its extremes —, int64 and float32 planes,
+   narrowed by the columns' bounds and not, at ragged sizes, on and off a
+   16-byte boundary, with and without the bool mask; and the predicates of
+   configs 1, 2, 2s and 5t at 10·2^20 rows), ``sel_mask`` (n not a multiple of 8, one and many blocks, all-false and
    all-true masks, a mask off a 16-byte boundary, config 2's 10·2^20
    rows), ``sel_compact`` in index mode (capacity above and below the
    count: the overflow flag) and in planes mode (int32, int64, float64 and
@@ -68,7 +73,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    all-false selections, dense keys with NULL keys, sparse slot ids and
    the simple mode with FIRST, at 1026, 65,538 and 2^20 + 2 slots, lanes
    sharing a values plane, an int64 key, the overflow flag, hot slots over
-   2^24 rows at the int32 extremes, n not a multiple of 4, planes 1-3
+   2^24 rows at the int32 extremes, value bounds that shrink the shared
+   cells (|v| <= 300 and 1000, and 2^31), n not a multiple of 4, planes 1-3
    elements off a 16-byte boundary; integer, MIN/MAX and FIRST states
    exactly, float64 sums within 1e-9·Σ|v| per cell; the route of each case
    is printed and every route, shared, global and registers, is taken);
@@ -77,12 +83,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (its probe over 2^20 rows), 2 (10·2^20), 5 (an IndexScan, 100·2^20) and
    5t (100·2^20), and config 2s (10·2^20 rows at 0.1%, 1%, 10% and 50%
    selected, which must take the compact, index, mask and mask routes),
-   each answer held exactly against a numpy truth, with the same cold /
-   warm / peak / profile / launch-count lines as step 4 and a line of
-   host-clock phases of a warm request (``row_phases``);
+   each request's selection through ``sel_pred`` (its predicate route
+   counted per request), and config 2's table under a predicate outside
+   ``sel_pred``'s signatures (``v DIV 3 > 266``: the torch route, then
+   ``sel_mask``), each answer held exactly against a numpy truth, with the
+   same cold / warm / peak / profile / launch-count lines as step 4 and a
+   line of host-clock phases of a warm request (``row_phases``);
 8. each of those kernels timed at the main path's shapes beside its
    bound, its plain version and a library yardstick the port never calls:
-   ``sel_mask`` at config 2 (``torch.count_nonzero``), ``sel_compact`` at
+   ``sel_pred`` at config 2 (``v > 800``, packed mask) and 5t (``k <
+   512`` over 100·2^20 rows, the bool mask too) beside the torch
+   comparison alone, ``sel_mask`` at config 2 (``torch.count_nonzero``),
+   ``sel_compact`` at
    config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``),
    ``topn_select`` at configs 5 and 5t (``torch.topk`` on the (segments,
    segment length) view), with its route and its reads of the order plane
@@ -95,7 +107,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
-   its route at each config; config 2 for ``sel_mask``; config 2s's 1% for
+   its route at each config; config 2 for ``sel_pred``, with 5t under
+   ``configs``; config 2 for ``sel_mask``; config 2s's 1% for
    ``sel_compact``; config 5 for ``topn_select``; config 4m for
    ``agg_fold``, with 3n under ``configs``), and the least time the card
    could take;
@@ -124,8 +137,8 @@ SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
 HEADER_BYTES = 16               # sel_compact's count and overflow flag
 CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
-KERNELS = ("hash_agg", "twolevel", "sel_mask", "sel_compact", "topn_select",
-           "agg_fold")
+KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
+           "topn_select", "agg_fold")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -134,8 +147,8 @@ ROUTE = {"3": "hash_agg", "4": "hash_agg", "4s": "hash_agg",
          "4m": "agg_fold", "3n": "agg_fold"}
 # the configs that return rows: rows on the card, the kernels they launch
 ROW_SIZES = {"1": 1 << 20, "2": 10 << 20, "5": 100 << 20, "5t": 100 << 20}
-ROW_ROUTE = {"1": {"sel_mask"}, "2": {"sel_mask"}, "5": {"topn_select"},
-             "5t": {"topn_select"}}
+ROW_ROUTE = {"1": {"sel_pred"}, "2": {"sel_pred"}, "5": {"topn_select"},
+             "5t": {"topn_select", "sel_pred"}}
 SWEEP_ROWS = 10 << 20
 # config 2s: the route each selectivity must take once its EWMA is warm
 SWEEP_ROUTE = {"0.1%": "compact", "1%": "index", "10%": "mask",
@@ -184,6 +197,7 @@ def counts() -> dict:
     from tikv_tpu_torch.device import (agg_fold, hash_agg, selection, topn,
                                        twolevel)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
+            "sel_pred": selection.pred_launches,
             "sel_mask": selection.mask_launches,
             "sel_compact": selection.compact_launches,
             "topn_select": topn.launches, "agg_fold": agg_fold.launches}
@@ -194,6 +208,7 @@ def set_counts(values: dict) -> None:
                                        twolevel)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
+    selection.pred_launches = values["sel_pred"]
     selection.mask_launches = values["sel_mask"]
     selection.compact_launches = values["sel_compact"]
     topn.launches = values["topn_select"]
@@ -213,7 +228,17 @@ def build_kernels() -> None:
             print(f"build: {name} in {secs:.3f} s", flush=True)
             print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
     shared_atomics("hash_agg")
-    shared_atomics("agg_fold")
+    fold = shared_atomics("agg_fold")
+    # the shared route of an all-integer launch (4m's) keeps no float64
+    # shared add (a compare-and-swap loop, ATOMS.CAS / ATOMS.CAST)
+    ints_only = {k: v for f, kinds in fold.items()
+                 if "fold_shared" in f and "Lb0E" in f
+                 for k, v in kinds.items()}
+    assert ints_only and not any("CAS" in k for k in ints_only), \
+        f"agg_fold's integer shared route: {ints_only}"
+    print(f"sass agg_fold integer shared route: shared atomics " + " ".join(
+        f"{k}x{v}" for k, v in sorted(ints_only.items())) +
+        " (no float64 compare-and-swap loop)", flush=True)
 
 
 def ptxas_summary(log: str) -> str:
@@ -236,21 +261,30 @@ def ptxas_summary(log: str) -> str:
             f"stack frame {max(frames)} B, largest spill {max(spills)} B")
 
 
-def shared_atomics(name: str) -> None:
+def shared_atomics(name: str) -> dict:
     """Print the shared-memory atomic instructions of a built library's
     SASS by kind (``cuobjdump -sass``), e.g. whether a 64-bit add is one
-    ATOMS.ADD.64 or a compare-and-swap loop."""
+    ATOMS.ADD.64 or a compare-and-swap loop; → per device function (its
+    mangled name) its kinds and counts."""
     from tikv_tpu_torch.device import build
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.lib_path(name))],
                           capture_output=True, text=True).stdout
     kinds: dict = {}
+    per_fn: dict = {}
+    fn = ""
     for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            per_fn.setdefault(fn, {})
         for word in line.replace(";", " ").split():
             if word.startswith("ATOMS"):
                 kinds[word] = kinds.get(word, 0) + 1
+                per_fn.setdefault(fn, {})
+                per_fn[fn][word] = per_fn[fn].get(word, 0) + 1
     print(f"sass {name}: shared atomics " + (" ".join(
         f"{k}x{v}" for k, v in sorted(kinds.items())) or "none"), flush=True)
+    return per_fn
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +750,7 @@ def serve(label: str, n: int, runner, dag, snap, answer, agrees,
     (``runner.sel_routes``), peak bytes of one more and one profile."""
     set_counts({k: 0 for k in KERNELS})
     routes0 = dict(runner.sel_routes)
+    preds0 = dict(runner.pred_routes)
     t0 = time.perf_counter()
     got = answer(runner.handle_request(dag, snap))
     cold = time.perf_counter() - t0
@@ -730,20 +765,29 @@ def serve(label: str, n: int, runner, dag, snap, answer, agrees,
         last = {k: v - before.get(k, 0) for k, v in runner.sel_routes.items()
                 if v != before.get(k, 0)}
     launches = counts()
+    selection = bool(expect & {"sel_pred", "sel_mask"})
     for name in KERNELS:
         if name in expect:
             assert launches[name] > 0, f"config {label} never launched {name}"
-        elif name != "sel_compact" or "sel_mask" not in expect:
+        elif name != "sel_compact" or not selection:
             assert launches[name] == 0, f"config {label} launched {name}"
     p50 = float(np.percentile(warm, 50))
     out = {"config": label, "rows": n, **extra, "cold_ms": cold * 1e3,
            "warm_p50_ms": p50 * 1e3, "rows_per_s": n / p50,
            "launches": launches}
-    if "sel_mask" in expect:
+    if selection and "topn_select" not in expect:
         out["routes"] = {k: v - routes0.get(k, 0)
                          for k, v in runner.sel_routes.items()
                          if v != routes0.get(k, 0)}
         out["last_route"] = last
+    # each request's predicate route (sel_pred, or torch then sel_mask)
+    out["pred_routes"] = {k: v - preds0.get(k, 0)
+                          for k, v in runner.pred_routes.items()
+                          if v != preds0.get(k, 0)}
+    if selection:
+        want = "torch" if "sel_mask" in expect else "sel_pred"
+        assert out["pred_routes"] == {want: 6}, \
+            f"config {label}: predicate routes {out['pred_routes']}"
     out["peak_request_bytes"] = peak_request_bytes(runner, dag, snap)
     print(f"config {label}: " + " ".join(f"{k}={v}" for k, v in out.items()
                                          if k != "config"), flush=True)
@@ -845,6 +889,7 @@ def peak_request_bytes(runner, dag, snap) -> int:
 # kernel → substrings of its device functions' names in a trace
 SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "twolevel": ("twolevel_kernel",),
+           "sel_pred": ("sel_pred_kernel",),
            "sel_mask": ("sel_mask_kernel",),
            "sel_compact": ("sel_compact_kernel",),
            "topn_select": ("topn_hist",),
@@ -1216,7 +1261,8 @@ def fold_at_main_shapes(runner, dev) -> tuple:
         saved = counts()
         err = fold_err(kw, dev)
         slots = 1 if kw["mode"] == "simple" else kw["capacity"] + 2
-        route = af.route(kw["specs"], kw["cols"], kw["mode"], slots, dev)
+        route = af.route(kw["specs"], kw["cols"], kw["mode"], slots, dev,
+                         kw.get("value_bound"))
         ms = cuda_ms(lambda: af.agg_fold(**kw, device=dev), 20, queued=True)
         peak = peak_bytes(lambda: af.agg_fold(**kw, device=dev))
         set_counts(saved)
@@ -1298,6 +1344,150 @@ def selection_cases(dev):
     pred = bools(0.1, big)
     yield f"config_2_size_{big}", pred, big, [
         (1 << 17, ()), (1 << 21, ()), (1 << 14, [plane(torch.int32, big)])]
+
+
+PRED_CMPS = ("Gt", "Ge", "Lt", "Le", "Eq", "Ne", "NullEq")
+
+
+def pred_spec(rng, depth: int, kind: str = "bool"):
+    """A random predicate over columns a (int32), b (int64), r (float32),
+    nested up to ``depth``, as a nested tuple (see ``pred_tree``)."""
+    if kind == "int" or kind == "real":
+        real = kind == "real"
+        if depth <= 0 or rng.random() < 0.4:
+            roll = rng.random()
+            if roll < 0.55:
+                return ("col", 2 if real else int(rng.integers(0, 2)))
+            if roll < 0.95:
+                return ("const", float(rng.integers(-400, 400)) / 4.0
+                        if real else int(rng.integers(-120, 120)))
+            return ("null", kind)
+        t = "Real" if real else "Int"
+        if rng.random() < 0.8:
+            return (str(rng.choice(["Plus", "Minus", "Multiply"])) + t,
+                    pred_spec(rng, depth - 1, kind),
+                    pred_spec(rng, depth - 1, kind))
+        return ("UnaryMinus" + t, pred_spec(rng, depth - 1, kind))
+    sub = "real" if rng.random() < 0.35 else "int"
+    t = "Real" if sub == "real" else "Int"
+    roll = rng.random()
+    if depth <= 1 or roll < 0.45:
+        return (str(rng.choice(PRED_CMPS)) + t,
+                pred_spec(rng, depth - 1, sub),
+                pred_spec(rng, max(depth - 2, 0), sub))
+    if roll < 0.7:
+        return (str(rng.choice(["LogicalAnd", "LogicalOr", "LogicalXor"])),
+                pred_spec(rng, depth - 1), pred_spec(rng, depth - 1))
+    if roll < 0.85:
+        return (str(rng.choice(["UnaryNot", "IsNull"])) + t,
+                pred_spec(rng, depth - 1, sub))
+    if roll < 0.93:
+        return (t + str(rng.choice(["IsTrue", "IsFalse"])),
+                pred_spec(rng, depth - 1, sub))
+    items = [("const", float(rng.integers(-400, 400)) / 4.0 if sub == "real"
+              else int(rng.integers(-100, 100)))
+             for _ in range(int(rng.integers(1, 6)))]
+    if rng.random() < 0.2:
+        items.append(("null", sub))
+    return ("In" + t, pred_spec(rng, 1, sub), *items)
+
+
+def pred_tree(spec):
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.expr import Expr
+    kind = spec[0]
+    if kind == "col":
+        return Expr.column(spec[1], EvalType.REAL if spec[1] == 2
+                           else EvalType.INT)
+    if kind == "const":
+        return Expr.const(spec[1], EvalType.REAL if isinstance(
+            spec[1], float) else EvalType.INT)
+    if kind == "null":
+        return Expr.null(EvalType.REAL if spec[1] == "real" else EvalType.INT)
+    return Expr.call(kind, *[pred_tree(c) for c in spec[1:]])
+
+
+def pred_cases(dev):
+    """(name, program, planes, n, bools) on the card: random predicates
+    nested two or three deep (every covered signature among them) over
+    NULL-bearing int32 (with its extremes), int64 and float32 planes, at
+    ragged sizes, on and off a 16-byte boundary, and the predicates of
+    configs 1, 2, 2s and 5t at config 2's 10·2^20 rows."""
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.expr import Expr, build_rpn
+    from tikv_tpu_torch.expr.eval import narrow_int32
+    rng = np.random.default_rng(21)
+    for n in (1, 17, 4095, 32769, (1 << 20) + 3):
+        a = rng.integers(-100, 100, n + 4).astype(np.int32)
+        a[rng.choice(n + 4, min(n + 4, 8), replace=False)] = rng.choice(
+            [-(1 << 31), 1 - (1 << 31), (1 << 31) - 1], min(n + 4, 8))
+        b = rng.integers(-(1 << 33), 1 << 33, n + 4)
+        b[: (n + 4) // 3] = rng.integers(-100, 100, (n + 4) // 3)
+        r = (rng.integers(-400, 400, n + 4) / 4.0).astype(np.float32)
+        cols = []
+        for v in (a, b, r):
+            ok = rng.random(n + 4) > 0.15
+            cols.append((torch.from_numpy(np.where(ok, v, 0).astype(
+                v.dtype)).to(dev), torch.from_numpy(ok).to(dev)))
+        bounds = [(int(a.min()), int(a.max())), (int(b.min()), int(b.max())),
+                  None]
+        for off in (0, 1):
+            planes = [(v[off:], ok[off:]) for v, ok in cols]
+            dts = [v.dtype for v, _ok in planes]
+            made = 0
+            while made < 8:
+                specs = [pred_spec(rng, int(rng.integers(2, 4)))
+                         for _ in range(int(rng.integers(1, 3)))]
+                rpns = [build_rpn(pred_tree(sp)) for sp in specs]
+                if sm.pred_covered(rpns):
+                    continue
+                if made % 2:
+                    rpns = [narrow_int32(rp, bounds) for rp in rpns]
+                made += 1
+                yield (f"random_n={n}_off={off}_{made}",
+                       sm.encode_predicate(rpns, dts), planes, n,
+                       bool(made % 3))
+    n = SWEEP_ROWS
+    v = torch.randint(-1000, 1000, (n,), generator=torch.Generator()
+                      .manual_seed(3), dtype=torch.int32).to(dev)
+    for name, e, bools in (
+            ("config_1", Expr.column(0) > Expr.const(-10 ** 9, EvalType.INT),
+             False),
+            ("config_2", Expr.column(0) > Expr.const(800, EvalType.INT),
+             False),
+            ("config_2s_0.1%", Expr.column(0) > Expr.const(997,
+                                                           EvalType.INT),
+             False),
+            ("config_5t", Expr.column(0) < Expr.const(512, EvalType.INT),
+             True)):
+        yield name, sm.encode_predicate([build_rpn(e)], [torch.int32]), \
+            [(v, None)], n, bools
+
+
+def check_pred(dev) -> int:
+    """sel_pred against its plain version (the same program run op by op in
+    torch on the card): count, packed mask, block counts and bool mask
+    equal bit for bit.  → 0 or raises."""
+    from tikv_tpu_torch.device import selection as sm
+    cases = 0
+    for name, prog, planes, n, bools in pred_cases(dev):
+        got, got_b = sm.sel_pred(prog, planes, n, bools)
+        torch.cuda.synchronize()
+        want, want_b = sm.sel_pred_plain(prog, planes, n, bools)
+        assert mask_equal(got, want), f"sel_pred {name} disagrees"
+        assert (got_b is None) == (not bools)
+        if bools:
+            assert torch.equal(got_b, want_b), f"sel_pred {name} bools"
+        cases += 1
+        if name.startswith("config") or cases % 16 == 0:
+            print(f"kernel sel_pred {name}: ops={len(prog.ops)} "
+                  f"depth={prog.depth} count={int(got.count)} "
+                  f"bools={bools} max_abs_err=0", flush=True)
+    print(f"kernel sel_pred: {cases} cases equal to the plain version",
+          flush=True)
+    gc.collect()
+    return 0
 
 
 def check_selection(dev) -> tuple:
@@ -1561,11 +1751,35 @@ def agg_fold_cases(dev):
             specs=specs, cols=cols, n=hot, mode="dense",
             key=torch.full((hot,), 7, dtype=torch.int32, device=dev),
             base=0, capacity=slots - 2)
+    # the same rows spread over 1024 slots, the bound given (2^31)
+    yield f"int32_extremes_{hot}_rows_bound=2^31", dict(
+        specs=specs, cols=cols, n=hot, mode="dense",
+        key=torch.randint(0, 1024, (hot,), generator=g).to(
+            torch.int32).to(dev), capacity=1024, value_bound=1 << 31)
     sspecs, scols = spec_cols(("sum", "min", "max", "first", "avg"), ext,
                               bools(0.5, hot), False)
     yield f"simple_int32_extremes_{hot}_rows", dict(
         specs=sspecs, cols=scols, n=hot, mode="simple")
     del ext
+    # value bounds that shrink the shared route's cells: one signed sum
+    # cell and one v² cell (|v| <= 300), one sum cell and two limbs (|v| <=
+    # 1000, 4m's), the split sum and four limbs (the int32 extremes)
+    for lo, bound in ((-300, 300), (-1000, 1000)):
+        vb = col(torch.int32, lo=lo, hi=bound + 1)
+        vb[:2] = torch.tensor([lo, bound], dtype=torch.int32)
+        specs, cols = spec_cols(FOLD_KINDS, vb, bools(0.9), False)
+        for slots in (1026, 4098):
+            yield f"int32_bound={bound}_slots={slots}", dict(
+                specs=specs, cols=cols, n=n, mode="dense",
+                key=torch.randint(0, slots - 2, (n,), generator=g).to(
+                    torch.int32).to(dev), capacity=slots - 2,
+                mask=bools(0.8), value_bound=bound)
+        yield f"int32_bound={bound}_hot_slot", dict(
+            specs=specs, cols=cols, n=n, mode="dense",
+            key=torch.full((n,), 3, dtype=torch.int32, device=dev),
+            capacity=1024, value_bound=bound)
+        yield f"int32_bound={bound}_simple", dict(
+            specs=specs, cols=cols, n=n, mode="simple", value_bound=bound)
     # ragged n and planes 1-3 elements off a 16-byte boundary
     big = col(torch.float32, n + 8)
     ks = torch.randint(0, 1024, (n + 8,), generator=g).to(torch.int32).to(dev)
@@ -1585,7 +1799,7 @@ def check_agg_fold(dev) -> float:
         err = fold_err(kw, dev)
         route = af.route(kw["specs"], kw["cols"], kw["mode"],
                          1 if kw["mode"] == "simple" else kw["capacity"] + 2,
-                         dev)
+                         dev, kw.get("value_bound"))
         routes.add(route)
         print(f"kernel agg_fold {name}: route={route} max_abs_err={err} "
               f"(integer, MIN/MAX, FIRST states exact; float64 sums within "
@@ -1604,13 +1818,14 @@ def check_agg_fold(dev) -> float:
 def row_phases(runner, dag, snap, repeats: int = 5) -> dict:
     """Host-clock phases (ms, the median of ``repeats`` warm requests) of a
     request on the selection or top-k route: analyze (``_analyze``),
-    inputs (``_inputs``: the feed's planes and the predicate evaluated by
-    torch ops, queued), launch (the ``sel_mask``/``sel_compact``/
-    ``topn_select`` wrappers), kernel_wait (a synchronize right after each
-    wrapper: the device work queued so far), d2h (the selection's one copy
-    of its result buffer; a top-k's copy is in "other"), rows (the host
-    gather or take of the result rows, and for a top-k the scan's views)
-    and other (the rest: EWMA, unpacking, the top-k refine)."""
+    inputs (``_inputs``: the feed's planes, and a top-k's selection
+    outside its wrapper), launch (the ``sel_pred``/``sel_mask``/
+    ``sel_compact``/``topn_select`` wrappers), kernel_wait (a synchronize
+    right after each wrapper: the device work queued so far), d2h (the
+    selection's one copy of its result buffer; a top-k's copy is in
+    "other"), rows (the host gather or take of the result rows, and for a
+    top-k the scan's views) and other (the rest: EWMA, unpacking, the
+    top-k refine).  A phase inside another counts only in the inner one."""
     from tikv_tpu_torch.datatype import ColumnBatch
     from tikv_tpu_torch.device import selection as sm
     from tikv_tpu_torch.device import topn as tn
@@ -1620,27 +1835,32 @@ def row_phases(runner, dag, snap, repeats: int = 5) -> dict:
         spent = dict.fromkeys(("analyze", "inputs", "launch", "kernel_wait",
                                "d2h", "rows"), 0.0)
         patched = []
+        inner = [0.0]           # time of the phases inside the open one
 
         def timed(owner, name, phase, wait=False):
             fn = getattr(owner, name)
 
             def wrap(*a, **k):
+                outer, inner[0] = inner[0], 0.0
                 t0 = time.perf_counter()
                 try:
                     return fn(*a, **k)
                 finally:
-                    spent[phase] += time.perf_counter() - t0
+                    took = time.perf_counter() - t0
+                    spent[phase] += took - inner[0]
                     if wait:
                         t1 = time.perf_counter()
                         torch.cuda.synchronize()
                         spent["kernel_wait"] += time.perf_counter() - t1
+                        took += time.perf_counter() - t1
+                    inner[0] = outer + took
             patched.append((owner, name, owner.__dict__.get(name)))
             setattr(owner, name, wrap)
 
         timed(runner, "_analyze", "analyze")
         timed(runner, "_inputs", "inputs")
-        for owner, name in ((sm, "sel_mask"), (sm, "sel_compact"),
-                            (tn, "topn_select")):
+        for owner, name in ((sm, "sel_pred"), (sm, "sel_mask"),
+                            (sm, "sel_compact"), (tn, "topn_select")):
             timed(owner, name, "launch", wait=True)
         timed(sm.MaskOut, "host", "d2h")
         timed(sm.CompactOut, "host", "d2h")
@@ -1702,7 +1922,7 @@ def run_sweep(runner) -> list:
         out = serve(f"2s@{point}", SWEEP_ROWS, runner, dag, snap,
                     lambda r: r.batch,
                     lambda batch: cf.columns_agree(batch, want),
-                    {"sel_mask"}, selected=len(want[0][0]))
+                    {"sel_pred"}, selected=len(want[0][0]))
         assert set(out["last_route"]) == {SWEEP_ROUTE[point]}, \
             f"config 2s@{point} took {out['last_route']}"
         out["host_phases_ms"] = row_phases(runner, dag, snap)
@@ -1712,15 +1932,86 @@ def run_sweep(runner) -> list:
     return runs
 
 
+def run_uncovered(runner) -> dict:
+    """Config 2's table with a predicate outside sel_pred's signatures
+    (``v DIV 3 > 266``, IntDivideInt): the torch route, then sel_mask;
+    each answer held exactly against numpy."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.expr import Expr
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing.dag import DagSelect
+    table, snap = cf.build_table(SWEEP_ROWS)
+    s = DagSelect.from_table(table, [c.name for c in table.columns])
+    dag = dag_from_wire(enc_dag(s.where(Expr.call(
+        "GtInt", Expr.call("IntDivideInt", s.col("v"),
+                           Expr.const(3, EvalType.INT)),
+        Expr.const(266, EvalType.INT))).build()))
+    v = snap.columns[3].values.astype(np.int64)
+    div = np.where(v >= 0, v // 3, -(-v // 3))          # toward zero
+    keep = np.flatnonzero(snap.columns[3].validity & (div > 266))
+    want = [(snap.handles[keep], np.ones(len(keep), np.bool_))] + [
+        (snap.columns[c].values[keep], snap.columns[c].validity[keep])
+        for c in (2, 3)]
+    out = serve("2 (IntDivideInt)", SWEEP_ROWS, runner, dag, snap,
+                lambda r: r.batch,
+                lambda batch: cf.columns_agree(batch, want),
+                {"sel_mask"}, selected=len(keep))
+    del snap
+    gc.collect()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # selection and top-k kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def selection_at_main_shapes(dev) -> tuple:
-    """sel_mask at config 2 and sel_compact at config 2s's 1% (index mode)
-    and 0.1% (planes mode), exact against their plain versions and timed;
-    → (sel_mask timing, sel_compact timing)."""
+def time_pred(config: str, prog, planes, n: int, bools: bool, library,
+              dev) -> dict:
+    """sel_pred at one config's shape: against its plain version (exact)
+    and timed beside its bound (the planes the program reads, read once;
+    the packed mask, block counts and count — and the bool mask — written
+    once; one operation per op and row), its plain version and one
+    library call (``library``: the predicate's torch comparison, which
+    writes the bool mask and neither counts nor packs it; a yardstick the
+    port never calls)."""
     from tikv_tpu_torch.device import selection as sm
+    saved = counts()
+    got, got_b = sm.sel_pred(prog, planes, n, bools)
+    want, want_b = sm.sel_pred_plain(prog, planes, n, bools)
+    assert mask_equal(got, want) and (not bools or torch.equal(
+        got_b, want_b)), f"sel_pred disagrees at config {config}'s shape"
+    nb = sm.n_blocks(n)
+    read = sum(n * t.element_size() for ci in prog.cols
+               for t in planes[ci] if t is not None)
+    t = {"ms": cuda_ms(lambda: sm.sel_pred(prog, planes, n, bools), 50,
+                       queued=True),
+         "plain_ms": cuda_ms(lambda: sm.sel_pred_plain(prog, planes, n,
+                                                       bools), 5),
+         "library_ms": cuda_ms(library, 50),
+         "library_call": "the torch comparison (yardstick)",
+         **bound_ms(read + -(-n // 8) + 4 * nb + 8 + (n if bools else 0),
+                    n * len(prog.ops)),
+         "rows": n, "selected": int(got.count), "bools": bools,
+         "ops": len(prog.ops),
+         "peak_bytes": peak_bytes(lambda: sm.sel_pred(prog, planes, n,
+                                                      bools))}
+    set_counts(saved)
+    print(f"kernel sel_pred at config {config} shape ({n} rows): "
+          f"max_abs_err=0 " + " ".join(f"{k}={x}" for k, x in t.items()),
+          flush=True)
+    return t
+
+
+def selection_at_main_shapes(dev) -> tuple:
+    """sel_pred and sel_mask at config 2 and sel_compact at config 2s's 1%
+    (index mode) and 0.1% (planes mode), exact against their plain versions
+    and timed; → (sel_pred timing, sel_mask timing, sel_compact
+    timing)."""
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.expr import Expr, build_rpn
     from tikv_tpu_torch.testing import configs as cf
     _table, snap = cf.build_table(SWEEP_ROWS)
     n = SWEEP_ROWS
@@ -1728,6 +2019,10 @@ def selection_at_main_shapes(dev) -> tuple:
         snap.handles, snap.columns[2].values, snap.columns[3].values)]
     v = planes[2]
     saved = counts()
+    pred_t = time_pred("2", sm.encode_predicate(
+        [build_rpn(Expr.column(0) > Expr.const(800, EvalType.INT))],
+        [torch.int32]), [(v, None)], n, False, lambda: torch.gt(v, 800),
+        dev)
     pred = v > 800
     got = sm.sel_mask(pred, n)
     assert mask_equal(got, sm.sel_mask_plain(pred, n)), \
@@ -1774,14 +2069,18 @@ def selection_at_main_shapes(dev) -> tuple:
     compact_t["modes"] = modes
     del snap, planes, v, pred
     gc.collect()
-    return mask_t, compact_t
+    return pred_t, mask_t, compact_t
 
 
-def topn_at_main_shapes(runner, dev) -> dict:
+def topn_at_main_shapes(runner, dev) -> tuple:
     """topn_select at configs 5 and 5t on the runner's own feed planes,
-    exact against its plain version and timed; → config 5's timing with
-    5t's under ``configs``."""
+    exact against its plain version and timed, and sel_pred at 5t's
+    predicate (``k < 512``, the bool mask written); → (config 5's timing
+    with 5t's under ``configs``, sel_pred's timing at 5t)."""
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.device import selection as sm
     from tikv_tpu_torch.device import topn as tn
+    from tikv_tpu_torch.expr import Expr, build_rpn
     from tikv_tpu_torch.testing import configs as cf
     timings = {}
     for config in ("5", "5t"):
@@ -1794,7 +2093,13 @@ def topn_at_main_shapes(runner, dev) -> dict:
         ok = mask = None
         if config == "5t":
             ok = torch.from_numpy(vcol.validity).to(dev)
+            k32 = torch.from_numpy(kcol.values.astype(np.int32)).to(dev)
+            pred_5t = time_pred("5t", sm.encode_predicate(
+                [build_rpn(Expr.column(0) < Expr.const(512, EvalType.INT))],
+                [torch.int32]), [(k32, None)], n, True,
+                lambda: torch.lt(k32, 512), dev)
             mask = torch.from_numpy(kcol.values < 512).to(dev)
+            del k32
         n_used, seglen = tn.segments(n, n_pad)
         k = cf.TOPN_LIMIT
         # the runner's placement: the valid values' bounds
@@ -1842,7 +2147,7 @@ def topn_at_main_shapes(runner, dev) -> dict:
         gc.collect()
     out = dict(timings["5"])
     out["configs"] = timings
-    return out
+    return out, pred_5t
 
 
 def main() -> int:
@@ -1864,6 +2169,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     worst = {"hash_agg": check_kernels(dev, 1 << 24),
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
+    worst["sel_pred"] = check_pred(dev)
     worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
@@ -1872,6 +2178,7 @@ def main() -> int:
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
+    runs.append(run_uncovered(runner))
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -1885,8 +2192,10 @@ def main() -> int:
     hash_timing["configs"] = hash_timings
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
-    mask_timing, compact_timing = selection_at_main_shapes(dev)
-    topn_timing = topn_at_main_shapes(runner, dev)
+    pred_timing, mask_timing, compact_timing = selection_at_main_shapes(dev)
+    topn_timing, pred_timing_5t = topn_at_main_shapes(runner, dev)
+    pred_timing = dict(pred_timing, configs={"2": dict(pred_timing),
+                                             "5t": pred_timing_5t})
     err, fold_timing = fold_at_main_shapes(runner, dev)
     worst["agg_fold"] = max(worst["agg_fold"], err)
 
@@ -1902,6 +2211,11 @@ def main() -> int:
                      "prof/prof_pallas.py:92 and :147",
          "launches": launches["twolevel"], "max_abs_err": worst["twolevel"],
          **two_timing},
+        {"name": "sel_pred", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "replaces": "tikv_tpu/device/selection.py:227",
+         "launches": launches["sel_pred"], "max_abs_err": worst["sel_pred"],
+         **pred_timing},
         {"name": "sel_mask", "route": "cuda",
          "source": "tikv_tpu_torch/csrc/selection.cu",
          "replaces": "tikv_tpu/device/selection.py:227",

@@ -259,22 +259,111 @@ def test_route_by_table_size_and_value_width(dtype, slots, route):
 
 
 def test_config_4m_shared_cells():
-    """4m: MIN, MAX, VAR_POP, STDDEV_SAMP over one NOT NULL int32 lane →
-    32-bit cells rows, lo, hi, min, max and one float64 cell (sumsq); the
-    float64 sum comes from the exact integer sum."""
+    """4m: MIN, MAX, VAR_POP, STDDEV_SAMP over one NOT NULL int32 lane whose
+    values lie in [-1000, 1000] → over a fold interval of 4096 rows, 32-bit
+    cells rows, sum (one signed cell), v² (one cell), min and max; the
+    first three with 64-bit twins; no float64 cell (the float64 sum comes
+    from the exact integer sum, the sum of squares from v²'s cell)."""
     plan = _plan(torch.int32, ("min", "max", "var_pop", "stddev_samp"),
                  ok=False)
-    c32, c64 = af.shared_cells(plan, [0])
-    assert [c for c, _p in c32] == ["rows", "lo", "hi", "min", "max"]
-    assert c64 == [("sumsq", 0)]
-    assert af.shared_bytes(plan, 1026) == 1026 * (5 * 4 + 8)
+    c32, c64, n_wide = af.shared_cells(plan, [0], 1000)
+    assert [c for c, _p in c32] == ["rows", "sum", "sq0", "min", "max"]
+    assert c64 == [] and n_wide == 3
+    assert af.shared_bytes(plan, 1026, 1000) == 1026 * (5 * 4 + 3 * 8)
     p = af.launch_params(plan, 100, 1026, [0], 1, False, None, None, 0,
-                         1024, 2, True)
-    assert (p.n32, p.n64, p.o_rows) == (5, 1, 0)
-    assert p.c_lo[0] == 1 and p.c_hi[0] == 2 and p.d_sumsq[0] == 0
-    assert p.d_fsum[0] == -1 and p.o_fsum[0] >= 1 and p.o_nonnull[0] == -1
+                         1024, 2, True, 1000, True, 3)
+    assert (p.n32, p.n_wide, p.n64, p.o_rows, p.vec) == (5, 3, 0, 0, 1)
+    assert (p.c_sum[0], p.n_sum[0], p.c_sq[0], p.n_sq[0]) == (1, 1, 2, 1)
+    assert (p.c_min[0], p.c_max[0]) == (3, 4)
+    assert p.signed_cells == 0b10 and p.fold_every * af.TILE_SHARED == \
+        af.SHORT_FOLD_ROWS == af.fold_rows(1000)
+    assert p.d_fsum[0] == -1 and p.d_sumsq[0] == -1
+    assert p.o_fsum[0] >= 1 and p.o_nonnull[0] == -1
     assert list(p.init32[:5]) == [0, 0, 0, (1 << 31) - 1, -(1 << 31)]
     assert list(p.init[:len(plan.rows)]) == af.init_values(plan)
+    # an unknown bound: the split sum and four limbs
+    c32, _c64, n_wide = af.shared_cells(plan, [0])
+    assert [c for c, _p in c32] == ["rows", "lo", "hi", "sq0", "sq1", "sq2",
+                                    "sq3", "min", "max"] and n_wide == 7
+    p = af.launch_params(plan, 100, 1026, [0], 1, False, None, None, 0,
+                         1024, 2, True)
+    assert (p.c_sum[0], p.n_sum[0], p.c_sq[0], p.n_sq[0]) == (1, 2, 3, 4)
+    assert p.signed_cells == 0b100
+    assert p.fold_every * af.TILE_SHARED == af.FOLD_ROWS
+    # a REAL lane keeps float64 cells for its sum and sum of squares
+    plan = _plan(torch.float32, ("sum", "var_pop", "min"))
+    c32, c64, n_wide = af.shared_cells(plan, [0], 5)
+    assert [c for c, _p in c32] == ["rows", "nonnull", "min"]
+    assert [c for c, _p in c64] == ["fsum", "sumsq"] and n_wide == 2
+
+
+@pytest.mark.parametrize("bound,cells,rows", [
+    (0, (1, 1), 1 << 15), (300, (1, 1), 1 << 15), (362, (1, 1), 1 << 15),
+    (363, (1, 1), 1 << 12), (1000, (1, 1), 1 << 12),
+    (1023, (1, 1), 1 << 12), (1024, (1, 2), 1 << 15),
+    ((1 << 16) - 1, (1, 2), 1 << 15), (1 << 16, (2, 4), 1 << 15),
+    ((1 << 31) - 1, (2, 4), 1 << 15), (1 << 31, (2, 4), 1 << 15),
+    (None, (2, 4), 1 << 15)])
+def test_int_cells_by_value_bound(bound, cells, rows):
+    """Over FOLD_ROWS rows the sum is one signed cell while rows·bound <
+    2^31, v² one cell while rows·bound² < 2^32, two limbs while bound <
+    2^16, else four; where the short interval of SHORT_FOLD_ROWS rows keeps
+    v² in one cell that the long one would split, the short one is
+    taken."""
+    assert af.int_cells(bound) == cells
+    assert af.fold_rows(bound) == rows
+
+
+def test_route_by_value_bound():
+    """The value bound shrinks the cells, so a wider table fits shared
+    memory: 3000 slots of MIN, MAX, VAR_POP and SUM over a NULL-bearing
+    int32 lane take 104 bytes a slot for any int32 (global route) and 56
+    for |v| <= 100 (shared route)."""
+    plan = _plan(torch.int32, ("min", "max", "var_pop", "sum"))
+    assert af.shared_bytes(plan, 3000) == 3000 * 104
+    assert af.shared_bytes(plan, 3000, 100) == 3000 * 56
+    assert af.choose_route(plan, 3000, 232_448) == "global"
+    assert af.choose_route(plan, 3000, 232_448, 100) == "shared"
+
+
+@pytest.mark.parametrize("bound", [300, 1000, 1023, 1024, (1 << 16) - 1,
+                                   1 << 31])
+def test_limb_cells_cannot_wrap_within_a_fold_interval(bound):
+    """The shared route's 32-bit cells over one fold interval
+    (``fold_rows(bound)`` rows into one hot slot, values at ±bound, the
+    int32 extremes at the last bound), replayed in numpy as the kernel adds
+    them — row by row and in warp-reduced steps of 128 rows: every unsigned
+    cell stays below 2^32 and every signed one inside int32, and the twins
+    recombine to the exact sum and sum of squares."""
+    n_sum, n_sq = af.int_cells(bound)
+    rows = af.fold_rows(bound)
+    rng = np.random.default_rng(bound % 97)
+    hi_v = min(bound, (1 << 31) - 1)
+    v = np.where(rng.random(rows) < 0.5, hi_v, -bound).astype(np.int64)
+    v[: rows // 2] = -bound                      # a long run of one sign
+    sq = (v * v).astype(np.uint64)
+    if n_sum == 1:
+        sums = {"sum": (v, True)}
+    else:
+        sums = {"lo": (v & 0xFFFF, False), "hi": (v >> 16, True)}
+    limbs = {}
+    for k in range(n_sq):
+        x = sq >> np.uint64(16 * k)
+        limbs[f"sq{k}"] = ((x if k == n_sq - 1 else x & np.uint64(0xFFFF))
+                           .astype(np.int64), False)
+    for step in (1, 128):
+        for name, (a, signed) in {**sums, **limbs}.items():
+            run = np.cumsum(a.reshape(-1, step).sum(1))
+            if signed:
+                assert run.min() >= -(1 << 31) and run.max() < 1 << 31, name
+            else:
+                assert run.min() >= 0 and run.max() < 1 << 32, name
+    total = sum(int(a.sum()) << (16 if name == "hi" else 0)
+                for name, (a, _s) in sums.items())
+    assert total == int(v.sum())
+    squares = sum(int(a.sum()) << (16 * int(name[2:]))
+                  for name, (a, _s) in limbs.items())
+    assert squares == int((v.astype(object) ** 2).sum())
 
 
 def test_lanes_past_eight_launch_in_groups():
@@ -288,6 +377,23 @@ def test_lanes_past_eight_launch_in_groups():
                                1, gi == 0).o_rows
               for gi, g in enumerate(groups)]
     assert firsts == [0, -1]
+
+
+def test_registers_route_groups_lanes_by_dtype():
+    """Without GROUP BY each launch's lanes share one dtype (the registers
+    route's kernel is compiled per dtype), the row count in the first;
+    with GROUP BY lanes stay in order, eight a launch."""
+    i32, f32 = torch.zeros(4, dtype=torch.int32), torch.zeros(4)
+    i64 = torch.zeros(4, dtype=torch.int64)
+    cols = [(i32, None), (f32, None), (i64, None), (i32 + 1, None)]
+    specs = [agg.AggSpec("max", i) for i in range(4)]
+    plan = af.plan_fold(specs, cols, "simple")
+    assert af.lane_groups(plan) == [[0, 3], [2], [1]]
+    plan = af.plan_fold([agg.AggSpec("max", i) for i in range(4)], cols,
+                        "dense")
+    assert af.lane_groups(plan) == [[0, 1, 2, 3]]
+    assert af.lane_groups(af.plan_fold([agg.AggSpec("count_star", 0)],
+                                       [None], "simple")) == [[]]
 
 
 def test_split_cells_cannot_wrap_within_a_chunk():

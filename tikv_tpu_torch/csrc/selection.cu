@@ -1,10 +1,15 @@
-// Selection vectors for Hopper: the packed predicate mask (sel_mask) and
-// the in-order compaction of the selected rows (sel_compact).
+// Selection vectors for Hopper: the predicate evaluated over the feed
+// (sel_pred), the packed mask of a bool predicate (sel_mask) and the
+// in-order compaction of the selected rows (sel_compact).
 //
 // Replaces the XLA kernels of tikv_tpu/device/selection.py:
-//   sel_mask    <- build_mask_kernel (:227): the row count and the
-//                  jnp.packbits mask of a predicate (the bool mask itself
-//                  stays on the device as the kernel's input);
+//   sel_pred    <- build_mask_kernel (:227), the whole fused pass: the
+//                  selection RPNs evaluated over the feed's planes, then
+//                  the row count, the jnp.packbits mask and, where a later
+//                  kernel takes one, the bool mask;
+//   sel_mask    <- the count-and-pack half of the same kernel, for a bool
+//                  predicate evaluated elsewhere (a plan sel_pred does not
+//                  cover);
 //   sel_compact <- build_index_kernel (:323): ascending int32 row indices
 //                  into [k_cap] with -1 fill and an overflow flag
 //                  (nonzero(size=k_cap)), and build_compact_kernel (:357):
@@ -24,6 +29,26 @@
 // byte j), and stores its 16 bytes with one 16-byte store; rows at or past
 // n read as false.  The count is a block reduction and one 64-bit atomic
 // per block.
+// sel_pred keeps sel_mask's layout (a block of 32768 rows, one count per
+// block, the same packed bytes), so sel_compact reads either.  Bound:
+// bytes, the planes the selection names read once and the packed mask (and
+// the bool mask) written once: (4 + 1/8) B x 10,485,760 rows at config 2
+// is 12.9 us at 3.35 TB/s.  A thread takes 16 consecutive rows at a time
+// (a CTA's 256 threads 4096 rows, 8 CTAs a block), read with 16-byte
+// loads.  The predicate is a short program (the wrapper's encoder in
+// device/selection.py) passed by value in the launch parameters: column
+// refs, constants (hoisted into the parameters, none on the device),
+// calls.  Every thread runs the same program, so every branch is
+// warp-uniform; each opcode runs over the thread's 16 rows before the
+// next.  The stack is ND entries of 16 rows held in registers: every
+// stack access sits in a fully unrolled loop over the ND positions, so
+// its index is static.  A program without an int64 value keeps 32-bit
+// payloads (an int32, or a float32's bits); one with one keeps 64-bit
+// payloads (int64, an int32 sign-extended, or a float32 value as a
+// double, exact).  int32 arithmetic wraps at 32 bits as torch's does;
+// float32 arithmetic rounds to float32 with __fadd_rn / __fsub_rn /
+// __fmul_rn, never contracted into an FMA; validity is 16 bits an entry.
+// Rows at or past n read as false.
 // sel_compact reads the packed mask (n / 8 bytes), the block counts, and
 // for each selected row below k_cap its projected planes' elements; it
 // writes 4 B per index and the gathered elements.  The exclusive scan over
@@ -39,6 +64,51 @@
 #define ROWS_PER_THREAD 128
 #define ROWS_PER_BLOCK (THREADS * ROWS_PER_THREAD)
 #define MAX_PLANES 128
+
+#define PRED_ROWS 16          // rows a thread evaluates at a time
+// CTAs a block of sel_mask's layout
+#define PRED_STEPS (ROWS_PER_BLOCK / (THREADS * PRED_ROWS))
+#define PRED_MAX_COLS 16
+#define PRED_MAX_OPS 32
+#define PRED_MAX_CONSTS 32
+
+// sel_pred's opcodes (device/selection.py mirrors them).  A binary op with
+// aux 1 takes constant `arg` as its right operand; OP_IN_* compares the
+// top with constants [arg, arg + aux).
+enum {
+  OP_COL = 0, OP_CONST = 1,
+  OP_NEG_I32 = 2, OP_NEG_I64 = 3, OP_NEG_F32 = 4, OP_NOT_I = 5,
+  OP_NOT_R = 6, OP_ISNULL = 7, OP_ISTRUE_I = 8, OP_ISTRUE_R = 9,
+  OP_ISFALSE_I = 10, OP_ISFALSE_R = 11, OP_IN_I = 12, OP_IN_R = 13,
+  OP_BINARY = 16,
+  OP_ADD_I32 = 16, OP_ADD_I64 = 17, OP_ADD_F32 = 18, OP_SUB_I32 = 19,
+  OP_SUB_I64 = 20, OP_SUB_F32 = 21, OP_MUL_I32 = 22, OP_MUL_I64 = 23,
+  OP_MUL_F32 = 24, OP_GT_I = 25, OP_GE_I = 26, OP_LT_I = 27, OP_LE_I = 28,
+  OP_EQ_I = 29, OP_NE_I = 30, OP_GT_R = 31, OP_GE_R = 32, OP_LT_R = 33,
+  OP_LE_R = 34, OP_EQ_R = 35, OP_NE_R = 36, OP_NULLEQ_I = 37,
+  OP_NULLEQ_R = 38, OP_AND = 39, OP_OR = 40, OP_XOR = 41,
+  OP_KEEP_I = 48, OP_KEEP_R = 49
+};
+
+enum { PDT_INT32 = 0, PDT_INT64 = 1, PDT_FLOAT32 = 2 };
+
+struct PredParams {
+  const void* values[PRED_MAX_COLS];
+  const unsigned char* valid[PRED_MAX_COLS];  // null: every row valid
+  int dtype[PRED_MAX_COLS];
+  long long n;
+  unsigned char* packed;        // n_blocks * 4096 bytes
+  int* block_counts;
+  unsigned long long* count;    // zeroed by the launcher
+  unsigned char* bools;         // n_blocks * 32768 bytes, or null
+  int vec;                      // every plane 16-byte aligned
+  int n_ops;
+  int op[PRED_MAX_OPS];
+  int arg[PRED_MAX_OPS];
+  int aux[PRED_MAX_OPS];
+  long long cval[PRED_MAX_CONSTS];  // int64 value or float64 bits
+  int cnull[PRED_MAX_CONSTS];
+};
 
 struct CompactParams {
   const unsigned char* packed;  // n_blocks * ROWS_PER_BLOCK / 8 bytes
@@ -121,6 +191,385 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) {
     block_counts[blockIdx.x] = (int)total;
     atomicAdd(count, (unsigned long long)total);
+  }
+}
+
+// ------------------------------------------------------------- sel_pred
+
+typedef unsigned long long u64;
+
+// A value's payload T: u64 (int64, or a float's float64 bits) when the
+// program holds an int64 value, else unsigned (int32, or a float32's
+// bits), which halves the stack's registers.
+__device__ __forceinline__ long long as_i(u64 x) { return (long long)x; }
+__device__ __forceinline__ long long as_i(unsigned x) { return (int)x; }
+__device__ __forceinline__ double as_d(u64 x) {
+  return __longlong_as_double((long long)x);
+}
+__device__ __forceinline__ double as_d(unsigned x) {
+  return (double)__uint_as_float(x);
+}
+template <class T>
+__device__ __forceinline__ T of_i(long long x) {
+  return (T)x;
+}
+template <class T>
+__device__ __forceinline__ T of_d(double x);
+template <>
+__device__ __forceinline__ u64 of_d<u64>(double x) {
+  return (u64)__double_as_longlong(x);
+}
+template <>
+__device__ __forceinline__ unsigned of_d<unsigned>(double x) {
+  return __float_as_uint((float)x);
+}
+template <class T>
+__device__ __forceinline__ float f32(T x) {
+  return (float)as_d(x);
+}
+
+// bit r set where bool byte i + r is nonzero
+__device__ __forceinline__ unsigned bits16(const unsigned char* p, long long i,
+                                           bool full, long long n) {
+  unsigned b = 0;
+  if (full) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p + i));
+    const unsigned x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        b |= ((x[q] >> (8 * r)) & 0xFFu) ? 1u << (4 * q + r) : 0u;
+  } else {
+#pragma unroll
+    for (int r = 0; r < PRED_ROWS; ++r)
+      b |= (i + r < n && __ldg(p + i + r)) ? 1u << r : 0u;
+  }
+  return b;
+}
+
+// column c's rows [i, i + 16) and their validity
+template <class T>
+__device__ __forceinline__ void load_col(const PredParams& p, int c,
+                                         long long i, bool full,
+                                         T (&v)[PRED_ROWS], unsigned& m) {
+  const long long n = p.n;
+  switch (p.dtype[c]) {
+    case PDT_INT32: {
+      const int* q = static_cast<const int*>(p.values[c]) + i;
+      if (full) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int4 x = __ldg(reinterpret_cast<const int4*>(q) + k);
+          v[4 * k] = of_i<T>(x.x), v[4 * k + 1] = of_i<T>(x.y);
+          v[4 * k + 2] = of_i<T>(x.z), v[4 * k + 3] = of_i<T>(x.w);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < PRED_ROWS; ++r)
+          v[r] = i + r < n ? of_i<T>(__ldg(q + r)) : (T)0;
+      }
+      break;
+    }
+    case PDT_INT64: {
+      const long long* q = static_cast<const long long*>(p.values[c]) + i;
+      if (full) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const longlong2 x = __ldg(reinterpret_cast<const longlong2*>(q) + k);
+          v[2 * k] = of_i<T>(x.x), v[2 * k + 1] = of_i<T>(x.y);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < PRED_ROWS; ++r)
+          v[r] = i + r < n ? of_i<T>(__ldg(q + r)) : (T)0;
+      }
+      break;
+    }
+    default: {
+      const float* q = static_cast<const float*>(p.values[c]) + i;
+      if (full) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(q) + k);
+          v[4 * k] = of_d<T>(x.x), v[4 * k + 1] = of_d<T>(x.y);
+          v[4 * k + 2] = of_d<T>(x.z), v[4 * k + 3] = of_d<T>(x.w);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < PRED_ROWS; ++r)
+          v[r] = i + r < n ? of_d<T>(__ldg(q + r)) : (T)0;
+      }
+    }
+  }
+  m = p.valid[c] != nullptr ? bits16(p.valid[c], i, full, n) : 0xFFFFu;
+}
+
+// bit r of the result: f(r), for the thread's 16 rows
+template <class F>
+__device__ __forceinline__ unsigned bits_of(F f) {
+  unsigned b = 0;
+#pragma unroll
+  for (int r = 0; r < PRED_ROWS; ++r) b |= f(r) ? 1u << r : 0u;
+  return b;
+}
+#define BITS16(expr) bits_of([&](int r) { return (expr); })
+
+template <class T>
+__device__ __forceinline__ void set_bits(T (&v)[PRED_ROWS], unsigned b) {
+#pragma unroll
+  for (int r = 0; r < PRED_ROWS; ++r) v[r] = (b >> r) & 1u;
+}
+
+template <class T>
+__device__ __forceinline__ void unary(int op, T (&v)[PRED_ROWS],
+                                      unsigned& m) {
+  switch (op) {
+    case OP_NEG_I32:
+#pragma unroll
+      for (int r = 0; r < PRED_ROWS; ++r)
+        v[r] = of_i<T>((int)(0u - (unsigned)v[r]));
+      break;
+    case OP_NEG_I64:
+#pragma unroll
+      for (int r = 0; r < PRED_ROWS; ++r) v[r] = (T)0 - v[r];
+      break;
+    case OP_NEG_F32:
+#pragma unroll
+      for (int r = 0; r < PRED_ROWS; ++r) v[r] = of_d<T>(-as_d(v[r]));
+      break;
+    case OP_NOT_I:
+      set_bits(v, BITS16(as_i(v[r]) == 0));
+      break;
+    case OP_NOT_R:
+      set_bits(v, BITS16(as_d(v[r]) == 0.0));
+      break;
+    case OP_ISNULL:
+      set_bits(v, ~m & 0xFFFFu);
+      m = 0xFFFFu;
+      break;
+    case OP_ISTRUE_I:
+      set_bits(v, m & BITS16(as_i(v[r]) != 0));
+      m = 0xFFFFu;
+      break;
+    case OP_ISTRUE_R:
+      set_bits(v, m & BITS16(as_d(v[r]) != 0.0));
+      m = 0xFFFFu;
+      break;
+    case OP_ISFALSE_I:
+      set_bits(v, m & BITS16(as_i(v[r]) == 0));
+      m = 0xFFFFu;
+      break;
+    case OP_ISFALSE_R:
+      set_bits(v, m & BITS16(as_d(v[r]) == 0.0));
+      m = 0xFFFFu;
+      break;
+  }
+}
+
+// IN (list of constants [c0, c0 + count)): NULL when nothing matches and
+// the probe or a list element is NULL
+template <class T>
+__device__ __forceinline__ void in_list(const PredParams& p, int op, int c0,
+                                        int count, T (&v)[PRED_ROWS],
+                                        unsigned& m) {
+  unsigned hit = 0;
+  bool list_null = false;
+  for (int k = 0; k < count; ++k) {
+    if (p.cnull[c0 + k]) {
+      list_null = true;
+      continue;
+    }
+    const T x = (T)p.cval[c0 + k];
+    hit |= op == OP_IN_I ? BITS16(as_i(v[r]) == as_i(x))
+                         : BITS16(as_d(v[r]) == as_d(x));
+  }
+  hit &= m;
+  const unsigned any_null = list_null ? 0xFFFFu : ~m & 0xFFFFu;
+  set_bits(v, hit);
+  m = (hit | ~any_null) & 0xFFFFu;
+}
+
+// a <- a op b (IMM: b is the constant bc, valid where bm)
+template <bool IMM, class T>
+__device__ __forceinline__ void binary(int op, T (&a)[PRED_ROWS],
+                                       unsigned& am,
+                                       const T (&b)[PRED_ROWS],
+                                       unsigned bm, T bc) {
+#define B(r) (IMM ? bc : b[r])
+#define EACH(stmt)                                 \
+  _Pragma("unroll") for (int r = 0; r < PRED_ROWS; ++r) { stmt; }
+#define CMP_CASE(code, expr)   \
+  case code:                   \
+    set_bits(a, BITS16(expr)); \
+    am &= bm;                  \
+    break;
+  switch (op) {
+    case OP_ADD_I32:
+      EACH(a[r] = of_i<T>((int)((unsigned)a[r] + (unsigned)B(r))));
+      am &= bm;
+      break;
+    case OP_ADD_I64:
+      EACH(a[r] = a[r] + B(r));
+      am &= bm;
+      break;
+    case OP_ADD_F32:
+      EACH(a[r] = of_d<T>((double)__fadd_rn(f32(a[r]), f32(B(r)))));
+      am &= bm;
+      break;
+    case OP_SUB_I32:
+      EACH(a[r] = of_i<T>((int)((unsigned)a[r] - (unsigned)B(r))));
+      am &= bm;
+      break;
+    case OP_SUB_I64:
+      EACH(a[r] = a[r] - B(r));
+      am &= bm;
+      break;
+    case OP_SUB_F32:
+      EACH(a[r] = of_d<T>((double)__fsub_rn(f32(a[r]), f32(B(r)))));
+      am &= bm;
+      break;
+    case OP_MUL_I32:
+      EACH(a[r] = of_i<T>((int)((unsigned)a[r] * (unsigned)B(r))));
+      am &= bm;
+      break;
+    case OP_MUL_I64:
+      EACH(a[r] = a[r] * B(r));
+      am &= bm;
+      break;
+    case OP_MUL_F32:
+      EACH(a[r] = of_d<T>((double)__fmul_rn(f32(a[r]), f32(B(r)))));
+      am &= bm;
+      break;
+    CMP_CASE(OP_GT_I, as_i(a[r]) > as_i(B(r)))
+    CMP_CASE(OP_GE_I, as_i(a[r]) >= as_i(B(r)))
+    CMP_CASE(OP_LT_I, as_i(a[r]) < as_i(B(r)))
+    CMP_CASE(OP_LE_I, as_i(a[r]) <= as_i(B(r)))
+    CMP_CASE(OP_EQ_I, as_i(a[r]) == as_i(B(r)))
+    CMP_CASE(OP_NE_I, as_i(a[r]) != as_i(B(r)))
+    CMP_CASE(OP_GT_R, as_d(a[r]) > as_d(B(r)))
+    CMP_CASE(OP_GE_R, as_d(a[r]) >= as_d(B(r)))
+    CMP_CASE(OP_LT_R, as_d(a[r]) < as_d(B(r)))
+    CMP_CASE(OP_LE_R, as_d(a[r]) <= as_d(B(r)))
+    CMP_CASE(OP_EQ_R, as_d(a[r]) == as_d(B(r)))
+    CMP_CASE(OP_NE_R, as_d(a[r]) != as_d(B(r)))
+    case OP_NULLEQ_I:
+    case OP_NULLEQ_R: {
+      const unsigned eq = op == OP_NULLEQ_I
+                              ? BITS16(as_i(a[r]) == as_i(B(r)))
+                              : BITS16(as_d(a[r]) == as_d(B(r)));
+      set_bits(a, (~am & ~bm & 0xFFFFu) | (am & bm & eq));
+      am = 0xFFFFu;
+      break;
+    }
+    case OP_AND: {
+      const unsigned af = am & BITS16(as_i(a[r]) == 0);
+      const unsigned bf = bm & BITS16(as_i(B(r)) == 0);
+      set_bits(a, ~(af | bf) & 0xFFFFu);
+      am = (am & bm) | af | bf;
+      break;
+    }
+    case OP_OR: {
+      const unsigned at = am & BITS16(as_i(a[r]) != 0);
+      const unsigned bt = bm & BITS16(as_i(B(r)) != 0);
+      set_bits(a, at | bt);
+      am = (am & bm) | at | bt;
+      break;
+    }
+    case OP_XOR:
+      set_bits(a, BITS16((as_i(a[r]) != 0) != (as_i(B(r)) != 0)));
+      am &= bm;
+      break;
+  }
+#undef B
+#undef EACH
+#undef CMP_CASE
+}
+
+// 16 row bits -> 16 bool bytes (row r in byte r)
+__device__ __forceinline__ unsigned nibble_bytes(unsigned x) {
+  return (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
+}
+
+// One CTA evaluates 4096 rows (16 a thread) and adds its popcount into
+// the count of its 32768-row block (zeroed by the launcher).
+template <int ND, class T>
+__global__ void __launch_bounds__(THREADS)
+    sel_pred_kernel(const __grid_constant__ PredParams p) {
+  __shared__ long long red[THREADS / 32];
+  const long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) *
+                      PRED_ROWS;
+  const long long left = p.n - i;
+  unsigned keep =
+      left >= PRED_ROWS ? 0xFFFFu : left > 0 ? (1u << left) - 1u : 0u;
+  if (keep != 0) {
+    const bool full = p.vec && left >= PRED_ROWS;
+    T st[ND][PRED_ROWS];
+    unsigned sm[ND];
+    int sp = 0;
+    for (int k = 0; k < p.n_ops; ++k) {
+      const int op = p.op[k], arg = p.arg[k], aux = p.aux[k];
+      if (op == OP_COL || op == OP_CONST) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          if (d != sp) continue;
+          if (op == OP_COL) {
+            load_col<T>(p, arg, i, full, st[d], sm[d]);
+          } else {
+#pragma unroll
+            for (int r = 0; r < PRED_ROWS; ++r) st[d][r] = (T)p.cval[arg];
+            sm[d] = p.cnull[arg] ? 0u : 0xFFFFu;
+          }
+        }
+        ++sp;
+      } else if (op == OP_KEEP_I || op == OP_KEEP_R) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          if (d != sp - 1) continue;
+          const unsigned nz = op == OP_KEEP_I
+                                  ? BITS16(as_i(st[d][r]) != 0)
+                                  : BITS16(as_d(st[d][r]) != 0.0);
+          keep &= sm[d] & nz;
+        }
+        --sp;
+      } else if (op >= OP_BINARY && aux) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d == sp - 1)
+            binary<true, T>(op, st[d], sm[d], st[d],
+                            p.cnull[arg] ? 0u : 0xFFFFu, (T)p.cval[arg]);
+      } else if (op >= OP_BINARY) {
+#pragma unroll
+        for (int d = 1; d < ND; ++d)
+          if (d == sp - 1)
+            binary<false, T>(op, st[d - 1], sm[d - 1], st[d], sm[d], (T)0);
+        --sp;
+      } else if (op == OP_IN_I || op == OP_IN_R) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d == sp - 1) in_list<T>(p, op, arg, aux, st[d], sm[d]);
+      } else {
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d == sp - 1) unary<T>(op, st[d], sm[d]);
+      }
+    }
+  }
+  // row 16j in bit 7 of the first byte (np.packbits)
+  const unsigned lo = __brev(keep & 0xFFu) >> 24;
+  const unsigned hi = __brev((keep >> 8) & 0xFFu) >> 24;
+  *reinterpret_cast<unsigned short*>(p.packed + i / 8) =
+      (unsigned short)(lo | (hi << 8));
+  if (p.bools != nullptr)
+    *reinterpret_cast<uint4*>(p.bools + i) =
+        make_uint4(nibble_bytes(keep & 0xFu),
+                   nibble_bytes((keep >> 4) & 0xFu),
+                   nibble_bytes((keep >> 8) & 0xFu),
+                   nibble_bytes(keep >> 12));
+  const long long total = block_sum(__popc(keep), red);
+  if (threadIdx.x == 0 && total != 0) {
+    atomicAdd(&p.block_counts[i / ROWS_PER_BLOCK], (int)total);
+    atomicAdd(p.count, (unsigned long long)total);
   }
 }
 
@@ -210,6 +659,37 @@ int sel_mask_launch(int device, const void* pred, long long n, int vec,
       static_cast<unsigned long long*>(count));
   return cudaGetLastError();
 }
+
+// sel_pred over rows [0, n): `nd` the program's stack depth (at most 4),
+// `wide` 1 when it holds an int64 value (64-bit payloads); the count and
+// the `n_blocks` block counts are zeroed here.  One CTA per 4096 rows.
+int sel_pred_launch(int device, const PredParams* p, int nd, int wide,
+                    long long n_blocks, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(p->count, 0, 8, s)) != cudaSuccess) return e;
+  if ((e = cudaMemsetAsync(p->block_counts, 0, 4 * n_blocks, s)) !=
+      cudaSuccess)
+    return e;
+  const unsigned grid = (unsigned)(n_blocks * PRED_STEPS);
+  // the stack in registers: 1, 2 or 4 entries of 16 rows
+  if (wide && nd <= 1)
+    sel_pred_kernel<1, u64><<<grid, THREADS, 0, s>>>(*p);
+  else if (wide && nd <= 2)
+    sel_pred_kernel<2, u64><<<grid, THREADS, 0, s>>>(*p);
+  else if (wide)
+    sel_pred_kernel<4, u64><<<grid, THREADS, 0, s>>>(*p);
+  else if (nd <= 1)
+    sel_pred_kernel<1, unsigned><<<grid, THREADS, 0, s>>>(*p);
+  else if (nd <= 2)
+    sel_pred_kernel<2, unsigned><<<grid, THREADS, 0, s>>>(*p);
+  else
+    sel_pred_kernel<4, unsigned><<<grid, THREADS, 0, s>>>(*p);
+  return cudaGetLastError();
+}
+
+int sel_pred_params_bytes() { return (int)sizeof(PredParams); }
 
 // `out` (out_bytes) holds the header, the indices and the planes'
 // outputs: zeroed here, then the indices set to -1.

@@ -232,9 +232,9 @@ def _all_valid(n: int, device) -> torch.Tensor:
 
 def agg_fold_plain(specs, cols, n: int, mode: str, key=None, key_ok=None,
                    base: int = 0, capacity: int = 0, slot_ids=None,
-                   mask=None, device="cpu") -> FoldOut:
+                   mask=None, device="cpu", value_bound=None) -> FoldOut:
     """The tiles of ``ops/agg.py`` over rows [0, n), encoded into the
-    fold's buffer."""
+    fold's buffer (``value_bound`` sizes only the kernel's cells)."""
     plan = plan_fold(specs, cols, mode)
     dev = torch.device(device)
     row_mask = mask[:n] if mask is not None else _all_valid(n, dev)
@@ -280,54 +280,109 @@ def agg_fold_plain(specs, cols, n: int, mode: str, key=None, key_ok=None,
 # the route and the launch parameters (pure Python: the CPU tests reach it)
 # ---------------------------------------------------------------------------
 
-def shared_cells(plan: FoldPlan, lanes: Sequence[int]) -> tuple:
+THREADS = 256                 # threads per block (csrc/agg_fold.cu)
+TILE_SHARED = THREADS * 4 * 2  # rows of one shared-route tile
+# rows a block adds into its 32-bit shared cells between two folds into
+# their 64-bit twins: FOLD_ROWS, or SHORT_FOLD_ROWS where that keeps v² in
+# one cell
+FOLD_ROWS = 1 << 15
+SHORT_FOLD_ROWS = 1 << 12
+_INT32_BOUND = 1 << 31        # |v| of any int32
+
+
+def fold_rows(bound: Optional[int]) -> int:
+    """The shared route's fold interval for int32 values |v| <= ``bound``:
+    SHORT_FOLD_ROWS when v² fits one cell over it but not over FOLD_ROWS
+    (a fold is cheaper than a second atomic a row), else FOLD_ROWS."""
+    b = _INT32_BOUND if bound is None else max(int(bound), 0)
+    return SHORT_FOLD_ROWS if FOLD_ROWS * b * b >= 1 << 32 > \
+        SHORT_FOLD_ROWS * b * b else FOLD_ROWS
+
+
+def int_cells(bound: Optional[int]) -> tuple:
+    """(sum cells, v² limbs) of an int32 lane on the shared route whose
+    values satisfy |v| <= ``bound`` (None: unknown, any int32), over
+    ``fold_rows(bound)`` rows.  A sum is one signed cell while rows·bound
+    stays inside int32, else its low 16 bits and the rest; v² is one cell
+    while rows·bound² stays inside uint32, two 16-bit limbs while v² <
+    2^32, else four (the last limb takes the bits above 48, < 2^14).  No
+    cell can wrap within a fold interval (replayed in numpy by the CPU
+    tests)."""
+    b = _INT32_BOUND if bound is None else max(int(bound), 0)
+    rows = fold_rows(bound)
+    n_sum = 1 if rows * b < 1 << 31 else 2
+    n_sq = 1 if rows * b * b < 1 << 32 else 2 if b < 1 << 16 else 4
+    return n_sum, n_sq
+
+
+def shared_cells(plan: FoldPlan, lanes: Sequence[int],
+                 bound: Optional[int] = None) -> tuple:
     """The shared route's cells of a launch over ``lanes`` (plan lane
-    indices): (32-bit cells as (state, lane position) with the row count
-    first, float64 cells likewise).  An integer lane's sum (and its float64
-    sum) is two 32-bit cells, its low 16 bits and the rest."""
-    c32, c64 = [("rows", -1)], []
+    indices) → (32-bit cells as (state, lane position), float64 cells
+    likewise, how many of the 32-bit cells have 64-bit twins).  The cells
+    with twins come first — the row count, then per lane its non-NULL
+    count, an integer lane's sum (``sum`` or ``lo``/``hi``: its float64 sum
+    too) and the limbs of its v² (``sq0``…) — then MIN/MAX images, which
+    need no twin.  Only a REAL lane has float64 cells (its sum and sum of
+    squares)."""
+    n_sum, n_sq = int_cells(bound)
+    wide, tail, c64 = [("rows", -1)], [], []
     for pos, j in enumerate(lanes):
         lane = plan.lanes[j]
         if "nonnull" in lane.rows:
-            c32.append(("nonnull", pos))
-        if not lane.is_float and ("isum" in lane.rows or "fsum" in lane.rows):
-            c32 += [("lo", pos), ("hi", pos)]
-        for st in ("min", "max"):
-            if st in lane.rows:
-                c32.append((st, pos))
-        if lane.is_float and "fsum" in lane.rows:
-            c64.append(("fsum", pos))
-        if "sumsq" in lane.rows:
-            c64.append(("sumsq", pos))
-    return c32, c64
+            wide.append(("nonnull", pos))
+        if lane.is_float:
+            c64 += [(st, pos) for st in ("fsum", "sumsq") if st in lane.rows]
+        else:
+            if "isum" in lane.rows or "fsum" in lane.rows:
+                wide += [("sum", pos)] if n_sum == 1 else \
+                    [("lo", pos), ("hi", pos)]
+            if "sumsq" in lane.rows:
+                wide += [(f"sq{k}", pos) for k in range(n_sq)]
+        tail += [(st, pos) for st in ("min", "max") if st in lane.rows]
+    return wide + tail, c64, len(wide)
 
 
 def lane_groups(plan: FoldPlan) -> list:
-    """The lanes of each launch, at most ``MAX_LANES`` each."""
+    """The lanes of each launch, at most ``MAX_LANES`` each; without GROUP
+    BY the lanes of a launch share one dtype (the registers route's kernel
+    is compiled per dtype)."""
     idx = list(range(len(plan.lanes)))
-    return [idx[i:i + MAX_LANES] for i in range(0, len(idx), MAX_LANES)] \
-        or [[]]
+    if plan.mode == MODE_SIMPLE:
+        idx.sort(key=lambda j: _DTYPES[plan.lanes[j].values.dtype])
+    groups, run = [], []
+    for j in idx:
+        if run and (len(run) == MAX_LANES or (
+                plan.mode == MODE_SIMPLE and plan.lanes[j].values.dtype !=
+                plan.lanes[run[0]].values.dtype)):
+            groups.append(run)
+            run = []
+        run.append(j)
+    return groups + [run] if run else groups or [[]]
 
 
-def shared_bytes(plan: FoldPlan, n_slots: int) -> int:
-    """Dynamic shared memory of the shared route's largest launch."""
+def shared_bytes(plan: FoldPlan, n_slots: int,
+                 bound: Optional[int] = None) -> int:
+    """Dynamic shared memory of the shared route's largest launch: 8 bytes
+    per twin and float64 cell, 4 per 32-bit cell, per slot."""
     most = 0
     for g in lane_groups(plan):
-        c32, c64 = shared_cells(plan, g)
-        most = max(most, n_slots * (4 * len(c32) + 8 * len(c64)))
+        c32, c64, n_wide = shared_cells(plan, g, bound)
+        most = max(most, n_slots * (4 * len(c32) + 8 * (n_wide + len(c64))))
     return most
 
 
-def choose_route(plan: FoldPlan, n_slots: int, smem_limit: int) -> str:
+def choose_route(plan: FoldPlan, n_slots: int, smem_limit: int,
+                 bound: Optional[int] = None) -> str:
     """``registers`` without GROUP BY; ``shared`` when every lane is 4
     bytes wide and the table fits ``smem_limit`` bytes; else ``global``."""
     if plan.mode == MODE_SIMPLE:
         return ROUTE_REGISTERS
     narrow = all(ln.values.element_size() == 4 for ln in plan.lanes)
-    fits = all(len(shared_cells(plan, g)[0]) <= MAX_CELLS
+    fits = all(len(shared_cells(plan, g, bound)[0]) <= MAX_CELLS
                for g in lane_groups(plan))
     return ROUTE_SHARED if narrow and fits and \
-        shared_bytes(plan, n_slots) <= smem_limit else ROUTE_GLOBAL
+        shared_bytes(plan, n_slots, bound) <= smem_limit else ROUTE_GLOBAL
 
 
 class _Params(ctypes.Structure):
@@ -338,14 +393,18 @@ class _Params(ctypes.Structure):
     _fields_ = [
         ("key", _p), ("key_ok", _p), ("mask", _p),
         ("n", ctypes.c_longlong), ("base", ctypes.c_longlong), ("out", _p),
+        ("ticket", _p),
         ("mode", _i), ("key64", _i), ("capacity", _i), ("n_slots", _i),
-        ("n_lanes", _i), ("n_rows", _i), ("n32", _i), ("n64", _i),
+        ("n_lanes", _i), ("n_rows", _i), ("vec", _i), ("n32", _i),
+        ("n_wide", _i), ("n64", _i), ("fold_every", _i),
+        ("signed_cells", ctypes.c_ulonglong),
         ("values", _p * MAX_LANES), ("ok", _p * MAX_LANES),
         ("dtype", _L), ("o_rows", _i),
         ("o_nonnull", _L), ("o_isum", _L), ("o_fsum", _L), ("o_sumsq", _L),
         ("o_min", _L), ("o_max", _L), ("o_first", _L), ("o_firstval", _L),
-        ("c_nonnull", _L), ("c_lo", _L), ("c_hi", _L), ("c_min", _L),
-        ("c_max", _L), ("d_fsum", _L), ("d_sumsq", _L),
+        ("c_nonnull", _L), ("c_sum", _L), ("n_sum", _L), ("c_sq", _L),
+        ("n_sq", _L), ("c_min", _L), ("c_max", _L), ("d_fsum", _L),
+        ("d_sumsq", _L),
         ("init32", _i * MAX_CELLS), ("init", ctypes.c_longlong * MAX_ROWS)]
 
 
@@ -354,17 +413,22 @@ _INIT32 = {"min": _I32_MAX, "max": _I32_MIN}
 
 def launch_params(plan: FoldPlan, n: int, n_slots: int, lanes, key_p,
                   key64: bool, key_ok_p, mask_p, base: int, capacity: int,
-                  out_p, first_group: bool) -> _Params:
+                  out_p, first_group: bool, bound: Optional[int] = None,
+                  vec: bool = False, ticket_p=None) -> _Params:
     """One launch's ``_Params`` over ``lanes`` (plan lane indices)."""
     p = _Params(key=key_p, key_ok=key_ok_p, mask=mask_p, n=n, base=base,
-                out=out_p, mode=_MODE_CODE[plan.mode], key64=int(key64),
-                capacity=capacity, n_slots=n_slots, n_lanes=len(lanes),
-                n_rows=len(plan.rows), o_rows=0 if first_group else -1)
+                out=out_p, ticket=ticket_p, mode=_MODE_CODE[plan.mode],
+                key64=int(key64), capacity=capacity, n_slots=n_slots,
+                n_lanes=len(lanes), n_rows=len(plan.rows), vec=int(vec),
+                fold_every=fold_rows(bound) // TILE_SHARED,
+                o_rows=0 if first_group else -1)
     arrays = ("o_nonnull", "o_isum", "o_fsum", "o_sumsq", "o_min", "o_max",
-              "o_first", "o_firstval", "c_nonnull", "c_lo", "c_hi", "c_min",
-              "c_max", "d_fsum", "d_sumsq")
+              "o_first", "o_firstval", "c_nonnull", "c_sum", "c_sq",
+              "c_min", "c_max", "d_fsum", "d_sumsq")
     for name in arrays:
         getattr(p, name)[:] = [-1] * MAX_LANES
+    p.n_sum[:] = [0] * MAX_LANES
+    p.n_sq[:] = [0] * MAX_LANES
     for pos, j in enumerate(lanes):
         lane = plan.lanes[j]
         p.values[pos] = lane.values.data_ptr()
@@ -372,16 +436,33 @@ def launch_params(plan: FoldPlan, n: int, n_slots: int, lanes, key_p,
         p.dtype[pos] = _DTYPES[lane.values.dtype]
         for state, r in lane.rows.items():
             getattr(p, "o_" + state)[pos] = r
-    c32, c64 = shared_cells(plan, lanes)
+    c32, c64, p.n_wide = shared_cells(plan, lanes, bound)
     p.n32, p.n64 = len(c32), len(c64)
+    signed = 0
     for c, (state, pos) in enumerate(c32):
-        if pos >= 0:
-            getattr(p, "c_" + state)[pos] = c
         p.init32[c] = _INIT32.get(state, 0)
+        if state in ("sum", "hi"):
+            signed |= 1 << c
+        if state in ("sum", "lo"):
+            p.c_sum[pos], p.n_sum[pos] = c, 1 if state == "sum" else 2
+        elif state == "sq0":
+            p.c_sq[pos] = c
+            p.n_sq[pos] = sum(1 for st, q in c32
+                              if q == pos and st.startswith("sq"))
+        elif state in ("nonnull", "min", "max"):
+            getattr(p, "c_" + state)[pos] = c
+    p.signed_cells = signed
     for c, (state, pos) in enumerate(c64):
         getattr(p, "d_" + state)[pos] = c
     p.init[:len(plan.rows)] = init_values(plan)
     return p
+
+
+def aligned(tensors) -> bool:
+    """Every plane on the boundary of the kernel's 4-row loads at row 0:
+    16 bytes for 4- and 8-byte planes, 4 for bool planes."""
+    return all(t.data_ptr() % (4 if t.element_size() == 1 else 16) == 0
+               for t in tensors if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -405,6 +486,10 @@ def _kernel_lib():
         lib.agg_fold_smem_limit.restype = i
         lib.agg_fold_error_string.argtypes = [i]
         lib.agg_fold_error_string.restype = ctypes.c_char_p
+        lib.agg_fold_params_bytes.restype = i
+        if lib.agg_fold_params_bytes() != ctypes.sizeof(_Params):
+            raise RuntimeError("agg_fold: the kernel's parameter layout "
+                               "differs from the wrapper's")
         _lib = lib
     return _lib
 
@@ -423,10 +508,11 @@ def smem_limit(device: torch.device) -> int:
     return limit
 
 
-def route(specs, cols, mode: str, n_slots: int, device) -> str:
+def route(specs, cols, mode: str, n_slots: int, device,
+          value_bound: Optional[int] = None) -> str:
     """The route the kernel takes for these arguments on ``device``."""
     return choose_route(plan_fold(specs, cols, mode), n_slots,
-                        smem_limit(torch.device(device)))
+                        smem_limit(torch.device(device)), value_bound)
 
 
 def _flat(t, name, n, device, dtypes):
@@ -445,7 +531,7 @@ def _flat(t, name, n, device, dtypes):
 
 
 def _agg_fold_cuda(specs, cols, n, mode, key, key_ok, base, capacity,
-                   slot_ids, mask, device):
+                   slot_ids, mask, device, value_bound):
     global launches
     lib = _kernel_lib()
     index = device.index if device.index is not None \
@@ -465,25 +551,32 @@ def _agg_fold_cuda(specs, cols, n, mode, key, key_ok, base, capacity,
         key = None
     if mode != MODE_SIMPLE and key is None:
         raise ValueError(f"{mode} mode needs a key")
+    if mode != MODE_DENSE:
+        key_ok = None
     plan = plan_fold(specs, cols, mode)
     n_slots = 1 if mode == MODE_SIMPLE else capacity + 2
-    chosen = choose_route(plan, n_slots, smem_limit(device))
-    buf = torch.empty(1 + len(plan.rows) * n_slots, dtype=torch.int64,
-                      device=device)
+    chosen = choose_route(plan, n_slots, smem_limit(device), value_bound)
+    words = 1 + len(plan.rows) * n_slots
+    # the buffer, then the registers route's ticket (a word past the end)
+    full = torch.empty(words + 1, dtype=torch.int64, device=device)
+    buf = full[:words]
+    vec = aligned([key, key_ok, mask] + [t for ln in plan.lanes
+                                         for t in (ln.values, ln.ok)])
     groups = lane_groups(plan)
     params = (_Params * len(groups))(*[
         launch_params(plan, n, n_slots, g,
                       None if key is None else key.data_ptr(),
                       key is not None and key.dtype == torch.int64,
-                      None if key_ok is None or mode != MODE_DENSE
-                      else key_ok.data_ptr(),
+                      None if key_ok is None else key_ok.data_ptr(),
                       None if mask is None else mask.data_ptr(), base,
-                      capacity, buf.data_ptr(), gi == 0)
+                      capacity, buf.data_ptr(), gi == 0, value_bound, vec,
+                      full.data_ptr() + 8 * words)
         for gi, g in enumerate(groups)])
     launched = ctypes.c_int(0)
     err = lib.agg_fold_launch(
         index, params, len(groups), _ROUTE_CODE[chosen],
-        shared_bytes(plan, n_slots) if chosen == ROUTE_SHARED else 0,
+        shared_bytes(plan, n_slots, value_bound)
+        if chosen == ROUTE_SHARED else 0,
         torch.cuda.current_stream(device).cuda_stream,
         ctypes.byref(launched))
     launches += launched.value
@@ -496,7 +589,8 @@ def _agg_fold_cuda(specs, cols, n, mode, key, key_ok, base, capacity,
 
 def agg_fold(specs: Sequence[AggSpec], cols: Sequence, n: int, mode: str,
              key=None, key_ok=None, base: int = 0, capacity: int = 0,
-             slot_ids=None, mask=None, device=None) -> FoldOut:
+             slot_ids=None, mask=None, device=None,
+             value_bound: Optional[int] = None) -> FoldOut:
     """Fold rows [0, n) into per-slot states.
 
     ``cols``: per aggregate its (values, validity | None) — int32, int64,
@@ -505,11 +599,16 @@ def agg_fold(specs: Sequence[AggSpec], cols: Sequence, n: int, mode: str,
     None, ``base``, ``capacity``: slots ``capacity + 2``) or ``sparse``
     (``slot_ids`` int32 with the NULL slot filled in).  ``mask``: the
     selection or None.  ``device``: where the tensors are (the first
-    tensor's device when None)."""
+    tensor's device when None).  ``value_bound``: a bound on |v| of every
+    int32 argument over rows [0, n) — the shared route sizes its cells by
+    it (``int_cells``) — or None (any int32); a value past it is a
+    caller's fault that the kernel does not detect."""
     if mode not in _MODE_CODE or n < 0 or \
             (mode != MODE_SIMPLE and not 0 < capacity < 1 << 30):
         raise ValueError(f"agg_fold: mode={mode!r} n={n} "
                          f"capacity={capacity}")
+    if value_bound is not None and value_bound < 0:
+        raise ValueError(f"agg_fold: value_bound={value_bound}")
     if device is None:
         anchor = next((t for t in [key, slot_ids, mask] + [
             c[0] for c in cols if c is not None] if t is not None), None)
@@ -521,4 +620,4 @@ def agg_fold(specs: Sequence[AggSpec], cols: Sequence, n: int, mode: str,
     if device.type != "cuda":
         raise ValueError(f"agg_fold runs on cuda or cpu, not {device}")
     return _agg_fold_cuda(specs, cols, n, mode, key, key_ok, base,
-                          capacity, slot_ids, mask, device)
+                          capacity, slot_ids, mask, device, value_bound)

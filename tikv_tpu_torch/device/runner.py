@@ -20,10 +20,13 @@ It runs as:
   except a REAL column that a TopN orders by, which also gets a float64
   plane, so the order is exact (ROADMAP queue 3 fault 6 stays open for
   predicates and MIN/MAX);
-- the selection predicates and any computed key/argument/order
-  expressions are evaluated by ``eval_rpn`` over torch tensors on the
-  device; INT arithmetic evaluates in int64 unless the columns' bounds
-  prove it exact in int32 (``narrow_int32``, fault 5's repair);
+- the selection predicates are evaluated inside one kernel pass
+  (``selection.sel_pred``, the CUDA kernel ``csrc/selection.cu``, over an
+  encoded program) when every signature is one it covers — decided once
+  per plan at analysis — else, like any computed key/argument/order
+  expression, by ``eval_rpn`` over torch tensors on the device; INT
+  arithmetic evaluates in int64 unless the columns' bounds prove it exact
+  in int32 (``narrow_int32``, fault 5's repair), on either route;
 - aggregations fold the rows into per-slot states by the first route that
   takes the plan and its data, in the reference's order
   (``_run_simple``/``_run_hash``):
@@ -44,9 +47,10 @@ It runs as:
   GROUP BY keys index their slots directly while the key span is at most
   ``MAX_HASH_CAPACITY``; wider spans are dictionary-encoded on the host
   once per snapshot (``_sparse_slots``);
-- a selection packs and counts its mask (``selection.sel_mask``, the CUDA
-  kernel ``csrc/selection.cu``) and ships the mask, the selected row
-  indices or the selected rows themselves (``selection.sel_compact``),
+- a selection packs and counts its mask (in ``sel_pred``'s pass, or by
+  ``selection.sel_mask`` after the torch route) and ships the mask, the
+  selected row indices or the selected rows themselves
+  (``selection.sel_compact``),
   routed by a per-plan selectivity EWMA (``_run_scan_sel``);
 - a TopN takes the top rows on the device (``topn.topn_select``, the CUDA
   kernel ``csrc/topn.cu``: a histogram of one digit placed by the order
@@ -92,6 +96,8 @@ from .agg_fold import agg_fold
 from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
+# the selection's routes (``_Plan.sel_route``, counted in ``pred_routes``)
+PRED_KERNEL, PRED_TORCH = "sel_pred", "torch"
 # the reference's device aggregate set (runner.py:1401-1407)
 _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
                 "var_pop", "var_samp", "stddev_pop", "stddev_samp")
@@ -199,6 +205,11 @@ class _Plan:
     compact_ok: bool = False         # scan_sel: every scan column shipped
     sel_params: Optional[tuple] = None   # selection.split_params, lazily
     sel_stat_key: Optional[tuple] = None
+    # how the selection is evaluated, chosen at analysis: PRED_KERNEL
+    # (sel_pred) or PRED_TORCH (eval_rpn, then sel_mask); the encoded
+    # program per tuple of plane dtypes, lazily
+    sel_route: str = ""
+    sel_programs: dict = field(default_factory=dict)
 
 
 def _scan_key(scan) -> tuple:
@@ -233,6 +244,8 @@ class DeviceRunner:
         # (LRU), and the selection routes taken, by name
         self._sel_stats: OrderedDict = OrderedDict()
         self.sel_routes: dict = {}
+        # the predicate route of each request that evaluated a selection
+        self.pred_routes: dict = {}
         # hoisted predicate constants as 0-d device tensors, FIFO-bounded
         self._params: dict = {}
 
@@ -348,6 +361,9 @@ class DeviceRunner:
         plan.f64_cols = f64
         mapping = {old: new for new, old in enumerate(plan.used_cols)}
         plan.sel_rpns = [_remap_rpn(r, mapping) for r in sel_rpns]
+        if plan.sel_rpns:
+            plan.sel_route = PRED_TORCH if sm.pred_covered(plan.sel_rpns) \
+                else PRED_KERNEL
         plan.agg_rpns = [None if r is None else _remap_rpn(r, mapping)
                          for r in plan.agg_rpns]
         if plan.key_rpn is not None:
@@ -491,9 +507,13 @@ class DeviceRunner:
             if "arg_nbytes" not in meta:
                 meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols,
                                                       dtypes)
+            if "fold_bound" not in meta:
+                meta["fold_bound"] = self._fold_bound(plan, host_cols,
+                                                      dtypes)
             arg_nbytes = meta["arg_nbytes"]
             if plan.kind == "simple_agg":
-                result = self._run_simple(plan, feed, dtypes, n, arg_nbytes)
+                result = self._run_simple(plan, feed, dtypes, n, arg_nbytes,
+                                          meta["fold_bound"])
             else:
                 result = self._run_hash(plan, host_cols, feed, dtypes, n,
                                         meta, arg_nbytes)
@@ -519,7 +539,7 @@ class DeviceRunner:
             return None if r is None else narrow_int32(r, bounds)
 
         return dataclasses.replace(
-            plan, sel_params=None,
+            plan, sel_params=None, sel_programs={},
             sel_rpns=[narrow(r) for r in plan.sel_rpns],
             agg_rpns=[narrow(r) for r in plan.agg_rpns],
             key_rpn=narrow(plan.key_rpn), order_rpn=narrow(plan.order_rpn))
@@ -565,6 +585,25 @@ class DeviceRunner:
         return tuple(out)
 
     @staticmethod
+    def _fold_bound(plan, host_cols, dtypes) -> Optional[int]:
+        """The largest |v| of this snapshot's int32 aggregate arguments —
+        how ``agg_fold``'s shared route sizes its cells — or None when an
+        int32 argument is computed (its values are not known here)."""
+        bound = 0
+        for r in plan.agg_rpns:
+            if r is None or r.ret_type is not EvalType.INT:
+                continue
+            ci = _bare_col(r)
+            if ci is None:
+                return None
+            if dtypes[ci] != "int32":
+                continue        # the shared route reads no int64 lane
+            v = host_cols()[ci][0]
+            if v.size:
+                bound = max(bound, abs(int(v.min())), abs(int(v.max())))
+        return bound
+
+    @staticmethod
     def _fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes) -> bool:
         """The ``hash_agg`` kernel's gate: COUNT/SUM/AVG only, its data
         gate (``hash_agg.supported``), and SUM/AVG arguments that
@@ -581,15 +620,37 @@ class DeviceRunner:
 
     def _inputs(self, plan, feed, n):
         """(per-column (value, validity) pairs over rows [0, n), the
-        selection mask or None when there is no selection).  The
-        selection's numeric constants are hoisted (``split_params``) into
-        0-d device tensors cached across requests, so a request copies
-        nothing to the device."""
+        selection's bool mask or None when there is no selection)."""
         true = torch.ones((), dtype=torch.bool, device=self.device)
         pairs = [(v[:n], true if ok is None else ok[:n])
                  for v, ok in self._planes(feed)]
         if not plan.sel_rpns:
             return pairs, None
+        return pairs, self._selection(plan, feed, n, True)[1]
+
+    def _selection(self, plan, feed, n, bools: bool) -> tuple:
+        """The selection over rows [0, n) by the plan's route → (its
+        ``MaskOut`` — count, packed mask, block counts — or None where the
+        torch route was asked for the bool mask; the bool mask when
+        ``bools``, else None).
+
+        ``PRED_KERNEL``: ``sel_pred`` evaluates the encoded predicate over
+        the feed's planes in one pass (the bool mask only when asked for).
+        ``PRED_TORCH`` (a signature ``sel_pred`` does not cover):
+        ``eval_rpn`` over torch tensors, the numeric constants hoisted
+        (``split_params``) into 0-d device tensors cached across requests,
+        then ``sel_mask`` for the count and packed mask."""
+        self._note_route(plan.sel_route, self.pred_routes)
+        planes = self._planes(feed)
+        if plan.sel_route == PRED_KERNEL:
+            dtypes = tuple(v.dtype for v, _ok in planes)
+            prog = plan.sel_programs.get(dtypes)
+            if prog is None:
+                prog = plan.sel_programs[dtypes] = sm.encode_predicate(
+                    plan.sel_rpns, dtypes)
+            return sm.sel_pred(prog, planes, n, bools)
+        true = torch.ones((), dtype=torch.bool, device=self.device)
+        pairs = [(v[:n], true if ok is None else ok[:n]) for v, ok in planes]
         if plan.sel_params is None:
             plan.sel_params = sm.split_params(plan.sel_rpns, len(pairs))
         rpns, values, dts = plan.sel_params
@@ -600,7 +661,8 @@ class DeviceRunner:
             v, ok = eval_rpn(rpn, cols, n, torch, self.device)
             m = ok & (v != 0)
             mask = m if mask is None else mask & m
-        return pairs, mask.contiguous()
+        mask = mask.contiguous()
+        return (None, mask) if bools else (sm.sel_mask(mask, n), None)
 
     # ------------------------------------------- route 1: hash_agg kernel
 
@@ -673,7 +735,8 @@ class DeviceRunner:
             cols.append(Column.from_list(ft.eval_type, [val]))
         return SelectResult(ColumnBatch(schema, cols))
 
-    def _run_simple(self, plan, feed, dtypes, n, arg_nbytes) -> SelectResult:
+    def _run_simple(self, plan, feed, dtypes, n, arg_nbytes,
+                    fold_bound=None) -> SelectResult:
         if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
             _present, states = self._aggregate(plan, feed, n, ha.MODE_SIMPLE,
                                                0, 1, 1, 1,
@@ -683,7 +746,8 @@ class DeviceRunner:
         # the simple body (runner.py:2668): the agg_fold kernel
         pairs, mask = self._inputs(plan, feed, n)
         out = agg_fold(plan.specs, self._fold_cols(plan, feed, pairs, n), n,
-                       af.MODE_SIMPLE, mask=mask, device=self.device)
+                       af.MODE_SIMPLE, mask=mask, device=self.device,
+                       value_bound=fold_bound)
         _present, _overflow, states = out.host()
         merged = [{k: v[0] for k, v in s.items()} for s in states]
         return self._simple_result(plan, merged)
@@ -776,7 +840,8 @@ class DeviceRunner:
                 plan, feed, n, base, capacity, slot_ids, layouts, p8, pf)
         else:
             present, states = self._run_scatter(plan, feed, n, base,
-                                                capacity, slot_ids)
+                                                capacity, slot_ids,
+                                                meta["fold_bound"])
         return self._hash_result(plan, {"present": present,
                                         "states": states},
                                  base, capacity, slot_keys)
@@ -822,7 +887,8 @@ class DeviceRunner:
 
     # -- route 3: the scatter body (runner.py:2701)
 
-    def _run_scatter(self, plan, feed, n, base, capacity, slot_ids):
+    def _run_scatter(self, plan, feed, n, base, capacity, slot_ids,
+                     fold_bound=None):
         """The scatter body: one ``agg_fold`` pass over the key (or slot
         ids), the selection and each distinct argument, one D2H copy."""
         pairs, mask = self._inputs(plan, feed, n)
@@ -830,12 +896,13 @@ class DeviceRunner:
         if slot_ids is not None:
             out = agg_fold(plan.specs, cols, n, af.MODE_SPARSE,
                            capacity=capacity, slot_ids=slot_ids, mask=mask,
-                           device=self.device)
+                           device=self.device, value_bound=fold_bound)
         else:
             key, key_ok = self._key(plan, feed, pairs, n)
             out = agg_fold(plan.specs, cols, n, af.MODE_DENSE, key=key,
                            key_ok=key_ok, base=base, capacity=capacity,
-                           mask=mask, device=self.device)
+                           mask=mask, device=self.device,
+                           value_bound=fold_bound)
         present, overflow, states = out.host()
         self._check_overflow(overflow)
         return present, states
@@ -910,8 +977,10 @@ class DeviceRunner:
                 return st["ewma"]
         return None
 
-    def _note_route(self, route: str) -> None:
-        self.sel_routes[route] = self.sel_routes.get(route, 0) + 1
+    def _note_route(self, route: str, table: Optional[dict] = None) -> None:
+        """Count ``route`` in ``table`` (the scan_sel routes by default)."""
+        table = self.sel_routes if table is None else table
+        table[route] = table.get(route, 0) + 1
 
     def _param(self, value, dtype: str) -> torch.Tensor:
         """A hoisted constant as a cached 0-d device tensor."""
@@ -925,13 +994,14 @@ class DeviceRunner:
         return t
 
     def _run_scan_sel(self, dag, plan, feed, n, get_batch, storage):
-        """Selection with no terminal (runner.py:4186): one ``sel_mask``
-        pass counts and packs the predicate mask, then the route the
+        """Selection with no terminal (runner.py:4186): one pass counts and
+        packs the predicate mask (``_selection``: ``sel_pred``, or torch
+        and ``sel_mask``; no bool mask is written), then the route the
         selectivity EWMA predicts ships the packed mask, the row indices
         or the rows themselves.  A cold plan takes the mask route; its
         count seeds the EWMA.  An index or compact capacity that proves
         too small falls back to the packed mask, still on the device."""
-        mout = sm.sel_mask(self._inputs(plan, feed, n)[1], n)
+        mout = self._selection(plan, feed, n, False)[0]
         keys = self._sel_keys(dag, plan)
         pred = self._sel_predict(keys)
         route, cap = sm.ROUTE_MASK, 0

@@ -36,10 +36,11 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..datatype import device_const_dtype
-from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression
+from ..datatype import EvalType, device_const_dtype
+from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
 
 ROUTE_MASK = "mask"
 ROUTE_INDEX = "index"
@@ -57,6 +58,7 @@ MAX_PLANES = 128
 HEADER = 16
 
 # kernel launches since import (the chip smoke resets them around a run)
+pred_launches = 0
 mask_launches = 0
 compact_launches = 0
 
@@ -140,6 +142,228 @@ def index_capacity(k_hint: float, n_local: int) -> int:
     the row count's pow2."""
     need = max(64, int(math.ceil(k_hint)))
     return min(_next_pow2(need), max(64, _next_pow2(n_local)))
+
+
+# ---------------------------------------------------------------------------
+# the predicate program of sel_pred
+# ---------------------------------------------------------------------------
+
+# opcodes of csrc/selection.cu (enum OP_*).  A binary op with aux 1 takes
+# constant `arg` as its right operand; an IN op the constants [arg, arg +
+# aux).
+OP_COL, OP_CONST, OP_BINARY = 0, 1, 16
+OP_NEG = {"int32": 2, "int64": 3, "float32": 4}
+_UNARY_OPS = {"UnaryNotInt": 5, "UnaryNotReal": 6, "IsNullInt": 7,
+              "IsNullReal": 7, "IntIsTrue": 8, "RealIsTrue": 9,
+              "IntIsFalse": 10, "RealIsFalse": 11}
+OP_IN = {"I": 12, "R": 13}
+_ARITH_OPS = {"Plus": 16, "Minus": 19, "Multiply": 22}
+_ARITH_DT = {"int32": 0, "int64": 1, "float32": 2}
+_CMP_OPS = {"Gt": 25, "Ge": 26, "Lt": 27, "Le": 28, "Eq": 29, "Ne": 30}
+OP_NULLEQ = {"I": 37, "R": 38}
+_LOGIC_OPS = {"LogicalAnd": 39, "LogicalOr": 40, "LogicalXor": 41}
+OP_KEEP = {"I": 48, "R": 49}
+
+# the program's limits (csrc/selection.cu PRED_MAX_*, and the stack depth
+# of its largest instance)
+PRED_MAX_COLS = 16
+PRED_MAX_OPS = 32
+PRED_MAX_CONSTS = 32
+PRED_MAX_DEPTH = 4
+PRED_MAX_IN = 16
+
+# the signatures sel_pred evaluates: every other one keeps the torch route
+PRED_SIGS = frozenset(
+    [s + t for s in ("Plus", "Minus", "Multiply", "UnaryMinus", "Gt", "Ge",
+                     "Lt", "Le", "Eq", "Ne", "NullEq", "In")
+     for t in ("Int", "Real")] + list(_UNARY_OPS) + list(_LOGIC_OPS))
+
+_CAT = {EvalType.INT: "I", EvalType.REAL: "R"}
+_PLANE_CAT = {"int32": "I", "int64": "I", "float32": "R"}
+
+
+class Uncovered(ValueError):
+    """A selection sel_pred does not evaluate (the torch route's)."""
+
+
+@dataclass(frozen=True)
+class PredProgram:
+    """An encoded selection: ``ops`` (opcode, arg, aux) over the stack;
+    ``consts`` (int64 payload — the value, or a float's float64 bits —,
+    NULL flag, REAL flag); ``cols`` the feed plane of each column the ops
+    name; ``depth`` the deepest stack it reaches; ``wide`` whether it holds
+    an int64 value (the kernel's 64-bit payloads; else 32-bit)."""
+
+    ops: tuple
+    consts: tuple
+    cols: tuple
+    depth: int
+    wide: bool
+
+
+@dataclass
+class _Entry:
+    cat: str                 # "I" | "R"
+    dt: str                  # int32 | int64 | float32
+    const: int = -1          # its constant's index while it is one
+    at: int = -1             # index of its OP_CONST in the ops
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def _const(node: RpnConst) -> tuple:
+    """(category, dtype, payload, NULL) of a constant as the torch route
+    makes it (``eval._const_pair``): int32 unless it needs int64, float32
+    for a float, a NULL as 0 of its eval type's dtype."""
+    v = node.value
+    if v is None:
+        if node.eval_type not in _CAT:
+            raise Uncovered(f"NULL of {node.eval_type}")
+        real = node.eval_type is EvalType.REAL
+        return ("R" if real else "I", "float32" if real else "int32", 0,
+                True)
+    if isinstance(v, float):
+        bits = int(np.array([np.float32(v)], np.float64).view(np.int64)[0])
+        return "R", "float32", bits, False
+    if isinstance(v, int) and -(1 << 63) <= int(v) < 1 << 63:
+        return "I", device_const_dtype(int(v)), int(v), False
+    raise Uncovered(f"constant {v!r}")
+
+
+def encode_predicate(sel_rpns: Sequence[RpnExpression],
+                     dtypes: Optional[Sequence] = None) -> PredProgram:
+    """Compile the selection RPNs (over the feed's planes) into one
+    ``sel_pred`` program: a row is kept when ``valid & (v != 0)`` holds for
+    every RPN.  ``dtypes``: each feed plane's dtype (int32, int64 or
+    float32); None types every INT column int32 — the structure alone,
+    which decides coverage once per plan.
+
+    Types follow the torch route (``eval_rpn``): INT arithmetic is int64
+    where ``RpnFnMeta.int64`` (``narrow_int32`` clears it), else the
+    widest integer operand's dtype; REAL is float32.  A constant that is
+    a call's right operand rides in the op (``aux`` 1); IN takes constant
+    lists only.  Raises ``Uncovered`` for a signature outside
+    ``PRED_SIGS``, an operand of the wrong type, a non-constant IN list, a
+    program that reads no column or one past the limits."""
+    ops: list = []
+    consts: list = []
+    cols: list = []
+    wide = False
+    for rpn in sel_rpns:
+        stack: list = []
+        for node in rpn.nodes:
+            if isinstance(node, RpnConst):
+                cat, dt, payload, null = _const(node)
+                wide |= dt == "int64"
+                consts.append((payload, null, cat == "R"))
+                ops.append((OP_CONST, len(consts) - 1, 0))
+                stack.append(_Entry(cat, dt, len(consts) - 1, len(ops) - 1))
+                continue
+            if isinstance(node, RpnColumnRef):
+                ci = node.col_idx
+                dt = _dtype_name(dtypes[ci]) if dtypes is not None else \
+                    "float32" if node.eval_type is EvalType.REAL else "int32"
+                if dt not in _PLANE_CAT:
+                    raise Uncovered(f"a {dt} plane")
+                wide |= dt == "int64"
+                if ci not in cols:
+                    cols.append(ci)
+                ops.append((OP_COL, cols.index(ci), 0))
+                stack.append(_Entry(_PLANE_CAT[dt], dt))
+                continue
+            if not isinstance(node, RpnFnCall):     # pragma: no cover
+                raise Uncovered(repr(node))
+            meta, k = node.meta, node.n_args
+            if meta.name not in PRED_SIGS:
+                raise Uncovered(f"function {meta.name}")
+            args = stack[len(stack) - k:]
+            del stack[len(stack) - k:]
+            want = [meta.args[0]] * k if meta.arity is None else \
+                list(meta.args)
+            if [a.cat for a in args] != [_CAT.get(t) for t in want]:
+                raise Uncovered(f"{meta.name} over "
+                                f"{[a.dt for a in args]}")
+            stack.append(_call(meta, args, ops, consts))
+            wide |= stack[-1].dt == "int64"
+        if len(stack) != 1:                          # pragma: no cover
+            raise Uncovered(f"malformed RPN: stack depth {len(stack)}")
+        ops.append((OP_KEEP[stack[0].cat], 0, 0))
+    depth = most = 0
+    for op, _arg, aux in ops:
+        if op in (OP_COL, OP_CONST):
+            depth += 1
+        elif op in OP_KEEP.values() or (op >= OP_BINARY and not aux):
+            depth -= 1
+        most = max(most, depth)
+    if not cols:
+        raise Uncovered("a predicate over constants only")
+    if len(ops) > PRED_MAX_OPS or len(consts) > PRED_MAX_CONSTS or \
+            len(cols) > PRED_MAX_COLS or most > PRED_MAX_DEPTH:
+        raise Uncovered(f"{len(ops)} ops, {len(consts)} constants, "
+                        f"{len(cols)} columns, depth {most}")
+    return PredProgram(tuple(ops), tuple(consts), tuple(cols), most, wide)
+
+
+def _call(meta, args, ops, consts) -> _Entry:
+    """Emit one call's op; → the entry it leaves on the stack."""
+    name = meta.name
+    stem = name[:-4] if name.endswith("Real") else name[:-3] \
+        if name.endswith("Int") else name
+    if name in _UNARY_OPS:
+        ops.append((_UNARY_OPS[name], 0, 0))
+        return _Entry("I", "int32")
+    if stem == "UnaryMinus":
+        a = args[0]
+        dt = "float32" if a.cat == "R" else "int64" if meta.int64 else a.dt
+        ops.append((OP_NEG[dt], 0, 0))
+        return _Entry(a.cat, dt)
+    if stem == "In":
+        items = args[1:]
+        ats = [e.at for e in items]
+        if any(e.const < 0 for e in items) or \
+                ats != list(range(len(ops) - len(items), len(ops))):
+            raise Uncovered("IN over a non-constant list")
+        if len(items) > PRED_MAX_IN:
+            raise Uncovered(f"IN over {len(items)} values")
+        del ops[len(ops) - len(items):]
+        ops.append((OP_IN[args[0].cat], items[0].const if items else 0,
+                    len(items)))
+        return _Entry("I", "int32")
+    a, b = args
+    if stem in _ARITH_OPS:
+        if a.cat == "R":
+            dt = "float32"
+        elif meta.int64:
+            dt = "int64"
+        else:
+            dt = "int64" if "int64" in (a.dt, b.dt) else "int32"
+        op, out = _ARITH_OPS[stem] + _ARITH_DT[dt], _Entry(a.cat, dt)
+    elif stem in _CMP_OPS:
+        op, out = _CMP_OPS[stem] + (6 if a.cat == "R" else 0), \
+            _Entry("I", "int32")
+    elif stem == "NullEq":
+        op, out = OP_NULLEQ[a.cat], _Entry("I", "int32")
+    else:
+        op, out = _LOGIC_OPS[name], _Entry("I", "int32")
+    if b.const >= 0 and b.at == len(ops) - 1:
+        ops.pop()                    # the constant rides in the op
+        ops.append((op, b.const, 1))
+    else:
+        ops.append((op, 0, 0))
+    return out
+
+
+def pred_covered(sel_rpns: Sequence[RpnExpression]) -> str:
+    """"" when ``sel_pred`` evaluates these selection RPNs, else why not
+    (decided on the structure: every plane dtype the port makes for the
+    columns is covered)."""
+    try:
+        encode_predicate(sel_rpns)
+    except Uncovered as e:
+        return str(e)
+    return ""
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +473,133 @@ def sel_mask_plain(pred: torch.Tensor, n: int) -> MaskOut:
     return MaskOut(buf, block_counts, n)
 
 
+def _as_d(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.float64)
+
+
+def _of_d(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float64).view(torch.int64)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32, sign-extended back."""
+    return x.to(torch.int32).to(torch.int64)
+
+
+def _f32(fn):
+    return lambda a, b: _of_d(fn(_as_d(a).to(torch.float32),
+                                 _as_d(b).to(torch.float32)))
+
+
+# binary ops of the program over int64 payloads (floats by their bits)
+_BINARY = {
+    16: lambda a, b: _i32(a + b), 17: lambda a, b: a + b,
+    18: _f32(torch.add), 19: lambda a, b: _i32(a - b),
+    20: lambda a, b: a - b, 21: _f32(torch.sub),
+    22: lambda a, b: _i32(a * b), 23: lambda a, b: a * b,
+    24: _f32(torch.mul),
+    25: lambda a, b: a > b, 26: lambda a, b: a >= b, 27: lambda a, b: a < b,
+    28: lambda a, b: a <= b, 29: lambda a, b: a == b, 30: lambda a, b: a != b,
+    31: lambda a, b: _as_d(a) > _as_d(b),
+    32: lambda a, b: _as_d(a) >= _as_d(b),
+    33: lambda a, b: _as_d(a) < _as_d(b),
+    34: lambda a, b: _as_d(a) <= _as_d(b),
+    35: lambda a, b: _as_d(a) == _as_d(b),
+    36: lambda a, b: _as_d(a) != _as_d(b),
+}
+
+
+def _nonzero(op_real: bool, x: torch.Tensor) -> torch.Tensor:
+    return _as_d(x) != 0 if op_real else x != 0
+
+
+def sel_pred_plain(prog: PredProgram, planes: Sequence, n: int,
+                   bools: bool = False) -> tuple:
+    """``prog`` run op by op over whole columns in torch, as the kernel
+    runs it over 16 rows: int64 payloads (a float by its float64 bits),
+    int32 arithmetic wrapped at 32 bits, float32 arithmetic in float32 →
+    (``sel_mask_plain`` of the kept rows, the bool mask of rows [0, n) or
+    None)."""
+    dev = planes[prog.cols[0]][0].device if prog.cols else \
+        torch.device("cpu")
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    keep = ones.clone()
+    stack: list = []
+
+    def const(c):
+        payload, null, _real = prog.consts[c]
+        return (torch.full((n,), payload, dtype=torch.int64, device=dev),
+                ~ones if null else ones)
+
+    for op, arg, aux in prog.ops:
+        if op == OP_COL:
+            v, ok = planes[prog.cols[arg]]
+            v = _of_d(v[:n]) if v.dtype.is_floating_point else \
+                v[:n].to(torch.int64)
+            stack.append((v, ones if ok is None else ok[:n]))
+        elif op == OP_CONST:
+            stack.append(const(arg))
+        elif op in (OP_KEEP["I"], OP_KEEP["R"]):
+            v, m = stack.pop()
+            keep &= m & _nonzero(op == OP_KEEP["R"], v)
+        elif op >= OP_BINARY:
+            b, bm = const(arg) if aux else stack.pop()
+            a, am = stack.pop()
+            if op in _BINARY:
+                out = _BINARY[op](a, b)
+                stack.append((out.to(torch.int64), am & bm))
+                continue
+            if op in OP_NULLEQ.values():
+                eq = _BINARY[29 if op == OP_NULLEQ["I"] else 35](a, b)
+                stack.append((((~am & ~bm) | (am & bm & eq))
+                              .to(torch.int64), ones))
+            elif op == _LOGIC_OPS["LogicalAnd"]:
+                af, bf = am & (a == 0), bm & (b == 0)
+                stack.append(((~(af | bf)).to(torch.int64),
+                              (am & bm) | af | bf))
+            elif op == _LOGIC_OPS["LogicalOr"]:
+                at, bt = am & (a != 0), bm & (b != 0)
+                stack.append(((at | bt).to(torch.int64),
+                              (am & bm) | at | bt))
+            else:
+                stack.append((((a != 0) ^ (b != 0)).to(torch.int64),
+                              am & bm))
+        elif op in OP_IN.values():
+            v, m = stack.pop()
+            hit = torch.zeros(n, dtype=torch.bool, device=dev)
+            list_null = False
+            for c in range(arg, arg + aux):
+                payload, null, _real = prog.consts[c]
+                if null:
+                    list_null = True
+                elif op == OP_IN["I"]:
+                    hit |= v == payload
+                else:
+                    hit |= _as_d(v) == float(np.array(
+                        [payload], np.int64).view(np.float64)[0])
+            hit &= m
+            any_null = ones if list_null else ~m
+            stack.append((hit.to(torch.int64), hit | ~any_null))
+        else:
+            v, m = stack.pop()
+            if op == OP_NEG["int32"]:
+                v = _i32(-v)
+            elif op == OP_NEG["int64"]:
+                v = -v
+            elif op == OP_NEG["float32"]:
+                v = _of_d(-_as_d(v))
+            elif op in (5, 6):                       # NOT
+                v = (~_nonzero(op == 6, v)).to(torch.int64)
+            elif op == 7:                            # IS NULL
+                v, m = (~m).to(torch.int64), ones
+            else:                                    # IS TRUE / IS FALSE
+                truth = _nonzero(op in (9, 11), v)
+                v = (m & (truth if op in (8, 9) else ~truth)).to(torch.int64)
+                m = ones
+            stack.append((v, m))
+    return sel_mask_plain(keep, n), keep if bools else None
+
+
 def unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """The bool mask of rows [0, n) from packed bytes (MSB first)."""
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
@@ -279,6 +630,20 @@ def sel_compact_plain(mask: MaskOut, k_cap: int,
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
+class _PredParams(ctypes.Structure):
+    """``struct PredParams`` of csrc/selection.cu."""
+    _p = ctypes.c_void_p
+    _i = ctypes.c_int
+    _fields_ = [("values", _p * PRED_MAX_COLS), ("valid", _p * PRED_MAX_COLS),
+                ("dtype", _i * PRED_MAX_COLS), ("n", ctypes.c_longlong),
+                ("packed", _p), ("block_counts", _p), ("count", _p),
+                ("bools", _p), ("vec", _i), ("n_ops", _i),
+                ("op", _i * PRED_MAX_OPS), ("arg", _i * PRED_MAX_OPS),
+                ("aux", _i * PRED_MAX_OPS),
+                ("cval", ctypes.c_longlong * PRED_MAX_CONSTS),
+                ("cnull", _i * PRED_MAX_CONSTS)]
+
+
 class _CompactParams(ctypes.Structure):
     _fields_ = [("packed", ctypes.c_void_p),
                 ("block_counts", ctypes.c_void_p),
@@ -306,12 +671,17 @@ def _kernel_lib():
         lib.sel_compact_launch.argtypes = [i, ctypes.POINTER(_CompactParams),
                                            p, ll, p]
         lib.sel_compact_launch.restype = i
+        lib.sel_pred_launch.argtypes = [i, ctypes.POINTER(_PredParams), i,
+                                        i, ll, p]
+        lib.sel_pred_launch.restype = i
+        lib.sel_pred_params_bytes.restype = i
         lib.sel_params_bytes.restype = i
         lib.sel_max_planes.restype = i
         lib.sel_error_string.argtypes = [i]
         lib.sel_error_string.restype = ctypes.c_char_p
         if lib.sel_params_bytes() != ctypes.sizeof(_CompactParams) or \
-                lib.sel_max_planes() != MAX_PLANES:
+                lib.sel_pred_params_bytes() != ctypes.sizeof(_PredParams) \
+                or lib.sel_max_planes() != MAX_PLANES:
             raise RuntimeError("selection: the kernel's parameter layout "
                                "differs from the wrapper's")
         _lib = lib
@@ -337,6 +707,77 @@ def _check_plane(t, name, n, device, dtypes=None):
     if t.dim() != 1 or t.shape[0] < n or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D tensor of "
                          f">= {n} rows, got {tuple(t.shape)}")
+
+
+_PRED_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
+
+
+def _payload32(payload: int, real: bool) -> int:
+    """A constant's 32-bit payload: the int32 value, or a REAL constant's
+    float32 bits (its float64 payload holds a float32 value exactly)."""
+    if not real:
+        return payload
+    return int(np.array([payload], np.int64).view(np.float64)
+               .astype(np.float32).view(np.int32)[0])
+
+
+def _sel_pred_cuda(prog, planes, n, bools) -> tuple:
+    global pred_launches
+    lib = _kernel_lib()
+    dev = planes[prog.cols[0]][0].device
+    nb = n_blocks(n)
+    buf = torch.empty(HEADER + nb * ROWS_PER_BLOCK // 8, dtype=torch.uint8,
+                      device=dev)
+    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    out = torch.empty(nb * ROWS_PER_BLOCK, dtype=torch.bool, device=dev) \
+        if bools else None
+    p = _PredParams(n=n, packed=buf.data_ptr() + HEADER,
+                    block_counts=block_counts.data_ptr(),
+                    count=buf.data_ptr(),
+                    bools=None if out is None else out.data_ptr(),
+                    n_ops=len(prog.ops))
+    used = [planes[ci] for ci in prog.cols]
+    p.values[:len(used)] = [v.data_ptr() for v, _ok in used]
+    p.valid[:len(used)] = [None if ok is None else ok.data_ptr()
+                           for _v, ok in used]
+    p.dtype[:len(used)] = [_PRED_DTYPES[v.dtype] for v, _ok in used]
+    p.vec = int(all(t.data_ptr() % 16 == 0 for pair in used for t in pair
+                    if t is not None))
+    p.op[:len(prog.ops)] = [o for o, _a, _x in prog.ops]
+    p.arg[:len(prog.ops)] = [a for _o, a, _x in prog.ops]
+    p.aux[:len(prog.ops)] = [x for _o, _a, x in prog.ops]
+    p.cval[:len(prog.consts)] = [_payload32(c, real) if not prog.wide else c
+                                 for c, _null, real in prog.consts]
+    p.cnull[:len(prog.consts)] = [int(null) for _c, null, _r in prog.consts]
+    _raise_on(lib, lib.sel_pred_launch(
+        _dev_index(dev), ctypes.byref(p), prog.depth, int(prog.wide), nb,
+        torch.cuda.current_stream(dev).cuda_stream), "sel_pred launch")
+    pred_launches += 1
+    return MaskOut(buf, block_counts, n), None if out is None else out[:n]
+
+
+def sel_pred(prog: PredProgram, planes: Sequence, n: int,
+             bools: bool = False) -> tuple:
+    """Evaluate ``prog`` (``encode_predicate``) over rows [0, n) of the
+    feed ``planes`` (per column (values, validity | None); the program
+    reads ``prog.cols``) in one pass → (``MaskOut``: the count, the packed
+    mask and the block counts; the bool mask of rows [0, n) when ``bools``,
+    else None).  Rows past ``n`` read as false."""
+    if n <= 0 or n >= 1 << 31:
+        raise ValueError(f"sel_pred serves 0 < n < 2^31 rows, got {n}")
+    if not prog.cols:
+        raise ValueError("sel_pred: a program that reads no column")
+    dev = planes[prog.cols[0]][0].device
+    for ci in prog.cols:
+        v, ok = planes[ci]
+        _check_plane(v, f"column {ci}", n, dev, tuple(_PRED_DTYPES))
+        if ok is not None:
+            _check_plane(ok, f"column {ci} validity", n, dev, (torch.bool,))
+    if dev.type == "cpu":
+        return sel_pred_plain(prog, planes, n, bools)
+    if dev.type != "cuda":
+        raise ValueError(f"sel_pred runs on cuda or cpu, not {dev}")
+    return _sel_pred_cuda(prog, planes, n, bools)
 
 
 def _sel_mask_cuda(pred, n) -> MaskOut:
