@@ -103,16 +103,45 @@ Phases, in order; any failure raises and the exit code is non-zero:
    arguments, with its route and peak bytes (no single PyTorch call
    computes the fold: one ``scatter_reduce_`` (amax) over the same keys
    and values is the yardstick);
-9. one JSON line listing every ported kernel: launches on the main path,
+9. the cold MVCC path: ``plane_digest`` and ``patch_rows`` against their
+   plain versions over every feed dtype (and int8, int16), the digest
+   over full and partial ranges of planes 0-7 elements off a 16-byte
+   boundary up to 2^24 + 3 rows, the patch at 1, 1000 and 65,536 rows
+   with and without digests; ``mvcc_resolve`` against its plain version
+   over the CPU tests' histories (deletes, rollbacks, locks, versions
+   above read_ts, NULLs, INT, REAL and unsigned columns, every key
+   deleted, an empty result, two versions of a key at one commit_ts), a
+   schema of 100 output planes, 2^20 keys, and the same planes resident
+   in padded ``DeviceVersionPlanes`` buffers — all bit for bit; a mint
+   with CF_DEFAULT spill rows (``patch_rows`` in the mint) against the
+   upload of its host mirror; then configs 6c (10·2^20 keys, one PUT a
+   key) and 4h (100·2^20 keys, a chosen version mix at about 1.15
+   versions a key; ``tikv_tpu_torch/testing/mvcc.py``) through
+   ``build_region_columnar_device`` and ``DeviceRunner().handle_request``:
+   cold + 5 warm requests from a feed minted by ``mvcc_resolve``
+   (``feed_routes`` {device_resolve: 1}), each answer against the
+   generator's truth, then the scrub — clean, kept clean by a
+   ``_patch_plane`` and its undo, and naming the plane
+   ``corrupt_resident_plane`` flipped — with the kernels' launch counts
+   read around that main path (``mvcc_resolve``, ``plane_digest`` and
+   ``patch_rows`` must each launch); then two rounds of the device,
+   upload and resident routes (the planes in ``DeviceVersionPlanes``,
+   filled in chunks of 2^20 keys), the second in reverse order, each
+   route a fresh snapshot by ``build_region_columnar_device``, every feed
+   bit-equal to the main path's and that one to the plain version; cold
+   ms by phase for each route in each round; and the three kernels timed
+   at this shape beside their bounds, plain versions and yardsticks;
+10. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
    its route at each config; config 2 for ``sel_pred``, with 5t under
    ``configs``; config 2 for ``sel_mask``; config 2s's 1% for
    ``sel_compact``; config 5 for ``topn_select``; config 4m for
-   ``agg_fold``, with 3n under ``configs``), and the least time the card
-   could take;
-10. the last line: ``{"ok": true, "device": {...}}``.
+   ``agg_fold``, with 3n under ``configs``; config 4h for
+   ``mvcc_resolve``, ``plane_digest`` and ``patch_rows``, with 6c under
+   ``configs``), and the least time the card could take;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -138,7 +167,8 @@ HEADER_BYTES = 16               # sel_compact's count and overflow flag
 CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
 KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
-           "topn_select", "agg_fold")
+           "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
+           "patch_rows")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -194,18 +224,21 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 
 def counts() -> dict:
-    from tikv_tpu_torch.device import (agg_fold, hash_agg, selection, topn,
-                                       twolevel)
+    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg, mvcc,
+                                       selection, topn, twolevel)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_pred": selection.pred_launches,
             "sel_mask": selection.mask_launches,
             "sel_compact": selection.compact_launches,
-            "topn_select": topn.launches, "agg_fold": agg_fold.launches}
+            "topn_select": topn.launches, "agg_fold": agg_fold.launches,
+            "mvcc_resolve": mvcc.resolve_launches,
+            "plane_digest": digest.digest_launches,
+            "patch_rows": digest.patch_launches}
 
 
 def set_counts(values: dict) -> None:
-    from tikv_tpu_torch.device import (agg_fold, hash_agg, selection, topn,
-                                       twolevel)
+    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg, mvcc,
+                                       selection, topn, twolevel)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.pred_launches = values["sel_pred"]
@@ -213,6 +246,9 @@ def set_counts(values: dict) -> None:
     selection.compact_launches = values["sel_compact"]
     topn.launches = values["topn_select"]
     agg_fold.launches = values["agg_fold"]
+    mvcc.resolve_launches = values["mvcc_resolve"]
+    digest.digest_launches = values["plane_digest"]
+    digest.patch_launches = values["patch_rows"]
 
 
 def build_kernels() -> None:
@@ -805,14 +841,60 @@ def run_config(config: str, n: int, runner) -> dict:
     table, snap = build(n)
     dag = dag_from_wire(enc_dag(make(table)))
     want, scales = cf.truth(config, snap)
-    out = serve(config, n, runner, dag, snap, lambda r: r.rows(),
-                lambda rows: cf.rows_agree(rows, want, scales, SF_TOL),
-                {ROUTE[config]} - {None}, groups=len(want))
+    built = {}
+    build_flat = runner._build_flat
+
+    def record(host_cols, n_rows):
+        built.update(host_cols=host_cols, n=n_rows)
+        return build_flat(host_cols, n_rows)
+
+    runner._build_flat = record
+    try:
+        out = serve(config, n, runner, dag, snap, lambda r: r.rows(),
+                    lambda rows: cf.rows_agree(rows, want, scales, SF_TOL),
+                    {ROUTE[config]} - {None}, groups=len(want))
+    finally:
+        del runner._build_flat
     if ROUTE[config] == "hash_agg":
         out["host_phases_ms"] = host_phases(runner, dag, snap)
-    del snap
+    if config == "4":
+        out["feed_build_ms"] = feed_build_cost(runner, **built)
+        print(f"feed build config {config} (ms, host clock): "
+              + json.dumps(out["feed_build_ms"]), flush=True)
+    del snap, built
     gc.collect()
     return out
+
+
+def feed_build_cost(runner, host_cols, n: int, repeats: int = 3) -> dict:
+    """The cold request's feed build on the host clock (ms, the median of
+    ``repeats`` rounds): the planes' uploads alone, ``_build_flat`` (the
+    same uploads while a thread pool hashes the planes' digests) and the
+    digests hashed one plane after another on one thread."""
+    from tikv_tpu_torch.device.supervisor import host_plane_digest
+    hosts = [a for v, ok in host_cols
+             for a in ((v, ok) if not ok.all() else (v,))]
+    n_pad = runner._pad_rows(n)
+    runs = []
+    for _ in range(repeats):
+        ms = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes = [runner._upload(a, n_pad) for a in hosts]
+        torch.cuda.synchronize()
+        ms["uploads"] = (time.perf_counter() - t0) * 1e3
+        del planes
+        t0 = time.perf_counter()
+        feed = runner._build_flat(host_cols, n)
+        torch.cuda.synchronize()
+        ms["build_flat"] = (time.perf_counter() - t0) * 1e3
+        del feed
+        t0 = time.perf_counter()
+        for a in hosts:
+            host_plane_digest(a, n)
+        ms["serial_digests"] = (time.perf_counter() - t0) * 1e3
+        runs.append(ms)
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
 
 
 def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
@@ -2150,6 +2232,484 @@ def topn_at_main_shapes(runner, dev) -> tuple:
     return out, pred_5t
 
 
+# ---------------------------------------------------------------------------
+# the cold MVCC path: mvcc_resolve, plane_digest, patch_rows
+# ---------------------------------------------------------------------------
+
+# config → keys on the card (bench.py's 6c default, 4h's 100·2^20)
+COLD_SIZES = {"6c": 10 << 20, "4h": 100 << 20}
+# DeviceVersionPlanes' chunks: at most 2^20 keys each, at least 4
+CHUNK_KEYS = 1 << 20
+FEED_DTYPES = (torch.bool, torch.int8, torch.int16, torch.int32,
+               torch.int64, torch.float32, torch.float64)
+U64 = 1 << 64
+
+
+def digest_err(got, want) -> int:
+    """0 for two equal digests, else their distance mod 2^64."""
+    from tikv_tpu_torch.device.digest import as_u64
+    d = (as_u64(got) - as_u64(want)) % U64
+    return min(d, U64 - d)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a NaN equals its own bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bool or a.element_size() == 1:
+        return torch.equal(a, b)
+    iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def random_plane(dtype, n: int, gen, dev) -> torch.Tensor:
+    if dtype == torch.bool:
+        t = torch.rand(n, generator=gen) < 0.5
+    elif dtype.is_floating_point:
+        t = (torch.randn(n, generator=gen, dtype=torch.float64) * 1e6) \
+            .to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        t = torch.randint(max(info.min, -(1 << 62)), min(info.max, 1 << 62),
+                          (n,), generator=gen, dtype=torch.int64).to(dtype)
+        t[:2] = torch.tensor([info.min, info.max]).to(dtype)[:n]
+    return t.to(dev)
+
+
+def check_digest(dev) -> tuple:
+    """plane_digest and patch_rows against their plain versions on the
+    card, on every feed dtype (and int8, int16): the digest over full and
+    partial ranges of planes 0-7 elements off a 16-byte boundary, ragged
+    and 2^24 + 3 rows long; patch_rows with and without digests at 1, 1000
+    and 65,536 positions → (worst digest distance, worst patch: elements
+    that differ or a digest distance)."""
+    from tikv_tpu_torch.device import digest as dg
+    gen = torch.Generator().manual_seed(17)
+    worst_d = worst_p = 0
+    for dt in FEED_DTYPES:
+        for n in (1, 15, 4097, (1 << 24) + 3):
+            base = random_plane(dt, n + 8, gen, dev)
+            for off in (0, 1, 3, 7):
+                a = base[off:off + n]
+                for lo, hi in ((0, n), (1, max(1, n - 1)),
+                               (n // 3, n // 2), (n, n)):
+                    worst_d = max(worst_d, digest_err(
+                        dg.plane_digest(a, lo, hi),
+                        dg.plane_digest_plain(a, lo, hi)))
+        plane = random_plane(dt, 1 << 20, gen, dev)
+        for m in (1, 1000, 1 << 16):
+            pos = torch.randperm(1 << 20, generator=gen)[:m]
+            vals = random_plane(dt, m, gen, dev)
+            for digest in (True, False):
+                a, b = plane.clone(), plane.clone()
+                got = dg.patch_rows(a, pos, vals, digest=digest)
+                want = dg.patch_rows_plain(b, pos.to(dev), vals, digest)
+                bad = 0 if same_bits(a, b) else 1
+                if digest:
+                    bad = max(bad, digest_err(got[0], want[0]),
+                              digest_err(got[1], want[1]))
+                else:
+                    bad = max(bad, int(got is not None))
+                worst_p = max(worst_p, bad)
+    torch.cuda.synchronize()
+    print(f"check plane_digest: {len(FEED_DTYPES)} dtypes, 4 lengths, 4 "
+          f"offsets, 4 ranges: worst digest distance {worst_d}", flush=True)
+    print(f"check patch_rows: {len(FEED_DTYPES)} dtypes, m 1 / 1000 / "
+          f"65536, with and without digests: worst {worst_p}", flush=True)
+    assert worst_d == 0 and worst_p == 0, "digest kernels disagree"
+    return worst_d, worst_p
+
+
+def full_spec(planes, dev) -> tuple:
+    """Every column's value plane in each feed dtype its kind takes and
+    its validity plane, and the handle → (sources, kinds, spec)."""
+    from tikv_tpu_torch.device import mvcc as pm
+    sources, kinds, spec = [], [], [("h", torch.int64), ("h", torch.int32)]
+    for cid in planes.col_ids:
+        kind, vals, valid = planes.cols[cid]
+        sources += [pm._to_device(vals, dev), pm._to_device(valid, dev)]
+        kinds += [kind, pm._SRC_BOOL]
+        vi = len(sources) - 2
+        spec += [("v", vi, dt) for dt in (
+            (torch.float32, torch.float64) if kind == 1
+            else (torch.int32, torch.int64))] + [("m", vi + 1)]
+    return sources, kinds, spec
+
+
+def check_mvcc(dev) -> int:
+    """mvcc_resolve against its plain version on the card, exactly: seeded
+    histories of deletes, rollbacks and locks, versions above read_ts,
+    NULLs, INT, REAL and unsigned columns, every key deleted, an empty
+    result, two versions of a key at one commit_ts, a schema of 100 output
+    planes (two launches), 2^20 keys, and the same planes resident in
+    padded ``DeviceVersionPlanes`` buffers → the number of differing
+    outputs (0)."""
+    from tikv_tpu_torch.device import mvcc as pm
+    from tikv_tpu_torch.testing import mvcc as tm
+    rng = np.random.default_rng(23)
+    kinds3 = {2: 0, 3: 1, 4: 3}
+    cases = []
+    for label, n_keys, shares, read_ts in (
+            ("mixed", 700, None, 1000), ("deletes", 700, {1: 1.0}, 1000),
+            ("rollbacks_locks", 700, {2: 0.5, 3: 0.5}, 1000),
+            ("above_read_ts", 700, None, 45), ("empty", 700, None, 5),
+            ("2^20 keys", 1 << 20, None, 45)):
+        ev = tm.random_history(rng, n_keys, kinds3, 6, shares=shares)
+        cases.append((label, tm.version_history(
+            np.arange(n_keys) * 3 + 7, ev, kinds3, read_ts)[0], read_ts))
+    keys = np.arange(500)
+    cases.append(("every_key_deleted", tm.version_history(keys, [
+        tm.Event(10, 0, keys, {2: (keys, np.ones(500, np.bool_))}),
+        tm.Event(20, 1, keys)], {2: 0}, 100)[0], 100))
+    cases.append(("equal_commit_ts", tm.equal_ts_planes(), 60))
+    wide = {c: 0 for c in range(2, 35)}
+    cases.append(("100 outputs", tm.version_history(keys, tm.random_history(
+        rng, 500, wide, 3), wide, 1000)[0], 1000))
+    bad = 0
+    for label, planes, read_ts in cases:
+        sources, kinds, spec = full_spec(planes, dev)
+        fixed = [pm._to_device(a, dev) for a in (
+            planes.commit_ts, planes.wtype, planes.seg_start,
+            planes.handles)]
+        n_pad = max(1024, planes.n_keys + 5)
+        got, count = pm.mvcc_resolve(*fixed, sources, kinds, spec, read_ts,
+                                     planes.n_keys, n_pad)
+        want, wcount = pm.mvcc_resolve_plain(*fixed, sources, kinds, spec,
+                                             read_ts, planes.n_keys, n_pad)
+        n = len(pm.resolve_host(planes, read_ts))
+        diff = sum(not same_bits(g, w) for g, w in zip(got, want))
+        diff += int(int(count) != n) + int(int(wcount) != n)
+        if label == "2^20 keys":
+            # the same planes resident, in 4 chunks, padded buffers
+            dvp = pm.DeviceVersionPlanes(dev)
+            for part in tm.split_planes(planes, -(-planes.n_keys // 4)):
+                dvp.append(part)
+            res = [dvp.bufs[k] for k in ("commit_ts", "wtype", "seg_start",
+                                         "handles")]
+            names = [n_ for c in planes.col_ids for n_ in (f"v{c}",
+                                                          f"m{c}")]
+            got2, count2 = pm.mvcc_resolve(
+                *res, [dvp.bufs[nm] for nm in names], kinds, spec, read_ts,
+                planes.n_keys, n_pad)
+            diff += sum(not same_bits(g, w) for g, w in zip(got2, want))
+            diff += int(int(count2) != n)
+        print(f"check mvcc_resolve {label}: {planes.n_ver} versions, "
+              f"{planes.n_keys} keys, {n} visible, {len(spec)} outputs: "
+              f"{diff} differ", flush=True)
+        bad += diff
+    assert bad == 0, "mvcc_resolve disagrees with its plain version"
+    return bad
+
+
+def check_spill(runner, dev) -> int:
+    """A mint with CF_DEFAULT spill rows on the card (every 7th visible
+    row's cells supplied as ``defaults``): equal to the upload of its host
+    mirror, bit for bit → the planes that differ (0)."""
+    from tikv_tpu_torch.copr.region_cache import build_region_columnar_device
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.device import mvcc as pm
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.testing.dag import DagSelect
+    table, planes, _h, _t, read_ts = tm.history_4h(1 << 16)
+    spilled, defaults = tm.spill(planes, pm.resolve_host(planes,
+                                                         read_ts)[::7])
+    infos = DagSelect.from_table(table, ["id", "k", "v"]).build() \
+        .executors[0].columns
+    saved = counts()
+    tbl, _safe, bundle = build_region_columnar_device(
+        spilled, table, infos, read_ts, runner.mvcc_resolver(),
+        defaults=defaults)
+    n = len(tbl)
+    dtypes = ["int64", "int32", "int32"]
+    launched = dg.patch_launches
+    feed = bundle.mint(runner, infos, dtypes, n, runner._pad_rows(n))
+    patches = dg.patch_launches - launched
+    host = [(np.ascontiguousarray(
+        (tbl.handles if i.is_pk_handle else tbl.columns[i.col_id].values)
+        .astype(d)), np.ones(n, np.bool_) if i.is_pk_handle
+        else tbl.columns[i.col_id].validity) for i, d in zip(infos, dtypes)]
+    up = runner._build_flat(host, n)
+    set_counts(saved)
+    diff = sum(not same_bits(a, b) for a, b in zip(feed["flat"], up["flat"]))
+    diff += int(feed["digests"] != up["digests"])
+    print(f"check spill mint: {n} rows, {len(bundle.spill_patches)} spilled,"
+          f" {patches} patch_rows launches: {diff} planes differ",
+          flush=True)
+    assert diff == 0 and patches > 0, "the spill mint disagrees"
+    return diff
+
+
+def cold_dag(config: str, table):
+    """6c: GROUP BY c0: COUNT(*), SUM(c1) (bench.py:537-545); 4h: config
+    4's GROUP BY k: COUNT(*), SUM(v)."""
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing.dag import DagSelect
+    if config == "4h":
+        return cf.dag_hash_agg(table)
+    s = DagSelect.from_table(table, ["id", "c0", "c1"])
+    return s.aggregate([s.col("c0")], [("count_star", None),
+                                       ("sum", s.col("c1"))]).build()
+
+
+def only_feed(runner, snap) -> tuple:
+    feeds = runner._snaps[snap]["feeds"]
+    assert len(feeds) == 1, f"{len(feeds)} feeds"
+    return next(iter(feeds.items()))
+
+
+def feed_diff(a: dict, b: dict) -> int:
+    """The planes (and the digest record) in which two feeds differ."""
+    diff = sum(not same_bits(x, y) for x, y in zip(a["flat"], b["flat"]))
+    diff += abs(len(a["flat"]) - len(b["flat"]))
+    return diff + int([digest_err(x, 0) for x in a["digests"]] !=
+                      [digest_err(x, 0) for x in b["digests"]])
+
+
+def serve_cold(label, runner, dag, snap, agrees, expect_route) -> tuple:
+    """A cold and five warm requests → (cold ms, warm ms list, the mint's
+    phases); the feed must be built once, by ``expect_route``."""
+    routes0 = dict(runner.feed_routes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = runner.handle_request(dag, snap).rows()
+    cold = (time.perf_counter() - t0) * 1e3
+    phases = dict(runner.mvcc_resolver().phases_ms)
+    assert agrees(got), f"{label}: wrong answer on the cold request"
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = runner.handle_request(dag, snap).rows()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        assert agrees(got), f"{label}: wrong answer when warm"
+    routes = {k: v - routes0.get(k, 0) for k, v in runner.feed_routes.items()
+              if v != routes0.get(k, 0)}
+    assert routes == {expect_route: 1}, f"{label}: feed routes {routes}"
+    return cold, warm, phases
+
+
+# the routes of a cold request, in the order of each round: the second
+# round reverses the first, so each route is timed at both ends
+COLD_ROUNDS = (("device", "upload", "resident"),
+               ("resident", "upload", "device"))
+
+
+def run_cold(config: str, n_keys: int, runner) -> dict:
+    """One cold-path configuration: its version history on the host, then
+    two rounds of three routes, each route a fresh snapshot by
+    ``build_region_columnar_device`` (its host mirror timed) serving cold
+    + 5 warm requests: the device route (a feed minted by
+    ``mvcc_resolve`` from planes uploaded at the mint), the upload route
+    (``_build_flat`` of the mirror) and the resident route (the mint from
+    ``DeviceVersionPlanes``).  Round 1's device route is the main path,
+    counted, and its feed is scrubbed (clean, a patch and its undo kept
+    by the digest rule, a corruption it must name); every other feed and
+    the plain version must equal it bit for bit.  Then the kernels timed
+    at this shape."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.region_cache import (MvccColumnarSnapshot,
+                                                  build_region_columnar_device)
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device import mvcc as pm
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing import mvcc as tm
+    dev = runner.device
+    t0 = time.perf_counter()
+    make = tm.history_6c if config == "6c" else tm.history_4h
+    table, planes, th, truth, read_ts = make(n_keys)
+    gen_s = time.perf_counter() - t0
+    want, scales = cf.truth("4", tm.truth_table(table, th, truth,
+                                                tm.ETS_INT))
+    del th, truth
+    dag = dag_from_wire(enc_dag(cold_dag(config, table)))
+    infos = dag.executors[0].columns
+    resolver = runner.mvcc_resolver()
+    resident = {}
+
+    def agrees(rows):
+        return cf.rows_agree(rows, want, scales, SF_TOL)
+
+    def serve(route: str) -> tuple:
+        """A fresh snapshot for ``route`` and its cold + 5 warm requests
+        → (snapshot, its feed, timings)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tbl, safe, bundle = build_region_columnar_device(
+            planes, table, infos, read_ts, resolver,
+            device_planes=resident.get("dvp") if route == "resident"
+            else None)
+        mirror_ms = (time.perf_counter() - t0) * 1e3
+        if route == "upload":
+            bundle.release()
+            bundle = None
+        snap = MvccColumnarSnapshot(tbl, read_ts, safe, bundle)
+        cold, warm, phases = serve_cold(
+            f"{config} {route}", runner, dag, snap, agrees,
+            "upload" if route == "upload" else "device_resolve")
+        row = {"host_mirror_ms": mirror_ms, "request_ms": cold,
+               "cold_ms": mirror_ms + cold,
+               "warm_p50_ms": float(np.percentile(warm, 50))}
+        if route != "upload":
+            assert (phases["h2d"] == 0.0) == (route == "resident"), \
+                f"{config} {route}: planes H2D {phases['h2d']} ms"
+            row.update(planes_h2d_ms=phases["h2d"],
+                       resolve_ms=phases["resolve"],
+                       patch_ms=phases["patch"],
+                       digests_wait_ms=phases["digests"],
+                       rest_ms=cold - sum(phases.values()))
+        return snap, only_feed(runner, snap), row
+
+    # the main path: counts from 0, read after the scrub
+    set_counts({k: 0 for k in KERNELS})
+    snap, (feed_key, feed), first = serve("device")
+    n = feed["n_live"]
+    assert runner.scrub_feed(feed) == [], f"{config}: scrub not clean"
+    plane0 = feed["flat"][0]
+    old = plane0[[0, n - 1]].clone()
+    runner._patch_plane(feed, 0, [0, n - 1], old + 1)
+    assert runner.scrub_feed(feed) == [], f"{config}: patch broke a digest"
+    runner._patch_plane(feed, 0, [0, n - 1], old)
+    victim = len(feed["flat"]) - 1
+    runner.corrupt_resident_plane(feed, victim)
+    named = runner.scrub_feed(feed)
+    assert named == [victim], f"{config}: the scrub named {named}"
+    runner.corrupt_resident_plane(feed, victim)      # flipped back
+    assert runner.scrub_feed(feed) == [], f"{config}: not restored"
+    launches = counts()
+    for name in ("mvcc_resolve", "plane_digest", "patch_rows"):
+        assert launches[name] > 0, f"{config} never launched {name}"
+    saved = counts()
+
+    # the plain version on the same inputs
+    col_ids, dtypes = feed_key[1], feed_key[2]
+    used = [next(i for i in infos if i.col_id == c) for c in col_ids]
+    has_nulls = {c: not bool(col.validity.all())
+                 for c, col in snap._tbl.columns.items()}
+    del snap
+    args, _flags, _res = pm.resolve_inputs(planes, None, used, dtypes,
+                                           has_nulls, dev)
+    plain, pcount = pm.mvcc_resolve_plain(*args, read_ts, planes.n_keys,
+                                          feed["n_pad"])
+    diff = sum(not same_bits(a, b) for a, b in zip(plain, feed["flat"]))
+    diff += int(int(pcount) != n)
+    del plain, args
+
+    rounds = []
+    for order in COLD_ROUNDS:
+        rows = {}
+        for route in order:
+            if route == "device" and not rounds:
+                rows[route] = first
+                continue
+            if route == "resident" and "dvp" not in resident:
+                # the planes resident before the query: chunks of ≤ 2^20
+                # keys
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dvp = pm.DeviceVersionPlanes(dev)
+                parts = tm.split_planes(planes, min(
+                    CHUNK_KEYS, -(-planes.n_keys // 4)))
+                for part in parts:
+                    dvp.append(part)
+                torch.cuda.synchronize()
+                resident.update(dvp=dvp, chunks=len(parts), fill_ms=(
+                    time.perf_counter() - t0) * 1e3)
+                del dvp, parts
+            other, (_k, other_feed), rows[route] = serve(route)
+            diff += feed_diff(other_feed, feed)
+            del other, other_feed
+        rounds.append(rows)
+    set_counts(saved)
+    assert diff == 0, f"{config}: the minted feed differs ({diff})"
+    timing = time_cold_kernels(config, planes, resident["dvp"], used, dtypes,
+                               has_nulls, read_ts, n, feed, dev)
+    routes = {}
+    for route in COLD_ROUNDS[0]:
+        runs = [r[route] for r in rounds]
+        req = [r["request_ms"] for r in runs]
+        routes[route] = {"runs": runs, "request_ms_spread":
+                         max(req) - min(req)}
+    routes["resident"].update(planes_fill_ms=resident["fill_ms"],
+                              chunks=resident["chunks"])
+    out = {"config": config, "keys": planes.n_keys, "versions": planes.n_ver,
+           "rows": n, "generate_s": gen_s, "planes_bytes":
+           tm.planes_nbytes(planes), "rounds": [list(o) for o in COLD_ROUNDS],
+           "routes": routes, "launches": launches, "scrub_named": named,
+           "timing": timing}
+    print(f"cold config {config}: " + json.dumps(
+        {k: v for k, v in out.items() if k != "timing"}), flush=True)
+    del feed, resident, planes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
+                      read_ts, n, feed, dev) -> dict:
+    """mvcc_resolve on the resident planes of this shape, plane_digest on
+    the feed's first plane and patch_rows on a copy of it (the two rows
+    ``_patch_plane`` writes with digests, and 65,536 rows): CUDA events,
+    queued behind a device sleep, beside each bound, plain version and
+    yardstick."""
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.device import mvcc as pm
+    saved = counts()
+    args, _flags, resident = pm.resolve_inputs(planes, dvp, used, dtypes,
+                                               has_nulls, dev)
+    assert resident
+    n_pad, K = feed["n_pad"], planes.n_keys
+    spec = args[6]
+    src_bytes = sum(args[4][s[1]].element_size() for s in spec
+                    if s[0] != "h") + sum(8 for s in spec if s[0] == "h")
+    out_bytes = sum(t.element_size() for t in feed["flat"])
+    resolve_bytes = planes.n_ver * 9 + (K + 1) * 8 + n * src_bytes + \
+        n_pad * out_bytes
+    t = {"mvcc_resolve": {
+        "ms": cuda_ms(lambda: pm.mvcc_resolve(*args, read_ts, K, n_pad), 10,
+                      queued=True),
+        "plain_ms": cuda_ms(lambda: pm.mvcc_resolve_plain(
+            *args, read_ts, K, n_pad), 3),
+        "library_ms": None, **bound_ms(resolve_bytes, 0),
+        "versions": planes.n_ver, "keys": K, "rows": n, "n_pad": n_pad,
+        "outputs": len(spec), "bytes": resolve_bytes,
+        "peak_bytes": peak_bytes(lambda: pm.mvcc_resolve(*args, read_ts, K,
+                                                         n_pad))}}
+    del args
+    p0 = feed["flat"][0]
+    bits = dg._bits(p0[:n])
+    w = 2 * torch.arange(n, dtype=torch.int64, device=dev) + 1
+    t["plane_digest"] = {
+        "ms": cuda_ms(lambda: dg.plane_digest(p0, 0, n), 50, queued=True),
+        "plain_ms": cuda_ms(lambda: dg.plane_digest_plain(p0, 0, n), 5),
+        "library_ms": None,
+        "yardstick_ms": cuda_ms(lambda: (bits * w).sum(), 20),
+        "yardstick": "(bits * (2i+1)).sum() in int64 on pre-widened bits",
+        **bound_ms(n * p0.element_size(), 0), "rows": n,
+        "dtype": str(p0.dtype)}
+    del bits, w
+    plane = p0.clone()
+    pt = {}
+    for m, digest in ((2, True), (1 << 16, True), (1 << 16, False)):
+        pos = torch.randperm(n, device=dev)[:m].sort().values
+        vals = plane[pos].clone()
+        es = plane.element_size()
+        case = {"ms": cuda_ms(lambda: dg._patch_rows_cuda(plane, pos, vals,
+                                                          digest), 50,
+                              queued=True),
+                "plain_ms": cuda_ms(lambda: dg.patch_rows_plain(
+                    plane, pos, vals, digest), 20),
+                "library_ms": cuda_ms(lambda: plane.index_put_((pos,),
+                                                               vals), 50),
+                "library_call": "index_put_ (writes, no digests)",
+                **bound_ms(m * (8 + 2 * es + (es if digest else 0)), 0),
+                "rows": m, "digest": digest}
+        pt[f"{m} rows{' with digests' if digest else ''}"] = case
+    t["patch_rows"] = dict(pt["2 rows with digests"], configs=pt)
+    set_counts(saved)
+    print(f"kernels at cold config {config} shape: " + json.dumps(t),
+          flush=True)
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2173,12 +2733,17 @@ def main() -> int:
     worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
+    worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
+    worst["mvcc_resolve"] = check_mvcc(dev)
 
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
     runs.append(run_uncovered(runner))
+    worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
+    cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
+    runs += cold.values()
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -2236,6 +2801,18 @@ def main() -> int:
          "replaces": "tikv_tpu/device/runner.py:2701 and :2668",
          "launches": launches["agg_fold"], "max_abs_err": worst["agg_fold"],
          **fold_timing}]
+    for name, source, replaces in (
+            ("mvcc_resolve", "mvcc.cu", "tikv_tpu/device/mvcc.py:531"),
+            ("plane_digest", "digest.cu", "tikv_tpu/device/runner.py:1981"),
+            ("patch_rows", "digest.cu",
+             "tikv_tpu/device/runner.py:1816 and :2023, "
+             "tikv_tpu/device/mvcc.py:514")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tikv_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": worst[name],
+            **cold["4h"]["timing"][name],
+            "configs": {c: r["timing"][name] for c, r in cold.items()}})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

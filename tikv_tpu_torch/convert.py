@@ -7,7 +7,10 @@ For this system the state a request runs against is a table snapshot
 - ``table_from_wire(table_id, [(name, col_id, ft_dict, is_pk)])``
 - ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
   validity)}, alive=None)``
-- ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package.
+- ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package;
+- ``write_planes_from_arrays(...)``: the version planes of one CF_WRITE
+  range (the fields of the JAX package's ``device.mvcc.WritePlanes``), the
+  input of the cold build (``copr.region_cache``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 from .copr.dag import DAGRequest
 from .copr.wire import dec_dag, dec_field_type
 from .datatype import Column, EvalType
+from .device.mvcc import WritePlanes
 from .executors.columnar import ColumnarTable
 from .testing.fixture import Table, TableColumn
 
@@ -46,3 +50,25 @@ def snapshot_from_arrays(table: Table, handles, columns: dict,
 
 def dag_from_wire(d: dict) -> DAGRequest:
     return dec_dag(d)
+
+
+def write_planes_from_arrays(n_ver: int, n_keys: int, table_id: int,
+                             safe_ts: int, commit_ts, start_ts, wtype,
+                             has_payload, seg_id, handles, seg_start,
+                             cols: dict, need_default=(),
+                             col_ids: Sequence[int] = ()) -> WritePlanes:
+    """The version planes as numpy arrays of the parse's dtypes; ``cols``:
+    {col_id: (plane kind, values, validity)} (kind 0 int64, 1 float64,
+    3 uint64)."""
+    kinds = {0: np.int64, 1: np.float64, 3: np.uint64}
+    planes = {cid: (int(kind), np.asarray(v, kinds[int(kind)]),
+                    np.asarray(ok, np.bool_))
+              for cid, (kind, v, ok) in cols.items()}
+    return WritePlanes(
+        int(n_ver), int(n_keys), int(table_id), int(safe_ts),
+        np.asarray(commit_ts, np.uint64), np.asarray(start_ts, np.uint64),
+        np.asarray(wtype, np.uint8), np.asarray(has_payload, np.uint8),
+        np.asarray(seg_id, np.int32), np.asarray(handles, np.int64),
+        np.asarray(seg_start, np.int64), planes,
+        [(int(r), int(s), bytes(k)) for r, s, k in need_default],
+        tuple(int(c) for c in (col_ids or planes)))

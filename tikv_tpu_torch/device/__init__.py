@@ -1,9 +1,12 @@
 """Device (CUDA) execution backend of the coprocessor: aggregation,
-selection and top-k over a snapshot held on the card.
+selection and top-k over a snapshot held on the card, and the cold path
+that mints that snapshot's feed from its MVCC versions.
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
-``agg_fold`` (aggregation), ``selection`` (``sel_mask``, ``sel_compact``)
-and ``topn`` (``topn_select``), each wrapped by the module of its name.
+``agg_fold`` (aggregation), ``selection`` (``sel_pred``, ``sel_mask``,
+``sel_compact``), ``topn`` (``topn_select``), ``digest``
+(``plane_digest``, ``patch_rows``) and ``mvcc`` (``mvcc_resolve``), each
+wrapped by the module of its name.
 
 Lazy exports (PEP 562): importing a sibling such as ``device.hash_agg``
 does not build the runner module.  Entry points run on ``cuda:0`` unless

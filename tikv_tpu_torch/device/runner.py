@@ -58,6 +58,16 @@ It runs as:
   orders the candidates exactly on the host (``_run_topn``);
 - the results come back to the host, which finalizes them.
 
+A snapshot built cold from MVCC versions (``copr.region_cache``) carries a
+``ColdFeedBundle`` on its ``feed_lineage``: the first feed miss of an
+ascending TableScan over all its rows mints the feed on the device
+(``mvcc.mvcc_resolve``, the CUDA kernel ``csrc/mvcc.cu``) instead of
+uploading it; any other first scan drops the bundle and uploads
+(``feed_routes`` counts both).  Every feed records a digest of each plane
+from the host truth; ``scrub_feed`` re-hashes the resident planes
+(``digest.plane_digest``, ``csrc/digest.cu``) and names those that
+differ.
+
 Cases outside this port are refused, never served elsewhere: plans
 (``supports`` is False; ``handle_request`` raises NotImplementedError)
 and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY keys (the reference
@@ -71,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import weakref
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -93,11 +104,15 @@ from . import resolve_device
 from . import selection as sm
 from . import topn as tn
 from .agg_fold import agg_fold
+from .digest import _INT_OF_WIDTH, as_u64, patch_rows, plane_digest
+from .supervisor import hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
 # the selection's routes (``_Plan.sel_route``, counted in ``pred_routes``)
 PRED_KERNEL, PRED_TORCH = "sel_pred", "torch"
+# how a feed was built (counted in ``feed_routes``)
+FEED_DEVICE_RESOLVE, FEED_UPLOAD = "device_resolve", "upload"
 # the reference's device aggregate set (runner.py:1401-1407)
 _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
                 "var_pop", "var_samp", "stddev_pop", "stddev_samp")
@@ -248,6 +263,9 @@ class DeviceRunner:
         self.pred_routes: dict = {}
         # hoisted predicate constants as 0-d device tensors, FIFO-bounded
         self._params: dict = {}
+        # how each feed was built: minted by the device resolve, or uploaded
+        self.feed_routes: dict = {}
+        self._mvcc_resolver = None
 
     # ---------------------------------------------------------------- plan
 
@@ -400,20 +418,94 @@ class DeviceRunner:
         return torch.from_numpy(p).to(self.device)
 
     def _build_flat(self, host_cols, n: int) -> dict:
-        """→ {"flat": device tensors, "null_flags": per-col bool, "n_pad"}.
+        """→ {"flat": device tensors, "null_flags": per-col bool, "n_pad",
+        "digests": each plane's host digest, "n_live": n}.
 
         One flat padded tensor per column value; a validity tensor only
-        for columns that actually contain NULLs."""
+        for columns that actually contain NULLs.  A thread pool hashes the
+        host planes while they upload."""
         n_pad = self._pad_rows(n)
-        flat, flags = [], []
-        for v, ok in host_cols:
-            flat.append(self._upload(v, n_pad))
-            has_nulls = not bool(ok.all())
-            flags.append(has_nulls)
-            if has_nulls:
-                flat.append(self._upload(ok, n_pad))
-        return {"flat": tuple(flat), "null_flags": tuple(flags),
-                "n_pad": n_pad}
+        flags = tuple(not bool(ok.all()) for _, ok in host_cols)
+        hosts = [a for (v, ok), has_nulls in zip(host_cols, flags)
+                 for a in ((v, ok) if has_nulls else (v,))]
+        with ThreadPoolExecutor(hash_workers()) as pool:
+            digests = start_plane_digests(pool, [(a, None) for a in hosts],
+                                          n)
+            flat = tuple(self._upload(a, n_pad) for a in hosts)
+            return {"flat": flat, "null_flags": flags, "n_pad": n_pad,
+                    "digests": digests(), "n_live": n}
+
+    def _new_feed(self, storage, plan, planes, dtypes, host_cols,
+                  n: int) -> dict:
+        """The feed of a miss: minted on the device from the snapshot's
+        cold bundle when the scan is an ascending TableScan over all the
+        bundle's rows, else uploaded (the bundle, if any, is dropped)."""
+        lineage = getattr(storage, "feed_lineage", None)
+        if lineage is not None:
+            if isinstance(plan.scan, TableScanDesc) and not plan.scan.desc:
+                bundle = lineage.take_cold()
+                feed = None if bundle is None else bundle.mint(
+                    self, [plan.scan.columns[ci] for ci, _ in planes],
+                    dtypes, n, self._pad_rows(n))
+                if feed is not None:
+                    self._note_route(FEED_DEVICE_RESOLVE, self.feed_routes)
+                    return feed
+            else:
+                # an index or descending scan cannot take the bundle:
+                # release the version planes now
+                lineage.drop_cold()
+        self._note_route(FEED_UPLOAD, self.feed_routes)
+        return self._build_flat(host_cols(), n)
+
+    def mvcc_resolver(self):
+        """The runner's ``DeviceMvccResolver`` (created on first use)."""
+        if self._mvcc_resolver is None:
+            from .mvcc import DeviceMvccResolver
+            self._mvcc_resolver = DeviceMvccResolver()
+        return self._mvcc_resolver
+
+    # ------------------------------------------------------------- scrub
+
+    @staticmethod
+    def device_digest(arr: torch.Tensor, n: int) -> torch.Tensor:
+        """Digest of one resident plane's live prefix (a 0-d int64 device
+        tensor; the caller decides when to read it)."""
+        return plane_digest(arr, 0, n)
+
+    def scrub_feed(self, feed: dict) -> list:
+        """Re-hash every resident plane of ``feed`` on the device → the
+        indices (into ``feed["flat"]``) of the planes whose digest differs
+        from the recorded one."""
+        got = torch.stack([self.device_digest(a, feed["n_live"])
+                           for a in feed["flat"]]).cpu().tolist()
+        return [i for i, (g, r) in enumerate(zip(got, feed["digests"]))
+                if as_u64(g) != as_u64(r)]
+
+    def _patch_plane(self, feed: dict, fi: int, pos, vals) -> None:
+        """Write ``vals`` at rows ``pos`` of plane ``fi`` in place, keeping
+        its recorded digest by the incremental rule ``R' = R − H(old) +
+        H(new)`` over the rows written (runner.py:1793-1814): never a
+        re-hash of the plane, which would launder a corruption that landed
+        since the last scrub into the record."""
+        plane = feed["flat"][fi]
+        old, new = patch_rows(plane, pos, vals, digest=True)
+        digests = list(feed["digests"])
+        recorded = as_u64(digests[fi])
+        base = torch.tensor(recorded - (1 << 64) if recorded >= 1 << 63
+                            else recorded, dtype=torch.int64,
+                            device=plane.device)
+        digests[fi] = base - old + new
+        feed["digests"] = tuple(digests)
+
+    @staticmethod
+    def corrupt_resident_plane(feed: dict, fi: int = 0) -> None:
+        """Fault injection: flip the low bit of element 0 of resident plane
+        ``fi`` in place (the HBM bit flip a device fault would cause), by a
+        one-row ``patch_rows`` over the plane's same-width integer view;
+        the recorded digest is left as it was."""
+        arr = feed["flat"][fi]
+        view = arr.view(_INT_OF_WIDTH[arr.element_size()])
+        patch_rows(view, [0], view[:1] ^ 1)
 
     def _snap(self, storage) -> dict:
         st = self._snaps.get(storage)
@@ -490,7 +582,8 @@ class DeviceRunner:
                     dtypes, dag.ranges)
         feed = st["feeds"].get(feed_key)
         if feed is None:
-            feed = st["feeds"][feed_key] = self._build_flat(host_cols(), n)
+            feed = st["feeds"][feed_key] = self._new_feed(
+                storage, plan, planes, dtypes, host_cols, n)
         if "plan" not in meta:
             meta["plan"] = self._narrowed(plan, host_cols, dtypes)
         plan = meta["plan"]
