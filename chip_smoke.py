@@ -131,7 +131,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bit-equal to the main path's and that one to the plain version; cold
    ms by phase for each route in each round; and the three kernels timed
    at this shape beside their bounds, plain versions and yardsticks;
-10. one JSON line listing every ported kernel: launches on the main path,
+10. the plan IR: ``sort_perm`` and ``join_build`` (``csrc/sort.cu``),
+   ``join_probe`` (``csrc/join.cu``) and ``window_scan``
+   (``csrc/window.cu``) against their plain versions, bit for bit: one to
+   three keys over the int64 extremes, ties, float64 with ±0.0, ±inf and
+   NaN, byte and constant keys, n = 1, 2, 4095-4097, 100,003 and
+   10·2^20; the build dictionary with NULL keys, duplicates, keys equal to
+   the int64.max sentinel and rows past n_live; the probe with NULL keys
+   on both sides, with and without a mask, at a capacity above and below
+   the total (the exact total beside the pairs that fit); the window over
+   int64 and float64 partition keys (NaN, -0.0), none, counts, int64
+   sums, LAG / LEAD of int64 and float64; then config 7 (a 10·2^20-row
+   probe table against 2^20 build rows, ``bench.py:243-312``, seed 11:
+   ``WHERE v > 0``, inner join on ``k = bk``, ``GROUP BY w``) and its
+   cells 7s (``ORDER BY k DESC, v ASC``) and 7w (``PARTITION BY k ORDER
+   BY v``: row_number, count, sum, avg, lag 2, lead 1) through
+   ``Endpoint.handle_plan(force_backend="device")``, each plan
+   wire-encoded first: cold + 5 warm, each answer against a numpy truth,
+   the device join counted in ``join_backends``, no degrade, the kernels
+   of each cell launched and no other (config 7: ``join_build`` once,
+   then the cache; ``join_probe`` and ``sel_pred`` six times), with the
+   host-clock phases of the cold and the median warm request; and the
+   four kernels timed at those shapes beside their bounds, plain versions
+   and, for the sorts, composed ``torch.argsort(stable=True)``;
+11. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -140,8 +163,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``sel_compact``; config 5 for ``topn_select``; config 4m for
    ``agg_fold``, with 3n under ``configs``; config 4h for
    ``mvcc_resolve``, ``plane_digest`` and ``patch_rows``, with 6c under
-   ``configs``), and the least time the card could take;
-11. the last line: ``{"ok": true, "device": {...}}``.
+   ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_probe``,
+   ``sort_perm`` and ``window_scan``), and the least time the card could
+   take;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -168,7 +193,8 @@ CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
 KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
-           "patch_rows")
+           "patch_rows", "join_build", "join_probe", "sort_perm",
+           "window_scan")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -224,8 +250,9 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 
 def counts() -> dict:
-    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg, mvcc,
-                                       selection, topn, twolevel)
+    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg,
+                                       join_probe, mvcc, selection, sort,
+                                       topn, twolevel, window)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_pred": selection.pred_launches,
             "sel_mask": selection.mask_launches,
@@ -233,12 +260,17 @@ def counts() -> dict:
             "topn_select": topn.launches, "agg_fold": agg_fold.launches,
             "mvcc_resolve": mvcc.resolve_launches,
             "plane_digest": digest.digest_launches,
-            "patch_rows": digest.patch_launches}
+            "patch_rows": digest.patch_launches,
+            "join_build": sort.build_launches,
+            "join_probe": join_probe.launches,
+            "sort_perm": sort.sort_launches,
+            "window_scan": window.launches}
 
 
 def set_counts(values: dict) -> None:
-    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg, mvcc,
-                                       selection, topn, twolevel)
+    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg,
+                                       join_probe, mvcc, selection, sort,
+                                       topn, twolevel, window)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.pred_launches = values["sel_pred"]
@@ -249,6 +281,10 @@ def set_counts(values: dict) -> None:
     mvcc.resolve_launches = values["mvcc_resolve"]
     digest.digest_launches = values["plane_digest"]
     digest.patch_launches = values["patch_rows"]
+    sort.build_launches = values["join_build"]
+    join_probe.launches = values["join_probe"]
+    sort.sort_launches = values["sort_perm"]
+    window.launches = values["window_scan"]
 
 
 def build_kernels() -> None:
@@ -975,14 +1011,18 @@ SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "sel_mask": ("sel_mask_kernel",),
            "sel_compact": ("sel_compact_kernel",),
            "topn_select": ("topn_hist",),
-           "agg_fold": ("fold_shared", "fold_global", "fold_simple")}
+           "agg_fold": ("fold_shared", "fold_global", "fold_simple"),
+           "join_probe": ("fill_kernel",), "sort_perm": ("scatter_kernel",),
+           "window_scan": ("shift_kernel",)}
 
 
-def profile_request(config: str, runner, dag, snap, expect=()) -> dict:
-    """One warm request under torch.profiler: device time by kernel and
-    the device's idle share of the (profiled) request wall.  The trace
-    must hold a device function of every kernel in ``expect``: the tracer
-    now and then misses them, so the request is traced again (up to three
+def profile_request(config: str, runner, dag, snap, expect=(),
+                    call=None) -> dict:
+    """One warm request (``runner.handle_request(dag, snap)``, or
+    ``call()``) under torch.profiler: device time by kernel and the
+    device's idle share of the (profiled) request wall.  The trace must
+    hold a device function of every kernel in ``expect``: the tracer now
+    and then misses them, so the request is traced again (up to three
     times with CPU and CUDA activity, then up to three times with CUDA
     activity alone); the line says whether it ever held them."""
     from torch.profiler import ProfilerActivity, profile
@@ -992,7 +1032,10 @@ def profile_request(config: str, runner, dag, snap, expect=()) -> dict:
     for tried, activities in enumerate(attempts, 1):
         with profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            runner.handle_request(dag, snap)
+            if call is None:
+                runner.handle_request(dag, snap)
+            else:
+                call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
@@ -2710,6 +2753,378 @@ def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
     return t
 
 
+# ---------------------------------------------------------------------------
+# the plan IR: sort_perm, join_build, join_probe, window_scan
+# ---------------------------------------------------------------------------
+
+PLAN_ROWS = {"probe": 10 << 20, "build": 1 << 20}
+# cell → the kernels its requests launch (and no other)
+PLAN_ROUTE = {"7": {"join_build", "join_probe", "sel_pred"},
+              "7s": {"sort_perm"}, "7w": {"sort_perm", "window_scan"}}
+I64 = np.iinfo(np.int64)
+
+
+def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements that differ bit for bit (a float compares by its bits, so
+    NaN equals NaN); a shape mismatch counts every element."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel(), 1)
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return int((a != b).sum())
+
+
+def sort_key_cases(rng, n: int, dev) -> dict:
+    """Named key tensors of n rows on the card: int64 over the whole range
+    with its extremes, int64 ties, float64 with ±0.0, ±inf and NaN, a byte
+    key, a constant key."""
+    wide = rng.integers(I64.min, I64.max, n, dtype=np.int64, endpoint=True)
+    wide[rng.random(n) < 0.05] = I64.min
+    wide[rng.random(n) < 0.05] = I64.max
+    wide[rng.random(n) < 0.02] = I64.min + 2
+    f = rng.normal(0, 1e3, n)
+    for val, share in ((0.0, 0.05), (-0.0, 0.05), (np.inf, 0.02),
+                       (-np.inf, 0.02), (np.nan, 0.03), (-np.nan, 0.02)):
+        f[rng.random(n) < share] = val
+    keys = {"i64_wide": wide, "i64_ties": rng.integers(-3, 3, n),
+            "f64": f, "const": np.full(n, 7, np.int64)}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in keys.items()}
+    out["byte"] = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    return out
+
+
+def check_sort(dev) -> int:
+    """sort_perm and join_build against their plain versions on the card,
+    bit for bit: 1-3 keys over int64 extremes, ties, ±0.0 / ±inf / NaN,
+    byte and constant keys, n = 1, 2, 4095-4097, 100,003 and 10·2^20
+    (7s's two int64 keys); join_build with NULL keys, duplicates, valid
+    keys equal to the int64.max sentinel and rows past n_live."""
+    from tikv_tpu_torch.device import sort as srt
+    rng = np.random.default_rng(71)
+    saved = counts()
+    worst = 0
+    combos = (("i64_wide",), ("f64",), ("byte",), ("const",),
+              ("i64_ties", "f64"), ("byte", "i64_wide", "i64_ties"),
+              ("f64", "i64_ties", "byte"))
+    for n in (1, 2, 4095, 4096, 4097, 100_003):
+        keys = sort_key_cases(rng, n, dev)
+        for combo in combos:
+            ks = [keys[c] for c in combo]
+            err = diff_count(srt.sort_perm(ks, n),
+                             srt.sort_perm_plain(ks, n))
+            torch.cuda.synchronize()
+            assert err == 0, f"sort_perm {combo} n={n}: {err} rows differ"
+    print("kernel sort_perm: 7 key combinations x n in (1, 2, 4095, 4096, "
+          "4097, 100003): max_abs_err=0 tolerance=0 (permutations)",
+          flush=True)
+    n = PLAN_ROWS["probe"]
+    ks = [torch.from_numpy(-rng.integers(0, PLAN_ROWS["build"], n)).to(dev),
+          torch.from_numpy(rng.integers(-1000, 1000, n)).to(dev)]
+    err = diff_count(srt.sort_perm(ks, n), srt.sort_perm_plain(ks, n))
+    assert err == 0, f"sort_perm at 7s's shape: {err} rows differ"
+    print(f"kernel sort_perm at 7s's shape ({n} rows, two int64 keys): "
+          f"max_abs_err={err}", flush=True)
+    del ks
+    for n, live, dup in ((1, 1, 1), (5, 3, 2), (4097, 4000, 7),
+                         (100_003, 100_003, 1000), (1 << 20, 1 << 20, 0)):
+        keys = np.arange(n, dtype=np.int64) if dup == 0 else \
+            rng.integers(-dup, dup, n)
+        valid = np.ones(n, np.bool_) if dup == 0 else rng.random(n) > 0.2
+        if dup:
+            keys[rng.random(n) < 0.1] = I64.max     # sentinel collisions
+            keys[rng.random(n) < 0.05] = I64.min
+        kt = torch.from_numpy(keys).to(dev)
+        vt = torch.from_numpy(valid).to(dev)
+        got = srt.join_build(kt, vt, live)
+        want = srt.join_build_plain(kt, vt, live)
+        torch.cuda.synchronize()
+        err = sum(diff_count(a, b) for a, b in zip(got, want))
+        assert err == 0, f"join_build n={n} live={live}: {err} differ"
+        worst = max(worst, err)
+        print(f"kernel join_build n={n} n_live={live}: max_abs_err={err} "
+              f"tolerance=0 (sk, perm, prefix)", flush=True)
+    set_counts(saved)
+    return worst
+
+
+def check_join(dev) -> int:
+    """join_probe against its plain version on the card, bit for bit
+    (pairs and total): duplicate build keys, NULL keys on both sides, the
+    sentinel key, with and without a mask, a capacity above the total and
+    one below it (the exact total beside the pairs that fit); then the
+    joiner's re-dispatch on an overflow (``check_join_redispatch``)."""
+    from tikv_tpu_torch.device import join_probe as jp
+    from tikv_tpu_torch.device import sort as srt
+    rng = np.random.default_rng(72)
+    saved = counts()
+    worst = 0
+    for npr, nb, dom, caps in ((1, 1, 1, (64,)), (5000, 300, 50, (1, 64)),
+                               (100_003, 4097, 2000, (1 << 17, 1 << 12)),
+                               (1 << 20, 1 << 16, 1 << 16, (1 << 21,))):
+        bk = rng.integers(0, dom, nb)
+        bk[rng.random(nb) < 0.05] = I64.max
+        bvalid = rng.random(nb) > 0.1
+        pk = rng.integers(0, dom, npr)
+        pk[rng.random(npr) < 0.01] = I64.max
+        pvalid = torch.from_numpy(rng.random(npr) > 0.1).to(dev)
+        mask = torch.from_numpy(rng.random(npr) > 0.5).to(dev)
+        built = srt.join_build(torch.from_numpy(bk).to(dev),
+                               torch.from_numpy(bvalid).to(dev), nb)
+        pkt = torch.from_numpy(pk).to(dev)
+        for cap in caps:
+            for pv, m in ((pvalid, mask), (None, None)):
+                got = jp.join_probe(*built, pkt, pv, m, cap)
+                want = jp.join_probe_plain(*built, pkt, pv, m, cap)
+                torch.cuda.synchronize()
+                err = diff_count(got[0], want[0]) + \
+                    diff_count(got[1], want[1])
+                assert err == 0, f"join_probe {npr}x{nb} cap={cap}: {err}"
+                print(f"kernel join_probe {npr}x{nb} k_cap={cap} "
+                      f"total={int(want[1])} mask={m is not None}: "
+                      f"max_abs_err={err} tolerance=0", flush=True)
+    worst = max(worst, check_join_redispatch(dev))
+    set_counts(saved)
+    return worst
+
+
+def check_join_redispatch(dev) -> int:
+    """``DeviceJoiner.join`` on the card over four keys on both sides:
+    20,000 probe rows × 16 build rows a key overflow the first capacity
+    (next_pow2(20,000·1.5 + 64) = 32,768 slots for 320,000-odd pairs); the
+    exact total re-dispatches once, and the pairs equal a numpy truth."""
+    from tikv_tpu_torch.device.runner import DeviceRunner
+    from tikv_tpu_torch.testing import configs as cf
+    rng = np.random.default_rng(74)
+    pt, psnap, bt, bsnap = cf.build_join_pair(20_000, 64)
+    k = rng.integers(0, 4, 20_000)
+    bk = np.repeat(np.arange(4), 16)
+    rng.shuffle(bk)
+    psnap.columns[2].values[:] = k
+    bsnap.columns[2].values[:] = bk
+    joiner = DeviceRunner(device=dev).joiner()
+    probe, build = cf.scan_node(pt), cf.scan_node(bt)
+    got = joiner.join(probe.scan, probe.ranges, psnap, (), 1, build.scan,
+                      build.ranges, bsnap, 1)
+    # truth: probe rows in order, each with its key's build rows in order
+    by_key = [np.flatnonzero(bk == key) for key in range(4)]
+    want_p = np.repeat(np.arange(20_000), [len(by_key[x]) for x in k])
+    want_b = np.concatenate([by_key[x] for x in k])
+    assert joiner.overflow_redispatches == 1, joiner.stats()
+    err = int((got[0] != want_p).sum() + (got[1] != want_b).sum()) \
+        if got[0].shape == want_p.shape else len(want_p)
+    assert err == 0, f"DeviceJoiner.join re-dispatch: {err} pairs differ"
+    print(f"kernel join_probe through DeviceJoiner.join: {len(want_p)} "
+          f"pairs past k_cap=32768, overflow_redispatches="
+          f"{joiner.overflow_redispatches}: max_abs_err={err} tolerance=0",
+          flush=True)
+    return err
+
+
+def check_window(dev) -> int:
+    """window_scan against its plain version on the card, bit for bit:
+    int64 and float64 (NaN, ±0.0) partition keys, none, counts, int64
+    sums with NULLs, LAG / LEAD of int64 and float64 over offsets 1, 2 and
+    5, n = 1, 1023-1025, 100,003 and 10·2^20."""
+    from tikv_tpu_torch.device import sort as srt
+    from tikv_tpu_torch.device import window as win
+    rng = np.random.default_rng(73)
+    saved = counts()
+    for n in (1, 1023, 1024, 1025, 100_003, PLAN_ROWS["probe"]):
+        k = torch.from_numpy(rng.integers(0, max(1, n // 20), n)).to(dev)
+        f = rng.normal(0, 1, n).round(1)
+        f[rng.random(n) < 0.05] = np.nan
+        f[rng.random(n) < 0.05] = -0.0
+        fk = torch.from_numpy(f).to(dev)
+        v = torch.from_numpy(rng.integers(-1000, 1000, n)).to(dev)
+        ok = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+        fv = torch.from_numpy(rng.normal(0, 1, n)).to(dev)
+        for parts in ([k], [k, fk], [fk], []):
+            perm = srt.sort_perm(parts + [v], n)
+            chans = [("count", None, ok), ("sum", v, ok),
+                     ("count", None, ok)]
+            shifts = [(-2, v, ok), (1, v, ok), (-1, fv, ok), (5, fv, ok)]
+            got = win.window_scan(perm, parts, True, chans, shifts)
+            want = win.window_scan_plain(perm, parts, True, chans, shifts)
+            torch.cuda.synchronize()
+            err = diff_count(got[0], want[0]) + sum(
+                diff_count(a, b) for a, b in zip(got[1], want[1])) + sum(
+                diff_count(a, b) + diff_count(c, d)
+                for (a, c), (b, d) in zip(got[2], want[2]))
+            assert err == 0, f"window_scan n={n} parts={len(parts)}: {err}"
+        print(f"kernel window_scan n={n}: 4 partitionings, 3 channels, 4 "
+              f"shifts: max_abs_err=0 tolerance=0", flush=True)
+        del k, fk, v, ok, fv
+    set_counts(saved)
+    return 0
+
+
+def plan_endpoint(runner):
+    """An endpoint over config 7's snapshots (full size), and them."""
+    from tikv_tpu_torch.copr.endpoint import Endpoint
+    from tikv_tpu_torch.testing import configs as cf
+    pair = cf.build_join_pair(PLAN_ROWS["probe"], PLAN_ROWS["build"])
+    by = {pair[0].table_id: pair[1], pair[2].table_id: pair[3]}
+    ep = Endpoint(lambda req: by[req.dag.executors[0].table_id], runner)
+    return ep, pair
+
+
+def run_plan(cell: str, ep, pair) -> dict:
+    """Cell ``cell`` through ``Endpoint.handle_plan(force_backend=
+    "device")``, its request wire-encoded first: one cold and five warm
+    requests, each answer against the numpy truth; the kernels of its
+    route must launch and no other; no degrade; config 7 must join on the
+    device and build its dictionary once."""
+    from tikv_tpu_torch.convert import plan_from_wire
+    from tikv_tpu_torch.copr.wire import enc_plan
+    from tikv_tpu_torch.testing import configs as cf
+    probe_t, probe, build_t, build = pair
+    preq = plan_from_wire(enc_plan(cf.PLAN_CELLS[cell](probe_t, build_t)))
+    t0 = time.perf_counter()
+    want = cf.plan_truth(cell, probe, build)
+    truth_s = time.perf_counter() - t0
+    ex = ep.plan_executor
+    joiner = ep._device_runner.joiner()
+    jb0 = dict(ex.join_backends)
+    hits0 = joiner.build_cache_hits
+    set_counts({k: 0 for k in KERNELS})
+    times, phases = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        got = ep.handle_plan(preq, force_backend="device").result.batch
+        times.append(time.perf_counter() - t0)
+        assert cf.columns_agree(got, want), \
+            f"cell {cell}: wrong answer (request {len(times)})"
+        phases.append({**{f"plan.{k}": v for k, v in ex.phases_ms.items()},
+                       **{f"device.{k}": v
+                          for k, v in joiner.phases_ms.items()}})
+    launches = counts()
+    for name in KERNELS:
+        if name in PLAN_ROUTE[cell]:
+            assert launches[name] > 0, f"cell {cell} never launched {name}"
+        else:
+            assert launches[name] == 0, f"cell {cell} launched {name}"
+    assert not ep.degrades, f"cell {cell}: degrades {ep.degrades}"
+    if cell == "7":
+        jb = {k: v - jb0.get(k, 0) for k, v in ex.join_backends.items()}
+        assert jb.get("device", 0) >= 1 and set(jb) == {"device"}, jb
+        assert launches["join_build"] == 1 and \
+            launches["join_probe"] == 6, launches
+        assert joiner.build_cache_hits - hits0 == 5
+    else:
+        assert launches["sort_perm"] == 6, launches
+    out = {"config": cell, "rows": PLAN_ROWS["probe"],
+           "build_rows": PLAN_ROWS["build"] if cell == "7" else 0,
+           "out_rows": got.num_rows, "cold_ms": times[0] * 1e3,
+           "warm_p50_ms": float(np.percentile(times[1:], 50)) * 1e3,
+           "launches": launches, "truth_s": truth_s,
+           "cold_phases_ms": phases[0],
+           "warm_phases_ms": {k: float(np.median([p.get(k, 0.0)
+                                                  for p in phases[1:]]))
+                              for k in phases[-1]},
+           "degrades": dict(ep.degrades)}
+    # a warm request under the profiler (join_build is cached by then)
+    out["profile"] = profile_request(
+        cell, None, None, None, PLAN_ROUTE[cell] & set(SYMBOLS),
+        call=lambda: ep.handle_plan(preq, force_backend="device"))
+    print(f"cell {cell}: " + " ".join(
+        f"{k}={json.dumps(v) if isinstance(v, dict) else v}"
+        for k, v in out.items() if k != "config"), flush=True)
+    return out
+
+
+def plan_kernels_at_main_shapes(pair, dev) -> tuple:
+    """The four kernels at config 7's / 7s's / 7w's shapes: checked
+    against their plain versions there (bit for bit) and timed with CUDA
+    events (the probe and the window queued behind a device sleep; the
+    sorts as issued, since they wait for each key's range), beside each
+    bound (inputs read once, outputs written once at 3.35 TB/s), plain
+    version and library yardstick (composed torch.argsort(stable=True) for
+    the sorts; none computes the probe or the window)."""
+    from tikv_tpu_torch.device import join_probe as jp
+    from tikv_tpu_torch.device import sort as srt
+    from tikv_tpu_torch.device import window as win
+    probe_t, probe, build_t, build = pair
+    saved = counts()
+    n, nb = len(probe), len(build)
+    k = torch.from_numpy(probe.columns[2].values).to(dev)
+    v = torch.from_numpy(probe.columns[3].values).to(dev)
+    bk = torch.from_numpy(build.columns[2].values).to(dev)
+    bvalid = torch.ones(nb, dtype=torch.bool, device=dev)
+    t, errs = {}, {}
+
+    def argsorts(keys):
+        p = torch.arange(keys[0].shape[0], device=dev)
+        for key in reversed(keys):
+            p = p[torch.argsort(key[p], stable=True)]
+        return p
+
+    built = srt.join_build(bk, bvalid, nb)
+    errs["join_build"] = sum(diff_count(a, b) for a, b in zip(
+        built, srt.join_build_plain(bk, bvalid, nb)))
+    nsv = torch.zeros(nb, dtype=torch.int64, device=dev)
+    t["join_build"] = {
+        "ms": cuda_ms(lambda: srt.join_build(bk, bvalid, nb), 20),
+        "plain_ms": cuda_ms(lambda: srt.join_build_plain(bk, bvalid, nb), 5),
+        "library_ms": cuda_ms(lambda: argsorts([bk, nsv]), 5),
+        "library_call": "torch.argsort(stable=True) composed over (key, "
+                        "not valid)",
+        **bound_ms(nb * (8 + 1 + 8 + 4 + 8) + 8, 0), "rows": nb}
+    mask = v > 0
+    k_cap = 1 << (int(n * 1.5 + 64) - 1).bit_length()
+    got = jp.join_probe(*built, k, None, mask, k_cap)
+    want = jp.join_probe_plain(*built, k, None, mask, k_cap)
+    total = int(want[1])
+    errs["join_probe"] = diff_count(got[0], want[0]) + \
+        diff_count(got[1], want[1])
+    del got, want
+    t["join_probe"] = {
+        "ms": cuda_ms(lambda: jp.join_probe(*built, k, None, mask, k_cap),
+                      10, queued=True),
+        "plain_ms": cuda_ms(lambda: jp.join_probe_plain(
+            *built, k, None, mask, k_cap), 3),
+        "library_ms": None,
+        **bound_ms(n * (8 + 1) + nb * (8 + 4 + 8) + 8 + 8 * total + 8, 0),
+        "rows": n, "build_rows": nb, "pairs": total, "k_cap": k_cap}
+    del built, mask
+    keys = [-k, v]
+    errs["sort_perm"] = diff_count(srt.sort_perm(keys, n),
+                                   srt.sort_perm_plain(keys, n))
+    t["sort_perm"] = {
+        "ms": cuda_ms(lambda: srt.sort_perm(keys, n), 10),
+        "plain_ms": cuda_ms(lambda: srt.sort_perm_plain(keys, n), 3),
+        "library_ms": cuda_ms(lambda: argsorts(keys), 3),
+        "library_call": "torch.argsort(stable=True) composed over the keys",
+        **bound_ms(n * (8 + 8 + 4), 0), "rows": n, "keys": 2}
+    perm = srt.sort_perm([k, v], n)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    # 7w's launch: count(v), sum(v) and avg(v) share two channels
+    chans = [("count", None, ok), ("sum", v, ok)]
+    shifts = [(-2, v, ok), (1, v, ok)]
+    got = win.window_scan(perm, [k], True, chans, shifts)
+    want = win.window_scan_plain(perm, [k], True, chans, shifts)
+    errs["window_scan"] = diff_count(got[0], want[0]) + sum(
+        diff_count(a, b) for a, b in zip(got[1], want[1])) + sum(
+        diff_count(a, b) + diff_count(c, d)
+        for (a, c), (b, d) in zip(got[2], want[2]))
+    del got, want
+    t["window_scan"] = {
+        "ms": cuda_ms(lambda: win.window_scan(perm, [k], True, chans,
+                                              shifts), 10, queued=True),
+        "plain_ms": cuda_ms(lambda: win.window_scan_plain(
+            perm, [k], True, chans, shifts), 3),
+        "library_ms": None,
+        # reads: perm, k, v, ok once; writes: rn, 2 channels, 2 shifts
+        **bound_ms(n * (4 + 8 + 8 + 1) + n * (8 + 2 * 8 + 2 * 9), 0),
+        "rows": n, "channels": len(chans), "shifts": len(shifts)}
+    set_counts(saved)
+    for name, e in errs.items():
+        assert e == 0, f"{name} disagrees with its plain version at its " \
+            f"main shape: {e}"
+    print("plan kernels at main shapes: " + json.dumps(t), flush=True)
+    return errs, t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2735,6 +3150,9 @@ def main() -> int:
     worst["agg_fold"] = check_agg_fold(dev)
     worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
     worst["mvcc_resolve"] = check_mvcc(dev)
+    worst["sort_perm"] = worst["join_build"] = check_sort(dev)
+    worst["join_probe"] = check_join(dev)
+    worst["window_scan"] = check_window(dev)
 
     runner = DeviceRunner()
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
@@ -2744,6 +3162,8 @@ def main() -> int:
     worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
     cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
     runs += cold.values()
+    ep, pair = plan_endpoint(runner)
+    runs += [run_plan(c, ep, pair) for c in PLAN_ROUTE]
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -2813,6 +3233,19 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst[name],
             **cold["4h"]["timing"][name],
             "configs": {c: r["timing"][name] for c, r in cold.items()}})
+    errs, plan_timing = plan_kernels_at_main_shapes(pair, dev)
+    del ep, pair
+    for name, source, replaces in (
+            ("join_build", "sort.cu", "tikv_tpu/device/join.py:257"),
+            ("join_probe", "join.cu", "tikv_tpu/device/join.py:276"),
+            ("sort_perm", "sort.cu", "tikv_tpu/device/join.py:479"),
+            ("window_scan", "window.cu", "tikv_tpu/device/join.py:508")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tikv_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(worst[name], errs[name]),
+            **plan_timing[name]})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``tikv_tpu_torch`` (every source
 under it, the selection and top-k modules included, and
 ``chip_smoke.py``) imports JAX or the JAX package, serving an
-aggregation, a selection and an index-scan top-k loads neither, and
-nothing falls back to the CPU without being asked."""
+aggregation, a selection, an index-scan top-k and a join plan through the
+endpoint loads neither, and nothing falls back to the CPU without being
+asked."""
 
 import ast
 import os
@@ -61,6 +62,16 @@ assert len(runner.handle_request(sel, snap).rows()) == \
 t5, s5 = configs.ROW_CONFIGS["5"][0](5000)
 top = dag_from_wire(enc_dag(configs.dag_topn_index(t5, 10)))
 assert len(runner.handle_request(top, s5).rows()) == 10
+from tikv_tpu_torch.copr.endpoint import Endpoint
+from tikv_tpu_torch.copr.wire import enc_plan
+from tikv_tpu_torch.convert import plan_from_wire
+pt, ps, bt, bs = configs.build_join_pair(3000, 256)
+by = {pt.table_id: ps, bt.table_id: bs}
+ep = Endpoint(lambda req: by[req.dag.executors[0].table_id], runner)
+plan = plan_from_wire(enc_plan(configs.plan_join(pt, bt)))
+got = ep.handle_plan(plan, force_backend="device").result.batch
+assert configs.columns_agree(got, configs.plan_truth("7", ps, bs))
+assert ep.plan_executor.join_backends == {"device": 1}
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
 assert not bad, bad

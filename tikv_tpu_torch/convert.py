@@ -8,6 +8,8 @@ For this system the state a request runs against is a table snapshot
 - ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
   validity)}, alive=None)``
 - ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package;
+- ``plan_from_wire(d)``: a plan-IR request encoded by ``enc_plan`` in
+  either package (the JAX package's ``server/wire.py``);
 - ``write_planes_from_arrays(...)``: the version planes of one CF_WRITE
   range (the fields of the JAX package's ``device.mvcc.WritePlanes``), the
   input of the cold build (``copr.region_cache``).
@@ -20,7 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .copr.dag import DAGRequest
-from .copr.wire import dec_dag, dec_field_type
+from .copr.wire import dec_dag, dec_field_type, dec_plan
 from .datatype import Column, EvalType
 from .device.mvcc import WritePlanes
 from .executors.columnar import ColumnarTable
@@ -50,6 +52,10 @@ def snapshot_from_arrays(table: Table, handles, columns: dict,
 
 def dag_from_wire(d: dict) -> DAGRequest:
     return dec_dag(d)
+
+
+def plan_from_wire(d: dict):
+    return dec_plan(d)
 
 
 def write_planes_from_arrays(n_ver: int, n_keys: int, table_id: int,

@@ -1,4 +1,5 @@
-"""Coprocessor request surface: DAG descriptors and their wire form."""
+"""Coprocessor request surface: DAG descriptors, plan-IR requests
+(``plan_ir``), their wire form, and the ``endpoint`` that serves them."""
 
 from .dag import (
     AggExprDesc,
@@ -8,7 +9,8 @@ from .dag import (
     SelectionDesc,
     TableScanDesc,
 )
-from .wire import dec_dag, enc_dag
+from .wire import dec_dag, dec_plan, enc_dag, enc_plan
 
 __all__ = ["AggExprDesc", "AggregationDesc", "ColumnInfo", "DAGRequest",
-           "SelectionDesc", "TableScanDesc", "dec_dag", "enc_dag"]
+           "SelectionDesc", "TableScanDesc", "dec_dag", "dec_plan", "enc_dag",
+           "enc_plan"]

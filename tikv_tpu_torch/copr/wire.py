@@ -166,3 +166,145 @@ def dec_dag(d: dict) -> DAGRequest:
         output_offsets=tuple(d["output_offsets"])
         if d["output_offsets"] is not None else None,
         encode_type=d["encode_type"])
+
+
+# -- plan IR (copr/plan_ir.py): a linear fragment uses the executor
+# encoding above per scan / operator; join, sort and window nodes extend
+# it (the reference's server/wire.py enc_plan / dec_plan).
+
+def _enc_scan_desc(scan) -> dict:
+    if isinstance(scan, IndexScanDesc):
+        return {"k": "iscan", "table_id": scan.table_id,
+                "index_id": scan.index_id, "desc": scan.desc,
+                "unique": scan.unique, "cols": _enc_cols(scan.columns)}
+    return {"k": "tscan", "table_id": scan.table_id, "desc": scan.desc,
+            "cols": _enc_cols(scan.columns)}
+
+
+def _enc_order(order_by) -> list:
+    return [{"e": enc_expr(e), "desc": d} for e, d in order_by]
+
+
+def _dec_order(items) -> tuple:
+    return tuple((dec_expr(o["e"]), o["desc"]) for o in items)
+
+
+def _enc_aggs(aggs) -> list:
+    return [{"kind": a.kind,
+             "arg": enc_expr(a.arg) if a.arg is not None else None}
+            for a in aggs]
+
+
+def enc_plan(preq) -> dict:
+    from . import plan_ir as pir
+
+    def node(n) -> dict:
+        if isinstance(n, pir.ScanNode):
+            return {"k": "scan", "scan": _enc_scan_desc(n.scan),
+                    "ranges": [{"s": r.start, "e": r.end}
+                               for r in n.ranges]}
+        if isinstance(n, pir.SelectNode):
+            return {"k": "sel", "child": node(n.child),
+                    "conds": [enc_expr(e) for e in n.conditions]}
+        if isinstance(n, pir.ProjectNode):
+            return {"k": "proj", "child": node(n.child),
+                    "exprs": [enc_expr(e) for e in n.exprs]}
+        if isinstance(n, pir.AggNode):
+            return {"k": "agg", "child": node(n.child),
+                    "streamed": n.desc.streamed,
+                    "group_by": [enc_expr(e) for e in n.desc.group_by],
+                    "aggs": _enc_aggs(n.desc.aggs)}
+        if isinstance(n, pir.TopNNode):
+            return {"k": "topn", "child": node(n.child),
+                    "limit": n.desc.limit,
+                    "order_by": _enc_order(n.desc.order_by)}
+        if isinstance(n, pir.PartTopNNode):
+            return {"k": "ptopn", "child": node(n.child),
+                    "limit": n.desc.limit,
+                    "partition_by": [enc_expr(e)
+                                     for e in n.desc.partition_by],
+                    "order_by": _enc_order(n.desc.order_by)}
+        if isinstance(n, pir.LimitNode):
+            return {"k": "limit", "child": node(n.child), "limit": n.limit}
+        if isinstance(n, pir.JoinNode):
+            return {"k": "join", "left": node(n.left),
+                    "right": node(n.right), "left_key": n.left_key,
+                    "right_key": n.right_key, "join_type": n.join_type}
+        if isinstance(n, pir.SortNode):
+            return {"k": "sort", "child": node(n.child),
+                    "order_by": _enc_order(n.order_by)}
+        if isinstance(n, pir.WindowNode):
+            return {"k": "window", "child": node(n.child),
+                    "partition_by": [enc_expr(e) for e in n.partition_by],
+                    "order_by": _enc_order(n.order_by),
+                    "funcs": [{"kind": f.kind,
+                               "arg": enc_expr(f.arg)
+                               if f.arg is not None else None,
+                               "offset": f.offset} for f in n.funcs]}
+        raise ValueError(n)
+
+    return {"root": node(preq.root), "start_ts": preq.start_ts,
+            "output_offsets": list(preq.output_offsets)
+            if preq.output_offsets is not None else None,
+            "encode_type": preq.encode_type}
+
+
+def dec_plan(d: dict):
+    from . import plan_ir as pir
+
+    def scan_desc(s):
+        cols = tuple(ColumnInfo(c["id"], dec_field_type(c["ft"]), c["pk"])
+                     for c in s["cols"])
+        if s["k"] == "iscan":
+            return IndexScanDesc(s["table_id"], s["index_id"], cols,
+                                 s["desc"], s["unique"])
+        return TableScanDesc(s["table_id"], cols, s["desc"])
+
+    def node(nd):
+        k = nd["k"]
+        if k == "scan":
+            return pir.ScanNode(scan_desc(nd["scan"]), tuple(
+                KeyRange(r["s"], r["e"]) for r in nd["ranges"]))
+        if k == "join":
+            return pir.JoinNode(node(nd["left"]), node(nd["right"]),
+                                nd["left_key"], nd["right_key"],
+                                nd.get("join_type", "inner"))
+        child = node(nd["child"])
+        if k == "sel":
+            return pir.SelectNode(child, tuple(dec_expr(e)
+                                               for e in nd["conds"]))
+        if k == "proj":
+            return pir.ProjectNode(child, tuple(dec_expr(e)
+                                                for e in nd["exprs"]))
+        if k == "agg":
+            return pir.AggNode(child, AggregationDesc(
+                tuple(dec_expr(e) for e in nd["group_by"]),
+                tuple(AggExprDesc(a["kind"], dec_expr(a["arg"])
+                                  if a["arg"] is not None else None)
+                      for a in nd["aggs"]), nd["streamed"]))
+        if k == "topn":
+            return pir.TopNNode(child, TopNDesc(_dec_order(nd["order_by"]),
+                                                nd["limit"]))
+        if k == "ptopn":
+            return pir.PartTopNNode(child, PartitionTopNDesc(
+                tuple(dec_expr(e) for e in nd["partition_by"]),
+                _dec_order(nd["order_by"]), nd["limit"]))
+        if k == "limit":
+            return pir.LimitNode(child, nd["limit"])
+        if k == "sort":
+            return pir.SortNode(child, _dec_order(nd["order_by"]))
+        if k == "window":
+            return pir.WindowNode(
+                child, tuple(dec_expr(e) for e in nd["partition_by"]),
+                _dec_order(nd["order_by"]),
+                tuple(pir.WindowFuncDesc(
+                    f["kind"],
+                    dec_expr(f["arg"]) if f["arg"] is not None else None,
+                    f.get("offset", 1)) for f in nd["funcs"]))
+        raise ValueError(nd)
+
+    return pir.PlanRequest(
+        node(d["root"]), start_ts=d["start_ts"],
+        output_offsets=tuple(d["output_offsets"])
+        if d["output_offsets"] is not None else None,
+        encode_type=d["encode_type"])

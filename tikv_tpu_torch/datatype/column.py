@@ -10,7 +10,7 @@ columns; other eval types only pass through scans as NULL placeholders.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -32,6 +32,11 @@ class Column:
         self.eval_type = eval_type
         self.values = values
         self.validity = validity
+
+    @staticmethod
+    def empty(eval_type: EvalType) -> "Column":
+        return Column(eval_type, np.empty(0, dtype=eval_type.np_dtype),
+                      np.empty(0, dtype=np.bool_))
 
     @staticmethod
     def from_list(eval_type: EvalType, items: Sequence,
@@ -86,6 +91,16 @@ class Column:
     def filter(self, mask: np.ndarray) -> "Column":
         return Column(self.eval_type, self.values[mask], self.validity[mask])
 
+    def slice(self, start: int, stop: int) -> "Column":
+        return Column(self.eval_type, self.values[start:stop],
+                      self.validity[start:stop])
+
+    @staticmethod
+    def concat(cols: Sequence["Column"]) -> "Column":
+        return Column(cols[0].eval_type,
+                      np.concatenate([c.values for c in cols]),
+                      np.concatenate([c.validity for c in cols]))
+
     def __repr__(self) -> str:
         return f"Column<{self.eval_type.value}>[{len(self)}]"
 
@@ -111,11 +126,27 @@ class ColumnBatch:
     def num_rows(self) -> int:
         return len(self.columns[0]) if self.columns else 0
 
+    @staticmethod
+    def empty(schema: Iterable[FieldType]) -> "ColumnBatch":
+        schema = list(schema)
+        return ColumnBatch(schema, [Column.empty(ft.eval_type)
+                                    for ft in schema])
+
     def filter(self, mask: np.ndarray) -> "ColumnBatch":
         return ColumnBatch(self.schema, [c.filter(mask) for c in self.columns])
 
     def take(self, indices: np.ndarray) -> "ColumnBatch":
         return ColumnBatch(self.schema, [c.take(indices) for c in self.columns])
+
+    def slice(self, start: int, stop: int) -> "ColumnBatch":
+        return ColumnBatch(self.schema, [c.slice(start, stop)
+                                         for c in self.columns])
+
+    @staticmethod
+    def concat(batches: Sequence["ColumnBatch"]) -> "ColumnBatch":
+        return ColumnBatch(batches[0].schema, [
+            Column.concat([b.columns[i] for b in batches])
+            for i in range(len(batches[0].columns))])
 
     def rows(self) -> list[tuple]:
         """Materialize as Python rows (tests / response encoding)."""

@@ -164,6 +164,10 @@ class FieldType:
         flag = FieldTypeFlag.NOT_NULL if not_null else FieldTypeFlag.NONE
         return FieldType(tp=FieldTypeTp.DOUBLE, flag=flag)
 
+    @staticmethod
+    def var_char(collation: int = 63) -> "FieldType":
+        return FieldType(tp=FieldTypeTp.VAR_CHAR, collation=collation)
+
 
 def device_const_dtype(v) -> str:
     """Device dtype bucket for a numeric constant: a float is float32;

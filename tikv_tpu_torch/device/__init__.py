@@ -1,12 +1,15 @@
 """Device (CUDA) execution backend of the coprocessor: aggregation,
-selection and top-k over a snapshot held on the card, and the cold path
-that mints that snapshot's feed from its MVCC versions.
+selection and top-k over a snapshot held on the card, the cold path that
+mints that snapshot's feed from its MVCC versions, and the plan IR's join,
+sort and window fragments (``join.DeviceJoiner``).
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``agg_fold`` (aggregation), ``selection`` (``sel_pred``, ``sel_mask``,
 ``sel_compact``), ``topn`` (``topn_select``), ``digest``
-(``plane_digest``, ``patch_rows``) and ``mvcc`` (``mvcc_resolve``), each
-wrapped by the module of its name.
+(``plane_digest``, ``patch_rows``), ``mvcc`` (``mvcc_resolve``), each
+wrapped by the module of its name, and ``sort`` (``sort_perm``,
+``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``)
+and ``window`` (``window_scan``).
 
 Lazy exports (PEP 562): importing a sibling such as ``device.hash_agg``
 does not build the runner module.  Entry points run on ``cuda:0`` unless
@@ -15,7 +18,20 @@ the caller asks for the CPU, and never fall back to it on their own.
 
 import torch
 
-__all__ = ["DeviceRunner", "resolve_device"]
+__all__ = ["DEVICE_FAULTS", "DeviceRunner", "DeviceUnavailable",
+           "resolve_device"]
+
+
+class DeviceUnavailable(Exception):
+    """The device cannot serve this request or fragment now (an injected
+    fault, a capacity that did not settle): the caller may answer it on
+    the host.  A kernel that fails to build or launch is not one of these:
+    it raises its own error, which no caller degrades."""
+
+
+# the faults a caller degrades to the host on (unless it forced the
+# device); every other exception propagates
+DEVICE_FAULTS = (DeviceUnavailable, torch.cuda.OutOfMemoryError)
 
 
 def resolve_device(device=None) -> torch.device:

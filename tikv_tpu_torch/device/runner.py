@@ -68,12 +68,14 @@ from the host truth; ``scrub_feed`` re-hashes the resident planes
 (``digest.plane_digest``, ``csrc/digest.cu``) and names those that
 differ.
 
-Cases outside this port are refused, never served elsewhere: plans
-(``supports`` is False; ``handle_request`` raises NotImplementedError)
-and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY keys (the reference
-sends those to its host pipeline).  Each refusal names the ROADMAP.md item
-that will serve it.  An empty scan gets the host pipeline's answer: the
-finalize of empty states, or no rows.
+Cases outside the device envelope are refused, never served on the CPU
+by the runner: plans (``supports`` is False; ``handle_request`` raises
+NotImplementedError) and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY
+keys.  The endpoint (``copr/endpoint.py``) serves them on the host
+pipeline (``executors/``), as the reference does.  Each refusal names its
+ROADMAP.md item.  An empty scan gets the host pipeline's answer: the
+finalize of empty states, or no rows.  ``joiner()`` is the runner's
+``DeviceJoiner``: the plan IR's join, sort and window fragments.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ from ..copr.dag import (AggregationDesc, DAGRequest, IndexScanDesc,
                         SelectionDesc, TableScanDesc, TopNDesc)
 from ..datatype import Column, ColumnBatch, EvalType, FieldType
 from ..datatype.tile import _device_dtype
-from ..executors.result import SelectResult, _agg_ret_ft
+from ..executors.aggregation import agg_ret_ft
+from ..executors.runner import SelectResult
 from ..expr import FUNCTIONS, build_rpn, eval_rpn
 from ..expr.eval import _TORCH_DTYPES, narrow_int32
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
@@ -125,10 +128,11 @@ MAX_HASH_CAPACITY = 1 << 20
 _TODO_EXPR = "ROADMAP.md queue 1 item 2 (device expression families)"
 _TODO_AGG = ("ROADMAP.md queue 1 item 3 (bit aggregates, multi-key GROUP "
              "BY, FIRST with GROUP BY and over 2^20 distinct keys: the "
-             "reference's host pipeline)")
-_TODO_HOST = ("ROADMAP.md queue 1 item 6 (the host pipeline: bare scans, "
-              "projections, limits, multi-column indexes and the other "
-              "plans the reference serves on the host)")
+             "endpoint's host pipeline serves them)")
+_TODO_HOST = ("ROADMAP.md queue 1 item 6 (bare scans, projections, limits, "
+              "multi-column indexes and the other plans the reference "
+              "serves on the host: the endpoint's host pipeline serves "
+              "them)")
 _TODO_STORAGE = "ROADMAP.md queue 1 item 6 (production read path)"
 
 
@@ -266,6 +270,7 @@ class DeviceRunner:
         # how each feed was built: minted by the device resolve, or uploaded
         self.feed_routes: dict = {}
         self._mvcc_resolver = None
+        self._joiner = None
 
     # ---------------------------------------------------------------- plan
 
@@ -463,6 +468,14 @@ class DeviceRunner:
             from .mvcc import DeviceMvccResolver
             self._mvcc_resolver = DeviceMvccResolver()
         return self._mvcc_resolver
+
+    def joiner(self):
+        """The runner's ``DeviceJoiner`` (created on first use): the plan
+        IR's join, sort and window fragments on this device."""
+        if self._joiner is None:
+            from .join import DeviceJoiner
+            self._joiner = DeviceJoiner(self)
+        return self._joiner
 
     # ------------------------------------------------------------- scrub
 
@@ -822,8 +835,8 @@ class DeviceRunner:
         finals = finalize_simple(plan.specs, merged)
         schema, cols = [], []
         for spec, val in zip(plan.specs, finals):
-            ft = _agg_ret_ft(spec.kind, spec.eval_type if spec.kind not in
-                             ("count", "count_star") else None)
+            ft = agg_ret_ft(spec.kind, spec.eval_type if spec.kind not in
+                            ("count", "count_star") else None)
             schema.append(ft)
             cols.append(Column.from_list(ft.eval_type, [val]))
         return SelectResult(ColumnBatch(schema, cols))
@@ -885,8 +898,8 @@ class DeviceRunner:
                                       slot_keys=slot_keys)
         schema, cols = [], []
         for spec, vals in zip(plan.specs, results):
-            ft = _agg_ret_ft(spec.kind, spec.eval_type if spec.kind not in
-                             ("count", "count_star") else None)
+            ft = agg_ret_ft(spec.kind, spec.eval_type if spec.kind not in
+                            ("count", "count_star") else None)
             schema.append(ft)
             cols.append(Column.from_list(ft.eval_type, vals))
         schema.append(FieldType.long())

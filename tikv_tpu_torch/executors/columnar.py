@@ -6,7 +6,8 @@ tidb_query_executors/src/runner.rs:71-76), so a scan produces columnar
 blocks without a per-row decode loop.  Table scans and covering scans of
 a single-column index (``IndexScanDesc``) are both served, and a device
 selection vector maps back to rows through ``gather_rows`` without
-materializing the whole scan.
+materializing the whole scan.  ``BatchColumnarTableScanExecutor`` is the
+host pipeline's scan over a snapshot.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from ..codec.keys import _RECORD_SEP, _TABLE_PREFIX, index_key_prefix
 from ..codec.mc_datum import decode_mc_datum
 from ..codec.number import decode_i64, encode_i64
 from ..copr.dag import IndexScanDesc
-from ..datatype import Column, ColumnBatch, EvalType
+from ..datatype import Column, ColumnBatch, EvalType, FieldType
+from .interface import BatchExecuteResult, TimedExecutor
 from .ranges import KeyRange
 
 _I64_MIN = -(2**63)
@@ -334,3 +336,26 @@ class ColumnarTable:
             gh = gather(shandles)
             out_cols.append(Column(EvalType.INT, gh, self._ones(len(gh))))
         return ColumnBatch([c.field_type for c in infos], out_cols)
+
+
+class BatchColumnarTableScanExecutor(TimedExecutor):
+    """The host pipeline's scan of a columnar snapshot: no row decode.
+    The vectorized scan result is handed out in slices, so the pull-model
+    pipeline above it is unchanged (interface.rs:21)."""
+
+    def __init__(self, snapshot, desc, ranges: Sequence[KeyRange]):
+        super().__init__()
+        self._batch = snapshot.scan_columns(desc, ranges)
+        self._pos = 0
+        self._schema = list(desc.schema)
+
+    @property
+    def schema(self) -> list[FieldType]:
+        return self._schema
+
+    def _next_batch(self, scan_rows: int) -> BatchExecuteResult:
+        start = self._pos
+        stop = min(start + scan_rows, self._batch.num_rows)
+        self._pos = stop
+        return BatchExecuteResult(self._batch.slice(start, stop),
+                                  stop >= self._batch.num_rows)

@@ -34,14 +34,30 @@ configs 1, 2 and 5, plus 5t), with ``row_truth``:
 - config 5t: config 5's table with a TableScan head and ``v`` NULL on 10%:
   ``WHERE k < 512 ORDER BY v DESC LIMIT 1000`` — unsorted rows, a
   selection inside the top-k and NULL keys.
+
+The plan-IR configurations (``PLAN_CELLS``, ``plan_truth``) run on config
+7's pair of tables (``build_join_pair``, ``bench.py:243-312``): a probe
+table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
+``(id, bk = 0..n_build-1, w ∈ [0, 64))``, seed 11:
+
+- config 7: ``WHERE v > 0``, inner join on ``k = bk``, then ``GROUP BY w:
+  COUNT(*), SUM(v)`` on the host (10·2^20 × 2^20 rows);
+- cell 7s: the probe table ``ORDER BY k DESC, v ASC``, every row;
+- cell 7w: the probe table ``PARTITION BY k ORDER BY v``: row_number,
+  count(v), sum(v), avg(v), lag(v, 2), lead(v, 1).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..codec.keys import table_record_range
+from ..copr import plan_ir as pir
+from ..copr.dag import AggExprDesc, AggregationDesc, TableScanDesc
 from ..datatype import Column, EvalType, FieldType
 from ..executors.columnar import ColumnarTable
+from ..executors.ranges import KeyRange
+from ..expr import Expr
 from .dag import DagSelect
 from .fixture import Table, TableColumn
 
@@ -379,3 +395,140 @@ def rows_agree(got, want, scales, tol: float) -> bool:
             elif abs(g - w) > tol * s:
                 return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# config 7 and its cells: the plan IR
+# ---------------------------------------------------------------------------
+
+JOIN_GROUPS = 64
+WINDOW_FUNCS = (("row_number", 1), ("count", 1), ("sum", 1), ("avg", 1),
+                ("lag", 2), ("lead", 1))
+
+
+def build_join_pair(n_probe: int, n_build: int, seed: int = 11):
+    """→ (probe table, probe snapshot, build table, build snapshot): the
+    arrays ``bench.build_join_pair`` draws from the same seed."""
+    rng = np.random.default_rng(seed)
+    probe_t = Table(97, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("k", 2, FieldType.long()),
+        TableColumn("v", 3, FieldType.long()),
+    ))
+    ones_p = np.ones(n_probe, dtype=np.bool_)
+    probe = ColumnarTable.from_arrays(
+        probe_t, np.arange(n_probe, dtype=np.int64),
+        {"k": Column(EvalType.INT,
+                     rng.integers(0, n_build, n_probe).astype(np.int64),
+                     ones_p),
+         "v": Column(EvalType.INT,
+                     rng.integers(-1000, 1000, n_probe).astype(np.int64),
+                     ones_p)})
+    build_t = Table(98, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("bk", 2, FieldType.long()),
+        TableColumn("w", 3, FieldType.long()),
+    ))
+    ones_b = np.ones(n_build, dtype=np.bool_)
+    build = ColumnarTable.from_arrays(
+        build_t, np.arange(n_build, dtype=np.int64),
+        {"bk": Column(EvalType.INT, np.arange(n_build, dtype=np.int64),
+                      ones_b),
+         "w": Column(EvalType.INT,
+                     rng.integers(0, JOIN_GROUPS, n_build).astype(np.int64),
+                     ones_b)})
+    return probe_t, probe, build_t, build
+
+
+def scan_node(table: Table) -> pir.ScanNode:
+    start, end = table_record_range(table.table_id)
+    return pir.ScanNode(
+        TableScanDesc(table.table_id, tuple(table.column_info(c.name)
+                                            for c in table.columns)),
+        (KeyRange(start, end),))
+
+
+def plan_join(probe_t: Table, build_t: Table) -> pir.PlanRequest:
+    """Config 7 (``bench._join_plan``): scan + ``v > 0`` → join on k = bk
+    → GROUP BY w: COUNT(*), SUM(v)."""
+    sel = pir.SelectNode(scan_node(probe_t), (
+        Expr.column(2, EvalType.INT) > Expr.const(0, EvalType.INT),))
+    join = pir.JoinNode(sel, scan_node(build_t), 1, 1)
+    return pir.PlanRequest(pir.AggNode(join, AggregationDesc(
+        (Expr.column(5, EvalType.INT),),
+        (AggExprDesc("count_star", None),
+         AggExprDesc("sum", Expr.column(2, EvalType.INT))), False)))
+
+
+def plan_sort(probe_t: Table) -> pir.PlanRequest:
+    """Cell 7s: ORDER BY k DESC, v ASC."""
+    return pir.PlanRequest(pir.SortNode(scan_node(probe_t), (
+        (Expr.column(1, EvalType.INT), True),
+        (Expr.column(2, EvalType.INT), False))))
+
+
+def plan_window(probe_t: Table) -> pir.PlanRequest:
+    """Cell 7w: PARTITION BY k ORDER BY v, ``WINDOW_FUNCS`` over v."""
+    v = Expr.column(2, EvalType.INT)
+    funcs = tuple(pir.WindowFuncDesc(kind, None if kind == "row_number"
+                                     else v, off)
+                  for kind, off in WINDOW_FUNCS)
+    return pir.PlanRequest(pir.WindowNode(
+        scan_node(probe_t), (Expr.column(1, EvalType.INT),),
+        ((v, False),), funcs))
+
+
+# cell → its plan over (probe table, build table)
+PLAN_CELLS = {
+    "7": plan_join,
+    "7s": lambda probe_t, _build_t: plan_sort(probe_t),
+    "7w": lambda probe_t, _build_t: plan_window(probe_t),
+}
+
+
+def plan_truth(cell: str, probe, build) -> list:
+    """The output columns, as (values, validity) numpy pairs, of a
+    ``PLAN_CELLS`` plan over config 7's snapshots, from numpy alone.
+    Config 7's groups come in the host aggregation's first-seen order."""
+    ids = probe.handles
+    k, v = probe.columns[2].values, probe.columns[3].values
+    if cell == "7":
+        w = build.columns[3].values
+        sel = v > 0
+        wk = w[k[sel]]
+        cnt = np.bincount(wk, minlength=JOIN_GROUPS)
+        vs = v[sel]
+        assert np.abs(vs).sum() < 2 ** 53       # float64 sums are exact
+        tot = np.bincount(wk, weights=vs,
+                          minlength=JOIN_GROUPS).astype(np.int64)
+        _, first = np.unique(wk, return_index=True)
+        groups = wk[np.sort(first)]
+        ones = np.ones(len(groups), np.bool_)
+        return [(cnt[groups], ones), (tot[groups], cnt[groups] > 0),
+                (groups, ones)]
+    if cell == "7s":
+        order = np.lexsort((v, -k))
+        ones = np.ones(len(order), np.bool_)
+        return [(ids[order], ones), (k[order], ones), (v[order], ones)]
+    order = np.lexsort((v, k))
+    n = len(order)
+    sk, sv = k[order], v[order]
+    head = np.ones(n, np.bool_)
+    head[1:] = sk[1:] != sk[:-1]
+    idx = np.arange(n)
+    start = np.maximum.accumulate(np.where(head, idx, 0))
+    rn = idx - start + 1
+    cs = np.cumsum(sv)
+    run = cs - (cs[start] - sv[start])
+    ones = np.ones(n, np.bool_)
+    cols = [(ids[order], ones), (sk, ones), (sv, ones), (rn, ones),
+            (rn.copy(), ones), (run, ones),
+            (run.astype(np.float64) / rn, ones)]
+    for kind, off in WINDOW_FUNCS[4:]:
+        src = idx - off if kind == "lag" else idx + off
+        safe = np.clip(src, 0, n - 1)
+        ok = (src >= 0) & (src < n) & (start[safe] == start)
+        cols.append((np.where(ok, sv[safe], 0), ok))
+    return cols
