@@ -76,8 +76,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    2^24 rows at the int32 extremes, value bounds that shrink the shared
    cells (|v| <= 300 and 1000, and 2^31), n not a multiple of 4, planes 1-3
    elements off a 16-byte boundary; integer, MIN/MAX and FIRST states
-   exactly, float64 sums within 1e-9·Σ|v| per cell; the route of each case
-   is printed and every route, shared, global and registers, is taken);
+   exactly, float64 sums within 1e-9·Σ|v| per cell, FIRST also where the
+   first selected row is NULL and whole warps' selected rows are NULL; the
+   route of each case is printed and every route, shared, global and
+   registers, is taken);
 7. the selection, top-k and index-scan routes through
    ``DeviceRunner().handle_request`` (``configs.ROW_CONFIGS``): configs 1
    (its probe over 2^20 rows), 2 (10·2^20), 5 (an IndexScan, 100·2^20) and
@@ -134,14 +136,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
 10. the plan IR: ``sort_perm`` and ``join_build`` (``csrc/sort.cu``),
    ``join_probe`` (``csrc/join.cu``) and ``window_scan``
    (``csrc/window.cu``) against their plain versions, bit for bit: one to
-   three keys over the int64 extremes, ties, float64 with ±0.0, ±inf and
-   NaN, byte and constant keys, n = 1, 2, 4095-4097, 100,003 and
-   10·2^20; the build dictionary with NULL keys, duplicates, keys equal to
+   eight keys over the int64 extremes, ties, float64 with ±0.0, ±inf and
+   NaN, byte and constant keys, keys that pack into 31, 32, 33, 64 and 65
+   bits (one or two packed images), n = 1, 2, 2049, 4095-4097, 12,289
+   (a last tile of one row), 100,003 and 10·2^20; the build dictionary
+   with NULL keys, duplicates, keys equal to
    the int64.max sentinel and rows past n_live; the probe with NULL keys
    on both sides, with and without a mask, at a capacity above and below
    the total (the exact total beside the pairs that fit); the window over
-   int64 and float64 partition keys (NaN, -0.0), none, counts, int64
-   sums, LAG / LEAD of int64 and float64; then config 7 (a 10·2^20-row
+   int64 and float64 partition keys (NaN, -0.0), none, one partition over
+   every row, a partition on each row, counts, int64 sums, LAG / LEAD of
+   int64 and float64 within the kernel's halo and past it (±100, ±5000),
+   n around its tile (1279-1281) and at 10·2^20; then config 7 (a 10·2^20-row
    probe table against 2^20 build rows, ``bench.py:243-312``, seed 11:
    ``WHERE v > 0``, inner join on ``k = bk``, ``GROUP BY w``) and its
    cells 7s (``ORDER BY k DESC, v ASC``) and 7w (``PARTITION BY k ORDER
@@ -153,7 +159,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    then the cache; ``join_probe`` and ``sel_pred`` six times), with the
    host-clock phases of the cold and the median warm request; and the
    four kernels timed at those shapes beside their bounds, plain versions
-   and, for the sorts, composed ``torch.argsort(stable=True)``;
+   and, for the sorts, composed ``torch.argsort(stable=True)`` (and for
+   ``sort_perm`` one ``torch.argsort(stable=True)`` over the packed int64
+   image, packed outside the timing);
 11. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
@@ -1012,8 +1020,8 @@ SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "sel_compact": ("sel_compact_kernel",),
            "topn_select": ("topn_hist",),
            "agg_fold": ("fold_shared", "fold_global", "fold_simple"),
-           "join_probe": ("fill_kernel",), "sort_perm": ("scatter_kernel",),
-           "window_scan": ("shift_kernel",)}
+           "join_probe": ("fill_kernel",), "sort_perm": ("onesweep_kernel",),
+           "window_scan": ("window_kernel",)}
 
 
 def profile_request(config: str, runner, dag, snap, expect=(),
@@ -1853,6 +1861,16 @@ def agg_fold_cases(dev):
         yield f"{dtype}_simple_no_validity", dict(
             specs=fspecs, cols=[None if c is None else (v, None)
                                 for c in fcols], n=n, mode="simple")
+    # FIRST where the first selected row is NULL, and the first tiles'
+    # selected rows all NULL (the answer is NULL, not a later row's value)
+    for dtype in (torch.int32, torch.float64):
+        v, ok, mask = col(dtype), bools(0.85), bools(0.5)
+        ok[:8192] = False
+        mask[:3] = False
+        fspecs, fcols = spec_cols(("first", "count", "count_star"), v, ok,
+                                  dtype.is_floating_point)
+        yield f"{dtype}_simple_first_null", dict(
+            specs=fspecs, cols=fcols, n=n, mode="simple", mask=mask)
     # two lanes sharing a values plane, an int64 key, and the overflow flag
     v, a, b = col(torch.int32), bools(0.6), bools(0.3)
     specs = [AggSpec("min", 0), AggSpec("sum", 1), AggSpec("var_pop", 2),
@@ -2774,10 +2792,19 @@ def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
 
 
+def of_width(rng, n: int, bits: int, lo: int) -> np.ndarray:
+    """int64 keys whose images span exactly ``bits`` bits from ``lo``."""
+    span = (1 << bits) - 1
+    k = lo + (rng.integers(0, 1 << 62, n) % (span + 1)).astype(np.int64)
+    k[0], k[1 % n] = lo, lo + span
+    return k
+
+
 def sort_key_cases(rng, n: int, dev) -> dict:
     """Named key tensors of n rows on the card: int64 over the whole range
     with its extremes, int64 ties, float64 with ±0.0, ±inf and NaN, a byte
-    key, a constant key."""
+    key, a constant key, and int64 keys of exact widths ("w20": 20 bits),
+    which pack into images of 31 to 65 bits."""
     wide = rng.integers(I64.min, I64.max, n, dtype=np.int64, endpoint=True)
     wide[rng.random(n) < 0.05] = I64.min
     wide[rng.random(n) < 0.05] = I64.max
@@ -2788,6 +2815,8 @@ def sort_key_cases(rng, n: int, dev) -> dict:
         f[rng.random(n) < share] = val
     keys = {"i64_wide": wide, "i64_ties": rng.integers(-3, 3, n),
             "f64": f, "const": np.full(n, 7, np.int64)}
+    for bits in (11, 20, 21, 22, 32, 33):
+        keys[f"w{bits}"] = of_width(rng, n, bits, -(1 << (bits - 1)))
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
            for k, v in keys.items()}
     out["byte"] = torch.from_numpy(rng.random(n) < 0.5).to(dev)
@@ -2796,18 +2825,25 @@ def sort_key_cases(rng, n: int, dev) -> dict:
 
 def check_sort(dev) -> int:
     """sort_perm and join_build against their plain versions on the card,
-    bit for bit: 1-3 keys over int64 extremes, ties, ±0.0 / ±inf / NaN,
-    byte and constant keys, n = 1, 2, 4095-4097, 100,003 and 10·2^20
-    (7s's two int64 keys); join_build with NULL keys, duplicates, valid
-    keys equal to the int64.max sentinel and rows past n_live."""
+    bit for bit: 1-8 keys over int64 extremes, ties, ±0.0 / ±inf / NaN,
+    byte and constant keys, keys packing into 31, 32, 33, 64 and 65 bits,
+    n = 1, 2, 2049, 4095-4097, 12,289 (last tiles of one row: the dynamic
+    tile counter's last tile), 100,003 and 10·2^20 (7s's two int64 keys);
+    join_build with NULL keys, duplicates, valid keys equal to the
+    int64.max sentinel and rows past n_live."""
     from tikv_tpu_torch.device import sort as srt
     rng = np.random.default_rng(71)
     saved = counts()
     worst = 0
     combos = (("i64_wide",), ("f64",), ("byte",), ("const",),
               ("i64_ties", "f64"), ("byte", "i64_wide", "i64_ties"),
-              ("f64", "i64_ties", "byte"))
-    for n in (1, 2, 4095, 4096, 4097, 100_003):
+              ("f64", "i64_ties", "byte"), ("w20", "w11"), ("w21", "w11"),
+              ("w22", "w11"), ("w32", "w32"), ("w33", "w32"),
+              ("byte", "w20", "const", "i64_ties", "f64", "w11", "w33",
+               "i64_wide"))
+    sizes = (1, 2, srt.TILE64 + 1, srt.TILE32 - 1, srt.TILE32,
+             srt.TILE32 + 1, 3 * srt.TILE32 + 1, 100_003)
+    for n in sizes:
         keys = sort_key_cases(rng, n, dev)
         for combo in combos:
             ks = [keys[c] for c in combo]
@@ -2815,9 +2851,12 @@ def check_sort(dev) -> int:
                              srt.sort_perm_plain(ks, n))
             torch.cuda.synchronize()
             assert err == 0, f"sort_perm {combo} n={n}: {err} rows differ"
-    print("kernel sort_perm: 7 key combinations x n in (1, 2, 4095, 4096, "
-          "4097, 100003): max_abs_err=0 tolerance=0 (permutations)",
-          flush=True)
+    bits = {"+".join(c): [g[2] for g in srt.pack_groups(
+        [srt.key_width(int(i.min()), int(i.max())) for i in
+         (srt.order_image(keys[k]) for k in c)])] for c in combos}
+    print(f"kernel sort_perm: {len(combos)} key combinations x n in "
+          f"{sizes}: max_abs_err=0 tolerance=0 (permutations); packed "
+          f"images' bits at n={sizes[-1]}: {json.dumps(bits)}", flush=True)
     n = PLAN_ROWS["probe"]
     ks = [torch.from_numpy(-rng.integers(0, PLAN_ROWS["build"], n)).to(dev),
           torch.from_numpy(rng.integers(-1000, 1000, n)).to(dev)]
@@ -2923,27 +2962,36 @@ def check_join_redispatch(dev) -> int:
 
 def check_window(dev) -> int:
     """window_scan against its plain version on the card, bit for bit:
-    int64 and float64 (NaN, ±0.0) partition keys, none, counts, int64
-    sums with NULLs, LAG / LEAD of int64 and float64 over offsets 1, 2 and
-    5, n = 1, 1023-1025, 100,003 and 10·2^20."""
+    int64 and float64 (NaN, ±0.0) partition keys, none, one partition over
+    every row (the longest look-back chain), a partition on each row,
+    counts, int64 sums with NULLs, LAG / LEAD of int64 and float64 over
+    offsets 1, 2 and 5 (the kernel's halo) and ±100 and ±5000 (past
+    ``window.CAP``: its second pass), n = 1, the tile's rows -1, 0 and +1,
+    1023-1025, 100,003 and 10·2^20."""
     from tikv_tpu_torch.device import sort as srt
     from tikv_tpu_torch.device import window as win
     rng = np.random.default_rng(73)
     saved = counts()
-    for n in (1, 1023, 1024, 1025, 100_003, PLAN_ROWS["probe"]):
+    sizes = (1, 1023, 1024, 1025, win.TILE - 1, win.TILE, win.TILE + 1,
+             100_003, PLAN_ROWS["probe"])
+    for n in sizes:
         k = torch.from_numpy(rng.integers(0, max(1, n // 20), n)).to(dev)
         f = rng.normal(0, 1, n).round(1)
         f[rng.random(n) < 0.05] = np.nan
         f[rng.random(n) < 0.05] = -0.0
         fk = torch.from_numpy(f).to(dev)
+        one = torch.zeros(n, dtype=torch.int64, device=dev)
+        each = torch.from_numpy(rng.permutation(n)).to(dev)
         v = torch.from_numpy(rng.integers(-1000, 1000, n)).to(dev)
         ok = torch.from_numpy(rng.random(n) > 0.2).to(dev)
         fv = torch.from_numpy(rng.normal(0, 1, n)).to(dev)
-        for parts in ([k], [k, fk], [fk], []):
+        for parts in ([k], [k, fk], [fk], [], [one], [each]):
             perm = srt.sort_perm(parts + [v], n)
             chans = [("count", None, ok), ("sum", v, ok),
                      ("count", None, ok)]
-            shifts = [(-2, v, ok), (1, v, ok), (-1, fv, ok), (5, fv, ok)]
+            shifts = [(-2, v, ok), (1, v, ok), (-1, fv, ok), (5, fv, ok),
+                      (-100, v, ok), (100, fv, ok), (-5000, fv, ok),
+                      (5000, v, ok)]
             got = win.window_scan(perm, parts, True, chans, shifts)
             want = win.window_scan_plain(perm, parts, True, chans, shifts)
             torch.cuda.synchronize()
@@ -2952,9 +3000,10 @@ def check_window(dev) -> int:
                 diff_count(a, b) + diff_count(c, d)
                 for (a, c), (b, d) in zip(got[2], want[2]))
             assert err == 0, f"window_scan n={n} parts={len(parts)}: {err}"
-        print(f"kernel window_scan n={n}: 4 partitionings, 3 channels, 4 "
-              f"shifts: max_abs_err=0 tolerance=0", flush=True)
-        del k, fk, v, ok, fv
+        print(f"kernel window_scan n={n}: 6 partitionings (one over every "
+              f"row, one a row), 3 channels, 8 shifts (4 past the halo): "
+              f"max_abs_err=0 tolerance=0", flush=True)
+        del k, fk, one, each, v, ok, fv
     set_counts(saved)
     return 0
 
@@ -3090,12 +3139,27 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
     keys = [-k, v]
     errs["sort_perm"] = diff_count(srt.sort_perm(keys, n),
                                    srt.sort_perm_plain(keys, n))
+    # the kernel's one packed image, built outside the timing
+    images = [srt.order_image(key) for key in keys]
+    los = [int(i.min()) for i in images]
+    groups = srt.pack_groups([srt.key_width(lo, int(i.max()))
+                              for lo, i in zip(los, images)])
+    assert len(groups) == 1, groups
+    packed = srt.packed_image(images, los, groups[0])
+    del images
+    errs["sort_perm"] += diff_count(
+        torch.argsort(packed, stable=True).to(torch.int32),
+        srt.sort_perm_plain(keys, n))
     t["sort_perm"] = {
         "ms": cuda_ms(lambda: srt.sort_perm(keys, n), 10),
         "plain_ms": cuda_ms(lambda: srt.sort_perm_plain(keys, n), 3),
         "library_ms": cuda_ms(lambda: argsorts(keys), 3),
         "library_call": "torch.argsort(stable=True) composed over the keys",
+        "packed_argsort_ms": cuda_ms(
+            lambda: torch.argsort(packed, stable=True), 3),
+        "packed_bits": groups[0][2],
         **bound_ms(n * (8 + 8 + 4), 0), "rows": n, "keys": 2}
+    del packed
     perm = srt.sort_perm([k, v], n)
     ok = torch.ones(n, dtype=torch.bool, device=dev)
     # 7w's launch: count(v), sum(v) and avg(v) share two channels

@@ -7,7 +7,10 @@ the same row mask, for every aggregate kind the device serves, over int32,
 int64 and float32 values.  States are compared after the reference
 runner's carry cast (integers to int64, floats to float64):
 
-- counts, integer sums, MIN, MAX and FIRST positions/values exactly;
+- counts, integer sums, MIN and MAX exactly;
+- FIRST against the host's rule (the first selected row, its value and
+  validity), exactly: the reference's device takes the first valid row
+  instead (fault 8, pinned in ``test_torch_first.py``);
 - REAL sums within 1e-6·Σ|v| (the reference sums a tile in float32, the
   port in float64);
 - the variance moments (float64 on both sides) within 1e-12 relative.
@@ -84,6 +87,31 @@ def assert_states_agree(got, want, kinds, v, ok):
                 np.testing.assert_array_equal(gv, wv, err_msg=f"{kind} {key}")
 
 
+def assert_simple_states_agree(specs, ref_specs, got, want, kinds, v, ok,
+                               mask):
+    """Simple states: every kind but FIRST against the reference's, FIRST
+    against the host's rule (the first selected row, its value and
+    validity; None when no row is selected), and the finalizes."""
+    fi = kinds.index("first")
+    sel = np.flatnonzero(mask)
+    first = got[fi]
+    if sel.size:
+        at = int(sel[0])
+        assert int(first["pos"]) == at and int(first["ok"]) == ok[at]
+        assert canon(first["value"]) == canon(v[at])
+        answer = v[at].item() if ok[at] else None
+    else:
+        assert int(first["pos"]) == agg._BIG and int(first["ok"]) == 0
+        answer = None
+    rest = [i for i in range(len(kinds)) if i != fi]
+    assert_states_agree([got[i] for i in rest], [want[i] for i in rest],
+                        [kinds[i] for i in rest], v, ok & mask)
+    fin = agg.finalize_simple(specs, got)
+    assert fin[fi] == answer
+    assert [fin[i] for i in rest] == ref_agg.finalize_simple(
+        [ref_specs[i] for i in rest], [got[i] for i in rest])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_simple_agg_tile_matches_reference(dtype):
     v, ok, mask = columns(dtype, 1)
@@ -92,14 +120,14 @@ def test_simple_agg_tile_matches_reference(dtype):
     cols = [(torch.from_numpy(v), torch.from_numpy(okm))] * len(KINDS)
     ref_cols = [(jnp.asarray(v), jnp.asarray(okm))] * len(KINDS)
     n_valid = int(mask.sum())
-    got = agg.simple_agg_tile(specs, cols, torch.tensor(n_valid))
+    got = agg.simple_agg_tile(specs, cols, torch.tensor(n_valid),
+                              torch.from_numpy(mask))
     want = ref_agg.simple_agg_tile(jnp, ref_specs, ref_cols,
                                    n_valid_rows=n_valid)
     got = [{k: t.numpy() for k, t in s.items()} for s in got]
     want = [{k: np.asarray(x) for k, x in s.items()} for s in want]
-    assert_states_agree(got, want, KINDS, v, okm)
-    assert agg.finalize_simple(specs, got) == \
-        ref_agg.finalize_simple(ref_specs, got)
+    assert_simple_states_agree(specs, ref_specs, got, want, KINDS, v, ok,
+                               mask)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -115,6 +115,9 @@ WINDOWS = {
                                          ("lead", 2, 3))),
     "offsets": ((0,), ((1, False),), (("lag", 1, 5), ("lead", 1, 7),
                                       ("lag", 1, 40))),
+    # past the kernel's halo (window.CAP rows): its second pass
+    "far_offsets": ((0,), ((1, False),), (("lag", 1, 100), ("lead", 1, 65),
+                                          ("lead", 2, 500), ("lag", 1, 1))),
 }
 
 
@@ -167,3 +170,25 @@ def test_window_scan_checks_its_inputs():
                         [(0, torch.zeros(3, dtype=torch.int64), ok)])
     with pytest.raises(ValueError, match="int32"):
         win.window_scan(perm.to(torch.int64), [], False, [], [])
+
+
+def test_plan_args_gathers_each_argument_once():
+    """A COUNT rides with the sum or shift over its validity; a shift
+    within CAP sets the halo on its side, one past CAP is served by the
+    second pass over its argument's view-order copy."""
+    v = torch.zeros(4, dtype=torch.int64)
+    f = torch.zeros(4, dtype=torch.float64)
+    ok, ok2 = torch.ones(4, dtype=torch.bool), torch.ones(4, dtype=torch.bool)
+    plan = win.plan_args(
+        [("count", None, ok), ("sum", v, ok), ("count", None, ok2)],
+        [(-2, v, ok), (1, v, ok), (win.CAP + 1, f, ok), (-win.CAP, f, ok)])
+    assert [(a is None or a.data_ptr(), b.data_ptr())
+            for a, b in plan["args"]] == [
+        (v.data_ptr(), ok.data_ptr()), (f.data_ptr(), ok.data_ptr()),
+        (True, ok2.data_ptr())]
+    assert plan["ch_arg"] == [0, 0, 2] and plan["sh_arg"] == [0, 0, 1, 1]
+    assert (plan["lag_halo"], plan["lead_halo"]) == (win.CAP, 1)
+    assert plan["far"] == [1]
+    bare = win.plan_args([("count", None, ok)], [])
+    assert bare["ch_arg"] == [0] and bare["args"][0][0] is None
+    assert (bare["lag_halo"], bare["lead_halo"], bare["far"]) == (0, 0, [])

@@ -19,8 +19,10 @@
 //   min, max         the order-preserving int64 image of the value (the
 //                    value for integers; a float's float64 bits with the
 //                    sign folded, -0.0 as +0.0)
-//   first, firstval  the least valid row position (no GROUP BY: the
-//                    registers route) and the value there
+//   first, firstval, firstok  the first selected row position, NULL or
+//                    not (no GROUP BY: the registers route), the value
+//                    there and its validity (a NULL first row makes
+//                    FIRST NULL, as TiKV's AggrFnFirst)
 //
 // Bound: bytes.  The key (or slot ids), the selection and each lane's
 // values and validity read once: 8 B/row at config 4m (int32 key and
@@ -54,7 +56,7 @@
 //     in flight: a 4-byte lane's MIN/MAX on 32-bit images, an integer
 //     lane's exact sum (its float sum is that sum) and, for int32, its sum
 //     of squares in a 128-bit (two uint64) accumulator; FIRST is the first
-//     valid row a thread meets, since it visits its rows in ascending
+//     selected row a thread meets, since it visits its rows in ascending
 //     order.  Each warp reduces with shuffles and one lane adds into the
 //     buffer; the last block to finish (one atomic ticket) reads FIRST's
 //     value, so the fold is one launch after `fold_init`.
@@ -108,7 +110,7 @@ struct FoldParams {
   int o_rows;
   int o_nonnull[MAX_LANES], o_isum[MAX_LANES], o_fsum[MAX_LANES],
       o_sumsq[MAX_LANES], o_min[MAX_LANES], o_max[MAX_LANES],
-      o_first[MAX_LANES], o_firstval[MAX_LANES];
+      o_first[MAX_LANES], o_firstval[MAX_LANES], o_firstok[MAX_LANES];
   // shared route cells: 32-bit (cell 0 is the row count; the sum's n_sum
   // cells and the square's n_sq limbs from c_sum / c_sq), then float64
   int c_nonnull[MAX_LANES], c_sum[MAX_LANES], n_sum[MAX_LANES],
@@ -731,10 +733,11 @@ __device__ __forceinline__ void simple_pass(const FoldParams& p, int j,
 #pragma unroll
     for (int u = 0; u < UNROLL_R; ++u) {
       rows += __popc(live[u]);
+      const long long i = t * TILE_R + 4LL * (u * THREADS + threadIdx.x);
+      if (has_lane && first == LLONG_MAX && live[u] != 0)
+        first = i + __ffs(live[u]) - 1;
       if (!has_lane || vok[u] == 0) continue;
       nn += __popc(vok[u]);
-      const long long i = t * TILE_R + 4LL * (u * THREADS + threadIdx.x);
-      if (first == LLONG_MAX) first = i + __ffs(vok[u]) - 1;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (!((vok[u] >> r) & 1u)) continue;
@@ -773,6 +776,12 @@ __device__ __forceinline__ void simple_pass(const FoldParams& p, int j,
     if (lead && total) add_u64(cell(p, p.o_rows, 0), total);
   }
   if (!has_lane) return;
+  // FIRST before the early return: a warp whose selected rows are all
+  // NULL still holds the first selected position
+  if (p.o_first[j] >= 0) {
+    const long long t = warp_min(first);
+    if (lead && t != LLONG_MAX) atomicMin(cell(p, p.o_first[j], 0), t);
+  }
   const long long c = warp_sum(static_cast<long long>(nn));
   if (c == 0) return;
   if (p.o_nonnull[j] >= 0 && lead) add_u64(cell(p, p.o_nonnull[j], 0), c);
@@ -807,22 +816,21 @@ __device__ __forceinline__ void simple_pass(const FoldParams& p, int j,
       t = warp_max((long long)mx);
     if (lead) atomicMax(cell(p, p.o_max[j], 0), t);
   }
-  if (p.o_first[j] >= 0) {
-    const long long t = warp_min(first);
-    if (lead) atomicMin(cell(p, p.o_first[j], 0), t);
-  }
 }
 
 // FIRST's value: the lane's value at its first position (at row n - 1
 // when there is none, as the plain version indexes), int64 for integers,
-// float64 bits for floats
+// float64 bits for floats; and that row's validity (0 when there is none)
 __device__ __forceinline__ void first_value(const FoldParams& p, int j) {
-  long long at = *reinterpret_cast<volatile long long*>(
+  const long long first = *reinterpret_cast<volatile long long*>(
       cell(p, p.o_first[j], 0));
-  at = at < p.n - 1 ? at : p.n - 1;
+  const long long at = first < p.n - 1 ? first : p.n - 1;
   const Value v = load(p, j, at);
   *cell(p, p.o_firstval[j], 0) =
       p.dtype[j] <= DT_INT64 ? v.iv : __double_as_longlong(v.dv);
+  if (p.o_firstok[j] >= 0)
+    *cell(p, p.o_firstok[j], 0) =
+        first != LLONG_MAX && (p.ok[j] == nullptr || p.ok[j][at] != 0);
 }
 
 // DT: the dtype of every lane of the launch (the launcher groups lanes by

@@ -13,35 +13,52 @@
 //                 the sorted keys sk, the permutation and prefix[n + 1],
 //                 the running count of valid rows in sorted order.
 //
-// The sort is LSD radix over 8-bit digits of a 64-bit unsigned image of
-// each key, keys taken from the least significant to the most, each key
-// read through the permutation the keys after it left (a gather), so the
-// composition is one stable sort by all keys.  Images: int64 with its sign
-// bit flipped; float64 with -0.0 as +0.0, every NaN one image above +inf,
-// then all bits of a negative flipped and the sign bit of a positive set;
-// a byte key (0/1) as itself.  Per key, one pass finds the least and
-// greatest image; the digits are those of (image - least), and a pass whose
-// digit is zero for every row (at or above the top byte of the range) is
-// not launched, so keys of a narrow range take few passes: config 7's k (2^20
-// values) three, v (2000 values) two.  A pass is three kernels: a 256-bin
-// histogram per tile of 4096 rows (shared-memory atomics); an exclusive
-// scan of the (digit, tile) counts, one block per digit; a stable scatter:
-// each tile walks its rows in rounds of 256 in row order, a warp ranks its
-// lanes of equal digit with __match_any_sync, the warps before it in the
-// round add their counts of that digit, and the rounds before add theirs,
-// so rows of one digit keep their input order (stability is the contract:
-// np.argsort(kind="stable") and jnp.argsort compose the same way).
-// The host reads each key's range (16 bytes and one stream sync a key)
-// and launches only its live passes; the permutation alternates between
-// the output and a scratch buffer, and one copy moves it back when it
-// ends in the scratch.  Block scans are CUB's (scan.cuh).
+// Order images: each key becomes a 64-bit unsigned image that sorts as the
+// key does: int64 with its sign bit flipped; float64 with -0.0 as +0.0,
+// every NaN one image above +inf, then all bits of a negative flipped and
+// the sign bit of a positive set; a byte key (0/1) as itself.
 //
-// Bound: bytes.  A live pass reads the images and the permutation (12 B a
-// row) for its histogram and scatter and writes them once (12 B); config
-// 7s (10,485,760 rows, two int64 keys, 3 + 2 live passes) is about 1.3 GB
-// of traffic against the 0.21 GB a one-read-one-write sort would move.
-// The scatter's writes are scattered by digit (256 runs per tile); rows
-// of one digit in one round land in consecutive slots.
+// Design (Adinets and Merrill, "Onesweep: A Faster Least Significant
+// Digit Radix Sort for GPUs", 2022), per sort:
+//   1. sort_range: one kernel reads every key once, in source order, and
+//      keeps each key's least and greatest image; the host copies those
+//      16 bytes a key and synchronizes once.
+//   2. The host (device/sort.py pack_groups) gives key k the width w_k =
+//      bits(greatest - least) and packs consecutive keys, from the least
+//      significant, into one unsigned image sum((img_k - least_k) <<
+//      off_k) while the widths sum to at most 64 (a constant key has width
+//      0 and drops out).  A stable LSD sort of the packed image is the
+//      composed stable sorts of its keys, since the fields' lexicographic
+//      order is the numeric order of their concatenation.  A group of at
+//      most 32 bits sorts a 32-bit image.  Keys that do not fit form groups
+//      of their own, sorted least significant group first, each later one
+//      read through the permutation so far.
+//   3. Per group, pack_kernel reads its keys (through the permutation for a
+//      later group) once, writes the packed image and, in the same read,
+//      the histogram of every 8-bit digit of it.
+//   4. Then one kernel per 8-bit digit (onesweep_kernel).  Each block takes
+//      a tile index from an atomic counter, so it waits only on tiles that
+//      are already running; loads its rows (a warp's rows consecutive);
+//      ranks them by digit in shared memory (a warp's lanes of one digit by
+//      __match_any_sync, per-warp counts, then a scan over warps and
+//      digits), so rows of one digit keep their order; publishes its digit
+//      counts by decoupled look-back (one 64-bit status word per tile and
+//      digit: a flag and a count, the flag either the tile's own count or
+//      the inclusive count of every tile up to it); and writes its rows out
+//      of shared memory in digit order, so consecutive threads write each
+//      digit's run.  The first pass of the first group reads no
+//      permutation (row i is source row i); the last pass writes no image;
+//      the permutation alternates so that every group's last pass writes
+//      the output.
+// Block scans are CUB's (scan.cuh).
+//
+// Bound: bytes.  Reading each key once and writing the permutation once:
+// at config 7s (10,485,760 rows; -k, 2^20 values, and v, 2000 values: 20 +
+// 11 = 31 bits, one 32-bit group, four passes) 0.21 GB, 0.063 ms.  This
+// design moves about 16 B a row for the range, 20 for the pack, 12 + 16 +
+// 16 + 12 for the passes: about 1 GB.  On an H100 the four passes take
+// about 0.59 ms there and the pack 0.08 (PERF.md); a pass's tiles spend
+// most of their time loading and ranking.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,38 +66,48 @@
 #include "scan.cuh"
 
 #define THREADS 256
-#define ITEMS 16
-#define TILE (THREADS * ITEMS)  // rows of one histogram / scatter tile
-#define RADIX 256
 #define WARPS (THREADS / 32)
+#define RADIX 256
+#define DIGIT_BITS 8
+#define ITEMS32 16
+#define ITEMS64 8
+#define TILE32 (THREADS * ITEMS32)  // rows of a pass tile, 32-bit images
+#define TILE64 (THREADS * ITEMS64)  // the same, 64-bit images
 #define MAX_KEYS 8
-
+#define MAX_PASSES (64 / DIGIT_BITS)
 
 typedef unsigned long long u64;
 
 enum { KIND_I64 = 0, KIND_F64 = 1, KIND_U8 = 2 };
 
-// sort_perm's launch parameters (device/sort.py mirrors the layout).  The
-// scratch is the wrapper's: img[2] u64[n], tmp int32[n], hist int32[256 x
-// n_tiles], totals int32[256], minmax u64[2] (a key's least and greatest
-// image).
+// A sort's launch parameters (device/sort.py mirrors the layout).
+// sort_range fills range; the host then sets lo and the groups.  The
+// scratch is the wrapper's: img[2] (n rows of 8 bytes each), tmp int32[n],
+// work (work_words u64, zeroed here: per group and pass the tiles' status
+// words, the digit histogram and the tile counter).
 struct SortParams {
   long long n;
   int n_keys;
   const void* keys[MAX_KEYS];  // most significant first
   int kinds[MAX_KEYS];
+  u64 lo[MAX_KEYS];            // each key's least image
+  int n_groups;                // least significant group first
+  int g_count[MAX_KEYS];       // keys in each group
+  int g_key[MAX_KEYS][MAX_KEYS];
+  int g_off[MAX_KEYS][MAX_KEYS];  // each key's bit offset in its group
+  int g_bits[MAX_KEYS];        // a group's width, 1..64
   int* perm;                   // out: int32[n]
-  u64* img[2];
+  void* img[2];
   int* tmp;
-  int* hist;
-  int* totals;
-  u64* minmax;
+  u64* range;                  // per key: least image, ~greatest image
+  u64* work;
+  long long work_words;
 };
 
 // join_build's extra buffers: keys int64[n], valid uint8[n] (rows at or
 // past n_live are invalid), skey int64[n] and nsv uint8[n] (scratch), sk
-// int64[n] and prefix int64[n + 1] (out), tile_sums int64[n_tiles] and
-// total int64[1] (scratch).
+// int64[n] and prefix int64[n + 1] (out), tile_sums int64[n_tiles]
+// (scratch).
 struct BuildParams {
   const long long* keys;
   const unsigned char* valid;
@@ -94,12 +121,17 @@ struct BuildParams {
 
 namespace {
 
-__device__ __forceinline__ u64 key_image(const void* key, int kind,
-                                         long long i) {
-  if (kind == KIND_I64)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr u64 FLAG_AGG = 1ull << 62;     // the tile's own digit count
+constexpr u64 FLAG_PREFIX = 2ull << 62;  // the count of tiles [0, tile]
+constexpr u64 COUNT_MASK = (1ull << 62) - 1;
+
+template <int KIND>
+__device__ __forceinline__ u64 key_image(const void* key, long long i) {
+  if (KIND == KIND_I64)
     return (u64)(static_cast<const long long*>(key)[i]) ^
            0x8000000000000000ull;
-  if (kind == KIND_F64) {
+  if (KIND == KIND_F64) {
     const double d = static_cast<const double*>(key)[i];
     if (d != d) return 0xffffffffffffffffull;  // NaN: after +inf
     const u64 b = d == 0.0 ? 0ull : (u64)__double_as_longlong(d);
@@ -108,118 +140,345 @@ __device__ __forceinline__ u64 key_image(const void* key, int kind,
   return static_cast<const unsigned char*>(key)[i];
 }
 
-// the images of one key in the permutation's order, and their range; the
-// first key processed also writes the identity permutation
+#define UNROLL 4  // rows a thread loads before it uses any (range, pack)
+
+// x[u] |= (image of row src[u] - lo) << off for the live rows u of a
+// chunk: every load issued before the first use
+template <int KIND>
+__device__ __forceinline__ void or_images(u64 (&x)[UNROLL], const void* key,
+                                          const long long (&src)[UNROLL],
+                                          unsigned live, u64 lo, int off) {
+  u64 img[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u)
+    img[u] = (live >> u) & 1u ? key_image<KIND>(key, src[u]) : lo;
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) x[u] |= (img[u] - lo) << off;
+}
+
+template <int KIND>
+__device__ __forceinline__ void range_rows(const void* key, long long n,
+                                           u64& lo, u64& nhi) {
+  const long long step = (long long)gridDim.x * THREADS * UNROLL;
+  for (long long b = (long long)blockIdx.x * THREADS * UNROLL + threadIdx.x;
+       b < n; b += step) {
+    u64 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = b + u * THREADS;
+      v[u] = i < n ? key_image<KIND>(key, i) : key_image<KIND>(key, b);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      lo = v[u] < lo ? v[u] : lo;
+      nhi = ~v[u] < nhi ? ~v[u] : nhi;
+    }
+  }
+}
+
+__device__ __forceinline__ u64 warp_min(u64 x) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 y = __shfl_xor_sync(FULL, x, o);
+    x = y < x ? y : x;
+  }
+  return x;
+}
+
+// blockIdx.y: the key; each block folds its rows' least image and the
+// complement of the greatest (so both fold by minimum) into range
 __global__ void __launch_bounds__(THREADS)
-    image_kernel(const void* key, int kind, int* perm, int first, u64* img,
-                 long long n, u64* minmax) {
-  u64 lo = ~0ull, hi = 0;
+    range_kernel(const __grid_constant__ SortParams p) {
+  const int k = blockIdx.y;
+  u64 lo = ~0ull, nhi = ~0ull;
+  if (p.kinds[k] == KIND_I64)
+    range_rows<KIND_I64>(p.keys[k], p.n, lo, nhi);
+  else if (p.kinds[k] == KIND_F64)
+    range_rows<KIND_F64>(p.keys[k], p.n, lo, nhi);
+  else
+    range_rows<KIND_U8>(p.keys[k], p.n, lo, nhi);
+  lo = warp_min(lo);
+  nhi = warp_min(nhi);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&p.range[2 * k], lo);
+    atomicMin(&p.range[2 * k + 1], nhi);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    iota_kernel(int* perm, long long n) {
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    long long src = i;
-    if (first)
-      perm[i] = (int)i;
-    else
-      src = perm[i];
-    const u64 v = key_image(key, kind, src);
-    img[i] = v;
-    lo = v < lo ? v : lo;
-    hi = v > hi ? v : hi;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const u64 a = __shfl_down_sync(0xffffffffu, lo, o);
-    const u64 b = __shfl_down_sync(0xffffffffu, hi, o);
-    lo = a < lo ? a : lo;
-    hi = b > hi ? b : hi;
-  }
-  __shared__ u64 wl[WARPS], wh[WARPS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    wl[warp] = lo;
-    wh[warp] = hi;
-  }
+       i += stride)
+    perm[i] = (int)i;
+}
+
+// group g's packed image of each row (source row i, or perm[i] for a later
+// group; perm_copy, when set, gets perm), and the counts of each of its
+// passes' digits into hist[q * hist_stride + digit]
+template <typename K>
+__global__ void __launch_bounds__(THREADS)
+    pack_kernel(const __grid_constant__ SortParams p, int g, const int* perm,
+                int* perm_copy, K* img, int passes, u64* hist,
+                long long hist_stride) {
+  __shared__ unsigned cnt[MAX_PASSES][RADIX];
+  for (int q = 0; q < passes; ++q) cnt[q][threadIdx.x] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < WARPS; ++w) {
-      lo = wl[w] < lo ? wl[w] : lo;
-      hi = wh[w] > hi ? wh[w] : hi;
+  const int nk = p.g_count[g];
+  const long long step = (long long)gridDim.x * THREADS * UNROLL;
+  for (long long b = (long long)blockIdx.x * THREADS * UNROLL + threadIdx.x;
+       b < p.n; b += step) {
+    long long src[UNROLL];
+    unsigned live = 0;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = b + u * THREADS;
+      src[u] = i;
+      if (i < p.n) live |= 1u << u;
     }
-    atomicMin(&minmax[0], lo);
-    atomicMax(&minmax[1], hi);
+    if (perm != nullptr) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if ((live >> u) & 1u) src[u] = perm[src[u]];
+      if (perm_copy != nullptr) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if ((live >> u) & 1u) perm_copy[b + u * THREADS] = (int)src[u];
+      }
+    }
+    u64 x[UNROLL] = {};
+    for (int j = 0; j < nk; ++j) {
+      const int k = p.g_key[g][j];
+      const void* key = p.keys[k];
+      const u64 lo = p.lo[k];
+      const int off = p.g_off[g][j];
+      if (p.kinds[k] == KIND_I64)
+        or_images<KIND_I64>(x, key, src, live, lo, off);
+      else if (p.kinds[k] == KIND_F64)
+        or_images<KIND_F64>(x, key, src, live, lo, off);
+      else
+        or_images<KIND_U8>(x, key, src, live, lo, off);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (!((live >> u) & 1u)) continue;
+      img[b + u * THREADS] = (K)x[u];
+      for (int q = 0; q < passes; ++q)
+        atomicAdd(&cnt[q][(x[u] >> (DIGIT_BITS * q)) & (RADIX - 1)], 1u);
+    }
+  }
+  __syncthreads();
+  for (int q = 0; q < passes; ++q) {
+    const unsigned c = cnt[q][threadIdx.x];
+    if (c) atomicAdd(&hist[q * hist_stride + threadIdx.x], (u64)c);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    hist_kernel(const u64* img, long long n, int shift, u64 mn, int* hist,
-                int n_tiles) {
-  __shared__ int cnt[RADIX];
-  cnt[threadIdx.x] = 0;
-  __syncthreads();
-  const long long start = (long long)blockIdx.x * TILE;
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = start + j * THREADS + threadIdx.x;
-    if (i < n) atomicAdd(&cnt[((img[i] - mn) >> shift) & 0xff], 1);
+// the rows of the tiles before `tile` whose digit is `d` (thread d spins on
+// each earlier tile's word until it holds a count; tile 0's is inclusive)
+__device__ __forceinline__ u64 look_back(const u64* status, long long tile,
+                                         int d) {
+  u64 excl = 0;
+  for (long long j = tile - 1;;) {
+    const u64 s = *reinterpret_cast<const volatile u64*>(
+        status + j * RADIX + d);
+    if ((s & ~COUNT_MASK) == 0) continue;
+    excl += s & COUNT_MASK;
+    if ((s & ~COUNT_MASK) == FLAG_PREFIX) return excl;
+    --j;
   }
-  __syncthreads();
-  hist[(long long)threadIdx.x * n_tiles + blockIdx.x] = cnt[threadIdx.x];
 }
 
-// block d: the exclusive scan of digit d's counts over the tiles, in place;
-// totals[d] = all rows of digit d
-__global__ void __launch_bounds__(THREADS)
-    scan_tiles_kernel(int* hist, int n_tiles, int* totals) {
-  const int all =
-      block_scan_row<THREADS>(hist + (long long)blockIdx.x * n_tiles, n_tiles);
-  if (threadIdx.x == 0) totals[blockIdx.x] = all;
+__device__ __forceinline__ void publish(u64* word, u64 v) {
+  *reinterpret_cast<volatile u64*>(word) = v;
 }
 
+// One stable pass over the digit at `shift`: (kin, vin) → (kout, vout),
+// vin null for row indices, kout null on the last pass.  hist: the
+// pass's digit counts over all rows; status: n_tiles x RADIX zeroed words;
+// counter: the zeroed tile counter.
+template <typename K, int ITEMS>
 __global__ void __launch_bounds__(THREADS)
-    scatter_kernel(const u64* img_in, const int* perm_in, u64* img_out,
-                   int* perm_out, long long n, int shift, u64 mn,
-                   const int* hist, const int* totals, int n_tiles) {
-  __shared__ int base[RADIX];
-  __shared__ int wcnt[WARPS][RADIX];
+    onesweep_kernel(const K* __restrict__ kin, K* kout,
+                    const int* __restrict__ vin, int* vout, long long n,
+                    int shift, const u64* hist, u64* status, u64* counter) {
+  constexpr int TILE = THREADS * ITEMS;
+  __shared__ long long s_tile;
+  __shared__ int whist[WARPS][RADIX];   // per warp: counts, then offsets
+  __shared__ int s_start[RADIX];        // a digit's first slot in the tile
+  __shared__ long long s_base[RADIX];   // its output row, less s_start
+  __shared__ K s_key[TILE];
+  __shared__ int s_val[TILE];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int all;
-  const int excl =
-      block_exclusive_scan<THREADS>(totals[t], Add<int>(), 0, &all);
-  base[t] = excl + hist[(long long)t * n_tiles + blockIdx.x];
-  for (int w = 0; w < WARPS; ++w) wcnt[w][t] = 0;
+  if (t == 0) s_tile = (long long)atomicAdd(counter, 1ull);
+  for (int w = 0; w < WARPS; ++w) whist[w][t] = 0;
   __syncthreads();
-  const long long start = (long long)blockIdx.x * TILE;
-  const unsigned below = (1u << lane) - 1;
-  for (int r = 0; r < ITEMS; ++r) {
-    const long long i = start + r * THREADS + t;
-    const bool live = i < n;
-    u64 v = 0;
-    int p = 0;
-    unsigned d = RADIX;  // rows past n share a digit no row has
-    if (live) {
-      v = img_in[i];
-      p = perm_in[i];
-      d = (unsigned)(((v - mn) >> shift) & 0xff);
-    }
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank = __popc(peers & below);
-    if (live && rank == 0) wcnt[warp][d] = __popc(peers);
-    __syncthreads();
-    if (live) {
-      int pre = 0;
-      for (int w = 0; w < warp; ++w) pre += wcnt[w][d];
-      const int dst = base[d] + pre + rank;
-      img_out[dst] = v;
-      perm_out[dst] = p;
-    }
-    __syncthreads();
-    int s = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      s += wcnt[w][t];
-      wcnt[w][t] = 0;
-    }
-    base[t] += s;
-    __syncthreads();
+  const long long tile = s_tile;
+  const long long start = tile * TILE;
+  const int rows = (int)(n - start < TILE ? n - start : TILE);
+  // a warp's rows are consecutive: item j of lane l is row j * 32 + l
+  const int wrow = warp * 32 * ITEMS;
+  K key[ITEMS];
+  int val[ITEMS], rank[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int r = wrow + j * 32 + lane;
+    const long long i = start + r;
+    const bool live = r < rows;
+    key[j] = live ? kin[i] : (K)0;
+    val[j] = live ? (vin != nullptr ? vin[i] : (int)i) : 0;
   }
+  const unsigned below = (1u << lane) - 1;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const bool live = wrow + j * 32 + lane < rows;
+    // rows past n share a digit no row has
+    const unsigned d =
+        live ? (unsigned)(key[j] >> shift) & (RADIX - 1) : RADIX;
+    const unsigned peers = __match_any_sync(FULL, d);
+    const int pre = live ? whist[warp][d] : 0;
+    rank[j] = pre + __popc(peers & below);
+    __syncwarp();
+    if (live && (peers & below) == 0) whist[warp][d] = pre + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // thread t owns digit t: the warps' offsets, the tile's count
+  int cnt = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = whist[w][t];
+    whist[w][t] = cnt;
+    cnt += c;
+  }
+  u64* mine = status + tile * RADIX + t;
+  if (tile == 0)
+    publish(mine, FLAG_PREFIX | (u64)cnt);
+  else
+    publish(mine, FLAG_AGG | (u64)cnt);
+  int tile_rows;
+  const int lstart =
+      block_exclusive_scan<THREADS>(cnt, Add<int>(), 0, &tile_rows);
+  u64 all;
+  const u64 gstart =
+      block_exclusive_scan<THREADS>(hist[t], Add<u64>(), 0ull, &all);
+  u64 excl = 0;
+  if (tile > 0) {
+    excl = look_back(status, tile, t);
+    publish(mine, FLAG_PREFIX | (excl + (u64)cnt));
+  }
+  s_start[t] = lstart;
+  s_base[t] = (long long)(gstart + excl) - lstart;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (wrow + j * 32 + lane >= rows) continue;
+    const unsigned d = (unsigned)(key[j] >> shift) & (RADIX - 1);
+    const int at = s_start[d] + whist[warp][d] + rank[j];
+    s_key[at] = key[j];
+    s_val[at] = val[j];
+  }
+  __syncthreads();
+  for (int s = t; s < rows; s += THREADS) {
+    const K k = s_key[s];
+    const long long dst = s_base[(k >> shift) & (RADIX - 1)] + s;
+    if (kout != nullptr) kout[dst] = k;
+    vout[dst] = s_val[s];
+  }
+}
+
+unsigned grid_of(long long n) {
+  long long b = (n + THREADS - 1) / THREADS;
+  if (b > 2048) b = 2048;
+  return (unsigned)(b < 1 ? 1 : b);
+}
+
+int passes_of(int bits) { return (bits + DIGIT_BITS - 1) / DIGIT_BITS; }
+
+long long tiles_of(long long n, int bits) {
+  const long long tile = bits <= 32 ? TILE32 : TILE64;
+  return (n + tile - 1) / tile;
+}
+
+// the words of work one group takes: per pass its tiles' status words,
+// RADIX histogram counts and one tile counter
+long long group_words(long long n, int bits) {
+  return passes_of(bits) * (tiles_of(n, bits) * RADIX + RADIX + 1);
+}
+
+template <typename K, int ITEMS>
+cudaError_t sort_group(const SortParams& p, int g, int first, u64* work,
+                       cudaStream_t s) {
+  const long long n = p.n;
+  const int bits = p.g_bits[g];
+  const int passes = passes_of(bits);
+  const long long n_tiles = (n + THREADS * ITEMS - 1) / (THREADS * ITEMS);
+  u64* hist = work;                        // passes x RADIX
+  u64* counters = hist + passes * RADIX;   // passes
+  u64* status = counters + passes;         // passes x n_tiles x RADIX
+  // the pass outputs alternate so that the last one is perm; a later
+  // group's first pass reads perm unless it writes it, then a copy
+  int* out0 = (passes - 1) % 2 == 0 ? p.perm : p.tmp;
+  const int* in0 = nullptr;
+  int* copy = nullptr;
+  if (!first) {
+    if (out0 == p.perm) {
+      copy = p.tmp;
+      in0 = p.tmp;
+    } else {
+      in0 = p.perm;
+    }
+  }
+  K* img[2] = {static_cast<K*>(p.img[0]), static_cast<K*>(p.img[1])};
+  // a few blocks an SM, so few global histogram adds
+  const unsigned pack_grid = grid_of(n) < 512 ? grid_of(n) : 512;
+  pack_kernel<K><<<pack_grid, THREADS, 0, s>>>(
+      p, g, first ? nullptr : p.perm, copy, img[0], passes, hist, RADIX);
+  const int* vin = in0;
+  for (int q = 0; q < passes; ++q) {
+    int* vout = (passes - 1 - q) % 2 == 0 ? p.perm : p.tmp;
+    onesweep_kernel<K, ITEMS><<<(unsigned)n_tiles, THREADS, 0, s>>>(
+        img[q & 1], q == passes - 1 ? nullptr : img[(q + 1) & 1], vin, vout,
+        n, DIGIT_BITS * q, hist + q * RADIX,
+        status + (long long)q * n_tiles * RADIX, counters + q);
+    vin = vout;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t run_groups(const SortParams* p, cudaStream_t s) {
+  const long long n = p->n;
+  long long words = 0;
+  for (int g = 0; g < p->n_groups; ++g) {
+    if (p->g_bits[g] < 1 || p->g_bits[g] > 64 || p->g_count[g] < 1)
+      return cudaErrorInvalidValue;
+    words += group_words(n, p->g_bits[g]);
+  }
+  if (words > p->work_words) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (p->n_groups == 0) {
+    iota_kernel<<<grid_of(n), THREADS, 0, s>>>(p->perm, n);
+    return cudaGetLastError();
+  }
+  if ((e = cudaMemsetAsync(p->work, 0, sizeof(u64) * words, s)) !=
+      cudaSuccess)
+    return e;
+  u64* work = p->work;
+  for (int g = 0; g < p->n_groups; ++g) {
+    e = p->g_bits[g] <= 32
+            ? sort_group<unsigned, ITEMS32>(*p, g, g == 0, work, s)
+            : sort_group<u64, ITEMS64>(*p, g, g == 0, work, s);
+    if (e != cudaSuccess) return e;
+    work += group_words(n, p->g_bits[g]);
+  }
+  return cudaSuccess;
+}
+
+cudaError_t run_range(const SortParams* p, cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(p->range, 0xff,
+                                  sizeof(u64) * 2 * p->n_keys, s);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(grid_of(p->n) < 512 ? grid_of(p->n) : 512, p->n_keys);
+  range_kernel<<<grid, THREADS, 0, s>>>(*p);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -235,15 +494,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+#define BUILD_ITEMS 16
+#define BUILD_TILE (THREADS * BUILD_ITEMS)
+
 // sk = skey[perm]; each tile's count of valid rows (thread t takes rows
-// [start + t * ITEMS, + ITEMS), the layout of build_prefix_kernel)
+// [start + t * BUILD_ITEMS, + BUILD_ITEMS), the layout of
+// build_prefix_kernel)
 __global__ void __launch_bounds__(THREADS)
     build_gather_kernel(const long long* skey, const unsigned char* nsv,
                         const int* perm, long long n, long long* sk,
                         long long* tile_sums) {
-  const long long start = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
+  const long long start =
+      (long long)blockIdx.x * BUILD_TILE + threadIdx.x * BUILD_ITEMS;
   long long c = 0;
-  for (int j = 0; j < ITEMS; ++j) {
+  for (int j = 0; j < BUILD_ITEMS; ++j) {
     const long long i = start + j;
     if (i < n) {
       const int p = perm[i];
@@ -260,15 +524,16 @@ __global__ void __launch_bounds__(THREADS)
     build_prefix_kernel(const unsigned char* nsv, const int* perm,
                         long long n, const long long* tile_off,
                         long long* prefix) {
-  const long long start = (long long)blockIdx.x * TILE + threadIdx.x * ITEMS;
+  const long long start =
+      (long long)blockIdx.x * BUILD_TILE + threadIdx.x * BUILD_ITEMS;
   long long c = 0;
-  for (int j = 0; j < ITEMS; ++j)
+  for (int j = 0; j < BUILD_ITEMS; ++j)
     if (start + j < n) c += 1 - nsv[perm[start + j]];
   long long tot;
   long long run = tile_off[blockIdx.x] +
                   block_exclusive_scan<THREADS>(c, Add<long long>(), 0ll, &tot);
   if (blockIdx.x == 0 && threadIdx.x == 0) prefix[0] = 0;
-  for (int j = 0; j < ITEMS; ++j) {
+  for (int j = 0; j < BUILD_ITEMS; ++j) {
     const long long i = start + j;
     if (i < n) {
       run += 1 - nsv[perm[i]];
@@ -277,56 +542,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-unsigned grid_of(long long n) {
-  long long b = (n + THREADS - 1) / THREADS;
-  if (b > 4096) b = 4096;
-  return (unsigned)(b < 1 ? 1 : b);
-}
-
-// the live passes of a key: the bytes of its range of images
-int live_passes(u64 range) {
-  int q = 0;
-  for (; range != 0; range >>= 8) ++q;
-  return q;
-}
-
-cudaError_t run_sort(const SortParams* p, cudaStream_t s) {
-  const long long n = p->n;
-  const int n_tiles = (int)((n + TILE - 1) / TILE);
-  int* cur = p->perm;  // the permutation so far
-  int* alt = p->tmp;
-  cudaError_t e;
-  for (int k = p->n_keys - 1; k >= 0; --k) {
-    u64 mm[2];
-    if ((e = cudaMemsetAsync(p->minmax, 0xff, 8, s)) != cudaSuccess ||
-        (e = cudaMemsetAsync(p->minmax + 1, 0, 8, s)) != cudaSuccess)
-      return e;
-    image_kernel<<<grid_of(n), THREADS, 0, s>>>(
-        p->keys[k], p->kinds[k], cur, k == p->n_keys - 1, p->img[0], n,
-        p->minmax);
-    if ((e = cudaMemcpyAsync(mm, p->minmax, sizeof mm,
-                             cudaMemcpyDeviceToHost, s)) != cudaSuccess ||
-        (e = cudaStreamSynchronize(s)) != cudaSuccess)
-      return e;
-    const int passes = live_passes(mm[1] - mm[0]);
-    for (int q = 0; q < passes; ++q) {
-      const int shift = 8 * q;
-      hist_kernel<<<n_tiles, THREADS, 0, s>>>(p->img[q & 1], n, shift, mm[0],
-                                              p->hist, n_tiles);
-      scan_tiles_kernel<<<RADIX, THREADS, 0, s>>>(p->hist, n_tiles,
-                                                  p->totals);
-      scatter_kernel<<<n_tiles, THREADS, 0, s>>>(
-          p->img[q & 1], cur, p->img[(q + 1) & 1], alt, n, shift, mm[0],
-          p->hist, p->totals, n_tiles);
-      int* t = cur;
-      cur = alt;
-      alt = t;
-    }
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  if (cur != p->perm)
-    return cudaMemcpyAsync(p->perm, cur, sizeof(int) * n,
-                           cudaMemcpyDeviceToDevice, s);
+cudaError_t check_keys(const SortParams* p) {
+  if (p->n < 1 || p->n_keys < 1 || p->n_keys > MAX_KEYS ||
+      p->n_groups < 0 || p->n_groups > MAX_KEYS)
+    return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -334,32 +553,45 @@ cudaError_t run_sort(const SortParams* p, cudaStream_t s) {
 
 extern "C" {
 
-// n >= 1; 1 <= n_keys <= MAX_KEYS
-int sort_perm_launch(int device, const SortParams* p, void* stream) {
+// each key's least and greatest image into p->range (the wrapper reads
+// them, picks the groups and calls sort_groups_launch); n >= 1
+int sort_range_launch(int device, const SortParams* p, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (p->n < 1 || p->n_keys < 1 || p->n_keys > MAX_KEYS)
-    return cudaErrorInvalidValue;
-  return run_sort(p, static_cast<cudaStream_t>(stream));
+  if ((e = check_keys(p)) != cudaSuccess) return e;
+  return run_range(p, static_cast<cudaStream_t>(stream));
 }
 
-// `p` sorts by (skey, nsv): its keys, kinds and n are set here
-int join_build_launch(int device, SortParams* p, const BuildParams* b,
-                      void* stream) {
+// the permutation by p's groups (none: the identity)
+int sort_groups_launch(int device, const SortParams* p, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if ((e = check_keys(p)) != cudaSuccess) return e;
+  return run_groups(p, static_cast<cudaStream_t>(stream));
+}
+
+// join_build, before its sort: skey and nsv, and their ranges; `p` sorts
+// by (skey, nsv) and names them as its keys
+int join_build_prep_launch(int device, const SortParams* p,
+                           const BuildParams* b, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if ((e = check_keys(p)) != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  build_prep_kernel<<<grid_of(p->n), THREADS, 0, s>>>(
+      b->keys, b->valid, b->n_live, p->n, b->skey, b->nsv);
+  return run_range(p, s);
+}
+
+// join_build, after its sort: sk and prefix from the permutation
+int join_build_finish_launch(int device, const SortParams* p,
+                             const BuildParams* b, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const long long n = p->n;
   if (n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  build_prep_kernel<<<grid_of(n), THREADS, 0, s>>>(
-      b->keys, b->valid, b->n_live, n, b->skey, b->nsv);
-  p->n_keys = 2;
-  p->keys[0] = b->skey;
-  p->kinds[0] = KIND_I64;
-  p->keys[1] = b->nsv;
-  p->kinds[1] = KIND_U8;
-  if ((e = run_sort(p, s)) != cudaSuccess) return e;
-  const int n_tiles = (int)((n + TILE - 1) / TILE);
+  const int n_tiles = (int)((n + BUILD_TILE - 1) / BUILD_TILE);
   build_gather_kernel<<<n_tiles, THREADS, 0, s>>>(b->skey, b->nsv, p->perm,
                                                   n, b->sk, b->tile_sums);
   tile_carry_kernel<THREADS, long long>
@@ -371,7 +603,9 @@ int join_build_launch(int device, SortParams* p, const BuildParams* b,
 
 int sort_params_bytes() { return (int)sizeof(SortParams); }
 int build_params_bytes() { return (int)sizeof(BuildParams); }
-int sort_tile_rows() { return TILE; }
+int sort_tile_rows32() { return TILE32; }
+int sort_tile_rows64() { return TILE64; }
+int sort_build_tile_rows() { return BUILD_TILE; }
 int sort_max_keys() { return MAX_KEYS; }
 
 const char* sort_error_string(int e) {

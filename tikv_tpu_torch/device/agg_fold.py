@@ -21,7 +21,8 @@ lane, read once (``plan_fold``).  The rows of a lane:
 - ``isum``: an integer lane's exact int64 sum (SUM, AVG);
 - ``fsum``, ``sumsq``: float64 sums (a REAL SUM/AVG; the variances);
 - ``min``, ``max``: the order-preserving int64 image of the value;
-- ``first``, ``firstval``: the least valid position and the value there.
+- ``first``, ``firstval``, ``firstok``: the first selected position,
+  NULL or not, the value there and its validity.
 
 ``agg_fold`` takes the plain version (``agg_fold_plain``: the tiles of
 ``ops/agg.py`` encoded into the same buffer) only for tensors on the CPU;
@@ -68,7 +69,7 @@ SPEC_KEYS = {
     "avg": {"sum": "sum", "count": "nonnull"},
     "min": {"min": "min", "nonnull": "nonnull"},
     "max": {"max": "max", "nonnull": "nonnull"},
-    "first": {"value": "firstval", "pos": "first"},
+    "first": {"value": "firstval", "pos": "first", "ok": "firstok"},
     **{k: {"sum": "fsum", "sumsq": "sumsq", "count": "nonnull"}
        for k in VAR_KINDS},
 }
@@ -246,7 +247,7 @@ def agg_fold_plain(specs, cols, n: int, mode: str, key=None, key_ok=None,
         n_slots = 1
         states = simple_agg_tile(
             specs, [(v, ok & row_mask) for v, ok in tile_cols],
-            row_mask.sum(dtype=torch.int64))
+            row_mask.sum(dtype=torch.int64), row_mask)
         states = [{k: t.reshape(1) for k, t in s.items()} for s in states]
         rows_t = row_mask.sum(dtype=torch.int64).reshape(1)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -402,6 +403,7 @@ class _Params(ctypes.Structure):
         ("dtype", _L), ("o_rows", _i),
         ("o_nonnull", _L), ("o_isum", _L), ("o_fsum", _L), ("o_sumsq", _L),
         ("o_min", _L), ("o_max", _L), ("o_first", _L), ("o_firstval", _L),
+        ("o_firstok", _L),
         ("c_nonnull", _L), ("c_sum", _L), ("n_sum", _L), ("c_sq", _L),
         ("n_sq", _L), ("c_min", _L), ("c_max", _L), ("d_fsum", _L),
         ("d_sumsq", _L),
@@ -423,8 +425,8 @@ def launch_params(plan: FoldPlan, n: int, n_slots: int, lanes, key_p,
                 fold_every=fold_rows(bound) // TILE_SHARED,
                 o_rows=0 if first_group else -1)
     arrays = ("o_nonnull", "o_isum", "o_fsum", "o_sumsq", "o_min", "o_max",
-              "o_first", "o_firstval", "c_nonnull", "c_sum", "c_sq",
-              "c_min", "c_max", "d_fsum", "d_sumsq")
+              "o_first", "o_firstval", "o_firstok", "c_nonnull", "c_sum",
+              "c_sq", "c_min", "c_max", "d_fsum", "d_sumsq")
     for name in arrays:
         getattr(p, name)[:] = [-1] * MAX_LANES
     p.n_sum[:] = [0] * MAX_LANES

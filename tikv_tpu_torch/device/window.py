@@ -19,9 +19,13 @@ part_keys, rn, channels, shifts)`` reads n source rows in the order
   same segment and is not NULL, else 0 and False.
 
 Returns (rn or None, [channel outputs], [(values, valid)]), in view
-order.  The wrapper takes the plain version only for tensors on the CPU;
-on a CUDA tensor it launches its kernel or raises.  ``launches`` counts
-wrapper calls that launched the kernel.
+order.  On the card each distinct argument (``plan_args``: a values column
+and its validity, a COUNT over the same validity riding with it) is
+gathered through ``perm`` once a row; a shift within ``CAP`` rows reads a
+tile's halo, a longer one takes a second pass.  The wrapper takes the
+plain version only for tensors on the CPU; on a CUDA tensor it launches
+its kernel or raises.  ``launches`` counts wrapper calls that launched
+the kernel.
 """
 
 from __future__ import annotations
@@ -36,9 +40,48 @@ from .build import check_vector, load_checked, raise_on
 # kernel launches since import (the chip smoke resets them around a run)
 launches = 0
 
-TILE = 1024         # csrc/window.cu TILE
+TILE = 1280         # csrc/window.cu TILE: rows of a tile
+CAP = 64            # the largest |offset| a tile's halo serves
 MAX_PART, MAX_CH, MAX_SH = 8, 16, 16
+MAX_ARG = MAX_CH + MAX_SH
 _PART_DTYPES = (torch.int64, torch.float64)
+
+
+def _ident(t):
+    return None if t is None else (t.data_ptr(), t.dtype)
+
+
+def plan_args(channels, shifts) -> dict:
+    """What the kernel gathers: ``args``, the distinct (values | None,
+    ok) pairs (a sum's or a shift's; a COUNT joins a pair with its
+    validity, else takes its own); ``ch_arg`` / ``sh_arg``, each channel's
+    and shift's pair; ``lag_halo`` / ``lead_halo``, the largest LAG / LEAD
+    offset within ``CAP`` (0: none); ``far``, the pairs a shift past
+    ``CAP`` reads."""
+    args, index = [], {}
+
+    def arg_of(v, ok) -> int:
+        key = (_ident(v), _ident(ok))
+        if key not in index:
+            index[key] = len(args)
+            args.append((v, ok))
+        return index[key]
+
+    sh_arg = [arg_of(v, ok) for _off, v, ok in shifts]
+    ch_arg = [arg_of(v, ok) if kind == "sum" else None
+              for kind, v, ok in channels]
+    for j, (kind, _v, ok) in enumerate(channels):
+        if kind == "count":
+            ch_arg[j] = next((i for i, (_av, aok) in enumerate(args)
+                              if _ident(aok) == _ident(ok)), None)
+            if ch_arg[j] is None:
+                ch_arg[j] = arg_of(None, ok)
+    near = [off for off, _v, _ok in shifts if abs(off) <= CAP]
+    return {"args": args, "ch_arg": ch_arg, "sh_arg": sh_arg,
+            "lag_halo": max([-o for o in near if o < 0], default=0),
+            "lead_halo": max([o for o in near if o > 0], default=0),
+            "far": sorted({a for (off, _v, _ok), a in zip(shifts, sh_arg)
+                           if abs(off) > CAP})}
 
 
 def _heads(perm: torch.Tensor, part_keys, n: int) -> torch.Tensor:
@@ -93,13 +136,15 @@ class _WindowParams(ctypes.Structure):
     _i = ctypes.c_int
     _fields_ = [("n", ctypes.c_longlong), ("perm", _p), ("n_part", _i),
                 ("part", _p * MAX_PART), ("part_f64", _i * MAX_PART),
-                ("rn", _p), ("n_ch", _i), ("ch_kind", _i * MAX_CH),
-                ("ch_v", _p * MAX_CH), ("ch_ok", _p * MAX_CH),
+                ("rn", _p), ("n_arg", _i), ("arg_v", _p * MAX_ARG),
+                ("arg_ok", _p * MAX_ARG), ("arg_vcopy", _p * MAX_ARG),
+                ("arg_okcopy", _p * MAX_ARG), ("n_ch", _i),
+                ("ch_kind", _i * MAX_CH), ("ch_arg", _i * MAX_CH),
                 ("ch_out", _p * MAX_CH), ("n_sh", _i),
-                ("sh_off", _i * MAX_SH), ("sh_v", _p * MAX_SH),
-                ("sh_ok", _p * MAX_SH), ("sh_out", _p * MAX_SH),
-                ("sh_valid", _p * MAX_SH), ("seg_start", _p),
-                ("tile_head", _p), ("tile_agg", _p), ("n_tiles", _i)]
+                ("sh_off", _i * MAX_SH), ("sh_arg", _i * MAX_SH),
+                ("sh_out", _p * MAX_SH), ("sh_valid", _p * MAX_SH),
+                ("lag_halo", _i), ("lead_halo", _i), ("seg_start", _p),
+                ("flags", _p), ("agg", _p), ("incl", _p), ("n_tiles", _i)]
 
 
 _lib = None
@@ -110,7 +155,8 @@ def _kernel_lib():
     if _lib is None:
         lib = load_checked("window", {
             "window_params_bytes": ctypes.sizeof(_WindowParams),
-            "window_tile_rows": TILE}, "window_error_string")
+            "window_tile_rows": TILE, "window_halo_cap": CAP},
+            "window_error_string")
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.window_scan_launch.argtypes = [i, ctypes.POINTER(_WindowParams),
                                            p]
@@ -160,28 +206,41 @@ def window_scan(perm: torch.Tensor, part_keys: Sequence[torch.Tensor],
         return rn_out, ch_out, sh_out
     lib = _kernel_lib()
     n_tiles = -(-n // TILE)
-    seg_start = torch.empty(n, dtype=torch.int32, device=dev)
-    tile_head = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_agg = torch.empty(max(1, len(channels)) * n_tiles,
-                           dtype=torch.int64, device=dev)
+    plan = plan_args(channels, shifts)
+    words = n_tiles * (1 + len(channels))
+    flags = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+    carry = torch.empty(2 * max(1, words), dtype=torch.int64, device=dev)
+    far = plan["far"]
+    seg_start = torch.empty(n, dtype=torch.int32, device=dev) \
+        if far else None
+    copies = {a: (torch.empty(n, dtype=torch.int64, device=dev),
+                  torch.empty(n, dtype=torch.uint8, device=dev))
+              for a in far}
     p = _WindowParams(n=n, perm=perm.data_ptr(), n_part=len(part_keys),
                       rn=None if rn_out is None else rn_out.data_ptr(),
-                      n_ch=len(channels), n_sh=len(shifts),
-                      seg_start=seg_start.data_ptr(),
-                      tile_head=tile_head.data_ptr(),
-                      tile_agg=tile_agg.data_ptr(), n_tiles=n_tiles)
+                      n_arg=len(plan["args"]), n_ch=len(channels),
+                      n_sh=len(shifts), lag_halo=plan["lag_halo"],
+                      lead_halo=plan["lead_halo"],
+                      seg_start=None if seg_start is None
+                      else seg_start.data_ptr(),
+                      flags=flags.data_ptr(), agg=carry.data_ptr(),
+                      incl=carry[words:].data_ptr(), n_tiles=n_tiles)
     for j, k in enumerate(part_keys):
         p.part[j] = k.data_ptr()
         p.part_f64[j] = int(k.dtype == torch.float64)
-    for j, ((kind, v, ok), out) in enumerate(zip(channels, ch_out)):
+    for j, (v, ok) in enumerate(plan["args"]):
+        p.arg_v[j] = None if v is None else v.data_ptr()
+        p.arg_ok[j] = ok.data_ptr()
+        if j in copies:
+            p.arg_vcopy[j] = copies[j][0].data_ptr()
+            p.arg_okcopy[j] = copies[j][1].data_ptr()
+    for j, ((kind, _v, _ok), out) in enumerate(zip(channels, ch_out)):
         p.ch_kind[j] = 0 if kind == "count" else 1
-        p.ch_v[j] = None if v is None else v.data_ptr()
-        p.ch_ok[j] = ok.data_ptr()
+        p.ch_arg[j] = plan["ch_arg"][j]
         p.ch_out[j] = out.data_ptr()
-    for j, ((off, v, ok), (vals, valid)) in enumerate(zip(shifts, sh_out)):
+    for j, ((off, _v, _ok), (vals, valid)) in enumerate(zip(shifts, sh_out)):
         p.sh_off[j] = int(off)
-        p.sh_v[j] = v.data_ptr()
-        p.sh_ok[j] = ok.data_ptr()
+        p.sh_arg[j] = plan["sh_arg"][j]
         p.sh_out[j] = vals.data_ptr()
         p.sh_valid[j] = valid.data_ptr()
     raise_on(lib, "window_error_string", lib.window_scan_launch(

@@ -10,8 +10,9 @@ simple aggregation):
 - AVG    → {"sum": v[G], "count": i64[G]}
 - MIN    → {"min": v[G] (identity-filled), "nonnull": i64[G]}
 - MAX    → symmetric
-- FIRST  → {"value": v, "pos": i64} (simple; pos = first valid row, int64
-  max when none); {"pos": i64[G]} (hash)
+- FIRST  → {"value": v, "pos": i64, "ok": i64} (simple; pos = the first
+  selected row, NULL or not, int64 max when none; ok = that row's
+  validity, as TiKV's ``AggrFnFirst``); {"pos": i64[G]} (hash)
 - VAR_*  → {"sum": f64[G], "sumsq": f64[G], "count": i64[G]}
 
 Integer sums accumulate in int64; REAL sums in float64 (the reference
@@ -103,11 +104,13 @@ def _masked(values, ok, fill=0):
 # ---------------------------------------------------------------------------
 
 def simple_agg_tile(specs: Sequence[AggSpec], cols: Sequence[tuple],
-                    n_valid_rows) -> list:
+                    n_valid_rows, row_mask=None) -> list:
     """Reduce the rows to per-spec scalar (0-d tensor) states.
 
     ``cols[i]``: (values, validity) of spec i, validity already ANDed with
     the row mask.  ``n_valid_rows``: the masked row count (COUNT(*)).
+    ``row_mask``: the selection (None: every row), where FIRST takes its
+    row.
     """
     states = []
     for spec in specs:
@@ -130,11 +133,15 @@ def simple_agg_tile(specs: Sequence[AggSpec], cols: Sequence[tuple],
             states.append({spec.kind: filled.amin() if is_min
                            else filled.amax(), "nonnull": nonnull})
         elif spec.kind == "first":
+            # the first selected row, whatever its validity: a NULL there
+            # makes the answer NULL (the reference's device skips it)
             n = values.shape[0]
-            pos = _masked(torch.arange(n, dtype=torch.int64,
-                                       device=values.device), ok, _BIG).amin()
-            states.append({"value": values[pos.clamp(max=max(n - 1, 0))],
-                           "pos": pos})
+            rows = torch.arange(n, dtype=torch.int64, device=values.device)
+            pos = (rows if row_mask is None
+                   else _masked(rows, row_mask, _BIG)).amin()
+            at = pos.clamp(max=max(n - 1, 0))
+            states.append({"value": values[at], "pos": pos,
+                           "ok": (ok[at] & (pos != _BIG)).to(torch.int64)})
         elif spec.kind in VAR_KINDS:
             v64 = _masked(values, ok).to(torch.float64)
             states.append({"sum": v64.sum(), "sumsq": (v64 * v64).sum(),
@@ -160,7 +167,7 @@ def finalize_simple(specs, states: list) -> list:
             out.append(None if int(s["nonnull"]) == 0
                        else np.asarray(s[spec.kind]).item())
         elif spec.kind == "first":
-            out.append(None if int(s["pos"]) == _BIG
+            out.append(None if int(s["pos"]) == _BIG or not int(s["ok"])
                        else np.asarray(s["value"]).item())
         elif spec.kind in VAR_KINDS:
             out.append(_finalize_var(spec.kind, float(s["sum"]),

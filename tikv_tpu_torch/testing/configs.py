@@ -283,9 +283,10 @@ def columns_agree(batch, cols) -> bool:
     return True
 
 
-def _first_valid(v, ok):
-    at = np.flatnonzero(ok)
-    return v[at[0]].item() if at.size else None
+def _first_selected(v, ok):
+    """FIRST over every row: the first row's value, NULL when that row is
+    NULL (the host pipeline's ``AggrFnFirst``)."""
+    return v[0].item() if len(v) and ok[0] else None
 
 
 def _cells(kind, v, ok, inv, g, real):
@@ -366,7 +367,7 @@ def truth(name: str, snap) -> tuple:
             cols.append([int(x) for x in rows_per])
             scales.append([0] * g)
         elif kind == "first":
-            cols.append([_first_valid(v, ok)])
+            cols.append([_first_selected(v, ok)])
             scales.append([0])
         else:
             vals, sc = _cells(kind, v, ok, inv, g, real)
