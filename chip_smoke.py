@@ -112,9 +112,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    with and without digests; ``mvcc_resolve`` against its plain version
    over the CPU tests' histories (deletes, rollbacks, locks, versions
    above read_ts, NULLs, INT, REAL and unsigned columns, every key
-   deleted, an empty result, two versions of a key at one commit_ts), a
-   schema of 100 output planes, 2^20 keys, and the same planes resident
-   in padded ``DeviceVersionPlanes`` buffers — all bit for bit; a mint
+   deleted, an empty result, two versions of a key at one commit_ts, a
+   key of 50,000 versions among short keys, a run of keys of 300 versions
+   each, tiles at the kernel's shared budget of versions and one past
+   it), a schema of 100 output planes, 2^20 keys, and the same planes
+   resident in padded ``DeviceVersionPlanes`` buffers — all bit for bit; a mint
    with CF_DEFAULT spill rows (``patch_rows`` in the mint) against the
    upload of its host mirror; then configs 6c (10·2^20 keys, one PUT a
    key) and 4h (100·2^20 keys, a chosen version mix at about 1.15
@@ -141,9 +143,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bits (one or two packed images), n = 1, 2, 2049, 4095-4097, 12,289
    (a last tile of one row), 100,003 and 10·2^20; the build dictionary
    with NULL keys, duplicates, keys equal to
-   the int64.max sentinel and rows past n_live; the probe with NULL keys
-   on both sides, with and without a mask, at a capacity above and below
-   the total (the exact total beside the pairs that fit); the window over
+   the int64.max sentinel and rows past n_live; the probe on both routes
+   (``join_index``'s direct index of dense build keys, held against its
+   plain version, and the search of sparse ones) with NULL keys on both
+   sides, with and without a mask, at a capacity above and below the total
+   (the exact total beside the pairs that fit), over dense keys with gaps,
+   duplicates, one hot build key, a negative least key, keys at int64.min
+   and int64.max − 1, a valid int64.max build key and a span one past the
+   threshold (both the sparse route) and a span at it; the window over
    int64 and float64 partition keys (NaN, -0.0), none, one partition over
    every row, a partition on each row, counts, int64 sums, LAG / LEAD of
    int64 and float64 within the kernel's halo and past it (±100, ±5000),
@@ -155,13 +162,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``Endpoint.handle_plan(force_backend="device")``, each plan
    wire-encoded first: cold + 5 warm, each answer against a numpy truth,
    the device join counted in ``join_backends``, no degrade, the kernels
-   of each cell launched and no other (config 7: ``join_build`` once,
-   then the cache; ``join_probe`` and ``sel_pred`` six times), with the
-   host-clock phases of the cold and the median warm request; and the
-   four kernels timed at those shapes beside their bounds, plain versions
-   and, for the sorts, composed ``torch.argsort(stable=True)`` (and for
-   ``sort_perm`` one ``torch.argsort(stable=True)`` over the packed int64
-   image, packed outside the timing);
+   of each cell launched and no other (config 7: ``join_build`` and
+   ``join_index`` once, then the cache; ``join_probe`` (the dense route)
+   and ``sel_pred`` six times), with the host-clock phases of the cold and
+   the median warm request; and the five kernels timed at those shapes
+   beside their bounds, plain versions and, for the sorts, composed
+   ``torch.argsort(stable=True)`` (and for ``sort_perm`` one
+   ``torch.argsort(stable=True)`` over the packed int64 image, packed
+   outside the timing), for ``join_index`` one ``torch.searchsorted`` of
+   the span's keys, for ``join_probe`` two (left and right) of the probe
+   keys, which compute the runs but not the pairs; ``join_probe`` on both
+   routes (config 7's dense build, and its keys spread by 2^20), its bound
+   counting the -1 fill up to k_cap, printed beside the count without
+   it;
 11. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
@@ -171,9 +184,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``sel_compact``; config 5 for ``topn_select``; config 4m for
    ``agg_fold``, with 3n under ``configs``; config 4h for
    ``mvcc_resolve``, ``plane_digest`` and ``patch_rows``, with 6c under
-   ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_probe``,
-   ``sort_perm`` and ``window_scan``), and the least time the card could
-   take;
+   ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_index``
+   / ``join_probe``, ``sort_perm`` and ``window_scan``), and the least
+   time the card could take;
 12. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -182,6 +195,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import os
@@ -201,8 +215,8 @@ CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
 KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
-           "patch_rows", "join_build", "join_probe", "sort_perm",
-           "window_scan")
+           "patch_rows", "join_build", "join_index", "join_probe",
+           "sort_perm", "window_scan")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -270,6 +284,7 @@ def counts() -> dict:
             "plane_digest": digest.digest_launches,
             "patch_rows": digest.patch_launches,
             "join_build": sort.build_launches,
+            "join_index": join_probe.index_launches,
             "join_probe": join_probe.launches,
             "sort_perm": sort.sort_launches,
             "window_scan": window.launches}
@@ -290,6 +305,7 @@ def set_counts(values: dict) -> None:
     digest.digest_launches = values["plane_digest"]
     digest.patch_launches = values["patch_rows"]
     sort.build_launches = values["join_build"]
+    join_probe.index_launches = values["join_index"]
     join_probe.launches = values["join_probe"]
     sort.sort_launches = values["sort_perm"]
     window.launches = values["window_scan"]
@@ -1020,7 +1036,7 @@ SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "sel_compact": ("sel_compact_kernel",),
            "topn_select": ("topn_hist",),
            "agg_fold": ("fold_shared", "fold_global", "fold_simple"),
-           "join_probe": ("fill_kernel",), "sort_perm": ("onesweep_kernel",),
+           "join_probe": ("probe_kernel",), "sort_perm": ("onesweep_kernel",),
            "window_scan": ("window_kernel",)}
 
 
@@ -2401,10 +2417,12 @@ def check_mvcc(dev) -> int:
     """mvcc_resolve against its plain version on the card, exactly: seeded
     histories of deletes, rollbacks and locks, versions above read_ts,
     NULLs, INT, REAL and unsigned columns, every key deleted, an empty
-    result, two versions of a key at one commit_ts, a schema of 100 output
-    planes (two launches), 2^20 keys, and the same planes resident in
-    padded ``DeviceVersionPlanes`` buffers → the number of differing
-    outputs (0)."""
+    result, two versions of a key at one commit_ts, long segments (a key
+    of 50,000 versions, a run of keys of 300, tiles at the shared budget
+    and one version past it), a schema of 100 output planes (two
+    launches), 2^20 keys, and the same planes resident in padded
+    ``DeviceVersionPlanes`` buffers → the number of differing outputs
+    (0)."""
     from tikv_tpu_torch.device import mvcc as pm
     from tikv_tpu_torch.testing import mvcc as tm
     rng = np.random.default_rng(23)
@@ -2423,6 +2441,16 @@ def check_mvcc(dev) -> int:
         tm.Event(10, 0, keys, {2: (keys, np.ones(500, np.bool_))}),
         tm.Event(20, 1, keys)], {2: 0}, 100)[0], 100))
     cases.append(("equal_commit_ts", tm.equal_ts_planes(), 60))
+    # long segments: a hot key of 50,000 versions, a run of keys of 300
+    # each (tiles past the kernel's shared budget), and one key each of
+    # 1025 and 1026 versions among keys of one (its tile at exactly the
+    # budget, 2048 versions, and one past it)
+    for label in ("hot_key", "long_run"):
+        cases.append((label, *tm.long_segment_planes(label, kinds3)))
+    lengths = np.ones(5000, np.int64)
+    lengths[2500], lengths[4000] = 1025, 1026
+    cases.append(("budget edge", tm.segment_history(rng, lengths, kinds3),
+                  6000))
     wide = {c: 0 for c in range(2, 35)}
     cases.append(("100 outputs", tm.version_history(keys, tm.random_history(
         rng, 500, wide, 3), wide, 1000)[0], 1000))
@@ -2777,7 +2805,7 @@ def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
 
 PLAN_ROWS = {"probe": 10 << 20, "build": 1 << 20}
 # cell → the kernels its requests launch (and no other)
-PLAN_ROUTE = {"7": {"join_build", "join_probe", "sel_pred"},
+PLAN_ROUTE = {"7": {"join_build", "join_index", "join_probe", "sel_pred"},
               "7s": {"sort_perm"}, "7w": {"sort_perm", "window_scan"}}
 I64 = np.iinfo(np.int64)
 
@@ -2887,42 +2915,115 @@ def check_sort(dev) -> int:
     return worst
 
 
+def join_index_cases(rng) -> list:
+    """The direct index's edge cases → (label, build keys, build validity,
+    probe keys, capacities, whether the build takes the index)."""
+    def span_keys(nv, span):
+        inner = rng.choice(np.arange(1, span - 1), nv - 2, replace=False)
+        return rng.permutation(np.concatenate([[0, span - 1], inner]))
+
+    npr = 100_003
+    out = []
+    for label, bk, pk, caps, dense in (
+            ("dense", rng.permutation(50_000),
+             rng.integers(-100, 50_100, npr), (1 << 17, 12_345), True),
+            ("dense with gaps", rng.permutation(
+                rng.choice(75_000, 50_000, replace=False)),
+             rng.integers(-100, 75_100, npr), (1 << 17, 20_001), True),
+            ("duplicates", rng.integers(0, 10_000, 50_000),
+             rng.integers(0, 10_500, npr), (1 << 20, 99_999), True),
+            ("negative least key", rng.permutation(50_000) - 25_000,
+             rng.integers(-25_100, 25_100, npr), (1 << 17,), True),
+            ("int64.min", I64.min + rng.permutation(5000),
+             np.concatenate([[I64.max, I64.max - 1, 0, -1, I64.min],
+                             I64.min + rng.integers(0, 6000, npr - 5)]),
+             (1 << 17,), True),
+            ("int64.max - 1", I64.max - 1 - rng.permutation(5000),
+             np.concatenate([[I64.min, I64.min + 1, 0, -1, I64.max],
+                             I64.max - rng.integers(0, 6000, npr - 5)]),
+             (1 << 17,), True),
+            ("a valid int64.max build key",
+             np.concatenate([[I64.max] * 3, rng.permutation(5000)]),
+             np.concatenate([[I64.max] * 40, rng.integers(0, 5100,
+                                                          npr - 40)]),
+             (1 << 17,), False),
+            ("span at the threshold", span_keys(1000, 2 * 1000 + 1024),
+             rng.integers(-5, 3030, npr), (1 << 17,), True),
+            ("span one past it", span_keys(1000, 2 * 1000 + 1025),
+             rng.integers(-5, 3030, npr), (1 << 17,), False),
+            ("one hot build key", np.concatenate(
+                [np.full(5000, 7), rng.permutation(100)]),
+             rng.integers(0, 120, npr), (1 << 22, 777_777), True),
+            ("one row", np.asarray([3]), np.asarray([3]), (1, 64), True)):
+        bk = np.asarray(bk, np.int64)
+        bvalid = rng.random(len(bk)) > 0.1
+        bvalid[:1] = True
+        if label.startswith("span") or label == "one row":
+            bvalid[:] = True        # the span counts valid keys only
+        out.append((label, bk, bvalid, np.asarray(pk, np.int64), caps,
+                    dense))
+    return out
+
+
 def check_join(dev) -> int:
     """join_probe against its plain version on the card, bit for bit
-    (pairs and total): duplicate build keys, NULL keys on both sides, the
-    sentinel key, with and without a mask, a capacity above the total and
-    one below it (the exact total beside the pairs that fit); then the
-    joiner's re-dispatch on an overflow (``check_join_redispatch``)."""
+    (pairs and total), on both routes: duplicate build keys, NULL keys on
+    both sides, the sentinel key, with and without a mask, a capacity
+    above the total and one below it (the exact total beside the pairs
+    that fit, the cut inside a tile); the direct index (``join_index``)
+    against its plain version and the dense route over its edge cases
+    (``join_index_cases``: gaps, duplicates, a negative least key, keys at
+    int64.min and int64.max − 1, a valid int64.max key and a span one past
+    the threshold, which must take the sparse route, a span at it, one
+    hot build key); then the joiner's re-dispatch on an overflow
+    (``check_join_redispatch``)."""
     from tikv_tpu_torch.device import join_probe as jp
     from tikv_tpu_torch.device import sort as srt
     rng = np.random.default_rng(72)
     saved = counts()
-    worst = 0
+    cases = []
     for npr, nb, dom, caps in ((1, 1, 1, (64,)), (5000, 300, 50, (1, 64)),
                                (100_003, 4097, 2000, (1 << 17, 1 << 12)),
                                (1 << 20, 1 << 16, 1 << 16, (1 << 21,))):
         bk = rng.integers(0, dom, nb)
         bk[rng.random(nb) < 0.05] = I64.max
-        bvalid = rng.random(nb) > 0.1
         pk = rng.integers(0, dom, npr)
         pk[rng.random(npr) < 0.01] = I64.max
+        cases.append((f"{npr}x{nb}", bk, rng.random(nb) > 0.1, pk, caps,
+                      None))
+    cases += join_index_cases(rng)
+    for label, bk, bvalid, pk, caps, dense in cases:
+        npr, nb = len(pk), len(bk)
         pvalid = torch.from_numpy(rng.random(npr) > 0.1).to(dev)
         mask = torch.from_numpy(rng.random(npr) > 0.5).to(dev)
         built = srt.join_build(torch.from_numpy(bk).to(dev),
                                torch.from_numpy(bvalid).to(dev), nb)
+        index = jp.join_index(built[0], built[2])
+        want_index = jp.join_index_plain(built[0], built[2])
+        err = int((index is None) != (want_index is None))
+        if index is not None and want_index is not None:
+            err += int(index[1:] != want_index[1:]) + \
+                diff_count(index.off, want_index.off)
+        assert err == 0, f"join_index {label}: {err}"
+        route = "sparse" if index is None else "dense"
+        assert dense is None or dense == (index is not None), \
+            f"join_index {label}: the {route} route"
         pkt = torch.from_numpy(pk).to(dev)
         for cap in caps:
             for pv, m in ((pvalid, mask), (None, None)):
-                got = jp.join_probe(*built, pkt, pv, m, cap)
                 want = jp.join_probe_plain(*built, pkt, pv, m, cap)
-                torch.cuda.synchronize()
-                err = diff_count(got[0], want[0]) + \
-                    diff_count(got[1], want[1])
-                assert err == 0, f"join_probe {npr}x{nb} cap={cap}: {err}"
-                print(f"kernel join_probe {npr}x{nb} k_cap={cap} "
-                      f"total={int(want[1])} mask={m is not None}: "
-                      f"max_abs_err={err} tolerance=0", flush=True)
-    worst = max(worst, check_join_redispatch(dev))
+                for idx in ((index, None) if index is not None
+                            else (None,)):
+                    got = jp.join_probe(*built, pkt, pv, m, cap, idx)
+                    torch.cuda.synchronize()
+                    err = diff_count(got[0], want[0]) + \
+                        diff_count(got[1], want[1])
+                    assert err == 0, f"join_probe {label} cap={cap}: {err}"
+                print(f"kernel join_probe {label} ({npr}x{nb}) k_cap={cap} "
+                      f"total={int(want[1])} mask={m is not None} "
+                      f"routes={'dense+sparse' if index is not None else route}"
+                      f": max_abs_err=0 tolerance=0", flush=True)
+    worst = check_join_redispatch(dev)
     set_counts(saved)
     return worst
 
@@ -3036,6 +3137,7 @@ def run_plan(cell: str, ep, pair) -> dict:
     joiner = ep._device_runner.joiner()
     jb0 = dict(ex.join_backends)
     hits0 = joiner.build_cache_hits
+    routes0 = joiner.probe_routes.get("dense", 0)
     set_counts({k: 0 for k in KERNELS})
     times, phases = [], []
     for _ in range(6):
@@ -3058,8 +3160,12 @@ def run_plan(cell: str, ep, pair) -> dict:
         jb = {k: v - jb0.get(k, 0) for k, v in ex.join_backends.items()}
         assert jb.get("device", 0) >= 1 and set(jb) == {"device"}, jb
         assert launches["join_build"] == 1 and \
+            launches["join_index"] == 1 and \
             launches["join_probe"] == 6, launches
         assert joiner.build_cache_hits - hits0 == 5
+        # config 7's build keys are 0..2^20 - 1: the direct index serves
+        assert joiner.probe_routes.get("dense", 0) - routes0 == 6, \
+            joiner.probe_routes
     else:
         assert launches["sort_perm"] == 6, launches
     out = {"config": cell, "rows": PLAN_ROWS["probe"],
@@ -3082,14 +3188,29 @@ def run_plan(cell: str, ep, pair) -> dict:
     return out
 
 
+def index_launch(jp, index, sk, n_valid: int) -> None:
+    """The index kernel alone over the dictionary ``sk`` (``n_valid``
+    valid keys) into ``index.off`` (what ``join_index`` launches after its
+    readback)."""
+    lib = jp._kernel_lib()
+    p = jp._IndexParams(sk=sk.data_ptr(), n_valid=n_valid,
+                        key_lo=index.lo, span=index.span,
+                        off=index.off.data_ptr())
+    at = jp._where(sk.device)
+    assert lib.join_index_launch(at[0], ctypes.byref(p), at[1]) == 0
+
+
 def plan_kernels_at_main_shapes(pair, dev) -> tuple:
-    """The four kernels at config 7's / 7s's / 7w's shapes: checked
+    """The five kernels at config 7's / 7s's / 7w's shapes: checked
     against their plain versions there (bit for bit) and timed with CUDA
     events (the probe and the window queued behind a device sleep; the
-    sorts as issued, since they wait for each key's range), beside each
-    bound (inputs read once, outputs written once at 3.35 TB/s), plain
-    version and library yardstick (composed torch.argsort(stable=True) for
-    the sorts; none computes the probe or the window)."""
+    sorts and ``join_index`` as issued, since they read back from the
+    card), beside each bound (inputs read once, outputs written once at
+    3.35 TB/s), plain version and library yardstick (composed
+    torch.argsort(stable=True) for the sorts; torch.searchsorted for the
+    index and, left and right, for the probe's runs; none computes the
+    window).  ``join_probe`` on both routes: the dense build (its direct
+    index) and the same keys spread by 2^20 (sparse)."""
     from tikv_tpu_torch.device import join_probe as jp
     from tikv_tpu_torch.device import sort as srt
     from tikv_tpu_torch.device import window as win
@@ -3121,20 +3242,73 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
         **bound_ms(nb * (8 + 1 + 8 + 4 + 8) + 8, 0), "rows": nb}
     mask = v > 0
     k_cap = 1 << (int(n * 1.5 + 64) - 1).bit_length()
-    got = jp.join_probe(*built, k, None, mask, k_cap)
+    sk, perm, prefix = built
+    index = jp.join_index(sk, prefix)
+    want_index = jp.join_index_plain(sk, prefix)
+    assert index is not None, "config 7's build must take the direct index"
+    errs["join_index"] = diff_count(index.off, want_index.off) + int(
+        index[1:] != want_index[1:])
+    t["join_index"] = {
+        "ms": cuda_ms(lambda: jp.join_index(sk, prefix), 20),
+        "kernel_ms": cuda_ms(lambda: index_launch(jp, index, sk, nb), 50,
+                             queued=True),
+        "plain_ms": cuda_ms(lambda: jp.join_index_plain(sk, prefix), 5),
+        "library_ms": cuda_ms(lambda: torch.searchsorted(
+            sk, torch.arange(index.span + 1, device=dev) + index.lo), 5),
+        "library_call": "torch.searchsorted of every key of the span",
+        # sk read once, 4 B an entry written
+        **bound_ms(nb * 8 + (index.span + 1) * 4, 0),
+        "rows": nb, "span": index.span,
+        "timed": "ms: the wrapper as issued (it reads three numbers back); "
+                 "kernel_ms: the kernel alone, queued"}
+    del want_index
     want = jp.join_probe_plain(*built, k, None, mask, k_cap)
     total = int(want[1])
-    errs["join_probe"] = diff_count(got[0], want[0]) + \
-        diff_count(got[1], want[1])
-    del got, want
+    # the function's bytes: probe keys and mask read once, the dictionary
+    # once, each pair slot up to k_cap written once (the pairs, then the
+    # -1 fill), the total; the count without the fill is printed beside
+    old_bytes = n * (8 + 1) + nb * (8 + 4 + 8) + 8 + 8 * total + 8
+    new_bytes = old_bytes + 8 * (k_cap - total)
+    routes, errs["join_probe"] = {}, 0
+    for route, keys_of in (("dense", lambda x: x), ("sparse",
+                                                    lambda x: x << 20)):
+        kr, bkr = keys_of(k), keys_of(bk)
+        built_r = built if route == "dense" else \
+            srt.join_build(bkr, bvalid, nb)
+        idx = jp.join_index(built_r[0], built_r[2])
+        assert (idx is not None) == (route == "dense"), route
+        got = jp.join_probe(*built_r, kr, None, mask, k_cap, idx)
+        errs["join_probe"] += diff_count(got[0], want[0]) + \
+            diff_count(got[1], want[1])
+        del got
+        routes[route] = {
+            "ms": cuda_ms(lambda: jp.join_probe(*built_r, kr, None, mask,
+                                                k_cap, idx), 10,
+                          queued=True),
+            "build_keys": "0..2^20-1" if route == "dense"
+            else "(0..2^20-1) << 20, probe keys likewise"}
+        print(f"join_probe at config 7: route {route}, "
+              f"{routes[route]['ms']} ms", flush=True)
+        del built_r, kr, bkr
+    del want
     t["join_probe"] = {
-        "ms": cuda_ms(lambda: jp.join_probe(*built, k, None, mask, k_cap),
-                      10, queued=True),
+        "ms": routes["dense"]["ms"],
         "plain_ms": cuda_ms(lambda: jp.join_probe_plain(
             *built, k, None, mask, k_cap), 3),
-        "library_ms": None,
-        **bound_ms(n * (8 + 1) + nb * (8 + 4 + 8) + 8 + 8 * total + 8, 0),
-        "rows": n, "build_rows": nb, "pairs": total, "k_cap": k_cap}
+        "library_ms": cuda_ms(lambda: (
+            torch.searchsorted(sk, k, right=False),
+            torch.searchsorted(sk, k, right=True)), 5),
+        "library_call": "torch.searchsorted left and right of the probe "
+                        "keys into sk: a yardstick that computes the runs, "
+                        "not the pairs",
+        **bound_ms(new_bytes, 0),
+        "bound_ms_without_fill": bound_ms(old_bytes, 0)["bound_ms"],
+        "routes": routes, "rows": n, "build_rows": nb, "pairs": total,
+        "k_cap": k_cap}
+    print(f"join_probe bound at config 7: {t['join_probe']['bound_ms']} ms "
+          f"with the -1 fill up to k_cap ({new_bytes} B), "
+          f"{t['join_probe']['bound_ms_without_fill']} ms without it "
+          f"({old_bytes} B)", flush=True)
     del built, mask
     keys = [-k, v]
     errs["sort_perm"] = diff_count(srt.sort_perm(keys, n),
@@ -3215,7 +3389,7 @@ def main() -> int:
     worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
     worst["mvcc_resolve"] = check_mvcc(dev)
     worst["sort_perm"] = worst["join_build"] = check_sort(dev)
-    worst["join_probe"] = check_join(dev)
+    worst["join_probe"] = worst["join_index"] = check_join(dev)
     worst["window_scan"] = check_window(dev)
 
     runner = DeviceRunner()
@@ -3301,6 +3475,9 @@ def main() -> int:
     del ep, pair
     for name, source, replaces in (
             ("join_build", "sort.cu", "tikv_tpu/device/join.py:257"),
+            ("join_index", "join.cu",
+             "tikv_tpu/device/join.py:276 (the searchsorted of "
+             "_probe_kernel, once per build)"),
             ("join_probe", "join.cu", "tikv_tpu/device/join.py:276"),
             ("sort_perm", "sort.cu", "tikv_tpu/device/join.py:479"),
             ("window_scan", "window.cu", "tikv_tpu/device/join.py:508")):

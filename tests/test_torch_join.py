@@ -257,6 +257,22 @@ def test_device_join_sentinel_keys(ref, port):
     assert len(got[0]) > 0
 
 
+@pytest.mark.parametrize("route", ["dense", "sparse"])
+def test_device_join_routes_match_reference(ref, port, route):
+    """DeviceJoiner.join on the CPU, the build keys dense (0..199) or
+    spread by 10^9 (sparse), NULLs on both sides: the same pairs as the
+    reference's join, and the route counted."""
+    (pt, psnap), (bt, bsnap) = _tables(21, 2000, 300, key_hi=200)
+    if route == "sparse":
+        psnap.columns[2].values[:] *= 10 ** 9
+        bsnap.columns[2].values[:] *= 10 ** 9
+    want, got = _both(ref, port, (pt, psnap), (bt, bsnap), ())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(got[0]) > 0
+    assert port.joiner().stats()["probe_routes"] == {route: 1}
+
+
 def test_device_join_overflow_redispatch(ref, port):
     """One key on both sides: 120k pairs overflow the first capacity
     (next_pow2(1000·1.5 + 64)); the exact total re-dispatches once and

@@ -5,9 +5,10 @@ package's ``device/mvcc.py`` on the same version planes.
 - ``mvcc_resolve_plain`` against the reference's jitted ``resolve``
   (``DeviceMvccResolver(None)._kernel``, JAX on the CPU) over seeded
   histories: deletes, rollbacks, locks, versions above read_ts, NULLs,
-  REAL, INT and unsigned columns, every key deleted, an empty result, and
+  REAL, INT and unsigned columns, every key deleted, an empty result,
   two versions of a key at one commit_ts (both win, as in the reference;
-  the cold build refuses such planes);
+  the cold build refuses such planes), and long segments (one key of
+  50,000 versions among short keys; a run of keys of 300 versions each);
 - ``resolve_host`` and ``host_mirror`` against the reference's;
 - planes of the reference's native parse (``fast_mvcc_table_sst`` blobs,
   and rows committed through ``Storage`` that spill into CF_DEFAULT),
@@ -133,6 +134,8 @@ def _history(case: str):
         return tm.version_history(keys * 2, ev, {2: 0}, 100)[0], 100
     if case == "equal_commit_ts":
         return tm.equal_ts_planes(), 60
+    if case in LONG_CASES:
+        return tm.long_segment_planes(case, KINDS)
     n_keys = 700
     ev = tm.random_history(rng, n_keys, KINDS, n_events=6,
                            shares=shares.get(case.split("@")[0]))
@@ -144,6 +147,8 @@ def _history(case: str):
 
 CASES = ("mixed", "deletes", "rollbacks_locks", "puts", "above_read_ts",
          "every_key_deleted", "empty", "equal_commit_ts")
+# one key of 50,000 versions among short keys; a run of keys of 300 each
+LONG_CASES = ("hot_key", "long_run")
 
 
 def _spec(planes, handle_dtype="int64"):
@@ -167,11 +172,12 @@ def _spec(planes, handle_dtype="int64"):
     return rspec, pspec, rins, pins, kinds
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + LONG_CASES)
 def test_plain_resolve_matches_reference_kernel(ref, case):
     planes, read_ts = _history(case)
     n = len(pm.resolve_host(planes, read_ts))
     nv, nk = rm._bucket(planes.n_ver), rm._bucket(planes.n_keys)
+    n_pad = max(N_PAD, nk)
 
     def pad(a, cap):
         p = np.zeros(cap, a.dtype)
@@ -179,7 +185,7 @@ def test_plain_resolve_matches_reference_kernel(ref, case):
         return jnp.asarray(p)
 
     rspec, pspec, rins, pins, kinds = _spec(planes)
-    fn = rm.DeviceMvccResolver(None)._kernel(nv, nk, N_PAD, tuple(rspec))
+    fn = rm.DeviceMvccResolver(None)._kernel(nv, nk, n_pad, tuple(rspec))
     want = fn(jnp.asarray(read_ts, jnp.int64), jnp.asarray(n, jnp.int64),
               pad(planes.commit_ts.view(np.int64), nv), pad(planes.wtype, nv),
               pad(planes.seg_id, nv), pad(planes.handles, nk),
@@ -188,7 +194,7 @@ def test_plain_resolve_matches_reference_kernel(ref, case):
         *(pm._to_device(a, "cpu") for a in (
             planes.commit_ts, planes.wtype, planes.seg_start,
             planes.handles)),
-        pins, kinds, pspec, read_ts, planes.n_keys, N_PAD)
+        pins, kinds, pspec, read_ts, planes.n_keys, n_pad)
     assert int(count) == n
     for w, g in zip(want, got):
         w = np.asarray(w)
@@ -203,7 +209,7 @@ def test_plain_resolve_matches_reference_kernel(ref, case):
         assert n == 0
 
 
-@pytest.mark.parametrize("case", CASES[:-1])
+@pytest.mark.parametrize("case", CASES[:-1] + LONG_CASES)
 def test_host_resolution_matches_reference(ref, case):
     planes, read_ts = _history(case)
     infos = infos_of(ref_table(1, {c: planes.cols[c][0]

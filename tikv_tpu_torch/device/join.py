@@ -8,10 +8,12 @@ one CUDA device:
   sorts it into a dictionary on the card — sorted keys, permutation and
   valid-prefix sums, NULL keys sentineled to int64.max and valid rows
   first within equal keys, so duplicate and sentinel-colliding keys join
-  exactly.  The probe side's key and predicate planes upload once too;
-  its selection predicates evaluate into a bool mask (``selection.
-  sel_pred``, or eval_rpn in torch for a signature it does not cover),
-  and ``join_probe.join_probe`` emits (probe, build) row pairs into a
+  exactly — with the direct index of its keys where they are dense
+  (``join_probe.join_index``), cached beside it.  The probe side's key
+  and predicate planes upload once too; its selection predicates
+  evaluate into a bool mask (``selection.sel_pred``, or eval_rpn in
+  torch for a signature it does not cover), and
+  ``join_probe.join_probe`` emits (probe, build) row pairs into a
   power-of-two capacity sized by a multiplicity EWMA.  An overflow is
   detected by the exact total and run again at the exact power of two,
   never truncated.  Only the pairs cross to the host (8 B a pair); the
@@ -108,6 +110,9 @@ class DeviceJoiner:
         # observed pairs per probe row, per (probe table, build table)
         self._mult: dict = {}
         self.device_joins = 0
+        # joins by probe route: "dense" (the build's direct index) or
+        # "sparse" (a search of its sorted keys)
+        self.probe_routes: dict = {}
         self.overflow_redispatches = 0
         self.build_cache_hits = 0
         self.build_cache_builds = 0
@@ -170,9 +175,12 @@ class DeviceJoiner:
             km = self._upload(valid)
             t0 = self._phase("upload", t0)
             sk, perm, prefix = srt.join_build(kv, km, len(vals))
+            # the direct index of dense keys (waits for the dictionary)
+            index = jp.join_index(sk, prefix)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            ent = bents[bkey] = {"sk": sk, "perm": perm, "prefix": prefix}
+            ent = bents[bkey] = {"sk": sk, "perm": perm, "prefix": prefix,
+                                 "index": index}
             t0 = self._phase("join_build", t0)
             with self._mu:
                 self.build_cache_builds += 1
@@ -221,7 +229,8 @@ class DeviceJoiner:
         for _attempt in range(3):
             pairs, tot = jp.join_probe(ent["sk"], ent["perm"],
                                        ent["prefix"], pent["keys"],
-                                       pent["valid"], mask, k_cap)
+                                       pent["valid"], mask, k_cap,
+                                       ent["index"])
             total = int(tot)
             t0 = self._phase("join_probe", t0)
             if total <= k_cap:
@@ -236,6 +245,8 @@ class DeviceJoiner:
             raise JoinDeviceUnavailable("pair capacity did not settle")
         with self._mu:
             self.device_joins += 1
+            route = "sparse" if ent["index"] is None else "dense"
+            self.probe_routes[route] = self.probe_routes.get(route, 0) + 1
             obs = total / max(1, n)
             old = self._mult.get(tkey)
             self._mult[tkey] = obs if old is None else \
@@ -428,6 +439,7 @@ class DeviceJoiner:
     def stats(self) -> dict:
         with self._mu:
             return {"device_joins": self.device_joins,
+                    "probe_routes": dict(self.probe_routes),
                     "build_cache_hits": self.build_cache_hits,
                     "build_cache_builds": self.build_cache_builds,
                     "overflow_redispatches": self.overflow_redispatches,

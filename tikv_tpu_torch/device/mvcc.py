@@ -453,6 +453,7 @@ def mvcc_resolve_plain(commit_ts, wtype, seg_start, handles, sources,
 
 
 _MAX_OUT = 64
+TILE_KEYS = 1024    # csrc/mvcc.cu TILE_KEYS: keys of a resolve tile
 _OP = {"h": 0, "v": 1, "m": 2}
 _SRC_BOOL = 4
 _DST = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3,
@@ -467,10 +468,8 @@ class _ResolveParams(ctypes.Structure):
                 ("n_keys", ctypes.c_longlong),
                 ("read_ts", ctypes.c_longlong),
                 ("n_pad", ctypes.c_longlong),
-                ("n_blocks", ctypes.c_longlong),
-                ("block_counts", ctypes.c_void_p),
-                ("block_offsets", ctypes.c_void_p),
-                ("count", ctypes.c_void_p),
+                ("n_tiles", ctypes.c_longlong),
+                ("work", ctypes.c_void_p),
                 ("n_out", ctypes.c_int),
                 ("op", ctypes.c_int * _MAX_OUT),
                 ("src_kind", ctypes.c_int * _MAX_OUT),
@@ -492,11 +491,12 @@ def _kernel_lib():
         lib.mvcc_resolve_launch.restype = ctypes.c_int
         lib.mvcc_params_bytes.restype = ctypes.c_int
         lib.mvcc_max_out.restype = ctypes.c_int
-        lib.mvcc_keys_per_block.restype = ctypes.c_longlong
+        lib.mvcc_tile_keys.restype = ctypes.c_longlong
         lib.mvcc_error_string.argtypes = [ctypes.c_int]
         lib.mvcc_error_string.restype = ctypes.c_char_p
         if lib.mvcc_params_bytes() != ctypes.sizeof(_ResolveParams) or \
-                lib.mvcc_max_out() != _MAX_OUT:
+                lib.mvcc_max_out() != _MAX_OUT or \
+                lib.mvcc_tile_keys() != TILE_KEYS:
             raise RuntimeError("mvcc: the kernel's parameter layout "
                                "differs from the wrapper's")
         _lib = lib
@@ -508,18 +508,17 @@ def _mvcc_resolve_cuda(commit_ts, wtype, seg_start, handles, sources,
     global resolve_launches
     lib = _kernel_lib()
     dev = commit_ts.device
-    n_blocks = max(1, -(-n_keys // lib.mvcc_keys_per_block()))
-    scratch = torch.empty(2 * n_blocks + 1, dtype=torch.int64, device=dev)
+    n_tiles = -(-n_keys // TILE_KEYS)
+    # status words, the tile counter, the count (zeroed by the launcher)
+    work = torch.empty(n_tiles + 2, dtype=torch.int64, device=dev)
     outs = [torch.empty(n_pad, dtype=s[1] if s[0] == "h" else
                         s[2] if s[0] == "v" else torch.bool, device=dev)
             for s in spec]
     p = _ResolveParams(
         commit_ts=commit_ts.data_ptr(), wtype=wtype.data_ptr(),
         seg_start=seg_start.data_ptr(), handles=handles.data_ptr(),
-        n_keys=n_keys, read_ts=read_ts, n_pad=n_pad, n_blocks=n_blocks,
-        block_counts=scratch.data_ptr(),
-        block_offsets=scratch.data_ptr() + 8 * n_blocks,
-        count=scratch.data_ptr() + 8 * (2 * n_blocks), n_out=len(spec))
+        n_keys=n_keys, read_ts=read_ts, n_pad=n_pad, n_tiles=n_tiles,
+        work=work.data_ptr(), n_out=len(spec))
     for q, (s, out) in enumerate(zip(spec, outs)):
         p.op[q] = _OP[s[0]]
         if s[0] == "h":
@@ -536,7 +535,7 @@ def _mvcc_resolve_cuda(commit_ts, wtype, seg_start, handles, sources,
         raise RuntimeError("mvcc_resolve launch failed: "
                            + lib.mvcc_error_string(err).decode())
     resolve_launches += 1
-    return outs, scratch[2 * n_blocks]
+    return outs, work[n_tiles + 1]
 
 
 def mvcc_resolve(commit_ts: torch.Tensor, wtype: torch.Tensor,

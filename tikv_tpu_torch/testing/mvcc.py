@@ -232,6 +232,58 @@ def random_history(rng: np.random.Generator, n_keys: int, kinds: dict,
     return events
 
 
+def segment_history(rng: np.random.Generator, lengths, kinds: dict,
+                    null_share: float = 0.2) -> WritePlanes:
+    """Planes of one key per entry of ``lengths``, with that many versions
+    each: long segments (a hot counter row's thousands of versions) that
+    ``random_history`` does not make.  A key's versions are newest first
+    at commit_ts base + 10·(versions left), its base drawn from [0, 10);
+    write types PUT 0.5, DELETE 0.1, LOCK 0.2, ROLLBACK 0.2; a PUT's
+    cells drawn per kind, NULL on ``null_share``."""
+    lengths = np.asarray(lengths, np.int64)
+    n = len(lengths)
+    seg_start = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=seg_start[1:])
+    n_ver = int(seg_start[-1])
+    seg_id = np.repeat(np.arange(n, dtype=np.int32), lengths)
+    left = lengths[seg_id] - (np.arange(n_ver) - seg_start[seg_id])
+    commit_ts = (rng.integers(0, 10, n)[seg_id] + 10 * left).astype(
+        np.uint64)
+    wtype = rng.choice(4, n_ver, p=[0.5, 0.1, 0.2, 0.2]).astype(np.uint8)
+    put = wtype == WT_PUT
+    cols = {}
+    for cid, kind in kinds.items():
+        if kind == 1:
+            v = rng.normal(0.0, 1000.0, n_ver)
+        elif kind == 3:
+            v = rng.integers(0, 1 << 63, n_ver).astype(np.uint64)
+        else:
+            v = rng.integers(-(1 << 40), 1 << 40, n_ver)
+        ok = put & (rng.random(n_ver) >= null_share)
+        cols[cid] = (kind, np.where(ok, v, 0).astype(v.dtype), ok)
+    start_ts = commit_ts - (wtype != WT_ROLLBACK).astype(np.uint64)
+    return WritePlanes(
+        n_ver, n, 0, int(commit_ts.max()) if n_ver else 0, commit_ts,
+        start_ts, wtype, put.astype(np.uint8), seg_id,
+        np.arange(n, dtype=np.int64) * 2 + 1, seg_start, cols, [],
+        tuple(kinds))
+
+
+def long_segment_planes(case: str, kinds: dict) -> tuple:
+    """The long-segment histories → (planes, read_ts): ``hot_key``, one
+    key of 50,000 versions among 3000 keys of 1-3; ``long_run``, a run of
+    200 keys of 300 versions each among 2000 keys of 1-3.  About half of
+    each long key's versions lie above read_ts."""
+    rng = np.random.default_rng({"hot_key": 51, "long_run": 52}[case])
+    if case == "hot_key":
+        lengths = rng.integers(1, 4, 3000)
+        lengths[1500] = 50_000
+        return segment_history(rng, lengths, kinds), 250_000
+    lengths = rng.integers(1, 4, 2000)
+    lengths[500:700] = 300
+    return segment_history(rng, lengths, kinds), 1500
+
+
 # ---------------------------------------------------------------------------
 # the chip smoke's cold-path configurations
 # ---------------------------------------------------------------------------
