@@ -175,7 +175,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    routes (config 7's dense build, and its keys spread by 2^20), its bound
    counting the -1 fill up to k_cap, printed beside the count without
    it;
-11. one JSON line listing every ported kernel: launches on the main path,
+11. ANALYZE and CHECKSUM: ``analyze_column`` (``csrc/analyze.cu``, whose
+   radix pass is ``csrc/onesweep.cuh``'s, shared with ``sort_perm`` and
+   ``join_build``: step 10 holds both to their plain versions) against its
+   plain version on the card over the CPU tests' edge cases of every
+   device dtype (int32, int64, uint32, uint64, float64: NULLs, NaN, −NaN,
+   ±0.0, ±inf, the dtype's max, all NULL, one valid row, fewer valid rows
+   than buckets, one bucket, one row, ties, padding rows marked valid), n
+   around the pass tiles, float64 specials, a full-span int64 column, keys
+   of 32 and 33 bits, one value, uint64 past 2^63, 2^20 and 2^22 rows:
+   rank words, n_valid and distinct counts bit for bit, the bounds the
+   unpacking keeps by value; then the cells an4 and an4n (config 4's and
+   4n's tables, 100·2^20 rows), an4s and an4r (2^24 rows) and an6c
+   (config 6c's cold-minted snapshot after its rounds, 10·2^20 keys), each
+   every column at 256 buckets through ``Endpoint.handle_analyze``: cold +
+   5 warm, each answer equal to the numpy truth, ``analyze`` launched once
+   per column and request and no other kernel, no degrade, the host-clock
+   phases of the cold and the median warm request; CHECKSUM over 2^16
+   rows (the crc64-xz check value, the fold in another order, two
+   replicas, a partial range); and ``analyze`` timed at an4's id, k and v,
+   an4s's k and an4r's v as issued and its kernels alone, beside its
+   bound, plain version and one ``torch.sort`` of the sentinelled column;
+12. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -185,9 +206,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``agg_fold``, with 3n under ``configs``; config 4h for
    ``mvcc_resolve``, ``plane_digest`` and ``patch_rows``, with 6c under
    ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_index``
-   / ``join_probe``, ``sort_perm`` and ``window_scan``), and the least
-   time the card could take;
-12. the last line: ``{"ok": true, "device": {...}}``.
+   / ``join_probe``, ``sort_perm`` and ``window_scan``; an4's id for
+   ``analyze``, with the other timed columns under ``configs``), and the
+   least time the card could take;
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -198,6 +220,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -216,7 +239,7 @@ CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
-           "sort_perm", "window_scan")
+           "sort_perm", "window_scan", "analyze")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -272,7 +295,7 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 
 def counts() -> dict:
-    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg,
+    from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
                                        join_probe, mvcc, selection, sort,
                                        topn, twolevel, window)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
@@ -287,11 +310,12 @@ def counts() -> dict:
             "join_index": join_probe.index_launches,
             "join_probe": join_probe.launches,
             "sort_perm": sort.sort_launches,
-            "window_scan": window.launches}
+            "window_scan": window.launches,
+            "analyze": analyze.analyze_launches}
 
 
 def set_counts(values: dict) -> None:
-    from tikv_tpu_torch.device import (agg_fold, digest, hash_agg,
+    from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
                                        join_probe, mvcc, selection, sort,
                                        topn, twolevel, window)
     hash_agg.launches = values["hash_agg"]
@@ -309,6 +333,7 @@ def set_counts(values: dict) -> None:
     join_probe.launches = values["join_probe"]
     sort.sort_launches = values["sort_perm"]
     window.launches = values["window_scan"]
+    analyze.analyze_launches = values["analyze"]
 
 
 def build_kernels() -> None:
@@ -2705,6 +2730,7 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
                 del dvp, parts
             other, (_k, other_feed), rows[route] = serve(route)
             diff += feed_diff(other_feed, feed)
+            last = other                # ANALYZE reads the last one
             del other, other_feed
         rounds.append(rows)
     set_counts(saved)
@@ -2726,7 +2752,9 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
            "timing": timing}
     print(f"cold config {config}: " + json.dumps(
         {k: v for k, v in out.items() if k != "timing"}), flush=True)
-    del feed, resident, planes
+    if config == "6c":
+        out["snapshot"] = last          # the cell an6c analyzes it
+    del feed, resident, planes, last
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3363,6 +3391,266 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
     return errs, t
 
 
+# ---------------------------------------------------------------------------
+# ANALYZE and CHECKSUM: analyze_column, the cells an4, an4n, an4s, an4r, an6c
+# ---------------------------------------------------------------------------
+
+# cell → rows of its table (an6c: config 6c's cold snapshot, COLD_SIZES)
+ANALYZE_ROWS = {"an4": 100 << 20, "an4n": 100 << 20, "an4s": 1 << 24,
+                "an4r": 1 << 24}
+# n around the pass tiles (2048 rows of 64-bit keys, 4096 of 32-bit ones)
+ANALYZE_SIZES = (1, 2, 2047, 2048, 2049, 4095, 4096, 4097, 12_289, 100_003,
+                 1 << 20)
+CHECKSUM_ROWS = 1 << 16
+
+
+def analyze_cases(dev):
+    """(label, values, validity, n, buckets) on the card: each device dtype
+    over the CPU tests' edge cases (NULLs, NaN, −NaN, ±0.0, ±inf, the
+    dtype's max, all NULL, one valid row, five, one bucket, one row, ties,
+    padding marked valid); each dtype at n around the pass tiles (random
+    values, NULLs on 20%); then over 2^20 rows: float64 with NaN, −NaN,
+    ±0.0 and ±inf on 5% each, int64 over its whole range with NULLs (the
+    NULL key all ones), int64 keys of exactly 32 and 33 bits, one value on
+    every row, uint64 at and past 2^63, and 2^22 rows with 256 buckets."""
+    from tikv_tpu_torch.testing import configs as cf
+
+    def up(v, ok, n, b):
+        return (torch.from_numpy(np.ascontiguousarray(v)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(ok)).to(dev), n, b)
+
+    for kind in cf.ANALYZE_KINDS:
+        for case in cf.ANALYZE_EDGE_CASES:
+            yield (f"{kind}/{case}",
+                   *up(*cf.analyze_edge_case(kind, case)))
+        for rows in ANALYZE_SIZES:
+            v, ok, _n, b = cf.analyze_edge_case(kind, "random", rows)
+            yield f"{kind}/n={rows}", *up(v, ok, rows, b)
+    rng = np.random.default_rng(104)
+    m = 1 << 20
+    f = rng.normal(0, 1e3, m)
+    for val in (np.nan, np.copysign(np.nan, -1), 0.0, -0.0, np.inf,
+                -np.inf):
+        f[rng.random(m) < 0.05] = val
+    yield "float64/specials/2^20", *up(f, rng.random(m) > 0.1, m, 256)
+    wide = rng.integers(I64.min, I64.max, m, dtype=np.int64, endpoint=True)
+    wide[:2] = (I64.min, I64.max)
+    ok = rng.random(m) > 0.1
+    ok[:2] = True
+    yield "int64/full span/2^20", *up(wide, ok, m, 256)
+    for bits, span in ((32, (1 << 32) - 2), (33, (1 << 32) - 1)):
+        k = -77 + rng.integers(0, span + 1, m)
+        k[:2] = (-77, -77 + span)
+        yield f"int64/{bits}-bit keys/2^20", *up(k, np.ones(m, np.bool_),
+                                                 m, 256)
+    yield "int32/one value/2^20", *up(np.full(m, 5, np.int32),
+                                      np.ones(m, np.bool_), m, 256)
+    u = rng.integers(0, 1 << 63, m, dtype=np.uint64)
+    u[rng.random(m) < 0.5] |= np.uint64(1 << 63)
+    yield "uint64/past 2^63/2^20", *up(u, rng.random(m) > 0.1, m, 256)
+    m = 1 << 22
+    yield "int32/2^22", *up(rng.integers(-(1 << 31), 1 << 31, m,
+                                         dtype=np.int32),
+                            rng.random(m) > 0.1, m - 5, 256)
+
+
+def check_analyze(dev) -> float:
+    """analyze_column against its plain version on the card over
+    ``analyze_cases``: every rank word, n_valid and the distinct count bit
+    for bit, the bound of every bucket the unpacking keeps by value
+    (``analyze.packed_max_diff``; tolerance 0)."""
+    from tikv_tpu_torch.device import analyze as an
+    saved = counts()
+    worst, n_cases, bits = 0.0, 0, {}
+    for label, v, ok, n, b in analyze_cases(dev):
+        got = an.analyze_column(v, ok, n, b)
+        want = an.analyze_column_plain(v, ok, n, b)
+        torch.cuda.synchronize()
+        err = an.packed_max_diff(got, want, b, v.dtype == torch.float64)
+        assert err == 0, f"analyze {label}: differs by {err}"
+        worst = max(worst, err)
+        n_cases += 1
+        if "2^2" in label:
+            bits[label] = an.key_plan(v, ok, n)[3]
+        del got, want
+    set_counts(saved)
+    print(f"kernel analyze: {n_cases} cases (edge cases of every dtype, "
+          f"n in {ANALYZE_SIZES}, 2^20 and 2^22 rows): max_abs_err={worst} "
+          f"tolerance=0 (ranks, counts bit for bit; kept bounds by value); "
+          f"key bits {json.dumps(bits)}", flush=True)
+    return worst
+
+
+def stats_equal(got, want) -> bool:
+    """ColumnStats lists equal: ids, totals, NULL and distinct counts, and
+    every bucket's bound and count (by value; no cell holds a NaN)."""
+    return len(got) == len(want) and all(
+        (g.col_id, g.total, g.null_count, g.distinct, g.buckets) ==
+        (w.col_id, w.total, w.null_count, w.distinct, w.buckets)
+        for g, w in zip(got, want))
+
+
+def run_analyze(cell: str, runner, table=None, snap=None) -> dict:
+    """ANALYZE cell ``cell`` (every column, 256 buckets) through
+    ``Endpoint.handle_analyze`` at a row threshold of the snapshot's rows:
+    one cold and five warm requests, each answer against the numpy truth
+    (``configs.analyze_truth``); ``analyze`` must launch once per column
+    and request and no other kernel; no degrade; the host-clock phases of
+    the cold and the median warm request."""
+    from tikv_tpu_torch.copr.endpoint import Endpoint
+    from tikv_tpu_torch.testing import configs as cf
+    t0 = time.perf_counter()
+    if snap is None:
+        table, snap = cf.ANALYZE_CELLS[cell](ANALYZE_ROWS[cell])
+    build_s = time.perf_counter() - t0
+    areq = cf.analyze_request(table)
+    t0 = time.perf_counter()
+    want = cf.analyze_truth(areq, snap)
+    truth_s = time.perf_counter() - t0
+    rows = snap.estimated_rows()
+    ep = Endpoint(lambda req: snap, runner, device_row_threshold=rows)
+    set_counts({k: 0 for k in KERNELS})
+    times, phases = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ep.handle_analyze(areq)["columns"]
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert stats_equal(got, want), \
+            f"cell {cell}: wrong answer (request {len(times)})"
+        phases.append(dict(runner.analyze_phases_ms))
+    launches = counts()
+    cols = len(areq.scan.columns)
+    assert launches["analyze"] == 6 * cols, launches
+    assert all(v == 0 for k, v in launches.items() if k != "analyze"), \
+        f"cell {cell} launched {launches}"
+    assert not ep.degrades, f"cell {cell}: degrades {ep.degrades}"
+    out = {"config": cell, "rows": rows, "columns": cols,
+           "buckets": areq.buckets, "cold_ms": times[0],
+           "warm_p50_ms": float(np.percentile(times[1:], 50)),
+           "launches": launches, "build_s": build_s, "truth_s": truth_s,
+           "distinct": [s.distinct for s in got],
+           "null_count": [s.null_count for s in got],
+           "cold_phases_ms": phases[0],
+           "warm_phases_ms": {k: float(np.median([p.get(k, 0.0)
+                                                  for p in phases[1:]]))
+                              for k in phases[-1]},
+           "degrades": dict(ep.degrades)}
+    print(f"cell {cell}: " + " ".join(
+        f"{k}={json.dumps(v) if isinstance(v, (dict, list)) else v}"
+        for k, v in out.items() if k != "config"), flush=True)
+    return out
+
+
+def run_checksum() -> dict:
+    """CHECKSUM over config 4's table at 2^16 rows: the crc64-xz check
+    value, the fold of the pairs in another order, two replicas of the
+    same rows (built apart from one seed) and a partial range against the
+    fold of its pairs; on the host, as in the reference."""
+    from tikv_tpu_torch.codec.keys import table_record_key
+    from tikv_tpu_torch.copr.analyze import (ChecksumReq, checksum_kv_pairs,
+                                             crc64)
+    from tikv_tpu_torch.copr.endpoint import Endpoint
+    from tikv_tpu_torch.executors.ranges import KeyRange
+    from tikv_tpu_torch.testing import configs as cf
+    assert crc64(b"123456789") == 0x995DC9BBDF1939FA
+    table, snap = cf.build_table(CHECKSUM_ROWS)
+    _t, replica = cf.build_table(CHECKSUM_ROWS)
+    areq = cf.analyze_request(table)
+    req = ChecksumReq(areq.scan, areq.ranges)
+    t0 = time.perf_counter()
+    one = Endpoint(lambda r: snap).handle_checksum(req)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    two = Endpoint(lambda r: replica).handle_checksum(req)
+    assert one == two and one["total_kvs"] == CHECKSUM_ROWS, (one, two)
+    pairs = snap.to_kv_pairs()[::-1]
+    assert checksum_kv_pairs([k for k, _ in pairs],
+                             [v for _, v in pairs]) == one
+    part = (KeyRange(table_record_key(table.table_id, 100),
+                     table_record_key(table.table_id, 5000)),)
+    sub = Endpoint(lambda r: snap).handle_checksum(
+        ChecksumReq(areq.scan, part))
+    pairs = snap.to_kv_pairs(part)
+    assert sub["total_kvs"] == 4900 and sub == checksum_kv_pairs(
+        [k for k, _ in pairs], [v for _, v in pairs])
+    out = {"rows": CHECKSUM_ROWS, "checksum": one["checksum"],
+           "total_bytes": one["total_bytes"], "wall_ms": wall_ms,
+           "replicas_agree": True}
+    print("checksum: " + json.dumps(out), flush=True)
+    return out
+
+
+def analyze_at_main_shapes(runner, dev) -> dict:
+    """analyze_column at an4's id, k and v (104,857,600 int32 rows), an4s's
+    k (2^24 int64) and an4r's v (2^24 float64), the columns padded as the
+    runner uploads them: checked against the plain version there, and
+    timed with CUDA events: as issued (``ms``: the wrapper waits once, for
+    the range read) and its kernels alone, queued behind a device sleep
+    (``kernel_ms``: the range launch plus the sort launch), beside the bound
+    (each value and validity byte read once, the packed vector written
+    once, at 3.35 TB/s), the plain version and one ``torch.sort`` of the
+    same sentinelled column (a yardstick the port never calls)."""
+    from tikv_tpu_torch.datatype.tile import _device_dtype
+    from tikv_tpu_torch.device import analyze as an
+    from tikv_tpu_torch.testing import configs as cf
+    saved = counts()
+    b = cf.ANALYZE_BUCKETS
+    out, errs = {}, {}
+    shapes = (("an4", ("id", "k", "v")), ("an4s", ("k",)),
+              ("an4r", ("v",)))
+    for cell, names in shapes:
+        table, snap = cf.ANALYZE_CELLS[cell](ANALYZE_ROWS[cell])
+        batch = snap.scan_columns(cf.analyze_request(table).scan, ())
+        n = batch.num_rows
+        n_pad = runner._pad_rows(n)
+        for name in names:
+            col = batch.columns[[c.name for c in table.columns].index(name)]
+            # the runner's choice: REAL as float64, else the feed dtype
+            dt = np.float64 if col.eval_type.value == "real" else \
+                _device_dtype(col.eval_type, col.values)
+            v = runner._upload(col.values.astype(dt, copy=False), n_pad)
+            ok = runner._upload(col.validity, n_pad)
+            real = v.dtype == torch.float64
+            label = f"{cell} {name}"
+            errs[label] = an.packed_max_diff(
+                an.analyze_column(v, ok, n, b),
+                an.analyze_column_plain(v, ok, n, b), b, real)
+            launch = an.ColumnLaunch(v, ok, n, b)
+            launch.range()
+            n_valid, _lo, _hi, bits = launch.read_range()
+            range_ms = cuda_ms(launch.range, 20, queued=True)
+            sort_ms = cuda_ms(launch.sort, 10, queued=True)
+            mask = (torch.arange(n_pad, device=dev) < n) & ok
+            sent = math.nan if real else torch.iinfo(v.dtype).max
+            key = torch.where(mask, v, torch.full_like(v, sent))
+            out[label] = {
+                "ms": cuda_ms(lambda: an.analyze_column(v, ok, n, b), 10),
+                "kernel_ms": range_ms + sort_ms, "range_ms": range_ms,
+                "sort_ms": sort_ms,
+                "plain_ms": cuda_ms(
+                    lambda: an.analyze_column_plain(v, ok, n, b), 3),
+                "library_ms": cuda_ms(lambda: torch.sort(key), 5),
+                "library_call": "torch.sort of the sentinelled column",
+                **bound_ms(n * (v.element_size() + 1) + (2 * b + 2) * 8, 0),
+                "rows": n, "dtype": str(v.dtype).replace("torch.", ""),
+                "key_bits": bits, "passes": -(-bits // 8),
+                "n_valid": n_valid,
+                "timed": "ms: the wrapper as issued (it waits once, for the "
+                         "range read); kernel_ms: range + sort launches "
+                         "queued"}
+            print(f"analyze at {label}: {json.dumps(out[label])}",
+                  flush=True)
+            del v, ok, key, mask, launch
+        del table, snap, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    set_counts(saved)
+    for label, e in errs.items():
+        assert e == 0, f"analyze disagrees with its plain version at " \
+            f"{label}: {e}"
+    return out, max(errs.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3399,9 +3687,15 @@ def main() -> int:
     runs.append(run_uncovered(runner))
     worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
     cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
+    snap6c = cold["6c"].pop("snapshot")
     runs += cold.values()
     ep, pair = plan_endpoint(runner)
     runs += [run_plan(c, ep, pair) for c in PLAN_ROUTE]
+    worst["analyze"] = check_analyze(dev)
+    runs += [run_analyze(c, runner) for c in ANALYZE_ROWS]
+    runs.append(run_analyze("an6c", runner, snap6c._tbl.table, snap6c))
+    del snap6c
+    run_checksum()
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -3487,6 +3781,18 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(worst[name], errs[name]),
             **plan_timing[name]})
+    analyze_timing, err = analyze_at_main_shapes(runner, dev)
+    worst["analyze"] = max(worst["analyze"], err)
+    kernels.append({
+        "name": "analyze", "route": "cuda",
+        "source": "tikv_tpu_torch/csrc/analyze.cu",
+        "replaces": "tikv_tpu/device/runner.py:4478",
+        "launches": launches["analyze"], "max_abs_err": worst["analyze"],
+        **{k: v for k, v in analyze_timing["an4 id"].items()
+           if k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_call", "rows", "dtype",
+                    "passes")},
+        "configs": analyze_timing})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

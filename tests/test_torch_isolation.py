@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``tikv_tpu_torch`` (every source
-under it, the selection and top-k modules included, and
+under it, the selection, top-k and ANALYZE modules included, and
 ``chip_smoke.py``) imports JAX or the JAX package, serving an
-aggregation, a selection, an index-scan top-k and a join plan through the
-endpoint loads neither, and nothing falls back to the CPU without being
-asked."""
+aggregation, a selection, an index-scan top-k, a join plan, an ANALYZE
+and a CHECKSUM request through the endpoint loads neither, and nothing
+falls back to the CPU without being asked."""
 
 import ast
 import os
@@ -72,6 +72,14 @@ plan = plan_from_wire(enc_plan(configs.plan_join(pt, bt)))
 got = ep.handle_plan(plan, force_backend="device").result.batch
 assert configs.columns_agree(got, configs.plan_truth("7", ps, bs))
 assert ep.plan_executor.join_backends == {"device": 1}
+from tikv_tpu_torch.copr.analyze import ChecksumReq
+areq = configs.analyze_request(table, 16)
+aep = Endpoint(lambda req: snap, runner, device_row_threshold=1)
+stats = aep.handle_analyze(areq)["columns"]
+assert [s.total for s in stats] == [5000] * 3 and not aep.degrades
+assert runner.analyze_phases_ms["pad_h2d"] >= 0
+cs = aep.handle_checksum(ChecksumReq(areq.scan, areq.ranges))
+assert cs["total_kvs"] == 5000 and cs["checksum"] != 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
 assert not bad, bad

@@ -5,8 +5,10 @@ slice, with the JAX package kept as the reference.  Its endpoint
 (``copr/endpoint.py``) serves the coprocessor's DAG requests — aggregation,
 selection and top-k over a columnar snapshot held on the card, through
 hand-written CUDA kernels (``csrc/``), and every other plan on the host
-pipeline (``executors/``) — and plan-IR requests, whose join, sort and
-window fragments run on the card (``copr/plan_ir.py``, ``device/join.py``).
+pipeline (``executors/``) —, plan-IR requests, whose join, sort and
+window fragments run on the card (``copr/plan_ir.py``, ``device/join.py``),
+ANALYZE requests, whose column sorts run on the card
+(``device/analyze.py``), and CHECKSUM requests (``copr/analyze.py``).
 
 The package imports torch and numpy only; it keeps its own copies of the
 host helpers it needs.  Exports are lazy (PEP 562).

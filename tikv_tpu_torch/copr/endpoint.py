@@ -16,9 +16,15 @@ synchronous path:
 - ``handle_plan(PlanRequest)``: a plan-IR request (``copr/plan_ir.py``):
   one snapshot per scan leaf, then the ``plan_executor`` routes and runs
   each fragment; a fragment's degrade is counted in ``degrades`` too.
+- ``handle_analyze(AnalyzeReq)`` (tp 104): per-column statistics, on the
+  device runner (``handle_analyze``: the column sorts on the card) when
+  the snapshot holds at least ``device_row_threshold`` rows, else by the
+  host half (``copr/analyze.py``) over the host pipeline's scan; a device
+  fault degrades it to the host half, counted in ``degrades["analyze"]``.
+- ``handle_checksum(ChecksumReq)`` (tp 105): the crc64-xz XOR fold of the
+  snapshot's logical KV pairs within the ranges, on the host.
 
-Only DAG requests (tp 103) are served: analyze, checksum, paged requests
-and the deferred (asynchronous) path are outside the port.
+Paged requests and the deferred (asynchronous) path are outside the port.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from ..device import DEVICE_FAULTS
 from .dag import DAGRequest
 
 REQ_TYPE_DAG = 103
+REQ_TYPE_ANALYZE = 104
+REQ_TYPE_CHECKSUM = 105
 
 
 @dataclass
@@ -72,7 +80,8 @@ class Endpoint:
         self._plan_executor = None
         self._mu = threading.Lock()
         # degrades to the host, by reason: "dispatch" (a DAG request),
-        # "plan_leaf", "join", "sort", "window" (a plan's fragment)
+        # "plan_leaf", "join", "sort", "window" (a plan's fragment),
+        # "analyze" (an ANALYZE request)
         self.degrades: dict = {}
 
     def note_degrade(self, reason: str) -> None:
@@ -124,6 +133,55 @@ class Endpoint:
             storages[id(leaf)] = self._snapshot_provider(sub)
         result = self.plan_executor.execute(preq, storages, force_backend)
         return CopResponse(result, time.perf_counter_ns() - t0, "plan")
+
+    def handle_analyze(self, areq, storage=None) -> dict:
+        """tp=104 (src/coprocessor/statistics/, endpoint.rs:275-312):
+        per-column equi-depth histograms with distinct and NULL counts →
+        {"columns": [ColumnStats]}.  Routed like a DAG request: a snapshot
+        of at least ``device_row_threshold`` rows sorts its columns on the
+        card, a smaller one on the host."""
+        from ..executors.runner import BatchExecutorsRunner
+        from .analyze import analyze_columns
+        dag = DAGRequest((areq.scan,), tuple(areq.ranges),
+                         start_ts=areq.start_ts)
+        if storage is None:
+            storage = self._snapshot_provider(
+                CopRequest(REQ_TYPE_ANALYZE, dag))
+        runner = self._device_runner
+        est = getattr(storage, "estimated_rows", None)
+        n = est() if callable(est) else None
+        if runner is not None and n is not None and \
+                n >= self._device_row_threshold and \
+                hasattr(storage, "scan_columns"):
+            try:
+                return {"columns": runner.handle_analyze(dag, storage,
+                                                         areq.buckets)}
+            except DEVICE_FAULTS:
+                # a device fault degrades the request to the host half; a
+                # kernel that fails to build or launch is not one: it
+                # raises
+                self.note_degrade("analyze")
+        result = BatchExecutorsRunner(dag, storage).handle_request()
+        return {"columns": analyze_columns(result.batch, areq.scan.columns,
+                                           areq.buckets)}
+
+    def handle_checksum(self, creq, storage=None) -> dict:
+        """tp=105 (src/coprocessor/checksum.rs): crc64-xz XOR-folded over
+        the logical rows (record key + row payload) within the request's
+        ranges: the same visible content gives the same checksum on every
+        replica, whatever its MVCC history."""
+        from .analyze import checksum_kv_pairs
+        dag = DAGRequest((creq.scan,), tuple(creq.ranges),
+                         start_ts=creq.start_ts)
+        if storage is None:
+            storage = self._snapshot_provider(
+                CopRequest(REQ_TYPE_CHECKSUM, dag))
+        if not hasattr(storage, "to_kv_pairs"):
+            raise NotImplementedError(
+                "checksum requires a table snapshot feed")
+        pairs = storage.to_kv_pairs(tuple(creq.ranges) or None)
+        return checksum_kv_pairs([k for k, _ in pairs],
+                                 [v for _, v in pairs])
 
     def _pick_backend(self, req: CopRequest, storage) -> str:
         runner = self._device_runner

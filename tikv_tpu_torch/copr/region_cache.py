@@ -130,3 +130,10 @@ class MvccColumnarSnapshot:
 
     def gather_rows(self, desc, ranges, rows):
         return self._tbl.gather_rows(desc, ranges, rows)
+
+    def to_kv_pairs(self, ranges=None):
+        """Logical row pairs for the CHECKSUM request."""
+        return self._tbl.to_kv_pairs(ranges)
+
+    def estimated_rows(self) -> int:
+        return len(self._tbl)

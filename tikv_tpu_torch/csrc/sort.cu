@@ -36,20 +36,13 @@
 //   3. Per group, pack_kernel reads its keys (through the permutation for a
 //      later group) once, writes the packed image and, in the same read,
 //      the histogram of every 8-bit digit of it.
-//   4. Then one kernel per 8-bit digit (onesweep_kernel).  Each block takes
-//      a tile index from an atomic counter, so it waits only on tiles that
-//      are already running; loads its rows (a warp's rows consecutive);
-//      ranks them by digit in shared memory (a warp's lanes of one digit by
-//      __match_any_sync, per-warp counts, then a scan over warps and
-//      digits), so rows of one digit keep their order; publishes its digit
-//      counts by decoupled look-back (one 64-bit status word per tile and
-//      digit: a flag and a count, the flag either the tile's own count or
-//      the inclusive count of every tile up to it); and writes its rows out
-//      of shared memory in digit order, so consecutive threads write each
-//      digit's run.  The first pass of the first group reads no
-//      permutation (row i is source row i); the last pass writes no image;
-//      the permutation alternates so that every group's last pass writes
-//      the output.
+//   4. Then one kernel per 8-bit digit (onesweep_kernel, onesweep.cuh:
+//      tiles taken in order from an atomic counter, ranked by digit in
+//      shared memory, their digit counts published by decoupled
+//      look-back, written out in digit order).  The first pass of the
+//      first group reads no permutation (row i is source row i); the last
+//      pass writes no image; the permutation alternates so that every
+//      group's last pass writes the output.
 // Block scans are CUB's (scan.cuh).
 //
 // Bound: bytes.  Reading each key once and writing the permutation once:
@@ -64,9 +57,9 @@
 #include <stdint.h>
 
 #include "scan.cuh"
+#include "onesweep.cuh"
 
 #define THREADS 256
-#define WARPS (THREADS / 32)
 #define RADIX 256
 #define DIGIT_BITS 8
 #define ITEMS32 16
@@ -74,9 +67,12 @@
 #define TILE32 (THREADS * ITEMS32)  // rows of a pass tile, 32-bit images
 #define TILE64 (THREADS * ITEMS64)  // the same, 64-bit images
 #define MAX_KEYS 8
-#define MAX_PASSES (64 / DIGIT_BITS)
 
 typedef unsigned long long u64;
+
+static_assert(THREADS == SWEEP_THREADS && RADIX == SWEEP_RADIX &&
+                  DIGIT_BITS == SWEEP_DIGIT_BITS,
+              "sort.cu's tiles are onesweep.cuh's");
 
 enum { KIND_I64 = 0, KIND_F64 = 1, KIND_U8 = 2 };
 
@@ -120,11 +116,6 @@ struct BuildParams {
 };
 
 namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
-constexpr u64 FLAG_AGG = 1ull << 62;     // the tile's own digit count
-constexpr u64 FLAG_PREFIX = 2ull << 62;  // the count of tiles [0, tile]
-constexpr u64 COUNT_MASK = (1ull << 62) - 1;
 
 template <int KIND>
 __device__ __forceinline__ u64 key_image(const void* key, long long i) {
@@ -220,8 +211,8 @@ __global__ void __launch_bounds__(THREADS)
     pack_kernel(const __grid_constant__ SortParams p, int g, const int* perm,
                 int* perm_copy, K* img, int passes, u64* hist,
                 long long hist_stride) {
-  __shared__ unsigned cnt[MAX_PASSES][RADIX];
-  for (int q = 0; q < passes; ++q) cnt[q][threadIdx.x] = 0;
+  __shared__ DigitCounts cnt;
+  digit_counts_zero(cnt, passes);
   __syncthreads();
   const int nk = p.g_count[g];
   const long long step = (long long)gridDim.x * THREADS * UNROLL;
@@ -262,127 +253,11 @@ __global__ void __launch_bounds__(THREADS)
     for (int u = 0; u < UNROLL; ++u) {
       if (!((live >> u) & 1u)) continue;
       img[b + u * THREADS] = (K)x[u];
-      for (int q = 0; q < passes; ++q)
-        atomicAdd(&cnt[q][(x[u] >> (DIGIT_BITS * q)) & (RADIX - 1)], 1u);
+      digit_counts_add(cnt, x[u], passes);
     }
   }
   __syncthreads();
-  for (int q = 0; q < passes; ++q) {
-    const unsigned c = cnt[q][threadIdx.x];
-    if (c) atomicAdd(&hist[q * hist_stride + threadIdx.x], (u64)c);
-  }
-}
-
-// the rows of the tiles before `tile` whose digit is `d` (thread d spins on
-// each earlier tile's word until it holds a count; tile 0's is inclusive)
-__device__ __forceinline__ u64 look_back(const u64* status, long long tile,
-                                         int d) {
-  u64 excl = 0;
-  for (long long j = tile - 1;;) {
-    const u64 s = *reinterpret_cast<const volatile u64*>(
-        status + j * RADIX + d);
-    if ((s & ~COUNT_MASK) == 0) continue;
-    excl += s & COUNT_MASK;
-    if ((s & ~COUNT_MASK) == FLAG_PREFIX) return excl;
-    --j;
-  }
-}
-
-__device__ __forceinline__ void publish(u64* word, u64 v) {
-  *reinterpret_cast<volatile u64*>(word) = v;
-}
-
-// One stable pass over the digit at `shift`: (kin, vin) → (kout, vout),
-// vin null for row indices, kout null on the last pass.  hist: the
-// pass's digit counts over all rows; status: n_tiles x RADIX zeroed words;
-// counter: the zeroed tile counter.
-template <typename K, int ITEMS>
-__global__ void __launch_bounds__(THREADS)
-    onesweep_kernel(const K* __restrict__ kin, K* kout,
-                    const int* __restrict__ vin, int* vout, long long n,
-                    int shift, const u64* hist, u64* status, u64* counter) {
-  constexpr int TILE = THREADS * ITEMS;
-  __shared__ long long s_tile;
-  __shared__ int whist[WARPS][RADIX];   // per warp: counts, then offsets
-  __shared__ int s_start[RADIX];        // a digit's first slot in the tile
-  __shared__ long long s_base[RADIX];   // its output row, less s_start
-  __shared__ K s_key[TILE];
-  __shared__ int s_val[TILE];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (t == 0) s_tile = (long long)atomicAdd(counter, 1ull);
-  for (int w = 0; w < WARPS; ++w) whist[w][t] = 0;
-  __syncthreads();
-  const long long tile = s_tile;
-  const long long start = tile * TILE;
-  const int rows = (int)(n - start < TILE ? n - start : TILE);
-  // a warp's rows are consecutive: item j of lane l is row j * 32 + l
-  const int wrow = warp * 32 * ITEMS;
-  K key[ITEMS];
-  int val[ITEMS], rank[ITEMS];
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const int r = wrow + j * 32 + lane;
-    const long long i = start + r;
-    const bool live = r < rows;
-    key[j] = live ? kin[i] : (K)0;
-    val[j] = live ? (vin != nullptr ? vin[i] : (int)i) : 0;
-  }
-  const unsigned below = (1u << lane) - 1;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const bool live = wrow + j * 32 + lane < rows;
-    // rows past n share a digit no row has
-    const unsigned d =
-        live ? (unsigned)(key[j] >> shift) & (RADIX - 1) : RADIX;
-    const unsigned peers = __match_any_sync(FULL, d);
-    const int pre = live ? whist[warp][d] : 0;
-    rank[j] = pre + __popc(peers & below);
-    __syncwarp();
-    if (live && (peers & below) == 0) whist[warp][d] = pre + __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  // thread t owns digit t: the warps' offsets, the tile's count
-  int cnt = 0;
-  for (int w = 0; w < WARPS; ++w) {
-    const int c = whist[w][t];
-    whist[w][t] = cnt;
-    cnt += c;
-  }
-  u64* mine = status + tile * RADIX + t;
-  if (tile == 0)
-    publish(mine, FLAG_PREFIX | (u64)cnt);
-  else
-    publish(mine, FLAG_AGG | (u64)cnt);
-  int tile_rows;
-  const int lstart =
-      block_exclusive_scan<THREADS>(cnt, Add<int>(), 0, &tile_rows);
-  u64 all;
-  const u64 gstart =
-      block_exclusive_scan<THREADS>(hist[t], Add<u64>(), 0ull, &all);
-  u64 excl = 0;
-  if (tile > 0) {
-    excl = look_back(status, tile, t);
-    publish(mine, FLAG_PREFIX | (excl + (u64)cnt));
-  }
-  s_start[t] = lstart;
-  s_base[t] = (long long)(gstart + excl) - lstart;
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    if (wrow + j * 32 + lane >= rows) continue;
-    const unsigned d = (unsigned)(key[j] >> shift) & (RADIX - 1);
-    const int at = s_start[d] + whist[warp][d] + rank[j];
-    s_key[at] = key[j];
-    s_val[at] = val[j];
-  }
-  __syncthreads();
-  for (int s = t; s < rows; s += THREADS) {
-    const K k = s_key[s];
-    const long long dst = s_base[(k >> shift) & (RADIX - 1)] + s;
-    if (kout != nullptr) kout[dst] = k;
-    vout[dst] = s_val[s];
-  }
+  digit_counts_flush(cnt, passes, hist, hist_stride);
 }
 
 unsigned grid_of(long long n) {
@@ -435,7 +310,7 @@ cudaError_t sort_group(const SortParams& p, int g, int first, u64* work,
   const int* vin = in0;
   for (int q = 0; q < passes; ++q) {
     int* vout = (passes - 1 - q) % 2 == 0 ? p.perm : p.tmp;
-    onesweep_kernel<K, ITEMS><<<(unsigned)n_tiles, THREADS, 0, s>>>(
+    onesweep_kernel<K, ITEMS, true><<<(unsigned)n_tiles, THREADS, 0, s>>>(
         img[q & 1], q == passes - 1 ? nullptr : img[(q + 1) & 1], vin, vout,
         n, DIGIT_BITS * q, hist + q * RADIX,
         status + (long long)q * n_tiles * RADIX, counters + q);

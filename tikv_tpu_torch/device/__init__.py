@@ -1,15 +1,16 @@
 """Device (CUDA) execution backend of the coprocessor: aggregation,
 selection and top-k over a snapshot held on the card, the cold path that
-mints that snapshot's feed from its MVCC versions, and the plan IR's join,
-sort and window fragments (``join.DeviceJoiner``).
+mints that snapshot's feed from its MVCC versions, the plan IR's join,
+sort and window fragments (``join.DeviceJoiner``), and the column
+statistics of ANALYZE (``DeviceRunner.handle_analyze``).
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``agg_fold`` (aggregation), ``selection`` (``sel_pred``, ``sel_mask``,
 ``sel_compact``), ``topn`` (``topn_select``), ``digest``
 (``plane_digest``, ``patch_rows``), ``mvcc`` (``mvcc_resolve``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,
-``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``)
-and ``window`` (``window_scan``).
+``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``),
+``window`` (``window_scan``) and ``analyze`` (``analyze_column``).
 
 Lazy exports (PEP 562): importing a sibling such as ``device.hash_agg``
 does not build the runner module.  Entry points run on ``cuda:0`` unless

@@ -29,7 +29,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # every kernel source, csrc/<name>.cu: one library each
 SOURCES = ("hash_agg", "twolevel", "selection", "topn", "agg_fold",
-           "digest", "mvcc", "sort", "join", "window")
+           "digest", "mvcc", "sort", "join", "window", "analyze")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -76,11 +76,16 @@ pipeline (``executors/``), as the reference does.  Each refusal names its
 ROADMAP.md item.  An empty scan gets the host pipeline's answer: the
 finalize of empty states, or no rows.  ``joiner()`` is the runner's
 ``DeviceJoiner``: the plan IR's join, sort and window fragments.
+``handle_analyze`` answers an ANALYZE request: each INT, REAL, DATETIME
+and DURATION column sorted and summarised on the card
+(``analyze.analyze_column``, the CUDA kernel ``csrc/analyze.cu``), every
+other column by the host half (``copr.analyze``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -271,6 +276,8 @@ class DeviceRunner:
         self.feed_routes: dict = {}
         self._mvcc_resolver = None
         self._joiner = None
+        # host-clock ms by phase of the last ANALYZE request
+        self.analyze_phases_ms: dict = {}
 
     # ---------------------------------------------------------------- plan
 
@@ -535,6 +542,75 @@ class DeviceRunner:
                         feed["flat"][fi + 1] if has_nulls else None))
             fi += 2 if has_nulls else 1
         return out
+
+    # ------------------------------------------------------------- analyze
+
+    def handle_analyze(self, dag: DAGRequest, storage,
+                       n_buckets: int) -> list:
+        """An ANALYZE request's ``ColumnStats`` per column of the scan
+        (the reference's ``_analyze_on_device_impl``, runner.py:4546-4619).
+
+        Each INT, REAL, DATETIME and DURATION column is uploaded (REAL as
+        float64: the statistics are exact) and summarised by one
+        ``analyze.analyze_column``; every packed vector comes back in one
+        D2H copy.  Other columns, and uint64 columns holding a value at or
+        past 2^63, take the host half (``copr.analyze.analyze_columns``)
+        after every device column has been launched.  ``analyze_phases_ms``
+        holds the host-clock phases of the last request."""
+        from ..copr.analyze import (ANALYZE_DEVICE_ETS, ColumnStats,
+                                    analyze_columns)
+        from . import analyze as an
+        scan = dag.executors[0]
+        phases: dict = {}
+        t0 = time.perf_counter()
+        batch = storage.scan_columns(scan, dag.ranges)
+        t1 = time.perf_counter()
+        phases["scan"] = (t1 - t0) * 1e3
+        n = batch.num_rows
+        if n == 0:
+            self.analyze_phases_ms = phases
+            return analyze_columns(batch, scan.columns, n_buckets)
+        n_pad = self._pad_rows(n)
+        pending, host_idx = {}, []
+        dtype_s = upload_s = 0.0
+        for i, col in enumerate(batch.columns):
+            et = col.eval_type
+            t = time.perf_counter()
+            if et not in ANALYZE_DEVICE_ETS or (
+                    col.values.dtype == np.uint64 and col.values.size and
+                    int(col.values.max()) >= 1 << 63):
+                host_idx.append(i)
+                continue
+            dt = np.dtype(np.float64) if et is EvalType.REAL \
+                else _device_dtype(et, col.values)
+            t2 = time.perf_counter()
+            vals = self._upload(col.values.astype(dt, copy=False), n_pad)
+            valid = self._upload(col.validity, n_pad)
+            dtype_s += t2 - t
+            upload_s += time.perf_counter() - t2
+            pending[i] = an.analyze_column(vals, valid, n, n_buckets,
+                                           phases)
+        phases["dtype"] = dtype_s * 1e3
+        phases["pad_h2d"] = upload_s * 1e3
+        t = time.perf_counter()
+        out = {i: analyze_columns(
+            ColumnBatch([batch.schema[i]], [batch.columns[i]]),
+            [scan.columns[i]], n_buckets)[0] for i in host_idx}
+        phases["host_columns"] = (time.perf_counter() - t) * 1e3
+        if pending:
+            t = time.perf_counter()
+            packed = torch.stack(list(pending.values())).cpu().numpy()
+            t2 = time.perf_counter()
+            phases["d2h"] = (t2 - t) * 1e3
+            for row, i in zip(packed, pending):
+                n_valid, distinct, buckets = an.unpack(
+                    row, n_buckets, batch.columns[i].eval_type is
+                    EvalType.REAL)
+                out[i] = ColumnStats(scan.columns[i].col_id, n, n - n_valid,
+                                     distinct, buckets)
+            phases["unpack"] = (time.perf_counter() - t2) * 1e3
+        self.analyze_phases_ms = phases
+        return [out[i] for i in range(len(scan.columns))]
 
     # ------------------------------------------------------------ dispatch
 

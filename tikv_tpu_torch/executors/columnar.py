@@ -246,6 +246,33 @@ class ColumnarTable:
                                    col.validity[phys]))
         return ColumnBatch([c.field_type for c in desc.columns], out_cols)
 
+    # -- row-codec materialization (the CHECKSUM request) -------------------
+
+    def to_kv_pairs(self, ranges=None) -> list[tuple[bytes, bytes]]:
+        """The logical rows within ``ranges`` (None: all) as (record key,
+        row payload) pairs, the live rows only: the bytes the reference's
+        ``to_kv_pairs`` gives for the same table."""
+        from ..codec.keys import table_record_key
+        from ..codec.row import encode_row
+        if ranges is None:
+            indices = range(len(self.handles))
+        else:
+            indices = [i for lo, hi in self._range_slices(ranges)
+                       for i in range(lo, hi)]
+        if self.alive is not None:
+            indices = [i for i in indices if self.alive[i]]
+        pairs = []
+        for i in indices:
+            payload = {}
+            for col_id, col in self.columns.items():
+                v = col.get(i)
+                if v is not None:
+                    payload[col_id] = v
+            pairs.append((table_record_key(self.table.table_id,
+                                           int(self.handles[i])),
+                          encode_row(payload)))
+        return pairs
+
     # -- covering index scans ------------------------------------------------
 
     def _index_sorted(self, col_id: int):

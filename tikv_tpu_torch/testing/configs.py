@@ -49,6 +49,8 @@ table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 
 from ..codec.keys import table_record_range
@@ -533,3 +535,135 @@ def plan_truth(cell: str, probe, build) -> list:
         ok = (src >= 0) & (src < n) & (start[safe] == start)
         cols.append((np.where(ok, sv[safe], 0), ok))
     return cols
+
+
+# ---------------------------------------------------------------------------
+# ANALYZE cells: every column of a table, 256 buckets
+# ---------------------------------------------------------------------------
+
+# TiDB's default of ANALYZE TABLE ... WITH NUM BUCKETS
+ANALYZE_BUCKETS = 256
+# cell → its table builder over n rows (an6c's snapshot is config 6c's
+# cold mint, testing/mvcc.py history_6c)
+ANALYZE_CELLS = {
+    "an4": build_table,
+    "an4n": build_null_table,
+    "an4s": build_sparse_table,
+    "an4r": lambda n: build_table(n, real_v=True),
+}
+# an integer column whose valid values span fewer values than this is
+# summarised by a bincount (exact order statistics without a sort)
+_BINCOUNT_SPAN = 1 << 22
+
+
+def analyze_request(table: Table, buckets: int = ANALYZE_BUCKETS):
+    """An ANALYZE request over every column of ``table``'s record range."""
+    from ..copr.analyze import AnalyzeReq
+    dag = DagSelect.from_table(table).build()
+    return AnalyzeReq(dag.executors[0], dag.ranges, buckets=buckets)
+
+
+def column_stats_truth(col_id: int, values: np.ndarray,
+                       validity: np.ndarray, buckets: int):
+    """One column's ``ColumnStats`` from numpy: the order statistics of a
+    narrow integer column from a bincount, of an ascending one (a handle)
+    as it is, of any other by ``np.sort``; the buckets and the distinct
+    count as the host half (``histogram_from_sorted``) forms them."""
+    from ..copr.analyze import ColumnStats, histogram_from_sorted
+    v = values[validity]
+    total, nv = len(values), len(v)
+    if nv and v.dtype.kind in "iu" and \
+            int(v.max()) - int(v.min()) < _BINCOUNT_SPAN:
+        lo = int(v.min())
+        cum = np.cumsum(np.bincount((v - lo).astype(np.int64)))
+        nb = max(1, min(buckets, nv))
+        ranks = np.arange(1, nb + 1, dtype=np.int64) * nv // nb - 1
+        at = np.searchsorted(cum, ranks, side="right") + lo
+        out = [(int(b), int(r) + 1) for b, r in zip(at, ranks)]
+        distinct = int(np.count_nonzero(np.diff(cum, prepend=0)))
+        return ColumnStats(col_id, total, total - nv, distinct, out)
+    if nv > 1 and v.dtype.kind in "iu" and bool(np.all(v[1:] >= v[:-1])):
+        svals = v
+    else:
+        svals = np.sort(v)
+    out, distinct = histogram_from_sorted(svals, buckets)
+    return ColumnStats(col_id, total, total - nv, distinct, out)
+
+
+def analyze_truth(areq, storage) -> list:
+    """Every column's ``ColumnStats`` of ``areq`` over ``storage``, from
+    numpy alone (``column_stats_truth``)."""
+    batch = storage.scan_columns(areq.scan, tuple(areq.ranges))
+    return [column_stats_truth(info.col_id, col.values, col.validity,
+                               areq.buckets)
+            for info, col in zip(areq.scan.columns, batch.columns)]
+
+
+# the kernel's edge cases (the CPU tests and the chip smoke): each device
+# dtype of an ANALYZE column, by the eval type it serves
+ANALYZE_KINDS = {"int32": np.int32, "int64": np.int64, "datetime32": np.uint32,
+                 "datetime64": np.uint64, "duration": np.int64,
+                 "float64": np.float64}
+ANALYZE_EDGE_CASES = ("random", "specials", "dtype_max", "all_null",
+                      "one_valid", "few_valid", "one_bucket", "one_row",
+                      "ties", "padding_valid")
+
+
+def _edge_values(rng, dt, m: int) -> np.ndarray:
+    if dt == np.float64:
+        return rng.normal(0, 100, m).round(1)
+    if dt == np.uint32:
+        return rng.integers(0, 1 << 32, m, dtype=np.uint64).astype(dt)
+    if dt == np.uint64:
+        return rng.integers(0, 1 << 63, m, dtype=np.uint64)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, m, dtype=dt, endpoint=True)
+
+
+def analyze_edge_case(kind: str, case: str, rows: int = 300) -> tuple:
+    """One column of ``ANALYZE_KINDS[kind]`` → (values[rows], validity
+    [rows], n, buckets): NULLs on 20% and the padding rows past n = rows −
+    rows/6, then per case: NaN, −NaN, ±0.0, ±inf (float64) or the dtype's
+    extremes; a share of the dtype's max; all NULL; one valid row; five;
+    one bucket; one row; four values; padding rows marked valid."""
+    dt = ANALYZE_KINDS[kind]
+    rng = np.random.default_rng(zlib.crc32(f"{kind}/{case}/{rows}".encode()))
+    n_pad, n, b = rows, rows - rows // 6, 16
+    v = _edge_values(rng, dt, n_pad)
+    ok = rng.random(n_pad) > 0.2
+    if case == "specials":
+        if dt == np.float64:
+            specials = [np.nan, np.copysign(np.nan, -1), 0.0, -0.0,
+                        np.inf, -np.inf]
+        else:
+            info = np.iinfo(dt)
+            specials = [info.min, info.max, 0, 1, info.max - 1]
+        sp = np.resize(np.asarray(specials, dtype=dt), min(n_pad, 60))
+        v[:len(sp)] = sp
+        b = 8
+    elif case == "dtype_max":
+        top = np.inf if dt == np.float64 else np.iinfo(dt).max
+        v[rng.random(n_pad) < 0.3] = top
+        b = 4
+    elif case == "all_null":
+        ok[:] = False
+        b = 8
+    elif case == "one_valid":
+        ok[:] = False
+        ok[min(37, n - 1)] = True
+        b = 8
+    elif case == "few_valid":
+        ok[:] = False
+        ok[rng.choice(n, min(5, n), replace=False)] = True
+    elif case == "one_bucket":
+        b = 1
+    elif case == "one_row":
+        v, ok, n, b = v[:1], np.ones(1, np.bool_), 1, 4
+    elif case == "ties":
+        v = rng.integers(0, 4, n_pad).astype(dt)
+        b = 32
+    elif case == "padding_valid":
+        ok[n:] = True           # rows at or past n never count
+    if dt != np.float64:
+        v[~ok] = 0              # a NULL slot holds 0, as a feed's does
+    return v, ok, n, b
