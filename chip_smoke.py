@@ -196,7 +196,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    replicas, a partial range); and ``analyze`` timed at an4's id, k and v,
    an4s's k and an4r's v as issued and its kernels alone, beside its
    bound, plain version and one ``torch.sort`` of the sentinelled column;
-12. one JSON line listing every ported kernel: launches on the main path,
+12. the serving path: ``sel_pred_batched`` (``csrc/selection.cu``)
+   against its plain version (the whole buffer, bit for bit) and against G
+   solo ``sel_pred`` launches (each lane's count and packed mask), over G
+   of 1, 2, 3, 16 and the lane limit, random programs, int32 extremes,
+   int64 and REAL constants, range and NULL-constant terms, NULL-bearing
+   planes, n not a multiple of 8, planes off a 16-byte boundary, one block
+   and many; both of its evaluations (simple terms from registers, the
+   interpreter) must be taken; then 32 deferred requests over configs 2, 3
+   and 4's tables (2^22 rows each) dispatched before any wait, each equal
+   to its serial answer, with the pinned stager's stats, a
+   ``device::before_fetch`` inside one fetch (that request degrades, the
+   next does not) and whether an event wait releases the interpreter lock;
+   then cell 6b-ep (``bench.py:1130-1300``'s config 6b at the endpoint:
+   three tables of 10·2^20 rows, 64 client threads × 6 requests of the
+   seeded schedule, 60 s deadlines) through ``Endpoint.handle_async(...)
+   .wait()``, once with the coalescer unwired and once bound (window 150
+   ms, groups ≤ 16): every answer against numpy, no late ack, no degrade,
+   no solo retry, ``sel_pred_batched`` launched in the coalesced phase
+   only, mean occupancy above 1.5; p50, p99, requests/s, groups,
+   occupancy, router decisions, launches and per-request phases printed;
+   and ``sel_pred_batched`` timed at 6b-ep's shape beside its bound, its
+   plain version, its interpreter on the same masks, 16 solo ``sel_pred``
+   launches and one broadcast ``torch.gt``;
+13. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -207,9 +230,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``mvcc_resolve``, ``plane_digest`` and ``patch_rows``, with 6c under
    ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_index``
    / ``join_probe``, ``sort_perm`` and ``window_scan``; an4's id for
-   ``analyze``, with the other timed columns under ``configs``), and the
-   least time the card could take;
-13. the last line: ``{"ok": true, "device": {...}}``.
+   ``analyze``, with the other timed columns under ``configs``; 6b-ep's
+   shape for ``sel_pred_batched``), and the least time the card could
+   take;
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -236,7 +260,8 @@ SF_TOL = 1e-9                   # float cells: × Σ|v| of the cell
 HEADER_BYTES = 16               # sel_compact's count and overflow flag
 CLOCK_HZ = 1.98e9               # H100 SXM boost clock (sleep cycles)
 
-KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_mask", "sel_compact",
+KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_pred_batched",
+           "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
            "sort_perm", "window_scan", "analyze")
@@ -300,6 +325,7 @@ def counts() -> dict:
                                        topn, twolevel, window)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_pred": selection.pred_launches,
+            "sel_pred_batched": selection.batched_launches,
             "sel_mask": selection.mask_launches,
             "sel_compact": selection.compact_launches,
             "topn_select": topn.launches, "agg_fold": agg_fold.launches,
@@ -321,6 +347,7 @@ def set_counts(values: dict) -> None:
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.pred_launches = values["sel_pred"]
+    selection.batched_launches = values["sel_pred_batched"]
     selection.mask_launches = values["sel_mask"]
     selection.compact_launches = values["sel_compact"]
     topn.launches = values["topn_select"]
@@ -986,17 +1013,21 @@ def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
     """Host-clock phases (ms, the median of ``repeats`` warm requests) of a
     request on the hash_agg route: analyze (``_analyze``), inputs
     (``_inputs``: the feed's planes and the selection), launch
-    (``hash_agg``: lane plan and kernel launch), d2h_wait (the rest of
-    ``_aggregate``: the lane list, then the one D2H copy, which waits for
-    the kernel), finalize (``states_from_lanes`` and the result columns)
-    and other (the rest of ``handle_request``: feed and meta lookups)."""
+    (``hash_agg``: lane plan and kernel launch), stage (the rest of
+    ``_aggregate_launch`` — the lane list and the stack of the outputs —
+    and the start of the copy to pinned memory), d2h_wait (``_readback``:
+    the wait for the copy, which waits for the kernel), finalize
+    (``states_from_lanes`` and the result columns) and other (the rest of
+    ``handle_request``: the dispatch lock, feed and meta lookups)."""
     from tikv_tpu_torch.device import hash_agg as ha
+    from tikv_tpu_torch.device.deferred import HOST_STAGER
     saved = counts()
-    names = ("_analyze", "_inputs", "_aggregate", "_simple_result",
-             "_hash_result", "hash_agg", "states_from_lanes")
+    names = ("_analyze", "_inputs", "_aggregate_launch", "_readback",
+             "_simple_result", "_hash_result")
     runs = []
     for _ in range(repeats):
-        spent = dict.fromkeys(names, 0.0)
+        spent = dict.fromkeys(names + ("stage", "hash_agg",
+                                       "states_from_lanes"), 0.0)
 
         def timed(name, fn):
             def wrap(*a, **k):
@@ -1007,9 +1038,11 @@ def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
                     spent[name] += time.perf_counter() - t0
             return wrap
 
-        originals = {n: getattr(ha, n) for n in names[5:]}
-        for n in names[:5]:
+        originals = {n: getattr(ha, n) for n in ("hash_agg",
+                                                 "states_from_lanes")}
+        for n in names:
             setattr(runner, n, timed(n, getattr(runner, n)))
+        HOST_STAGER.stage = timed("stage", HOST_STAGER.stage)
         for n, fn in originals.items():
             setattr(ha, n, timed(n, fn))
         try:
@@ -1017,8 +1050,9 @@ def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
             runner.handle_request(dag, snap)
             total = time.perf_counter() - t0
         finally:
-            for n in names[:5]:
+            for n in names:
                 delattr(runner, n)
+            del HOST_STAGER.stage
             for n, fn in originals.items():
                 setattr(ha, n, fn)
         ms = {k: v * 1e3 for k, v in spent.items()}
@@ -1026,10 +1060,13 @@ def host_phases(runner, dag, snap, repeats: int = 5) -> dict:
         runs.append({
             "analyze": ms["_analyze"], "inputs": ms["_inputs"],
             "launch": ms["hash_agg"],
-            "d2h_wait": ms["_aggregate"] - ms["_inputs"] - ms["hash_agg"]
-            - ms["states_from_lanes"],
+            "stage": ms["_aggregate_launch"] - ms["_inputs"]
+            - ms["hash_agg"] + ms["stage"],
+            "d2h_wait": ms["_readback"],
             "finalize": ms["states_from_lanes"] + result,
-            "other": total * 1e3 - ms["_analyze"] - ms["_aggregate"] - result,
+            "other": total * 1e3 - ms["_analyze"] - ms["_aggregate_launch"]
+            - ms["stage"] - ms["_readback"] - ms["states_from_lanes"]
+            - result,
             "total": total * 1e3})
     set_counts(saved)
     return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
@@ -1664,6 +1701,179 @@ def check_pred(dev) -> int:
     return 0
 
 
+def relane(spec, rng, wide: bool = False):
+    """``spec`` with every constant redrawn (one lane of a stacked group:
+    the same program, other constants of the same device dtype)."""
+    if spec[0] == "const":
+        v = spec[1]
+        if isinstance(v, float):
+            return ("const", float(rng.integers(-400, 400)) / 4.0)
+        if wide:
+            return ("const", int(rng.integers(-(1 << 40), 1 << 40)))
+        if abs(v) >= 1 << 30:
+            return ("const", int(rng.choice([-(1 << 31), 1 - (1 << 31), -1,
+                                             0, (1 << 31) - 2,
+                                             (1 << 31) - 1])))
+        return ("const", int(rng.integers(-120, 120)))
+    if spec[0] in ("col", "null"):
+        return spec
+    return (spec[0], *[relane(c, rng, wide) for c in spec[1:]])
+
+
+def lane_programs(specs, G: int, rng, dts, wide: bool = False) -> list:
+    """G programs of ``specs``: lanes 0 and 1 equal, the rest redrawn."""
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.expr import build_rpn
+    out = []
+    for g in range(G):
+        lane = specs if g < 2 else [relane(sp, rng, wide) for sp in specs]
+        out.append(sm.encode_predicate(
+            [build_rpn(pred_tree(sp)) for sp in lane], dts))
+    return out
+
+
+def batched_cases(dev):
+    """(name, programs, planes, n) on the card: G of 1, 2, 3, 16 and the
+    lane limit over NULL-bearing int32 (with its extremes), int64 and
+    float32 planes; random programs, an int32-extremes comparison, a wide
+    (int64 constants) range and a REAL comparison; equal and different
+    lanes; n not a multiple of 8, planes off a 16-byte boundary, one block
+    and many."""
+    from tikv_tpu_torch.device import selection as sm
+    rng = np.random.default_rng(41)
+    fixed = {"extremes": [("GeInt", ("col", 0), ("const", (1 << 31) - 1))],
+             "wide": [("LogicalAnd",
+                       ("GeInt", ("col", 1), ("const", -(1 << 40))),
+                       ("LtInt", ("col", 1), ("const", 1 << 39)))],
+             "real": [("GtReal", ("col", 2), ("const", 12.25))],
+             "range": [("GeInt", ("col", 0), ("const", -50)),
+                       ("LtInt", ("col", 0), ("const", 50))],
+             "null_const": [("NeInt", ("col", 0), ("null", "int"))]}
+    for n in (1, 13, 4099, 32768, 32769, (1 << 20) + 3, SWEEP_ROWS):
+        a = rng.integers(-100, 100, n + 4).astype(np.int32)
+        a[rng.choice(n + 4, min(n + 4, 8), replace=False)] = rng.choice(
+            [-(1 << 31), 1 - (1 << 31), (1 << 31) - 1], min(n + 4, 8))
+        b = rng.integers(-(1 << 41), 1 << 41, n + 4)
+        r = (rng.integers(-400, 400, n + 4) / 4.0).astype(np.float32)
+        cols = []
+        for v in (a, b, r):
+            ok = rng.random(n + 4) > 0.15
+            cols.append((torch.from_numpy(np.where(ok, v, 0).astype(
+                v.dtype)).to(dev), torch.from_numpy(ok).to(dev)))
+        big = n >= 1 << 20
+        for off in ((0,) if big else (0, 1)):
+            planes = [(v[off:], ok[off:]) for v, ok in cols]
+            if off == 0 and n == 4099:
+                planes[0] = (planes[0][0], None)     # a plane without NULLs
+            dts = [v.dtype for v, _ok in planes]
+            for G in ((1, 16, sm.BATCH_MAX_LANES) if big else
+                      (1, 2, 3, 16, sm.BATCH_MAX_LANES)):
+                for kind, specs in fixed.items():
+                    yield (f"{kind}_n={n}_off={off}_G={G}",
+                           lane_programs(specs, G, rng, dts,
+                                         wide=kind == "wide"), planes, n)
+                made = 0
+                while made < (1 if big else 3):
+                    specs = [pred_spec(rng, int(rng.integers(2, 4)))
+                             for _ in range(int(rng.integers(1, 3)))]
+                    try:
+                        progs = lane_programs(specs, G, rng, dts)
+                        sm.check_lanes(progs)
+                    except (sm.Uncovered, sm.LanesDiffer):
+                        continue     # past the limits, or a width changed
+                    made += 1
+                    yield f"random_n={n}_off={off}_G={G}_{made}", progs, \
+                        planes, n
+
+
+def check_batched(dev) -> int:
+    """sel_pred_batched against its plain version (the whole output
+    buffer, bit for bit) and against G solo sel_pred launches (each lane's
+    count and packed mask).  → 0 or raises."""
+    from tikv_tpu_torch.device import selection as sm
+    cases = 0
+    simple = 0
+    for name, progs, planes, n in batched_cases(dev):
+        simple += sm.simple_terms(progs[0])
+        got = sm.sel_pred_batched(progs, planes, n)
+        torch.cuda.synchronize()
+        want = sm.sel_pred_batched_plain(progs, planes, n)
+        assert torch.equal(got.buf, want.buf), \
+            f"sel_pred_batched {name} disagrees with its plain version"
+        for g, q in enumerate(progs):
+            solo = sm.sel_pred(q, planes, n)[0]
+            assert bool(got.counts[g] == solo.count) and torch.equal(
+                got.packed(g), solo.packed), \
+                f"sel_pred_batched {name} lane {g} disagrees with sel_pred"
+        cases += 1
+        if cases % 12 == 0 or n >= 1 << 20:
+            print(f"kernel sel_pred_batched {name}: ops={len(progs[0].ops)} "
+                  f"wide={progs[0].wide} "
+                  f"simple={sm.simple_terms(progs[0])} counts="
+                  f"{got.counts[:4].tolist()} max_abs_err=0", flush=True)
+    print(f"kernel sel_pred_batched: {cases} cases ({simple} of simple "
+          f"terms) equal to the plain version and to solo sel_pred",
+          flush=True)
+    assert 0 < simple < cases, "both evaluations must be taken"
+    gc.collect()
+    return 0
+
+
+def batched_at_main_shape(dev) -> dict:
+    """sel_pred_batched at cell 6b-ep's shape (10·2^20 int32 rows of c1,
+    G = 16 thresholds of its palette), exact against its plain version and
+    timed beside its bound (the plane read once, G packed masks and G
+    counts written once), its plain version, the 16 solo sel_pred launches
+    it replaces, and one broadcast torch.gt of the plane against the (G, 1)
+    thresholds (a yardstick the port never calls); and the same masks from
+    programs that take its interpreter (``NOT (c1 <= thr)``)."""
+    from tikv_tpu_torch.datatype import EvalType
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.expr import Expr, build_rpn
+    n, G = SWEEP_ROWS, 16
+    h = np.arange(n, dtype=np.int64) * 2654435761 % (1 << 32)
+    c1 = torch.from_numpy((h % 1000).astype(np.int32)).to(dev)
+    thrs = [980 + (g % 16) for g in range(G)]
+    progs = [sm.encode_predicate(
+        [build_rpn(Expr.column(0) > Expr.const(t, EvalType.INT))],
+        [torch.int32]) for t in thrs]
+    # the same masks through the interpreter: NOT (c1 <= thr) is no
+    # simple term
+    interp = [sm.encode_predicate([build_rpn(Expr.call(
+        "UnaryNotInt", Expr.column(0) <= Expr.const(t, EvalType.INT)))],
+        [torch.int32]) for t in thrs]
+    assert all(sm.simple_terms(q) for q in progs) and \
+        not any(sm.simple_terms(q) for q in interp)
+    planes = [(c1, None)]
+    saved = counts()
+    got = sm.sel_pred_batched(progs, planes, n)
+    assert torch.equal(got.buf, sm.sel_pred_batched_plain(
+        progs, planes, n).buf), "sel_pred_batched disagrees at 6b-ep"
+    assert torch.equal(got.buf, sm.sel_pred_batched(interp, planes, n).buf)
+    thr_t = torch.tensor(thrs, dtype=torch.int32, device=dev)[:, None]
+    t = {"ms": cuda_ms(lambda: sm.sel_pred_batched(progs, planes, n), 50,
+                       queued=True),
+         "interpreter_ms": cuda_ms(lambda: sm.sel_pred_batched(
+             interp, planes, n), 50, queued=True),
+         "plain_ms": cuda_ms(lambda: sm.sel_pred_batched_plain(
+             progs, planes, n), 3),
+         "solo_ms": cuda_ms(lambda: [sm.sel_pred(q, planes, n)
+                                     for q in progs], 20, queued=True),
+         "library_ms": cuda_ms(lambda: torch.gt(c1, thr_t), 50),
+         "library_call": "torch.gt of the plane against the (G, 1) "
+                         "thresholds (yardstick)",
+         **bound_ms(4 * n + G * -(-n // 8) + 8 * G, G * n),
+         "rows": n, "lanes": G,
+         "selected": got.counts.tolist(),
+         "peak_bytes": peak_bytes(lambda: sm.sel_pred_batched(
+             progs, planes, n))}
+    set_counts(saved)
+    print(f"kernel sel_pred_batched at 6b-ep shape ({n} rows, G={G}): "
+          f"max_abs_err=0 " + " ".join(f"{k}={x}" for k, x in t.items()),
+          flush=True)
+    return t
+
+
 def check_selection(dev) -> tuple:
     """→ (largest difference of sel_mask, of sel_compact): 0 or raises."""
     from tikv_tpu_torch.device import selection as sm
@@ -2009,7 +2219,10 @@ def row_phases(runner, dag, snap, repeats: int = 5) -> dict:
     selection's one copy of its result buffer; a top-k's copy is in
     "other"), rows (the host gather or take of the result rows, and for a
     top-k the scan's views) and other (the rest: EWMA, unpacking, the
-    top-k refine).  A phase inside another counts only in the inner one."""
+    top-k refine).  A phase inside another counts only in the inner one.
+    The copies to the host start at dispatch (pinned staging, in
+    "other"); d2h is the wait for them (``_readback``), and the packed
+    mask's copy where an index capacity overflowed."""
     from tikv_tpu_torch.datatype import ColumnBatch
     from tikv_tpu_torch.device import selection as sm
     from tikv_tpu_torch.device import topn as tn
@@ -2046,8 +2259,8 @@ def row_phases(runner, dag, snap, repeats: int = 5) -> dict:
         for owner, name in ((sm, "sel_pred"), (sm, "sel_mask"),
                             (sm, "sel_compact"), (tn, "topn_select")):
             timed(owner, name, "launch", wait=True)
+        timed(runner, "_readback", "d2h")
         timed(sm.MaskOut, "host", "d2h")
-        timed(sm.CompactOut, "host", "d2h")
         for name in ("gather_rows", "scan_columns"):
             timed(snap, name, "rows")
         for name in ("take", "filter"):
@@ -3580,6 +3793,273 @@ def run_checksum() -> dict:
     return out
 
 
+DEFERRED_ROWS = 1 << 22
+EP_ROWS = 10 << 20
+EP_CLIENTS, EP_REQS = 64, 6
+EP_WINDOW_MS, EP_GROUP = 150.0, 16
+EP_DEADLINE_MS = 60_000
+
+
+def gil_released_by_event_wait() -> float:
+    """The share of a Python loop's free-running rate that the main thread
+    keeps while another thread waits in ``torch.cuda.Event.synchronize``
+    on 0.2 s of device sleep (near 1: the wait releases the interpreter
+    lock, so completion workers overlap their waits)."""
+    import threading
+    n, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < 0.05:
+        n += 1
+    rate = n / (time.perf_counter() - t0)
+    torch.cuda._sleep(int(0.2 * CLOCK_HZ))
+    ev = torch.cuda.Event()
+    ev.record()
+    done = threading.Event()
+    waiter = threading.Thread(target=lambda: (ev.synchronize(), done.set()))
+    t0 = time.perf_counter()
+    waiter.start()
+    n = 0
+    while not done.is_set():
+        n += 1
+    spent = time.perf_counter() - t0
+    waiter.join(timeout=10)
+    return n / (rate * spent)
+
+
+def run_deferred(runner) -> dict:
+    """Thirty-two deferred requests over configs 2, 3 and 4's tables
+    (``DEFERRED_ROWS`` rows each), every one dispatched before any wait,
+    each equal to its serial answer; the pinned stager's stats; a
+    ``device::before_fetch`` inside one deferred fetch degrades that
+    request only; and whether a completion worker's event wait releases
+    the interpreter lock."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device.deferred import HOST_STAGER, DeferredResult
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.utils import failpoint
+    n = DEFERRED_ROWS
+    t2, s2 = cf.ROW_CONFIGS["2"][0](n)
+    t3, s3 = cf.CONFIGS["3"][0](n)
+    t4, s4 = cf.CONFIGS["4"][0](n)
+    plans = [(cf.dag_selection(t2, thr), s2)
+             for thr in (800, 900, 990, 998, 500)]
+    plans += [(cf.CONFIGS["3"][1](t3), s3), (cf.CONFIGS["4"][1](t4), s4)]
+    plans = [(dag_from_wire(enc_dag(d)), snap) for d, snap in plans]
+    def columns(result) -> list:
+        return [(c.values, c.validity) for c in result.batch.columns]
+
+    def same(result, want) -> bool:
+        got = columns(result)
+        return len(got) == len(want) and all(
+            np.array_equal(v, wv, equal_nan=v.dtype.kind == "f") and
+            np.array_equal(m, wm) for (v, m), (wv, wm) in zip(got, want))
+
+    serial = []
+    for dag, snap in plans:
+        for _ in range(3):              # warm: feeds and selectivities
+            r = runner.handle_request(dag, snap)
+        serial.append(columns(r))
+    st0 = HOST_STAGER.stats()
+    set_counts({k: 0 for k in KERNELS})
+    t0 = time.perf_counter()
+    pending = [runner.handle_request(*plans[i % len(plans)], deferred=True)
+               for i in range(32)]
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    assert all(isinstance(d, DeferredResult) for d in pending)
+    for i, d in reversed(list(enumerate(pending))):
+        assert same(d.result(), serial[i % len(plans)]), \
+            f"deferred request {i} differs from its serial answer"
+        assert d.degraded is None
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    st1 = HOST_STAGER.stats()
+    # a fault inside one deferred fetch degrades that request only
+    a = runner.handle_request(*plans[0], deferred=True)
+    b = runner.handle_request(*plans[5], deferred=True)
+    failpoint.cfg("device::before_fetch", "1*return->off")
+    try:
+        got_a, got_b = a.result(), b.result()
+    finally:
+        failpoint.teardown()
+    assert a.degraded == "fetch" and b.degraded is None
+    assert same(got_a, serial[0]) and same(got_b, serial[5])
+    share = gil_released_by_event_wait()
+    assert share > 0.3, f"an event wait holds the interpreter lock ({share})"
+    out = {"config": "deferred", "rows": n, "requests": 32,
+           "dispatch_ms": dispatch_ms, "wall_ms": wall_ms,
+           "launches": launches,
+           "stager": {k: st1[k] - st0.get(k, 0) if k in ("staged",
+                                                         "staged_bytes")
+                      else st1[k] for k in st1},
+           "loop_share_during_event_wait": share}
+    print("deferred: " + " ".join(f"{k}={v}" for k, v in out.items()
+                                  if k != "config"), flush=True)
+    del s2, s3, s4, plans, pending
+    gc.collect()
+    return out
+
+
+def serve_phase(ep, tables, schedule, check) -> dict:
+    """One run of the 6b schedule through ``Endpoint.handle_async(...)
+    .wait()``: EP_CLIENTS threads of EP_REQS requests each, started
+    together, each request under a deadline of EP_DEADLINE_MS; answers are
+    kept and held against their truths after the run (``check``)."""
+    import threading
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.utils import deadline as dl_mod
+    dags = {}
+    for ti, pi, is_sel in schedule:
+        key = (ti, pi if is_sel else None)
+        if key not in dags:
+            dags[key] = dag_from_wire(enc_dag(cf.dag_serving(
+                tables[ti][0], cf.SERVE_PALETTE[pi] if is_sel else None)))
+    lat, late, errors, answers, phases = [], [0], {}, {}, {}
+    mu = threading.Lock()
+    start = threading.Barrier(EP_CLIENTS)
+
+    def worker(ci):
+        start.wait(timeout=60)
+        for r in range(EP_REQS):
+            i = ci * EP_REQS + r
+            ti, pi, is_sel = schedule[i]
+            dag = dags[(ti, pi if is_sel else None)]
+            dl = dl_mod.Deadline.after_ms(EP_DEADLINE_MS)
+            tok = dl_mod.install(dl)
+            t0 = time.perf_counter()
+            try:
+                resp = ep.handle_async(CopRequest(REQ_TYPE_DAG, dag)).wait()
+            except Exception as e:      # noqa: BLE001 — counted, fails below
+                with mu:
+                    errors[type(e).__name__] = \
+                        errors.get(type(e).__name__, 0) + 1
+                continue
+            finally:
+                dl_mod.uninstall(tok)
+            dt = time.perf_counter() - t0
+            with mu:
+                lat.append(dt)
+                late[0] += int(dl.expired())
+                answers[i] = resp
+                for k, v in resp.tracker.phases.items():
+                    phases[k] = phases.get(k, 0) + v
+
+    ts = [threading.Thread(target=worker, args=(ci,))
+          for ci in range(EP_CLIENTS)]
+    set_counts({k: 0 for k in KERNELS})
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    assert not any(t.is_alive() for t in ts), "a 6b-ep client never ended"
+    assert not errors, f"6b-ep errors: {errors}"
+    a = np.asarray(lat)
+    bad = [i for i, resp in answers.items() if not check(schedule[i], resp)]
+    assert not bad, f"6b-ep: {len(bad)} wrong answers, first {bad[:4]}"
+    served = len(answers)
+    return {"requests": len(schedule), "served": served,
+            "p50_ms": float(np.percentile(a, 50)) * 1e3,
+            "p99_ms": float(np.percentile(a, 99)) * 1e3,
+            "wall_s": wall, "req_per_s": served / wall,
+            "late_acks": late[0], "launches": launches,
+            "backends": {b: sum(r.backend == b for r in answers.values())
+                         for b in ("device", "host")},
+            "phase_mean_ms": {k: v / served / 1e6
+                              for k, v in sorted(phases.items())}}
+
+
+def run_6b_ep(runner) -> list:
+    """Cell 6b-ep: config 6b (bench.py:1130-1300) at the endpoint, three
+    tables of 10·2^20 rows, the seeded schedule run twice — the coalescer
+    unwired (every device request solo, deferred), then bound (window 150
+    ms, groups of at most 16).  Every answer equals its numpy truth; no
+    late ack, no degrade, no solo retry; sel_pred_batched launches in the
+    coalesced phase only, and its mean occupancy is above 1.5."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, \
+        Endpoint
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.server.coalescer import RequestCoalescer
+    from tikv_tpu_torch.testing import configs as cf
+    t0 = time.perf_counter()
+    tables = [cf.serving_table(EP_ROWS, tid) for tid in cf.SERVE_TABLE_IDS]
+    by_id = {t.table_id: snap for t, snap in tables}
+    truths = {thr: cf.serving_truth(EP_ROWS, thr)
+              for thr in cf.SERVE_PALETTE + (None,)}
+    schedule = cf.serving_schedule(EP_CLIENTS * EP_REQS)
+    print(f"6b-ep: tables and truths in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    def check(item, resp) -> bool:
+        _ti, pi, is_sel = item
+        if is_sel:
+            return cf.columns_agree(resp.result.batch,
+                                    truths[cf.SERVE_PALETTE[pi]])
+        return sorted(resp.rows()) == truths[None]
+
+    coal = RequestCoalescer(runner, window_ms=EP_WINDOW_MS,
+                            max_group=EP_GROUP)
+    ep = Endpoint(lambda req: by_id[req.dag.executors[0].table_id], runner,
+                  coalescer=coal)
+    out = []
+    try:
+        ep.coalescer = None
+        for ti, (table, _snap) in enumerate(tables):     # warm every table
+            for thr in (cf.SERVE_PALETTE[0], None):
+                dag = dag_from_wire(enc_dag(cf.dag_serving(table, thr)))
+                resp = ep.handle(CopRequest(REQ_TYPE_DAG, dag))
+                assert resp.backend == "device"
+                assert check((ti, 0, thr is not None), resp)
+        for phase in ("solo", "coalesced"):
+            ep.coalescer = coal if phase == "coalesced" else None
+            st0 = coal.stats()
+            deg0 = dict(ep.degrades)
+            got = serve_phase(ep, tables, schedule, check)
+            st = coal.stats()
+            groups = st["groups_dispatched"] - st0["groups_dispatched"]
+            members = st["requests_coalesced"] - st0["requests_coalesced"]
+            got.update(config=f"6b-ep {phase}", rows=EP_ROWS,
+                       groups=groups,
+                       mean_occupancy=members / groups if groups else 0.0,
+                       max_occupancy=st["max_occupancy"],
+                       solo_retries=st["solo_degrade"] -
+                       st0["solo_degrade"],
+                       router=st["router"]["decisions"],
+                       closes=st["closes"],
+                       degrades={k: v - deg0.get(k, 0)
+                                 for k, v in ep.degrades.items()
+                                 if v != deg0.get(k, 0)})
+            print(f"cell 6b-ep {phase}: " + " ".join(
+                f"{k}={v}" for k, v in got.items() if k != "config"),
+                flush=True)
+            assert got["late_acks"] == 0 and not got["degrades"] and \
+                got["solo_retries"] == 0, f"6b-ep {phase}: {got}"
+            assert got["backends"]["host"] == 0, f"6b-ep {phase}: {got}"
+            assert got["launches"]["hash_agg"] > 0, \
+                f"6b-ep {phase} never launched hash_agg"
+            if phase == "solo":
+                assert got["launches"]["sel_pred"] > 0, \
+                    "6b-ep solo never launched sel_pred"
+                assert got["launches"]["sel_pred_batched"] == 0 and \
+                    groups == 0, f"6b-ep solo: {got}"
+            else:
+                assert got["launches"]["sel_pred_batched"] > 0, \
+                    "6b-ep coalesced never launched sel_pred_batched"
+                assert got["mean_occupancy"] > 1.5, \
+                    f"6b-ep mean occupancy {got['mean_occupancy']}"
+            out.append(got)
+    finally:
+        ep.close()
+    del tables, by_id, truths
+    gc.collect()
+    return out
+
+
 def analyze_at_main_shapes(runner, dev) -> dict:
     """analyze_column at an4's id, k and v (104,857,600 int32 rows), an4s's
     k (2^24 int64) and an4r's v (2^24 float64), the columns padded as the
@@ -3671,6 +4151,7 @@ def main() -> int:
     worst = {"hash_agg": check_kernels(dev, 1 << 24),
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
     worst["sel_pred"] = check_pred(dev)
+    worst["sel_pred_batched"] = check_batched(dev)
     worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
@@ -3696,6 +4177,8 @@ def main() -> int:
     runs.append(run_analyze("an6c", runner, snap6c._tbl.table, snap6c))
     del snap6c
     run_checksum()
+    runs.append(run_deferred(runner))
+    runs += run_6b_ep(runner)
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -3710,6 +4193,7 @@ def main() -> int:
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
     pred_timing, mask_timing, compact_timing = selection_at_main_shapes(dev)
+    batched_timing = batched_at_main_shape(dev)
     topn_timing, pred_timing_5t = topn_at_main_shapes(runner, dev)
     pred_timing = dict(pred_timing, configs={"2": dict(pred_timing),
                                              "5t": pred_timing_5t})
@@ -3733,6 +4217,11 @@ def main() -> int:
          "replaces": "tikv_tpu/device/selection.py:227",
          "launches": launches["sel_pred"], "max_abs_err": worst["sel_pred"],
          **pred_timing},
+        {"name": "sel_pred_batched", "route": "cuda",
+         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "replaces": "tikv_tpu/device/selection.py:273",
+         "launches": launches["sel_pred_batched"],
+         "max_abs_err": worst["sel_pred_batched"], **batched_timing},
         {"name": "sel_mask", "route": "cuda",
          "source": "tikv_tpu_torch/csrc/selection.cu",
          "replaces": "tikv_tpu/device/selection.py:227",

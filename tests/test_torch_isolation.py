@@ -2,8 +2,10 @@
 under it, the selection, top-k and ANALYZE modules included, and
 ``chip_smoke.py``) imports JAX or the JAX package, serving an
 aggregation, a selection, an index-scan top-k, a join plan, an ANALYZE
-and a CHECKSUM request through the endpoint loads neither, and nothing
-falls back to the CPU without being asked."""
+and a CHECKSUM request through the endpoint loads neither, nor does
+serving selections and aggregations through ``Endpoint.handle_async``
+with a bound ``RequestCoalescer``, and nothing falls back to the CPU
+without being asked."""
 
 import ast
 import os
@@ -92,6 +94,53 @@ def test_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "served 64"
+
+
+_SERVE_COALESCED = """
+import sys, threading
+from tikv_tpu_torch.convert import dag_from_wire
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.server.coalescer import RequestCoalescer
+from tikv_tpu_torch.testing import configs
+table, snap = configs.build_table(5000, 64)
+runner = DeviceRunner(device="cpu")
+coal = RequestCoalescer(runner, window_ms=60_000.0, max_group=4)
+coal.idle_bypass = False
+ep = Endpoint(lambda req: snap, runner, device_row_threshold=1,
+              coalescer=coal)
+thrs = [100, 300, 500, 700]
+out = [None] * 4
+def one(i):
+    dag = dag_from_wire(enc_dag(configs.dag_selection(table, thrs[i])))
+    out[i] = ep.handle_async(CopRequest(REQ_TYPE_DAG, dag)).wait()
+ts = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join(timeout=60)
+v = snap.columns[3].values
+assert [len(r.rows()) for r in out] == [int((v > t).sum()) for t in thrs]
+assert runner.sel_routes.get("batched") == 1, runner.sel_routes
+coal.idle_bypass = True         # a lone request dispatches at once
+agg = dag_from_wire(enc_dag(configs.dag_hash_agg(table)))
+rows = ep.handle_async(CopRequest(REQ_TYPE_DAG, agg)).wait().rows()
+assert sum(r[0] for r in rows) == 5000
+ep.close()
+assert coal.stats()["groups_dispatched"] == 2, coal.stats()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("coalesced", coal.stats()["requests_coalesced"])
+"""
+
+
+def test_coalesced_serving_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE_COALESCED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "coalesced 5"
 
 
 def test_runner_refuses_to_start_without_cuda(monkeypatch):

@@ -1,12 +1,16 @@
 // Selection vectors for Hopper: the predicate evaluated over the feed
-// (sel_pred), the packed mask of a bool predicate (sel_mask) and the
-// in-order compaction of the selected rows (sel_compact).
+// (sel_pred, and sel_pred_batched for a group of requests), the packed
+// mask of a bool predicate (sel_mask) and the in-order compaction of the
+// selected rows (sel_compact).
 //
 // Replaces the XLA kernels of tikv_tpu/device/selection.py:
 //   sel_pred    <- build_mask_kernel (:227), the whole fused pass: the
 //                  selection RPNs evaluated over the feed's planes, then
 //                  the row count, the jnp.packbits mask and, where a later
 //                  kernel takes one, the bool mask;
+//   sel_pred_batched <- build_batched_mask_kernel (:273): G requests'
+//                  constants over one program and one feed, G counts and
+//                  G packed masks;
 //   sel_mask    <- the count-and-pack half of the same kernel, for a bool
 //                  predicate evaluated elsewhere (a plan sel_pred does not
 //                  cover);
@@ -49,6 +53,23 @@
 // float32 arithmetic rounds to float32 with __fadd_rn / __fsub_rn /
 // __fmul_rn, never contracted into an FMA; validity is 16 bits an entry.
 // Rows at or past n read as false.
+// sel_pred_batched runs sel_pred's program G times, once per lane of
+// constants (a coalesced group's members: their programs differ in their
+// constants only).  Bound: bytes, the program's planes read once for the
+// whole group and G packed masks written: (4 + G/8) B a row plus 8 B a
+// lane, 0.019 ms at 10,485,760 int32 rows and G = 16 at 3.35 TB/s.  The
+// XLA kernel maps the solo trace over the lanes (jax.vmap) and reads the
+// feed once a lane; here a thread reads its 16 rows of each plane once
+// into its own slots of a shared tile and evaluates every lane from
+// there.  A program of terms "column 0 compared with a constant" (the
+// common parameterized selection, `c1 > ?`, `v BETWEEN ? AND ?` as two
+// conditions) skips the tile and the interpreter: the thread keeps its
+// rows in registers and each lane is one compare a row and term.  The
+// lanes' constants (G x 32 int64 would pass the 4 KB of
+// launch parameters at G = 16) travel in a small device buffer, staged in
+// shared memory once a CTA.  Output: G int64 counts, then G packed masks
+// of n_blocks * 4096 bytes, in one buffer, so one copy brings the group
+// home.
 // sel_compact reads the packed mask (n / 8 bytes), the block counts, and
 // for each selected row below k_cap its projected planes' elements; it
 // writes 4 B per index and the gathered elements.  The exclusive scan over
@@ -71,6 +92,8 @@
 #define PRED_MAX_COLS 16
 #define PRED_MAX_OPS 32
 #define PRED_MAX_CONSTS 32
+#define BATCH_MAX_LANES 64    // sel_pred_batched's lanes a launch
+#define BATCH_SMEM_BYTES (160 * 1024)   // its largest shared tile
 
 // sel_pred's opcodes (device/selection.py mirrors them).  A binary op with
 // aux 1 takes constant `arg` as its right operand; OP_IN_* compares the
@@ -108,6 +131,22 @@ struct PredParams {
   int aux[PRED_MAX_OPS];
   long long cval[PRED_MAX_CONSTS];  // int64 value or float64 bits
   int cnull[PRED_MAX_CONSTS];
+};
+
+// sel_pred_batched's lanes: the program of PredParams (its constants
+// unused) run once per lane with that lane's constants.
+struct BatchParams {
+  int lanes;                    // G, at most BATCH_MAX_LANES
+  int n_consts;                 // constants a lane
+  int n_cols;                   // columns the program reads
+  int simple;                   // 1: comparisons of column 0 (no tile)
+  int tile_offset;              // bytes of shared memory before the tile
+  const long long* cval;        // [G][n_consts], on the device
+  const int* cnull;             // [G][n_consts]
+  unsigned long long* counts;   // [G], zeroed by the launcher
+  unsigned char* packed;        // [G][lane_bytes]
+  long long lane_bytes;         // n_blocks * 4096
+  long long n_tiles;            // tiles of blockDim.x * 16 rows
 };
 
 struct CompactParams {
@@ -369,18 +408,18 @@ __device__ __forceinline__ void unary(int op, T (&v)[PRED_ROWS],
 
 // IN (list of constants [c0, c0 + count)): NULL when nothing matches and
 // the probe or a list element is NULL
-template <class T>
-__device__ __forceinline__ void in_list(const PredParams& p, int op, int c0,
+template <class T, class C>
+__device__ __forceinline__ void in_list(const C& cs, int op, int c0,
                                         int count, T (&v)[PRED_ROWS],
                                         unsigned& m) {
   unsigned hit = 0;
   bool list_null = false;
   for (int k = 0; k < count; ++k) {
-    if (p.cnull[c0 + k]) {
+    if (cs.null(c0 + k)) {
       list_null = true;
       continue;
     }
-    const T x = (T)p.cval[c0 + k];
+    const T x = (T)cs.val(c0 + k);
     hit |= op == OP_IN_I ? BITS16(as_i(v[r]) == as_i(x))
                          : BITS16(as_d(v[r]) == as_d(x));
   }
@@ -491,6 +530,81 @@ __device__ __forceinline__ unsigned nibble_bytes(unsigned x) {
   return (x & 1u) | ((x & 2u) << 7) | ((x & 4u) << 14) | ((x & 8u) << 21);
 }
 
+// The program's constants: sel_pred's, in its launch parameters.
+struct ParamConsts {
+  const PredParams& p;
+  __device__ __forceinline__ long long val(int c) const { return p.cval[c]; }
+  __device__ __forceinline__ int null(int c) const { return p.cnull[c]; }
+};
+
+// The program over a thread's 16 rows: `keep` the rows still kept (those
+// below n), `load(c, v, m)` column c's rows and their validity, `cs` the
+// constants.  Returns the rows that every RPN keeps.
+template <int ND, class T, class C, class Load>
+__device__ __forceinline__ unsigned run_program(const PredParams& p,
+                                                const C& cs, unsigned keep,
+                                                Load&& load) {
+  T st[ND][PRED_ROWS];
+  unsigned sm[ND];
+  int sp = 0;
+  for (int k = 0; k < p.n_ops; ++k) {
+    const int op = p.op[k], arg = p.arg[k], aux = p.aux[k];
+    if (op == OP_COL || op == OP_CONST) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        if (d != sp) continue;
+        if (op == OP_COL) {
+          load(arg, st[d], sm[d]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < PRED_ROWS; ++r) st[d][r] = (T)cs.val(arg);
+          sm[d] = cs.null(arg) ? 0u : 0xFFFFu;
+        }
+      }
+      ++sp;
+    } else if (op == OP_KEEP_I || op == OP_KEEP_R) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        if (d != sp - 1) continue;
+        const unsigned nz = op == OP_KEEP_I
+                                ? BITS16(as_i(st[d][r]) != 0)
+                                : BITS16(as_d(st[d][r]) != 0.0);
+        keep &= sm[d] & nz;
+      }
+      --sp;
+    } else if (op >= OP_BINARY && aux) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        if (d == sp - 1)
+          binary<true, T>(op, st[d], sm[d], st[d],
+                          cs.null(arg) ? 0u : 0xFFFFu, (T)cs.val(arg));
+    } else if (op >= OP_BINARY) {
+#pragma unroll
+      for (int d = 1; d < ND; ++d)
+        if (d == sp - 1)
+          binary<false, T>(op, st[d - 1], sm[d - 1], st[d], sm[d], (T)0);
+      --sp;
+    } else if (op == OP_IN_I || op == OP_IN_R) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        if (d == sp - 1) in_list<T>(cs, op, arg, aux, st[d], sm[d]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        if (d == sp - 1) unary<T>(op, st[d], sm[d]);
+    }
+  }
+  return keep;
+}
+
+// 16 kept-row bits -> the two packed bytes of rows [i, i + 16): row 16j
+// in bit 7 of the first byte (np.packbits)
+__device__ __forceinline__ unsigned short packed16(unsigned keep) {
+  const unsigned lo = __brev(keep & 0xFFu) >> 24;
+  const unsigned hi = __brev((keep >> 8) & 0xFFu) >> 24;
+  return (unsigned short)(lo | (hi << 8));
+}
+
 // One CTA evaluates 4096 rows (16 a thread) and adds its popcount into
 // the count of its 32768-row block (zeroed by the launcher).
 template <int ND, class T>
@@ -504,62 +618,13 @@ __global__ void __launch_bounds__(THREADS)
       left >= PRED_ROWS ? 0xFFFFu : left > 0 ? (1u << left) - 1u : 0u;
   if (keep != 0) {
     const bool full = p.vec && left >= PRED_ROWS;
-    T st[ND][PRED_ROWS];
-    unsigned sm[ND];
-    int sp = 0;
-    for (int k = 0; k < p.n_ops; ++k) {
-      const int op = p.op[k], arg = p.arg[k], aux = p.aux[k];
-      if (op == OP_COL || op == OP_CONST) {
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          if (d != sp) continue;
-          if (op == OP_COL) {
-            load_col<T>(p, arg, i, full, st[d], sm[d]);
-          } else {
-#pragma unroll
-            for (int r = 0; r < PRED_ROWS; ++r) st[d][r] = (T)p.cval[arg];
-            sm[d] = p.cnull[arg] ? 0u : 0xFFFFu;
-          }
-        }
-        ++sp;
-      } else if (op == OP_KEEP_I || op == OP_KEEP_R) {
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          if (d != sp - 1) continue;
-          const unsigned nz = op == OP_KEEP_I
-                                  ? BITS16(as_i(st[d][r]) != 0)
-                                  : BITS16(as_d(st[d][r]) != 0.0);
-          keep &= sm[d] & nz;
-        }
-        --sp;
-      } else if (op >= OP_BINARY && aux) {
-#pragma unroll
-        for (int d = 0; d < ND; ++d)
-          if (d == sp - 1)
-            binary<true, T>(op, st[d], sm[d], st[d],
-                            p.cnull[arg] ? 0u : 0xFFFFu, (T)p.cval[arg]);
-      } else if (op >= OP_BINARY) {
-#pragma unroll
-        for (int d = 1; d < ND; ++d)
-          if (d == sp - 1)
-            binary<false, T>(op, st[d - 1], sm[d - 1], st[d], sm[d], (T)0);
-        --sp;
-      } else if (op == OP_IN_I || op == OP_IN_R) {
-#pragma unroll
-        for (int d = 0; d < ND; ++d)
-          if (d == sp - 1) in_list<T>(p, op, arg, aux, st[d], sm[d]);
-      } else {
-#pragma unroll
-        for (int d = 0; d < ND; ++d)
-          if (d == sp - 1) unary<T>(op, st[d], sm[d]);
-      }
-    }
+    keep = run_program<ND, T>(
+        p, ParamConsts{p}, keep,
+        [&](int c, T (&v)[PRED_ROWS], unsigned& m) {
+          load_col<T>(p, c, i, full, v, m);
+        });
   }
-  // row 16j in bit 7 of the first byte (np.packbits)
-  const unsigned lo = __brev(keep & 0xFFu) >> 24;
-  const unsigned hi = __brev((keep >> 8) & 0xFFu) >> 24;
-  *reinterpret_cast<unsigned short*>(p.packed + i / 8) =
-      (unsigned short)(lo | (hi << 8));
+  *reinterpret_cast<unsigned short*>(p.packed + i / 8) = packed16(keep);
   if (p.bools != nullptr)
     *reinterpret_cast<uint4*>(p.bools + i) =
         make_uint4(nibble_bytes(keep & 0xFu),
@@ -571,6 +636,126 @@ __global__ void __launch_bounds__(THREADS)
     atomicAdd(&p.block_counts[i / ROWS_PER_BLOCK], (int)total);
     atomicAdd(p.count, (unsigned long long)total);
   }
+}
+
+// ------------------------------------------------------ sel_pred_batched
+
+// Rows [i, i + 16) compared with the constant c by comparison `op`
+// (OP_GT_I .. OP_NE_R), as `binary` compares them.
+template <class T>
+__device__ __forceinline__ unsigned cmp16(int op, const T (&v)[PRED_ROWS],
+                                          T c) {
+  switch (op) {
+    case OP_GT_I: return BITS16(as_i(v[r]) > as_i(c));
+    case OP_GE_I: return BITS16(as_i(v[r]) >= as_i(c));
+    case OP_LT_I: return BITS16(as_i(v[r]) < as_i(c));
+    case OP_LE_I: return BITS16(as_i(v[r]) <= as_i(c));
+    case OP_EQ_I: return BITS16(as_i(v[r]) == as_i(c));
+    case OP_NE_I: return BITS16(as_i(v[r]) != as_i(c));
+    case OP_GT_R: return BITS16(as_d(v[r]) > as_d(c));
+    case OP_GE_R: return BITS16(as_d(v[r]) >= as_d(c));
+    case OP_LT_R: return BITS16(as_d(v[r]) < as_d(c));
+    case OP_LE_R: return BITS16(as_d(v[r]) <= as_d(c));
+    case OP_EQ_R: return BITS16(as_d(v[r]) == as_d(c));
+    default: return BITS16(as_d(v[r]) != as_d(c));
+  }
+}
+
+// One lane's constants, staged in shared memory.
+struct LaneConsts {
+  const long long* v;
+  const int* nl;
+  __device__ __forceinline__ long long val(int c) const { return v[c]; }
+  __device__ __forceinline__ int null(int c) const { return nl[c]; }
+};
+
+// sel_pred's program over one tile of the feed for G lanes of constants.
+// A thread takes 16 rows, as sel_pred does: it reads each column the
+// program names once (16-byte loads where `vec`) into its own slots of the
+// shared tile (layout [column][row][thread], so the warp's accesses are
+// consecutive words), then runs the program once per lane over those
+// slots, writes that lane's 2 packed bytes and adds the lane's popcount
+// (a warp sum, then one shared atomic a warp) to the CTA's count of the
+// lane.  A thread only reads back the slots it wrote: no barrier between
+// the tile's load and the lanes.  The CTA walks the tiles grid-stride and
+// adds its G counts to the output once at the end.
+template <int ND, class T>
+__global__ void sel_pred_batched_kernel(const __grid_constant__ PredParams p,
+                                        const __grid_constant__ BatchParams b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned lane_count[BATCH_MAX_LANES];
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int nc = b.n_consts, G = b.lanes;
+  long long* s_cval = reinterpret_cast<long long*>(smem);
+  int* s_cnull = reinterpret_cast<int*>(s_cval + G * nc);
+  T* tile = reinterpret_cast<T*>(smem + b.tile_offset);
+  unsigned* tile_ok = reinterpret_cast<unsigned*>(
+      tile + (long long)b.n_cols * PRED_ROWS * nt);
+  for (int k = t; k < G * nc; k += nt) {
+    s_cval[k] = b.cval[k];
+    s_cnull[k] = b.cnull[k];
+  }
+  for (int g = t; g < G; g += nt) lane_count[g] = 0;
+  __syncthreads();
+  const long long rows_per_tile = (long long)nt * PRED_ROWS;
+  for (long long tl = blockIdx.x; tl < b.n_tiles; tl += gridDim.x) {
+    const long long i = tl * rows_per_tile + (long long)t * PRED_ROWS;
+    const long long left = p.n - i;
+    const unsigned live =
+        left >= PRED_ROWS ? 0xFFFFu : left > 0 ? (1u << left) - 1u : 0u;
+    if (b.simple) {
+      // the program is terms (column 0 compared with a constant, kept):
+      // the rows stay in registers and each lane costs one compare a
+      // row and term
+      T v[PRED_ROWS];
+      unsigned m = 0;
+      if (live != 0) load_col<T>(p, 0, i, p.vec && left >= PRED_ROWS, v, m);
+      for (int g = 0; g < G; ++g) {
+        unsigned keep = live & m;
+        for (int k = 1; k < p.n_ops && keep != 0; k += 3) {
+          const int c = g * nc + p.arg[k];
+          keep &= s_cnull[c] ? 0u : cmp16<T>(p.op[k], v, (T)s_cval[c]);
+        }
+        *reinterpret_cast<unsigned short*>(b.packed + g * b.lane_bytes +
+                                           i / 8) = packed16(keep);
+        const unsigned cnt = __reduce_add_sync(FULL, __popc(keep));
+        if ((t & 31) == 0 && cnt != 0) atomicAdd(&lane_count[g], cnt);
+      }
+      continue;
+    }
+    if (live != 0) {
+      const bool full = p.vec && left >= PRED_ROWS;
+      for (int c = 0; c < b.n_cols; ++c) {
+        T v[PRED_ROWS];
+        unsigned m;
+        load_col<T>(p, c, i, full, v, m);
+#pragma unroll
+        for (int r = 0; r < PRED_ROWS; ++r)
+          tile[((long long)c * PRED_ROWS + r) * nt + t] = v[r];
+        tile_ok[c * nt + t] = m;
+      }
+    }
+    for (int g = 0; g < G; ++g) {
+      unsigned keep = live;
+      if (live != 0)
+        keep = run_program<ND, T>(
+            p, LaneConsts{s_cval + g * nc, s_cnull + g * nc}, live,
+            [&](int c, T (&v)[PRED_ROWS], unsigned& m) {
+#pragma unroll
+              for (int r = 0; r < PRED_ROWS; ++r)
+                v[r] = tile[((long long)c * PRED_ROWS + r) * nt + t];
+              m = tile_ok[c * nt + t];
+            });
+      *reinterpret_cast<unsigned short*>(b.packed + g * b.lane_bytes +
+                                         i / 8) = packed16(keep);
+      const unsigned cnt = __reduce_add_sync(FULL, __popc(keep));
+      if ((t & 31) == 0 && cnt != 0) atomicAdd(&lane_count[g], cnt);
+    }
+  }
+  __syncthreads();
+  for (int g = t; g < G; g += nt)
+    if (lane_count[g] != 0)
+      atomicAdd(b.counts + g, (unsigned long long)lane_count[g]);
 }
 
 __device__ __forceinline__ void copy_element(const CompactParams& p,
@@ -639,6 +824,47 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// sel_pred_batched at `nt` threads a CTA: its shared bytes
+template <class T>
+long long batched_smem(const BatchParams& b, int nt) {
+  if (b.simple) return b.tile_offset;
+  return b.tile_offset +
+         (long long)b.n_cols * nt * (PRED_ROWS * (long long)sizeof(T) + 4);
+}
+
+// Launch sel_pred_batched<ND, T>: the widest CTA whose tile fits
+// BATCH_SMEM_BYTES, and as many CTAs as the card keeps resident (each
+// walks the tiles grid-stride).
+template <int ND, class T>
+cudaError_t launch_batched(const PredParams* p, BatchParams* b,
+                           long long n_blocks, cudaStream_t s) {
+  int nt = THREADS;
+  while (nt > 32 && batched_smem<T>(*b, nt) > BATCH_SMEM_BYTES) nt /= 2;
+  const long long smem = batched_smem<T>(*b, nt);
+  if (smem > BATCH_SMEM_BYTES) return cudaErrorInvalidValue;
+  b->n_tiles = n_blocks * ROWS_PER_BLOCK / ((long long)nt * PRED_ROWS);
+  const void* fn = reinterpret_cast<const void*>(
+      &sel_pred_batched_kernel<ND, T>);
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fn, nt, (size_t)smem)) != cudaSuccess)
+    return e;
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > b->n_tiles) grid = b->n_tiles;
+  void* args[] = {const_cast<PredParams*>(p), b};
+  return cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(nt), args,
+                          (size_t)smem, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -690,6 +916,43 @@ int sel_pred_launch(int device, const PredParams* p, int nd, int wide,
 }
 
 int sel_pred_params_bytes() { return (int)sizeof(PredParams); }
+
+// sel_pred_batched over rows [0, n) for b->lanes lanes: `p` the program
+// (its cval / cnull unused), `b` the lanes' constants on the device and
+// the outputs; `nd` and `wide` as for sel_pred.  The G counts are zeroed
+// here; every lane's n_blocks * 4096 packed bytes are written.
+int sel_pred_batched_launch(int device, const PredParams* p, BatchParams* b,
+                            int nd, int wide, long long n_blocks,
+                            void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (b->lanes < 1 || b->lanes > BATCH_MAX_LANES ||
+      b->n_consts > PRED_MAX_CONSTS || b->n_cols < 1 ||
+      b->n_cols > PRED_MAX_COLS)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(b->counts, 0, 8 * (size_t)b->lanes, s)) !=
+      cudaSuccess)
+    return e;
+  if (wide && nd <= 1)
+    e = launch_batched<1, u64>(p, b, n_blocks, s);
+  else if (wide && nd <= 2)
+    e = launch_batched<2, u64>(p, b, n_blocks, s);
+  else if (wide)
+    e = launch_batched<4, u64>(p, b, n_blocks, s);
+  else if (nd <= 1)
+    e = launch_batched<1, unsigned>(p, b, n_blocks, s);
+  else if (nd <= 2)
+    e = launch_batched<2, unsigned>(p, b, n_blocks, s);
+  else
+    e = launch_batched<4, unsigned>(p, b, n_blocks, s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+int sel_batch_params_bytes() { return (int)sizeof(BatchParams); }
+
+int sel_batch_max_lanes() { return BATCH_MAX_LANES; }
 
 // `out` (out_bytes) holds the header, the indices and the planes'
 // outputs: zeroed here, then the indices set to -1.

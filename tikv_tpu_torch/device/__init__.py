@@ -5,12 +5,17 @@ sort and window fragments (``join.DeviceJoiner``), and the column
 statistics of ANALYZE (``DeviceRunner.handle_analyze``).
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
-``agg_fold`` (aggregation), ``selection`` (``sel_pred``, ``sel_mask``,
-``sel_compact``), ``topn`` (``topn_select``), ``digest``
+``agg_fold`` (aggregation), ``selection`` (``sel_pred``,
+``sel_pred_batched``, ``sel_mask``, ``sel_compact``), ``topn``
+(``topn_select``), ``digest``
 (``plane_digest``, ``patch_rows``), ``mvcc`` (``mvcc_resolve``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,
 ``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``),
 ``window`` (``window_scan``) and ``analyze`` (``analyze_column``).
+
+A request dispatched with ``deferred=True`` comes back as a
+``DeferredResult`` (``deferred.py``): its fetch and host finalize run when
+``result()`` is called, on any thread.
 
 Lazy exports (PEP 562): importing a sibling such as ``device.hash_agg``
 does not build the runner module.  Entry points run on ``cuda:0`` unless
@@ -19,8 +24,8 @@ the caller asks for the CPU, and never fall back to it on their own.
 
 import torch
 
-__all__ = ["DEVICE_FAULTS", "DeviceRunner", "DeviceUnavailable",
-           "resolve_device"]
+__all__ = ["DEVICE_FAULTS", "DeferredResult", "DeviceRunner",
+           "DeviceUnavailable", "resolve_device"]
 
 
 class DeviceUnavailable(Exception):
@@ -57,4 +62,7 @@ def __getattr__(name):
     if name == "DeviceRunner":
         from .runner import DeviceRunner
         return DeviceRunner
+    if name == "DeferredResult":
+        from .deferred import DeferredResult
+        return DeferredResult
     raise AttributeError(name)

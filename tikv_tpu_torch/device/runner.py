@@ -1,7 +1,7 @@
 """Device coprocessor backend on one CUDA device.
 
 Counterpart of the JAX package's ``device/runner.py`` ``DeviceRunner``,
-reduced to its single-device, synchronous path.  A DAG request is a scan
+reduced to one device.  A DAG request is a scan
 head — a TableScan, or an IndexScan over one indexed column (and the
 handle) — then Selection*, then one terminal or none (the reference's
 analyzer, runner.py:1362-1487):
@@ -58,6 +58,19 @@ It runs as:
   orders the candidates exactly on the host (``_run_topn``);
 - the results come back to the host, which finalizes them.
 
+A request's plan analysis, feed lookup and kernel launches hold the
+runner's dispatch lock; its result buffers then start their copy to
+pinned host memory (``deferred.PinnedStager``), and the wait for that copy
+and the host finalize run outside the lock: at once (``handle_request``),
+or later on any thread (``handle_request(..., deferred=True)`` → a
+``DeferredResult``; every route above defers).  ``batch_class`` and
+``handle_batched`` serve the request coalescer (``server/coalescer.py``): a
+group of selections that differ only in their constants runs as one
+``selection.sel_pred_batched`` launch with one fetch; a group of identical
+plans shares one solo dispatch.  Failpoints ``device::before_dispatch``
+and ``device::before_fetch`` raise ``DeviceUnavailable`` at the dispatch
+and at the fetch.
+
 A snapshot built cold from MVCC versions (``copr.region_cache``) carries a
 ``ColdFeedBundle`` on its ``feed_lineage``: the first feed miss of an
 ascending TableScan over all its rows mints the feed on the device
@@ -85,6 +98,7 @@ other column by the host half (``copr.analyze``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -105,6 +119,9 @@ from ..expr import FUNCTIONS, build_rpn, eval_rpn
 from ..expr.eval import _TORCH_DTYPES, narrow_int32
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
 from ..ops.agg import _BIG, AggSpec, finalize_hash, finalize_simple
+from ..utils import tracker
+from ..utils.failpoint import fail_point
+from . import DEVICE_FAULTS, DeviceUnavailable
 from . import agg_fold as af
 from . import hash_agg as ha
 from . import kernels as kn
@@ -112,6 +129,8 @@ from . import resolve_device
 from . import selection as sm
 from . import topn as tn
 from .agg_fold import agg_fold
+from .deferred import (DeferredResult, _BatchedSelectionGroup,
+                       _BatchUnavailable, _GroupPending, _Pending)
 from .digest import _INT_OF_WIDTH, as_u64, patch_rows, plane_digest
 from .supervisor import hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
@@ -188,23 +207,41 @@ def _bare_col(rpn: Optional[RpnExpression]) -> Optional[int]:
     return None
 
 
-def _to_host(dicts: list) -> list:
-    """Dicts of device tensors → dicts of numpy arrays, in one transfer
-    per class: integers and bools as int64, floats as float64 (exact for
-    the int32/float32 values MIN/MAX/FIRST keep)."""
+def _fp_fault(name: str) -> None:
+    """A failpoint site: a ``return`` action raises ``DeviceUnavailable``
+    (a device fault the caller may degrade to the host on)."""
+    if fail_point(name) is not None:
+        raise DeviceUnavailable(f"failpoint {name}")
+
+
+def _stack_classes(dicts: list) -> tuple:
+    """Dicts of device tensors → (one flat tensor per value class:
+    integers and bools as int64, floats as float64 (exact for the
+    int32/float32 values MIN/MAX/FIRST keep); the layout ``_of_classes``
+    reads them back with), so one transfer a class brings them home."""
     flat = [(i, k, t) for i, d in enumerate(dicts) for k, t in d.items()]
-    out: list = [{} for _ in dicts]
+    tensors, layout = [], []
     for is_float in (False, True):
         part = [x for x in flat if x[2].is_floating_point() == is_float]
         if not part:
             continue
         dt = torch.float64 if is_float else torch.int64
-        host = torch.cat([t.reshape(-1).to(dt) for _i, _k, t in part]) \
-            .cpu().numpy()
+        tensors.append(torch.cat([t.reshape(-1).to(dt)
+                                  for _i, _k, t in part]))
+        layout.append([(i, k, tuple(t.shape)) for i, k, t in part])
+    return tensors, (len(dicts), layout)
+
+
+def _of_classes(host: list, layout: tuple) -> list:
+    """The dicts of numpy arrays from ``_stack_classes``' tensors, fetched."""
+    n_dicts, parts = layout
+    out: list = [{} for _ in range(n_dicts)]
+    for arr, part in zip(host, parts):
         at = 0
-        for i, k, t in part:
-            out[i][k] = host[at:at + t.numel()].reshape(t.shape)
-            at += t.numel()
+        for i, k, shape in part:
+            size = int(np.prod(shape, dtype=np.int64))
+            out[i][k] = arr[at:at + size].reshape(shape)
+            at += size
     return out
 
 
@@ -278,6 +315,14 @@ class DeviceRunner:
         self._joiner = None
         # host-clock ms by phase of the last ANALYZE request
         self.analyze_phases_ms: dict = {}
+        # plan analysis, feed lookup and build, and every kernel launch of
+        # a request hold it (the launch counters are module globals, and
+        # one stream orders the launches); a fetch waits outside it
+        self._dispatch_mu = threading.RLock()
+        # the plan cache, the selectivity statistics and the route counts,
+        # which request threads (the cost router) and the fetch side (any
+        # completion worker) read and update
+        self._stats_mu = threading.Lock()
 
     # ---------------------------------------------------------------- plan
 
@@ -286,12 +331,14 @@ class DeviceRunner:
 
     def _analyze(self, dag: DAGRequest) -> tuple:
         key = dag.plan_key()
-        got = self._plan_cache.get(key)
+        with self._stats_mu:
+            got = self._plan_cache.get(key)
         if got is None:
             got = self._analyze_uncached(dag)
-            if len(self._plan_cache) >= self._plan_cache_max:
-                self._plan_cache.pop(next(iter(self._plan_cache)))
-            self._plan_cache[key] = got
+            with self._stats_mu:
+                if len(self._plan_cache) >= self._plan_cache_max:
+                    self._plan_cache.pop(next(iter(self._plan_cache)))
+                got = self._plan_cache.setdefault(key, got)
         return got
 
     def _analyze_uncached(self, dag: DAGRequest) -> tuple:
@@ -614,8 +661,28 @@ class DeviceRunner:
 
     # ------------------------------------------------------------ dispatch
 
-    def handle_request(self, dag: DAGRequest, storage) -> SelectResult:
-        """Execute a supported plan on the device (synchronously)."""
+    def handle_request(self, dag: DAGRequest, storage,
+                       deferred: bool = False, _stack=None):
+        """Execute a supported plan on the device.
+
+        The request's kernels launch under the dispatch lock and its
+        result buffers start their copy to pinned host memory; then, with
+        ``deferred`` False, the call waits for the copy and finalizes on
+        the host (``_finish``), outside the lock.  ``deferred=True`` returns
+        a ``DeferredResult`` instead, whose ``result()`` does that on
+        whichever thread calls it, so requests in flight overlap their
+        launches, transfers and finalizes (the reference's contract,
+        runner.py:2986-3040).  A request that launches nothing (an empty
+        scan, a TopN of limit 0) returns its settled ``SelectResult``
+        either way.
+
+        ``_stack`` (``handle_batched`` only): the DAGs of a stacked group
+        whose lead is ``dag``; the selection then runs as one
+        ``sel_pred_batched`` launch and the call returns its
+        ``_GroupPending``, or raises ``_BatchUnavailable``.
+
+        The ``device::before_dispatch`` failpoint raises
+        ``DeviceUnavailable`` before anything launches."""
         plan, why = self._analyze(dag)
         if plan is None:
             raise NotImplementedError(why)
@@ -624,6 +691,38 @@ class DeviceRunner:
             raise NotImplementedError(
                 f"{type(storage).__name__} is not a columnar snapshot: "
                 f"{_TODO_STORAGE}")
+        with self._dispatch_mu:
+            _fp_fault("device::before_dispatch")
+            out = self._dispatch(dag, plan, storage, _stack)
+        if _stack is not None:
+            if isinstance(out, _Pending):
+                return _GroupPending(self, out)
+            raise _BatchUnavailable("the group launched nothing")
+        if not isinstance(out, _Pending):
+            return self._apply_output_offsets(dag, out)
+        if deferred:
+            return DeferredResult(self, out, dag, storage)
+        return self._apply_output_offsets(dag, self._finish(out))
+
+    def _readback(self, pending: _Pending) -> list:
+        """Wait for a dispatched request's copies to the host → numpy
+        arrays.  The ``device::before_fetch`` failpoint raises
+        ``DeviceUnavailable`` here (runner.py:2949)."""
+        _fp_fault("device::before_fetch")
+        with tracker.phase("d2h_wait"):
+            return pending.staged.fetch()
+
+    def _finish(self, pending: _Pending):
+        """The blocking fetch and the host finalize of a dispatched
+        request (runner.py:3334)."""
+        fetched = self._readback(pending)
+        with tracker.phase("host_materialize"):
+            return pending.finalize(fetched)
+
+    def _dispatch(self, dag, plan, storage, stack):
+        """Under the dispatch lock: the snapshot's feed and the plan's
+        per-snapshot facts, then the plan's kernels → a ``_Pending``, or
+        a settled ``SelectResult`` when nothing needs the device."""
         st = self._snap(storage)
         meta = st["meta"].setdefault((dag.plan_key(), dag.ranges), {})
         memo: dict = {}
@@ -640,19 +739,11 @@ class DeviceRunner:
                 else get_batch().num_rows
         n = meta["n_rows"]
         if n == 0:
-            result = self._empty_result(plan) if plan.kind in (
+            return self._empty_result(plan) if plan.kind in (
                 "simple_agg", "hash_agg") else SelectResult(get_batch())
-            return self._apply_output_offsets(dag, result)
 
-        planes = [(ci, None) for ci in plan.used_cols] + \
-            [(ci, "float64") for ci in plan.f64_cols]
-        if "dtypes" not in meta:
-            batch = get_batch()
-            meta["dtypes"] = tuple(
-                dt or str(_device_dtype(batch.columns[ci].eval_type,
-                                        batch.columns[ci].values))
-                for ci, dt in planes)
-        dtypes = meta["dtypes"]
+        planes = self._feed_planes(plan)
+        dtypes = self._feed_dtypes(st, plan, dag.ranges, planes, get_batch)
 
         def host_cols() -> list:
             """Device-dtype numpy (values, validity) pairs; request-local
@@ -678,28 +769,177 @@ class DeviceRunner:
         plan = meta["plan"]
 
         if plan.kind == "scan_sel":
-            result = self._run_scan_sel(dag, plan, feed, n, get_batch,
-                                        storage)
-        elif plan.kind == "topn":
+            if stack is not None:
+                return self._run_stacked(stack, st, feed, n, host_cols,
+                                         dtypes)
+            return self._run_scan_sel(dag, plan, feed, n, get_batch,
+                                      storage)
+        if stack is not None:
+            raise _BatchUnavailable(f"a {plan.kind} plan has no stacked "
+                                    f"form")
+        if plan.kind == "topn":
             if "order_bounds" not in meta:
                 meta["order_bounds"] = self._order_bounds(plan, host_cols)
-            result = self._run_topn(dag, plan, feed, n, get_batch, storage,
-                                    meta["order_bounds"])
+            return self._run_topn(dag, plan, feed, n, get_batch, storage,
+                                  meta["order_bounds"])
+        if "arg_nbytes" not in meta:
+            meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols, dtypes)
+        if "fold_bound" not in meta:
+            meta["fold_bound"] = self._fold_bound(plan, host_cols, dtypes)
+        arg_nbytes = meta["arg_nbytes"]
+        if plan.kind == "simple_agg":
+            return self._run_simple(plan, feed, dtypes, n, arg_nbytes,
+                                    meta["fold_bound"])
+        return self._run_hash(plan, host_cols, feed, dtypes, n, meta,
+                              arg_nbytes)
+
+    @staticmethod
+    def _feed_planes(plan) -> list:
+        """(scan column, dtype override) per feed plane: the used columns
+        in their device dtypes, then the float64 order planes."""
+        return [(ci, None) for ci in plan.used_cols] + \
+            [(ci, "float64") for ci in plan.f64_cols]
+
+    @staticmethod
+    def _feed_dtypes(st, plan, ranges, planes, get_batch) -> tuple:
+        """The feed planes' dtypes on this snapshot: a column's device
+        dtype depends on its values, so it is memoized per snapshot, scan
+        and columns (every plan over them shares it)."""
+        key = ("dtypes", _scan_key(plan.scan),
+               tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
+               tuple(dt for _ci, dt in planes), ranges)
+        got = st["meta"].get(key)
+        if got is None:
+            batch = get_batch()
+            got = st["meta"][key] = tuple(
+                dt or str(_device_dtype(batch.columns[ci].eval_type,
+                                        batch.columns[ci].values))
+                for ci, dt in planes)
+        return got
+
+    # ----------------------------------------- cross-request batching
+
+    def batch_class(self, dag: DAGRequest, storage):
+        """The coalescing identity of this request, or None when it cannot
+        share a dispatch (runner.py:1172-1227).  Requests under one key are
+        served by one launch; they read one snapshot (by ``id``: the port
+        has no feed arena anchor yet) over the same ranges.
+
+        ``("stack", ...)``: a selection that ``sel_pred`` evaluates and that
+        holds numeric constants: members differing only in those constants
+        (one const-blind ``shape_key``, one feed plane dtype each) run as
+        one ``sel_pred_batched`` launch.  ``("share", ...)``:
+        byte-identical plans (aggregations, top-k, the other selections):
+        one solo dispatch and its fetch serve every member.  A selection
+        that ``sel_pred`` does not cover (the torch route) only shares,
+        where the reference stacks any hoisted selection (ROADMAP.md)."""
+        if not (hasattr(storage, "scan_columns") and
+                hasattr(storage, "count_rows")):
+            return None
+        plan = self._analyze(dag)[0]
+        if plan is None:
+            return None
+        if plan.kind == "scan_sel" and plan.sel_route == PRED_KERNEL:
+            if plan.sel_params is None:
+                plan.sel_params = sm.split_params(plan.sel_rpns,
+                                                  len(plan.used_cols))
+            if plan.sel_params[2]:
+                with self._dispatch_mu:
+                    st = self._snap(storage)
+                    planes = self._feed_planes(plan)
+                    dtypes = self._feed_dtypes(
+                        st, plan, dag.ranges, planes,
+                        lambda: storage.scan_columns(plan.scan, dag.ranges))
+                return ("stack", id(storage), sm.shape_key(plan), dtypes,
+                        dag.ranges, dag.output_offsets)
+        return ("share", id(storage), dag.plan_key(), dag.ranges)
+
+    def handle_batched(self, members) -> _BatchedSelectionGroup:
+        """One stacked dispatch for ``members``, a list of ``(dag,
+        storage)`` pairs of one ``("stack", ...)`` batch class
+        (runner.py:1229) → a ``_BatchedSelectionGroup``.  Raises
+        ``_BatchUnavailable`` when the group cannot be one launch: the
+        caller retries each member solo."""
+        if not members:
+            raise _BatchUnavailable("an empty group")
+        lead_dag, lead_storage = members[0]
+        if any(s is not lead_storage for _d, s in members):
+            raise _BatchUnavailable("members read different snapshots")
+        for dag, _s in members:
+            plan = self._analyze(dag)[0]
+            if plan is None or plan.kind != "scan_sel" or \
+                    plan.sel_route != PRED_KERNEL:
+                raise _BatchUnavailable("not a stacked selection plan")
+        try:
+            gp = self.handle_request(lead_dag, lead_storage, deferred=True,
+                                     _stack=[d for d, _s in members])
+        except DEVICE_FAULTS as e:
+            # a fault mid-group must not serve the lead's degrade to every
+            # member: each retries solo, with its own degrade
+            raise _BatchUnavailable(f"device fault: {e}") from e
+        return _BatchedSelectionGroup(self, gp, list(members))
+
+    def _member_plan(self, st, dag, host_cols, dtypes):
+        """A stacked member's plan, narrowed on this snapshot as its own
+        solo request would be (memoized in its meta)."""
+        meta = st["meta"].setdefault((dag.plan_key(), dag.ranges), {})
+        if "plan" not in meta:
+            plan = self._analyze(dag)[0]
+            meta["plan"] = self._narrowed(plan, host_cols, dtypes)
+        return meta["plan"]
+
+    def _run_stacked(self, dags, st, feed, n, host_cols, dtypes):
+        """The stacked selection (runner.py:4217-4245): every member's
+        program, encoded against the same feed, runs as one lane of one
+        ``sel_pred_batched`` launch; the whole group's counts and packed
+        masks come home in one copy.  Always the packed masks: each
+        member's count is unknown until the fetch."""
+        planes = self._planes(feed)
+        pdt = tuple(v.dtype for v, _ok in planes)
+        plans, progs = [], []
+        for dag in dags:
+            plan = self._member_plan(st, dag, host_cols, dtypes)
+            if plan.sel_route != PRED_KERNEL:
+                raise _BatchUnavailable("a member off the sel_pred route")
+            prog = plan.sel_programs.get(pdt)
+            if prog is None:
+                prog = plan.sel_programs[pdt] = sm.encode_predicate(
+                    plan.sel_rpns, pdt)
+            plans.append(plan)
+            progs.append(prog)
+        try:
+            out = sm.sel_pred_batched(progs, planes, n)
+        except sm.LanesDiffer as e:
+            raise _BatchUnavailable(str(e)) from e
+        self._note_route("batched")
+        for _ in progs:
+            self._note_route(PRED_KERNEL, self.pred_routes)
+        G = len(progs)
+        return _Pending([out.buf], lambda f: sm.batched_host(f[0], G, n) +
+                        (n, plans), small=False)
+
+    def _stacked_member(self, dag, plan, storage, count, packed, n):
+        """Member ``dag``'s answer from its lane of a stacked group: its
+        selectivity observed, its rows gathered on the host."""
+        self._sel_observe(self._sel_keys(dag, plan), count / n)
+        mask = np.unpackbits(packed, count=n).view(np.bool_)
+        with tracker.phase("host_materialize"):
+            out = self._gather(dag, plan, storage, mask, lambda: (
+                storage.scan_columns(plan.scan, dag.ranges)))
+        return self._apply_output_offsets(dag, out)
+
+    @staticmethod
+    def _gather(dag, plan, storage, rows, get_batch) -> SelectResult:
+        """The scan's rows ``rows`` (a bool mask over the scan output, or
+        its ascending positions): gathered from a table snapshot, taken
+        from the scan's batch otherwise."""
+        if isinstance(plan.scan, TableScanDesc) and \
+                hasattr(storage, "gather_rows"):
+            out = storage.gather_rows(plan.scan, dag.ranges, rows)
         else:
-            if "arg_nbytes" not in meta:
-                meta["arg_nbytes"] = self._arg_nbytes(plan, host_cols,
-                                                      dtypes)
-            if "fold_bound" not in meta:
-                meta["fold_bound"] = self._fold_bound(plan, host_cols,
-                                                      dtypes)
-            arg_nbytes = meta["arg_nbytes"]
-            if plan.kind == "simple_agg":
-                result = self._run_simple(plan, feed, dtypes, n, arg_nbytes,
-                                          meta["fold_bound"])
-            else:
-                result = self._run_hash(plan, host_cols, feed, dtypes, n,
-                                        meta, arg_nbytes)
-        return self._apply_output_offsets(dag, result)
+            b = get_batch()
+            out = b.filter(rows) if rows.dtype == np.bool_ else b.take(rows)
+        return SelectResult(out)
 
     @staticmethod
     def _narrowed(plan, host_cols, dtypes):
@@ -850,9 +1090,20 @@ class DeviceRunner:
 
     def _aggregate(self, plan, feed, n, mode, base, capacity, slots, n_sl,
                    slot_ids=None, arg_nbytes=()):
-        """One kernel pass → (present, states) as numpy, ops/agg layout.
-        ``arg_nbytes``: ``_arg_nbytes`` of the plan, the value width the
-        kernel may assume (4 bytes where it is not given)."""
+        """One kernel pass → (present, states) as numpy, ops/agg layout
+        (``_aggregate_launch``, then its one copy and decode here)."""
+        stacked, decode = self._aggregate_launch(
+            plan, feed, n, mode, base, capacity, slots, n_sl, slot_ids,
+            arg_nbytes)
+        return decode(stacked.cpu().numpy())
+
+    def _aggregate_launch(self, plan, feed, n, mode, base, capacity, slots,
+                          n_sl, slot_ids=None, arg_nbytes=()):
+        """One ``hash_agg`` pass → (every output plane stacked in one
+        device tensor, ``decode``: that tensor fetched → (present, states)
+        as numpy, ops/agg layout).  ``arg_nbytes``: ``_arg_nbytes`` of the
+        plan, the value width the kernel may assume (4 bytes where it is
+        not given)."""
         dev = self.device
         planes = self._planes(feed)
         pairs, mask = self._inputs(plan, feed, n)
@@ -899,11 +1150,16 @@ class DeviceRunner:
         # one device→host transfer for every output plane
         tensors = [count] + [t for pair in outs for t in pair
                              if t is not None]
-        host = list(torch.stack(tensors).cpu().numpy())
-        count_np = host.pop(0)
-        outs_np = [tuple(None if t is None else host.pop(0) for t in pair)
-                   for pair in outs]
-        return ha.states_from_lanes(plan.specs, lane_of, count_np, outs_np)
+        shape = [[t is not None for t in pair] for pair in outs]
+
+        def decode(host):
+            host = list(host)
+            count_np = host.pop(0)
+            outs_np = [tuple(host.pop(0) if has else None for has in pair)
+                       for pair in shape]
+            return ha.states_from_lanes(plan.specs, lane_of, count_np,
+                                        outs_np)
+        return torch.stack(tensors), decode
 
     # ------------------------------------------------------- simple agg
 
@@ -918,21 +1174,24 @@ class DeviceRunner:
         return SelectResult(ColumnBatch(schema, cols))
 
     def _run_simple(self, plan, feed, dtypes, n, arg_nbytes,
-                    fold_bound=None) -> SelectResult:
-        if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
-            _present, states = self._aggregate(plan, feed, n, ha.MODE_SIMPLE,
-                                               0, 1, 1, 1,
-                                               arg_nbytes=arg_nbytes)
-            merged = [{k: v[0] for k, v in s.items()} for s in states]
+                    fold_bound=None) -> _Pending:
+        def result(states):
+            merged = [{k: v[0] for k, v in st.items()} for st in states]
             return self._simple_result(plan, merged)
+
+        if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
+            stacked, decode = self._aggregate_launch(
+                plan, feed, n, ha.MODE_SIMPLE, 0, 1, 1, 1,
+                arg_nbytes=arg_nbytes)
+            return _Pending([stacked],
+                            lambda f: result(decode(f[0])[1]), small=True)
         # the simple body (runner.py:2668): the agg_fold kernel
         pairs, mask = self._inputs(plan, feed, n)
         out = agg_fold(plan.specs, self._fold_cols(plan, feed, pairs, n), n,
                        af.MODE_SIMPLE, mask=mask, device=self.device,
                        value_bound=fold_bound)
-        _present, _overflow, states = out.host()
-        merged = [{k: v[0] for k, v in s.items()} for s in states]
-        return self._simple_result(plan, merged)
+        return _Pending([out.buf], lambda f: result(
+            af.decode(f[0], out.plan, out.n_slots)[2]), small=True)
 
     # --------------------------------------------------------- hash agg
 
@@ -1014,19 +1273,24 @@ class DeviceRunner:
                 plan.specs, arg_is_real, arg_nbytes,
                 self._arg_ok_is_mask(plan, feed))
         if self._fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes):
-            present, states = self._aggregate(
+            stacked, decode = self._aggregate_launch(
                 plan, feed, n, mode, base, capacity, slots,
                 ha.n_slots(plan, capacity, mode), slot_ids, arg_nbytes)
+            tensors, decode = [stacked], (lambda f, d=decode: d(f[0]))
         elif layouts is not None and kn.twolevel_lo(p8, pf) is not None:
-            present, states = self._run_twolevel(
+            tensors, decode = self._run_twolevel(
                 plan, feed, n, base, capacity, slot_ids, layouts, p8, pf)
         else:
-            present, states = self._run_scatter(plan, feed, n, base,
+            tensors, decode = self._run_scatter(plan, feed, n, base,
                                                 capacity, slot_ids,
                                                 meta["fold_bound"])
-        return self._hash_result(plan, {"present": present,
-                                        "states": states},
-                                 base, capacity, slot_keys)
+
+        def finalize(fetched):
+            present, states = decode(fetched)
+            return self._hash_result(plan, {"present": present,
+                                            "states": states},
+                                     base, capacity, slot_keys)
+        return _Pending(tensors, finalize, small=True)
 
     @staticmethod
     def _check_overflow(overflow) -> None:
@@ -1039,6 +1303,8 @@ class DeviceRunner:
 
     def _run_twolevel(self, plan, feed, n, base, capacity, slot_ids,
                       layouts, p8, pf):
+        """→ (the device tensors to fetch, their decode to (present,
+        states))."""
         slots = capacity + 2
         pairs, mask = self._inputs(plan, feed, n)
         # each distinct argument once: aggregates over one expression
@@ -1061,18 +1327,24 @@ class DeviceRunner:
             got["Sf"] = Sfp
         if overflow is not None:
             got["overflow"] = overflow
-        host, = _to_host([got])
-        self._check_overflow(host.get("overflow"))
-        S8 = kn.twolevel_unpack(host["S8"], p8, LO, slots)
-        Sf = kn.twolevel_unpack(host["Sf"], pf, LO, slots) if pf else None
-        return kn.states_from_matmul(layouts, plan.specs, S8, Sf)
+        tensors, layout = _stack_classes([got])
+
+        def decode(fetched):
+            host, = _of_classes(fetched, layout)
+            self._check_overflow(host.get("overflow"))
+            S8 = kn.twolevel_unpack(host["S8"], p8, LO, slots)
+            Sf = kn.twolevel_unpack(host["Sf"], pf, LO, slots) if pf \
+                else None
+            return kn.states_from_matmul(layouts, plan.specs, S8, Sf)
+        return tensors, decode
 
     # -- route 3: the scatter body (runner.py:2701)
 
     def _run_scatter(self, plan, feed, n, base, capacity, slot_ids,
                      fold_bound=None):
         """The scatter body: one ``agg_fold`` pass over the key (or slot
-        ids), the selection and each distinct argument, one D2H copy."""
+        ids), the selection and each distinct argument → (its buffer, the
+        decode of that buffer fetched to (present, states))."""
         pairs, mask = self._inputs(plan, feed, n)
         cols = self._fold_cols(plan, feed, pairs, n)
         if slot_ids is not None:
@@ -1085,9 +1357,13 @@ class DeviceRunner:
                            key_ok=key_ok, base=base, capacity=capacity,
                            mask=mask, device=self.device,
                            value_bound=fold_bound)
-        present, overflow, states = out.host()
-        self._check_overflow(overflow)
-        return present, states
+
+        def decode(fetched):
+            present, overflow, states = af.decode(fetched[0], out.plan,
+                                                  out.n_slots)
+            self._check_overflow(overflow)
+            return present, states
+        return [out.buf], decode
 
     def _key(self, plan, feed, pairs, n) -> tuple:
         """The GROUP BY key's (values, validity), no validity for a bare
@@ -1144,25 +1420,28 @@ class DeviceRunner:
 
     def _sel_observe(self, keys, sel: float) -> None:
         a = self._SEL_EWMA_ALPHA
-        for key in keys:
-            st = self._sel_stat(key, True)
-            st["ewma"] = sel if st["ewma"] is None else \
-                a * sel + (1 - a) * st["ewma"]
-            st["n_obs"] += 1
+        with self._stats_mu:
+            for key in keys:
+                st = self._sel_stat(key, True)
+                st["ewma"] = sel if st["ewma"] is None else \
+                    a * sel + (1 - a) * st["ewma"]
+                st["n_obs"] += 1
 
     def _sel_predict(self, keys) -> Optional[float]:
         """The EWMA selectivity after 3 observations (exact key first),
         else None: the request takes the mask route."""
-        for key in keys:
-            st = self._sel_stat(key, False)
-            if st is not None and st["n_obs"] >= 3:
-                return st["ewma"]
+        with self._stats_mu:
+            for key in keys:
+                st = self._sel_stat(key, False)
+                if st is not None and st["n_obs"] >= 3:
+                    return st["ewma"]
         return None
 
     def _note_route(self, route: str, table: Optional[dict] = None) -> None:
         """Count ``route`` in ``table`` (the scan_sel routes by default)."""
         table = self.sel_routes if table is None else table
-        table[route] = table.get(route, 0) + 1
+        with self._stats_mu:
+            table[route] = table.get(route, 0) + 1
 
     def _param(self, value, dtype: str) -> torch.Tensor:
         """A hoisted constant as a cached 0-d device tensor."""
@@ -1175,14 +1454,16 @@ class DeviceRunner:
                 value, dtype=_TORCH_DTYPES[dtype], device=self.device)
         return t
 
-    def _run_scan_sel(self, dag, plan, feed, n, get_batch, storage):
+    def _run_scan_sel(self, dag, plan, feed, n, get_batch,
+                      storage) -> _Pending:
         """Selection with no terminal (runner.py:4186): one pass counts and
         packs the predicate mask (``_selection``: ``sel_pred``, or torch
         and ``sel_mask``; no bool mask is written), then the route the
         selectivity EWMA predicts ships the packed mask, the row indices
-        or the rows themselves.  A cold plan takes the mask route; its
-        count seeds the EWMA.  An index or compact capacity that proves
-        too small falls back to the packed mask, still on the device."""
+        (``sel_compact``, launched here too) or the rows themselves.  A
+        cold plan takes the mask route; its count seeds the EWMA at the
+        fetch.  An index or compact capacity that proves too small falls
+        back to the packed mask, still on the device."""
         mout = self._selection(plan, feed, n, False)[0]
         keys = self._sel_keys(dag, plan)
         pred = self._sel_predict(keys)
@@ -1193,52 +1474,46 @@ class DeviceRunner:
             route = sm.choose_route(n, k_est, plan.compact_ok,
                                     idx_bytes=4 * cap)
 
-        def observe(count: int) -> None:
-            self._sel_observe(keys, count / n)
-
         def gather(rows):
-            """rows: a bool mask over the scan output, or its ascending
-            positions."""
-            if isinstance(plan.scan, TableScanDesc) and \
-                    hasattr(storage, "gather_rows"):
-                out = storage.gather_rows(plan.scan, dag.ranges, rows)
-            else:
-                b = get_batch()
-                out = b.filter(rows) if rows.dtype == np.bool_ \
-                    else b.take(rows)
-            return SelectResult(out)
+            return self._gather(dag, plan, storage, rows, get_batch)
 
-        def mask_route(fallback: bool):
-            count, packed = mout.host()
+        def mask_route(count: int, packed, fallback: bool):
             if fallback:
                 self._note_route("mask_fallback")
             else:
-                observe(count)
+                self._sel_observe(keys, count / n)
                 self._note_route(sm.ROUTE_MASK)
             return gather(np.unpackbits(packed, count=n).view(np.bool_))
 
         if route == sm.ROUTE_MASK:
-            return mask_route(False)
+            return _Pending([mout.buf[:sm.HEADER + -(-n // 8)]],
+                            lambda f: mask_route(*sm.mask_host(f[0]), False),
+                            small=False)
         planes = []
         if route == sm.ROUTE_COMPACT:
             planes = [t for v, ok in self._planes(feed)
                       for t in ((v,) if ok is None else (v, ok))]
-        count, overflow, idx, outs = sm.sel_compact(mout, cap, planes).host()
-        observe(count)
-        if overflow:
-            return mask_route(True)
-        self._note_route(route)
-        if route == sm.ROUTE_INDEX:
-            return gather(idx[:count].astype(np.int64))
-        schema, cols = [], []
-        at = iter(outs)
-        for info, has_nulls in zip(plan.scan.columns, feed["null_flags"]):
-            vals = next(at)[:count].astype(np.int64)
-            valid = next(at)[:count].astype(np.bool_) if has_nulls \
-                else np.ones(count, np.bool_)
-            schema.append(info.field_type)
-            cols.append(Column(EvalType.INT, vals, valid))
-        return SelectResult(ColumnBatch(schema, cols))
+        cout = sm.sel_compact(mout, cap, planes)
+
+        def finalize(fetched):
+            count, overflow, idx, outs = cout.from_host(fetched[0])
+            self._sel_observe(keys, count / n)
+            if overflow:
+                return mask_route(*mout.host(), True)
+            self._note_route(route)
+            if route == sm.ROUTE_INDEX:
+                return gather(idx[:count].astype(np.int64))
+            schema, cols = [], []
+            at = iter(outs)
+            for info, has_nulls in zip(plan.scan.columns,
+                                       feed["null_flags"]):
+                vals = next(at)[:count].astype(np.int64)
+                valid = next(at)[:count].astype(np.bool_) if has_nulls \
+                    else np.ones(count, np.bool_)
+                schema.append(info.field_type)
+                cols.append(Column(EvalType.INT, vals, valid))
+            return SelectResult(ColumnBatch(schema, cols))
+        return _Pending([cout.buf], finalize, small=False)
 
     # ---------------------------------------------------------------- top-n
 
@@ -1276,9 +1551,15 @@ class DeviceRunner:
         n_used, seglen = tn.segments(n, feed["n_pad"])
         placement = tn.digit_placement(values.dtype, plan.order_desc,
                                        bounds)
-        host = tn.topn_select(values, ok, mask, plan.order_desc, n, n_used,
-                              seglen, plan.limit,
-                              placement=placement).cpu().numpy()
+        picked = tn.topn_select(values, ok, mask, plan.order_desc, n, n_used,
+                                seglen, plan.limit, placement=placement)
+        return _Pending([picked], lambda f: self._topn_rows(
+            dag, plan, storage, get_batch, n, f[0]), small=False)
+
+    @staticmethod
+    def _topn_rows(dag, plan, storage, get_batch, n, host) -> SelectResult:
+        """The TopN's rows from ``topn_select``'s fetched positions and
+        flags: the candidates gathered, then ordered exactly."""
         gidx = host[0]
         live = (host[1] & 1 != 0) & (gidx < n)
         gidx, okk = gidx[live], host[1][live] & 2 != 0

@@ -20,13 +20,21 @@ Then one of three routes ships the cheapest selection vector:
 The routing helpers (``choose_route``, ``index_capacity``,
 ``index_bytes``, ``shape_key``, ``split_params``) are the reference's
 (selection.py:106-194, :380-386), kept here because that module imports
-JAX.  The reference's host route above ``HOST_SELECTIVITY_CUTOFF`` belongs
-to the endpoint, which the port does not have yet: every selectivity is
-served on the device.
+JAX.  The reference's host route above ``HOST_SELECTIVITY_CUTOFF`` (its
+runner's selectivity gate, which sends such a plan back to the endpoint's
+host pipeline) is not ported (ROADMAP.md queue 1 item 5): the port's
+endpoint has the host pipeline, but its runner serves every selectivity
+on the device.
+
+A coalesced group of selections that differ only in their constants runs
+as one ``sel_pred_batched`` launch (``build_batched_mask_kernel``,
+selection.py:273): one program, one constant table per lane, one read of
+the feed, every lane's count and packed mask in one buffer.
 
 Each kernel wrapper takes the plain version only for tensors on the CPU;
-on a CUDA tensor it launches its kernel or raises.  ``mask_launches`` and
-``compact_launches`` count kernel launches and nothing else.
+on a CUDA tensor it launches its kernel or raises.  ``pred_launches``,
+``batched_launches``, ``mask_launches`` and ``compact_launches`` count
+kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -57,8 +65,12 @@ MAX_PLANES = 128
 # int64 count (and, for sel_compact, the int64 overflow flag)
 HEADER = 16
 
+# lanes of one sel_pred_batched launch (csrc/selection.cu BATCH_MAX_LANES)
+BATCH_MAX_LANES = 64
+
 # kernel launches since import (the chip smoke resets them around a run)
 pred_launches = 0
+batched_launches = 0
 mask_launches = 0
 compact_launches = 0
 
@@ -135,6 +147,19 @@ def choose_route(n: int, k: float, compact_ok: bool,
     if idx_bytes < n / 8:
         return ROUTE_INDEX
     return ROUTE_MASK
+
+
+def modeled_d2h_bytes(route: str, n: int, k: int, row_bytes: int = 12) -> int:
+    """Bytes the chosen route moves device→host (the cost router's model,
+    selection.py:183): the packed mask, the index route's pow2 capacity,
+    or the compact route's projected rows."""
+    if route == ROUTE_MASK:
+        return -(-n // 8)
+    if route == ROUTE_INDEX:
+        return index_bytes(k)
+    if route == ROUTE_COMPACT:
+        return row_bytes * _next_pow2(max(64, k))
+    return 0
 
 
 def index_capacity(k_hint: float, n_local: int) -> int:
@@ -395,8 +420,13 @@ class MaskOut:
 
     def host(self):
         """(count, packed bytes of the n rows) after one device→host copy."""
-        h = self.buf[:HEADER + -(-self.n // 8)].cpu().numpy()
-        return int(h[:8].view("int64")[0]), h[HEADER:]
+        return mask_host(self.buf[:HEADER + -(-self.n // 8)].cpu().numpy())
+
+
+def mask_host(h: np.ndarray) -> tuple:
+    """(count, packed bytes) of a ``MaskOut`` buffer's first
+    ``HEADER + ceil(n/8)`` bytes, fetched."""
+    return int(h[:8].view("int64")[0]), h[HEADER:]
 
 
 def _aligned(x: int) -> int:
@@ -443,7 +473,11 @@ class CompactOut:
     def host(self):
         """(count, overflow, idx, outs) as numpy after one device→host
         copy."""
-        c, o, idx, outs = _compact_views(self.buf.cpu(), self.k_cap,
+        return self.from_host(self.buf.cpu().numpy())
+
+    def from_host(self, h: np.ndarray) -> tuple:
+        """(count, overflow, idx, outs) as numpy from ``buf`` fetched."""
+        c, o, idx, outs = _compact_views(torch.from_numpy(h), self.k_cap,
                                          self.dtypes, self.offsets)
         return int(c), int(o), idx.numpy(), [x.numpy() for x in outs]
 
@@ -599,6 +633,68 @@ def sel_pred_plain(prog: PredProgram, planes: Sequence, n: int,
             stack.append((v, m))
     return sel_mask_plain(keep, n), keep if bools else None
 
+class LanesDiffer(ValueError):
+    """Programs that one ``sel_pred_batched`` launch cannot run as lanes:
+    they differ in more than their constants."""
+
+
+def check_lanes(progs: Sequence[PredProgram]) -> None:
+    """Raise ``LanesDiffer`` unless ``progs`` (1 to ``BATCH_MAX_LANES``)
+    share their ops, columns, depth and width: lanes differ in their
+    constants' values only."""
+    if not 1 <= len(progs) <= BATCH_MAX_LANES:
+        raise LanesDiffer(f"{len(progs)} lanes (1 to {BATCH_MAX_LANES})")
+    lead = progs[0]
+    for g, q in enumerate(progs[1:], 1):
+        if (q.ops, q.cols, q.depth, q.wide) != \
+                (lead.ops, lead.cols, lead.depth, lead.wide) or \
+                len(q.consts) != len(lead.consts):
+            raise LanesDiffer(f"lane {g}'s program differs from lane 0's "
+                              f"beyond its constants")
+
+
+@dataclass
+class BatchedOut:
+    """``sel_pred_batched``'s outputs in one uint8 buffer ``buf``: the
+    lanes' int64 counts, then each lane's packed mask of ``n_blocks(n)``
+    blocks (``lane_bytes`` each; bits past n are 0)."""
+
+    buf: torch.Tensor
+    lanes: int
+    n: int
+
+    @property
+    def lane_bytes(self) -> int:
+        return n_blocks(self.n) * ROWS_PER_BLOCK // 8
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.buf[:8 * self.lanes].view(torch.int64)
+
+    def packed(self, g: int) -> torch.Tensor:
+        at = 8 * self.lanes + g * self.lane_bytes
+        return self.buf[at:at + self.lane_bytes]
+
+
+def batched_host(buf: np.ndarray, lanes: int, n: int) -> tuple:
+    """(int64 counts [lanes], uint8 packed masks [lanes, ceil(n/8)]) from
+    a ``BatchedOut`` buffer brought to the host."""
+    lane_bytes = n_blocks(n) * ROWS_PER_BLOCK // 8
+    counts = buf[:8 * lanes].view(np.int64)
+    packed = buf[8 * lanes:8 * lanes + lanes * lane_bytes].reshape(
+        lanes, lane_bytes)[:, :-(-n // 8)]
+    return counts, packed
+
+
+def sel_pred_batched_plain(progs: Sequence[PredProgram], planes: Sequence,
+                           n: int) -> BatchedOut:
+    """``sel_pred_plain`` once per lane, laid out as the kernel writes."""
+    dev = planes[progs[0].cols[0]][0].device
+    outs = [sel_pred_plain(q, planes, n)[0] for q in progs]
+    buf = torch.cat([torch.stack([o.count for o in outs]).view(torch.uint8)]
+                    + [o.packed for o in outs]).to(dev)
+    return BatchedOut(buf, len(progs), n)
+
 
 def unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     """The bool mask of rows [0, n) from packed bytes (MSB first)."""
@@ -644,6 +740,18 @@ class _PredParams(ctypes.Structure):
                 ("cnull", _i * PRED_MAX_CONSTS)]
 
 
+class _BatchParams(ctypes.Structure):
+    """``struct BatchParams`` of csrc/selection.cu."""
+    _p = ctypes.c_void_p
+    _i = ctypes.c_int
+    _fields_ = [("lanes", _i), ("n_consts", _i), ("n_cols", _i),
+                ("simple", _i), ("tile_offset", _i), ("cval", _p),
+                ("cnull", _p),
+                ("counts", _p), ("packed", _p),
+                ("lane_bytes", ctypes.c_longlong),
+                ("n_tiles", ctypes.c_longlong)]
+
+
 class _CompactParams(ctypes.Structure):
     _fields_ = [("packed", ctypes.c_void_p),
                 ("block_counts", ctypes.c_void_p),
@@ -675,13 +783,21 @@ def _kernel_lib():
                                         i, ll, p]
         lib.sel_pred_launch.restype = i
         lib.sel_pred_params_bytes.restype = i
+        lib.sel_pred_batched_launch.argtypes = [
+            i, ctypes.POINTER(_PredParams), ctypes.POINTER(_BatchParams), i,
+            i, ll, p]
+        lib.sel_pred_batched_launch.restype = i
+        lib.sel_batch_params_bytes.restype = i
+        lib.sel_batch_max_lanes.restype = i
         lib.sel_params_bytes.restype = i
         lib.sel_max_planes.restype = i
         lib.sel_error_string.argtypes = [i]
         lib.sel_error_string.restype = ctypes.c_char_p
         if lib.sel_params_bytes() != ctypes.sizeof(_CompactParams) or \
                 lib.sel_pred_params_bytes() != ctypes.sizeof(_PredParams) \
-                or lib.sel_max_planes() != MAX_PLANES:
+                or lib.sel_max_planes() != MAX_PLANES or \
+                lib.sel_batch_params_bytes() != ctypes.sizeof(_BatchParams) \
+                or lib.sel_batch_max_lanes() != BATCH_MAX_LANES:
             raise RuntimeError("selection: the kernel's parameter layout "
                                "differs from the wrapper's")
         _lib = lib
@@ -721,21 +837,9 @@ def _payload32(payload: int, real: bool) -> int:
                .astype(np.float32).view(np.int32)[0])
 
 
-def _sel_pred_cuda(prog, planes, n, bools) -> tuple:
-    global pred_launches
-    lib = _kernel_lib()
-    dev = planes[prog.cols[0]][0].device
-    nb = n_blocks(n)
-    buf = torch.empty(HEADER + nb * ROWS_PER_BLOCK // 8, dtype=torch.uint8,
-                      device=dev)
-    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    out = torch.empty(nb * ROWS_PER_BLOCK, dtype=torch.bool, device=dev) \
-        if bools else None
-    p = _PredParams(n=n, packed=buf.data_ptr() + HEADER,
-                    block_counts=block_counts.data_ptr(),
-                    count=buf.data_ptr(),
-                    bools=None if out is None else out.data_ptr(),
-                    n_ops=len(prog.ops))
+def _pred_params(prog, planes, n) -> _PredParams:
+    """The program and its planes as ``PredParams`` (no outputs)."""
+    p = _PredParams(n=n, n_ops=len(prog.ops))
     used = [planes[ci] for ci in prog.cols]
     p.values[:len(used)] = [v.data_ptr() for v, _ok in used]
     p.valid[:len(used)] = [None if ok is None else ok.data_ptr()
@@ -746,8 +850,31 @@ def _sel_pred_cuda(prog, planes, n, bools) -> tuple:
     p.op[:len(prog.ops)] = [o for o, _a, _x in prog.ops]
     p.arg[:len(prog.ops)] = [a for _o, a, _x in prog.ops]
     p.aux[:len(prog.ops)] = [x for _o, _a, x in prog.ops]
-    p.cval[:len(prog.consts)] = [_payload32(c, real) if not prog.wide else c
-                                 for c, _null, real in prog.consts]
+    return p
+
+
+def _payloads(prog) -> list:
+    """The program's constants as the kernel reads them."""
+    return [_payload32(c, real) if not prog.wide else c
+            for c, _null, real in prog.consts]
+
+
+def _sel_pred_cuda(prog, planes, n, bools) -> tuple:
+    global pred_launches
+    lib = _kernel_lib()
+    dev = planes[prog.cols[0]][0].device
+    nb = n_blocks(n)
+    buf = torch.empty(HEADER + nb * ROWS_PER_BLOCK // 8, dtype=torch.uint8,
+                      device=dev)
+    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    out = torch.empty(nb * ROWS_PER_BLOCK, dtype=torch.bool, device=dev) \
+        if bools else None
+    p = _pred_params(prog, planes, n)
+    p.packed = buf.data_ptr() + HEADER
+    p.block_counts = block_counts.data_ptr()
+    p.count = buf.data_ptr()
+    p.bools = None if out is None else out.data_ptr()
+    p.cval[:len(prog.consts)] = _payloads(prog)
     p.cnull[:len(prog.consts)] = [int(null) for _c, null, _r in prog.consts]
     _raise_on(lib, lib.sel_pred_launch(
         _dev_index(dev), ctypes.byref(p), prog.depth, int(prog.wide), nb,
@@ -778,6 +905,82 @@ def sel_pred(prog: PredProgram, planes: Sequence, n: int,
     if dev.type != "cuda":
         raise ValueError(f"sel_pred runs on cuda or cpu, not {dev}")
     return _sel_pred_cuda(prog, planes, n, bools)
+
+
+_CMP_CODES = frozenset(range(_CMP_OPS["Gt"], _CMP_OPS["Ne"] + 7))
+
+
+def simple_terms(prog: PredProgram) -> bool:
+    """Whether ``prog`` is terms ``column 0 <cmp> constant`` kept as they
+    are (one column; ``sel_pred_batched`` then evaluates every lane from
+    registers)."""
+    ops = prog.ops
+    return len(prog.cols) == 1 and len(ops) % 3 == 0 and all(
+        ops[k] == (OP_COL, 0, 0) and ops[k + 1][0] in _CMP_CODES and
+        ops[k + 1][2] == 1 and ops[k + 2] == (OP_KEEP["I"], 0, 0)
+        for k in range(0, len(ops), 3))
+
+
+def _sel_pred_batched_cuda(progs, planes, n) -> BatchedOut:
+    global batched_launches
+    lib = _kernel_lib()
+    lead = progs[0]
+    dev = planes[lead.cols[0]][0].device
+    G, nc = len(progs), len(lead.consts)
+    nb = n_blocks(n)
+    out = BatchedOut(torch.empty(8 * G + G * nb * ROWS_PER_BLOCK // 8,
+                                 dtype=torch.uint8, device=dev), G, n)
+    # the lanes' constants: [G][nc] int64 payloads, then [G][nc] int32
+    # NULL flags, one pinned block copied on the launch stream
+    cval = np.array([_payloads(q) for q in progs], np.int64).reshape(-1)
+    cnull = np.array([[int(null) for _c, null, _r in q.consts]
+                      for q in progs], np.int32).reshape(-1)
+    host = np.zeros(_aligned(8 * cval.size + 4 * cnull.size) or 16,
+                    np.uint8)
+    host[:8 * cval.size] = cval.view(np.uint8)
+    host[8 * cval.size:8 * cval.size + 4 * cnull.size] = cnull.view(np.uint8)
+    consts = torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+    p = _pred_params(lead, planes, n)
+    b = _BatchParams(lanes=G, n_consts=nc, n_cols=len(lead.cols),
+                     simple=int(simple_terms(lead)),
+                     tile_offset=_aligned(12 * G * nc),
+                     cval=consts.data_ptr(),
+                     cnull=consts.data_ptr() + 8 * cval.size,
+                     counts=out.buf.data_ptr(),
+                     packed=out.buf.data_ptr() + 8 * G,
+                     lane_bytes=out.lane_bytes)
+    _raise_on(lib, lib.sel_pred_batched_launch(
+        _dev_index(dev), ctypes.byref(p), ctypes.byref(b), lead.depth,
+        int(lead.wide), nb, torch.cuda.current_stream(dev).cuda_stream),
+        "sel_pred_batched launch")
+    batched_launches += 1
+    return out
+
+
+def sel_pred_batched(progs: Sequence[PredProgram], planes: Sequence,
+                     n: int) -> BatchedOut:
+    """Evaluate G programs (``encode_predicate``; ``check_lanes``: they
+    differ in their constants only) over rows [0, n) of the feed
+    ``planes`` in one pass → ``BatchedOut``: each lane's count and packed
+    mask, equal to ``sel_pred`` of that lane's program."""
+    if n <= 0 or n >= 1 << 31:
+        raise ValueError(f"sel_pred_batched serves 0 < n < 2^31 rows, "
+                         f"got {n}")
+    check_lanes(progs)
+    lead = progs[0]
+    if not lead.cols:
+        raise ValueError("sel_pred_batched: a program that reads no column")
+    dev = planes[lead.cols[0]][0].device
+    for ci in lead.cols:
+        v, ok = planes[ci]
+        _check_plane(v, f"column {ci}", n, dev, tuple(_PRED_DTYPES))
+        if ok is not None:
+            _check_plane(ok, f"column {ci} validity", n, dev, (torch.bool,))
+    if dev.type == "cpu":
+        return sel_pred_batched_plain(progs, planes, n)
+    if dev.type != "cuda":
+        raise ValueError(f"sel_pred_batched runs on cuda or cpu, not {dev}")
+    return _sel_pred_batched_cuda(progs, planes, n)
 
 
 def _sel_mask_cuda(pred, n) -> MaskOut:

@@ -35,6 +35,13 @@ configs 1, 2 and 5, plus 5t), with ``row_truth``:
   ``WHERE k < 512 ORDER BY v DESC LIMIT 1000`` — unsorted rows, a
   selection inside the top-k and NULL keys.
 
+Cell 6b-ep (``serving_table``, ``serving_schedule``, ``dag_serving``,
+``serving_truth``) is config 6b of ``bench.py`` (:30-35, :1130-1300) at the
+endpoint: three tables of ``int_table(2)``'s shape (``c0 = h % 1024``,
+``c1 = h % 1000``), ids 9920-9922, and the seeded (61) schedule of
+selections ``c1 > thr`` (thr Zipf over 980..995) and ``GROUP BY c0:
+COUNT(*), SUM(c1)``, 3:1, over Zipf-drawn tables.
+
 The plan-IR configurations (``PLAN_CELLS``, ``plan_truth``) run on config
 7's pair of tables (``build_join_pair``, ``bench.py:243-312``): a probe
 table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
@@ -542,6 +549,74 @@ def plan_truth(cell: str, probe, build) -> list:
 # ---------------------------------------------------------------------------
 
 # TiDB's default of ANALYZE TABLE ... WITH NUM BUCKETS
+# cell 6b-ep: config 6b (bench.py:30-35, :1130-1300) at the endpoint in
+# process — concurrent clients over a seeded Zipf mix of three tables of
+# int_table(2)'s shape (c0 = h % 1024, c1 = h % 1000: bench.py:420's
+# _bulk_load), selections ``c1 > thr`` over the palette 980..995 (0.4-1.9%
+# selected) and ``GROUP BY c0: COUNT(*), SUM(c1)``, 3:1
+SERVE_TABLE_IDS = (9920, 9921, 9922)
+SERVE_PALETTE = tuple(range(980, 996))
+SERVE_GROUPS = 1024
+
+
+def serving_table(n: int, table_id: int):
+    """→ (table, snapshot) of one 6b table: id, c0 = h % 1024, c1 = h %
+    1000 over handles 0..n-1, no NULLs."""
+    table = Table(table_id, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("c0", 2, FieldType.long(), index_id=1),
+        TableColumn("c1", 3, FieldType.long(), index_id=2)))
+    h = np.arange(n, dtype=np.int64)
+    ones = np.ones(n, np.bool_)
+    snap = ColumnarTable.from_arrays(table, h, {
+        "c0": Column(EvalType.INT, h % SERVE_GROUPS, ones),
+        "c1": Column(EvalType.INT, h % 1000, ones)})
+    return table, snap
+
+
+def serving_schedule(total: int, n_tables: int = len(SERVE_TABLE_IDS),
+                     seed: int = 61) -> list:
+    """bench.py:1198-1212's seeded schedule: (table, palette index, is a
+    selection) per request — tables Zipf s = 2.0, thresholds Zipf s = 1.2,
+    75% selections."""
+    rng = np.random.default_rng(seed)
+
+    def zipf_pick(k, size, s=1.2):
+        p = 1.0 / np.arange(1, k + 1) ** s
+        return rng.choice(k, size=size, p=p / p.sum())
+
+    tables = zipf_pick(n_tables, total, s=2.0)
+    thresholds = zipf_pick(len(SERVE_PALETTE), total)
+    return list(zip(tables.tolist(), thresholds.tolist(),
+                    (rng.random(total) < 0.75).tolist()))
+
+
+def dag_serving(table: Table, thr=None):
+    """A 6b request: ``c1 > thr``, or (``thr`` None) the GROUP BY."""
+    s = DagSelect.from_table(table, ["id", "c0", "c1"])
+    if thr is not None:
+        return s.where(s.col("c1") > thr).build()
+    return s.aggregate([s.col("c0")],
+                       [("count_star", None), ("sum", s.col("c1"))]).build()
+
+
+def serving_truth(n: int, thr=None):
+    """The numpy answer of ``dag_serving`` over a 6b table of n rows:
+    truth columns (``columns_agree``) of a selection, or the sorted rows
+    (COUNT(*), SUM(c1), c0) of the GROUP BY."""
+    h = np.arange(n, dtype=np.int64)
+    c0, c1 = h % SERVE_GROUPS, h % 1000
+    if thr is not None:
+        ids = np.flatnonzero(c1 > thr).astype(np.int64)
+        ones = np.ones(len(ids), np.bool_)
+        return [(ids, ones), (c0[ids], ones), (c1[ids], ones)]
+    cnt = np.bincount(c0, minlength=SERVE_GROUPS)
+    sums = np.bincount(c0, weights=c1, minlength=SERVE_GROUPS)
+    return sorted((int(cnt[g]), int(sums[g]), g)
+                  for g in range(SERVE_GROUPS) if cnt[g])
+
+
 ANALYZE_BUCKETS = 256
 # cell → its table builder over n rows (an6c's snapshot is config 6c's
 # cold mint, testing/mvcc.py history_6c)

@@ -1,1 +1,2 @@
-"""Process utilities: fault injection (``failpoint``)."""
+"""Process utilities: fault injection (``failpoint``), request deadlines
+(``deadline``) and per-request cost attribution (``tracker``)."""

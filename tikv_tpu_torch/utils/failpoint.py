@@ -5,7 +5,11 @@ crate's grammar): ``cfg(name, actions)`` arms a site, ``fail_point(name)``
 is the site, ``teardown()`` disarms every site.  Actions, chained with
 ``->``, each ``[cnt*]task[(arg)]``; tasks ``off`` and ``return``.  The
 port's sites: ``device::join_dispatch`` (the probe dispatch of a device
-join) and ``copr::plan_route`` (every fragment of a plan to the host).
+join), ``copr::plan_route`` (every fragment of a plan to the host),
+``device::before_dispatch`` and ``device::before_fetch`` (a device fault
+at a DAG request's dispatch or at its fetch), ``copr::coalesce_dispatch``
+(a coalesced group's launch fails: its members retry solo) and
+``copr::coalesce_window`` (a group closes as its member arrives).
 
 A site costs one global read while nothing is armed.
 """
