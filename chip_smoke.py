@@ -203,7 +203,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    int64 and REAL constants, range and NULL-constant terms, NULL-bearing
    planes, n not a multiple of 8, planes off a 16-byte boundary, one block
    and many; both of its evaluations (simple terms from registers, the
-   interpreter) must be taken; then 32 deferred requests over configs 2, 3
+   interpreter) must be taken; then the feed budget
+   (``DeviceRunner(hbm_budget_bytes=...)`` with room for one feed of config
+   3's plan at 2^20 rows): a second snapshot's feed is refused while a
+   deferred request pins the first one's, and evicts it after that fetch,
+   every answer against numpy; then 32 deferred requests over configs 2, 3
    and 4's tables (2^22 rows each) dispatched before any wait, each equal
    to its serial answer, with the pinned stager's stats, a
    ``device::before_fetch`` inside one fetch (that request degrades, the
@@ -219,7 +223,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and ``sel_pred_batched`` timed at 6b-ep's shape beside its bound, its
    plain version, its interpreter on the same masks, 16 solo ``sel_pred``
    launches and one broadcast ``torch.gt``;
-13. one JSON line listing every ported kernel: launches on the main path,
+13. the device split: ``split_planes`` (``csrc/split.cu``) against its
+   plain version, bit for bit — planes, zero tails and fused digests, the
+   digests also against ``plane_digest`` of the child — over bool, int32,
+   float32, int64 and float64 planes, both children, pos 0, 1, odd, n − 1
+   and off every alignment, children of one row, child pads below and
+   equal to the parent's, one block and many, P from 1 to 256 in one
+   launch, and a corrupted parent row whose fused digest must expose it;
+   then cell 6c-split (``run_split``: config 6c's region of 10·2^20 keys
+   through the port's cache, endpoint and ``CoprocessorHost``; split at
+   n/2, the right child again at 90% of its rows, then the fallback route
+   with ``device::device_split`` armed), every answer against numpy, the
+   first request of each child and plan labelled ``split`` (``upload`` on
+   the fallback route), no ``columnar_build`` for a split child, every
+   stash consumed, the parent feeds dropped, the supervisor's counts
+   exact, no degrade, the split's wall and phases and the arena's bytes
+   printed; and ``split_planes`` timed at split 1's shape beside its
+   bound, plain version and a ``copy_`` + ``plane_digest`` yardstick;
+14. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -231,9 +252,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``configs``; configs 7, 7s and 7w for ``join_build`` / ``join_index``
    / ``join_probe``, ``sort_perm`` and ``window_scan``; an4's id for
    ``analyze``, with the other timed columns under ``configs``; 6b-ep's
-   shape for ``sel_pred_batched``), and the least time the card could
-   take;
-14. the last line: ``{"ok": true, "device": {...}}``.
+   shape for ``sel_pred_batched``; 6c-split's split 1 for
+   ``split_planes``, with both children under ``configs``), and the least
+   time the card could take;
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -264,7 +286,7 @@ KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_pred_batched",
            "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
-           "sort_perm", "window_scan", "analyze")
+           "sort_perm", "window_scan", "analyze", "split_planes")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -322,7 +344,7 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 def counts() -> dict:
     from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
                                        join_probe, mvcc, selection, sort,
-                                       topn, twolevel, window)
+                                       split, topn, twolevel, window)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_pred": selection.pred_launches,
             "sel_pred_batched": selection.batched_launches,
@@ -337,13 +359,14 @@ def counts() -> dict:
             "join_probe": join_probe.launches,
             "sort_perm": sort.sort_launches,
             "window_scan": window.launches,
-            "analyze": analyze.analyze_launches}
+            "analyze": analyze.analyze_launches,
+            "split_planes": split.launches}
 
 
 def set_counts(values: dict) -> None:
     from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
                                        join_probe, mvcc, selection, sort,
-                                       topn, twolevel, window)
+                                       split, topn, twolevel, window)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.pred_launches = values["sel_pred"]
@@ -361,20 +384,36 @@ def set_counts(values: dict) -> None:
     sort.sort_launches = values["sort_perm"]
     window.launches = values["window_scan"]
     analyze.analyze_launches = values["analyze"]
+    split.launches = values["split_planes"]
 
 
-def build_kernels() -> None:
+# the builds still running after build_kernels(defer=...): name → future
+_PENDING_BUILDS: dict = {}
+
+
+def build_kernels(defer: tuple = ()) -> None:
+    """One ``nvcc`` per source, all started together; returns once every
+    source but those in ``defer`` is built (``await_builds`` waits for
+    those), so the checks of the built kernels run while a slow source
+    (``selection.cu``, minutes) still compiles.  No kernel of a deferred
+    source may be loaded before ``await_builds``."""
     from tikv_tpu_torch.device import build
 
     def one(name):
         t0 = time.perf_counter()
         log = build.build(name)
-        return name, time.perf_counter() - t0, log
+        print(f"build: {name} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
 
-    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
-        for name, secs, log in pool.map(one, build.SOURCES):
-            print(f"build: {name} in {secs:.3f} s", flush=True)
-            print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
+    pool = ThreadPoolExecutor(len(build.SOURCES))
+    futures = {name: pool.submit(one, name) for name in build.SOURCES}
+    pool.shutdown(wait=False)
+    for name, fut in futures.items():
+        if name in defer:
+            _PENDING_BUILDS[name] = fut
+        else:
+            fut.result()
     shared_atomics("hash_agg")
     fold = shared_atomics("agg_fold")
     # the shared route of an all-integer launch (4m's) keeps no float64
@@ -387,6 +426,13 @@ def build_kernels() -> None:
     print(f"sass agg_fold integer shared route: shared atomics " + " ".join(
         f"{k}x{v}" for k, v in sorted(ints_only.items())) +
         " (no float64 compare-and-swap loop)", flush=True)
+
+
+def await_builds() -> None:
+    """Wait for the builds ``build_kernels`` deferred (raises if one
+    failed)."""
+    while _PENDING_BUILDS:
+        _PENDING_BUILDS.popitem()[1].result()
 
 
 def ptxas_summary(log: str) -> str:
@@ -2779,7 +2825,7 @@ def cold_dag(config: str, table):
 
 
 def only_feed(runner, snap) -> tuple:
-    feeds = runner._snaps[snap]["feeds"]
+    feeds = runner.resident_feeds(snap)
     assert len(feeds) == 1, f"{len(feeds)} feeds"
     return next(iter(feeds.items()))
 
@@ -3825,6 +3871,59 @@ def gil_released_by_event_wait() -> float:
     return n / (rate * spent)
 
 
+def check_budget(dev, n: int = 1 << 20) -> dict:
+    """``DeviceRunner(hbm_budget_bytes=...)`` on the card, with room for
+    one feed of config 3's plan (``n`` rows): while a deferred request on
+    snapshot A pins A's feed, B's feed is refused a place and A stays;
+    after A's fetch, B's next request evicts A.  Every answer equals the
+    numpy truth → the arena's stats after each step."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device import DeviceRunner
+    from tikv_tpu_torch.testing import configs as cf
+    build, plan = cf.CONFIGS["3"]
+    table, snap_a = build(n)
+    _t, snap_b = build(n)
+    dag = dag_from_wire(enc_dag(plan(table)))
+    want, scales = cf.truth("3", snap_a)
+    saved = counts()
+    probe = DeviceRunner(dev)
+    probe.handle_request(dag, snap_a)
+    one = probe.hbm_stats()["resident_bytes"]
+    del probe
+    budget = one + one // 2
+    runner = DeviceRunner(dev, hbm_budget_bytes=budget)
+    keys = ("resident_lines", "pinned_lines", "evictions", "rejections")
+    steps, answers = [], []
+
+    def note(resident_a: bool, resident_b: bool) -> None:
+        st = runner.hbm_stats()
+        assert st["resident_bytes"] <= budget, st
+        assert (runner._arena.bucket(snap_a, create=False) is not None,
+                runner._arena.bucket(snap_b, create=False) is not None) \
+            == (resident_a, resident_b), (resident_a, resident_b)
+        steps.append([st[k] for k in keys])
+
+    pending = runner.handle_request(dag, snap_a, deferred=True)
+    note(True, False)
+    answers.append(runner.handle_request(dag, snap_b).rows())
+    note(True, False)
+    answers.append(pending.result().rows())
+    note(True, False)
+    answers.append(runner.handle_request(dag, snap_b).rows())
+    note(False, True)
+    set_counts(saved)
+    assert all(cf.rows_agree(r, want, scales, SF_TOL) for r in answers), \
+        "an answer under the budget differs from the truth"
+    assert steps == [[1, 1, 0, 0], [1, 1, 0, 1], [1, 0, 0, 1],
+                     [1, 0, 1, 1]], steps
+    out = {"rows": n, "feed_bytes": one, "budget_bytes": budget,
+           "steps": dict(zip(("a deferred", "b refused", "a fetched",
+                              "b evicts a"), steps)), "keys": keys}
+    print(f"check budget: {json.dumps(out)}", flush=True)
+    return out
+
+
 def run_deferred(runner) -> dict:
     """Thirty-two deferred requests over configs 2, 3 and 4's tables
     (``DEFERRED_ROWS`` rows each), every one dispatched before any wait,
@@ -4131,6 +4230,489 @@ def analyze_at_main_shapes(runner, dev) -> dict:
     return out, max(errs.values())
 
 
+# ---------------------------------------------------------------------------
+# the device split: split_planes, cell 6c-split
+# ---------------------------------------------------------------------------
+
+SPLIT_DTYPES = (torch.bool, torch.int32, torch.float32, torch.int64,
+                torch.float64)
+SPLIT_KEYS = 10 << 20
+
+
+def split_cases(n: int) -> list:
+    """(right, pos, n_child) over a parent of ``n`` live rows: pos 0, 1,
+    odd, n − 1, n, and 3 and 5 (no 4-element boundary for any width)."""
+    out = []
+    for pos in sorted({0, 1, 3, 5, n // 3 | 1, n // 2, n - 1, n}):
+        for right in (False, True):
+            n_child = n - pos if right else pos
+            if n_child > 0:
+                out.append((right, pos, n_child))
+    return out
+
+
+def split_err(planes, pos, n_child, n_pad, right, dev) -> int:
+    """Elements and digests in which ``split_planes`` differs from its
+    plain version (whole child planes, zero tails included), plus fused
+    digests that differ from ``plane_digest`` of the child."""
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.device import split as sp
+    got, gd = sp.split_planes(planes, pos, n_child, n_pad, right)
+    want, wd = sp.split_planes_plain(planes, pos, n_child, n_pad, right)
+    bad = sum(int((g.view(torch.uint8) if g.dtype == torch.bool else g)
+                  .ne(w.view(torch.uint8) if w.dtype == torch.bool else w)
+                  .sum()) if not same_bits(g, w) else 0
+              for g, w in zip(got, want))
+    bad += int(gd.ne(wd).sum())
+    bad += sum(digest_err(d, dg.plane_digest(g, 0, n_child)) != 0
+               for d, g in zip(gd, got))
+    return bad
+
+
+def check_split(dev) -> int:
+    """split_planes against its plain version on the card, bit for bit
+    (planes, zero tails, fused digests; the digests also against
+    ``plane_digest`` of the child): bool, int32, float32, int64 and
+    float64 planes, left and right children, pos 0, 1, odd, n − 1 and off
+    every alignment, children of one row, child pads below and equal to
+    the parent's, one block (1,000 rows) and many (3·2^20 + 17), P from 1
+    to ``MAX_PLANES`` in one launch; and a corrupted parent row inside a
+    child, whose fused digest must differ from the child's host digest
+    (the split's verify refuses it) → elements and digests that differ."""
+    from tikv_tpu_torch.device import split as sp
+    from tikv_tpu_torch.device.digest import as_u64
+    from tikv_tpu_torch.device.supervisor import host_plane_digest
+    gen = torch.Generator().manual_seed(23)
+    worst, cases = 0, 0
+    for n in (1000, (3 << 20) + 17):
+        n_pad = -(-n // 1024) * 1024 + 1024
+        planes = [random_plane(dt, n_pad, gen, dev) for dt in SPLIT_DTYPES]
+        for x in planes:
+            x[n:] = 0
+        for right, pos, n_child in split_cases(n):
+            for pad in sorted({-(-n_child // 8) * 8, n_pad}):
+                worst = max(worst, split_err(planes, pos, n_child, pad,
+                                             right, dev))
+                cases += 1
+    # P from 1 to the limit in one launch, mixed dtypes
+    n = 4099
+    many = [random_plane(SPLIT_DTYPES[i % 5], n, gen, dev)
+            for i in range(sp.MAX_PLANES)]
+    for P in (1, 2, 7, 64, sp.MAX_PLANES):
+        worst = max(worst, split_err(many[:P], 1023, n - 1023, 3080, True,
+                                     dev))
+        cases += 1
+    # a corrupted parent row inside the right child: its verify refuses
+    parent = random_plane(torch.int32, 1 << 20, gen, dev)
+    pos, n_child = 1 << 19, 1 << 19
+    truth = parent[pos:pos + n_child].cpu().numpy().copy()
+    parent[pos + 12345] ^= 1
+    _out, d = sp.split_planes([parent], pos, n_child, n_child, True)
+    refused = as_u64(d[0]) != host_plane_digest(truth, n_child)
+    torch.cuda.synchronize()
+    print(f"check split_planes: {cases} cases (5 dtypes, both sides, "
+          f"{len(split_cases(1000))} positions at 1,000 and 3·2^20 + 17 "
+          f"rows, two pads each, P up to {sp.MAX_PLANES}): worst {worst}; "
+          f"a corrupted parent row refused: {refused}", flush=True)
+    assert worst == 0, "split_planes disagrees with its plain version"
+    assert refused, "the split's verify passed a corrupted parent row"
+    return worst
+
+
+def split_truth(lo: int, hi: int, plan: str):
+    """6c's answer over handles [lo, hi): GROUP BY c0: COUNT(*), SUM(c1)
+    rows sorted by c0, or the ids of ``c1 > 990``."""
+    from tikv_tpu_torch.testing import configs as cf
+    h = np.arange(lo, hi, dtype=np.int64)
+    if plan == "sel":
+        return h[h % 1000 > 990]
+    c0 = h % cf.GROUPS
+    cnt = np.bincount(c0, minlength=cf.GROUPS)
+    s = np.bincount(c0, weights=(h % 1000).astype(np.float64),
+                    minlength=cf.GROUPS)
+    return [(int(cnt[g]), int(s[g]), g) for g in range(cf.GROUPS)
+            if cnt[g]]
+
+
+class SplitCell:
+    """Cell 6c-split: config 6c's region (``bench.py:501-560``,
+    ``testing.mvcc.history_6c``) behind the port's region lifecycle —
+    ``RegionSnapshot`` → ``RegionColumnarCache.get`` → ``Endpoint`` →
+    ``CoprocessorHost.notify_region_split`` / ``notify_region_changed`` →
+    the children's requests.
+
+    The interpreted rung cannot read 10·2^20 keys in a smoke's time and the
+    native parse is not ported (ROADMAP.md queue 1 item 8), so the cache's
+    builder (``region_cache.build_region_columnar_ex``, looked up at call
+    time, the seam of the reference's own tests) is substituted: a build
+    of the whole region returns 6c's cold build
+    (``build_region_columnar_device`` over its version planes, with its
+    ``ColdFeedBundle``: the parent feed is minted on the card); a build of
+    a part (the fallback route's children) returns that slice of the cold
+    build's host mirror, with no bundle (its feeds upload)."""
+
+    def __init__(self, runner, n_keys: int, source=None):
+        """``source``: (table, version planes, read_ts) of another cell's
+        history, to build a fresh parent from."""
+        from tikv_tpu_torch.copr import region_cache as rc
+        from tikv_tpu_torch.copr.endpoint import Endpoint
+        from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+        from tikv_tpu_torch.engine.memory import MemoryEngine
+        from tikv_tpu_torch.raftstore.metapb import Region
+        from tikv_tpu_torch.raftstore.observer import CoprocessorHost
+        from tikv_tpu_torch.testing import mvcc as tm
+        self.runner = runner
+        if source is None:
+            table, planes, _th, _truth, read_ts = tm.history_6c(n_keys)
+            source = (table, planes, read_ts)
+        self.table, self.planes, self.read_ts = source
+        self.n = n_keys
+        self.engine = MemoryEngine()
+        self.cache = rc.RegionColumnarCache()
+        self.sup = DeviceStateSupervisor(runner, self.cache)
+        self.host = CoprocessorHost()
+        self.host.register(self.sup)
+        self.region = Region(1)
+        self.builds = []            # (region id, rows) of each build
+        self.mirror = None
+        self.ep = Endpoint(self._provider, runner)
+        self._rc = rc
+
+    def snap(self, region):
+        """The engine snapshot of ``region`` at data_index 100."""
+        from tikv_tpu_torch.raftstore.peer import RegionSnapshot
+        rs = RegionSnapshot(self.engine.snapshot(), region)
+        rs.data_index = 100
+        return rs
+
+    def _provider(self, req):
+        return self.cache.get(self.snap(self.region), req.dag)
+
+    def build(self, snap, table_id, col_infos, read_ts,
+              device_resolver=None):
+        """The substituted ``build_region_columnar_ex``."""
+        from tikv_tpu_torch.codec.keys import decode_record_handle
+        from tikv_tpu_torch.executors.columnar import ColumnarTable
+        from tikv_tpu_torch.storage.txn_types import decode_key
+        region = snap.region
+        assert read_ts == self.read_ts and table_id == self.table.table_id
+        if not region.start_key and not region.end_key:
+            tbl, safe, bundle = self._rc.build_region_columnar_device(
+                self.planes, self.table, col_infos, read_ts,
+                self.runner.mvcc_resolver())
+            self.mirror = tbl
+            self.builds.append((region.id, len(tbl)))
+            return tbl, safe, [], bundle
+        lo = decode_record_handle(decode_key(region.start_key)) \
+            if region.start_key else 0
+        hi = decode_record_handle(decode_key(region.end_key)) \
+            if region.end_key else self.n
+        m = self.mirror
+        cols = {cid: type(c)(c.eval_type, c.values[lo:hi],
+                             c.validity[lo:hi])
+                for cid, c in m.columns.items()}
+        tbl = ColumnarTable(m.table, m.handles[lo:hi], cols)
+        self.builds.append((region.id, len(tbl)))
+        return tbl, int(self.planes.safe_ts), [], None
+
+    def dag(self, plan: str):
+        from tikv_tpu_torch.convert import dag_from_wire
+        from tikv_tpu_torch.copr.wire import enc_dag
+        from tikv_tpu_torch.testing.dag import DagSelect
+        s = DagSelect.from_table(self.table, ["id", "c0", "c1"])
+        if plan == "sel":
+            d = s.where(s.col("c1") > 990)
+        else:
+            d = s.aggregate([s.col("c0")], [("count_star", None),
+                                            ("sum", s.col("c1"))])
+        return dag_from_wire(enc_dag(d.build(self.read_ts)))
+
+    def bounds(self, region) -> tuple:
+        from tikv_tpu_torch.codec.keys import decode_record_handle
+        from tikv_tpu_torch.storage.txn_types import decode_key
+        lo = decode_record_handle(decode_key(region.start_key)) \
+            if region.start_key else 0
+        hi = decode_record_handle(decode_key(region.end_key)) \
+            if region.end_key else self.n
+        return lo, hi
+
+    def serve(self, region, plan: str, warm: int = 2) -> dict:
+        """A cold and ``warm`` warm requests of ``plan`` on ``region``,
+        forced to the device, each answer against its truth → cold ms,
+        warm ms, the feed labels, the cold request's phases (ms)."""
+        from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+        self.region = region
+        lo, hi = self.bounds(region)
+        want = split_truth(lo, hi, plan)
+        dag = self.dag(plan)
+        times, labels, phases = [], [], None
+        for i in range(1 + warm):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = self.ep.handle(CopRequest(REQ_TYPE_DAG, dag,
+                                             force_backend="device"))
+            if plan == "sel":
+                got = np.asarray(resp.result.batch.columns[0].values)
+            else:
+                got = sorted(resp.rows(), key=lambda r: r[2])
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert resp.backend == "device", resp.backend
+            ok = np.array_equal(got, want) if plan == "sel" else got == want
+            assert ok, f"6c-split {plan} on [{lo}, {hi}): wrong answer"
+            labels.append(resp.tracker.labels.get("device_feed"))
+            if i == 0:
+                phases = {k: v / 1e6 for k, v in
+                          resp.tracker.phases.items()}
+        return {"cold_ms": times[0], "warm_ms": times[1:],
+                "labels": labels, "cold_phases_ms": phases}
+
+    def split(self, left, right, left_index=100, right_index=100) -> dict:
+        """The split in the reference's order → its host-clock wall and
+        phases, and the arena's resident bytes around it."""
+        before = self.runner.hbm_stats()["resident_bytes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.host.notify_region_split(left, right, left_index, right_index)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_split = self.runner.hbm_stats()["resident_bytes"]
+        allocated = torch.cuda.memory_allocated()
+        self.host.notify_region_changed(left)
+        t2 = time.perf_counter()
+        return {"split_ms": (t1 - t0) * 1e3,
+                # the stashed children are not in the arena until their
+                # first request takes them: parent and children are all
+                # on the card until the region change drops the parent
+                "stash_bytes": self.stash_bytes(),
+                "cuda_allocated_after_split": allocated,
+                "cuda_allocated_after_region_changed":
+                    torch.cuda.memory_allocated(),
+                "region_changed_ms": (t2 - t1) * 1e3,
+                "phases_ms": dict(self.sup.split_phases_ms,
+                                  **{f"runner_{k}": v for k, v in
+                                     self.runner.split_phases_ms.items()}),
+                "resident_bytes": {
+                    "before": before, "after_split": after_split,
+                    "after_region_changed":
+                        self.runner.hbm_stats()["resident_bytes"]}}
+
+    def stash_bytes(self) -> int:
+        return sum(sum(t.nbytes for t in c["feed"]["flat"])
+                   for line in self.cache._lines.values()
+                   if line.state is not None
+                   for c in line.state.lineage.split_stash or [])
+
+    def stash_left(self) -> int:
+        return sum(len(line.state.lineage.split_stash or [])
+                   for line in self.cache._lines.values()
+                   if line.state is not None)
+
+
+def run_split(runner, n_keys: int = SPLIT_KEYS) -> dict:
+    """Cell 6c-split: config 6c's region at ``n_keys``
+    keys built through the port cache (the builder substituted, see
+    ``SplitCell``) and minted on the card; the aggregation and the
+    selection warmed on it (cold + 2 warm each); split 1 at handle n/2
+    (epoch 2) through a ``CoprocessorHost``: ``notify_region_split(left,
+    right, 100, 100)``, then ``notify_region_changed(left)``; both plans on
+    both children (cold + 2 warm); split 2 of the right child at 90% of
+    its rows (an odd row: unaligned planes) and both plans on both of its
+    children; then the fallback route: a fresh parent split with
+    ``device::device_split`` armed, whose children rebuild their lines on
+    the host and upload.  Every answer against numpy; each child's first
+    request labelled ``split`` (``upload`` on the fallback route); no
+    ``columnar_build`` for a split child; every stash consumed, the parent
+    feeds gone from the arena; the supervisor's counts exactly as
+    expected; no degrade.  Counts from 0 before the path, read after."""
+    from tikv_tpu_torch.codec.keys import table_record_key
+    from tikv_tpu_torch.raftstore.metapb import Region, RegionEpoch
+    from tikv_tpu_torch.storage.txn_types import encode_key
+    from tikv_tpu_torch.utils import failpoint
+    t0 = time.perf_counter()
+    cell = SplitCell(runner, n_keys)
+    gen_s = time.perf_counter() - t0
+    n, tid = n_keys, cell.table.table_id
+
+    def key(h):
+        return encode_key(table_record_key(tid, h))
+
+    orig = cell._rc.build_region_columnar_ex
+    cell._rc.build_region_columnar_ex = cell.build
+    routes0 = dict(runner.feed_routes)
+    out = {"config": "6c-split", "keys": n, "generate_s": gen_s}
+    try:
+        set_counts({k: 0 for k in KERNELS})
+        parent = Region(1)
+        out["parent"] = {p: cell.serve(parent, p) for p in ("agg", "sel")}
+        parent_lineage = cell.cache._lines[next(iter(cell.cache._lines))] \
+            .state.lineage
+        assert [b[0] for b in cell.builds] == [1], cell.builds
+        # split 1: at handle n/2
+        mid = n // 2
+        left = Region(1, b"", key(mid), RegionEpoch(1, 2))
+        right = Region(2, key(mid), b"", RegionEpoch(1, 2))
+        out["split1"] = cell.split(left, right)
+        assert (cell.sup.splits, cell.sup.split_fallbacks) == (1, 0), \
+            cell.sup.stats()
+        assert runner._arena.bucket(parent_lineage, create=False) is None, \
+            "the parent feeds outlived the split"
+        for side, reg in (("left", left), ("right", right)):
+            out["split1"][side] = {p: cell.serve(reg, p) for p in
+                                   ("agg", "sel")}
+        # the smoke's cross-check of the fused digests: a child feed's
+        # planes re-hashed by plane_digest equal the split's record
+        child = next(iter(runner.resident_feeds(
+            cell.cache.get(cell.snap(right), cell.dag("sel"))).values()))
+        assert runner.scrub_feed(child) == [], "a split child's digests"
+        # split 2: the right child at 90% of its rows, an odd row
+        h2 = mid + (int(0.9 * (n - mid)) | 1)
+        cell.region = right
+        left2 = Region(2, key(mid), key(h2), RegionEpoch(1, 3))
+        right2 = Region(3, key(h2), b"", RegionEpoch(1, 3))
+        out["split2"] = cell.split(left2, right2)
+        out["split2"]["pos"] = h2 - mid
+        assert (cell.sup.splits, cell.sup.split_fallbacks) == (2, 0)
+        for side, reg in (("right", right2), ("left", left2)):
+            out["split2"][side] = {p: cell.serve(reg, p) for p in
+                                   ("agg", "sel")}
+        launches = counts()     # the split route's; the fallback adds
+        for name in ("split_planes", "mvcc_resolve", "plane_digest",
+                     "hash_agg", "sel_pred", "sel_compact"):
+            assert launches[name] > 0, f"6c-split never launched {name}"
+        assert launches["split_planes"] == 8, launches["split_planes"]
+        labels1 = [r["labels"][0] for s in ("left", "right")
+                   for r in out["split1"][s].values()]
+        labels2 = [r["labels"][0] for r in out["split2"]["right"].values()]
+        assert labels1 == ["split"] * 4 and labels2 == ["split"] * 2, \
+            (labels1, labels2)
+        assert [r["labels"][0] for r in out["split2"]["left"].values()] \
+            == ["split"] * 2
+        assert [b[0] for b in cell.builds] == [1], \
+            f"a split child ran columnar_build: {cell.builds}"
+        assert cell.stash_left() == 0, "a stash was not consumed"
+        routes = {k: v - routes0.get(k, 0) for k, v in
+                  runner.feed_routes.items() if v != routes0.get(k, 0)}
+        assert routes == {"device_resolve": 1, "upload": 1, "split": 8}, \
+            routes
+        out["feed_routes"] = routes
+        out["supervisor"] = {"splits": cell.sup.splits,
+                             "split_fallbacks": cell.sup.split_fallbacks}
+        # the fallback route: a fresh parent, split with the device split
+        # armed; its children rebuild on the host and upload
+        for rid in (1, 2, 3):
+            cell.cache.invalidate_region(rid)
+        fb = SplitCell(runner, n, (cell.table, cell.planes, cell.read_ts))
+        cell._rc.build_region_columnar_ex = fb.build
+        out["fallback"] = {"parent": {p: fb.serve(parent, p, warm=0)
+                                      for p in ("agg", "sel")}}
+        failpoint.cfg("device::device_split", "return")
+        try:
+            out["fallback"]["split"] = fb.split(left, right)
+        finally:
+            failpoint.teardown()
+        assert (fb.sup.splits, fb.sup.split_fallbacks) == (0, 1)
+        for side, reg in (("left", left), ("right", right)):
+            out["fallback"][side] = {p: fb.serve(reg, p) for p in
+                                     ("agg", "sel")}
+            assert [r["labels"][0] for r in
+                    out["fallback"][side].values()] == ["upload"] * 2
+        assert sorted(b[0] for b in fb.builds) == [1, 1, 2], fb.builds
+        assert cell.ep.degrades == {} and fb.ep.degrades == {}, \
+            (cell.ep.degrades, fb.ep.degrades)
+        out["fallback_supervisor"] = {
+            "splits": fb.sup.splits, "split_fallbacks": fb.sup.split_fallbacks}
+        out["launches"] = counts()
+    finally:
+        cell._rc.build_region_columnar_ex = orig
+        failpoint.teardown()
+    cold = {"split": [out["split1"][s][p]["cold_ms"] for s in
+                      ("left", "right") for p in ("agg", "sel")],
+            "fallback": [out["fallback"][s][p]["cold_ms"] for s in
+                         ("left", "right") for p in ("agg", "sel")]}
+    summary = {k: v for k, v in out.items() if k not in
+               ("parent", "split1", "split2", "fallback")}
+    summary.update(
+        split1={k: out["split1"][k] for k in
+                ("split_ms", "region_changed_ms", "phases_ms",
+                 "resident_bytes", "stash_bytes",
+                 "cuda_allocated_after_split",
+                 "cuda_allocated_after_region_changed")},
+        split2={k: out["split2"][k] for k in
+                ("pos", "split_ms", "phases_ms", "resident_bytes",
+                 "stash_bytes")},
+        child_cold_ms=cold,
+        child_warm_p50_ms={
+            s: {p: float(np.percentile(out["split1"][s][p]["warm_ms"], 50))
+                for p in ("agg", "sel")} for s in ("left", "right")},
+        parent_cold_ms={p: out["parent"][p]["cold_ms"]
+                        for p in ("agg", "sel")},
+        fallback_child_build_ms=[
+            out["fallback"][s][p]["cold_phases_ms"].get("columnar_build", 0)
+            for s in ("left", "right") for p in ("agg", "sel")])
+    print("split cell 6c-split: " + json.dumps(summary), flush=True)
+    del cell, fb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(summary, launches=out["launches"])
+
+
+def split_at_main_shape(runner, dev) -> dict:
+    """split_planes at 6c-split's split 1 shape: each child of 5·2^20 rows
+    over the selection feed's planes (id, c0, c1: int32 at 6c's values) of
+    the 10·2^20-row parent, against its plain version; CUDA events, queued
+    behind a device sleep, beside its bound (Σ_planes (n_child +
+    n_pad_child)·w + 8·P bytes at 3.35 TB/s), the plain version, and a
+    yardstick the port never calls: one ``copy_`` of the slice into a
+    zeroed child and one ``plane_digest`` a plane."""
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.device import split as sp
+    saved = counts()
+    n = SPLIT_KEYS
+    n_pad = runner._pad_rows(n)
+    h = torch.arange(n_pad, dtype=torch.int64, device=dev)
+    live = h < n
+    planes = [torch.where(live, x, 0).to(torch.int32).contiguous()
+              for x in (h, h % 1024, h % 1000)]
+    del h, live
+    out = {}
+    worst = 0
+    for right in (False, True):
+        pos = n // 2
+        n_child = n - pos if right else pos
+        n_pad_child = runner._pad_rows(n_child)
+        worst = max(worst, split_err(planes, pos, n_child, n_pad_child,
+                                     right, dev))
+        lo = pos if right else 0
+        dst = [torch.zeros(n_pad_child, dtype=x.dtype, device=dev)
+               for x in planes]
+
+        def yardstick():
+            for x, y in zip(planes, dst):
+                y[:n_child].copy_(x[lo:lo + n_child])
+                dg.plane_digest(y, 0, n_child)
+        nbytes = sum((n_child + n_pad_child) * x.element_size()
+                     for x in planes) + 8 * len(planes)
+        out["right" if right else "left"] = {
+            "ms": cuda_ms(lambda: sp.split_planes(
+                planes, pos, n_child, n_pad_child, right), 20, queued=True),
+            "plain_ms": cuda_ms(lambda: sp.split_planes_plain(
+                planes, pos, n_child, n_pad_child, right), 3),
+            "yardstick_ms": cuda_ms(yardstick, 20),
+            "yardstick": "copy_ of the slice into a zeroed child + "
+                         "plane_digest, a plane",
+            "library_ms": None, **bound_ms(nbytes, 0),
+            "bytes": nbytes, "planes": len(planes), "n_child": n_child,
+            "n_pad_child": n_pad_child, "pos": pos}
+        del dst
+    set_counts(saved)
+    assert worst == 0, "split_planes disagrees at the main shape"
+    print("split_planes at 6c-split's shape: " + json.dumps(out),
+          flush=True)
+    del planes
+    torch.cuda.empty_cache()
+    return dict(out["right"], configs=out, max_abs_err=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4145,14 +4727,14 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    build_kernels()
+    t0 = time.perf_counter()
+    # the selection source compiles for minutes: the other kernels' checks
+    # run meanwhile, and none of them loads it
+    build_kernels(defer=("selection",))
 
     dev = torch.device("cuda", 0)
     worst = {"hash_agg": check_kernels(dev, 1 << 24),
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
-    worst["sel_pred"] = check_pred(dev)
-    worst["sel_pred_batched"] = check_batched(dev)
-    worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
     worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
@@ -4160,16 +4742,31 @@ def main() -> int:
     worst["sort_perm"] = worst["join_build"] = check_sort(dev)
     worst["join_probe"] = worst["join_index"] = check_join(dev)
     worst["window_scan"] = check_window(dev)
+    worst["split_planes"] = check_split(dev)
+    print(f"elapsed: {time.perf_counter() - t0:.1f} s at the selection "
+          f"build's wait", flush=True)
+    await_builds()
+    print(f"elapsed: {time.perf_counter() - t0:.1f} s after it", flush=True)
+    worst["sel_pred"] = check_pred(dev)
+    worst["sel_pred_batched"] = check_batched(dev)
+    worst["sel_mask"], worst["sel_compact"] = check_selection(dev)
+
+    def elapsed(what: str) -> None:
+        print(f"elapsed: {time.perf_counter() - t0:.1f} s {what}",
+              flush=True)
 
     runner = DeviceRunner()
+    elapsed("before the DAG configs")
     runs = [run_config(c, SIZES[c], runner) for c in SIZES]
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
     runs.append(run_uncovered(runner))
     worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
+    elapsed("before the cold path")
     cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
     snap6c = cold["6c"].pop("snapshot")
     runs += cold.values()
+    elapsed("before the plan IR")
     ep, pair = plan_endpoint(runner)
     runs += [run_plan(c, ep, pair) for c in PLAN_ROUTE]
     worst["analyze"] = check_analyze(dev)
@@ -4177,8 +4774,13 @@ def main() -> int:
     runs.append(run_analyze("an6c", runner, snap6c._tbl.table, snap6c))
     del snap6c
     run_checksum()
+    elapsed("before the serving path")
+    check_budget(dev)
     runs.append(run_deferred(runner))
     runs += run_6b_ep(runner)
+    elapsed("before the split")
+    runs.append(run_split(runner))
+    elapsed("before the kernel timings")
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
           + "; ".join(f"config {r['config']}: " + " ".join(
@@ -4199,6 +4801,9 @@ def main() -> int:
                                              "5t": pred_timing_5t})
     err, fold_timing = fold_at_main_shapes(runner, dev)
     worst["agg_fold"] = max(worst["agg_fold"], err)
+    split_timing = split_at_main_shape(runner, dev)
+    worst["split_planes"] = max(worst["split_planes"],
+                                split_timing.pop("max_abs_err"))
 
     kernels = [
         {"name": "hash_agg", "route": "cuda",
@@ -4282,7 +4887,14 @@ def main() -> int:
                     "library_ms", "library_call", "rows", "dtype",
                     "passes")},
         "configs": analyze_timing})
+    kernels.append({
+        "name": "split_planes", "route": "cuda",
+        "source": "tikv_tpu_torch/csrc/split.cu",
+        "replaces": "tikv_tpu/device/runner.py:2168",
+        "launches": launches["split_planes"],
+        "max_abs_err": worst["split_planes"], **split_timing})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
+    elapsed("in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ under it, the selection, top-k and ANALYZE modules included, and
 aggregation, a selection, an index-scan top-k, a join plan, an ANALYZE
 and a CHECKSUM request through the endpoint loads neither, nor does
 serving selections and aggregations through ``Endpoint.handle_async``
-with a bound ``RequestCoalescer``, and nothing falls back to the CPU
-without being asked."""
+with a bound ``RequestCoalescer``, nor a region split served end to end,
+and nothing falls back to the CPU without being asked."""
 
 import ast
 import os
@@ -141,6 +141,70 @@ def test_coalesced_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "coalesced 5"
+
+
+_SERVE_SPLIT = """
+import sys
+import numpy as np
+from tikv_tpu_torch.codec.keys import table_record_key
+from tikv_tpu_torch.convert import engine_from_triples
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.region_cache import RegionColumnarCache
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+from tikv_tpu_torch.raftstore.metapb import Region, RegionEpoch
+from tikv_tpu_torch.raftstore.observer import CoprocessorHost
+from tikv_tpu_torch.raftstore.peer import RegionSnapshot
+from tikv_tpu_torch.storage.txn_types import encode_key
+from tikv_tpu_torch.testing import mvcc as tm
+from tikv_tpu_torch.testing.dag import DagSelect
+table = tm.table_6c()
+h = np.arange(2000, dtype=np.int64)
+ones = np.ones(2000, np.bool_)
+ev = tm.Event(100, tm.WT_PUT, h, {2: (h % 7, ones), 3: (h % 1000, ones)})
+engine = engine_from_triples(tm.kv_history(table.table_id, h, [ev]))
+runner = DeviceRunner(device="cpu")
+cache = RegionColumnarCache()
+host = CoprocessorHost()
+sup = DeviceStateSupervisor(runner, cache)
+host.register(sup)
+region = [Region(1)]
+def provider(req):
+    rs = RegionSnapshot(engine.snapshot(), region[0])
+    rs.data_index = 100
+    return cache.get(rs, req.dag)
+ep = Endpoint(provider, runner, device_row_threshold=1)
+s = DagSelect.from_table(table, ["id", "c0", "c1"])
+dag = s.aggregate([s.col("c0")], [("count_star", None)]).build(200)
+def counts():
+    r = ep.handle(CopRequest(REQ_TYPE_DAG, dag, force_backend="device"))
+    return sum(row[0] for row in r.rows()), r.tracker.labels["device_feed"]
+assert counts() == (2000, "upload")
+sk = encode_key(table_record_key(table.table_id, 1234))
+left = Region(1, b"", sk, RegionEpoch(1, 2))
+right = Region(2, sk, b"", RegionEpoch(1, 2))
+host.notify_region_split(left, right, 100, 100)
+host.notify_region_changed(left)
+got = []
+for region[0] in (left, right):
+    got.append(counts())
+assert got == [(1234, "split"), (766, "split")], got
+assert sup.splits == 1 and runner.feed_routes["split"] == 2
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("split", sup.splits)
+"""
+
+
+def test_split_serving_loads_no_jax():
+    """A region split served end to end — engine, region snapshot, cache
+    line, endpoint, the observer host's split and the children's
+    requests — loads neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_SPLIT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "split 1"
 
 
 def test_runner_refuses_to_start_without_cuda(monkeypatch):

@@ -265,7 +265,7 @@ def _ref_feed(ref, rplanes, rinfos, dtypes, read_ts, spill=None,
 def _port_feed(port, snap, infos, dtypes, n):
     """The port's minted feed of ``snap``'s bundle (as the runner's feed
     miss mints it)."""
-    bundle = snap.feed_lineage.take_cold()
+    bundle = snap.feed_lineage.take_cold(snap.feed_version)
     return bundle.mint(port, list(infos), list(dtypes), n,
                        port._pad_rows(n))
 
@@ -311,7 +311,7 @@ def test_minted_feed_matches_reference_mint_and_upload(ref, port, case):
     assert rn == n
     _same_feed(got, want)
     _same_feed(got, port._build_flat(_host_cols(tbl, infos, dtypes), n))
-    assert snap.feed_lineage.take_cold() is None    # one-shot
+    assert snap.feed_lineage.take_cold(snap.feed_version) is None  # one-shot
 
 
 @pytest.mark.parametrize("chunks", (1, 4, 9))
@@ -576,7 +576,7 @@ def test_cold_requests_match_reference_runner(ref, port, config):
     tt = tm.truth_table(pt, th, truth, tm.ETS_INT)
     want_rows, scales = configs.truth("4", tt)
     assert configs.rows_agree(rows[0], want_rows, scales, 1e-9)
-    feed = port._snaps[snap]["feeds"][next(iter(port._snaps[snap]["feeds"]))]
+    feed = next(iter(port.resident_feeds(snap).values()))
     assert port.scrub_feed(feed) == []
     port.corrupt_resident_plane(feed, len(feed["flat"]) - 1)
     assert port.scrub_feed(feed) == [len(feed["flat"]) - 1]
@@ -614,7 +614,8 @@ def test_refused_scans_upload_and_drop_the_bundle(ref, port, scan):
     assert port.feed_routes.get("upload", 0) == before.get("upload", 0) + 1
     assert port.feed_routes.get("device_resolve", 0) == \
         before.get("device_resolve", 0)
-    assert snap.feed_lineage.take_cold() is None and bundle.consumed
+    assert snap.feed_lineage.take_cold(snap.feed_version) is None and \
+        bundle.consumed
     # the answers equal those of a snapshot that never had a bundle
     plain = MvccColumnarSnapshot(tbl, read_ts, safe)
     assert port.handle_request(dag, snap).rows() == \
@@ -636,7 +637,7 @@ snap = MvccColumnarSnapshot(tbl, read_ts, safe, bundle)
 rows = runner.handle_request(agg, snap).rows()
 assert sum(r[0] for r in rows) == len(tbl), rows
 assert runner.feed_routes == {"device_resolve": 1}, runner.feed_routes
-feed = next(iter(runner._snaps[snap]["feeds"].values()))
+feed = next(iter(runner.resident_feeds(snap).values()))
 assert runner.scrub_feed(feed) == []
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]

@@ -256,11 +256,13 @@ def test_warm_request_reuses_the_feed(port):
     pdag = convert.dag_from_wire(wire.enc_dag(dag))
     psnap = port_snapshot(dag_table(dag), snap)
     assert port.handle_request(pdag, psnap).rows() == truth
-    feeds = dict(port._snaps[psnap]["feeds"])
-    meta = port._snaps[psnap]["meta"][(pdag.plan_key(), pdag.ranges)]
+    feeds = port.resident_feeds(psnap)
+    bucket = port._arena.bucket(port._feed_anchor(psnap), create=False)
+    meta = bucket[("meta", pdag.plan_key(), pdag.ranges,
+                   port._feed_version(psnap))]
     assert "sparse_slots" in meta and len(feeds) == 1
     assert port.handle_request(pdag, psnap).rows() == truth
-    (key, feed), = port._snaps[psnap]["feeds"].items()
+    (key, feed), = port.resident_feeds(psnap).items()
     assert feed is feeds[key]
 
 
@@ -674,3 +676,58 @@ def test_int_arithmetic_route_follows_the_bounds_proof(arg, ref, port,
                      else ["twolevel_fused"])
     if arg == "v_times_3":
         assert ref.handle_request(dag, snap).rows() == truth
+
+
+def test_feed_budget_skips_a_pinned_in_flight_anchor():
+    """``hbm_budget_bytes`` on both runners, the same call sequence, with
+    room for one feed: while a deferred request on snapshot A pins A's
+    feed, B's feed is refused (A is not evicted); after A's fetch, B's
+    next request evicts A.  Answers stay right throughout."""
+    table, snap_a, dag = ref_config("3")
+    _t, snap_b, _d = ref_config("3")
+    truth, scales = configs.truth("3", port_snapshot(table, snap_a))
+    pdag = convert.dag_from_wire(wire.enc_dag(dag))
+    keys = ("resident_lines", "pinned_lines", "evictions", "rejections")
+
+    def ref_runner(budget):
+        return RefRunner(mesh=make_mesh(jax.devices()[:1]),
+                         hbm_budget_bytes=budget)
+
+    def port_runner(budget):
+        return DeviceRunner(device="cpu", hbm_budget_bytes=budget)
+
+    seen = []
+    for make, d, a, b in (
+            (ref_runner, dag, snap_a, snap_b),
+            (port_runner, pdag, port_snapshot(table, snap_a),
+             port_snapshot(table, snap_b))):
+        probe = make(0)
+        probe.handle_request(d, a)
+        one = probe.hbm_stats()["resident_bytes"]
+        assert one > 0
+        runner = make(one + one // 2)
+        assert runner.hbm_stats()["budget_bytes"] == one + one // 2
+        steps = []
+
+        def note(runner=runner, steps=steps):
+            st = runner.hbm_stats()
+            assert st["resident_bytes"] <= one + one // 2
+            steps.append(tuple(st[k] for k in keys))
+
+        pending = runner.handle_request(d, a, deferred=True)
+        note()
+        got_b = runner.handle_request(d, b).rows()      # refused a place
+        note()
+        assert runner._arena.bucket(a, create=False) is not None
+        assert runner._arena.bucket(b, create=False) is None
+        got_a = pending.result().rows()                 # unpins A
+        note()
+        runner.handle_request(d, b)                     # evicts A
+        note()
+        assert runner._arena.bucket(a, create=False) is None
+        assert runner._arena.bucket(b, create=False) is not None
+        for rows in (got_a, got_b):
+            assert configs.rows_agree(rows, truth, scales, 1e-6)
+        seen.append(steps)
+    assert seen[0] == seen[1] == [(1, 1, 0, 0), (1, 1, 0, 1),
+                                  (1, 0, 0, 1), (1, 0, 1, 1)]

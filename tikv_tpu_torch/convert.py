@@ -12,7 +12,11 @@ For this system the state a request runs against is a table snapshot
   either package (the JAX package's ``server/wire.py``);
 - ``write_planes_from_arrays(...)``: the version planes of one CF_WRITE
   range (the fields of the JAX package's ``device.mvcc.WritePlanes``), the
-  input of the cold build (``copr.region_cache``).
+  input of the cold build (``copr.region_cache``);
+- ``engine_from_triples(triples)``: a ``MemoryEngine`` holding the
+  ``(cf, key, value)`` byte triples of any producer's engine (MVCC records
+  encoded by either package's ``txn_types``), which the columnar cache
+  builds its lines from.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from .copr.dag import DAGRequest
 from .copr.wire import dec_dag, dec_field_type, dec_plan
 from .datatype import Column, EvalType
 from .device.mvcc import WritePlanes
+from .engine.memory import MemoryEngine
 from .executors.columnar import ColumnarTable
 from .testing.fixture import Table, TableColumn
 
@@ -78,3 +83,16 @@ def write_planes_from_arrays(n_ver: int, n_keys: int, table_id: int,
         np.asarray(seg_start, np.int64), planes,
         [(int(r), int(s), bytes(k)) for r, s, k in need_default],
         tuple(int(c) for c in (col_ids or planes)))
+
+
+def engine_from_triples(triples, engine: Optional[MemoryEngine] = None
+                        ) -> MemoryEngine:
+    """Write ``(cf, key, value)`` byte triples (engine keys, data prefix
+    included) into ``engine`` (a new ``MemoryEngine`` by default) in one
+    batch → the engine."""
+    engine = MemoryEngine() if engine is None else engine
+    wb = engine.write_batch()
+    for cf, key, value in triples:
+        wb.put_cf(cf, bytes(key), bytes(value))
+    engine.write(wb)
+    return engine

@@ -1,28 +1,140 @@
-"""The cold build of a region's columnar snapshot from its MVCC versions.
+"""Per-region MVCC columnar cache — the scan→device feed for real data.
 
-Counterpart of the JAX package's ``copr/region_cache.py``, trimmed to the
-device rung of its build ladder (``_build_device``, :296-397) from the
-parsed version planes on, and to the snapshot it yields:
+Counterpart of the JAX package's ``copr/region_cache.py``.  A region's
+table slice is resolved from its MVCC versions once per data version and
+kept as columnar arrays (a cache line), which both the host pipeline and
+the device runner read:
 
-- ``build_region_columnar_device``: the host mirror of the resolution
-  (the snapshot's rows, host truth) and the ``ColdFeedBundle`` from which
-  the runner's first feed miss mints the feed on the device;
-- ``MvccColumnarSnapshot``: the columnar view at one read timestamp, with a
-  ``FeedLineage`` that carries the bundle to the runner.
+- the build ladder: ``build_region_columnar`` (the interpreted rung over
+  ``MvccReader``: one MVCC pass over the region ∩ table record range) and
+  ``build_region_columnar_ex`` (its device rung declines while the native
+  parse of a CF_WRITE range is not ported, so the host ladder takes over,
+  as the reference's does when its rung refuses);
+  ``build_region_columnar_device``: the device rung from the parsed
+  version planes on — the host mirror of the resolution and the
+  ``ColdFeedBundle`` from which the runner's first feed miss mints the
+  feed on the device;
+- ``MvccColumnarSnapshot``: the columnar view at one read timestamp, with
+  its blocking locks (``check_locks``) and the ``FeedLineage`` that
+  anchors the runner's device feeds;
+- ``FeedLineage``: the line's identity for the device — a patch journal
+  (``record``/``since``), the digests the runner recorded per feed, the
+  one-shot cold bundle, and the split stash: the child feeds a device
+  split sliced from the parent, for the child's first request;
+- ``RegionColumnarCache``: lines keyed (region, epoch version, table,
+  columns) and stamped with ``data_index``; ``get`` hits or builds.
+  Lifecycle: ``invalidate_region`` drops a region's superseded lines
+  (an epoch floor and a sweep generation fence builds in flight), every
+  retired line goes to ``on_line_retired`` (the device supervisor drops
+  its feeds), and ``split_lines`` serves a region split by slicing each
+  parent line into two child lines with fresh lineages — no
+  ``columnar_build`` — for the runner to slice the resident parent feeds
+  the same way (``DeviceRunner.split_resident_feeds``).
 
-Not ported yet (ROADMAP.md queue 1 items 6 and 8): the snapshot read of
-the CF_WRITE range, its native parse into planes, the streaming ingest,
-the delta journal of the lineage, the lock check and the host rungs.
+Trimmed (ROADMAP.md queue 1 item 6): the delta bridge (``_bridge``,
+``_apply_deltas``), so a line whose data version moved is rebuilt and a
+parent line behind ``left_index`` gives no split spec (that split falls
+back to the rebuild, as the reference's own fallback does); the line
+history and the parked below-safe_ts builds' reuse; the re-mint governor
+and region heat; ``get_fast``; the gauges and metrics.  Not ported (queue
+1 item 8): the native parse and the snapshot read of the CF_WRITE range,
+the streaming ingest.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ..codec.keys import decode_record_handle, table_record_range
+from ..codec.row import decode_row
+from ..datatype import Column
+from ..engine.traits import CF_LOCK, CF_WRITE
 from ..executors.columnar import ColumnarTable
+from ..storage.mvcc.reader import (_PAST_VERSIONS, MvccReader,
+                                   check_lock_conflict)
+from ..storage.txn_types import Lock, LockType, decode_key, encode_key, \
+    split_ts
+
+
+class _TableShim:
+    """Minimal ``table`` carrier for ColumnarTable (table_id only)."""
+
+    __slots__ = ("table_id",)
+
+    def __init__(self, table_id: int):
+        self.table_id = table_id
+
+
+def _scan_blocking_locks(snap, lower: bytes, upper: bytes) -> list:
+    """(user key, Lock) of every PUT/DELETE lock in [lower, upper)."""
+    blocking_locks: list = []
+    lit = snap.iterator_cf(CF_LOCK, lower, upper)
+    ok = lit.seek_to_first()
+    while ok:
+        lock = Lock.from_bytes(lit.value())
+        if lock.lock_type in (LockType.PUT, LockType.DELETE):
+            blocking_locks.append((decode_key(lit.key()), lock))
+        ok = lit.next()
+    return blocking_locks
+
+
+def build_region_columnar(snap, table_id: int, col_infos: Sequence,
+                          read_ts: int):
+    """One MVCC pass over the region ∩ table record range (the interpreted
+    rung; the native one-pass build is not ported).
+
+    → (ColumnarTable, safe_ts, blocking_locks).  Pending locks are
+    recorded, not raised: the committed version set is independent of
+    them; each request checks the locks in its own ranges at serve time."""
+    lo, hi = table_record_range(table_id)
+    lower, upper = encode_key(lo), encode_key(hi)
+    blocking_locks = _scan_blocking_locks(snap, lower, upper)
+    reader = MvccReader(snap)
+    handles: list = []
+    rows: list = []
+    safe_ts = 0
+    it = snap.iterator_cf(CF_WRITE, lower, upper)
+    ok = it.seek_to_first()
+    while ok:
+        cur, commit_ts = split_ts(it.key())
+        # versions sort newest first, so this is the key's max commit_ts
+        if commit_ts > safe_ts:
+            safe_ts = commit_ts
+        # version visibility lives in one place: the MVCC reader
+        value = reader._resolve(cur, read_ts)
+        if value is not None:
+            handles.append(decode_record_handle(decode_key(cur)))
+            rows.append(decode_row(value) if value else {})
+        ok = it.seek(cur + _PAST_VERSIONS)
+    columns: dict = {}
+    for info in col_infos:
+        if info.is_pk_handle:
+            continue
+        vals = [row.get(info.col_id, info.default_value) for row in rows]
+        columns[info.col_id] = Column.from_list(
+            info.field_type.eval_type, vals,
+            unsigned=info.field_type.is_unsigned)
+    tbl = ColumnarTable(_TableShim(table_id),
+                        np.asarray(handles, dtype=np.int64), columns)
+    return tbl, safe_ts, blocking_locks
+
+
+def build_region_columnar_ex(snap, table_id: int, col_infos: Sequence,
+                             read_ts: int, device_resolver=None):
+    """The ladder entry with the device rung → (ColumnarTable, safe_ts,
+    blocking_locks, ColdFeedBundle or None).
+
+    The device rung needs the CF_WRITE range parsed into version planes,
+    whose native parse is not ported (ROADMAP.md queue 1 item 8): it
+    declines, and the module's ``build_region_columnar`` serves — looked
+    up at call time, so a caller substituting a builder keeps its seam."""
+    tbl, safe_ts, locks = build_region_columnar(snap, table_id, col_infos,
+                                                read_ts)
+    return tbl, safe_ts, locks, None
 
 
 def build_region_columnar_device(planes, table, col_infos: Sequence,
@@ -79,48 +191,45 @@ def build_region_columnar_device(planes, table, col_infos: Sequence,
     return tbl, int(planes.safe_ts), bundle
 
 
-class FeedLineage:
-    """What a snapshot hands the runner beside its rows: the one-shot cold
-    bundle (the reference's lineage also journals deltas; not ported)."""
-
-    __slots__ = ("cold_bundle", "_mu")
-
-    def __init__(self):
-        self.cold_bundle = None
-        self._mu = threading.Lock()
-
-    def stash_cold(self, bundle) -> None:
-        with self._mu:
-            old, self.cold_bundle = self.cold_bundle, bundle
-        if old is not None:
-            old.release()
-
-    def take_cold(self):
-        """Pop the cold bundle (one-shot), or None."""
-        with self._mu:
-            b, self.cold_bundle = self.cold_bundle, None
-        return b
-
-    def drop_cold(self) -> None:
-        b = self.take_cold()
-        if b is not None:
-            b.release()
-
-
 class MvccColumnarSnapshot:
-    """Columnar view of one region's table slice at a pinned read_ts: the
-    scan feed of the runner (``scan_columns``, ``count_rows``,
-    ``gather_rows``) over the host mirror, and the ``feed_lineage`` that
-    carries a cold bundle to the runner's first feed miss."""
+    """Columnar view of one region's table slice at a pinned data version:
+    the scan feed of the runner (``scan_columns``, ``count_rows``,
+    ``gather_rows``) over the host arrays.
+
+    ``feed_lineage``: the runner's feed anchor — the line's lineage for a
+    snapshot the cache published, else one of the snapshot's own, which
+    carries ``bundle`` (a cold build's resolve artifacts) to the runner's
+    first feed miss.  ``feed_version``: the lineage version this
+    snapshot's data reflects."""
 
     def __init__(self, tbl: ColumnarTable, build_ts: int, safe_ts: int,
-                 bundle=None):
+                 bundle=None, blocking_locks: Sequence = ()):
         self._tbl = tbl
         self.build_ts = build_ts
         self.safe_ts = safe_ts
+        self.blocking_locks = tuple(blocking_locks)
         self.feed_lineage = FeedLineage()
+        self.feed_version: Optional[int] = self.feed_lineage.version
         if bundle is not None:
             self.feed_lineage.stash_cold(bundle)
+
+    def valid_for(self, read_ts: int) -> bool:
+        """Both this build and a read at ``read_ts`` see the newest
+        committed version of every key (or the read is the build's own
+        timestamp)."""
+        if read_ts == self.build_ts:
+            return True
+        return read_ts >= self.safe_ts and self.build_ts >= self.safe_ts
+
+    def check_locks(self, ranges, read_ts: int, bypass_locks=()) -> None:
+        """Range-scoped conflict check, as ``MvccReader.scan``'s: only
+        locks inside the request's ranges can block it (raises
+        ``KeyIsLocked``)."""
+        for key, lock in self.blocking_locks:
+            for r in ranges:
+                if r.start <= key < r.end:
+                    check_lock_conflict(lock, key, read_ts, bypass_locks)
+                    break
 
     def scan_columns(self, desc, ranges):
         return self._tbl.scan_columns(desc, ranges)
@@ -137,3 +246,512 @@ class MvccColumnarSnapshot:
 
     def estimated_rows(self) -> int:
         return len(self._tbl)
+
+
+class FeedLineage:
+    """Bounded patch journal with a stable identity across the data
+    generations of one cache line: the device runner anchors its feeds on
+    it.  ``since`` gives the patches between two versions, or None when
+    the journal no longer covers them (the feed then re-uploads).
+
+    ``feed_digests``: {feed key: (version, per-plane digests)} the runner
+    records at each feed build; ``region_hint``: the line's region;
+    ``cold_bundle``: a cold device build's one-shot resolve artifacts;
+    ``split_stash``: on a split child's lineage, the digest-verified child
+    feeds the device split sliced from the parent's resident planes, each
+    consumed by the first request of its shape."""
+
+    __slots__ = ("version", "_base", "_patches", "_max", "_mu",
+                 "feed_digests", "region_hint", "cold_bundle",
+                 "split_stash", "__weakref__")
+
+    def __init__(self, max_patches: int = 64):
+        self.version = 0
+        self._base = 0          # version the oldest retained patch starts at
+        self._patches: list = []
+        self._max = max_patches
+        self._mu = threading.Lock()
+        self.feed_digests: dict = {}
+        self.region_hint = None
+        self.cold_bundle = None
+        self.split_stash = None
+
+    def stash_cold(self, bundle) -> None:
+        bundle.lineage_v = self.version
+        with self._mu:
+            old, self.cold_bundle = self.cold_bundle, bundle
+        if old is not None:
+            old.release()
+
+    def take_cold(self, version):
+        """Pop the cold bundle iff it still reflects ``version`` (one-shot;
+        a stale bundle is released, never served)."""
+        with self._mu:
+            b, self.cold_bundle = self.cold_bundle, None
+        if b is None:
+            return None
+        if getattr(b, "lineage_v", -1) != version:
+            b.release()
+            return None
+        return b
+
+    def drop_cold(self) -> None:
+        with self._mu:
+            b, self.cold_bundle = self.cold_bundle, None
+        if b is not None:
+            b.release()
+
+    def record(self, patch: dict) -> None:
+        with self._mu:
+            self._patches.append(patch)
+            self.version += 1
+            while len(self._patches) > self._max:
+                self._patches.pop(0)
+                self._base += 1
+            stale, self.cold_bundle = self.cold_bundle, None
+        if stale is not None:
+            stale.release()     # the line moved on before the mint
+
+    def since(self, version: int, until: Optional[int] = None):
+        """Patches bridging ``version`` → ``until`` (default: current),
+        oldest first, or None when the journal no longer covers that
+        span."""
+        with self._mu:
+            top = self.version if until is None else until
+            if top > self.version or version > top or \
+                    version < self._base:
+                return None
+            return list(self._patches[version - self._base:
+                                      top - self._base])
+
+
+class _LineState:
+    """The arrays behind one cache line, with slack capacity past the live
+    rows ``n`` (the delta bridge that fills it is not ported)."""
+
+    __slots__ = ("table_id", "col_meta", "cap", "n", "n_dead", "handles",
+                 "cols", "alive", "locks", "safe_ts", "build_ts",
+                 "lineage")
+
+    SLACK_MIN = 256
+
+    def __init__(self, table_id: int, col_infos: Sequence, tbl,
+                 safe_ts: int, build_ts: int, blocking_locks):
+        self.table_id = table_id
+        # col_id -> (eval_type, default_value) for non-pk columns
+        self.col_meta = {info.col_id: (info.field_type.eval_type,
+                                       info.default_value)
+                         for info in col_infos if not info.is_pk_handle}
+        n = len(tbl.handles)
+        self.n = n
+        self.n_dead = 0
+        self.cap = n + max(self.SLACK_MIN, n >> 3)
+        self.handles = np.empty(self.cap, np.int64)
+        self.handles[:n] = tbl.handles
+        self.cols: dict = {}
+        for col_id, col in tbl.columns.items():
+            vals = np.empty(self.cap, dtype=col.values.dtype)
+            vals[:n] = col.values
+            valid = np.zeros(self.cap, np.bool_)
+            valid[:n] = col.validity
+            self.cols[col_id] = [vals, valid]
+        self.alive = None
+        self.locks = {key: lock for key, lock in blocking_locks}
+        self.safe_ts = safe_ts
+        self.build_ts = max(build_ts, safe_ts)
+        self.lineage = FeedLineage()
+
+    def publish(self) -> MvccColumnarSnapshot:
+        """The snapshot of the live rows, anchored on the line's
+        lineage."""
+        n = self.n
+        columns = {cid: Column(self.col_meta[cid][0], bufs[0][:n],
+                               bufs[1][:n])
+                   for cid, bufs in self.cols.items()}
+        alive = self.alive[:n] if self.alive is not None else None
+        tbl = ColumnarTable(_TableShim(self.table_id), self.handles[:n],
+                            columns, alive)
+        snap = MvccColumnarSnapshot(tbl, self.build_ts, self.safe_ts,
+                                    blocking_locks=sorted(
+                                        self.locks.items()))
+        snap.feed_lineage = self.lineage
+        snap.feed_version = self.lineage.version
+        return snap
+
+
+class _Line:
+    __slots__ = ("key", "data_index", "snap", "state", "parked", "mu")
+
+    def __init__(self, key, data_index, snap, state):
+        self.key = key
+        self.data_index = data_index
+        self.snap = snap
+        self.state = state
+        self.parked: OrderedDict = OrderedDict()
+        self.mu = threading.Lock()
+
+
+class RegionColumnarCache:
+    """LRU of columnar lines keyed by (region, epoch version, table,
+    columns), each stamped with the ``data_index`` it was built at.
+
+    Thread-safe: a build for one (line, data version) runs outside the
+    global lock, and concurrent requests for it wait on its event."""
+
+    def __init__(self, capacity: int = 8):
+        self._lines: OrderedDict = OrderedDict()
+        self._capacity = capacity
+        self._lock = threading.Lock()
+        # (base_key, data_index) -> threading.Event of an in-flight build
+        self._building: dict = {}
+        self.hits = 0
+        self.misses = 0         # builds
+        self.rebuilds = 0       # builds that replaced a line's state
+        self.invalidations = 0  # lines dropped by lifecycle events
+        self.device_builds = 0  # builds that came with a cold bundle
+        self.splits = 0         # parent lines sliced into child lines
+        self.device_resolver = None
+        # epoch fence: region id -> lowest epoch version still allowed to
+        # cache (a build racing a split must not re-insert a superseded
+        # epoch's line after invalidate_region swept it)
+        self._epoch_floor: dict = {}
+        # sweep-generation fence for same-epoch invalidations: a build
+        # that started before the sweep serves, but does not cache
+        self._sweep_gen: dict = {}
+        # retirement hook, called with each dropped line's FeedLineage
+        # (the device supervisor drops the line's device feeds)
+        self.on_line_retired = None
+
+    # -- observability ------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            lines = [{
+                "region": key[0], "epoch": key[1], "table": key[2],
+                "data_index": line.data_index,
+                "rows": line.state.n if line.state else 0,
+                "feed_version": line.state.lineage.version
+                if line.state else 0,
+                "digest_feeds": len(line.state.lineage.feed_digests)
+                if line.state else 0,
+            } for key, line in self._lines.items()]
+        return {"hits": self.hits, "misses": self.misses,
+                "rebuilds": self.rebuilds,
+                "invalidations": self.invalidations,
+                "device_builds": self.device_builds, "splits": self.splits,
+                "resident_lines": len(lines), "lines": lines}
+
+    # -- lifecycle teardown -------------------------------------------
+
+    def _retire(self, line) -> None:
+        """Hand the dropped line's lineage to the retirement hook.  Never
+        raises: teardown runs on apply paths."""
+        lineage = line.state.lineage if line is not None and \
+            line.state is not None else None
+        if lineage is not None:
+            lineage.drop_cold()
+        cb = self.on_line_retired
+        if cb is not None and lineage is not None:
+            try:
+                cb(lineage)
+            except Exception:   # noqa: BLE001 — teardown is best-effort
+                import logging
+                logging.getLogger(__name__).warning(
+                    "cache line retirement hook failed", exc_info=True)
+
+    def invalidate_region(self, region_id: int,
+                          keep_epoch: Optional[int] = None) -> int:
+        """Drop ``region_id``'s lines now → how many.  A split, merge or
+        epoch change passes ``keep_epoch``, the surviving epoch version
+        (its lines, split children among them, stay; older epochs are
+        fenced by the epoch floor); a snapshot apply or peer destroy drops
+        every line and bumps the sweep generation."""
+        dropped = []
+        with self._lock:
+            if keep_epoch is not None:
+                floor = max(self._epoch_floor.pop(region_id, 0),
+                            keep_epoch)
+                self._epoch_floor[region_id] = floor
+                while len(self._epoch_floor) > 4096:
+                    self._epoch_floor.pop(next(iter(self._epoch_floor)))
+            else:
+                gen = self._sweep_gen.pop(region_id, 0) + 1
+                self._sweep_gen[region_id] = gen
+                while len(self._sweep_gen) > 4096:
+                    self._sweep_gen.pop(next(iter(self._sweep_gen)))
+            for key in list(self._lines):
+                if key[0] != region_id:
+                    continue
+                if keep_epoch is not None and key[1] == keep_epoch:
+                    continue
+                dropped.append(self._lines.pop(key))
+            self.invalidations += len(dropped)
+        for line in dropped:
+            self._retire(line)
+        return len(dropped)
+
+    # -- device-side region split -------------------------------------
+
+    def split_lines(self, left, right, left_index: Optional[int],
+                    right_index: Optional[int]) -> list:
+        """Serve a region split by slicing the parent's lines (epoch
+        ``left.epoch.version − 1``) into child lines at the children's
+        epochs: no ``columnar_build``, exact ``data_index`` stamps, fresh
+        lineages.  The parent lines are not retired here; the
+        ``invalidate_region(left.id, keep_epoch=...)`` sweep that follows
+        does that, after the runner sliced the resident parent feeds.
+
+        → one spec per sliced parent line for
+        ``DeviceRunner.split_resident_feeds``: {parent_lineage,
+        parent_version, pos, n_parent, left: {lineage, n, state} or None,
+        right: ...}."""
+        if left_index is None:
+            return []
+        old_epoch = left.epoch.version - 1
+        with self._lock:
+            parents = [(k, self._lines[k]) for k in list(self._lines)
+                       if k[0] == left.id and k[1] == old_epoch]
+        specs = []
+        for key, line in parents:
+            spec = self._split_one(key, line, left, right, left_index,
+                                   right_index)
+            if spec is not None:
+                specs.append(spec)
+                self.splits += 1
+        return specs
+
+    def _split_one(self, key, line, left, right, left_index: int,
+                   right_index: Optional[int]):
+        # a line behind the split point would need the delta bridge,
+        # which is not ported: no spec, the children rebuild
+        if line.state is None or line.data_index is None or \
+                line.data_index != left_index:
+            return None
+        with line.mu:
+            st = line.state
+            if st is None:
+                return None
+            n = st.n
+            lo_key, hi_key = table_record_range(st.table_id)
+            sk = right.start_key
+            if sk:
+                # region boundaries hold engine keys; the handle
+                # comparison below needs the user key
+                try:
+                    sk = decode_key(sk)
+                except Exception:   # noqa: BLE001 — not an engine key
+                    return None
+            if not sk or sk <= lo_key:
+                pos = 0
+            elif sk >= hi_key:
+                pos = n
+            else:
+                try:
+                    pos = int(np.searchsorted(
+                        st.handles[:n], decode_record_handle(sk)))
+                except Exception:   # noqa: BLE001 — not a record key
+                    return None
+            parent_lineage = st.lineage
+            parent_version = st.lineage.version
+            children = []
+            for side, region, data_index in (
+                    ("left", left, left_index),
+                    ("right", right, right_index)):
+                if data_index is None:
+                    continue    # no right peer on this store
+                lo, hi = (0, pos) if side == "left" else (pos, n)
+                child = self._child_state(st, lo, hi, region.id)
+                children.append({
+                    "side": side, "lineage": child.lineage,
+                    "n": child.n, "state": child,
+                    "key": (region.id, region.epoch.version) + key[2:],
+                    "data_index": data_index})
+        # the capacity is not enforced here: evicting the parent now would
+        # tear down the feed the device split is about to slice; the
+        # keep_epoch sweep right behind retires the parents
+        minted = []
+        with self._lock:
+            for ch in children:
+                ckey = ch["key"]
+                if ckey[1] < self._epoch_floor.get(ckey[0], 0) or \
+                        ckey in self._lines:
+                    continue    # a racing build won: keep its line
+                snap = ch["state"].publish()
+                self._lines[ckey] = _Line(ckey, ch["data_index"], snap,
+                                          ch["state"])
+                self._lines.move_to_end(ckey)
+                minted.append(ch)
+        if not minted:
+            return None
+        spec = {"parent_lineage": parent_lineage,
+                "parent_version": parent_version,
+                "pos": pos, "n_parent": n, "left": None, "right": None}
+        for ch in minted:
+            # the child's state rides along: the device split re-anchors
+            # the child digests to this host truth
+            spec[ch["side"]] = {"lineage": ch["lineage"], "n": ch["n"],
+                                "state": ch["state"]}
+        return spec
+
+    @staticmethod
+    def _child_state(st: _LineState, lo: int, hi: int,
+                     region_id: int) -> _LineState:
+        """A child line's state: the parent's rows [lo, hi) in fresh slack
+        buffers, with a fresh FeedLineage (version 0, the version of the
+        child feed the device split mints)."""
+        child = _LineState.__new__(_LineState)
+        child.table_id = st.table_id
+        child.col_meta = dict(st.col_meta)
+        n = hi - lo
+        child.n = n
+        cap = n + max(_LineState.SLACK_MIN, n >> 3)
+        child.cap = cap
+        handles = np.empty(cap, np.int64)
+        handles[:n] = st.handles[lo:hi]
+        child.handles = handles
+        child.cols = {}
+        for cid, (vals, valid) in st.cols.items():
+            nv = np.empty(cap, dtype=vals.dtype)
+            nv[:n] = vals[lo:hi]
+            nm = np.zeros(cap, np.bool_)
+            nm[:n] = valid[lo:hi]
+            child.cols[cid] = [nv, nm]
+        if st.alive is not None:
+            alive = np.ones(cap, np.bool_)
+            alive[:n] = st.alive[lo:hi]
+            child.n_dead = int(n - np.count_nonzero(alive[:n]))
+            child.alive = alive if child.n_dead else None
+        else:
+            child.alive = None
+            child.n_dead = 0
+        # every parent lock travels to both children: an extra lock only
+        # over-blocks a read, never under-blocks it
+        child.locks = dict(st.locks)
+        child.safe_ts = st.safe_ts
+        child.build_ts = st.build_ts
+        child.lineage = FeedLineage()
+        child.lineage.region_hint = region_id
+        return child
+
+    # -- lookup -------------------------------------------------------
+
+    def get(self, snap, dag) -> Optional[MvccColumnarSnapshot]:
+        """The columnar snapshot for a TableScan dag over a region
+        snapshot, or None when the snapshot carries no data-version stamp.
+        Raises ``KeyIsLocked`` when a pending lock inside the request's
+        ranges conflicts at ``dag.start_ts``."""
+        scan = dag.executors[0]
+        region = getattr(snap, "region", None)
+        data_index = getattr(snap, "data_index", None)
+        if region is None or data_index is None:
+            return None
+        base_key = (region.id, region.epoch.version, scan.table_id,
+                    tuple((c.col_id, c.is_pk_handle, c.field_type.tp)
+                          for c in scan.columns))
+        start_ts = dag.start_ts
+        while True:
+            with self._lock:
+                line = self._lines.get(base_key)
+                got = self._lookup_locked(line, data_index, start_ts)
+                if got is not None:
+                    ent, lock_src = got
+                    self._lines.move_to_end(base_key)
+                    self.hits += 1
+                    break
+                bkey = (base_key, data_index)
+                wait_ev = self._building.get(bkey)
+                if wait_ev is None:
+                    self._building[bkey] = threading.Event()
+                    # the generation at build start: a sweep landing
+                    # while this builds fences the insert
+                    gen0 = self._sweep_gen.get(base_key[0], 0)
+            if wait_ev is not None:
+                wait_ev.wait()
+                continue        # the builder's line may serve this
+            try:
+                ent, lock_src = self._materialize(
+                    snap, dag, base_key, line, data_index, start_ts, gen0)
+                break
+            finally:
+                with self._lock:
+                    ev = self._building.pop((base_key, data_index), None)
+                if ev is not None:
+                    ev.set()
+        lock_src.check_locks(dag.ranges, start_ts)
+        return ent
+
+    @staticmethod
+    def _lookup_locked(line, data_index: int, start_ts: int):
+        """→ (snapshot, lock source) or None."""
+        if line is None:
+            return None
+        if line.data_index == data_index and line.snap is not None and \
+                line.snap.valid_for(start_ts):
+            return line.snap, line.snap
+        parked = line.parked.get((data_index, start_ts))
+        if parked is not None:
+            line.parked.move_to_end((data_index, start_ts))
+            return parked, parked
+        return None
+
+    def _materialize(self, snap, dag, base_key, line, data_index: int,
+                     start_ts: int, gen0: int = 0):
+        from ..utils import tracker
+        scan = dag.executors[0]
+        had_state = line is not None and line.state is not None
+        self.misses += 1
+        tracker.label("copr_cache", "build")
+        with tracker.phase("columnar_build"):
+            tbl, safe_ts, locks, bundle = build_region_columnar_ex(
+                snap, scan.table_id, scan.columns, start_ts,
+                device_resolver=self.device_resolver)
+        if bundle is not None:
+            self.device_builds += 1
+        ent = MvccColumnarSnapshot(tbl, start_ts, safe_ts,
+                                   blocking_locks=locks)
+        retired: list = []
+        with self._lock:
+            if base_key[1] < self._epoch_floor.get(base_key[0], 0) or \
+                    self._sweep_gen.get(base_key[0], 0) != gen0:
+                # a lifecycle sweep covered this region mid-build: the
+                # answer serves this request, but is not cached
+                if bundle is not None:
+                    bundle.release()
+                return ent, ent
+            prev = self._lines.get(base_key)
+            fresh_wins = prev is None or prev.data_index is None or \
+                prev.data_index <= data_index
+            if start_ts < safe_ts or not fresh_wins:
+                # a below-safe_ts build sees an old version set, and a
+                # build raced past by a newer line serves once: both park
+                # under their exact (version, ts)
+                if prev is None:
+                    prev = _Line(base_key, None, None, None)
+                    self._lines[base_key] = prev
+                prev.parked[(data_index, start_ts)] = ent
+                while len(prev.parked) > 4:
+                    prev.parked.popitem(last=False)
+            else:
+                if had_state:
+                    self.rebuilds += 1
+                state = _LineState(scan.table_id, scan.columns, tbl,
+                                   safe_ts, start_ts, locks)
+                state.lineage.region_hint = base_key[0]
+                if bundle is not None:
+                    state.lineage.stash_cold(bundle)
+                    bundle = None
+                ent = state.publish()
+                new_line = _Line(base_key, data_index, ent, state)
+                if prev is not None:
+                    new_line.parked = prev.parked
+                    retired.append(prev)    # its lineage and feeds die
+                self._lines[base_key] = new_line
+            self._lines.move_to_end(base_key)
+            while len(self._lines) > self._capacity:
+                _k, evicted = self._lines.popitem(last=False)
+                retired.append(evicted)
+        if bundle is not None:      # parked or uncached build
+            bundle.release()
+        for old in retired:
+            self._retire(old)
+        return ent, ent

@@ -17,9 +17,10 @@ The degrade contract holds at fetch: a device fault inside a deferred
 fetch (``device::before_fetch``, or any of ``DEVICE_FAULTS``) serves that
 request from the host pipeline and marks the handle ``degraded``.  A
 group's shared fetch has no fallback of its own: its fault reaches every
-member, and each member degrades on its own through the endpoint.  The
-reference's arena pins and slice rescue are not here: the port has no
-feed arena yet (ROADMAP.md queue 1 item 6).
+member, and each member degrades on its own through the endpoint.  A
+dispatched request pins its feed anchor in the runner's arena until its
+fetch (``_Pending.hold``/``release``), as the reference's does; the slice
+rescue is not ported (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -158,15 +159,37 @@ class _Pending:
     to the host, started at construction (under the dispatch lock, right
     after the launches); ``finalize(fetched numpy arrays)`` → its answer.
     ``small``: aggregate states (KBs), which a completion pool serves
-    before bulk row readbacks."""
+    before bulk row readbacks.  ``keep``: the feed planes its kernels
+    read, alive until the fetch even if the feed is dropped meanwhile;
+    ``hold`` gives it its anchor's arena pin, which ``release`` (the
+    runner's fetch), or at the latest its collection, gives back once."""
 
-    __slots__ = ("staged", "finalize", "small")
+    __slots__ = ("staged", "finalize", "small", "keep", "_arena", "_pin")
 
     def __init__(self, tensors: Sequence[torch.Tensor], finalize: Callable,
                  small: bool):
         self.staged = HOST_STAGER.stage(tensors)
         self.finalize = finalize
         self.small = small
+        self.keep = None
+        self._arena = self._pin = None
+
+    def hold(self, arena, token) -> None:
+        self._arena, self._pin = arena, token
+
+    def release(self) -> None:
+        arena, token = self._arena, self._pin
+        self._arena = self._pin = None
+        self.keep = None
+        if arena is not None:
+            arena.unpin(token)
+
+    def __del__(self):
+        # an abandoned request must not leave its anchor unevictable
+        try:
+            self.release()
+        except Exception:   # noqa: BLE001 — interpreter teardown
+            pass
 
 
 class DeferredResult:

@@ -329,7 +329,7 @@ class ColdFeedBundle:
 
     __slots__ = ("resolver", "planes", "device", "n", "read_ts",
                  "mirror_handles", "mirror_cols", "has_nulls",
-                 "spill_patches", "consumed")
+                 "spill_patches", "consumed", "lineage_v")
 
     def __init__(self, resolver: "DeviceMvccResolver",
                  planes: WritePlanes, device: Optional[DeviceVersionPlanes],
@@ -348,6 +348,8 @@ class ColdFeedBundle:
         # zero cells there; patched from the mirror after the gather
         self.spill_patches = spill_patches or {}
         self.consumed = False
+        # the lineage version it was stashed at (FeedLineage.stash_cold)
+        self.lineage_v = None
 
     def release(self) -> None:
         """Drop every device and host reference."""

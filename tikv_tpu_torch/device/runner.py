@@ -71,15 +71,25 @@ plans shares one solo dispatch.  Failpoints ``device::before_dispatch``
 and ``device::before_fetch`` raise ``DeviceUnavailable`` at the dispatch
 and at the fetch.
 
-A snapshot built cold from MVCC versions (``copr.region_cache``) carries a
-``ColdFeedBundle`` on its ``feed_lineage``: the first feed miss of an
-ascending TableScan over all its rows mints the feed on the device
-(``mvcc.mvcc_resolve``, the CUDA kernel ``csrc/mvcc.cu``) instead of
-uploading it; any other first scan drops the bundle and uploads
-(``feed_routes`` counts both).  Every feed records a digest of each plane
-from the host truth; ``scrub_feed`` re-hashes the resident planes
-(``digest.plane_digest``, ``csrc/digest.cu``) and names those that
-differ.
+Feeds live in the runner's ``FeedArena`` (``device/supervisor.py``), one
+bucket per feed anchor: a snapshot's ``feed_lineage`` (a columnar cache
+line's identity, ``copr.region_cache``), else the snapshot itself.  The
+bucket holds the anchor's feeds and its per-plan memos; the arena counts
+their bytes against ``hbm_budget_bytes`` (0: no budget) and evicts the
+least used unpinned anchors past it; an in-flight request pins its anchor
+until its fetch; a retired cache line drops its anchor (``drop_feed``).
+A feed miss (``_get_feed``, labelled per request ``device_feed`` and
+counted in ``feed_routes``) takes, in order: the split stash — a child
+feed that a device split sliced from the parent's resident planes and
+verified against the child's host digests (``split_resident_feeds``:
+``split.split_planes``, the CUDA kernel ``csrc/split.cu``, one launch a
+child) —; then the lineage's ``ColdFeedBundle`` of a cold build, minted on
+the device (``mvcc.mvcc_resolve``, ``csrc/mvcc.cu``); then the upload.
+Only an ascending TableScan is positional: it alone takes a stash or a
+bundle, and only its feeds over every row are split.  Every feed records
+a digest of each plane from the host truth; ``scrub_feed`` re-hashes the
+resident planes (``digest.plane_digest``, ``csrc/digest.cu``) and names
+those that differ.
 
 Cases outside the device envelope are refused, never served on the CPU
 by the runner: plans (``supports`` is False; ``handle_request`` raises
@@ -100,7 +110,6 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -127,19 +136,21 @@ from . import hash_agg as ha
 from . import kernels as kn
 from . import resolve_device
 from . import selection as sm
+from . import split as sp
 from . import topn as tn
 from .agg_fold import agg_fold
 from .deferred import (DeferredResult, _BatchedSelectionGroup,
                        _BatchUnavailable, _GroupPending, _Pending)
 from .digest import _INT_OF_WIDTH, as_u64, patch_rows, plane_digest
-from .supervisor import hash_workers, start_plane_digests
+from .supervisor import FeedArena, hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
 
 _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
 # the selection's routes (``_Plan.sel_route``, counted in ``pred_routes``)
 PRED_KERNEL, PRED_TORCH = "sel_pred", "torch"
 # how a feed was built (counted in ``feed_routes``)
-FEED_DEVICE_RESOLVE, FEED_UPLOAD = "device_resolve", "upload"
+FEED_SPLIT, FEED_DEVICE_RESOLVE, FEED_UPLOAD = \
+    "split", "device_resolve", "upload"
 # the reference's device aggregate set (runner.py:1401-1407)
 _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
                 "var_pop", "var_samp", "stddev_pop", "stddev_samp")
@@ -289,18 +300,21 @@ class DeviceRunner:
 
     ``device``: ``None`` (``cuda:0``), a CUDA device, or ``"cpu"`` — the
     plain PyTorch version of every kernel, which the tests use.  Without
-    CUDA, only ``"cpu"`` constructs.
+    CUDA, only ``"cpu"`` constructs.  ``hbm_budget_bytes``: the feed
+    arena's budget (0: none).
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, hbm_budget_bytes: int = 0):
         self.device = resolve_device(device)
         self._block_local = ha.BLOCK
         # plan_key → (plan | None, refusal reason); FIFO-bounded
         self._plan_cache: dict = {}
         self._plan_cache_max = 4096
-        # snapshot → {"feeds": {feed_key: feed}, "meta": {meta_key: dict}};
-        # entries die with their snapshot
-        self._snaps: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        # feed anchor → bucket: {feed_key: feed, ("meta", ...): per-plan
+        # memo, ("dtypes", ...): the feed planes' dtypes}
+        self._arena = FeedArena(budget_bytes=hbm_budget_bytes)
+        # host-clock ms by phase of the last split_resident_feeds
+        self.split_phases_ms: dict = {}
         # selectivity EWMA per exact plan key and per const-blind shape key
         # (LRU), and the selection routes taken, by name
         self._sel_stats: OrderedDict = OrderedDict()
@@ -494,27 +508,244 @@ class DeviceRunner:
             return {"flat": flat, "null_flags": flags, "n_pad": n_pad,
                     "digests": digests(), "n_live": n}
 
-    def _new_feed(self, storage, plan, planes, dtypes, host_cols,
-                  n: int) -> dict:
-        """The feed of a miss: minted on the device from the snapshot's
-        cold bundle when the scan is an ascending TableScan over all the
-        bundle's rows, else uploaded (the bundle, if any, is dropped)."""
+    @staticmethod
+    def _feed_anchor(storage):
+        """The arena key of ``storage``'s feeds and memos: its
+        ``feed_lineage`` (stable across the snapshots a cache line
+        publishes), else the snapshot itself."""
         lineage = getattr(storage, "feed_lineage", None)
-        if lineage is not None:
-            if isinstance(plan.scan, TableScanDesc) and not plan.scan.desc:
-                bundle = lineage.take_cold()
+        return storage if lineage is None else lineage
+
+    @staticmethod
+    def _feed_version(storage) -> Optional[int]:
+        """The lineage version ``storage``'s data reflects, or None."""
+        lineage = getattr(storage, "feed_lineage", None)
+        if lineage is None:
+            return None
+        v = getattr(storage, "feed_version", None)
+        return lineage.version if v is None else v
+
+    def _bucket(self, storage) -> dict:
+        """``storage``'s arena bucket (a throwaway dict when its anchor
+        cannot be tracked: nothing is cached then)."""
+        got = self._arena.bucket(self._feed_anchor(storage))
+        return {} if got is None else got
+
+    def _get_feed(self, storage, st, feed_key, plan, planes, dtypes,
+                  host_cols, n: int) -> dict:
+        """The request's feed (runner.py:1622-1716): the resident one when
+        its lineage version is the request's; else the split stash's child
+        feed of this shape; else the cold bundle minted on the device;
+        else an upload.  The lineage's patch journal is not replayed
+        (ROADMAP.md queue 1 item 6): a feed behind its lineage
+        re-uploads."""
+        lineage = getattr(storage, "feed_lineage", None)
+        req_v = self._feed_version(storage)
+        anchor = self._feed_anchor(storage)
+        # only an ascending table scan maps feed rows to line rows
+        positional = isinstance(plan.scan, TableScanDesc) and \
+            not plan.scan.desc
+        feed = st.get(feed_key)
+        if feed is not None and (lineage is None or
+                                 feed.get("lineage_v") == req_v):
+            tracker.label("device_feed", "hit")
+            return feed
+        used_infos = [plan.scan.columns[ci] for ci, _ in planes]
+        route = None
+        if lineage is not None and positional and lineage.split_stash:
+            feed = self._take_split_feed(lineage, feed_key, n)
+            if feed is not None and feed.get("lineage_v") == req_v:
+                route = FEED_SPLIT
+            else:
+                feed = None
+        if route is None and lineage is not None and \
+                lineage.cold_bundle is not None:
+            if positional:
+                bundle = lineage.take_cold(req_v)
                 feed = None if bundle is None else bundle.mint(
-                    self, [plan.scan.columns[ci] for ci, _ in planes],
-                    dtypes, n, self._pad_rows(n))
+                    self, used_infos, dtypes, n, self._pad_rows(n))
                 if feed is not None:
-                    self._note_route(FEED_DEVICE_RESOLVE, self.feed_routes)
-                    return feed
+                    route = FEED_DEVICE_RESOLVE
             else:
                 # an index or descending scan cannot take the bundle:
                 # release the version planes now
                 lineage.drop_cold()
-        self._note_route(FEED_UPLOAD, self.feed_routes)
-        return self._build_flat(host_cols(), n)
+        if route is None:
+            route = FEED_UPLOAD
+            feed = self._build_flat(host_cols(), n)
+        if route != FEED_SPLIT:
+            feed["lineage_v"] = req_v
+            if positional:
+                self._mark_splittable(feed, used_infos)
+        tracker.label("device_feed", route)
+        self._note_route(route, self.feed_routes)
+        st[feed_key] = feed
+        # under the dispatch lock: the budget may evict other, unpinned
+        # anchors (or refuse this one: the request still serves from feed)
+        self._arena.admit(anchor)
+        self._register_digests(lineage, feed_key, feed)
+        return feed
+
+    @staticmethod
+    def _register_digests(lineage, feed_key, feed) -> None:
+        """Mirror the feed's plane digests into its lineage's record."""
+        if lineage is not None and feed.get("digests") is not None:
+            lineage.feed_digests[feed_key] = (feed.get("lineage_v"),
+                                              feed["digests"])
+
+    @staticmethod
+    def _mark_splittable(feed: dict, used_infos) -> None:
+        """A positional feed records which of its columns is the pk handle
+        (a split child's digests re-anchor to the child's host handles)."""
+        feed["positional"] = True
+        feed["pk_flags"] = tuple(bool(i.is_pk_handle) for i in used_infos)
+
+    def _take_split_feed(self, lineage, feed_key, n: int):
+        """Pop the stashed child feed of this request's shape (one-shot):
+        the same columns and dtypes, ``n`` live rows, and the pad bucket
+        this runner gives ``n`` (runner.py:2060-2080)."""
+        stash = lineage.split_stash
+        if not stash:
+            return None
+        _scan, col_ids, dtypes, _ranges = feed_key
+        want_pad = self._pad_rows(max(n, 1))
+        for i, cand in enumerate(stash):
+            f = cand["feed"]
+            if cand["col_ids"] == col_ids and \
+                    cand["dtypes"] == tuple(dtypes) and \
+                    f.get("n_live") == n and f.get("n_pad") == want_pad:
+                del stash[i]
+                return dict(f)
+        return None
+
+    # ------------------------------------------------------ lifecycle
+
+    def arena_items(self) -> list:
+        """(anchor, bucket) of every resident anchor."""
+        return self._arena.items()
+
+    def resident_feeds(self, storage) -> dict:
+        """{feed key: feed} resident for ``storage``'s anchor."""
+        bucket = self._arena.bucket(self._feed_anchor(storage),
+                                    create=False)
+        return {k: v for k, v in (bucket or {}).items()
+                if isinstance(v, dict) and "flat" in v}
+
+    def hbm_stats(self) -> dict:
+        return self._arena.stats()
+
+    def drop_feed(self, anchor) -> int:
+        """Release every feed and memo anchored on ``anchor`` (a lineage
+        or a snapshot), its unminted cold bundle and its unconsumed split
+        stash → the bytes released from the accounting.  A request in
+        flight keeps the planes it reads."""
+        drop_cold = getattr(anchor, "drop_cold", None)
+        if callable(drop_cold):
+            drop_cold()
+        if getattr(anchor, "split_stash", None) is not None:
+            anchor.split_stash = None
+        return self._arena.drop(anchor)
+
+    def split_resident_feeds(self, spec) -> str:
+        """The device split of every resident feed anchored on the parent
+        lineage (``spec`` from ``RegionColumnarCache.split_lines``) →
+        ``"split"`` when at least one child feed was minted, else
+        ``"none"``."""
+        bucket = self._arena.bucket(spec["parent_lineage"], create=False)
+        if not bucket:
+            return "none"
+        return self._split_local_feeds(bucket, spec)
+
+    def _split_local_feeds(self, bucket, spec) -> str:
+        """Slice the parent's positional feeds into child feeds, stashed
+        on the child lineages for their first requests.  Under the
+        dispatch lock, so the split's launches are ordered with the
+        requests' on one stream.  One thread pool hashes every child's
+        host planes."""
+        out = "none"
+        phases: dict = {}
+        with self._dispatch_mu, ThreadPoolExecutor(hash_workers()) as pool:
+            for fkey, feed in list(bucket.items()):
+                if not (isinstance(feed, dict) and "flat" in feed):
+                    continue
+                if not feed.get("positional") or \
+                        feed.get("digests") is None:
+                    continue
+                if feed.get("lineage_v") != spec["parent_version"] or \
+                        feed.get("n_live") != spec["n_parent"]:
+                    continue    # a stale generation or a partial range
+                for side in ("left", "right"):
+                    child = spec.get(side)
+                    if child is None or child["n"] <= 0:
+                        continue
+                    cf = self._mint_split_child(feed, fkey, spec, child,
+                                                side == "right", pool,
+                                                phases)
+                    if cf is None:
+                        continue
+                    lineage = child["lineage"]
+                    if lineage.split_stash is None:
+                        lineage.split_stash = []
+                    lineage.split_stash.append({"col_ids": fkey[1],
+                                                "dtypes": tuple(fkey[2]),
+                                                "feed": cf})
+                    out = "split"
+        self.split_phases_ms = phases
+        return out
+
+    def _mint_split_child(self, feed, fkey, spec, child, right: bool,
+                          pool, phases: dict):
+        """One child feed (runner.py:2254-2315): every parent plane sliced
+        by one ``split_planes`` launch, its fused digests fetched in one
+        copy and held against the digests of the child's host state, which
+        ``pool`` hashes while the kernel runs — never derived from
+        device planes, so a corruption that landed on the parent fails
+        here instead of passing into the child.  → the child feed, or None
+        when anything differs (that child then uploads)."""
+        pos, n_child = spec["pos"], child["n"]
+        n_pad_child = self._pad_rows(max(n_child, 1))
+        if n_pad_child > feed["n_pad"]:
+            return None
+        state = child["state"]
+        hosts = []      # (host array, dtype) per flat plane, in order
+        for j, has_nulls in enumerate(feed["null_flags"]):
+            if feed["pk_flags"][j]:
+                vals, valid = state.handles, None
+            else:
+                bufs = state.cols.get(fkey[1][j])
+                if bufs is None:
+                    return None
+                vals, valid = bufs
+            hosts.append((vals, np.dtype(fkey[2][j])))
+            if has_nulls:
+                hosts.append((np.ones(n_child, np.bool_) if valid is None
+                              else valid, None))
+        if len(hosts) != len(feed["flat"]):
+            return None
+
+        def add(name, t0):
+            phases[name] = phases.get(name, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        wait = start_plane_digests(pool, hosts, n_child)
+        t1 = time.perf_counter()
+        flat, got = sp.split_planes(list(feed["flat"]), pos, n_child,
+                                    n_pad_child, right)
+        add("launch", t1)
+        t2 = time.perf_counter()
+        want = wait()
+        phases["host_digests"] = phases.get("host_digests", 0.0) + \
+            (time.perf_counter() - t2 + t1 - t0) * 1e3
+        t3 = time.perf_counter()
+        got = got.cpu().tolist()        # the one verify copy
+        add("verify", t3)
+        if [as_u64(g) for g in got] != [as_u64(w) for w in want]:
+            return None
+        return {"flat": tuple(flat), "null_flags": feed["null_flags"],
+                "n_pad": n_pad_child, "digests": want, "n_live": n_child,
+                "lineage_v": child["lineage"].version,
+                "positional": True, "pk_flags": feed["pk_flags"]}
 
     def mvcc_resolver(self):
         """The runner's ``DeviceMvccResolver`` (created on first use)."""
@@ -573,12 +804,6 @@ class DeviceRunner:
         arr = feed["flat"][fi]
         view = arr.view(_INT_OF_WIDTH[arr.element_size()])
         patch_rows(view, [0], view[:1] ^ 1)
-
-    def _snap(self, storage) -> dict:
-        st = self._snaps.get(storage)
-        if st is None:
-            st = self._snaps[storage] = {"feeds": {}, "meta": {}}
-        return st
 
     @staticmethod
     def _planes(feed) -> list:
@@ -694,6 +919,13 @@ class DeviceRunner:
         with self._dispatch_mu:
             _fp_fault("device::before_dispatch")
             out = self._dispatch(dag, plan, storage, _stack)
+            if isinstance(out, _Pending):
+                # the arena must not evict what a launched kernel reads
+                # until its fetch (runner.py:3286-3294); re-accounted for
+                # the memos the run cached (sparse slot ids)
+                anchor = self._feed_anchor(storage)
+                out.hold(self._arena, self._arena.pin(anchor))
+                self._arena.admit(anchor)
         if _stack is not None:
             if isinstance(out, _Pending):
                 return _GroupPending(self, out)
@@ -714,8 +946,11 @@ class DeviceRunner:
 
     def _finish(self, pending: _Pending):
         """The blocking fetch and the host finalize of a dispatched
-        request (runner.py:3334)."""
-        fetched = self._readback(pending)
+        request (runner.py:3334); its arena pin is released either way."""
+        try:
+            fetched = self._readback(pending)
+        finally:
+            pending.release()
         with tracker.phase("host_materialize"):
             return pending.finalize(fetched)
 
@@ -723,8 +958,10 @@ class DeviceRunner:
         """Under the dispatch lock: the snapshot's feed and the plan's
         per-snapshot facts, then the plan's kernels → a ``_Pending``, or
         a settled ``SelectResult`` when nothing needs the device."""
-        st = self._snap(storage)
-        meta = st["meta"].setdefault((dag.plan_key(), dag.ranges), {})
+        st = self._bucket(storage)
+        req_v = self._feed_version(storage)
+        meta = st.setdefault(("meta", dag.plan_key(), dag.ranges, req_v),
+                             {})
         memo: dict = {}
 
         def get_batch() -> ColumnBatch:
@@ -743,7 +980,8 @@ class DeviceRunner:
                 "simple_agg", "hash_agg") else SelectResult(get_batch())
 
         planes = self._feed_planes(plan)
-        dtypes = self._feed_dtypes(st, plan, dag.ranges, planes, get_batch)
+        dtypes = self._feed_dtypes(st, plan, dag.ranges, planes, get_batch,
+                                   req_v)
 
         def host_cols() -> list:
             """Device-dtype numpy (values, validity) pairs; request-local
@@ -760,10 +998,20 @@ class DeviceRunner:
         feed_key = (_scan_key(plan.scan),
                     tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
                     dtypes, dag.ranges)
-        feed = st["feeds"].get(feed_key)
-        if feed is None:
-            feed = st["feeds"][feed_key] = self._new_feed(
-                storage, plan, planes, dtypes, host_cols, n)
+        feed = self._get_feed(storage, st, feed_key, plan, planes, dtypes,
+                              host_cols, n)
+        out = self._run(dag, plan, storage, stack, st, meta, feed, n,
+                        get_batch, host_cols, dtypes, req_v)
+        if isinstance(out, _Pending):
+            # the request's planes live until its fetch, even when the
+            # feed is dropped first (a split retiring its parent)
+            out.keep = feed["flat"]
+        return out
+
+    def _run(self, dag, plan, storage, stack, st, meta, feed, n, get_batch,
+             host_cols, dtypes, req_v):
+        """The plan's kernels over ``feed`` → a ``_Pending`` or a settled
+        result."""
         if "plan" not in meta:
             meta["plan"] = self._narrowed(plan, host_cols, dtypes)
         plan = meta["plan"]
@@ -771,7 +1019,7 @@ class DeviceRunner:
         if plan.kind == "scan_sel":
             if stack is not None:
                 return self._run_stacked(stack, st, feed, n, host_cols,
-                                         dtypes)
+                                         dtypes, req_v)
             return self._run_scan_sel(dag, plan, feed, n, get_batch,
                                       storage)
         if stack is not None:
@@ -801,17 +1049,18 @@ class DeviceRunner:
             [(ci, "float64") for ci in plan.f64_cols]
 
     @staticmethod
-    def _feed_dtypes(st, plan, ranges, planes, get_batch) -> tuple:
+    def _feed_dtypes(st, plan, ranges, planes, get_batch,
+                     req_v=None) -> tuple:
         """The feed planes' dtypes on this snapshot: a column's device
-        dtype depends on its values, so it is memoized per snapshot, scan
-        and columns (every plan over them shares it)."""
+        dtype depends on its values, so it is memoized per anchor and
+        version, scan and columns (every plan over them shares it)."""
         key = ("dtypes", _scan_key(plan.scan),
                tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
-               tuple(dt for _ci, dt in planes), ranges)
-        got = st["meta"].get(key)
+               tuple(dt for _ci, dt in planes), ranges, req_v)
+        got = st.get(key)
         if got is None:
             batch = get_batch()
-            got = st["meta"][key] = tuple(
+            got = st[key] = tuple(
                 dt or str(_device_dtype(batch.columns[ci].eval_type,
                                         batch.columns[ci].values))
                 for ci, dt in planes)
@@ -822,8 +1071,8 @@ class DeviceRunner:
     def batch_class(self, dag: DAGRequest, storage):
         """The coalescing identity of this request, or None when it cannot
         share a dispatch (runner.py:1172-1227).  Requests under one key are
-        served by one launch; they read one snapshot (by ``id``: the port
-        has no feed arena anchor yet) over the same ranges.
+        served by one launch; they read one snapshot (by ``id``) over the
+        same ranges.
 
         ``("stack", ...)``: a selection that ``sel_pred`` evaluates and that
         holds numeric constants: members differing only in those constants
@@ -845,11 +1094,12 @@ class DeviceRunner:
                                                   len(plan.used_cols))
             if plan.sel_params[2]:
                 with self._dispatch_mu:
-                    st = self._snap(storage)
+                    st = self._bucket(storage)
                     planes = self._feed_planes(plan)
                     dtypes = self._feed_dtypes(
                         st, plan, dag.ranges, planes,
-                        lambda: storage.scan_columns(plan.scan, dag.ranges))
+                        lambda: storage.scan_columns(plan.scan, dag.ranges),
+                        self._feed_version(storage))
                 return ("stack", id(storage), sm.shape_key(plan), dtypes,
                         dag.ranges, dag.output_offsets)
         return ("share", id(storage), dag.plan_key(), dag.ranges)
@@ -879,16 +1129,16 @@ class DeviceRunner:
             raise _BatchUnavailable(f"device fault: {e}") from e
         return _BatchedSelectionGroup(self, gp, list(members))
 
-    def _member_plan(self, st, dag, host_cols, dtypes):
+    def _member_plan(self, st, dag, host_cols, dtypes, req_v):
         """A stacked member's plan, narrowed on this snapshot as its own
         solo request would be (memoized in its meta)."""
-        meta = st["meta"].setdefault((dag.plan_key(), dag.ranges), {})
+        meta = st.setdefault(("meta", dag.plan_key(), dag.ranges, req_v), {})
         if "plan" not in meta:
             plan = self._analyze(dag)[0]
             meta["plan"] = self._narrowed(plan, host_cols, dtypes)
         return meta["plan"]
 
-    def _run_stacked(self, dags, st, feed, n, host_cols, dtypes):
+    def _run_stacked(self, dags, st, feed, n, host_cols, dtypes, req_v):
         """The stacked selection (runner.py:4217-4245): every member's
         program, encoded against the same feed, runs as one lane of one
         ``sel_pred_batched`` launch; the whole group's counts and packed
@@ -898,7 +1148,7 @@ class DeviceRunner:
         pdt = tuple(v.dtype for v, _ok in planes)
         plans, progs = [], []
         for dag in dags:
-            plan = self._member_plan(st, dag, host_cols, dtypes)
+            plan = self._member_plan(st, dag, host_cols, dtypes, req_v)
             if plan.sel_route != PRED_KERNEL:
                 raise _BatchUnavailable("a member off the sel_pred route")
             prog = plan.sel_programs.get(pdt)

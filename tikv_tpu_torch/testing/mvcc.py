@@ -26,6 +26,12 @@ The two cold-path configurations of the chip smoke:
   shares: ``bench.py``'s write churn (config 6w, :696) runs point writes
   only, over ``int_table(2)``.  The mix puts every write type and both
   sides of read_ts into one history.
+
+``kv_history`` writes the same ``Event``s as the engine's records instead:
+``(cf, key, value)`` triples of CF_WRITE versions (short-value PUT rows,
+DELETE, LOCK, ROLLBACK) and CF_LOCK locks, which
+``convert.engine_from_triples`` loads into a ``MemoryEngine`` for the
+columnar cache to build from.
 """
 
 from __future__ import annotations
@@ -356,3 +362,41 @@ def planes_nbytes(planes: WritePlanes) -> int:
         for k, _v, _m in planes.cols.values())) + \
         (planes.n_keys + 1) * 8 + planes.n_keys * 8
 
+
+
+def kv_history(table_id: int, handles: np.ndarray, events: Sequence[Event],
+               locks: Sequence[tuple] = ()) -> list:
+    """``events`` (over ordinals into ``handles``) as engine records →
+    sorted ``(cf, engine key, value)`` triples, data prefix included.  A
+    PUT's row holds its valid cells (a NULL cell is absent); start_ts =
+    commit_ts − 1, a ROLLBACK's = its commit_ts.  ``locks``: (handle,
+    start_ts, "put" | "delete" | "lock") pending prewrites."""
+    from ..codec.keys import data_key, table_record_key
+    from ..codec.row import encode_row
+    from ..engine.traits import CF_LOCK, CF_WRITE
+    from ..storage.txn_types import (Lock, LockType, Write, WriteType,
+                                     append_ts, encode_key)
+    kinds = {WT_PUT: WriteType.PUT, WT_DELETE: WriteType.DELETE,
+             WT_LOCK: WriteType.LOCK, WT_ROLLBACK: WriteType.ROLLBACK}
+    out = []
+    for e in events:
+        start = e.commit_ts if e.wtype == WT_ROLLBACK else e.commit_ts - 1
+        for j, k in enumerate(np.asarray(e.keys).tolist()):
+            key = encode_key(table_record_key(table_id, int(handles[k])))
+            short = None
+            if e.wtype == WT_PUT:
+                short = encode_row({
+                    cid: vals[j].item() for cid, (vals, ok) in e.cols.items()
+                    if ok[j]})
+            out.append((CF_WRITE, data_key(append_ts(key, e.commit_ts)),
+                        Write(kinds[e.wtype], start, short).to_bytes()))
+    lock_types = {"put": LockType.PUT, "delete": LockType.DELETE,
+                  "lock": LockType.LOCK}
+    for h, start_ts, kind in locks:
+        rk = table_record_key(table_id, int(h))
+        out.append((CF_LOCK, data_key(encode_key(rk)),
+                    Lock(lock_types[kind], rk, int(start_ts), ttl=3000,
+                         short_value=b"" if kind == "put" else None
+                         ).to_bytes()))
+    out.sort(key=lambda t: (t[0], t[1]))
+    return out
