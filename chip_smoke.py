@@ -175,35 +175,42 @@ Phases, in order; any failure raises and the exit code is non-zero:
    routes (config 7's dense build, and its keys spread by 2^20), its bound
    counting the -1 fill up to k_cap, printed beside the count without
    it;
-11. ANALYZE and CHECKSUM: ``analyze_column`` (``csrc/analyze.cu``, whose
-   radix pass is ``csrc/onesweep.cuh``'s, shared with ``sort_perm`` and
+11. ANALYZE and CHECKSUM: ``analyze_column`` (``csrc/analyze.cu``: its
+   counting route and its partition route, whose sample is sorted by
+   ``csrc/onesweep.cuh``'s pass, shared with ``sort_perm`` and
    ``join_build``: step 10 holds both to their plain versions) against its
    plain version on the card over the CPU tests' edge cases of every
    device dtype (int32, int64, uint32, uint64, float64: NULLs, NaN, −NaN,
    ±0.0, ±inf, the dtype's max, all NULL, one valid row, fewer valid rows
    than buckets, one bucket, one row, ties, padding rows marked valid), n
    around the pass tiles, float64 specials, a full-span int64 column, keys
-   of 32 and 33 bits, one value, uint64 past 2^63, 2^20 and 2^22 rows:
-   rank words, n_valid and distinct counts bit for bit, the bounds the
-   unpacking keeps by value; then the cells an4 and an4n (config 4's and
+   of 32 and 33 bits, one value, uint64 past 2^63, 2^20 and 2^22 rows,
+   and the routes' own cases (the counting limit and one past it, one
+   value on 90%, an4s's and an4r's shapes, a bucket past its shared table,
+   ascending ids): rank words, n_valid and distinct counts bit for bit, the
+   bounds the unpacking keeps by value, each partition case's counts equal
+   to the numpy model's, every route taken; then the cells an4 and an4n
+   (config 4's and
    4n's tables, 100·2^20 rows), an4s and an4r (2^24 rows) and an6c
    (config 6c's cold-minted snapshot after its rounds, 10·2^20 keys), each
    every column at 256 buckets through ``Endpoint.handle_analyze``: cold +
    5 warm, each answer equal to the numpy truth, ``analyze`` launched once
-   per column and request and no other kernel, no degrade, the host-clock
-   phases of the cold and the median warm request; CHECKSUM over 2^16
+   per column and request and no other kernel, one range wait a request,
+   no degrade, the host-clock phases of the cold and the median warm
+   request; CHECKSUM over 2^16
    rows (the crc64-xz check value, the fold in another order, two
    replicas, a partial range); and ``analyze`` timed at an4's id, k and v,
-   an4s's k and an4r's v as issued and its kernels alone, beside its
-   bound, plain version and one ``torch.sort`` of the sentinelled column;
-12. the serving path: ``sel_pred_batched`` (``csrc/selection.cu``)
-   against its plain version (the whole buffer, bit for bit) and against G
-   solo ``sel_pred`` launches (each lane's count and packed mask), over G
-   of 1, 2, 3, 16 and the lane limit, random programs, int32 extremes,
-   int64 and REAL constants, range and NULL-constant terms, NULL-bearing
-   planes, n not a multiple of 8, planes off a 16-byte boundary, one block
-   and many; both of its evaluations (simple terms from registers, the
-   interpreter) must be taken; then the feed budget
+   an4s's k and an4r's v as issued and its kernels alone (each column's
+   route, each of its kernels' times), beside its bound, the design's own
+   bytes, plain version and one ``torch.sort`` of the sentinelled column;
+12. the serving path: ``sel_pred_batched`` (``csrc/sel_batched.cu``'s
+   terms kernel, ``csrc/selection.cu``'s interpreter) against its plain
+   version (the whole buffer, bit for bit) and against G solo ``sel_pred``
+   launches (each lane's count and packed mask), over G of 1, 2, 3, 16, 17
+   and the lane limit, random programs, int32 extremes, int64 and REAL
+   constants, range, int64 and NULL-constant terms, REAL Ne, NULL-bearing
+   planes, n not a multiple of 8 or of 32, planes off a 16-byte boundary,
+   one block and many; both routes must be taken; then the feed budget
    (``DeviceRunner(hbm_budget_bytes=...)`` with room for one feed of config
    3's plan at 2^20 rows): a second snapshot's feed is refused while a
    deferred request pins the first one's, and evicts it after that fetch,
@@ -307,22 +314,25 @@ def cuda_ms(fn, iters: int, queued: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls.
 
     ``queued``: ``fn`` never waits for the device, and its calls are
-    queued behind a device sleep three times as long as the host takes to
-    issue them, so the device runs them back to back and the host's
-    Python does not show (fails if the sleep ended first).  Otherwise the
-    calls run as issued (for the plain versions and library calls, whose
-    device time dwarfs their host time)."""
+    queued behind a device sleep six times as long as the host takes to
+    issue them (the slowest of three issues, so a slow moment of a shared
+    host does not outlast it), so the device runs them back to back and
+    the host's Python does not show (fails if the sleep ended first).
+    Otherwise the calls run as issued (for the plain versions and library
+    calls, whose device time dwarfs their host time)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     slept = torch.cuda.Event()
     if queued:
-        t0 = time.perf_counter()
-        fn()                            # the host's issue time
-        issue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(max(1 << 24, 3 * iters * issue_s * CLOCK_HZ)))
+        issue_s = 0.0
+        for _ in range(3):              # the host's issue time
+            t0 = time.perf_counter()
+            fn()
+            issue_s = max(issue_s, time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        torch.cuda._sleep(int(max(1 << 24, 6 * iters * issue_s * CLOCK_HZ)))
         slept.record()
     start.record()
     for _ in range(iters):
@@ -1779,12 +1789,13 @@ def lane_programs(specs, G: int, rng, dts, wide: bool = False) -> list:
 
 
 def batched_cases(dev):
-    """(name, programs, planes, n) on the card: G of 1, 2, 3, 16 and the
-    lane limit over NULL-bearing int32 (with its extremes), int64 and
+    """(name, programs, planes, n) on the card: G of 1, 2, 3, 16, 17 and
+    the lane limit over NULL-bearing int32 (with its extremes), int64 and
     float32 planes; random programs, an int32-extremes comparison, a wide
-    (int64 constants) range and a REAL comparison; equal and different
-    lanes; n not a multiple of 8, planes off a 16-byte boundary, one block
-    and many."""
+    (int64 constants) range, terms over the int64 plane and REAL
+    comparisons (Gt, Ne); equal and different lanes; n not a multiple of 8
+    or of the terms kernel's 32-row word, planes off a 16-byte boundary,
+    one block and many."""
     from tikv_tpu_torch.device import selection as sm
     rng = np.random.default_rng(41)
     fixed = {"extremes": [("GeInt", ("col", 0), ("const", (1 << 31) - 1))],
@@ -1794,8 +1805,11 @@ def batched_cases(dev):
              "real": [("GtReal", ("col", 2), ("const", 12.25))],
              "range": [("GeInt", ("col", 0), ("const", -50)),
                        ("LtInt", ("col", 0), ("const", 50))],
-             "null_const": [("NeInt", ("col", 0), ("null", "int"))]}
-    for n in (1, 13, 4099, 32768, 32769, (1 << 20) + 3, SWEEP_ROWS):
+             "null_const": [("NeInt", ("col", 0), ("null", "int"))],
+             "wide_terms": [("GeInt", ("col", 1), ("const", -(1 << 40))),
+                            ("LeInt", ("col", 1), ("const", 1 << 39))],
+             "real_ne": [("NeReal", ("col", 2), ("const", 12.25))]}
+    for n in (1, 13, 33, 4099, 32768, 32769, (1 << 20) + 3, SWEEP_ROWS):
         a = rng.integers(-100, 100, n + 4).astype(np.int32)
         a[rng.choice(n + 4, min(n + 4, 8), replace=False)] = rng.choice(
             [-(1 << 31), 1 - (1 << 31), (1 << 31) - 1], min(n + 4, 8))
@@ -1812,12 +1826,13 @@ def batched_cases(dev):
             if off == 0 and n == 4099:
                 planes[0] = (planes[0][0], None)     # a plane without NULLs
             dts = [v.dtype for v, _ok in planes]
-            for G in ((1, 16, sm.BATCH_MAX_LANES) if big else
-                      (1, 2, 3, 16, sm.BATCH_MAX_LANES)):
+            for G in ((1, 16, 17, sm.BATCH_MAX_LANES) if big else
+                      (1, 2, 3, 16, 17, sm.BATCH_MAX_LANES)):
                 for kind, specs in fixed.items():
                     yield (f"{kind}_n={n}_off={off}_G={G}",
                            lane_programs(specs, G, rng, dts,
-                                         wide=kind == "wide"), planes, n)
+                                         wide=kind.startswith("wide")),
+                           planes, n)
                 made = 0
                 while made < (1 if big else 3):
                     specs = [pred_spec(rng, int(rng.integers(2, 4)))
@@ -1832,6 +1847,12 @@ def batched_cases(dev):
                         planes, n
 
 
+def route_of(prog, planes) -> str:
+    """sel_pred_batched's route for a group of ``prog``."""
+    from tikv_tpu_torch.device import selection as sm
+    return "terms" if sm.terms_route(prog, planes) else "interpreter"
+
+
 def check_batched(dev) -> int:
     """sel_pred_batched against its plain version (the whole output
     buffer, bit for bit) and against G solo sel_pred launches (each lane's
@@ -1840,7 +1861,7 @@ def check_batched(dev) -> int:
     cases = 0
     simple = 0
     for name, progs, planes, n in batched_cases(dev):
-        simple += sm.simple_terms(progs[0])
+        simple += sm.terms_route(progs[0], planes)
         got = sm.sel_pred_batched(progs, planes, n)
         torch.cuda.synchronize()
         want = sm.sel_pred_batched_plain(progs, planes, n)
@@ -1855,11 +1876,11 @@ def check_batched(dev) -> int:
         if cases % 12 == 0 or n >= 1 << 20:
             print(f"kernel sel_pred_batched {name}: ops={len(progs[0].ops)} "
                   f"wide={progs[0].wide} "
-                  f"simple={sm.simple_terms(progs[0])} counts="
+                  f"route={route_of(progs[0], planes)} counts="
                   f"{got.counts[:4].tolist()} max_abs_err=0", flush=True)
-    print(f"kernel sel_pred_batched: {cases} cases ({simple} of simple "
-          f"terms) equal to the plain version and to solo sel_pred",
-          flush=True)
+    print(f"kernel sel_pred_batched: {cases} cases ({simple} on the terms "
+          f"route, {cases - simple} on the interpreter) equal to the plain "
+          f"version and to solo sel_pred", flush=True)
     assert 0 < simple < cases, "both evaluations must be taken"
     gc.collect()
     return 0
@@ -1888,9 +1909,9 @@ def batched_at_main_shape(dev) -> dict:
     interp = [sm.encode_predicate([build_rpn(Expr.call(
         "UnaryNotInt", Expr.column(0) <= Expr.const(t, EvalType.INT)))],
         [torch.int32]) for t in thrs]
-    assert all(sm.simple_terms(q) for q in progs) and \
-        not any(sm.simple_terms(q) for q in interp)
     planes = [(c1, None)]
+    assert route_of(progs[0], planes) == "terms" and \
+        route_of(interp[0], planes) == "interpreter"
     saved = counts()
     got = sm.sel_pred_batched(progs, planes, n)
     assert torch.equal(got.buf, sm.sel_pred_batched_plain(
@@ -1909,7 +1930,7 @@ def batched_at_main_shape(dev) -> dict:
          "library_call": "torch.gt of the plane against the (G, 1) "
                          "thresholds (yardstick)",
          **bound_ms(4 * n + G * -(-n // 8) + 8 * G, G * n),
-         "rows": n, "lanes": G,
+         "rows": n, "lanes": G, "lane_route": route_of(progs[0], planes),
          "selected": got.counts.tolist(),
          "peak_bytes": peak_bytes(lambda: sm.sel_pred_batched(
              progs, planes, n))}
@@ -3095,6 +3116,7 @@ PLAN_ROWS = {"probe": 10 << 20, "build": 1 << 20}
 PLAN_ROUTE = {"7": {"join_build", "join_index", "join_probe", "sel_pred"},
               "7s": {"sort_perm"}, "7w": {"sort_perm", "window_scan"}}
 I64 = np.iinfo(np.int64)
+I32 = np.iinfo(np.int32)
 
 
 def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -3671,7 +3693,14 @@ def analyze_cases(dev):
     values, NULLs on 20%); then over 2^20 rows: float64 with NaN, −NaN,
     ±0.0 and ±inf on 5% each, int64 over its whole range with NULLs (the
     NULL key all ones), int64 keys of exactly 32 and 33 bits, one value on
-    every row, uint64 at and past 2^63, and 2^22 rows with 256 buckets."""
+    every row, uint64 at and past 2^63, and 2^22 rows with 256 buckets;
+    then the routes' own cases over 2^20 rows: one value on 90% of the
+    rows and random int32 values on the rest, an4s's shape (1024 values
+    over 62 bits), an4r's (normal float64), int64 keys spanning the
+    counting route's limit and one past it, a column whose first bucket
+    passes its shared hash table (``configs.analyze_oversized_case``) and
+    ascending ids (the unstaged scatter of sorted rows)."""
+    from tikv_tpu_torch.device import analyze as an
     from tikv_tpu_torch.testing import configs as cf
 
     def up(v, ok, n, b):
@@ -3711,16 +3740,39 @@ def analyze_cases(dev):
     yield "int32/2^22", *up(rng.integers(-(1 << 31), 1 << 31, m,
                                          dtype=np.int32),
                             rng.random(m) > 0.1, m - 5, 256)
+    m = 1 << 20
+    heavy = rng.integers(I32.min, I32.max, m, dtype=np.int32, endpoint=True)
+    heavy[rng.random(m) < 0.9] = 5
+    yield "int32/one value on 90%/2^20", *up(heavy, rng.random(m) > 0.05, m,
+                                            256)
+    _t, s4s = cf.build_sparse_table(m)
+    yield "int64/an4s shape/2^20", *up(s4s.columns[2].values,
+                                       np.ones(m, np.bool_), m, 256)
+    yield "float64/an4r shape/2^20", *up(rng.normal(0.0, 1000.0, m),
+                                         rng.random(m) > 0.05, m, 256)
+    for extra, what in ((0, "at"), (1, "past")):
+        span = an.COUNT_SPAN + extra
+        k = -(1 << 40) + rng.integers(0, span, m)
+        k[:2] = (-(1 << 40), -(1 << 40) + span - 1)
+        yield f"int64/span {what} the counting limit/2^20", *up(
+            k, np.ones(m, np.bool_), m, 256)
+    yield "int32/oversized bucket/2^20", *up(*cf.analyze_oversized_case(m))
+    yield "int32/ascending ids/2^20", *up(np.arange(m, dtype=np.int32),
+                                          rng.random(m) > 0.05, m, 256)
 
 
 def check_analyze(dev) -> float:
     """analyze_column against its plain version on the card over
     ``analyze_cases``: every rank word, n_valid and the distinct count bit
     for bit, the bound of every bucket the unpacking keeps by value
-    (``analyze.packed_max_diff``; tolerance 0)."""
+    (``analyze.packed_max_diff``; tolerance 0).  Each case's route is run
+    again through ``ColumnLaunch``: on the partition route its distinct
+    splitters, sorted buckets and oversized buckets must equal the numpy
+    model's (``analyze.route_model``); the counting route, the partition
+    route and its oversized buckets must each be taken."""
     from tikv_tpu_torch.device import analyze as an
     saved = counts()
-    worst, n_cases, bits = 0.0, 0, {}
+    worst, n_cases, bits, routes = 0.0, 0, {}, {}
     for label, v, ok, n, b in analyze_cases(dev):
         got = an.analyze_column(v, ok, n, b)
         want = an.analyze_column_plain(v, ok, n, b)
@@ -3729,14 +3781,36 @@ def check_analyze(dev) -> float:
         assert err == 0, f"analyze {label}: differs by {err}"
         worst = max(worst, err)
         n_cases += 1
+        col = an.ColumnLaunch(v, ok, n, b)
+        col.range()
+        plan = col.read_range()
+        col.run()
+        assert torch.equal(col.out, got), f"analyze {label}: reruns differ"
+        route = plan.route
+        if route == "partition":
+            st = col.partition_stats()
+            _m, info = an.route_model(v.cpu().numpy(), ok.cpu().numpy(), n,
+                                      b)
+            model = {k: info[k] for k in st}
+            assert st == model, f"analyze {label}: {st} != model {model}"
+            if st["oversized"]:
+                route = "partition+oversized"
+        routes[route] = routes.get(route, 0) + 1
         if "2^2" in label:
             bits[label] = an.key_plan(v, ok, n)[3]
-        del got, want
+            print(f"kernel analyze {label}: route={route} "
+                  f"n_split={plan.n_split} key_bytes={plan.key_bytes}"
+                  + (f" {json.dumps(st)}" if plan.route == "partition"
+                     else "") + " max_abs_err=0", flush=True)
+        del got, want, col
     set_counts(saved)
     print(f"kernel analyze: {n_cases} cases (edge cases of every dtype, "
           f"n in {ANALYZE_SIZES}, 2^20 and 2^22 rows): max_abs_err={worst} "
           f"tolerance=0 (ranks, counts bit for bit; kept bounds by value); "
-          f"key bits {json.dumps(bits)}", flush=True)
+          f"routes {json.dumps(routes)}; key bits {json.dumps(bits)}",
+          flush=True)
+    for route in ("count", "partition", "partition+oversized"):
+        assert routes.get(route), f"analyze: no case took route {route}"
     return worst
 
 
@@ -3754,8 +3828,9 @@ def run_analyze(cell: str, runner, table=None, snap=None) -> dict:
     ``Endpoint.handle_analyze`` at a row threshold of the snapshot's rows:
     one cold and five warm requests, each answer against the numpy truth
     (``configs.analyze_truth``); ``analyze`` must launch once per column
-    and request and no other kernel; no degrade; the host-clock phases of
-    the cold and the median warm request."""
+    and request and no other kernel; one range wait a request; no
+    degrade; the host-clock phases of the cold and the median warm
+    request."""
     from tikv_tpu_torch.copr.endpoint import Endpoint
     from tikv_tpu_torch.testing import configs as cf
     t0 = time.perf_counter()
@@ -3784,6 +3859,9 @@ def run_analyze(cell: str, runner, table=None, snap=None) -> dict:
     assert all(v == 0 for k, v in launches.items() if k != "analyze"), \
         f"cell {cell} launched {launches}"
     assert not ep.degrades, f"cell {cell}: degrades {ep.degrades}"
+    # one range wait a request, whatever its columns
+    assert all(p.get("range_waits") == 1 for p in phases), \
+        f"cell {cell}: range waits {[p.get('range_waits') for p in phases]}"
     out = {"config": cell, "rows": rows, "columns": cols,
            "buckets": areq.buckets, "cold_ms": times[0],
            "warm_p50_ms": float(np.percentile(times[1:], 50)),
@@ -4159,16 +4237,38 @@ def run_6b_ep(runner) -> list:
     return out
 
 
+def analyze_design_bytes(plan, n: int, value_bytes: int, n_keys: int,
+                         n_buckets: int) -> int:
+    """The bytes the route's kernels move at least: the range's read of
+    each value and validity byte, then the counting route's second read
+    and its counters, or the partition route's sample, its reads in
+    classify and scatter, each between-bucket key written once and read
+    once (``n_keys``), and its per-bucket tables."""
+    row = n * (value_bytes + 1)
+    head = (2 * n_buckets + 2) * 8
+    if plan.route == "count":
+        return 2 * row + 8 * plan.span + head
+    if plan.route != "partition":
+        return row + head
+    kb, nbk = plan.key_bytes, plan.n_bucket
+    return 3 * row + 2 * kb * n_keys + plan.n_sample * (value_bytes + 1) \
+        + 4 * kb * plan.n_sample + 32 * nbk + head
+
+
 def analyze_at_main_shapes(runner, dev) -> dict:
     """analyze_column at an4's id, k and v (104,857,600 int32 rows), an4s's
     k (2^24 int64) and an4r's v (2^24 float64), the columns padded as the
     runner uploads them: checked against the plain version there, and
     timed with CUDA events: as issued (``ms``: the wrapper waits once, for
     the range read) and its kernels alone, queued behind a device sleep
-    (``kernel_ms``: the range launch plus the sort launch), beside the bound
-    (each value and validity byte read once, the packed vector written
-    once, at 3.35 TB/s), the plain version and one ``torch.sort`` of the
-    same sentinelled column (a yardstick the port never calls)."""
+    (``kernel_ms``: the range launch plus the route's launches), each of
+    the route's kernels (``stage_ms``: the difference of two prefixes of
+    its launches), beside the bound (each value and validity byte read
+    once, the packed vector written once, at 3.35 TB/s), the design's own
+    bytes (``design_bytes``, ``design_bound_ms``), the plain version and
+    one ``torch.sort`` of the same sentinelled column (a yardstick the
+    port never calls); the route and, on the partition route, its
+    distinct splitters, sorted buckets and oversized buckets."""
     from tikv_tpu_torch.datatype.tile import _device_dtype
     from tikv_tpu_torch.device import analyze as an
     from tikv_tpu_torch.testing import configs as cf
@@ -4196,27 +4296,49 @@ def analyze_at_main_shapes(runner, dev) -> dict:
                 an.analyze_column_plain(v, ok, n, b), b, real)
             launch = an.ColumnLaunch(v, ok, n, b)
             launch.range()
-            n_valid, _lo, _hi, bits = launch.read_range()
+            plan = launch.read_range()
+            launch.run()
+            stats = launch.partition_stats() \
+                if plan.route == "partition" else {}
             range_ms = cuda_ms(launch.range, 20, queued=True)
-            sort_ms = cuda_ms(launch.sort, 10, queued=True)
+            run_ms = cuda_ms(launch.run, 10, queued=True)
+            stage_ms, before = {}, 0.0
+            stages = an.STAGES[plan.route]
+            for k, stage in enumerate(stages, 1):
+                upto = run_ms if k == len(stages) else cuda_ms(
+                    lambda: launch.run(k), 10, queued=True)
+                stage_ms[stage] = upto - before
+                before = upto
+            # the keys written to buckets: the rows of between buckets
+            n_keys = 0
+            if plan.route == "partition":
+                launch.run()
+                at, size = an.scratch_layout(plan)[0]["totals"]
+                tot = launch.scratch[at:at + size].view(torch.int64)
+                n_keys = int(tot[:2 * stats["splitters"] + 1:2].sum())
+            design = analyze_design_bytes(plan, n, v.element_size(), n_keys,
+                                          b)
             mask = (torch.arange(n_pad, device=dev) < n) & ok
             sent = math.nan if real else torch.iinfo(v.dtype).max
             key = torch.where(mask, v, torch.full_like(v, sent))
             out[label] = {
                 "ms": cuda_ms(lambda: an.analyze_column(v, ok, n, b), 10),
-                "kernel_ms": range_ms + sort_ms, "range_ms": range_ms,
-                "sort_ms": sort_ms,
+                "kernel_ms": range_ms + run_ms, "range_ms": range_ms,
+                "run_ms": run_ms, "column_route": plan.route,
+                "stage_ms": stage_ms, **stats, "bucket_keys": n_keys,
+                "n_split": plan.n_split, "key_bytes": plan.key_bytes,
+                "design_bytes": design,
+                "design_bound_ms": design / HBM_BYTES_PER_S * 1e3,
                 "plain_ms": cuda_ms(
                     lambda: an.analyze_column_plain(v, ok, n, b), 3),
                 "library_ms": cuda_ms(lambda: torch.sort(key), 5),
                 "library_call": "torch.sort of the sentinelled column",
                 **bound_ms(n * (v.element_size() + 1) + (2 * b + 2) * 8, 0),
                 "rows": n, "dtype": str(v.dtype).replace("torch.", ""),
-                "key_bits": bits, "passes": -(-bits // 8),
-                "n_valid": n_valid,
+                "key_bits": plan.bits, "n_valid": plan.n_valid,
                 "timed": "ms: the wrapper as issued (it waits once, for the "
-                         "range read); kernel_ms: range + sort launches "
-                         "queued"}
+                         "range read); kernel_ms: range + route launches "
+                         "queued; stage_ms: prefix differences"}
             print(f"analyze at {label}: {json.dumps(out[label])}",
                   flush=True)
             del v, ok, key, mask, launch
@@ -4743,6 +4865,15 @@ def main() -> int:
     worst["join_probe"] = worst["join_index"] = check_join(dev)
     worst["window_scan"] = check_window(dev)
     worst["split_planes"] = check_split(dev)
+    # ANALYZE loads no selection kernel: its checks, cells (but an6c, which
+    # needs the cold path's snapshot), CHECKSUM and timings run while the
+    # selection source compiles
+    runner = DeviceRunner()
+    worst["analyze"] = check_analyze(dev)
+    analyze_runs = [run_analyze(c, runner) for c in ANALYZE_ROWS]
+    run_checksum()
+    analyze_timing, err = analyze_at_main_shapes(runner, dev)
+    worst["analyze"] = max(worst["analyze"], err)
     print(f"elapsed: {time.perf_counter() - t0:.1f} s at the selection "
           f"build's wait", flush=True)
     await_builds()
@@ -4755,9 +4886,8 @@ def main() -> int:
         print(f"elapsed: {time.perf_counter() - t0:.1f} s {what}",
               flush=True)
 
-    runner = DeviceRunner()
     elapsed("before the DAG configs")
-    runs = [run_config(c, SIZES[c], runner) for c in SIZES]
+    runs = analyze_runs + [run_config(c, SIZES[c], runner) for c in SIZES]
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
     runs.append(run_uncovered(runner))
@@ -4769,11 +4899,8 @@ def main() -> int:
     elapsed("before the plan IR")
     ep, pair = plan_endpoint(runner)
     runs += [run_plan(c, ep, pair) for c in PLAN_ROUTE]
-    worst["analyze"] = check_analyze(dev)
-    runs += [run_analyze(c, runner) for c in ANALYZE_ROWS]
     runs.append(run_analyze("an6c", runner, snap6c._tbl.table, snap6c))
     del snap6c
-    run_checksum()
     elapsed("before the serving path")
     check_budget(dev)
     runs.append(run_deferred(runner))
@@ -4823,7 +4950,8 @@ def main() -> int:
          "launches": launches["sel_pred"], "max_abs_err": worst["sel_pred"],
          **pred_timing},
         {"name": "sel_pred_batched", "route": "cuda",
-         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "source": "tikv_tpu_torch/csrc/sel_batched.cu",
+         "interpreter_source": "tikv_tpu_torch/csrc/selection.cu",
          "replaces": "tikv_tpu/device/selection.py:273",
          "launches": launches["sel_pred_batched"],
          "max_abs_err": worst["sel_pred_batched"], **batched_timing},
@@ -4875,8 +5003,6 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(worst[name], errs[name]),
             **plan_timing[name]})
-    analyze_timing, err = analyze_at_main_shapes(runner, dev)
-    worst["analyze"] = max(worst["analyze"], err)
     kernels.append({
         "name": "analyze", "route": "cuda",
         "source": "tikv_tpu_torch/csrc/analyze.cu",
@@ -4885,7 +5011,7 @@ def main() -> int:
         **{k: v for k, v in analyze_timing["an4 id"].items()
            if k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library_call", "rows", "dtype",
-                    "passes")},
+                    "column_route", "design_bytes", "design_bound_ms")},
         "configs": analyze_timing})
     kernels.append({
         "name": "split_planes", "route": "cuda",

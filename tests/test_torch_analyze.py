@@ -10,6 +10,13 @@
   word, n_valid and the distinct count bit for bit; the bound of each
   bucket the reference's unpacking keeps by value (-0.0 equals +0.0, NaN
   equals NaN); tolerance 0.
+- The routes' arithmetic of ``csrc/analyze.cu`` (``analyze.route_model``:
+  the route chosen from the range, the sample and its splitters, each
+  key's bucket, each rank's bucket and position, each bucket's distinct
+  count) against the same two at the card's geometry and at buckets of a
+  few keys; the counting limit and one past it, the partition sizes and
+  the scratch layout at config 4's rows, the oversized-bucket case, and
+  one range read a request (``AnalyzeBatch``).
 - Endpoint level: ``Endpoint.handle_analyze`` with
   ``DeviceRunner(device="cpu")`` against the reference endpoint's device
   route (a single-device mesh) and its host half, over full and partial
@@ -144,8 +151,166 @@ def test_params_mirror_the_kernel_struct():
     body = re.search(r"struct AnalyzeParams \{(.*?)\n\};", src, re.S)[1]
     names = re.findall(r"(\w+)(?:\[\d+\])?;", re.sub(r"//.*", "", body))
     assert names == [f[0] for f in an._AnalyzeParams._fields_]
-    assert ctypes.sizeof(an._AnalyzeParams) == 120
+    assert ctypes.sizeof(an._AnalyzeParams) == 264
     assert callable(an._kernel_lib)
+
+
+# the routes' arithmetic (csrc/analyze.cu), modelled in numpy: the card's
+# geometry, and buckets of a few keys so that 300 rows cut into many
+GEOMETRIES = {"card": {},
+              "tiny buckets": {"HASH_BYTES": 256,
+                               "SPLIT_ROWS": {4: 8, 8: 8}}}
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("kind", list(DTYPES))
+def test_route_model_matches_plain_and_reference(ref_runner, monkeypatch,
+                                                 kind, case, geometry):
+    """The routes' arithmetic (the range, the route's choice, the sample
+    and its splitters, each key's bucket, each rank's bucket and position,
+    the distinct count a bucket) gives the plain version's vector and the
+    reference kernel's (tolerance 0, the ranks bit for bit)."""
+    for name, value in GEOMETRIES[geometry].items():
+        monkeypatch.setattr(an, name, value)
+    vals, ok, n, b = kernel_case(kind, case)
+    got, info = an.route_model(vals, ok, n, b)
+    want = an.analyze_column_plain(torch.from_numpy(vals),
+                                   torch.from_numpy(ok), n, b)
+    real = kind == "float64"
+    assert an.packed_max_diff(got, want, b, real) == 0
+    assert np.array_equal(got[b:], want.numpy()[b:])
+    assert an.packed_max_diff(got, ref_packed(vals, ok, n, b), b, real) == 0
+    plan = info["plan"]
+    if geometry != "card" and plan.route == "partition" and \
+            plan.n_valid > an.hash_keys(plan.key_bytes):
+        assert plan.n_split > 0 and info["splitters"] >= 1
+
+
+def test_route_choice_at_the_counting_limit():
+    """Keys spanning 2^15 values count; one more partitions; no valid row
+    is empty; 32-bit keys up to the NULL key's 32 bits, else 64."""
+    lo = 1000
+    assert an.plan_route(10, lo, lo + an.COUNT_SPAN - 1, False).route == \
+        "count"
+    p = an.plan_route(10, lo, lo + an.COUNT_SPAN, False)
+    assert p.route == "partition" and p.key_bytes == 4 and p.n_split == 0
+    assert an.plan_route(0, 0, 0, True).route == "empty"
+    nan = an.plan_route(5, 7, (1 << 64) - 1, True)
+    assert nan.has_nan and nan.top == (1 << 64) - 8 and nan.key_bytes == 8
+    assert an.plan_route(3, 0, (1 << 32) - 2, False).key_bytes == 4
+    assert an.plan_route(3, 0, (1 << 32) - 1, False).key_bytes == 8
+    rng = np.random.default_rng(16)
+    for extra, route in ((0, "count"), (1, "partition")):
+        v = rng.integers(0, an.COUNT_SPAN + extra, 4000).astype(np.int64)
+        v[:2] = (0, an.COUNT_SPAN - 1 + extra)
+        ok = rng.random(4000) > 0.1
+        ok[:2] = True
+        got, info = an.route_model(v, ok, 4000, 64)
+        assert info["plan"].route == route
+        want = an.analyze_column_plain(torch.from_numpy(v),
+                                       torch.from_numpy(ok), 4000, 64)
+        assert np.array_equal(got, want.numpy())
+
+
+def test_partition_sizes_fit_the_card():
+    """At config 4's 104,857,600 rows 32-bit keys take 16384 splitters
+    (buckets of about 6400 keys), at 2^24 64-bit keys 8192; the classify
+    and scatter kernels' shared bytes fit 227 KB at the most splitters;
+    the scratch puts the zeroed words first, 16-byte aligned, disjoint."""
+    assert an.n_split_of(104_857_600, 4) == 16384
+    assert an.n_split_of(1 << 24, 8) == 8192
+    assert an.n_split_of(an.hash_keys(4), 4) == 0
+    assert an.n_split_of(an.hash_keys(4) + 1, 4) == 7
+    for kb in (4, 8):
+        assert an.part_smem(an.SPLIT_MAX[kb], kb) <= an.SMEM_MAX
+    assert an.hash_keys(4) == 24576 and an.hash_keys(8) == 12288
+    plan = an.plan_route(104_857_600, 1 << 63, (1 << 63) + 104_857_599,
+                         False)
+    assert (plan.bits, plan.key_bytes, plan.n_sample) == (27, 4, 262144)
+    layout, total, zeroed = an.scratch_layout(plan)
+    assert layout["sample_work"][1] == 8 * an.sort_words(262144, 27)
+    spans = sorted(layout.values())
+    for (a, sa), (b, _sb) in zip(spans, spans[1:]):
+        assert a % 16 == 0 and a + sa <= b
+    assert zeroed == layout["sample0"][0]
+    assert {k for k, (a, _s) in layout.items() if a < zeroed} == \
+        {"state", "counters", "table", "sample_work"}
+    assert total >= layout["keys1"][0] + 4 * 104_857_600
+    count = an.plan_route(50, 3, 2002, False)
+    layout, total, zeroed = an.scratch_layout(count)
+    assert count.span == 2000 and layout["counters"][1] == 8 * 2000
+    assert zeroed == total and "keys0" not in layout
+
+
+def test_rank_homes_and_samples():
+    """Each rank's bucket and position over bucket totals; the sample's
+    rows, one in each of S equal strata (or every row's stratum when S
+    passes n)."""
+    bucket, pos = an.rank_homes(np.array([2, 0, 3, 1]),
+                                np.array([0, 1, 2, 4, 5]))
+    assert bucket.tolist() == [0, 0, 2, 2, 3]
+    assert pos.tolist() == [0, 1, 0, 2, 0]
+    assert an.rank_of(3, 8).tolist() == [0, 0, 0, 0, 0, 1, 1, 2]
+    rows = an.sample_rows(10_000, 256)
+    strata = np.arange(257) * 10_000 // 256
+    assert np.all((rows >= strata[:-1]) & (rows < strata[1:]))
+    assert len(set(rows.tolist())) > 1 and rows.dtype == np.int64
+    few = an.sample_rows(5, 16)
+    assert few.tolist() == (np.arange(16) * 5 // 16).tolist()
+
+
+def test_oversized_bucket_case():
+    """``configs.analyze_oversized_case`` drives one between bucket past
+    its hash table onto sort_kernel's device-memory sort; the model's
+    answer is still the plain version's."""
+    vals, ok, n, b = cf.analyze_oversized_case(1 << 18)
+    got, info = an.route_model(vals, ok, n, b)
+    assert info["oversized"] == 1 and info["plan"].route == "partition"
+    want = an.analyze_column_plain(torch.from_numpy(vals),
+                                   torch.from_numpy(ok), n, b)
+    assert an.packed_max_diff(got, want, b, False) == 0
+
+
+def test_a_batch_reads_every_range_in_one_copy(monkeypatch):
+    """``AnalyzeBatch.run`` reads the ranges of all its columns with one
+    copy, then plans and runs each column; ``range_waits`` counts 1."""
+    copies = []
+    real_stack = torch.stack
+
+    def stack(ts, *a, **k):
+        copies.append(len(ts))
+        return real_stack(ts, *a, **k)
+
+    class Fake:
+        def __init__(self, words):
+            self.rng = torch.tensor(words, dtype=torch.int64)
+            self.calls = []
+
+        def plan(self, got):
+            self.calls.append(("plan", list(got)))
+
+        def run(self):
+            self.calls.append(("run",))
+    monkeypatch.setattr(torch, "stack", stack)
+    batch = an.AnalyzeBatch()
+    cols = [Fake([3, 1, -5]), Fake([0, -1, -1]), Fake([7, 9, -20])]
+    batch.columns.extend(cols)
+    phases = {}
+    before = an.analyze_launches
+    batch.run(phases)
+    assert copies == [3] and phases["range_waits"] == 1
+    assert [c.calls for c in cols] == [
+        [("plan", [3, 1, -5]), ("run",)], [("plan", [0, -1, -1]), ("run",)],
+        [("plan", [7, 9, -20]), ("run",)]]
+    assert an.analyze_launches == before + 3 and not batch.columns
+    batch.run(phases)                       # empty: no copy
+    assert copies == [3]
+    # on the CPU the wrapper answers at once and the batch stays empty
+    v, okv, n, b = kernel_case("int64", "random")
+    got = an.analyze_column(torch.from_numpy(v), torch.from_numpy(okv), n,
+                            b, batch=batch)
+    assert not batch.columns and got.shape == (2 * b + 2,)
 
 
 def test_packed_diff_reads_only_what_the_unpacking_reads():

@@ -8,11 +8,14 @@ each lane's constants (``split_params``) and runs
 leading lane axis of its parameters); the port encodes each lane's
 program (``encode_predicate``) and runs ``sel_pred_batched``, whose plain
 version loops ``sel_pred_plain`` over the lanes.  Counts and packed masks
-must be equal bit for bit (tolerance 0), for G of 1, 3 and 16 lanes and
-at the lane limit, over NULL-heavy planes, int32 extremes, int64 and REAL
-constants.  Beside them: lanes that differ in more than their constants
-are refused (``LanesDiffer``, and the runner's ``_BatchUnavailable``), and
-the wrapper takes its plain version only on the CPU.
+must be equal bit for bit (tolerance 0), for G of 1, 3, 16 and 17 lanes
+and at the lane limit, over NULL-heavy planes, int32 extremes, int64 and
+REAL constants, and n ending mid-word.  The terms route's arithmetic
+(``selection.terms_model``: each lane and term an interval on order
+images) equals the plain version, float specials included.  Beside them:
+lanes that differ in more than their constants are refused
+(``LanesDiffer``, and the runner's ``_BatchUnavailable``), and the wrapper
+takes its plain version only on the CPU.
 """
 
 import numpy as np
@@ -89,6 +92,18 @@ def shapes(rng, shape: str):
                  ("IsNullInt", ("col", 1)))]
     if shape == "in":
         return [("InInt", ("col", 0), i32(), i32(), i32())]
+    if shape == "range":
+        lo = int(rng.integers(-1100, 1000))
+        return [("GeInt", ("col", 0), ("int", lo)),
+                ("LtInt", ("col", 0), ("int", lo + 150))]
+    if shape == "wide_terms":
+        lo = int(rng.integers(-(1 << 40), 1 << 39))
+        return [("GeInt", ("col", 1), ("int", lo)),
+                ("LeInt", ("col", 1), ("int", lo + (1 << 39)))]
+    if shape == "real_ne":
+        return [("NeReal", ("col", 2),
+                 ("real", float(rng.integers(-40, 40)) / 4.0)),
+                ("LeReal", ("col", 2), ("real", 500.0))]
     raise ValueError(shape)
 
 
@@ -261,3 +276,112 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_only():
                           port_planes(cols))
     with pytest.raises(ValueError, match="cuda or cpu"):
         sm.sel_pred_batched(progs, planes, 100)
+
+
+# the terms route (csrc/sel_batched.cu): 32 rows a thread, one interval
+# test a row, term and lane; n = 33 and 4127 end mid-word
+
+@pytest.mark.parametrize("G", [1, 17, 64])
+@pytest.mark.parametrize("shape", ["gt", "real", "range"])
+@pytest.mark.parametrize("n", [33, 4127])
+def test_plain_matches_the_reference_at_wide_groups(G, shape, n):
+    cols = table(n, 300 + n, 0.1, False)
+    planes = port_planes(cols)
+    lane_specs = lanes_of(shape, G, seed=n + G)
+    progs = port_programs(lane_specs, planes)
+    counts, packed = sm.batched_host(
+        sm.sel_pred_batched(progs, planes, n).buf.numpy(), G, n)
+    want_c, want_p = reference_batched(lane_specs, cols, n)
+    np.testing.assert_array_equal(counts, want_c)
+    np.testing.assert_array_equal(packed, want_p)
+
+
+@pytest.mark.parametrize("G", [1, 17, 64])
+@pytest.mark.parametrize("shape", ["gt", "extremes", "real", "range",
+                                   "wide_terms", "real_ne"])
+@pytest.mark.parametrize("n", [1, 33, 4127])
+def test_terms_model_matches_the_plain_version(G, shape, n):
+    """The terms kernel's arithmetic (``term_table``'s intervals over
+    ``row_images``) gives the plain version's counts and masks bit for
+    bit."""
+    cols = table(n, 500 + n, 0.1, shape == "extremes")
+    planes = port_planes(cols)
+    progs = port_programs(lanes_of(shape, G, seed=n * 3 + G), planes)
+    assert sm.terms_route(progs[0], planes)
+    assert progs[0].wide == (shape == "wide_terms")
+    want_c, want_p = sm.batched_host(
+        sm.sel_pred_batched_plain(progs, planes, n).buf.numpy(), G, n)
+    got_c, got_p = sm.terms_model(progs, planes, n)
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_array_equal(got_p, want_p)
+
+
+@pytest.mark.parametrize("cmp", ["Gt", "Ge", "Lt", "Le", "Eq", "Ne"])
+def test_terms_model_at_float_specials(cmp):
+    """NaN, ±0.0, ±inf and the float32 extremes as rows and as constants,
+    a NULL constant beside them: the interval of each comparison selects
+    what the comparison selects (NaN only under Ne, -0.0 equal to
+    +0.0)."""
+    f32 = np.finfo(np.float32)
+    specials = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf,
+                         f32.max, -f32.max, f32.tiny, -f32.tiny, 1.5,
+                         -2.25], np.float32)
+    n = 97
+    rng = np.random.default_rng(17)
+    r = specials[rng.integers(0, specials.size, n)]
+    ok = rng.random(n) > 0.1
+    cols = [(np.zeros(n, np.int32), ok), (np.zeros(n, np.int64), ok),
+            (np.where(ok, r, np.float32(0)), ok)]
+    planes = port_planes(cols)
+    consts = [("real", float(c)) for c in specials] + [("null", "R")]
+    lane_specs = [[(f"{cmp}Real", ("col", 2), c)] for c in consts]
+    progs = port_programs(lane_specs, planes)
+    assert sm.terms_route(progs[0], planes)
+    G = len(progs)
+    want_c, want_p = sm.batched_host(
+        sm.sel_pred_batched_plain(progs, planes, n).buf.numpy(), G, n)
+    got_c, got_p = sm.terms_model(progs, planes, n)
+    np.testing.assert_array_equal(got_c, want_c)
+    np.testing.assert_array_equal(got_p, want_p)
+
+
+def test_terms_route_and_intervals():
+    """Which programs take the terms kernel, and the intervals of the
+    edges: a comparison no value passes selects nothing, Ne inverts."""
+    cols = table(64, 4, 0.1, False)
+    planes = port_planes(cols)
+    rng = np.random.default_rng(9)
+    for shape, want in (("gt", True), ("range", True), ("real", True),
+                        ("wide_terms", True), ("wide", False),
+                        ("mixed", False), ("in", False)):
+        prog, = port_programs([shapes(rng, shape)], planes)
+        assert sm.terms_route(prog, planes) == want, shape
+    gt, lt, ne = (sm._CMP_OPS[k] for k in ("Gt", "Lt", "Ne"))
+    assert sm.term_interval(gt, I32_MAX, False, False, False) == (0, 0, 0)
+    assert sm.term_interval(lt, I32_MIN, False, False, False) == (0, 0, 0)
+    assert sm.term_interval(gt, 5, True, False, False) == (0, 0, 0)
+    lo, span, fl = sm.term_interval(ne, -1, False, False, True)
+    assert (lo, span) == ((1 << 63) - 1, 0)
+    assert fl == sm.TERM_IN | sm.TERM_INVERT
+
+
+def test_params_mirror_the_kernel_structs():
+    """``_TermsParams`` and ``_BatchParams`` name the fields of
+    csrc/sel_batched.cu's ``struct TermsParams`` and csrc/selection.cu's
+    ``struct BatchParams`` in order (the libraries check the sizes at
+    load)."""
+    import re
+    from pathlib import Path
+    csrc = Path(sm.__file__).parent.parent / "csrc"
+    for src, struct, mirror in (("sel_batched.cu", "TermsParams",
+                                 sm._TermsParams),
+                                ("selection.cu", "BatchParams",
+                                 sm._BatchParams)):
+        body = re.search(rf"struct {struct} \{{(.*?)\n\}};",
+                         (csrc / src).read_text(), re.S)[1]
+        names = re.findall(r"(\w+)(?:\[\w+\])?;",
+                           re.sub(r"//.*", "", body))
+        assert names == [f[0] for f in mirror._fields_], struct
+    assert "sel_batched" in __import__(
+        "tikv_tpu_torch.device.build", fromlist=["SOURCES"]).SOURCES
+

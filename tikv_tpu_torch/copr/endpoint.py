@@ -24,7 +24,7 @@ src/coprocessor/endpoint.rs ``parse_and_handle_unary_request``):
   one snapshot per scan leaf, then the ``plan_executor`` routes and runs
   each fragment; a fragment's degrade is counted in ``degrades`` too.
 - ``handle_analyze(AnalyzeReq)`` (tp 104): per-column statistics, on the
-  device runner (``handle_analyze``: the column sorts on the card) when
+  device runner (``handle_analyze``: the column statistics on the card) when
   the snapshot holds at least ``device_row_threshold`` rows, else by the
   host half (``copr/analyze.py``) over the host pipeline's scan; a device
   fault degrades it to the host half, counted in ``degrades["analyze"]``.

@@ -63,8 +63,11 @@
 // into its own slots of a shared tile and evaluates every lane from
 // there.  A program of terms "column 0 compared with a constant" (the
 // common parameterized selection, `c1 > ?`, `v BETWEEN ? AND ?` as two
-// conditions) skips the tile and the interpreter: the thread keeps its
-// rows in registers and each lane is one compare a row and term.  The
+// conditions) takes sel_batched.cu's terms kernel instead; the register
+// path below keeps only terms whose comparisons read another dtype than
+// the column's (device/selection.py terms_route).  It stays because this
+// kernel's interpreter ran 57% slower at 6b-ep's shape on an H100 without
+// it (PERF.md section 6).  The
 // lanes' constants (G x 32 int64 would pass the 4 KB of
 // launch parameters at G = 16) travel in a small device buffer, staged in
 // shared memory once a CTA.  Output: G int64 counts, then G packed masks

@@ -6,7 +6,8 @@ statistics of ANALYZE (``DeviceRunner.handle_analyze``).
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``agg_fold`` (aggregation), ``selection`` (``sel_pred``,
-``sel_pred_batched``, ``sel_mask``, ``sel_compact``), ``topn``
+``sel_pred_batched``'s interpreter, ``sel_mask``, ``sel_compact``),
+``sel_batched`` (``sel_pred_batched``'s terms route), ``topn``
 (``topn_select``), ``digest``
 (``plane_digest``, ``patch_rows``), ``mvcc`` (``mvcc_resolve``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,

@@ -100,8 +100,9 @@ ROADMAP.md item.  An empty scan gets the host pipeline's answer: the
 finalize of empty states, or no rows.  ``joiner()`` is the runner's
 ``DeviceJoiner``: the plan IR's join, sort and window fragments.
 ``handle_analyze`` answers an ANALYZE request: each INT, REAL, DATETIME
-and DURATION column sorted and summarised on the card
-(``analyze.analyze_column``, the CUDA kernel ``csrc/analyze.cu``), every
+and DURATION column summarised on the card (``analyze.analyze_column``,
+the CUDA kernel ``csrc/analyze.cu``: a counting route for narrow key
+spans, a partition into buckets for wide ones; one wait a request), every
 other column by the host half (``copr.analyze``).
 """
 
@@ -824,8 +825,11 @@ class DeviceRunner:
 
         Each INT, REAL, DATETIME and DURATION column is uploaded (REAL as
         float64: the statistics are exact) and summarised by one
-        ``analyze.analyze_column``; every packed vector comes back in one
-        D2H copy.  Other columns, and uint64 columns holding a value at or
+        ``analyze.analyze_column`` into the request's ``AnalyzeBatch``:
+        each column's range kernel launches after its upload, the batch
+        reads every range back in one copy (the request's one wait before
+        its result, ``range_waits`` in the phases) and launches each
+        column's route; every packed vector comes back in one D2H copy.  Other columns, and uint64 columns holding a value at or
         past 2^63, take the host half (``copr.analyze.analyze_columns``)
         after every device column has been launched.  ``analyze_phases_ms``
         holds the host-clock phases of the last request."""
@@ -844,6 +848,7 @@ class DeviceRunner:
             return analyze_columns(batch, scan.columns, n_buckets)
         n_pad = self._pad_rows(n)
         pending, host_idx = {}, []
+        launches = an.AnalyzeBatch()
         dtype_s = upload_s = 0.0
         for i, col in enumerate(batch.columns):
             et = col.eval_type
@@ -861,9 +866,10 @@ class DeviceRunner:
             dtype_s += t2 - t
             upload_s += time.perf_counter() - t2
             pending[i] = an.analyze_column(vals, valid, n, n_buckets,
-                                           phases)
+                                           phases, batch=launches)
         phases["dtype"] = dtype_s * 1e3
         phases["pad_h2d"] = upload_s * 1e3
+        launches.run(phases)    # the request's one wait: every range
         t = time.perf_counter()
         out = {i: analyze_columns(
             ColumnBatch([batch.schema[i]], [batch.columns[i]]),

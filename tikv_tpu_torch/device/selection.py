@@ -912,24 +912,220 @@ _CMP_CODES = frozenset(range(_CMP_OPS["Gt"], _CMP_OPS["Ne"] + 7))
 
 def simple_terms(prog: PredProgram) -> bool:
     """Whether ``prog`` is terms ``column 0 <cmp> constant`` kept as they
-    are (one column; ``sel_pred_batched`` then evaluates every lane from
-    registers)."""
+    are (one column, every comparison integer or every one real;
+    ``sel_pred_batched`` then takes its terms kernel, one interval test a
+    row, term and lane)."""
     ops = prog.ops
     return len(prog.cols) == 1 and len(ops) % 3 == 0 and all(
         ops[k] == (OP_COL, 0, 0) and ops[k + 1][0] in _CMP_CODES and
         ops[k + 1][2] == 1 and ops[k + 2] == (OP_KEEP["I"], 0, 0)
-        for k in range(0, len(ops), 3))
+        for k in range(0, len(ops), 3)) and \
+        len({ops[k + 1][0] >= _CMP_OPS["Gt"] + 6
+             for k in range(0, len(ops), 3)}) == 1
+
+
+# the terms kernel's comparisons: each one a test of the value's order
+# image against an interval [lo, lo + span], kept (bit 0 of a term's flags)
+# or not, then inverted (bit 1: Ne); rows are 32-bit images unless the
+# program is wide
+_CMP_NAMES = ("gt", "ge", "lt", "le", "eq", "ne")
+TERM_IN, TERM_INVERT = 1, 2
+
+
+def _image_of_bits(bits: int, real: bool, w: int) -> int:
+    """The order image of a w-bit payload: an int with its sign bit
+    flipped; a float's bits with a negative's bits all flipped and a
+    positive's sign bit set (NaN lands past ±inf, -0.0 just below
+    +0.0)."""
+    sign = 1 << (w - 1)
+    if not real:
+        return bits ^ sign
+    return (~bits & ((1 << w) - 1)) if bits & sign else bits | sign
+
+
+def term_interval(op: int, payload: int, null: bool, real: bool,
+                  wide: bool) -> tuple:
+    """(lo, span, flags) of one comparison ``value <op> constant`` over
+    the order images of ``wide`` (64-bit) or 32-bit payloads: a row is
+    selected where ``((image - lo) mod 2^w <= span) & flags.in ^
+    flags.invert``, equal to the comparison (NaN compares false, and true
+    under Ne; -0.0 equals +0.0); a NULL constant selects nothing."""
+    w = 64 if wide else 32
+    mask = (1 << w) - 1
+    name = _CMP_NAMES[(op - _CMP_OPS["Gt"]) % 6]
+    if null:
+        return 0, 0, 0
+    if real:
+        bits = payload & mask if wide else _payload32(payload, True) & mask
+        exp = (bits >> (52 if wide else 23)) & ((1 << (11 if wide else 8)) - 1)
+        frac = bits & ((1 << (52 if wide else 23)) - 1)
+        if exp == (1 << (11 if wide else 8)) - 1 and frac:      # NaN
+            return 0, 0, TERM_INVERT if name == "ne" else 0
+        zero = bits & (mask >> 1) == 0
+        a = _image_of_bits(1 << (w - 1), True, w) if zero else \
+            _image_of_bits(bits, True, w)
+        b = _image_of_bits(0, True, w) if zero else a
+        inf = (((1 << (11 if wide else 8)) - 1) << (52 if wide else 23))
+        least = _image_of_bits(inf | (1 << (w - 1)), True, w)
+        most = _image_of_bits(inf, True, w)
+    else:
+        a = b = _image_of_bits(payload & mask, False, w)
+        least, most = 0, mask
+    lo, hi = {"gt": (b + 1, most), "ge": (a, most), "lt": (least, a - 1),
+              "le": (least, b), "eq": (a, b), "ne": (a, b)}[name]
+    if lo > hi:                                  # nothing compares so
+        return 0, 0, 0
+    return lo, hi - lo, TERM_IN | (TERM_INVERT if name == "ne" else 0)
+
+
+def term_table(progs: Sequence[PredProgram]) -> tuple:
+    """The terms kernel's table of G ``simple_terms`` programs that differ
+    in their constants: (uint64 [G, K, 2] of (lo, span), uint32 [G, K]
+    flags), K the terms a program."""
+    lead = progs[0]
+    terms = [lead.ops[k + 1] for k in range(0, len(lead.ops), 3)]
+    real = terms[0][0] >= _CMP_OPS["Gt"] + 6
+    bounds = np.zeros((len(progs), len(terms), 2), np.uint64)
+    flags = np.zeros((len(progs), len(terms)), np.uint32)
+    for g, q in enumerate(progs):
+        for k, (op, c, _aux) in enumerate(terms):
+            payload, null, _real = q.consts[c]
+            lo, span, fl = term_interval(op, payload, null, real, lead.wide)
+            bounds[g, k] = (lo, span)
+            flags[g, k] = fl
+    return bounds, flags
+
+
+def row_images(values: np.ndarray, real: bool, wide: bool) -> np.ndarray:
+    """The order images of column 0's values as the terms kernel makes
+    them (uint32, or uint64 when ``wide``: int32 sign-extended, a float32
+    widened to float64)."""
+    if wide:
+        bits = (values.astype(np.float64) if real
+                else values.astype(np.int64)).view(np.uint64)
+        sign = np.uint64(1 << 63)
+    else:
+        bits = values.view(np.uint32)
+        sign = np.uint32(1 << 31)
+    if not real:
+        return bits ^ sign
+    return np.where(bits & sign, ~bits, bits | sign)
+
+
+def terms_model(progs: Sequence[PredProgram], planes: Sequence,
+                n: int) -> tuple:
+    """The terms kernel's arithmetic in numpy: (int64 counts [G], uint8
+    packed masks [G, ceil(n/8)]) from ``term_table`` and ``row_images``,
+    to compare with ``batched_host`` of the plain version."""
+    lead = progs[0]
+    v, ok = planes[lead.cols[0]]
+    v = v[:n].numpy()
+    keep0 = np.ones(n, bool) if ok is None else ok[:n].numpy().copy()
+    real = lead.ops[1][0] >= _CMP_OPS["Gt"] + 6
+    img = row_images(v, real, lead.wide)
+    dt = img.dtype.type
+    bounds, flags = term_table(progs)
+    masks = []
+    for g in range(len(progs)):
+        keep = keep0.copy()
+        for k in range(flags.shape[1]):
+            inside = (img - dt(bounds[g, k, 0])) <= dt(bounds[g, k, 1])
+            res = inside & bool(flags[g, k] & TERM_IN)
+            keep &= res ^ bool(flags[g, k] & TERM_INVERT)
+        masks.append(keep)
+    masks = np.array(masks, bool).reshape(len(progs), n)
+    return masks.sum(axis=1).astype(np.int64), np.packbits(masks, axis=1)
+
+
+class _TermsParams(ctypes.Structure):
+    """``struct TermsParams`` of csrc/sel_batched.cu."""
+    _p = ctypes.c_void_p
+    _i = ctypes.c_int
+    _fields_ = [("values", _p), ("valid", _p), ("dtype", _i), ("wide", _i),
+                ("real", _i), ("lanes", _i), ("terms", _i), ("vec", _i),
+                ("n", ctypes.c_longlong), ("bounds", _p), ("flags", _p),
+                ("counts", _p), ("packed", _p),
+                ("lane_bytes", ctypes.c_longlong)]
+
+
+_terms_lib = None
+
+
+def _terms_kernel_lib():
+    global _terms_lib
+    if _terms_lib is None:
+        from .build import load_checked
+        lib = load_checked("sel_batched", {
+            "sel_terms_params_bytes": ctypes.sizeof(_TermsParams),
+            "sel_terms_max_lanes": BATCH_MAX_LANES},
+            "sel_terms_error_string")
+        lib.sel_terms_launch.argtypes = [ctypes.c_int,
+                                         ctypes.POINTER(_TermsParams),
+                                         ctypes.c_void_p]
+        lib.sel_terms_launch.restype = ctypes.c_int
+        _terms_lib = lib
+    return _terms_lib
+
+
+def terms_route(prog: PredProgram, planes: Sequence) -> bool:
+    """Whether a group of ``prog`` takes the terms kernel: ``simple_terms``
+    over a column whose dtype the comparisons read (a float32 column under
+    real comparisons, an int one under integer ones; int64 only wide)."""
+    if not simple_terms(prog):
+        return False
+    dt = planes[prog.cols[0]][0].dtype
+    real = prog.ops[1][0] >= _CMP_OPS["Gt"] + 6
+    return (dt == torch.float32) == real and \
+        (dt != torch.int64 or prog.wide)
+
+
+def _sel_terms_cuda(progs, planes, n, out) -> BatchedOut:
+    lead = progs[0]
+    v, ok = planes[lead.cols[0]]
+    bounds, flags = term_table(progs)
+    host = np.zeros(_aligned(bounds.nbytes + flags.nbytes), np.uint8)
+    host[:bounds.nbytes] = bounds.reshape(-1).view(np.uint8)
+    host[bounds.nbytes:bounds.nbytes + flags.nbytes] = \
+        flags.reshape(-1).view(np.uint8)
+    table = torch.from_numpy(host).pin_memory().to(v.device,
+                                                   non_blocking=True)
+    p = _TermsParams(
+        values=v.data_ptr(), valid=None if ok is None else ok.data_ptr(),
+        dtype=_PRED_DTYPES[v.dtype], wide=int(lead.wide),
+        real=int(v.dtype == torch.float32), lanes=len(progs),
+        terms=flags.shape[1],
+        vec=int(all(t.data_ptr() % 16 == 0 for t in (v, ok)
+                    if t is not None)),
+        n=n, bounds=table.data_ptr(),
+        flags=table.data_ptr() + bounds.nbytes, counts=out.buf.data_ptr(),
+        packed=out.buf.data_ptr() + 8 * len(progs),
+        lane_bytes=out.lane_bytes)
+    lib = _terms_kernel_lib()
+    _raise_on_terms(lib, lib.sel_terms_launch(
+        _dev_index(v.device), ctypes.byref(p),
+        torch.cuda.current_stream(v.device).cuda_stream))
+    return out
+
+
+def _raise_on_terms(lib, err: int) -> None:
+    if err != 0:
+        raise RuntimeError("sel_pred_batched terms launch failed: "
+                           + lib.sel_terms_error_string(err).decode())
 
 
 def _sel_pred_batched_cuda(progs, planes, n) -> BatchedOut:
     global batched_launches
-    lib = _kernel_lib()
     lead = progs[0]
     dev = planes[lead.cols[0]][0].device
     G, nc = len(progs), len(lead.consts)
     nb = n_blocks(n)
     out = BatchedOut(torch.empty(8 * G + G * nb * ROWS_PER_BLOCK // 8,
                                  dtype=torch.uint8, device=dev), G, n)
+    if terms_route(lead, planes):
+        _sel_terms_cuda(progs, planes, n, out)
+        batched_launches += 1
+        return out
+    lib = _kernel_lib()
     # the lanes' constants: [G][nc] int64 payloads, then [G][nc] int32
     # NULL flags, one pinned block copied on the launch stream
     cval = np.array([_payloads(q) for q in progs], np.int64).reshape(-1)

@@ -742,3 +742,18 @@ def analyze_edge_case(kind: str, case: str, rows: int = 300) -> tuple:
     if dt != np.float64:
         v[~ok] = 0              # a NULL slot holds 0, as a feed's does
     return v, ok, n, b
+
+
+def analyze_oversized_case(rows: int = 1 << 20) -> tuple:
+    """An int32 column that drives the partition route's first bucket past
+    its shared hash table (``analyze.hash_keys``): the rows the sample
+    reads (``analyze.sample_rows``) hold 2^21 + j·2^18 for stratum j, every
+    other row its own index, all below the first splitter → (values[rows],
+    validity[rows], n, buckets)."""
+    from ..device import analyze as an
+    ps = an.n_split_of(rows, 4)
+    taken = an.sample_rows(rows, an.OVERSAMPLE * ps)
+    v = np.arange(rows, dtype=np.int32)
+    v[taken] = (1 << 21) + np.arange(taken.size, dtype=np.int32) * (1 << 18)
+    return v, np.ones(rows, np.bool_), rows, 256
+
