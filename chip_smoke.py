@@ -247,7 +247,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    exact, no degrade, the split's wall and phases and the arena's bytes
    printed; and ``split_planes`` timed at split 1's shape beside its
    bound, plain version and a ``copy_`` + ``plane_digest`` yardstick;
-14. one JSON line listing every ported kernel: launches on the main path,
+14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
+   launch no kernel of ``selection.cu``, run while that source builds,
+   after the ANALYZE cells): ``shard_psum`` and ``shard_bucket_merge``
+   (``csrc/shard_merge.cu``) against their plain versions, bit for bit,
+   over S of 1, 2, 3, 4 and 8 sources, int64 words with the extremes,
+   float64 words with ±0.0, ±inf and NaN, W of 1, 3, 1027 and 65,537
+   words, mixed int64 / float64 segments, sources off a 16-byte boundary
+   (on one phase and on mixed phases) and more segments than one launch
+   takes; then the mesh cells (``configs.MESH_CELLS``) through
+   ``DeviceRunner(mesh=make_mesh([card] * 4, shape=(2, 2)))``: m3, m4,
+   m4x (``dryrun_multichip``'s shape), m4n, m4s, m2s (``v > 800``, then
+   2s's 0.1%, whose warm requests take the index route) and m5t, each
+   plan one cold and five warm wire-encoded requests, each answer against
+   the numpy truth and against the single runner's answer, the launch
+   counts read around the run (each shard's kernels S times as often as on
+   the single runner, the merges of the route and no other kernel), the
+   peak device memory and a profile, and the tracker phases of a warm
+   request (a GROUP BY's MIN/MAX merge on the card: no host merge phase);
+   no degrade; the ``device::shard_launch`` failpoint at shard 1 (the
+   host pipeline answers, the lock is free, the next request runs on the
+   card); one request through ``Endpoint.handle(force_backend="device")``;
+   a simple MIN/MAX whose S stacked rows the host merges (phase
+   ``shard_merge``) against the truth and the single runner; where the
+   machine has more cards, m4, m4x and m5t over a mesh of every card; and
+   at m4 and m4n the per-shard launches beside the single launch,
+   ``shard_psum`` (m4, m4n) and ``shard_bucket_merge`` (m4x) on the
+   runner's own arguments beside their bounds, plain versions and a
+   ``torch.stack`` yardstick;
+15. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -260,9 +288,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    / ``join_probe``, ``sort_perm`` and ``window_scan``; an4's id for
    ``analyze``, with the other timed columns under ``configs``; 6b-ep's
    shape for ``sel_pred_batched``; 6c-split's split 1 for
-   ``split_planes``, with both children under ``configs``), and the least
-   time the card could take;
-15. the last line: ``{"ok": true, "device": {...}}``.
+   ``split_planes``, with both children under ``configs``; m4 for
+   ``shard_psum``, with m4n under ``configs``; m4x for
+   ``shard_bucket_merge``), and the least time the card could take;
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -293,7 +322,8 @@ KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_pred_batched",
            "sel_mask", "sel_compact",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
-           "sort_perm", "window_scan", "analyze", "split_planes")
+           "sort_perm", "window_scan", "analyze", "split_planes",
+           "shard_psum", "shard_bucket_merge")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -353,8 +383,8 @@ def bound_ms(bytes_moved: float, ops: float) -> dict:
 
 def counts() -> dict:
     from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
-                                       join_probe, mvcc, selection, sort,
-                                       split, topn, twolevel, window)
+                                       join_probe, mvcc, selection, shard,
+                                       sort, split, topn, twolevel, window)
     return {"hash_agg": hash_agg.launches, "twolevel": twolevel.launches,
             "sel_pred": selection.pred_launches,
             "sel_pred_batched": selection.batched_launches,
@@ -370,13 +400,15 @@ def counts() -> dict:
             "sort_perm": sort.sort_launches,
             "window_scan": window.launches,
             "analyze": analyze.analyze_launches,
-            "split_planes": split.launches}
+            "split_planes": split.launches,
+            "shard_psum": shard.psum_launches,
+            "shard_bucket_merge": shard.merge_launches}
 
 
 def set_counts(values: dict) -> None:
     from tikv_tpu_torch.device import (agg_fold, analyze, digest, hash_agg,
-                                       join_probe, mvcc, selection, sort,
-                                       split, topn, twolevel, window)
+                                       join_probe, mvcc, selection, shard,
+                                       sort, split, topn, twolevel, window)
     hash_agg.launches = values["hash_agg"]
     twolevel.launches = values["twolevel"]
     selection.pred_launches = values["sel_pred"]
@@ -395,6 +427,8 @@ def set_counts(values: dict) -> None:
     window.launches = values["window_scan"]
     analyze.analyze_launches = values["analyze"]
     split.launches = values["split_planes"]
+    shard.psum_launches = values["shard_psum"]
+    shard.merge_launches = values["shard_bucket_merge"]
 
 
 # the builds still running after build_kernels(defer=...): name → future
@@ -946,12 +980,13 @@ def check_fused(dev) -> float:
 # ---------------------------------------------------------------------------
 
 def serve(label: str, n: int, runner, dag, snap, answer, agrees,
-          expect: set, **extra) -> dict:
+          expect: set, shards: int = 1, **extra) -> dict:
     """One cold and five warm requests of ``dag``, each ``answer(result)``
     (inside the timed window) held against the truth by ``agrees``; the
     kernels of ``expect`` must launch and no other (``sel_compact`` may
     beside ``sel_mask``: the route decides); the route of each request
-    (``runner.sel_routes``), peak bytes of one more and one profile."""
+    (``runner.sel_routes``), peak bytes of one more and one profile.
+    ``shards``: the runner's shards (each evaluates its selection)."""
     set_counts({k: 0 for k in KERNELS})
     routes0 = dict(runner.sel_routes)
     preds0 = dict(runner.pred_routes)
@@ -990,7 +1025,7 @@ def serve(label: str, n: int, runner, dag, snap, answer, agrees,
                           if v != preds0.get(k, 0)}
     if selection:
         want = "torch" if "sel_mask" in expect else "sel_pred"
-        assert out["pred_routes"] == {want: 6}, \
+        assert out["pred_routes"] == {want: 6 * shards}, \
             f"config {label}: predicate routes {out['pred_routes']}"
     out["peak_request_bytes"] = peak_request_bytes(runner, dag, snap)
     print(f"config {label}: " + " ".join(f"{k}={v}" for k, v in out.items()
@@ -1155,7 +1190,9 @@ SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "topn_select": ("topn_hist",),
            "agg_fold": ("fold_shared", "fold_global", "fold_simple"),
            "join_probe": ("probe_kernel",), "sort_perm": ("onesweep_kernel",),
-           "window_scan": ("window_kernel",)}
+           "window_scan": ("window_kernel",),
+           "shard_psum": ("psum_kernel",),
+           "shard_bucket_merge": ("bucket_merge_kernel",)}
 
 
 def profile_request(config: str, runner, dag, snap, expect=(),
@@ -1298,6 +1335,26 @@ def kernel_at_main_shapes(dev) -> tuple:
     return worst, timings
 
 
+def captured_calls(owner, name: str, call) -> list:
+    """(args, kwargs) of every call of ``owner.name`` during ``call()``
+    (its launches not counted)."""
+    seen = []
+    real = getattr(owner, name)
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    saved = counts()
+    setattr(owner, name, record)
+    try:
+        call()
+    finally:
+        setattr(owner, name, real)
+        set_counts(saved)
+    return seen
+
+
 def captured_inputs(config: str, runner, name: str) -> tuple:
     """(args, kwargs) of the runner's call of ``name`` (``twolevel_fused``
     or ``agg_fold``, as ``device/runner.py`` imports them) on one request
@@ -1306,21 +1363,8 @@ def captured_inputs(config: str, runner, name: str) -> tuple:
     from tikv_tpu_torch.testing import configs as cf
     build, make = cf.CONFIGS[config]
     table, snap = build(SIZES[config])
-    seen = []
-    real = getattr(rmod, name)
-
-    def record(*args, **kwargs):
-        seen.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    saved = counts()
-    setattr(rmod, name, record)
-    try:
-        runner.handle_request(make(table), snap)
-    finally:
-        setattr(rmod, name, real)
-        set_counts(saved)
-    return seen[0]
+    return captured_calls(rmod, name,
+                          lambda: runner.handle_request(make(table), snap))[0]
 
 
 def fused_bytes(n, layouts, cols, LO, HI, kw) -> int:
@@ -4835,6 +4879,448 @@ def split_at_main_shape(runner, dev) -> dict:
     return dict(out["right"], configs=out, max_abs_err=worst)
 
 
+# ---------------------------------------------------------------------------
+# the mesh: a row-sharded feed, per-shard kernels, the cross-shard merges
+# ---------------------------------------------------------------------------
+
+# the smoke's mesh: four shards of one card, 2×2 (with more cards, a mesh
+# over every card as well)
+MESH_SHAPE = (2, 2)
+# mesh cell → (the kernels each shard launches, the merges it launches)
+MESH_ROUTE = {"m3": ({"hash_agg"}, {"shard_psum"}),
+              "m4": ({"hash_agg"}, {"shard_psum"}),
+              "m4x": ({"sel_pred", "agg_fold"},
+                      {"shard_psum", "shard_bucket_merge"}),
+              "m4n": ({"twolevel"}, {"shard_psum"}),
+              "m4s": ({"hash_agg"}, {"shard_psum"}),
+              "m2s": ({"sel_pred"}, set()),
+              "m5t": ({"sel_pred", "topn_select"}, set())}
+# kernels whose launches a request makes once a shard (the others' count
+# depends on the route each shard takes)
+ONCE_A_SHARD = ("hash_agg", "twolevel", "agg_fold", "sel_pred")
+
+
+def shard_merge_cases(dev):
+    """(name, kind, sources, segments) over S of 1, 2, 3, 4 and 8: int64
+    words with the extremes (the psum wraps), float64 words with ±0.0,
+    ±inf and NaN, W not a multiple of 2 or 4, mixed int64 / float64
+    segments in one launch, sources on one 16-byte phase off the
+    boundary and on mixed phases."""
+    rng = np.random.default_rng(51)
+    i64 = np.iinfo(np.int64)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1.0,
+                         -1.0, 5e-324, 1.7e308])
+
+    def words(W, kind):
+        if kind == "f64":
+            x = rng.normal(0.0, 1e3, W)
+            hit = rng.random(W) < 0.2
+            x[hit] = rng.choice(specials, int(hit.sum()))
+            return x.view(np.int64)
+        x = rng.integers(i64.min, i64.max, W, dtype=np.int64,
+                         endpoint=True)
+        hit = rng.random(W) < 0.2
+        x[hit] = rng.choice(np.array([i64.min, i64.max, -1, 0, 1]),
+                            int(hit.sum()))
+        return x
+
+    def sources(S, W, kind, phases):
+        out = []
+        for s in range(S):
+            off = phases[s % len(phases)]
+            buf = torch.from_numpy(np.concatenate(
+                [words(off, kind), words(W, kind), words(3, kind)])).to(dev)
+            out.append(buf[off:off + W])        # off a 16-byte boundary
+        return out
+
+    for S in (1, 2, 3, 4, 8):
+        for W in (1, 3, 1027, 65537):
+            for phases in ((0,), (1,), (0, 1)):
+                tag = f"S={S} W={W} phases={phases}"
+                yield f"psum i64 {tag}", "psum", sources(
+                    S, W, "i64", phases), [(0, W, "sum_i64")]
+                yield f"psum f64 {tag}", "psum", sources(
+                    S, W, "f64", phases), [(0, W, "sum_f64")]
+                h = W // 2
+                yield f"psum mixed {tag}", "psum", sources(
+                    S, W, "f64", phases), [(0, h, "sum_i64"),
+                                           (h, W - h, "sum_f64")]
+                for op in ("min", "max"):
+                    yield f"merge {op} i64 {tag}", "merge", sources(
+                        S, W, "i64", phases), [(0, W, f"{op}_i64")]
+                    yield f"merge {op} f64 {tag}", "merge", sources(
+                        S, W, "f64", phases), [(0, W, f"{op}_f64")]
+    # more than MAX_SEGS segments: several launches
+    parts = sources(3, 400, "i64", (1,))
+    yield "psum 100 segments", "psum", parts, [(4 * i, 4, "sum_i64")
+                                               for i in range(100)]
+
+
+def check_shard_merge(dev) -> int:
+    """``shard_psum`` and ``shard_bucket_merge`` against their plain
+    versions on the card, bit for bit (every word, the ones outside the
+    segments left as they were); → 0."""
+    from tikv_tpu_torch.device import shard as sh
+    saved = counts()
+    n_cases = 0
+    for name, kind, parts, segs in shard_merge_cases(dev):
+        init = torch.randint(-9, 9, (parts[0].numel(),), dtype=torch.int64,
+                             device=dev)
+        run, plain = (sh.shard_psum, sh.shard_psum_plain) \
+            if kind == "psum" else (sh.shard_bucket_merge,
+                                    sh.shard_bucket_merge_plain)
+        got = run(parts, segs, out=init.clone())
+        want = plain(parts, segs, out=init.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"shard merge case {name} differs"
+        n_cases += 1
+    set_counts(saved)
+    print(f"check shard_merge: {n_cases} cases bit-equal to the plain "
+          f"versions", flush=True)
+    return 0
+
+
+def mesh_cell_plans(cell: str, table, snap) -> list:
+    """(label, wire-decoded DAG, answer, agrees, extra) of each plan of a
+    mesh cell; m2s: config 2's ``v > 800``, then 2s's 0.1%."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    config, _n = cf.MESH_CELLS[cell]
+    if config == "2s":
+        out = []
+        for point, thr in (("10%", 800), ("0.1%", cf.sweep_threshold(
+                snap, cf.SWEEP["0.1%"]))):
+            want = cf.row_truth_columns("2s", snap, thr)
+            out.append((f"{cell}@{point}", dag_from_wire(enc_dag(
+                cf.dag_selection(table, thr))), lambda r: r.batch,
+                lambda b, w=want: cf.columns_agree(b, w),
+                {"selected": len(want[0][0])}))
+        return out
+    if config in cf.ROW_CONFIGS:
+        want = cf.row_truth_columns(config, snap)
+        return [(cell, dag_from_wire(enc_dag(cf.ROW_CONFIGS[config][1](
+            table))), lambda r: r.batch,
+            lambda b: cf.columns_agree(b, want),
+            {"selected": len(want[0][0])})]
+    make = cf.MESH_AGGS[config][1] if config in cf.MESH_AGGS \
+        else cf.CONFIGS[config][1]
+    want, scales = cf.truth(config, snap)
+    return [(cell, dag_from_wire(enc_dag(make(table))), lambda r: r.rows(),
+             lambda rows: cf.rows_agree(rows, want, scales, SF_TOL),
+             {"groups": len(want)})]
+
+
+def mesh_table(cell: str):
+    from tikv_tpu_torch.testing import configs as cf
+    config, n = cf.MESH_CELLS[cell]
+    if config in cf.MESH_AGGS:
+        build = cf.MESH_AGGS[config][0]
+    elif config == "2s":
+        build = cf.build_table
+    elif config in cf.ROW_CONFIGS:
+        build = cf.ROW_CONFIGS[config][0]
+    else:
+        build = cf.CONFIGS[config][0]
+    return build(n)
+
+
+def same_answer(a, b) -> bool:
+    """Two runners' answers: the same rows, NaN equal to NaN."""
+    ra, rb = a.rows(), b.rows()
+    return len(ra) == len(rb) and all(
+        len(x) == len(y) and all(
+            u == v or (isinstance(u, float) and isinstance(v, float) and
+                       math.isnan(u) and math.isnan(v))
+            for u, v in zip(x, y)) for x, y in zip(ra, rb))
+
+
+def mesh_phases(runner, dag, snap) -> dict:
+    """The per-request tracker phases (ms) of one warm request."""
+    from tikv_tpu_torch.utils import tracker
+    saved = counts()
+    tr, tok = tracker.install()
+    try:
+        runner.handle_request(dag, snap)
+    finally:
+        tracker.uninstall(tok)
+    set_counts(saved)
+    return {k: v / 1e6 for k, v in tr.phases.items()}
+
+
+def run_mesh_cell(cell: str, mesh_runner, single, tag: str = "",
+                  timings: dict = None) -> list:
+    """One mesh cell: its table and truth, then per plan the single
+    runner's answer to the request (its launches counted), and one cold and
+    five warm wire-encoded requests on the mesh runner (``serve``: each
+    answer against the truth, the launch counts read around the run): the
+    same answer as the single runner, each per-shard kernel launched S
+    times as often as on the single runner where it launches once a shard,
+    the merges of the route, the tracker phases of a warm request, no
+    degrade.  ``timings``: where the
+    cell's main-shape timings go (``mesh_timing``), if it has some."""
+    from tikv_tpu_torch.testing import configs as cf
+    _config, n = cf.MESH_CELLS[cell]
+    S = mesh_runner._nshards()
+    t0 = time.perf_counter()
+    table, snap = mesh_table(cell)
+    plans = mesh_cell_plans(cell, table, snap)
+    print(f"mesh {tag}{cell}: table and truth in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    per_shard, merges = MESH_ROUTE[cell]
+    runs = []
+    for label, dag, answer, agrees, extra in plans:
+        saved = counts()
+        set_counts({k: 0 for k in KERNELS})
+        want = single.handle_request(dag, snap)
+        once = counts()
+        set_counts(saved)
+        assert agrees(answer(want)), f"mesh {label}: the single runner"
+        out = serve(f"{tag}{label}", n, mesh_runner, dag, snap, answer,
+                    agrees, per_shard | merges, shards=S,
+                    mesh=tag.strip() or "x".join(map(str, MESH_SHAPE)),
+                    **extra)
+        got = mesh_runner.handle_request(dag, snap)
+        assert same_answer(got, want), \
+            f"mesh {label}: the mesh and the single runner differ"
+        launches = out["launches"]
+        for name in per_shard:
+            assert launches[name] % S == 0, \
+                f"mesh {label}: {name} launched {launches[name]} times"
+            if name in ONCE_A_SHARD:
+                assert launches[name] == 6 * S * once[name], \
+                    f"mesh {label}: {name} launched {launches[name]} " \
+                    f"times, the single runner {once[name]} a request"
+        if "0.1%" in label:
+            assert set(out["last_route"]) == {"index"}, \
+                f"mesh {label} took {out['last_route']}"
+        assert mesh_runner.degrades == {}, mesh_runner.degrades
+        out["phases_ms"] = mesh_phases(mesh_runner, dag, snap)
+        print(f"mesh {tag}{label}: same answer as the single runner; "
+              f"phases " + " ".join(f"{k}={v}" for k, v in
+                                    out["phases_ms"].items()), flush=True)
+        runs.append(out)
+        if timings is not None and cell in MESH_TIMED:
+            timings[cell] = mesh_timing(cell, mesh_runner, single, dag,
+                                        snap)
+    del snap
+    gc.collect()
+    return runs
+
+
+def run_shard_launch_degrade(mesh_runner) -> None:
+    """``device::shard_launch`` armed at shard 1 on a warm m4 request: the
+    host pipeline answers the whole request (equal to the truth), nothing
+    of the shards that launched is used, the dispatch lock is free after,
+    and the next request runs on the card again."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.utils import failpoint
+    table, snap = cf.build_table(1 << 22)
+    dag = dag_from_wire(enc_dag(cf.dag_hash_agg(table)))
+    want, scales = cf.truth("4", snap)
+    assert cf.rows_agree(mesh_runner.handle_request(dag, snap).rows(), want,
+                         scales, SF_TOL)
+    before = dict(mesh_runner.degrades)
+    saved = counts()
+    failpoint.cfg("device::shard_launch", "return(1)")
+    try:
+        got = mesh_runner.handle_request(dag, snap).rows()
+    finally:
+        failpoint.teardown()
+    # the host pipeline's groups come in first-seen order
+    assert cf.rows_agree(sorted(got, key=lambda r: r[-1]), want, scales,
+                         SF_TOL), "degraded answer"
+    assert mesh_runner.degrades.get("shard_launch", 0) == \
+        before.get("shard_launch", 0) + 1, mesh_runner.degrades
+    degraded = counts()
+    assert degraded["shard_psum"] == saved["shard_psum"], \
+        "a degraded request merged its shards"
+    assert mesh_runner._dispatch_mu.acquire(timeout=5), "dispatch lock held"
+    mesh_runner._dispatch_mu.release()
+    assert cf.rows_agree(mesh_runner.handle_request(dag, snap).rows(), want,
+                         scales, SF_TOL)
+    assert counts()["shard_psum"] == degraded["shard_psum"] + 1
+    set_counts(saved)
+    mesh_runner.degrades.pop("shard_launch")
+    print(f"mesh shard_launch: shard 1's launches failed, the host "
+          f"pipeline answered; launches on the shards before it "
+          f"{degraded['hash_agg'] - saved['hash_agg']}; the next request "
+          f"ran on the card", flush=True)
+
+
+def run_mesh_endpoint(mesh_runner) -> None:
+    """One 4x request through ``Endpoint.handle(force_backend="device")``
+    over the mesh runner: the truth, no degrade."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.endpoint import CopRequest, Endpoint
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    table, snap = cf.build_multichip_table(1 << 22)
+    dag = dag_from_wire(enc_dag(cf.dag_4x(table)))
+    want, scales = cf.truth("4x", snap)
+    ep = Endpoint(lambda req: snap, mesh_runner, device_row_threshold=1)
+    try:
+        resp = ep.handle(CopRequest(103, dag, force_backend="device"))
+    finally:
+        ep.close()
+    assert resp.backend == "device" and not ep.degrades, ep.degrades
+    assert cf.rows_agree(resp.rows(), want, scales, SF_TOL), \
+        "the endpoint over the mesh"
+    print(f"mesh endpoint: backend={resp.backend} rows={len(resp.rows())} "
+          f"degrades={ep.degrades}", flush=True)
+
+
+def run_mesh_host_merge(mesh_runner, single) -> None:
+    """A simple aggregation's MIN and MAX (``WHERE v > 0: COUNT(*), MIN(v),
+    MAX(v)`` over 4x's table at 2^22 rows) on the mesh: the S stacked rows
+    reduced on the host in the ``shard_merge`` phase, the answer equal to
+    the numpy truth and to the single runner's (launches not counted)."""
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing.dag import DagSelect
+    table, snap = cf.build_multichip_table(1 << 22)
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    dag = dag_from_wire(enc_dag(s.where(s.col("v") > 0).aggregate(
+        [], [("count_star", None), ("min", s.col("v")),
+             ("max", s.col("v"))]).build()))
+    v = snap.columns[3].values
+    v = v[v > 0]
+    want = [[int(v.size), int(v.min()), int(v.max())]]
+    saved = counts()
+    got = mesh_runner.handle_request(dag, snap)
+    one = single.handle_request(dag, snap)
+    set_counts(saved)
+    assert [list(r) for r in got.rows()] == want, (got.rows(), want)
+    assert same_answer(got, one), "host merge: the mesh and the single runner"
+    phases = mesh_phases(mesh_runner, dag, snap)
+    assert "shard_merge" in phases, phases
+    assert mesh_runner.degrades == {}, mesh_runner.degrades
+    print("mesh host merge (simple MIN/MAX): same answer as the single "
+          "runner; phases " + " ".join(f"{k}={x}" for k, x in
+                                       phases.items()), flush=True)
+
+
+def time_merge(label: str, run, plain, parts, segs, library,
+               library_call: str) -> dict:
+    """A merge on the runner's own arguments: against its plain version
+    (bit for bit) and timed beside its bound (each source's words of the
+    segments read once, the output's written once; S − 1 operations a
+    word), its plain version and ``library``."""
+    out = parts[0].clone()
+    got = run(parts, segs, out=out.clone())
+    want = plain(parts, segs, out=out.clone())
+    assert torch.equal(got, want), f"{label} differs at its main shape"
+    words = sum(n for _o, n, _op in segs)
+    b, ops = 8 * words * (len(parts) + 1), words * max(len(parts) - 1, 1)
+    t = {"ms": cuda_ms(lambda: run(parts, segs, out=out), 200, queued=True),
+         "plain_ms": cuda_ms(lambda: plain(parts, segs, out=out), 20),
+         "library_ms": cuda_ms(library, 20), "library_call": library_call,
+         **bound_ms(b, ops), "shards": len(parts),
+         "words": sum(n for _o, n, _op in segs), "segments": len(segs)}
+    print(f"kernel {label}: max_abs_err=0 " + " ".join(
+        f"{k}={x}" for k, x in t.items()), flush=True)
+    return t
+
+
+# mesh cell → the per-shard kernel timed beside the single launch, and the
+# merge timed there
+MESH_TIMED = {"m4": ("hash_agg", "shard_psum"),
+              "m4n": ("twolevel_fused", "shard_psum"),
+              "m4x": (None, "shard_bucket_merge")}
+
+
+def mesh_timing(cell: str, mesh_runner, single, dag, snap) -> dict:
+    """At m4 and m4n: the sum of the per-shard launches (``hash_agg``,
+    ``twolevel_fused``) beside the single runner's one launch over the
+    whole feed, on the runners' own arguments; ``shard_psum`` (m4, m4n)
+    and ``shard_bucket_merge`` (m4x) on the mesh runner's own arguments,
+    against their plain versions, beside their bounds and a yardstick the
+    port never calls (``torch.stack(parts).sum(0)``; ``.amin(0)`` /
+    ``.amax(0)`` of each stacked row)."""
+    import tikv_tpu_torch.device.runner as rmod
+    from tikv_tpu_torch.device import hash_agg as ha
+    from tikv_tpu_torch.device import shard as sh
+    kernel, merge = MESH_TIMED[cell]
+    out = {}
+    if kernel is not None:
+        owner = ha if kernel == "hash_agg" else rmod
+        fn = getattr(owner, kernel)
+        shards = captured_calls(owner, kernel,
+                                lambda: mesh_runner.handle_request(dag, snap))
+        one = captured_calls(owner, kernel,
+                             lambda: single.handle_request(dag, snap))
+        saved = counts()
+        out = {"kernel": kernel, "launches": len(shards),
+               "shards_ms": cuda_ms(lambda: [fn(*a, **k) for a, k in shards],
+                                    20, queued=True),
+               "single_ms": cuda_ms(lambda: [fn(*a, **k) for a, k in one],
+                                    20, queued=True)}
+        set_counts(saved)
+        print(f"mesh {cell}: {kernel} over {len(shards)} shards "
+              f"{out['shards_ms']} ms, one launch over the whole feed "
+              f"{out['single_ms']} ms", flush=True)
+    (args, kw), = captured_calls(sh, merge,
+                                 lambda: mesh_runner.handle_request(dag, snap))
+    parts = list(args[0])
+    segs = (args[1] if len(args) > 1 else kw.get("segments")) or \
+        sh._default_segments(parts)
+    if merge == "shard_psum":
+        out["merge"] = time_merge(
+            f"shard_psum at {cell}", sh.shard_psum, sh.shard_psum_plain,
+            parts, segs, lambda: torch.stack(parts).sum(0),
+            "torch.stack(parts).sum(0) (yardstick)")
+        return out
+    rows = [(op, [p[o:o + n] for p in parts]) for o, n, op in segs]
+
+    def library():
+        for op, r in rows:
+            st = torch.stack(r)
+            st.amin(0) if op.startswith("min") else st.amax(0)
+
+    out["merge"] = time_merge(
+        f"shard_bucket_merge at {cell}", sh.shard_bucket_merge,
+        sh.shard_bucket_merge_plain, parts, segs, library,
+        "torch.stack(row parts).amin(0) / .amax(0) a row (yardstick)")
+    return out
+
+
+# the mesh cells that launch no kernel of selection.cu: they run while it
+# builds
+MESH_EARLY = ("m3", "m4", "m4n", "m4s")
+
+
+def run_mesh(mesh_runner, single, cells, timings: dict) -> list:
+    """The mesh cells ``cells`` on ``mesh_runner`` (their main-shape
+    timings into ``timings``) → their runs."""
+    runs = []
+    for cell in cells:
+        runs += run_mesh_cell(cell, mesh_runner, single, timings=timings)
+    return runs
+
+
+def run_mesh_rest(mesh_runner, single) -> list:
+    """The ``shard_launch`` degrade, the endpoint over the mesh, a simple
+    MIN/MAX merged on the host, and, where the machine has more than one card, m4, m4x and m5t over a mesh of
+    every card → their runs."""
+    from tikv_tpu_torch.device import DeviceRunner
+    from tikv_tpu_torch.parallel import make_mesh
+    run_shard_launch_degrade(mesh_runner)
+    run_mesh_endpoint(mesh_runner)
+    run_mesh_host_merge(mesh_runner, single)
+    runs = []
+    if torch.cuda.device_count() > 1:
+        every = DeviceRunner(mesh=make_mesh())
+        tag = "x".join(map(str, every._mesh.devices.shape)) + " cards "
+        for cell in ("m4", "m4x", "m5t"):
+            runs += run_mesh_cell(cell, every, single, tag)
+        del every
+        gc.collect()
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4874,6 +5360,13 @@ def main() -> int:
     run_checksum()
     analyze_timing, err = analyze_at_main_shapes(runner, dev)
     worst["analyze"] = max(worst["analyze"], err)
+    # the mesh: its merges, and the cells that launch no selection kernel
+    worst["shard_merge"] = check_shard_merge(dev)
+    from tikv_tpu_torch.parallel import make_mesh
+    mesh_runner = DeviceRunner(mesh=make_mesh(
+        [dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]), shape=MESH_SHAPE))
+    mesh_timings: dict = {}
+    mesh_runs = run_mesh(mesh_runner, runner, MESH_EARLY, mesh_timings)
     print(f"elapsed: {time.perf_counter() - t0:.1f} s at the selection "
           f"build's wait", flush=True)
     await_builds()
@@ -4907,6 +5400,14 @@ def main() -> int:
     runs += run_6b_ep(runner)
     elapsed("before the split")
     runs.append(run_split(runner))
+    elapsed("before the mesh")
+    from tikv_tpu_torch.testing import configs as cf
+    mesh_runs += run_mesh(mesh_runner, runner, [
+        c for c in cf.MESH_CELLS if c not in MESH_EARLY], mesh_timings)
+    mesh_runs += run_mesh_rest(mesh_runner, runner)
+    del mesh_runner
+    gc.collect()
+    runs += mesh_runs
     elapsed("before the kernel timings")
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
@@ -5019,6 +5520,21 @@ def main() -> int:
         "replaces": "tikv_tpu/device/runner.py:2168",
         "launches": launches["split_planes"],
         "max_abs_err": worst["split_planes"], **split_timing})
+    for name, cell, replaces in (
+            ("shard_psum", "m4",
+             "tikv_tpu/device/runner.py:3930 (_pallas_sharded_wrap's psum) "
+             "and :2599 (_finalize_psum_summed)"),
+            ("shard_bucket_merge", "m4x",
+             "tikv_tpu/device/runner.py:2606 "
+             "(_finalize_hash_bucket_merge)")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tikv_tpu_torch/csrc/shard_merge.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst["shard_merge"],
+            **mesh_timings[cell]["merge"],
+            "configs": {c: t for c, t in mesh_timings.items()
+                        if name != "shard_bucket_merge" or c == cell}})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     elapsed("in all")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,9 @@ aggregation, a selection, an index-scan top-k, a join plan, an ANALYZE
 and a CHECKSUM request through the endpoint loads neither, nor does
 serving selections and aggregations through ``Endpoint.handle_async``
 with a bound ``RequestCoalescer``, nor a region split served end to end,
-and nothing falls back to the CPU without being asked."""
+nor aggregations, a selection and a top-k over a row-sharded mesh
+(``tikv_tpu_torch.parallel``), and nothing falls back to the CPU without
+being asked."""
 
 import ast
 import os
@@ -207,6 +209,58 @@ def test_split_serving_loads_no_jax():
     assert out.stdout.strip() == "split 1"
 
 
+_SERVE_MESH = """
+import sys
+from tikv_tpu_torch.convert import dag_from_wire, mesh_from_shape
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.parallel import make_mesh, parse_mesh_shape
+from tikv_tpu_torch.server.coalescer import RequestCoalescer
+from tikv_tpu_torch.testing import configs
+table, snap = configs.build_multichip_table(20000)
+runner = DeviceRunner(mesh=make_mesh(["cpu"] * 4,
+                                     shape=parse_mesh_shape("2x2")),
+                      chunk_rows=512)
+coal = RequestCoalescer(runner, window_ms=5.0, max_group=4)
+ep = Endpoint(lambda req: snap, runner, device_row_threshold=1,
+              coalescer=coal)
+want, scales = configs.truth("4x", snap)
+for make in (configs.dag_4x, configs.dag_hash_agg, configs.dag_simple_agg):
+    dag = dag_from_wire(enc_dag(make(table)))
+    got = ep.handle_async(CopRequest(REQ_TYPE_DAG, dag)).wait()
+    assert got.backend == "device", got.backend
+assert configs.rows_agree(ep.handle(CopRequest(
+    REQ_TYPE_DAG, dag_from_wire(enc_dag(configs.dag_4x(table))))).rows(),
+    want, scales, 1e-9)
+sel = dag_from_wire(enc_dag(configs.dag_selection(table, 40)))
+assert len(ep.handle(CopRequest(REQ_TYPE_DAG, sel)).rows()) == \
+    int((snap.columns[3].values > 40).sum())
+seven = DeviceRunner(mesh=mesh_from_shape((1, 7), ["cpu"] * 7),
+                     chunk_rows=512)
+t5, s5 = configs.ROW_CONFIGS["5t"][0](20000)
+top = dag_from_wire(enc_dag(configs.dag_topn_table(t5, 10)))
+assert len(seven.handle_request(top, s5).rows()) == 10
+ep.close()
+assert not ep.degrades and not runner.degrades
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("mesh", runner._nshards())
+"""
+
+
+def test_mesh_serving_loads_no_jax():
+    """Serving over a row-sharded mesh — the mesh helpers, the sharded
+    feed, the per-shard routes and the cross-shard merges, through the
+    endpoint with a coalescer bound — loads neither JAX nor the JAX
+    package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_MESH], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "mesh 4"
+
+
 def test_runner_refuses_to_start_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -214,6 +268,11 @@ def test_runner_refuses_to_start_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert DeviceRunner(device="cpu").device == torch.device("cpu")
+    from tikv_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceRunner(mesh=make_mesh(["cuda:0"] * 2))
 
 
 def test_kernel_wrapper_never_picks_another_device():

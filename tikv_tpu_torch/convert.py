@@ -16,7 +16,9 @@ For this system the state a request runs against is a table snapshot
 - ``engine_from_triples(triples)``: a ``MemoryEngine`` holding the
   ``(cf, key, value)`` byte triples of any producer's engine (MVCC records
   encoded by either package's ``txn_types``), which the columnar cache
-  builds its lines from.
+  builds its lines from;
+- ``mesh_from_shape(shape, devices)``: the port's mesh of a mesh shape
+  (R, T), such as a JAX mesh's ``devices.shape``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .datatype import Column, EvalType
 from .device.mvcc import WritePlanes
 from .engine.memory import MemoryEngine
 from .executors.columnar import ColumnarTable
+from .parallel.mesh import Mesh, make_mesh
 from .testing.fixture import Table, TableColumn
 
 
@@ -96,3 +99,12 @@ def engine_from_triples(triples, engine: Optional[MemoryEngine] = None
         wb.put_cf(cf, bytes(key), bytes(value))
     engine.write(wb)
     return engine
+
+
+def mesh_from_shape(shape, devices: Sequence) -> Mesh:
+    """The port's ("range", "tile") mesh of ``shape`` (R, T) — a JAX
+    mesh's ``devices.shape`` — over the first R·T of ``devices`` (a device
+    may repeat: ``["cuda:0"] * 4`` is four shards of one card, ``["cpu"] *
+    n`` the plain versions)."""
+    r, t = int(shape[0]), int(shape[1])
+    return make_mesh(list(devices)[:r * t], shape=(r, t))

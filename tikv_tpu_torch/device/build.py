@@ -30,7 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # every kernel source, csrc/<name>.cu: one library each
 SOURCES = ("hash_agg", "twolevel", "selection", "topn", "agg_fold",
            "digest", "mvcc", "sort", "join", "window", "analyze", "split",
-           "sel_batched")
+           "sel_batched", "shard_merge")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -58,6 +58,28 @@ It runs as:
   orders the candidates exactly on the host (``_run_topn``);
 - the results come back to the host, which finalizes them.
 
+On a mesh (``DeviceRunner(mesh=make_mesh(...))``, ``parallel/mesh.py``;
+the reference's scale-up half, runner.py:640-720, 1513-1600) every feed is
+row-sharded: each plane is cut into S contiguous slices of ``n_pad / S``
+rows, slice s its own tensor on mesh device s, shard s holding rows
+``[s·n_local, s·n_local + clip(n − s·n_local, 0, n_local))``.  Each shard
+with live rows runs the routes above over its own slice, in device order
+(``_per_shard``), and the partials merge on the mesh's first device: the
+summed states (hash_agg's packed outputs, the two-level planes, the fold's
+counts and sums) by one ``shard.shard_psum`` (``csrc/shard_merge.cu``); a
+GROUP BY's MIN/MAX rows by one ``shard.shard_bucket_merge``; a
+simple aggregation's MIN, MAX and FIRST on the host (phase
+``shard_merge``).  A selection concatenates the shards' packed masks (or
+their row indices, each offset by its shard's first row), a TopN orders
+the shards' candidates on the host.  The GROUP BY dictionary of a sparse
+key is built once from the whole snapshot.  The cold mint, the split
+stash, the device split, the compact route, stacked batches and ANALYZE
+stay single-device, as in the reference (a mesh's ANALYZE is served by
+the host half).  The ``device::shard_launch`` failpoint fails a shard's
+launches: the whole request is then answered by the host pipeline
+(``degrades``), never by the shards that did launch.  A mesh of one device
+takes the single-device code.
+
 A request's plan analysis, feed lookup and kernel launches hold the
 runner's dispatch lock; its result buffers then start their copy to
 pinned host memory (``deferred.PinnedStager``), and the wait for that copy
@@ -108,6 +130,7 @@ other column by the host half (``copr.analyze``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -137,6 +160,7 @@ from . import hash_agg as ha
 from . import kernels as kn
 from . import resolve_device
 from . import selection as sm
+from . import shard as sh
 from . import split as sp
 from . import topn as tn
 from .agg_fold import agg_fold
@@ -226,6 +250,41 @@ def _fp_fault(name: str) -> None:
         raise DeviceUnavailable(f"failpoint {name}")
 
 
+class _ShardLaunchFault(Exception):
+    """A shard's launches failed (the ``device::shard_launch`` failpoint):
+    the whole request goes to the host pipeline."""
+
+
+def _on_device(dev: torch.device):
+    """The context that makes ``dev`` current for its launches."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _fold_merge_rows(plan: "af.FoldPlan", n_slots: int) -> tuple:
+    """The cross-shard merge of an ``agg_fold`` buffer: (``shard_psum``
+    segments of its summed words — the overflow flag, row counts, non-NULL
+    counts and integer sums as int64, the float sums as float64, adjacent
+    segments of one op joined —, its MIN/MAX rows as (row, op) over the
+    int64 order images, its FIRST rows as {lane: {state: row}})."""
+    sums, stacked, first = [(0, 1, "sum_i64")], [], {}
+    for r, (state, j) in enumerate(plan.rows):
+        off = 1 + r * n_slots
+        if state in ("min", "max"):
+            stacked.append((r, state + "_i64"))
+            continue
+        if state in ("first", "firstval", "firstok"):
+            first.setdefault(j, {})[state] = r
+            continue
+        op = "sum_f64" if state in ("fsum", "sumsq") else "sum_i64"
+        lo, n, prev = sums[-1]
+        if prev == op and lo + n == off:
+            sums[-1] = (lo, n + n_slots, op)
+        else:
+            sums.append((off, n_slots, op))
+    return sums, stacked, first
+
+
 def _stack_classes(dicts: list) -> tuple:
     """Dicts of device tensors → (one flat tensor per value class:
     integers and bools as int64, floats as float64 (exact for the
@@ -297,17 +356,42 @@ def _has_int64_calls(rpns) -> bool:
 
 
 class DeviceRunner:
-    """Executes the port's plans on one device.
+    """Executes the port's plans on one device or on a mesh.
 
     ``device``: ``None`` (``cuda:0``), a CUDA device, or ``"cpu"`` — the
     plain PyTorch version of every kernel, which the tests use.  Without
-    CUDA, only ``"cpu"`` constructs.  ``hbm_budget_bytes``: the feed
-    arena's budget (0: none).
+    CUDA, only ``"cpu"`` constructs.  ``mesh`` (``parallel.make_mesh``;
+    not with ``device``): row-shard every feed over its devices, which may
+    repeat.  ``chunk_rows``: the feed's block of rows over all shards
+    (rounded down to 8-row multiples a shard), for small test feeds;
+    without it a shard's block is ``hash_agg.BLOCK``, padded to the
+    reference's 9/8-geometric bucket.
+    ``hbm_budget_bytes``: the feed arena's budget (0: none).
     """
 
-    def __init__(self, device=None, hbm_budget_bytes: int = 0):
-        self.device = resolve_device(device)
-        self._block_local = ha.BLOCK
+    def __init__(self, device=None, mesh=None,
+                 chunk_rows: Optional[int] = None,
+                 hbm_budget_bytes: int = 0):
+        if device is not None and mesh is not None:
+            raise ValueError("give a device or a mesh, not both")
+        self._mesh = mesh
+        # the mesh's devices in flat ("range", "tile") order: shard s of a
+        # feed lives on _devices[s]; merges and readbacks on the first
+        self._devices = [resolve_device(device)] if mesh is None else \
+            [resolve_device(d) for d in mesh.devices.flat]
+        self.device = self._devices[0]
+        S = len(self._devices)
+        self._single = S == 1
+        self._chunk_override = chunk_rows is not None
+        if chunk_rows is not None:
+            self._block_local = max(8, ((max(chunk_rows, 8) // S) // 8) * 8)
+        else:
+            # a shard's slice splits into whole hash_agg blocks, so the
+            # fused kernel's gate holds per shard (pallas_hash.py:180-195)
+            self._block_local = ha.BLOCK
+        # the requests answered by the host pipeline for a shard's failed
+        # launches, by failpoint
+        self.degrades: dict = {}
         # plan_key → (plan | None, refusal reason); FIFO-bounded
         self._plan_cache: dict = {}
         self._plan_cache_max = 4096
@@ -469,13 +553,21 @@ class DeviceRunner:
 
     # ---------------------------------------------------------------- feed
 
+    def _nshards(self) -> int:
+        return len(self._devices)
+
+    def _feed_unit(self) -> int:
+        """Rows of one feed block: a block of every shard."""
+        return self._nshards() * self._block_local
+
     def _pad_rows(self, n: int) -> int:
-        unit = self._block_local
+        unit = self._feed_unit()
         blocks = max(1, -(-n // unit))
         # bucket the block count into the reference's 9/8-geometric grid
         # (one block of growth headroom first, then a 4-significant-bit
-        # count k·2^s, 8 ≤ k ≤ 15), so feed shapes match its feeds
-        if blocks > 8:
+        # count k·2^s, 8 ≤ k ≤ 15), so feed shapes match its feeds; a
+        # chunk_rows override pads to whole blocks only (runner.py:1536)
+        if not self._chunk_override and blocks > 8:
             blocks += 1
             s = blocks.bit_length() - 4
             k = -(-blocks // (1 << s))
@@ -491,6 +583,26 @@ class DeviceRunner:
         p[:len(arr)] = arr
         return torch.from_numpy(p).to(self.device)
 
+    def _upload_sharded(self, arr: np.ndarray, n_pad: int) -> list:
+        """``arr`` padded to ``n_pad`` rows on the host, then slice s of
+        ``n_pad / S`` rows to mesh device s (runner.py:1566-1574)."""
+        p = np.zeros(n_pad, dtype=arr.dtype)
+        p[:len(arr)] = arr
+        nl = n_pad // self._nshards()
+        return [torch.from_numpy(p[s * nl:(s + 1) * nl]).to(dev)
+                for s, dev in enumerate(self._devices)]
+
+    def _shard_feeds(self, per_shard: list, flags: tuple, n: int,
+                     n_pad: int) -> list:
+        """Shard s's feed: its planes, ``n_pad / S`` rows, ``clip(n −
+        base, 0, n_local)`` live from its first row ``base = s·n_local``,
+        on its device."""
+        nl = n_pad // self._nshards()
+        return [{"flat": tuple(planes), "null_flags": flags, "n_pad": nl,
+                 "n_live": min(max(n - s * nl, 0), nl), "base": s * nl,
+                 "device": self._devices[s]}
+                for s, planes in enumerate(per_shard)]
+
     def _build_flat(self, host_cols, n: int) -> dict:
         """→ {"flat": device tensors, "null_flags": per-col bool, "n_pad",
         "digests": each plane's host digest, "n_live": n}.
@@ -505,9 +617,19 @@ class DeviceRunner:
         with ThreadPoolExecutor(hash_workers()) as pool:
             digests = start_plane_digests(pool, [(a, None) for a in hosts],
                                           n)
-            flat = tuple(self._upload(a, n_pad) for a in hosts)
-            return {"flat": flat, "null_flags": flags, "n_pad": n_pad,
-                    "digests": digests(), "n_live": n}
+            if self._single:
+                flat = tuple(self._upload(a, n_pad) for a in hosts)
+                return {"flat": flat, "null_flags": flags, "n_pad": n_pad,
+                        "digests": digests(), "n_live": n}
+            # row-sharded: "flat" holds every shard's planes, shard-major
+            # (the arena's bytes), "shards" each shard's feed
+            per_shard = [list(x) for x in zip(*(
+                self._upload_sharded(a, n_pad) for a in hosts))] \
+                if hosts else [[] for _ in self._devices]
+            return {"flat": tuple(t for planes in per_shard for t in planes),
+                    "null_flags": flags, "n_pad": n_pad,
+                    "digests": digests(), "n_live": n,
+                    "shards": self._shard_feeds(per_shard, flags, n, n_pad)}
 
     @staticmethod
     def _feed_anchor(storage):
@@ -553,6 +675,9 @@ class DeviceRunner:
             return feed
         used_infos = [plan.scan.columns[ci] for ci, _ in planes]
         route = None
+        # a mesh re-mints: no split stash, no cold bundle (runner.py:1111,
+        # :2223)
+        positional = positional and self._single
         if lineage is not None and positional and lineage.split_stash:
             feed = self._take_split_feed(lineage, feed_key, n)
             if feed is not None and feed.get("lineage_v") == req_v:
@@ -653,8 +778,8 @@ class DeviceRunner:
         ``"split"`` when at least one child feed was minted, else
         ``"none"``."""
         bucket = self._arena.bucket(spec["parent_lineage"], create=False)
-        if not bucket:
-            return "none"
+        if not bucket or not self._single:
+            return "none"       # a row-sharded feed re-mints (runner.py:2223)
         return self._split_local_feeds(bucket, spec)
 
     def _split_local_feeds(self, bucket, spec) -> str:
@@ -749,8 +874,9 @@ class DeviceRunner:
                 "positional": True, "pk_flags": feed["pk_flags"]}
 
     def mvcc_resolver(self):
-        """The runner's ``DeviceMvccResolver`` (created on first use)."""
-        if self._mvcc_resolver is None:
+        """The runner's ``DeviceMvccResolver`` (created on first use);
+        None on a mesh, whose cold builds upload (runner.py:1104-1115)."""
+        if self._mvcc_resolver is None and self._single:
             from .mvcc import DeviceMvccResolver
             self._mvcc_resolver = DeviceMvccResolver()
         return self._mvcc_resolver
@@ -773,10 +899,16 @@ class DeviceRunner:
 
     def scrub_feed(self, feed: dict) -> list:
         """Re-hash every resident plane of ``feed`` on the device → the
-        indices (into ``feed["flat"]``) of the planes whose digest differs
-        from the recorded one."""
+        indices (into ``feed["flat"]``; a row-sharded feed's plane index,
+        its shards copied back together on the first device) of the planes
+        whose digest differs from the recorded one."""
+        planes = feed["flat"]
+        if "shards" in feed:
+            planes = [torch.cat([sub["flat"][p].to(self.device)
+                                 for sub in feed["shards"]])
+                      for p in range(len(feed["digests"]))]
         got = torch.stack([self.device_digest(a, feed["n_live"])
-                           for a in feed["flat"]]).cpu().tolist()
+                           for a in planes]).cpu().tolist()
         return [i for i, (g, r) in enumerate(zip(got, feed["digests"]))
                 if as_u64(g) != as_u64(r)]
 
@@ -785,7 +917,11 @@ class DeviceRunner:
         its recorded digest by the incremental rule ``R' = R − H(old) +
         H(new)`` over the rows written (runner.py:1793-1814): never a
         re-hash of the plane, which would launder a corruption that landed
-        since the last scrub into the record."""
+        since the last scrub into the record.  Single-device feeds only."""
+        if "shards" in feed:
+            raise NotImplementedError(
+                "a row-sharded feed is not patched in place: it re-uploads "
+                "(ROADMAP.md queue 1 item 6)")
         plane = feed["flat"][fi]
         old, new = patch_rows(plane, pos, vals, digest=True)
         digests = list(feed["digests"])
@@ -832,7 +968,8 @@ class DeviceRunner:
         column's route; every packed vector comes back in one D2H copy.  Other columns, and uint64 columns holding a value at or
         past 2^63, take the host half (``copr.analyze.analyze_columns``)
         after every device column has been launched.  ``analyze_phases_ms``
-        holds the host-clock phases of the last request."""
+        holds the host-clock phases of the last request.  A mesh runner
+        answers on the host half (runner.py:4546-4552)."""
         from ..copr.analyze import (ANALYZE_DEVICE_ETS, ColumnStats,
                                     analyze_columns)
         from . import analyze as an
@@ -843,7 +980,7 @@ class DeviceRunner:
         t1 = time.perf_counter()
         phases["scan"] = (t1 - t0) * 1e3
         n = batch.num_rows
-        if n == 0:
+        if n == 0 or not self._single:
             self.analyze_phases_ms = phases
             return analyze_columns(batch, scan.columns, n_buckets)
         n_pad = self._pad_rows(n)
@@ -913,7 +1050,10 @@ class DeviceRunner:
         ``_GroupPending``, or raises ``_BatchUnavailable``.
 
         The ``device::before_dispatch`` failpoint raises
-        ``DeviceUnavailable`` before anything launches."""
+        ``DeviceUnavailable`` before anything launches.  On a mesh, a
+        shard whose launches fail (``device::shard_launch``) sends the whole
+        request to the host pipeline (runner.py:3252, :3304-3319), after the
+        dispatch lock is released; it is counted in ``degrades``."""
         plan, why = self._analyze(dag)
         if plan is None:
             raise NotImplementedError(why)
@@ -924,7 +1064,10 @@ class DeviceRunner:
                 f"{_TODO_STORAGE}")
         with self._dispatch_mu:
             _fp_fault("device::before_dispatch")
-            out = self._dispatch(dag, plan, storage, _stack)
+            try:
+                out = self._dispatch(dag, plan, storage, _stack)
+            except _ShardLaunchFault:
+                out = None
             if isinstance(out, _Pending):
                 # the arena must not evict what a launched kernel reads
                 # until its fetch (runner.py:3286-3294); re-accounted for
@@ -932,6 +1075,14 @@ class DeviceRunner:
                 anchor = self._feed_anchor(storage)
                 out.hold(self._arena, self._arena.pin(anchor))
                 self._arena.admit(anchor)
+        if out is None:
+            # the shards that did launch answer nothing
+            from ..executors.runner import BatchExecutorsRunner
+            self._note_route("shard_launch", self.degrades)
+            tracker.label("degraded", "shard_launch")
+            if _stack is not None:
+                raise _BatchUnavailable("a shard's launches failed")
+            return BatchExecutorsRunner(dag, storage).handle_request()
         if _stack is not None:
             if isinstance(out, _Pending):
                 return _GroupPending(self, out)
@@ -1087,9 +1238,10 @@ class DeviceRunner:
         byte-identical plans (aggregations, top-k, the other selections):
         one solo dispatch and its fetch serve every member.  A selection
         that ``sel_pred`` does not cover (the torch route) only shares,
-        where the reference stacks any hoisted selection (ROADMAP.md)."""
+        where the reference stacks any hoisted selection (ROADMAP.md).
+        None on a mesh: a whole-mesh dispatch stays solo (runner.py:1204)."""
         if not (hasattr(storage, "scan_columns") and
-                hasattr(storage, "count_rows")):
+                hasattr(storage, "count_rows")) or not self._single:
             return None
         plan = self._analyze(dag)[0]
         if plan is None:
@@ -1118,6 +1270,8 @@ class DeviceRunner:
         caller retries each member solo."""
         if not members:
             raise _BatchUnavailable("an empty group")
+        if not self._single:
+            raise _BatchUnavailable("a mesh dispatch is never stacked")
         lead_dag, lead_storage = members[0]
         if any(s is not lead_storage for _d, s in members):
             raise _BatchUnavailable("members read different snapshots")
@@ -1290,6 +1444,104 @@ class DeviceRunner:
             ha.supported(plan, feed, dtypes, capacity, mode) and \
             all(nb <= 4 for nb in arg_nbytes)
 
+    # ------------------------------------------------------------ shards
+
+    def _dev(self, feed) -> torch.device:
+        """The device of ``feed`` (a shard's feed, or a whole one)."""
+        return feed.get("device", self.device)
+
+    def _shard0(self, feed) -> dict:
+        """The feed whose shape a kernel's gate reads: shard 0's on a mesh
+        (every shard has its rows and planes), else the feed itself."""
+        return feed["shards"][0] if "shards" in feed else feed
+
+    def _per_shard(self, feed, n: int, fn) -> list:
+        """``fn(shard feed, its live rows, its shard index)`` for each shard
+        holding live rows, in device order, its launches on its device (the
+        dispatch lock is held: runner.py:717-722) → their results.  A
+        single device runs ``fn(feed, n, 0)``.  On a mesh the
+        ``device::shard_launch`` failpoint fires before a shard's launches
+        (``return`` at the first shard, ``return(i)`` at shard i) and
+        raises ``_ShardLaunchFault``: what the earlier shards launched is
+        dropped."""
+        if self._single:
+            return [fn(feed, n, 0)]
+        out = []
+        for s, sub in enumerate(feed["shards"]):
+            if sub["n_live"] <= 0:
+                break               # the trailing shards hold padding only
+            hit = fail_point("device::shard_launch")
+            if hit is not None and (hit.value is None or
+                                    int(hit.value) == s):
+                raise _ShardLaunchFault(f"shard {s}")
+            with _on_device(sub["device"]):
+                out.append(fn(sub, sub["n_live"], s))
+        return out
+
+    def _psum(self, parts: list, segments=None) -> torch.Tensor:
+        """The shards' partials summed on the first device by one
+        ``shard_psum`` (``_finalize_psum_summed``); a single device's part
+        as it is."""
+        if self._single:
+            return parts[0]
+        return sh.shard_psum([p.to(self.device, non_blocking=True)
+                              .reshape(-1) for p in parts],
+                             segments).reshape(parts[0].shape)
+
+    def _merge_folds(self, outs: list, bases: list, simple: bool) -> tuple:
+        """The shards' ``agg_fold`` buffers merged → (the tensors to fetch,
+        their host half: fetched → one buffer in the fold's layout).
+
+        The summed words go through ``shard_psum``.  GROUP BY MIN/MAX rows
+        (``_finalize_hash_bucket_merge``): one ``shard_bucket_merge`` over
+        the shards' buffers, on the first card, into the psum's output.
+        Without GROUP BY, MIN, MAX and FIRST come home as S rows
+        each and the host reduces them (``_merge_stacked``, runner.py:
+        2391-2410): FIRST takes the shard with the least global position
+        (its own plus the shard's first row ``bases[i]``)."""
+        if self._single:
+            return [outs[0].buf], lambda f: f[0]
+        plan, n_slots = outs[0].plan, outs[0].n_slots
+        sums, stacked, first = _fold_merge_rows(plan, n_slots)
+        root = self.device
+        bufs = [o.buf.to(root, non_blocking=True) for o in outs]
+        merged = sh.shard_psum(bufs, sums)
+        if simple:
+            if not (stacked or first):
+                return [merged], lambda f: f[0]
+            return [merged, torch.stack(bufs)], lambda f: self._merge_simple(
+                f[0], f[1], stacked, first, plan, bases)
+        if stacked:
+            # every shard's buffer is on the first card already: one launch
+            # over the whole (S, slots) pile, into the psum's output
+            sh.shard_bucket_merge(bufs, [(1 + r * n_slots, n_slots, op)
+                                         for r, op in stacked], out=merged)
+        return [merged], lambda f: f[0]
+
+    @staticmethod
+    def _merge_simple(summed, parts, stacked, first, plan, bases):
+        """The host's reduce of a simple fold's MIN, MAX and FIRST rows
+        over the shards' buffers ``parts`` (S, W) into ``summed``."""
+        buf = summed.copy()
+        with tracker.phase("shard_merge"):
+            for r, op in stacked:
+                col = parts[:, 1 + r]
+                buf[1 + r] = col.min() if op.startswith("min") else col.max()
+            for rows in first.values():
+                pos = parts[:, 1 + rows["first"]]
+                hit = np.flatnonzero(pos != _BIG)
+                if hit.size:
+                    i = int(hit[0])
+                    buf[1 + rows["first"]] = pos[i] + bases[i]
+                    for state in ("firstval", "firstok"):
+                        buf[1 + rows[state]] = parts[i, 1 + rows[state]]
+        return buf
+
+    def _home(self, tensors: list) -> list:
+        """``tensors`` on the first device, where a request's readback
+        starts (``Tensor.to``; nothing moves on one card)."""
+        return [t.to(self.device, non_blocking=True) for t in tensors]
+
     def _arg_ok_is_mask(self, plan, feed) -> list:
         """Per-agg flag: the arg's validity provably equals the row mask
         (bare NOT NULL column ref), so it needs no validity plane."""
@@ -1299,7 +1551,7 @@ class DeviceRunner:
     def _inputs(self, plan, feed, n):
         """(per-column (value, validity) pairs over rows [0, n), the
         selection's bool mask or None when there is no selection)."""
-        true = torch.ones((), dtype=torch.bool, device=self.device)
+        true = torch.ones((), dtype=torch.bool, device=self._dev(feed))
         pairs = [(v[:n], true if ok is None else ok[:n])
                  for v, ok in self._planes(feed)]
         if not plan.sel_rpns:
@@ -1320,6 +1572,7 @@ class DeviceRunner:
         then ``sel_mask`` for the count and packed mask."""
         self._note_route(plan.sel_route, self.pred_routes)
         planes = self._planes(feed)
+        dev = self._dev(feed)
         if plan.sel_route == PRED_KERNEL:
             dtypes = tuple(v.dtype for v, _ok in planes)
             prog = plan.sel_programs.get(dtypes)
@@ -1327,16 +1580,16 @@ class DeviceRunner:
                 prog = plan.sel_programs[dtypes] = sm.encode_predicate(
                     plan.sel_rpns, dtypes)
             return sm.sel_pred(prog, planes, n, bools)
-        true = torch.ones((), dtype=torch.bool, device=self.device)
+        true = torch.ones((), dtype=torch.bool, device=dev)
         pairs = [(v[:n], true if ok is None else ok[:n]) for v, ok in planes]
         if plan.sel_params is None:
             plan.sel_params = sm.split_params(plan.sel_rpns, len(pairs))
         rpns, values, dts = plan.sel_params
-        cols = pairs + [(self._param(v, dt), true)
+        cols = pairs + [(self._param(v, dt, dev), true)
                         for v, dt in zip(values, dts)]
         mask = None
         for rpn in rpns:
-            v, ok = eval_rpn(rpn, cols, n, torch, self.device)
+            v, ok = eval_rpn(rpn, cols, n, torch, dev)
             m = ok & (v != 0)
             mask = m if mask is None else mask & m
         mask = mask.contiguous()
@@ -1360,7 +1613,7 @@ class DeviceRunner:
         as numpy, ops/agg layout).  ``arg_nbytes``: ``_arg_nbytes`` of the
         plan, the value width the kernel may assume (4 bytes where it is
         not given)."""
-        dev = self.device
+        dev = self._dev(feed)
         planes = self._planes(feed)
         pairs, mask = self._inputs(plan, feed, n)
         if mask is not None:
@@ -1435,19 +1688,33 @@ class DeviceRunner:
             merged = [{k: v[0] for k, v in st.items()} for st in states]
             return self._simple_result(plan, merged)
 
-        if self._fused_ok(plan, feed, dtypes, 1, ha.MODE_SIMPLE, arg_nbytes):
-            stacked, decode = self._aggregate_launch(
-                plan, feed, n, ha.MODE_SIMPLE, 0, 1, 1, 1,
-                arg_nbytes=arg_nbytes)
-            return _Pending([stacked],
+        if self._fused_ok(plan, self._shard0(feed), dtypes, 1,
+                          ha.MODE_SIMPLE, arg_nbytes):
+            parts = self._per_shard(feed, n, lambda f, m, _s: (
+                self._aggregate_launch(plan, f, m, ha.MODE_SIMPLE, 0, 1, 1,
+                                       1, arg_nbytes=arg_nbytes)))
+            decode = parts[0][1]
+            return _Pending([self._psum([t for t, _d in parts])],
                             lambda f: result(decode(f[0])[1]), small=True)
         # the simple body (runner.py:2668): the agg_fold kernel
-        pairs, mask = self._inputs(plan, feed, n)
-        out = agg_fold(plan.specs, self._fold_cols(plan, feed, pairs, n), n,
-                       af.MODE_SIMPLE, mask=mask, device=self.device,
-                       value_bound=fold_bound)
-        return _Pending([out.buf], lambda f: result(
-            af.decode(f[0], out.plan, out.n_slots)[2]), small=True)
+        outs = self._per_shard(feed, n, lambda f, m, _s: self._fold(
+            plan, f, m, af.MODE_SIMPLE, fold_bound))
+        tensors, host = self._merge_folds(
+            outs, [sub["base"] for sub in feed.get("shards", ())], True)
+        return _Pending(tensors, lambda f: result(
+            af.decode(host(f), outs[0].plan, outs[0].n_slots)[2]),
+            small=True)
+
+    def _fold(self, plan, feed, n, mode, fold_bound, inputs=None,
+              **kw) -> "af.FoldOut":
+        """One ``agg_fold`` pass over ``feed``'s rows [0, n) (the scatter
+        and simple bodies); ``inputs``: ``_inputs``' result, when the
+        caller has it."""
+        pairs, mask = self._inputs(plan, feed, n) if inputs is None \
+            else inputs
+        return agg_fold(plan.specs, self._fold_cols(plan, feed, pairs, n), n,
+                        mode, mask=mask, device=self._dev(feed),
+                        value_bound=fold_bound, **kw)
 
     # --------------------------------------------------------- hash agg
 
@@ -1457,8 +1724,10 @@ class DeviceRunner:
         A key span beyond ``MAX_HASH_CAPACITY`` cannot direct-index; the
         distinct keys are dictionary-encoded once per snapshot on the host
         (``np.unique``) and the int32 slot plane is cached on the device
-        next to the feed.  Returns (uniq, capacity, slot plane); raises
-        NotImplementedError beyond ``MAX_HASH_CAPACITY`` distinct keys.
+        next to the feed — on a mesh, the one global dictionary's plane
+        row-sharded as the feed is (runner.py:3662-3705).  Returns (uniq,
+        capacity, slot planes: one a shard); raises NotImplementedError
+        beyond ``MAX_HASH_CAPACITY`` distinct keys.
         """
         if "sparse_slots" in meta:
             return meta["sparse_slots"]
@@ -1479,7 +1748,8 @@ class DeviceRunner:
             idx[km] = inv.astype(np.int32)
         padded = np.full(feed["n_pad"], capacity + 1, np.int32)
         padded[:n] = idx                                    # pad: scrap
-        slot_ids = torch.from_numpy(padded).to(self.device)
+        slot_ids = [torch.from_numpy(padded).to(self.device)] \
+            if self._single else self._upload_sharded(padded, feed["n_pad"])
         got = meta["sparse_slots"] = (uniq, capacity, slot_ids)
         return got
 
@@ -1528,18 +1798,39 @@ class DeviceRunner:
             layouts, p8, pf = kn.build_layouts(
                 plan.specs, arg_is_real, arg_nbytes,
                 self._arg_ok_is_mask(plan, feed))
-        if self._fused_ok(plan, feed, dtypes, capacity, mode, arg_nbytes):
-            stacked, decode = self._aggregate_launch(
-                plan, feed, n, mode, base, capacity, slots,
-                ha.n_slots(plan, capacity, mode), slot_ids, arg_nbytes)
-            tensors, decode = [stacked], (lambda f, d=decode: d(f[0]))
+
+        def ids(s):
+            return None if slot_ids is None else slot_ids[s]
+
+        if self._fused_ok(plan, self._shard0(feed), dtypes, capacity, mode,
+                          arg_nbytes):
+            # _pallas_sharded_wrap (runner.py:3930): the kernel per shard,
+            # the packed outputs psummed
+            parts = self._per_shard(feed, n, lambda f, m, s: (
+                self._aggregate_launch(
+                    plan, f, m, mode, base, capacity, slots,
+                    ha.n_slots(plan, capacity, mode), ids(s), arg_nbytes)))
+            tensors = [self._psum([t for t, _d in parts])]
+            decode = (lambda f, d=parts[0][1]: d(f[0]))
         elif layouts is not None and kn.twolevel_lo(p8, pf) is not None:
-            tensors, decode = self._run_twolevel(
-                plan, feed, n, base, capacity, slot_ids, layouts, p8, pf)
+            parts = self._per_shard(feed, n, lambda f, m, s: (
+                self._run_twolevel(plan, f, m, base, capacity, ids(s),
+                                   layouts, p8, pf)))
+            tensors = [self._psum([p[0][i] for p in parts])
+                       for i in range(len(parts[0][0]))]
+            decode = parts[0][1]
         else:
-            tensors, decode = self._run_scatter(plan, feed, n, base,
-                                                capacity, slot_ids,
-                                                meta["fold_bound"])
+            outs = self._per_shard(feed, n, lambda f, m, s: (
+                self._run_scatter(plan, f, m, base, capacity, ids(s),
+                                  meta["fold_bound"])))
+            tensors, host = self._merge_folds(outs, [], False)
+            fold = outs[0]
+
+            def decode(fetched):
+                present, overflow, states = af.decode(
+                    host(fetched), fold.plan, fold.n_slots)
+                self._check_overflow(overflow)
+                return present, states
 
         def finalize(fetched):
             present, states = decode(fetched)
@@ -1569,7 +1860,7 @@ class DeviceRunner:
         cols = []
         for r in plan.agg_rpns:
             if r is not None and r not in evaluated:
-                evaluated[r] = eval_rpn(r, pairs, n, torch, self.device)
+                evaluated[r] = eval_rpn(r, pairs, n, torch, self._dev(feed))
             cols.append(None if r is None else evaluated[r])
         key = key_ok = None
         if slot_ids is None:
@@ -1597,34 +1888,22 @@ class DeviceRunner:
     # -- route 3: the scatter body (runner.py:2701)
 
     def _run_scatter(self, plan, feed, n, base, capacity, slot_ids,
-                     fold_bound=None):
+                     fold_bound=None) -> "af.FoldOut":
         """The scatter body: one ``agg_fold`` pass over the key (or slot
-        ids), the selection and each distinct argument → (its buffer, the
-        decode of that buffer fetched to (present, states))."""
-        pairs, mask = self._inputs(plan, feed, n)
-        cols = self._fold_cols(plan, feed, pairs, n)
+        ids), the selection and each distinct argument."""
         if slot_ids is not None:
-            out = agg_fold(plan.specs, cols, n, af.MODE_SPARSE,
-                           capacity=capacity, slot_ids=slot_ids, mask=mask,
-                           device=self.device, value_bound=fold_bound)
-        else:
-            key, key_ok = self._key(plan, feed, pairs, n)
-            out = agg_fold(plan.specs, cols, n, af.MODE_DENSE, key=key,
-                           key_ok=key_ok, base=base, capacity=capacity,
-                           mask=mask, device=self.device,
-                           value_bound=fold_bound)
-
-        def decode(fetched):
-            present, overflow, states = af.decode(fetched[0], out.plan,
-                                                  out.n_slots)
-            self._check_overflow(overflow)
-            return present, states
-        return [out.buf], decode
+            return self._fold(plan, feed, n, af.MODE_SPARSE, fold_bound,
+                              capacity=capacity, slot_ids=slot_ids)
+        inputs = self._inputs(plan, feed, n)
+        key, key_ok = self._key(plan, feed, inputs[0], n)
+        return self._fold(plan, feed, n, af.MODE_DENSE, fold_bound, inputs,
+                          key=key, key_ok=key_ok, base=base,
+                          capacity=capacity)
 
     def _key(self, plan, feed, pairs, n) -> tuple:
         """The GROUP BY key's (values, validity), no validity for a bare
         column without NULLs (nothing to read)."""
-        key, key_ok = eval_rpn(plan.key_rpn, pairs, n, torch, self.device)
+        key, key_ok = eval_rpn(plan.key_rpn, pairs, n, torch, self._dev(feed))
         ci = _bare_col(plan.key_rpn)
         if ci is not None and not feed["null_flags"][ci]:
             key_ok = None
@@ -1642,7 +1921,7 @@ class DeviceRunner:
                 cols.append(None)
                 continue
             if r not in evaluated:
-                v, ok = eval_rpn(r, pairs, n, torch, self.device)
+                v, ok = eval_rpn(r, pairs, n, torch, self._dev(feed))
                 ci = _bare_col(r)
                 if ci is not None and not feed["null_flags"][ci]:
                     ok = None
@@ -1699,15 +1978,15 @@ class DeviceRunner:
         with self._stats_mu:
             table[route] = table.get(route, 0) + 1
 
-    def _param(self, value, dtype: str) -> torch.Tensor:
-        """A hoisted constant as a cached 0-d device tensor."""
-        key = (type(value), value, dtype)
+    def _param(self, value, dtype: str, device) -> torch.Tensor:
+        """A hoisted constant as a cached 0-d tensor on ``device``."""
+        key = (type(value), value, dtype, device)
         t = self._params.get(key)
         if t is None:
             if len(self._params) >= self._plan_cache_max:
                 self._params.pop(next(iter(self._params)))
             t = self._params[key] = torch.tensor(
-                value, dtype=_TORCH_DTYPES[dtype], device=self.device)
+                value, dtype=_TORCH_DTYPES[dtype], device=device)
         return t
 
     def _run_scan_sel(self, dag, plan, feed, n, get_batch,
@@ -1719,16 +1998,27 @@ class DeviceRunner:
         (``sel_compact``, launched here too) or the rows themselves.  A
         cold plan takes the mask route; its count seeds the EWMA at the
         fetch.  An index or compact capacity that proves too small falls
-        back to the packed mask, still on the device."""
-        mout = self._selection(plan, feed, n, False)[0]
+        back to the packed mask, still on the device.
+
+        On a mesh each shard packs its own rows (a whole number of mask
+        bytes: its rows are a multiple of 8) and the host joins the packed
+        masks in row order and adds the counts; the index route runs
+        ``sel_compact`` per shard with one capacity each, sized over every
+        shard (runner.py:4279-4286), and offsets each shard's indices by
+        its first row.  The compact route is single-device."""
+        mouts = self._per_shard(feed, n, lambda f, m, _s: (
+            self._selection(plan, f, m, False)[0]))
         keys = self._sel_keys(dag, plan)
         pred = self._sel_predict(keys)
         route, cap = sm.ROUTE_MASK, 0
         if pred is not None:
             k_est = pred * n
-            cap = sm.index_capacity(k_est * 1.5 + 64, n)
-            route = sm.choose_route(n, k_est, plan.compact_ok,
-                                    idx_bytes=4 * cap)
+            cap = sm.index_capacity(k_est * 1.5 + 64,
+                                    self._shard0(feed)["n_pad"]
+                                    if "shards" in feed else n)
+            route = sm.choose_route(n, k_est,
+                                    plan.compact_ok and self._single,
+                                    idx_bytes=4 * cap * self._nshards())
 
         def gather(rows):
             return self._gather(dag, plan, storage, rows, get_batch)
@@ -1741,24 +2031,38 @@ class DeviceRunner:
                 self._note_route(sm.ROUTE_MASK)
             return gather(np.unpackbits(packed, count=n).view(np.bool_))
 
+        def masks(fetched) -> tuple:
+            """(count, packed bytes) of every shard's fetched mask buffer."""
+            got = [sm.mask_host(h) for h in fetched]
+            return sum(c for c, _p in got), \
+                np.concatenate([p for _c, p in got])
+
+        def mask_bufs() -> list:
+            return [mo.buf[:sm.HEADER + -(-mo.n // 8)] for mo in mouts]
+
         if route == sm.ROUTE_MASK:
-            return _Pending([mout.buf[:sm.HEADER + -(-n // 8)]],
-                            lambda f: mask_route(*sm.mask_host(f[0]), False),
+            return _Pending(self._home(mask_bufs()),
+                            lambda f: mask_route(*masks(f), False),
                             small=False)
-        planes = []
-        if route == sm.ROUTE_COMPACT:
-            planes = [t for v, ok in self._planes(feed)
-                      for t in ((v,) if ok is None else (v, ok))]
-        cout = sm.sel_compact(mout, cap, planes)
+        bases = [sub["base"] for sub in feed.get("shards", ())] or [0]
+        couts = self._per_shard(feed, n, lambda f, m, s: sm.sel_compact(
+            mouts[s], cap, [] if route != sm.ROUTE_COMPACT else
+            [t for v, ok in self._planes(f)
+             for t in ((v,) if ok is None else (v, ok))]))
 
         def finalize(fetched):
-            count, overflow, idx, outs = cout.from_host(fetched[0])
+            got = [c.from_host(h) for c, h in zip(couts, fetched)]
+            count = sum(g[0] for g in got)
             self._sel_observe(keys, count / n)
-            if overflow:
-                return mask_route(*mout.host(), True)
+            if any(g[1] for g in got):
+                return mask_route(*masks([t.cpu().numpy()
+                                          for t in mask_bufs()]), True)
             self._note_route(route)
             if route == sm.ROUTE_INDEX:
-                return gather(idx[:count].astype(np.int64))
+                return gather(np.concatenate([
+                    idx[:c].astype(np.int64) + b
+                    for (c, _o, idx, _outs), b in zip(got, bases)]))
+            outs = got[0][3]
             schema, cols = [], []
             at = iter(outs)
             for info, has_nulls in zip(plan.scan.columns,
@@ -1769,7 +2073,8 @@ class DeviceRunner:
                 schema.append(info.field_type)
                 cols.append(Column(EvalType.INT, vals, valid))
             return SelectResult(ColumnBatch(schema, cols))
-        return _Pending([cout.buf], finalize, small=False)
+        return _Pending(self._home([c.buf for c in couts]), finalize,
+                        small=False)
 
     # ---------------------------------------------------------------- top-n
 
@@ -1795,30 +2100,45 @@ class DeviceRunner:
         ties by row position."""
         if plan.limit == 0:
             return SelectResult(get_batch().take(np.empty(0, np.int64)))
-        pairs, mask = self._inputs(plan, feed, n)
-        ci = _bare_col(plan.order_rpn)
-        if ci is not None:
-            values, ok = self._planes(feed)[ci]
-        else:
-            # REAL columns are float64 planes here, REAL constants float64
-            values, ok = eval_rpn(plan.order_rpn, pairs, n, torch,
-                                  self.device, real=torch.float64)
-            values, ok = values.contiguous(), ok.contiguous()
-        n_used, seglen = tn.segments(n, feed["n_pad"])
-        placement = tn.digit_placement(values.dtype, plan.order_desc,
-                                       bounds)
-        picked = tn.topn_select(values, ok, mask, plan.order_desc, n, n_used,
-                                seglen, plan.limit, placement=placement)
-        return _Pending([picked], lambda f: self._topn_rows(
-            dag, plan, storage, get_batch, n, f[0]), small=False)
+
+        def select(f, m, _s):
+            pairs, mask = self._inputs(plan, f, m)
+            ci = _bare_col(plan.order_rpn)
+            if ci is not None:
+                values, ok = self._planes(f)[ci]
+            else:
+                # REAL columns are float64 planes here, REAL constants
+                # float64
+                values, ok = eval_rpn(plan.order_rpn, pairs, m, torch,
+                                      self._dev(f), real=torch.float64)
+                values, ok = values.contiguous(), ok.contiguous()
+            n_used, seglen = tn.segments(m, f["n_pad"])
+            placement = tn.digit_placement(values.dtype, plan.order_desc,
+                                           bounds)
+            return tn.topn_select(values, ok, mask, plan.order_desc, m,
+                                  n_used, seglen, plan.limit,
+                                  placement=placement)
+
+        picked = self._per_shard(feed, n, select)
+        # each shard's (first row, live rows): its candidates' global ids
+        spans = [(sub["base"], sub["n_live"])
+                 for sub in feed["shards"][:len(picked)]] \
+            if "shards" in feed else [(0, n)]
+        return _Pending(self._home(picked), lambda f: self._topn_rows(
+            dag, plan, storage, get_batch, f, spans), small=False)
 
     @staticmethod
-    def _topn_rows(dag, plan, storage, get_batch, n, host) -> SelectResult:
-        """The TopN's rows from ``topn_select``'s fetched positions and
-        flags: the candidates gathered, then ordered exactly."""
-        gidx = host[0]
-        live = (host[1] & 1 != 0) & (gidx < n)
-        gidx, okk = gidx[live], host[1][live] & 2 != 0
+    def _topn_rows(dag, plan, storage, get_batch, fetched,
+                   spans) -> SelectResult:
+        """The TopN's rows from every shard's fetched ``topn_select``
+        positions and flags (≤ k a shard; ``spans``: each shard's first row
+        and live rows): the candidates gathered, then ordered exactly."""
+        gidx, okk = [], []
+        for host, (base, m) in zip(fetched, spans):
+            live = (host[1] & 1 != 0) & (host[0] < m)
+            gidx.append(host[0][live] + base)
+            okk.append(host[1][live] & 2 != 0)
+        gidx, okk = np.concatenate(gidx), np.concatenate(okk)
         # the candidate rows only (a table scan gathers them from the
         # snapshot; an index scan's output is views of its sorted index)
         if isinstance(plan.scan, TableScanDesc) and \

@@ -40,7 +40,6 @@ import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..raftstore.observer import Observer
 from ..utils.failpoint import fail_point
@@ -117,8 +116,8 @@ def _bucket_nbytes(bucket: dict) -> int:
         for a in v.get("flat", ()):
             total += int(getattr(a, "nbytes", 0))
         for a in v.get("sparse_slots", ()) or ():
-            if isinstance(a, torch.Tensor):     # the slot ids' plane
-                total += int(a.nbytes)
+            if isinstance(a, list):     # the slot ids' planes, one a shard
+                total += sum(int(t.nbytes) for t in a)
     return total
 
 

@@ -42,6 +42,13 @@ endpoint: three tables of ``int_table(2)``'s shape (``c0 = h % 1024``,
 selections ``c1 > thr`` (thr Zipf over 980..995) and ``GROUP BY c0:
 COUNT(*), SUM(c1)``, 3:1, over Zipf-drawn tables.
 
+The mesh cells (``MESH_CELLS``) run configs 3, 4, 4n, 4s, 2s and 5t, and
+4x, on a row-sharded feed (``DeviceRunner(mesh=...)``).  Config 4x is
+``__graft_entry__.py:109-135``'s (``dryrun_multichip``) shape:
+``build_multichip_table`` (``k`` in [0, 1024), ``v`` in [-50, 50), seed
+7) with ``WHERE v > 0 GROUP BY k: COUNT(*), SUM(v), MIN(v), MAX(v)``
+(``dag_4x``); ``truth("4x", snap)`` keeps the selected rows first.
+
 The plan-IR configurations (``PLAN_CELLS``, ``plan_truth``) run on config
 7's pair of tables (``build_join_pair``, ``bench.py:243-312``): a probe
 table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
@@ -135,6 +142,28 @@ def build_real_null_table(n: int, groups: int = GROUPS, seed: int = 7):
     return table, snap
 
 
+def build_multichip_table(n: int, groups: int = GROUPS, seed: int = 7):
+    """``dryrun_multichip``'s table (``__graft_entry__.py:109-135``): dense
+    keys in [0, groups), ``v`` in [-50, 50)."""
+    rng = np.random.default_rng(seed)
+    table = bench_table()
+    k = rng.integers(0, groups, n).astype(np.int64)
+    v = rng.integers(-50, 50, n).astype(np.int64)
+    ones = np.ones(n, dtype=np.bool_)
+    snap = ColumnarTable.from_arrays(
+        table, np.arange(n, dtype=np.int64),
+        {"k": Column(EvalType.INT, k, ones),
+         "v": Column(EvalType.INT, v, ones)})
+    return table, snap
+
+
+def dag_4x(table: Table):
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    return s.where(s.col("v") > 0).aggregate(
+        [s.col("k")], [("count_star", None), ("sum", s.col("v")),
+                       ("min", s.col("v")), ("max", s.col("v"))]).build()
+
+
 def dag_simple_agg(table: Table):
     s = DagSelect.from_table(table, ["id", "k", "v"])
     return s.aggregate([], [("sum", s.col("v")), ("count_star", None),
@@ -189,6 +218,16 @@ CONFIGS = {
     "4m": (build_table, dag_4m),
     "3n": (build_null_table, dag_3n),
 }
+
+
+# the aggregations of the mesh cells outside CONFIGS: name → (table builder,
+# plan builder, the selection's rows as numpy over v)
+MESH_AGGS = {"4x": (build_multichip_table, dag_4x, lambda v: v > 0)}
+# mesh cell → (the configuration it runs, rows on the card)
+MESH_CELLS = {"m3": ("3", 50 << 20), "m4": ("4", 100 << 20),
+              "m4x": ("4x", 100 << 20), "m4n": ("4n", 100 << 20),
+              "m4s": ("4s", 1 << 24), "m2s": ("2s", 10 << 20),
+              "m5t": ("5t", 100 << 20)}
 
 
 PROBE_THRESHOLD = -(10 ** 9)
@@ -348,8 +387,13 @@ def truth(name: str, snap) -> tuple:
     """(rows, scales) of config ``name`` over ``snap``, from numpy alone:
     the rows in the runner's order (ascending key, aggregates then key),
     and per row the error scale of each cell (see ``_cells``).  REAL
-    values are taken as the float32 the device column holds."""
-    _build, make = CONFIGS[name]
+    values are taken as the float32 the device column holds.  A
+    ``MESH_AGGS`` configuration keeps its selected rows first."""
+    where = None
+    if name in MESH_AGGS:
+        _build, make, where = MESH_AGGS[name]
+    else:
+        _build, make = CONFIGS[name]
     agg = make(bench_table()).executors[-1]
     kinds = [a.kind for a in agg.aggs]
     k = snap.columns[2].values
@@ -358,6 +402,9 @@ def truth(name: str, snap) -> tuple:
     v = vcol.values.astype(np.float32).astype(np.float64) if real \
         else vcol.values
     ok = vcol.validity
+    if where is not None:
+        keep = ok & where(v)
+        k, v, ok = k[keep], v[keep], ok[keep]
     n = len(k)
     if agg.group_by:
         if k.size and k.min() >= 0 and k.max() < (1 << 20):

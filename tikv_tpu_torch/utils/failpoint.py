@@ -7,7 +7,9 @@ is the site, ``teardown()`` disarms every site.  Actions, chained with
 port's sites: ``device::join_dispatch`` (the probe dispatch of a device
 join), ``copr::plan_route`` (every fragment of a plan to the host),
 ``device::before_dispatch`` and ``device::before_fetch`` (a device fault
-at a DAG request's dispatch or at its fetch), ``copr::coalesce_dispatch``
+at a DAG request's dispatch or at its fetch), ``device::shard_launch`` (a
+shard's launches fail on a mesh: ``return`` at the first shard,
+``return(i)`` at shard i; the request is answered by the host pipeline), ``copr::coalesce_dispatch``
 (a coalesced group's launch fails: its members retry solo) and
 ``copr::coalesce_window`` (a group closes as its member arrives).
 

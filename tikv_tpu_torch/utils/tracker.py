@@ -8,8 +8,10 @@ serving layers attribute to whichever tracker is current in their context
 or the coalescer's dispatcher takes the request over).  Phases the port
 records: ``d2h_wait`` and ``host_materialize`` (the runner's fetch),
 ``completion_queue_wait`` (the completion pool), ``coalesce_wait`` (a
-coalesced member's time in its window) and ``host_exec`` (a request served
-by the host pipeline); labels ``backend``, ``router`` and ``degraded``.
+coalesced member's time in its window), ``host_exec`` (a request served
+by the host pipeline) and ``shard_merge`` (the host's part of a mesh
+request's cross-shard merge); labels ``backend``, ``router`` and
+``degraded``.
 
 The reference's span tree, follows-from links and trace buffer
 (``tikv_tpu/utils/trace.py``) are not ported (ROADMAP.md queue 1 item 7).
