@@ -275,7 +275,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``shard_psum`` (m4, m4n) and ``shard_bucket_merge`` (m4x) on the
    runner's own arguments beside their bounds, plain versions and a
    ``torch.stack`` yardstick;
-15. one JSON line listing every ported kernel: launches on the main path,
+15. the scale-out mesh (cell so8): ``feed_verify`` (``csrc/digest.cu``)
+   against its plain version and one ``plane_digest`` a plane, bit for
+   bit, over P of 1 to 200 planes (past 96 its descriptors go through a
+   device table), every feed width, planes off a 16-byte boundary, ragged
+   and empty ranges, up to 2^24 + 3 rows; then a placement runner
+   (``DeviceRunner(mesh=make_mesh([card] * 4, shape=(2, 2)),
+   placement=True, slice_latency_outlier_s=1.0)``, its slices spread over
+   every visible card) behind
+   ``Endpoint.handle_async(...).wait()``: eight regions of 6b-ep's
+   ``int_table(2)`` shape at 2^21 rows (one region at
+   ``region_split_size_mb = 96``; each placed whole on a slice) and one of
+   10·2^20 rows (the whole-mesh route), each plan cold once, then 6b-ep's
+   mix (Zipf 2.0 over the nine regions, 75% ``c1 > thr``, 25% ``GROUP BY
+   c0``) as 256 requests from 16 threads, twice (warm p50 and p99 by
+   route from the second pass); a
+   forced ``rebalance()`` and one timed migration (host copy, verify and
+   install ms; ``feed_verify`` once a feed); ``device::feed_migrate``
+   armed once (the migration ends "corrupt", both feeds are minted again);
+   ``device::slice_dead`` on slice 1 until it trips (its anchors drain by
+   migration, the whole-mesh region runs on the degraded submesh); the
+   fault lifted and a canary re-admitting slice 1 with a decayed score,
+   the whole mesh restored.  Every answer equals the numpy truth, the
+   whole-mesh region's also the single runner's; no degrade outside the
+   armed failpoints; ``feed_verify`` launched once a migrated feed (and
+   once for the corrupt one); the kernel timed queued at the moved
+   selection feed (three int32 planes, 2^21 rows) beside its bound, its
+   plain version and P ``plane_digest`` launches, and the copy beside its
+   bound;
+16. one JSON line listing every ported kernel: launches on the main path,
    largest difference from the plain version, kernel / plain / library
    times at its main shape (config 4 for ``hash_agg``, with configs 3, 4
    and 4s under ``configs``; config 4n for ``twolevel``'s fused entry, with
@@ -290,8 +318,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    shape for ``sel_pred_batched``; 6c-split's split 1 for
    ``split_planes``, with both children under ``configs``; m4 for
    ``shard_psum``, with m4n under ``configs``; m4x for
-   ``shard_bucket_merge``), and the least time the card could take;
-16. the last line: ``{"ok": true, "device": {...}}``.
+   ``shard_bucket_merge``; so8's moved selection feed for
+   ``feed_verify``), and the least time the card could take;
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -323,7 +352,7 @@ KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_pred_batched",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
            "sort_perm", "window_scan", "analyze", "split_planes",
-           "shard_psum", "shard_bucket_merge")
+           "shard_psum", "shard_bucket_merge", "feed_verify")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -402,7 +431,8 @@ def counts() -> dict:
             "analyze": analyze.analyze_launches,
             "split_planes": split.launches,
             "shard_psum": shard.psum_launches,
-            "shard_bucket_merge": shard.merge_launches}
+            "shard_bucket_merge": shard.merge_launches,
+            "feed_verify": digest.verify_launches}
 
 
 def set_counts(values: dict) -> None:
@@ -429,6 +459,7 @@ def set_counts(values: dict) -> None:
     split.launches = values["split_planes"]
     shard.psum_launches = values["shard_psum"]
     shard.merge_launches = values["shard_bucket_merge"]
+    digest.verify_launches = values["feed_verify"]
 
 
 # the builds still running after build_kernels(defer=...): name → future
@@ -5321,6 +5352,417 @@ def run_mesh_rest(mesh_runner, single) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the scale-out mesh: feed_verify and cell so8
+# ---------------------------------------------------------------------------
+
+# cell so8: eight regions of int_table(2)'s shape (6b-ep's tables) of 2^21
+# rows — one region at region_split_size_mb = 96, below placement_rows =
+# 2^22, so each is placed whole on one slice — and one of 10·2^20 rows
+# (6b-ep's size), which takes the whole-mesh route
+SO8_ROWS, SO8_BIG_ROWS = 1 << 21, 10 << 20
+SO8_TABLE_IDS = tuple(range(9930, 9939))
+# Zipf rank → table: the whole-mesh region is the third most requested
+SO8_RANK = (0, 1, 8, 2, 3, 4, 5, 6, 7)
+SO8_CLIENTS, SO8_REQS = 16, 16
+SO8_COOLDOWN_S = 0.05
+# a served fetch this slow strikes its slice 0.25: some 17 times so8's
+# warm p50, so a card that stalls is struck and one that queues is not
+SO8_LATENCY_OUTLIER_S = 1.0
+SO8_DEAD = 1            # the slice device::slice_dead kills
+
+
+def check_feed_verify(dev) -> int:
+    """``feed_verify`` against its plain version and against one
+    ``plane_digest`` launch a plane, bit for bit: P of 1, 3, 7 (every feed
+    width: bool, int8, int16, int32, int64, float32, float64), 96 (the most
+    the launch parameters hold), 97 and 200 (the device table), planes 0-7
+    elements off a 16-byte boundary on mixed phases, n of 1, 15, 4097 and
+    2^24 + 3 (P ≤ 7), ranges full, ragged and empty → the worst digest
+    distance."""
+    from tikv_tpu_torch.device import digest as dg
+    gen = torch.Generator().manual_seed(23)
+    saved = counts()
+    worst = cases = 0
+    for n in (1, 15, 4097, (1 << 24) + 3):
+        for P in (1, 3, 7, 96, 97, 200):
+            if n > 4097 and P > 7:
+                continue
+            planes = []
+            for p in range(P):
+                off = (3 * p) % 8
+                planes.append(random_plane(FEED_DTYPES[p % len(FEED_DTYPES)],
+                                           n + 8, gen, dev)[off:off + n])
+            for lo, hi in ((0, n), (1, max(1, n - 1)), (n // 3, n // 2),
+                           (n, n)):
+                got = dg.feed_verify(planes, lo, hi).tolist()
+                want = dg.feed_verify_plain(planes, lo, hi).tolist()
+                one = [dg.plane_digest(a, lo, hi) for a in planes]
+                for g, w, o in zip(got, want, one):
+                    worst = max(worst, digest_err(g, w), digest_err(g, o))
+                cases += 1
+            del planes
+    torch.cuda.synchronize()
+    set_counts(saved)
+    print(f"check feed_verify: {cases} cases (P 1-200, 7 widths, 4 "
+          f"lengths, 4 ranges): worst digest distance {worst}", flush=True)
+    assert worst == 0, "feed_verify disagrees"
+    return worst
+
+
+def queued_ms(fn, iters: int, tries: int = 3) -> float:
+    """``cuda_ms(fn, iters, queued=True)``, taken again (at most ``tries``
+    times) when the shared host issued the calls too slowly to time."""
+    for left in range(tries - 1, -1, -1):
+        try:
+            return cuda_ms(fn, iters, queued=True)
+        except AssertionError:
+            if not left:
+                raise
+            print("timing: the host was slow, timing again", flush=True)
+
+
+def feed_verify_at_main_shape(feed: dict) -> tuple:
+    """``feed_verify`` over a so8 feed's resident planes (a migrated
+    selection feed: three int32 planes, 2^21 live rows) against its plain
+    version and one ``plane_digest`` a plane, bit for bit; timed queued
+    beside its bound (the live bytes read once at 3.35 TB/s; a multiply
+    and an add an element), its plain version and the P launches it
+    replaces (the reference checks plane by plane); and the copy
+    ``install_feeds`` makes of those planes (``copy_`` into storage of the
+    destination's own) beside its bound, the padded planes' bytes read
+    and written once → (timings, worst digest distance)."""
+    from tikv_tpu_torch.device import digest as dg
+    planes, n = list(feed["flat"]), feed["n_live"]
+    saved = counts()
+    got = dg.feed_verify(planes, 0, n).tolist()
+    err = max([digest_err(g, w) for g, w in zip(
+        got, dg.feed_verify_plain(planes, 0, n).tolist())] +
+        [digest_err(g, dg.plane_digest(a, 0, n)) for g, a in zip(got,
+                                                                 planes)])
+    live = sum(n * a.element_size() for a in planes)
+    padded = sum(a.numel() * a.element_size() for a in planes)
+    dst = [torch.empty_like(a) for a in planes]
+    gc.collect()
+    t = {"ms": queued_ms(lambda: dg.feed_verify(planes, 0, n), 200),
+         "plain_ms": cuda_ms(lambda: dg.feed_verify_plain(planes, 0, n), 10),
+         "library_ms": None,
+         "yardstick_ms": queued_ms(lambda: [dg.plane_digest(a, 0, n)
+                                            for a in planes], 100),
+         "yardstick": f"{len(planes)} plane_digest launches, one a plane",
+         **bound_ms(live, 2 * n * len(planes)), "planes": len(planes),
+         "rows": n, "n_pad": feed["n_pad"],
+         "dtypes": [str(a.dtype) for a in planes], "bytes": live,
+         "copy_ms": queued_ms(lambda: [b.copy_(a, non_blocking=True)
+                                       for a, b in zip(planes, dst)], 100),
+         "copy_bound_ms": 2 * padded / HBM_BYTES_PER_S * 1e3,
+         "copy_bytes": padded}
+    del dst
+    set_counts(saved)
+    print(f"kernel feed_verify at so8: max_abs_err={err} " + " ".join(
+        f"{k}={v}" for k, v in t.items()), flush=True)
+    return t, err
+
+
+def so8_runner():
+    """The placement runner of so8: ``make_mesh([card] * 4, shape=(2, 2))``
+    with its four slices spread over every visible card."""
+    from tikv_tpu_torch.device import DeviceRunner
+    from tikv_tpu_torch.parallel import make_mesh
+    cards = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % cards) for i in range(4)]
+    return DeviceRunner(mesh=make_mesh(devs, shape=MESH_SHAPE),
+                        placement=True,
+                        slice_probe_cooldown_s=SO8_COOLDOWN_S,
+                        slice_latency_outlier_s=SO8_LATENCY_OUTLIER_S)
+
+
+class So8:
+    """Cell so8's tables, truths, requests and checks around one placement
+    runner and its endpoint; ``single`` answers the whole-mesh region once
+    per plan, the yardstick of its answers."""
+
+    def __init__(self, single):
+        from tikv_tpu_torch.convert import dag_from_wire
+        from tikv_tpu_torch.copr.endpoint import Endpoint
+        from tikv_tpu_torch.copr.wire import enc_dag
+        from tikv_tpu_torch.testing import configs as cf
+        t0 = time.perf_counter()
+        self.n = [SO8_ROWS] * 8 + [SO8_BIG_ROWS]
+        self.tables = [cf.serving_table(n, tid)
+                       for n, tid in zip(self.n, SO8_TABLE_IDS)]
+        self.truths = {n: {thr: cf.serving_truth(n, thr)
+                           for thr in cf.SERVE_PALETTE + (None,)}
+                       for n in (SO8_ROWS, SO8_BIG_ROWS)}
+        self.schedule = [(SO8_RANK[ti], cf.SERVE_PALETTE[pi] if sel else None)
+                         for ti, pi, sel in cf.serving_schedule(
+                             SO8_CLIENTS * SO8_REQS, n_tables=9)]
+        self.dags = {(ti, thr): dag_from_wire(enc_dag(cf.dag_serving(
+            self.tables[ti][0], thr))) for ti in range(9)
+            for thr in cf.SERVE_PALETTE + (None,)}
+        big = self.tables[8][1]
+        self.single = {thr: single.handle_request(self.dags[(8, thr)], big)
+                       for thr in cf.SERVE_PALETTE + (None,)}
+        self.runner = so8_runner()
+        self.placer = self.runner.placer
+        by_id = {t.table_id: snap for t, snap in self.tables}
+        self.ep = Endpoint(lambda req: by_id[req.dag.executors[0].table_id],
+                           self.runner, device_row_threshold=1)
+        print(f"so8: tables, truths and the single runner's whole-mesh "
+              f"answers in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    def snap(self, ti: int):
+        return self.tables[ti][1]
+
+    def agrees(self, ti: int, thr, result) -> bool:
+        """The numpy truth, and for the whole-mesh region the single
+        runner's answer too."""
+        from tikv_tpu_torch.testing import configs as cf
+        want = self.truths[self.n[ti]][thr]
+        ok = sorted(result.rows()) == want if thr is None else \
+            cf.columns_agree(result.batch, want)
+        return ok and (ti != 8 or same_answer(result, self.single[thr]))
+
+    def ask(self, ti: int, thr, phases: bool = False):
+        """One request through the endpoint, held to its answers → (ms,
+        tracker phases)."""
+        from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+        t0 = time.perf_counter()
+        resp = self.ep.handle_async(CopRequest(
+            REQ_TYPE_DAG, self.dags[(ti, thr)])).wait()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert resp.backend == "device", (ti, thr, resp.backend)
+        assert self.agrees(ti, thr, resp.result), f"so8 table {ti} thr {thr}"
+        return ms, {k: v / 1e6 for k, v in resp.tracker.phases.items()} \
+            if phases else None
+
+    def both(self, ti: int) -> None:
+        from tikv_tpu_torch.testing import configs as cf
+        self.ask(ti, cf.SERVE_PALETTE[0])
+        self.ask(ti, None)
+
+    def slice_of(self, ti: int) -> int:
+        owner = self.placer.owner(self.runner._feed_anchor(self.snap(ti)))
+        return -1 if owner is None else self.placer.slices.index(owner)
+
+    def feeds_on(self, ti: int) -> dict:
+        return self.placer.slices[self.slice_of(ti)].resident_feeds(
+            self.snap(ti))
+
+    def traffic(self) -> dict:
+        """SO8_CLIENTS threads of SO8_REQS requests of the schedule, started
+        together; the answers are kept and checked after the run (a check
+        inside it would hold the interpreter lock against the clients) →
+        latencies by route."""
+        import threading
+        from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+        lat = {"slice": [], "whole_mesh": []}
+        errors, answers, mu = [], [], threading.Lock()
+        start = threading.Barrier(SO8_CLIENTS)
+
+        def worker(ci):
+            start.wait(timeout=60)
+            for r in range(SO8_REQS):
+                ti, thr = self.schedule[ci * SO8_REQS + r]
+                t0 = time.perf_counter()
+                try:
+                    resp = self.ep.handle_async(CopRequest(
+                        REQ_TYPE_DAG, self.dags[(ti, thr)])).wait()
+                except Exception as e:      # noqa: BLE001 — fails below
+                    with mu:
+                        errors.append(repr(e))
+                    continue
+                ms = (time.perf_counter() - t0) * 1e3
+                with mu:
+                    lat["whole_mesh" if ti == 8 else "slice"].append(ms)
+                    answers.append((ti, thr, resp))
+
+        ts = [threading.Thread(target=worker, args=(ci,))
+              for ci in range(SO8_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in ts), "an so8 client never ended"
+        assert not errors, f"so8: {errors[:4]}"
+        bad = [(ti, thr) for ti, thr, resp in answers
+               if resp.backend != "device" or
+               not self.agrees(ti, thr, resp.result)]
+        assert not bad and len(answers) == len(self.schedule), \
+            f"so8: {len(bad)} wrong answers, first {bad[:4]}"
+        return {"requests": len(self.schedule), "wall_s": wall,
+                "req_per_s": len(self.schedule) / wall,
+                **{f"p50_ms_{k}": float(np.percentile(v, 50))
+                   for k, v in lat.items()},
+                **{f"p99_ms_{k}": float(np.percentile(v, 99))
+                   for k, v in lat.items()},
+                "requests_by_route": {k: len(v) for k, v in lat.items()}}
+
+
+def run_so8(single) -> dict:
+    """Cell so8 (``So8``) through ``Endpoint.handle_async(...).wait()`` over a
+    placement runner: every table's plans cold once, then the schedule's
+    256 requests from 16 threads twice (the first pass meets each slice's
+    plans cold; warm p50 and p99 by route, a slice or the whole mesh, from
+    the second); then, in order, (1) a forced ``rebalance()`` and one timed
+    migration of table 0's feeds to the coolest other slice (``feed_verify``
+    launched once a feed; copy, verify and install ms on the host clock;
+    the kernel and the copy timed on the moved planes), (2)
+    ``device::feed_migrate`` armed once: the migration of table 1's feeds
+    ends "corrupt" and both are minted again, (3) ``device::slice_dead`` on
+    slice 1 until it trips: its anchors drain by migration, the whole-mesh
+    region runs on the degraded submesh of slices 0 and 2, (4) the fault
+    lifted, one canary re-admits slice 1 with a decayed score and the whole
+    mesh is restored.  Every answer equals the numpy truth (the whole-mesh
+    region's also the single runner's); no degrade outside the armed
+    failpoints; the launches of the run are counted from zero."""
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.pd.scheduler import pick_slice
+    from tikv_tpu_torch.utils import failpoint
+    cell = So8(single)
+    runner, placer, ep = cell.runner, cell.placer, cell.ep
+    out = {"config": "so8", "rows": SO8_ROWS, "big_rows": SO8_BIG_ROWS}
+    set_counts({k: 0 for k in KERNELS})
+    try:
+        t0 = time.perf_counter()
+        cold = {ti: cell.ask(ti, None)[0] for ti in range(9)}
+        for ti in range(9):
+            cell.ask(ti, 990)
+        out["cold_ms"] = {"slice_median": float(np.median(
+            [cold[ti] for ti in range(8)])), "whole_mesh": cold[8]}
+        out["warm_up_s"] = time.perf_counter() - t0
+        assert {cell.slice_of(ti) for ti in range(8)} == {0, 1, 2, 3} \
+            and cell.slice_of(8) == -1, [cell.slice_of(ti) for ti in range(9)]
+        # the schedule twice: its first pass meets each slice's plans and
+        # the pinned readback pool cold; the second is the warm pass
+        out["first_pass"] = cell.traffic()
+        out.update(cell.traffic())
+        out["latency_strikes"] = sum(h["strikes"].get("latency", 0)
+                                     for h in runner._board.stats())
+        print("so8 traffic: " + " ".join(f"{k}={v}" for k, v in out.items()
+                                         if k != "config"), flush=True)
+        assert runner.route_stats()["degrades"] == {} and not ep.degrades
+
+        # (1) a forced rebalance, then one timed migration
+        out["rebalanced"] = placer.rebalance()
+        src = cell.slice_of(0)
+        dst = pick_slice(placer.scores(), {src})
+        feeds = cell.feeds_on(0)
+        v0, uploads = dg.verify_launches, \
+            runner.route_stats()["feed_routes"]["upload"]
+        assert placer.migrate(runner._feed_anchor(cell.snap(0)), src, dst)
+        assert dg.verify_launches - v0 == len(feeds) == 2
+        assert cell.slice_of(0) == dst
+        st = placer.stats()
+        out["migration"] = {"from": src, "to": dst, "feeds": len(feeds),
+                            "ms": st["last_migration_ms"],
+                            "phases_ms": st["last_migration_phases"]}
+        cell.both(0)
+        assert runner.route_stats()["feed_routes"]["upload"] == uploads, \
+            "a migrated feed was uploaded again"
+        moved = next(f for f in cell.feeds_on(0).values()
+                     if len(f["flat"]) == 3)
+
+        # (2) a bit flipped on arrival: "corrupt", then minted again
+        src1 = cell.slice_of(1)
+        dst1 = pick_slice(placer.scores(), {src1})
+        v0 = dg.verify_launches
+        failpoint.cfg("device::feed_migrate", "1*return")
+        try:
+            assert not placer.migrate(runner._feed_anchor(cell.snap(1)),
+                                      src1, dst1)
+        finally:
+            failpoint.teardown()
+        assert dg.verify_launches - v0 == 1
+        assert placer.stats()["migration_failures"] == 1
+        assert not cell.placer.slices[dst1].resident_feeds(cell.snap(1))
+        assert not cell.placer.slices[src1].resident_feeds(cell.snap(1))
+        cell.both(1)
+        assert runner.route_stats()["feed_routes"]["upload"] == \
+            uploads + 2, "the corrupt feeds were not minted again"
+        out["corrupt"] = {"from": src1, "to": dst1,
+                          "strikes": runner._board.slice(src1).stats()
+                          ["strikes"]}
+
+        # (3) slice 1 dies: strikes until it trips, the drain, the submesh
+        victims = [ti for ti in range(8) if cell.slice_of(ti) == SO8_DEAD]
+        st0 = placer.stats()
+        v0 = dg.verify_launches
+        failpoint.cfg("device::slice_dead", f"return({SO8_DEAD})")
+        try:
+            asked, t_trip = 0, time.perf_counter()
+            while SO8_DEAD not in runner._board.quarantined_set():
+                assert asked < 12, "slice 1 never tripped"
+                cell.ask([*victims, 8][asked % (len(victims) + 1)], None)
+                asked += 1
+            trip_ms = (time.perf_counter() - t_trip) * 1e3
+            st = placer.stats()
+            dead = st["slices"][SO8_DEAD]
+            assert dead["quarantined"] and dead["placed_anchors"] == 0 and \
+                dead["resident_lines"] == 0, st
+            drained = st["feeds_moved"] - st0["feeds_moved"]
+            assert st["migrations"] > st0["migrations"] and drained > 0
+            assert dg.verify_launches - v0 == drained, \
+                "feed_verify did not launch once a drained feed"
+            _ms, ph = cell.ask(8, None, phases=True)
+            assert "mesh_rebuild" in ph, ph
+            assert runner.device_health()["degraded"] == \
+                {"dead_slices": [SO8_DEAD], "healthy_devices": 2}
+            cell.ask(8, 985)
+            for ti in victims:
+                cell.both(ti)
+                assert cell.slice_of(ti) not in (SO8_DEAD, -1)
+            out["slice_dead"] = {
+                "requests_to_trip": asked, "trip_ms": trip_ms,
+                "anchors_drained": st["drained"] - st0["drained"],
+                "feeds_moved": drained,
+                "drain_migration_ms": st["migration_ms"] -
+                st0["migration_ms"],
+                "degrades": runner.route_stats()["degrades"]}
+        finally:
+            failpoint.teardown()
+
+        # (4) the fault lifted: a canary re-admits slice 1
+        time.sleep(2 * SO8_COOLDOWN_S)
+        t = time.perf_counter()
+        assert runner.probe_quarantined() == 1
+        readmit_ms = (time.perf_counter() - t) * 1e3
+        h = runner._board.slice(SO8_DEAD).stats()
+        assert h["state"] == "healthy" and h["score"] == 2.0, h
+        cell.ask(8, None)
+        assert "degraded" not in runner.device_health()
+        assert runner.failure_events == {"mesh_downsize": 1,
+                                         "mesh_restore": 1}, \
+            runner.failure_events
+        for ti in range(8):
+            cell.ask(ti, None)
+        out["readmit"] = {"canary_ms": readmit_ms, "score": h["score"],
+                          "readmits": h["readmits"]}
+        out["launches"] = counts()
+    finally:
+        failpoint.teardown()
+        ep.close()
+    degrades = runner.route_stats()["degrades"]
+    assert set(degrades) == {"slice_dead"} and not ep.degrades, \
+        (degrades, ep.degrades)
+    launches = out["launches"]
+    st = placer.stats()
+    assert launches["feed_verify"] == st["feeds_moved"] + 1
+    for name in ("hash_agg", "sel_pred", "feed_verify"):
+        assert launches[name] > 0, f"so8 never launched {name}"
+    out["placer"] = {k: v for k, v in st.items() if k != "slices"}
+    out["timing"], out["max_abs_err"] = feed_verify_at_main_shape(moved)
+    print("cell so8: " + " ".join(f"{k}={v}" for k, v in out.items()
+                                  if k not in ("config", "timing")),
+          flush=True)
+    runner.close()
+    del cell, moved
+    gc.collect()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5346,6 +5788,7 @@ def main() -> int:
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
     worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
+    worst["feed_verify"] = check_feed_verify(dev)
     worst["mvcc_resolve"] = check_mvcc(dev)
     worst["sort_perm"] = worst["join_build"] = check_sort(dev)
     worst["join_probe"] = worst["join_index"] = check_join(dev)
@@ -5408,6 +5851,10 @@ def main() -> int:
     del mesh_runner
     gc.collect()
     runs += mesh_runs
+    elapsed("before the scale-out mesh")
+    so8 = run_so8(runner)
+    runs.append(so8)
+    worst["feed_verify"] = max(worst["feed_verify"], so8["max_abs_err"])
     elapsed("before the kernel timings")
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
     print("host phases of one warm request (ms, host clock, median of 5): "
@@ -5535,6 +5982,12 @@ def main() -> int:
             **mesh_timings[cell]["merge"],
             "configs": {c: t for c, t in mesh_timings.items()
                         if name != "shard_bucket_merge" or c == cell}})
+    kernels.append({
+        "name": "feed_verify", "route": "cuda",
+        "source": "tikv_tpu_torch/csrc/digest.cu",
+        "replaces": "tikv_tpu/device/runner.py:2108 (install_feeds)",
+        "launches": launches["feed_verify"],
+        "max_abs_err": worst["feed_verify"], **so8["timing"]})
     assert all(k["route"] == "cuda" for k in kernels), "a timing key clash"
     elapsed("in all")
     print(json.dumps({"kernels": kernels}), flush=True)

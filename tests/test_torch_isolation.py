@@ -6,8 +6,9 @@ and a CHECKSUM request through the endpoint loads neither, nor does
 serving selections and aggregations through ``Endpoint.handle_async``
 with a bound ``RequestCoalescer``, nor a region split served end to end,
 nor aggregations, a selection and a top-k over a row-sharded mesh
-(``tikv_tpu_torch.parallel``), and nothing falls back to the CPU without
-being asked."""
+(``tikv_tpu_torch.parallel``), nor a placement mesh (``tikv_tpu_torch.pd``,
+``device.placement``) serving, migrating a feed and draining a dead slice,
+and nothing falls back to the CPU without being asked."""
 
 import ast
 import os
@@ -259,6 +260,64 @@ def test_mesh_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "mesh 4"
+
+
+_SERVE_PLACEMENT = """
+import sys
+from tikv_tpu_torch.convert import dag_from_wire
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.parallel import make_mesh
+from tikv_tpu_torch.pd.scheduler import pick_slice
+from tikv_tpu_torch.testing import configs
+from tikv_tpu_torch.utils import failpoint
+runner = DeviceRunner(mesh=make_mesh(["cpu"] * 4), chunk_rows=512,
+                      placement=True, placement_rows=1 << 14,
+                      slice_probe_cooldown_s=0.0)
+tables = [configs.serving_table(3000, 9920 + i) for i in range(5)]
+by_id = {t.table_id: snap for t, snap in tables}
+ep = Endpoint(lambda req: by_id[req.dag.executors[0].table_id], runner,
+              device_row_threshold=1)
+def serve():
+    for t, snap in tables:
+        for thr in (990, None):
+            dag = dag_from_wire(enc_dag(configs.dag_serving(t, thr)))
+            got = ep.handle(CopRequest(REQ_TYPE_DAG, dag))
+            want = configs.serving_truth(3000, thr)
+            if thr is None:
+                assert sorted(got.rows()) == want
+            else:
+                assert configs.columns_agree(got.result.batch, want)
+serve()
+placer = runner.placer
+anchor = runner._feed_anchor(tables[0][1])
+src = placer.slices.index(placer.owner(anchor))
+assert placer.migrate(anchor, src, pick_slice(placer.scores(), {src}))
+failpoint.cfg("device::slice_dead", "return(%d)" % src)
+for _ in range(3):
+    serve()
+assert src in runner._board.quarantined_set()
+failpoint.teardown()
+runner.probe_quarantined()
+assert not runner._board.quarantined_set()
+serve()
+ep.close()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("placement", placer.stats()["migrations"] >= 2)
+"""
+
+
+def test_placement_serving_loads_no_jax():
+    """A placement mesh serving through the endpoint, migrating a feed,
+    tripping and draining a slice and re-admitting it loads neither JAX
+    nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_PLACEMENT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "placement True"
 
 
 def test_runner_refuses_to_start_without_cuda(monkeypatch):

@@ -1,13 +1,20 @@
 // Plane digests and row patches for Hopper: the scrub's re-hash of a
-// resident feed plane (plane_digest) and the in-place write of a few rows
-// of one plane with the digests of what they held and now hold
-// (patch_rows).
+// resident feed plane (plane_digest), the arrival check of a migrated feed
+// (feed_verify: every plane's digest in one launch) and the in-place write
+// of a few rows of one plane with the digests of what they held and now
+// hold (patch_rows).
 //
 // Replaces the XLA kernels of tikv_tpu/device/runner.py:
 //   plane_digest <- _range_digest_kernel (:1981): sum of bits(x[i]) * (2i+1)
 //                   mod 2^64 over the global positions [lo, hi) of one
 //                   plane; a bool reads as 0/1, any other dtype as the
 //                   unsigned view of its own width, widened to 64 bits;
+//   feed_verify  <- install_feeds (:2108-2166): the arrival side of a
+//                   feed's move between mesh slices re-hashes every plane
+//                   with _range_digest_kernel (:1981), one launch and one
+//                   host sync a plane (:2130-2135); here all P planes of
+//                   the feed in one launch, blockIdx.y the plane, and one
+//                   copy of P digests;
 //   patch_rows   <- _dus (:1816) and the DeviceMvccResolver's dus
 //                   (device/mvcc.py:514): a slice update at a traced
 //                   offset, there one launch per spill row and plane; here
@@ -27,6 +34,14 @@
 // depend on the order.  The 64-bit multiply per element costs a few
 // integer instructions; at 1-byte planes that is 16 a chunk, still under
 // the bytes' time.
+// feed_verify reads the feed's live bytes once (3 int32 planes of 2^21
+// rows: 24 MiB, 7.5 us at 3.35 TB/s): each block of row y sums its share
+// of plane y's chunks exactly as plane_digest does and adds it into the
+// plane's word with one atomicAdd, so every digest is bit-equal to
+// plane_digest's.  The planes' descriptors (address, 16-byte interior,
+// width) ride in the launch parameters up to PARAM_PLANES planes (3 KiB
+// of the 4 KiB), else in a device table the wrapper copies from pinned
+// memory on the launch stream.
 // patch_rows reads m positions and m values and writes m elements (and
 // reads m old ones when digests are asked for): one thread per position.
 // Positions must be unique (the wrapper checks): a parallel scatter would
@@ -121,6 +136,71 @@ __global__ void __launch_bounds__(THREADS)
   block_add(s, out);
 }
 
+}  // namespace
+
+// one plane of a feed_verify launch: [lo, a) and [b, hi) element by
+// element, the chunks of [a, b) 16 bytes at a time
+struct VerifyPlane {
+  const unsigned char* base;
+  long long a;
+  long long b;
+  int width;
+  int pad;
+};
+
+constexpr int PARAM_PLANES = 96;
+
+struct VerifyParams {
+  long long lo;
+  long long hi;
+  VerifyPlane planes[PARAM_PLANES];
+};
+
+namespace {
+
+template <int W>
+__device__ __forceinline__ u64 plane_sum(const VerifyPlane& pl, long long lo,
+                                         long long hi, long long tid,
+                                         long long stride) {
+  constexpr int E = 16 / W;
+  u64 s = 0;
+  const uint4* chunks = reinterpret_cast<const uint4*>(pl.base + pl.a * W);
+  const long long n_chunks = (pl.b - pl.a) / E;
+  for (long long c = tid; c < n_chunks; c += stride)
+    s += chunk_digest<W>(chunks[c], pl.a + c * E);
+  if (tid < pl.a - lo)
+    s += bits_at(pl.base, W, lo + tid) * (2 * (u64)(lo + tid) + 1);
+  if (tid < hi - pl.b)
+    s += bits_at(pl.base, W, pl.b + tid) * (2 * (u64)(pl.b + tid) + 1);
+  return s;
+}
+
+// out[y] += the digest of plane y over [lo, hi); `table` is null when the
+// descriptors ride in `prm`
+__global__ void __launch_bounds__(THREADS)
+    verify_kernel(const VerifyParams prm, const VerifyPlane* table,
+                  u64* out) {
+  const int y = blockIdx.y;
+  const VerifyPlane pl = table != nullptr ? table[y] : prm.planes[y];
+  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  u64 s;
+  switch (pl.width) {
+    case 1:
+      s = plane_sum<1>(pl, prm.lo, prm.hi, tid, stride);
+      break;
+    case 2:
+      s = plane_sum<2>(pl, prm.lo, prm.hi, tid, stride);
+      break;
+    case 4:
+      s = plane_sum<4>(pl, prm.lo, prm.hi, tid, stride);
+      break;
+    default:
+      s = plane_sum<8>(pl, prm.lo, prm.hi, tid, stride);
+  }
+  block_add(s, out + y);
+}
+
 __global__ void __launch_bounds__(THREADS)
     patch_kernel(unsigned char* plane, int width, const long long* pos,
                  const unsigned char* vals, long long m, u64* sums) {
@@ -201,6 +281,67 @@ int plane_digest_launch(int device, const void* plane, int width,
     default:
       return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// the sizes the wrapper lays its descriptors out by
+int feed_verify_desc_bytes() { return (int)sizeof(VerifyPlane); }
+int feed_verify_param_planes() { return PARAM_PLANES; }
+
+// Fill P descriptors into `descs` (host memory, P * sizeof(VerifyPlane)
+// bytes) for planes of `widths` bytes an element over [lo, hi).
+int feed_verify_describe(int P, const void* const* planes, const int* widths,
+                         long long lo, long long hi, void* descs) {
+  VerifyPlane* d = static_cast<VerifyPlane*>(descs);
+  for (int p = 0; p < P; ++p) {
+    const int w = widths[p];
+    if (w != 1 && w != 2 && w != 4 && w != 8) return cudaErrorInvalidValue;
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(planes[p]);
+    const long long E = 16 / w;
+    long long a = lo;
+    while (a < hi && (addr + (uintptr_t)(a * w)) % 16 != 0) ++a;
+    long long b = a + (hi - a) / E * E;
+    if (a >= hi) a = b = hi;
+    d[p].base = static_cast<const unsigned char*>(planes[p]);
+    d[p].a = a;
+    d[p].b = b;
+    d[p].width = w;
+    d[p].pad = 0;
+  }
+  return cudaSuccess;
+}
+
+// `out` (P * 8 bytes) is zeroed here; `descs` is feed_verify_describe's
+// host array; `table` is null when P <= PARAM_PLANES, else the same
+// descriptors in device memory; `grid_cap` bounds the blocks of all planes.
+int feed_verify_launch(int device, int P, const void* descs,
+                       const void* table, long long lo, long long hi,
+                       long long grid_cap, void* out, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P <= 0) return cudaSuccess;
+  if (P > 65535 || (table == nullptr && P > PARAM_PLANES))
+    return cudaErrorInvalidValue;
+  if ((e = cudaMemsetAsync(out, 0, 8 * (size_t)P, s)) != cudaSuccess)
+    return e;
+  if (hi <= lo) return cudaSuccess;
+  const VerifyPlane* d = static_cast<const VerifyPlane*>(descs);
+  VerifyParams prm;
+  prm.lo = lo;
+  prm.hi = hi;
+  long long most = 0;
+  for (int p = 0; p < P; ++p) {
+    const long long c = (d[p].b - d[p].a) / (16 / d[p].width);
+    if (c > most) most = c;
+    if (table == nullptr) prm.planes[p] = d[p];
+  }
+  long long bx = (most + THREADS - 1) / THREADS;
+  long long cap = grid_cap / P;
+  if (bx > cap) bx = cap;
+  if (bx < 1) bx = 1;
+  verify_kernel<<<dim3((unsigned)bx, (unsigned)P), THREADS, 0, s>>>(
+      prm, static_cast<const VerifyPlane*>(table), static_cast<u64*>(out));
   return cudaGetLastError();
 }
 

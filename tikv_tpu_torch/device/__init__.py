@@ -9,10 +9,16 @@ The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``sel_pred_batched``'s interpreter, ``sel_mask``, ``sel_compact``),
 ``sel_batched`` (``sel_pred_batched``'s terms route), ``topn``
 (``topn_select``), ``digest``
-(``plane_digest``, ``patch_rows``), ``mvcc`` (``mvcc_resolve``), each
+(``plane_digest``, ``feed_verify``, ``patch_rows``), ``mvcc``
+(``mvcc_resolve``), ``split`` (``split_planes``), ``shard_merge``
+(``shard_psum``, ``shard_bucket_merge``, wrapped by ``shard.py``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,
 ``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``),
 ``window`` (``window_scan``) and ``analyze`` (``analyze_column``).
+
+A mesh runner with ``placement=True`` places regions on single-device
+slices (``placement.SlicePlacer``) and scores each slice's health
+(``supervisor.SliceHealthBoard``).
 
 A request dispatched with ``deferred=True`` comes back as a
 ``DeferredResult`` (``deferred.py``): its fetch and host finalize run when

@@ -19,8 +19,11 @@ request from the host pipeline and marks the handle ``degraded``.  A
 group's shared fetch has no fallback of its own: its fault reaches every
 member, and each member degrades on its own through the endpoint.  A
 dispatched request pins its feed anchor in the runner's arena until its
-fetch (``_Pending.hold``/``release``), as the reference's does; the slice
-rescue is not ported (ROADMAP.md queue 1 item 10).
+fetch (``_Pending.hold``/``release``), as the reference's does.  On a
+placement mesh a fetch fault first strikes the request's slice and, if the
+slice is dead, serves the request once more through the root runner
+(``DeviceRunner._rescue``: the placer routes it around the dead slice);
+a stacked group's members are rescued one by one.
 """
 
 from __future__ import annotations
@@ -199,10 +202,13 @@ class DeferredResult:
     ``result()`` waits for the copy, runs the finalize and memoizes; it is
     safe to call from any thread, and runs the fetch once.  A device fault
     inside the fetch answers this request on the host pipeline instead
-    (``degraded`` is then "fetch"); any other exception propagates."""
+    (``degraded`` is then "fetch") — or, where its slice of a placement
+    mesh died, once more through the root (``rescued`` is then True, and
+    ``degraded`` is still set where the host answered the retry); any
+    other exception propagates."""
 
     __slots__ = ("_runner", "_pending", "_dag", "_storage", "_mu", "_memo",
-                 "small", "degraded")
+                 "small", "degraded", "rescued")
 
     def __init__(self, runner, pending: _Pending, dag, storage):
         self._runner = runner
@@ -213,6 +219,7 @@ class DeferredResult:
         self._memo = None
         self.small = pending.small
         self.degraded: Optional[str] = None
+        self.rescued = False
 
     def result(self):
         with self._mu:
@@ -231,6 +238,13 @@ class DeferredResult:
             r = self._runner._finish(self._pending)
         except DEVICE_FAULTS:
             from ..executors.runner import BatchExecutorsRunner
+            self._runner._note_slice_fault("fetch")
+            rescued = self._runner._rescue(self._dag, self._storage)
+            if rescued is not None:
+                # the retry's own host answer is a degrade all the same
+                self.rescued = True
+                r, self.degraded = rescued
+                return r
             self.degraded = "fetch"
             return BatchExecutorsRunner(self._dag,
                                         self._storage).handle_request()
@@ -249,7 +263,7 @@ class _GroupPending:
     for the group's one copy once, runs its finalize and memoizes.  No
     host fallback here: a member-level fault degrades that member (the
     endpoint's contract), never substitutes one member's answer for
-    another's."""
+    another's.  A device fault here strikes the group's slice once."""
 
     __slots__ = ("_runner", "_pending", "_mu", "_memo")
 
@@ -265,6 +279,8 @@ class _GroupPending:
                 try:
                     self._memo = ("ok", self._runner._finish(self._pending))
                 except BaseException as e:  # noqa: BLE001 — memoized
+                    if isinstance(e, DEVICE_FAULTS):
+                        self._runner._note_slice_fault("fetch")
                     self._memo = ("err", e)
             kind, val = self._memo
         if kind == "err":
@@ -289,7 +305,16 @@ class _BatchedSelectionGroup:
         self._members = members
 
     def member_result(self, i: int):
-        counts, packed, n, plans = self._gp.fetch()
+        try:
+            counts, packed, n, plans = self._gp.fetch()
+        except DEVICE_FAULTS:
+            # the group's slice died before the fetch: this member alone
+            # is served again on a healthy slice, or degrades as its own
+            dag, storage = self._members[i]
+            rescued = self._runner._rescue(dag, storage)
+            if rescued is None or rescued[1] is not None:
+                raise
+            return rescued[0]
         dag, storage = self._members[i]
         return self._runner._stacked_member(dag, plans[i], storage,
                                             int(counts[i]), packed[i], n)

@@ -11,14 +11,19 @@ other dtype as the unsigned view of its own width — the formula of
 
 - ``plane_digest(arr, lo, hi)``: the digest as a 0-d int64 tensor on the
   plane's device;
+- ``feed_verify(planes, lo, hi)``: the digests of P planes of one feed
+  over the same [lo, hi), as an int64 (P,) tensor, in one launch — the
+  arrival check of a feed migrated between mesh slices (``install_feeds``,
+  runner.py:2108-2166, which re-hashes plane by plane);
 - ``patch_rows(plane, pos, vals, digest=False)``: ``plane[pos[i]] =
   vals[i]`` in place for m unique positions in one launch; with
   ``digest`` also the digests of the positions written, before and after
   (what ``_patch_plane``'s two range digests give for a span).
 
 Each wrapper takes the plain version only for tensors on the CPU; on a CUDA
-tensor it launches its kernel or raises.  ``digest_launches`` and
-``patch_launches`` count kernel launches and nothing else.
+tensor it launches its kernel or raises.  ``digest_launches``,
+``verify_launches`` and ``patch_launches`` count kernel launches and
+nothing else.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 # kernel launches since import (the chip smoke resets them around a run)
 digest_launches = 0
+verify_launches = 0
 patch_launches = 0
 
 # the signed view of each element width (a bool plane reads as its bytes)
@@ -76,6 +82,11 @@ def _check_plane(arr: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: no digest of {arr.dtype}")
 
 
+# feed_verify's plane descriptor (address, 16-byte interior, width) and
+# how many of them ride in the launch parameters; past that, a device table
+_VERIFY_DESC_BYTES = 32
+VERIFY_PARAM_PLANES = 96
+
 _lib = None
 
 
@@ -89,6 +100,17 @@ def _kernel_lib():
         lib.plane_digest_launch.restype = i
         lib.patch_rows_launch.argtypes = [i, p, i, p, p, ll, p, p]
         lib.patch_rows_launch.restype = i
+        lib.feed_verify_describe.argtypes = [i, p, p, ll, ll, p]
+        lib.feed_verify_describe.restype = i
+        lib.feed_verify_launch.argtypes = [i, i, p, p, ll, ll, ll, p, p]
+        lib.feed_verify_launch.restype = i
+        for fn, want in (("feed_verify_desc_bytes", _VERIFY_DESC_BYTES),
+                         ("feed_verify_param_planes", VERIFY_PARAM_PLANES)):
+            getattr(lib, fn).restype = i
+            if getattr(lib, fn)() != want:
+                raise RuntimeError(f"digest: the kernel's {fn} is "
+                                   f"{getattr(lib, fn)()}, the wrapper's "
+                                   f"layout is {want}")
         lib.digest_error_string.argtypes = [i]
         lib.digest_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -129,6 +151,62 @@ def plane_digest(arr: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
         torch.cuda.current_stream(arr.device).cuda_stream),
         "plane_digest launch")
     digest_launches += 1
+    return out
+
+
+def feed_verify_plain(planes: Sequence[torch.Tensor], lo: int,
+                      hi: int) -> torch.Tensor:
+    """``plane_digest_plain`` of each plane over [lo, hi), stacked."""
+    if not planes:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.stack([plane_digest_plain(a, lo, hi) for a in planes])
+
+
+def feed_verify(planes: Sequence[torch.Tensor], lo: int,
+                hi: int) -> torch.Tensor:
+    """The digest of every plane of one feed (1-D, contiguous, one device,
+    widths 1, 2, 4 or 8 bytes) over the same [lo, hi) → an int64 (P,)
+    tensor on their device, not synchronized: one launch, each digest
+    bit-equal to ``plane_digest``'s."""
+    global verify_launches
+    planes = list(planes)
+    lo, hi = int(lo), int(hi)
+    for a in planes:
+        _check_plane(a, "plane")
+        if not 0 <= lo <= hi <= a.shape[0]:
+            raise ValueError(f"feed_verify: [{lo}, {hi}) is outside a plane "
+                             f"of {a.shape[0]} rows")
+    if not planes:
+        return torch.zeros(0, dtype=torch.int64)
+    dev = planes[0].device
+    if any(a.device != dev for a in planes):
+        raise ValueError("feed_verify: the planes lie on different devices")
+    if dev.type == "cpu":
+        return feed_verify_plain(planes, lo, hi)
+    if dev.type != "cuda":
+        raise ValueError(f"feed_verify runs on cuda or cpu, not {dev}")
+    lib = _kernel_lib()
+    P = len(planes)
+    ptrs = (ctypes.c_void_p * P)(*[a.data_ptr() for a in planes])
+    widths = (ctypes.c_int * P)(*[a.element_size() for a in planes])
+    big = P > VERIFY_PARAM_PLANES
+    descs = torch.empty(P * _VERIFY_DESC_BYTES, dtype=torch.uint8,
+                        pin_memory=big)
+    _raise_on(lib, lib.feed_verify_describe(P, ptrs, widths, lo, hi,
+                                            descs.data_ptr()),
+              "feed_verify describe")
+    table = None
+    if big:     # a stream-ordered copy from pinned memory: no host wait
+        table = torch.empty_like(descs, device=dev)
+        table.copy_(descs, non_blocking=True)
+    out = torch.empty(P, dtype=torch.int64, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _raise_on(lib, lib.feed_verify_launch(
+        _dev_index(dev), P, descs.data_ptr(),
+        None if table is None else table.data_ptr(), lo, hi, 8 * sms,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "feed_verify launch")
+    verify_launches += 1
     return out
 
 

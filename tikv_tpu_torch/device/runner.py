@@ -80,6 +80,23 @@ launches: the whole request is then answered by the host pipeline
 (``degrades``), never by the shards that did launch.  A mesh of one device
 takes the single-device code.
 
+With ``placement=True`` a mesh also serves scale-out (runner.py:682-1090,
+``device/placement.py``): a ``SlicePlacer`` owns one single-device
+sub-runner a slice and routes each request's feed anchor to one by load
+and resident bytes; a feed of ``placement_rows`` rows or more stays on the
+whole mesh.  A ``SliceHealthBoard`` (``device/supervisor.py``) scores each
+slice: dispatch, fetch and scrub faults strike it (``device::slice_dead``
+names dead slices), a tripped slice refuses dispatch and its anchors drain
+to healthy slices by migration — ``extract_feeds`` on the source, a
+device-to-device copy, then ``install_feeds``, whose arrival check is one
+``digest.feed_verify`` launch (``csrc/digest.cu``) against the digests
+that travelled —, a whole-mesh plan runs on the largest healthy submesh
+(its feeds minted again there; the host pipeline only when that rebuild
+fails), a deferred request whose slice died before its fetch is served
+once more through the root (``_rescue``), and a half-open canary
+re-admits the slice with a decayed score.  Without ``placement`` none of
+this exists and a mesh runs as above.
+
 A request's plan analysis, feed lookup and kernel launches hold the
 runner's dispatch lock; its result buffers then start their copy to
 pinned host memory (``deferred.PinnedStager``), and the wait for that copy
@@ -166,7 +183,8 @@ from . import topn as tn
 from .agg_fold import agg_fold
 from .deferred import (DeferredResult, _BatchedSelectionGroup,
                        _BatchUnavailable, _GroupPending, _Pending)
-from .digest import _INT_OF_WIDTH, as_u64, patch_rows, plane_digest
+from .digest import (_INT_OF_WIDTH, as_u64, feed_verify, patch_rows,
+                     plane_digest)
 from .supervisor import FeedArena, hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
 
@@ -246,13 +264,24 @@ def _bare_col(rpn: Optional[RpnExpression]) -> Optional[int]:
 def _fp_fault(name: str) -> None:
     """A failpoint site: a ``return`` action raises ``DeviceUnavailable``
     (a device fault the caller may degrade to the host on)."""
+    _fp_fault_as(name, DeviceUnavailable)
+
+
+def _fp_fault_as(name: str, exc) -> None:
     if fail_point(name) is not None:
-        raise DeviceUnavailable(f"failpoint {name}")
+        raise exc(f"failpoint {name}")
 
 
 class _ShardLaunchFault(Exception):
     """A shard's launches failed (the ``device::shard_launch`` failpoint):
     the whole request goes to the host pipeline."""
+
+
+class _SliceDead(DeviceUnavailable):
+    """A slice of a placement mesh cannot serve: ``device::slice_dead``
+    names it at a dispatch or a fetch, or no healthy submesh can be built.
+    A dispatch answers on the host pipeline; a fetch is rescued through the
+    root runner first (``_rescue``)."""
 
 
 def _on_device(dev: torch.device):
@@ -367,11 +396,22 @@ class DeviceRunner:
     without it a shard's block is ``hash_agg.BLOCK``, padded to the
     reference's 9/8-geometric bucket.
     ``hbm_budget_bytes``: the feed arena's budget (0: none).
+    ``placement`` (a mesh of more than one device): scale-out routing over
+    single-device slices (``placer``), feeds of ``placement_rows`` rows or
+    more (``placement.DEFAULT_WHOLE_MESH_ROWS``) on the whole mesh, and
+    the slices' failure domain, a ``SliceHealthBoard``: a slice trips at
+    ``supervisor.DEFAULT_TRIP_STRIKES`` strikes, a served fetch of
+    ``slice_latency_outlier_s`` seconds or more strikes 0.25 (None or 0:
+    no latency strikes), and the half-open probe waits
+    ``slice_probe_cooldown_s`` after a trip.
     """
 
     def __init__(self, device=None, mesh=None,
                  chunk_rows: Optional[int] = None,
-                 hbm_budget_bytes: int = 0):
+                 hbm_budget_bytes: int = 0, placement: bool = False,
+                 placement_rows: Optional[int] = None,
+                 slice_probe_cooldown_s: Optional[float] = None,
+                 slice_latency_outlier_s: Optional[float] = None):
         if device is not None and mesh is not None:
             raise ValueError("give a device or a mesh, not both")
         self._mesh = mesh
@@ -422,6 +462,36 @@ class DeviceRunner:
         # which request threads (the cost router) and the fetch side (any
         # completion worker) read and update
         self._stats_mu = threading.Lock()
+        # -- scale-out and its failure domain (placement only) --
+        # _board: this mesh's slice health (the root runner's); _health:
+        # the slice this runner is; _failover_parent: the root that
+        # rescues; _slice_indices: the root mesh's indices of my devices
+        # (what device::slice_dead names)
+        self._chunk_rows = chunk_rows
+        self._board = None
+        self._health = None
+        self._failover_parent = None
+        self._slice_indices = tuple(range(S))
+        # (frozenset of dead slices, the runner over the healthy submesh)
+        self._degraded: Optional[tuple] = None
+        self._degrade_mu = threading.Lock()
+        # the failure domain's events on the root: rescue, mesh_downsize,
+        # mesh_restore
+        self.failure_events: dict = {}
+        # host-clock ms by phase of the last install_feeds
+        self.migrate_phases_ms: dict = {}
+        self._placer = None
+        if placement and not self._single:
+            from .placement import DEFAULT_WHOLE_MESH_ROWS, SlicePlacer
+            from .supervisor import DEFAULT_PROBE_COOLDOWN_S, SliceHealthBoard
+            self._board = SliceHealthBoard(
+                S, cooldown_s=DEFAULT_PROBE_COOLDOWN_S
+                if slice_probe_cooldown_s is None
+                else slice_probe_cooldown_s,
+                latency_outlier_s=slice_latency_outlier_s)
+            self._placer = SlicePlacer(
+                self, whole_mesh_rows=DEFAULT_WHOLE_MESH_ROWS
+                if placement_rows is None else placement_rows)
 
     # ---------------------------------------------------------------- plan
 
@@ -746,9 +816,20 @@ class DeviceRunner:
 
     # ------------------------------------------------------ lifecycle
 
+    def _sub_runners(self) -> list:
+        """The placement slices and the degraded submesh runner, if any:
+        the runners whose arenas this one's statistics fold in."""
+        subs = list(self._placer.slices) if self._placer is not None else []
+        degraded = self._degraded_sub()
+        return subs + ([degraded] if degraded is not None else [])
+
     def arena_items(self) -> list:
-        """(anchor, bucket) of every resident anchor."""
-        return self._arena.items()
+        """(anchor, bucket) of every resident anchor (a placement mesh's
+        slices and degraded submesh included)."""
+        items = self._arena.items()
+        for r in self._sub_runners():
+            items.extend(r.arena_items())
+        return items
 
     def resident_feeds(self, storage) -> dict:
         """{feed key: feed} resident for ``storage``'s anchor."""
@@ -758,7 +839,40 @@ class DeviceRunner:
                 if isinstance(v, dict) and "flat" in v}
 
     def hbm_stats(self) -> dict:
-        return self._arena.stats()
+        """The arena's accounting; a placement mesh adds its slices' and its
+        degraded submesh's (runner.py:1862-1880)."""
+        out = self._arena.stats()
+        for r in self._sub_runners():
+            sub = r.hbm_stats()
+            for k in ("resident_bytes", "resident_lines", "pinned_lines",
+                      "pinned_bytes", "evictions", "rejections", "drops"):
+                out[k] += sub[k]
+        return out
+
+    def set_hbm_budget(self, nbytes: int) -> None:
+        """Set (0: clear) the arena's budget and enforce it now; a placement
+        mesh's slices take an even share each, its degraded submesh the
+        whole (runner.py:1841-1860)."""
+        self._arena.budget_bytes = int(nbytes)
+        self._arena.enforce()
+        if self._placer is not None:
+            self._placer.set_hbm_budget(int(nbytes))
+        degraded = self._degraded_sub()
+        if degraded is not None:
+            degraded.set_hbm_budget(int(nbytes))
+
+    def route_stats(self) -> dict:
+        """``sel_routes``, ``pred_routes``, ``feed_routes`` and ``degrades``,
+        a placement mesh's slices and degraded submesh folded in (the
+        requests run there: runner.py:1331-1340)."""
+        names = ("sel_routes", "pred_routes", "feed_routes", "degrades")
+        with self._stats_mu:
+            out = {k: dict(getattr(self, k)) for k in names}
+        for r in self._sub_runners():
+            for k, table in r.route_stats().items():
+                for route, v in table.items():
+                    out[k][route] = out[k].get(route, 0) + v
+        return out
 
     def drop_feed(self, anchor) -> int:
         """Release every feed and memo anchored on ``anchor`` (a lineage
@@ -770,17 +884,28 @@ class DeviceRunner:
             drop_cold()
         if getattr(anchor, "split_stash", None) is not None:
             anchor.split_stash = None
-        return self._arena.drop(anchor)
+        freed = self._arena.drop(anchor)
+        if self._placer is not None:
+            freed += self._placer.drop_feed_all(anchor)
+        degraded = self._degraded_sub()
+        if degraded is not None:
+            freed += degraded.drop_feed(anchor)
+        return freed
 
     def split_resident_feeds(self, spec) -> str:
         """The device split of every resident feed anchored on the parent
         lineage (``spec`` from ``RegionColumnarCache.split_lines``) →
         ``"split"`` when at least one child feed was minted, else
-        ``"none"``."""
-        bucket = self._arena.bucket(spec["parent_lineage"], create=False)
-        if not bucket or not self._single:
-            return "none"       # a row-sharded feed re-mints (runner.py:2223)
-        return self._split_local_feeds(bucket, spec)
+        ``"none"``.  It runs on whichever runner holds the parent's bucket:
+        this one, a placement slice or the degraded submesh
+        (runner.py:2195-2214)."""
+        for r in [self] + self._sub_runners():
+            bucket = r._arena.bucket(spec["parent_lineage"], create=False)
+            if bucket:
+                # a row-sharded feed re-mints (runner.py:2223)
+                return r._split_local_feeds(bucket, spec) if r._single \
+                    else "none"
+        return "none"
 
     def _split_local_feeds(self, bucket, spec) -> str:
         """Slice the parent's positional feeds into child feeds, stashed
@@ -889,6 +1014,350 @@ class DeviceRunner:
             self._joiner = DeviceJoiner(self)
         return self._joiner
 
+    # -------------------------------------- scale-out and failure domains
+    #
+    # The reference's runner.py:682-1090 on a placement mesh.  The root
+    # runner owns the board; each placement slice is a single-device
+    # sub-runner bound to its slice's health (``_health``); a degraded
+    # submesh runner strikes the root's board without a health of its own.
+
+    @property
+    def placer(self):
+        return self._placer
+
+    def _make_slice_runner(self, mesh, slice_indices=None,
+                           bind_health: bool = False) -> "DeviceRunner":
+        """A sub-runner over some of this mesh's devices (a placement slice,
+        or a degraded healthy submesh) with this runner's ``chunk_rows``;
+        ``slice_indices``: this mesh's indices of its devices.
+        ``bind_health``: its faults and latencies score its one slice (a
+        degraded submesh never binds: its requests are whole-mesh plans
+        squeezed onto the survivors)."""
+        sub = DeviceRunner(mesh=mesh, chunk_rows=self._chunk_rows)
+        sub._failover_parent = self
+        if slice_indices is not None:
+            sub._slice_indices = tuple(slice_indices)
+            if bind_health and len(slice_indices) == 1 and \
+                    self._board is not None:
+                sub._health = self._board.slice(slice_indices[0])
+        return sub
+
+    def _in_domain(self) -> bool:
+        """A runner of a placement mesh: its root, a slice or a submesh."""
+        return self._board is not None or self._failover_parent is not None
+
+    def _strike_board(self):
+        """The board this runner's slice faults land on: its own (the
+        root), else its root's."""
+        if self._board is not None:
+            return self._board
+        p = self._failover_parent
+        return p._board if p is not None else None
+
+    def _slice_dead_targets(self, indices=None) -> tuple:
+        """Which of my slice indices (or ``indices``) the
+        ``device::slice_dead`` failpoint names now: ``return`` names every
+        slice, ``return(i j)`` slices i and j; () unarmed, or off a
+        placement mesh."""
+        if not self._in_domain():
+            return ()
+        fp = fail_point("device::slice_dead")
+        if fp is None:
+            return ()
+        mine = self._slice_indices if indices is None else tuple(indices)
+        v = fp.value
+        if v is None or not str(v).strip():
+            return mine
+        try:
+            targets = {int(t) for t in str(v).replace(",", " ").split()}
+        except ValueError:
+            return mine
+        return tuple(i for i in mine if i in targets)
+
+    def _note_slice_fault(self, kind: str) -> None:
+        """A fault of this slice runner's request: one strike on its slice
+        (a trip fires the board's listeners: the placer drains it)."""
+        h = self._health
+        if h is not None and h.note_fault(kind):
+            board = self._strike_board()
+            if board is not None:
+                board._fire_trip(h.idx, kind)
+
+    def _note_slice_ok(self, latency_s: Optional[float] = None) -> None:
+        """A served request decays its slice's score (or strikes a latency
+        outlier); a whole-mesh or submesh request decays every slice it
+        ran on."""
+        h = self._health
+        if h is not None:
+            if h.note_ok(latency_s):
+                board = self._strike_board()
+                if board is not None:
+                    board._fire_trip(h.idx, "latency")
+            return
+        board = self._strike_board()
+        if board is not None:
+            for i in self._slice_indices:
+                board.slice(i).note_ok()
+
+    def _refuse_if_quarantined(self) -> bool:
+        """The dispatch gate of a quarantined slice, before any of its state
+        is touched → True when the request must be served on the host."""
+        h = self._health
+        if h is not None and h.quarantined():
+            h.refusals += 1
+            return True
+        return False
+
+    def _preflight_slice(self) -> None:
+        """A slice that ``device::slice_dead`` names fails the dispatch as
+        the dead card would: a whole-mesh or submesh runner strikes each
+        named slice here, a slice runner once where the fault is caught."""
+        hit = self._slice_dead_targets()
+        if hit:
+            if self._health is None:
+                board = self._strike_board()
+                if board is not None:
+                    for i in hit:
+                        board.note_fault(i, "dispatch")
+            raise _SliceDead("device::slice_dead")
+
+    def _canary(self, idx: int) -> bool:
+        """The half-open probe of slice ``idx``: one ``plane_digest`` launch
+        over 8 rows on its device, read back (a dead card fails it), behind
+        the same ``device::slice_dead`` gate as a dispatch."""
+        try:
+            if self._slice_dead_targets(indices=(idx,)):
+                return False
+            dev = self._devices[self._slice_indices.index(idx)]
+            with _on_device(dev):
+                x = torch.arange(8, dtype=torch.int64, device=dev)
+                return as_u64(plane_digest(x, 0, 8)) == \
+                    sum(i * (2 * i + 1) for i in range(8))
+        except Exception:   # noqa: BLE001 — any runtime error: still dead
+            return False
+
+    def probe_quarantined(self) -> int:
+        """Canaries for the quarantined slices whose cooldown has passed →
+        how many ran (routing calls it on every request)."""
+        if self._board is None:
+            return 0
+        return self._board.maybe_probe(self._canary)
+
+    def _degraded_sub(self) -> Optional["DeviceRunner"]:
+        with self._degrade_mu:
+            return self._degraded[1] if self._degraded is not None else None
+
+    def _degraded_target(self) -> Optional["DeviceRunner"]:
+        """The runner whole-mesh plans use now: None while every slice is
+        healthy (dropping a submesh runner that served before); else a
+        runner over the largest healthy power-of-two submesh, its feeds
+        minted again from the host.  Raises ``_SliceDead`` when no slice
+        survives or the rebuild fails (``device::mesh_rebuild``): the host
+        pipeline is the last rung."""
+        self.probe_quarantined()
+        dead = self._board.quarantined_set()
+        with self._degrade_mu:
+            if not dead:
+                if self._degraded is not None:
+                    self._degraded[1]._arena.drop_all()
+                    self._degraded = None
+                    self._note_route("mesh_restore", self.failure_events)
+                return None
+            key = frozenset(dead)
+            if self._degraded is None or self._degraded[0] != key:
+                _fp_fault_as("device::mesh_rebuild", _SliceDead)
+                from ..parallel import healthy_submesh, make_mesh
+                devs = healthy_submesh(self._mesh, dead)
+                if devs is None:
+                    raise _SliceDead("no healthy submesh")
+                # by index: a mesh may repeat a device
+                alive = [i for i in range(self._nshards()) if i not in dead]
+                with tracker.phase("mesh_rebuild"):
+                    sub = self._make_slice_runner(
+                        make_mesh(devs), slice_indices=alive[:len(devs)])
+                    sub._arena.budget_bytes = self._arena.budget_bytes
+                if self._degraded is not None:
+                    self._degraded[1]._arena.drop_all()
+                # the full mesh's feeds span the dead slice; requests in
+                # flight keep their planes
+                self._arena.drop_all()
+                self._degraded = (key, sub)
+                self._note_route("mesh_downsize", self.failure_events)
+            return self._degraded[1]
+
+    def _rescue(self, dag: DAGRequest, storage):
+        """A request whose slice died between its dispatch and its fetch,
+        served once more through the root's front door (the placer routes
+        it around the dead slice, or the degraded submesh serves it) →
+        (result, degraded): ``degraded`` is None where a card answered,
+        else the reason the host answered the retry's fetch; or None when
+        this runner is not sick or the retry failed (the caller's own
+        degrade stands).  Never raises."""
+        if not self._in_domain():
+            return None
+        try:
+            h = self._health
+            board = self._strike_board()
+            hit = self._slice_dead_targets()
+            sick = h is not None and h.quarantined()
+            if hit:
+                sick = True     # a persistent death: trip now
+                if h is not None:
+                    if h.trip("slice_dead") and board is not None:
+                        board._fire_trip(h.idx, "slice_dead")
+                elif board is not None:
+                    for i in hit:
+                        board.trip(i, "slice_dead")
+            if not sick and self._board is not None and \
+                    self._board.quarantined_set():
+                sick = True
+            if not sick:
+                return None
+            root = self._failover_parent or self
+            root._note_route("rescue", root.failure_events)
+            tracker.label("device_rescue", "slice_failover")
+            out = root.handle_request(dag, storage, deferred=True)
+            if isinstance(out, DeferredResult):
+                return out.result(), out.degraded
+            return out, None
+        except Exception:   # noqa: BLE001 — the host answer follows
+            return None
+
+    def device_health(self) -> dict:
+        """Per-slice health and the degraded submesh, if any."""
+        out: dict = {"n_slices": len(self._slice_indices),
+                     "slices": self._board.stats()
+                     if self._board is not None else []}
+        with self._degrade_mu:
+            if self._degraded is not None:
+                dead, sub = self._degraded
+                out["degraded"] = {"dead_slices": sorted(dead),
+                                   "healthy_devices": sub._nshards()}
+        return out
+
+    def mesh_stats(self) -> dict:
+        """The mesh's shape and devices, and the placer's statistics."""
+        out = {"shape": dict(self._mesh.shape) if self._mesh is not None
+               else {"range": 1, "tile": 1},
+               "n_devices": self._nshards(),
+               "devices": [str(d) for d in self._devices]}
+        if self._placer is not None:
+            out["placement"] = self._placer.stats()
+        return out
+
+    def close(self) -> None:
+        """Drop every resident feed (the slices' and the degraded
+        submesh's too) and heal the board.  Idempotent."""
+        if self._placer is not None:
+            for r in self._placer.slices:
+                r.close()
+        with self._degrade_mu:
+            if self._degraded is not None:
+                self._degraded[1].close()
+                self._degraded = None
+        self._arena.drop_all()
+        if self._board is not None:
+            self._board.reset()
+
+    def quarantine(self, anchor, reason: str = "") -> None:
+        """The anchor's resident feeds are not to be trusted (a migration
+        whose arrival check failed, a scrub divergence): drop them where
+        they live, and strike that slice as a scrub fault; the next request
+        mints them again (runner.py:1941, without the host-served request
+        between)."""
+        if self._placer is not None:
+            owner = self._placer.owner(anchor)
+            if owner is not None:
+                owner.quarantine(anchor, reason)
+                return
+        self._note_slice_fault("scrub")
+        self._arena.drop(anchor)
+        degraded = self._degraded_sub()
+        if degraded is not None:
+            degraded._arena.drop(anchor)
+
+    # ---------------------------------------------------- feed migration
+
+    def extract_feeds(self, anchor):
+        """→ ({feed key: feed} of ``anchor``'s feeds that can move off this
+        single-device runner, how many were skipped), or (None, 0) when
+        nothing can (runner.py:2082-2106).  A feed moves only with its
+        digests, which the destination checks; one without is skipped and
+        counted.  Taken under the dispatch lock (a patch updates a feed's
+        planes and digests together)."""
+        if not self._single:
+            return None, 0
+        bucket = self._arena.bucket(anchor, create=False)
+        if not bucket:
+            return None, 0
+        out, skipped = {}, 0
+        with self._dispatch_mu:
+            for k, v in list(bucket.items()):
+                if not (isinstance(v, dict) and "flat" in v):
+                    continue
+                if v.get("digests") is None:
+                    skipped += 1
+                    continue
+                out[k] = dict(v)
+        return (out or None), skipped
+
+    def install_feeds(self, anchor, feeds: dict) -> str:
+        """The arrival side of a feed's move (runner.py:2108-2166) →
+        ``"moved"`` or ``"corrupt"``.  Each plane is copied into storage
+        of this runner's own (never a view of the source's, even on one
+        card), then one ``feed_verify`` launch hashes every arrived plane
+        of the feed and one copy brings the P digests home, held against
+        the digests that travelled; any difference returns ``"corrupt"``
+        before anything is installed.  Only then, under the dispatch lock:
+        each feed is installed unless a resident one of the same key is of
+        the same or a newer lineage version, its digests are registered
+        with the lineage, and the anchor is admitted to the arena.
+        ``device::feed_migrate`` flips one bit of an arrived plane.
+        ``migrate_phases_ms``: the host-clock copy, verify and install."""
+        dev = self.device
+        phases = {"copy": 0.0, "verify": 0.0, "install": 0.0}
+        arrived = {}
+        with _on_device(dev):
+            for fkey, feed in feeds.items():
+                t0 = time.perf_counter()
+                flat = []
+                for a in feed["flat"]:
+                    b = torch.empty_like(a, device=dev)
+                    b.copy_(a, non_blocking=True)
+                    flat.append(b)
+                nf = dict(feed, flat=tuple(flat))
+                if fail_point("device::feed_migrate") is not None:
+                    self.corrupt_resident_plane(nf)
+                t1 = time.perf_counter()
+                got = feed_verify(flat, 0, feed["n_live"]).cpu().tolist()
+                want = [as_u64(w) for w in feed["digests"]]
+                phases["copy"] += (t1 - t0) * 1e3
+                phases["verify"] += (time.perf_counter() - t1) * 1e3
+                if [as_u64(g) for g in got] != want:
+                    self.migrate_phases_ms = phases
+                    return "corrupt"
+                nf["digests"] = tuple(want)
+                arrived[fkey] = nf
+        t = time.perf_counter()
+        with self._dispatch_mu:
+            bucket = self._arena.bucket(anchor)
+            if bucket is None:
+                return "corrupt"    # an untrackable anchor: minted again
+            lineage = anchor if hasattr(anchor, "feed_digests") else None
+            for fkey, nf in arrived.items():
+                cur = bucket.get(fkey)
+                if isinstance(cur, dict) and \
+                        cur.get("lineage_v") is not None and \
+                        nf.get("lineage_v") is not None and \
+                        cur["lineage_v"] >= nf["lineage_v"]:
+                    continue
+                bucket[fkey] = nf
+                self._register_digests(lineage, fkey, nf)
+            self._arena.admit(anchor)
+        phases["install"] = (time.perf_counter() - t) * 1e3
+        self.migrate_phases_ms = phases
+        return "moved"
+
     # ------------------------------------------------------------- scrub
 
     @staticmethod
@@ -969,10 +1438,15 @@ class DeviceRunner:
         past 2^63, take the host half (``copr.analyze.analyze_columns``)
         after every device column has been launched.  ``analyze_phases_ms``
         holds the host-clock phases of the last request.  A mesh runner
-        answers on the host half (runner.py:4546-4552)."""
+        answers on the host half (runner.py:4546-4552); a placement mesh
+        sends the request to its anchor's slice (runner.py:4534-4541)."""
         from ..copr.analyze import (ANALYZE_DEVICE_ETS, ColumnStats,
                                     analyze_columns)
         from . import analyze as an
+        if self._placer is not None and hasattr(storage, "scan_columns"):
+            target = self._placer.route(storage)
+            if target is not self:
+                return target.handle_analyze(dag, storage, n_buckets)
         scan = dag.executors[0]
         phases: dict = {}
         t0 = time.perf_counter()
@@ -1053,7 +1527,37 @@ class DeviceRunner:
         ``DeviceUnavailable`` before anything launches.  On a mesh, a
         shard whose launches fail (``device::shard_launch``) sends the whole
         request to the host pipeline (runner.py:3252, :3304-3319), after the
-        dispatch lock is released; it is counted in ``degrades``."""
+        dispatch lock is released; it is counted in ``degrades``.
+
+        On a placement mesh (runner.py:3008-3044) the root routes the
+        request to its anchor's slice (``placer.route``), or, while a slice
+        is quarantined, a whole-mesh request to the degraded submesh; a
+        quarantined slice refuses the dispatch and a slice that
+        ``device::slice_dead`` names fails it (both answered by the host
+        pipeline, counted in ``degrades`` as "slice_quarantined" and
+        "slice_dead"); a fetch fault of a dead slice is served once more
+        through the root (``_rescue``).  A synchronous fetch fault that no
+        healthy slice served raises to the caller, as off a placement
+        mesh; a deferred one answers on the host (``DeferredResult``)."""
+        from ..executors.runner import BatchExecutorsRunner
+        if self._placer is not None and _stack is None and \
+                hasattr(storage, "scan_columns"):
+            target = self._placer.route(storage)
+            if target is not self:
+                return target.handle_request(dag, storage, deferred=deferred)
+        if self._board is not None:
+            try:
+                degraded = self._degraded_target()
+            except _SliceDead:
+                self._note_route("mesh_rebuild", self.degrades)
+                tracker.label("degraded", "mesh_rebuild")
+                if _stack is not None:
+                    raise _BatchUnavailable("no healthy submesh")
+                return BatchExecutorsRunner(dag, storage).handle_request()
+            if degraded is not None:
+                return degraded.handle_request(dag, storage,
+                                               deferred=deferred,
+                                               _stack=_stack)
         plan, why = self._analyze(dag)
         if plan is None:
             raise NotImplementedError(why)
@@ -1062,26 +1566,44 @@ class DeviceRunner:
             raise NotImplementedError(
                 f"{type(storage).__name__} is not a columnar snapshot: "
                 f"{_TODO_STORAGE}")
-        with self._dispatch_mu:
-            _fp_fault("device::before_dispatch")
-            try:
-                out = self._dispatch(dag, plan, storage, _stack)
-            except _ShardLaunchFault:
-                out = None
-            if isinstance(out, _Pending):
-                # the arena must not evict what a launched kernel reads
-                # until its fetch (runner.py:3286-3294); re-accounted for
-                # the memos the run cached (sparse slot ids)
-                anchor = self._feed_anchor(storage)
-                out.hold(self._arena, self._arena.pin(anchor))
-                self._arena.admit(anchor)
-        if out is None:
-            # the shards that did launch answer nothing
-            from ..executors.runner import BatchExecutorsRunner
-            self._note_route("shard_launch", self.degrades)
-            tracker.label("degraded", "shard_launch")
+        if self._refuse_if_quarantined():
             if _stack is not None:
-                raise _BatchUnavailable("a shard's launches failed")
+                raise _BatchUnavailable("slice quarantined")
+            self._note_route("slice_quarantined", self.degrades)
+            tracker.label("device_feed", "slice_quarantined")
+            return BatchExecutorsRunner(dag, storage).handle_request()
+        out = fault = None
+        try:
+            self._preflight_slice()
+        except _SliceDead as e:
+            fault = e
+        if fault is None:
+            with self._dispatch_mu:
+                _fp_fault("device::before_dispatch")
+                try:
+                    out = self._dispatch(dag, plan, storage, _stack)
+                except _ShardLaunchFault as e:
+                    out, fault = None, e
+                if isinstance(out, _Pending):
+                    if self._health is not None and \
+                            self._health.quarantined():
+                        self._health.launched_quarantined += 1
+                    # the arena must not evict what a launched kernel reads
+                    # until its fetch (runner.py:3286-3294); re-accounted
+                    # for the memos the run cached (sparse slot ids)
+                    anchor = self._feed_anchor(storage)
+                    out.hold(self._arena, self._arena.pin(anchor))
+                    self._arena.admit(anchor)
+        if fault is not None:
+            # the shards that did launch answer nothing
+            kind = "slice_dead" if isinstance(fault, _SliceDead) \
+                else "shard_launch"
+            if kind == "slice_dead":
+                self._note_slice_fault("dispatch")
+            self._note_route(kind, self.degrades)
+            tracker.label("degraded", kind)
+            if _stack is not None:
+                raise _BatchUnavailable(f"{kind}: the group cannot launch")
             return BatchExecutorsRunner(dag, storage).handle_request()
         if _stack is not None:
             if isinstance(out, _Pending):
@@ -1091,25 +1613,48 @@ class DeviceRunner:
             return self._apply_output_offsets(dag, out)
         if deferred:
             return DeferredResult(self, out, dag, storage)
-        return self._apply_output_offsets(dag, self._finish(out))
+        try:
+            r = self._finish(out)
+        except DEVICE_FAULTS:
+            # a slice that died before its fetch: served once more on a
+            # healthy slice, else the fault reaches the caller
+            self._note_slice_fault("fetch")
+            rescued = self._rescue(dag, storage)
+            if rescued is None or rescued[1] is not None:
+                raise
+            return rescued[0]
+        return self._apply_output_offsets(dag, r)
 
     def _readback(self, pending: _Pending) -> list:
         """Wait for a dispatched request's copies to the host → numpy
         arrays.  The ``device::before_fetch`` failpoint raises
         ``DeviceUnavailable`` here (runner.py:2949)."""
         _fp_fault("device::before_fetch")
+        # a slice that died between the dispatch and the fetch fails it
+        hit = self._slice_dead_targets()
+        if hit:
+            board = self._strike_board()
+            if self._health is None and board is not None:
+                for i in hit:
+                    board.note_fault(i, "fetch")
+            raise _SliceDead("device::slice_dead")
         with tracker.phase("d2h_wait"):
             return pending.staged.fetch()
 
     def _finish(self, pending: _Pending):
         """The blocking fetch and the host finalize of a dispatched
-        request (runner.py:3334); its arena pin is released either way."""
+        request (runner.py:3334); its arena pin is released either way.  On
+        a placement mesh a served request decays its slices' scores."""
+        t0 = time.perf_counter()
         try:
             fetched = self._readback(pending)
         finally:
             pending.release()
         with tracker.phase("host_materialize"):
-            return pending.finalize(fetched)
+            out = pending.finalize(fetched)
+        if self._in_domain():
+            self._note_slice_ok(time.perf_counter() - t0)
+        return out
 
     def _dispatch(self, dag, plan, storage, stack):
         """Under the dispatch lock: the snapshot's feed and the plan's
@@ -1239,7 +1784,15 @@ class DeviceRunner:
         one solo dispatch and its fetch serve every member.  A selection
         that ``sel_pred`` does not cover (the torch route) only shares,
         where the reference stacks any hoisted selection (ROADMAP.md).
-        None on a mesh: a whole-mesh dispatch stays solo (runner.py:1204)."""
+        None on a mesh: a whole-mesh dispatch stays solo (runner.py:1204);
+        on a placement mesh a request routed to a slice takes the slice's
+        key behind ``("slice", id(slice runner))``, so that a group never
+        straddles slices (runner.py:1197-1204)."""
+        if self._placer is not None and hasattr(storage, "scan_columns"):
+            target = self._placer.route(storage)
+            if target is not self:
+                key = target.batch_class(dag, storage)
+                return None if key is None else ("slice", id(target)) + key
         if not (hasattr(storage, "scan_columns") and
                 hasattr(storage, "count_rows")) or not self._single:
             return None
@@ -1267,9 +1820,14 @@ class DeviceRunner:
         storage)`` pairs of one ``("stack", ...)`` batch class
         (runner.py:1229) → a ``_BatchedSelectionGroup``.  Raises
         ``_BatchUnavailable`` when the group cannot be one launch: the
-        caller retries each member solo."""
+        caller retries each member solo.  A placement mesh hands the group
+        to the slice of its snapshot's anchor (runner.py:1235-1238)."""
         if not members:
             raise _BatchUnavailable("an empty group")
+        if self._placer is not None:
+            target = self._placer.route(members[0][1])
+            if target is not self:
+                return target.handle_batched(members)
         if not self._single:
             raise _BatchUnavailable("a mesh dispatch is never stacked")
         lead_dag, lead_storage = members[0]

@@ -21,21 +21,28 @@ Counterpart of the JAX package's ``device/supervisor.py``:
   least-recently-used eviction that skips the entries an in-flight request
   pinned, explicit drops, and a weakref backstop for anchors no lifecycle
   event reaches;
+- ``SliceHealth`` and ``SliceHealthBoard`` (:218-470): a strike score per
+  mesh slice, the failure domain of a placement runner
+  (``DeviceRunner(mesh=..., placement=True)``): healthy → quarantined at
+  ``DEFAULT_TRIP_STRIKES`` → half-open probe after a cooldown → healthy
+  again with a decayed score, or quarantined again;
 - ``DeviceStateSupervisor`` (:1071-), an ``Observer`` of the region
   lifecycle: a split slices the parent's cache lines and then its resident
-  device feeds into the children (``on_region_split``), a region change or
+  device feeds into the children (``on_region_split``; with placement on,
+  the children are pinned to the parent's slice), a region change or
   a destroyed peer drops the superseded lines, and every retired line
   drops its device feeds (``on_line_retired`` → ``drop_feed``).
 
 Trimmed (ROADMAP.md queue 1 item 6): the arena's residency metering, the
-scrub thread and quarantine, the replica-feed state machine, the slice
-health board and the flight recorder.
+scrub thread, the replica-feed state machine, ``RemintGovernor`` and the
+flight recorder.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 import weakref
 from typing import Callable, Optional, Sequence
 
@@ -101,6 +108,218 @@ def start_plane_digests(pool, planes: Sequence[tuple], n: int,
     def wait() -> tuple:
         return tuple(sum(f.result() for f in js) & _MASK for js in jobs)
     return wait
+
+
+# ------------------------------------------------------ slice health
+
+# a slice trips at this score: 1.0 a dispatch, fetch or scrub fault, 0.25 a
+# latency outlier; each served request takes 0.5 off
+DEFAULT_TRIP_STRIKES = 3.0
+# seconds before a tripped slice (or one whose probe failed) is probed
+DEFAULT_PROBE_COOLDOWN_S = 0.25
+
+
+class SliceHealth:
+    """Strike score and state of one mesh slice (supervisor.py:241).
+
+    healthy --(score >= trip)--> quarantined --(cooldown, one probe at a
+    time)--> healthy with the score at trip − 1 (decayed, not reset, so the
+    placement penalty keeps the slice expensive and one more fault trips it
+    again), or quarantined again with the cooldown restarted.  Faults:
+    ``note_fault`` (weight 1.0; 0.25 a latency outlier when
+    ``latency_outlier_s`` is set above 0); a served request decays the
+    score by 0.5 (``note_ok``)."""
+
+    __slots__ = ("idx", "_mu", "score", "state", "trip_strikes",
+                 "cooldown_s", "latency_outlier_s", "strikes", "trips",
+                 "readmits", "refusals", "probe_failures",
+                 "launched_quarantined", "_opened_at", "_probe_inflight")
+
+    def __init__(self, idx: int,
+                 trip_strikes: float = DEFAULT_TRIP_STRIKES,
+                 cooldown_s: float = DEFAULT_PROBE_COOLDOWN_S,
+                 latency_outlier_s: Optional[float] = None):
+        self.idx = idx
+        self._mu = threading.Lock()
+        self.score = 0.0
+        self.state = "healthy"          # healthy | quarantined
+        self.trip_strikes = trip_strikes
+        self.cooldown_s = cooldown_s
+        self.latency_outlier_s = latency_outlier_s
+        self.strikes: dict = {}
+        self.trips = 0
+        self.readmits = 0
+        # dispatches refused while quarantined (served on the host)
+        self.refusals = 0
+        self.probe_failures = 0
+        # dispatches that launched while quarantined: stays 0
+        self.launched_quarantined = 0
+        self._opened_at = 0.0
+        self._probe_inflight = False
+
+    def note_fault(self, kind: str, weight: float = 1.0) -> bool:
+        """One strike → True when it tripped the slice."""
+        with self._mu:
+            self.strikes[kind] = self.strikes.get(kind, 0) + 1
+            self.score += weight
+            return self._maybe_trip_locked()
+
+    def trip(self, kind: str) -> bool:
+        """Quarantine now (a persistent death needs no three strikes) →
+        True on the transition."""
+        with self._mu:
+            self.strikes[kind] = self.strikes.get(kind, 0) + 1
+            self.score = max(self.score, self.trip_strikes)
+            return self._maybe_trip_locked()
+
+    def _maybe_trip_locked(self) -> bool:
+        if self.state != "healthy" or self.score < self.trip_strikes:
+            return False
+        self.state = "quarantined"
+        self.trips += 1
+        self._opened_at = time.monotonic()
+        self._probe_inflight = False
+        return True
+
+    def note_ok(self, latency_s: Optional[float] = None) -> bool:
+        """A served request: decay the score, or strike 0.25 when its
+        latency is an outlier → True when that strike tripped the slice
+        (the caller fires the board's trip listeners)."""
+        if latency_s is not None and self.latency_outlier_s and \
+                self.latency_outlier_s > 0 and \
+                latency_s >= self.latency_outlier_s:
+            return self.note_fault("latency", weight=0.25)
+        with self._mu:
+            if self.state == "healthy":
+                self.score = max(0.0, self.score - 0.5)
+        return False
+
+    def quarantined(self) -> bool:
+        return self.state == "quarantined"
+
+    def try_probe(self) -> bool:
+        """→ True when a canary may run now: quarantined, cooled down, and
+        no other probe in flight (half-open: one probe at a time)."""
+        with self._mu:
+            if self.state != "quarantined" or self._probe_inflight:
+                return False
+            if time.monotonic() - self._opened_at < self.cooldown_s:
+                return False
+            self._probe_inflight = True
+            return True
+
+    def probe_result(self, ok: bool) -> None:
+        with self._mu:
+            self._probe_inflight = False
+            if self.state != "quarantined":
+                return
+            if ok:
+                self.state = "healthy"
+                self.score = max(0.0, self.trip_strikes - 1.0)
+                self.readmits += 1
+            else:
+                self.probe_failures += 1
+                self._opened_at = time.monotonic()
+
+    def penalty(self) -> float:
+        """The score over the trip threshold: the placement blend's health
+        term (0 healthy, about 1 at the threshold)."""
+        with self._mu:
+            return self.score / self.trip_strikes \
+                if self.trip_strikes > 0 else 0.0
+
+    def reset(self) -> None:
+        with self._mu:
+            self.score = 0.0
+            self.state = "healthy"
+            self._probe_inflight = False
+
+    def stats(self) -> dict:
+        with self._mu:
+            return {"slice": self.idx, "score": round(self.score, 3),
+                    "state": self.state, "strikes": dict(self.strikes),
+                    "trips": self.trips, "readmits": self.readmits,
+                    "refusals": self.refusals,
+                    "probe_failures": self.probe_failures,
+                    "probe_inflight": self._probe_inflight,
+                    "launched_quarantined": self.launched_quarantined}
+
+
+class SliceHealthBoard:
+    """The health of every slice of one mesh (supervisor.py:384), owned by
+    the whole-mesh placement runner and shared with its placer, its slice
+    runners and any degraded submesh runner, so every observation about a
+    slice lands on one score.  Trip listeners ``fn(idx, reason)`` run on
+    each healthy → quarantined transition, outside the board's lock."""
+
+    def __init__(self, n_slices: int,
+                 trip_strikes: float = DEFAULT_TRIP_STRIKES,
+                 cooldown_s: float = DEFAULT_PROBE_COOLDOWN_S,
+                 latency_outlier_s: Optional[float] = None):
+        self._slices = [SliceHealth(i, trip_strikes=trip_strikes,
+                                    cooldown_s=cooldown_s,
+                                    latency_outlier_s=latency_outlier_s)
+                        for i in range(n_slices)]
+        self._mu = threading.Lock()
+        self._listeners: list = []
+
+    def __len__(self) -> int:
+        return len(self._slices)
+
+    def slice(self, i: int) -> SliceHealth:
+        return self._slices[i]
+
+    def add_trip_listener(self, fn) -> None:
+        with self._mu:
+            self._listeners.append(fn)
+
+    def _fire_trip(self, idx: int, reason: str) -> None:
+        with self._mu:
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(idx, reason)
+            except Exception:   # noqa: BLE001 — a listener must not
+                pass            # break the scoring path
+
+    def note_fault(self, idx: int, kind: str, weight: float = 1.0) -> None:
+        if 0 <= idx < len(self._slices) and \
+                self._slices[idx].note_fault(kind, weight=weight):
+            self._fire_trip(idx, kind)
+
+    def trip(self, idx: int, reason: str) -> None:
+        if 0 <= idx < len(self._slices) and self._slices[idx].trip(reason):
+            self._fire_trip(idx, reason)
+
+    def quarantined_set(self) -> frozenset:
+        return frozenset(i for i, s in enumerate(self._slices)
+                         if s.quarantined())
+
+    def penalty(self, i: int) -> float:
+        return self._slices[i].penalty()
+
+    def maybe_probe(self, canary) -> int:
+        """Run ``canary(idx) -> bool`` for each quarantined slice whose
+        cooldown has passed (one probe a slice at a time) and feed back
+        the result; a canary that raises failed → how many ran."""
+        ran = 0
+        for s in self._slices:
+            if not s.try_probe():
+                continue
+            ran += 1
+            try:
+                ok = bool(canary(s.idx))
+            except Exception:   # noqa: BLE001 — a crashed canary failed
+                ok = False
+            s.probe_result(ok)
+        return ran
+
+    def reset(self) -> None:
+        for s in self._slices:
+            s.reset()
+
+    def stats(self) -> list:
+        return [s.stats() for s in self._slices]
 
 
 # ------------------------------------------------------------ feed arena
@@ -304,6 +523,14 @@ class FeedArena:
         with self._mu:
             return self._pinned
 
+    def entry_stats(self) -> list:
+        """(anchor, hits, last tick, pins) of every entry whose anchor is
+        alive: what the placer's rebalance picks its coldest anchor by."""
+        with self._mu:
+            rows = [(e.ref(), e.hits, e.tick, e.pins)
+                    for e in list(self._entries.values())]
+        return [r for r in rows if r[0] is not None]
+
     def items(self) -> list:
         """(anchor, bucket) of every entry whose anchor is alive."""
         with self._mu:
@@ -388,6 +615,7 @@ class DeviceStateSupervisor(Observer):
                     exc_info=True)
                 specs = []
             t1 = time.perf_counter()
+            children, parent = [], None
             for spec in specs:
                 # a kernel that fails to build or launch raises through
                 # here: only a child that mints no feed falls back
@@ -398,6 +626,13 @@ class DeviceStateSupervisor(Observer):
                         self.splits += 1
                     else:
                         self.split_fallbacks += 1
+                parent = spec["parent_lineage"]
+                children += [spec[side]["lineage"] for side in
+                             ("left", "right") if spec.get(side)]
+            # the children serve where the parent's feeds were sliced
+            placer = getattr(self._runner, "placer", None)
+            if placer is not None and parent is not None:
+                placer.adopt(parent, children)
             self.split_phases_ms = {
                 "split_lines": (t1 - t0) * 1e3,
                 "device_split": (time.perf_counter() - t1) * 1e3}

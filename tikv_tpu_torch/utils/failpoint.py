@@ -3,7 +3,8 @@
 A trimmed copy of the JAX package's ``utils/failpoint.py`` (the ``fail``
 crate's grammar): ``cfg(name, actions)`` arms a site, ``fail_point(name)``
 is the site, ``teardown()`` disarms every site.  Actions, chained with
-``->``, each ``[cnt*]task[(arg)]``; tasks ``off`` and ``return``.  The
+``->``, each ``[pct%][cnt*]task[(arg)]``; tasks ``off`` and ``return``
+(``pct%``: the action fires on that share of hits, at random).  The
 port's sites: ``device::join_dispatch`` (the probe dispatch of a device
 join), ``copr::plan_route`` (every fragment of a plan to the host),
 ``device::before_dispatch`` and ``device::before_fetch`` (a device fault
@@ -11,13 +12,19 @@ at a DAG request's dispatch or at its fetch), ``device::shard_launch`` (a
 shard's launches fail on a mesh: ``return`` at the first shard,
 ``return(i)`` at shard i; the request is answered by the host pipeline), ``copr::coalesce_dispatch``
 (a coalesced group's launch fails: its members retry solo) and
-``copr::coalesce_window`` (a group closes as its member arrives).
+``copr::coalesce_window`` (a group closes as its member arrives), and
+on a placement mesh ``device::slice_dead`` (``return`` every slice,
+``return(i j)`` slices i and j fail their dispatches, fetches and
+canaries; ``50%return(i)`` a flapping slice), ``device::feed_migrate`` (a
+migrated feed's plane flips one bit on arrival) and
+``device::mesh_rebuild`` (the degraded submesh cannot be built).
 
 A site costs one global read while nothing is armed.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 from typing import Optional
 
@@ -27,9 +34,10 @@ _TASKS = ("off", "return")
 
 
 class _Action:
-    __slots__ = ("cnt", "task", "arg", "fired")
+    __slots__ = ("pct", "cnt", "task", "arg", "fired")
 
-    def __init__(self, cnt, task, arg):
+    def __init__(self, pct, cnt, task, arg):
+        self.pct = pct          # percent of hits that fire; None: all
         self.cnt = cnt          # most firings; None: unlimited
         self.task = task
         self.arg = arg
@@ -45,7 +53,10 @@ class _Return:
 
 def _parse_one(spec: str) -> _Action:
     spec = spec.strip()
-    cnt = None
+    pct = cnt = None
+    if "%" in spec.split("*")[0].split("(")[0]:
+        head, spec = spec.split("%", 1)
+        pct = float(head)
     head = spec.split("*")[0]
     if "*" in spec and head.replace(".", "").isdigit():
         spec = spec.split("*", 1)[1]
@@ -55,7 +66,7 @@ def _parse_one(spec: str) -> _Action:
     if "(" in spec:
         task, rest = spec.split("(", 1)
         arg = rest.rsplit(")", 1)[0]
-    return _Action(cnt, task.strip(), arg)
+    return _Action(pct, cnt, task.strip(), arg)
 
 
 def cfg(name: str, actions: str) -> None:
@@ -72,6 +83,13 @@ def cfg(name: str, actions: str) -> None:
         if _registry is None:
             _registry = {}
         _registry[name] = chain
+
+
+def remove(name: str) -> None:
+    """Disarm ``name`` alone."""
+    with _lock:
+        if _registry is not None:
+            _registry.pop(name, None)
 
 
 def teardown() -> None:
@@ -93,6 +111,9 @@ def fail_point(name: str):
     with _lock:
         for action in chain:
             if action.cnt is not None and action.fired >= action.cnt:
+                continue
+            if action.pct is not None and \
+                    random.random() * 100.0 >= action.pct:
                 continue
             action.fired += 1
             if action.task == "off":
