@@ -60,8 +60,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    configs 1, 2, 2s and 5t at 10·2^20 rows), ``sel_mask`` (n not a multiple of 8, one and many blocks, all-false and
    all-true masks, a mask off a 16-byte boundary, config 2's 10·2^20
    rows), ``sel_compact`` in index mode (capacity above and below the
-   count: the overflow flag) and in planes mode (int32, int64, float64 and
-   bool planes), ``topn_select`` (DESC and ASC, int32, int64 and float64
+   count: the overflow flag; one below, at and one above it) and in planes
+   mode (int32, int64, float64 and bool planes), over 100·2^20 rows at 1%
+   (3,200 blocks) too, its whole buffer (header, -1 fill, 0 tails and the
+   gaps between planes) against the plain version's, each call under
+   ``set_sync_debug_mode("error")`` (no wait on the card), ``topn_select`` (DESC and ASC, int32, int64 and float64
    keys, NULLs first and last, a selection inside, a limit beyond the live
    rows, 10·2^20 tied keys and 10·2^20 NULL keys, the int64 extremes, -0.0
    beside 0.0, n not a multiple of the segment, config 5's 100·2^20 rows,
@@ -97,7 +100,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    512`` over 100·2^20 rows, the bool mask too) beside the torch
    comparison alone, ``sel_mask`` at config 2 (``torch.count_nonzero``),
    ``sel_compact`` at
-   config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``),
+   config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``)
+   beside the launch floor (``launch_floor_ms``: an empty kernel,
+   ``csrc/floor.cu``, queued like every kernel),
    ``topn_select`` at configs 5 and 5t (``torch.topk`` on the (segments,
    segment length) view), with its route and its reads of the order plane
    per row (and at config 5 the overflow route's time on the same
@@ -143,14 +148,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bits (one or two packed images), n = 1, 2, 2049, 4095-4097, 12,289
    (a last tile of one row), 100,003 and 10·2^20; the build dictionary
    with NULL keys, duplicates, keys equal to
-   the int64.max sentinel and rows past n_live; the probe on both routes
-   (``join_index``'s direct index of dense build keys, held against its
-   plain version, and the search of sparse ones) with NULL keys on both
+   the int64.max sentinel, rows past n_live and no valid row, and the
+   valid count and key range it reads in its one wait; the probe on both
+   routes (``join_index``'s direct index of dense build keys, launched
+   under ``set_sync_debug_mode("error")`` from the build's key range and
+   held against its plain version, and the search of sparse ones) with NULL keys on both
    sides, with and without a mask, at a capacity above and below the total
    (the exact total beside the pairs that fit), over dense keys with gaps,
    duplicates, one hot build key, a negative least key, keys at int64.min
    and int64.max − 1, a valid int64.max build key and a span one past the
-   threshold (both the sparse route) and a span at it; the window over
+   threshold (both the sparse route), a span at it and no valid key; the
+   window over
    int64 and float64 partition keys (NaN, -0.0), none, one partition over
    every row, a partition on each row, counts, int64 sums, LAG / LEAD of
    int64 and float64 within the kernel's halo and past it (±100, ±5000),
@@ -169,8 +177,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    beside their bounds, plain versions and, for the sorts, composed
    ``torch.argsort(stable=True)`` (and for ``sort_perm`` one
    ``torch.argsort(stable=True)`` over the packed int64 image, packed
-   outside the timing), for ``join_index`` one ``torch.searchsorted`` of
-   the span's keys, for ``join_probe`` two (left and right) of the probe
+   outside the timing), for ``join_index`` (queued, and as issued beside
+   the library call) one ``torch.searchsorted`` of the span's keys, for
+   ``join_probe`` two (left and right) of the probe
    keys, which compute the runs but not the pairs; ``join_probe`` on both
    routes (config 7's dense build, and its keys spread by 2^20), its bound
    counting the -1 fill up to k_cap, printed beside the count without
@@ -330,6 +339,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import itertools
 import json
 import math
 import os
@@ -2016,16 +2026,49 @@ def batched_at_main_shape(dev) -> dict:
     return t
 
 
+def compact_cases(dev):
+    """(name, pred, n, [(k_cap or a function of the total, planes), ...])
+    beyond ``selection_cases``: the capacity one below, at and one above
+    the total, with planes of 1, 4 and 8 bytes, at n not a multiple of
+    32,768; and 100·2^20 rows at 1% (3,200 blocks) in index mode and
+    with an int32 plane."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    n = 5 * 32768 + 4099
+    planes = [torch.rand(n, generator=g, device=dev) < 0.5,
+              torch.randint(-(1 << 30), 1 << 30, (n,), generator=g,
+                            device=dev, dtype=torch.int32),
+              torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                            device=dev, dtype=torch.int64)]
+    caps = [(lambda c, d=d: max(1, c + d), ps) for d in (-1, 0, 1)
+            for ps in ((), planes)]
+    yield f"n={n} at the total", torch.rand(n, generator=g, device=dev) \
+        < 0.2, n, caps
+    big = 100 << 20
+    pred = torch.rand(big, generator=g, device=dev) < 0.01
+    plane = torch.randint(-(1 << 30), 1 << 30, (big,), generator=g,
+                          device=dev, dtype=torch.int32)
+    yield f"{big} rows at 1%", pred, big, [
+        (lambda c: 1 << (int(c * 1.5 + 64) - 1).bit_length(), ()),
+        (lambda c: c - 7, ()), (lambda c: c + 3, [plane])]
+
+
 def check_selection(dev) -> tuple:
-    """→ (largest difference of sel_mask, of sel_compact): 0 or raises."""
+    """→ (largest difference of sel_mask, of sel_compact): 0 or raises.
+    Every ``sel_compact`` runs under ``no_host_wait`` and its whole buffer
+    (header, indices, -1 fill, planes, their 0 tails and the gaps between
+    them) must equal the plain version's."""
     from tikv_tpu_torch.device import selection as sm
-    for name, pred, n, compacts in selection_cases(dev):
+    check_sync_debug(dev)
+    for name, pred, n, compacts in itertools.chain(selection_cases(dev),
+                                                   compact_cases(dev)):
         got = sm.sel_mask(pred, n)
         torch.cuda.synchronize()
         want = sm.sel_mask_plain(pred, n)
         assert mask_equal(got, want), f"sel_mask {name} disagrees"
         for k_cap, planes in compacts:
-            c_got = sm.sel_compact(got, k_cap, planes)
+            if callable(k_cap):
+                k_cap = k_cap(int(want.count))
+            c_got = no_host_wait(lambda: sm.sel_compact(got, k_cap, planes))
             torch.cuda.synchronize()
             c_want = sm.sel_compact_plain(want, k_cap, planes)
             assert torch.equal(c_got.buf, c_want.buf), \
@@ -2033,9 +2076,11 @@ def check_selection(dev) -> tuple:
             print(f"kernel sel_compact {name} k_cap={k_cap} planes="
                   f"{[str(t.dtype) for t in planes]}: count="
                   f"{int(c_got.count)} overflow={int(c_got.overflow)} "
-                  f"max_abs_err=0", flush=True)
+                  f"blocks={sm.n_blocks(n)} max_abs_err=0", flush=True)
+            del c_got
         print(f"kernel sel_mask {name}: count={int(got.count)} "
               f"max_abs_err=0", flush=True)
+        del got, want, pred
     gc.collect()
     return 0, 0
 
@@ -2543,11 +2588,30 @@ def time_pred(config: str, prog, planes, n: int, bools: bool, library,
     return t
 
 
-def selection_at_main_shapes(dev) -> tuple:
+def launch_floor(dev) -> float:
+    """The least device time of one launch: an empty kernel
+    (``csrc/floor.cu``) timed as every kernel is, queued behind the device
+    sleep; printed as ``launch_floor_ms``."""
+    from tikv_tpu_torch.device import build
+    lib = build.load_checked("floor", {}, "floor_error_string")
+    lib.floor_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.floor_launch.restype = ctypes.c_int
+    index = dev.index
+
+    def launch():
+        build.raise_on(lib, "floor_error_string", lib.floor_launch(
+            index, torch.cuda.current_stream(dev).cuda_stream),
+            "floor launch")
+    ms = cuda_ms(launch, 200, queued=True)
+    print(f"launch_floor_ms={ms} (an empty kernel, queued)", flush=True)
+    return ms
+
+
+def selection_at_main_shapes(dev, floor_ms: float) -> tuple:
     """sel_pred and sel_mask at config 2 and sel_compact at config 2s's 1%
     (index mode) and 0.1% (planes mode), exact against their plain versions
-    and timed; → (sel_pred timing, sel_mask timing, sel_compact
-    timing)."""
+    and timed (sel_compact beside ``floor_ms``, the launch floor); →
+    (sel_pred timing, sel_mask timing, sel_compact timing)."""
     from tikv_tpu_torch.datatype import EvalType
     from tikv_tpu_torch.device import selection as sm
     from tikv_tpu_torch.expr import Expr, build_rpn
@@ -2597,6 +2661,7 @@ def selection_at_main_shapes(dev) -> tuple:
              # gathered planes written once; a scan step per row
              **bound_ms(-(-n // 8) + 4 * nb + min(k, cap) * esize
                         + HEADER_BYTES + cap * (4 + esize), n),
+             "launch_floor_ms": floor_ms,
              "rows": n, "selected": k, "k_cap": cap,
              "planes": len(planes_here)}
         modes["index" if not planes_here else "planes"] = t
@@ -3204,6 +3269,35 @@ def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
 
 
+def dictionary_diff(got, want) -> int:
+    """Two ``join_build`` dictionaries: the elements of sk, perm and
+    prefix that differ, plus 1 if their host ``BuildKeys`` differ."""
+    return sum(diff_count(a, b) for a, b in zip(got[:3], want[:3])) + \
+        int(tuple(got.keys) != tuple(want.keys))
+
+
+def no_host_wait(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises
+    if it makes torch wait for the card (a read back, a synchronizing
+    op)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_sync_debug(dev) -> None:
+    """The window ``no_host_wait`` opens does catch a wait: a read back of
+    three numbers raises inside it."""
+    x = torch.arange(8, device=dev)
+    try:
+        no_host_wait(lambda: torch.cat([x[-1:], x[:1]]).tolist())
+    except RuntimeError:
+        return
+    raise AssertionError("set_sync_debug_mode('error') let a read back by")
+
+
 def of_width(rng, n: int, bits: int, lo: int) -> np.ndarray:
     """int64 keys whose images span exactly ``bits`` bits from ``lo``."""
     span = (1 << bits) - 1
@@ -3242,7 +3336,9 @@ def check_sort(dev) -> int:
     n = 1, 2, 2049, 4095-4097, 12,289 (last tiles of one row: the dynamic
     tile counter's last tile), 100,003 and 10·2^20 (7s's two int64 keys);
     join_build with NULL keys, duplicates, valid keys equal to the
-    int64.max sentinel and rows past n_live."""
+    int64.max sentinel, rows past n_live and no valid row; its host
+    ``BuildKeys`` (valid count, least and greatest valid key) equal to the
+    plain version's."""
     from tikv_tpu_torch.device import sort as srt
     rng = np.random.default_rng(71)
     saved = counts()
@@ -3278,7 +3374,8 @@ def check_sort(dev) -> int:
           f"max_abs_err={err}", flush=True)
     del ks
     for n, live, dup in ((1, 1, 1), (5, 3, 2), (4097, 4000, 7),
-                         (100_003, 100_003, 1000), (1 << 20, 1 << 20, 0)):
+                         (100_003, 100_003, 1000), (1 << 20, 1 << 20, 0),
+                         (9, 0, 3)):
         keys = np.arange(n, dtype=np.int64) if dup == 0 else \
             rng.integers(-dup, dup, n)
         valid = np.ones(n, np.bool_) if dup == 0 else rng.random(n) > 0.2
@@ -3290,11 +3387,12 @@ def check_sort(dev) -> int:
         got = srt.join_build(kt, vt, live)
         want = srt.join_build_plain(kt, vt, live)
         torch.cuda.synchronize()
-        err = sum(diff_count(a, b) for a, b in zip(got, want))
+        err = dictionary_diff(got, want)
         assert err == 0, f"join_build n={n} live={live}: {err} differ"
         worst = max(worst, err)
         print(f"kernel join_build n={n} n_live={live}: max_abs_err={err} "
-              f"tolerance=0 (sk, perm, prefix)", flush=True)
+              f"tolerance=0 (sk, perm, prefix; keys {tuple(got.keys)})",
+              flush=True)
     set_counts(saved)
     return worst
 
@@ -3338,12 +3436,16 @@ def join_index_cases(rng) -> list:
             ("one hot build key", np.concatenate(
                 [np.full(5000, 7), rng.permutation(100)]),
              rng.integers(0, 120, npr), (1 << 22, 777_777), True),
-            ("one row", np.asarray([3]), np.asarray([3]), (1, 64), True)):
+            ("one row", np.asarray([3]), np.asarray([3]), (1, 64), True),
+            ("no valid key", rng.permutation(5000),
+             rng.integers(0, 5100, npr), (1 << 17,), False)):
         bk = np.asarray(bk, np.int64)
         bvalid = rng.random(len(bk)) > 0.1
         bvalid[:1] = True
         if label.startswith("span") or label == "one row":
             bvalid[:] = True        # the span counts valid keys only
+        if label == "no valid key":
+            bvalid[:] = False
         out.append((label, bk, bvalid, np.asarray(pk, np.int64), caps,
                     dense))
     return out
@@ -3359,8 +3461,10 @@ def check_join(dev) -> int:
     (``join_index_cases``: gaps, duplicates, a negative least key, keys at
     int64.min and int64.max − 1, a valid int64.max key and a span one past
     the threshold, which must take the sparse route, a span at it, one
-    hot build key); then the joiner's re-dispatch on an overflow
-    (``check_join_redispatch``)."""
+    hot build key, no valid key), ``join_index`` fed the host
+    ``BuildKeys`` that ``join_build`` read in its one wait, each call
+    under ``no_host_wait`` (the index waits for nothing); then the
+    joiner's re-dispatch on an overflow (``check_join_redispatch``)."""
     from tikv_tpu_torch.device import join_probe as jp
     from tikv_tpu_torch.device import sort as srt
     rng = np.random.default_rng(72)
@@ -3376,14 +3480,18 @@ def check_join(dev) -> int:
         cases.append((f"{npr}x{nb}", bk, rng.random(nb) > 0.1, pk, caps,
                       None))
     cases += join_index_cases(rng)
+    check_sync_debug(dev)
     for label, bk, bvalid, pk, caps, dense in cases:
         npr, nb = len(pk), len(bk)
         pvalid = torch.from_numpy(rng.random(npr) > 0.1).to(dev)
         mask = torch.from_numpy(rng.random(npr) > 0.5).to(dev)
         built = srt.join_build(torch.from_numpy(bk).to(dev),
                                torch.from_numpy(bvalid).to(dev), nb)
-        index = jp.join_index(built[0], built[2])
-        want_index = jp.join_index_plain(built[0], built[2])
+        assert tuple(built.keys) == srt.build_keys_plain(
+            built.sk, built.prefix), f"join_build {label}: {built.keys}"
+        index = no_host_wait(lambda: jp.join_index(built.sk, built.prefix,
+                                                   built.keys))
+        want_index = jp.join_index_plain(built.sk, built.prefix)
         err = int((index is None) != (want_index is None))
         if index is not None and want_index is not None:
             err += int(index[1:] != want_index[1:]) + \
@@ -3395,10 +3503,10 @@ def check_join(dev) -> int:
         pkt = torch.from_numpy(pk).to(dev)
         for cap in caps:
             for pv, m in ((pvalid, mask), (None, None)):
-                want = jp.join_probe_plain(*built, pkt, pv, m, cap)
+                want = jp.join_probe_plain(*built[:3], pkt, pv, m, cap)
                 for idx in ((index, None) if index is not None
                             else (None,)):
-                    got = jp.join_probe(*built, pkt, pv, m, cap, idx)
+                    got = jp.join_probe(*built[:3], pkt, pv, m, cap, idx)
                     torch.cuda.synchronize()
                     err = diff_count(got[0], want[0]) + \
                         diff_count(got[1], want[1])
@@ -3574,8 +3682,8 @@ def run_plan(cell: str, ep, pair) -> dict:
 
 def index_launch(jp, index, sk, n_valid: int) -> None:
     """The index kernel alone over the dictionary ``sk`` (``n_valid``
-    valid keys) into ``index.off`` (what ``join_index`` launches after its
-    readback)."""
+    valid keys) into ``index.off`` (what ``join_index`` launches, with no
+    wrapper around it)."""
     lib = jp._kernel_lib()
     p = jp._IndexParams(sk=sk.data_ptr(), n_valid=n_valid,
                         key_lo=index.lo, span=index.span,
@@ -3587,9 +3695,10 @@ def index_launch(jp, index, sk, n_valid: int) -> None:
 def plan_kernels_at_main_shapes(pair, dev) -> tuple:
     """The five kernels at config 7's / 7s's / 7w's shapes: checked
     against their plain versions there (bit for bit) and timed with CUDA
-    events (the probe and the window queued behind a device sleep; the
-    sorts and ``join_index`` as issued, since they read back from the
-    card), beside each bound (inputs read once, outputs written once at
+    events (the probe, the window and ``join_index`` queued behind a
+    device sleep, ``join_index`` also as issued; the sorts as issued,
+    since they read back from the card), beside each bound (inputs read
+    once, outputs written once at
     3.35 TB/s), plain version and library yardstick (composed
     torch.argsort(stable=True) for the sorts; torch.searchsorted for the
     index and, left and right, for the probe's runs; none computes the
@@ -3614,8 +3723,8 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
         return p
 
     built = srt.join_build(bk, bvalid, nb)
-    errs["join_build"] = sum(diff_count(a, b) for a, b in zip(
-        built, srt.join_build_plain(bk, bvalid, nb)))
+    errs["join_build"] = dictionary_diff(
+        built, srt.join_build_plain(bk, bvalid, nb))
     nsv = torch.zeros(nb, dtype=torch.int64, device=dev)
     t["join_build"] = {
         "ms": cuda_ms(lambda: srt.join_build(bk, bvalid, nb), 20),
@@ -3626,27 +3735,36 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
         **bound_ms(nb * (8 + 1 + 8 + 4 + 8) + 8, 0), "rows": nb}
     mask = v > 0
     k_cap = 1 << (int(n * 1.5 + 64) - 1).bit_length()
-    sk, perm, prefix = built
-    index = jp.join_index(sk, prefix)
+    sk, perm, prefix, bkeys = built
+    index = no_host_wait(lambda: jp.join_index(sk, prefix, bkeys))
     want_index = jp.join_index_plain(sk, prefix)
     assert index is not None, "config 7's build must take the direct index"
     errs["join_index"] = diff_count(index.off, want_index.off) + int(
         index[1:] != want_index[1:])
     t["join_index"] = {
-        "ms": cuda_ms(lambda: jp.join_index(sk, prefix), 20),
+        "ms": cuda_ms(lambda: jp.join_index(sk, prefix, bkeys), 50,
+                      queued=True),
+        "issued_ms": cuda_ms(lambda: jp.join_index(sk, prefix, bkeys), 50),
         "kernel_ms": cuda_ms(lambda: index_launch(jp, index, sk, nb), 50,
                              queued=True),
         "plain_ms": cuda_ms(lambda: jp.join_index_plain(sk, prefix), 5),
         "library_ms": cuda_ms(lambda: torch.searchsorted(
             sk, torch.arange(index.span + 1, device=dev) + index.lo), 5),
-        "library_call": "torch.searchsorted of every key of the span",
+        "library_call": "torch.searchsorted of every key of the span, "
+                        "as issued",
         # sk read once, 4 B an entry written
         **bound_ms(nb * 8 + (index.span + 1) * 4, 0),
         "rows": nb, "span": index.span,
-        "timed": "ms: the wrapper as issued (it reads three numbers back); "
-                 "kernel_ms: the kernel alone, queued"}
+        "timed": "ms: the wrapper, queued; issued_ms: the wrapper as "
+                 "issued (no read back: its keys come from join_build's "
+                 "one wait), beside library_ms; kernel_ms: the kernel "
+                 "alone, queued"}
+    print(f"join_index at config 7: as issued {t['join_index']['issued_ms']}"
+          f" ms, torch.searchsorted of the span as issued "
+          f"{t['join_index']['library_ms']} ms, queued "
+          f"{t['join_index']['ms']} ms", flush=True)
     del want_index
-    want = jp.join_probe_plain(*built, k, None, mask, k_cap)
+    want = jp.join_probe_plain(sk, perm, prefix, k, None, mask, k_cap)
     total = int(want[1])
     # the function's bytes: probe keys and mask read once, the dictionary
     # once, each pair slot up to k_cap written once (the pairs, then the
@@ -3659,15 +3777,16 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
         kr, bkr = keys_of(k), keys_of(bk)
         built_r = built if route == "dense" else \
             srt.join_build(bkr, bvalid, nb)
-        idx = jp.join_index(built_r[0], built_r[2])
+        idx = jp.join_index(built_r.sk, built_r.prefix,
+                            built_r.keys)
         assert (idx is not None) == (route == "dense"), route
-        got = jp.join_probe(*built_r, kr, None, mask, k_cap, idx)
+        got = jp.join_probe(*built_r[:3], kr, None, mask, k_cap, idx)
         errs["join_probe"] += diff_count(got[0], want[0]) + \
             diff_count(got[1], want[1])
         del got
         routes[route] = {
-            "ms": cuda_ms(lambda: jp.join_probe(*built_r, kr, None, mask,
-                                                k_cap, idx), 10,
+            "ms": cuda_ms(lambda: jp.join_probe(*built_r[:3], kr, None,
+                                                mask, k_cap, idx), 10,
                           queued=True),
             "build_keys": "0..2^20-1" if route == "dense"
             else "(0..2^20-1) << 20, probe keys likewise"}
@@ -3678,7 +3797,7 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
     t["join_probe"] = {
         "ms": routes["dense"]["ms"],
         "plain_ms": cuda_ms(lambda: jp.join_probe_plain(
-            *built, k, None, mask, k_cap), 3),
+            sk, perm, prefix, k, None, mask, k_cap), 3),
         "library_ms": cuda_ms(lambda: (
             torch.searchsorted(sk, k, right=False),
             torch.searchsorted(sk, k, right=True)), 5),
@@ -5869,7 +5988,9 @@ def main() -> int:
     hash_timing["configs"] = hash_timings
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
-    pred_timing, mask_timing, compact_timing = selection_at_main_shapes(dev)
+    floor_ms = launch_floor(dev)
+    pred_timing, mask_timing, compact_timing = selection_at_main_shapes(
+        dev, floor_ms)
     batched_timing = batched_at_main_shape(dev)
     topn_timing, pred_timing_5t = topn_at_main_shapes(runner, dev)
     pred_timing = dict(pred_timing, configs={"2": dict(pred_timing),
@@ -5935,6 +6056,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst[name],
             **cold["4h"]["timing"][name],
             "configs": {c: r["timing"][name] for c, r in cold.items()}})
+        if name == "patch_rows":
+            kernels[-1]["launch_floor_ms"] = floor_ms
     errs, plan_timing = plan_kernels_at_main_shapes(pair, dev)
     del ep, pair
     for name, source, replaces in (
@@ -5979,7 +6102,7 @@ def main() -> int:
             "source": "tikv_tpu_torch/csrc/shard_merge.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst["shard_merge"],
-            **mesh_timings[cell]["merge"],
+            **mesh_timings[cell]["merge"], "launch_floor_ms": floor_ms,
             "configs": {c: t for c, t in mesh_timings.items()
                         if name != "shard_bucket_merge" or c == cell}})
     kernels.append({

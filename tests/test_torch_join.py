@@ -85,7 +85,7 @@ def test_join_probe_matches_reference_kernel(ref, npr, nb, dom, null_p,
                      jnp.asarray(pk), jnp.asarray(pvalid & mask))
     built = srt.join_build(torch.from_numpy(bk), torch.from_numpy(bvalid),
                            nb)
-    pairs, total = jp.join_probe(*built, torch.from_numpy(pk),
+    pairs, total = jp.join_probe(*built[:3], torch.from_numpy(pk),
                                  torch.from_numpy(pvalid),
                                  torch.from_numpy(mask), k_cap)
     assert int(total) == int(tot)
@@ -94,17 +94,19 @@ def test_join_probe_matches_reference_kernel(ref, npr, nb, dom, null_p,
 
 
 def test_join_probe_empty_sides():
-    sk, perm, prefix = srt.join_build(torch.zeros(0, dtype=torch.int64),
-                                      torch.zeros(0, dtype=torch.bool), 0)
-    assert prefix.tolist() == [0]
+    sk, perm, prefix, keys = srt.join_build(
+        torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.bool),
+        0)
+    assert prefix.tolist() == [0] and keys.n_valid == 0
     pairs, total = jp.join_probe(sk, perm, prefix,
                                  torch.arange(5, dtype=torch.int64), None,
                                  None, 64)
     assert int(total) == 0 and (pairs == -1).all()
     built = srt.join_build(torch.arange(3, dtype=torch.int64),
                            torch.ones(3, dtype=torch.bool), 3)
-    pairs, total = jp.join_probe(*built, torch.zeros(0, dtype=torch.int64),
-                                 None, None, 64)
+    pairs, total = jp.join_probe(*built[:3],
+                                 torch.zeros(0, dtype=torch.int64), None,
+                                 None, 64)
     assert int(total) == 0 and pairs.shape == (64, 2)
 
 
@@ -113,11 +115,11 @@ def test_join_probe_checks_its_inputs():
                            torch.ones(3, dtype=torch.bool), 3)
     k = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="k_cap"):
-        jp.join_probe(*built, k, None, None, 0)
+        jp.join_probe(*built[:3], k, None, None, 0)
     with pytest.raises(ValueError, match="bool"):
-        jp.join_probe(*built, k, None, k, 64)
+        jp.join_probe(*built[:3], k, None, k, 64)
     with pytest.raises(ValueError, match="int64"):
-        jp.join_probe(*built, k.to(torch.int32), None, None, 64)
+        jp.join_probe(*built[:3], k.to(torch.int32), None, None, 64)
 
 
 # --------------------------------------------------- DeviceJoiner.join

@@ -9,9 +9,14 @@ port with the index (where the route takes one) and without it; pairs and
 totals are integers and must be equal exactly (tolerance 0).  Cases: dense
 keys, dense keys with gaps, duplicates, NULLs on both sides, a negative
 least key, keys at int64.min and int64.max − 1, a valid int64.max build
-key (the sparse route), spans at the threshold and one past it, and a
-k_cap below the total.  Then the route's choice.  ``DeviceJoiner`` on each
-route is held against the reference's join in ``test_torch_join.py``.
+key (the sparse route), spans at the threshold and one past it, a k_cap
+below the total and no valid build key.  ``join_index`` takes the host
+``BuildKeys`` that ``join_build`` hands on (the valid count, the least and
+the greatest valid key, read on the card in the build's one wait): on
+every case they equal the numbers of the reference's own dictionary, and
+the index built from them equals one searched in that dictionary.  Then
+the route's choice.  ``DeviceJoiner`` on each route is held against the
+reference's join in ``test_torch_join.py``.
 """
 
 import numpy as np
@@ -88,6 +93,11 @@ def _case(name: str) -> tuple:
         bk = rng.permutation(1000)
         pk = rng.integers(0, 1000, npr)
         k_cap = 1000
+    elif name == "no_valid_key":
+        bk = rng.permutation(1000)
+        pk = rng.integers(-10, 1010, npr)
+        bvalid_p = 0.0
+        dense = False
     else:
         raise ValueError(name)
     nb = len(bk)
@@ -102,7 +112,25 @@ def _case(name: str) -> tuple:
 INDEX_CASES = ("dense", "dense_gaps", "duplicates", "nulls", "negative_min",
                "int64_min", "int64_max_less_1", "valid_int64_max",
                "span_at_threshold", "span_past_threshold",
-               "k_cap_below_total")
+               "k_cap_below_total", "no_valid_key")
+
+
+def _ref_dictionary(ref, bk, bvalid):
+    """The reference's build kernel over (bk, bvalid) → (sk, perm,
+    prefix) as jax arrays."""
+    from tikv_tpu.device.join import DeviceJoiner as RefJoiner
+    nb = len(bk)
+    return RefJoiner(ref)._build_kernel(nb)(
+        jnp.asarray(nb, jnp.int64), jnp.asarray(bk), jnp.asarray(bvalid))
+
+
+def _ref_keys(sk, prefix) -> tuple:
+    """(valid count, least, greatest valid key) of a reference dictionary:
+    its valid rows come first; (0, int64.max, int64.min) when none is."""
+    sk, nv = np.asarray(sk), int(np.asarray(prefix)[-1])
+    if nv == 0:
+        return 0, int(I64.max), int(I64.min)
+    return nv, int(sk[0]), int(sk[nv - 1])
 
 
 @pytest.mark.parametrize("name", INDEX_CASES)
@@ -122,7 +150,7 @@ def test_indexed_probe_matches_reference_kernel(ref, name):
                      jnp.asarray(pk), jnp.asarray(pvalid & mask))
     built = srt.join_build(torch.from_numpy(bk), torch.from_numpy(bvalid),
                            nb)
-    index = jp.join_index(built[0], built[2])
+    index = jp.join_index(built.sk, built.prefix, built.keys)
     assert (index is not None) == dense
     if dense:
         assert index.off.dtype == torch.int32
@@ -130,12 +158,53 @@ def test_indexed_probe_matches_reference_kernel(ref, name):
     args = (torch.from_numpy(pk), torch.from_numpy(pvalid),
             torch.from_numpy(mask), k_cap)
     for idx in (index, None):
-        pairs, total = jp.join_probe(*built, *args, index=idx)
+        pairs, total = jp.join_probe(*built[:3], *args, index=idx)
         assert int(total) == int(tot)
         np.testing.assert_array_equal(pairs[:, 0].numpy(), np.asarray(pi))
         np.testing.assert_array_equal(pairs[:, 1].numpy(), np.asarray(bi))
     if name == "k_cap_below_total":
         assert int(tot) > k_cap
+
+
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_build_keys_match_reference_dictionary(ref, name):
+    """The three numbers ``join_build`` hands on (reduced from the rows,
+    as its prep kernel does) equal those of the reference's dictionary,
+    and so do the ones ``build_keys_plain`` reads from the port's own."""
+    bk, bvalid, *_rest = _case(name)
+    sk, _perm, prefix = _ref_dictionary(ref, bk, bvalid)
+    want = _ref_keys(sk, prefix)
+    built = srt.join_build(torch.from_numpy(bk), torch.from_numpy(bvalid),
+                           len(bk))
+    assert tuple(built.keys) == want
+    assert tuple(srt.build_keys_plain(built.sk, built.prefix)) == want
+    if name == "no_valid_key":
+        assert want[0] == 0
+
+
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_join_index_fed_build_keys(ref, name):
+    """``join_index`` fed the build's numbers takes the route it took
+    when it read them back (``join_index_plain``, which derives them),
+    and its index equals the reference dictionary's keys searched with
+    numpy: off[x] the first sorted row whose key is ≥ lo + x (tolerance
+    0)."""
+    bk, bvalid, _pk, _pv, _m, _k, dense = _case(name)
+    sk, _perm, prefix = _ref_dictionary(ref, bk, bvalid)
+    built = srt.join_build(torch.from_numpy(bk), torch.from_numpy(bvalid),
+                           len(bk))
+    index = jp.join_index(built.sk, built.prefix, built.keys)
+    derived = jp.join_index_plain(built.sk, built.prefix)
+    assert (index is None) == (derived is None) == (not dense)
+    if index is None:
+        return
+    nv, lo, hi = _ref_keys(sk, prefix)
+    assert (index.lo, index.span) == (derived.lo, derived.span) == \
+        (lo, hi - lo + 1)
+    want = np.searchsorted(np.asarray(sk)[:nv],
+                           lo + np.arange(index.span + 1), side="left")
+    np.testing.assert_array_equal(index.off.numpy(), want)
+    np.testing.assert_array_equal(derived.off.numpy(), want)
 
 
 @pytest.mark.parametrize("n_valid,lo,hi,span", [
@@ -156,9 +225,11 @@ def test_index_route_choice(n_valid, lo, hi, span):
 
 
 def test_join_index_checks_its_inputs():
-    sk, perm, prefix = srt.join_build(torch.arange(4, dtype=torch.int64),
-                                      torch.ones(4, dtype=torch.bool), 4)
-    index = jp.join_index(sk, prefix)
+    sk, perm, prefix, keys = srt.join_build(
+        torch.arange(4, dtype=torch.int64), torch.ones(4, dtype=torch.bool),
+        4)
+    assert tuple(keys) == (4, 0, 3)
+    index = jp.join_index(sk, prefix, keys)
     assert index.lo == 0 and index.span == 4
     assert index.off.tolist() == [0, 1, 2, 3, 4]
     k = torch.zeros(3, dtype=torch.int64)
@@ -166,7 +237,10 @@ def test_join_index_checks_its_inputs():
     with pytest.raises(ValueError, match="index"):
         jp.join_probe(sk, perm, prefix, k, None, None, 64, bad)
     with pytest.raises(ValueError, match="prefix"):
-        jp.join_index(sk, prefix[:-1])
+        jp.join_index(sk, prefix[:-1], keys)
+    with pytest.raises(ValueError, match="valid keys"):
+        jp.join_index(sk, prefix, srt.BuildKeys(5, 0, 4))
     empty = srt.join_build(torch.zeros(0, dtype=torch.int64),
                            torch.zeros(0, dtype=torch.bool), 0)
-    assert jp.join_index(empty[0], empty[2]) is None
+    assert tuple(empty.keys) == (0, int(I64.max), int(I64.min))
+    assert jp.join_index(empty.sk, empty.prefix, empty.keys) is None

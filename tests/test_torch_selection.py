@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 import torch
 
 import bench
@@ -312,6 +313,88 @@ def test_compact_indices_and_planes(k_cap):
     for p, o in zip(planes, outs):
         np.testing.assert_array_equal(o[:len(take)], p[take])
         assert not o[len(take):].any()
+
+
+# (name, rows, selectivity, k_cap as a function of the total): the
+# capacity below, at and above the total, no row, every row; n is not a
+# multiple of sel_mask's 32,768-row blocks except in "two_whole_blocks"
+COMPACT_POINTS = [
+    ("k_cap_below_total", 70_001, 0.05, lambda c: c - 17),
+    ("k_cap_at_total", 70_001, 0.05, lambda c: c),
+    ("k_cap_above_total", 70_001, 0.05, lambda c: c + 5),
+    ("total_0", 40_003, 0.0, lambda c: 64),
+    ("every_row", 33_001, 1.0, lambda c: 1 << 16),
+    ("every_row_k_cap_below", 33_001, 1.0, lambda c: 1001),
+    ("two_whole_blocks", 65_536, 0.3, lambda c: 1 << 15),
+]
+
+
+def _reference_buffer(mask, k_cap, planes) -> np.ndarray:
+    """The whole sel_compact buffer built from the reference's
+    build_index_kernel and build_compact_kernel: the int64 count and
+    overflow flag, k_cap int32 indices from byte 16 (-1 fill), then each
+    plane's k_cap elements from the next 16-byte boundary; the reference
+    leaves index-0 gathers past the count, the port's layout zeros (and
+    zeros the gaps), so those bytes are set to 0 here."""
+    from tikv_tpu.device.selection import (build_compact_kernel,
+                                           build_index_kernel)
+    n = len(mask)
+    count = int(mask.sum())
+    m = min(count, k_cap)
+    idx, ovf = build_index_kernel(n, k_cap)(jnp.asarray(mask))
+    outs, ovf2 = build_compact_kernel(n, k_cap, (False,) * len(planes))(
+        jnp.asarray(mask), *(jnp.asarray(pl) for pl in planes))
+    assert int(ovf) == int(ovf2) == int(count > k_cap)
+
+    def up16(x):
+        return -(-x // 16) * 16
+    at = up16(16 + 4 * k_cap)
+    spans = []
+    for pl in planes:
+        spans.append(at)
+        at = up16(at + pl.itemsize * k_cap)
+    buf = np.zeros(at, np.uint8)
+    buf[:16] = np.asarray([count, int(ovf)], np.int64).view(np.uint8)
+    buf[16:16 + 4 * k_cap] = np.asarray(idx, np.int32).view(np.uint8)
+    for off, pl, out in zip(spans, planes, outs):
+        vals = np.zeros(k_cap, pl.dtype)
+        vals[:m] = np.asarray(out)[:m]
+        buf[off:off + pl.itemsize * k_cap] = vals.view(np.uint8)
+    return buf
+
+
+@pytest.mark.parametrize("name,n,p,cap_of", COMPACT_POINTS,
+                         ids=[c[0] for c in COMPACT_POINTS])
+@pytest.mark.parametrize("widths", [(), (1, 4, 8)])
+def test_compact_buffer_matches_reference(ref, name, n, p, cap_of, widths):
+    """sel_compact_plain's whole buffer, header and alignment gaps
+    included, equals the reference's index and compact kernels' outputs
+    laid out as the kernel writes them (tolerance 0): the capacity below,
+    at and above the total, a total of 0, every row selected, n past a
+    whole number of blocks, planes of 1, 4 and 8 bytes."""
+    rng = np.random.default_rng(n + int(100 * p) + sum(widths))
+    mask = rng.random(n) < p
+    dt = {1: np.bool_, 4: np.int32, 8: np.int64}
+    planes = [rng.integers(-2**31, 2**31, n).astype(dt[w]) if w == 4 else
+              rng.integers(-2**62, 2**62, n) if w == 8 else
+              rng.random(n) < 0.5 for w in widths]
+    k_cap = cap_of(int(mask.sum()))
+    out = sm.sel_compact(sm.sel_mask(torch.from_numpy(mask), n), k_cap,
+                         [torch.from_numpy(pl) for pl in planes])
+    np.testing.assert_array_equal(out.buf.numpy(),
+                                  _reference_buffer(mask, k_cap, planes))
+
+
+def test_compact_params_mirror_the_kernel_struct():
+    """``_CompactParams`` names the fields of csrc/selection.cu's ``struct
+    CompactParams`` in order (the library checks the size at load)."""
+    import re
+    from pathlib import Path
+    src = (Path(sm.__file__).parent.parent / "csrc" /
+           "selection.cu").read_text()
+    body = re.search(r"struct CompactParams \{(.*?)\n\};", src, re.S)[1]
+    names = re.findall(r"(\w+)(?:\[\w+\])?;", re.sub(r"//.*", "", body))
+    assert names == [f[0] for f in sm._CompactParams._fields_]
 
 
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu_only():

@@ -120,6 +120,26 @@ def test_join_build_matches_reference(ref, n, pad, dom, null_p, sent_p):
     assert got[1].dtype == torch.int32 and got[2].shape == (n_pad + 1,)
 
 
+@pytest.mark.parametrize("n,pad,dom,null_p,sent_p", BUILD_CASES)
+def test_join_build_keys_match_reference(ref, n, pad, dom, null_p, sent_p):
+    """The dictionary's host ``BuildKeys`` (the valid count, the least and
+    the greatest valid key; int64.max and int64.min with no valid row)
+    equal those of the reference's _build_kernel output, a valid key at
+    the int64.max sentinel included."""
+    rng = np.random.default_rng(n + pad + 1)
+    n_pad = n + pad
+    keys = rng.integers(-dom, dom, n_pad).astype(np.int64)
+    keys[rng.random(n_pad) < sent_p] = I64.max
+    valid = rng.random(n_pad) >= null_p
+    sk, _perm, prefix = (np.asarray(w) for w in ref._build_kernel(n_pad)(
+        jnp.asarray(n, jnp.int64), jnp.asarray(keys), jnp.asarray(valid)))
+    nv = int(prefix[-1])
+    want = (nv, int(sk[0]), int(sk[nv - 1])) if nv else \
+        (0, int(I64.max), int(I64.min))
+    got = srt.join_build(torch.from_numpy(keys), torch.from_numpy(valid), n)
+    assert tuple(got.keys) == want
+
+
 def test_wrappers_check_their_inputs():
     k = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="rows"):

@@ -156,7 +156,7 @@ def test_join_build_is_the_packed_sort_of_its_keys(ref, n, null_p, sent_p):
     skey = torch.where(vt, kt, torch.full_like(kt, I64.max))
     nsv = ~vt
     packed = srt.sort_perm_packed_plain([skey, nsv], n)
-    sk, perm, prefix = srt.join_build_plain(kt, vt, n)
+    sk, perm, prefix, _keys = srt.join_build_plain(kt, vt, n)
     np.testing.assert_array_equal(perm.numpy(), packed.numpy())
     if n:
         want = ref._build_kernel(n)(jnp.asarray(n, jnp.int64),

@@ -57,7 +57,11 @@
 //
 // index_kernel: thread i (one per boundary 0..n_valid) owns the keys
 // (sk[i - 1], sk[i]] and writes i into their entries; a run longer than 32
-// entries (a gap in the keys) is written by its whole warp.
+// entries (a gap in the keys) is written by its whole warp.  n_valid,
+// key_lo and the span come from the host, which read them in join_build's
+// one wait for the card (sort.cu build_prep_kernel), so the index is
+// launched at once and a dictionary with its index waits for the card
+// once.
 //
 // Bound: bytes.  The probe key and the mask read once (9 B a row; 10 with
 // a validity plane), the build dictionary once (sk, perm and prefix: 20 B

@@ -75,12 +75,23 @@
 // home.
 // sel_compact reads the packed mask (n / 8 bytes), the block counts, and
 // for each selected row below k_cap its projected planes' elements; it
-// writes 4 B per index and the gathered elements.  The exclusive scan over
-// the block counts is in the kernel: each block sums the counts of the
-// blocks before it (a block-wide reduction; 320 counts at config 2), then
-// scans its threads' popcounts, so every thread knows where its rows go
-// and writes them in row order.  The last block writes the total count and
-// the overflow flag.
+// writes the whole output buffer once (header, indices, each plane and the
+// 16-byte gaps between them) in one launch, nothing zeroed beforehand.  A
+// block issues its 16-byte mask load first, then reads every block count
+// with 16-byte loads: one block reduction gives both the selected rows of
+// the blocks before it (its offset) and the total.  The tail needs only
+// the total, so it goes first: every block takes its grid-stride share,
+// 16 bytes a store, of -1 over the indices [min(total, k_cap), k_cap) and
+// 0 over each plane's tail and the gaps (the grid is at least as large as
+// the tail needs, so a small mask with a large capacity fills quickly);
+// block 0 writes the header (the total, exact past k_cap, and the
+// overflow flag).  Then one block scan of its threads' popcounts (128 rows
+// a thread) places each selected row; the rows are staged in shared
+// memory in row order, 8192 output slots at a time (one window unless the
+// block selects more), and the block writes a window's indices
+// contiguously, then gathers every plane there, a thread's loads of up to
+// 8 planes and 2 slots in flight before its stores.  Slots past k_cap are
+// not written.
 
 #include <cuda_runtime.h>
 
@@ -152,17 +163,22 @@ struct BatchParams {
   long long n_tiles;            // tiles of blockDim.x * 16 rows
 };
 
+// sel_compact's launch parameters (device/selection.py mirrors the
+// layout).  The output is one buffer of out_bytes (a multiple of 16) from
+// header: the header, idx at byte 16, then each plane's dst, 16-byte
+// aligned, in order.
 struct CompactParams {
   const unsigned char* packed;  // n_blocks * ROWS_PER_BLOCK / 8 bytes
   const int* block_counts;      // n_blocks
   long long n_blocks;
   long long k_cap;
-  int* idx;                     // k_cap, filled with -1 beforehand
+  int* idx;                     // k_cap
   long long* header;            // [0] selected rows, [1] overflow flag
+  long long out_bytes;
   int n_planes;
   int esize[MAX_PLANES];        // 1, 4 or 8 bytes
   const void* src[MAX_PLANES];
-  void* dst[MAX_PLANES];        // k_cap elements each, zeroed beforehand
+  void* dst[MAX_PLANES];        // k_cap elements each
 };
 
 namespace {
@@ -761,69 +777,212 @@ __global__ void sel_pred_batched_kernel(const __grid_constant__ PredParams p,
       atomicAdd(b.counts + g, (unsigned long long)lane_count[g]);
 }
 
-__device__ __forceinline__ void copy_element(const CompactParams& p,
-                                             long long row, long long at) {
-  for (int q = 0; q < p.n_planes; ++q) {
-    switch (p.esize[q]) {
-      case 1:
-        static_cast<unsigned char*>(p.dst[q])[at] =
-            static_cast<const unsigned char*>(p.src[q])[row];
-        break;
-      case 4:
-        static_cast<int*>(p.dst[q])[at] = static_cast<const int*>(p.src[q])[row];
-        break;
-      default:
-        static_cast<long long*>(p.dst[q])[at] =
-            static_cast<const long long*>(p.src[q])[row];
-    }
-  }
-}
+#define COMPACT_WINDOW 8192  // output slots a block stages at a time
 
-__global__ void __launch_bounds__(THREADS)
-    sel_compact_kernel(const __grid_constant__ CompactParams p) {
-  __shared__ long long red[THREADS / 32];
-  __shared__ int warp_total[THREADS / 32];
-  const long long b = blockIdx.x;
-  // this block's first output position: the selected rows of the blocks
-  // before it
-  long long before = 0;
-  for (long long i = threadIdx.x; i < b; i += THREADS)
-    before += p.block_counts[i];
-  before = block_sum(before, red);
-  if (b == p.n_blocks - 1 && threadIdx.x == 0) {
-    const long long total = before + p.block_counts[b];
-    p.header[0] = total;
-    p.header[1] = total > p.k_cap ? 1 : 0;
-  }
-  if (before >= p.k_cap) return;  // the same for every thread of the block
-
-  const uint4 v = reinterpret_cast<const uint4*>(
-      p.packed + b * (ROWS_PER_BLOCK / 8))[threadIdx.x];
-  const unsigned words[4] = {v.x, v.y, v.z, v.w};
-  const int cnt = __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+// the exclusive sum of v over the block's threads; *total gets the
+// block's; syncs before returning, so calls may follow each other
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_total,
+                                                   int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = cnt;
+  int incl = v;
   for (int o = 1; o < 32; o <<= 1) {
     const int t = __shfl_up_sync(FULL, incl, o);
     if (lane >= o) incl += t;
   }
   if (lane == 31) warp_total[warp] = incl;
   __syncthreads();
-  long long at = before + incl - cnt;
-  for (int w = 0; w < warp; ++w) at += warp_total[w];
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    const int x = warp_total[w];
+    before += w < warp ? x : 0;
+    all += x;
+  }
+  *total = all;
+  __syncthreads();
+  return before + incl - v;
+}
 
-  const long long row0 = b * ROWS_PER_BLOCK +
-                         (long long)threadIdx.x * ROWS_PER_THREAD;
-  for (int j = 0; j < 16 && at < p.k_cap; ++j) {
-    unsigned byte = (words[j >> 2] >> (8 * (j & 3))) & 0xffu;
-    while (byte != 0 && at < p.k_cap) {
-      const int bit = 31 - __clz(byte);  // the highest bit is the first row
-      byte &= ~(1u << bit);
-      const long long row = row0 + 8 * j + (7 - bit);
-      p.idx[at] = (int)row;
-      copy_element(p, row, at);
-      ++at;
+#define GATHER_PLANES 8  // planes whose loads a thread keeps in flight
+
+// an element of 1, 4 or 8 bytes as 64 bits, and back
+__device__ __forceinline__ unsigned long long load_elem(const void* src,
+                                                        int es, int row) {
+  if (es == 1) return static_cast<const unsigned char*>(src)[row];
+  if (es == 4) return static_cast<const unsigned*>(src)[row];
+  return static_cast<const unsigned long long*>(src)[row];
+}
+
+__device__ __forceinline__ void store_elem(void* dst, int es, long long i,
+                                           unsigned long long x) {
+  if (es == 1)
+    static_cast<unsigned char*>(dst)[i] = (unsigned char)x;
+  else if (es == 4)
+    static_cast<unsigned*>(dst)[i] = (unsigned)x;
+  else
+    static_cast<unsigned long long*>(dst)[i] = x;
+}
+
+// slots [at, at + len) of the indices and of every plane from the rows
+// staged in `rows`: a warp's stores are contiguous, and each thread issues
+// its loads of up to GATHER_PLANES planes and 2 slots before any store
+__device__ __forceinline__ void write_slots(const CompactParams& p,
+                                            const int* rows, long long at,
+                                            int len) {
+  for (int i = threadIdx.x; i < len; i += THREADS) p.idx[at + i] = rows[i];
+  for (int q0 = 0; q0 < p.n_planes; q0 += GATHER_PLANES) {
+    const int nq = p.n_planes - q0 < GATHER_PLANES ? p.n_planes - q0
+                                                   : GATHER_PLANES;
+    for (int i0 = threadIdx.x; i0 < len; i0 += 2 * THREADS) {
+      unsigned long long x[2][GATHER_PLANES];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * THREADS;
+#pragma unroll
+        for (int q = 0; q < GATHER_PLANES; ++q)
+          if (q < nq && i < len)
+            x[u][q] = load_elem(p.src[q0 + q], p.esize[q0 + q], rows[i]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = i0 + u * THREADS;
+#pragma unroll
+        for (int q = 0; q < GATHER_PLANES; ++q)
+          if (q < nq && i < len)
+            store_elem(p.dst[q0 + q], p.esize[q0 + q], at + i, x[u][q]);
+      }
     }
+  }
+}
+
+// bytes [a, mid) of `out` to 0xff and [mid, b) to 0 (a <= mid <= b, b a
+// multiple of 16), 16 bytes a store; thread `t` of `nt` takes every nt-th
+// 16 bytes.  The first 16 bytes may begin below a: those bytes are
+// another thread's output and are not written.
+__device__ __forceinline__ void fill_tail(unsigned char* out, long long a,
+                                          long long mid, long long b,
+                                          long long t, long long nt) {
+  for (long long c = a / 16 + t; c < b / 16; c += nt) {
+    const long long lo = 16 * c;
+    if (lo >= a && lo + 16 <= mid) {
+      reinterpret_cast<uint4*>(out)[c] = make_uint4(~0u, ~0u, ~0u, ~0u);
+    } else if (lo >= mid) {
+      reinterpret_cast<uint4*>(out)[c] = make_uint4(0, 0, 0, 0);
+    } else {
+      for (long long x = lo > a ? lo : a; x < lo + 16; ++x)
+        out[x] = x < mid ? 0xff : 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    sel_compact_kernel(const __grid_constant__ CompactParams p) {
+  __shared__ int s_rows[COMPACT_WINDOW];   // a window's rows, in order
+  __shared__ long long s_red[3][THREADS / 32];
+  __shared__ int s_warp[THREADS / 32];
+  const long long b = blockIdx.x;
+  const int t = threadIdx.x;
+  const bool mine = b < p.n_blocks;  // the grid may pass n_blocks: tail only
+  // the mask first (this thread's 128 rows): nothing below waits for the
+  // offsets to issue it
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (mine)
+    v = reinterpret_cast<const uint4*>(p.packed +
+                                       b * (ROWS_PER_BLOCK / 8))[t];
+  // every block count once: those before b (the offset), b's, all
+  long long before = 0, own = 0, total = 0;
+  const int* bc = p.block_counts;
+  const long long nb = p.n_blocks;
+  auto add = [&](long long i, int c) {
+    before += i < b ? c : 0;
+    own += i == b ? c : 0;
+    total += c;
+  };
+  long long i0 = 0;
+  if ((reinterpret_cast<unsigned long long>(bc) & 15) == 0) {
+    i0 = nb & ~3ll;
+    for (long long q = t; 4 * q < i0; q += THREADS) {
+      const int4 c = reinterpret_cast<const int4*>(bc)[q];
+      add(4 * q, c.x);
+      add(4 * q + 1, c.y);
+      add(4 * q + 2, c.z);
+      add(4 * q + 3, c.w);
+    }
+  }
+  for (long long i = i0 + t; i < nb; i += THREADS) add(i, bc[i]);
+  for (int o = 16; o > 0; o >>= 1) {
+    before += __shfl_xor_sync(FULL, before, o);
+    own += __shfl_xor_sync(FULL, own, o);
+    total += __shfl_xor_sync(FULL, total, o);
+  }
+  if ((t & 31) == 0) {
+    s_red[0][t >> 5] = before;
+    s_red[1][t >> 5] = own;
+    s_red[2][t >> 5] = total;
+  }
+  __syncthreads();
+  before = own = total = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    before += s_red[0][w];
+    own += s_red[1][w];
+    total += s_red[2][w];
+  }
+  if (b == 0 && t == 0) {
+    p.header[0] = total;
+    p.header[1] = total > p.k_cap ? 1 : 0;
+  }
+  // the tail, which needs only the total, before the rows: -1 past the
+  // indices written, 0 past each plane's and over the gaps, every block a
+  // share; its stores drain while the block compacts
+  const long long m = total < p.k_cap ? total : p.k_cap;
+  {
+    const long long gt = b * THREADS + t, nt = (long long)gridDim.x * THREADS;
+    unsigned char* out = reinterpret_cast<unsigned char*>(p.header);
+    const long long idx0 = reinterpret_cast<unsigned char*>(p.idx) - out;
+    long long end = p.n_planes > 0
+                        ? static_cast<unsigned char*>(p.dst[0]) - out
+                        : p.out_bytes;
+    fill_tail(out, idx0 + 4 * m, idx0 + 4 * p.k_cap, end, gt, nt);
+    for (int q = 0; q < p.n_planes; ++q) {
+      const long long a = static_cast<unsigned char*>(p.dst[q]) - out +
+                          p.esize[q] * m;
+      end = q + 1 < p.n_planes
+                ? static_cast<unsigned char*>(p.dst[q + 1]) - out
+                : p.out_bytes;
+      fill_tail(out, a, a, end, gt, nt);
+    }
+  }
+  // the block's slots [before, before + limit): uniform over the block
+  const long long room = p.k_cap - before;
+  const int limit = (int)(own < room ? own : room);
+  if (!mine || limit <= 0) return;
+  // bit j of bits[k]: row 128 t + 32 k + j (a packed byte keeps its first
+  // row in bit 7)
+  const unsigned bits[4] = {__brev(__byte_perm(v.x, 0, 0x0123)),
+                            __brev(__byte_perm(v.y, 0, 0x0123)),
+                            __brev(__byte_perm(v.z, 0, 0x0123)),
+                            __brev(__byte_perm(v.w, 0, 0x0123))};
+  const int cnt = __popc(bits[0]) + __popc(bits[1]) + __popc(bits[2]) +
+                  __popc(bits[3]);
+  int all;
+  const int first = block_exclusive_sum(cnt, s_warp, &all);
+  const int row0 = (int)(b * ROWS_PER_BLOCK) + ROWS_PER_THREAD * t;
+  // a window of COMPACT_WINDOW slots at a time (one, unless the block
+  // selects more rows): its rows staged in order, then written out
+  for (int w0 = 0; w0 < limit; w0 += COMPACT_WINDOW) {
+    const int w1 = limit - w0 < COMPACT_WINDOW ? limit : w0 + COMPACT_WINDOW;
+    if (first < w1 && first + cnt > w0) {
+      int pos = first;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        for (unsigned x = bits[k]; x != 0 && pos < w1; x &= x - 1, ++pos)
+          if (pos >= w0) s_rows[pos - w0] = row0 + 32 * k + __ffs(x) - 1;
+      }
+    }
+    __syncthreads();
+    write_slots(p, s_rows, before + w0, w1 - w0);
+    __syncthreads();  // s_rows is the next window's
   }
 }
 
@@ -957,17 +1116,33 @@ int sel_batch_params_bytes() { return (int)sizeof(BatchParams); }
 
 int sel_batch_max_lanes() { return BATCH_MAX_LANES; }
 
-// `out` (out_bytes) holds the header, the indices and the planes'
-// outputs: zeroed here, then the indices set to -1.
-int sel_compact_launch(int device, const CompactParams* p, void* out,
-                       long long out_bytes, void* stream) {
+// one launch writes every byte of the output (p->header .. + out_bytes):
+// a block per mask block, or more where the tail's 16-byte stores want
+// them (8 a thread at most)
+int sel_compact_launch(int device, const CompactParams* p, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((e = cudaMemsetAsync(out, 0, out_bytes, s)) != cudaSuccess) return e;
-  if ((e = cudaMemsetAsync(p->idx, 0xff, 4 * p->k_cap, s)) != cudaSuccess)
-    return e;
-  sel_compact_kernel<<<(unsigned)p->n_blocks, THREADS, 0, s>>>(*p);
+  const unsigned char* out = reinterpret_cast<unsigned char*>(p->header);
+  if (p->n_blocks < 1 || p->k_cap < 1 || p->n_planes < 0 ||
+      p->n_planes > MAX_PLANES)
+    return cudaErrorInvalidValue;
+  // the layout the kernel's tail assumes: 16-byte aligned regions in order
+  bool laid_out = reinterpret_cast<unsigned long long>(out) % 16 == 0 &&
+                  p->out_bytes % 16 == 0 &&
+                  reinterpret_cast<unsigned char*>(p->idx) == out + 16;
+  const unsigned char* end = out + 16 + 4 * p->k_cap;
+  for (int q = 0; q < p->n_planes; ++q) {
+    const unsigned char* d = static_cast<unsigned char*>(p->dst[q]);
+    laid_out = laid_out && (d - out) % 16 == 0 && d >= end &&
+               (p->esize[q] == 1 || p->esize[q] == 4 || p->esize[q] == 8);
+    end = d + p->esize[q] * p->k_cap;
+  }
+  if (!laid_out || end > out + p->out_bytes) return cudaErrorInvalidValue;
+  long long grid = (p->out_bytes + 16 * THREADS * 8 - 1) / (16 * THREADS * 8);
+  if (grid > 2048) grid = 2048;
+  if (grid < p->n_blocks) grid = p->n_blocks;
+  sel_compact_kernel<<<(unsigned)grid, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*p);
   return cudaGetLastError();
 }
 

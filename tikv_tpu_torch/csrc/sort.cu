@@ -22,7 +22,11 @@
 // Digit Radix Sort for GPUs", 2022), per sort:
 //   1. sort_range: one kernel reads every key once, in source order, and
 //      keeps each key's least and greatest image; the host copies those
-//      16 bytes a key and synchronizes once.
+//      16 bytes a key and synchronizes once.  join_build's first kernel,
+//      which writes its keys, also counts the valid rows and keeps their
+//      greatest key, 16 bytes more in the same copy: the wrapper hands
+//      the dictionary's key range on, so its direct index (join.cu) is
+//      launched with no wait of its own.
 //   2. The host (device/sort.py pack_groups) gives key k the width w_k =
 //      bits(greatest - least) and packs consecutive keys, from the least
 //      significant, into one unsigned image sum((img_k - least_k) <<
@@ -95,7 +99,8 @@ struct SortParams {
   int* perm;                   // out: int32[n]
   void* img[2];
   int* tmp;
-  u64* range;                  // per key: least image, ~greatest image
+  u64* range;                  // per key: least image, ~greatest image;
+                               // join_build: 2 words more
   u64* work;
   long long work_words;
 };
@@ -347,25 +352,64 @@ cudaError_t run_groups(const SortParams* p, cudaStream_t s) {
   return cudaSuccess;
 }
 
-cudaError_t run_range(const SortParams* p, cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(p->range, 0xff,
-                                  sizeof(u64) * 2 * p->n_keys, s);
-  if (e != cudaSuccess) return e;
+// range's 2 words a key, and `extra` words after them, set to ~0; then
+// the keys' ranges into them (a kernel queued in between may fold into
+// the extra words)
+cudaError_t clear_range(const SortParams* p, int extra, cudaStream_t s) {
+  return cudaMemsetAsync(p->range, 0xff, sizeof(u64) * (2 * p->n_keys + extra),
+                         s);
+}
+
+cudaError_t launch_range(const SortParams* p, cudaStream_t s) {
   const dim3 grid(grid_of(p->n) < 512 ? grid_of(p->n) : 512, p->n_keys);
   range_kernel<<<grid, THREADS, 0, s>>>(*p);
   return cudaGetLastError();
 }
 
+// skey and nsv; and, into stats, the complement of the valid rows' count
+// and of their greatest key's image (stats starts as ~0 from clear_range's
+// fill: no valid row, and int64.min's image): one block reduction, then
+// one atomic a block for each
 __global__ void __launch_bounds__(THREADS)
     build_prep_kernel(const long long* keys, const unsigned char* valid,
                       long long n_live, long long n, long long* skey,
-                      unsigned char* nsv) {
+                      unsigned char* nsv, u64* stats) {
+  __shared__ long long s_count[THREADS / 32];
+  __shared__ u64 s_nhi[THREADS / 32];
+  long long count = 0;
+  u64 nhi = ~0ull;  // the complement of the greatest valid image so far
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
        i += stride) {
     const bool sv = valid[i] && i < n_live;
-    skey[i] = sv ? keys[i] : 0x7fffffffffffffffll;
+    const long long k = keys[i];
+    skey[i] = sv ? k : 0x7fffffffffffffffll;
     nsv[i] = sv ? 0 : 1;
+    if (sv) {
+      ++count;
+      const u64 nimg = ~((u64)k ^ 0x8000000000000000ull);
+      nhi = nimg < nhi ? nimg : nhi;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    count += __shfl_xor_sync(FULL, count, o);
+  nhi = warp_min(nhi);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_count[warp] = count;
+    s_nhi[warp] = nhi;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    count = lane < THREADS / 32 ? s_count[lane] : 0;
+    nhi = lane < THREADS / 32 ? s_nhi[lane] : ~0ull;
+    for (int o = 16; o > 0; o >>= 1)
+      count += __shfl_xor_sync(FULL, count, o);
+    nhi = warp_min(nhi);
+    if (lane == 0 && count != 0) {
+      atomicAdd(&stats[0], (u64)-count);  // ~c - count = ~(c + count)
+      atomicMin(&stats[1], nhi);
+    }
   }
 }
 
@@ -434,7 +478,9 @@ int sort_range_launch(int device, const SortParams* p, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if ((e = check_keys(p)) != cudaSuccess) return e;
-  return run_range(p, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = clear_range(p, 0, s)) != cudaSuccess) return e;
+  return launch_range(p, s);
 }
 
 // the permutation by p's groups (none: the identity)
@@ -446,16 +492,21 @@ int sort_groups_launch(int device, const SortParams* p, void* stream) {
 }
 
 // join_build, before its sort: skey and nsv, and their ranges; `p` sorts
-// by (skey, nsv) and names them as its keys
+// by (skey, nsv) and names them as its keys.  p->range holds 2 more words:
+// the complements of the valid rows' count and of their greatest key's
+// image (the least valid key is the least skey, the first word), so the
+// wrapper's one read of the range gives the dictionary's key range too
 int join_build_prep_launch(int device, const SortParams* p,
                            const BuildParams* b, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if ((e = check_keys(p)) != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = clear_range(p, 2, s)) != cudaSuccess) return e;
   build_prep_kernel<<<grid_of(p->n), THREADS, 0, s>>>(
-      b->keys, b->valid, b->n_live, p->n, b->skey, b->nsv);
-  return run_range(p, s);
+      b->keys, b->valid, b->n_live, p->n, b->skey, b->nsv,
+      p->range + 2 * p->n_keys);
+  return launch_range(p, s);
 }
 
 // join_build, after its sort: sk and prefix from the permutation

@@ -174,9 +174,10 @@ class DeviceJoiner:
             kv = self._upload(vals.astype(np.int64, copy=False))
             km = self._upload(valid)
             t0 = self._phase("upload", t0)
-            sk, perm, prefix = srt.join_build(kv, km, len(vals))
-            # the direct index of dense keys (waits for the dictionary)
-            index = jp.join_index(sk, prefix)
+            sk, perm, prefix, keys = srt.join_build(kv, km, len(vals))
+            # the direct index of dense keys: its route and span come from
+            # the build's one wait, so it queues behind the build
+            index = jp.join_index(sk, prefix, keys)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             ent = bents[bkey] = {"sk": sk, "perm": perm, "prefix": prefix,

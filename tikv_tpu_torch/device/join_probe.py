@@ -10,10 +10,13 @@ build row) in probe order then build order, -1 past the total; ``total``
 a 0-d int64 tensor, exact even when it exceeds ``k_cap``: the caller then
 runs again with a larger capacity).
 
-``join_index(sk, prefix)`` → a ``JoinIndex`` (the direct index of a
-dictionary whose valid keys are dense: ``index_span``) or None.  Given
-one, ``join_probe`` reads each key's run from two adjacent table entries
-(the dense route); without, it searches ``sk`` once (the sparse route).
+``join_index(sk, prefix, keys)`` → a ``JoinIndex`` (the direct index of
+a dictionary whose valid keys are dense: ``index_span``) or None.  It
+takes the dictionary's ``sort.BuildKeys`` (``join_build`` reads them in
+its one wait for the card), so on the card it launches at once: no host
+read, no torch op before the kernel.  Given an index, ``join_probe``
+reads each key's run from two adjacent table entries (the dense route);
+without, it searches ``sk`` once (the sparse route).
 
 The wrappers take the plain versions only for tensors on the CPU; on a
 CUDA tensor they launch their kernels or raise.  ``launches`` and
@@ -28,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .build import check_vector, load_checked, raise_on
+from .sort import build_keys_plain
 
 # kernel launches since import (the chip smoke resets them around a run)
 launches = 0
@@ -60,18 +64,17 @@ def index_span(n_valid: int, lo: int, hi: int) -> Optional[int]:
     return span
 
 
-def join_index_plain(sk, prefix) -> Optional[JoinIndex]:
+def join_index_plain(sk, prefix, keys=None) -> Optional[JoinIndex]:
     """``join_index`` in torch: ``searchsorted`` of every key of the span
-    into the valid keys (the first ``prefix[-1]`` sorted rows)."""
-    nv = int(prefix[-1])
-    if nv < 1:
-        return None
-    lo, hi = int(sk[0]), int(sk[nv - 1])
+    into the valid keys (the first ``n_valid`` sorted rows).  ``keys``:
+    the dictionary's ``BuildKeys``, read from ``sk`` and ``prefix`` when
+    None."""
+    nv, lo, hi = build_keys_plain(sk, prefix) if keys is None else keys
     span = index_span(nv, lo, hi)
     if span is None:
         return None
-    keys = torch.arange(span + 1, dtype=torch.int64, device=sk.device) + lo
-    off = torch.searchsorted(sk[:nv], keys, right=False)
+    want = torch.arange(span + 1, dtype=torch.int64, device=sk.device) + lo
+    off = torch.searchsorted(sk[:nv], want, right=False)
     return JoinIndex(off.to(torch.int32), lo, span)
 
 
@@ -165,23 +168,22 @@ def _check_dictionary(sk, perm, prefix) -> int:
     return nb
 
 
-def join_index(sk: torch.Tensor, prefix: torch.Tensor) -> Optional[JoinIndex]:
-    """The direct index of the build dictionary (``sk``, ``prefix`` of
-    ``sort.join_build``) when its valid keys are dense (``index_span``),
-    else None.  Reads three numbers back (the valid count and the least
-    and greatest valid key), so it waits for the dictionary."""
+def join_index(sk: torch.Tensor, prefix: torch.Tensor,
+               keys) -> Optional[JoinIndex]:
+    """The direct index of the build dictionary (``sk``, ``prefix`` and
+    ``keys``, the host's ``BuildKeys``, of ``sort.join_build``) when its
+    valid keys are dense (``index_span``), else None; not synchronized.
+    The route comes from ``keys`` alone: nothing is read back."""
     global index_launches
     nb = _check_dictionary(sk, None, prefix)
+    nv, lo, hi = keys
+    if not 0 <= nv <= nb:
+        raise ValueError(f"join_index: {nv} valid keys of {nb} rows")
     dev = sk.device
     if dev.type == "cpu":
-        return join_index_plain(sk, prefix)
+        return join_index_plain(sk, prefix, keys)
     if dev.type != "cuda":
         raise ValueError(f"join_index runs on cuda or cpu, not {dev}")
-    if nb == 0:
-        return None
-    nv_t = prefix[-1:]
-    nv, lo, hi = torch.cat([nv_t, sk[:1], sk.gather(
-        0, (nv_t - 1).clamp(min=0))]).tolist()
     span = index_span(nv, lo, hi)
     if span is None:
         return None

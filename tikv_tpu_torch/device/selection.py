@@ -753,12 +753,14 @@ class _BatchParams(ctypes.Structure):
 
 
 class _CompactParams(ctypes.Structure):
+    """``struct CompactParams`` of csrc/selection.cu."""
     _fields_ = [("packed", ctypes.c_void_p),
                 ("block_counts", ctypes.c_void_p),
                 ("n_blocks", ctypes.c_longlong),
                 ("k_cap", ctypes.c_longlong),
                 ("idx", ctypes.c_void_p),
                 ("header", ctypes.c_void_p),
+                ("out_bytes", ctypes.c_longlong),
                 ("n_planes", ctypes.c_int),
                 ("esize", ctypes.c_int * MAX_PLANES),
                 ("src", ctypes.c_void_p * MAX_PLANES),
@@ -777,7 +779,7 @@ def _kernel_lib():
         lib.sel_mask_launch.argtypes = [i, p, ll, i, p, p, p, p]
         lib.sel_mask_launch.restype = i
         lib.sel_compact_launch.argtypes = [i, ctypes.POINTER(_CompactParams),
-                                           p, ll, p]
+                                           p]
         lib.sel_compact_launch.restype = i
         lib.sel_pred_launch.argtypes = [i, ctypes.POINTER(_PredParams), i,
                                         i, ll, p]
@@ -1224,14 +1226,14 @@ def _sel_compact_cuda(mask: MaskOut, k_cap, planes) -> CompactOut:
     p = _CompactParams(packed=mask.buf.data_ptr() + HEADER,
                        block_counts=mask.block_counts.data_ptr(),
                        n_blocks=n_blocks(mask.n), k_cap=k_cap,
-                       idx=base + HEADER, header=base, n_planes=len(planes))
+                       idx=base + HEADER, header=base, out_bytes=total,
+                       n_planes=len(planes))
     p.esize[:len(planes)] = esizes
     p.src[:len(planes)] = [t.data_ptr() for t in planes]
     p.dst[:len(planes)] = [base + o for o in offsets]
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(lib, lib.sel_compact_launch(
-        _dev_index(dev), ctypes.byref(p), base, total, stream),
-        "sel_compact launch")
+        _dev_index(dev), ctypes.byref(p), stream), "sel_compact launch")
     compact_launches += 1
     return CompactOut(buf, k_cap, dtypes, offsets)
 
@@ -1241,7 +1243,9 @@ def sel_compact(mask: MaskOut, k_cap: int,
     """The first ``k_cap`` selected rows of ``mask`` (a ``sel_mask``
     output) as ascending int32 indices with ``-1`` fill, the count and an
     overflow flag, and each of ``planes`` (1-D, ≥ n rows) gathered at
-    those indices (the compact route) → ``CompactOut``."""
+    those indices (the compact route) → ``CompactOut``.  On the card one
+    launch writes every byte of ``buf`` (the alignment gaps are 0), as
+    ``sel_compact_plain`` does."""
     if k_cap <= 0 or len(planes) > MAX_PLANES:
         raise ValueError(f"sel_compact: k_cap={k_cap}, {len(planes)} "
                          f"planes (at most {MAX_PLANES})")

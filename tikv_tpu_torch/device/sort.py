@@ -9,14 +9,17 @@ and ``_build_kernel`` (:257):
   significant), stable: composed stable argsorts, last key first;
 - ``join_build(keys, valid, n_live)``: the build side of a device join —
   rows ordered by (key, not valid, position), a NULL key or a row at or
-  past ``n_live`` sentineled to int64.max → (``sk`` int64[n], ``perm``
-  int32[n], ``prefix`` int64[n + 1], the running count of valid rows in
-  that order).
+  past ``n_live`` sentineled to int64.max → a ``Dictionary``: ``sk``
+  int64[n], ``perm`` int32[n], ``prefix`` int64[n + 1] (the running count
+  of valid rows in that order) and, on the host, ``keys`` (``BuildKeys``:
+  the valid rows' count and their least and greatest key, which
+  ``join_probe.join_index`` takes).
 
 Keys compare by their order image (``order_image``): an int64 as itself; a
 float64 with -0.0 equal to +0.0 and every NaN after +inf, as numpy and jnp
 sort them.  On the card a sort reads every key's range of images in one
-kernel and waits once for it (16 bytes a key); ``pack_groups`` then packs
+kernel and waits once for it (16 bytes a key; ``join_build`` reads its
+``BuildKeys`` in the same wait); ``pack_groups`` then packs
 consecutive keys, from the least significant, into as few unsigned images
 of at most 64 bits as their widths allow, and the kernels sort each packed
 image by 8-bit digits (``sort_perm_packed_plain`` is the same grouping in
@@ -29,7 +32,7 @@ calls that launched the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -46,8 +49,35 @@ TILE32 = 4096       # rows of a pass tile, images of at most 32 bits
 TILE64 = 2048       # the same, wider images
 BUILD_TILE = 4096   # rows of join_build's gather and prefix tiles
 _I64_MAX = (1 << 63) - 1
+_I64_MIN = -1 << 63
 _U64 = (1 << 64) - 1
 _KINDS = {torch.int64: 0, torch.float64: 1, torch.uint8: 2, torch.bool: 2}
+
+
+class BuildKeys(NamedTuple):
+    """The valid keys of a build dictionary: their count, the least and
+    the greatest (int64.max and int64.min when there is none)."""
+    n_valid: int
+    lo: int
+    hi: int
+
+
+class Dictionary(NamedTuple):
+    """``join_build``'s output: ``sk``, ``perm`` and ``prefix`` on the
+    keys' device, ``keys`` on the host."""
+    sk: torch.Tensor
+    perm: torch.Tensor
+    prefix: torch.Tensor
+    keys: BuildKeys
+
+
+def build_keys_plain(sk: torch.Tensor, prefix: torch.Tensor) -> BuildKeys:
+    """The ``BuildKeys`` of a dictionary, read from its tensors: the
+    valid rows come first in ``sk``, so they are ``sk[:prefix[-1]]``."""
+    nv = int(prefix[-1])
+    if nv < 1:
+        return BuildKeys(0, _I64_MAX, _I64_MIN)
+    return BuildKeys(nv, int(sk[0]), int(sk[nv - 1]))
 
 
 def key_width(lo: int, hi: int) -> int:
@@ -154,7 +184,11 @@ def join_build_plain(keys: torch.Tensor, valid: torch.Tensor,
     perm = perm0[_argsort(skey[perm0])]
     prefix = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)
     prefix[1:] = torch.cumsum(sv[perm].to(torch.int64), 0)
-    return skey[perm], perm.to(torch.int32), prefix
+    # the keys as the prep kernel reduces them: from the rows, unsorted
+    nv = int(sv.sum())
+    found = BuildKeys(nv, int(skey.min()), int(keys[sv].max())) if nv \
+        else BuildKeys(0, _I64_MAX, _I64_MIN)
+    return Dictionary(skey[perm], perm.to(torch.int32), prefix, found)
 
 
 class _SortParams(ctypes.Structure):
@@ -221,10 +255,11 @@ def _launch(lib, fn: str, at: tuple, *args) -> None:
 
 
 def _sort_on_card(lib, p: _SortParams, perm: torch.Tensor, keep: list,
-                  at: tuple) -> None:
+                  at: tuple) -> list:
     """The rest of a sort whose ranges ``sort_range_launch`` (or
     ``join_build_prep_launch``) queued into ``p.range``: wait for them
-    (the one synchronization), group the keys, launch the passes.  The
+    (the one synchronization), group the keys, launch the passes; → the
+    range buffer's words as read.  The
     scratch goes into ``keep``, which must stay referenced until the
     launches are queued.  What does not depend on the ranges (the buffers
     of a 32-bit image, the common case) is allocated before the wait, so
@@ -252,16 +287,19 @@ def _sort_on_card(lib, p: _SortParams, perm: torch.Tensor, keep: list,
                                            work.data_ptr(), words)
     p.img[0], p.img[1] = img[0].data_ptr(), img[1].data_ptr()
     _launch(lib, "sort_groups_launch", at, ctypes.byref(p))
+    return got
 
 
 def _where(dev: torch.device) -> tuple:
     return _dev_index(dev), torch.cuda.current_stream(dev).cuda_stream
 
 
-def _range_params(n: int, keys: Sequence[torch.Tensor]) -> tuple:
-    """(parameters naming ``keys``, [the range buffer])."""
+def _range_params(n: int, keys: Sequence[torch.Tensor],
+                  extra: int = 0) -> tuple:
+    """(parameters naming ``keys``, [the range buffer: 2 words a key and
+    ``extra`` more])."""
     dev = keys[0].device
-    rng = torch.empty(2 * len(keys), dtype=torch.int64, device=dev)
+    rng = torch.empty(2 * len(keys) + extra, dtype=torch.int64, device=dev)
     p = _SortParams(n=n, n_keys=len(keys), range=rng.data_ptr())
     p.keys[:len(keys)] = [k.data_ptr() for k in keys]
     p.kinds[:len(keys)] = [_KINDS[k.dtype] for k in keys]
@@ -301,10 +339,11 @@ def sort_perm(keys: Sequence[torch.Tensor], n: int) -> torch.Tensor:
 
 
 def join_build(keys: torch.Tensor, valid: torch.Tensor,
-               n_live: int) -> tuple:
+               n_live: int) -> Dictionary:
     """The sorted build dictionary of ``keys`` (int64[n]) and ``valid``
-    (bool[n]; rows at or past ``n_live`` count as invalid) → (sk
-    int64[n], perm int32[n], prefix int64[n + 1])."""
+    (bool[n]; rows at or past ``n_live`` count as invalid) → a
+    ``Dictionary`` (sk int64[n], perm int32[n], prefix int64[n + 1]; its
+    ``BuildKeys`` from the sort's one wait for the card)."""
     global build_launches
     n = keys.shape[0] if keys.dim() == 1 else -1
     _check_n(n, "join_build")
@@ -319,7 +358,7 @@ def join_build(keys: torch.Tensor, valid: torch.Tensor,
     sk = torch.empty(n, dtype=torch.int64, device=dev)
     prefix = torch.zeros(n + 1, dtype=torch.int64, device=dev)
     if n == 0:
-        return sk, perm, prefix
+        return Dictionary(sk, perm, prefix, BuildKeys(0, _I64_MAX, _I64_MIN))
     lib = _kernel_lib()
     skey = torch.empty(n, dtype=torch.int64, device=dev)
     nsv = torch.empty(n, dtype=torch.uint8, device=dev)
@@ -329,13 +368,19 @@ def join_build(keys: torch.Tensor, valid: torch.Tensor,
                      n_live=int(n_live), skey=skey.data_ptr(),
                      nsv=nsv.data_ptr(), sk=sk.data_ptr(),
                      prefix=prefix.data_ptr(), tile_sums=sums.data_ptr())
-    # (skey, nsv): the sentineled key, then "not valid"
-    p, keep = _range_params(n, [skey, nsv])
+    # (skey, nsv): the sentineled key, then "not valid"; two words more:
+    # the complements of the valid count and of the greatest valid image
+    p, keep = _range_params(n, [skey, nsv], extra=2)
     at = _where(dev)
     _launch(lib, "join_build_prep_launch", at, ctypes.byref(p),
             ctypes.byref(b))
-    _sort_on_card(lib, p, perm, keep, at)
+    got = _sort_on_card(lib, p, perm, keep, at)
     _launch(lib, "join_build_finish_launch", at, ctypes.byref(p),
             ctypes.byref(b))
     build_launches += 1
-    return sk, perm, prefix
+    # an image is the key + 2^63; the least skey is the least valid key
+    nv = ~got[4]
+    found = BuildKeys(nv, (got[0] & _U64) + _I64_MIN,
+                      (~got[5] & _U64) + _I64_MIN) if nv else \
+        BuildKeys(0, _I64_MAX, _I64_MIN)
+    return Dictionary(sk, perm, prefix, found)
