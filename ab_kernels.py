@@ -1,6 +1,6 @@
-"""Time ``sel_compact`` and ``join_index`` at their main path's shapes in
-the checkout this runs from, for an A/B comparison of two checkouts on
-one card.
+"""Time ``shard_psum``, ``shard_bucket_merge`` and the row patch at their
+main path's shapes in the checkout this runs from, for an A/B comparison
+of two checkouts on one card.
 
 Run it from the root of each checkout in one session on the card,
 alternating (A, B, B, A), so both see the same card and host:
@@ -9,65 +9,175 @@ alternating (A, B, B, A), so both see the same card and host:
     python3 ab_kernels.py B    # in checkout B
 
 It builds what it launches (``tikv_tpu_torch/_build/``) and prints one
-line, ``AB {json}``: ``sel_compact`` at config 2s's 1% (index mode) and
-0.1% (planes mode, three int32 planes) queued behind a device sleep
-(``chip_smoke.cuda_ms``); ``join_index`` over config 7's build keys (2^20
-distinct keys, all valid) as issued and, where its wrapper does not wait
-for the card, queued; ``join_build`` and ``torch.searchsorted`` of the
-span as issued.  A checkout whose ``join_build`` returns three tensors
-has a ``join_index(sk, prefix)`` that reads its key range back; one that
-returns four hands the key range on as the fourth.  Needs one CUDA card.
+line, ``AB {json}``, of CUDA-event means, queued behind a device sleep
+(``chip_smoke.queued_ms``; at most 50 calls a timing where a call makes
+several device operations, so the queue behind the sleep stays short)
+unless a key says "issued":
+
+- ``shard_psum`` at m4's shape (4 × 2,052 int64 words) and m4n's (4 ×
+  9,217), ``shard_bucket_merge`` at m4x's (4 × a MIN and a MAX row of 1,026
+  words);
+- the chain: four elementwise kernels over a quarter of config 4's rows
+  each (the per-shard kernels' stand-in), then ``shard_psum`` at m4's
+  shape, and the four alone: the psum's marginal time;
+- the patch of one int32 plane, 2 rows with digests; of three planes
+  (int32, int64, bool), 2 rows with digests; of 65,536 rows with and
+  without digests: where the checkout has ``patch_feed_rows`` its public
+  calls (positions on the host, values on the card), else its
+  ``_patch_rows_cuda`` with positions and values on the card (memset and
+  launch: what its public call queues after its own uploads);
+- ``DeviceRunner._patch_plane`` of 2 rows as issued (both checkouts) and
+  queued (where it does not wait for the host);
+- ``patch_rows`` of 65,536 rows with digests as issued (each checkout's
+  uploads of positions from the host included);
+- a spill-shaped patch (9,177 rows of three planes from host values):
+  one ``patch_feed_rows`` call, and three ``patch_rows`` calls, host clock
+  to the card's end, median of 20;
+- the mint's ``patch`` phase (host clock) in ``check_spill``'s spill case,
+  three mints.
+
+Needs one CUDA card.
 """
 
 import json
 import sys
+import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, ".")
 import chip_smoke as cs  # noqa: E402
-from tikv_tpu_torch.device import join_probe as jp  # noqa: E402
-from tikv_tpu_torch.device import selection as sm  # noqa: E402
-from tikv_tpu_torch.device import sort as srt  # noqa: E402
-from tikv_tpu_torch.testing import configs as cf  # noqa: E402
+from tikv_tpu_torch.device import DeviceRunner  # noqa: E402
+from tikv_tpu_torch.device import build  # noqa: E402
+from tikv_tpu_torch.device import digest as dg  # noqa: E402
+from tikv_tpu_torch.device import shard as sh  # noqa: E402
+
+
+def merges(dev, out: dict) -> None:
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def words(S, W):
+        return [torch.randint(-1 << 40, 1 << 40, (W,), generator=g,
+                              device=dev) for _ in range(S)]
+
+    for cell, W in (("m4", 2052), ("m4n", 9217)):
+        parts = words(4, W)
+        res = parts[0].clone()
+        out[f"shard_psum {cell} ms"] = cs.queued_ms(
+            lambda: sh.shard_psum(parts, None, out=res), 200)
+    parts = words(4, 1 + 2 * 1026)
+    segs = [(1, 1026, "min_i64"), (1027, 1026, "max_i64")]
+    res = parts[0].clone()
+    out["shard_bucket_merge m4x ms"] = cs.queued_ms(
+        lambda: sh.shard_bucket_merge(parts, segs, out=res), 200)
+    # the chain: four kernels of a quarter of config 4's rows each
+    rows = torch.randint(0, 1000, (4, 26_214_400), dtype=torch.int32,
+                         device=dev)
+    sink = torch.empty_like(rows)
+    parts = words(4, 2052)
+    res = parts[0].clone()
+
+    def shards():
+        for i in range(4):
+            torch.add(rows[i], 1, out=sink[i])
+
+    def chain():
+        shards()
+        sh.shard_psum(parts, None, out=res)
+
+    got = {"shards": [], "chain": []}
+    for _ in range(3):
+        got["shards"].append(cs.queued_ms(shards, 50))
+        got["chain"].append(cs.queued_ms(chain, 50))
+    med = {k: float(np.median(v)) for k, v in got.items()}
+    out["chain shards ms"] = med["shards"]
+    out["chain ms"] = med["chain"]
+    out["chain psum marginal ms"] = med["chain"] - med["shards"]
+
+
+def patches(dev, out: dict) -> None:
+    new = hasattr(dg, "patch_feed_rows")
+    n = 1 << 24
+    plane = torch.randint(-1 << 30, 1 << 30, (n,), dtype=torch.int32,
+                          device=dev)
+    three = [plane, torch.zeros(n, dtype=torch.int64, device=dev),
+             torch.zeros(n, dtype=torch.bool, device=dev)]
+    pos = np.array([0, n - 1], np.int64)
+    pos_d = torch.from_numpy(pos).to(dev)
+
+    def one(a, p, p_d, v, digest):
+        if new:
+            return dg.patch_rows(a, p, v, digest=digest)
+        return dg._patch_rows_cuda(a, p_d, v, digest)
+
+    v2 = [a[:2].clone() for a in three]
+    out["patch 1 plane 2 rows digests ms"] = cs.queued_ms(
+        lambda: one(plane, pos, pos_d, v2[0], True), 50)
+    if new:
+        out["patch 3 planes 2 rows digests ms"] = cs.queued_ms(
+            lambda: dg.patch_feed_rows(three, pos, v2, [0, 0, 0]), 50)
+    out["patch 3 planes as 3 calls ms"] = cs.queued_ms(
+        lambda: [one(a, pos, pos_d, v, True) for a, v in zip(three, v2)],
+        50)
+    big_d = torch.randperm(n, device=dev)[:1 << 16].sort().values
+    big = big_d.cpu().numpy()
+    vb = plane[big_d].clone()
+    for digest in (True, False):
+        out[f"patch 65536 rows{' digests' if digest else ''} ms"] = \
+            cs.queued_ms(lambda: one(plane, big, big_d, vb, digest), 50)
+    # the public call as issued: positions from the host, each checkout's
+    # own uploads included
+    out["patch_rows 65536 rows digests issued ms"] = cs.cuda_ms(
+        lambda: dg.patch_rows(plane, big, vb, digest=True), 20)
+    # a spill-shaped patch of three planes from host values (9,177 rows,
+    # the check_spill case): host clock a call, synchronized, median of 20
+    rows = np.sort(np.random.default_rng(3).choice(n, 9177, replace=False))
+    cells = [np.random.default_rng(4).integers(0, 1000, 9177).astype(
+        np.int32), np.ones(9177, np.int32), np.ones(9177, np.bool_)]
+    spill = [plane, plane.clone(), three[2]]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    if new:
+        out["spill patch 3 planes host ms"] = host_ms(
+            lambda: dg.patch_feed_rows(spill, rows, cells))
+    out["spill patch as 3 calls host ms"] = host_ms(lambda: [
+        dg.patch_rows(a, rows, torch.from_numpy(c))
+        for a, c in zip(spill, cells)])
+    runner = DeviceRunner()
+    feed = {"flat": (plane,), "digests": (12345,)}
+    ends = plane[[0, n - 1]].clone()
+    out["_patch_plane issued ms"] = cs.cuda_ms(
+        lambda: runner._patch_plane(feed, 0, [0, n - 1], ends), 50)
+    if new:
+        out["_patch_plane ms"] = cs.queued_ms(
+            lambda: runner._patch_plane(feed, 0, [0, n - 1], ends), 50)
+    phases = []
+    for _ in range(3):
+        cs.check_spill(runner, dev)
+        phases.append(runner.mvcc_resolver().phases_ms["patch"])
+    out["mint patch phase host ms"] = phases
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("ab_kernels: CUDA is not available", file=sys.stderr)
         return 2
+    for name in ("shard_merge", "digest", "mvcc"):
+        build.build(name)
     dev = torch.device("cuda", 0)
     out = {"checkout": sys.argv[1] if len(sys.argv) > 1 else "."}
-    _table, snap = cf.build_table(cs.SWEEP_ROWS)
-    n = cs.SWEEP_ROWS
-    planes = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
-        snap.handles, snap.columns[2].values, snap.columns[3].values)]
-    v = planes[2]
-    for point, here in (("1%", []), ("0.1%", planes)):
-        pred = v > cf.sweep_threshold(snap, cf.SWEEP[point])
-        mout = sm.sel_mask(pred, n)
-        k = int(mout.count)
-        cap = sm.index_capacity(k * 1.5 + 64, n)
-        out[f"sel_compact {point} k={k} k_cap={cap} ms"] = cs.cuda_ms(
-            lambda: sm.sel_compact(mout, cap, here), 200, queued=True)
-    nb = 1 << 20
-    g = torch.Generator(device=dev).manual_seed(7)
-    bk = torch.randperm(nb, device=dev, generator=g)
-    bvalid = torch.ones(nb, dtype=torch.bool, device=dev)
-    built = srt.join_build(bk, bvalid, nb)
-    args = (built[0], built[2]) + tuple(built[3:])
-    assert jp.join_index(*args) is not None
-    out["join_index issued ms"] = cs.cuda_ms(lambda: jp.join_index(*args),
-                                             50)
-    if len(built) > 3:
-        out["join_index queued ms"] = cs.cuda_ms(
-            lambda: jp.join_index(*args), 50, queued=True)
-    out["join_build issued ms"] = cs.cuda_ms(
-        lambda: srt.join_build(bk, bvalid, nb), 20)
-    sk = built[0]
-    out["searchsorted issued ms"] = cs.cuda_ms(lambda: torch.searchsorted(
-        sk, torch.arange(nb + 1, device=dev)), 20)
+    merges(dev, out)
+    patches(dev, out)
     print("AB " + json.dumps(out), flush=True)
     return 0
 

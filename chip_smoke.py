@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. build the CUDA kernels from ``tikv_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together; timed, with the ptxas report and the shared
    atomics in ``hash_agg``'s and ``agg_fold``'s SASS — none a float64
-   compare-and-swap loop in ``agg_fold``'s integer shared route);
+   compare-and-swap loop in ``agg_fold``'s integer shared route — and, in
+   ``psum_kernel<4>``'s, the four sources' 16-byte loads all issued before
+   the float64 pair path's first add);
 3. every kernel against its plain PyTorch version on the card over the
    edge cases of the CPU tests: ``hash_agg`` exactly (integer states) in
    both cell formats, at 2^24 rows, on one hot slot over 2^24 rows at the
@@ -114,7 +116,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    plain versions over every feed dtype (and int8, int16), the digest
    over full and partial ranges of planes 0-7 elements off a 16-byte
    boundary up to 2^24 + 3 rows, the patch at 1, 1000 and 65,536 rows
-   with and without digests; ``mvcc_resolve`` against its plain version
+   with and without digests; ``patch_feed_rows`` (every feed dtype at
+   once, and int32 + int64 + bool; 1 to 65,536 rows, one block a plane and
+   several; host and card values; recorded digests by value and by
+   address; 120 planes) in one launch a call; ``mvcc_resolve`` against its
+   plain version
    over the CPU tests' histories (deletes, rollbacks, locks, versions
    above read_ts, NULLs, INT, REAL and unsigned columns, every key
    deleted, an empty result, two versions of a key at one commit_ts, a
@@ -122,16 +128,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    each, tiles at the kernel's shared budget of versions and one past
    it), a schema of 100 output planes, 2^20 keys, and the same planes
    resident in padded ``DeviceVersionPlanes`` buffers — all bit for bit; a mint
-   with CF_DEFAULT spill rows (``patch_rows`` in the mint) against the
-   upload of its host mirror; then configs 6c (10·2^20 keys, one PUT a
+   with CF_DEFAULT spill rows (one ``patch_feed_rows`` launch in the
+   mint) against the upload of its host mirror; then configs 6c (10·2^20 keys, one PUT a
    key) and 4h (100·2^20 keys, a chosen version mix at about 1.15
    versions a key; ``tikv_tpu_torch/testing/mvcc.py``) through
    ``build_region_columnar_device`` and ``DeviceRunner().handle_request``:
    cold + 5 warm requests from a feed minted by ``mvcc_resolve``
    (``feed_routes`` {device_resolve: 1}), each answer against the
    generator's truth, then the scrub — clean, kept clean by a
-   ``_patch_plane`` and its undo, and naming the plane
-   ``corrupt_resident_plane`` flipped — with the kernels' launch counts
+   ``_patch_plane`` and its undo (each one launch, bit-equal to the plain
+   version on a copy, R' included), and naming the plane
+   ``corrupt_resident_plane`` flipped (one launch) — with the kernels'
+   launch counts
    read around that main path (``mvcc_resolve``, ``plane_digest`` and
    ``patch_rows`` must each launch); then two rounds of the device,
    upload and resident routes (the planes in ``DeviceVersionPlanes``,
@@ -139,7 +147,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    route a fresh snapshot by ``build_region_columnar_device``, every feed
    bit-equal to the main path's and that one to the plain version; cold
    ms by phase for each route in each round; and the three kernels timed
-   at this shape beside their bounds, plain versions and yardsticks;
+   at this shape beside their bounds, plain versions and yardsticks
+   (``patch_rows``: 2 rows with digests, 65,536 rows with and without,
+   three planes in one launch beside three calls, ``_patch_plane`` end to
+   end queued and as issued);
 10. the plan IR: ``sort_perm`` and ``join_build`` (``csrc/sort.cu``),
    ``join_probe`` (``csrc/join.cu``) and ``window_scan``
    (``csrc/window.cu``) against their plain versions, bit for bit: one to
@@ -283,7 +294,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at m4 and m4n the per-shard launches beside the single launch,
    ``shard_psum`` (m4, m4n) and ``shard_bucket_merge`` (m4x) on the
    runner's own arguments beside their bounds, plain versions and a
-   ``torch.stack`` yardstick;
+   ``torch.stack`` yardstick, ``shard_psum`` as issued (host clock) and,
+   at m4, its marginal time in the chain of the four per-shard
+   ``hash_agg`` calls, launched programmatically and not;
 15. the scale-out mesh (cell so8): ``feed_verify`` (``csrc/digest.cu``)
    against its plain version and one ``plane_digest`` a plane, bit for
    bit, over P of 1 to 200 planes (past 96 its descriptors go through a
@@ -328,7 +341,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``split_planes``, with both children under ``configs``; m4 for
    ``shard_psum``, with m4n under ``configs``; m4x for
    ``shard_bucket_merge``; so8's moved selection feed for
-   ``feed_verify``), and the least time the card could take;
+   ``feed_verify``), and the least time the card could take; beside the
+   launch-bound rows the launch floor and the empty kernel with their
+   parameter blocks' sizes (``param_floors``);
 17. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -511,6 +526,9 @@ def build_kernels(defer: tuple = ()) -> None:
     print(f"sass agg_fold integer shared route: shared atomics " + " ".join(
         f"{k}x{v}" for k, v in sorted(ints_only.items())) +
         " (no float64 compare-and-swap loop)", flush=True)
+    order = psum_loads_first(4)
+    assert order["loads_before_add"] >= 4, \
+        f"psum_kernel<4> adds before its sources' loads are issued: {order}"
 
 
 def await_builds() -> None:
@@ -564,6 +582,44 @@ def shared_atomics(name: str) -> dict:
     print(f"sass {name}: shared atomics " + (" ".join(
         f"{k}x{v}" for k, v in sorted(kinds.items())) or "none"), flush=True)
     return per_fn
+
+
+def psum_loads_first(S: int = 4) -> dict:
+    """The order of the global loads and float64 adds on the float64 word
+    pair path of ``psum_kernel<S>``'s SASS (``cuobjdump -sass``): how many
+    16-byte loads are issued back to back before that path's first add
+    (S: every source's load in flight at once) → {"loads_before_add": k,
+    "sequence": run-length opcodes}."""
+    from tikv_tpu_torch.device import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.lib_path("shard_merge"))],
+                          capture_output=True, text=True).stdout
+    ops, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = f"psum_kernelILi{S}E" in line
+            continue
+        if not inside:
+            continue
+        for word in line.replace(";", " ").split():
+            if word.startswith(("LDG", "DADD", "STG")):
+                ops.append(word)
+    runs = []
+    for op in ops:
+        if runs and runs[-1][0] == op:
+            runs[-1][1] += 1
+        else:
+            runs.append([op, 1])
+    # the first add that follows a 16-byte load: the pair path's
+    first = next((i for i in range(1, len(runs))
+                  if runs[i][0].startswith("DADD") and
+                  runs[i - 1][0] == "LDG.E.128"), None)
+    res = {"loads_before_add": 0 if first is None else runs[first - 1][1],
+           "sequence": " ".join(f"{op}x{k}" for op, k in runs)}
+    print(f"sass shard_merge psum_kernel<{S}>: {res['loads_before_add']} "
+          f"16-byte loads issued before the float64 pair path's first add; "
+          f"{res['sequence']}", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2607,6 +2663,30 @@ def launch_floor(dev) -> float:
     return ms
 
 
+def param_floors(dev) -> dict:
+    """The empty kernel (``csrc/floor.cu``) queued with a parameter block
+    of a launch-bound kernel's size: ``shard_psum``'s 256 bytes (S = 4),
+    bare and launched programmatically as the psum is, and its former
+    1,880; ``patch_rows``' classes of 64, 256 and 4,096 → {label: ms}."""
+    from tikv_tpu_torch.device import build
+    lib = build.load_checked("floor", {}, "floor_error_string")
+    lib.floor_params_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+    lib.floor_params_launch.restype = ctypes.c_int
+    out = {}
+    for nbytes, dep in ((256, 0), (256, 1), (1880, 0), (64, 0),
+                        (4096, 0)):
+        def launch():
+            build.raise_on(lib, "floor_error_string", lib.floor_params_launch(
+                dev.index, nbytes, dep,
+                torch.cuda.current_stream(dev).cuda_stream), "floor launch")
+        out[f"{nbytes} B" + (" programmatic" if dep else "")] = cuda_ms(
+            launch, 200, queued=True)
+    print("launch floor with parameters (ms, queued): " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def selection_at_main_shapes(dev, floor_ms: float) -> tuple:
     """sel_pred and sel_mask at config 2 and sel_compact at config 2s's 1%
     (index mode) and 0.1% (planes mode), exact against their plain versions
@@ -2803,8 +2883,9 @@ def check_digest(dev) -> tuple:
     card, on every feed dtype (and int8, int16): the digest over full and
     partial ranges of planes 0-7 elements off a 16-byte boundary, ragged
     and 2^24 + 3 rows long; patch_rows with and without digests at 1, 1000
-    and 65,536 positions → (worst digest distance, worst patch: elements
-    that differ or a digest distance)."""
+    and 65,536 positions; then ``patch_feed_rows`` (``check_patch_feed``)
+    → (worst digest distance, worst patch: elements that differ or a
+    digest distance)."""
     from tikv_tpu_torch.device import digest as dg
     gen = torch.Generator().manual_seed(17)
     worst_d = worst_p = 0
@@ -2838,8 +2919,76 @@ def check_digest(dev) -> tuple:
           f"offsets, 4 ranges: worst digest distance {worst_d}", flush=True)
     print(f"check patch_rows: {len(FEED_DTYPES)} dtypes, m 1 / 1000 / "
           f"65536, with and without digests: worst {worst_p}", flush=True)
+    worst_p = max(worst_p, check_patch_feed(dev))
     assert worst_d == 0 and worst_p == 0, "digest kernels disagree"
     return worst_d, worst_p
+
+
+def patch_err(planes, want_planes, got, want) -> int:
+    """0 when every plane equals its plain twin bit for bit and the (P, 3)
+    digests agree, else the planes that differ or the worst digest
+    distance."""
+    bad = sum(not same_bits(a, b) for a, b in zip(planes, want_planes))
+    if (got is None) != (want is None):
+        return max(bad, 1)
+    if got is not None:
+        bad = max(bad, max(digest_err(g, w) for g, w in zip(
+            got.reshape(-1).tolist(), want.reshape(-1).tolist())))
+    return bad
+
+
+def check_patch_feed(dev) -> int:
+    """``patch_feed_rows`` against its plain version on the card, bit for
+    bit: every feed dtype together (P = 7, a bool validity plane among
+    them) and three planes (int32, int64, bool), at 1, 2, 257, 1024, 1025
+    and 65,536 rows, with digests (recorded digests by value and, for
+    every other plane, the last call's R' by address) and without; values
+    from the host and values on the card; planes of unequal length and 0-7
+    elements off a 16-byte boundary; P = 120 planes of 2 rows (their
+    descriptors past the parameter block) → the worst difference (0).
+    Every call is one launch (the patch counter)."""
+    from tikv_tpu_torch.device import digest as dg
+    gen = torch.Generator().manual_seed(19)
+    rng = np.random.default_rng(19)
+    worst = n_cases = 0
+    three = (torch.int32, torch.int64, torch.bool)
+    for dtypes, m, digest, on_card in itertools.product(
+            (FEED_DTYPES, three), (1, 2, 257, 1024, 1025, 1 << 16),
+            (True, False), (False, True)):
+        n = (1 << 17) + 5
+        planes = [random_plane(dt, n + 8 + i, gen, dev)[i % 8:i % 8 + n - i]
+                  for i, dt in enumerate(dtypes)]
+        pos = rng.choice(n - len(dtypes), m, replace=False)
+        vals = [random_plane(dt, m, gen, dev) for dt in dtypes]
+        if not on_card:
+            vals = [v.cpu() for v in vals]
+        recs = None
+        if digest:
+            recs = [int(rng.integers(0, 1 << 62)) for _ in dtypes]
+            prev = torch.tensor([[1, 2, 3]], dtype=torch.int64, device=dev)
+            recs = [prev[0, 2] if i % 2 else r for i, r in enumerate(recs)]
+        want_planes = [a.clone() for a in planes]
+        want = dg.patch_feed_rows_plain(
+            want_planes, torch.from_numpy(pos).to(dev),
+            [v.to(dev) for v in vals], recs)
+        before = dg.patch_launches
+        got = dg.patch_feed_rows(planes, pos, vals, recs)
+        worst = max(worst, patch_err(planes, want_planes, got, want),
+                    int(dg.patch_launches - before != 1))
+        n_cases += 1
+    planes = [random_plane(torch.int32, 4096, gen, dev) for _ in range(120)]
+    vals = [random_plane(torch.int32, 2, gen, dev) for _ in range(120)]
+    want_planes = [a.clone() for a in planes]
+    recs = list(range(120))
+    want = dg.patch_feed_rows_plain(want_planes, torch.tensor(
+        [7, 4000], device=dev), vals, recs)
+    got = dg.patch_feed_rows(planes, [7, 4000], vals, recs)
+    worst = max(worst, patch_err(planes, want_planes, got, want))
+    torch.cuda.synchronize()
+    print(f"check patch_feed_rows: {n_cases + 1} cases (P 3, 7 and 120; m "
+          f"1 to 65536; host and card values; digests by value and by "
+          f"address): worst {worst}", flush=True)
+    return worst
 
 
 def full_spec(planes, dev) -> tuple:
@@ -3043,6 +3192,7 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     from tikv_tpu_torch.copr.region_cache import (MvccColumnarSnapshot,
                                                   build_region_columnar_device)
     from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device import digest as dg
     from tikv_tpu_torch.device import mvcc as pm
     from tikv_tpu_torch.testing import configs as cf
     from tikv_tpu_torch.testing import mvcc as tm
@@ -3099,15 +3249,18 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     assert runner.scrub_feed(feed) == [], f"{config}: scrub not clean"
     plane0 = feed["flat"][0]
     old = plane0[[0, n - 1]].clone()
-    runner._patch_plane(feed, 0, [0, n - 1], old + 1)
+    patched = scrub_patch(runner, feed, [0, n - 1], old + 1)
     assert runner.scrub_feed(feed) == [], f"{config}: patch broke a digest"
-    runner._patch_plane(feed, 0, [0, n - 1], old)
+    patched += scrub_patch(runner, feed, [0, n - 1], old)
     victim = len(feed["flat"]) - 1
+    flips = dg.patch_launches
     runner.corrupt_resident_plane(feed, victim)
     named = runner.scrub_feed(feed)
     assert named == [victim], f"{config}: the scrub named {named}"
     runner.corrupt_resident_plane(feed, victim)      # flipped back
+    assert dg.patch_launches - flips == 2, "a corruption is one launch"
     assert runner.scrub_feed(feed) == [], f"{config}: not restored"
+    assert patched == 0, f"{config}: a scrub patch differs ({patched})"
     launches = counts()
     for name in ("mvcc_resolve", "plane_digest", "patch_rows"):
         assert launches[name] > 0, f"{config} never launched {name}"
@@ -3156,7 +3309,7 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     set_counts(saved)
     assert diff == 0, f"{config}: the minted feed differs ({diff})"
     timing = time_cold_kernels(config, planes, resident["dvp"], used, dtypes,
-                               has_nulls, read_ts, n, feed, dev)
+                               has_nulls, read_ts, n, feed, runner)
     routes = {}
     for route in COLD_ROUNDS[0]:
         runs = [r[route] for r in rounds]
@@ -3180,15 +3333,34 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     return out
 
 
+def scrub_patch(runner, feed: dict, pos, vals) -> int:
+    """``runner._patch_plane(feed, 0, pos, vals)`` against the plain
+    version on a copy of the plane and its recorded digest: the plane bit
+    for bit and R' → 0, or what differs; the patch must be one launch."""
+    from tikv_tpu_torch.device import digest as dg
+    plane = feed["flat"][0]
+    twin = plane.clone()
+    want = dg.patch_feed_rows_plain([twin], torch.tensor(
+        pos, device=plane.device), [vals], [feed["digests"][0]])
+    before = dg.patch_launches
+    runner._patch_plane(feed, 0, pos, vals)
+    assert dg.patch_launches - before == 1, "_patch_plane is one launch"
+    return int(not same_bits(plane, twin)) + digest_err(
+        feed["digests"][0], want[0, 2])
+
+
 def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
-                      read_ts, n, feed, dev) -> dict:
+                      read_ts, n, feed, runner) -> dict:
     """mvcc_resolve on the resident planes of this shape, plane_digest on
     the feed's first plane and patch_rows on a copy of it (the two rows
-    ``_patch_plane`` writes with digests, and 65,536 rows): CUDA events,
-    queued behind a device sleep, beside each bound, plain version and
-    yardstick."""
+    ``_patch_plane`` writes with digests, and 65,536 rows with and without
+    digests; three planes of two rows in one ``patch_feed_rows`` launch,
+    beside three one-plane calls; ``_patch_plane`` end to end): CUDA
+    events, queued behind a device sleep, beside each bound, plain version
+    and yardstick."""
     from tikv_tpu_torch.device import digest as dg
     from tikv_tpu_torch.device import mvcc as pm
+    dev = runner.device
     saved = counts()
     args, _flags, resident = pm.resolve_inputs(planes, dvp, used, dtypes,
                                                has_nulls, dev)
@@ -3225,21 +3397,55 @@ def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
     del bits, w
     plane = p0.clone()
     pt = {}
+    es = plane.element_size()
     for m, digest in ((2, True), (1 << 16, True), (1 << 16, False)):
-        pos = torch.randperm(n, device=dev)[:m].sort().values
-        vals = plane[pos].clone()
-        es = plane.element_size()
-        case = {"ms": cuda_ms(lambda: dg._patch_rows_cuda(plane, pos, vals,
-                                                          digest), 50,
+        pos_d = torch.randperm(n, device=dev)[:m].sort().values
+        pos = pos_d.cpu().numpy()
+        vals = plane[pos_d].clone()
+        case = {"ms": cuda_ms(lambda: dg.patch_rows(plane, pos, vals,
+                                                    digest), 50,
                               queued=True),
                 "plain_ms": cuda_ms(lambda: dg.patch_rows_plain(
-                    plane, pos, vals, digest), 20),
-                "library_ms": cuda_ms(lambda: plane.index_put_((pos,),
+                    plane, pos_d, vals, digest), 20),
+                "library_ms": cuda_ms(lambda: plane.index_put_((pos_d,),
                                                                vals), 50),
                 "library_call": "index_put_ (writes, no digests)",
                 **bound_ms(m * (8 + 2 * es + (es if digest else 0)), 0),
                 "rows": m, "digest": digest}
         pt[f"{m} rows{' with digests' if digest else ''}"] = case
+    # three planes of a feed (int32, int64 and a bool validity plane), the
+    # two rows _patch_plane writes, with digests: one launch, beside three
+    # one-plane calls
+    rows = min(n, 1 << 24)
+    pos = np.array([0, rows - 1], np.int64)
+    three = [plane, torch.zeros(rows, dtype=torch.int64, device=dev),
+             torch.zeros(rows, dtype=torch.bool, device=dev)]
+    v3 = [a[:2].clone() for a in three]
+    recs = [0, 0, 0]
+    w3 = sum(a.element_size() for a in three)
+    pt["3 planes, 2 rows with digests"] = {
+        "ms": cuda_ms(lambda: dg.patch_feed_rows(three, pos, v3, recs), 50,
+                      queued=True),
+        "three_calls_ms": cuda_ms(lambda: [dg.patch_rows(
+            a, pos, v, True) for a, v in zip(three, v3)], 50, queued=True),
+        "plain_ms": cuda_ms(lambda: dg.patch_feed_rows_plain(
+            three, torch.from_numpy(pos).to(dev), v3, recs), 20),
+        "library_ms": cuda_ms(lambda: [a.index_put_((
+            torch.from_numpy(pos).to(dev),), v) for a, v in zip(three, v3)],
+            20),
+        "library_call": "index_put_ a plane (writes, no digests)",
+        **bound_ms(2 * 8 + 2 * 3 * w3, 0), "rows": 2, "planes": 3,
+        "digest": True}
+    # _patch_plane end to end: rows and the recorded digest in one launch
+    f = {"flat": (plane,), "digests": (feed["digests"][0],)}
+    ends = plane[[0, n - 1]].clone()
+    pt["_patch_plane"] = {
+        "ms": cuda_ms(lambda: runner._patch_plane(f, 0, [0, n - 1], ends),
+                      50, queued=True),
+        "issued_ms": cuda_ms(lambda: runner._patch_plane(
+            f, 0, [0, n - 1], ends), 50),
+        "rows": 2, **bound_ms(2 * (8 + 3 * es) + 24, 0)}
+    del three, v3
     t["patch_rows"] = dict(pt["2 rows with digests"], configs=pt)
     set_counts(saved)
     print(f"kernels at cold config {config} shape: " + json.dumps(t),
@@ -5100,10 +5306,13 @@ def shard_merge_cases(dev):
                         S, W, "i64", phases), [(0, W, f"{op}_i64")]
                     yield f"merge {op} f64 {tag}", "merge", sources(
                         S, W, "f64", phases), [(0, W, f"{op}_f64")]
-    # more than MAX_SEGS segments: several launches
+    # past the segments a parameter block holds: a table on the card
     parts = sources(3, 400, "i64", (1,))
     yield "psum 100 segments", "psum", parts, [(4 * i, 4, "sum_i64")
                                                for i in range(100)]
+    parts = sources(5, 400, "f64", (0, 1))
+    yield "merge 9 segments", "merge", parts, [
+        (40 * i + i, 33, ("min_f64", "max_i64")[i % 2]) for i in range(9)]
 
 
 def check_shard_merge(dev) -> int:
@@ -5375,6 +5584,58 @@ def time_merge(label: str, run, plain, parts, segs, library,
     return t
 
 
+def psum_issue(parts, segs) -> dict:
+    """``shard_psum`` as issued: host-clock ms a call over 200 calls (the
+    wrapper's checks, the cached layout, the launch), and the packed
+    parameter block's bytes."""
+    from tikv_tpu_torch.device import shard as sh
+    out = parts[0].clone()
+    sh.shard_psum(parts, segs, out=out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        sh.shard_psum(parts, segs, out=out)
+    torch.cuda.synchronize()
+    lay = sh._layout(parts[0].device, parts, segs, out)
+    return {"issued_host_ms": (time.perf_counter() - t0) * 1e3 / 200,
+            "param_bytes": ctypes.sizeof(lay.args)}
+
+
+def psum_chain(fn, shards, parts, segs, rounds: int = 3) -> dict:
+    """m4's chain: the four per-shard ``hash_agg`` calls, then the psum,
+    queued, launched programmatically (the wrapper's way) and not; minus
+    the four calls alone → the psum's marginal ms either way (medians of
+    ``rounds`` interleaved rounds of 50 chains)."""
+    from tikv_tpu_torch.device import shard as sh
+    saved = counts()
+    out = parts[0].clone()
+
+    def run(dependent):
+        def chain():
+            for a, k in shards:
+                fn(*a, **k)
+            if dependent is not None:
+                sh._launch(parts, segs, out, True, dependent=dependent)
+        return chain
+
+    got = {"shards": [], "programmatic": [], "plain": []}
+    for _ in range(rounds):
+        for label, dep in (("shards", None), ("programmatic", True),
+                           ("plain", False)):
+            got[label].append(cuda_ms(run(dep), 50, queued=True))
+    set_counts(saved)
+    med = {k: float(np.median(v)) for k, v in got.items()}
+    res = {"shards_ms": med["shards"],
+           "chain_ms": med["programmatic"],
+           "chain_plain_launch_ms": med["plain"],
+           "marginal_ms": med["programmatic"] - med["shards"],
+           "marginal_plain_launch_ms": med["plain"] - med["shards"],
+           "runs": got}
+    print("chain m4 (4 hash_agg + shard_psum, queued): " + json.dumps(res),
+          flush=True)
+    return res
+
+
 # mesh cell → the per-shard kernel timed beside the single launch, and the
 # merge timed there
 MESH_TIMED = {"m4": ("hash_agg", "shard_psum"),
@@ -5422,6 +5683,9 @@ def mesh_timing(cell: str, mesh_runner, single, dag, snap) -> dict:
             f"shard_psum at {cell}", sh.shard_psum, sh.shard_psum_plain,
             parts, segs, lambda: torch.stack(parts).sum(0),
             "torch.stack(parts).sum(0) (yardstick)")
+        out["merge"].update(psum_issue(parts, segs))
+        if kernel == "hash_agg":
+            out["merge"]["chain"] = psum_chain(fn, shards, parts, segs)
         return out
     rows = [(op, [p[o:o + n] for p in parts]) for o, n, op in segs]
 
@@ -5989,6 +6253,7 @@ def main() -> int:
     err, two_timing = twolevel_at_main_shapes(runner, dev)
     worst["twolevel"] = max(worst["twolevel"], err)
     floor_ms = launch_floor(dev)
+    floors = param_floors(dev)
     pred_timing, mask_timing, compact_timing = selection_at_main_shapes(
         dev, floor_ms)
     batched_timing = batched_at_main_shape(dev)
@@ -6057,7 +6322,8 @@ def main() -> int:
             **cold["4h"]["timing"][name],
             "configs": {c: r["timing"][name] for c, r in cold.items()}})
         if name == "patch_rows":
-            kernels[-1]["launch_floor_ms"] = floor_ms
+            kernels[-1].update(launch_floor_ms=floor_ms,
+                               floor_params_ms=floors)
     errs, plan_timing = plan_kernels_at_main_shapes(pair, dev)
     del ep, pair
     for name, source, replaces in (
@@ -6103,6 +6369,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst["shard_merge"],
             **mesh_timings[cell]["merge"], "launch_floor_ms": floor_ms,
+            "floor_params_ms": floors,
             "configs": {c: t for c, t in mesh_timings.items()
                         if name != "shard_bucket_merge" or c == cell}})
     kernels.append({

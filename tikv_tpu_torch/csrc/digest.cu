@@ -18,11 +18,14 @@
 //   patch_rows   <- _dus (:1816) and the DeviceMvccResolver's dus
 //                   (device/mvcc.py:514): a slice update at a traced
 //                   offset, there one launch per spill row and plane; here
-//                   m unique positions of one plane in one launch.  With
-//                   digests on, the same pass returns the two range
-//                   digests _patch_plane (:1793) takes around each span
-//                   (over the positions written, before and after), and
-//                   corrupt_resident_plane (:2023) is a one-row patch.
+//                   m unique positions of every plane of a feed that
+//                   shares them in one launch (blockIdx.y the plane).
+//                   With digests on, the same pass returns for each plane
+//                   the two range digests _patch_plane (:1793) takes
+//                   around each span (over the positions written, before
+//                   and after) and the recorded digest updated by its rule
+//                   R' = R - H(old) + H(new); corrupt_resident_plane
+//                   (:2023) is a one-row patch.
 //
 // Bound: bytes.  plane_digest reads the plane once: 4 B x 104,857,600 rows
 // is 0.125 ms at 3.35 TB/s.  Each thread takes 16-byte chunks of the
@@ -42,13 +45,28 @@
 // width) ride in the launch parameters up to PARAM_PLANES planes (3 KiB
 // of the 4 KiB), else in a device table the wrapper copies from pinned
 // memory on the launch stream.
-// patch_rows reads m positions and m values and writes m elements (and
-// reads m old ones when digests are asked for): one thread per position.
+// patch_rows reads m positions and m values of each of P planes and writes
+// m elements of each (and reads m old ones when digests are asked for):
+// kilobytes, so it is bound by its launch.  A call is one device
+// operation where its positions, values, recorded digests and plane
+// descriptors fit a parameter block (up to 4 KB: PatchArgs<N>, N sized to
+// the request), which covers the runner's patches of a few rows; past
+// that the payload is one copy from pinned memory, then the launch.  A
+// plane whose m rows fit one block (PATCH_ROWS) reduces its two digests in
+// that block, one warp-shuffle pass and at most one __syncthreads, and
+// stores them with R' directly: no memset and no atomics.  More rows take
+// several blocks a plane; each stores its partial in the call's own
+// scratch (zeroed by the payload's copy) and the last block of the plane,
+// by a ticket in that scratch, sums them.  The recorded digest R comes
+// from the descriptor or from device memory (the previous patch's R'), so
+// a patch never re-hashes the plane and a corruption already in it is not
+// laundered into the record.
 // Positions must be unique (the wrapper checks): a parallel scatter would
 // not say which of two writes to one row wins.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -201,36 +219,146 @@ __global__ void __launch_bounds__(THREADS)
   block_add(s, out + y);
 }
 
+}  // namespace
+
+// one plane of a patch launch (device/digest.py _PATCH_DESC)
+struct PatchPlane {
+  unsigned char* plane;
+  const unsigned char* vals;  // device values, or null: the payload's
+  const u64* rec;             // the recorded digest on the device, or null
+  u64 rec_value;              // the recorded digest when rec is null
+  long long val_off;          // the values' offset in the payload
+  int width;
+  int pad;
+};
+
+constexpr int PATCH_ROWS = 1024;  // rows a block takes
+
+// The launch parameters of a patch: N payload bytes inline (N = 0: the
+// payload lies in device memory at `table`).  The payload holds the P
+// plane descriptors, then the m positions (int64, at pos_off), then the
+// values of the planes whose values came from the host (at each val_off),
+// then, on the several-blocks-a-plane path, the scratch (at scratch_off:
+// P * gridDim.x partial pairs, then P tickets).
+template <int N>
+struct PatchArgs {
+  unsigned char* table;
+  u64* out;  // (P, 3): H(old), H(new), R - H(old) + H(new); null: none
+  long long m;
+  long long pos_off;
+  long long scratch_off;
+  int rows_per_block;
+  int pad;
+  alignas(16) unsigned char data[N > 0 ? N : 16];
+};
+
+namespace {
+
+__device__ __forceinline__ void store_at(unsigned char* base, int width,
+                                         long long i, u64 v) {
+  switch (width) {
+    case 1:
+      base[i] = (unsigned char)v;
+      break;
+    case 2:
+      reinterpret_cast<unsigned short*>(base)[i] = (unsigned short)v;
+      break;
+    case 4:
+      reinterpret_cast<unsigned*>(base)[i] = (unsigned)v;
+      break;
+    default:
+      reinterpret_cast<u64*>(base)[i] = v;
+  }
+}
+
+// the block's sums of a and b, in thread 0
+__device__ __forceinline__ void pair_sum(u64& a, u64& b) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (blockDim.x <= 32) return;
+  __shared__ u64 pa[THREADS / 32], pb[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    pa[warp] = a;
+    pb[warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    a = warp_sum(lane < nw ? pa[lane] : 0);
+    b = warp_sum(lane < nw ? pb[lane] : 0);
+  }
+}
+
+__device__ __forceinline__ void store_digests(u64* o, const PatchPlane& d,
+                                              u64 h_old, u64 h_new) {
+  const u64 rec = d.rec != nullptr ? *d.rec : d.rec_value;
+  o[0] = h_old;
+  o[1] = h_new;
+  o[2] = rec - h_old + h_new;
+}
+
+template <int N>
 __global__ void __launch_bounds__(THREADS)
-    patch_kernel(unsigned char* plane, int width, const long long* pos,
-                 const unsigned char* vals, long long m, u64* sums) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  u64 d_old = 0, d_new = 0;
-  if (i < m) {
-    const long long p = pos[i];
-    const u64 w = 2 * (u64)p + 1;
-    if (sums != nullptr) d_old = bits_at(plane, width, p) * w;
-    const u64 nv = bits_at(vals, width, i);
-    switch (width) {
-      case 1:
-        plane[p] = (unsigned char)nv;
-        break;
-      case 2:
-        reinterpret_cast<unsigned short*>(plane)[p] = (unsigned short)nv;
-        break;
-      case 4:
-        reinterpret_cast<unsigned*>(plane)[p] = (unsigned)nv;
-        break;
-      default:
-        reinterpret_cast<u64*>(plane)[p] = nv;
-    }
-    d_new = nv * w;
+    patch_kernel(const __grid_constant__ PatchArgs<N> p) {
+  const unsigned char* pay;
+  if constexpr (N > 0)
+    pay = p.data;
+  else
+    pay = p.table;
+  const PatchPlane d = reinterpret_cast<const PatchPlane*>(pay)[blockIdx.y];
+  const long long* pos = reinterpret_cast<const long long*>(pay + p.pos_off);
+  const unsigned char* vals = d.vals != nullptr ? d.vals : pay + d.val_off;
+  const bool sums = p.out != nullptr;
+  const long long r0 = (long long)blockIdx.x * p.rows_per_block;
+  const long long r1 =
+      r0 + p.rows_per_block < p.m ? r0 + p.rows_per_block : p.m;
+  u64 h_old = 0, h_new = 0;
+  for (long long i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+    const long long q = pos[i];
+    const u64 w = 2 * (u64)q + 1;
+    if (sums) h_old += bits_at(d.plane, d.width, q) * w;
+    const u64 nv = bits_at(vals, d.width, i);
+    store_at(d.plane, d.width, q, nv);
+    h_new += nv * w;
   }
-  if (sums != nullptr) {  // the same for every thread of the launch
-    block_add(d_old, sums);
-    __syncthreads();
-    block_add(d_new, sums + 1);
+  if (!sums) return;  // the same for every thread of the launch
+  pair_sum(h_old, h_new);
+  if (threadIdx.x != 0) return;
+  u64* o = p.out + 3 * blockIdx.y;
+  if (gridDim.x == 1) {
+    store_digests(o, d, h_old, h_new);
+    return;
   }
+  // several blocks a plane (device payload only): partials, then the last
+  // block of the plane sums them
+  u64* parts = reinterpret_cast<u64*>(p.table + p.scratch_off);
+  unsigned* tickets =
+      reinterpret_cast<unsigned*>(parts + 2 * (size_t)gridDim.y * gridDim.x);
+  u64* mine = parts + 2 * ((size_t)blockIdx.y * gridDim.x + blockIdx.x);
+  mine[0] = h_old;
+  mine[1] = h_new;
+  __threadfence();
+  if (atomicAdd(tickets + blockIdx.y, 1u) != gridDim.x - 1) return;
+  __threadfence();
+  const volatile u64* row = parts + 2 * (size_t)blockIdx.y * gridDim.x;
+  u64 a = 0, b = 0;
+  for (unsigned j = 0; j < gridDim.x; ++j) {
+    a += row[2 * j];
+    b += row[2 * j + 1];
+  }
+  store_digests(o, d, a, b);
+}
+
+template <int N>
+cudaError_t patch_as(const void* args, int grid_x, int P, int threads,
+                     cudaStream_t s) {
+  PatchArgs<N> p;  // the caller's bytes need not be 16-byte aligned
+  memcpy(&p, args, sizeof(p));
+  if (N > 0 && p.out != nullptr && grid_x > 1) return cudaErrorInvalidValue;
+  if (N == 0 && p.table == nullptr) return cudaErrorInvalidValue;
+  patch_kernel<N><<<dim3((unsigned)grid_x, (unsigned)P), threads, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -345,24 +473,46 @@ int feed_verify_launch(int device, int P, const void* descs,
   return cudaGetLastError();
 }
 
-// `sums` (16 bytes: the old and the new digest) is zeroed here, or null
-// when no digest is asked for; positions are unique and in range.
-int patch_rows_launch(int device, void* plane, int width, const void* pos,
-                      const void* vals, long long m, void* sums,
-                      void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+// the sizes the wrapper lays a patch out by
+int patch_desc_bytes() { return (int)sizeof(PatchPlane); }
+int patch_rows_per_block() { return PATCH_ROWS; }
+int patch_args_size(int n) {
+  switch (n) {
+    case 0:
+      return (int)sizeof(PatchArgs<0>);
+    case 208:
+      return (int)sizeof(PatchArgs<208>);
+    case 976:
+      return (int)sizeof(PatchArgs<976>);
+    case 4048:
+      return (int)sizeof(PatchArgs<4048>);
+    default:
+      return -1;
+  }
+}
+
+// One patch launch: `args` is a PatchArgs<n> of `bytes` bytes (n 0, 208,
+// 976 or 4048), its grid (grid_x, P) and `threads` a block; positions are
+// unique and in range (the wrapper checks).
+int patch_feed_launch(int device, const void* args, int bytes, int grid_x,
+                      int P, int threads, void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
   if (e != cudaSuccess) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sums != nullptr && (e = cudaMemsetAsync(sums, 0, 16, s)) != cudaSuccess)
-    return e;
-  if (width != 1 && width != 2 && width != 4 && width != 8)
+  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return e;
+  if (grid_x < 1 || P < 1 || P > 65535 || threads < 32 ||
+      threads > THREADS || threads % 32 != 0)
     return cudaErrorInvalidValue;
-  const long long blocks = m > 0 ? (m + THREADS - 1) / THREADS : 1;
-  patch_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<unsigned char*>(plane), width,
-      static_cast<const long long*>(pos),
-      static_cast<const unsigned char*>(vals), m, static_cast<u64*>(sums));
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bytes == (int)sizeof(PatchArgs<0>))
+    return patch_as<0>(args, grid_x, P, threads, s);
+  if (bytes == (int)sizeof(PatchArgs<208>))
+    return patch_as<208>(args, grid_x, P, threads, s);
+  if (bytes == (int)sizeof(PatchArgs<976>))
+    return patch_as<976>(args, grid_x, P, threads, s);
+  if (bytes == (int)sizeof(PatchArgs<4048>))
+    return patch_as<4048>(args, grid_x, P, threads, s);
+  return cudaErrorInvalidValue;
 }
 
 const char* digest_error_string(int e) {

@@ -17,26 +17,46 @@
 // psum, and merges the whole (S, slots) MIN/MAX pile there in one launch,
 // so the all-to-all, which would only add copies, has no counterpart.
 //
-// Both kernels read S <= MAX_SRC sources, whose pointers ride the launch
-// parameters, over up to MAX_SEGS segments of words (a segment: its first
-// word, its length and its op; the same offsets in every source and in the
-// output).  Block (x, y) takes segment y; the x blocks stride its words.
+// Both kernels read S <= MAX_SRC sources over segments of words (a
+// segment: its first word, its length and its op; the same offsets in
+// every source and in the output).  Block (x, y) takes segment y; the x
+// blocks stride its words.
 //   shard_psum:         out[w] = src_0[w] + src_1[w] + ... + src_{S-1}[w],
 //                       in shard order, no atomics: int64 words add with
 //                       wraparound (the reference's int64 psum); float64
 //                       words add in that fixed order, so the result is
 //                       deterministic and bit-equal to the plain version
-//                       (shard.shard_psum_plain: acc = acc + part_s).
+//                       (shard.shard_psum_plain: acc = acc + part_s), NaN
+//                       bits included: the first NaN in shard order,
+//                       quieted, as the card's add of (acc, part) gives.
 //   shard_bucket_merge: out[w] = min (or max) over s of src_s[w], int64 or
 //                       float64.  A NaN propagates, as torch.amin/amax and
 //                       jnp.min do: the first NaN in shard order is kept,
 //                       bits and all; among equal values (+0.0 and -0.0)
 //                       the first in shard order is kept.
 // Bound: the launch.  At the main path's shapes a merge moves kilobytes
-// (config 4: 1026 slots, S = 4); a thread takes two words with one 16-byte
-// load a source where every source and the output share one 16-byte phase
-// (the segment's odd leading and trailing words go one at a time), else
-// one word.
+// (config 4: 1026 slots, S = 4), so what is left to cut is the work around
+// the launch and the dependent steps inside it:
+// - the parameter block is sized to the request (MergeArgs<S>): the S
+//   source pointers and up to INLINE_SEGS segments, 256 bytes at S = 4
+//   where one block for every shape took 1,880; more segments ride in a
+//   device table (the wrapper copies it from pinned memory on the launch
+//   stream);
+// - S is a template parameter for 2, 4 and 8 sources: a thread issues
+//   every source's 16-byte load of its word pair before the first add
+//   (the adds keep shard order); other counts take a general path that
+//   loads four sources at a time;
+// - the launch is programmatic (cudaLaunchKernelEx with programmatic
+//   stream serialization): the grid may be scheduled while the kernel
+//   before it on the stream (a shard's hash_agg, twolevel or agg_fold)
+//   drains, and griddepcontrol.wait at the kernel's start holds every
+//   global read and write until that kernel has finished and its writes
+//   are visible (out comes from the caching allocator and may be memory
+//   the kernel before is still reading).  After a copy or a host-side
+//   operation the attribute changes nothing.
+// A thread takes two words with one 16-byte load a source where every
+// source and the output share one 16-byte phase (the segment's odd
+// leading and trailing words go one at a time), else one word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,8 +64,9 @@
 namespace {
 
 constexpr int MAX_SRC = 32;
-constexpr int MAX_SEGS = 80;
+constexpr int INLINE_SEGS = 8;
 constexpr int THREADS = 256;
+constexpr long long QUIET = 1LL << 51;  // a float64 NaN's quiet bit
 
 enum : int {
   OP_SUM_I64 = 0,
@@ -58,16 +79,26 @@ enum : int {
 
 }  // namespace
 
-// the launch parameters (device/shard.py _MergeParams)
-struct MergeParams {
-  const long long* src[MAX_SRC];
+// one segment of words (device/shard.py _Seg)
+struct Seg {
+  long long off;  // its first word
+  long long len;  // its words
+  int op;
+  int pad;
+};
+
+// The launch parameters for S sources (S = 0: the general path, n_src
+// sources in MAX_SRC slots); device/shard.py _args_type builds the same
+// layout.
+template <int S>
+struct MergeArgs {
+  const long long* src[S > 0 ? S : MAX_SRC];
   long long* out;
-  long long seg_off[MAX_SEGS];  // first word of the segment
-  long long seg_len[MAX_SEGS];  // its words
-  int seg_op[MAX_SEGS];
-  int S;
+  const Seg* table;  // null: the segments ride in seg[]
+  Seg seg[INLINE_SEGS];
   int n_segs;
-  int vec;  // 1: sources and output share one 16-byte phase
+  int vec;    // 1: sources and output share one 16-byte phase
+  int n_src;  // S (the general path reads it)
   int pad;
 };
 
@@ -81,33 +112,102 @@ __device__ __forceinline__ long long of_d(double x) {
   return __double_as_longlong(x);
 }
 
-// one word merged over the sources: `a` is source 0's word, `b` source s's
-__device__ __forceinline__ long long fold(int op, long long a, long long b) {
-  switch (op) {
-    case OP_SUM_I64:
-      return (long long)((unsigned long long)a + (unsigned long long)b);
-    case OP_SUM_F64:
-      return of_d(as_d(a) + as_d(b));
-    case OP_MIN_I64:
-      return b < a ? b : a;
-    case OP_MAX_I64:
-      return b > a ? b : a;
-    case OP_MIN_F64: {
-      const double x = as_d(a), y = as_d(b);
-      return (!isnan(x) && (isnan(y) || y < x)) ? b : a;
-    }
-    default: {  // OP_MAX_F64
-      const double x = as_d(a), y = as_d(b);
-      return (!isnan(x) && (isnan(y) || y > x)) ? b : a;
-    }
+// Waits until the grid before this one on the stream has finished and its
+// writes are visible; returns at once when the launch was not
+// programmatic.
+__device__ __forceinline__ void wait_prior_grid() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// one word merged over the sources, OP known at compile time: `a` the
+// running word, `b` source s's
+template <int OP>
+__device__ __forceinline__ long long fold(long long a, long long b) {
+  if constexpr (OP == OP_SUM_I64) {
+    return (long long)((unsigned long long)a + (unsigned long long)b);
+  } else if constexpr (OP == OP_SUM_F64) {
+    // The card's add returns its first operand's NaN, quieted, else its
+    // second's (the plain version's acc + part keeps the running sum's);
+    // the compiler may hand the add its operands in either order, so the
+    // NaN is picked here, in shard order
+    const double x = as_d(a), y = as_d(b);
+    const long long r = of_d(x + y);
+    return isnan(x) ? (a | QUIET) : isnan(y) ? (b | QUIET) : r;
+  } else if constexpr (OP == OP_MIN_I64) {
+    return b < a ? b : a;
+  } else if constexpr (OP == OP_MAX_I64) {
+    return b > a ? b : a;
+  } else if constexpr (OP == OP_MIN_F64) {
+    const double x = as_d(a), y = as_d(b);
+    return (!isnan(x) && (isnan(y) || y < x)) ? b : a;
+  } else {  // OP_MAX_F64
+    const double x = as_d(a), y = as_d(b);
+    return (!isnan(x) && (isnan(y) || y > x)) ? b : a;
   }
 }
 
-// the body of both kernels (the launcher checks each one's ops)
-__device__ __forceinline__ void merge_body(const MergeParams& p) {
-  const int seg = blockIdx.y;
-  const int op = p.seg_op[seg];
-  const long long off = p.seg_off[seg], len = p.seg_len[seg];
+template <int OP>
+__device__ __forceinline__ void fold2(longlong2& acc, const longlong2 v) {
+  acc.x = fold<OP>(acc.x, v.x);
+  acc.y = fold<OP>(acc.y, v.y);
+}
+
+__device__ __forceinline__ longlong2 load2(const long long* p) {
+  return *reinterpret_cast<const longlong2*>(p);
+}
+
+// The word pair at w merged over the sources: every source's load issued
+// before the first fold (S > 0), or four sources at a time (S = 0).
+template <int S, int OP>
+__device__ __forceinline__ longlong2 merge_pair(const MergeArgs<S>& p,
+                                                long long w) {
+  if constexpr (S > 0) {
+    longlong2 v[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = load2(p.src[s] + w);
+    longlong2 acc = v[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) fold2<OP>(acc, v[s]);
+    return acc;
+  } else {
+    longlong2 acc = load2(p.src[0] + w);
+    for (int s0 = 1; s0 < p.n_src; s0 += 4) {
+      longlong2 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < p.n_src) v[j] = load2(p.src[s0 + j] + w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (s0 + j < p.n_src) fold2<OP>(acc, v[j]);
+    }
+    return acc;
+  }
+}
+
+template <int S, int OP>
+__device__ __forceinline__ long long merge_word(const MergeArgs<S>& p,
+                                                long long w) {
+  if constexpr (S > 0) {
+    long long v[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = p.src[s][w];
+    long long acc = v[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) acc = fold<OP>(acc, v[s]);
+    return acc;
+  } else {
+    long long acc = p.src[0][w];
+    for (int s = 1; s < p.n_src; ++s) acc = fold<OP>(acc, p.src[s][w]);
+    return acc;
+  }
+}
+
+// one segment's words [off, off + len) with its op known at compile time
+template <int S, int OP>
+__device__ __forceinline__ void merge_segment(const MergeArgs<S>& p,
+                                              long long off, long long len) {
   long long lead = 0, pairs = 0;
   if (p.vec) {
     // the segment's first word is 16-byte aligned unless its address is
@@ -124,73 +224,143 @@ __device__ __forceinline__ void merge_body(const MergeParams& p) {
        u < units; u += step) {
     if (u >= lead && u < lead + pairs) {
       const long long w = off + lead + 2 * (u - lead);
-      longlong2 acc = *reinterpret_cast<const longlong2*>(p.src[0] + w);
-      for (int s = 1; s < p.S; ++s) {
-        const longlong2 v =
-            *reinterpret_cast<const longlong2*>(p.src[s] + w);
-        acc.x = fold(op, acc.x, v.x);
-        acc.y = fold(op, acc.y, v.y);
-      }
-      *reinterpret_cast<longlong2*>(p.out + w) = acc;
+      *reinterpret_cast<longlong2*>(p.out + w) = merge_pair<S, OP>(p, w);
     } else {
       const long long w = off + (u < lead ? u : tail0 + (u - lead - pairs));
-      long long acc = p.src[0][w];
-      for (int s = 1; s < p.S; ++s) acc = fold(op, acc, p.src[s][w]);
-      p.out[w] = acc;
+      p.out[w] = merge_word<S, OP>(p, w);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS) psum_kernel(const MergeParams p) {
-  merge_body(p);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    bucket_merge_kernel(const MergeParams p) {
-  merge_body(p);
-}
-
-cudaError_t launch(bool sums, int device, const MergeParams* p, int grid_x,
-                   void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  if (p->S < 1 || p->S > MAX_SRC || p->n_segs < 1 || p->n_segs > MAX_SEGS ||
-      grid_x < 1)
-    return cudaErrorInvalidValue;
-  for (int i = 0; i < p->n_segs; ++i) {
-    const int op = p->seg_op[i];
-    const bool sum = op == OP_SUM_I64 || op == OP_SUM_F64;
-    if (op < OP_SUM_I64 || op > OP_MAX_F64 || sum != sums ||
-        p->seg_off[i] < 0 || p->seg_len[i] < 0)
-      return cudaErrorInvalidValue;
+// the body of both kernels (the wrapper checks each one's ops): the
+// segment's op is read once, and each op has its own loop
+template <int S, bool SUMS>
+__device__ __forceinline__ void merge_body(const MergeArgs<S>& p) {
+  wait_prior_grid();
+  const Seg sg = p.table != nullptr ? p.table[blockIdx.y] : p.seg[blockIdx.y];
+  const long long off = sg.off, len = sg.len;
+  if constexpr (SUMS) {
+    if (sg.op == OP_SUM_F64)
+      merge_segment<S, OP_SUM_F64>(p, off, len);
+    else
+      merge_segment<S, OP_SUM_I64>(p, off, len);
+  } else {
+    switch (sg.op) {
+      case OP_MIN_I64:
+        merge_segment<S, OP_MIN_I64>(p, off, len);
+        break;
+      case OP_MAX_I64:
+        merge_segment<S, OP_MAX_I64>(p, off, len);
+        break;
+      case OP_MIN_F64:
+        merge_segment<S, OP_MIN_F64>(p, off, len);
+        break;
+      default:
+        merge_segment<S, OP_MAX_F64>(p, off, len);
+    }
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((unsigned)grid_x, (unsigned)p->n_segs);
-  if (sums)
-    psum_kernel<<<grid, THREADS, 0, s>>>(*p);
-  else
-    bucket_merge_kernel<<<grid, THREADS, 0, s>>>(*p);
-  return cudaGetLastError();
+}
+
+// (__grid_constant__: the body reads the block where it lies, in the
+// parameter space, with no copy)
+template <int S>
+__global__ void __launch_bounds__(THREADS)
+    psum_kernel(const __grid_constant__ MergeArgs<S> p) {
+  merge_body<S, true>(p);
+}
+
+template <int S>
+__global__ void __launch_bounds__(THREADS)
+    bucket_merge_kernel(const __grid_constant__ MergeArgs<S> p) {
+  merge_body<S, false>(p);
+}
+
+template <int S>
+cudaError_t launch_as(bool sums, const void* args, int bytes, int grid_x,
+                      int n_y, bool dependent, cudaStream_t stream) {
+  const MergeArgs<S>& p = *static_cast<const MergeArgs<S>*>(args);
+  if (bytes != (int)sizeof(MergeArgs<S>)) return cudaErrorInvalidValue;
+  if (S == 0 && (p.n_src < 1 || p.n_src > MAX_SRC))
+    return cudaErrorInvalidValue;
+  if (p.table == nullptr) {
+    if (n_y > INLINE_SEGS || n_y != p.n_segs) return cudaErrorInvalidValue;
+    for (int i = 0; i < n_y; ++i) {
+      const int op = p.seg[i].op;
+      const bool sum = op == OP_SUM_I64 || op == OP_SUM_F64;
+      if (op < OP_SUM_I64 || op > OP_MAX_F64 || sum != sums ||
+          p.seg[i].off < 0 || p.seg[i].len < 0)
+        return cudaErrorInvalidValue;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid_x, (unsigned)n_y);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return sums ? cudaLaunchKernelEx(&cfg, psum_kernel<S>, p)
+              : cudaLaunchKernelEx(&cfg, bucket_merge_kernel<S>, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-int shard_params_size() { return (int)sizeof(MergeParams); }
+// the sizes of the parameter blocks the wrapper lays out
+int shard_args_size(int S) {
+  switch (S) {
+    case 2:
+      return (int)sizeof(MergeArgs<2>);
+    case 4:
+      return (int)sizeof(MergeArgs<4>);
+    case 8:
+      return (int)sizeof(MergeArgs<8>);
+    default:
+      return (int)sizeof(MergeArgs<0>);
+  }
+}
+
+int shard_seg_size() { return (int)sizeof(Seg); }
+
+int shard_inline_segs() { return INLINE_SEGS; }
 
 int shard_threads() { return THREADS; }
 
-// out[w] = sum over the sources, every segment of `p` a sum op
-int shard_psum_launch(int device, const MergeParams* p, int grid_x,
-                      void* stream) {
-  return launch(true, device, p, grid_x, stream);
-}
-
-// out[w] = min or max over the sources, every segment a min/max op
-int shard_bucket_merge_launch(int device, const MergeParams* p, int grid_x,
-                              void* stream) {
-  return launch(false, device, p, grid_x, stream);
+// One merge launch: `args` is a MergeArgs<S> of `bytes` bytes (S 2, 4, 8,
+// or 0 for the general path), its grid (grid_x, n_y) with block y taking
+// segment y (of seg[] or of the device table); `sums` picks the psum,
+// else the min/max merge; `dependent` launches it programmatically.
+int shard_merge_launch(int device, int sums, int S, const void* args,
+                       int bytes, int grid_x, int n_y, int dependent,
+                       void* stream) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return e;
+  if (grid_x < 1 || n_y < 1 || n_y > 65535) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 2:
+      e = launch_as<2>(sums != 0, args, bytes, grid_x, n_y, dependent, s);
+      break;
+    case 4:
+      e = launch_as<4>(sums != 0, args, bytes, grid_x, n_y, dependent, s);
+      break;
+    case 8:
+      e = launch_as<8>(sums != 0, args, bytes, grid_x, n_y, dependent, s);
+      break;
+    case 0:
+      e = launch_as<0>(sums != 0, args, bytes, grid_x, n_y, dependent, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 const char* shard_error_string(int e) {

@@ -9,7 +9,8 @@ The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``sel_pred_batched``'s interpreter, ``sel_mask``, ``sel_compact``),
 ``sel_batched`` (``sel_pred_batched``'s terms route), ``topn``
 (``topn_select``), ``digest``
-(``plane_digest``, ``feed_verify``, ``patch_rows``), ``mvcc``
+(``plane_digest``, ``feed_verify``, ``patch_feed_rows`` and its one-plane
+case ``patch_rows``), ``mvcc``
 (``mvcc_resolve``), ``split`` (``split_planes``), ``shard_merge``
 (``shard_psum``, ``shard_bucket_merge``, wrapped by ``shard.py``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,

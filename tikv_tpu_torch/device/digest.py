@@ -15,10 +15,13 @@ other dtype as the unsigned view of its own width — the formula of
   over the same [lo, hi), as an int64 (P,) tensor, in one launch — the
   arrival check of a feed migrated between mesh slices (``install_feeds``,
   runner.py:2108-2166, which re-hashes plane by plane);
-- ``patch_rows(plane, pos, vals, digest=False)``: ``plane[pos[i]] =
-  vals[i]`` in place for m unique positions in one launch; with
-  ``digest`` also the digests of the positions written, before and after
-  (what ``_patch_plane``'s two range digests give for a span).
+- ``patch_feed_rows(planes, pos, vals, digests=None)``: ``planes[p][pos[i]]
+  = vals[p][i]`` in place for m unique positions of every plane of a feed
+  in one launch; with ``digests`` (each plane's recorded digest) also the
+  digests of the positions written, before and after (what
+  ``_patch_plane``'s two range digests give for a span), and the recorded
+  digest updated by R' = R − H(old) + H(new) in the same launch;
+- ``patch_rows(plane, pos, vals, digest=False)``: its one-plane case.
 
 Each wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``digest_launches``,
@@ -29,7 +32,8 @@ nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Union
+import struct
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -98,14 +102,23 @@ def _kernel_lib():
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         lib.plane_digest_launch.argtypes = [i, p, i, ll, ll, ll, p, p]
         lib.plane_digest_launch.restype = i
-        lib.patch_rows_launch.argtypes = [i, p, i, p, p, ll, p, p]
-        lib.patch_rows_launch.restype = i
+        lib.patch_feed_launch.argtypes = [i, p, i, i, i, i, p]
+        lib.patch_feed_launch.restype = i
+        lib.patch_args_size.argtypes = [i]
+        lib.patch_args_size.restype = i
+        for n in (0, *PATCH_INLINE):
+            if lib.patch_args_size(n) != 48 + (n or 16):
+                raise RuntimeError(f"digest: the kernel's PatchArgs<{n}> is "
+                                   f"{lib.patch_args_size(n)} bytes, the "
+                                   f"wrapper's {48 + (n or 16)}")
         lib.feed_verify_describe.argtypes = [i, p, p, ll, ll, p]
         lib.feed_verify_describe.restype = i
         lib.feed_verify_launch.argtypes = [i, i, p, p, ll, ll, ll, p, p]
         lib.feed_verify_launch.restype = i
         for fn, want in (("feed_verify_desc_bytes", _VERIFY_DESC_BYTES),
-                         ("feed_verify_param_planes", VERIFY_PARAM_PLANES)):
+                         ("feed_verify_param_planes", VERIFY_PARAM_PLANES),
+                         ("patch_desc_bytes", _PATCH_DESC.size),
+                         ("patch_rows_per_block", PATCH_ROWS)):
             getattr(lib, fn).restype = i
             if getattr(lib, fn)() != want:
                 raise RuntimeError(f"digest: the kernel's {fn} is "
@@ -210,69 +223,235 @@ def feed_verify(planes: Sequence[torch.Tensor], lo: int,
     return out
 
 
+# patch_feed_rows's layout (csrc/digest.cu): a plane descriptor, the
+# parameter block's header, its inline payload classes (bytes), the rows a
+# block takes and the most threads a block has
+_PATCH_DESC = struct.Struct("<QQQQqii")
+_PATCH_HEAD = struct.Struct("<QQqqqii")
+PATCH_INLINE = (208, 976, 4048)
+PATCH_ROWS = 1024
+_PATCH_THREADS = 256
+
+
+def _rec_tensor(r, device: torch.device) -> torch.Tensor:
+    """A recorded digest (an int, or a 0-d int64 tensor of its bits) as a
+    0-d int64 tensor on ``device``."""
+    if isinstance(r, torch.Tensor):
+        return r.reshape(()).to(device, torch.int64)
+    u = int(r) & _U64
+    return torch.tensor(u - (1 << 64) if u >> 63 else u, dtype=torch.int64,
+                        device=device)
+
+
+def patch_feed_rows_plain(planes: Sequence[torch.Tensor], pos: torch.Tensor,
+                          vals: Sequence[torch.Tensor], digests=None):
+    """``planes[p][pos] = vals[p]`` in place for each plane → None, or with
+    ``digests`` (a recorded digest a plane) an int64 (P, 3) tensor: for
+    each plane Σ old bits·(2q+1), Σ new bits·(2q+1) over the positions q
+    written, and the recorded digest by the rule R − H(old) + H(new)."""
+    rows = []
+    w = _weights(pos)
+    for p, (plane, v) in enumerate(zip(planes, vals)):
+        if digests is not None:
+            old = (_bits(plane[pos]) * w).sum()
+            new = (_bits(v) * w).sum()
+            rows.append(torch.stack([old, new, _rec_tensor(
+                digests[p], plane.device) - old + new]))
+        plane[pos] = v
+    return None if digests is None else torch.stack(rows)
+
+
 def patch_rows_plain(plane: torch.Tensor, pos: torch.Tensor,
                      vals: torch.Tensor, digest: bool = False):
     """``plane[pos] = vals`` in place → None, or with ``digest`` the 0-d
     int64 digests (Σ old bits·(2p+1), Σ new bits·(2p+1))."""
-    sums = None
-    if digest:
-        w = _weights(pos)
-        sums = ((_bits(plane[pos]) * w).sum(), (_bits(vals) * w).sum())
-    plane[pos] = vals
-    return sums
+    out = patch_feed_rows_plain([plane], pos, [vals],
+                                [0] if digest else None)
+    return None if out is None else (out[0, 0], out[0, 1])
 
 
-def _positions(pos, n: int, device: torch.device) -> torch.Tensor:
-    """``pos`` as an int64 tensor on ``device``, after the checks on the
-    host: in [0, n) and unique."""
+def _positions(pos, n: int) -> np.ndarray:
+    """``pos`` as a host int64 array, after the checks: in [0, n) and
+    unique."""
     host = pos.cpu().numpy() if isinstance(pos, torch.Tensor) \
         else np.asarray(pos)
     host = np.ascontiguousarray(host.reshape(-1), dtype=np.int64)
     if host.size and (host.min() < 0 or host.max() >= n):
-        raise ValueError(f"patch_rows: a position outside [0, {n})")
+        raise ValueError(f"patch: a position outside [0, {n})")
     if np.unique(host).size != host.size:
-        raise ValueError("patch_rows: duplicate positions (which write "
-                         "would win is not defined)")
-    return torch.from_numpy(host).to(device)
+        raise ValueError("patch: duplicate positions (which write would "
+                         "win is not defined)")
+    return host
+
+
+def _values(v, plane: torch.Tensor, m: int) -> torch.Tensor:
+    """One plane's values in its dtype, flat: on the plane's card when
+    they lie there already, else on the host."""
+    if isinstance(v, torch.Tensor) and v.device == plane.device:
+        t = v.to(plane.dtype)
+    else:
+        t = (v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))).detach().cpu().to(plane.dtype)
+    t = t.contiguous().reshape(-1)
+    if t.shape[0] != m:
+        raise ValueError(f"patch: {m} positions, {t.shape[0]} values")
+    return t
+
+
+class PatchLayout(NamedTuple):
+    """Where a patch launch keeps what it reads (``plan_patch``)."""
+
+    size: int                   # the payload's bytes
+    pos_off: int                # the positions' offset in it
+    val_offs: list              # each plane's values offset (None: on card)
+    scratch_off: int            # the several-blocks scratch (0: none)
+    inline: Optional[int]       # the parameter class (None: on the card)
+    grid_x: int                 # blocks a plane
+    threads: int                # threads a block
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def plan_patch(widths: Sequence[int], m: int, host_vals: Sequence[bool],
+               digest: bool) -> PatchLayout:
+    """The layout of a patch of ``m`` rows of planes of ``widths`` bytes
+    (``host_vals[p]``: plane p's values come in the payload)."""
+    P = len(widths)
+    pos_off = _PATCH_DESC.size * P
+    end = pos_off + 8 * m
+    val_offs = []
+    for w, host in zip(widths, host_vals):
+        if host:
+            end = _align16(end)
+            val_offs.append(end)
+            end += w * m
+        else:
+            val_offs.append(None)
+    grid_x = max(1, -(-m // PATCH_ROWS))
+    scratch_off = 0
+    if digest and grid_x > 1:       # partial pairs, then the tickets
+        scratch_off = _align16(end)
+        end = scratch_off + 16 * P * grid_x + 4 * P
+    size = _align16(end)
+    inline = None if scratch_off else next(
+        (n for n in PATCH_INLINE if size <= n), None)
+    threads = min(_PATCH_THREADS, max(32, -(-min(m, PATCH_ROWS) // 32) * 32))
+    return PatchLayout(size=size, pos_off=pos_off, val_offs=val_offs,
+                       scratch_off=scratch_off, inline=inline,
+                       grid_x=grid_x, threads=threads)
+
+
+def pack_patch(lay: PatchLayout, planes, pos: np.ndarray, vals, recs,
+               out_ptr: int, table_ptr: int = 0) -> tuple:
+    """The launch's parameter block (the header, then the payload when it
+    rides inline) and its payload, both uint8 arrays.  ``vals[p]``: a
+    host array of plane p's values, or the address of its values on the
+    card; ``recs[p]``: (the address of the recorded digest on the card or
+    0, its value when the address is 0); ``table_ptr``: where the payload
+    lies on the card when it does not ride inline."""
+    pay = np.zeros(lay.size, np.uint8)
+    for p, (plane, v, (rec_ptr, rec), off) in enumerate(zip(
+            planes, vals, recs, lay.val_offs)):
+        _PATCH_DESC.pack_into(
+            pay, _PATCH_DESC.size * p, plane.data_ptr(),
+            v if off is None else 0, rec_ptr, rec & _U64,
+            0 if off is None else off, plane.element_size(), 0)
+        if off is not None:
+            pay[off:off + v.nbytes] = v.view(np.uint8)
+    pay[lay.pos_off:lay.pos_off + 8 * pos.size] = pos.view(np.uint8)
+    args = np.zeros(48 + (lay.inline or 16), np.uint8)
+    _PATCH_HEAD.pack_into(args, 0, table_ptr, out_ptr, pos.size, lay.pos_off,
+                          lay.scratch_off, PATCH_ROWS, 0)
+    if lay.inline is not None:
+        args[48:48 + lay.size] = pay
+    return args, pay
+
+
+def patch_feed_rows(planes: Sequence[torch.Tensor], pos, vals: Sequence,
+                    digests: Optional[Sequence] = None
+                    ) -> Optional[torch.Tensor]:
+    """Write ``vals[p][i]`` at ``planes[p][pos[i]]`` in place for every
+    plane of a feed that shares the positions (m unique positions, checked
+    on the host once for all planes; raises on a duplicate or a position
+    past the shortest plane) in one launch → None, or with ``digests``
+    (each plane's recorded digest: an int, or a 0-d int64 tensor on the
+    planes' card, such as the last patch's R') an int64 (P, 3) tensor on
+    the planes' device: the digests of the positions written, of their
+    old and of their new elements, and the recorded digest updated by
+    R' = R − H(old) + H(new), never a re-hash of the plane.  Values lying
+    on the planes' card are read there; others ride in the launch."""
+    planes = list(planes)
+    if not planes:
+        raise ValueError("patch: no plane")
+    for a in planes:
+        _check_plane(a, "plane")
+    dev = planes[0].device
+    if any(a.device != dev for a in planes):
+        raise ValueError("patch: the planes lie on different devices")
+    pos = _positions(pos, min(a.shape[0] for a in planes))
+    vals = list(vals)
+    if len(vals) != len(planes) or (digests is not None and
+                                    len(digests) != len(planes)):
+        raise ValueError(f"patch: {len(planes)} planes, {len(vals)} value "
+                         f"arrays" + ("" if digests is None else
+                                      f", {len(digests)} digests"))
+    vals = [_values(v, a, pos.size) for v, a in zip(vals, planes)]
+    if dev.type == "cpu":
+        return patch_feed_rows_plain(planes, torch.from_numpy(pos), vals,
+                                     digests)
+    if dev.type != "cuda":
+        raise ValueError(f"patch runs on cuda or cpu, not {dev}")
+    return _patch_cuda(planes, pos, vals, digests)
+
+
+def _patch_cuda(planes, pos: np.ndarray, vals, digests):
+    """The launch behind ``patch_feed_rows``, its arguments checked (``pos``
+    on the host, each of ``vals`` on the planes' card or the host)."""
+    global patch_launches
+    dev = planes[0].device
+    P, m = len(planes), int(pos.size)
+    if m == 0 and digests is None:
+        return None
+    lib = _kernel_lib()
+    on_card = [v.device == dev for v in vals]
+    lay = plan_patch([a.element_size() for a in planes], m,
+                     [not c for c in on_card], digests is not None)
+    out = torch.empty((P, 3), dtype=torch.int64, device=dev) \
+        if digests is not None else None
+    recs, keep = [], []
+    for r in digests if digests is not None else [0] * P:
+        if isinstance(r, torch.Tensor) and r.device == dev:
+            keep.append(r.reshape(()).to(torch.int64))
+            recs.append((keep[-1].data_ptr(), 0))
+        else:
+            recs.append((0, as_u64(r)))
+    # the payload on the card when it does not ride inline: one copy from
+    # pinned memory, stream-ordered
+    table = None if lay.inline is not None else \
+        torch.empty(lay.size, dtype=torch.uint8, device=dev)
+    args, pay = pack_patch(lay, planes, pos, [
+        v.data_ptr() if c else v.numpy() for v, c in zip(vals, on_card)],
+        recs, 0 if out is None else out.data_ptr(),
+        0 if table is None else table.data_ptr())
+    if table is not None:
+        table.copy_(torch.from_numpy(pay).pin_memory(), non_blocking=True)
+    _raise_on(lib, lib.patch_feed_launch(
+        _dev_index(dev), args.ctypes.data, args.size, lay.grid_x, P,
+        lay.threads, torch.cuda.current_stream(dev).cuda_stream),
+        "patch launch")
+    patch_launches += 1
+    return out
 
 
 def patch_rows(plane: torch.Tensor, pos: Union[Sequence[int], np.ndarray,
                                                torch.Tensor],
-               vals: torch.Tensor, digest: bool = False
-               ) -> Optional[tuple]:
+               vals, digest: bool = False) -> Optional[tuple]:
     """Write ``vals[i]`` at ``plane[pos[i]]`` in place for m unique
     positions (checked on the host; raises on a duplicate) in one launch
     → None, or with ``digest`` the 0-d int64 digests of the positions
-    written, of their old and of their new elements."""
-    _check_plane(plane, "plane")
-    pos = _positions(pos, plane.shape[0], plane.device)
-    if not isinstance(vals, torch.Tensor):
-        vals = torch.as_tensor(np.asarray(vals))
-    vals = vals.to(plane.device, plane.dtype).contiguous().reshape(-1)
-    if vals.shape[0] != pos.shape[0]:
-        raise ValueError(f"patch_rows: {pos.shape[0]} positions, "
-                         f"{vals.shape[0]} values")
-    if plane.device.type == "cpu":
-        return patch_rows_plain(plane, pos, vals, digest)
-    if plane.device.type != "cuda":
-        raise ValueError(f"patch_rows runs on cuda or cpu, not "
-                         f"{plane.device}")
-    return _patch_rows_cuda(plane, pos, vals, digest)
-
-
-def _patch_rows_cuda(plane, pos, vals, digest: bool) -> Optional[tuple]:
-    """The launch behind ``patch_rows``, its arguments checked already
-    (``pos`` int64 and ``vals`` of the plane's dtype, both on its
-    device)."""
-    global patch_launches
-    lib = _kernel_lib()
-    sums = torch.empty(2, dtype=torch.int64, device=plane.device) \
-        if digest else None
-    _raise_on(lib, lib.patch_rows_launch(
-        _dev_index(plane.device), plane.data_ptr(), plane.element_size(),
-        pos.data_ptr(), vals.data_ptr(), pos.shape[0],
-        None if sums is None else sums.data_ptr(),
-        torch.cuda.current_stream(plane.device).cuda_stream),
-        "patch_rows launch")
-    patch_launches += 1
-    return None if sums is None else (sums[0], sums[1])
+    written, of their old and of their new elements: the one-plane case
+    of ``patch_feed_rows``."""
+    out = patch_feed_rows([plane], pos, [vals], [0] if digest else None)
+    return None if out is None else (out[0, 0], out[0, 1])

@@ -15,7 +15,7 @@ first feed miss (``ColdFeedBundle.mint``):
   a gather straight into the ``_build_flat`` layout;
 - the CF_DEFAULT spill rows (PUTs whose row lives outside the write
   record; the caller fetched their values) are written into the gathered
-  planes by ``digest.patch_rows``, one launch per plane.
+  planes by one ``digest.patch_feed_rows`` launch for every plane.
 
 The planes reach the card at the mint, or before the first query through
 ``DeviceVersionPlanes`` (chunks appended into capacity-bucketed buffers).
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..datatype import Column, EvalType
-from .digest import patch_rows
+from .digest import patch_feed_rows
 
 # plane kind codes (the parse's): 0 = int64, 1 = float64, 3 = uint64
 _PLANE_KINDS = {
@@ -696,19 +696,23 @@ class DeviceMvccResolver:
             t2 = time.perf_counter()
             if bundle.spill_patches:
                 # PUTs whose row lives in CF_DEFAULT gathered zero cells:
-                # write their host-truth cells, one launch per plane
+                # write their host-truth cells into every plane they touch
+                # in one launch
                 rows = np.fromiter(sorted(bundle.spill_patches), np.int64)
-                fi = 0
+                planes, cells, fi = [], [], 0
                 for info, ds, nulls in zip(used_infos, dtypes, null_flags):
                     if not info.is_pk_handle:
                         col = bundle.mirror_cols[info.col_id]
-                        patch_rows(flat[fi], rows, torch.from_numpy(
-                            np.ascontiguousarray(col.values[rows].astype(
-                                ds))))
+                        planes.append(flat[fi])
+                        cells.append(np.ascontiguousarray(
+                            col.values[rows].astype(ds)))
                         if nulls:
-                            patch_rows(flat[fi + 1], rows, torch.from_numpy(
-                                np.ascontiguousarray(col.validity[rows])))
+                            planes.append(flat[fi + 1])
+                            cells.append(np.ascontiguousarray(
+                                col.validity[rows]))
                     fi += 2 if nulls else 1
+                if planes:
+                    patch_feed_rows(planes, rows, cells)
             t3 = time.perf_counter()
             feed = {"flat": tuple(flat), "null_flags": tuple(null_flags),
                     "n_pad": n_pad, "digests": digests(), "n_live": n}

@@ -183,7 +183,7 @@ from . import topn as tn
 from .agg_fold import agg_fold
 from .deferred import (DeferredResult, _BatchedSelectionGroup,
                        _BatchUnavailable, _GroupPending, _Pending)
-from .digest import (_INT_OF_WIDTH, as_u64, feed_verify, patch_rows,
+from .digest import (_INT_OF_WIDTH, as_u64, feed_verify, patch_feed_rows,
                      plane_digest)
 from .supervisor import FeedArena, hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
@@ -1386,30 +1386,30 @@ class DeviceRunner:
         its recorded digest by the incremental rule ``R' = R − H(old) +
         H(new)`` over the rows written (runner.py:1793-1814): never a
         re-hash of the plane, which would launder a corruption that landed
-        since the last scrub into the record.  Single-device feeds only."""
+        since the last scrub into the record.  One ``patch_feed_rows``
+        launch writes the rows and the new record (a 0-d tensor on the
+        card, which the next patch reads there).  Single-device feeds
+        only."""
         if "shards" in feed:
             raise NotImplementedError(
                 "a row-sharded feed is not patched in place: it re-uploads "
                 "(ROADMAP.md queue 1 item 6)")
-        plane = feed["flat"][fi]
-        old, new = patch_rows(plane, pos, vals, digest=True)
         digests = list(feed["digests"])
-        recorded = as_u64(digests[fi])
-        base = torch.tensor(recorded - (1 << 64) if recorded >= 1 << 63
-                            else recorded, dtype=torch.int64,
-                            device=plane.device)
-        digests[fi] = base - old + new
+        out = patch_feed_rows([feed["flat"][fi]], pos, [vals],
+                              [digests[fi]])
+        digests[fi] = out[0, 2]
         feed["digests"] = tuple(digests)
 
     @staticmethod
     def corrupt_resident_plane(feed: dict, fi: int = 0) -> None:
         """Fault injection: flip the low bit of element 0 of resident plane
         ``fi`` in place (the HBM bit flip a device fault would cause), by a
-        one-row ``patch_rows`` over the plane's same-width integer view;
-        the recorded digest is left as it was."""
+        one-row patch over the plane's same-width integer view (its old
+        element read back first); the recorded digest is left as it
+        was."""
         arr = feed["flat"][fi]
         view = arr.view(_INT_OF_WIDTH[arr.element_size()])
-        patch_rows(view, [0], view[:1] ^ 1)
+        patch_feed_rows([view], [0], [view[:1].cpu() ^ 1])
 
     @staticmethod
     def _planes(feed) -> list:

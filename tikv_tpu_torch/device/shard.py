@@ -26,10 +26,17 @@ segments (the rest are left as they were):
   first NaN in shard order, bits kept); among equal values, +0.0 and -0.0,
   the first in shard order is kept.
 
-On CUDA tensors each is one launch for up to ``MAX_SEGS`` segments (more
-take more launches) and up to ``MAX_SRC`` sources, all on one device; on
-CPU tensors the plain version.  ``psum_launches`` and ``merge_launches``
-count kernel launches and nothing else.  The runner's mesh path
+On CUDA tensors each is one launch of up to ``MAX_SRC`` sources over up to
+``MAX_Y`` segments, all on one device; on CPU tensors the plain version.
+A launch's parameter block is sized to the request: the S source pointers
+and up to ``INLINE_SEGS`` segments inline, more segments in a table copied
+to the card on the launch stream.  The packed block of each layout (the
+device, the op, S, the 16-byte phase and the segments) is cached
+(``plan_layout``), so a plan's repeated requests only bind their pointers
+(``bind``).  The launch is programmatic: it may overlap the drain of the
+kernel before it on the stream (``csrc/shard_merge.cu``).
+``psum_launches`` and ``merge_launches`` count kernel launches and nothing
+else.  The runner's mesh path
 (``DeviceRunner(mesh=...)``) copies each shard's partial to the mesh's
 first card (``Tensor.to``: nothing on one card) before calling these.
 """
@@ -37,12 +44,14 @@ first card (``Tensor.to``: nothing on one card) before calling these.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import threading
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 MAX_SRC = 32            # sources of one launch (csrc/shard_merge.cu)
-MAX_SEGS = 80           # segments of one launch
+INLINE_SEGS = 8         # segments in a launch's parameters; more: a table
+MAX_Y = 65535           # segments of one launch (its grid's y)
 _OPS = {"sum_i64": 0, "sum_f64": 1, "min_i64": 2, "max_i64": 3,
         "min_f64": 4, "max_f64": 5}
 _SUM_OPS = ("sum_i64", "sum_f64")
@@ -77,6 +86,8 @@ def _check(parts: Sequence[torch.Tensor], segments, sums: bool) -> None:
             raise ValueError(f"op {op!r} in a {'psum' if sums else 'merge'}")
         if off < 0 or n < 0 or off + n > w:
             raise ValueError(f"segment ({off}, {n}) outside {w} words")
+    if len(segments) > MAX_Y:
+        raise ValueError(f"{len(segments)} segments > {MAX_Y}")
 
 
 def _default_segments(parts) -> list:
@@ -128,35 +139,110 @@ def shard_bucket_merge_plain(parts: Sequence[torch.Tensor], segments,
     return out
 
 
-class _MergeParams(ctypes.Structure):
-    """``struct MergeParams`` of csrc/shard_merge.cu."""
+class _Seg(ctypes.Structure):
+    """``struct Seg`` of csrc/shard_merge.cu."""
 
-    _fields_ = [("src", ctypes.c_void_p * MAX_SRC), ("out", ctypes.c_void_p),
-                ("seg_off", ctypes.c_longlong * MAX_SEGS),
-                ("seg_len", ctypes.c_longlong * MAX_SEGS),
-                ("seg_op", ctypes.c_int * MAX_SEGS), ("S", ctypes.c_int),
-                ("n_segs", ctypes.c_int), ("vec", ctypes.c_int),
-                ("pad", ctypes.c_int)]
+    _fields_ = [("off", ctypes.c_longlong), ("len", ctypes.c_longlong),
+                ("op", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+_ARGS_TYPES: dict = {}
+
+
+def source_class(S: int) -> int:
+    """The kernel instance that takes S sources: 2, 4 or 8, else 0 (the
+    general path)."""
+    return S if S in (2, 4, 8) else 0
+
+
+def _args_type(sc: int):
+    """``struct MergeArgs<sc>`` of csrc/shard_merge.cu: the S source
+    pointers (MAX_SRC slots on the general path), the output, the device
+    table of segments (null: up to INLINE_SEGS ride inline), n_segs, vec
+    and n_src (S)."""
+    if sc not in _ARGS_TYPES:
+        _ARGS_TYPES[sc] = type(f"MergeArgs{sc}", (ctypes.Structure,), {
+            "_fields_": [("src", ctypes.c_void_p * (sc or MAX_SRC)),
+                         ("out", ctypes.c_void_p),
+                         ("table", ctypes.c_void_p),
+                         ("seg", _Seg * INLINE_SEGS),
+                         ("n_segs", ctypes.c_int), ("vec", ctypes.c_int),
+                         ("n_src", ctypes.c_int), ("pad", ctypes.c_int)]})
+    return _ARGS_TYPES[sc]
+
+
+class Layout(NamedTuple):
+    """One merge launch, packed once for a (device, S, 16-byte phase,
+    segments) request and reused by every request of that layout."""
+
+    sc: int                     # the kernel instance (source_class)
+    args: ctypes.Structure      # MergeArgs<sc>, its pointers set by bind
+    grid_x: int
+    n_y: int                    # segments: the grid's y
+    table_host: Optional[torch.Tensor]  # past INLINE_SEGS: the segments
+    #                             (pinned on a card), copied per call
+
+
+def plan_layout(S: int, segments, vec: bool, sms: int,
+                pin: bool = False) -> Layout:
+    """The launch of a merge of S sources over ``segments`` (checked by
+    the caller) on a card of ``sms`` SMs: up to INLINE_SEGS segments in
+    its parameters, more in a table."""
+    sc = source_class(S)
+    a = _args_type(sc)()
+    a.n_segs, a.vec, a.n_src = len(segments), int(vec), S
+    rows, table = a.seg, None
+    if len(segments) > INLINE_SEGS:
+        table = torch.empty(len(segments) * ctypes.sizeof(_Seg),
+                            dtype=torch.uint8, pin_memory=pin)
+        rows = (_Seg * len(segments)).from_address(table.data_ptr())
+    for i, (off, n, op) in enumerate(segments):
+        rows[i] = _Seg(off, n, _OPS[op], 0)
+    units = max(n for _o, n, _op in segments)
+    units = -(-units // 2) if vec else units
+    grid_x = max(1, min(-(-units // _THREADS),
+                        max(1, 8 * sms // len(segments))))
+    return Layout(sc, a, grid_x, len(segments), table)
+
+
+def bind(lay: Layout, parts, out, table: Optional[torch.Tensor] = None):
+    """The layout's parameter block with this call's pointers: the
+    sources, the output and the device copy of its segment table."""
+    a = lay.args
+    for s, t in enumerate(parts):
+        a.src[s] = t.data_ptr()
+    a.out = out.data_ptr()
+    a.table = None if table is None else table.data_ptr()
+    return a
 
 
 _lib = None
 _THREADS = 256
 _SMS: dict = {}
+_LAYOUTS: dict = {}
+_LAYOUTS_MAX = 256      # layouts kept; the cache starts over past it
+_MU = threading.Lock()  # one call at a time binds a cached block
 
 
 def _kernel_lib():
     global _lib
     if _lib is None:
         from .build import load_checked
-        lib = load_checked("shard_merge",
-                           {"shard_params_size": ctypes.sizeof(_MergeParams),
-                            "shard_threads": _THREADS},
-                           "shard_error_string")
-        for fn in ("shard_psum_launch", "shard_bucket_merge_launch"):
-            f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_void_p]
-            f.restype = ctypes.c_int
+        layout = {"shard_seg_size": ctypes.sizeof(_Seg),
+                  "shard_inline_segs": INLINE_SEGS,
+                  "shard_threads": _THREADS}
+        lib = load_checked("shard_merge", layout, "shard_error_string")
+        lib.shard_args_size.argtypes = [ctypes.c_int]
+        lib.shard_args_size.restype = ctypes.c_int
+        for sc in (0, 2, 4, 8):
+            if lib.shard_args_size(sc) != ctypes.sizeof(_args_type(sc)):
+                raise RuntimeError(
+                    f"shard_merge: the kernel's MergeArgs<{sc}> is "
+                    f"{lib.shard_args_size(sc)} bytes, the wrapper's "
+                    f"{ctypes.sizeof(_args_type(sc))}")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.shard_merge_launch.argtypes = [i, i, i, p, i, i, i, i, p]
+        lib.shard_merge_launch.restype = i
         _lib = lib
     return _lib
 
@@ -168,36 +254,46 @@ def _sms(dev: torch.device) -> int:
     return _SMS[dev.index]
 
 
-def _launch(parts, segments, out, sums: bool) -> None:
+def _layout(dev, parts, segments, out) -> Layout:
+    """The cached layout of this request (its segments, source count and
+    16-byte phase) on ``dev``."""
+    # every source and the output in one 16-byte phase: two words a thread
+    vec = len({t.data_ptr() & 15 for t in (*parts, out)}) == 1
+    key = (dev.index, len(parts), vec, tuple(map(tuple, segments)))
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        if len(_LAYOUTS) >= _LAYOUTS_MAX:
+            _LAYOUTS.clear()
+        lay = _LAYOUTS[key] = plan_layout(len(parts), segments, vec,
+                                          _sms(dev), dev.type == "cuda")
+    return lay
+
+
+def _launch(parts, segments, out, sums: bool,
+            dependent: bool = True) -> None:
+    """The launch of one merge (``dependent``: programmatic; only the
+    chip smoke's chain measurement launches without it)."""
     global psum_launches, merge_launches
     from .build import raise_on
     lib = _kernel_lib()
     dev = parts[0].device
-    # every source and the output in one 16-byte phase: two words a thread
-    vec = len({t.data_ptr() & 15 for t in (*parts, out)}) == 1
-    fn = lib.shard_psum_launch if sums else lib.shard_bucket_merge_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for at in range(0, len(segments), MAX_SEGS):
-        chunk = segments[at:at + MAX_SEGS]
-        p = _MergeParams()
-        for s, t in enumerate(parts):
-            p.src[s] = t.data_ptr()
-        p.out = out.data_ptr()
-        for i, (off, n, op) in enumerate(chunk):
-            p.seg_off[i], p.seg_len[i], p.seg_op[i] = off, n, _OPS[op]
-        p.S, p.n_segs, p.vec = len(parts), len(chunk), int(vec)
-        units = max(n for _o, n, _op in chunk)
-        units = -(-units // 2) if vec else units
-        grid_x = max(1, min(-(-units // _THREADS),
-                            max(1, 8 * _sms(dev) // len(chunk))))
-        raise_on(lib, "shard_error_string",
-                 fn(dev.index, ctypes.byref(p), grid_x, stream),
-                 "shard_psum launch" if sums else
-                 "shard_bucket_merge launch")
-        if sums:
-            psum_launches += 1
-        else:
-            merge_launches += 1
+    lay = _layout(dev, parts, segments, out)
+    table = None
+    if lay.table_host is not None:      # stream-ordered, from pinned memory
+        table = torch.empty_like(lay.table_host, device=dev)
+        table.copy_(lay.table_host, non_blocking=True)
+    with _MU:
+        a = bind(lay, parts, out, table)
+        err = lib.shard_merge_launch(
+            dev.index, int(sums), lay.sc, ctypes.byref(a), ctypes.sizeof(a),
+            lay.grid_x, lay.n_y, int(dependent),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "shard_error_string", err,
+             "shard_psum launch" if sums else "shard_bucket_merge launch")
+    if sums:
+        psum_launches += 1
+    else:
+        merge_launches += 1
 
 
 def _run(parts, segments, out, sums: bool, plain) -> torch.Tensor:
