@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    source, started together; timed, with the ptxas report and the shared
    atomics in ``hash_agg``'s and ``agg_fold``'s SASS — none a float64
    compare-and-swap loop in ``agg_fold``'s integer shared route — and, in
-   ``psum_kernel<4>``'s, the four sources' 16-byte loads all issued before
-   the float64 pair path's first add);
+   ``psum_kernel<4>``'s, the four sources' 16-byte loads all issued
+   before the float64 pair path's first add, and ``merge_kernel<4>``'s
+   order printed);
 3. every kernel against its plain PyTorch version on the card over the
    edge cases of the CPU tests: ``hash_agg`` exactly (integer states) in
    both cell formats, at 2^24 rows, on one hot slot over 2^24 rows at the
@@ -32,7 +33,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the Pallas prototypes it replaces, with each prototype's own check
    (count by ``bincount``, sum rebuilt with the prototype's bias formula,
    against numpy);
-4. the aggregation path through ``DeviceRunner().handle_request`` for
+4. the aggregation path (run while ``selection.cu`` builds, after the
+   early mesh cells of step 14: none launches a kernel of that source)
+   through ``DeviceRunner().handle_request`` for
    eight configurations (``tikv_tpu_torch.testing.configs``): 3
    (50·2^20 rows), 4, 4n and 4w (100·2^20 rows), and 4s, 4r, 4m and 3n
    (2^24 rows), each request wire-encoded first, each answer held against
@@ -59,10 +62,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    NULL-bearing int32 — with its extremes —, int64 and float32 planes,
    narrowed by the columns' bounds and not, at ragged sizes, on and off a
    16-byte boundary, with and without the bool mask; and the predicates of
-   configs 1, 2, 2s and 5t at 10·2^20 rows), ``sel_mask`` (n not a multiple of 8, one and many blocks, all-false and
-   all-true masks, a mask off a 16-byte boundary, config 2's 10·2^20
-   rows), ``sel_compact`` in index mode (capacity above and below the
-   count: the overflow flag; one below, at and one above it) and in planes
+   configs 1, 2, 2s and 5t at 10·2^20 rows), ``sel_mask`` (n not a
+   multiple of 8, one and many blocks, all-false and all-true masks, a
+   mask off a 16-byte boundary, config 2's 10·2^20 rows; then 128 calls
+   back to back on one stream over random masks and sizes, each call's
+   count, block counts and packed bytes against the plain version's: a
+   tally that failed to reset would show), ``sel_compact`` in index mode
+   (capacity above and below the count: the overflow flag; one below, at
+   and one above it) and in planes
    mode (int32, int64, float64 and bool planes), over 100·2^20 rows at 1%
    (3,200 blocks) too, its whole buffer (header, -1 fill, 0 tails and the
    gaps between planes) against the plain version's, each call under
@@ -100,7 +107,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bound, its plain version and a library yardstick the port never calls:
    ``sel_pred`` at config 2 (``v > 800``, packed mask) and 5t (``k <
    512`` over 100·2^20 rows, the bool mask too) beside the torch
-   comparison alone, ``sel_mask`` at config 2 (``torch.count_nonzero``),
+   comparison alone, ``sel_mask`` at config 2 (``torch.count_nonzero``)
+   beside the launch floor,
    ``sel_compact`` at
    config 2s's 1% (index mode) and 0.1% (planes mode) (``torch.nonzero``)
    beside the launch floor (``launch_floor_ms``: an empty kernel,
@@ -269,11 +277,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bound, plain version and a ``copy_`` + ``plane_digest`` yardstick;
 14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
    launch no kernel of ``selection.cu``, run while that source builds,
-   after the ANALYZE cells): ``shard_psum`` and ``shard_bucket_merge``
-   (``csrc/shard_merge.cu``) against their plain versions, bit for bit,
-   over S of 1, 2, 3, 4 and 8 sources, int64 words with the extremes,
-   float64 words with ±0.0, ±inf and NaN, W of 1, 3, 1027 and 65,537
-   words, mixed int64 / float64 segments, sources off a 16-byte boundary
+   after the ANALYZE cells): ``shard_psum``, ``shard_bucket_merge`` and
+   ``shard_merge`` (``csrc/shard_merge.cu``) against their plain versions,
+   bit for bit, over S of 1, 2, 3, 4 and 8 sources, int64 words with the
+   extremes, float64 words with ±0.0, ±inf and NaN, W of 1, 3, 1027 and
+   65,537 words, mixed int64 / float64 segments, sum and min/max segments
+   mixed in one launch (``shard_merge``), sources off a 16-byte boundary
    (on one phase and on mixed phases) and more segments than one launch
    takes; then the mesh cells (``configs.MESH_CELLS``) through
    ``DeviceRunner(mesh=make_mesh([card] * 4, shape=(2, 2)))``: m3, m4,
@@ -282,7 +291,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    plan one cold and five warm wire-encoded requests, each answer against
    the numpy truth and against the single runner's answer, the launch
    counts read around the run (each shard's kernels S times as often as on
-   the single runner, the merges of the route and no other kernel), the
+   the single runner, the merges of the route and no other kernel: at m4x
+   one ``shard_merge`` launch a request, counted as ``shard_bucket_merge``,
+   and no ``shard_psum``), the
    peak device memory and a profile, and the tracker phases of a warm
    request (a GROUP BY's MIN/MAX merge on the card: no host merge phase);
    no degrade; the ``device::shard_launch`` failpoint at shard 1 (the
@@ -291,12 +302,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    a simple MIN/MAX whose S stacked rows the host merges (phase
    ``shard_merge``) against the truth and the single runner; where the
    machine has more cards, m4, m4x and m5t over a mesh of every card; and
-   at m4 and m4n the per-shard launches beside the single launch,
-   ``shard_psum`` (m4, m4n) and ``shard_bucket_merge`` (m4x) on the
-   runner's own arguments beside their bounds, plain versions and a
-   ``torch.stack`` yardstick, ``shard_psum`` as issued (host clock) and,
-   at m4, its marginal time in the chain of the four per-shard
-   ``hash_agg`` calls, launched programmatically and not;
+   at m4, m4n and m4x the per-shard launches beside the single launch,
+   ``shard_psum`` (m4, m4n) and ``shard_merge`` (m4x: the fold's summed
+   and MIN/MAX rows in one launch) on the runner's own arguments beside
+   their bounds, plain versions and a ``torch.stack`` yardstick, each as
+   issued (host clock), at m4 the psum's marginal time in the chain of the
+   four per-shard ``hash_agg`` calls, launched programmatically and not,
+   and at m4x the marginal time after the four ``agg_fold`` calls of the
+   one merge launch, of the psum of the summed rows alone and of the two
+   launches (psum, then bucket merge) it replaced;
 15. the scale-out mesh (cell so8): ``feed_verify`` (``csrc/digest.cu``)
    against its plain version and one ``plane_digest`` a plane, bit for
    bit, over P of 1 to 200 planes (past 96 its descriptors go through a
@@ -339,8 +353,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``analyze``, with the other timed columns under ``configs``; 6b-ep's
    shape for ``sel_pred_batched``; 6c-split's split 1 for
    ``split_planes``, with both children under ``configs``; m4 for
-   ``shard_psum``, with m4n under ``configs``; m4x for
-   ``shard_bucket_merge``; so8's moved selection feed for
+   ``shard_psum``, with m4n under ``configs``; m4x's one ``shard_merge``
+   launch for ``shard_bucket_merge``; so8's moved selection feed for
    ``feed_verify``), and the least time the card could take; beside the
    launch-bound rows the launch floor and the empty kernel with their
    parameter blocks' sizes (``param_floors``);
@@ -529,6 +543,9 @@ def build_kernels(defer: tuple = ()) -> None:
     order = psum_loads_first(4)
     assert order["loads_before_add"] >= 4, \
         f"psum_kernel<4> adds before its sources' loads are issued: {order}"
+    # printed, not held: ptxas interleaves the mixed kernel's float64 pair
+    # path (its int64 sums, m4x's, issue every load first)
+    psum_loads_first(4, "merge_kernel")
 
 
 def await_builds() -> None:
@@ -584,12 +601,13 @@ def shared_atomics(name: str) -> dict:
     return per_fn
 
 
-def psum_loads_first(S: int = 4) -> dict:
+def psum_loads_first(S: int = 4, kernel: str = "psum_kernel") -> dict:
     """The order of the global loads and float64 adds on the float64 word
-    pair path of ``psum_kernel<S>``'s SASS (``cuobjdump -sass``): how many
-    16-byte loads are issued back to back before that path's first add
-    (S: every source's load in flight at once) → {"loads_before_add": k,
-    "sequence": run-length opcodes}."""
+    pair path of ``kernel<S>``'s SASS (``psum_kernel`` or
+    ``merge_kernel``, whose float64 adds are its sum_f64 path's;
+    ``cuobjdump -sass``): how many 16-byte loads are issued back to back
+    before that path's first add (S: every source's load in flight at
+    once) → {"loads_before_add": k, "sequence": run-length opcodes}."""
     from tikv_tpu_torch.device import build
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.lib_path("shard_merge"))],
@@ -597,7 +615,7 @@ def psum_loads_first(S: int = 4) -> dict:
     ops, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = f"psum_kernelILi{S}E" in line
+            inside = f"{kernel}ILi{S}E" in line
             continue
         if not inside:
             continue
@@ -616,7 +634,7 @@ def psum_loads_first(S: int = 4) -> dict:
                   runs[i - 1][0] == "LDG.E.128"), None)
     res = {"loads_before_add": 0 if first is None else runs[first - 1][1],
            "sequence": " ".join(f"{op}x{k}" for op, k in runs)}
-    print(f"sass shard_merge psum_kernel<{S}>: {res['loads_before_add']} "
+    print(f"sass shard_merge {kernel}<{S}>: {res['loads_before_add']} "
           f"16-byte loads issued before the float64 pair path's first add; "
           f"{res['sequence']}", flush=True)
     return res
@@ -1289,7 +1307,7 @@ SYMBOLS = {"hash_agg": ("table_kernel", "simple_kernel"),
            "join_probe": ("probe_kernel",), "sort_perm": ("onesweep_kernel",),
            "window_scan": ("window_kernel",),
            "shard_psum": ("psum_kernel",),
-           "shard_bucket_merge": ("bucket_merge_kernel",)}
+           "shard_bucket_merge": ("merge_kernel",)}
 
 
 def profile_request(config: str, runner, dag, snap, expect=(),
@@ -2137,8 +2155,44 @@ def check_selection(dev) -> tuple:
         print(f"kernel sel_mask {name}: count={int(got.count)} "
               f"max_abs_err=0", flush=True)
         del got, want, pred
+    mask_run(dev)
     gc.collect()
     return 0, 0
+
+
+def mask_run(dev, calls: int = 128) -> None:
+    """``sel_mask`` called ``calls`` times back to back on one stream, no
+    wait between, over random masks (sizes from one row to 2^22 + 5,
+    densities 0 to 1, some off a 16-byte boundary), then each call's count
+    and block counts and packed bytes against the plain version's: the
+    count comes from the last CTA's tally, so a tally that failed to reset,
+    or two calls that shared one, would show."""
+    from tikv_tpu_torch.device import selection as sm
+    g = torch.Generator(device="cpu").manual_seed(21)
+    gd = torch.Generator(device=dev).manual_seed(22)
+    sizes = torch.randint(1, (1 << 22) + 6, (calls,), generator=g).tolist()
+    sizes[:4] = [1, 32768, 32769, (1 << 22) + 5]
+    preds, outs = [], []
+    for i, n in enumerate(sizes):
+        p = float(torch.rand((), generator=g)) if i % 5 else float(i % 2)
+        off = 3 if i % 7 == 0 else 0
+        base = torch.rand(n + off, generator=gd, device=dev) < p
+        preds.append(base[off:])
+    torch.cuda.synchronize()
+    saved = counts()
+    for pred, n in zip(preds, sizes):
+        outs.append(sm.sel_mask(pred, n))
+    launched = counts()["sel_mask"] - saved["sel_mask"]
+    set_counts(saved)
+    assert launched == calls, f"sel_mask run: {launched} launches"
+    torch.cuda.synchronize()
+    for i, (pred, n, got) in enumerate(zip(preds, sizes, outs)):
+        assert mask_equal(got, sm.sel_mask_plain(pred, n)), \
+            f"sel_mask run: call {i} of {calls} (n={n}) disagrees"
+    print(f"kernel sel_mask run: {calls} calls back to back on one stream, "
+          f"n from {min(sizes)} to {max(sizes)}, each count, block count "
+          f"and packed byte equal to the plain version's max_abs_err=0",
+          flush=True)
 
 
 def topn_cases(dev):
@@ -2690,7 +2744,8 @@ def param_floors(dev) -> dict:
 def selection_at_main_shapes(dev, floor_ms: float) -> tuple:
     """sel_pred and sel_mask at config 2 and sel_compact at config 2s's 1%
     (index mode) and 0.1% (planes mode), exact against their plain versions
-    and timed (sel_compact beside ``floor_ms``, the launch floor); →
+    and timed (sel_mask and sel_compact beside ``floor_ms``, the launch
+    floor); →
     (sel_pred timing, sel_mask timing, sel_compact timing)."""
     from tikv_tpu_torch.datatype import EvalType
     from tikv_tpu_torch.device import selection as sm
@@ -2717,6 +2772,7 @@ def selection_at_main_shapes(dev, floor_ms: float) -> tuple:
               # the bools read once, the packed bytes, counts and count
               # written once; one pack step per row
               **bound_ms(n + -(-n // 8) + 4 * nb + 8, n),
+              "launch_floor_ms": floor_ms,
               "rows": n, "selected": int(got.count)}
     print(f"kernel sel_mask at config 2 shape ({n} rows): max_abs_err=0 " +
           " ".join(f"{k}={x}" for k, x in mask_t.items()), flush=True)
@@ -5245,8 +5301,8 @@ MESH_SHAPE = (2, 2)
 # mesh cell → (the kernels each shard launches, the merges it launches)
 MESH_ROUTE = {"m3": ({"hash_agg"}, {"shard_psum"}),
               "m4": ({"hash_agg"}, {"shard_psum"}),
-              "m4x": ({"sel_pred", "agg_fold"},
-                      {"shard_psum", "shard_bucket_merge"}),
+              # one shard_merge launch: the fold's sums and MIN/MAX rows
+              "m4x": ({"sel_pred", "agg_fold"}, {"shard_bucket_merge"}),
               "m4n": ({"twolevel"}, {"shard_psum"}),
               "m4s": ({"hash_agg"}, {"shard_psum"}),
               "m2s": ({"sel_pred"}, set()),
@@ -5260,7 +5316,8 @@ def shard_merge_cases(dev):
     """(name, kind, sources, segments) over S of 1, 2, 3, 4 and 8: int64
     words with the extremes (the psum wraps), float64 words with ±0.0,
     ±inf and NaN, W not a multiple of 2 or 4, mixed int64 / float64
-    segments in one launch, sources on one 16-byte phase off the
+    segments in one launch, sum and min/max segments in one launch (kind
+    "mixed": ``shard_merge``), sources on one 16-byte phase off the
     boundary and on mixed phases."""
     rng = np.random.default_rng(51)
     i64 = np.iinfo(np.int64)
@@ -5306,6 +5363,26 @@ def shard_merge_cases(dev):
                         S, W, "i64", phases), [(0, W, f"{op}_i64")]
                     yield f"merge {op} f64 {tag}", "merge", sources(
                         S, W, "f64", phases), [(0, W, f"{op}_f64")]
+    # sum and min/max segments in one launch (shard_merge): int64 and
+    # float64 words side by side, S = 2, 4, 8 and the general path
+    for S in (2, 3, 4, 8):
+        for W in (1027, 65537):
+            for phases in ((0,), (1,), (0, 1)):
+                tag = f"S={S} W={W} phases={phases}"
+                x = sources(S, W, "i64", phases)
+                f = sources(S, W, "f64", phases)
+                q = W // 6
+                for s in range(S):
+                    x[s][q:3 * q] = f[s][q:3 * q]
+                    x[s][5 * q:] = f[s][5 * q:]
+                yield f"mixed {tag}", "mixed", x, [
+                    (0, q, "sum_i64"), (q, q, "sum_f64"),
+                    (2 * q, q, "min_f64"), (3 * q, q, "max_i64"),
+                    (4 * q, q, "min_i64"), (5 * q, W - 5 * q, "max_f64")]
+                yield f"mixed m4x-like {tag}", "mixed", sources(
+                    S, W, "i64", phases), [
+                    (0, W // 2, "sum_i64"), (W // 2, W // 4, "min_i64"),
+                    (W // 2 + W // 4, W - W // 2 - W // 4, "max_i64")]
     # past the segments a parameter block holds: a table on the card
     parts = sources(3, 400, "i64", (1,))
     yield "psum 100 segments", "psum", parts, [(4 * i, 4, "sum_i64")
@@ -5313,29 +5390,52 @@ def shard_merge_cases(dev):
     parts = sources(5, 400, "f64", (0, 1))
     yield "merge 9 segments", "merge", parts, [
         (40 * i + i, 33, ("min_f64", "max_i64")[i % 2]) for i in range(9)]
+    parts = sources(4, 600, "f64", (0,))
+    yield "mixed 12 segments", "mixed", parts, [
+        (50 * i, 41, ("sum_f64", "min_f64", "max_f64", "sum_i64",
+                      "min_i64", "max_i64")[i % 6]) for i in range(12)]
 
 
 def check_shard_merge(dev) -> int:
-    """``shard_psum`` and ``shard_bucket_merge`` against their plain
-    versions on the card, bit for bit (every word, the ones outside the
-    segments left as they were); → 0."""
+    """``shard_psum``, ``shard_bucket_merge`` and ``shard_merge`` against
+    their plain versions on the card, bit for bit (every word, the ones
+    outside the segments left as they were); a mixed launch also against
+    the psum of its sum segments followed by the bucket merge of the rest;
+    → 0."""
     from tikv_tpu_torch.device import shard as sh
     saved = counts()
-    n_cases = 0
+    n_cases = {}
     for name, kind, parts, segs in shard_merge_cases(dev):
         init = torch.randint(-9, 9, (parts[0].numel(),), dtype=torch.int64,
                              device=dev)
-        run, plain = (sh.shard_psum, sh.shard_psum_plain) \
-            if kind == "psum" else (sh.shard_bucket_merge,
-                                    sh.shard_bucket_merge_plain)
+        run, plain = {
+            "psum": (sh.shard_psum, sh.shard_psum_plain),
+            "merge": (sh.shard_bucket_merge, sh.shard_bucket_merge_plain),
+            "mixed": (sh.shard_merge, sh.shard_merge_plain)}[kind]
+        before = counts()
         got = run(parts, segs, out=init.clone())
+        after = counts()
         want = plain(parts, segs, out=init.clone())
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"shard merge case {name} differs"
-        n_cases += 1
+        one = "shard_psum" if kind == "psum" else "shard_bucket_merge"
+        assert after[one] == before[one] + 1 and sum(
+            after[k] - before[k] for k in KERNELS) == 1, \
+            f"shard merge case {name}: not one launch"
+        if kind == "mixed":
+            two = sh.shard_psum(parts, [g for g in segs
+                                        if g[2].startswith("sum")],
+                                out=init.clone())
+            sh.shard_bucket_merge(parts, [g for g in segs
+                                          if not g[2].startswith("sum")],
+                                  out=two)
+            torch.cuda.synchronize()
+            assert torch.equal(got, two), \
+                f"shard merge case {name}: one launch and two differ"
+        n_cases[kind] = n_cases.get(kind, 0) + 1
     set_counts(saved)
-    print(f"check shard_merge: {n_cases} cases bit-equal to the plain "
-          f"versions", flush=True)
+    print(f"check shard_merge: {sum(n_cases.values())} cases ({n_cases}) "
+          f"bit-equal to the plain versions", flush=True)
     return 0
 
 
@@ -5584,55 +5684,55 @@ def time_merge(label: str, run, plain, parts, segs, library,
     return t
 
 
-def psum_issue(parts, segs) -> dict:
-    """``shard_psum`` as issued: host-clock ms a call over 200 calls (the
-    wrapper's checks, the cached layout, the launch), and the packed
-    parameter block's bytes."""
+def psum_issue(parts, segs, run=None) -> dict:
+    """``run`` (``shard_psum`` by default, or ``shard_merge``) as issued:
+    host-clock ms a call over 200 calls (the wrapper's checks, the cached
+    layout, the launch), and the packed parameter block's bytes."""
     from tikv_tpu_torch.device import shard as sh
+    run = sh.shard_psum if run is None else run
     out = parts[0].clone()
-    sh.shard_psum(parts, segs, out=out)
+    saved = counts()
+    run(parts, segs, out=out)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
-        sh.shard_psum(parts, segs, out=out)
+        run(parts, segs, out=out)
     torch.cuda.synchronize()
+    set_counts(saved)
     lay = sh._layout(parts[0].device, parts, segs, out)
     return {"issued_host_ms": (time.perf_counter() - t0) * 1e3 / 200,
             "param_bytes": ctypes.sizeof(lay.args)}
 
 
-def psum_chain(fn, shards, parts, segs, rounds: int = 3) -> dict:
-    """m4's chain: the four per-shard ``hash_agg`` calls, then the psum,
-    queued, launched programmatically (the wrapper's way) and not; minus
-    the four calls alone → the psum's marginal ms either way (medians of
-    ``rounds`` interleaved rounds of 50 chains)."""
-    from tikv_tpu_torch.device import shard as sh
+def merge_chain(cell: str, fn, shards, merges: dict,
+                rounds: int = 3) -> dict:
+    """A mesh cell's chain: its per-shard kernel calls ``shards`` (of
+    ``fn``: m4's four ``hash_agg``, m4x's four ``agg_fold``), then each of
+    ``merges`` (label → the launches it makes), queued; minus the shard
+    calls alone → each one's marginal ms (medians of ``rounds``
+    interleaved rounds of 50 chains)."""
     saved = counts()
-    out = parts[0].clone()
 
-    def run(dependent):
+    def run(merge):
         def chain():
             for a, k in shards:
                 fn(*a, **k)
-            if dependent is not None:
-                sh._launch(parts, segs, out, True, dependent=dependent)
+            if merge is not None:
+                merge()
         return chain
 
-    got = {"shards": [], "programmatic": [], "plain": []}
+    got = {label: [] for label in ("shards", *merges)}
     for _ in range(rounds):
-        for label, dep in (("shards", None), ("programmatic", True),
-                           ("plain", False)):
-            got[label].append(cuda_ms(run(dep), 50, queued=True))
+        for label, merge in (("shards", None), *merges.items()):
+            got[label].append(cuda_ms(run(merge), 50, queued=True))
     set_counts(saved)
     med = {k: float(np.median(v)) for k, v in got.items()}
     res = {"shards_ms": med["shards"],
-           "chain_ms": med["programmatic"],
-           "chain_plain_launch_ms": med["plain"],
-           "marginal_ms": med["programmatic"] - med["shards"],
-           "marginal_plain_launch_ms": med["plain"] - med["shards"],
+           **{f"{k} chain_ms": med[k] for k in merges},
+           **{f"{k} marginal_ms": med[k] - med["shards"] for k in merges},
            "runs": got}
-    print("chain m4 (4 hash_agg + shard_psum, queued): " + json.dumps(res),
-          flush=True)
+    print(f"chain {cell} ({len(shards)} {fn.__name__} + merge, queued): " +
+          json.dumps(res), flush=True)
     return res
 
 
@@ -5640,17 +5740,19 @@ def psum_chain(fn, shards, parts, segs, rounds: int = 3) -> dict:
 # merge timed there
 MESH_TIMED = {"m4": ("hash_agg", "shard_psum"),
               "m4n": ("twolevel_fused", "shard_psum"),
-              "m4x": (None, "shard_bucket_merge")}
+              "m4x": ("agg_fold", "shard_merge")}
 
 
 def mesh_timing(cell: str, mesh_runner, single, dag, snap) -> dict:
-    """At m4 and m4n: the sum of the per-shard launches (``hash_agg``,
-    ``twolevel_fused``) beside the single runner's one launch over the
-    whole feed, on the runners' own arguments; ``shard_psum`` (m4, m4n)
-    and ``shard_bucket_merge`` (m4x) on the mesh runner's own arguments,
-    against their plain versions, beside their bounds and a yardstick the
-    port never calls (``torch.stack(parts).sum(0)``; ``.amin(0)`` /
-    ``.amax(0)`` of each stacked row)."""
+    """At m4, m4n and m4x: the sum of the per-shard launches
+    (``hash_agg``, ``twolevel_fused``, ``agg_fold``) beside the single
+    runner's one launch over the whole feed, on the runners' own
+    arguments; ``shard_psum`` (m4, m4n) and ``shard_merge`` (m4x) on the
+    mesh runner's own arguments, against their plain versions, beside
+    their bounds and a yardstick the port never calls
+    (``torch.stack(parts).sum(0)``; and ``.amin(0)`` / ``.amax(0)`` of
+    each stacked row), as issued, and in the chain after the per-shard
+    kernels."""
     import tikv_tpu_torch.device.runner as rmod
     from tikv_tpu_torch.device import hash_agg as ha
     from tikv_tpu_torch.device import shard as sh
@@ -5685,19 +5787,37 @@ def mesh_timing(cell: str, mesh_runner, single, dag, snap) -> dict:
             "torch.stack(parts).sum(0) (yardstick)")
         out["merge"].update(psum_issue(parts, segs))
         if kernel == "hash_agg":
-            out["merge"]["chain"] = psum_chain(fn, shards, parts, segs)
+            res = parts[0].clone()
+            # the psum launched as the wrapper does (programmatically) and
+            # not
+            out["merge"]["chain"] = merge_chain(cell, fn, shards, {
+                f"psum {kind}": lambda dep=dep: sh._launch(
+                    parts, segs, res, True, dependent=dep)
+                for kind, dep in (("programmatic", True),
+                                  ("plain launch", False))})
         return out
     rows = [(op, [p[o:o + n] for p in parts]) for o, n, op in segs]
 
     def library():
         for op, r in rows:
             st = torch.stack(r)
-            st.amin(0) if op.startswith("min") else st.amax(0)
+            st.sum(0) if op.startswith("sum") else \
+                st.amin(0) if op.startswith("min") else st.amax(0)
 
     out["merge"] = time_merge(
-        f"shard_bucket_merge at {cell}", sh.shard_bucket_merge,
-        sh.shard_bucket_merge_plain, parts, segs, library,
-        "torch.stack(row parts).amin(0) / .amax(0) a row (yardstick)")
+        f"shard_merge at {cell}", sh.shard_merge, sh.shard_merge_plain,
+        parts, segs, library, "torch.stack(segment parts).sum(0) / "
+        ".amin(0) / .amax(0) a segment (yardstick)")
+    out["merge"].update(psum_issue(parts, segs, sh.shard_merge))
+    sums = [g for g in segs if g[2].startswith("sum")]
+    stacked = [g for g in segs if not g[2].startswith("sum")]
+    res = parts[0].clone()
+    out["merge"]["chain"] = merge_chain(cell, fn, shards, {
+        "one launch": lambda: sh.shard_merge(parts, segs, out=res),
+        "psum alone": lambda: sh.shard_psum(parts, sums, out=res),
+        "psum then bucket merge": lambda: (
+            sh.shard_psum(parts, sums, out=res),
+            sh.shard_bucket_merge(parts, stacked, out=res))})
     return out
 
 
@@ -6193,6 +6313,8 @@ def main() -> int:
         [dev] * (MESH_SHAPE[0] * MESH_SHAPE[1]), shape=MESH_SHAPE))
     mesh_timings: dict = {}
     mesh_runs = run_mesh(mesh_runner, runner, MESH_EARLY, mesh_timings)
+    # the aggregation configs launch no selection kernel either
+    config_runs = [run_config(c, SIZES[c], runner) for c in SIZES]
     print(f"elapsed: {time.perf_counter() - t0:.1f} s at the selection "
           f"build's wait", flush=True)
     await_builds()
@@ -6206,7 +6328,7 @@ def main() -> int:
               flush=True)
 
     elapsed("before the DAG configs")
-    runs = analyze_runs + [run_config(c, SIZES[c], runner) for c in SIZES]
+    runs = analyze_runs + config_runs
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
     runs.append(run_uncovered(runner))
@@ -6290,7 +6412,7 @@ def main() -> int:
          "launches": launches["sel_pred_batched"],
          "max_abs_err": worst["sel_pred_batched"], **batched_timing},
         {"name": "sel_mask", "route": "cuda",
-         "source": "tikv_tpu_torch/csrc/selection.cu",
+         "source": "tikv_tpu_torch/csrc/sel_mask.cu",
          "replaces": "tikv_tpu/device/selection.py:227",
          "launches": launches["sel_mask"], "max_abs_err": worst["sel_mask"],
          **mask_timing},
@@ -6362,7 +6484,8 @@ def main() -> int:
              "and :2599 (_finalize_psum_summed)"),
             ("shard_bucket_merge", "m4x",
              "tikv_tpu/device/runner.py:2606 "
-             "(_finalize_hash_bucket_merge)")):
+             "(_finalize_hash_bucket_merge; at m4x the same launch as "
+             "_finalize_psum_summed's psum, :2599)")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tikv_tpu_torch/csrc/shard_merge.cu",
@@ -6371,7 +6494,7 @@ def main() -> int:
             **mesh_timings[cell]["merge"], "launch_floor_ms": floor_ms,
             "floor_params_ms": floors,
             "configs": {c: t for c, t in mesh_timings.items()
-                        if name != "shard_bucket_merge" or c == cell}})
+                        if (c == "m4x") == (name == "shard_bucket_merge")}})
     kernels.append({
         "name": "feed_verify", "route": "cuda",
         "source": "tikv_tpu_torch/csrc/digest.cu",

@@ -4,15 +4,18 @@ The mesh helpers of ``tikv_tpu_torch.parallel`` are held case for case
 against the reference's ``tikv_tpu.parallel.mesh``.  The port's mesh runner
 (``DeviceRunner(mesh=convert.mesh_from_shape(shape, ["cpu"] * 8),
 chunk_rows=8 * 64)``: a row-sharded feed, each shard running the plain
-version of its kernels, the cross-shard merges ``shard.shard_psum`` / ``shard_bucket_merge`` in
-their plain versions) is held, for mesh shapes (1, 1), (1, 2), (2, 2),
-(2, 4), (4, 2) and (1, 7), against one reference runner over the
-conftest's eight virtual CPU devices (``DeviceRunner(mesh=make_mesh(
-jax.devices()), chunk_rows=8 * 64)``) and the reference's host pipeline,
+version of its kernels, the cross-shard merges ``shard.shard_psum`` /
+``shard_merge`` in their plain versions) is held, for mesh shapes (1, 1),
+(1, 2), (2, 2), (2, 4), (4, 2) and (1, 7), against one reference runner
+over the conftest's eight virtual CPU devices
+(``DeviceRunner(mesh=make_mesh(jax.devices()), chunk_rows=8 * 64)``) and
+the reference's host pipeline,
 on the shapes of ``tests/test_mesh_parity.py`` and the edge cases of a
 sharded feed: trailing shards with no live row, a feed that is not a whole
 number of units, a slot count that is not a multiple of the shard count
-(the reference's bucket pad), every row filtered out, a key held by one shard only.
+(the reference's bucket pad), every row filtered out (FIRST included,
+with every merge's output poisoned beforehand: fault 9), a key held by one
+shard only.
 Integer and MIN/MAX answers are equal exactly (groups in ascending key
 order on both runners); REAL sums lie within 1e-9 of the numpy truth's
 error scale (the shards sum in another order) and within 1e-6 of the
@@ -279,6 +282,99 @@ def test_first_matches_the_host_pipeline(shape, meshes):
             assert got == host
 
 
+# a word the merge's output starts with where a merge leaves it unwritten
+POISON = 93855383176096
+
+
+@pytest.fixture
+def poisoned_merges(monkeypatch):
+    """``shard_psum`` and ``shard_merge`` write into an output pre-filled
+    with ``POISON`` where the caller passes none, so a word no merge and
+    no host reduce writes shows as garbage on the CPU too."""
+    for name in ("shard_psum", "shard_merge"):
+        real = getattr(sh, name)
+
+        def poisoned(parts, segments=None, out=None, _real=real):
+            if out is None:
+                out = torch.full_like(parts[0], POISON) \
+                    if parts[0].dtype == torch.int64 else \
+                    torch.full_like(parts[0], float(POISON))
+            return _real(parts, segments, out=out)
+        monkeypatch.setattr(sh, name, poisoned)
+
+
+def _int_real_table():
+    return Table(43, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("v", 2, FieldType.long()),
+        TableColumn("r", 3, FieldType.double()),
+    ))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_first_over_an_empty_selection(shape, r8, meshes, poisoned_merges):
+    """``SELECT COUNT(*), FIRST(v), FIRST(r) WHERE v > 1000`` over 9000 rows
+    with ``v < 100``: no shard selects a row, so FIRST is NULL on the host
+    and on the reference's mesh; the port's merge takes shard 0's empty
+    state and never a word the psum left unwritten (fault 9).  Half the
+    rows NULL or none."""
+    table = _int_real_table()
+    n = 9000
+    rng = np.random.default_rng(90)
+    for null_frac in (0.0, 0.5):
+        ok = rng.random(n) >= null_frac
+        snap = ColumnarTable.from_arrays(
+            table, np.arange(n, dtype=np.int64),
+            {"v": Column(EvalType.INT, rng.integers(-100, 100, n)
+                         .astype(np.int64), ok),
+             "r": Column(EvalType.REAL, rng.normal(0.0, 50.0, n), ok)})
+        s = DagSelect.from_table(table, ["id", "v", "r"])
+        dag = s.where(s.col("v") > 1000).aggregate(
+            [], [("count_star", None), ("first", s.col("v")),
+                 ("first", s.col("r"))]).build()
+        want = r8.handle_request(dag, snap).rows()
+        host = BatchExecutorsRunner(dag, snap).handle_request().rows()
+        assert [list(r) for r in host] == [[0, None, None]]
+        for _ in range(2):
+            got = meshes[shape].handle_request(
+                port_dag(dag), port_snapshot(table, snap)).rows()
+            assert got == want == host
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_first_over_a_selection_in_one_shard(shape, r8, meshes,
+                                             poisoned_merges):
+    """The same FIRSTs where only rows of the last shard are selected (the
+    earlier shards' FIRST states are empty) and where only one row is:
+    equal to the reference's mesh, and to the host but for the REAL value,
+    which both packages' devices hold in float32 (fault 6)."""
+    table = _int_real_table()
+    n = 9000
+    rng = np.random.default_rng(91)
+    v = rng.integers(-100, 100, n).astype(np.int64)
+    r = rng.normal(0.0, 50.0, n)
+    for rows in ([n - 3, n - 1], [4321]):
+        v2 = v.copy()
+        v2[rows] = 5000
+        snap = ColumnarTable.from_arrays(
+            table, np.arange(n, dtype=np.int64),
+            {"v": Column(EvalType.INT, v2, np.ones(n, np.bool_)),
+             "r": Column(EvalType.REAL, r, np.ones(n, np.bool_))})
+        s = DagSelect.from_table(table, ["id", "v", "r"])
+        dag = s.where(s.col("v") > 1000).aggregate(
+            [], [("count_star", None), ("first", s.col("v")),
+                 ("first", s.col("r"))]).build()
+        want = r8.handle_request(dag, snap).rows()
+        host = BatchExecutorsRunner(dag, snap).handle_request().rows()
+        assert [list(x) for x in host] == [[len(rows), 5000, r[rows[0]]]]
+        got = meshes[shape].handle_request(
+            port_dag(dag), port_snapshot(table, snap)).rows()
+        assert got == want
+        assert got[0][:2] == host[0][:2]
+        assert got[0][2] == float(np.float32(r[rows[0]]))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_selection_mask_then_index_route(shape, r8, meshes):
     """The mask route cold, the index route (per-shard indices offset by
@@ -341,8 +437,8 @@ def test_shard_merge_phase(meshes):
 
 
 def test_group_by_min_merges_on_the_card(meshes):
-    """A GROUP BY with MIN merges its stacked rows in one
-    ``shard_bucket_merge`` launch: the host does no merge work, so no
+    """A GROUP BY with MIN merges its summed and stacked rows in one
+    ``shard.shard_merge`` launch: the host does no merge work, so no
     ``shard_merge`` phase opens."""
     table = _table()
     snap = port_snapshot(table, _snap(table, 6000, 31, key_hi=900))
@@ -357,9 +453,11 @@ def test_group_by_min_merges_on_the_card(meshes):
 @pytest.mark.parametrize("shape", [(2, 2), (2, 4), (1, 7)])
 @pytest.mark.parametrize("n", [1, 63, 100, CHUNK - 1, CHUNK, CHUNK + 1,
                                3 * CHUNK + 17])
-def test_trailing_shards_and_ragged_feeds(shape, n, meshes):
+def test_trailing_shards_and_ragged_feeds(shape, n, meshes, poisoned_merges):
     """Feeds below one shard's unit (the trailing shards hold no live row)
-    and feeds that are not a whole number of units, on every route."""
+    and feeds that are not a whole number of units, on every route, FIRST
+    over an empty selection among them; every merge's output starts
+    poisoned."""
     table = _table()
     snap = _snap(table, n, 40 + n, key_hi=50, null_frac=0.1)
     psnap = port_snapshot(table, snap)
@@ -367,6 +465,8 @@ def test_trailing_shards_and_ragged_feeds(shape, n, meshes):
     groups = [_agg(table, ["k"], ["count_star", "sum", "min", "max"]),
               _agg(table, ["k"], ["count_star", "sum"]),
               _agg(table, [], ["count", "sum", "min", "max", "first"]),
+              _agg(table, [], ["count_star", "first", "min"],
+                   lambda s: s.col("v") > 10 ** 9),
               _agg(table, ["k"], ["count", "avg"],
                    lambda s: s.col("v") > 0)]
     s = DagSelect.from_table(table, ["id", "k", "v"])
@@ -419,24 +519,27 @@ def test_key_held_by_one_shard(shape, r8, meshes):
 
 def test_bucket_merge_across_devices(monkeypatch):
     """Where the mesh spans several devices (``cpu`` and ``cpu:0`` stand
-    for two cards), the GROUP BY MIN/MAX rows are still reduced by one
-    ``shard_bucket_merge`` on the first device, over every shard's whole
-    buffer; 1026 slots over 3 and 4 shards (not a multiple of either)."""
+    for two cards), the GROUP BY counts, sums and MIN/MAX rows are still
+    merged by one ``shard_merge`` on the first device, over every shard's
+    whole buffer; 1026 slots over 3 and 4 shards (not a multiple of
+    either)."""
     table, snap = configs.build_multichip_table(30_000)
     want, scales = configs.truth("4x", snap)
     for devs in (["cpu", "cpu:0"] * 2, ["cpu", "cpu:0", "cpu"]):
         r = DeviceRunner(mesh=pm.make_mesh(devs), chunk_rows=CHUNK)
         seen = []
-        real = sh.shard_bucket_merge
+        real = sh.shard_merge
 
         def spy(parts, segments, out=None):
-            seen.append((len(parts), {p.device for p in parts}))
+            seen.append((len(parts), {p.device for p in parts},
+                         sorted({op for _o, _n, op in segments})))
             return real(parts, segments, out)
 
-        monkeypatch.setattr(sh, "shard_bucket_merge", spy)
+        monkeypatch.setattr(sh, "shard_merge", spy)
         got = r.handle_request(configs.dag_4x(table), snap).rows()
         monkeypatch.undo()
-        assert seen == [(len(devs), {torch.device("cpu")})]
+        assert seen == [(len(devs), {torch.device("cpu")},
+                         ["max_i64", "min_i64", "sum_i64"])]
         assert configs.rows_agree(got, want, scales, 1e-9)
 
 
@@ -464,7 +567,7 @@ def test_one_shard_mesh_takes_the_single_device_code(monkeypatch):
         log = logs[name] = []
         for mod, fn in ((ha, "hash_agg"), (rmod, "twolevel_fused"),
                         (rmod, "agg_fold"), (sh, "shard_psum"),
-                        (sh, "shard_bucket_merge")):
+                        (sh, "shard_bucket_merge"), (sh, "shard_merge")):
             _count_calls(monkeypatch, mod, fn, log)
         for cfg in ("3", "4", "4n", "4m", "3n"):
             table, snap = configs.CONFIGS[cfg][0](20_000)
@@ -478,14 +581,16 @@ def test_one_shard_mesh_takes_the_single_device_code(monkeypatch):
         monkeypatch.undo()
     assert logs["one"] == logs["single"]
     assert "shard_psum" not in logs["one"]
+    assert "shard_merge" not in logs["one"]
     assert one.sel_routes == single.sel_routes
     assert one.pred_routes == single.pred_routes
 
 
 def test_mesh_merges_launch_where_the_route_needs_them(monkeypatch):
     """Per request on a 4-shard mesh: every per-shard wrapper once a live
-    shard, one psum on the summed routes, and the bucket merge only with
-    GROUP BY MIN/MAX; selections and top-n merge on the host."""
+    shard, and one merge launch: the psum on the fused and two-level
+    routes, one ``shard_merge`` of the fold's summed and MIN/MAX rows
+    together with GROUP BY (4x); selections and top-n merge on the host."""
     r = DeviceRunner(mesh=pm.make_mesh(["cpu"] * 4), chunk_rows=4 * ha.BLOCK)
     import tikv_tpu_torch.device.runner as rmod
     n = 3 * ha.BLOCK + 5                # the last shard holds 5 rows
@@ -497,7 +602,7 @@ def test_mesh_merges_launch_where_the_route_needs_them(monkeypatch):
         "3": (configs.dag_simple_agg(table), snap,
               ["hash_agg"] * 4 + ["shard_psum"]),
         "4x": (configs.dag_4x(table), snap, ["agg_fold"] * 4 +
-               ["shard_psum", "shard_bucket_merge"]),
+               ["shard_merge"]),
         "4n": (configs.dag_4n(ntable), nsnap, ["twolevel_fused"] * 4 +
                ["shard_psum"]),
         "2": (configs.dag_selection(table, 40), snap, []),
@@ -506,7 +611,7 @@ def test_mesh_merges_launch_where_the_route_needs_them(monkeypatch):
         log = []
         for mod, fn in ((ha, "hash_agg"), (rmod, "twolevel_fused"),
                         (rmod, "agg_fold"), (sh, "shard_psum"),
-                        (sh, "shard_bucket_merge")):
+                        (sh, "shard_bucket_merge"), (sh, "shard_merge")):
             _count_calls(monkeypatch, mod, fn, log)
         r.handle_request(dag, snap)
         monkeypatch.undo()

@@ -13,11 +13,12 @@ several-blocks path) decoded and replayed in numpy against the plain
 version; and the mint's spill patch, one call for every plane, against the
 reference's mint.
 
-``shard.shard_psum`` / ``shard_bucket_merge``: the packed parameter blocks
-(``plan_layout`` / ``bind``: segments inline up to ``INLINE_SEGS``, a table
-past it, the layout cache) decoded with a layout written
-from ``csrc/shard_merge.cu``'s ``MergeArgs<S>`` and replayed in numpy
-against ``shard_psum_plain`` and numpy at S = 2, 4, 5 and 8.
+``shard.shard_psum`` / ``shard_bucket_merge`` / ``shard_merge``: the
+packed parameter blocks (``plan_layout`` / ``bind``: segments inline up to
+``INLINE_SEGS``, a table past it, the layout cache) decoded with a layout
+written from ``csrc/shard_merge.cu``'s ``MergeArgs<S>`` and replayed in
+numpy against the plain versions and numpy at S = 2, 4, 5 and 8, sum and
+min/max segments apart and mixed in one block.
 
 Every comparison is exact: digests are integers mod 2^64, the merges are
 bit-equal.  The kernels themselves run only on the card (``chip_smoke.py``
@@ -404,6 +405,39 @@ def test_merge_packing_replays_the_plain_version(S, n_segs, sums):
     if sums and set(op for _o, _n, op in segs) == {"sum_i64"}:
         with np.errstate(over="ignore"):
             assert np.array_equal(out.numpy()[~keep], x.sum(0)[~keep])
+
+
+@pytest.mark.parametrize("S", [2, 4, 5, 8])
+@pytest.mark.parametrize("n_segs", [2, 3, 8, 9, 40])
+def test_mixed_merge_packing_replays_the_plain_version(S, n_segs):
+    """The block of a ``shard_merge`` whose segments mix sums with min/max
+    (inline and in a table) replays as ``shard_merge_plain`` and as the
+    psum of its sum segments followed by the bucket merge of the rest."""
+    rng = np.random.default_rng(S * 1000 + n_segs)
+    W = 16 * n_segs + 5
+    x = _words(rng, S, W)
+    parts = [torch.from_numpy(np.ascontiguousarray(r)) for r in x]
+    segs = [(16 * i + i % 3, 9 + i % 5, _OPS[(i * 5) % len(_OPS)])
+            for i in range(n_segs)]
+    assert {op in sh._SUM_OPS for _o, _n, op in segs} == {True, False}
+    out = torch.full((W,), 7, dtype=torch.int64)
+    vec = len({t.data_ptr() & 15 for t in (*parts, out)}) == 1
+    lay = sh.plan_layout(S, segs, vec, sms=132)
+    assert (lay.table_host is None) == (n_segs <= sh.INLINE_SEGS)
+    sh.bind(lay, parts, out, lay.table_host)
+    mem = {t.data_ptr(): t for t in (*parts, out)}
+    if lay.table_host is not None:
+        mem[lay.table_host.data_ptr()] = lay.table_host
+    _replay_merge(lay, mem)
+    plain = sh.shard_merge_plain(parts, segs,
+                                 out=torch.full((W,), 7, dtype=torch.int64))
+    assert torch.equal(out, plain)
+    two = torch.full((W,), 7, dtype=torch.int64)
+    sh.shard_psum_plain(parts, [g for g in segs if g[2] in sh._SUM_OPS],
+                        out=two)
+    sh.shard_bucket_merge_plain(
+        parts, [g for g in segs if g[2] not in sh._SUM_OPS], out=two)
+    assert torch.equal(out, two)
 
 
 def test_merge_layouts_are_cached(monkeypatch):

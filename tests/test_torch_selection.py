@@ -397,6 +397,91 @@ def test_compact_params_mirror_the_kernel_struct():
     assert names == [f[0] for f in sm._CompactParams._fields_]
 
 
+def _mask_source() -> str:
+    from pathlib import Path
+    return (Path(sm.__file__).parent.parent / "csrc" /
+            "sel_mask.cu").read_text()
+
+
+def _mask_const(name: str) -> int:
+    import re
+    src = _mask_source()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", src)[1]
+    expr = re.sub(r"//.*", "", expr)
+    return int(eval(expr, {k: _mask_const(k) for k in
+                           re.findall(r"[A-Z_]{3,}", expr)}))
+
+
+def _pack8(x: np.ndarray) -> np.ndarray:
+    """``pack8`` of csrc/sel_mask.cu in uint64 arithmetic (mod 2^64)."""
+    with np.errstate(over="ignore"):
+        return ((x & np.uint64(0x0101010101010101)) *
+                np.uint64(0x8040201008040201)) >> np.uint64(56)
+
+
+def sel_mask_model(pred: np.ndarray, n: int) -> tuple:
+    """csrc/sel_mask.cu's arithmetic replayed in numpy: each thread's four
+    16-byte loads as little-endian words, ``pack32`` of each pair into a
+    32-bit word, the thread's words stored at row0 / 32, one CTA's popcount
+    a block (one writer), and the count as the low half of the CTAs'
+    packed tally (``(1 << 32) | popcount`` summed) once the high half has
+    counted every CTA → (count, packed bytes, block counts)."""
+    rows_block = _mask_const("ROWS_PER_BLOCK")
+    per_thread = _mask_const("ROWS_PER_THREAD")
+    nb = -(-n // rows_block)
+    bools = np.zeros(nb * rows_block, np.uint8)
+    bools[:n] = pred[:n]                # rows past n read as 0
+    # one row of lanes a packed word: 32 rows as 8 little-endian u32 lanes
+    lanes = bools.view("<u4").reshape(-1, 8).astype(np.uint64)
+    # uint4 a = lanes 0-3, b = lanes 4-7; (hi << 32) | lo pairs of lanes
+    pairs = (lanes[:, 1::2] << np.uint64(32)) | lanes[:, 0::2]
+    bytes_ = _pack8(pairs)              # byte i: rows 8i .. 8i + 7
+    words = (bytes_[:, 0] | (bytes_[:, 1] << np.uint64(8)) |
+             (bytes_[:, 2] << np.uint64(16)) |
+             (bytes_[:, 3] << np.uint64(24))).astype("<u4")
+    assert per_thread % 32 == 0         # a thread's words are consecutive
+    popc = np.unpackbits(words.view(np.uint8)).reshape(len(words), -1) \
+        .sum(1)
+    blocks = popc.reshape(nb, -1).sum(1).astype(np.int32)
+    tally = int(((1 << 32) + blocks.astype(np.int64)).sum())
+    assert tally >> 32 == nb
+    return tally & 0xFFFFFFFF, words.view(np.uint8), blocks
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 4095,
+                               4096, 4097, 32767, 32768, 32769, 100_003])
+def test_sel_mask_kernel_model_matches_the_plain_version(n):
+    """The kernel's packing, its one count a block, and the last CTA's
+    count from the tally, replayed in numpy, equal ``sel_mask_plain`` and
+    np.packbits; its tiling covers the MaskOut layout."""
+    rng = np.random.default_rng(n)
+    pred = rng.random(n) < 0.37
+    count, packed, blocks = sel_mask_model(pred, n)
+    want = sm.sel_mask_plain(torch.from_numpy(pred), n)
+    assert count == int(want.count) == int(pred.sum())
+    assert np.array_equal(packed, want.packed.numpy())
+    assert np.array_equal(blocks, want.block_counts.numpy())
+    assert np.array_equal(packed[:-(-n // 8)], np.packbits(pred))
+    assert _mask_const("ROWS_PER_BLOCK") == sm.ROWS_PER_BLOCK
+    assert _mask_const("THREADS") * _mask_const("ROWS_PER_THREAD") == \
+        sm.ROWS_PER_BLOCK
+    assert _mask_const("THREADS") <= 1024
+    # the tally's low half holds every row of the largest call
+    assert sm.n_blocks((1 << 31) - 1) < 1 << 32
+
+
+def test_sel_mask_scratch_mirrors_the_kernel_struct():
+    """The wrapper's per-stream scratch is csrc/sel_mask.cu's ``struct
+    Scratch`` (one 8-byte tally; the library checks its size at load),
+    and ``sel_mask`` is a source of its own."""
+    import re
+    body = re.search(r"struct Scratch \{(.*?)\n\};", _mask_source(), re.S)[1]
+    assert re.findall(r"unsigned long long (\w+);", body) == ["tally"]
+    assert sm._MASK_SCRATCH_BYTES == 8
+    assert "sel_mask" in __import__(
+        "tikv_tpu_torch.device.build", fromlist=["SOURCES"]).SOURCES
+
+
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu_only():
     before = (sm.mask_launches, sm.compact_launches)
     m = torch.rand(1000) < 0.5

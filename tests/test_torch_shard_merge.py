@@ -1,5 +1,6 @@
 """The cross-shard merges (``tikv_tpu_torch.device.shard``): the plain
-versions of ``shard_psum`` and ``shard_bucket_merge`` against numpy, and
+versions of ``shard_psum``, ``shard_bucket_merge`` and ``shard_merge`` (both
+kinds of segment in one launch) against numpy and against each other, and
 the port's merges of stacked states against the JAX package's static host
 merges ``DeviceRunner._merge_stacked`` (a simple aggregation's MIN, MAX and
 FIRST over the shards) and ``_merge_bucketed`` (the flatten and trim of the
@@ -122,6 +123,94 @@ def test_segments_mix_and_leave_the_rest():
     assert (got[keep] == 7).all()
 
 
+def _random_table(rng, W, n_segs):
+    """``n_segs`` disjoint segments of ``W`` words (some empty, some one
+    word, some odd), each with one of the six ops."""
+    cuts = np.sort(rng.choice(np.arange(1, W), 2 * n_segs - 1,
+                              replace=False))
+    edges = np.concatenate([[0], cuts, [W]])
+    ops = list(sh._OPS)
+    segs = []
+    for i in range(n_segs):
+        lo, hi = int(edges[2 * i]), int(edges[2 * i + 1])
+        if rng.random() < 0.1:
+            hi = lo                     # an empty segment
+        segs.append((lo, hi - lo, ops[rng.integers(len(ops))]))
+    rng.shuffle(segs)
+    return segs
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 11])
+@pytest.mark.parametrize("seed", range(4))
+def test_merge_plain_is_the_psum_and_bucket_merge_composed(S, seed):
+    """``shard_merge_plain`` over a seeded table mixing all six ops (int64
+    and float64 segments in one int64 buffer, NaN, ±0.0 and ±inf among the
+    float words) equals ``shard_psum_plain`` of its sum segments followed
+    by ``shard_bucket_merge_plain`` of its min/max segments into the same
+    output, bit for bit; the words outside every segment keep ``out``'s."""
+    rng = np.random.default_rng(1000 * S + seed)
+    W = int(rng.integers(40, 3000))
+    segs = _random_table(rng, W, int(rng.integers(1, 12)))
+    x = _words(rng, S, W, "i64")
+    f = _words(rng, S, W, "f64")
+    for off, n, op in segs:
+        if op.endswith("_f64"):
+            x[:, off:off + n] = f[:, off:off + n].view(np.int64)
+    init = rng.integers(-9, 9, W, dtype=np.int64)
+    got = sh.shard_merge(_parts(x), segs, out=torch.from_numpy(init.copy()))
+    want = torch.from_numpy(init.copy())
+    sums = [g for g in segs if g[2] in sh._SUM_OPS]
+    stacked = [g for g in segs if g[2] not in sh._SUM_OPS]
+    sh.shard_psum_plain(_parts(x), sums, out=want)
+    sh.shard_bucket_merge_plain(_parts(x), stacked, out=want)
+    assert np.array_equal(got.numpy(), want.numpy())
+    keep = np.ones(W, bool)
+    for off, n, _op in segs:
+        keep[off:off + n] = False
+    assert np.array_equal(got.numpy()[keep], init[keep])
+    # and each segment against the plain rule it names, in numpy
+    for off, n, op in segs:
+        seg = x[:, off:off + n]
+        ints = op.endswith("_i64")
+        vals = seg if ints else seg.view(np.float64)
+        acc = vals[0].copy()
+        with np.errstate(over="ignore", invalid="ignore"):
+            for row in vals[1:]:
+                if op.startswith("sum"):
+                    acc = acc + row
+                    continue
+                better = row < acc if op.startswith("min") else row > acc
+                if not ints:
+                    better = ~np.isnan(acc) & (np.isnan(row) | better)
+                acc = np.where(better, row, acc)
+        assert np.array_equal(got.numpy()[off:off + n],
+                              acc if ints else acc.view(np.int64)), op
+
+
+def test_merge_takes_one_kind_or_both():
+    """``shard_merge`` of only sum segments equals ``shard_psum``, of only
+    min/max segments ``shard_bucket_merge``; a float64 buffer merges as
+    the int64 one holding its bits."""
+    rng = np.random.default_rng(21)
+    x = _words(rng, 4, 300, "f64")
+    parts = _parts(x)
+    for segs, other in (([(0, 100, "sum_f64"), (150, 50, "sum_i64")],
+                         sh.shard_psum),
+                        ([(0, 100, "min_f64"), (100, 200, "max_f64")],
+                         sh.shard_bucket_merge)):
+        init = torch.zeros(300, dtype=torch.float64)
+        got = sh.shard_merge(parts, segs, out=init.clone())
+        assert got.dtype == torch.float64
+        assert np.array_equal(_bits(got.numpy()),
+                              _bits(other(parts, segs,
+                                          out=init.clone()).numpy()))
+    bits = [p.view(torch.int64) for p in parts]
+    segs = [(0, 150, "max_f64"), (150, 150, "sum_f64")]
+    assert np.array_equal(
+        sh.shard_merge(bits, segs).numpy(),
+        _bits(sh.shard_merge(parts, segs).numpy()))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     a = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError):
@@ -141,6 +230,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         sh.shard_bucket_merge([a, a], [(0, 8, "sum_i64")])
     with pytest.raises(ValueError):
+        sh.shard_merge([a, a], [(0, 8, "sum_i32")])
+    with pytest.raises(ValueError):
+        sh.shard_merge([a, a], [(0, 4, "min_i64"), (4, 5, "sum_i64")])
+    with pytest.raises(ValueError):
+        sh.shard_merge([a, a.to(torch.float64)], [(0, 8, "max_f64")])
+    with pytest.raises(ValueError):
+        sh.shard_merge([a, a], [(0, 8, "max_i64")],
+                       out=torch.zeros(8, dtype=torch.float64))
+    with pytest.raises(ValueError):
         sh.shard_psum([a, a], [(4, 5, "sum_i64")])
     with pytest.raises(ValueError):
         sh.shard_psum([a, a], out=torch.zeros(7, dtype=torch.int64))
@@ -152,8 +250,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("S,slots", [(2, 1026), (3, 1026), (4, 1026),
                                      (7, 1026), (8, 1026), (4, 5), (8, 3)])
 def test_bucket_merge_matches_merge_bucketed(S, slots):
-    """The runner's GROUP BY MIN/MAX merge — one ``shard_bucket_merge``
-    over every shard's whole buffer, a segment a stacked row — equals the
+    """The runner's GROUP BY MIN/MAX merge — the min/max segments of its
+    one ``shard_merge`` over every shard's whole buffer, a segment a
+    stacked row — equals the
     reference's all-to-all (the slot axis padded to ⌈slots/S⌉·S with the
     merge identity, shard j reducing bucket j of every shard) followed by
     its host flatten and trim ``_merge_bucketed``, and the plain min / max

@@ -1,7 +1,7 @@
 // Selection vectors for Hopper: the predicate evaluated over the feed
-// (sel_pred, and sel_pred_batched for a group of requests), the packed
-// mask of a bool predicate (sel_mask) and the in-order compaction of the
-// selected rows (sel_compact).
+// (sel_pred, and sel_pred_batched for a group of requests) and the
+// in-order compaction of the selected rows (sel_compact).  The packed mask
+// of a bool predicate evaluated elsewhere (sel_mask) is sel_mask.cu's.
 //
 // Replaces the XLA kernels of tikv_tpu/device/selection.py:
 //   sel_pred    <- build_mask_kernel (:227), the whole fused pass: the
@@ -11,35 +11,22 @@
 //   sel_pred_batched <- build_batched_mask_kernel (:273): G requests'
 //                  constants over one program and one feed, G counts and
 //                  G packed masks;
-//   sel_mask    <- the count-and-pack half of the same kernel, for a bool
-//                  predicate evaluated elsewhere (a plan sel_pred does not
-//                  cover);
 //   sel_compact <- build_index_kernel (:323): ascending int32 row indices
 //                  into [k_cap] with -1 fill and an overflow flag
 //                  (nonzero(size=k_cap)), and build_compact_kernel (:357):
 //                  the same indices plus each projected plane's value at
 //                  them, the gather fused into the compaction.
 //
-// Layout shared by both kernels: a CUDA block covers ROWS_PER_BLOCK =
-// 32768 rows, 128 per thread, i.e. 4096 packed bytes per block and 16 per
-// thread.  sel_mask writes one popcount per block (`block_counts`), which
-// is what sel_compact scans.
-//
-// Bound: bytes.  sel_mask reads n bool bytes once and writes n / 8 packed
-// bytes: (1 + 1/8) B x 10,485,760 rows (config 2) is 3.5 us at 3.35 TB/s,
-// far below a launch's own latency.  Each thread reads its 128 bools with
-// 8 16-byte loads (all in flight before any is packed), packs 8 bools into
-// a byte with one multiply (bit order of np.packbits: row 8j is bit 7 of
-// byte j), and stores its 16 bytes with one 16-byte store; rows at or past
-// n read as false.  The count is a block reduction and one 64-bit atomic
-// per block.
-// sel_pred keeps sel_mask's layout (a block of 32768 rows, one count per
-// block, the same packed bytes), so sel_compact reads either.  Bound:
-// bytes, the planes the selection names read once and the packed mask (and
-// the bool mask) written once: (4 + 1/8) B x 10,485,760 rows at config 2
-// is 12.9 us at 3.35 TB/s.  A thread takes 16 consecutive rows at a time
-// (a CTA's 256 threads 4096 rows, 8 CTAs a block), read with 16-byte
-// loads.  The predicate is a short program (the wrapper's encoder in
+// The mask layout (sel_mask.cu keeps the same): a block of ROWS_PER_BLOCK
+// = 32768 rows is 4096 packed bytes in np.packbits' bit order (row 8j is
+// bit 7 of byte j), rows at or past n reading as 0, with one popcount per
+// block (`block_counts`), which is what sel_compact scans.
+// sel_pred writes that layout, as sel_mask does, so sel_compact reads
+// either.  Bound: bytes, the planes the selection names read once and the
+// packed mask (and the bool mask) written once: (4 + 1/8) B x 10,485,760
+// rows at config 2 is 12.9 us at 3.35 TB/s.  A thread takes 16 consecutive
+// rows at a time (a CTA's 256 threads 4096 rows, 8 CTAs a block), read
+// with 16-byte loads.  The predicate is a short program (the wrapper's encoder in
 // device/selection.py) passed by value in the launch parameters: column
 // refs, constants (hoisted into the parameters, none on the device),
 // calls.  Every thread runs the same program, so every branch is
@@ -101,7 +88,7 @@
 #define MAX_PLANES 128
 
 #define PRED_ROWS 16          // rows a thread evaluates at a time
-// CTAs a block of sel_mask's layout
+// CTAs a block of the mask layout
 #define PRED_STEPS (ROWS_PER_BLOCK / (THREADS * PRED_ROWS))
 #define PRED_MAX_COLS 16
 #define PRED_MAX_OPS 32
@@ -185,19 +172,6 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// 8 bool bytes (row 8j in the lowest byte) -> one byte, row 8j in bit 7
-__device__ __forceinline__ unsigned pack8(unsigned long long x) {
-  return (unsigned)(((x & 0x0101010101010101ULL) * 0x8040201008040201ULL) >>
-                    56);
-}
-
-__device__ __forceinline__ unsigned pack16(uint4 a, uint4 b) {
-  return pack8(((unsigned long long)a.y << 32) | a.x) |
-         (pack8(((unsigned long long)a.w << 32) | a.z) << 8) |
-         (pack8(((unsigned long long)b.y << 32) | b.x) << 16) |
-         (pack8(((unsigned long long)b.w << 32) | b.z) << 24);
-}
-
 // sum of `v` over the block, returned to every thread
 __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
@@ -208,48 +182,6 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   for (int w = 0; w < THREADS / 32; ++w) total += red[w];
   __syncthreads();
   return total;
-}
-
-__global__ void __launch_bounds__(THREADS)
-    sel_mask_kernel(const unsigned char* __restrict__ pred, long long n,
-                    int vec, unsigned char* __restrict__ packed,
-                    int* __restrict__ block_counts,
-                    unsigned long long* __restrict__ count) {
-  __shared__ long long red[THREADS / 32];
-  const long long row0 = (long long)blockIdx.x * ROWS_PER_BLOCK +
-                         (long long)threadIdx.x * ROWS_PER_THREAD;
-  unsigned words[4];
-  if (vec && row0 + ROWS_PER_THREAD <= n) {
-    const uint4* src = reinterpret_cast<const uint4*>(pred + row0);
-    uint4 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __ldcs(src + i);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) words[w] = pack16(v[2 * w], v[2 * w + 1]);
-  } else {
-    for (int w = 0; w < 4; ++w) {
-      unsigned word = 0;
-      for (int byte = 0; byte < 4; ++byte) {
-        unsigned bits = 0;
-        for (int bit = 0; bit < 8; ++bit) {
-          const long long r = row0 + 32 * w + 8 * byte + bit;
-          bits = (bits << 1) | ((r < n && pred[r]) ? 1u : 0u);
-        }
-        word |= bits << (8 * byte);
-      }
-      words[w] = word;
-    }
-  }
-  *reinterpret_cast<uint4*>(packed + row0 / 8) =
-      make_uint4(words[0], words[1], words[2], words[3]);
-  const long long total =
-      block_sum(__popc(words[0]) + __popc(words[1]) + __popc(words[2]) +
-                    __popc(words[3]),
-                red);
-  if (threadIdx.x == 0) {
-    block_counts[blockIdx.x] = (int)total;
-    atomicAdd(count, (unsigned long long)total);
-  }
 }
 
 // ------------------------------------------------------------- sel_pred
@@ -1030,23 +962,6 @@ cudaError_t launch_batched(const PredParams* p, BatchParams* b,
 }  // namespace
 
 extern "C" {
-
-// count (8 bytes) is zeroed here; packed holds n_blocks * 4096 bytes,
-// 16-byte aligned; `vec`: pred is 16-byte aligned.
-int sel_mask_launch(int device, const void* pred, long long n, int vec,
-                    void* packed, void* block_counts, void* count,
-                    void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((e = cudaMemsetAsync(count, 0, 8, s)) != cudaSuccess) return e;
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  sel_mask_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<const unsigned char*>(pred), n, vec,
-      static_cast<unsigned char*>(packed), static_cast<int*>(block_counts),
-      static_cast<unsigned long long*>(count));
-  return cudaGetLastError();
-}
 
 // sel_pred over rows [0, n): `nd` the program's stack depth (at most 4),
 // `wide` 1 when it holds an int64 value (64-bit payloads); the count and

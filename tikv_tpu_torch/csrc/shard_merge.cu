@@ -13,15 +13,16 @@
 //                         of every shard's (1, slots_m) MIN/MAX partial to
 //                         shard j, which reduces the (S, slots_m/S) pile.
 // The mesh is driven from one process: the runner copies every shard's
-// buffer to the mesh's first card (Tensor.to; none on one card) for the
-// psum, and merges the whole (S, slots) MIN/MAX pile there in one launch,
-// so the all-to-all, which would only add copies, has no counterpart.
+// buffer to the mesh's first card (Tensor.to; none on one card) and
+// merges the whole (S, slots) MIN/MAX pile there in the same launch as the
+// psum of the summed rows, so the all-to-all, which would only add copies,
+// has no counterpart.
 //
-// Both kernels read S <= MAX_SRC sources over segments of words (a
+// Two kernels read S <= MAX_SRC sources over segments of words (a
 // segment: its first word, its length and its op; the same offsets in
 // every source and in the output).  Block (x, y) takes segment y; the x
-// blocks stride its words.
-//   shard_psum:         out[w] = src_0[w] + src_1[w] + ... + src_{S-1}[w],
+// blocks stride its words.  Per op:
+//   sum (int64, float64): out[w] = src_0[w] + src_1[w] + ... + src_{S-1}[w],
 //                       in shard order, no atomics: int64 words add with
 //                       wraparound (the reference's int64 psum); float64
 //                       words add in that fixed order, so the result is
@@ -29,11 +30,16 @@
 //                       (shard.shard_psum_plain: acc = acc + part_s), NaN
 //                       bits included: the first NaN in shard order,
 //                       quieted, as the card's add of (acc, part) gives.
-//   shard_bucket_merge: out[w] = min (or max) over s of src_s[w], int64 or
-//                       float64.  A NaN propagates, as torch.amin/amax and
-//                       jnp.min do: the first NaN in shard order is kept,
-//                       bits and all; among equal values (+0.0 and -0.0)
-//                       the first in shard order is kept.
+//   min, max (int64, float64): out[w] = min (or max) over s of src_s[w].
+//                       A NaN propagates, as torch.amin/amax and jnp.min
+//                       do: the first NaN in shard order is kept, bits and
+//                       all; among equal values (+0.0 and -0.0) the first
+//                       in shard order is kept.
+// psum_kernel takes the sum ops only (shard_psum, and every launch whose
+// segments are all sums); merge_kernel takes any mix of the six
+// (shard_bucket_merge, and shard_merge: the runner's GROUP BY fold merge,
+// its summed rows and its MIN/MAX rows in one launch).  A block reads its
+// segment's op once, before the word loop, and each op has its own loop.
 // Bound: the launch.  At the main path's shapes a merge moves kilobytes
 // (config 4: 1026 slots, S = 4), so what is left to cut is the work around
 // the launch and the dependent steps inside it:
@@ -158,15 +164,28 @@ __device__ __forceinline__ longlong2 load2(const long long* p) {
   return *reinterpret_cast<const longlong2*>(p);
 }
 
+// A compiler barrier after a word's loads (PIN): in the merge kernel, whose
+// blocks take any of the six ops, the compiler otherwise sinks a float64
+// sum's source load into the fold of the sources before it, predicated on
+// the running value not being NaN, so each load waits for the one before.
+// With it every load of a word is issued first (on sm_90a ptxas still
+// spreads the float64 pair path's four loads over its adds; the int64
+// paths issue all four first).
+template <bool PIN>
+__device__ __forceinline__ void loads_issued() {
+  if constexpr (PIN) asm volatile("" ::: "memory");
+}
+
 // The word pair at w merged over the sources: every source's load issued
 // before the first fold (S > 0), or four sources at a time (S = 0).
-template <int S, int OP>
+template <int S, int OP, bool PIN>
 __device__ __forceinline__ longlong2 merge_pair(const MergeArgs<S>& p,
                                                 long long w) {
   if constexpr (S > 0) {
     longlong2 v[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) v[s] = load2(p.src[s] + w);
+    loads_issued<PIN>();
     longlong2 acc = v[0];
 #pragma unroll
     for (int s = 1; s < S; ++s) fold2<OP>(acc, v[s]);
@@ -178,6 +197,7 @@ __device__ __forceinline__ longlong2 merge_pair(const MergeArgs<S>& p,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (s0 + j < p.n_src) v[j] = load2(p.src[s0 + j] + w);
+      loads_issued<PIN>();
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (s0 + j < p.n_src) fold2<OP>(acc, v[j]);
@@ -186,13 +206,14 @@ __device__ __forceinline__ longlong2 merge_pair(const MergeArgs<S>& p,
   }
 }
 
-template <int S, int OP>
+template <int S, int OP, bool PIN>
 __device__ __forceinline__ long long merge_word(const MergeArgs<S>& p,
                                                 long long w) {
   if constexpr (S > 0) {
     long long v[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) v[s] = p.src[s][w];
+    loads_issued<PIN>();
     long long acc = v[0];
 #pragma unroll
     for (int s = 1; s < S; ++s) acc = fold<OP>(acc, v[s]);
@@ -205,7 +226,7 @@ __device__ __forceinline__ long long merge_word(const MergeArgs<S>& p,
 }
 
 // one segment's words [off, off + len) with its op known at compile time
-template <int S, int OP>
+template <int S, int OP, bool PIN = false>
 __device__ __forceinline__ void merge_segment(const MergeArgs<S>& p,
                                               long long off, long long len) {
   long long lead = 0, pairs = 0;
@@ -224,16 +245,19 @@ __device__ __forceinline__ void merge_segment(const MergeArgs<S>& p,
        u < units; u += step) {
     if (u >= lead && u < lead + pairs) {
       const long long w = off + lead + 2 * (u - lead);
-      *reinterpret_cast<longlong2*>(p.out + w) = merge_pair<S, OP>(p, w);
+      *reinterpret_cast<longlong2*>(p.out + w) =
+          merge_pair<S, OP, PIN>(p, w);
     } else {
       const long long w = off + (u < lead ? u : tail0 + (u - lead - pairs));
-      p.out[w] = merge_word<S, OP>(p, w);
+      p.out[w] = merge_word<S, OP, PIN>(p, w);
     }
   }
 }
 
-// the body of both kernels (the wrapper checks each one's ops): the
-// segment's op is read once, and each op has its own loop
+// The body of both kernels: the segment's op is read once, before the word
+// loop, and each op has its own loop (a runtime op switch inside the loop
+// put predicated adds between the loads).  The psum's kernel (SUMS) takes
+// the two sum ops, the merge kernel all six (the launcher checks them).
 template <int S, bool SUMS>
 __device__ __forceinline__ void merge_body(const MergeArgs<S>& p) {
   wait_prior_grid();
@@ -246,17 +270,23 @@ __device__ __forceinline__ void merge_body(const MergeArgs<S>& p) {
       merge_segment<S, OP_SUM_I64>(p, off, len);
   } else {
     switch (sg.op) {
+      case OP_SUM_I64:
+        merge_segment<S, OP_SUM_I64, true>(p, off, len);
+        break;
+      case OP_SUM_F64:
+        merge_segment<S, OP_SUM_F64, true>(p, off, len);
+        break;
       case OP_MIN_I64:
-        merge_segment<S, OP_MIN_I64>(p, off, len);
+        merge_segment<S, OP_MIN_I64, true>(p, off, len);
         break;
       case OP_MAX_I64:
-        merge_segment<S, OP_MAX_I64>(p, off, len);
+        merge_segment<S, OP_MAX_I64, true>(p, off, len);
         break;
       case OP_MIN_F64:
-        merge_segment<S, OP_MIN_F64>(p, off, len);
+        merge_segment<S, OP_MIN_F64, true>(p, off, len);
         break;
       default:
-        merge_segment<S, OP_MAX_F64>(p, off, len);
+        merge_segment<S, OP_MAX_F64, true>(p, off, len);
     }
   }
 }
@@ -271,7 +301,7 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int S>
 __global__ void __launch_bounds__(THREADS)
-    bucket_merge_kernel(const __grid_constant__ MergeArgs<S> p) {
+    merge_kernel(const __grid_constant__ MergeArgs<S> p) {
   merge_body<S, false>(p);
 }
 
@@ -287,7 +317,7 @@ cudaError_t launch_as(bool sums, const void* args, int bytes, int grid_x,
     for (int i = 0; i < n_y; ++i) {
       const int op = p.seg[i].op;
       const bool sum = op == OP_SUM_I64 || op == OP_SUM_F64;
-      if (op < OP_SUM_I64 || op > OP_MAX_F64 || sum != sums ||
+      if (op < OP_SUM_I64 || op > OP_MAX_F64 || (sums && !sum) ||
           p.seg[i].off < 0 || p.seg[i].len < 0)
         return cudaErrorInvalidValue;
     }
@@ -303,7 +333,7 @@ cudaError_t launch_as(bool sums, const void* args, int bytes, int grid_x,
   cfg.attrs = attr;
   cfg.numAttrs = dependent ? 1 : 0;
   return sums ? cudaLaunchKernelEx(&cfg, psum_kernel<S>, p)
-              : cudaLaunchKernelEx(&cfg, bucket_merge_kernel<S>, p);
+              : cudaLaunchKernelEx(&cfg, merge_kernel<S>, p);
 }
 
 }  // namespace
@@ -332,8 +362,9 @@ int shard_threads() { return THREADS; }
 
 // One merge launch: `args` is a MergeArgs<S> of `bytes` bytes (S 2, 4, 8,
 // or 0 for the general path), its grid (grid_x, n_y) with block y taking
-// segment y (of seg[] or of the device table); `sums` picks the psum,
-// else the min/max merge; `dependent` launches it programmatically.
+// segment y (of seg[] or of the device table); `sums` picks the psum's
+// kernel (sum segments only), else the merge kernel (any mix of the six
+// ops); `dependent` launches it programmatically.
 int shard_merge_launch(int device, int sums, int S, const void* args,
                        int bytes, int grid_x, int n_y, int dependent,
                        void* stream) {

@@ -6,13 +6,14 @@ statistics of ANALYZE (``DeviceRunner.handle_analyze``).
 
 The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``agg_fold`` (aggregation), ``selection`` (``sel_pred``,
-``sel_pred_batched``'s interpreter, ``sel_mask``, ``sel_compact``),
+``sel_pred_batched``'s interpreter, ``sel_compact``), ``sel_mask``,
 ``sel_batched`` (``sel_pred_batched``'s terms route), ``topn``
 (``topn_select``), ``digest``
 (``plane_digest``, ``feed_verify``, ``patch_feed_rows`` and its one-plane
 case ``patch_rows``), ``mvcc``
 (``mvcc_resolve``), ``split`` (``split_planes``), ``shard_merge``
-(``shard_psum``, ``shard_bucket_merge``, wrapped by ``shard.py``), each
+(``shard_psum``, ``shard_bucket_merge``, ``shard_merge``, wrapped by
+``shard.py``), each
 wrapped by the module of its name, and ``sort`` (``sort_perm``,
 ``join_build``), ``join`` (``join_probe``, wrapped by ``join_probe.py``),
 ``window`` (``window_scan``) and ``analyze`` (``analyze_column``).

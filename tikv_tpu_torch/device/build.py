@@ -31,7 +31,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # empty kernel, the launch-time yardstick the chip smoke measures)
 SOURCES = ("hash_agg", "twolevel", "selection", "topn", "agg_fold",
            "digest", "mvcc", "sort", "join", "window", "analyze", "split",
-           "sel_batched", "shard_merge", "floor")
+           "sel_batched", "sel_mask", "shard_merge", "floor")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

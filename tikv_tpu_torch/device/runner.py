@@ -65,14 +65,15 @@ rows, slice s its own tensor on mesh device s, shard s holding rows
 ``[s·n_local, s·n_local + clip(n − s·n_local, 0, n_local))``.  Each shard
 with live rows runs the routes above over its own slice, in device order
 (``_per_shard``), and the partials merge on the mesh's first device: the
-summed states (hash_agg's packed outputs, the two-level planes, the fold's
-counts and sums) by one ``shard.shard_psum`` (``csrc/shard_merge.cu``); a
-GROUP BY's MIN/MAX rows by one ``shard.shard_bucket_merge``; a
-simple aggregation's MIN, MAX and FIRST on the host (phase
-``shard_merge``).  A selection concatenates the shards' packed masks (or
-their row indices, each offset by its shard's first row), a TopN orders
-the shards' candidates on the host.  The GROUP BY dictionary of a sparse
-key is built once from the whole snapshot.  The cold mint, the split
+summed states (hash_agg's packed outputs, the two-level planes, a simple
+fold's counts and sums) by one ``shard.shard_psum``
+(``csrc/shard_merge.cu``); a GROUP BY fold's counts, sums and MIN/MAX rows
+together by one ``shard.shard_merge``; a simple aggregation's MIN, MAX
+and FIRST on the host (phase ``shard_merge``).  A selection concatenates
+the shards' packed masks (or their row indices, each offset by its
+shard's first row), a TopN orders the shards' candidates on the host.
+The GROUP BY dictionary of a sparse key is built once from the whole
+snapshot.  The cold mint, the split
 stash, the device split, the compact route, stacked batches and ANALYZE
 stay single-device, as in the reference (a mesh's ANALYZE is served by
 the host half).  The ``device::shard_launch`` failpoint fails a shard's
@@ -2050,10 +2051,11 @@ class DeviceRunner:
         """The shards' ``agg_fold`` buffers merged → (the tensors to fetch,
         their host half: fetched → one buffer in the fold's layout).
 
-        The summed words go through ``shard_psum``.  GROUP BY MIN/MAX rows
-        (``_finalize_hash_bucket_merge``): one ``shard_bucket_merge`` over
-        the shards' buffers, on the first card, into the psum's output.
-        Without GROUP BY, MIN, MAX and FIRST come home as S rows
+        With GROUP BY (``_finalize_psum_summed`` and
+        ``_finalize_hash_bucket_merge``): one ``shard_merge`` over the
+        shards' buffers on the first card, its summed words and its
+        MIN/MAX rows in one launch.  Without GROUP BY the summed words go
+        through ``shard_psum``, and MIN, MAX and FIRST come home as S rows
         each and the host reduces them (``_merge_stacked``, runner.py:
         2391-2410): FIRST takes the shard with the least global position
         (its own plus the shard's first row ``bases[i]``)."""
@@ -2063,23 +2065,26 @@ class DeviceRunner:
         sums, stacked, first = _fold_merge_rows(plan, n_slots)
         root = self.device
         bufs = [o.buf.to(root, non_blocking=True) for o in outs]
-        merged = sh.shard_psum(bufs, sums)
-        if simple:
-            if not (stacked or first):
-                return [merged], lambda f: f[0]
-            return [merged, torch.stack(bufs)], lambda f: self._merge_simple(
-                f[0], f[1], stacked, first, plan, bases)
-        if stacked:
+        if not simple:
             # every shard's buffer is on the first card already: one launch
-            # over the whole (S, slots) pile, into the psum's output
-            sh.shard_bucket_merge(bufs, [(1 + r * n_slots, n_slots, op)
-                                         for r, op in stacked], out=merged)
-        return [merged], lambda f: f[0]
+            # over the whole (S, slots) pile
+            return [sh.shard_merge(bufs, sums + [
+                (1 + r * n_slots, n_slots, op) for r, op in stacked])], \
+                lambda f: f[0]
+        merged = sh.shard_psum(bufs, sums)
+        if not (stacked or first):
+            return [merged], lambda f: f[0]
+        return [merged, torch.stack(bufs)], lambda f: self._merge_simple(
+            f[0], f[1], stacked, first, plan, bases)
 
     @staticmethod
     def _merge_simple(summed, parts, stacked, first, plan, bases):
         """The host's reduce of a simple fold's MIN, MAX and FIRST rows
-        over the shards' buffers ``parts`` (S, W) into ``summed``."""
+        over the shards' buffers ``parts`` (S, W) into ``summed``, whose
+        words of those rows the psum left unwritten: every one of them is
+        set here.  FIRST takes the first shard that selected a row, its
+        position made global; with none, shard 0's empty state as it is
+        (``np.argmin`` over positions all ``_BIG`` picks shard 0)."""
         buf = summed.copy()
         with tracker.phase("shard_merge"):
             for r, op in stacked:
@@ -2088,11 +2093,11 @@ class DeviceRunner:
             for rows in first.values():
                 pos = parts[:, 1 + rows["first"]]
                 hit = np.flatnonzero(pos != _BIG)
-                if hit.size:
-                    i = int(hit[0])
-                    buf[1 + rows["first"]] = pos[i] + bases[i]
-                    for state in ("firstval", "firstok"):
-                        buf[1 + rows[state]] = parts[i, 1 + rows[state]]
+                i = int(hit[0]) if hit.size else 0
+                buf[1 + rows["first"]] = pos[i] + bases[i] if hit.size \
+                    else pos[i]
+                for state in ("firstval", "firstok"):
+                    buf[1 + rows[state]] = parts[i, 1 + rows[state]]
         return buf
 
     def _home(self, tensors: list) -> list:

@@ -1,5 +1,6 @@
 """Late-materialized selection: the route policy, and the wrappers and
-plain PyTorch versions of the CUDA kernels ``csrc/selection.cu``.
+plain PyTorch versions of the CUDA kernels ``csrc/selection.cu``,
+``csrc/sel_batched.cu`` and ``csrc/sel_mask.cu``.
 
 Counterpart of the JAX package's ``device/selection.py``.  A selection
 (scan → Selection, no terminal) evaluates its predicates over the resident
@@ -32,7 +33,10 @@ selection.py:273): one program, one constant table per lane, one read of
 the feed, every lane's count and packed mask in one buffer.
 
 Each kernel wrapper takes the plain version only for tensors on the CPU;
-on a CUDA tensor it launches its kernel or raises.  ``pred_launches``,
+on a CUDA tensor it launches its kernel or raises.  ``sel_mask`` is one
+launch and no memset: the last of its CTAs to finish writes the count,
+through a tally the wrapper zeroes once a (device, stream) and the kernel
+resets (``_mask_scratch``).  ``pred_launches``,
 ``batched_launches``, ``mask_launches`` and ``compact_launches`` count
 kernel launches and nothing else.
 """
@@ -57,7 +61,8 @@ ROUTE_COMPACT = "compact"
 # largest k the compact route materializes on the device (selection.py:98)
 COMPACT_MAX_ROWS = 1 << 14
 
-# rows per CUDA block of both kernels: 256 threads × 128 rows
+# rows per block of the mask layout (sel_pred, sel_mask, sel_compact): one
+# sel_mask CTA of 512 threads × 64 rows
 ROWS_PER_BLOCK = 1 << 15
 # planes sel_compact gathers in one launch (csrc/selection.cu MAX_PLANES)
 MAX_PLANES = 128
@@ -776,8 +781,6 @@ def _kernel_lib():
         from .build import load
         lib = load("selection")
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        lib.sel_mask_launch.argtypes = [i, p, ll, i, p, p, p, p]
-        lib.sel_mask_launch.restype = i
         lib.sel_compact_launch.argtypes = [i, ctypes.POINTER(_CompactParams),
                                            p]
         lib.sel_compact_launch.restype = i
@@ -1181,19 +1184,54 @@ def sel_pred_batched(progs: Sequence[PredProgram], planes: Sequence,
     return _sel_pred_batched_cuda(progs, planes, n)
 
 
+_mask_lib = None
+# (device index, stream) → the sel_mask kernel's tally (CTAs done << 32 |
+# rows selected): zeroed once here, reset by the kernel's last CTA at the
+# end of every call
+_MASK_SCRATCH: dict = {}
+_MASK_SCRATCH_BYTES = 8
+
+
+def _sel_mask_lib():
+    global _mask_lib
+    if _mask_lib is None:
+        from .build import load_checked
+        lib = load_checked("sel_mask", {
+            "sel_mask_rows_per_block": ROWS_PER_BLOCK,
+            "sel_mask_scratch_bytes": _MASK_SCRATCH_BYTES},
+            "sel_mask_error_string")
+        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        lib.sel_mask_launch.argtypes = [i, p, ll, i, p, p, p, p, p]
+        lib.sel_mask_launch.restype = i
+        _mask_lib = lib
+    return _mask_lib
+
+
+def _mask_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """The tally of ``sel_mask`` launches on ``stream`` of ``dev``
+    (allocated zeroed on its first call: one memset a stream, ever)."""
+    key = (_dev_index(dev), stream)
+    t = _MASK_SCRATCH.get(key)
+    if t is None:
+        t = _MASK_SCRATCH[key] = torch.zeros(
+            _MASK_SCRATCH_BYTES // 8, dtype=torch.int64, device=dev)
+    return t
+
+
 def _sel_mask_cuda(pred, n) -> MaskOut:
     global mask_launches
-    lib = _kernel_lib()
+    from .build import raise_on
+    lib = _sel_mask_lib()
     dev = pred.device
     nb = n_blocks(n)
     buf = torch.empty(HEADER + nb * ROWS_PER_BLOCK // 8, dtype=torch.uint8,
                       device=dev)
     block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib, lib.sel_mask_launch(
+    raise_on(lib, "sel_mask_error_string", lib.sel_mask_launch(
         _dev_index(dev), pred.data_ptr(), n, int(pred.data_ptr() % 16 == 0),
         buf.data_ptr() + HEADER, block_counts.data_ptr(), buf.data_ptr(),
-        stream), "sel_mask launch")
+        _mask_scratch(dev, stream).data_ptr(), stream), "sel_mask launch")
     mask_launches += 1
     return MaskOut(buf, block_counts, n)
 

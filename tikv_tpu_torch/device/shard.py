@@ -6,37 +6,42 @@ Counterparts of the JAX package's collectives in ``device/runner.py``:
 partials) and ``_finalize_psum_summed`` (:2599; the psum of every summed
 state leaf) become ``shard_psum``; ``_finalize_hash_bucket_merge`` (:2606;
 the all-to-all by key bucket and the MIN/MAX reduce of each (S, slots_m/S)
-pile) becomes ``shard_bucket_merge``.  The runner drives the mesh from one
-process and has every shard's buffer on the first card for the psum
-already, so it reduces the whole (S, slots) pile there in one launch: the
-reference's all-to-all, which spreads the reduce over chips, would only
-add copies.
+pile) becomes ``shard_bucket_merge``; ``shard_merge`` takes both kinds of
+segment in one launch.  The runner drives the mesh from one process and
+has every shard's buffer on the first card for the psum already, so it
+reduces the whole (S, slots) pile there in the same launch as the psum:
+the reference's all-to-all, which spreads the reduce over chips, would
+only add copies.
 
-Both kernels read S sources of int64 words (float64 values by their bits)
+The kernels read S sources of int64 words (float64 values by their bits)
 over a list of segments ``(first word, words, op)``, the same offsets in
 every source and in the output, and write the output's words of those
-segments (the rest are left as they were):
+segments (the rest are left as they were).  Per op:
 
-- ``shard_psum``: ``out[w] = part_0[w] + part_1[w] + … + part_{S-1}[w]`` in
-  shard order, int64 with wraparound (op ``"sum_i64"``) or float64
-  (``"sum_f64"``): deterministic, bit-equal to ``shard_psum_plain``;
-- ``shard_bucket_merge``: ``out[w]`` = min or max over the sources
-  (``"min_i64"``, ``"max_i64"``, ``"min_f64"``, ``"max_f64"``).  A NaN
-  propagates, as ``torch.amin``/``torch.amax`` and ``jnp.min`` do (the
-  first NaN in shard order, bits kept); among equal values, +0.0 and -0.0,
-  the first in shard order is kept.
+- ``"sum_i64"``, ``"sum_f64"``: ``out[w] = part_0[w] + part_1[w] + … +
+  part_{S-1}[w]`` in shard order, int64 with wraparound or float64:
+  deterministic, bit-equal to the plain version;
+- ``"min_i64"``, ``"max_i64"``, ``"min_f64"``, ``"max_f64"``: ``out[w]`` =
+  min or max over the sources.  A NaN propagates, as
+  ``torch.amin``/``torch.amax`` and ``jnp.min`` do (the first NaN in shard
+  order, bits kept); among equal values, +0.0 and -0.0, the first in shard
+  order is kept.
 
-On CUDA tensors each is one launch of up to ``MAX_SRC`` sources over up to
-``MAX_Y`` segments, all on one device; on CPU tensors the plain version.
-A launch's parameter block is sized to the request: the S source pointers
-and up to ``INLINE_SEGS`` segments inline, more segments in a table copied
-to the card on the launch stream.  The packed block of each layout (the
-device, the op, S, the 16-byte phase and the segments) is cached
-(``plan_layout``), so a plan's repeated requests only bind their pointers
-(``bind``).  The launch is programmatic: it may overlap the drain of the
-kernel before it on the stream (``csrc/shard_merge.cu``).
-``psum_launches`` and ``merge_launches`` count kernel launches and nothing
-else.  The runner's mesh path
+``shard_psum`` takes sum segments only, ``shard_bucket_merge`` min/max
+segments only, ``shard_merge`` any mix.  On CUDA tensors each is one
+launch of up to ``MAX_SRC`` sources over up to ``MAX_Y`` segments, all on
+one device: segments that are all sums take the psum's kernel, any other
+list the merge kernel, which picks each block's op before its word loop;
+on CPU tensors the plain version.  A launch's parameter block is sized to
+the request: the S source pointers and up to ``INLINE_SEGS`` segments
+inline, more segments in a table copied to the card on the launch stream.
+The packed block of each layout (the device, S, the 16-byte phase and the
+segments with their ops) is cached (``plan_layout``), so a plan's repeated
+requests only bind their pointers (``bind``).  The launch is programmatic:
+it may overlap the drain of the kernel before it on the stream
+(``csrc/shard_merge.cu``).  ``psum_launches`` counts the launches of the
+psum's kernel, ``merge_launches`` those of the merge kernel (a launch that
+carries a min/max segment), and nothing else.  The runner's mesh path
 (``DeviceRunner(mesh=...)``) copies each shard's partial to the mesh's
 first card (``Tensor.to``: nothing on one card) before calling these.
 """
@@ -65,7 +70,9 @@ def _words(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
-def _check(parts: Sequence[torch.Tensor], segments, sums: bool) -> None:
+def _check(parts: Sequence[torch.Tensor], segments, kind: str) -> None:
+    """``kind``: "psum" (sum segments only), "bucket" (min/max segments
+    only) or "merge" (any mix)."""
     if not parts:
         raise ValueError("no source")
     if len(parts) > MAX_SRC:
@@ -82,8 +89,9 @@ def _check(parts: Sequence[torch.Tensor], segments, sums: bool) -> None:
             raise ValueError("sources must be contiguous 1-D tensors of one "
                              "length")
     for off, n, op in segments:
-        if op not in _OPS or (op in _SUM_OPS) != sums:
-            raise ValueError(f"op {op!r} in a {'psum' if sums else 'merge'}")
+        if op not in _OPS or (kind != "merge" and
+                              (op in _SUM_OPS) != (kind == "psum")):
+            raise ValueError(f"op {op!r} in a {kind}")
         if off < 0 or n < 0 or off + n > w:
             raise ValueError(f"segment ({off}, {n}) outside {w} words")
     if len(segments) > MAX_Y:
@@ -98,30 +106,10 @@ def _default_segments(parts) -> list:
              else "sum_i64")]
 
 
-def shard_psum_plain(parts: Sequence[torch.Tensor], segments=None,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``acc = acc + part_s`` in shard order over each segment."""
-    segments = _default_segments(parts) if segments is None else segments
-    _check(parts, segments, True)
-    out = torch.empty_like(parts[0]) if out is None else out
-    ow = _words(out)
-    for off, n, op in segments:
-        view = (lambda t: _words(t)[off:off + n].view(torch.float64)) \
-            if op == "sum_f64" else (lambda t: _words(t)[off:off + n])
-        acc = view(parts[0]).clone()
-        for p in parts[1:]:
-            acc = acc + view(p)
-        ow[off:off + n] = _words(acc) if op == "sum_f64" else acc
-    return out
-
-
-def shard_bucket_merge_plain(parts: Sequence[torch.Tensor], segments,
-                             out: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """Min / max in shard order over each segment: a value replaces the
-    running one when it is NaN or strictly better and the running one is
-    not NaN."""
-    _check(parts, segments, False)
+def _merge_plain(parts, segments, out) -> torch.Tensor:
+    """Each segment's op in shard order: a sum ``acc = acc + part_s``; a
+    min / max where a value replaces the running one when it is NaN or
+    strictly better and the running one is not NaN."""
     out = torch.empty_like(parts[0]) if out is None else out
     ow = _words(out)
     for off, n, op in segments:
@@ -131,12 +119,41 @@ def shard_bucket_merge_plain(parts: Sequence[torch.Tensor], segments,
         acc = view(parts[0]).clone()
         for p in parts[1:]:
             v = view(p)
+            if op in _SUM_OPS:
+                acc = acc + v
+                continue
             better = v < acc if op.startswith("min") else v > acc
             if not ints:
                 better = ~torch.isnan(acc) & (torch.isnan(v) | better)
             acc = torch.where(better, v, acc)
         ow[off:off + n] = acc if ints else _words(acc)
     return out
+
+
+def shard_psum_plain(parts: Sequence[torch.Tensor], segments=None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc = acc + part_s`` in shard order over each segment."""
+    segments = _default_segments(parts) if segments is None else segments
+    _check(parts, segments, "psum")
+    return _merge_plain(parts, segments, out)
+
+
+def shard_bucket_merge_plain(parts: Sequence[torch.Tensor], segments,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Min / max in shard order over each segment: a value replaces the
+    running one when it is NaN or strictly better and the running one is
+    not NaN."""
+    _check(parts, segments, "bucket")
+    return _merge_plain(parts, segments, out)
+
+
+def shard_merge_plain(parts: Sequence[torch.Tensor], segments,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each segment's op as ``shard_psum_plain`` or
+    ``shard_bucket_merge_plain`` applies it."""
+    _check(parts, segments, "merge")
+    return _merge_plain(parts, segments, out)
 
 
 class _Seg(ctypes.Structure):
@@ -271,8 +288,9 @@ def _layout(dev, parts, segments, out) -> Layout:
 
 def _launch(parts, segments, out, sums: bool,
             dependent: bool = True) -> None:
-    """The launch of one merge (``dependent``: programmatic; only the
-    chip smoke's chain measurement launches without it)."""
+    """The launch of one merge: the psum's kernel (``sums``: every segment
+    a sum) or the merge kernel (any mix); ``dependent``: programmatic
+    (only the chip smoke's chain measurement launches without it)."""
     global psum_launches, merge_launches
     from .build import raise_on
     lib = _kernel_lib()
@@ -289,16 +307,16 @@ def _launch(parts, segments, out, sums: bool,
             lay.grid_x, lay.n_y, int(dependent),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "shard_error_string", err,
-             "shard_psum launch" if sums else "shard_bucket_merge launch")
+             "shard_psum launch" if sums else "shard_merge launch")
     if sums:
         psum_launches += 1
     else:
         merge_launches += 1
 
 
-def _run(parts, segments, out, sums: bool, plain) -> torch.Tensor:
+def _run(parts, segments, out, kind: str, plain) -> torch.Tensor:
     parts = list(parts)
-    _check(parts, segments, sums)
+    _check(parts, segments, kind)
     dev = parts[0].device
     if out is not None and (out.device != dev or out.dtype != parts[0].dtype
                             or out.numel() != parts[0].numel() or
@@ -310,7 +328,8 @@ def _run(parts, segments, out, sums: bool, plain) -> torch.Tensor:
         raise ValueError(f"the shard merges run on cuda or cpu, not {dev}")
     out = torch.empty_like(parts[0]) if out is None else out
     if segments:
-        _launch(parts, segments, out, sums)
+        _launch(parts, segments, out,
+                all(op in _SUM_OPS for _o, _n, op in segments))
     return out
 
 
@@ -320,12 +339,19 @@ def shard_psum(parts: Sequence[torch.Tensor], segments=None,
     device) over ``segments`` (default: every word, by the parts' dtype)
     → ``out`` (a new tensor when None), not synchronized."""
     segments = _default_segments(parts) if segments is None else segments
-    return _run(parts, segments, out, True, shard_psum_plain)
+    return _run(parts, segments, out, "psum", shard_psum_plain)
 
 
 def shard_bucket_merge(parts: Sequence[torch.Tensor], segments,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The min / max of ``parts`` over ``segments`` → ``out``, not
     synchronized."""
-    return _run(parts, segments, out, False, shard_bucket_merge_plain)
+    return _run(parts, segments, out, "bucket", shard_bucket_merge_plain)
 
+
+def shard_merge(parts: Sequence[torch.Tensor], segments,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum and min / max segments of ``parts`` together → ``out``, in one
+    launch, not synchronized: a sum segment as ``shard_psum`` merges it, a
+    min / max one as ``shard_bucket_merge`` does."""
+    return _run(parts, segments, out, "merge", shard_merge_plain)
