@@ -127,7 +127,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    with and without digests; ``patch_feed_rows`` (every feed dtype at
    once, and int32 + int64 + bool; 1 to 65,536 rows, one block a plane and
    several; host and card values; recorded digests by value and by
-   address; 120 planes) in one launch a call; ``mvcc_resolve`` against its
+   address; 120 planes) in one launch a call; ``patch_feed_spans`` the
+   same way over K of 1, 4 and 300 spans (300: past the parameter room)
+   of 1 to 65,536 rows, P 3, 7 and 120; ``mvcc_resolve`` against its
    plain version
    over the CPU tests' histories (deletes, rollbacks, locks, versions
    above read_ts, NULLs, INT, REAL and unsigned columns, every key
@@ -144,12 +146,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cold + 5 warm requests from a feed minted by ``mvcc_resolve``
    (``feed_routes`` {device_resolve: 1}), each answer against the
    generator's truth, then the scrub — clean, kept clean by a
-   ``_patch_plane`` and its undo (each one launch, bit-equal to the plain
-   version on a copy, R' included), and naming the plane
-   ``corrupt_resident_plane`` flipped (one launch) — with the kernels'
-   launch counts
-   read around that main path (``mvcc_resolve``, ``plane_digest`` and
-   ``patch_rows`` must each launch); then two rounds of the device,
+   ``_patch_plane`` over two 1-row spans and its undo (each one
+   ``patch_feed_spans`` launch, bit-equal to the plain version on a copy,
+   R' included), and naming the plane ``corrupt_resident_plane`` flipped
+   (one ``patch_feed_rows`` launch) — with the kernels' launch counts
+   read around that main path (``mvcc_resolve``, ``plane_digest``,
+   ``patch_rows`` and ``patch_spans`` must each launch); then two rounds of the device,
    upload and resident routes (the planes in ``DeviceVersionPlanes``,
    filled in chunks of 2^20 keys), the second in reverse order, each
    route a fresh snapshot by ``build_region_columnar_device``, every feed
@@ -275,6 +277,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    exact, no degrade, the split's wall and phases and the arena's bytes
    printed; and ``split_planes`` timed at split 1's shape beside its
    bound, plain version and a ``copy_`` + ``plane_digest`` yardstick;
+   then cell 6c-delta (``run_delta``: the same history through a cache
+   with a ``DeltaSink`` on the observer host; five committed writes
+   applied through ``notify_apply_write``, each followed by both plans:
+   one UPDATE, 4,096 UPDATEs in 4 runs, 65,536 INSERTs into the slack —
+   each patched in place, one ``patch_feed_spans`` launch a feed, no
+   upload, no build —, a ROLLBACK (patched, no launch) and a DELETE
+   (uploaded); a read below the first write's commit from the line's
+   history; a clean scrub, then ``device::feed_corrupt``: one divergence,
+   the next request on the host, the one after uploaded), every answer
+   against the numpy model, the host ms of ``delta_apply``,
+   ``feed_patch`` and the DELETE's upload, and the scrub's, printed; and
+   ``patch_feed_spans`` at its three writes' shapes held bit for bit
+   against its plain version, then timed queued beside the same rows
+   through ``patch_feed_rows`` and a ``copy_`` a plane a span, all from
+   the same host values (and the kernel and ``copy_`` again with the
+   values on the card), beside its bound and plain version;
 14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
    launch no kernel of ``selection.cu``, run while that source builds,
    after the ANALYZE cells): ``shard_psum``, ``shard_bucket_merge`` and
@@ -328,13 +346,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    route from the second pass); a
    forced ``rebalance()`` and one timed migration (host copy, verify and
    install ms; ``feed_verify`` once a feed); ``device::feed_migrate``
-   armed once (the migration ends "corrupt", both feeds are minted again);
+   armed once (the migration ends "corrupt", the anchor's next request is
+   answered on the host, then both feeds are minted again);
    ``device::slice_dead`` on slice 1 until it trips (its anchors drain by
    migration, the whole-mesh region runs on the degraded submesh); the
    fault lifted and a canary re-admitting slice 1 with a decayed score,
    the whole mesh restored.  Every answer equals the numpy truth, the
    whole-mesh region's also the single runner's; no degrade outside the
-   armed failpoints; ``feed_verify`` launched once a migrated feed (and
+   armed failpoints (and the corrupt move's quarantine); ``feed_verify`` launched once a migrated feed (and
    once for the corrupt one); the kernel timed queued at the moved
    selection feed (three int32 planes, 2^21 rows) beside its bound, its
    plain version and P ``plane_digest`` launches, and the copy beside its
@@ -352,7 +371,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    / ``join_probe``, ``sort_perm`` and ``window_scan``; an4's id for
    ``analyze``, with the other timed columns under ``configs``; 6b-ep's
    shape for ``sel_pred_batched``; 6c-split's split 1 for
-   ``split_planes``, with both children under ``configs``; m4 for
+   ``split_planes``, with both children under ``configs``; 6c-delta's
+   65,536-row insert for ``patch_spans``, with its other writes under
+   ``configs``; m4 for
    ``shard_psum``, with m4n under ``configs``; m4x's one ``shard_merge``
    launch for ``shard_bucket_merge``; so8's moved selection feed for
    ``feed_verify``), and the least time the card could take; beside the
@@ -391,7 +412,8 @@ KERNELS = ("hash_agg", "twolevel", "sel_pred", "sel_pred_batched",
            "topn_select", "agg_fold", "mvcc_resolve", "plane_digest",
            "patch_rows", "join_build", "join_index", "join_probe",
            "sort_perm", "window_scan", "analyze", "split_planes",
-           "shard_psum", "shard_bucket_merge", "feed_verify")
+           "shard_psum", "shard_bucket_merge", "feed_verify",
+           "patch_spans")
 # config → rows on the card; the route's kernel counts must be > 0
 SIZES = {"3": 50 << 20, "4": 100 << 20, "4s": 1 << 24, "4n": 100 << 20,
          "4w": 100 << 20, "4r": 1 << 24, "4m": 1 << 24, "3n": 1 << 24}
@@ -471,7 +493,8 @@ def counts() -> dict:
             "split_planes": split.launches,
             "shard_psum": shard.psum_launches,
             "shard_bucket_merge": shard.merge_launches,
-            "feed_verify": digest.verify_launches}
+            "feed_verify": digest.verify_launches,
+            "patch_spans": digest.span_launches}
 
 
 def set_counts(values: dict) -> None:
@@ -499,6 +522,7 @@ def set_counts(values: dict) -> None:
     shard.psum_launches = values["shard_psum"]
     shard.merge_launches = values["shard_bucket_merge"]
     digest.verify_launches = values["feed_verify"]
+    digest.span_launches = values["patch_spans"]
 
 
 # the builds still running after build_kernels(defer=...): name → future
@@ -2976,8 +3000,10 @@ def check_digest(dev) -> tuple:
     print(f"check patch_rows: {len(FEED_DTYPES)} dtypes, m 1 / 1000 / "
           f"65536, with and without digests: worst {worst_p}", flush=True)
     worst_p = max(worst_p, check_patch_feed(dev))
-    assert worst_d == 0 and worst_p == 0, "digest kernels disagree"
-    return worst_d, worst_p
+    worst_s = check_patch_spans(dev)
+    assert worst_d == 0 and worst_p == 0 and worst_s == 0, \
+        "digest kernels disagree"
+    return worst_d, worst_p, worst_s
 
 
 def patch_err(planes, want_planes, got, want) -> int:
@@ -3044,6 +3070,75 @@ def check_patch_feed(dev) -> int:
     print(f"check patch_feed_rows: {n_cases + 1} cases (P 3, 7 and 120; m "
           f"1 to 65536; host and card values; digests by value and by "
           f"address): worst {worst}", flush=True)
+    return worst
+
+
+def check_patch_spans(dev) -> int:
+    """``patch_feed_spans`` against its plain version on the card, bit for
+    bit: every feed dtype together (P = 7) and three planes (int32, int64,
+    bool), K of 1, 4 and 300 spans (300 is past the parameter room: the
+    descriptors go through the pinned copy) of 1, 257, 1,025 and 65,536
+    rows (K 300 at the two short lengths), with digests (by value and, for
+    every other plane, the last call's R' by address) and without, values
+    from the host and on the card, planes of unequal length 0-7 elements
+    off a 16-byte boundary; then P = 120 planes of 2-row spans at K 1, 4
+    and 300 → the worst difference (0).  Every call is one launch (the
+    span counter)."""
+    from tikv_tpu_torch.device import digest as dg
+    gen = torch.Generator().manual_seed(23)
+    rng = np.random.default_rng(23)
+    worst = n_cases = 0
+    three = (torch.int32, torch.int64, torch.bool)
+    shapes = [(k, r) for k in (1, 4) for r in (1, 257, 1025, 1 << 16)] + \
+        [(300, 1), (300, 257)]
+
+    def spans_of(k, rows, n):
+        gaps = rng.integers(1, 40, k)
+        lo = np.cumsum(gaps) + np.arange(k) * rows
+        assert lo[-1] + rows <= n
+        return [(int(a), int(a) + rows) for a in lo]
+
+    for dtypes, (k, rows), digest, on_card in itertools.product(
+            (FEED_DTYPES, three), shapes, (True, False), (False, True)):
+        n = max((1 << 17) + 5, k * (rows + 40) + 16)
+        planes = [random_plane(dt, n + 8 + i, gen, dev)[i % 8:i % 8 + n - i]
+                  for i, dt in enumerate(dtypes)]
+        spans = spans_of(k, rows, n - len(dtypes))
+        vals = [random_plane(dt, k * rows, gen, dev) for dt in dtypes]
+        if not on_card:
+            vals = [v.cpu() for v in vals]
+        recs = None
+        if digest:
+            recs = [int(rng.integers(0, 1 << 62)) for _ in dtypes]
+            prev = torch.tensor([[1, 2, 3]], dtype=torch.int64, device=dev)
+            recs = [prev[0, 2] if i % 2 else r for i, r in enumerate(recs)]
+        want_planes = [a.clone() for a in planes]
+        want = dg.patch_feed_spans_plain(want_planes, spans,
+                                         [v.to(dev) for v in vals], recs)
+        before = dg.span_launches
+        got = dg.patch_feed_spans(planes, spans, vals, recs)
+        worst = max(worst, patch_err(planes, want_planes, got, want),
+                    int(dg.span_launches - before != 1))
+        n_cases += 1
+    for k in (1, 4, 300):
+        planes = [random_plane(torch.int32, 4096, gen, dev)
+                  for _ in range(120)]
+        spans = [(7 + 12 * i, 9 + 12 * i) for i in range(k)]
+        vals = [random_plane(torch.int32, 2 * k, gen, dev).cpu()
+                for _ in range(120)]
+        want_planes = [a.clone() for a in planes]
+        recs = list(range(120))
+        want = dg.patch_feed_spans_plain(want_planes, spans,
+                                         [v.to(dev) for v in vals], recs)
+        before = dg.span_launches
+        got = dg.patch_feed_spans(planes, spans, vals, recs)
+        worst = max(worst, patch_err(planes, want_planes, got, want),
+                    int(dg.span_launches - before != 1))
+        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"check patch_feed_spans: {n_cases} cases (P 3, 7 and 120; K 1, "
+          f"4 and 300; spans of 1 to 65536 rows; host and card values; "
+          f"digests by value and by address): worst {worst}", flush=True)
     return worst
 
 
@@ -3305,9 +3400,10 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     assert runner.scrub_feed(feed) == [], f"{config}: scrub not clean"
     plane0 = feed["flat"][0]
     old = plane0[[0, n - 1]].clone()
-    patched = scrub_patch(runner, feed, [0, n - 1], old + 1)
+    ends = [(0, 1), (n - 1, n)]
+    patched = scrub_patch(runner, feed, ends, old + 1)
     assert runner.scrub_feed(feed) == [], f"{config}: patch broke a digest"
-    patched += scrub_patch(runner, feed, [0, n - 1], old)
+    patched += scrub_patch(runner, feed, ends, old)
     victim = len(feed["flat"]) - 1
     flips = dg.patch_launches
     runner.corrupt_resident_plane(feed, victim)
@@ -3318,7 +3414,8 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     assert runner.scrub_feed(feed) == [], f"{config}: not restored"
     assert patched == 0, f"{config}: a scrub patch differs ({patched})"
     launches = counts()
-    for name in ("mvcc_resolve", "plane_digest", "patch_rows"):
+    for name in ("mvcc_resolve", "plane_digest", "patch_rows",
+                 "patch_spans"):
         assert launches[name] > 0, f"{config} never launched {name}"
     saved = counts()
 
@@ -3389,18 +3486,19 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     return out
 
 
-def scrub_patch(runner, feed: dict, pos, vals) -> int:
-    """``runner._patch_plane(feed, 0, pos, vals)`` against the plain
-    version on a copy of the plane and its recorded digest: the plane bit
-    for bit and R' → 0, or what differs; the patch must be one launch."""
+def scrub_patch(runner, feed: dict, spans, vals) -> int:
+    """``runner._patch_plane(feed, spans, [vals], [0])`` (the patch that
+    serves a write) against the plain version on a copy of the plane and
+    its recorded digest: the plane bit for bit and R' → 0, or what
+    differs; the patch must be one ``patch_feed_spans`` launch."""
     from tikv_tpu_torch.device import digest as dg
     plane = feed["flat"][0]
     twin = plane.clone()
-    want = dg.patch_feed_rows_plain([twin], torch.tensor(
-        pos, device=plane.device), [vals], [feed["digests"][0]])
-    before = dg.patch_launches
-    runner._patch_plane(feed, 0, pos, vals)
-    assert dg.patch_launches - before == 1, "_patch_plane is one launch"
+    want = dg.patch_feed_spans_plain([twin], spans, [vals],
+                                     [feed["digests"][0]])
+    before = dg.span_launches
+    runner._patch_plane(feed, spans, [vals], [0])
+    assert dg.span_launches - before == 1, "_patch_plane is one launch"
     return int(not same_bits(plane, twin)) + digest_err(
         feed["digests"][0], want[0, 2])
 
@@ -3492,15 +3590,17 @@ def time_cold_kernels(config, planes, dvp, used, dtypes, has_nulls,
         "library_call": "index_put_ a plane (writes, no digests)",
         **bound_ms(2 * 8 + 2 * 3 * w3, 0), "rows": 2, "planes": 3,
         "digest": True}
-    # _patch_plane end to end: rows and the recorded digest in one launch
+    # _patch_plane end to end (the patch that serves a write): rows and the
+    # recorded digest in one patch_feed_spans launch, two 1-row spans
     f = {"flat": (plane,), "digests": (feed["digests"][0],)}
     ends = plane[[0, n - 1]].clone()
+    spans = [(0, 1), (n - 1, n)]
     pt["_patch_plane"] = {
-        "ms": cuda_ms(lambda: runner._patch_plane(f, 0, [0, n - 1], ends),
+        "ms": cuda_ms(lambda: runner._patch_plane(f, spans, [ends]),
                       50, queued=True),
         "issued_ms": cuda_ms(lambda: runner._patch_plane(
-            f, 0, [0, n - 1], ends), 50),
-        "rows": 2, **bound_ms(2 * (8 + 3 * es) + 24, 0)}
+            f, spans, [ends]), 50),
+        "rows": 2, **bound_ms(2 * 16 + 2 * 3 * es + 24, 0)}
     del three, v3
     t["patch_rows"] = dict(pt["2 rows with digests"], configs=pt)
     set_counts(saved)
@@ -4929,9 +5029,12 @@ class SplitCell:
     a part (the fallback route's children) returns that slice of the cold
     build's host mirror, with no bundle (its feeds upload)."""
 
-    def __init__(self, runner, n_keys: int, source=None):
+    def __init__(self, runner, n_keys: int, source=None,
+                 delta_source=None):
         """``source``: (table, version planes, read_ts) of another cell's
-        history, to build a fresh parent from."""
+        history, to build a fresh parent from; ``delta_source``: a
+        ``DeltaSink`` the cache bridges its lines with (registered on the
+        observer host before the supervisor)."""
         from tikv_tpu_torch.copr import region_cache as rc
         from tikv_tpu_torch.copr.endpoint import Endpoint
         from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
@@ -4946,21 +5049,26 @@ class SplitCell:
         self.table, self.planes, self.read_ts = source
         self.n = n_keys
         self.engine = MemoryEngine()
-        self.cache = rc.RegionColumnarCache()
-        self.sup = DeviceStateSupervisor(runner, self.cache)
+        self.cache = rc.RegionColumnarCache(delta_source=delta_source)
+        self.sup = DeviceStateSupervisor(runner, self.cache, delta_source)
         self.host = CoprocessorHost()
+        if delta_source is not None:
+            self.host.register(delta_source)
         self.host.register(self.sup)
         self.region = Region(1)
+        self.data_index = 100
         self.builds = []            # (region id, rows) of each build
         self.mirror = None
         self.ep = Endpoint(self._provider, runner)
         self._rc = rc
 
-    def snap(self, region):
-        """The engine snapshot of ``region`` at data_index 100."""
+    def snap(self, region, data_index=None):
+        """The engine snapshot of ``region`` at ``data_index`` (default: the
+        cell's, 100 until a write moves it)."""
         from tikv_tpu_torch.raftstore.peer import RegionSnapshot
         rs = RegionSnapshot(self.engine.snapshot(), region)
-        rs.data_index = 100
+        rs.data_index = self.data_index if data_index is None \
+            else data_index
         return rs
 
     def _provider(self, req):
@@ -4993,7 +5101,9 @@ class SplitCell:
         self.builds.append((region.id, len(tbl)))
         return tbl, int(self.planes.safe_ts), [], None
 
-    def dag(self, plan: str):
+    def dag(self, plan: str, ts=None):
+        """``plan`` ("sel": ``c1 > 990``; else GROUP BY c0: COUNT(*),
+        SUM(c1)) at ``ts`` (default: the history's read_ts)."""
         from tikv_tpu_torch.convert import dag_from_wire
         from tikv_tpu_torch.copr.wire import enc_dag
         from tikv_tpu_torch.testing.dag import DagSelect
@@ -5003,7 +5113,8 @@ class SplitCell:
         else:
             d = s.aggregate([s.col("c0")], [("count_star", None),
                                             ("sum", s.col("c1"))])
-        return dag_from_wire(enc_dag(d.build(self.read_ts)))
+        return dag_from_wire(enc_dag(d.build(
+            self.read_ts if ts is None else ts)))
 
     def bounds(self, region) -> tuple:
         from tikv_tpu_torch.codec.keys import decode_record_handle
@@ -5228,10 +5339,12 @@ def run_split(runner, n_keys: int = SPLIT_KEYS) -> dict:
             out["fallback"][s][p]["cold_phases_ms"].get("columnar_build", 0)
             for s in ("left", "right") for p in ("agg", "sel")])
     print("split cell 6c-split: " + json.dumps(summary), flush=True)
+    source = (cell.table, cell.planes, cell.read_ts)
     del cell, fb
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(summary, launches=out["launches"])
+    # the history rides on to cell 6c-delta (the caller pops it)
+    return dict(summary, launches=out["launches"], source=source)
 
 
 def split_at_main_shape(runner, dev) -> dict:
@@ -5289,6 +5402,328 @@ def split_at_main_shape(runner, dev) -> dict:
     del planes
     torch.cuda.empty_cache()
     return dict(out["right"], configs=out, max_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
+# cell 6c-delta: writes reach the card as patches
+# ---------------------------------------------------------------------------
+
+# w2's four runs of 1,024 consecutive handles, and w3's inserts
+DELTA_RUNS = (1 << 20, 3 << 20, 5 << 20, 7 << 20)
+DELTA_RUN_ROWS = 1 << 10
+DELTA_INSERTS = 1 << 16
+
+
+class DeltaModel:
+    """Cell 6c-delta's rows in numpy (handles ascending, c0, c1), each
+    write applied as the cache must see it."""
+
+    def __init__(self, n: int):
+        from tikv_tpu_torch.testing import configs as cf
+        self.groups = cf.GROUPS
+        self.h = np.arange(n, dtype=np.int64)
+        self.c0 = self.h % self.groups
+        self.c1 = self.h % 1000
+
+    def truth(self, plan: str):
+        """The ids of ``c1 > 990``, or GROUP BY c0: COUNT(*), SUM(c1) rows
+        sorted by c0."""
+        if plan == "sel":
+            return self.h[self.c1 > 990]
+        cnt = np.bincount(self.c0, minlength=self.groups)
+        s = np.bincount(self.c0, weights=self.c1.astype(np.float64),
+                        minlength=self.groups)
+        return [(int(cnt[g]), int(s[g]), g) for g in range(self.groups)
+                if cnt[g]]
+
+    def update(self, hs, c1) -> None:
+        pos = np.searchsorted(self.h, hs)
+        self.c1[pos] = c1
+
+    def insert(self, hs) -> None:
+        self.h = np.concatenate([self.h, hs])
+        self.c0 = np.concatenate([self.c0, hs % self.groups])
+        self.c1 = np.concatenate([self.c1, hs % 1000])
+
+    def delete(self, hs) -> None:
+        keep = ~np.isin(self.h, hs)
+        self.h, self.c0, self.c1 = self.h[keep], self.c0[keep], self.c1[keep]
+
+
+def delta_puts(tid: int, hs, c0, c1, commit_ts: int) -> list:
+    """Committed PUTs of rows ``hs`` (inline short values): the engine
+    records of one applied entry."""
+    from tikv_tpu_torch.testing import mvcc as tm
+    ones = np.ones(len(hs), np.bool_)
+    return tm.kv_history(tid, np.asarray(hs, np.int64), [tm.Event(
+        commit_ts, tm.WT_PUT, np.arange(len(hs)),
+        {2: (np.asarray(c0), ones), 3: (np.asarray(c1), ones)})])
+
+
+def run_delta(runner, source) -> dict:
+    """Cell 6c-delta: config 6c's region (``bench.py:501-560``, the history
+    6c-split made, through ``SplitCell``'s build seam) served through the
+    port's ``RegionColumnarCache(delta_source=sink)``, with a ``DeltaSink``
+    and the ``DeviceStateSupervisor`` on one ``CoprocessorHost``; the feed
+    is minted on the card by the cold build.  Five writes, each a committed
+    batch of CF_WRITE records applied to the engine and handed to the host
+    (``notify_apply_write``), each followed by both plans (GROUP BY c0:
+    COUNT(*), SUM(c1); ``c1 > 990``) at a read ts above its commit:
+
+    - w1 (index 101): one UPDATE of one row's c1 → ``patch``, one span
+      launch a feed; then a read below w1's commit_ts, served by the old
+      generation from the line's history (no build);
+    - w2 (102): 4,096 UPDATEs in 4 runs of 1,024 handles → 4 spans, one
+      launch a feed;
+    - w3 (103): 65,536 INSERTs past the greatest handle, into the line's
+      slack and inside the feed's pad bucket → ``patch``, ``n_live``
+      grows;
+    - the scrub: one clean pass over every resident plane, then
+      ``device::feed_corrupt`` once: one divergence, region 1 quarantined;
+      the next request is answered on the host (one ``quarantined``
+      degrade), the one after uploads on the card;
+    - w4 (104): a ROLLBACK record → safe_ts advances, ``patch``, no launch;
+    - w5 (105): one DELETE → structural: ``upload``.
+
+    Every answer equals the numpy model; w1-w4's requests have no
+    ``feed_upload`` phase; the cache builds once (the cold mint) and
+    rebuilds never.  ``runner`` holds no other anchor (the scrub's
+    verdicts are this cell's).  Counts from 0 before the path, read
+    after."""
+    from tikv_tpu_torch.copr.delta import DeltaSink
+    from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+    from tikv_tpu_torch.device import digest as dg
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.utils import failpoint
+    t_start = time.perf_counter()
+    sink = DeltaSink(max_rows=1 << 17)
+    cell = SplitCell(runner, SPLIT_KEYS, source, delta_source=sink)
+    n, tid = cell.n, cell.table.table_id
+    model = DeltaModel(n)
+    out = {"config": "6c-delta", "keys": n,
+           "pad_rows": {"n": runner._pad_rows(n),
+                        "after w3": runner._pad_rows(n + DELTA_INSERTS)}}
+
+    def ask(plan: str, ts: int, label=None, backend="device", want=None):
+        dag = cell.dag(plan, ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = cell.ep.handle(CopRequest(REQ_TYPE_DAG, dag))
+        if plan == "sel":
+            got = np.asarray(resp.result.batch.columns[0].values)
+        else:
+            got = sorted(resp.rows(), key=lambda r: r[2])
+        ms = (time.perf_counter() - t0) * 1e3
+        want = model.truth(plan) if want is None else want
+        ok = np.array_equal(got, want) if plan == "sel" else got == want
+        assert ok, f"6c-delta {plan} at ts {ts}: wrong answer"
+        assert resp.backend == backend, (plan, ts, resp.backend)
+        lab = resp.tracker.labels.get("device_feed")
+        assert label is None or lab == label, (plan, ts, lab, label)
+        return {"ms": ms, "label": lab,
+                "copr_cache": resp.tracker.labels.get("copr_cache"),
+                "phases_ms": {k: v / 1e6 for k, v in
+                              resp.tracker.phases.items()}}
+
+    writes: dict = {}
+
+    def write(name: str, triples, commit_ts: int) -> None:
+        cell.data_index += 1
+        t0 = time.perf_counter()
+        tm.apply_write(cell.engine, cell.host, 1, cell.data_index, triples)
+        writes[name] = {"index": cell.data_index, "commit_ts": commit_ts,
+                        "records": len(triples),
+                        "apply_ms": (time.perf_counter() - t0) * 1e3}
+
+    def serve_both(name: str, ts: int, label: str, span_calls: int) -> None:
+        before = dg.span_launches
+        got = {p: ask(p, ts, label) for p in ("agg", "sel")}
+        calls = dg.span_launches - before
+        assert calls == span_calls, (name, calls, span_calls)
+        if label == "patch":
+            for p, r in got.items():
+                assert "feed_upload" not in r["phases_ms"], (name, p)
+                assert "columnar_build" not in r["phases_ms"], (name, p)
+        writes[name].update(requests=got, span_launches=calls)
+
+    orig = cell._rc.build_region_columnar_ex
+    cell._rc.build_region_columnar_ex = cell.build
+    r1, r4, r5 = 12_345, 23_456, 54_321
+    try:
+        set_counts({k: 0 for k in KERNELS})
+        ts = cell.read_ts
+        out["cold"] = {p: ask(p, ts) for p in ("agg", "sel")}
+        assert [b[0] for b in cell.builds] == [1], cell.builds
+        lineage = next(iter(cell.cache._lines.values())).state.lineage
+        old_sel = model.truth("sel")
+        # w1: one UPDATE of one row's c1
+        write("w1", delta_puts(tid, [r1], [r1 % model.groups], [995], 300),
+              300)
+        model.update([r1], [995])
+        serve_both("w1", 310, "patch", 2)
+        # a read below w1's commit: the old generation, from the history
+        out["history_read"] = ask("sel", ts, want=old_sel)
+        assert cell.cache.misses == 1, cell.cache.stats()
+        # w2: 4 runs of 1,024 consecutive handles
+        hs = np.concatenate([np.arange(a, a + DELTA_RUN_ROWS)
+                             for a in DELTA_RUNS])
+        c1 = (hs * 7 + 1) % 1000
+        write("w2", delta_puts(tid, hs, hs % model.groups, c1, 320), 320)
+        model.update(hs, c1)
+        serve_both("w2", 330, "patch", 2)
+        assert len(lineage._patches[-1]["spans"]) == len(DELTA_RUNS)
+        # w3: 65,536 INSERTs past the greatest handle
+        hs = np.arange(n, n + DELTA_INSERTS, dtype=np.int64)
+        write("w3", delta_puts(tid, hs, hs % model.groups, hs % 1000, 340),
+              340)
+        model.insert(hs)
+        serve_both("w3", 350, "patch", 2)
+        feeds = runner.resident_feeds(cell.cache.get(
+            cell.snap(cell.region), cell.dag("sel", 350)))
+        assert {f["n_live"] for f in feeds.values()} == {n + DELTA_INSERTS}
+        # the scrub: clean, then the injected flip
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = cell.sup.scrub()
+        out["scrub_ms"] = (time.perf_counter() - t0) * 1e3
+        assert clean["divergences"] == 0 and clean["lines"] == 1 and \
+            clean["planes"] == 5, clean
+        failpoint.cfg("device::feed_corrupt", "1*return")
+        try:
+            caught = cell.sup.scrub()
+        finally:
+            failpoint.teardown()
+        assert caught["divergences"] == 1 and \
+            caught["quarantined_regions"] == [1], caught
+        out["scrub"] = {"clean": clean, "caught": caught}
+        out["quarantine"] = {
+            "next": ask("agg", 350, "quarantined", backend="host"),
+            "after": ask("agg", 350, "upload")}
+        assert cell.ep.degrades == {"quarantined": 1}, cell.ep.degrades
+        out["quarantine"]["sel after"] = ask("sel", 350, "upload")
+        # w4: a ROLLBACK record
+        write("w4", tm.kv_history(tid, np.asarray([r4], np.int64), [
+            tm.Event(360, tm.WT_ROLLBACK, np.arange(1))]), 360)
+        serve_both("w4", 370, "patch", 0)
+        assert cell.cache._lines[next(iter(cell.cache._lines))] \
+            .snap.safe_ts == 360
+        assert cell.cache.stats()["rebuilds"] == 0
+        # w5: one DELETE
+        write("w5", tm.kv_history(tid, np.asarray([r5], np.int64), [
+            tm.Event(380, tm.WT_DELETE, np.arange(1))]), 380)
+        model.delete([r5])
+        serve_both("w5", 390, "upload", 0)
+        st = cell.cache.stats()
+        assert (st["misses"], st["rebuilds"], st["deltas"]) == (1, 0, 5), st
+        assert [b[0] for b in cell.builds] == [1], cell.builds
+        launches = counts()
+        for name in ("mvcc_resolve", "hash_agg", "sel_pred", "plane_digest",
+                     "patch_spans"):
+            assert launches[name] > 0, f"6c-delta never launched {name}"
+        assert launches["patch_spans"] == 6, launches["patch_spans"]
+        out["launches"] = launches
+    finally:
+        cell._rc.build_region_columnar_ex = orig
+        failpoint.teardown()
+    out["writes"] = writes
+    out["wall_s"] = time.perf_counter() - t_start
+    host = {w: {"delta_apply_ms": writes[w]["requests"]["agg"]["phases_ms"]
+                .get("delta_apply"),
+                "feed_patch_ms": {p: writes[w]["requests"][p]["phases_ms"]
+                                  .get("feed_patch") for p in ("agg", "sel")},
+                "request_ms": {p: writes[w]["requests"][p]["ms"]
+                               for p in ("agg", "sel")}}
+            for w in ("w1", "w2", "w3", "w4")}
+    host["w5"] = {"delta_apply_ms": writes["w5"]["requests"]["agg"][
+        "phases_ms"].get("delta_apply"),
+        "feed_upload_ms": {p: writes["w5"]["requests"][p]["phases_ms"]
+                           .get("feed_upload") for p in ("agg", "sel")}}
+    summary = {k: v for k, v in out.items() if k not in ("writes",)}
+    summary["host_ms"] = host
+    summary["apply_ms"] = {w: writes[w]["apply_ms"] for w in writes}
+    summary["labels"] = {w: {p: writes[w]["requests"][p]["label"]
+                             for p in ("agg", "sel")} for w in writes}
+    print("delta cell 6c-delta: " + json.dumps(summary, default=str),
+          flush=True)
+    shapes = {"w1": [(r1, r1 + 1)],
+              "w2": [(a, a + DELTA_RUN_ROWS) for a in DELTA_RUNS],
+              "w3": [(n, n + DELTA_INSERTS)]}
+    del cell, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": "6c-delta", "launches": out["launches"],
+            "shapes": shapes, "n_pad": out["pad_rows"]["n"],
+            "host_ms": host, "scrub_ms": out["scrub_ms"]}
+
+
+def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
+    """``patch_feed_spans`` at 6c-delta's w1, w2 and w3 shapes over the
+    selection feed's planes (three int32 planes of ``n_pad`` rows), values
+    from the host as the runner gives them, the recorded digests by
+    address (the last patch's R'): first held against the plain version
+    on clones of the planes, planes and (P, 3) digests bit for bit; then
+    every form timed queued on the same inputs — the kernel, the same
+    rows through ``patch_feed_rows`` with host positions, and the library
+    yardstick ``plane[lo:hi].copy_(vals)`` a plane a span (no digests)
+    from the same values in pinned host memory — and once more with the
+    values on the card (the kernel and ``copy_``); the plain version as
+    issued; the bound: rows × the planes' widths × 2 plus the payload, at
+    3.35 TB/s → (the timings, the worst difference: 0).  Launches made
+    here are not counted."""
+    from tikv_tpu_torch.device import digest as dg
+    saved = counts()
+    gen = torch.Generator().manual_seed(29)
+    planes = [random_plane(torch.int32, n_pad, gen, dev) for _ in range(3)]
+    recs = list(torch.zeros((3, 3), dtype=torch.int64, device=dev)[:, 2])
+    out, worst = {}, 0
+    for w, spans in shapes.items():
+        m = sum(hi - lo for lo, hi in spans)
+        vals = [random_plane(torch.int32, m, gen, dev) for _ in planes]
+        host = [v.cpu().numpy() for v in vals]
+        pinned = [v.cpu().pin_memory() for v in vals]
+        twins = [a.clone() for a in planes]
+        want = dg.patch_feed_spans_plain(twins, spans, vals, recs)
+        got = dg.patch_feed_spans(planes, spans, host, recs)
+        err = patch_err(planes, twins, got, want)
+        del twins
+        assert err == 0, f"patch_feed_spans at {w}'s shape differs ({err})"
+        worst = max(worst, err)
+        pos = dg.span_positions(spans)
+        lay = dg.plan_spans([4] * 3, len(spans), m, [True] * 3, True)
+        iters = 20 if m > 4096 else 50
+        offs = np.concatenate([[0], np.cumsum([hi - lo for lo, hi in spans])])
+
+        def copy_from(src):
+            def library():
+                for a, v in zip(planes, src):
+                    for (lo, hi), o in zip(spans, offs[:-1].tolist()):
+                        a[lo:hi].copy_(v[o:o + hi - lo], non_blocking=True)
+            return library
+
+        out[w] = {"ms": cuda_ms(lambda: dg.patch_feed_spans(
+                      planes, spans, host, recs), iters, queued=True),
+                  "rows_form_ms": cuda_ms(lambda: dg.patch_feed_rows(
+                      planes, pos, host, recs), iters, queued=True),
+                  "plain_ms": cuda_ms(lambda: dg.patch_feed_spans_plain(
+                      planes, spans, vals, recs), 10),
+                  "library_ms": cuda_ms(copy_from(pinned), iters,
+                                        queued=True),
+                  "library_call": "plane[lo:hi].copy_(vals) a plane a span "
+                                  "from pinned host values (no digests)",
+                  "card_values": {
+                      "ms": cuda_ms(lambda: dg.patch_feed_spans(
+                          planes, spans, vals, recs), iters, queued=True),
+                      "library_ms": cuda_ms(copy_from(vals), iters,
+                                            queued=True)},
+                  **bound_ms(m * 4 * 3 * 2 + lay.size, 0),
+                  "rows": m, "spans": len(spans), "planes": 3,
+                  "payload_bytes": lay.size,
+                  "inline": lay.inline is not None}
+    set_counts(saved)
+    print("patch_feed_spans at 6c-delta's shapes (all queued; the kernel "
+          "and copy_ from the same host values, and with values on the "
+          "card): " + json.dumps(out), flush=True)
+    return out, worst
 
 
 # ---------------------------------------------------------------------------
@@ -6026,15 +6461,16 @@ class So8:
             cf.columns_agree(result.batch, want)
         return ok and (ti != 8 or same_answer(result, self.single[thr]))
 
-    def ask(self, ti: int, thr, phases: bool = False):
-        """One request through the endpoint, held to its answers → (ms,
-        tracker phases)."""
+    def ask(self, ti: int, thr, phases: bool = False,
+            backend: str = "device"):
+        """One request through the endpoint, held to its answers and its
+        backend → (ms, tracker phases)."""
         from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
         t0 = time.perf_counter()
         resp = self.ep.handle_async(CopRequest(
             REQ_TYPE_DAG, self.dags[(ti, thr)])).wait()
         ms = (time.perf_counter() - t0) * 1e3
-        assert resp.backend == "device", (ti, thr, resp.backend)
+        assert resp.backend == backend, (ti, thr, resp.backend)
         assert self.agrees(ti, thr, resp.result), f"so8 table {ti} thr {thr}"
         return ms, {k: v / 1e6 for k, v in resp.tracker.phases.items()} \
             if phases else None
@@ -6114,7 +6550,9 @@ def run_so8(single) -> dict:
     launched once a feed; copy, verify and install ms on the host clock;
     the kernel and the copy timed on the moved planes), (2)
     ``device::feed_migrate`` armed once: the migration of table 1's feeds
-    ends "corrupt" and both are minted again, (3) ``device::slice_dead`` on
+    ends "corrupt", the anchor is quarantined (its next request answered on
+    the host, one ``quarantined`` degrade) and both feeds are minted again,
+    (3) ``device::slice_dead`` on
     slice 1 until it trips: its anchors drain by migration, the whole-mesh
     region runs on the degraded submesh of slices 0 and 2, (4) the fault
     lifted, one canary re-admits slice 1 with a decayed score and the whole
@@ -6168,7 +6606,8 @@ def run_so8(single) -> dict:
         moved = next(f for f in cell.feeds_on(0).values()
                      if len(f["flat"]) == 3)
 
-        # (2) a bit flipped on arrival: "corrupt", then minted again
+        # (2) a bit flipped on arrival: "corrupt", quarantined (the next
+        # request on the host), then minted again
         src1 = cell.slice_of(1)
         dst1 = pick_slice(placer.scores(), {src1})
         v0 = dg.verify_launches
@@ -6182,6 +6621,8 @@ def run_so8(single) -> dict:
         assert placer.stats()["migration_failures"] == 1
         assert not cell.placer.slices[dst1].resident_feeds(cell.snap(1))
         assert not cell.placer.slices[src1].resident_feeds(cell.snap(1))
+        cell.ask(1, None, backend="host")
+        assert ep.degrades == {"quarantined": 1}, ep.degrades
         cell.both(1)
         assert runner.route_stats()["feed_routes"]["upload"] == \
             uploads + 2, "the corrupt feeds were not minted again"
@@ -6248,8 +6689,8 @@ def run_so8(single) -> dict:
         failpoint.teardown()
         ep.close()
     degrades = runner.route_stats()["degrades"]
-    assert set(degrades) == {"slice_dead"} and not ep.degrades, \
-        (degrades, ep.degrades)
+    assert set(degrades) == {"slice_dead"} and \
+        ep.degrades == {"quarantined": 1}, (degrades, ep.degrades)
     launches = out["launches"]
     st = placer.stats()
     assert launches["feed_verify"] == st["feeds_moved"] + 1
@@ -6290,7 +6731,8 @@ def main() -> int:
              "twolevel": max(check_fused(dev), check_twolevel(dev))}
     worst["topn_select"] = check_topn(dev)
     worst["agg_fold"] = check_agg_fold(dev)
-    worst["plane_digest"], worst["patch_rows"] = check_digest(dev)
+    worst["plane_digest"], worst["patch_rows"], worst["patch_spans"] = \
+        check_digest(dev)
     worst["feed_verify"] = check_feed_verify(dev)
     worst["mvcc_resolve"] = check_mvcc(dev)
     worst["sort_perm"] = worst["join_build"] = check_sort(dev)
@@ -6347,7 +6789,15 @@ def main() -> int:
     runs.append(run_deferred(runner))
     runs += run_6b_ep(runner)
     elapsed("before the split")
-    runs.append(run_split(runner))
+    split = run_split(runner)
+    source = split.pop("source")
+    runs.append(split)
+    elapsed("before the delta cell")
+    # a runner of its own: the scrub covers every anchor of its runner
+    delta = run_delta(DeviceRunner(), source)
+    del source
+    delta_shape = (delta.pop("n_pad"), delta.pop("shapes"))
+    runs.append(delta)
     elapsed("before the mesh")
     from tikv_tpu_torch.testing import configs as cf
     mesh_runs += run_mesh(mesh_runner, runner, [
@@ -6387,6 +6837,8 @@ def main() -> int:
     split_timing = split_at_main_shape(runner, dev)
     worst["split_planes"] = max(worst["split_planes"],
                                 split_timing.pop("max_abs_err"))
+    span_timing, err = spans_at_main_shapes(dev, *delta_shape)
+    worst["patch_spans"] = max(worst["patch_spans"], err)
 
     kernels = [
         {"name": "hash_agg", "route": "cuda",
@@ -6495,6 +6947,18 @@ def main() -> int:
             "floor_params_ms": floors,
             "configs": {c: t for c, t in mesh_timings.items()
                         if (c == "m4x") == (name == "shard_bucket_merge")}})
+    kernels.append({
+        "name": "patch_spans", "route": "cuda",
+        "source": "tikv_tpu_torch/csrc/digest.cu",
+        "replaces": "tikv_tpu/device/runner.py:1816 (_dus over each "
+                    "journal span) and :1793-1814 (_patch_plane's range "
+                    "digests and R')",
+        "launches": launches["patch_spans"],
+        "max_abs_err": worst["patch_spans"],
+        **{k: span_timing["w3"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "rows_form_ms", "rows", "spans")},
+        "configs": span_timing})
     kernels.append({
         "name": "feed_verify", "route": "cuda",
         "source": "tikv_tpu_torch/csrc/digest.cu",

@@ -171,15 +171,16 @@ def test_corrupt_flips_one_bit_and_the_scrub_names_the_plane(port, dtype):
 
 def test_patch_plane_keeps_the_digest_and_never_launders(port):
     feed, cols = _feed(port, ("int64", "float32"))
-    port._patch_plane(feed, 0, [5, 2999], torch.tensor([-1, 7]))
+    port._patch_plane(feed, [(5, 6), (2999, 3000)], [torch.tensor([-1, 7])],
+                      [0])
     assert port.scrub_feed(feed) == []
     assert int(feed["flat"][0][2999]) == 7
     # a corruption before a patch survives it, beside the patched rows or
     # under them: the rule never re-hashes the device plane
     port.corrupt_resident_plane(feed, 2)
-    port._patch_plane(feed, 2, [9], torch.tensor([2.5]))
+    port._patch_plane(feed, [(9, 10)], [torch.tensor([2.5])], [2])
     assert port.scrub_feed(feed) == [2]
-    port._patch_plane(feed, 2, [0], torch.tensor([1.5]))
+    port._patch_plane(feed, [(0, 1)], [torch.tensor([1.5])], [2])
     assert port.scrub_feed(feed) == [2]
     assert dg.as_u64(feed["digests"][0]) == sv.host_plane_digest(
         feed["flat"][0].numpy(), 3000)

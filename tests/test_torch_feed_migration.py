@@ -146,8 +146,11 @@ def test_bad_indices_and_same_slice_do_nothing():
 def test_a_flipped_bit_on_arrival_is_caught_and_minted_again():
     """``device::feed_migrate`` flips one bit of an arrived plane: the
     arrival check returns "corrupt", nothing is installed on the
-    destination, the source's feeds are dropped and its slice struck as a
-    scrub fault; the next request mints the feed again, exactly."""
+    destination, the source's feeds are dropped, its slice struck as a
+    scrub fault and the anchor quarantined: its next request is answered
+    on the host (the port's runner raises ``FeedQuarantined``, which the
+    endpoint degrades; the reference's answers it itself), and the ones
+    after mint the feed again, exactly."""
     ref, port, dags, pdags, snap, psnap, hosts = _rig(5105)
     src = slice_of(port, psnap)
     dst = (src + 2) % 4
@@ -172,6 +175,11 @@ def test_a_flipped_bit_on_arrival_is_caught_and_minted_again():
         health = r._board.slice(src).stats()
         assert health["strikes"] == {"scrub": 1} and health["score"] == 1.0
     uploads = port.route_stats()["feed_routes"].get("upload", 0)
+    from tikv_tpu_torch.device import FeedQuarantined
+    with pytest.raises(FeedQuarantined):
+        port.handle_request(pdags[0], psnap)
+    assert rows(ref.handle_request(dags[0], snap)) == hosts[0]
+    assert port.hbm_stats()["quarantined"] == 0
     _serve(ref, port, dags, pdags, snap, psnap, hosts)
     assert port.route_stats()["feed_routes"]["upload"] == uploads + 2
     assert port.route_stats()["degrades"] == {}

@@ -8,7 +8,10 @@ with a bound ``RequestCoalescer``, nor a region split served end to end,
 nor aggregations, a selection and a top-k over a row-sharded mesh
 (``tikv_tpu_torch.parallel``), nor a placement mesh (``tikv_tpu_torch.pd``,
 ``device.placement``) serving, migrating a feed and draining a dead slice,
-and nothing falls back to the CPU without being asked."""
+nor a write served through the delta path (``raftstore.cmd``,
+``copr.delta``: the sink, the cache's bridge, the feed's patch, the scrub
+and its quarantine), and nothing falls back to the CPU without being
+asked."""
 
 import ast
 import os
@@ -249,6 +252,76 @@ bad = [m for m in sys.modules
 assert not bad, bad
 print("mesh", runner._nshards())
 """
+
+
+_SERVE_WRITE = """
+import sys
+import numpy as np
+from tikv_tpu_torch.convert import engine_from_triples
+from tikv_tpu_torch.copr.delta import DeltaSink
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.region_cache import RegionColumnarCache
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+from tikv_tpu_torch.raftstore.metapb import Region
+from tikv_tpu_torch.raftstore.observer import CoprocessorHost
+from tikv_tpu_torch.raftstore.peer import RegionSnapshot
+from tikv_tpu_torch.testing import mvcc as tm
+from tikv_tpu_torch.testing.dag import DagSelect
+from tikv_tpu_torch.utils import failpoint
+table = tm.table_6c()
+h = np.arange(2000, dtype=np.int64)
+ones = np.ones(2000, np.bool_)
+ev = tm.Event(100, tm.WT_PUT, h, {2: (h % 7, ones), 3: (h % 1000, ones)})
+engine = engine_from_triples(tm.kv_history(table.table_id, h, [ev]))
+runner = DeviceRunner(device="cpu")
+sink = DeltaSink()
+cache = RegionColumnarCache(delta_source=sink)
+host = CoprocessorHost()
+sup = DeviceStateSupervisor(runner, cache, sink)
+host.register(sink)
+host.register(sup)
+index = [100]
+def provider(req):
+    rs = RegionSnapshot(engine.snapshot(), Region(1))
+    rs.data_index = index[0]
+    return cache.get(rs, req.dag)
+ep = Endpoint(provider, runner, device_row_threshold=1)
+def total(ts):
+    s = DagSelect.from_table(table, ["id", "c0", "c1"])
+    dag = s.aggregate([s.col("c0")], [("sum", s.col("c1"))]).build(ts)
+    r = ep.handle(CopRequest(REQ_TYPE_DAG, dag))
+    return sum(row[0] for row in r.rows()), r.tracker.labels["device_feed"]
+want = int((h % 1000).sum())
+assert total(200) == (want, "upload")
+one = np.ones(1, np.bool_)
+tm.apply_write(engine, host, 1, 101, tm.kv_history(
+    table.table_id, h[:1], [tm.Event(300, tm.WT_PUT, np.arange(1),
+                                     {2: (h[:1], one), 3: (h[:1] + 5, one)})]))
+index[0] = 101
+assert total(310) == (want + 5, "patch")
+assert sup.scrub()["divergences"] == 0
+failpoint.cfg("device::feed_corrupt", "1*return")
+assert sup.scrub()["divergences"] == 1
+failpoint.teardown()
+assert total(310) == (want + 5, "quarantined") and ep.degrades
+assert total(310) == (want + 5, "upload")
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("write", cache.deltas)
+"""
+
+
+def test_write_serving_loads_no_jax():
+    """A write served through the delta path — the engine write, the
+    observer host's ``DeltaSink``, the cache's bridge, the feed's patch,
+    then a scrub, its quarantine and the re-upload — loads neither JAX nor
+    the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_WRITE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "write 1"
 
 
 def test_mesh_serving_loads_no_jax():

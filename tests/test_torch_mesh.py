@@ -733,7 +733,7 @@ def test_single_device_paths_on_a_mesh():
     runner.corrupt_resident_plane(feed, 1)
     assert runner.scrub_feed(feed) == []
     with pytest.raises(NotImplementedError):
-        runner._patch_plane(feed, 0, [0], feed["flat"][0][:1])
+        runner._patch_plane(feed, [(0, 1)], [feed["flat"][0][:1]], [0])
 
 
 def test_fold_merge_rows_cover_the_buffer():

@@ -175,19 +175,23 @@ def test_one_plane_call_equals_patch_rows(dtype):
 
 def test_patch_plane_rule_matches_reference(ref, port):
     """The runner's ``_patch_plane`` (one launch: rows and record) keeps
-    the recorded digest as the reference's ``_patch_plane`` does, over two
-    patches, the second reading the first one's record."""
+    the recorded digest as the reference's ``_patch_plane`` does span by
+    span, over three patches, each reading the last one's record."""
     n = 3000
     cols = [(plane("int64", n, 31), np.ones(n, np.bool_))]
     feed = port._build_flat(cols, n)
     host = cols[0][0].copy()
     flat = [jnp.asarray(host)]
     digests = [ref_digest(host, n)]
-    for rows, vals in (([5, 2999], [-1, 7]), ([6, 0], [3, 11])):
-        port._patch_plane(feed, 0, rows, torch.tensor(vals))
-        for q, x in zip(rows, vals):
-            flat[0] = ref._patch_plane(None, digests, flat, 0,
-                                       np.asarray([x], np.int64), q)
+    for spans, vals in (([(5, 6), (2999, 3000)], [-1, 7]),
+                        ([(0, 1), (6, 7)], [11, 3]),
+                        ([(100, 164)], list(range(-32, 32)))):
+        port._patch_plane(feed, spans, [torch.tensor(vals)], [0])
+        at = 0
+        for lo, hi in spans:
+            flat[0] = ref._patch_plane(None, digests, flat, 0, np.asarray(
+                vals[at:at + hi - lo], np.int64), lo)
+            at += hi - lo
         assert dg.as_u64(feed["digests"][0]) == int(digests[0]) % U64
         assert feed["flat"][0][:n].numpy().tobytes() == \
             np.asarray(flat[0]).tobytes()
@@ -201,7 +205,7 @@ _DESC = np.dtype([("plane", "<u8"), ("vals", "<u8"), ("rec", "<u8"),
                   ("width", "<i4"), ("pad", "<i4")])
 _HEAD = np.dtype([("table", "<u8"), ("out", "<u8"), ("m", "<i8"),
                   ("pos_off", "<i8"), ("scratch_off", "<i8"),
-                  ("rows_per_block", "<i4"), ("pad", "<i4")])
+                  ("rows_per_block", "<i4"), ("n_spans", "<i4")])
 
 
 def _replay_patch(args: np.ndarray, payload: np.ndarray, mem: dict, P: int):
@@ -209,6 +213,7 @@ def _replay_patch(args: np.ndarray, payload: np.ndarray, mem: dict, P: int):
     and ``PatchPlane`` of csrc/digest.cu), write the planes found in
     ``mem`` (address → tensor) and return the (P, 3) digests or None."""
     head = np.frombuffer(args[:48].tobytes(), _HEAD)[0]
+    assert head["n_spans"] == 0         # the positions form
     pay = args[48:] if head["table"] == 0 else payload
     m = int(head["m"])
     pos = pay[head["pos_off"]:head["pos_off"] + 8 * m].view(np.int64)
@@ -482,3 +487,194 @@ def test_merge_refuses_more_segments_than_a_grid_holds():
     a = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError, match="segments"):
         sh.shard_psum([a, a], [(0, 1, "sum_i64")] * (sh.MAX_Y + 1))
+
+
+# ------------------------------------------------ the span form of a patch
+#
+# ``digest.patch_feed_spans``: the journal's sorted, disjoint row spans of
+# every plane in one launch.  Its plain version against the reference's
+# ``_dus`` over each span (runner.py:1816) and ``_range_digest_kernel``'s
+# R' rule around each (:1793-1814); the refusals; the packed launch
+# (``plan_spans`` / ``pack_spans``) decoded and replayed in numpy.
+
+SPAN_CASES = {
+    "one row": [(5, 6)],
+    "four spans": [(0, 3), (40, 297), (1000, 1001), (2990, 3001)],
+    "long spans": [(100, 1125), (1200, 1457)],
+}
+
+
+def _span_case(spans, seed: int):
+    """Four planes of N rows, the spans' values end to end per plane, and
+    each plane's recorded digest."""
+    m = sum(hi - lo for lo, hi in spans)
+    planes = [plane(dt, N, seed + i) for i, dt in enumerate(PLANE_DTYPES)]
+    vals = [plane(dt, m, seed + 10 + i)
+            for i, dt in enumerate(PLANE_DTYPES)]
+    return m, planes, vals, [ref_digest(a, N) for a in planes]
+
+
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+def test_span_patch_matches_reference(ref, case):
+    """One ``patch_feed_spans`` over four planes equals, plane by plane,
+    the reference's ``_dus`` of each span and the recorded digest its
+    ``_patch_plane`` keeps span by span (H of the old and the new span by
+    ``_range_digest_kernel``); H(old) and H(new) are those range digests
+    summed."""
+    spans = SPAN_CASES[case]
+    m, planes, vals, recorded = _span_case(spans, 500 + len(spans))
+    got = [torch.from_numpy(a.copy()) for a in planes]
+    out = dg.patch_feed_spans(got, spans, [torch.from_numpy(v)
+                                           for v in vals], recorded)
+    assert out.shape == (4, 3) and out.dtype == torch.int64
+    pos = dg.span_positions(spans)
+    assert len(pos) == m
+    for fi, (a, v) in enumerate(zip(planes, vals)):
+        rng = ref._range_digest_kernel(a.dtype, N)
+        flat = [jnp.asarray(a)]
+        digests = [recorded[fi]]
+        h_old = h_new = 0
+        i = 0
+        for lo, hi in spans:
+            span = (jnp.asarray(lo), jnp.asarray(hi))
+            h_old += int(np.asarray(rng(flat[0], *span)))
+            flat[0] = ref._patch_plane(None, digests, flat, 0,
+                                       v[i:i + hi - lo], lo)
+            h_new += int(np.asarray(rng(flat[0], *span)))
+            i += hi - lo
+        want = np.asarray(flat[0])
+        assert got[fi].numpy().tobytes() == want.tobytes()
+        assert dg.as_u64(out[fi, 0]) == h_old % U64 == _h(a[pos], pos)
+        assert dg.as_u64(out[fi, 1]) == h_new % U64 == _h(v, pos)
+        assert dg.as_u64(out[fi, 2]) == int(digests[0]) % U64 == \
+            ref_digest(want, N)
+
+
+def test_span_patch_equals_the_positions_form():
+    """The span form writes what ``patch_feed_rows`` writes at the
+    positions its spans cover, with the same digests."""
+    spans = SPAN_CASES["four spans"]
+    m, planes, vals, recorded = _span_case(spans, 77)
+    a = [torch.from_numpy(x.copy()) for x in planes]
+    b = [torch.from_numpy(x.copy()) for x in planes]
+    out_s = dg.patch_feed_spans(a, spans, vals, recorded)
+    out_r = dg.patch_feed_rows(b, dg.span_positions(spans), vals, recorded)
+    assert torch.equal(out_s, out_r)
+    for x, y in zip(a, b):
+        assert x.numpy().tobytes() == y.numpy().tobytes()
+    assert dg.patch_feed_spans(a, spans, vals) is None
+
+
+@pytest.mark.parametrize("spans, match", [
+    ([(5, 7), (1, 2)], "sorted and disjoint"),
+    ([(1, 4), (3, 5)], "sorted and disjoint"),
+    ([(3, 3)], "empty or reversed"),
+    ([(7, 4)], "empty or reversed"),
+    ([(-1, 2)], "outside"),
+    ([(0, 4), (6, 9)], "outside"),          # past the bool plane's 8 rows
+    ([(0, 2)], "positions"),                # three values each
+    ([(0, 1, 2)], "pairs"),
+])
+def test_span_patch_refusals(spans, match):
+    """Unsorted, overlapping, empty, reversed and outside spans, and a
+    count of values that differs from the spans' rows, are refused in
+    O(K) on the host before any plane is written."""
+    a = torch.zeros(10, dtype=torch.int32)
+    b = torch.zeros(8, dtype=torch.bool)
+    vals = [torch.tensor([1, 2, 3], dtype=torch.int32),
+            torch.tensor([True, True, True])]
+    with pytest.raises(ValueError, match=match):
+        dg.patch_feed_spans([a, b], spans, vals)
+    assert not a.any() and not b.any()
+
+
+_SPAN = np.dtype([("lo", "<i8"), ("len", "<i4"), ("prefix", "<i4")])
+
+
+def _replay_spans(args: np.ndarray, payload: np.ndarray, mem: dict, P: int):
+    """``patch_kernel``'s span form in numpy: decode the block (``struct
+    PatchArgs`` with ``n_spans`` > 0, ``PatchPlane`` and ``SpanDesc`` of
+    csrc/digest.cu), rebuild each
+    value's row from its span's (lo, prefix), and hand the positions to
+    ``_replay_patch``'s arithmetic through a positions block."""
+    head = np.frombuffer(args[:48].tobytes(), _HEAD)[0]
+    pay = args[48:] if head["table"] == 0 else payload
+    k = int(head["n_spans"])
+    descs = np.frombuffer(
+        pay[head["pos_off"]:head["pos_off"] + 16 * k].tobytes(), _SPAN)
+    m = int(head["m"])
+    pos = np.empty(m, np.int64)
+    for d in descs:
+        pos[d["prefix"]:d["prefix"] + d["len"]] = \
+            d["lo"] + np.arange(d["len"])
+    # the same block, with the positions where a patch keeps them
+    pos_off = len(pay)
+    big = np.concatenate([pay, pos.view(np.uint8)])
+    hdr = np.frombuffer(args[:48].tobytes(), _HEAD).copy()
+    hdr["pos_off"] = pos_off
+    hdr["table"] = 1
+    hdr["n_spans"] = 0
+    return _replay_patch(np.concatenate([hdr.view(np.uint8), args[48:]]),
+                         big, mem, P)
+
+
+@pytest.mark.parametrize("k, span_rows", [(1, 1), (4, 257), (1, 1025),
+                                          (1, 65536), (300, 3)])
+@pytest.mark.parametrize("digest", [True, False])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_packed_spans_replay_the_plain_version(k, span_rows, digest,
+                                               on_card):
+    """``plan_spans`` + ``pack_spans`` as the CUDA wrapper calls them: K
+    span descriptors of 16 bytes (never a position), inline where the
+    block fits a parameter class, else on the card (K past the parameter
+    room, 65,536 rows, or several blocks a plane with digests); values in
+    the payload or read where they lie; recorded digests by value or by
+    address.  The numpy replay of the kernel equals the plain version."""
+    n = max(4 * N, k * (span_rows + 5) + 10)
+    spans = [(5 + i * (span_rows + 5), 5 + i * (span_rows + 5) + span_rows)
+             for i in range(k)]
+    m = k * span_rows
+    planes = [plane(dt, n, 900 + i) for i, dt in enumerate(PLANE_DTYPES)]
+    vals = [plane(dt, m, 910 + i) for i, dt in enumerate(PLANE_DTYPES)]
+    recorded = [ref_digest(a, n) for a in planes]
+    ts = [torch.from_numpy(a.copy()) for a in planes]
+    want = [torch.from_numpy(a.copy()) for a in planes]
+    vts = [torch.from_numpy(v) for v in vals]
+    recs_t = torch.tensor([r - U64 if r >> 63 else r for r in recorded],
+                          dtype=torch.int64)
+    recs = [(0, r) for r in recorded[:3]] + [(recs_t[3:].data_ptr(), 0)]
+    lay = dg.plan_spans([t.element_size() for t in ts], k, m,
+                        [not on_card] * 4, digest)
+    assert lay.pos_off == 48 * 4
+    assert (lay.scratch_off > 0) == (digest and lay.grid_x > 1)
+    assert (lay.inline is None) == (lay.scratch_off > 0 or
+                                    lay.size > dg.PATCH_INLINE[-1])
+    if k == 300:        # past the parameter room: the table carries them
+        assert lay.inline is None
+    out = torch.zeros((4, 3), dtype=torch.int64)
+    arr = dg._spans(spans, n)
+    args, pay = dg.pack_spans(
+        lay, ts, arr, [v.data_ptr() for v in vts] if on_card else vals,
+        recs, out.data_ptr() if digest else 0, 0 if lay.inline else 1 << 40)
+    assert args.size == 48 + (lay.inline or 16)
+    head = np.frombuffer(args[:48].tobytes(), _HEAD)[0]
+    assert int(head["m"]) == m and int(head["n_spans"]) == k
+    mem = {t.data_ptr(): t for t in ts + vts}
+    mem[recs_t[3:].data_ptr()] = recs_t[3:]
+    got = _replay_spans(args, pay, mem, 4)
+    plain = dg.patch_feed_spans_plain(want, arr, vts,
+                                      recorded if digest else None)
+    for a, b in zip(ts, want):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    if digest:
+        assert [[dg.as_u64(x) for x in row] for row in plain] == \
+            got.astype(object).tolist()
+    else:
+        assert got is None and plain is None
+
+
+def test_journal_patch_of_three_planes_rides_inline():
+    """A write's patch of one row over a feed of three int32 planes fits
+    the smallest parameter class: one device operation."""
+    lay = dg.plan_spans([4, 4, 4], 1, 1, [True] * 3, True)
+    assert lay.inline == dg.PATCH_INLINE[0] and lay.grid_x == 1

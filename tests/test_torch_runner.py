@@ -258,8 +258,8 @@ def test_warm_request_reuses_the_feed(port):
     assert port.handle_request(pdag, psnap).rows() == truth
     feeds = port.resident_feeds(psnap)
     bucket = port._arena.bucket(port._feed_anchor(psnap), create=False)
-    meta = bucket[("meta", pdag.plan_key(), pdag.ranges,
-                   port._feed_version(psnap))]
+    meta = bucket[("meta", pdag.plan_key(), pdag.ranges)]
+    assert meta["lineage_v"] == port._feed_version(psnap)
     assert "sparse_slots" in meta and len(feeds) == 1
     assert port.handle_request(pdag, psnap).rows() == truth
     (key, feed), = port.resident_feeds(psnap).items()

@@ -17,7 +17,8 @@ src/coprocessor/endpoint.rs ``parse_and_handle_unary_request``):
   ``handle(req)`` is ``handle_async(req).wait()``.
 - A device fault (``device.DEVICE_FAULTS``) at dispatch or at the fetch
   degrades the request to the host pipeline, counted by reason in
-  ``degrades`` ("dispatch", "fetch"), unless the request forced the
+  ``degrades`` ("dispatch", "fetch"; "quarantined": the request after a
+  scrub quarantined its feed), unless the request forced the
   device: then it raises.  Any other error, such as a kernel that fails
   to build or launch, propagates.
 - ``handle_plan(PlanRequest)``: a plan-IR request (``copr/plan_ir.py``):
@@ -92,8 +93,8 @@ class Endpoint:
         self._device_row_threshold = device_row_threshold
         self._plan_executor = None
         self._mu = threading.Lock()
-        # degrades to the host, by reason: "dispatch" and "fetch" (a DAG
-        # request), "plan_leaf", "join", "sort", "window" (a plan's
+        # degrades to the host, by reason: "dispatch", "fetch" and
+        # "quarantined" (a DAG request), "plan_leaf", "join", "sort", "window" (a plan's
         # fragment), "analyze" (an ANALYZE request)
         self.degrades: dict = {}
         # cross-request device batching (server/coalescer.py); None: every
@@ -213,15 +214,17 @@ class Endpoint:
                 out = runner.handle_request(req.dag, storage, deferred=True)
             else:
                 out = runner.handle_request(req.dag, storage)
-        except DEVICE_FAULTS:
+        except DEVICE_FAULTS as e:
             # a device fault degrades the request to the host pipeline; a
             # forced device request surfaces it (a kernel that fails to
-            # build or launch is not one: it raises)
+            # build or launch is not one: it raises).  A quarantined feed
+            # counts under its own reason
             if req.force_backend == "device":
                 raise
-            self.note_degrade("dispatch")
+            reason = getattr(e, "reason", "dispatch")
+            self.note_degrade(reason)
             tracker.label("backend", "host")
-            tracker.label("degraded", "dispatch")
+            tracker.label("degraded", reason)
             return CopDeferred(self, req, storage, t0, "host", tr,
                                result=self._host_exec(req, storage))
         if not isinstance(out, DeferredResult):
@@ -381,11 +384,11 @@ class CopDeferred:
                     forced = self.req.force_backend == "device"
                     try:
                         result, degraded = self._future.result()
-                    except DEVICE_FAULTS:
+                    except DEVICE_FAULTS as e:
                         if forced:
                             raise
-                        result = self._endpoint._degrade_at_wait(self,
-                                                                 "fetch")
+                        result = self._endpoint._degrade_at_wait(
+                            self, getattr(e, "reason", "fetch"))
                         backend = "host"
                     else:
                         if degraded is not None:

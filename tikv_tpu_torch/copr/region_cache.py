@@ -22,29 +22,32 @@ the device runner read:
   one-shot cold bundle, and the split stash: the child feeds a device
   split sliced from the parent, for the child's first request;
 - ``RegionColumnarCache``: lines keyed (region, epoch version, table,
-  columns) and stamped with ``data_index``; ``get`` hits or builds.
-  Lifecycle: ``invalidate_region`` drops a region's superseded lines
-  (an epoch floor and a sweep generation fence builds in flight), every
-  retired line goes to ``on_line_retired`` (the device supervisor drops
-  its feeds), and ``split_lines`` serves a region split by slicing each
-  parent line into two child lines with fresh lineages — no
-  ``columnar_build`` — for the runner to slice the resident parent feeds
-  the same way (``DeviceRunner.split_resident_feeds``).
+  columns) and stamped with ``data_index``; ``get`` hits, bridges or
+  builds.  With a ``delta_source`` (``copr.delta.DeltaSink``) a line whose
+  data version moved is patched forward (``_bridge`` → ``_apply_deltas``:
+  updates in place by copy-on-write, appends into the slack, tombstones,
+  a repack for a mid-insert or past the compaction ratio), its patch
+  journalled on the lineage for the device feed, and the superseded
+  generation kept in the line's ``history`` for reads below the first
+  commit that superseded it.  Lifecycle: ``invalidate_region`` drops a
+  region's superseded lines (an epoch floor and a sweep generation fence
+  builds in flight), every retired line goes to ``on_line_retired`` (the
+  device supervisor drops its feeds), and ``split_lines`` serves a region
+  split by slicing each parent line — bridged forward first when it lags
+  the split point — into two child lines with fresh lineages, no
+  ``columnar_build``, for the runner to slice the resident parent feeds the
+  same way (``DeviceRunner.split_resident_feeds``).
 
-Trimmed (ROADMAP.md queue 1 item 6): the delta bridge (``_bridge``,
-``_apply_deltas``), so a line whose data version moved is rebuilt and a
-parent line behind ``left_index`` gives no split spec (that split falls
-back to the rebuild, as the reference's own fallback does); the line
-history and the parked below-safe_ts builds' reuse; the re-mint governor
-and region heat; ``get_fast``; the gauges and metrics.  Not ported (queue
-1 item 8): the native parse and the snapshot read of the CF_WRITE range,
-the streaming ingest.
+Trimmed (ROADMAP.md queue 1 item 6): the reuse of parked below-safe_ts
+builds across history, the re-mint governor and region heat, ``get_fast``;
+the gauges and metrics.  Not ported (queue 1 item 8): the native parse and
+the snapshot read of the CF_WRITE range, the streaming ingest.
 """
 
 from __future__ import annotations
 
 import threading
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,12 +55,12 @@ import numpy as np
 from ..codec.keys import decode_record_handle, table_record_range
 from ..codec.row import decode_row
 from ..datatype import Column
-from ..engine.traits import CF_LOCK, CF_WRITE
+from ..engine.traits import CF_DEFAULT, CF_LOCK, CF_WRITE
 from ..executors.columnar import ColumnarTable
 from ..storage.mvcc.reader import (_PAST_VERSIONS, MvccReader,
                                    check_lock_conflict)
-from ..storage.txn_types import Lock, LockType, decode_key, encode_key, \
-    split_ts
+from ..storage.txn_types import Lock, LockType, append_ts, decode_key, \
+    encode_key, split_ts
 
 
 class _TableShim:
@@ -200,7 +203,10 @@ class MvccColumnarSnapshot:
     snapshot the cache published, else one of the snapshot's own, which
     carries ``bundle`` (a cold build's resolve artifacts) to the runner's
     first feed miss.  ``feed_version``: the lineage version this
-    snapshot's data reflects."""
+    snapshot's data reflects (a snapshot served from the line's history is
+    older than the lineage).  ``superseded_at``: the least commit_ts of any
+    later data delta (None: still the newest view); a read below it sees
+    the same visible set here as in every newer generation."""
 
     def __init__(self, tbl: ColumnarTable, build_ts: int, safe_ts: int,
                  bundle=None, blocking_locks: Sequence = ()):
@@ -210,6 +216,7 @@ class MvccColumnarSnapshot:
         self.blocking_locks = tuple(blocking_locks)
         self.feed_lineage = FeedLineage()
         self.feed_version: Optional[int] = self.feed_lineage.version
+        self.superseded_at: Optional[int] = None
         if bundle is not None:
             self.feed_lineage.stash_cold(bundle)
 
@@ -245,7 +252,10 @@ class MvccColumnarSnapshot:
         return self._tbl.to_kv_pairs(ranges)
 
     def estimated_rows(self) -> int:
-        return len(self._tbl)
+        """The live rows (a tombstoned row is not one)."""
+        alive = self._tbl.alive
+        return len(self._tbl) if alive is None else \
+            int(np.count_nonzero(alive))
 
 
 class FeedLineage:
@@ -327,7 +337,13 @@ class FeedLineage:
 
 class _LineState:
     """The arrays behind one cache line, with slack capacity past the live
-    rows ``n`` (the delta bridge that fills it is not ported)."""
+    rows ``n``.
+
+    Rows [0, n) of a current buffer are never written in place: updates and
+    tombstones swap in copied buffers (copy-on-write), appends write only
+    into the slack [n, cap).  A published snapshot holds views of the
+    buffers current when it was published, so a scan never sees a torn
+    patch."""
 
     __slots__ = ("table_id", "col_meta", "cap", "n", "n_dead", "handles",
                  "cols", "alive", "locks", "safe_ts", "build_ts",
@@ -369,8 +385,16 @@ class _LineState:
                                bufs[1][:n])
                    for cid, bufs in self.cols.items()}
         alive = self.alive[:n] if self.alive is not None else None
-        tbl = ColumnarTable(_TableShim(self.table_id), self.handles[:n],
-                            columns, alive)
+        # the state keeps the handles strictly increasing by construction:
+        # no O(n) check of the constructor's on every patch
+        tbl = ColumnarTable.__new__(ColumnarTable)
+        tbl.table = _TableShim(self.table_id)
+        tbl.handles = self.handles[:n]
+        tbl.columns = columns
+        tbl.alive = alive
+        tbl._feed_pos_cache = {}
+        tbl._index_order_cache = {}
+        tbl._ones_validity = np.ones(0, np.bool_)
         snap = MvccColumnarSnapshot(tbl, self.build_ts, self.safe_ts,
                                     blocking_locks=sorted(
                                         self.locks.items()))
@@ -378,9 +402,104 @@ class _LineState:
         snap.feed_version = self.lineage.version
         return snap
 
+    # -- patch primitives ---------------------------------------------
+
+    def _pos_of(self, handle: int):
+        view = self.handles[:self.n]
+        pos = int(np.searchsorted(view, handle))
+        return pos, pos < self.n and int(view[pos]) == handle
+
+    def _payload_cols(self, payload: dict):
+        """A row's payload → {col_id: (value, valid)} over the whole schema
+        (an MVCC PUT replaces the whole row: an absent column takes its
+        default, or NULL)."""
+        out = {}
+        for cid, (_et, default) in self.col_meta.items():
+            v = payload.get(cid, default)
+            out[cid] = (v, v is not None)
+        return out
+
+    def _cow_columns(self) -> None:
+        for cid, bufs in self.cols.items():
+            self.cols[cid] = [bufs[0].copy(), bufs[1].copy()]
+
+    def _cow_alive(self) -> None:
+        if self.alive is None:
+            self.alive = np.ones(self.cap, np.bool_)
+        else:
+            self.alive = self.alive.copy()
+
+    def _set_row(self, pos: int, payload: dict) -> None:
+        for cid, (v, ok) in self._payload_cols(payload).items():
+            vals, valid = self.cols[cid]
+            vals[pos] = v if ok else \
+                (b"" if vals.dtype == object else 0)
+            valid[pos] = ok
+
+    def _repack(self, inserts) -> None:
+        """One vectorized pass: drop the tombstones, merge ``inserts``
+        ([(handle, payload)]) at their sorted positions, restore the slack.
+        Every buffer is fresh: published snapshots are untouched."""
+        n = self.n
+        keep = self.alive[:n] if self.alive is not None else None
+        base_h = self.handles[:n][keep] if keep is not None else \
+            self.handles[:n].copy()
+        ins = sorted(inserts, key=lambda kv: kv[0])
+        ins_h = np.asarray([h for h, _ in ins], dtype=np.int64)
+        pos = np.searchsorted(base_h, ins_h)
+        new_h = np.insert(base_h, pos, ins_h) if len(ins) else base_h
+        new_n = len(new_h)
+        cap = new_n + max(self.SLACK_MIN, new_n >> 3)
+        handles = np.empty(cap, np.int64)
+        handles[:new_n] = new_h
+        new_cols: dict = {}
+        for cid, (vals, valid) in self.cols.items():
+            _et, default = self.col_meta[cid]
+            bv = vals[:n][keep] if keep is not None else vals[:n]
+            bm = valid[:n][keep] if keep is not None else valid[:n]
+            if len(ins):
+                iv, im = [], []
+                for _h, payload in ins:
+                    v = payload.get(cid, default)
+                    im.append(v is not None)
+                    iv.append(v if v is not None else
+                              (b"" if vals.dtype == object else 0))
+                bv = np.insert(bv, pos, np.asarray(iv, dtype=vals.dtype)
+                               if vals.dtype != object else
+                               np.fromiter(iv, dtype=object,
+                                           count=len(iv)))
+                bm = np.insert(bm, pos, np.asarray(im, dtype=np.bool_))
+            nv = np.empty(cap, dtype=vals.dtype)
+            nv[:new_n] = bv
+            nm = np.zeros(cap, np.bool_)
+            nm[:new_n] = bm
+            new_cols[cid] = [nv, nm]
+        self.handles = handles
+        self.cols = new_cols
+        self.cap = cap
+        self.n = new_n
+        self.n_dead = 0
+        self.alive = None
+
+    def tombstone_ratio(self) -> float:
+        return self.n_dead / self.n if self.n else 0.0
+
+
+def _merge_spans(positions, gap: int = 32):
+    """Sorted unique row positions → merged half-open (lo, hi) spans (two
+    positions less than ``gap`` apart share a span)."""
+    spans = []
+    for p in positions:
+        if spans and p < spans[-1][1] + gap:
+            spans[-1][1] = p + 1
+        else:
+            spans.append([p, p + 1])
+    return [(lo, hi) for lo, hi in spans]
+
 
 class _Line:
-    __slots__ = ("key", "data_index", "snap", "state", "parked", "mu")
+    __slots__ = ("key", "data_index", "snap", "state", "parked", "history",
+                 "mu")
 
     def __init__(self, key, data_index, snap, state):
         self.key = key
@@ -388,25 +507,41 @@ class _Line:
         self.snap = snap
         self.state = state
         self.parked: OrderedDict = OrderedDict()
+        # recently superseded generations, newest first: each serves the
+        # reads below its superseded_at without a build
+        self.history: deque = deque(maxlen=4)
         self.mu = threading.Lock()
 
 
 class RegionColumnarCache:
     """LRU of columnar lines keyed by (region, epoch version, table,
-    columns), each stamped with the ``data_index`` it was built at.
+    columns), each stamped with the ``data_index`` it reflects.
 
-    Thread-safe: a build for one (line, data version) runs outside the
-    global lock, and concurrent requests for it wait on its event."""
+    Thread-safe: a build or bridge for one (line, data version) runs outside
+    the global lock, and concurrent requests for it wait on its event; two
+    bridges of one line serialize on the line's mutex.
 
-    def __init__(self, capacity: int = 8):
+    ``delta_source`` (a ``copr.delta.DeltaSink``) supplies the committed
+    writes a line is bridged across; without one every data-version change
+    rebuilds.  A tombstone share above ``compact_ratio`` repacks the line; a
+    gap of more than ``max_delta_rows`` row deltas rebuilds it."""
+
+    def __init__(self, capacity: int = 8, delta_source=None,
+                 compact_ratio: float = 0.25,
+                 max_delta_rows: int = 1 << 16):
         self._lines: OrderedDict = OrderedDict()
         self._capacity = capacity
         self._lock = threading.Lock()
+        self._delta_source = delta_source
+        self._compact_ratio = compact_ratio
+        self._max_delta_rows = max_delta_rows
         # (base_key, data_index) -> threading.Event of an in-flight build
         self._building: dict = {}
         self.hits = 0
         self.misses = 0         # builds
-        self.rebuilds = 0       # builds that replaced a line's state
+        self.deltas = 0         # data-version gaps bridged by a patch
+        self.rebuilds = 0       # gaps that fell back to a build
+        self.compactions = 0    # repacks (a mid-insert, the ratio crossed)
         self.invalidations = 0  # lines dropped by lifecycle events
         self.device_builds = 0  # builds that came with a cold bundle
         self.splits = 0         # parent lines sliced into child lines
@@ -434,9 +569,12 @@ class RegionColumnarCache:
                 if line.state else 0,
                 "digest_feeds": len(line.state.lineage.feed_digests)
                 if line.state else 0,
+                "tombstone_ratio": line.state.tombstone_ratio()
+                if line.state else 0.0,
             } for key, line in self._lines.items()]
         return {"hits": self.hits, "misses": self.misses,
-                "rebuilds": self.rebuilds,
+                "deltas": self.deltas, "rebuilds": self.rebuilds,
+                "compactions": self.compactions,
                 "invalidations": self.invalidations,
                 "device_builds": self.device_builds, "splits": self.splits,
                 "resident_lines": len(lines), "lines": lines}
@@ -522,14 +660,24 @@ class RegionColumnarCache:
 
     def _split_one(self, key, line, left, right, left_index: int,
                    right_index: Optional[int]):
-        # a line behind the split point would need the delta bridge,
-        # which is not ported: no spec, the children rebuild
+        # a line lagging the split point bridges forward first (a split
+        # does not bump data_index: left_index is the last write before
+        # it).  There is no snapshot here: a delta whose payload spilled
+        # to CF_DEFAULT fails the bridge, and the children rebuild
         if line.state is None or line.data_index is None or \
-                line.data_index != left_index:
+                line.data_index > left_index:
             return None
+        if line.data_index < left_index:
+            if self._delta_source is None:
+                return None
+            try:
+                if self._bridge(line, None, left.id, left_index) is None:
+                    return None
+            except Exception:   # noqa: BLE001 — any surprise: rebuild
+                return None
         with line.mu:
             st = line.state
-            if st is None:
+            if st is None or line.data_index != left_index:
                 return None
             n = st.n
             lo_key, hi_key = table_record_range(st.table_id)
@@ -682,12 +830,27 @@ class RegionColumnarCache:
 
     @staticmethod
     def _lookup_locked(line, data_index: int, start_ts: int):
-        """→ (snapshot, lock source) or None."""
+        """→ (snapshot, lock source) or None.  A generation from the line's
+        history checks its locks against the line's newest set (its own
+        are stale; the newest set over-blocks at worst: a lock released
+        since was resolved above the read's ts or by a data delta that
+        superseded the old generation)."""
         if line is None:
             return None
         if line.data_index == data_index and line.snap is not None and \
                 line.snap.valid_for(start_ts):
             return line.snap, line.snap
+        # under write churn a read whose ts precedes every commit since an
+        # older generation sees the same visible set there: serve it, no
+        # build.  Sound only once the line has applied at least up to the
+        # requested version (superseded_at bounds applied batches only)
+        if line.data_index is not None and line.data_index >= data_index:
+            for old in line.history:
+                if old.valid_for(start_ts) and (
+                        old.superseded_at is None or
+                        start_ts < old.superseded_at):
+                    return old, (line.snap if line.snap is not None
+                                 else old)
         parked = line.parked.get((data_index, start_ts))
         if parked is not None:
             line.parked.move_to_end((data_index, start_ts))
@@ -698,7 +861,28 @@ class RegionColumnarCache:
                      start_ts: int, gen0: int = 0):
         from ..utils import tracker
         scan = dag.executors[0]
+        # classified before the bridge: a failed bridge retires the state,
+        # and its fallback still counts as a rebuild
         had_state = line is not None and line.state is not None
+        if had_state and line.data_index is not None and \
+                line.data_index < data_index and \
+                self._delta_source is not None:
+            with tracker.phase("delta_apply"):
+                bridged = self._bridge(line, snap, base_key[0], data_index)
+            if bridged is not None:
+                with self._lock:
+                    if base_key in self._lines:     # may be evicted
+                        self._lines.move_to_end(base_key)
+                    self.deltas += 1
+                tracker.label("copr_cache", "delta")
+                if bridged.valid_for(start_ts):
+                    return bridged, bridged
+                # the request reads below the new safe_ts: the generation
+                # it raced past may serve it from the history
+                with self._lock:
+                    got = self._lookup_locked(line, data_index, start_ts)
+                if got is not None:
+                    return got
         self.misses += 1
         tracker.label("copr_cache", "build")
         with tracker.phase("columnar_build"):
@@ -755,3 +939,204 @@ class RegionColumnarCache:
         for old in retired:
             self._retire(old)
         return ent, ent
+
+    # -- the delta bridge ---------------------------------------------
+
+    def _bridge(self, line, snap, region_id: int, data_index: int):
+        """Patch ``line`` forward to ``data_index`` → its new published
+        snapshot, or None (the caller rebuilds).  The deltas are read under
+        the line's mutex: two bridges toward different versions each replay
+        exactly the gap from the line's version then, never a batch
+        twice."""
+        with line.mu:
+            cur = line.data_index
+            if cur is None or cur > data_index or line.state is None:
+                return None
+            if cur == data_index:
+                return line.snap
+            deltas = self._delta_source.deltas_between(region_id, cur,
+                                                       data_index)
+            if deltas is None or len(deltas[0]) > self._max_delta_rows:
+                return None
+            try:
+                published = self._apply_deltas(line.state, snap, *deltas)
+            except Exception:   # noqa: BLE001 — any surprise: rebuild
+                import logging
+                logging.getLogger(__name__).warning(
+                    "columnar delta apply failed; falling back to rebuild",
+                    exc_info=True)
+                published = None
+            if published is None:
+                # the state may be part-patched: retire it (and its device
+                # feeds) so no later bridge replays onto it
+                self._retire(line)
+                line.state = None
+                return None
+            published, min_data_ts = published
+            prev = line.snap
+            with self._lock:
+                if prev is not None:
+                    # the outgoing generation serves reads below the first
+                    # commit that superseded it; commit_ts order is not
+                    # apply order across keys, so every older generation's
+                    # bound tightens too
+                    if min_data_ts is not None:
+                        for h in (prev,) + tuple(line.history):
+                            h.superseded_at = min_data_ts \
+                                if h.superseded_at is None else \
+                                min(h.superseded_at, min_data_ts)
+                    line.history.appendleft(prev)
+                line.data_index = data_index
+                line.snap = published
+                line.parked.clear()
+            return published
+
+    def _apply_deltas(self, state: _LineState, snap, rows, locks):
+        """Replay ``rows`` and ``locks`` onto ``state`` → (its published
+        snapshot, the least data commit_ts of the batch), or None when a
+        payload is not available (the caller rebuilds).  The patch is
+        journalled on the lineage: ``{"structural": True, "n"}`` when rows
+        moved or a tombstone mask exists, else ``{"structural": False, "n",
+        "spans": [{lo, hi, handles, cols}]}`` with each written span's
+        rows."""
+        lo_key, hi_key = table_record_range(state.table_id)
+        # 1. fold the row deltas: the safe_ts watermark, the last visible
+        #    op of each key
+        pending: OrderedDict = OrderedDict()
+        min_data_ts = None
+        for d in rows:
+            if not lo_key <= d.user_key < hi_key:
+                continue        # index keys, other tables of the region
+            if d.commit_ts > state.safe_ts:
+                state.safe_ts = d.commit_ts
+            if d.kind == "advance":
+                continue
+            if min_data_ts is None or d.commit_ts < min_data_ts:
+                min_data_ts = d.commit_ts
+            pending[d.user_key] = d
+        state.build_ts = max(state.build_ts, state.safe_ts)
+
+        # 2. payloads, classified against the current rows
+        updates: list = []      # (pos, payload)
+        deletes: list = []      # pos
+        inserts: list = []      # (handle, payload)
+        revives: list = []      # (pos, payload): a tombstoned row reused
+        for user_key, d in pending.items():
+            handle = decode_record_handle(user_key)
+            pos, present = state._pos_of(handle)
+            dead = present and state.alive is not None and \
+                not state.alive[pos]
+            if d.kind == "delete":
+                if present and not dead:
+                    deletes.append(pos)
+                continue
+            payload = self._resolve_payload(snap, d)
+            if payload is None:
+                return None     # a spilled value not available: rebuild
+            if present:
+                (revives if dead else updates).append((pos, payload))
+            else:
+                inserts.append((handle, payload))
+
+        n0 = state.n
+        patch_spans: list = []
+        structural = False
+
+        # 3. inserts: into the slack when all lie past the greatest handle,
+        #    else one repack (a mid-insert)
+        append_only = all(h > int(state.handles[n0 - 1])
+                          for h, _ in inserts) if n0 else True
+        if inserts and (not append_only or n0 + len(inserts) > state.cap):
+            # the repack folds deletes and tombstones too; positional
+            # updates land first so it copies the patched values
+            if updates or revives:
+                state._cow_columns()
+                for pos, payload in updates + revives:
+                    state._set_row(pos, payload)
+                if revives:
+                    state._cow_alive()
+                    for pos, _ in revives:
+                        state.alive[pos] = True
+                        state.n_dead -= 1
+            if deletes:
+                state._cow_alive()
+                for pos in deletes:
+                    state.alive[pos] = False
+                state.n_dead += len(deletes)
+            state._repack(inserts)
+            self.compactions += 1
+            structural = True
+        else:
+            if updates or revives:
+                state._cow_columns()
+                for pos, payload in updates + revives:
+                    state._set_row(pos, payload)
+                patch_spans.extend(_merge_spans(sorted(
+                    {p for p, _ in updates})))
+            if revives:
+                state._cow_alive()
+                for pos, _ in revives:
+                    state.alive[pos] = True
+                state.n_dead -= len(revives)
+                structural = True
+            if deletes:
+                state._cow_alive()
+                for pos in deletes:
+                    state.alive[pos] = False
+                state.n_dead += len(deletes)
+                structural = True
+            if inserts:
+                ins = sorted(inserts, key=lambda kv: kv[0])
+                k = len(ins)
+                state.handles[n0:n0 + k] = [h for h, _ in ins]
+                if state.alive is not None:
+                    state.alive[n0:n0 + k] = True
+                for i, (_h, payload) in enumerate(ins):
+                    state._set_row(n0 + i, payload)
+                state.n += k
+                patch_spans.append((n0, state.n))
+            # 4. compaction: the tombstone share crossed the ratio
+            if state.alive is not None and \
+                    state.tombstone_ratio() > self._compact_ratio:
+                state._repack([])
+                self.compactions += 1
+                structural = True
+
+        if state.alive is not None and state.n_dead == 0:
+            # every tombstone was revived: scans are zero-copy again (the
+            # published copy-on-write mask stays with the older snapshots)
+            state.alive = None
+
+        # 5. the blocking locks (range-scoped, as the build's scan)
+        for ld in locks:
+            if not lo_key <= ld.user_key < hi_key:
+                continue
+            if ld.lock is None:
+                state.locks.pop(ld.user_key, None)
+            else:
+                state.locks[ld.user_key] = ld.lock
+
+        # 6. the patch, journalled for the device feed
+        if structural or state.alive is not None:
+            state.lineage.record({"structural": True, "n": state.n})
+        else:
+            spans = [{"lo": lo, "hi": hi,
+                      "handles": state.handles[lo:hi].copy(),
+                      "cols": {cid: (bufs[0][lo:hi].copy(),
+                                     bufs[1][lo:hi].copy())
+                               for cid, bufs in state.cols.items()}}
+                     for lo, hi in patch_spans]
+            state.lineage.record({"structural": False, "n": state.n,
+                                  "spans": spans})
+        return state.publish(), min_data_ts
+
+    @staticmethod
+    def _resolve_payload(snap, d) -> Optional[dict]:
+        """A PUT's row: its inlined short value, else its CF_DEFAULT record
+        in ``snap`` (None when there is none)."""
+        if d.short_value is not None:
+            return decode_row(d.short_value) if d.short_value else {}
+        v = snap.get_value_cf(CF_DEFAULT, append_ts(d.enc_key, d.start_ts))
+        if v is None:
+            return None
+        return decode_row(v)

@@ -25,7 +25,9 @@
 //                   around each span (over the positions written, before
 //                   and after) and the recorded digest updated by its rule
 //                   R' = R - H(old) + H(new); corrupt_resident_plane
-//                   (:2023) is a one-row patch.
+//                   (:2023) is a one-row patch.  The span form, the rows
+//                   named by K span descriptors in place of the
+//                   positions, is what a delta journal patch launches.
 //
 // Bound: bytes.  plane_digest reads the plane once: 4 B x 104,857,600 rows
 // is 0.125 ms at 3.35 TB/s.  Each thread takes 16-byte chunks of the
@@ -63,6 +65,20 @@
 // laundered into the record.
 // Positions must be unique (the wrapper checks): a parallel scatter would
 // not say which of two writes to one row wins.
+// The span form is the same kernel over K sorted, disjoint row spans
+// [lo, hi) of every plane of a feed, one launch whatever K and P: the form
+// of _dus (:1816) the delta journal gives (its rows always come as spans,
+// tikv_tpu/copr/region_cache.py:794 _merge_spans), with _patch_plane's
+// range digests over each span and the same R' rule.  A span travels as a
+// 16-byte descriptor (lo, len, prefix: the rows of the spans before it,
+// where its values start) where the positions would lie, never as
+// positions: the parameter block holds the plane descriptors and up to a
+// few hundred spans beside the values, past that the payload is one copy
+// from pinned memory.  Row i of the concatenation finds its span by a
+// binary search over the prefixes (each thread's rows ascend, so each
+// search starts at its last span), and writes row lo + (i - prefix).
+// Bound: bytes, 2 x rows x the planes' widths plus the payload; at the
+// journal's sizes (1 to 65,536 rows) it is bound by its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -236,7 +252,8 @@ constexpr int PATCH_ROWS = 1024;  // rows a block takes
 
 // The launch parameters of a patch: N payload bytes inline (N = 0: the
 // payload lies in device memory at `table`).  The payload holds the P
-// plane descriptors, then the m positions (int64, at pos_off), then the
+// plane descriptors, then the m positions (int64, at pos_off) or, with
+// n_spans > 0, the span descriptors (SpanDesc, at pos_off), then the
 // values of the planes whose values came from the host (at each val_off),
 // then, on the several-blocks-a-plane path, the scratch (at scratch_off:
 // P * gridDim.x partial pairs, then P tickets).
@@ -248,8 +265,15 @@ struct PatchArgs {
   long long pos_off;
   long long scratch_off;
   int rows_per_block;
-  int pad;
+  int n_spans;  // 0: positions
   alignas(16) unsigned char data[N > 0 ? N : 16];
+};
+
+// one span of a span patch (device/digest.py _SPAN_DESC)
+struct SpanDesc {
+  long long lo;  // the span's first row in the planes
+  int len;       // its rows
+  int prefix;    // the rows of the spans before it: its first value
 };
 
 namespace {
@@ -298,6 +322,21 @@ __device__ __forceinline__ void store_digests(u64* o, const PatchPlane& d,
   o[2] = rec - h_old + h_new;
 }
 
+// the row that value i of a span patch lands on: its span is the last at
+// or after `k` whose first value is at or before i (k moves there)
+__device__ __forceinline__ long long span_row(const SpanDesc* s, int& k,
+                                              int K, long long i) {
+  int hi = K - 1;
+  while (k < hi) {
+    const int mid = (k + hi + 1) >> 1;
+    if (s[mid].prefix <= i)
+      k = mid;
+    else
+      hi = mid - 1;
+  }
+  return s[k].lo + (i - s[k].prefix);
+}
+
 template <int N>
 __global__ void __launch_bounds__(THREADS)
     patch_kernel(const __grid_constant__ PatchArgs<N> p) {
@@ -308,14 +347,17 @@ __global__ void __launch_bounds__(THREADS)
     pay = p.table;
   const PatchPlane d = reinterpret_cast<const PatchPlane*>(pay)[blockIdx.y];
   const long long* pos = reinterpret_cast<const long long*>(pay + p.pos_off);
+  const SpanDesc* spans = reinterpret_cast<const SpanDesc*>(pay + p.pos_off);
   const unsigned char* vals = d.vals != nullptr ? d.vals : pay + d.val_off;
   const bool sums = p.out != nullptr;
   const long long r0 = (long long)blockIdx.x * p.rows_per_block;
   const long long r1 =
       r0 + p.rows_per_block < p.m ? r0 + p.rows_per_block : p.m;
   u64 h_old = 0, h_new = 0;
+  int k = 0;
   for (long long i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    const long long q = pos[i];
+    const long long q = p.n_spans > 0 ? span_row(spans, k, p.n_spans, i)
+                                      : pos[i];
     const u64 w = 2 * (u64)q + 1;
     if (sums) h_old += bits_at(d.plane, d.width, q) * w;
     const u64 nv = bits_at(vals, d.width, i);
@@ -357,6 +399,7 @@ cudaError_t patch_as(const void* args, int grid_x, int P, int threads,
   memcpy(&p, args, sizeof(p));
   if (N > 0 && p.out != nullptr && grid_x > 1) return cudaErrorInvalidValue;
   if (N == 0 && p.table == nullptr) return cudaErrorInvalidValue;
+  if (p.n_spans < 0) return cudaErrorInvalidValue;
   patch_kernel<N><<<dim3((unsigned)grid_x, (unsigned)P), threads, 0, s>>>(p);
   return cudaGetLastError();
 }
@@ -475,6 +518,7 @@ int feed_verify_launch(int device, int P, const void* descs,
 
 // the sizes the wrapper lays a patch out by
 int patch_desc_bytes() { return (int)sizeof(PatchPlane); }
+int span_desc_bytes() { return (int)sizeof(SpanDesc); }
 int patch_rows_per_block() { return PATCH_ROWS; }
 int patch_args_size(int n) {
   switch (n) {
@@ -493,7 +537,8 @@ int patch_args_size(int n) {
 
 // One patch launch: `args` is a PatchArgs<n> of `bytes` bytes (n 0, 208,
 // 976 or 4048), its grid (grid_x, P) and `threads` a block; positions are
-// unique and in range (the wrapper checks).
+// unique and in range, spans sorted, disjoint and inside every plane (the
+// wrapper checks).
 int patch_feed_launch(int device, const void* args, int bytes, int grid_x,
                       int P, int threads, void* stream) {
   int cur = -1;

@@ -10,7 +10,7 @@ The kernels (``build.SOURCES``): ``hash_agg``, ``twolevel`` and
 ``sel_batched`` (``sel_pred_batched``'s terms route), ``topn``
 (``topn_select``), ``digest``
 (``plane_digest``, ``feed_verify``, ``patch_feed_rows`` and its one-plane
-case ``patch_rows``), ``mvcc``
+case ``patch_rows``, ``patch_feed_spans``), ``mvcc``
 (``mvcc_resolve``), ``split`` (``split_planes``), ``shard_merge``
 (``shard_psum``, ``shard_bucket_merge``, ``shard_merge``, wrapped by
 ``shard.py``), each
@@ -34,7 +34,7 @@ the caller asks for the CPU, and never fall back to it on their own.
 import torch
 
 __all__ = ["DEVICE_FAULTS", "DeferredResult", "DeviceRunner",
-           "DeviceUnavailable", "resolve_device"]
+           "DeviceUnavailable", "FeedQuarantined", "resolve_device"]
 
 
 class DeviceUnavailable(Exception):
@@ -42,6 +42,15 @@ class DeviceUnavailable(Exception):
     fault, a capacity that did not settle): the caller may answer it on
     the host.  A kernel that fails to build or launch is not one of these:
     it raises its own error, which no caller degrades."""
+
+
+class FeedQuarantined(DeviceUnavailable):
+    """A scrub found the request's resident feed diverged from its record:
+    its feeds are dropped, this request is answered on the host, and the
+    next one uploads the feed again from host truth.  ``reason`` names the
+    degrade the endpoint counts."""
+
+    reason = "quarantined"
 
 
 # the faults a caller degrades to the host on (unless it forced the

@@ -21,12 +21,18 @@ other dtype as the unsigned view of its own width — the formula of
   digests of the positions written, before and after (what
   ``_patch_plane``'s two range digests give for a span), and the recorded
   digest updated by R' = R − H(old) + H(new) in the same launch;
-- ``patch_rows(plane, pos, vals, digest=False)``: its one-plane case.
+- ``patch_rows(plane, pos, vals, digest=False)``: its one-plane case;
+- ``patch_feed_spans(planes, spans, vals, digests=None)``: the same write
+  over K sorted, disjoint row spans [lo, hi) (the delta journal's form:
+  ``copr.region_cache._merge_spans``) in one launch, each span carried as a
+  16-byte descriptor (lo, len, prefix), never as positions; ``vals[p]`` is
+  the concatenation of the spans' rows, and the digests are those of the
+  global positions q = lo + i.
 
 Each wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.  ``digest_launches``,
-``verify_launches`` and ``patch_launches`` count kernel launches and
-nothing else.
+``verify_launches``, ``patch_launches`` and ``span_launches`` count kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 digest_launches = 0
 verify_launches = 0
 patch_launches = 0
+span_launches = 0
 
 # the signed view of each element width (a bool plane reads as its bytes)
 _INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -107,10 +114,11 @@ def _kernel_lib():
         lib.patch_args_size.argtypes = [i]
         lib.patch_args_size.restype = i
         for n in (0, *PATCH_INLINE):
-            if lib.patch_args_size(n) != 48 + (n or 16):
-                raise RuntimeError(f"digest: the kernel's PatchArgs<{n}> is "
-                                   f"{lib.patch_args_size(n)} bytes, the "
-                                   f"wrapper's {48 + (n or 16)}")
+            got = lib.patch_args_size(n)
+            if got != 48 + (n or 16):
+                raise RuntimeError(f"digest: the kernel's patch_args_size"
+                                   f"({n}) is {got} bytes, the wrapper's "
+                                   f"{48 + (n or 16)}")
         lib.feed_verify_describe.argtypes = [i, p, p, ll, ll, p]
         lib.feed_verify_describe.restype = i
         lib.feed_verify_launch.argtypes = [i, i, p, p, ll, ll, ll, p, p]
@@ -118,6 +126,7 @@ def _kernel_lib():
         for fn, want in (("feed_verify_desc_bytes", _VERIFY_DESC_BYTES),
                          ("feed_verify_param_planes", VERIFY_PARAM_PLANES),
                          ("patch_desc_bytes", _PATCH_DESC.size),
+                         ("span_desc_bytes", _SPAN_DESC.size),
                          ("patch_rows_per_block", PATCH_ROWS)):
             getattr(lib, fn).restype = i
             if getattr(lib, fn)() != want:
@@ -302,7 +311,7 @@ class PatchLayout(NamedTuple):
     """Where a patch launch keeps what it reads (``plan_patch``)."""
 
     size: int                   # the payload's bytes
-    pos_off: int                # the positions' offset in it
+    pos_off: int                # the positions' (or span descriptors') offset
     val_offs: list              # each plane's values offset (None: on card)
     scratch_off: int            # the several-blocks scratch (0: none)
     inline: Optional[int]       # the parameter class (None: on the card)
@@ -315,12 +324,15 @@ def _align16(x: int) -> int:
 
 
 def plan_patch(widths: Sequence[int], m: int, host_vals: Sequence[bool],
-               digest: bool) -> PatchLayout:
+               digest: bool, index_bytes: Optional[int] = None
+               ) -> PatchLayout:
     """The layout of a patch of ``m`` rows of planes of ``widths`` bytes
-    (``host_vals[p]``: plane p's values come in the payload)."""
+    (``host_vals[p]``: plane p's values come in the payload), its rows
+    named by ``index_bytes`` after the plane descriptors: m int64
+    positions by default, a span patch's descriptors otherwise."""
     P = len(widths)
     pos_off = _PATCH_DESC.size * P
-    end = pos_off + 8 * m
+    end = pos_off + (8 * m if index_bytes is None else index_bytes)
     val_offs = []
     for w, host in zip(widths, host_vals):
         if host:
@@ -343,14 +355,12 @@ def plan_patch(widths: Sequence[int], m: int, host_vals: Sequence[bool],
                        grid_x=grid_x, threads=threads)
 
 
-def pack_patch(lay: PatchLayout, planes, pos: np.ndarray, vals, recs,
-               out_ptr: int, table_ptr: int = 0) -> tuple:
-    """The launch's parameter block (the header, then the payload when it
-    rides inline) and its payload, both uint8 arrays.  ``vals[p]``: a
-    host array of plane p's values, or the address of its values on the
-    card; ``recs[p]``: (the address of the recorded digest on the card or
-    0, its value when the address is 0); ``table_ptr``: where the payload
-    lies on the card when it does not ride inline."""
+def _pack(lay: PatchLayout, planes, index: np.ndarray, m: int, n_spans: int,
+          vals, recs, out_ptr: int, table_ptr: int) -> tuple:
+    """The parameter block and payload of either form: the plane
+    descriptors, ``index`` (the positions' or the span descriptors' bytes)
+    at ``lay.pos_off``, the host values, and the header (``n_spans``: 0
+    for the positions form)."""
     pay = np.zeros(lay.size, np.uint8)
     for p, (plane, v, (rec_ptr, rec), off) in enumerate(zip(
             planes, vals, recs, lay.val_offs)):
@@ -360,13 +370,60 @@ def pack_patch(lay: PatchLayout, planes, pos: np.ndarray, vals, recs,
             0 if off is None else off, plane.element_size(), 0)
         if off is not None:
             pay[off:off + v.nbytes] = v.view(np.uint8)
-    pay[lay.pos_off:lay.pos_off + 8 * pos.size] = pos.view(np.uint8)
+    pay[lay.pos_off:lay.pos_off + index.size] = index
     args = np.zeros(48 + (lay.inline or 16), np.uint8)
-    _PATCH_HEAD.pack_into(args, 0, table_ptr, out_ptr, pos.size, lay.pos_off,
-                          lay.scratch_off, PATCH_ROWS, 0)
+    _PATCH_HEAD.pack_into(args, 0, table_ptr, out_ptr, m, lay.pos_off,
+                          lay.scratch_off, PATCH_ROWS, n_spans)
     if lay.inline is not None:
         args[48:48 + lay.size] = pay
     return args, pay
+
+
+def pack_patch(lay: PatchLayout, planes, pos: np.ndarray, vals, recs,
+               out_ptr: int, table_ptr: int = 0) -> tuple:
+    """The launch's parameter block (the header, then the payload when it
+    rides inline) and its payload, both uint8 arrays.  ``vals[p]``: a
+    host array of plane p's values, or the address of its values on the
+    card; ``recs[p]``: (the address of the recorded digest on the card or
+    0, its value when the address is 0); ``table_ptr``: where the payload
+    lies on the card when it does not ride inline."""
+    return _pack(lay, planes, pos.view(np.uint8), pos.size, 0, vals, recs,
+                 out_ptr, table_ptr)
+
+
+def _launch(planes, m: int, vals, digests, plan, pack):
+    """One ``patch_feed_launch`` of either form (its arguments checked): the
+    recorded digests by value or by address, the payload inline or, past
+    the parameter room, in one copy from pinned memory ordered on the
+    launch stream → the (P, 3) digests or None.  ``plan(host_vals)`` gives
+    the layout, ``pack(lay, vals, recs, out_ptr, table_ptr)`` the block."""
+    dev = planes[0].device
+    P = len(planes)
+    on_card = [v.device == dev for v in vals]
+    lay = plan([not c for c in on_card])
+    out = torch.empty((P, 3), dtype=torch.int64, device=dev) \
+        if digests is not None else None
+    recs, keep = [], []
+    for r in digests if digests is not None else [0] * P:
+        if isinstance(r, torch.Tensor) and r.device == dev:
+            keep.append(r.reshape(()).to(torch.int64))
+            recs.append((keep[-1].data_ptr(), 0))
+        else:
+            recs.append((0, as_u64(r)))
+    table = None if lay.inline is not None else \
+        torch.empty(lay.size, dtype=torch.uint8, device=dev)
+    args, pay = pack(lay, [v.data_ptr() if c else v.numpy()
+                           for v, c in zip(vals, on_card)], recs,
+                     0 if out is None else out.data_ptr(),
+                     0 if table is None else table.data_ptr())
+    if table is not None:
+        table.copy_(torch.from_numpy(pay).pin_memory(), non_blocking=True)
+    lib = _kernel_lib()
+    _raise_on(lib, lib.patch_feed_launch(
+        _dev_index(dev), args.ctypes.data, args.size, lay.grid_x, P,
+        lay.threads, torch.cuda.current_stream(dev).cuda_stream),
+        "patch launch")
+    return out
 
 
 def patch_feed_rows(planes: Sequence[torch.Tensor], pos, vals: Sequence,
@@ -410,37 +467,16 @@ def _patch_cuda(planes, pos: np.ndarray, vals, digests):
     """The launch behind ``patch_feed_rows``, its arguments checked (``pos``
     on the host, each of ``vals`` on the planes' card or the host)."""
     global patch_launches
-    dev = planes[0].device
-    P, m = len(planes), int(pos.size)
+    m = int(pos.size)
     if m == 0 and digests is None:
         return None
-    lib = _kernel_lib()
-    on_card = [v.device == dev for v in vals]
-    lay = plan_patch([a.element_size() for a in planes], m,
-                     [not c for c in on_card], digests is not None)
-    out = torch.empty((P, 3), dtype=torch.int64, device=dev) \
-        if digests is not None else None
-    recs, keep = [], []
-    for r in digests if digests is not None else [0] * P:
-        if isinstance(r, torch.Tensor) and r.device == dev:
-            keep.append(r.reshape(()).to(torch.int64))
-            recs.append((keep[-1].data_ptr(), 0))
-        else:
-            recs.append((0, as_u64(r)))
-    # the payload on the card when it does not ride inline: one copy from
-    # pinned memory, stream-ordered
-    table = None if lay.inline is not None else \
-        torch.empty(lay.size, dtype=torch.uint8, device=dev)
-    args, pay = pack_patch(lay, planes, pos, [
-        v.data_ptr() if c else v.numpy() for v, c in zip(vals, on_card)],
-        recs, 0 if out is None else out.data_ptr(),
-        0 if table is None else table.data_ptr())
-    if table is not None:
-        table.copy_(torch.from_numpy(pay).pin_memory(), non_blocking=True)
-    _raise_on(lib, lib.patch_feed_launch(
-        _dev_index(dev), args.ctypes.data, args.size, lay.grid_x, P,
-        lay.threads, torch.cuda.current_stream(dev).cuda_stream),
-        "patch launch")
+    widths = [a.element_size() for a in planes]
+    out = _launch(
+        planes, m, vals, digests,
+        lambda host_vals: plan_patch(widths, m, host_vals,
+                                     digests is not None),
+        lambda lay, v, recs, out_ptr, table_ptr: pack_patch(
+            lay, planes, pos, v, recs, out_ptr, table_ptr))
     patch_launches += 1
     return out
 
@@ -455,3 +491,125 @@ def patch_rows(plane: torch.Tensor, pos: Union[Sequence[int], np.ndarray,
     of ``patch_feed_rows``."""
     out = patch_feed_rows([plane], pos, [vals], [0] if digest else None)
     return None if out is None else (out[0, 0], out[0, 1])
+
+
+# a span descriptor of patch_feed_spans (csrc/digest.cu SpanDesc): its first
+# row, its rows, the rows of the spans before it
+_SPAN_DESC = struct.Struct("<qii")
+
+
+def _spans(spans, n: int) -> np.ndarray:
+    """``spans`` as a host (K, 2) int64 array of [lo, hi), after the O(K)
+    checks: each non-empty, sorted, disjoint and inside [0, n)."""
+    arr = np.asarray(spans, dtype=np.int64)
+    if arr.size == 0:
+        return np.zeros((0, 2), np.int64)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(f"patch spans: want (lo, hi) pairs, got shape "
+                         f"{arr.shape}")
+    lo, hi = arr[:, 0], arr[:, 1]
+    if bool(np.any(hi <= lo)):
+        raise ValueError("patch spans: an empty or reversed span")
+    if int(lo[0]) < 0 or int(hi[-1]) > n:
+        raise ValueError(f"patch spans: a span outside [0, {n})")
+    if bool(np.any(lo[1:] < hi[:-1])):
+        raise ValueError("patch spans: spans must be sorted and disjoint")
+    return np.ascontiguousarray(arr)
+
+
+def span_positions(spans) -> np.ndarray:
+    """The rows the spans cover, in order (the plain version's
+    positions)."""
+    spans = np.asarray(spans, dtype=np.int64).reshape(-1, 2)
+    if not len(spans):
+        return np.zeros(0, np.int64)
+    return np.concatenate([np.arange(lo, hi, dtype=np.int64)
+                           for lo, hi in spans.tolist()])
+
+
+def patch_feed_spans_plain(planes: Sequence[torch.Tensor], spans,
+                           vals: Sequence[torch.Tensor], digests=None):
+    """``planes[p][lo:hi] = `` the span's rows of ``vals[p]`` for each span,
+    in place → None, or with ``digests`` the int64 (P, 3) tensor of
+    ``patch_feed_rows_plain`` over the positions the spans cover."""
+    pos = torch.from_numpy(span_positions(spans))
+    if planes:
+        pos = pos.to(planes[0].device)
+    return patch_feed_rows_plain(planes, pos, vals, digests)
+
+
+def plan_spans(widths: Sequence[int], k: int, m: int,
+               host_vals: Sequence[bool], digest: bool) -> PatchLayout:
+    """The layout of a patch of ``k`` spans of ``m`` rows in all
+    (``plan_patch``'s, the 16-byte span descriptors at ``pos_off``)."""
+    return plan_patch(widths, m, host_vals, digest,
+                      index_bytes=_SPAN_DESC.size * k)
+
+
+def pack_spans(lay: PatchLayout, planes, spans: np.ndarray, vals, recs,
+               out_ptr: int, table_ptr: int = 0) -> tuple:
+    """The span launch's parameter block and payload (``pack_patch``'s
+    contract, with ``spans`` a (K, 2) array of [lo, hi) in place of the
+    positions): a descriptor (lo, len, prefix) a span."""
+    desc = np.zeros(_SPAN_DESC.size * len(spans), np.uint8)
+    m = 0
+    for k, (lo, hi) in enumerate(spans.tolist()):
+        _SPAN_DESC.pack_into(desc, _SPAN_DESC.size * k, lo, hi - lo, m)
+        m += hi - lo
+    return _pack(lay, planes, desc, m, len(spans), vals, recs, out_ptr,
+                 table_ptr)
+
+
+def patch_feed_spans(planes: Sequence[torch.Tensor], spans, vals: Sequence,
+                     digests: Optional[Sequence] = None
+                     ) -> Optional[torch.Tensor]:
+    """Write each span's rows of ``vals[p]`` over ``planes[p][lo:hi]`` in
+    place, for K sorted, disjoint, non-empty spans [lo, hi) inside the
+    shortest plane (checked on the host in O(K)), every plane in one
+    launch → None, or with ``digests`` (each plane's recorded digest: an
+    int, or a 0-d int64 tensor on the planes' card) the int64 (P, 3)
+    tensor of ``patch_feed_rows``: H(old) and H(new) over the rows written,
+    at their global positions, and R' = R − H(old) + H(new).  ``vals[p]``
+    is the spans' rows end to end; values lying on the planes' card are
+    read there, others ride in the launch (or its one pinned copy).  A
+    launch error raises."""
+    planes = list(planes)
+    if not planes:
+        raise ValueError("patch: no plane")
+    for a in planes:
+        _check_plane(a, "plane")
+    dev = planes[0].device
+    if any(a.device != dev for a in planes):
+        raise ValueError("patch: the planes lie on different devices")
+    spans = _spans(spans, min(a.shape[0] for a in planes))
+    m = int((spans[:, 1] - spans[:, 0]).sum())
+    if m >= 1 << 31:
+        raise ValueError(f"patch spans: {m} rows, past a span patch's 2^31")
+    vals = list(vals)
+    if len(vals) != len(planes) or (digests is not None and
+                                    len(digests) != len(planes)):
+        raise ValueError(f"patch: {len(planes)} planes, {len(vals)} value "
+                         f"arrays" + ("" if digests is None else
+                                      f", {len(digests)} digests"))
+    vals = [_values(v, a, m) for v, a in zip(vals, planes)]
+    if dev.type == "cpu":
+        return patch_feed_spans_plain(planes, spans, vals, digests)
+    if dev.type != "cuda":
+        raise ValueError(f"patch runs on cuda or cpu, not {dev}")
+    return _spans_cuda(planes, spans, m, vals, digests)
+
+
+def _spans_cuda(planes, spans: np.ndarray, m: int, vals, digests):
+    """The launch behind ``patch_feed_spans``, its arguments checked."""
+    global span_launches
+    if m == 0 and digests is None:
+        return None
+    widths = [a.element_size() for a in planes]
+    out = _launch(
+        planes, m, vals, digests,
+        lambda host_vals: plan_spans(widths, len(spans), m, host_vals,
+                                     digests is not None),
+        lambda lay, v, recs, out_ptr, table_ptr: pack_spans(
+            lay, planes, spans, v, recs, out_ptr, table_ptr))
+    span_launches += 1
+    return out

@@ -118,6 +118,11 @@ bucket holds the anchor's feeds and its per-plan memos; the arena counts
 their bytes against ``hbm_budget_bytes`` (0: no budget) and evicts the
 least used unpinned anchors past it; an in-flight request pins its anchor
 until its fetch; a retired cache line drops its anchor (``drop_feed``).
+A feed whose lineage moved on is patched forward from the lineage's
+journal (``_try_patch_feed``, label ``patch``: each journal patch one
+``digest.patch_feed_spans`` launch over every plane, its digests kept by
+R' = R − H(old) + H(new)); a row-sharded feed, a structural patch, a
+crossed pad bucket or a value its plane cannot hold re-uploads instead.
 A feed miss (``_get_feed``, labelled per request ``device_feed`` and
 counted in ``feed_routes``) takes, in order: the split stash — a child
 feed that a device split sliced from the parent's resident planes and
@@ -129,7 +134,9 @@ Only an ascending TableScan is positional: it alone takes a stash or a
 bundle, and only its feeds over every row are split.  Every feed records
 a digest of each plane from the host truth; ``scrub_feed`` re-hashes the
 resident planes (``digest.plane_digest``, ``csrc/digest.cu``) and names
-those that differ.
+those that differ; ``quarantine`` drops a diverged anchor's feeds and
+answers its next request on the host (``FeedQuarantined``, which the
+endpoint degrades), the one after uploads.
 
 Cases outside the device envelope are refused, never served on the CPU
 by the runner: plans (``supports`` is False; ``handle_request`` raises
@@ -172,7 +179,7 @@ from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
 from ..ops.agg import _BIG, AggSpec, finalize_hash, finalize_simple
 from ..utils import tracker
 from ..utils.failpoint import fail_point
-from . import DEVICE_FAULTS, DeviceUnavailable
+from . import DEVICE_FAULTS, DeviceUnavailable, FeedQuarantined
 from . import agg_fold as af
 from . import hash_agg as ha
 from . import kernels as kn
@@ -185,6 +192,7 @@ from .agg_fold import agg_fold
 from .deferred import (DeferredResult, _BatchedSelectionGroup,
                        _BatchUnavailable, _GroupPending, _Pending)
 from .digest import (_INT_OF_WIDTH, as_u64, feed_verify, patch_feed_rows,
+                     patch_feed_spans,
                      plane_digest)
 from .supervisor import FeedArena, hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
@@ -193,8 +201,8 @@ _DEVICE_ETS = (EvalType.INT, EvalType.REAL)
 # the selection's routes (``_Plan.sel_route``, counted in ``pred_routes``)
 PRED_KERNEL, PRED_TORCH = "sel_pred", "torch"
 # how a feed was built (counted in ``feed_routes``)
-FEED_SPLIT, FEED_DEVICE_RESOLVE, FEED_UPLOAD = \
-    "split", "device_resolve", "upload"
+FEED_SPLIT, FEED_DEVICE_RESOLVE, FEED_UPLOAD, FEED_PATCH = \
+    "split", "device_resolve", "upload", "patch"
 # the reference's device aggregate set (runner.py:1401-1407)
 _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
                 "var_pop", "var_samp", "stddev_pop", "stddev_samp")
@@ -213,6 +221,23 @@ _TODO_HOST = ("ROADMAP.md queue 1 item 6 (bare scans, projections, limits, "
               "serves on the host: the endpoint's host pipeline serves "
               "them)")
 _TODO_STORAGE = "ROADMAP.md queue 1 item 6 (production read path)"
+
+
+def _fits_dtype(vals: np.ndarray, valid, dt: np.dtype) -> bool:
+    """May ``vals`` be held in a feed plane of dtype ``dt``
+    (runner.py:126-140)?  A float narrows as a fresh upload's astype does;
+    an integer must lie in the dtype's range (a uint64 below 2^63), its
+    NULL rows aside."""
+    if dt.kind not in "iu":
+        return True
+    live = vals if valid is None or valid.all() else vals[valid]
+    if not live.size:
+        return True
+    lo, hi = int(live.min()), int(live.max())
+    if dt == np.dtype(np.uint64):
+        return 0 <= lo and hi < (1 << 63)
+    info = np.iinfo(dt)
+    return info.min <= lo and hi <= info.max
 
 
 def _next_pow2(n: int) -> int:
@@ -437,7 +462,9 @@ class DeviceRunner:
         self._plan_cache: dict = {}
         self._plan_cache_max = 4096
         # feed anchor → bucket: {feed_key: feed, ("meta", ...): per-plan
-        # memo, ("dtypes", ...): the feed planes' dtypes}
+        # memo, ("dtypes", ...): the feed planes' dtypes}; a memo holds one
+        # lineage version, started afresh when a request of another comes
+        # (``_request_meta``)
         self._arena = FeedArena(budget_bytes=hbm_budget_bytes)
         # host-clock ms by phase of the last split_resident_feeds
         self.split_phases_ms: dict = {}
@@ -481,6 +508,13 @@ class DeviceRunner:
         self.failure_events: dict = {}
         # host-clock ms by phase of the last install_feeds
         self.migrate_phases_ms: dict = {}
+        # scrub-quarantined anchors: id(anchor) → (anchor, reason).  The
+        # next request of a quarantined anchor is answered on the host (its
+        # feeds were dropped at the quarantine), the one after uploads from
+        # host truth.  Its own lock: the scrub thread quarantines while
+        # request threads consume
+        self._quarantined: dict = {}
+        self._quar_mu = threading.Lock()
         self._placer = None
         if placement and not self._single:
             from .placement import DEFAULT_WHOLE_MESH_ROWS, SlicePlacer
@@ -728,30 +762,44 @@ class DeviceRunner:
     def _get_feed(self, storage, st, feed_key, plan, planes, dtypes,
                   host_cols, n: int) -> dict:
         """The request's feed (runner.py:1622-1716): the resident one when
-        its lineage version is the request's; else the split stash's child
-        feed of this shape; else the cold bundle minted on the device;
-        else an upload.  The lineage's patch journal is not replayed
-        (ROADMAP.md queue 1 item 6): a feed behind its lineage
-        re-uploads."""
+        its lineage version is the request's, or patched forward to it from
+        the lineage's journal (``_try_patch_feed``); else the split stash's
+        child feed of this shape (patched forward too when the child moved
+        on); else the cold bundle minted on the device; else an upload.  A
+        read of an older generation (served from the line's history) gets a
+        feed of its own, never cached: the shared one is not taken back."""
         lineage = getattr(storage, "feed_lineage", None)
         req_v = self._feed_version(storage)
         anchor = self._feed_anchor(storage)
-        # only an ascending table scan maps feed rows to line rows
-        positional = isinstance(plan.scan, TableScanDesc) and \
-            not plan.scan.desc
-        feed = st.get(feed_key)
-        if feed is not None and (lineage is None or
-                                 feed.get("lineage_v") == req_v):
-            tracker.label("device_feed", "hit")
-            return feed
         used_infos = [plan.scan.columns[ci] for ci, _ in planes]
+        # only an ascending table scan maps feed rows to line rows; a mesh
+        # re-mints: no patch, no split stash, no cold bundle (runner.py:1111,
+        # :2223; ROADMAP.md queue 1 item 10)
+        positional = isinstance(plan.scan, TableScanDesc) and \
+            not plan.scan.desc and self._single
+        feed = st.get(feed_key)
+        if feed is not None:
+            fv = feed.get("lineage_v")
+            if lineage is None or fv == req_v:
+                tracker.label("device_feed", "hit")
+                return feed
+            if fv is not None and req_v is not None and fv > req_v:
+                tracker.label("device_feed", FEED_UPLOAD)
+                self._note_route(FEED_UPLOAD, self.feed_routes)
+                with tracker.phase("feed_upload"):
+                    return self._build_flat(host_cols(), n)
+            if positional and self._try_patch_feed(feed, lineage, used_infos,
+                                                   dtypes, n, req_v):
+                tracker.label("device_feed", FEED_PATCH)
+                self._note_route(FEED_PATCH, self.feed_routes)
+                self._register_digests(lineage, feed_key, feed)
+                return feed
         route = None
-        # a mesh re-mints: no split stash, no cold bundle (runner.py:1111,
-        # :2223)
-        positional = positional and self._single
         if lineage is not None and positional and lineage.split_stash:
             feed = self._take_split_feed(lineage, feed_key, n)
-            if feed is not None and feed.get("lineage_v") == req_v:
+            if feed is not None and (
+                    feed.get("lineage_v") == req_v or self._try_patch_feed(
+                        feed, lineage, used_infos, dtypes, n, req_v)):
                 route = FEED_SPLIT
             else:
                 feed = None
@@ -769,7 +817,8 @@ class DeviceRunner:
                 lineage.drop_cold()
         if route is None:
             route = FEED_UPLOAD
-            feed = self._build_flat(host_cols(), n)
+            with tracker.phase("feed_upload"):
+                feed = self._build_flat(host_cols(), n)
         if route != FEED_SPLIT:
             feed["lineage_v"] = req_v
             if positional:
@@ -782,6 +831,63 @@ class DeviceRunner:
         self._arena.admit(anchor)
         self._register_digests(lineage, feed_key, feed)
         return feed
+
+    def _try_patch_feed(self, feed, lineage, used_infos, dtypes, n: int,
+                        req_v) -> bool:
+        """Replay the lineage's journal onto ``feed`` in place of an upload
+        (runner.py:1727-1791) → True when the feed now reflects ``req_v``.
+        Refused (nothing written) for a row-sharded feed, a gap the journal
+        no longer covers or that holds a structural patch, a ranged feed
+        (its rows do not map 1:1), a row count that crosses the feed's pad
+        bucket, a value outside its plane's dtype, and the first NULL of a
+        column whose feed has no validity plane.  Every value is checked
+        before the first write: one ``patch_feed_spans`` launch a journal
+        patch with spans, over every plane of the feed, keeps each plane's
+        digest by R' = R − H(old) + H(new)."""
+        if "shards" in feed or feed.get("digests") is None:
+            return False
+        patches = lineage.since(feed.get("lineage_v", -1), until=req_v)
+        if patches is None or any(p.get("structural") for p in patches):
+            return False
+        if patches and patches[-1]["n"] != n:
+            return False
+        if self._pad_rows(max(n, 1)) != feed["n_pad"]:
+            return False
+        work = []       # (spans, the values of every flat plane)
+        for p in patches:
+            spans = p["spans"]
+            if not spans:
+                continue
+            flat_vals = []
+            for j, info in enumerate(used_infos):
+                dt = np.dtype(dtypes[j])
+                if info.is_pk_handle:
+                    vals = np.concatenate([s["handles"] for s in spans])
+                    valid = None
+                else:
+                    parts = [s["cols"].get(info.col_id) for s in spans]
+                    if any(c is None for c in parts):
+                        return False
+                    vals = np.concatenate([v for v, _ in parts])
+                    valid = np.concatenate([ok for _, ok in parts])
+                if not _fits_dtype(vals, valid, dt):
+                    return False
+                has_nulls = feed["null_flags"][j]
+                if valid is not None and not has_nulls and not valid.all():
+                    return False
+                flat_vals.append(np.ascontiguousarray(
+                    vals.astype(dt, copy=False)))
+                if has_nulls:
+                    flat_vals.append(np.ascontiguousarray(
+                        valid if valid is not None
+                        else np.ones(len(vals), np.bool_)))
+            work.append(([(s["lo"], s["hi"]) for s in spans], flat_vals))
+        with tracker.phase("feed_patch"):
+            for spans, flat_vals in work:
+                self._patch_plane(feed, spans, flat_vals)
+        feed["lineage_v"] = req_v
+        feed["n_live"] = n
+        return True
 
     @staticmethod
     def _register_digests(lineage, feed_key, feed) -> None:
@@ -840,13 +946,17 @@ class DeviceRunner:
                 if isinstance(v, dict) and "flat" in v}
 
     def hbm_stats(self) -> dict:
-        """The arena's accounting; a placement mesh adds its slices' and its
-        degraded submesh's (runner.py:1862-1880)."""
+        """The arena's accounting and the anchors quarantined; a placement
+        mesh adds its slices' and its degraded submesh's (runner.py:
+        1862-1880)."""
         out = self._arena.stats()
+        with self._quar_mu:
+            out["quarantined"] = len(self._quarantined)
         for r in self._sub_runners():
             sub = r.hbm_stats()
             for k in ("resident_bytes", "resident_lines", "pinned_lines",
-                      "pinned_bytes", "evictions", "rejections", "drops"):
+                      "pinned_bytes", "evictions", "rejections", "drops",
+                      "quarantined"):
                 out[k] += sub[k]
         return out
 
@@ -877,9 +987,11 @@ class DeviceRunner:
 
     def drop_feed(self, anchor) -> int:
         """Release every feed and memo anchored on ``anchor`` (a lineage
-        or a snapshot), its unminted cold bundle and its unconsumed split
-        stash → the bytes released from the accounting.  A request in
-        flight keeps the planes it reads."""
+        or a snapshot), its unminted cold bundle, its unconsumed split
+        stash and its quarantine → the bytes released from the accounting.
+        A request in flight keeps the planes it reads."""
+        with self._quar_mu:
+            self._quarantined.pop(id(anchor), None)
         drop_cold = getattr(anchor, "drop_cold", None)
         if callable(drop_cold):
             drop_cold()
@@ -1257,15 +1369,19 @@ class DeviceRunner:
                 self._degraded[1].close()
                 self._degraded = None
         self._arena.drop_all()
+        with self._quar_mu:
+            self._quarantined.clear()
         if self._board is not None:
             self._board.reset()
 
     def quarantine(self, anchor, reason: str = "") -> None:
-        """The anchor's resident feeds are not to be trusted (a migration
-        whose arrival check failed, a scrub divergence): drop them where
-        they live, and strike that slice as a scrub fault; the next request
-        mints them again (runner.py:1941, without the host-served request
-        between)."""
+        """The anchor's resident feeds are not to be trusted (a scrub
+        divergence, a migration whose arrival check failed): drop them where
+        they live, strike that slice as a scrub fault, and answer the
+        anchor's next request on the host (``FeedQuarantined``); the one
+        after uploads from host truth (runner.py:1941-1975).  A placed
+        anchor is quarantined on its owning slice; while the mesh is
+        degraded, on the submesh runner too, which serves its requests."""
         if self._placer is not None:
             owner = self._placer.owner(anchor)
             if owner is not None:
@@ -1276,6 +1392,24 @@ class DeviceRunner:
         degraded = self._degraded_sub()
         if degraded is not None:
             degraded._arena.drop(anchor)
+            degraded._mark_quarantined(anchor, reason)
+        self._mark_quarantined(anchor, reason)
+
+    def _mark_quarantined(self, anchor, reason: str) -> None:
+        with self._quar_mu:
+            self._quarantined[id(anchor)] = (anchor, reason)
+            # bounded: a quarantined region never asked again (and never
+            # torn down) must not pin its lineage for ever
+            while len(self._quarantined) > 128:
+                self._quarantined.pop(next(iter(self._quarantined)))
+
+    def _consume_quarantine(self, anchor) -> bool:
+        with self._quar_mu:
+            return self._quarantined.pop(id(anchor), None) is not None
+
+    def _is_quarantined(self, anchor) -> bool:
+        with self._quar_mu:
+            return id(anchor) in self._quarantined
 
     # ---------------------------------------------------- feed migration
 
@@ -1382,23 +1516,28 @@ class DeviceRunner:
         return [i for i, (g, r) in enumerate(zip(got, feed["digests"]))
                 if as_u64(g) != as_u64(r)]
 
-    def _patch_plane(self, feed: dict, fi: int, pos, vals) -> None:
-        """Write ``vals`` at rows ``pos`` of plane ``fi`` in place, keeping
-        its recorded digest by the incremental rule ``R' = R − H(old) +
+    def _patch_plane(self, feed: dict, spans, vals: list,
+                     planes: Optional[Sequence[int]] = None) -> None:
+        """Write ``vals[j]`` (the rows of ``spans``, sorted, disjoint [lo,
+        hi) row spans, end to end) over plane ``planes[j]`` of ``feed`` in
+        place — every plane of the feed when ``planes`` is None, as a
+        journal patch writes — in one ``patch_feed_spans`` launch, keeping
+        each recorded digest by the incremental rule ``R' = R − H(old) +
         H(new)`` over the rows written (runner.py:1793-1814): never a
         re-hash of the plane, which would launder a corruption that landed
-        since the last scrub into the record.  One ``patch_feed_rows``
-        launch writes the rows and the new record (a 0-d tensor on the
-        card, which the next patch reads there).  Single-device feeds
+        since the last scrub into the record.  R' stays a 0-d tensor on the
+        card, which the next patch reads there.  Single-device feeds
         only."""
         if "shards" in feed:
             raise NotImplementedError(
                 "a row-sharded feed is not patched in place: it re-uploads "
-                "(ROADMAP.md queue 1 item 6)")
+                "(ROADMAP.md queue 1 item 10)")
+        fis = range(len(feed["flat"])) if planes is None else list(planes)
         digests = list(feed["digests"])
-        out = patch_feed_rows([feed["flat"][fi]], pos, [vals],
-                              [digests[fi]])
-        digests[fi] = out[0, 2]
+        out = patch_feed_spans([feed["flat"][i] for i in fis], spans, vals,
+                               [digests[i] for i in fis])
+        for j, i in enumerate(fis):
+            digests[i] = out[j, 2]
         feed["digests"] = tuple(digests)
 
     @staticmethod
@@ -1573,6 +1712,17 @@ class DeviceRunner:
             self._note_route("slice_quarantined", self.degrades)
             tracker.label("device_feed", "slice_quarantined")
             return BatchExecutorsRunner(dag, storage).handle_request()
+        if self._quarantined:
+            # a scrub divergence on this anchor (runner.py:3051-3059): its
+            # feeds are gone; this request is answered on the host by the
+            # caller, the next one uploads.  A group leaves the quarantine
+            # to its members' solo retries
+            anchor = self._feed_anchor(storage)
+            if _stack is not None and self._is_quarantined(anchor):
+                raise _BatchUnavailable("feed quarantined")
+            if self._consume_quarantine(anchor):
+                tracker.label("device_feed", "quarantined")
+                raise FeedQuarantined("the feed was quarantined by a scrub")
         out = fault = None
         try:
             self._preflight_slice()
@@ -1663,8 +1813,7 @@ class DeviceRunner:
         a settled ``SelectResult`` when nothing needs the device."""
         st = self._bucket(storage)
         req_v = self._feed_version(storage)
-        meta = st.setdefault(("meta", dag.plan_key(), dag.ranges, req_v),
-                             {})
+        meta = self._request_meta(st, dag, req_v)
         memo: dict = {}
 
         def get_batch() -> ColumnBatch:
@@ -1752,22 +1901,38 @@ class DeviceRunner:
             [(ci, "float64") for ci in plan.f64_cols]
 
     @staticmethod
+    def _request_meta(st, dag, req_v) -> dict:
+        """The plan's memo in ``st`` for lineage version ``req_v``: one a
+        plan and ranges, kept while the version holds and started afresh
+        when a request of another version comes.  The reference rolls its
+        memo forward the same way (``_refresh_meta``, runner.py:3467),
+        keeping the constants a gap provably leaves valid; here all of it
+        is derived again, and a write leaves no dead memo (nor the sparse
+        slot plane it holds on the card) behind."""
+        key = ("meta", dag.plan_key(), dag.ranges)
+        meta = st.get(key)
+        if meta is None or meta["lineage_v"] != req_v:
+            meta = st[key] = {"lineage_v": req_v}
+        return meta
+
+    @staticmethod
     def _feed_dtypes(st, plan, ranges, planes, get_batch,
                      req_v=None) -> tuple:
         """The feed planes' dtypes on this snapshot: a column's device
-        dtype depends on its values, so it is memoized per anchor and
-        version, scan and columns (every plan over them shares it)."""
+        dtype depends on its values, so it is memoized per anchor, scan and
+        columns (every plan over them shares it) for one lineage version
+        at a time, as the plans' memos are."""
         key = ("dtypes", _scan_key(plan.scan),
                tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
-               tuple(dt for _ci, dt in planes), ranges, req_v)
+               tuple(dt for _ci, dt in planes), ranges)
         got = st.get(key)
-        if got is None:
+        if got is None or got[0] != req_v:
             batch = get_batch()
-            got = st[key] = tuple(
+            got = st[key] = (req_v, tuple(
                 dt or str(_device_dtype(batch.columns[ci].eval_type,
                                         batch.columns[ci].values))
-                for ci, dt in planes)
-        return got
+                for ci, dt in planes))
+        return got[1]
 
     # ----------------------------------------- cross-request batching
 
@@ -1851,7 +2016,7 @@ class DeviceRunner:
     def _member_plan(self, st, dag, host_cols, dtypes, req_v):
         """A stacked member's plan, narrowed on this snapshot as its own
         solo request would be (memoized in its meta)."""
-        meta = st.setdefault(("meta", dag.plan_key(), dag.ranges, req_v), {})
+        meta = self._request_meta(st, dag, req_v)
         if "plan" not in meta:
             plan = self._analyze(dag)[0]
             meta["plan"] = self._narrowed(plan, host_cols, dtypes)

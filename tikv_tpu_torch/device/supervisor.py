@@ -29,17 +29,20 @@ Counterpart of the JAX package's ``device/supervisor.py``:
 - ``DeviceStateSupervisor`` (:1071-), an ``Observer`` of the region
   lifecycle: a split slices the parent's cache lines and then its resident
   device feeds into the children (``on_region_split``; with placement on,
-  the children are pinned to the parent's slice), a region change or
-  a destroyed peer drops the superseded lines, and every retired line
-  drops its device feeds (``on_line_retired`` → ``drop_feed``).
+  the children are pinned to the parent's slice), a region change, a
+  snapshot apply or a destroyed peer drops the superseded lines, and every
+  retired line drops its device feeds (``on_line_retired`` →
+  ``drop_feed``).  Its scrub (``scrub``, on demand or from a thread every
+  ``scrub_interval`` seconds) re-hashes every resident plane and
+  quarantines an anchor whose planes diverged from their record.
 
 Trimmed (ROADMAP.md queue 1 item 6): the arena's residency metering, the
-scrub thread, the replica-feed state machine, ``RemintGovernor`` and the
-flight recorder.
+replica-feed state machine, ``RemintGovernor`` and the flight recorder.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -554,12 +557,16 @@ class FeedArena:
 
 
 class DeviceStateSupervisor(Observer):
-    """Region lifecycle over device-resident state.
+    """Region lifecycle and scrub over device-resident state.
 
-    Registered on a ``CoprocessorHost``; installed as the columnar cache's
-    ``on_line_retired`` hook, so every line the cache drops drops its
-    device feeds (``runner.drop_feed``).  ``runner`` may be None: the
-    supervisor then drives the cache's lifecycle alone.
+    Registered on a ``CoprocessorHost`` beside the ``DeltaSink``; installed
+    as the columnar cache's ``on_line_retired`` hook, so every line the
+    cache drops drops its device feeds (``runner.drop_feed``).  ``runner``
+    may be None: the supervisor then drives the cache's lifecycle alone.
+    ``delta_sink``: the sink whose region log a destroyed peer drops.
+    ``scrub_interval`` > 0: ``start`` runs a scrub pass (and the placement
+    mesh's slice probes) that often on a thread; ``scrub_max_lines`` (0:
+    every line) bounds a pass.
 
     ``on_region_split`` runs before the generic ``on_region_changed``:
     the cache slices each parent line into child lines, then the runner
@@ -569,10 +576,23 @@ class DeviceStateSupervisor(Observer):
     ``split_fallbacks``: those children upload from host truth.  A split
     kernel that fails to build or launch raises."""
 
-    def __init__(self, runner=None, copr_cache=None):
+    def __init__(self, runner=None, copr_cache=None, delta_sink=None,
+                 scrub_interval: float = 0.0, scrub_max_lines: int = 0):
         self._runner = runner
         self._cache = copr_cache
+        self._sink = delta_sink
+        self._interval = scrub_interval
+        self._scrub_max_lines = scrub_max_lines
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
         self._mu = threading.Lock()
+        # a bounded pass starts where the last one stopped, so every
+        # resident line is reached in turn
+        self._scrub_cursor = 0
+        self.scrub_passes = 0
+        self.scrub_divergences = 0
+        self.quarantines = 0
+        self._last_scrub: dict = {}
         self.lifecycle_invalidations = 0
         self.splits = 0                 # parent lines sliced on the device
         self.split_fallbacks = 0        # splits that fell back to upload
@@ -637,12 +657,25 @@ class DeviceStateSupervisor(Observer):
                 "split_lines": (t1 - t0) * 1e3,
                 "device_split": (time.perf_counter() - t1) * 1e3}
 
+    def on_data_replaced(self, region_id: int, index: int) -> None:
+        """A snapshot apply replaced the region's data: the sink has
+        poisoned its coverage, and the lines can only rebuild — drop them
+        now."""
+        if self._cache is None:
+            return
+        n = self._cache.invalidate_region(region_id)
+        if n:
+            self._note_invalidations(n)
+
     def on_peer_destroyed(self, region_id: int) -> None:
-        """The peer left this store: every line of the region dies."""
+        """The peer left this store: every line of the region dies, and its
+        delta log with it."""
         if self._cache is not None:
             n = self._cache.invalidate_region(region_id)
             if n:
                 self._note_invalidations(n)
+        if self._sink is not None and hasattr(self._sink, "drop_region"):
+            self._sink.drop_region(region_id)
 
     def on_line_retired(self, lineage) -> None:
         """The cache's retirement hook → explicit feed teardown."""
@@ -653,11 +686,132 @@ class DeviceStateSupervisor(Observer):
         with self._mu:
             self.lifecycle_invalidations += n
 
+    # -- scrub --------------------------------------------------------
+
+    def scrub(self, max_lines: Optional[int] = None) -> dict:
+        """One scrub pass (supervisor.py:1354-1458): re-hash the resident
+        planes of every anchor (``runner.scrub_feed``, one
+        ``digest.plane_digest`` a plane) against the digests recorded at
+        build and patch time; an anchor with a diverged plane is
+        quarantined → {lines, planes, divergences, quarantined_regions,
+        ms}.
+
+        Each anchor's feeds are hashed under the runner's dispatch lock,
+        on one device as on a mesh.  The reference hashes a single
+        device's planes outside it (supervisor.py:1376-1379, :1433), since its
+        patch makes new arrays; this port's patch writes the resident
+        planes in place, and a patch landing between the copy of the
+        record and the hash would pair new contents with the old record
+        and quarantine a healthy feed.  The ``device::feed_corrupt``
+        failpoint flips one bit of a resident plane; the same pass hashes
+        and quarantines before the lock drops, so no request is served from
+        the flipped plane.  ``max_lines`` (or ``scrub_max_lines``) bounds
+        the pass, starting where the last one stopped."""
+        out = {"lines": 0, "planes": 0, "divergences": 0,
+               "quarantined_regions": []}
+        runner = self._runner
+        if runner is None or not hasattr(runner, "arena_items"):
+            self._record_scrub(out, 0.0)
+            return out
+        limit = max_lines if max_lines is not None else \
+            (self._scrub_max_lines or None)
+        dispatch_mu = getattr(runner, "_dispatch_mu", None) or \
+            contextlib.nullcontext()
+        t0 = time.perf_counter()
+        items = runner.arena_items()
+        if limit is not None and items:
+            start = self._scrub_cursor % len(items)
+            items = items[start:] + items[:start]
+            self._scrub_cursor = start + limit
+        for anchor, bucket in items:
+            if limit is not None and out["lines"] >= limit:
+                break
+            diverged = False
+            with dispatch_mu:
+                feeds = [v for v in list(bucket.values())
+                         if isinstance(v, dict) and "flat" in v and
+                         v.get("digests") is not None]
+                for feed in feeds:
+                    if fail_point("device::feed_corrupt") is not None:
+                        # the injected fault: a bit flips on a resident
+                        # plane; this pass must catch it
+                        runner.corrupt_resident_plane(feed)
+                for feed in feeds:
+                    out["planes"] += len(feed["digests"])
+                    if runner.scrub_feed(feed):
+                        diverged = True
+                        break
+                if diverged:
+                    self._quarantine(runner, anchor, out)
+            if not feeds:
+                continue
+            out["lines"] += 1
+            if diverged:
+                out["divergences"] += 1
+        self._record_scrub(out, time.perf_counter() - t0)
+        return out
+
+    def _quarantine(self, runner, anchor, out: dict) -> None:
+        region = getattr(anchor, "region_hint", None)
+        if region is not None:
+            out["quarantined_regions"].append(region)
+        runner.quarantine(anchor, reason="scrub divergence")
+        with self._mu:
+            self.quarantines += 1
+
+    def _record_scrub(self, out: dict, elapsed_s: float) -> None:
+        out["ms"] = elapsed_s * 1e3
+        with self._mu:
+            self.scrub_passes += 1
+            self.scrub_divergences += out["divergences"]
+            self._last_scrub = dict(out)
+
+    # -- the scrub thread ---------------------------------------------
+
+    def start(self) -> None:
+        """Start the scrub thread (nothing without a ``scrub_interval``)."""
+        if self._interval <= 0 or self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="device-scrub")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+            self._thread = None
+
+    def _loop(self) -> None:
+        import logging
+        while not self._stop.wait(self._interval):
+            try:
+                self.scrub()
+            except Exception:   # noqa: BLE001 — a pass never ends the loop
+                logging.getLogger(__name__).warning(
+                    "device scrub pass failed", exc_info=True)
+            # the quarantined slices' probes ride the same cadence: an idle
+            # node re-admits them too
+            probe = getattr(self._runner, "probe_quarantined", None)
+            if callable(probe):
+                try:
+                    probe()
+                except Exception:   # noqa: BLE001 — the same contract
+                    logging.getLogger(__name__).warning(
+                        "slice probe pass failed", exc_info=True)
+
+    # -- observability ------------------------------------------------
+
     def stats(self) -> dict:
         with self._mu:
             out = {"lifecycle_invalidations": self.lifecycle_invalidations,
                    "splits": self.splits,
-                   "split_fallbacks": self.split_fallbacks}
+                   "split_fallbacks": self.split_fallbacks,
+                   "scrub_passes": self.scrub_passes,
+                   "scrub_divergences": self.scrub_divergences,
+                   "quarantines": self.quarantines,
+                   "last_scrub": dict(self._last_scrub)}
         if self._runner is not None and hasattr(self._runner, "hbm_stats"):
             out["hbm"] = self._runner.hbm_stats()
         return out

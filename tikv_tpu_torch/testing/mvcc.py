@@ -400,3 +400,22 @@ def kv_history(table_id: int, handles: np.ndarray, events: Sequence[Event],
                          ).to_bytes()))
     out.sort(key=lambda t: (t[0], t[1]))
     return out
+
+
+def apply_write(engine, host, region_id: int, index: int, triples) -> list:
+    """Apply ``triples`` (``kv_history``'s engine records; a value of None
+    deletes the key) to ``engine`` as one entry at ``index`` and hand its
+    ops to ``host``'s observers, as the apply path does
+    (``notify_apply_write`` after the engine write) → the entry's
+    ``WriteOp``s."""
+    from ..raftstore.cmd import write_ops
+    wb = engine.write_batch()
+    for cf, key, value in triples:
+        if value is None:
+            wb.delete_cf(cf, bytes(key))
+        else:
+            wb.put_cf(cf, bytes(key), bytes(value))
+    engine.write(wb)
+    ops = write_ops(wb)
+    host.notify_apply_write(region_id, index, ops)
+    return ops
