@@ -229,7 +229,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    no degrade, the host-clock phases of the cold and the median warm
    request; CHECKSUM over 2^16
    rows (the crc64-xz check value, the fold in another order, two
-   replicas, a partial range); and ``analyze`` timed at an4's id, k and v,
+   replicas, a partial range; the native fold against the Python one,
+   both timed); and ``analyze`` timed at an4's id, k and v,
    an4s's k and an4r's v as issued and its kernels alone (each column's
    route, each of its kernels' times), beside its bound, the design's own
    bytes, plain version and one ``torch.sort`` of the sentinelled column;
@@ -292,7 +293,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against its plain version, then timed queued beside the same rows
    through ``patch_feed_rows`` and a ``copy_`` a plane a span, all from
    the same host values (and the kernel and ``copy_`` again with the
-   values on the card), beside its bound and plain version;
+   values on the card), beside its bound and plain version; then cell
+   6c-ingest (``run_ingest``, a runner of its own: config 6c's region of
+   10·2^20 keys bulk-loaded as ten 2^20-key SST v2 blobs through the apply
+   path, a ``ColdStreamBuilder`` parsing each chunk and appending its
+   planes to the card; GROUP BY c0 cold and 5 warm through three fresh
+   caches: (a) the device rung fed by the stream's take — one mint, one
+   ``mvcc_resolve``, no upload —, (b) the device rung parsing at build
+   time, (c) the native rung; then a region of 2^16 keys with a tenth of
+   its rows in CF_DEFAULT through the device rung — one
+   ``patch_feed_rows`` launch, the feed bit for bit against the upload of
+   its host mirror —, a clean scrub, and CHECKSUM of its rows through the
+   native fold against the Python fold), every answer against numpy, the
+   load's seconds and each read's cold ms by phase and warm p50 printed;
 14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
    launch no kernel of ``selection.cu``, run while that source builds,
    after the ANALYZE cells): ``shard_psum``, ``shard_bucket_merge`` and
@@ -4439,10 +4452,12 @@ def run_checksum() -> dict:
     """CHECKSUM over config 4's table at 2^16 rows: the crc64-xz check
     value, the fold of the pairs in another order, two replicas of the
     same rows (built apart from one seed) and a partial range against the
-    fold of its pairs; on the host, as in the reference."""
+    fold of its pairs; on the host, as in the reference.  The fold runs in
+    the native module; the Python ``crc64`` fold of the same pairs is held
+    against it and timed beside it (``plain_ms``)."""
     from tikv_tpu_torch.codec.keys import table_record_key
     from tikv_tpu_torch.copr.analyze import (ChecksumReq, checksum_kv_pairs,
-                                             crc64)
+                                             checksum_kv_pairs_plain, crc64)
     from tikv_tpu_torch.copr.endpoint import Endpoint
     from tikv_tpu_torch.executors.ranges import KeyRange
     from tikv_tpu_torch.testing import configs as cf
@@ -4466,8 +4481,18 @@ def run_checksum() -> dict:
     pairs = snap.to_kv_pairs(part)
     assert sub["total_kvs"] == 4900 and sub == checksum_kv_pairs(
         [k for k, _ in pairs], [v for _, v in pairs])
+    pairs = snap.to_kv_pairs()
+    keys, vals = [k for k, _ in pairs], [v for _, v in pairs]
+    t0 = time.perf_counter()
+    native = checksum_kv_pairs(keys, vals)
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = checksum_kv_pairs_plain(keys, vals)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert native == plain == one, (native, plain, one)
     out = {"rows": CHECKSUM_ROWS, "checksum": one["checksum"],
            "total_bytes": one["total_bytes"], "wall_ms": wall_ms,
+           "fold_ms": fold_ms, "plain_ms": plain_ms,
            "replicas_agree": True}
     print("checksum: " + json.dumps(out), flush=True)
     return out
@@ -5019,8 +5044,8 @@ class SplitCell:
     ``CoprocessorHost.notify_region_split`` / ``notify_region_changed`` →
     the children's requests.
 
-    The interpreted rung cannot read 10·2^20 keys in a smoke's time and the
-    native parse is not ported (ROADMAP.md queue 1 item 8), so the cache's
+    The history is version planes held in no engine (cell 6c-ingest,
+    ``run_ingest``, drives the build from the engine), so the cache's
     builder (``region_cache.build_region_columnar_ex``, looked up at call
     time, the seam of the reference's own tests) is substituted: a build
     of the whole region returns 6c's cold build
@@ -5075,7 +5100,7 @@ class SplitCell:
         return self.cache.get(self.snap(self.region), req.dag)
 
     def build(self, snap, table_id, col_infos, read_ts,
-              device_resolver=None):
+              device_resolver=None, stream_source=None):
         """The substituted ``build_region_columnar_ex``."""
         from tikv_tpu_torch.codec.keys import decode_record_handle
         from tikv_tpu_torch.executors.columnar import ColumnarTable
@@ -5654,6 +5679,270 @@ def run_delta(runner, source) -> dict:
     return {"config": "6c-delta", "launches": out["launches"],
             "shapes": shapes, "n_pad": out["pad_rows"]["n"],
             "host_ms": host, "scrub_ms": out["scrub_ms"]}
+
+
+INGEST_KEYS = 10 << 20         # 6c's region (bench.py:501-560)
+INGEST_CHUNK = 1 << 20          # bench.py:448's SST chunk
+INGEST_WARM = 5
+SPILL_KEYS = 1 << 16
+SPILL_EVERY = 10                # a tenth of the rows spill to CF_DEFAULT
+
+
+def ingest_ask(ep, dag, want, label: str) -> dict:
+    """One request through the endpoint, forced to the device → its ms
+    (host clock), labels and phases (ms); the answer against ``want``."""
+    from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp = ep.handle(CopRequest(REQ_TYPE_DAG, dag, force_backend="device"))
+    got = sorted(map(list, resp.rows()), key=lambda r: r[2])
+    ms = (time.perf_counter() - t0) * 1e3
+    assert resp.backend == "device", (label, resp.backend)
+    assert got == want, f"6c-ingest {label}: wrong answer"
+    return {"ms": ms, "labels": dict(resp.tracker.labels),
+            "phases_ms": {k: v / 1e6 for k, v in
+                          resp.tracker.phases.items()}}
+
+
+def run_ingest(runner) -> dict:
+    """Cell 6c-ingest: config 6c's region (``bench.py:501-560``:
+    ``int_table(2)``, ``c0 = h % 1024``, ``c1 = h % 1000``, one PUT a key,
+    10·2^20 keys) bulk-loaded as ``bench.py:448``'s 2^20-key SST v2 blobs
+    (``fast_mvcc_table_sst``), each applied through the apply path
+    (``testing.mvcc.apply_ingest``) to one ``MemoryEngine`` region at a
+    rising index while a ``ColdStreamBuilder`` on the card parses each
+    chunk and appends its planes to the card.  Then GROUP BY c0: COUNT(*),
+    SUM(c1), cold and ``INGEST_WARM`` warm, through three fresh caches, one
+    after another, each freed before the next:
+
+    - (a) the device rung fed by the stream: ``cold_build`` device, one
+      take and no miss, planes already on the card (``h2d_bytes`` > 0, the
+      mint's ``h2d`` 0), one mint, one ``mvcc_resolve`` launch and no
+      ``feed_upload``;
+    - (b) the device rung with no stream: the parse at build time
+      (``mvcc_parse``), the planes uploaded at the mint;
+    - (c) no resolver: the native rung (``cold_build`` native), the feed
+      uploaded.
+
+    Then a region of ``SPILL_KEYS`` keys where every ``SPILL_EVERY``-th row
+    keeps its row in CF_DEFAULT (an unrequested 300-byte column) through
+    the device rung: one ``patch_feed_rows`` launch writes the spilled
+    rows, and the feed equals the upload of the host mirror bit for bit;
+    a clean scrub of it (``plane_digest``); and CHECKSUM of its 2^16 rows
+    through the native fold, equal to the Python fold.  Every answer
+    equals the numpy truth.  Counts from 0 before the path, read after."""
+    from tikv_tpu_torch.codec.keys import table_record_key
+    from tikv_tpu_torch.codec.row import encode_row
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch import native
+    from tikv_tpu_torch.copr import region_cache as rc
+    from tikv_tpu_torch.copr.analyze import (ChecksumReq, checksum_kv_pairs,
+                                             checksum_kv_pairs_plain)
+    from tikv_tpu_torch.copr.endpoint import Endpoint
+    from tikv_tpu_torch.copr.stream_build import ColdStreamBuilder
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+    from tikv_tpu_torch.engine.memory import MemoryEngine
+    from tikv_tpu_torch.raftstore.metapb import Region
+    from tikv_tpu_torch.raftstore.observer import CoprocessorHost
+    from tikv_tpu_torch.raftstore.peer import RegionSnapshot
+    from tikv_tpu_torch.sst_importer import (build_sst_v2,
+                                             fast_mvcc_table_sst, mvcc_sst)
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.testing.dag import DagSelect
+    t_start = time.perf_counter()
+    table = tm.table_6c()
+    tid = table.table_id
+    resolver = runner.mvcc_resolver()
+    engine, host = MemoryEngine(), CoprocessorHost()
+    # the device leg is shed past half of max_bytes: room for the region's
+    # planes (≈ 43 bytes a version on the card, 48 on the host)
+    stream = ColdStreamBuilder(resolver, max_bytes=4 << 30)
+    host.register(stream)
+    out = {"config": "6c-ingest", "keys": INGEST_KEYS,
+           "chunk_keys": INGEST_CHUNK}
+    set_counts({k: 0 for k in KERNELS})
+    t0 = time.perf_counter()
+    native.module()             # g++ builds it at first use
+    native_s = time.perf_counter() - t0
+    build_s = apply_s = 0.0
+    index = 100
+    t0 = time.perf_counter()
+    for lo in range(0, INGEST_KEYS, INGEST_CHUNK):
+        h = np.arange(lo, lo + INGEST_CHUNK, dtype=np.int64)
+        t1 = time.perf_counter()
+        blob = fast_mvcc_table_sst(tid, h, [(2, h % 1024, None),
+                                            (3, h % 1000, None)], tm.TS_6C)
+        t2 = time.perf_counter()
+        index += 1
+        tm.apply_ingest(engine, host, 1, index, blob)
+        build_s += t2 - t1
+        apply_s += time.perf_counter() - t2
+        del blob
+    t1 = time.perf_counter()
+    assert stream.wait_idle(600.0), "the stream did not drain"
+    torch.cuda.synchronize()
+    out["load_s"] = {"native_module_build": native_s,
+                     "total": time.perf_counter() - t0, "sst_build": build_s,
+                     "apply": apply_s,
+                     "stream_drain": time.perf_counter() - t1}
+    st = stream.stats()
+    assert st["chunks_parsed"] == INGEST_KEYS // INGEST_CHUNK and \
+        st["regions"][1]["device"] and st["h2d_bytes"] > 0, st
+    hs = np.arange(INGEST_KEYS, dtype=np.int64)
+    want = [[int(c), int(s_), g] for g, (c, s_) in enumerate(zip(
+        np.bincount(hs % 1024, minlength=1024),
+        np.bincount(hs % 1024, weights=hs % 1000, minlength=1024)))]
+    del hs
+    sel = DagSelect.from_table(table, ["id", "c0", "c1"])
+    dag = dag_from_wire(enc_dag(sel.aggregate(
+        [sel.col("c0")], [("count_star", None), ("sum", sel.col("c1"))])
+        .build(tm.READ_TS_6C)))
+
+    def read(name: str, res, src) -> dict:
+        cache = rc.RegionColumnarCache()
+        cache.device_resolver, cache.stream_source = res, src
+        sup = DeviceStateSupervisor(runner, cache)
+
+        def provider(req):
+            rs = RegionSnapshot(engine.snapshot(), Region(1))
+            rs.data_index = index
+            return cache.get(rs, req.dag)
+
+        ep = Endpoint(provider, runner)
+        mints = resolver.mints
+        cold = ingest_ask(ep, dag, want, f"({name}) cold")
+        mint = dict(resolver.phases_ms) if resolver.mints > mints else {}
+        warm = [ingest_ask(ep, dag, want, f"({name}) warm")["ms"]
+                for _ in range(INGEST_WARM)]
+        cache.invalidate_region(1)      # its feeds go with its line
+        del sup, cache, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"cold_ms": cold["ms"], "labels": cold["labels"],
+                "phases_ms": cold["phases_ms"], "mint_ms": mint,
+                "mints": resolver.mints - mints,
+                "warm_ms": warm, "warm_p50_ms": float(np.median(warm))}
+
+    before = counts()
+    a = read("a", resolver, stream)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    assert a["labels"]["cold_build"] == "device" and \
+        a["labels"]["device_feed"] == "device_resolve", a["labels"]
+    assert "stream_take" in a["phases_ms"] and \
+        "mvcc_parse" not in a["phases_ms"] and \
+        "feed_upload" not in a["phases_ms"], a["phases_ms"]
+    st = stream.stats()
+    assert (st["takes"], st["take_misses"]) == (1, 0), st
+    out["stream"] = {k: v for k, v in st.items() if k != "regions"}
+    assert a["mints"] == 1 and a["mint_ms"]["h2d"] == 0.0, a
+    assert launched["mvcc_resolve"] == 1, launched
+    a["launches"] = {k: v for k, v in launched.items() if v}
+    stream.stop()
+    b = read("b", resolver, None)
+    assert b["labels"]["cold_build"] == "device" and \
+        "mvcc_parse" in b["phases_ms"] and b["mints"] == 1, b
+    c = read("c", None, None)
+    assert c["labels"]["cold_build"] == "native" and \
+        c["labels"]["device_feed"] == "upload" and \
+        "feed_upload" in c["phases_ms"], c
+    out["reads"] = {"a": a, "b": b, "c": c}
+    del engine, host, stream
+    gc.collect()
+
+    # the spill region: a tenth of the rows past the short-value limit
+    t0 = time.perf_counter()
+    h = np.arange(SPILL_KEYS, dtype=np.int64)
+    rows = [(table_record_key(tid, int(x)), encode_row(
+        {2: int(x) % 1024, 3: int(x) % 1000, **(
+            {4: b"B" * 300} if x % SPILL_EVERY == 0 else {})}))
+        for x in h]
+    by_cf: dict = {}
+    for cf, k, v in sorted(mvcc_sst(rows, tm.TS_6C)._pairs):
+        got = by_cf.setdefault(cf, ([], []))
+        got[0].append(k)
+        got[1].append(v)
+    engine, host = MemoryEngine(), CoprocessorHost()
+    tm.apply_ingest(engine, host, 2, 100, build_sst_v2(by_cf))
+    out["spill_load_s"] = time.perf_counter() - t0
+    cache = rc.RegionColumnarCache()
+    cache.device_resolver = resolver
+    sup = DeviceStateSupervisor(runner, cache)
+
+    def snap():
+        rs = RegionSnapshot(engine.snapshot(), Region(2))
+        rs.data_index = 100
+        return rs
+
+    ep = Endpoint(lambda req: cache.get(snap(), req.dag), runner)
+    swant = [[int(c_), int(s_), g] for g, (c_, s_) in enumerate(zip(
+        np.bincount(h % 1024, minlength=1024),
+        np.bincount(h % 1024, weights=h % 1000, minlength=1024)))]
+    patched = counts()["patch_rows"]
+    spill = ingest_ask(ep, dag, swant, "spill")
+    spill["patch_rows_launches"] = counts()["patch_rows"] - patched
+    assert spill["labels"]["cold_build"] == "device" and \
+        spill["patch_rows_launches"] == 1, spill
+    served = cache.get(snap(), dag)
+    feed_key, feed = only_feed(runner, served)
+    infos = dag.executors[0].columns
+    n = len(served._tbl)
+    host_planes = []
+    for col_id, ds in zip(feed_key[1], feed_key[2]):
+        info = next(i for i in infos if i.col_id == col_id)
+        if info.is_pk_handle:
+            v, ok = served._tbl.handles, np.ones(n, np.bool_)
+        else:
+            col = served._tbl.columns[col_id]
+            v, ok = col.values, col.validity
+        host_planes.append((np.ascontiguousarray(v.astype(ds)), ok))
+    saved = counts()
+    up = runner._build_flat(host_planes, n)
+    set_counts(saved)
+    spill["feed_planes_differ"] = feed_diff(feed, up)
+    assert spill["feed_planes_differ"] == 0, "the spill feed differs"
+    spill["spilled_rows"] = SPILL_KEYS // SPILL_EVERY
+    del up, feed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = sup.scrub()
+    spill["scrub_ms"] = (time.perf_counter() - t0) * 1e3
+    assert clean["divergences"] == 0 and clean["lines"] == 1, clean
+    # CHECKSUM of the region's 2^16 rows: the native fold and the Python one
+    pairs = served.to_kv_pairs()
+    keys, vals = [k for k, _ in pairs], [v for _, v in pairs]
+    t0 = time.perf_counter()
+    native = checksum_kv_pairs(keys, vals)
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = checksum_kv_pairs_plain(keys, vals)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    areq = ChecksumReq(dag.executors[0], dag.ranges, tm.READ_TS_6C)
+    t0 = time.perf_counter()
+    via_ep = ep.handle_checksum(areq)
+    ep_ms = (time.perf_counter() - t0) * 1e3
+    assert native == plain == via_ep and \
+        native["total_kvs"] == SPILL_KEYS, (native, plain, via_ep)
+    out["checksum"] = {"rows": SPILL_KEYS, "fold_ms": fold_ms,
+                       "plain_ms": plain_ms, "endpoint_ms": ep_ms}
+    out["spill"] = spill
+    launches = counts()
+    for name in ("mvcc_resolve", "hash_agg", "patch_rows", "plane_digest"):
+        assert launches[name] > 0, f"6c-ingest never launched {name}"
+    out["launches"] = launches
+    cache.invalidate_region(2)
+    del sup, cache, ep, served, engine, host, rows, by_cf
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print("ingest cell 6c-ingest: " + json.dumps(out, default=str),
+          flush=True)
+    return {"config": "6c-ingest", "launches": launches,
+            "load_s": out["load_s"], "reads": {
+                k: {x: r[x] for x in ("cold_ms", "warm_p50_ms", "phases_ms",
+                                      "mint_ms")}
+                for k, r in out["reads"].items()},
+            "checksum": out["checksum"], "wall_s": out["wall_s"]}
 
 
 def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
@@ -6798,6 +7087,9 @@ def main() -> int:
     del source
     delta_shape = (delta.pop("n_pad"), delta.pop("shapes"))
     runs.append(delta)
+    elapsed("before the ingest cell")
+    # a runner of its own: the cell's scrub covers its runner's anchors
+    runs.append(run_ingest(DeviceRunner()))
     elapsed("before the mesh")
     from tikv_tpu_torch.testing import configs as cf
     mesh_runs += run_mesh(mesh_runner, runner, [

@@ -9,6 +9,7 @@ of the same rows.
 """
 
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ from tikv_tpu.testing.fixture import Table, TableColumn
 from tikv_tpu_torch import convert
 from tikv_tpu_torch.codec.row import decode_row, encode_row
 from tikv_tpu_torch.copr.analyze import (ChecksumReq, checksum_kv_pairs,
-                                         crc64)
+                                         checksum_kv_pairs_plain, crc64)
 from tikv_tpu_torch.copr.endpoint import REQ_TYPE_CHECKSUM, Endpoint
 from tikv_tpu_torch.copr.region_cache import (MvccColumnarSnapshot,
                                               build_region_columnar_device)
@@ -65,6 +66,47 @@ def test_crc64_and_fold_match_reference():
     for k, v in zip(keys, vals):
         assert crc64(k + v) == ref_crc64(k + v)
     assert checksum_kv_pairs(keys, vals) == ref_checksum_pairs(keys, vals)
+
+
+@pytest.mark.parametrize("shape", ("empty", "one", "random", "long",
+                                   "zero_length", "repeated"))
+def test_native_fold_matches_the_python_fold(shape):
+    """``checksum_kv_pairs`` folds in the native module; its plain version
+    folds with the Python ``crc64``: equal on every shape, and equal to the
+    reference's fold."""
+    rng = np.random.default_rng(zlib.crc32(shape.encode()))
+    if shape == "empty":
+        keys, vals = [], []
+    elif shape == "one":
+        keys, vals = [b"123456789"], [b""]
+    elif shape == "long":
+        keys = [bytes(rng.integers(0, 256, 5000).astype(np.uint8))
+                for _ in range(8)]
+        vals = [bytes(rng.integers(0, 256, 70_000).astype(np.uint8))
+                for _ in range(8)]
+    elif shape == "zero_length":
+        keys, vals = [b""] * 5, [b""] * 5
+    elif shape == "repeated":      # an even count of one pair folds to 0
+        keys, vals = [b"k"] * 4, [b"v"] * 4
+    else:
+        keys = [bytes(rng.integers(0, 256, rng.integers(0, 40))
+                      .astype(np.uint8)) for _ in range(2000)]
+        vals = [bytes(rng.integers(0, 256, rng.integers(0, 90))
+                      .astype(np.uint8)) for _ in range(2000)]
+    got = checksum_kv_pairs(keys, vals)
+    assert got == checksum_kv_pairs_plain(keys, vals)
+    assert got == ref_checksum_pairs(keys, vals)
+    if shape == "one":
+        assert got["checksum"] == 0x995DC9BBDF1939FA
+    if shape == "repeated":
+        assert got["checksum"] == 0
+
+
+def test_native_fold_refuses_what_is_not_bytes():
+    with pytest.raises(TypeError):
+        checksum_kv_pairs([b"a"], ["not bytes"])
+    with pytest.raises(ValueError):
+        checksum_kv_pairs([b"a", b"b"], [b"1"])
 
 
 def _payloads(rng) -> list:

@@ -10,8 +10,12 @@ nor aggregations, a selection and a top-k over a row-sharded mesh
 ``device.placement``) serving, migrating a feed and draining a dead slice,
 nor a write served through the delta path (``raftstore.cmd``,
 ``copr.delta``: the sink, the cache's bridge, the feed's patch, the scrub
-and its quarantine), and nothing falls back to the CPU without being
-asked."""
+and its quarantine), nor the cold path (``native``, ``sst_importer``,
+``copr.stream_build``: an SST ingest streamed, the device rung, the native
+rung, the re-mint governor, the native CHECKSUM fold), and nothing falls
+back to the CPU without being asked.  The native module is the port's own
+source: its compile names ``tikv_tpu_torch/native/fastbuild.cpp`` and no
+file of the JAX package, and a failed compile raises."""
 
 import ast
 import os
@@ -430,3 +434,122 @@ def test_chip_smoke_fails_without_the_card(where, tmp_path):
                          env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_SERVE_COLD = """
+import sys
+import numpy as np
+from tikv_tpu_torch.convert import dag_from_wire
+from tikv_tpu_torch.copr import region_cache as rc
+from tikv_tpu_torch.copr.analyze import checksum_kv_pairs
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.stream_build import ColdStreamBuilder
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.device.supervisor import RemintGovernor
+from tikv_tpu_torch.engine.memory import MemoryEngine
+from tikv_tpu_torch.raftstore.metapb import Region
+from tikv_tpu_torch.raftstore.observer import CoprocessorHost
+from tikv_tpu_torch.raftstore.peer import RegionSnapshot
+from tikv_tpu_torch.sst_importer import fast_mvcc_table_sst
+from tikv_tpu_torch.testing import mvcc as tm
+from tikv_tpu_torch.testing.dag import DagSelect
+runner = DeviceRunner(device="cpu")
+engine, host = MemoryEngine(), CoprocessorHost()
+stream = ColdStreamBuilder(runner.mvcc_resolver())
+host.register(stream)
+table = tm.table_6c()
+for i in range(3):
+    h = np.arange(i * 1000, (i + 1) * 1000, dtype=np.int64)
+    tm.apply_ingest(engine, host, 1, 10 + i, fast_mvcc_table_sst(
+        table.table_id, h, [(2, h % 8, None), (3, h % 100, None)], 100))
+assert stream.wait_idle(30.0)
+s = DagSelect.from_table(table, ["id", "c0", "c1"])
+dag = dag_from_wire(enc_dag(s.aggregate(
+    [s.col("c0")], [("count_star", None), ("sum", s.col("c1"))]).build(500)))
+labels = []
+for resolver, src in ((runner.mvcc_resolver(), stream), (None, None)):
+    cache = rc.RegionColumnarCache()
+    cache.device_resolver, cache.stream_source = resolver, src
+    cache.remint_gate = RemintGovernor(max_concurrent=1)
+    def provider(req, cache=cache):
+        rs = RegionSnapshot(engine.snapshot(), Region(1))
+        rs.data_index = 12
+        return cache.get(rs, req.dag)
+    resp = Endpoint(provider, runner).handle(
+        CopRequest(REQ_TYPE_DAG, dag, force_backend="device"))
+    assert sum(r[0] for r in resp.rows()) == 3000
+    labels.append(resp.tracker.labels["cold_build"])
+assert labels == ["device", "native"], labels
+assert stream.takes == 1
+keys, vals, _ = engine.snapshot().range_cf("write", b"", b"\\xff")
+assert checksum_kv_pairs(keys, vals)["total_kvs"] == 3000
+stream.stop()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("cold", stream.chunks_parsed)
+"""
+
+
+def test_cold_path_serving_loads_no_jax():
+    """SST blobs ingested through the apply path and streamed, the device
+    rung served from the stream's take, the native rung, a re-mint permit
+    and the native CHECKSUM fold load neither JAX nor the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_COLD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cold 3"
+
+
+_BUILD_NATIVE = """
+import subprocess, sys
+from pathlib import Path
+import tikv_tpu_torch.native as nv
+nv.BUILD_DIR = Path(sys.argv[1])
+seen = []
+run = subprocess.run
+def spy(cmd, *a, **kw):
+    seen.append(list(cmd))
+    return run(cmd, *a, **kw)
+subprocess.run = spy
+assert nv.checksum_pairs([b"123456789"], [b""])[0] == 0x995DC9BBDF1939FA
+assert len(seen) == 1, seen
+print("\\n".join(seen[0]))
+"""
+
+
+def test_native_build_compiles_only_the_port_source(tmp_path):
+    """A build from nothing runs one ``g++``, whose sources are the port's
+    ``native/fastbuild.cpp`` alone; the source includes no file of the
+    repository."""
+    out = subprocess.run([sys.executable, "-c", _BUILD_NATIVE,
+                          str(tmp_path)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    cmd = out.stdout.strip().splitlines()
+    assert cmd[0] == "g++"
+    sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".c", ".h"))]
+    assert [str(Path(a).relative_to(ROOT)) for a in sources] == \
+        ["tikv_tpu_torch/native/fastbuild.cpp"]
+    assert not any("tikv_tpu/" in a for a in cmd)
+    assert list(tmp_path.glob("_fastbuild-*.so"))
+    text = (ROOT / "tikv_tpu_torch/native/fastbuild.cpp").read_text()
+    includes = [ln.split()[1] for ln in text.splitlines()
+                if ln.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes), includes
+
+
+def test_a_failed_native_compile_raises(tmp_path, monkeypatch):
+    """No quiet fallback: a source g++ refuses raises with its output."""
+    import tikv_tpu_torch.native as nv
+    bad = tmp_path / "fastbuild.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(nv, "SRC", bad)
+    monkeypatch.setattr(nv, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(nv, "_MOD", None)
+    with pytest.raises(RuntimeError, match="native module build failed"):
+        nv.module()
+    with pytest.raises(RuntimeError, match="error"):
+        nv.checksum_pairs([b"a"], [b"b"])
+    assert not list((tmp_path / "_build").glob("*"))

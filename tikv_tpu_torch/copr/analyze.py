@@ -9,8 +9,9 @@ crc64-xz over each KV pair, XOR-folded so region checksums compose).
 The host half (``analyze_columns``) sorts each column with numpy; the
 device runner (``device/runner.py`` ``handle_analyze``) sorts INT, REAL,
 DATETIME and DURATION columns on the card (``device/analyze.py``) and
-unpacks the same statistics.  ``checksum_kv_pairs`` folds with the Python
-``crc64``; the port has no native module.
+unpacks the same statistics.  ``checksum_kv_pairs`` folds in the native
+module (``native/fastbuild.cpp`` ``checksum_pairs``); the Python ``crc64``
+fold stays as its plain version, ``checksum_kv_pairs_plain``.
 """
 
 from __future__ import annotations
@@ -135,7 +136,16 @@ def crc64(data: bytes, crc: int = 0) -> int:
 
 def checksum_kv_pairs(keys, vals) -> dict:
     """XOR-fold crc64(key || value) over pairs — order-independent, so
-    region checksums compose across replicas and shards (checksum.rs)."""
+    region checksums compose across replicas and shards (checksum.rs).
+    The fold runs in the native module (``native.checksum_pairs``);
+    ``checksum_kv_pairs_plain`` is its plain version."""
+    from ..native import checksum_pairs
+    cs, nb = checksum_pairs(keys, vals)
+    return {"checksum": cs, "total_kvs": len(keys), "total_bytes": nb}
+
+
+def checksum_kv_pairs_plain(keys, vals) -> dict:
+    """``checksum_kv_pairs`` through the Python ``crc64``."""
     total_bytes = 0
     cs = 0
     for k, v in zip(keys, vals):

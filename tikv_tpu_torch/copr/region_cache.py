@@ -5,13 +5,16 @@ table slice is resolved from its MVCC versions once per data version and
 kept as columnar arrays (a cache line), which both the host pipeline and
 the device runner read:
 
-- the build ladder: ``build_region_columnar`` (the interpreted rung over
-  ``MvccReader``: one MVCC pass over the region ∩ table record range) and
-  ``build_region_columnar_ex`` (its device rung declines while the native
-  parse of a CF_WRITE range is not ported, so the host ladder takes over,
-  as the reference's does when its rung refuses);
-  ``build_region_columnar_device``: the device rung from the parsed
-  version planes on — the host mirror of the resolution and the
+- the build ladder, device → native → interpreted:
+  ``build_region_columnar_ex`` tries the device rung (``_build_device``:
+  the CF_WRITE range in one bulk read, its version planes taken from the
+  streaming ingest, ``copr/stream_build.py``, or parsed now by the native
+  module, the winners' CF_DEFAULT rows fetched, then
+  ``build_region_columnar_device``), then ``build_region_columnar``: the
+  native one-pass build (``_build_native``), then the interpreted loop
+  over ``MvccReader``; the rung that served labels ``cold_build``.
+  ``build_region_columnar_device`` is the device rung from the version
+  planes on — the host mirror of the resolution and the
   ``ColdFeedBundle`` from which the runner's first feed miss mints the
   feed on the device;
 - ``MvccColumnarSnapshot``: the columnar view at one read timestamp, with
@@ -38,15 +41,18 @@ the device runner read:
   ``columnar_build``, for the runner to slice the resident parent feeds the
   same way (``DeviceRunner.split_resident_feeds``).
 
+A cold build first takes a permit from ``remint_gate`` when one is wired
+(``device.supervisor.RemintGovernor``, phase ``remint_wait``), ordered by
+``region_heat``: the decayed request rate of the region (half-life 30 s).
+
 Trimmed (ROADMAP.md queue 1 item 6): the reuse of parked below-safe_ts
-builds across history, the re-mint governor and region heat, ``get_fast``;
-the gauges and metrics.  Not ported (queue 1 item 8): the native parse and
-the snapshot read of the CF_WRITE range, the streaming ingest.
+builds across history, ``get_fast``; the gauges and metrics.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict, deque
 from typing import Optional, Sequence
 
@@ -54,7 +60,7 @@ import numpy as np
 
 from ..codec.keys import decode_record_handle, table_record_range
 from ..codec.row import decode_row
-from ..datatype import Column
+from ..datatype import Column, EvalType
 from ..engine.traits import CF_DEFAULT, CF_LOCK, CF_WRITE
 from ..executors.columnar import ColumnarTable
 from ..storage.mvcc.reader import (_PAST_VERSIONS, MvccReader,
@@ -85,17 +91,211 @@ def _scan_blocking_locks(snap, lower: bytes, upper: bytes) -> list:
     return blocking_locks
 
 
+# native builder kind codes (fastbuild.cpp Col.kind)
+_NATIVE_KINDS = {
+    EvalType.INT: 0, EvalType.DURATION: 0,
+    EvalType.REAL: 1,
+    EvalType.BYTES: 2,
+    EvalType.DATETIME: 3, EvalType.ENUM: 3, EvalType.SET: 3,
+}
+
+
+def _record_range(snap, cf: str, table_id: int):
+    """(keys, values, prefix_skip) of ``cf`` over the table's record range
+    in one bulk read, or None when the snapshot has no range read."""
+    rng = getattr(snap, "range_cf", None)
+    if rng is None:
+        return None
+    lo, hi = table_record_range(table_id)
+    return rng(cf, encode_key(lo), encode_key(hi))
+
+
+def _build_native(snap, table_id: int, col_infos: Sequence, read_ts: int):
+    """The native one-pass build (``native.mvcc_build_columnar``) →
+    (ColumnarTable, safe_ts), or None when the snapshot or schema is
+    outside its envelope (DECIMAL/JSON payloads, non-NULL defaults,
+    datums it cannot decode, a spilled row whose value is gone)."""
+    from ..native import mvcc_build_columnar
+    ids, kinds = [], []
+    for info in col_infos:
+        if info.is_pk_handle:
+            continue
+        ft = info.field_type
+        kind = _NATIVE_KINDS.get(ft.eval_type)
+        if kind is None or info.default_value is not None:
+            return None
+        if kind == 0 and ft.is_unsigned:
+            kind = 3        # unsigned BIGINT: values live above 2^63
+        ids.append(info.col_id)
+        kinds.append(kind)
+    got = _record_range(snap, CF_WRITE, table_id)
+    if got is None:
+        return None
+    keys, vals, skip = got
+    try:
+        out = mvcc_build_columnar(keys, vals, read_ts, skip, tuple(ids),
+                                  tuple(kinds))
+    except ValueError:
+        # a stored payload may hold a datum outside the native envelope
+        # (a DECIMAL of an unrequested column): the interpreted rung serves
+        return None
+    n = out["n"]
+    handles = np.frombuffer(out["handles"], dtype=np.int64)
+    np_dtypes = {0: np.int64, 1: np.float64, 3: np.uint64}
+    ets = {info.col_id: info.field_type.eval_type for info in col_infos
+           if not info.is_pk_handle}
+    need = out["need_default"]
+    columns: dict = {}
+    for col_id, kind, payload, validity in out["cols"]:
+        valid = np.frombuffer(validity, dtype=np.bool_)
+        if need:
+            valid = valid.copy()    # the spilled rows are written below
+        if kind == 2:
+            # the builder sets a bytes payload exactly where validity is set
+            values = np.empty(n, dtype=object)
+            values[:] = payload
+            if not valid.all():
+                values[~valid] = b""
+        else:
+            values = np.frombuffer(payload, dtype=np_dtypes[kind])
+            if need:
+                values = values.copy()
+        columns[col_id] = Column(ets[col_id], values, valid)
+    if need:
+        fetched, missing = _fetch_default_values(snap, table_id, need)
+        if missing:
+            return None     # a visible version's row is gone
+        per_col: dict = {cid: ([], []) for cid in columns}
+        for (row, _start_ts, _user_key), raw in zip(need, fetched):
+            for col_id, pv in decode_row(raw).items():
+                slot = per_col.get(col_id)
+                if slot is not None and pv is not None:
+                    slot[0].append(row)
+                    slot[1].append(pv)
+        for col_id, (rows_idx, vals_list) in per_col.items():
+            if not rows_idx:
+                continue
+            col = columns[col_id]
+            idx = np.asarray(rows_idx, dtype=np.int64)
+            if col.values.dtype == object:
+                for i, v in zip(rows_idx, vals_list):
+                    col.values[i] = v
+            else:
+                col.values[idx] = np.asarray(vals_list,
+                                             dtype=col.values.dtype)
+            col.validity[idx] = True
+    return ColumnarTable(_TableShim(table_id), handles, columns), \
+        out["safe_ts"]
+
+
+def _fetch_default_values(snap, table_id: int, need):
+    """The CF_DEFAULT rows of a build's spilled versions.
+
+    ``need``: [(row, start_ts, user key)].  Up to 31 rows take point gets;
+    more take one bulk range read of the table's CF_DEFAULT slice, with a
+    point get for a row the bulk map misses.  → (values aligned with
+    ``need``, None where no row was found; the indices of those)."""
+    out: list = []
+    missing: list = []
+    got = _record_range(snap, CF_DEFAULT, table_id) if len(need) >= 32 \
+        else None
+    by_key = None
+    if got is not None:
+        keys, vals, skip = got
+        by_key = {bytes(k[skip:]) if skip else bytes(k): v
+                  for k, v in zip(keys, vals)}
+    for i, (_row, start_ts, user_key) in enumerate(need):
+        enc = append_ts(encode_key(user_key), start_ts)
+        v = by_key.get(enc) if by_key is not None else None
+        if v is None:
+            v = snap.get_value_cf(CF_DEFAULT, enc)
+            if v is None:
+                missing.append(i)
+        out.append(v)
+    return out, missing
+
+
+def _build_device(snap, table_id: int, col_infos: Sequence, read_ts: int,
+                  resolver, stream=None):
+    """The device rung: the CF_WRITE range as version planes — taken from
+    the streaming ingest (``stream.take``, planes parsed and on the card
+    already) or parsed now (``device.mvcc.parse_write_planes``) — the
+    winners' CF_DEFAULT rows fetched and decoded, then
+    ``build_region_columnar_device``: the host mirror and the cold bundle
+    the runner mints the feed from.
+
+    → (ColumnarTable, safe_ts, ColdFeedBundle), or None when the rung
+    declines (no single-device resolver, the ``device::mvcc_resolve``
+    failpoint, a schema or range outside the planes' envelope, a spilled
+    row whose value is gone)."""
+    from ..device.mvcc import align_planes, parse_write_planes, plane_schema
+    from ..utils import tracker
+    from ..utils.failpoint import fail_point
+    available = getattr(resolver, "available", None)
+    if available is None or not available() or \
+            fail_point("device::mvcc_resolve") is not None or \
+            not 0 <= read_ts < 1 << 63 or plane_schema(col_infos) is None:
+        return None
+    with tracker.phase("range_read"):
+        got = _record_range(snap, CF_WRITE, table_id)
+    if got is None or not got[0]:
+        return None     # an empty range: the host rungs are free
+    keys, vals, skip = got
+    planes = dev = None
+    region = getattr(snap, "region", None)
+    data_index = getattr(snap, "data_index", None)
+    if stream is not None and region is not None and data_index is not None:
+        with tracker.phase("stream_take"):
+            st = stream.take(region.id, table_id, data_index,
+                             n_ver=len(keys),
+                             first_key=bytes(keys[0][skip:]),
+                             last_key=bytes(keys[-1][skip:]))
+        if st is not None:
+            planes = align_planes(st[0], col_infos)
+            dev = st[1] if planes is not None else None
+    if planes is None:
+        with tracker.phase("mvcc_parse"):
+            planes = parse_write_planes(keys, vals, skip, col_infos)
+        if planes is None:
+            return None
+
+    def defaults(rows):
+        # the CF_DEFAULT rows of the winning spilled versions only (a
+        # superseded version's row is never fetched)
+        by_ver = {row: (sts, uk) for row, sts, uk in planes.need_default}
+        need = [(r, *by_ver[r]) for r in rows if r in by_ver]
+        if len(need) != len(rows):
+            return None     # an inconsistent parse
+        with tracker.phase("default_fetch"):
+            fetched, missing = _fetch_default_values(snap, table_id, need)
+        if missing:
+            return None
+        return {r: decode_row(raw) for (r, _s, _u), raw in
+                zip(need, fetched)}
+
+    return build_region_columnar_device(planes, _TableShim(table_id),
+                                        col_infos, read_ts, resolver,
+                                        defaults=defaults,
+                                        device_planes=dev)
+
+
 def build_region_columnar(snap, table_id: int, col_infos: Sequence,
                           read_ts: int):
-    """One MVCC pass over the region ∩ table record range (the interpreted
-    rung; the native one-pass build is not ported).
+    """One MVCC pass over the region ∩ table record range: the native
+    rung (``_build_native``), else the interpreted one over
+    ``MvccReader``, each labelled ``cold_build``.
 
     → (ColumnarTable, safe_ts, blocking_locks).  Pending locks are
     recorded, not raised: the committed version set is independent of
     them; each request checks the locks in its own ranges at serve time."""
+    from ..utils import tracker
     lo, hi = table_record_range(table_id)
     lower, upper = encode_key(lo), encode_key(hi)
     blocking_locks = _scan_blocking_locks(snap, lower, upper)
+    native = _build_native(snap, table_id, col_infos, read_ts)
+    if native is not None:
+        tracker.label("cold_build", "native")
+        return native[0], native[1], blocking_locks
     reader = MvccReader(snap)
     handles: list = []
     rows: list = []
@@ -123,18 +323,29 @@ def build_region_columnar(snap, table_id: int, col_infos: Sequence,
             unsigned=info.field_type.is_unsigned)
     tbl = ColumnarTable(_TableShim(table_id),
                         np.asarray(handles, dtype=np.int64), columns)
+    tracker.label("cold_build", "interpreted")
     return tbl, safe_ts, blocking_locks
 
 
 def build_region_columnar_ex(snap, table_id: int, col_infos: Sequence,
-                             read_ts: int, device_resolver=None):
+                             read_ts: int, device_resolver=None,
+                             stream_source=None):
     """The ladder entry with the device rung → (ColumnarTable, safe_ts,
-    blocking_locks, ColdFeedBundle or None).
-
-    The device rung needs the CF_WRITE range parsed into version planes,
-    whose native parse is not ported (ROADMAP.md queue 1 item 8): it
-    declines, and the module's ``build_region_columnar`` serves — looked
-    up at call time, so a caller substituting a builder keeps its seam."""
+    blocking_locks, ColdFeedBundle or None).  The device rung
+    (``_build_device``, label ``cold_build=device``) serves when a
+    resolver is wired and the schema fits; otherwise the module's
+    ``build_region_columnar`` does — looked up at call time, so a caller
+    substituting a builder keeps its seam."""
+    from ..utils import tracker
+    if device_resolver is not None:
+        dev = _build_device(snap, table_id, col_infos, read_ts,
+                            device_resolver, stream=stream_source)
+        if dev is not None:
+            lo, hi = table_record_range(table_id)
+            locks = _scan_blocking_locks(snap, encode_key(lo),
+                                         encode_key(hi))
+            tracker.label("cold_build", "device")
+            return dev[0], dev[1], locks, dev[2]
     tbl, safe_ts, locks = build_region_columnar(snap, table_id, col_infos,
                                                 read_ts)
     return tbl, safe_ts, locks, None
@@ -148,9 +359,11 @@ def build_region_columnar_device(planes, table, col_infos: Sequence,
     record range) at ``read_ts`` on the host and stage the device resolve.
 
     ``defaults``: {version row: {col_id: value}}, the cells of the PUTs
-    whose row lives in CF_DEFAULT (the caller fetched and decoded them);
-    ``device_planes``: the same planes already on the card
-    (``DeviceVersionPlanes``), or None to upload them at the mint.
+    whose row lives in CF_DEFAULT (the caller fetched and decoded them),
+    or a function of the winning spilled version rows that fetches them
+    (→ that dict, or None when a row is gone); ``device_planes``: the same
+    planes already on the card (``DeviceVersionPlanes``), or None to
+    upload them at the mint.
 
     → (ColumnarTable, safe_ts, ColdFeedBundle), or None when the planes
     cannot serve the schema (a column outside the device envelope, a
@@ -159,14 +372,16 @@ def build_region_columnar_device(planes, table, col_infos: Sequence,
     commit_ts (no CF_WRITE range holds that: it is its key)."""
     from ..device.mvcc import (ColdFeedBundle, align_planes, host_mirror,
                                resolve_host)
+    from ..utils import tracker
     if resolver is None or not 0 <= read_ts < 1 << 63:
         return None
     planes = align_planes(planes, col_infos)
     if planes is None:
         return None
-    winners = resolve_host(planes, read_ts)
-    n = len(winners)
-    handles, columns = host_mirror(planes, winners, col_infos)
+    with tracker.phase("host_mirror"):
+        winners = resolve_host(planes, read_ts)
+        n = len(winners)
+        handles, columns = host_mirror(planes, winners, col_infos)
     if n > 1 and not bool(np.all(handles[1:] > handles[:-1])):
         raise ValueError("two visible versions of one key share a "
                          "commit_ts")
@@ -175,6 +390,12 @@ def build_region_columnar_device(planes, table, col_infos: Sequence,
     spill_patches: dict = {}
     if planes.need_default:
         spill_rows = np.nonzero(planes.has_payload[winners] == 0)[0]
+        if callable(defaults):
+            defaults = defaults([int(winners[fr]) for fr in
+                                 spill_rows.tolist()]) if len(spill_rows) \
+                else {}
+            if defaults is None:
+                return None     # a spilled row is gone
         for fr in spill_rows.tolist():
             payload = (defaults or {}).get(int(winners[fr]))
             if payload is None:
@@ -545,7 +766,16 @@ class RegionColumnarCache:
         self.invalidations = 0  # lines dropped by lifecycle events
         self.device_builds = 0  # builds that came with a cold bundle
         self.splits = 0         # parent lines sliced into child lines
+        # the device rung of the build ladder (a DeviceMvccResolver) and
+        # the planes the streaming ingest parsed (a ColdStreamBuilder)
         self.device_resolver = None
+        self.stream_source = None
+        # a RemintGovernor: every cold build first takes a permit from it
+        # (None: unthrottled)
+        self.remint_gate = None
+        # decayed request rate per region, the governor's priority:
+        # region id -> [rate, stamp]
+        self._heat: dict = {}
         # epoch fence: region id -> lowest epoch version still allowed to
         # cache (a build racing a split must not re-insert a superseded
         # epoch's line after invalidate_region swept it)
@@ -578,6 +808,33 @@ class RegionColumnarCache:
                 "invalidations": self.invalidations,
                 "device_builds": self.device_builds, "splits": self.splits,
                 "resident_lines": len(lines), "lines": lines}
+
+    # -- region heat (the re-mint governor's priority) ----------------
+
+    _HEAT_HALFLIFE_S = 30.0
+
+    def _note_heat(self, region_id: int) -> None:
+        now = time.monotonic()
+        with self._lock:
+            st = self._heat.get(region_id)
+            if st is None:
+                self._heat[region_id] = [1.0, now]
+                while len(self._heat) > 4096:
+                    self._heat.pop(next(iter(self._heat)))
+            else:
+                st[0] = st[0] * 0.5 ** ((now - st[1]) /
+                                        self._HEAT_HALFLIFE_S) + 1.0
+                st[1] = now
+
+    def region_heat(self, region_id: int) -> float:
+        """The region's decayed request rate: after a mass invalidation the
+        regions users hit rebuild first."""
+        with self._lock:
+            st = self._heat.get(region_id)
+            if st is None:
+                return 0.0
+            return st[0] * 0.5 ** ((time.monotonic() - st[1]) /
+                                   self._HEAT_HALFLIFE_S)
 
     # -- lifecycle teardown -------------------------------------------
 
@@ -797,6 +1054,7 @@ class RegionColumnarCache:
                     tuple((c.col_id, c.is_pk_handle, c.field_type.tp)
                           for c in scan.columns))
         start_ts = dag.start_ts
+        self._note_heat(region.id)
         while True:
             with self._lock:
                 line = self._lines.get(base_key)
@@ -885,10 +1143,23 @@ class RegionColumnarCache:
                     return got
         self.misses += 1
         tracker.label("copr_cache", "build")
-        with tracker.phase("columnar_build"):
-            tbl, safe_ts, locks, bundle = build_region_columnar_ex(
-                snap, scan.table_id, scan.columns, start_ts,
-                device_resolver=self.device_resolver)
+        # a re-mint permit before the build: the governor queues it hot
+        # regions first and may shed it (ServerIsBusy with a retry hint)
+        gate = self.remint_gate
+        ticket = None
+        if gate is not None:
+            with tracker.phase("remint_wait"):
+                ticket = gate.acquire(base_key[0],
+                                      heat=self.region_heat(base_key[0]))
+        try:
+            with tracker.phase("columnar_build"):
+                tbl, safe_ts, locks, bundle = build_region_columnar_ex(
+                    snap, scan.table_id, scan.columns, start_ts,
+                    device_resolver=self.device_resolver,
+                    stream_source=self.stream_source)
+        finally:
+            if ticket is not None:
+                gate.release(ticket)
         if bundle is not None:
             self.device_builds += 1
         ent = MvccColumnarSnapshot(tbl, start_ts, safe_ts,

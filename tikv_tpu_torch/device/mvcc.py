@@ -17,11 +17,13 @@ first feed miss (``ColdFeedBundle.mint``):
   record; the caller fetched their values) are written into the gathered
   planes by one ``digest.patch_feed_rows`` launch for every plane.
 
-The planes reach the card at the mint, or before the first query through
-``DeviceVersionPlanes`` (chunks appended into capacity-bucketed buffers).
-Not ported: the native parse that yields the planes
-(``parse_write_planes``, ``tikv_tpu/native/fastbuild.cpp``); the planes
-arrive as arrays (``convert.write_planes_from_arrays``).
+The planes come from the native parse of a CF_WRITE range
+(``parse_write_planes`` over ``native/fastbuild.cpp``
+``mvcc_parse_planes``): at build time with the query's schema, or in
+discovery mode on the streaming ingest (``copr/stream_build.py``), whose
+chunks ``align_planes`` reconciles with the schema.  They reach the card
+at the mint, or before the first query through ``DeviceVersionPlanes``
+(chunks appended into capacity-bucketed buffers).
 """
 
 from __future__ import annotations
@@ -100,6 +102,70 @@ class WritePlanes:
         self.cols = cols
         self.need_default = need_default    # [(ver_row, start_ts, ukey)]
         self.col_ids = col_ids
+
+    def nbytes(self) -> int:
+        """Host bytes of the planes: per version 8 + 8 + 1 + 1 + 4, and 9
+        a column (value and validity); per key 8."""
+        return self.n_ver * (22 + 9 * len(self.cols)) + self.n_keys * 8
+
+
+def _parse_may_yield() -> bool:
+    """Whether the build-time parse should release the GIL: only with a
+    core to spare (on one core, yielding hands it to background threads
+    and the parse's wall time grows)."""
+    from ..utils import spare_cores
+    return spare_cores() > 1
+
+
+def parse_write_planes(keys, vals, prefix_skip: int,
+                       col_infos: Optional[Sequence] = None,
+                       release_gil: Optional[bool] = None) -> \
+        Optional[WritePlanes]:
+    """The native flat-plane parse of one contiguous CF_WRITE slice, or
+    None when the data or schema is outside its envelope (index keys,
+    mixed tables, datums it cannot decode, a commit_ts past int64).
+
+    ``col_infos=None`` is discovery mode (the streaming ingest, which has
+    no query schema yet): every column id seen in a row payload gets a
+    plane of its stored kind.  ``release_gil``: None = only with a spare
+    core; the streaming worker passes True.  A native module that cannot
+    be built raises."""
+    from ..native import mvcc_parse_planes
+    if not keys:
+        return None
+    if col_infos is None:
+        ids, kinds = (), ()
+    else:
+        schema = plane_schema(col_infos)
+        if schema is None:
+            return None
+        ids, kinds = schema
+    if release_gil is None:
+        release_gil = _parse_may_yield()
+    try:
+        out = mvcc_parse_planes(keys, vals, prefix_skip, ids, kinds,
+                                bool(release_gil))
+    except ValueError:
+        return None
+    if out["safe_ts"] >= 1 << 63:
+        return None     # the device compares timestamps as int64
+    cols = {}
+    out_ids = []
+    for col_id, kind, payload, valid in out["cols"]:
+        out_ids.append(col_id)
+        cols[col_id] = (kind, np.frombuffer(payload, _NP_BY_KIND[kind]),
+                        np.frombuffer(valid, np.uint8).astype(np.bool_))
+    return WritePlanes(
+        out["n_ver"], out["n_keys"], out["table_id"], out["safe_ts"],
+        np.frombuffer(out["commit_ts"], np.uint64),
+        np.frombuffer(out["start_ts"], np.uint64),
+        np.frombuffer(out["wtype"], np.uint8),
+        np.frombuffer(out["has_payload"], np.uint8),
+        np.frombuffer(out["seg_id"], np.int32),
+        np.frombuffer(out["handles"], np.int64),
+        np.frombuffer(out["seg_start"], np.int64),
+        cols, out["need_default"],
+        tuple(out_ids) if col_infos is None else ids)
 
 
 def align_planes(planes: WritePlanes,
@@ -660,9 +726,27 @@ class DeviceMvccResolver:
     ``patch``: the spill rows; ``digests``: the wait for the host-truth
     digests, hashed on a thread pool from the start of the mint)."""
 
-    def __init__(self):
+    def __init__(self, runner=None):
+        self._runner = runner
         self.mints = 0
         self.phases_ms: dict = {}
+
+    def available(self) -> bool:
+        """The device rung serves only a single-device runner (a mesh's
+        cold builds upload)."""
+        r = self._runner
+        return r is not None and getattr(r, "_single", False)
+
+    def h2d_profitable(self) -> bool:
+        """Whether streaming version planes to the device ahead of the
+        first query pays: only when the runner's device is a CUDA card (on
+        the CPU there is no transfer to overlap)."""
+        r = self._runner
+        return r is not None and r.device.type == "cuda"
+
+    @property
+    def device(self):
+        return self._runner.device
 
     def _mint(self, bundle: ColdFeedBundle, runner, used_infos, dtypes,
               n: int, n_pad: int) -> dict:

@@ -1116,7 +1116,7 @@ class DeviceRunner:
         None on a mesh, whose cold builds upload (runner.py:1104-1115)."""
         if self._mvcc_resolver is None and self._single:
             from .mvcc import DeviceMvccResolver
-            self._mvcc_resolver = DeviceMvccResolver()
+            self._mvcc_resolver = DeviceMvccResolver(self)
         return self._mvcc_resolver
 
     def joiner(self):

@@ -36,8 +36,12 @@ Counterpart of the JAX package's ``device/supervisor.py``:
   ``scrub_interval`` seconds) re-hashes every resident plane and
   quarantines an anchor whose planes diverged from their record.
 
+- ``RemintGovernor`` (:952-1068): bounded, priority-ordered admission of
+  cold builds (``RegionColumnarCache.remint_gate``): hot regions first,
+  the worst waiter shed past the queue's bound.
+
 Trimmed (ROADMAP.md queue 1 item 6): the arena's residency metering, the
-replica-feed state machine, ``RemintGovernor`` and the flight recorder.
+replica-feed state machine and the flight recorder.
 """
 
 from __future__ import annotations
@@ -554,6 +558,105 @@ class FeedArena:
 
 
 # ------------------------------------------------- lifecycle supervisor
+
+
+class _RemintWaiter:
+    __slots__ = ("key", "shed", "region_id")
+
+    def __init__(self, key, region_id):
+        self.key = key
+        self.shed = False
+        self.region_id = region_id
+
+
+class RemintGovernor:
+    """Bounded, priority-ordered admission of cold ``columnar_build``
+    re-mints, wired as ``RegionColumnarCache.remint_gate``.
+
+    When every invalidated region wants a rebuild at once, the governor
+    caps concurrent builds at ``max_concurrent`` and parks the rest in a
+    queue ordered by (RU debt, hottest region first, arrival); past
+    ``max_queue`` waiters the worst one is shed with
+    ``ServerIsBusy(retry_after_ms)``.  ``max_concurrent <= 0`` admits
+    everything at once."""
+
+    def __init__(self, max_concurrent: int = 2, max_queue: int = 32,
+                 retry_after_ms: int = 50):
+        self.max_concurrent = int(max_concurrent)
+        self.max_queue = max(1, int(max_queue))
+        self.retry_after_ms = int(retry_after_ms)
+        self._cv = threading.Condition(threading.Lock())
+        self._active = 0
+        self._waiters: list = []
+        self._seq = 0
+        self.admitted = 0
+        self.queued = 0
+        self.shed = 0
+        self.observed_max = 0       # peak concurrent builds granted
+        self.peak_depth = 0         # deepest the queue got
+
+    @staticmethod
+    def _ru_debt() -> bool:
+        """Whether the current request's tenant is in RU debt (debtors
+        rebuild last).  Always False: the port has no resource controller
+        yet (ROADMAP.md queue 1 item 7), so no tenant can owe."""
+        return False
+
+    def _grant_locked(self) -> bool:
+        self._active += 1
+        self.admitted += 1
+        self.observed_max = max(self.observed_max, self._active)
+        return True
+
+    def acquire(self, region_id: int, heat: float = 0.0):
+        """Block until a build permit is granted → a ticket for
+        ``release`` (None when admission is off); raises ``ServerIsBusy``
+        when this waiter is shed."""
+        if self.max_concurrent <= 0:
+            return None
+        from ..server.read_pool import ServerIsBusy
+        with self._cv:
+            if self._active < self.max_concurrent and not self._waiters:
+                return self._grant_locked()
+            # the smaller key is admitted sooner: debt-free before
+            # debtors, then the hottest region, then arrival order
+            self._seq += 1
+            w = _RemintWaiter((1 if self._ru_debt() else 0, -heat,
+                               self._seq), region_id)
+            self._waiters.append(w)
+            self.queued += 1
+            if len(self._waiters) > self.max_queue:
+                worst = max(self._waiters, key=lambda x: x.key)
+                self._waiters.remove(worst)
+                worst.shed = True
+                self.shed += 1
+                self._cv.notify_all()
+            self.peak_depth = max(self.peak_depth, len(self._waiters))
+            while True:
+                if w.shed:
+                    raise ServerIsBusy("re-mint queue overloaded",
+                                       retry_after_ms=self.retry_after_ms)
+                if self._active < self.max_concurrent and \
+                        min(self._waiters, key=lambda x: x.key) is w:
+                    self._waiters.remove(w)
+                    self._cv.notify_all()   # more slots may be free
+                    return self._grant_locked()
+                self._cv.wait()
+
+    def release(self, ticket) -> None:
+        if ticket is None:
+            return
+        with self._cv:
+            self._active -= 1
+            self._cv.notify_all()
+
+    def stats(self) -> dict:
+        with self._cv:
+            return {"max_concurrent": self.max_concurrent,
+                    "active": self._active, "depth": len(self._waiters),
+                    "admitted": self.admitted, "queued": self.queued,
+                    "shed": self.shed, "observed_max": self.observed_max,
+                    "peak_depth": self.peak_depth}
 
 
 class DeviceStateSupervisor(Observer):

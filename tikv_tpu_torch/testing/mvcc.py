@@ -419,3 +419,17 @@ def apply_write(engine, host, region_id: int, index: int, triples) -> list:
     ops = write_ops(wb)
     host.notify_apply_write(region_id, index, ops)
     return ops
+
+
+def apply_ingest(engine, host, region_id: int, index: int, blob) -> list:
+    """Apply one SST ingest of the v2 ``blob`` to ``engine`` as the entry
+    at ``index`` (``raftstore.cmd.exec_write_ops``) and hand the entry's
+    one ``ingest`` op to ``host``'s observers, as the apply path does →
+    the entry's ops."""
+    from ..raftstore.cmd import WriteOp, exec_write_ops
+    ops = [WriteOp("ingest", "", b"", blob)]
+    wb = engine.write_batch()
+    exec_write_ops(wb, ops)
+    engine.write(wb)
+    host.notify_apply_write(region_id, index, ops)
+    return ops

@@ -17,7 +17,10 @@ on a placement mesh ``device::slice_dead`` (``return`` every slice,
 ``return(i j)`` slices i and j fail their dispatches, fetches and
 canaries; ``50%return(i)`` a flapping slice), ``device::feed_migrate`` (a
 migrated feed's plane flips one bit on arrival) and
-``device::mesh_rebuild`` (the degraded submesh cannot be built).
+``device::mesh_rebuild`` (the degraded submesh cannot be built); on the
+cold path ``apply::before_ingest`` (an SST ingest fails before its blob is
+read) and ``device::mvcc_resolve`` (the device rung of a cold build
+declines: the native rung serves).
 
 A site costs one global read while nothing is armed.
 """
