@@ -102,7 +102,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``sel_pred``'s signatures (``v DIV 3 > 266``: the torch route, then
    ``sel_mask``), each answer held exactly against a numpy truth, with the
    same cold / warm / peak / profile / launch-count lines as step 4 and a
-   line of host-clock phases of a warm request (``row_phases``);
+   line of host-clock phases of a warm request (``row_phases``); then the
+   time types (``run_time_types``, ``configs.TIME_CELLS``: one table of
+   10·2^20 rows with a DATETIME and a DURATION column): t2 (a 1994 range
+   of ``d`` in ``sel_pred``, COUNT/MIN/MAX in ``agg_fold``), t4m (GROUP BY
+   k, MIN(d), MAX(u): ``agg_fold``), t5 (ORDER BY u DESC LIMIT 1000:
+   ``topn_select``) and tshift (``(k << 40) >> 38 > 1000``: the shifts on
+   the torch route) with the same lines, ``sel_pred``, ``agg_fold`` and
+   ``topn_select`` each against its plain version on the runner's own
+   arguments at those cells and timed there; th (``Year(d) = 1995``)
+   through the endpoint: answered on the host, no launch; and a year-9999
+   variant of ``d``: the endpoint answers on the host, a forced request
+   raises ``FeedBeyondInt64``;
 8. each of those kernels timed at the main path's shapes beside its
    bound, its plain version and a library yardstick the port never calls:
    ``sel_pred`` at config 2 (``v > 800``, packed mask) and 5t (``k <
@@ -120,7 +131,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    arguments, with its route and peak bytes (no single PyTorch call
    computes the fold: one ``scatter_reduce_`` (amax) over the same keys
    and values is the yardstick);
-9. the cold MVCC path: ``plane_digest`` and ``patch_rows`` against their
+9. the cold MVCC path (run while ``selection.cu`` builds, after the
+   aggregation configs of step 4: none of it launches a kernel of that
+   source): ``plane_digest`` and ``patch_rows`` against their
    plain versions over every feed dtype (and int8, int16), the digest
    over full and partial ranges of planes 0-7 elements off a 16-byte
    boundary up to 2^24 + 3 rows, the patch at 1, 1000 and 65,536 rows
@@ -2692,6 +2705,159 @@ def run_uncovered(runner) -> dict:
     del snap
     gc.collect()
     return out
+
+
+def time_types_kernels(runner, dag, snap, dev, owner, name: str,
+                       label: str) -> float:
+    """The runner's call of ``name`` on one warm request of ``dag``
+    (recorded, not counted), run again as the kernel and as its plain
+    version on the card: bit for bit (integer states) → 0.0; both timed
+    at that shape and printed."""
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.device import topn as tn
+    args, kw = captured_calls(owner, name,
+                              lambda: runner.handle_request(dag, snap))[0]
+    saved = counts()
+    if name == "sel_pred":
+        prog, planes, n, bools = args
+        got, want = sm.sel_pred(*args), sm.sel_pred_plain(*args)
+        assert mask_equal(got[0], want[0]) and (
+            got[1] is None or torch.equal(got[1], want[1])), \
+            f"sel_pred disagrees at cell {label}"
+        kernel = (lambda: sm.sel_pred(*args))
+        plain = (lambda: sm.sel_pred_plain(*args))
+        err = 0.0
+    elif name == "agg_fold":
+        specs, cols, n, mode = args
+        kw = dict(specs=specs, cols=cols, n=n, mode=mode,
+                  **{k: v for k, v in kw.items() if k != "device"})
+        from tikv_tpu_torch.device import agg_fold as af
+        err = fold_err(kw, dev)
+        kernel = (lambda: af.agg_fold(**kw, device=dev))
+        plain = (lambda: af.agg_fold_plain(**kw, device=dev))
+    else:
+        values, ok, mask, desc, n, n_used, _seglen, k = args
+        got = tn.topn_select(*args, **kw)
+        want = tn.topn_plain(values, ok, mask, desc, n, n_used, k)
+        assert torch.equal(got, want), f"topn_select disagrees at {label}"
+        kernel = (lambda: tn.topn_select(*args, **kw))
+        plain = (lambda: tn.topn_plain(values, ok, mask, desc, n, n_used,
+                                       k))
+        err = 0.0
+    ms = cuda_ms(kernel, 10, queued=True)
+    plain_ms = cuda_ms(plain, 3)
+    set_counts(saved)
+    print(f"kernel {name} at cell {label} shape ({n} rows): max_abs_err="
+          f"{err} ms={ms} plain_ms={plain_ms}", flush=True)
+    return err
+
+
+def run_time_types(runner, dev) -> tuple:
+    """The time-types cells (``configs.TIME_CELLS``) on one table of
+    ``configs.TIME_ROWS`` rows: t2, t4m and t5 through
+    ``DeviceRunner().handle_request`` (``sel_pred`` over a time compare,
+    ``agg_fold``, ``topn_select``), each kernel of the three then held
+    against its plain version on the runner's own arguments; tshift's
+    shifts on the torch route; th (a host-only ``Year``) through the
+    endpoint, which answers on the host with no launch; and a year-9999
+    variant of ``d`` (2^20 rows), which the endpoint answers on the host
+    and which raises ``FeedBeyondInt64`` when the device is forced.  Every
+    answer exactly against numpy → (the runs, each kernel's largest
+    difference)."""
+    import tikv_tpu_torch.device.runner as rmod
+    from tikv_tpu_torch.convert import dag_from_wire
+    from tikv_tpu_torch.copr.endpoint import (REQ_TYPE_DAG, CopRequest,
+                                              Endpoint)
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.device import selection as sm
+    from tikv_tpu_torch.device import topn as tn
+    from tikv_tpu_torch.testing import configs as cf
+    t0 = time.perf_counter()
+    table, snap = cf.build_time_table(cf.TIME_ROWS)
+    n = cf.TIME_ROWS
+    dags = {c: dag_from_wire(enc_dag(cf.dag_time(table, c)))
+            for c in cf.TIME_CELLS}
+    truth = {c: cf.time_truth(c, snap) for c in cf.TIME_CELLS}
+    print(f"time types: table and truth in {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
+
+    def ints(rows):
+        return [tuple(int(x) for x in r) for r in rows]
+
+    runs = []
+    for cell, expect in (("t2", {"sel_pred", "agg_fold"}),
+                         ("t4m", {"sel_pred", "agg_fold"}),
+                         ("t5", {"sel_pred", "topn_select"})):
+        want = truth[cell]
+        # groups and top-k rows come out in the truth's order
+        runs.append(serve(cell, n, runner, dags[cell], snap,
+                          lambda r: ints(r.rows()),
+                          lambda rows, w=want: rows == w, expect,
+                          groups=len(want)))
+    worst = {
+        "sel_pred": time_types_kernels(runner, dags["t2"], snap, dev, sm,
+                                       "sel_pred", "t2"),
+        "agg_fold": time_types_kernels(runner, dags["t4m"], snap, dev, rmod,
+                                       "agg_fold", "t4m"),
+        "topn_select": time_types_kernels(runner, dags["t5"], snap, dev, tn,
+                                          "topn_select", "t5")}
+    # the shifts: the torch route; the fold is whichever the plan's gate
+    # picks on the card, the same for every request
+    set_counts({k: 0 for k in KERNELS})
+    assert ints(runner.handle_request(dags["tshift"], snap).rows()) == \
+        truth["tshift"], "tshift: wrong answer"
+    route = {k for k, v in counts().items() if v}
+    assert route and route <= {"hash_agg", "agg_fold"}, \
+        f"tshift launched {route}"
+    out = serve("tshift", n, runner, dags["tshift"], snap,
+                lambda r: ints(r.rows()),
+                lambda rows: rows == truth["tshift"], route)
+    assert out["pred_routes"] == {"torch": 6}, out["pred_routes"]
+    runs.append(out)
+    # th: a host-only sig; the endpoint answers on the host at any size
+    ep = Endpoint(lambda req: snap, device_runner=runner,
+                  device_row_threshold=1)
+    set_counts({k: 0 for k in KERNELS})
+    walls = []
+    for _ in range(6):
+        t1 = time.perf_counter()
+        resp = ep.handle(CopRequest(REQ_TYPE_DAG, dags["th"]))
+        walls.append(time.perf_counter() - t1)
+        assert resp.backend == "host" and \
+            ints(resp.rows()) == truth["th"], "th: wrong answer or backend"
+    launches = counts()
+    assert not any(launches.values()), f"th launched {launches}"
+    th = {"config": "th", "rows": n, "backend": "host",
+          "cold_ms": walls[0] * 1e3,
+          "warm_p50_ms": float(np.percentile(walls[1:], 50)) * 1e3,
+          "rows_per_s": n / float(np.percentile(walls[1:], 50)),
+          "launches": launches, "device_ops": 0}
+    print("config th: " + " ".join(f"{k}={v}" for k, v in th.items()
+                                   if k != "config"), flush=True)
+    runs.append(th)
+    del snap
+    gc.collect()
+    # the feed guard: a year-9999 core (above 2^63) in d
+    table, snap = cf.build_time_table(1 << 20, year_9999_at=7)
+    dag = dag_from_wire(enc_dag(cf.dag_time(table, "t2")))
+    ep = Endpoint(lambda req: snap, device_runner=runner,
+                  device_row_threshold=1)
+    set_counts({k: 0 for k in KERNELS})
+    resp = ep.handle(CopRequest(REQ_TYPE_DAG, dag))
+    assert resp.backend == "host" and ints(resp.rows()) == \
+        cf.time_truth("t2", snap), "year 9999: wrong answer or backend"
+    try:
+        ep.handle(CopRequest(REQ_TYPE_DAG, dag, "device"))
+        raise AssertionError("year 9999: the forced request did not raise")
+    except rmod.FeedBeyondInt64:
+        pass
+    assert ep.degrades == {"beyond_int64": 1}, ep.degrades
+    assert not any(counts().values()), "year 9999 launched a kernel"
+    print("time types: year 9999 answered on the host, forced device "
+          "raised FeedBeyondInt64", flush=True)
+    del snap
+    gc.collect()
+    return runs, worst
 
 
 # ---------------------------------------------------------------------------
@@ -7046,6 +7212,12 @@ def main() -> int:
     mesh_runs = run_mesh(mesh_runner, runner, MESH_EARLY, mesh_timings)
     # the aggregation configs launch no selection kernel either
     config_runs = [run_config(c, SIZES[c], runner) for c in SIZES]
+    # nor does the cold path (its plans aggregate; the spill mint patches)
+    worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
+    print(f"elapsed: {time.perf_counter() - t0:.1f} s before the cold path",
+          flush=True)
+    cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
+    snap6c = cold["6c"].pop("snapshot")
     print(f"elapsed: {time.perf_counter() - t0:.1f} s at the selection "
           f"build's wait", flush=True)
     await_builds()
@@ -7063,10 +7235,11 @@ def main() -> int:
     runs += [run_row_config(c, ROW_SIZES[c], runner) for c in ROW_SIZES]
     runs += run_sweep(runner)
     runs.append(run_uncovered(runner))
-    worst["patch_rows"] = max(worst["patch_rows"], check_spill(runner, dev))
-    elapsed("before the cold path")
-    cold = {c: run_cold(c, COLD_SIZES[c], runner) for c in COLD_SIZES}
-    snap6c = cold["6c"].pop("snapshot")
+    elapsed("before the time types")
+    time_runs, time_worst = run_time_types(runner, dev)
+    runs += time_runs
+    for name, err in time_worst.items():
+        worst[name] = max(worst[name], err)
     runs += cold.values()
     elapsed("before the plan IR")
     ep, pair = plan_endpoint(runner)

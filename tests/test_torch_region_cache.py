@@ -225,6 +225,9 @@ def test_get_hits_misses_and_lifecycle_match_reference():
     pd_old, rd_old = dags(150)
     a, b = both(lambda: pc.get(ps, pd_old), lambda: rc.get(rs, rd_old))
     same_table(a._tbl, b._tbl)
+    # the same read again is served by the parked build
+    a3, b3 = both(lambda: pc.get(ps, pd_old), lambda: rc.get(rs, rd_old))
+    assert a3 is a and b3 is b
     # no data-version stamp: no line
     raw_p, raw_r = snaps(pe, re, regions)
     raw_p.data_index = raw_r.data_index = None

@@ -1,5 +1,7 @@
 """Row payload codec: a msgpack map {column_id: datum}, a datum a native
-msgpack scalar (int / float / bytes / str / bool / None).
+msgpack scalar (int / float / bytes / str / bool / None) or a DECIMAL, an
+ExtType(1) carrying its exact, scale-preserving text form.  DATETIME,
+DURATION, ENUM and SET travel as their integer cores.
 
 Reference: tidb_query_datatype/src/codec/row (the JAX package's
 ``codec/row.py`` wire format).  ``encode_row`` is the port's own packer of
@@ -7,13 +9,16 @@ that subset, byte for byte what ``msgpack.packb(cols, use_bin_type=True)``
 writes, so the KV pairs of a columnar snapshot (``to_kv_pairs``, the
 CHECKSUM request) need no msgpack package.  Only the row scan of a KV
 feed (``executors/scan.py``) decodes rows; ``msgpack`` is imported there,
-at first use.  DECIMAL datums (the reference's ExtType 1) are outside the
-port.
+at first use.
 """
 
 from __future__ import annotations
 
+import decimal
 import struct
+
+# the ExtType code of a DECIMAL datum (its ``format(d, "f")`` text)
+_EXT_DECIMAL = 1
 
 
 def _pack_int(x: int, out: list) -> None:
@@ -52,6 +57,26 @@ def _pack_len(n: int, small: tuple, tags: tuple, out: list) -> None:
     raise OverflowError(f"length {n} does not fit msgpack")
 
 
+def _pack_ext(code: int, data: bytes, out: list) -> None:
+    """An ExtType: fixext 1/2/4/8/16 where the length is one of those,
+    else ext 8/16/32."""
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+    if fix is not None:
+        out.append(bytes([fix]))
+    else:
+        _pack_len(len(data), None, (0xC7, 0xC8, 0xC9), out)
+    out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_DECIMAL:
+        from ..datatype.mydecimal import CTX
+        return CTX.create_decimal(data.decode())
+    import msgpack
+    return msgpack.ExtType(code, data)
+
+
 def _pack(v, out: list) -> None:
     if v is None:
         out.append(b"\xc0")
@@ -69,6 +94,8 @@ def _pack(v, out: list) -> None:
         b = v.encode("utf-8")
         _pack_len(len(b), (0xA0, 32), (0xD9, 0xDA, 0xDB), out)
         out.append(b)
+    elif isinstance(v, decimal.Decimal):
+        _pack_ext(_EXT_DECIMAL, format(v, "f").encode(), out)
     else:
         raise TypeError(f"cannot encode {type(v).__name__} in a row")
 
@@ -85,4 +112,5 @@ def encode_row(cols: dict) -> bytes:
 
 def decode_row(data: bytes) -> dict:
     import msgpack
-    return msgpack.unpackb(data, raw=False, strict_map_key=False)
+    return msgpack.unpackb(data, raw=False, strict_map_key=False,
+                           ext_hook=_ext_hook)

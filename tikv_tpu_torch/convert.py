@@ -6,7 +6,11 @@ For this system the state a request runs against is a table snapshot
 
 - ``table_from_wire(table_id, [(name, col_id, ft_dict, is_pk)])``
 - ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
-  validity)}, alive=None)``
+  validity)}, alive=None)``: every eval type but JSON — INT and DURATION
+  int64, REAL float64, DATETIME (the packed core), ENUM (the 1-based
+  ordinal) and SET (the bitmask) uint64, BYTES ``bytes`` and DECIMAL
+  ``decimal.Decimal`` object arrays; a string column's collation and an
+  enum's or set's names ride its field type (``table_from_wire``)
 - ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package;
 - ``plan_from_wire(d)``: a plan-IR request encoded by ``enc_plan`` in
   either package (the JAX package's ``server/wire.py``);

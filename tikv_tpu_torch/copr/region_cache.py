@@ -45,8 +45,10 @@ A cold build first takes a permit from ``remint_gate`` when one is wired
 (``device.supervisor.RemintGovernor``, phase ``remint_wait``), ordered by
 ``region_heat``: the decayed request rate of the region (half-life 30 s).
 
-Trimmed (ROADMAP.md queue 1 item 6): the reuse of parked below-safe_ts
-builds across history, ``get_fast``; the gauges and metrics.
+A read below a line's safe_ts parks its exact-ts build on the line (four
+at most); the same read again takes it, and a newer line carries them.
+
+Trimmed (ROADMAP.md queue 1 item 6): ``get_fast``; the gauges and metrics.
 """
 
 from __future__ import annotations

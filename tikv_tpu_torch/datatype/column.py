@@ -3,8 +3,9 @@
 Reference: components/tidb_query_datatype/src/codec/data_type/vector.rs:14
 (``VectorValue`` — a value vec + null bitmap per eval type).  A column is
 a dense numpy value array plus a boolean validity mask — the layout the
-device feed is built from.  The port's device path serves INT and REAL
-columns; other eval types only pass through scans as NULL placeholders.
+device feed is built from.  BYTES and DECIMAL values are object arrays
+(``bytes``, ``decimal.Decimal``); the device path serves INT, REAL,
+DATETIME and DURATION columns.
 """
 
 from __future__ import annotations
@@ -51,7 +52,12 @@ class Column:
                                dtype=np.bool_, count=n)
         dtype = eval_type.np_dtype
         if dtype == np.dtype(object):
-            fill = b"" if eval_type is EvalType.BYTES else None
+            # NULL slots hold a harmless value of the type, so object
+            # bodies never meet a mixed representation
+            if eval_type is EvalType.DECIMAL:
+                from .mydecimal import ZERO as fill
+            else:
+                fill = b"" if eval_type is EvalType.BYTES else None
             values = np.empty(n, dtype=object)
             for i, x in enumerate(items):
                 values[i] = x if x is not None else fill

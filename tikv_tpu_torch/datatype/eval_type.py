@@ -24,7 +24,7 @@ class EvalType(enum.Enum):
 
     INT = "int"            # signed/unsigned 64-bit (device: int32 when it fits)
     REAL = "real"          # f64 on host, f32 on device
-    DECIMAL = "decimal"    # fixed point (host-only)
+    DECIMAL = "decimal"    # fixed point, decimal.Decimal (host-only)
     BYTES = "bytes"        # var-length binary/string (host-only)
     DATETIME = "datetime"  # packed u64 core time
     DURATION = "duration"  # i64 nanoseconds
@@ -167,6 +167,21 @@ class FieldType:
     @staticmethod
     def var_char(collation: int = 63) -> "FieldType":
         return FieldType(tp=FieldTypeTp.VAR_CHAR, collation=collation)
+
+    @staticmethod
+    def enum(elems, collation: int = 63) -> "FieldType":
+        return FieldType(tp=FieldTypeTp.ENUM, collation=collation,
+                         elems=tuple(elems))
+
+    @staticmethod
+    def set_(elems, collation: int = 63) -> "FieldType":
+        return FieldType(tp=FieldTypeTp.SET, collation=collation,
+                         elems=tuple(elems))
+
+    @staticmethod
+    def new_decimal(flen: int = 20, frac: int = 4) -> "FieldType":
+        # not "decimal": that would shadow the dataclass field's default
+        return FieldType(tp=FieldTypeTp.NEW_DECIMAL, flen=flen, decimal=frac)
 
 
 def device_const_dtype(v) -> str:

@@ -9,8 +9,9 @@ Kept identical to the reference's policy so feed shapes and dtypes agree.
 INT arithmetic over an int32 column evaluates in int64 unless its bounds
 prove int32 exact (``expr/eval.py``), where the reference's wraps.  A REAL
 column that a TopN orders by also gets a float64 plane (the runner), and
-ANALYZE uploads REAL as float64.  The DAG runner serves INT and REAL
-columns only (its ``_DEVICE_ETS``); ANALYZE also DATETIME and DURATION.
+ANALYZE uploads REAL as float64.  The DAG runner holds a DATETIME column as
+the int64 bits of its cores instead (``runner._plane_dtype``: the kernels
+it reaches take int64, and a core below 2^63 keeps its order there).
 """
 
 from __future__ import annotations

@@ -65,8 +65,8 @@ def _next_pow2(n: int) -> int:
 def join_supported(probe_scan, probe_conds, left_key: int,
                    build_scan, right_key: int) -> bool:
     """The device join's envelope: ascending table scans, signed INT (or
-    handle) keys, probe predicates over signed INT / REAL columns in the
-    port's expression families."""
+    handle) keys, probe predicates of device-safe signatures over signed
+    INT / REAL columns."""
     from .runner import _expr_sigs, _rpn_col_indices, _rpn_device_safe
     for scan, key in ((probe_scan, left_key), (build_scan, right_key)):
         if not isinstance(scan, TableScanDesc) or scan.desc or \
@@ -82,7 +82,8 @@ def join_supported(probe_scan, probe_conds, left_key: int,
             return False
         rpn = build_rpn(cond)
         if not _rpn_device_safe(rpn, scan_ets) or any(
-                probe_scan.columns[i].field_type.is_unsigned
+                probe_scan.columns[i].field_type.is_unsigned or
+                scan_ets[i] not in (EvalType.INT, EvalType.REAL)
                 for i in _rpn_col_indices(rpn)):
             return False
     return True

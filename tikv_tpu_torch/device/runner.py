@@ -7,7 +7,8 @@ handle) — then Selection*, then one terminal or none (the reference's
 analyzer, runner.py:1362-1487):
 
 - Aggregation (COUNT, SUM, AVG, MIN, MAX, FIRST, VAR_POP/VAR_SAMP/
-  STDDEV_POP/STDDEV_SAMP, at most one INT GROUP BY key);
+  STDDEV_POP/STDDEV_SAMP, at most one INT GROUP BY key; of a DATETIME or
+  DURATION argument only COUNT, MIN, MAX and FIRST);
 - TopN with one order key and ``limit ≤ topn.MAX_LIMIT`` (``topn``);
 - none, with at least one selection (``scan_sel``).
 
@@ -15,8 +16,9 @@ It runs as:
 
 - the used columns are uploaded once per snapshot as a padded feed that
   stays on the device (``_pad_rows``/``_build_flat``, the reference's
-  feed buckets, so feed shapes line up with the reference's); INT columns
-  are int32 when their values fit, else int64, REAL columns float32 —
+  feed buckets, so feed shapes line up with the reference's); INT and
+  DURATION columns are int32 when their values fit, else int64, DATETIME
+  columns the int64 bits of their cores, REAL columns float32 —
   except a REAL column that a TopN orders by, which also gets a float64
   plane, so the order is exact (ROADMAP queue 3 fault 6 stays open for
   predicates and MIN/MAX);
@@ -140,9 +142,12 @@ endpoint degrades), the one after uploads.
 
 Cases outside the device envelope are refused, never served on the CPU
 by the runner: plans (``supports`` is False; ``handle_request`` raises
-NotImplementedError) and more than ``MAX_HASH_CAPACITY`` distinct GROUP BY
-keys.  The endpoint (``copr/endpoint.py``) serves them on the host
-pipeline (``executors/``), as the reference does.  Each refusal names its
+NotImplementedError) — among them any plan with a sig whose
+``RpnFnMeta.device_safe`` is False —, more than ``MAX_HASH_CAPACITY``
+distinct GROUP BY keys, and a DATETIME core at or above 2^63
+(``FeedBeyondInt64``, a ``DeviceUnavailable`` the endpoint degrades).  The
+endpoint (``copr/endpoint.py``) serves them on the host pipeline
+(``executors/``), as the reference does.  Each refusal names its
 ROADMAP.md item.  An empty scan gets the host pipeline's answer: the
 finalize of empty states, or no rows.  ``joiner()`` is the runner's
 ``DeviceJoiner``: the plan IR's join, sort and window fragments.
@@ -197,7 +202,15 @@ from .digest import (_INT_OF_WIDTH, as_u64, feed_verify, patch_feed_rows,
 from .supervisor import FeedArena, hash_workers, start_plane_digests
 from .twolevel import twolevel_fused
 
-_DEVICE_ETS = (EvalType.INT, EvalType.REAL)
+# DATETIME (the packed u64 core, whose bit layout keeps time order) and
+# DURATION (int64 ns) are dense columns on the device: comparisons, top-k
+# and COUNT/MIN/MAX/FIRST take the INT kernels.  A DATETIME plane holds the
+# core's bits as int64 (``_plane_dtype``), exact and in order below 2^63;
+# a column with a core at or above it (year >= 8192) is refused at its feed
+# (``FeedBeyondInt64``), as the reference's feed guard sends it to the host
+_DEVICE_ETS = (EvalType.INT, EvalType.REAL, EvalType.DATETIME,
+               EvalType.DURATION)
+_TIME_ETS = (EvalType.DATETIME, EvalType.DURATION)
 # the selection's routes (``_Plan.sel_route``, counted in ``pred_routes``)
 PRED_KERNEL, PRED_TORCH = "sel_pred", "torch"
 # how a feed was built (counted in ``feed_routes``)
@@ -212,7 +225,7 @@ _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
 MAX_HASH_CAPACITY = 1 << 20
 
 # where each case outside this port is to be served (ROADMAP.md, queue 1)
-_TODO_EXPR = "ROADMAP.md queue 1 item 2 (device expression families)"
+_TODO_EXPR = "ROADMAP.md queue 1 item 2 (the JSON family)"
 _TODO_AGG = ("ROADMAP.md queue 1 item 3 (bit aggregates, multi-key GROUP "
              "BY, FIRST with GROUP BY and over 2^20 distinct keys: the "
              "endpoint's host pipeline serves them)")
@@ -221,6 +234,31 @@ _TODO_HOST = ("ROADMAP.md queue 1 item 6 (bare scans, projections, limits, "
               "serves on the host: the endpoint's host pipeline serves "
               "them)")
 _TODO_STORAGE = "ROADMAP.md queue 1 item 6 (production read path)"
+# what the reference serves on its host pipeline too (no queue item)
+_HOST_ONLY = "served by the endpoint's host pipeline, as in the reference"
+
+
+class FeedBeyondInt64(DeviceUnavailable):
+    """A DATETIME column of the request holds a packed core at or above
+    2^63 (a year of 8192 or more), which its int64 plane cannot hold in
+    order (runner.py:3150-3164).  The verdict is kept for the snapshot's
+    columns; the endpoint answers on the host unless the device was
+    forced."""
+
+    reason = "beyond_int64"
+
+
+def _plane_dtype(col) -> str:
+    """The feed plane dtype of a scan column: DATETIME as int64 bits,
+    every other type by ``tile._device_dtype`` (DURATION as INT is)."""
+    if col.eval_type is EvalType.DATETIME:
+        return "int64"
+    return str(_device_dtype(col.eval_type, col.values))
+
+
+def _beyond_int64(col) -> bool:
+    return col.eval_type is EvalType.DATETIME and col.values.size > 0 and \
+        int(col.values.max()) >= 1 << 63
 
 
 def _fits_dtype(vals: np.ndarray, valid, dt: np.dtype) -> bool:
@@ -255,17 +293,23 @@ def _remap_rpn(rpn: RpnExpression, mapping: dict) -> RpnExpression:
 
 
 def _rpn_device_safe(rpn: RpnExpression, scan_ets: Sequence[EvalType]) -> bool:
+    """Every column of a device type, every constant a number an int64 or
+    float holds, every call device-safe (a host-only body would meet a
+    tensor) and of a device type."""
     for n in rpn.nodes:
         if isinstance(n, RpnConst):
             if n.value is not None and \
                     not isinstance(n.value, (int, float, bool)):
+                return False
+            if isinstance(n.value, int) and \
+                    not -(1 << 63) <= n.value < 1 << 63:
                 return False
         elif isinstance(n, RpnColumnRef):
             if n.col_idx >= len(scan_ets) or \
                     scan_ets[n.col_idx] not in _DEVICE_ETS:
                 return False
         elif isinstance(n, RpnFnCall):
-            if n.meta.ret not in _DEVICE_ETS:
+            if n.meta.ret not in _DEVICE_ETS or not n.meta.device_safe:
                 return False
     return True
 
@@ -602,6 +646,11 @@ class DeviceRunner:
                     plan.specs.append(AggSpec(a.kind, i))
                     continue
                 r = build_rpn(a.arg)
+                if r.ret_type in _TIME_ETS and a.kind not in (
+                        "count", "min", "max", "first"):
+                    # SUM/AVG/variance of a time value (runner.py:1408)
+                    return None, (f"{a.kind.upper()} over "
+                                  f"{r.ret_type.value}: {_HOST_ONLY}")
                 plan.agg_rpns.append(r)
                 plan.specs.append(AggSpec(a.kind, i, r.ret_type))
             rpns += [r for r in plan.agg_rpns if r is not None]
@@ -622,7 +671,8 @@ class DeviceRunner:
             order_cols = _rpn_col_indices(plan.order_host_rpn)
         for r in rpns + [r for r in [plan.order_host_rpn] if r is not None]:
             if not _rpn_device_safe(r, scan_ets):
-                return None, f"non-numeric column or constant: {_TODO_EXPR}"
+                return None, (f"a host-only function, column or constant: "
+                              f"{_HOST_ONLY}")
 
         # the order expression reads REAL columns in float64, INT ones in
         # their device dtype beside the other expressions' columns
@@ -1928,10 +1978,15 @@ class DeviceRunner:
         got = st.get(key)
         if got is None or got[0] != req_v:
             batch = get_batch()
-            got = st[key] = (req_v, tuple(
-                dt or str(_device_dtype(batch.columns[ci].eval_type,
-                                        batch.columns[ci].values))
-                for ci, dt in planes))
+            if any(_beyond_int64(batch.columns[ci]) for ci, _dt in planes):
+                got = st[key] = (req_v, None)
+            else:
+                got = st[key] = (req_v, tuple(
+                    dt or _plane_dtype(batch.columns[ci])
+                    for ci, dt in planes))
+        if got[1] is None:
+            # the verdict stands for this version of the columns
+            raise FeedBeyondInt64("a DATETIME core at or above 2^63")
         return got[1]
 
     # ----------------------------------------- cross-request batching
@@ -1973,10 +2028,15 @@ class DeviceRunner:
                 with self._dispatch_mu:
                     st = self._bucket(storage)
                     planes = self._feed_planes(plan)
-                    dtypes = self._feed_dtypes(
-                        st, plan, dag.ranges, planes,
-                        lambda: storage.scan_columns(plan.scan, dag.ranges),
-                        self._feed_version(storage))
+                    try:
+                        dtypes = self._feed_dtypes(
+                            st, plan, dag.ranges, planes,
+                            lambda: storage.scan_columns(plan.scan,
+                                                         dag.ranges),
+                            self._feed_version(storage))
+                    except FeedBeyondInt64:
+                        # its solo dispatch raises it to the endpoint
+                        return None
                 return ("stack", id(storage), sm.shape_key(plan), dtypes,
                         dag.ranges, dag.output_offsets)
         return ("share", id(storage), dag.plan_key(), dag.ranges)
@@ -2877,7 +2937,7 @@ class DeviceRunner:
         ov, _ = eval_rpn(plan.order_host_rpn, [
             (c.values, c.validity) for c in cand.columns], len(gidx), np)
         ov = np.broadcast_to(ov, (len(gidx),))
-        if plan.order_host_rpn.ret_type is EvalType.INT:
+        if plan.order_host_rpn.ret_type is not EvalType.REAL:
             # NULL smallest: first for ASC, last for DESC; clamped so the
             # negation cannot overflow
             lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max

@@ -202,13 +202,19 @@ PRED_MAX_CONSTS = 32
 PRED_MAX_DEPTH = 4
 PRED_MAX_IN = 16
 
-# the signatures sel_pred evaluates: every other one keeps the torch route
+# the signatures sel_pred evaluates: every other one keeps the torch route.
+# DATETIME and DURATION values are integer planes (the runner's int64 bits
+# of a core, a duration as INT is), so their comparisons take the integer
+# comparison ops
+_TIME_SUFFIXES = ("Time", "Duration")
 PRED_SIGS = frozenset(
     [s + t for s in ("Plus", "Minus", "Multiply", "UnaryMinus", "Gt", "Ge",
                      "Lt", "Le", "Eq", "Ne", "NullEq", "In")
-     for t in ("Int", "Real")] + list(_UNARY_OPS) + list(_LOGIC_OPS))
+     for t in ("Int", "Real")] + list(_UNARY_OPS) + list(_LOGIC_OPS) +
+    [s + t for s in _CMP_OPS for t in _TIME_SUFFIXES])
 
-_CAT = {EvalType.INT: "I", EvalType.REAL: "R"}
+_CAT = {EvalType.INT: "I", EvalType.REAL: "R", EvalType.DATETIME: "I",
+        EvalType.DURATION: "I"}
 _PLANE_CAT = {"int32": "I", "int64": "I", "float32": "R"}
 
 
@@ -339,8 +345,8 @@ def encode_predicate(sel_rpns: Sequence[RpnExpression],
 def _call(meta, args, ops, consts) -> _Entry:
     """Emit one call's op; → the entry it leaves on the stack."""
     name = meta.name
-    stem = name[:-4] if name.endswith("Real") else name[:-3] \
-        if name.endswith("Int") else name
+    stem = next((name[:-len(t)] for t in ("Real", "Int") + _TIME_SUFFIXES
+                 if name.endswith(t)), name)
     if name in _UNARY_OPS:
         ops.append((_UNARY_OPS[name], 0, 0))
         return _Entry("I", "int32")

@@ -6,11 +6,14 @@ keys), stream_aggr_executor.rs (input sorted by the group key).  Output
 schema: the aggregate columns, then the group-by columns
 (util/aggr_executor.rs).  Vectorized numpy: group keys are dictionary-
 encoded per batch into global ids in first-seen order, states scatter with
-``ufunc.at``.  DECIMAL arguments are outside the port.
+``ufunc.at``.  SUM, AVG, MIN and MAX over DECIMAL stay DECIMAL: exact
+``decimal.Decimal`` sums in MySQL's 65-digit context, AVG at the
+dividend's scale plus 4 (``datatype/mydecimal.py``).
 """
 
 from __future__ import annotations
 
+import decimal
 from typing import Optional
 
 import numpy as np
@@ -57,19 +60,27 @@ def var_arrays(kind: str, s, sq, c):
     return np.where(validity, var, 0.0), validity
 
 
-def agg_ret_ft(kind: str, arg_et: Optional[EvalType]) -> FieldType:
+def agg_ret_ft(kind: str, arg_et: Optional[EvalType],
+               elems: tuple = ()) -> FieldType:
     """Output field type of an aggregate: COUNT a NOT NULL BIGINT; BIT_*
-    a NOT NULL unsigned BIGINT; MIN/MAX/FIRST keep a time argument's type;
-    AVG and the variances DOUBLE; else the argument's type."""
+    a NOT NULL unsigned BIGINT; SUM/AVG/MIN/MAX of a DECIMAL a DECIMAL;
+    MIN/MAX/FIRST keep a time, enum or set argument's type (``elems``: its
+    name table); AVG and the variances DOUBLE; else the argument's type."""
     if kind in ("count", "count_star"):
         return FieldType.long(not_null=True)
     if kind in BIT_KINDS:
         return FieldType.long(unsigned=True, not_null=True)
+    if arg_et is EvalType.DECIMAL and kind not in VAR_KINDS:
+        return FieldType.new_decimal()
     if kind in ("min", "max", "first"):
         if arg_et is EvalType.DATETIME:
             return FieldType(tp=FieldTypeTp.DATETIME)
         if arg_et is EvalType.DURATION:
             return FieldType(tp=FieldTypeTp.DURATION)
+        if arg_et is EvalType.ENUM:
+            return FieldType.enum(elems)
+        if arg_et is EvalType.SET:
+            return FieldType.set_(elems)
     if kind == "avg" or kind in VAR_KINDS or arg_et is EvalType.REAL:
         return FieldType.double()
     if arg_et is EvalType.BYTES:
@@ -77,13 +88,21 @@ def agg_ret_ft(kind: str, arg_et: Optional[EvalType]) -> FieldType:
     return FieldType.long()
 
 
+def _arg_elems(e) -> tuple:
+    """The first non-empty enum/set name table in an argument's tree."""
+    stack = [e]
+    while stack:
+        n = stack.pop()
+        if n.elems:
+            return tuple(n.elems)
+        stack.extend(n.children)
+    return ()
+
+
 class _AggState:
     """Per-group growable state arrays of one aggregate."""
 
     def __init__(self, kind: str, et: Optional[EvalType]):
-        if et is EvalType.DECIMAL:
-            raise NotImplementedError("DECIMAL aggregates are outside the "
-                                      "port")
         self.kind = kind
         self.et = et
         if et is EvalType.REAL:
@@ -94,9 +113,14 @@ class _AggState:
             dtype = np.uint64
         else:
             dtype = np.int64
-        # BYTES compare as python objects, row by row
-        self.obj = et is EvalType.BYTES
-        self.sum = np.zeros(0, dtype=dtype) if not self.obj else None
+        self.dec = et is EvalType.DECIMAL
+        # BYTES and DECIMAL compare as python objects, row by row
+        self.obj = et is EvalType.BYTES or self.dec
+        if self.dec:
+            # exact Decimal sums (an int 0 is a valid Decimal addend)
+            self.sum = np.zeros(0, dtype=object)
+        else:
+            self.sum = np.zeros(0, dtype=dtype) if not self.obj else None
         self.count = np.zeros(0, dtype=np.int64)
         if kind in ("min", "max"):
             if self.obj:
@@ -171,8 +195,13 @@ class _AggState:
             np.add.at(self.count, gids, oki)
         elif kind in ("sum", "avg"):
             np.add.at(self.count, gids, oki)
-            masked = np.where(ok, values, 0).astype(self.sum.dtype)
-            np.add.at(self.sum, gids, masked)
+            if self.dec:
+                from ..datatype import mydecimal as md
+                with decimal.localcontext(md.CTX):     # 65-digit sums
+                    np.add.at(self.sum, gids, np.where(ok, values, md.ZERO))
+            else:
+                masked = np.where(ok, values, 0).astype(self.sum.dtype)
+                np.add.at(self.sum, gids, masked)
         elif kind in ("min", "max"):
             np.add.at(self.count, gids, oki)
             if self.obj:
@@ -210,11 +239,22 @@ class _AggState:
                                       self.count[:n_groups].copy())
         if kind == "sum":
             validity = self.count[:n_groups] > 0
+            if self.dec:
+                return Column(EvalType.DECIMAL, self.sum[:n_groups].copy(),
+                              validity)
             et = EvalType.REAL if self.sum.dtype == np.float64 \
                 else EvalType.INT
             return Column(et, self.sum[:n_groups].copy(), validity)
         if kind == "avg":
             validity = self.count[:n_groups] > 0
+            if self.dec:
+                from ..datatype import mydecimal as md
+                vals = np.empty(n_groups, dtype=object)
+                for g in range(n_groups):
+                    c = int(self.count[g])
+                    vals[g] = md.div(self.sum[g], md.from_int(c)) if c \
+                        else md.ZERO
+                return Column(EvalType.DECIMAL, vals, validity)
             denom = np.maximum(self.count[:n_groups], 1)
             return Column(EvalType.REAL, self.sum[:n_groups] / denom,
                           validity)
@@ -366,9 +406,12 @@ class _HashAggBase(TimedExecutor):
         self._done = False
         group_fts = [FieldType.double() if r.ret_type is EvalType.REAL
                      else FieldType.var_char()
-                     if r.ret_type is EvalType.BYTES else FieldType.long()
+                     if r.ret_type is EvalType.BYTES
+                     else FieldType.new_decimal()
+                     if r.ret_type is EvalType.DECIMAL else FieldType.long()
                      for r in self._group_rpns]
-        self._schema = [agg_ret_ft(a.kind, et)
+        self._schema = [agg_ret_ft(a.kind, et, () if a.arg is None
+                                   else _arg_elems(a.arg))
                         for a, et in zip(desc.aggs, arg_ets)] + group_fts
 
     @property

@@ -95,4 +95,6 @@ def _ft_of(rpn) -> FieldType:
         return FieldType.double()
     if et is EvalType.BYTES:
         return FieldType.var_char()
+    if et is EvalType.DECIMAL:
+        return FieldType.new_decimal()
     return FieldType.long()

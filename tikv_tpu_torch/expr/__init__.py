@@ -1,5 +1,5 @@
 """Vectorized scalar expressions: trees, RPN programs, the evaluator and
-the device-safe function registry."""
+the ScalarFuncSig registry (``functions.py`` and its family modules)."""
 
 from .tree import Expr
 from .rpn import RpnExpression, RpnConst, RpnColumnRef, RpnFnCall, build_rpn

@@ -36,11 +36,18 @@ _INT32 = (-(1 << 31), (1 << 31) - 1)
 
 def _const_pair(xp, node: RpnConst, device, real=torch.float32):
     if xp is np:
-        if node.value is None:
+        v = node.value
+        if v is None:
             dt = "float64" if node.eval_type is EvalType.REAL else "int64"
             return np.zeros((), dtype=dt), np.zeros((), dtype=bool)
-        dt = "float64" if isinstance(node.value, float) else "int64"
-        return np.asarray(node.value, dtype=dt), np.ones((), dtype=bool)
+        if not isinstance(v, (int, float)):
+            # bytes, Decimal: a 0-d object scalar (np.asarray would take
+            # a sequence apart into one element a row)
+            arr = np.empty((), dtype=object)
+            arr[()] = v
+            return arr, np.ones((), dtype=bool)
+        dt = "float64" if isinstance(v, float) else "int64"
+        return np.asarray(v, dtype=dt), np.ones((), dtype=bool)
     if node.value is None:
         dt = real if node.eval_type is EvalType.REAL else torch.int32
         return (torch.zeros((), dtype=dt, device=device),
@@ -95,7 +102,12 @@ def eval_rpn(rpn: RpnExpression, columns: Sequence[tuple], n_rows: int,
                 args = _int64(xp, args)
             elif xp is not np and node.meta.widen:
                 args = _widen(args)
-            stack.append(node.meta.fn(xp, *args))
+            if node.meta.needs_ctx:
+                stack.append(node.meta.fn(xp, *args, ctx=node.ctx))
+            elif node.meta.needs_rows:
+                stack.append(node.meta.fn(xp, *args, n_rows=n_rows))
+            else:
+                stack.append(node.meta.fn(xp, *args))
         else:  # pragma: no cover
             raise AssertionError(node)
     assert len(stack) == 1, f"malformed RPN: stack depth {len(stack)}"
@@ -103,22 +115,25 @@ def eval_rpn(rpn: RpnExpression, columns: Sequence[tuple], n_rows: int,
     if xp is not np and device is not None:
         # a constant-only expression (``Pi()``) is made on the host
         values, validity = values.to(device), validity.to(device)
-    if values.ndim == 0:
+    if getattr(values, "ndim", 0) == 0:
         values = xp.broadcast_to(values, (n_rows,))
-    if validity.ndim == 0:
+    if getattr(validity, "ndim", 0) == 0:
         validity = xp.broadcast_to(validity, (n_rows,))
     return values, validity
 
 
 def narrow_int32(rpn: RpnExpression,
                  bounds: Sequence[Optional[tuple]]) -> RpnExpression:
-    """``rpn`` with each INT arithmetic call (``RpnFnMeta.int64``) whose
-    operands and result provably lie in int32 kept in int32.
+    """``rpn`` with each INT arithmetic call (``RpnFnMeta.int64``; not the
+    shifts, whose result no interval of this kind bounds) whose operands
+    and result provably lie in int32 kept in int32.
 
     ``bounds[i]``: (lo, hi) over every value of column i (NULL slots
     included: they hold 0), or None where unknown.  Interval arithmetic
     over the RPN; a call whose interval is unknown or leaves int32 keeps
     its int64 evaluation."""
+    narrowable = ("UnaryMinusInt", "PlusInt", "MinusInt", "MultiplyInt")
+
     def fits(iv):
         return iv is not None and _INT32[0] <= iv[0] and iv[1] <= _INT32[1]
 
@@ -135,7 +150,8 @@ def narrow_int32(rpn: RpnExpression,
             args = stack[len(stack) - node.n_args:]
             del stack[len(stack) - node.n_args:]
             iv = None
-            if node.meta.int64 and all(fits(a) for a in args):
+            if node.meta.name in narrowable and node.meta.int64 and \
+                    all(fits(a) for a in args):
                 name = node.meta.name
                 if name == "UnaryMinusInt":
                     iv = (-args[0][1], -args[0][0])

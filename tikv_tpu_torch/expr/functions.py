@@ -1,9 +1,11 @@
-"""ScalarFuncSig registry — the device-safe families of the slice.
+"""ScalarFuncSig registry — vectorized scalar functions.
 
 Reference: components/tidb_query_expr/src/lib.rs ``map_expr_node_to_rpn_func``
 (impl_arithmetic.rs, impl_compare.rs, impl_op.rs, impl_control.rs,
-impl_cast.rs, impl_math.rs).  Signature names match the reference's
-ScalarFuncSig variants one-for-one.
+impl_cast.rs, impl_math.rs) and the family modules (``impl_types``,
+``impl_time``, ``impl_string``, ``impl_like``, ``impl_misc``).  Signature
+names match the reference's ScalarFuncSig variants one-for-one; the JAX
+package's registry holds the same sigs and the JSON family besides.
 
 Each implementation is written against an array namespace ``xp`` —
 ``numpy`` for host-side bounds and recodes, ``torch`` on the device — and
@@ -14,21 +16,29 @@ maps ``(values, validity) × arity → (values, validity)``:
 - division by zero yields NULL;
 - boolean-valued results are int32 (0/1).
 
-Only the signatures the reference's device gate admits are here: the
-arithmetic, comparison, logic, NULL-test, control, cast and math families
-over INT and REAL.  A plan calling any other sig is outside the port's
-envelope (``DeviceRunner.supports`` is False).
+``RpnFnMeta.device_safe`` marks the bodies that run on torch tensors: the
+arithmetic, comparison, logic, NULL-test, control, identity-cast and math
+families over INT and REAL, the shifts, and the Time and Duration
+comparisons.  The device runner admits only those (``_rpn_device_safe``);
+every other sig — the converting casts, CRC32 and the family modules over
+strings, DECIMAL, time fields, enum/set and addresses — computes with
+numpy on the host pipeline whatever ``xp`` it is handed.  ``needs_ctx``
+sigs take the node's (collation, enum/set names) as ``ctx=``, ``needs_rows``
+sigs the row count as ``n_rows=`` (``eval.py``).  The JSON family
+(``impl_json``) is outside the port (ROADMAP.md queue 1).
 
 INT arithmetic (``PlusInt``, ``MinusInt``, ``MultiplyInt``,
-``UnaryMinusInt``: ``RpnFnMeta.int64``) evaluates in int64 on the torch
-path, so an int32 column does not wrap where the host's int64 pipeline
-does not; ``eval.narrow_int32`` keeps a call in int32 where the columns'
-bounds prove its result fits.
+``UnaryMinusInt``) and the shifts (``LeftShift``, ``RightShift``) carry
+``RpnFnMeta.int64``: they evaluate in int64 on the torch path, so an int32
+column does not wrap where the host's int64 pipeline does not;
+``eval.narrow_int32`` keeps an arithmetic call in int32 where the
+columns' bounds prove its result fits (a shift stays int64).
 """
 
 from __future__ import annotations
 
 import math
+import zlib
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -47,6 +57,14 @@ class RpnFnMeta:
     ret: EvalType
     args: tuple                   # arg EvalTypes; for variadic, the repeated type
     fn: Callable                  # fn(xp, *pairs) -> pair
+    # sig consults the node's (collation, elems) context — eval passes
+    # ``ctx=`` (collation-dispatched string sigs, enum/set sigs)
+    needs_ctx: bool = False
+    # nondeterministic 0-arity sigs (UUID) produce one value per row —
+    # eval passes ``n_rows=``
+    needs_rows: bool = False
+    # the body runs on torch tensors: the device runner admits only these
+    device_safe: bool = False
     # torch path: widen integer operands to a common dtype before the
     # call (eval.py); off where an argument never meets the others in
     # arithmetic, so the result keeps the first argument's dtype
@@ -60,12 +78,22 @@ FUNCTIONS: dict[str, RpnFnMeta] = {}
 
 
 def rpn_fn(name: str, arity: Optional[int], ret: EvalType, args: tuple,
-           widen: bool = True, int64: bool = False):
+           needs_ctx: bool = False, needs_rows: bool = False,
+           device_safe: bool = False, widen: bool = True,
+           int64: bool = False):
 
     def deco(fn):
-        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn, widen, int64)
+        FUNCTIONS[name] = RpnFnMeta(name, arity, ret, args, fn, needs_ctx,
+                                    needs_rows, device_safe, widen, int64)
         return fn
     return deco
+
+
+def _rpn_fn_xp(name: str, arity: Optional[int], ret: EvalType,
+               args: tuple, **kw):
+    """``rpn_fn`` for bodies written against ``xp`` (numpy or torch):
+    device-safe at the declaration site."""
+    return rpn_fn(name, arity, ret, args, device_safe=True, **kw)
 
 
 def _ibool(xp, cond):
@@ -83,7 +111,7 @@ def _register_arith():
     I, R = EvalType.INT, EvalType.REAL
 
     def binop(name, ret, ty, op):
-        @rpn_fn(name, 2, ret, (ty, ty), int64=ty is I)
+        @_rpn_fn_xp(name, 2, ret, (ty, ty), int64=ty is I)
         def _f(xp, a, b, _op=op):
             (av, am), (bv, bm) = a, b
             return _op(av, bv), am & bm
@@ -96,14 +124,14 @@ def _register_arith():
     binop("MinusReal", R, R, lambda a, b: a - b)
     binop("MultiplyReal", R, R, lambda a, b: a * b)
 
-    @rpn_fn("DivideReal", 2, R, (R, R))
+    @_rpn_fn_xp("DivideReal", 2, R, (R, R))
     def divide_real(xp, a, b):
         (av, am), (bv, bm) = a, b
         zero = bv == 0
         safe = xp.where(zero, xp.ones_like(bv), bv)
         return av / safe, am & bm & ~zero
 
-    @rpn_fn("IntDivideInt", 2, I, (I, I))
+    @_rpn_fn_xp("IntDivideInt", 2, I, (I, I))
     def int_divide_int(xp, a, b):
         (av, am), (bv, bm) = a, b
         zero = bv == 0
@@ -114,7 +142,7 @@ def _register_arith():
         q = xp.where((r != 0) & ((av < 0) != (bv < 0)), q + 1, q)
         return q, am & bm & ~zero
 
-    @rpn_fn("ModInt", 2, I, (I, I))
+    @_rpn_fn_xp("ModInt", 2, I, (I, I))
     def mod_int(xp, a, b):
         (av, am), (bv, bm) = a, b
         zero = bv == 0
@@ -125,7 +153,7 @@ def _register_arith():
                            av // safe + 1, av // safe)) * safe
         return m, am & bm & ~zero
 
-    @rpn_fn("ModReal", 2, R, (R, R))
+    @_rpn_fn_xp("ModReal", 2, R, (R, R))
     def mod_real(xp, a, b):
         (av, am), (bv, bm) = a, b
         zero = bv == 0
@@ -134,12 +162,12 @@ def _register_arith():
         return m, am & bm & ~zero
 
     for suffix, ty in (("Int", I), ("Real", R)):
-        @rpn_fn("UnaryMinus" + suffix, 1, ty, (ty,), int64=ty is I)
+        @_rpn_fn_xp("UnaryMinus" + suffix, 1, ty, (ty,), int64=ty is I)
         def unary_minus(xp, a):
             (av, am) = a
             return -av, am
 
-        @rpn_fn("Abs" + suffix, 1, ty, (ty,))
+        @_rpn_fn_xp("Abs" + suffix, 1, ty, (ty,))
         def abs_(xp, a):
             (av, am) = a
             return xp.abs(av), am
@@ -161,20 +189,20 @@ def _register_compare():
     }
     for stem, op in cmps.items():
         for suffix, ty in (("Int", I), ("Real", R)):
-            @rpn_fn(stem + suffix, 2, I, (ty, ty))
+            @_rpn_fn_xp(stem + suffix, 2, I, (ty, ty))
             def _f(xp, a, b, _op=op):
                 (av, am), (bv, bm) = a, b
                 return _ibool(xp, _op(av, bv)), am & bm
 
     for suffix, ty in (("Int", I), ("Real", R)):
-        @rpn_fn("NullEq" + suffix, 2, I, (ty, ty))
+        @_rpn_fn_xp("NullEq" + suffix, 2, I, (ty, ty))
         def null_eq(xp, a, b):
             (av, am), (bv, bm) = a, b
             both_null = ~am & ~bm
             eq = am & bm & (av == bv)
             return _ibool(xp, both_null | eq), xp.ones_like(am)
 
-        @rpn_fn("Greatest" + suffix, None, ty, (ty,))
+        @_rpn_fn_xp("Greatest" + suffix, None, ty, (ty,))
         def greatest(xp, *pairs):
             out, valid = pairs[0]
             for v, m in pairs[1:]:
@@ -182,7 +210,7 @@ def _register_compare():
                 valid = valid & m
             return out, valid
 
-        @rpn_fn("Least" + suffix, None, ty, (ty,))
+        @_rpn_fn_xp("Least" + suffix, None, ty, (ty,))
         def least(xp, *pairs):
             out, valid = pairs[0]
             for v, m in pairs[1:]:
@@ -190,7 +218,7 @@ def _register_compare():
                 valid = valid & m
             return out, valid
 
-        @rpn_fn("In" + suffix, None, I, (ty,))
+        @_rpn_fn_xp("In" + suffix, None, I, (ty,))
         def in_list(xp, *pairs):
             # pairs[0] is the probe; the rest the list.  MySQL IN: NULL if
             # no match and any list element (or the probe) is NULL.
@@ -213,7 +241,7 @@ def _register_compare():
 def _register_logic():
     I, R = EvalType.INT, EvalType.REAL
 
-    @rpn_fn("LogicalAnd", 2, I, (I, I))
+    @_rpn_fn_xp("LogicalAnd", 2, I, (I, I))
     def logical_and(xp, a, b):
         (av, am), (bv, bm) = a, b
         a_false = am & (av == 0)
@@ -222,7 +250,7 @@ def _register_logic():
         valid = (am & bm) | a_false | b_false
         return value, valid
 
-    @rpn_fn("LogicalOr", 2, I, (I, I))
+    @_rpn_fn_xp("LogicalOr", 2, I, (I, I))
     def logical_or(xp, a, b):
         (av, am), (bv, bm) = a, b
         a_true = am & (av != 0)
@@ -231,28 +259,28 @@ def _register_logic():
         valid = (am & bm) | a_true | b_true
         return value, valid
 
-    @rpn_fn("LogicalXor", 2, I, (I, I))
+    @_rpn_fn_xp("LogicalXor", 2, I, (I, I))
     def logical_xor(xp, a, b):
         (av, am), (bv, bm) = a, b
         return _ibool(xp, (av != 0) ^ (bv != 0)), am & bm
 
     for suffix, ty in (("Int", I), ("Real", R)):
-        @rpn_fn("UnaryNot" + suffix, 1, I, (ty,))
+        @_rpn_fn_xp("UnaryNot" + suffix, 1, I, (ty,))
         def unary_not(xp, a):
             (av, am) = a
             return _ibool(xp, av == 0), am
 
-        @rpn_fn("IsNull" + suffix, 1, I, (ty,))
+        @_rpn_fn_xp("IsNull" + suffix, 1, I, (ty,))
         def is_null(xp, a):
             (av, am) = a
             return _ibool(xp, ~am), xp.ones_like(am)
 
-        @rpn_fn(suffix + "IsTrue", 1, I, (ty,))
+        @_rpn_fn_xp(suffix + "IsTrue", 1, I, (ty,))
         def is_true(xp, a):
             (av, am) = a
             return _ibool(xp, am & (av != 0)), xp.ones_like(am)
 
-        @rpn_fn(suffix + "IsFalse", 1, I, (ty,))
+        @_rpn_fn_xp(suffix + "IsFalse", 1, I, (ty,))
         def is_false(xp, a):
             (av, am) = a
             return _ibool(xp, am & (av == 0)), xp.ones_like(am)
@@ -262,15 +290,26 @@ def _register_logic():
               "BitOrSig": lambda a, b: a | b,
               "BitXorSig": lambda a, b: a ^ b}
     for name, op in bitops.items():
-        @rpn_fn(name, 2, I, (I, I))
+        @_rpn_fn_xp(name, 2, I, (I, I))
         def _bit(xp, a, b, _op=op):
             (av, am), (bv, bm) = a, b
             return _op(av, bv), am & bm
 
-    @rpn_fn("BitNegSig", 1, I, (I,))
+    @_rpn_fn_xp("BitNegSig", 1, I, (I,))
     def bit_neg(xp, a):
         (av, am) = a
         return ~av, am
+
+    # shifts of 64 or more (or negative) give 0; int64 on every route, so
+    # an int32 plane shifts as the host's int64 pipeline does
+    for name, left in (("LeftShift", True), ("RightShift", False)):
+        @_rpn_fn_xp(name, 2, I, (I, I), int64=True)
+        def _shift(xp, a, b, _left=left):
+            (av, am), (bv, bm) = a, b
+            big = (bv < 0) | (bv >= 64)
+            safe = xp.where(big, xp.zeros_like(bv), bv)
+            shifted = av << safe if _left else av >> safe
+            return xp.where(big, xp.zeros_like(av), shifted), am & bm
 
 
 # ---------------------------------------------------------------------------
@@ -280,18 +319,18 @@ def _register_logic():
 def _register_control():
     I, R = EvalType.INT, EvalType.REAL
     for suffix, ty in (("Int", I), ("Real", R)):
-        @rpn_fn("If" + suffix, 3, ty, (I, ty, ty))
+        @_rpn_fn_xp("If" + suffix, 3, ty, (I, ty, ty))
         def if_fn(xp, c, t, f):
             (cv, cm), (tv, tm), (fv, fm) = c, t, f
             cond = cm & (cv != 0)
             return xp.where(cond, tv, fv), xp.where(cond, tm, fm)
 
-        @rpn_fn("IfNull" + suffix, 2, ty, (ty, ty))
+        @_rpn_fn_xp("IfNull" + suffix, 2, ty, (ty, ty))
         def if_null(xp, a, b):
             (av, am), (bv, bm) = a, b
             return xp.where(am, av, bv), am | bm
 
-        @rpn_fn("CaseWhen" + suffix, None, ty, (ty,))
+        @_rpn_fn_xp("CaseWhen" + suffix, None, ty, (ty,))
         def case_when(xp, *pairs):
             # cond1, res1, cond2, res2, ..., [else]: the first true cond wins
             n = len(pairs)
@@ -307,7 +346,7 @@ def _register_control():
                 out_m = xp.where(hit, rm, out_m)
             return out_v, out_m
 
-        @rpn_fn("Coalesce" + suffix, None, ty, (ty,))
+        @_rpn_fn_xp("Coalesce" + suffix, None, ty, (ty,))
         def coalesce(xp, *pairs):
             out_v, out_m = pairs[-1]
             for (v, m) in reversed(pairs[:-1]):
@@ -317,19 +356,115 @@ def _register_control():
 
 
 # ---------------------------------------------------------------------------
-# Casts — reference: impl_cast.rs (the identity casts; the reference runs
-# the converting casts on its host pipeline only)
+# Casts — reference: impl_cast.rs (the identity casts are device-safe; the
+# converting casts run on the host pipeline only, over numpy)
 # ---------------------------------------------------------------------------
 
-def _register_cast():
-    I, R = EvalType.INT, EvalType.REAL
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
 
-    @rpn_fn("CastIntAsInt", 1, I, (I,))
+
+def _cast_string_int(s: bytes) -> int:
+    """MySQL's longest numeric prefix (empty or invalid → 0), clamped to
+    the int64 bounds (a truncation warning in MySQL; silent here)."""
+    s = s.strip()
+    i, n = 0, len(s)
+    if i < n and s[i:i + 1] in (b"+", b"-"):
+        i += 1
+    j = i
+    while j < n and 0x30 <= s[j] <= 0x39:
+        j += 1
+    try:
+        v = int(s[:j])
+    except ValueError:
+        return 0
+    return min(max(v, _I64_MIN), _I64_MAX)
+
+
+def _cast_string_real(s: bytes) -> float:
+    """The longest valid float prefix; an exponent counts only with a
+    digit after it (b"15e" parses as 15)."""
+    s = s.strip()
+    j, n = 0, len(s)
+    if j < n and s[j:j + 1] in (b"+", b"-"):
+        j += 1
+    digits = 0
+    seen_dot = False
+    while j < n:
+        c = s[j:j + 1]
+        if c.isdigit():
+            digits += 1
+            j += 1
+        elif c == b"." and not seen_dot:
+            seen_dot = True
+            j += 1
+        else:
+            break
+    if digits and j < n and s[j:j + 1] in (b"e", b"E"):
+        k = j + 1
+        if k < n and s[k:k + 1] in (b"+", b"-"):
+            k += 1
+        if k < n and s[k:k + 1].isdigit():
+            while k < n and s[k:k + 1].isdigit():
+                k += 1
+            j = k
+    try:
+        return float(s[:j])
+    except ValueError:
+        return 0.0
+
+
+def _map_object(fn, values) -> np.ndarray:
+    return np.asarray(np.frompyfunc(fn, 1, 1)(
+        np.asarray(values, dtype=object)), dtype=object)
+
+
+def _register_cast():
+    I, R, B = EvalType.INT, EvalType.REAL, EvalType.BYTES
+
+    @_rpn_fn_xp("CastIntAsInt", 1, I, (I,))
     def cast_int_int(xp, a):
         return a
 
-    @rpn_fn("CastRealAsReal", 1, R, (R,))
+    @_rpn_fn_xp("CastRealAsReal", 1, R, (R,))
     def cast_real_real(xp, a):
+        return a
+
+    @rpn_fn("CastIntAsReal", 1, R, (I,))
+    def cast_int_real(xp, a):
+        (av, am) = a
+        return np.asarray(av).astype(np.float64), am
+
+    @rpn_fn("CastRealAsInt", 1, I, (R,))
+    def cast_real_int(xp, a):
+        # MySQL rounds half away from zero on cast
+        (av, am) = a
+        rounded = np.where(av >= 0, np.floor(av + 0.5), np.ceil(av - 0.5))
+        return rounded.astype(np.int64), am
+
+    @rpn_fn("CastStringAsInt", 1, I, (B,))
+    def cast_string_int(xp, a):
+        (av, am) = a
+        return _map_object(_cast_string_int, av).astype(np.int64), am
+
+    @rpn_fn("CastStringAsReal", 1, R, (B,))
+    def cast_string_real(xp, a):
+        (av, am) = a
+        return _map_object(_cast_string_real, av).astype(np.float64), am
+
+    @rpn_fn("CastIntAsString", 1, B, (I,))
+    def cast_int_string(xp, a):
+        (av, am) = a
+        return np.frompyfunc(lambda v: b"%d" % int(v), 1, 1)(
+            np.asarray(av, dtype=np.int64)), am
+
+    @rpn_fn("CastRealAsString", 1, B, (R,))
+    def cast_real_string(xp, a):
+        (av, am) = a
+        return np.frompyfunc(lambda v: repr(float(v)).encode(), 1, 1)(
+            np.asarray(av, dtype=np.float64)), am
+
+    @rpn_fn("CastStringAsString", 1, B, (B,))
+    def cast_string_string(xp, a):
         return a
 
 
@@ -345,7 +480,7 @@ def _register_math():
     I, R = EvalType.INT, EvalType.REAL
 
     def unary_real(name, op, domain=None):
-        @rpn_fn(name, 1, R, (R,))
+        @_rpn_fn_xp(name, 1, R, (R,))
         def _f(xp, a, _op=op, _dom=domain):
             (av, am) = a
             if _dom is not None:
@@ -376,12 +511,12 @@ def _register_math():
     unary_real("Radians", lambda xp, v: v * (math.pi / 180.0))
     unary_real("Degrees", lambda xp, v: v * (180.0 / math.pi))
 
-    @rpn_fn("Atan2Args", 2, R, (R, R))
+    @_rpn_fn_xp("Atan2Args", 2, R, (R, R))
     def atan2(xp, a, b):
         (av, am), (bv, bm) = a, b
         return xp.arctan2(av, bv), am & bm
 
-    @rpn_fn("Pow", 2, R, (R, R))
+    @_rpn_fn_xp("Pow", 2, R, (R, R))
     def pow_(xp, a, b):
         (av, am), (bv, bm) = a, b
         # guard 0^negative and negative^fractional
@@ -389,7 +524,7 @@ def _register_math():
         safe_a = xp.where(bad, xp.ones_like(av), av)
         return _power(xp, safe_a, bv), am & bm & ~bad
 
-    @rpn_fn("Pi", 0, R, ())
+    @_rpn_fn_xp("Pi", 0, R, ())
     def pi(xp):
         # float64, as the reference's weakly typed jnp scalar: beside a
         # float32 column it yields to the column's dtype in both packages
@@ -398,32 +533,38 @@ def _register_math():
         return (torch.tensor(math.pi, dtype=torch.float64),
                 torch.ones((), dtype=torch.bool))
 
-    @rpn_fn("SignReal", 1, I, (R,))
+    @_rpn_fn_xp("SignReal", 1, I, (R,))
     def sign(xp, a):
         (av, am) = a
         s = xp.sign(av)
         return (s.astype(np.int32) if xp is np else s.to(torch.int32)), am
 
-    @rpn_fn("SignInt", 1, I, (I,))
+    @_rpn_fn_xp("SignInt", 1, I, (I,))
     def sign_int(xp, a):
         (av, am) = a
         return xp.sign(av), am
 
     for name in ("CeilIntToInt", "FloorIntToInt", "RoundInt"):
-        @rpn_fn(name, 1, I, (I,))
+        @_rpn_fn_xp(name, 1, I, (I,))
         def int_identity(xp, a):
             return a
 
-    @rpn_fn("TruncateReal", 2, R, (R, I))
+    @_rpn_fn_xp("TruncateReal", 2, R, (R, I))
     def truncate_real(xp, a, d):
         (av, am), (dv, dm) = a, d
         dv = dv.astype(av.dtype) if xp is np else dv.to(av.dtype)
         scale = _power(xp, 10.0, dv)
         return xp.trunc(av * scale) / scale, am & dm
 
+    @rpn_fn("CRC32", 1, I, (EvalType.BYTES,))
+    def crc32(xp, a):
+        (av, am) = a
+        return np.fromiter((zlib.crc32(x) for x in av), dtype=np.int64,
+                           count=len(av)), am
+
     # the digit count only masks and scales: the result keeps the value's
     # dtype, as under the reference's per-operation promotion
-    @rpn_fn("TruncateInt", 2, I, (I, I), widen=False)
+    @_rpn_fn_xp("TruncateInt", 2, I, (I, I), widen=False)
     def truncate_int(xp, a, d):
         (av, am), (dv, dm) = a, d
         neg = xp.where(dv < 0, -dv, xp.zeros_like(dv))
@@ -444,3 +585,16 @@ _register_logic()
 _register_control()
 _register_cast()
 _register_math()
+
+# family modules (imported late: they need the registry decorator above)
+from . import impl_like as _impl_like      # noqa: E402
+from . import impl_misc as _impl_misc      # noqa: E402
+from . import impl_string as _impl_string  # noqa: E402
+from . import impl_time as _impl_time      # noqa: E402
+from . import impl_types as _impl_types    # noqa: E402
+
+_impl_string.register()
+_impl_like.register()
+_impl_time.register()
+_impl_types.register()
+_impl_misc.register()

@@ -32,6 +32,9 @@ class RpnColumnRef:
 class RpnFnCall:
     meta: RpnFnMeta
     n_args: int
+    # (collation, enum/set elems) — consulted only when meta.needs_ctx;
+    # the reference's collator/elems dispatch from the tipb FieldType
+    ctx: tuple = (63, ())
 
 
 RpnNode = Union[RpnConst, RpnColumnRef, RpnFnCall]
@@ -47,6 +50,34 @@ class RpnExpression:
         if isinstance(last, RpnFnCall):
             return last.meta.ret
         return last.eval_type
+
+
+def _subtree_ctx(e: Expr) -> tuple:
+    """Effective (collation, elems) of ``e``'s subtree.
+
+    Collation coercion follows MySQL: an explicit collation on a call or
+    constant below (a COLLATE clause) wins; else a binary string column
+    wins over a ci one (comparing bin_col to ci_col compares bytes); a ci
+    collation applies only when no string column says binary.  Elems: the
+    first non-empty table anywhere below."""
+    col_colls: list = []
+    explicit = None
+    elems: tuple = ()
+    stack = list(e.children)
+    while stack:
+        n = stack.pop(0)
+        if n.kind == "column" and n.eval_type is EvalType.BYTES:
+            col_colls.append(n.collation)
+        elif n.collation != 63 and explicit is None:
+            explicit = n.collation
+        if not elems and n.elems:
+            elems = n.elems
+        stack.extend(n.children)
+    if explicit is not None:
+        return explicit, elems
+    if any(c == 63 for c in col_colls):
+        return 63, elems
+    return next((c for c in col_colls if c != 63), 63), elems
 
 
 def build_rpn(tree: Expr) -> RpnExpression:
@@ -73,7 +104,18 @@ def build_rpn(tree: Expr) -> RpnExpression:
                 raise ValueError(f"{e.sig}: variadic sig needs >=1 arg")
             for c in e.children:
                 walk(c)
-            nodes.append(RpnFnCall(meta, len(e.children)))
+            ctx = (63, ())
+            if meta.needs_ctx:
+                # explicit on the call, else inherited from the subtree,
+                # as tipb derives a call's field type (``Upper(ci_col)``
+                # keeps ci)
+                coll, elems = e.collation, tuple(e.elems)
+                if coll == 63 or not elems:
+                    sc, se = _subtree_ctx(e)
+                    coll = sc if coll == 63 else coll
+                    elems = elems or tuple(se)
+                ctx = (coll, elems)
+            nodes.append(RpnFnCall(meta, len(e.children), ctx))
         else:
             raise ValueError(f"bad expr kind {e.kind}")
 

@@ -1,6 +1,7 @@
-"""Test and smoke builders: table schemas and the DagSelect plan builder."""
+"""Test and smoke builders: table schemas, a KV feed of encoded rows and
+the DagSelect plan builder."""
 
 from .dag import DagSelect
-from .fixture import Table, TableColumn
+from .fixture import Table, TableColumn, init_with_data
 
-__all__ = ["DagSelect", "Table", "TableColumn"]
+__all__ = ["DagSelect", "Table", "TableColumn", "init_with_data"]

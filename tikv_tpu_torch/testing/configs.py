@@ -49,6 +49,23 @@ The mesh cells (``MESH_CELLS``) run configs 3, 4, 4n, 4s, 2s and 5t, and
 7) with ``WHERE v > 0 GROUP BY k: COUNT(*), SUM(v), MIN(v), MAX(v)``
 (``dag_4x``); ``truth("4x", snap)`` keeps the selected rows first.
 
+The time-types cells (``TIME_CELLS``, ``build_time_table``, ``dag_time``,
+``time_truth``) run on one table of 10·2^20 rows, config 2's size, seed 7:
+``k`` INT over 1024 groups, ``d`` DATETIME at day resolution, uniform over
+1992-01-02 .. 1998-12-01 (TPC-H's ``l_shipdate`` range), NULL on 10%, and
+``u`` DURATION in ns over 0 .. 86,400 s:
+
+- cell t2: ``COUNT(*), MIN(d), MAX(d) WHERE d >= '1994-01-01' AND d <
+  '1995-01-01'`` (TPC-H Q6's predicate): the selection in ``sel_pred``;
+- cell t4m: ``GROUP BY k: COUNT(*), MIN(d), MAX(u) WHERE d <=
+  '1998-09-02'`` (Q1's): ``agg_fold``;
+- cell t5: ``WHERE d >= '1994-01-01' ORDER BY u DESC LIMIT 1000``:
+  ``topn_select`` over a DURATION key;
+- cell th: ``COUNT(*) WHERE Year(d) = 1995``: ``Year`` is host-only, so the
+  endpoint's host pipeline serves it at any size;
+- cell tshift: ``COUNT(*) WHERE (k << 40) >> 38 > 1000`` over ``k``'s int32
+  plane: the shifts in int64 on the torch route.
+
 The plan-IR configurations (``PLAN_CELLS``, ``plan_truth``) run on config
 7's pair of tables (``build_join_pair``, ``bench.py:243-312``): a probe
 table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
@@ -804,3 +821,112 @@ def analyze_oversized_case(rows: int = 1 << 20) -> tuple:
     v[taken] = (1 << 21) + np.arange(taken.size, dtype=np.int32) * (1 << 18)
     return v, np.ones(rows, np.bool_), rows, 256
 
+
+# ---------------------------------------------------------------------------
+# the time-types cells
+# ---------------------------------------------------------------------------
+
+TIME_ROWS = 10 << 20
+TIME_CELLS = ("t2", "t4m", "t5", "th", "tshift")
+
+
+def time_table() -> Table:
+    from ..datatype import FieldTypeTp
+    return Table(9600, (
+        TableColumn("id", 1, FieldType.long(not_null=True),
+                    is_pk_handle=True),
+        TableColumn("k", 2, FieldType.long()),
+        TableColumn("d", 3, FieldType(tp=FieldTypeTp.DATETIME)),
+        TableColumn("u", 4, FieldType(tp=FieldTypeTp.DURATION))))
+
+
+def build_time_table(n: int, seed: int = 7, year_9999_at=None):
+    """→ (table, snapshot); ``year_9999_at``: a row whose ``d`` is
+    9999-12-31 (a core above 2^63)."""
+    from ..datatype.time import civil_from_days, days_from_civil, \
+        pack_datetime
+    rng = np.random.default_rng(seed)
+    lo, hi = days_from_civil(1992, 1, 2), days_from_civil(1998, 12, 1)
+    y, m, d = civil_from_days(rng.integers(lo, hi + 1, n))
+    dok = rng.random(n) >= NULL_SHARE
+    dv = np.where(dok, pack_datetime(y, m, d), 0).astype(np.uint64)
+    if year_9999_at is not None:
+        dv[year_9999_at] = pack_datetime(9999, 12, 31)
+        dok[year_9999_at] = True
+    u = rng.integers(0, 86_400 * 10**9 + 1, n).astype(np.int64)
+    k = rng.integers(0, GROUPS, n).astype(np.int64)
+    ones = np.ones(n, dtype=np.bool_)
+    table = time_table()
+    snap = ColumnarTable.from_arrays(
+        table, np.arange(n, dtype=np.int64),
+        {"k": Column(EvalType.INT, k, ones),
+         "d": Column(EvalType.DATETIME, dv, dok),
+         "u": Column(EvalType.DURATION, u, ones)})
+    return table, snap
+
+
+def _day(*ymd) -> int:
+    from ..datatype.time import pack_datetime
+    return int(pack_datetime(*ymd))
+
+
+def dag_time(table: Table, cell: str):
+    s = DagSelect.from_table(table, ["id", "k", "d", "u"])
+
+    def t(*ymd):
+        return Expr.const(_day(*ymd), EvalType.DATETIME)
+
+    i = EvalType.INT
+    if cell == "t2":
+        return s.where(Expr.call("GeTime", s.col("d"), t(1994, 1, 1)),
+                       Expr.call("LtTime", s.col("d"), t(1995, 1, 1))) \
+            .aggregate([], [("count_star", None), ("min", s.col("d")),
+                            ("max", s.col("d"))]).build()
+    if cell == "t4m":
+        return s.where(Expr.call("LeTime", s.col("d"), t(1998, 9, 2))) \
+            .aggregate([s.col("k")], [("count_star", None),
+                                      ("min", s.col("d")),
+                                      ("max", s.col("u"))]).build()
+    if cell == "t5":
+        return s.where(Expr.call("GeTime", s.col("d"), t(1994, 1, 1))) \
+            .order_by(s.col("u"), desc=True, limit=TOPN_LIMIT).build()
+    if cell == "th":
+        return s.where(Expr.call("EqInt", Expr.call("Year", s.col("d")),
+                                 Expr.const(1995, i))) \
+            .aggregate([], [("count_star", None)]).build()
+    if cell == "tshift":
+        e = Expr.call("RightShift", Expr.call(
+            "LeftShift", s.col("k"), Expr.const(40, i)), Expr.const(38, i))
+        return s.where(Expr.call("GtInt", e, Expr.const(1000, i))) \
+            .aggregate([], [("count_star", None)]).build()
+    raise ValueError(cell)
+
+
+def time_truth(cell: str, snap) -> list:
+    """The cell's rows from numpy alone (groups in ascending key order)."""
+    k = snap.columns[2].values
+    dv, dok = snap.columns[3].values, snap.columns[3].validity
+    u = snap.columns[4].values
+    d = dv.astype(np.int64)     # below 2^63: the cores' order
+    if cell == "t2":
+        m = dok & (d >= _day(1994, 1, 1)) & (d < _day(1995, 1, 1))
+        return [(int(m.sum()), int(d[m].min()), int(d[m].max()))]
+    if cell == "t4m":
+        m = dok & (d <= _day(1998, 9, 2))
+        count = np.bincount(k[m], minlength=GROUPS)
+        lo = np.full(GROUPS, np.iinfo(np.int64).max)
+        np.minimum.at(lo, k[m], d[m])
+        hi = np.full(GROUPS, -1, np.int64)
+        np.maximum.at(hi, k[m], u[m])
+        return [(int(count[g]), int(lo[g]), int(hi[g]), g)
+                for g in np.flatnonzero(count).tolist()]
+    if cell == "t5":
+        m = dok & (d >= _day(1994, 1, 1))
+        idx = np.flatnonzero(m)
+        top = idx[np.lexsort((idx, -u[idx]))][:TOPN_LIMIT]
+        return [(int(i), int(k[i]), int(dv[i]), int(u[i])) for i in top]
+    if cell == "th":
+        return [(int((dok & ((dv >> np.uint64(50)) == 1995)).sum()),)]
+    if cell == "tshift":
+        return [(int((((k << 40) >> 38) > 1000).sum()),)]
+    raise ValueError(cell)

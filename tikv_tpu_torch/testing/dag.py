@@ -10,8 +10,8 @@ from typing import Optional, Sequence
 
 from ..codec.keys import index_key_prefix, table_record_range
 from ..copr.dag import (AggExprDesc, AggregationDesc, DAGRequest,
-                        IndexScanDesc, LimitDesc, SelectionDesc,
-                        TableScanDesc, TopNDesc)
+                        IndexScanDesc, LimitDesc, ProjectionDesc,
+                        SelectionDesc, TableScanDesc, TopNDesc)
 from ..executors.ranges import KeyRange
 from ..expr import Expr
 from .fixture import Table, TableColumn
@@ -68,6 +68,10 @@ class DagSelect:
 
     def where(self, *conditions: Expr) -> "DagSelect":
         self._execs.append(SelectionDesc(tuple(conditions)))
+        return self
+
+    def project(self, *exprs: Expr) -> "DagSelect":
+        self._execs.append(ProjectionDesc(tuple(exprs)))
         return self
 
     def aggregate(self, group_by: Sequence[Expr],
