@@ -113,7 +113,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    arguments at those cells and timed there; th (``Year(d) = 1995``)
    through the endpoint: answered on the host, no launch; and a year-9999
    variant of ``d``: the endpoint answers on the host, a forced request
-   raises ``FeedBeyondInt64``;
+   raises ``FeedBeyondInt64``; then cell tj (``run_tj``, 2^20 rows with a
+   JSON column ``doc``): tj1 on the card (``sel_pred``, ``hash_agg``; its
+   feed equal to the table's without ``doc``), tj2 (a JSON predicate)
+   refused by the runner and answered on the host with no launch, tj3
+   (ANALYZE of every column: the ``analyze`` kernel for the INT columns,
+   the host half for ``doc``) and tjp (tj1's selection in pages of 4096
+   rows on the host, followed to ``is_drained``, equal to the card's
+   unpaged answer), each against its numpy truth;
 8. each of those kernels timed at the main path's shapes beside its
    bound, its plain version and a library yardstick the port never calls:
    ``sel_pred`` at config 2 (``v > 800``, packed mask) and 5t (``k <
@@ -298,8 +305,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    each patched in place, one ``patch_feed_spans`` launch a feed, no
    upload, no build —, a ROLLBACK (patched, no launch) and a DELETE
    (uploaded); a read below the first write's commit from the line's
-   history; a clean scrub, then ``device::feed_corrupt``: one divergence,
-   the next request on the host, the one after uploaded), every answer
+   history; a clean scrub; a demotion (the next reads ``hit`` the
+   resident feeds), a promotion (one ``plane_digest`` a resident plane,
+   no build) and a promotion with ``copr::replica_promote`` armed (the
+   region invalidated, the next request one cold mint); then
+   ``device::feed_corrupt``: one divergence, the next request on the
+   host, the one after uploaded; after each write the memo's record:
+   dtypes, hash bounds and byte-plane widths kept after w1-w4, dropped
+   after the DELETE), every answer
    against the numpy model, the host ms of ``delta_apply``,
    ``feed_patch`` and the DELETE's upload, and the scrub's, printed; and
    ``patch_feed_spans`` at its three writes' shapes held bit for bit
@@ -1195,8 +1208,9 @@ def serve(label: str, n: int, runner, dag, snap, answer, agrees,
     out["peak_request_bytes"] = peak_request_bytes(runner, dag, snap)
     print(f"config {label}: " + " ".join(f"{k}={v}" for k, v in out.items()
                                          if k != "config"), flush=True)
-    profile_request(label, runner, dag, snap,
-                    {k for k in expect if k != "sel_compact"})
+    out["profile"] = profile_request(label, runner, dag, snap,
+                                     {k for k in expect
+                                      if k != "sel_compact"})
     return out
 
 
@@ -5673,14 +5687,25 @@ def run_delta(runner, source) -> dict:
       ``device::feed_corrupt`` once: one divergence, region 1 quarantined;
       the next request is answered on the host (one ``quarantined``
       degrade), the one after uploads on the card;
+    - the replica feed: a demotion (``on_role_change(1, False)``), after
+      which a read serves from the resident feed (``hit``, no upload, no
+      build); a promotion, timed: one ``plane_digest`` a resident plane,
+      no build, ``promotion_rebuilds`` 0; a promotion with
+      ``copr::replica_promote`` armed once: the region invalidates and the
+      next request pays one cold mint (``mvcc_resolve``; the cell's
+      substituted build takes version planes of the rows as they now
+      stand);
     - w4 (104): a ROLLBACK record → safe_ts advances, ``patch``, no launch;
     - w5 (105): one DELETE → structural: ``upload``.
 
-    Every answer equals the numpy model; w1-w4's requests have no
-    ``feed_upload`` phase; the cache builds once (the cold mint) and
-    rebuilds never.  ``runner`` holds no other anchor (the scrub's
-    verdicts are this cell's).  Counts from 0 before the path, read
-    after."""
+    After each write, the first request of each plan rolls its memo
+    forward: the record (``runner.last_refresh``) says which of the plane
+    dtypes, the hash bounds and the byte-plane widths it kept.  Every
+    answer equals the numpy model; w1-w4's requests have no
+    ``feed_upload`` phase; the cache builds twice (the cold mint, the
+    forced rebuild's) and rebuilds never.  ``runner`` holds no other anchor
+    (the scrub's verdicts are this cell's).  Counts from 0 before the path,
+    read after."""
     from tikv_tpu_torch.copr.delta import DeltaSink
     from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
     from tikv_tpu_torch.device import digest as dg
@@ -5697,6 +5722,7 @@ def run_delta(runner, source) -> dict:
 
     def ask(plan: str, ts: int, label=None, backend="device", want=None):
         dag = cell.dag(plan, ts)
+        runner.last_refresh = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         resp = cell.ep.handle(CopRequest(REQ_TYPE_DAG, dag))
@@ -5713,6 +5739,7 @@ def run_delta(runner, source) -> dict:
         assert label is None or lab == label, (plan, ts, lab, label)
         return {"ms": ms, "label": lab,
                 "copr_cache": resp.tracker.labels.get("copr_cache"),
+                "memo": runner.last_refresh,
                 "phases_ms": {k: v / 1e6 for k, v in
                               resp.tracker.phases.items()}}
 
@@ -5726,11 +5753,17 @@ def run_delta(runner, source) -> dict:
                         "records": len(triples),
                         "apply_ms": (time.perf_counter() - t0) * 1e3}
 
-    def serve_both(name: str, ts: int, label: str, span_calls: int) -> None:
+    def serve_both(name: str, ts: int, label: str, span_calls: int,
+                   memo: str) -> None:
         before = dg.span_launches
         got = {p: ask(p, ts, label) for p in ("agg", "sel")}
         calls = dg.span_launches - before
         assert calls == span_calls, (name, calls, span_calls)
+        for p, r in got.items():
+            # the memo rolled forward across the write: kept or dropped
+            rec = r["memo"]
+            assert rec is not None and rec["kept"] is (memo == "kept"), \
+                (name, p, rec)
         if label == "patch":
             for p, r in got.items():
                 assert "feed_upload" not in r["phases_ms"], (name, p)
@@ -5751,7 +5784,7 @@ def run_delta(runner, source) -> dict:
         write("w1", delta_puts(tid, [r1], [r1 % model.groups], [995], 300),
               300)
         model.update([r1], [995])
-        serve_both("w1", 310, "patch", 2)
+        serve_both("w1", 310, "patch", 2, "kept")
         # a read below w1's commit: the old generation, from the history
         out["history_read"] = ask("sel", ts, want=old_sel)
         assert cell.cache.misses == 1, cell.cache.stats()
@@ -5761,14 +5794,14 @@ def run_delta(runner, source) -> dict:
         c1 = (hs * 7 + 1) % 1000
         write("w2", delta_puts(tid, hs, hs % model.groups, c1, 320), 320)
         model.update(hs, c1)
-        serve_both("w2", 330, "patch", 2)
+        serve_both("w2", 330, "patch", 2, "kept")
         assert len(lineage._patches[-1]["spans"]) == len(DELTA_RUNS)
         # w3: 65,536 INSERTs past the greatest handle
         hs = np.arange(n, n + DELTA_INSERTS, dtype=np.int64)
         write("w3", delta_puts(tid, hs, hs % model.groups, hs % 1000, 340),
               340)
         model.insert(hs)
-        serve_both("w3", 350, "patch", 2)
+        serve_both("w3", 350, "patch", 2, "kept")
         feeds = runner.resident_feeds(cell.cache.get(
             cell.snap(cell.region), cell.dag("sel", 350)))
         assert {f["n_live"] for f in feeds.values()} == {n + DELTA_INSERTS}
@@ -5779,6 +5812,7 @@ def run_delta(runner, source) -> dict:
         out["scrub_ms"] = (time.perf_counter() - t0) * 1e3
         assert clean["divergences"] == 0 and clean["lines"] == 1 and \
             clean["planes"] == 5, clean
+        out["replica"] = replica_feed_steps(cell, runner, model, 350)
         failpoint.cfg("device::feed_corrupt", "1*return")
         try:
             caught = cell.sup.scrub()
@@ -5795,7 +5829,7 @@ def run_delta(runner, source) -> dict:
         # w4: a ROLLBACK record
         write("w4", tm.kv_history(tid, np.asarray([r4], np.int64), [
             tm.Event(360, tm.WT_ROLLBACK, np.arange(1))]), 360)
-        serve_both("w4", 370, "patch", 0)
+        serve_both("w4", 370, "patch", 0, "kept")
         assert cell.cache._lines[next(iter(cell.cache._lines))] \
             .snap.safe_ts == 360
         assert cell.cache.stats()["rebuilds"] == 0
@@ -5803,10 +5837,10 @@ def run_delta(runner, source) -> dict:
         write("w5", tm.kv_history(tid, np.asarray([r5], np.int64), [
             tm.Event(380, tm.WT_DELETE, np.arange(1))]), 380)
         model.delete([r5])
-        serve_both("w5", 390, "upload", 0)
+        serve_both("w5", 390, "upload", 0, "dropped")
         st = cell.cache.stats()
-        assert (st["misses"], st["rebuilds"], st["deltas"]) == (1, 0, 5), st
-        assert [b[0] for b in cell.builds] == [1], cell.builds
+        assert (st["misses"], st["rebuilds"], st["deltas"]) == (2, 0, 5), st
+        assert [b[0] for b in cell.builds] == [1, 1], cell.builds
         launches = counts()
         for name in ("mvcc_resolve", "hash_agg", "sel_pred", "plane_digest",
                      "patch_spans"):
@@ -5834,6 +5868,10 @@ def run_delta(runner, source) -> dict:
     summary["apply_ms"] = {w: writes[w]["apply_ms"] for w in writes}
     summary["labels"] = {w: {p: writes[w]["requests"][p]["label"]
                              for p in ("agg", "sel")} for w in writes}
+    summary["memo"] = {w: {p: {k: writes[w]["requests"][p]["memo"][k]
+                               for k in ("dtypes", "hash_bounds",
+                                         "arg_nbytes")}
+                           for p in ("agg", "sel")} for w in writes}
     print("delta cell 6c-delta: " + json.dumps(summary, default=str),
           flush=True)
     shapes = {"w1": [(r1, r1 + 1)],
@@ -5844,7 +5882,220 @@ def run_delta(runner, source) -> dict:
     torch.cuda.empty_cache()
     return {"config": "6c-delta", "launches": out["launches"],
             "shapes": shapes, "n_pad": out["pad_rows"]["n"],
-            "host_ms": host, "scrub_ms": out["scrub_ms"]}
+            "host_ms": host, "scrub_ms": out["scrub_ms"],
+            "memo": summary["memo"], "replica": out["replica"]}
+
+
+def replica_feed_steps(cell, runner, model, ts: int) -> dict:
+    """6c-delta's replica feed after w3's clean scrub: demote, read,
+    promote, then a promotion with ``copr::replica_promote`` armed once and
+    the one cold mint that follows (the cell's substituted build given
+    version planes of the model's rows at ``ts``, as the engine now holds
+    them)."""
+    from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.utils import failpoint
+    sup = cell.sup
+    out = {}
+
+    def read(plan: str, label: str) -> dict:
+        routes = dict(runner.feed_routes)
+        builds = len(cell.builds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = cell.ep.handle(CopRequest(REQ_TYPE_DAG, cell.dag(plan, ts)))
+        ms = (time.perf_counter() - t0) * 1e3
+        if plan == "sel":
+            ok = np.array_equal(resp.result.batch.columns[0].values,
+                                model.truth("sel"))
+        else:
+            ok = sorted(resp.rows(), key=lambda r: r[2]) == \
+                model.truth("agg")
+        lab = resp.tracker.labels.get("device_feed")
+        assert ok and resp.backend == "device", (plan, label, resp.backend)
+        assert lab == label, (plan, lab, label)
+        if label == "hit":
+            assert runner.feed_routes == routes and \
+                len(cell.builds) == builds, "a replica read built or uploaded"
+        return {"ms": ms, "label": lab}
+
+    sup.on_role_change(1, False)
+    assert sup.demotions == 1 and cell.cache.region_resident(1) == 1
+    out["demoted_read"] = {p: read(p, "hit") for p in ("agg", "sel")}
+    planes = sum(len(f["digests"]) for f in runner.resident_feeds(
+        cell.cache.get(cell.snap(cell.region), cell.dag("sel", ts))
+    ).values())
+    before = counts()["plane_digest"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sup.on_role_change(1, True)
+    torch.cuda.synchronize()
+    out["promote_ms"] = (time.perf_counter() - t0) * 1e3
+    out["promote_planes"] = planes
+    out["promote_digest_launches"] = counts()["plane_digest"] - before
+    assert out["promote_digest_launches"] == planes == 5, out
+    assert (sup.promotions, sup.promotion_rebuilds) == (1, 0)
+    assert sup.last_promotion["divergences"] == 0
+    out["promoted_read"] = {p: read(p, "hit") for p in ("agg", "sel")}
+    # the forced rebuild: the build's version planes become the rows as
+    # they stand at ts (w1-w3 applied)
+    ones = np.ones(len(model.h), np.bool_)
+    cell.planes, _th, _truth = tm.version_history(
+        model.h, [tm.Event(ts - 5, tm.WT_PUT, np.arange(len(model.h)),
+                           {2: (model.c0, ones), 3: (model.c1, ones)})],
+        {2: 0, 3: 0}, ts, cell.table.table_id)
+    cell.read_ts = ts
+    sup.on_role_change(1, False)
+    failpoint.cfg("copr::replica_promote", "1*return")
+    try:
+        sup.on_role_change(1, True)
+    finally:
+        failpoint.teardown()
+    assert (sup.promotions, sup.promotion_rebuilds) == (2, 1)
+    assert cell.cache.region_resident(1) == 0
+    mints = counts()["mvcc_resolve"]
+    out["rebuild_read"] = {"agg": read("agg", "device_resolve"),
+                           "sel": read("sel", "upload")}
+    out["rebuild_mint_launches"] = counts()["mvcc_resolve"] - mints
+    assert out["rebuild_mint_launches"] > 0
+    out["stats"] = {k: v for k, v in sup.stats().items()
+                    if k in ("promotions", "promotion_rebuilds",
+                             "demotions", "replica_feeds", "quarantines")}
+    print("delta cell 6c-delta replica feed: " + json.dumps(out), flush=True)
+    return out
+
+
+TJ_ROWS = 1 << 20
+TJ_PAGE = 4096
+
+
+def run_tj(runner) -> dict:
+    """Cell tj: a table with a JSON column (``configs.build_json_table``,
+    2^20 rows: ``doc`` never reaches the card, and its Python documents
+    cost host memory and time, so the cell is 2^20 rows where config 2 is
+    10·2^20).  Each answer against its numpy truth, on its stated route:
+
+    - tj1 on the card (``sel_pred``, ``hash_agg``; ``serve``: warm p50,
+      the profile's idle share), through the endpoint too; its feed holds
+      the same bytes as the same plan's over the table without ``doc``;
+    - tj2, a JSON predicate: the runner refuses the plan, the endpoint
+      answers on the host, no launch;
+    - tj3, ANALYZE of every column: ``id``, ``k``, ``v`` by the ``analyze``
+      kernel, ``doc`` by the host half;
+    - tjp, tj1's selection alone, paged: pages of ``TJ_PAGE`` rows served
+      on the host, followed to ``is_drained``, whose rows concatenate to
+      the card's unpaged answer.
+    Counts from 0 before the path, read after."""
+    from tikv_tpu_torch.copr.analyze import AnalyzeReq
+    from tikv_tpu_torch.copr.endpoint import (REQ_TYPE_DAG, CopRequest,
+                                              Endpoint)
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing.dag import DagSelect
+    t0 = time.perf_counter()
+    n = TJ_ROWS
+    table, snap, plain = cf.build_json_table(n)
+    dags = {c: cf.dag_json(table, c) for c in cf.JSON_CELLS}
+    out = {"config": "tj", "rows": n, "build_s": time.perf_counter() - t0}
+    ep = Endpoint(lambda req: snap, runner, device_row_threshold=n)
+    set_counts({k: 0 for k in KERNELS})
+    launches = {k: 0 for k in KERNELS}
+
+    def add(got: dict) -> None:
+        for k, v in got.items():
+            launches[k] += v
+
+    # tj1: on the card
+    want = cf.json_truth("tj1", snap)
+    tj1 = serve("tj1", n, runner, dags["tj1"], snap,
+                lambda r: sorted(r.rows(), key=lambda x: x[2]),
+                lambda rows: rows == want, {"sel_pred", "hash_agg"},
+                groups=len(want))
+    add(tj1["launches"])
+    set_counts({k: 0 for k in KERNELS})
+    resp = ep.handle(CopRequest(REQ_TYPE_DAG, dags["tj1"]))
+    assert resp.backend == "device" and \
+        sorted(resp.rows(), key=lambda x: x[2]) == want, "tj1 via endpoint"
+    assert runner.handle_request(dags["tj1"], plain).rows() == resp.rows()
+    add(counts())
+    feeds = [runner.resident_feeds(s) for s in (snap, plain)]
+    assert list(feeds[0]) == list(feeds[1]) and all(
+        4 not in key[1] for key in feeds[0]), "tj1's feed keys"
+    for key, f in feeds[0].items():
+        g = feeds[1][key]
+        assert len(f["flat"]) == len(g["flat"]) and all(
+            same_bits(a, b) for a, b in zip(f["flat"], g["flat"])), \
+            "tj1's feed differs from the table's without doc"
+    prof = tj1.pop("profile")
+    out["tj1"] = {"warm_p50_ms": tj1["warm_p50_ms"],
+                  "cold_ms": tj1["cold_ms"],
+                  "idle_share": 1 - prof["device_ms"] / prof["wall_ms"],
+                  "launches": {k: v for k, v in tj1["launches"].items()
+                               if v}}
+    # tj2: a JSON predicate, on the host
+    assert not runner.supports(dags["tj2"])
+    set_counts({k: 0 for k in KERNELS})
+    t1 = time.perf_counter()
+    resp = ep.handle(CopRequest(REQ_TYPE_DAG, dags["tj2"]))
+    out["tj2"] = {"host_ms": (time.perf_counter() - t1) * 1e3,
+                  "backend": resp.backend}
+    assert resp.backend == "host" and sorted(
+        resp.rows(), key=lambda x: x[1]) == cf.json_truth("tj2", snap), \
+        "tj2: wrong answer or backend"
+    assert not any(counts().values()), f"tj2 launched {counts()}"
+    # tj3: ANALYZE of every column
+    areq = AnalyzeReq(DagSelect.from_table(table).build().executors[0], (),
+                      256)
+    set_counts({k: 0 for k in KERNELS})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = ep.handle_analyze(areq)["columns"]
+    out["tj3"] = {"ms": (time.perf_counter() - t1) * 1e3,
+                  "phases_ms": dict(runner.analyze_phases_ms)}
+    got = counts()
+    assert got["analyze"] == 3 and not ep.degrades, (got, ep.degrades)
+    add(got)
+    t1 = time.perf_counter()
+    batch = snap.scan_columns(areq.scan, ())
+    want = [cf.column_stats_truth(info.col_id, col.values, col.validity,
+                                  areq.buckets)
+            for info, col in zip(areq.scan.columns[:3], batch.columns[:3])]
+    want.append(cf.json_doc_stats_truth(snap, areq.buckets))
+    out["tj3"]["truth_s"] = time.perf_counter() - t1
+    assert stats_equal(stats[:3], want[:3]) and \
+        repr(stats[3]) == repr(want[3]), "tj3: wrong statistics"
+    # tjp: pages on the host against the card's unpaged answer
+    set_counts({k: 0 for k in KERNELS})
+    resp = ep.handle(CopRequest(REQ_TYPE_DAG, dags["tjp"]))
+    assert resp.backend == "device"
+    add(counts())
+    whole = resp.result.batch
+    ids = cf.json_truth("tjp", snap)
+    assert np.array_equal(whole.columns[0].values, ids), "tjp: card answer"
+    set_counts({k: 0 for k in KERNELS})
+    pages, token = [], None
+    t1 = time.perf_counter()
+    while True:
+        resp = ep.handle(CopRequest(REQ_TYPE_DAG, dags["tjp"],
+                                    paging_size=TJ_PAGE,
+                                    resume_token=token))
+        assert resp.backend == "host"
+        pages.append(resp.result.batch)
+        token = resp.resume_token
+        if resp.is_drained:
+            break
+        assert resp.result.batch.num_rows >= TJ_PAGE
+    out["tjp"] = {"host_ms": (time.perf_counter() - t1) * 1e3,
+                  "pages": len(pages), "rows": int(len(ids))}
+    assert not any(counts().values()), "a paged request launched"
+    for c in range(3):
+        assert np.array_equal(
+            np.concatenate([p.columns[c].values for p in pages]),
+            whole.columns[c].values), "tjp: the pages differ"
+    out["wall_s"] = time.perf_counter() - t0
+    print("cell tj: " + json.dumps(out), flush=True)
+    del snap, plain, batch, whole, pages
+    gc.collect()
+    return {"config": "tj", "launches": launches, **out}
 
 
 INGEST_KEYS = 10 << 20         # 6c's region (bench.py:501-560)
@@ -7240,6 +7491,8 @@ def main() -> int:
     runs += time_runs
     for name, err in time_worst.items():
         worst[name] = max(worst[name], err)
+    elapsed("before the JSON cell")
+    runs.append(run_tj(runner))
     runs += cold.values()
     elapsed("before the plan IR")
     ep, pair = plan_endpoint(runner)

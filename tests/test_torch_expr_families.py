@@ -1,11 +1,12 @@
-"""Every signature of the reference's registry but the JSON family, on the
-host path of both packages.
+"""Every signature of the reference's registry, on the host path of both
+packages.
 
 One case a signature (two for a signature that reads its node's context:
 under the binary collation and under ``utf8mb4_general_ci``): the same
 seeded columns of each argument type — NULLs, zero dates, negative
 durations, DECIMALs of 65 digits, binary and non-ASCII strings, enum and
-set values past their name tables — go through the reference's
+set values past their name tables, JSON documents of every type with
+the JSON null beside SQL NULL — go through the reference's
 ``build_rpn``/``eval_rpn`` and the port's, with numpy.  The validity must be
 equal, and the values where valid: exactly, a REAL within 1 ulp, a DECIMAL
 with its scale.  Where the reference raises (a DECIMAL of 65 digits does
@@ -17,10 +18,14 @@ values replaced by a small one.
 held to the shape, the validity and the text form of the reference's
 answer, and each row's value must differ from the others.
 
-The registry test holds the port's registry to the reference's: the
-missing signatures are exactly those of ``impl_json.py``, and every other
-one has the reference's arity, types, ``needs_ctx``, ``needs_rows`` and
-``device_safe``.
+A JSON signature's BYTES arguments are drawn from pools of their role
+(``JSON_ARGS``): JSON paths (concrete ones where the reference rejects
+wildcards), JSON texts, object keys, 'one'/'all', LIKE patterns and
+escapes; a JSON value is compared by its ``repr``, so ``true`` is not 1.
+
+The registry test holds the port's registry to the reference's: the same
+signatures, each with the reference's arity, types, ``needs_ctx``,
+``needs_rows`` and ``device_safe``.
 """
 
 import decimal
@@ -55,6 +60,35 @@ ARG_TYPES = {
     "Elt": ("int", "bytes", "bytes"),
     "RegexpInStrSig": ("bytes", "bytes", "int"),
     "RegexpSubstrSig": ("bytes", "bytes"),
+}
+# the JSON sigs' arguments by role: a role names a pool of BYTES values
+# (``_POOLS``), else it is an eval type
+JSON_ARGS = {
+    "JsonExtractSig": ("json", "path", "path"),
+    "JsonLengthSig": ("json", "path"),
+    "JsonKeys2ArgsSig": ("json", "path"),
+    "JsonValidStringSig": ("jtext",),
+    "CastStringAsJson": ("jtext",),
+    "JsonObjectSig": ("key", "json", "key", "json"),
+    "JsonSetSig": ("json", "mpath", "json", "mpath", "json"),
+    "JsonInsertSig": ("json", "mpath", "json"),
+    "JsonReplaceSig": ("json", "mpath", "json"),
+    "JsonRemoveSig": ("json", "mpath", "mpath"),
+    "JsonArrayAppendSig": ("json", "mpath", "json"),
+    "JsonSearchSig": ("json", "oneall", "pattern", "esc"),
+}
+_POOLS = {
+    "path": [b"$", b"$.a", b"$.b", b"$.name", b"$.tags", b"$[0]", b"$[1]",
+             b"$.*", b"$[*]", b"$**.a", b"$.tags[1]", b'$."a b"',
+             b"$.a.b"],
+    "mpath": [b"$.a", b"$.b", b"$.name", b"$[0]", b"$[2]", b"$.tags[0]",
+              b"$.a.b", b"$.z"],
+    "jtext": [b'{"a": 1}', b"[1, 2]", b"3", b'"s"', b"null", b"true",
+              b"bad{", b"", b'{"a": [1, {"b": 2}]}', b"-0.5"],
+    "key": [b"a", b"b", b"name", "été".encode()],
+    "oneall": [b"one", b"all"],
+    "pattern": [b"a%", b"%", b"t_", b"n%", b"x", b"%1%"],
+    "esc": [b"\\", b"|", b""],
 }
 
 _INTS = [0, 1, -1, 2, 3, 7, 12, 31, 63, 64, 100, 224, 256, 1995, 199712,
@@ -117,11 +151,38 @@ def _column(et: str, rng):
                      rng.integers(-100 * 3600 * 10**9,
                                   100 * 3600 * 10**9, N))
         return np.where(ok, v, 0).astype(np.int64), ok
+    if et in _POOLS:
+        pool = _POOLS[et]
+        v = np.empty(N, dtype=object)
+        for i, j in enumerate(rng.integers(0, len(pool), N)):
+            v[i] = pool[j] if ok[i] else b""
+        return v, ok
+    if et == "json":
+        v = np.empty(N, dtype=object)
+        for i in range(N):
+            v[i] = _json_doc(rng) if ok[i] else None
+        return v, ok
     if et in ("enum", "set"):
         hi = len(ENUM_ELEMS) + 2 if et == "enum" else 1 << (len(SET_ELEMS)
                                                             + 1)
         return np.where(ok, rng.integers(0, hi, N), 0).astype(np.uint64), ok
     raise AssertionError(et)
+
+
+def _json_doc(rng, depth: int = 0):
+    """A JSON document: objects over a few keys, arrays, and scalars of
+    every JSON type (the JSON null among them)."""
+    r = rng.random()
+    if depth > 2 or r < 0.4:
+        return [None, True, False, int(rng.integers(-9, 9)),
+                float(rng.integers(-8, 8)) / 4, "t" + str(rng.integers(4)),
+                "", 2 ** 62][int(rng.integers(8))]
+    if r < 0.65:
+        return [_json_doc(rng, depth + 1)
+                for _ in range(int(rng.integers(0, 4)))]
+    return {k: _json_doc(rng, depth + 1) for k in rng.choice(
+        ["a", "b", "name", "tags", "a b"], int(rng.integers(0, 4)),
+        replace=False).tolist()}
 
 
 def _tame(cols, types):
@@ -139,8 +200,6 @@ def _tame(cols, types):
 def _cases():
     out = []
     for name in sorted(REF):
-        if name in JSON_SIGS:
-            continue
         colls = (BINARY, GENERAL_CI) if REF[name].needs_ctx else (BINARY,)
         out += [(name, c) for c in colls]
     return out
@@ -150,6 +209,8 @@ def _arg_types(name: str) -> list:
     meta = REF[name]
     if name in ARG_TYPES:
         return list(ARG_TYPES[name])
+    if name in JSON_ARGS:
+        return list(JSON_ARGS[name])
     arity = meta.arity if meta.arity is not None else 3
     return [meta.args[min(i, len(meta.args) - 1)].value
             for i in range(arity)]
@@ -160,8 +221,9 @@ def _run(build, evaluate, expr_cls, et_cls, name, types, cols, coll):
     for i, t in enumerate(types):
         elems = ENUM_ELEMS if t == "enum" else SET_ELEMS if t == "set" \
             else ()
+        et = "bytes" if t in _POOLS else t
         children.append(expr_cls.column(
-            i, et_cls(t), collation=coll if t == "bytes" else BINARY,
+            i, et_cls(et), collation=coll if et == "bytes" else BINARY,
             elems=elems))
     copies = [(v.copy(), m.copy()) for v, m in cols]
     try:
@@ -177,6 +239,8 @@ def _run(build, evaluate, expr_cls, et_cls, name, types, cols, coll):
 def _same(a, b) -> bool:
     if isinstance(a, D) and isinstance(b, D):
         return str(a) == str(b)
+    if isinstance(a, (dict, list)) or isinstance(b, (dict, list)):
+        return repr(a) == repr(b)
     if isinstance(a, float) and isinstance(b, float):
         return (np.isnan(a) and np.isnan(b)) or a == b or \
             abs(a - b) <= np.spacing(max(abs(a), abs(b)))
@@ -221,11 +285,12 @@ def test_host_answer_matches_reference(sig, coll):
 
 
 def test_registry_matches_reference():
-    """The port registers the reference's sigs but the 30 of impl_json,
-    and nothing the reference lacks; each with the reference's metadata."""
+    """The port registers every sig of the reference, the 30 of impl_json
+    among them, and nothing the reference lacks; each with the reference's
+    metadata (no JSON sig is device-safe)."""
     assert len(JSON_SIGS) == 30
-    assert set(REF) - set(PORT) == JSON_SIGS
-    assert set(PORT) <= set(REF)
+    assert set(REF) == set(PORT)
+    assert not any(PORT[k].device_safe for k in JSON_SIGS)
 
     def meta(m):
         return (m.arity, m.ret.value, [a.value for a in m.args],

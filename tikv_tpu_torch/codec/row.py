@@ -1,7 +1,9 @@
 """Row payload codec: a msgpack map {column_id: datum}, a datum a native
 msgpack scalar (int / float / bytes / str / bool / None) or a DECIMAL, an
 ExtType(1) carrying its exact, scale-preserving text form.  DATETIME,
-DURATION, ENUM and SET travel as their integer cores.
+DURATION, ENUM and SET travel as their integer cores; a JSON document as
+its parsed value: an object a msgpack map with string keys, an array a
+msgpack array (decoded as a list), a scalar as itself.
 
 Reference: tidb_query_datatype/src/codec/row (the JAX package's
 ``codec/row.py`` wire format).  ``encode_row`` is the port's own packer of
@@ -96,6 +98,15 @@ def _pack(v, out: list) -> None:
         out.append(b)
     elif isinstance(v, decimal.Decimal):
         _pack_ext(_EXT_DECIMAL, format(v, "f").encode(), out)
+    elif isinstance(v, dict):
+        _pack_len(len(v), (0x80, 16), (None, 0xDE, 0xDF), out)
+        for k, x in v.items():
+            _pack(k, out)
+            _pack(x, out)
+    elif isinstance(v, (list, tuple)):
+        _pack_len(len(v), (0x90, 16), (None, 0xDC, 0xDD), out)
+        for x in v:
+            _pack(x, out)
     else:
         raise TypeError(f"cannot encode {type(v).__name__} in a row")
 
@@ -103,10 +114,7 @@ def _pack(v, out: list) -> None:
 def encode_row(cols: dict) -> bytes:
     """cols: {column_id: python value or None}."""
     out: list = []
-    _pack_len(len(cols), (0x80, 16), (None, 0xDE, 0xDF), out)
-    for k, v in cols.items():
-        _pack(k, out)
-        _pack(v, out)
+    _pack(cols, out)
     return b"".join(out)
 
 

@@ -6,10 +6,11 @@ For this system the state a request runs against is a table snapshot
 
 - ``table_from_wire(table_id, [(name, col_id, ft_dict, is_pk)])``
 - ``snapshot_from_arrays(table, handles, {name: (eval_type_name, values,
-  validity)}, alive=None)``: every eval type but JSON — INT and DURATION
-  int64, REAL float64, DATETIME (the packed core), ENUM (the 1-based
-  ordinal) and SET (the bitmask) uint64, BYTES ``bytes`` and DECIMAL
-  ``decimal.Decimal`` object arrays; a string column's collation and an
+  validity)}, alive=None)``: INT and DURATION int64, REAL float64,
+  DATETIME (the packed core), ENUM (the 1-based ordinal) and SET (the
+  bitmask) uint64, BYTES ``bytes``, DECIMAL ``decimal.Decimal`` and JSON
+  (parsed documents, ``datatype/myjson.py``) object arrays or sequences;
+  a string column's collation and an
   enum's or set's names ride its field type (``table_from_wire``)
 - ``dag_from_wire(d)``: a request encoded by ``enc_dag`` in either package;
 - ``plan_from_wire(d)``: a plan-IR request encoded by ``enc_plan`` in
@@ -54,10 +55,19 @@ def snapshot_from_arrays(table: Table, handles, columns: dict,
     ``alive``: the rows that exist (delete tombstones), or None."""
     named = {}
     for name, (et, values, validity) in columns.items():
-        values = np.asarray(values)
+        et = EvalType(et)
+        if et.np_dtype == np.dtype(object):
+            # element by element: a JSON array document must stay one value
+            # (np.asarray would make it a dimension)
+            items = values
+            values = np.empty(len(items), dtype=object)
+            for i, x in enumerate(items):
+                values[i] = x
+        else:
+            values = np.asarray(values)
         valid: Optional[np.ndarray] = None if validity is None \
             else np.asarray(validity, dtype=np.bool_)
-        named[name] = Column.from_values(EvalType(et), values, valid)
+        named[name] = Column.from_values(et, values, valid)
     return ColumnarTable.from_arrays(table, np.asarray(handles, np.int64),
                                      named, alive)
 

@@ -16,6 +16,7 @@ fold stays as its plain version, ``checksum_kv_pairs_plain``.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -60,17 +61,17 @@ class ColumnStats:
     buckets: list = field(default_factory=list)
 
 
-def histogram_from_sorted(svals: np.ndarray, n_buckets: int):
+def histogram_from_sorted(svals: np.ndarray, n_buckets: int,
+                          distinct: Optional[int] = None):
     """Equi-depth buckets over an ascending-sorted non-null array.
 
-    Returns ([(upper_bound, cumulative_count)], distinct)."""
+    Returns ([(upper_bound, cumulative_count)], distinct); ``distinct``:
+    the count of distinct values when the caller has it."""
     n = len(svals)
     if n == 0:
         return [], 0
-    if n > 1:
-        distinct = int((svals[1:] != svals[:-1]).sum()) + 1
-    else:
-        distinct = 1
+    if distinct is None:
+        distinct = int((svals[1:] != svals[:-1]).sum()) + 1 if n > 1 else 1
     n_buckets = max(1, min(n_buckets, n))
     # rank positions of bucket upper bounds (inclusive)
     ranks = ((np.arange(1, n_buckets + 1) * n) // n_buckets) - 1
@@ -79,6 +80,26 @@ def histogram_from_sorted(svals: np.ndarray, n_buckets: int):
         v = svals[int(r)]
         out.append((v.item() if hasattr(v, "item") else v, int(r) + 1))
     return out, distinct
+
+
+_canonical = json.JSONEncoder(sort_keys=True, ensure_ascii=False).encode
+_JSON_RANK = {type(None): 0, int: 1, float: 1, str: 2, dict: 3, list: 4,
+              bool: 5}
+
+
+def json_sort_key(v) -> tuple:
+    """A total order over JSON values: MySQL's precedence of JSON types
+    (the JSON null, then numbers, strings, objects, arrays, booleans),
+    numbers by value, strings by code point, booleans false first, objects
+    and arrays by their canonical text; two values are distinct when their
+    keys differ.  The reference sorts the Python values themselves, which
+    raises on objects, on arrays of one length and on mixed types
+    (ROADMAP.md fault 11); where it answers — every value a number, or
+    every one a string — this order is its order."""
+    rank = _JSON_RANK[type(v)]
+    if rank in (3, 4):
+        return rank, _canonical(v)
+    return rank, v
 
 
 def analyze_columns(batch, col_infos, n_buckets: int) -> list:
@@ -91,6 +112,21 @@ def analyze_columns(batch, col_infos, n_buckets: int) -> list:
             valid = col.values[col.validity]
             nulls = total - len(valid)
             svals = np.sort(valid)
+        elif col.eval_type is EvalType.JSON:
+            vals = col.values[col.validity].tolist()
+            nulls = total - len(vals)
+            keys = [json_sort_key(x) for x in vals]
+            order = sorted(range(len(vals)), key=keys.__getitem__)
+            svals = np.empty(len(vals), dtype=object)
+            for i, j in enumerate(order):
+                svals[i] = vals[j]      # an array document stays one value
+            skeys = [keys[i] for i in order]
+            distinct = sum(a != b for a, b in zip(skeys, skeys[1:])) + \
+                bool(skeys)
+            buckets, _ = histogram_from_sorted(svals, n_buckets, distinct)
+            out.append(ColumnStats(info.col_id, total, nulls, distinct,
+                                   buckets))
+            continue
         else:
             # bytes columns: a Python-object sort (an admin path's cost)
             vals = [col.values[j] for j in range(total)

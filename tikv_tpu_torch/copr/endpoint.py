@@ -32,10 +32,16 @@ src/coprocessor/endpoint.rs ``parse_and_handle_unary_request``):
 - ``handle_checksum(ChecksumReq)`` (tp 105): the crc64-xz XOR fold of the
   snapshot's logical KV pairs within the ranges, on the host.
 
+- A paged request (``paging_size`` > 0, endpoint.rs:760-823) is served by
+  the host pipeline, whatever its backend would be: at most about
+  ``paging_size`` rows a response, with ``CopResponse.is_drained`` and the
+  ``resume_token`` the next page's request carries (the handle of the last
+  row served, so a page resumes exactly after it over a newer snapshot).
+
 Each DAG request gets a ``utils.tracker.Tracker`` (unless its caller has
 one current): its phases and labels come back on ``CopResponse.tracker``.
-Paged requests, the fast path and resource tags are outside the port
-(ROADMAP.md queue 1 items 6 and 7).
+The fast path and resource tags are outside the port (ROADMAP.md queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -63,6 +69,11 @@ class CopRequest:
     tp: int
     dag: DAGRequest
     force_backend: Optional[str] = None
+    # > 0: at most about paging_size result rows a response, on the host
+    # pipeline; resume_token: the previous page's (the handle of its last
+    # row), None for the first page
+    paging_size: int = 0
+    resume_token: object = None
 
 
 @dataclass
@@ -74,6 +85,14 @@ class CopResponse:
 
     def rows(self):
         return self.result.rows()
+
+    @property
+    def is_drained(self) -> bool:
+        return self.result.is_drained
+
+    @property
+    def resume_token(self):
+        return self.result.resume_token
 
 
 class Endpoint:
@@ -177,6 +196,16 @@ class Endpoint:
         t0 = time.perf_counter_ns()
         storage = self._snapshot_provider(req)
         backend = self._pick_backend(req, storage)
+        if req.paging_size > 0:
+            # pages are a host-pipeline contract (endpoint.py:398-406)
+            from ..executors.runner import BatchExecutorsRunner
+            tracker.label("backend", "host")
+            with tracker.phase("host_exec"):
+                result = BatchExecutorsRunner(
+                    req.dag, storage, resume_token=req.resume_token
+                ).handle_request(max_rows=req.paging_size)
+            return CopDeferred(self, req, storage, t0, "host", tr,
+                               result=result)
         tracker.label("backend", backend)
         if backend != "device":
             return CopDeferred(self, req, storage, t0, "host", tr,

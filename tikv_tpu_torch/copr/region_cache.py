@@ -856,6 +856,13 @@ class RegionColumnarCache:
                 logging.getLogger(__name__).warning(
                     "cache line retirement hook failed", exc_info=True)
 
+    def region_resident(self, region_id: int) -> int:
+        """Live lines keyed to ``region_id`` (any epoch): a leader gain is
+        a warm promotion only when this store already holds delta-patched
+        lines of the region (``device/supervisor.py`` ``on_role_change``)."""
+        with self._lock:
+            return sum(1 for key in self._lines if key[0] == region_id)
+
     def invalidate_region(self, region_id: int,
                           keep_epoch: Optional[int] = None) -> int:
         """Drop ``region_id``'s lines now → how many.  A split, merge or

@@ -3,8 +3,9 @@
 Reference: components/tidb_query_datatype/src/codec/data_type/vector.rs:14
 (``VectorValue`` — a value vec + null bitmap per eval type).  A column is
 a dense numpy value array plus a boolean validity mask — the layout the
-device feed is built from.  BYTES and DECIMAL values are object arrays
-(``bytes``, ``decimal.Decimal``); the device path serves INT, REAL,
+device feed is built from.  BYTES, DECIMAL and JSON values are object
+arrays (``bytes``, ``decimal.Decimal``, parsed JSON values: SQL NULL is
+the validity, ``None`` in a valid slot the JSON null); the device path serves INT, REAL,
 DATETIME and DURATION columns.
 """
 
@@ -56,6 +57,8 @@ class Column:
             # bodies never meet a mixed representation
             if eval_type is EvalType.DECIMAL:
                 from .mydecimal import ZERO as fill
+            elif eval_type is EvalType.JSON:
+                fill = None     # the JSON null literal
             else:
                 fill = b"" if eval_type is EvalType.BYTES else None
             values = np.empty(n, dtype=object)

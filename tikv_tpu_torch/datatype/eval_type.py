@@ -179,6 +179,10 @@ class FieldType:
                          elems=tuple(elems))
 
     @staticmethod
+    def json() -> "FieldType":
+        return FieldType(tp=FieldTypeTp.JSON)
+
+    @staticmethod
     def new_decimal(flen: int = 20, frac: int = 4) -> "FieldType":
         # not "decimal": that would shadow the dataclass field's default
         return FieldType(tp=FieldTypeTp.NEW_DECIMAL, flen=flen, decimal=frac)

@@ -178,7 +178,7 @@ from ..datatype import Column, ColumnBatch, EvalType, FieldType
 from ..datatype.tile import _device_dtype
 from ..executors.aggregation import agg_ret_ft
 from ..executors.runner import SelectResult
-from ..expr import FUNCTIONS, build_rpn, eval_rpn
+from ..expr import build_rpn, eval_rpn
 from ..expr.eval import _TORCH_DTYPES, narrow_int32
 from ..expr.rpn import RpnColumnRef, RpnConst, RpnExpression, RpnFnCall
 from ..ops.agg import _BIG, AggSpec, finalize_hash, finalize_simple
@@ -225,7 +225,6 @@ _DEVICE_AGGS = ("count", "count_star", "sum", "avg", "min", "max", "first",
 MAX_HASH_CAPACITY = 1 << 20
 
 # where each case outside this port is to be served (ROADMAP.md, queue 1)
-_TODO_EXPR = "ROADMAP.md queue 1 item 2 (the JSON family)"
 _TODO_AGG = ("ROADMAP.md queue 1 item 3 (bit aggregates, multi-key GROUP "
              "BY, FIRST with GROUP BY and over 2^20 distinct keys: the "
              "endpoint's host pipeline serves them)")
@@ -276,6 +275,159 @@ def _fits_dtype(vals: np.ndarray, valid, dt: np.dtype) -> bool:
         return 0 <= lo and hi < (1 << 63)
     info = np.iinfo(dt)
     return info.min <= lo and hi <= info.max
+
+
+# the plan memo's constants derived from the data (``_refresh_meta``)
+_DERIVED = ("dtypes", "hash_bounds", "plan", "arg_nbytes", "fold_bound",
+            "order_bounds")
+
+
+def _pin_dtypes(meta: dict, dtypes: tuple) -> None:
+    """Record the plane dtypes a plan's memo derives its constants under;
+    a memo derived under other dtypes loses them."""
+    if meta.get("dtypes", dtypes) != dtypes:
+        for k in _DERIVED:
+            meta.pop(k, None)
+    meta["dtypes"] = dtypes
+
+
+def _journal_spans(lineage, from_v: int, to_v: int) -> Optional[list]:
+    """The dirty spans of the lineage's patches ``from_v`` → ``to_v``, or
+    None when the gap holds a structural patch or the journal no longer
+    covers it."""
+    patches = lineage.since(from_v, until=to_v)
+    if patches is None or any(p.get("structural") for p in patches):
+        return None
+    return [sp for p in patches for sp in p["spans"]]
+
+
+def _span_col(span, info):
+    """(values, validity or None) of ``info``'s column in a journal span,
+    or None when the span does not carry it."""
+    if info.is_pk_handle:
+        return span["handles"], None
+    return span["cols"].get(info.col_id)
+
+
+def _span_pairs(span, infos) -> Optional[list]:
+    """The span's (values, validity) a plane, NULL rows holding 0 (as a
+    column's do), or None when a column is missing."""
+    out = []
+    for info in infos:
+        got = _span_col(span, info)
+        if got is None:
+            return None
+        v, ok = got
+        ok = np.ones(len(v), np.bool_) if ok is None else ok
+        out.append((np.where(ok, v, 0) if not ok.all() else v, ok))
+    return out
+
+
+def _live(got) -> np.ndarray:
+    """The non-NULL values of a span column's (values, validity)."""
+    vals, ok = got
+    return vals if ok is None or ok.all() else vals[ok]
+
+
+def _dtypes_hold(spans, infos, planes, dtypes) -> bool:
+    """Every dirty value fits its plane's dtype (a float64 order plane
+    holds any)."""
+    if spans is None:
+        return False
+    for j, (info, (_ci, override)) in enumerate(zip(infos, planes)):
+        if override is not None:
+            continue
+        for sp in spans:
+            got = _span_col(sp, info)
+            if got is None or not _fits_dtype(got[0], got[1],
+                                              np.dtype(dtypes[j])):
+                return False
+    return True
+
+
+def _keys_hold(spans, infos, key_rpn, base: int, span: int) -> bool:
+    """Every dirty row's GROUP BY key lies in [base, base + span)."""
+    for sp in spans:
+        pairs = _span_pairs(sp, infos)
+        if pairs is None:
+            return False
+        m = len(sp["handles"])
+        kv, km = eval_rpn(key_rpn, pairs, m, np)
+        live = np.broadcast_to(kv, (m,))[np.broadcast_to(km, (m,))]
+        if live.size and (int(live.min()) < base or
+                          int(live.max()) >= base + span):
+            return False
+    return True
+
+
+def _widths_hold(spans, infos, agg_rpns, arg_nbytes) -> bool:
+    """Every dirty value of a bare SUM/AVG argument needs no more byte
+    planes than its width."""
+    for r, nb in zip(agg_rpns, arg_nbytes):
+        ci = _bare_col(r)
+        if not nb or ci is None:
+            continue    # REAL, another kind, or the width of a dtype
+        for sp in spans:
+            got = _span_col(sp, infos[ci])
+            if got is None:
+                return False
+            live = _live(got)
+            if live.size and kn.int_planes_needed(
+                    int(live.min()), int(live.max())) > nb:
+                return False
+    return True
+
+
+def _bounds_hold(spans, infos, bounds) -> bool:
+    """Every dirty value (0 at a NULL) lies within its plane's (least,
+    greatest) bounds of the int32 narrowing's proof."""
+    for sp in spans:
+        pairs = _span_pairs(sp, infos)
+        if pairs is None:
+            return False
+        for (v, _ok), b in zip(pairs, bounds):
+            if b is not None and v.size and (int(v.min()) < b[0] or
+                                             int(v.max()) > b[1]):
+                return False
+    return True
+
+
+def _fold_bound_holds(spans, infos, agg_rpns, dtypes, bound) -> bool:
+    """Every dirty value of an int32 INT argument has |v| ≤ ``bound``."""
+    if bound is None:
+        return True     # a computed argument: no value bound was taken
+    if dtypes is None:
+        return False
+    for r in agg_rpns:
+        ci = _bare_col(r)
+        if ci is None or r.ret_type is not EvalType.INT or \
+                dtypes[ci] != "int32":
+            continue
+        for sp in spans:
+            got = _span_col(sp, infos[ci])
+            if got is None:
+                return False
+            live = _live(got)
+            if live.size and max(-int(live.min()), int(live.max())) > bound:
+                return False
+    return True
+
+
+def _order_bounds_hold(spans, infos, order_rpn, bounds) -> bool:
+    """Every dirty non-NULL value of the bare order column lies within the
+    (least, greatest) bounds the top-k digit was placed by."""
+    ci = _bare_col(order_rpn)
+    if ci is None:
+        return True
+    for sp in spans:
+        got = _span_col(sp, infos[ci])
+        if got is None:
+            return False
+        live = _live(got)
+        if live.size and (bounds is None or live.min() < bounds[0] or
+                          live.max() > bounds[1]):
+            return False
+    return True
 
 
 def _next_pow2(n: int) -> int:
@@ -507,9 +659,14 @@ class DeviceRunner:
         self._plan_cache_max = 4096
         # feed anchor → bucket: {feed_key: feed, ("meta", ...): per-plan
         # memo, ("dtypes", ...): the feed planes' dtypes}; a memo holds one
-        # lineage version, started afresh when a request of another comes
-        # (``_request_meta``)
+        # lineage version, rolled forward across the journal's patches by
+        # what they provably leave valid (``_request_meta``)
         self._arena = FeedArena(budget_bytes=hbm_budget_bytes)
+        # the plan memos rolled forward: "kept" (the derived constants
+        # survived the gap), "dropped" (derived again); ``last_refresh``
+        # holds the last roll-forward's record, field by field
+        self.memo_routes: dict = {}
+        self.last_refresh: Optional[dict] = None
         # host-clock ms by phase of the last split_resident_feeds
         self.split_phases_ms: dict = {}
         # selectivity EWMA per exact plan key and per const-blind shape key
@@ -630,11 +787,9 @@ class DeviceRunner:
                 return None, (f"TopN over {len(terminal.order_by)} keys, "
                               f"limit {terminal.limit}: {_TODO_HOST}")
             exprs.append(terminal.order_by[0][0])
-        unknown = set().union(*map(_expr_sigs, exprs)) - set(FUNCTIONS) \
-            if exprs else set()
-        if unknown:
-            return None, f"functions {sorted(unknown)}: {_TODO_EXPR}"
-
+        # a sig that no registry knows raises here (``build_rpn``'s
+        # ValueError), as in the reference; a known host-only sig (the JSON,
+        # string, DECIMAL families) is refused by ``_rpn_device_safe``
         sel_rpns = [build_rpn(e) for e in sel_exprs]
         plan = _Plan(scan=scan, kind="scan_sel", used_cols=[])
         rpns = list(sel_rpns)
@@ -1863,7 +2018,7 @@ class DeviceRunner:
         a settled ``SelectResult`` when nothing needs the device."""
         st = self._bucket(storage)
         req_v = self._feed_version(storage)
-        meta = self._request_meta(st, dag, req_v)
+        meta = self._request_meta(st, dag, plan, storage, req_v)
         memo: dict = {}
 
         def get_batch() -> ColumnBatch:
@@ -1883,7 +2038,8 @@ class DeviceRunner:
 
         planes = self._feed_planes(plan)
         dtypes = self._feed_dtypes(st, plan, dag.ranges, planes, get_batch,
-                                   req_v)
+                                   storage, req_v)
+        _pin_dtypes(meta, dtypes)
 
         def host_cols() -> list:
             """Device-dtype numpy (values, validity) pairs; request-local
@@ -1915,13 +2071,14 @@ class DeviceRunner:
         """The plan's kernels over ``feed`` → a ``_Pending`` or a settled
         result."""
         if "plan" not in meta:
-            meta["plan"] = self._narrowed(plan, host_cols, dtypes)
+            meta["plan"], meta["narrow_bounds"] = self._narrowed(
+                plan, host_cols, dtypes)
         plan = meta["plan"]
 
         if plan.kind == "scan_sel":
             if stack is not None:
-                return self._run_stacked(stack, st, feed, n, host_cols,
-                                         dtypes, req_v)
+                return self._run_stacked(stack, st, storage, feed, n,
+                                         host_cols, dtypes, req_v)
             return self._run_scan_sel(dag, plan, feed, n, get_batch,
                                       storage)
         if stack is not None:
@@ -1950,33 +2107,109 @@ class DeviceRunner:
         return [(ci, None) for ci in plan.used_cols] + \
             [(ci, "float64") for ci in plan.f64_cols]
 
-    @staticmethod
-    def _request_meta(st, dag, req_v) -> dict:
+    def _request_meta(self, st, dag, plan, storage, req_v) -> dict:
         """The plan's memo in ``st`` for lineage version ``req_v``: one a
-        plan and ranges, kept while the version holds and started afresh
-        when a request of another version comes.  The reference rolls its
-        memo forward the same way (``_refresh_meta``, runner.py:3467),
-        keeping the constants a gap provably leaves valid; here all of it
-        is derived again, and a write leaves no dead memo (nor the sparse
-        slot plane it holds on the card) behind."""
+        plan and ranges, shared by the requests of every version
+        (runner.py:3085-3105).  A memo that lags ``req_v`` is rolled
+        forward across the journal's patches (``_refresh_meta``); a read of
+        an older generation (served from the line's history) gets a memo
+        of its own and leaves the shared one as it is."""
         key = ("meta", dag.plan_key(), dag.ranges)
         meta = st.get(key)
-        if meta is None or meta["lineage_v"] != req_v:
+        if meta is None:
             meta = st[key] = {"lineage_v": req_v}
+        mv = meta["lineage_v"]
+        if mv is None or req_v is None or mv == req_v:
+            return meta
+        if mv > req_v:
+            return {"lineage_v": req_v}
+        self._refresh_meta(meta, storage.feed_lineage, plan, mv, req_v)
         return meta
 
-    @staticmethod
-    def _feed_dtypes(st, plan, ranges, planes, get_batch,
+    def _refresh_meta(self, meta: dict, lineage, plan, from_v: int,
+                      to_v: int) -> None:
+        """Roll a plan's memo forward across the journal's patches
+        ``from_v`` → ``to_v`` (runner.py:3467-3554).
+
+        The row count always drops, and so does a sparse key's slot recode
+        (new rows have no slot ids).  The constants derived from the data
+        — the plane dtypes, the hash key bounds, the byte-plane widths of
+        the SUM/AVG arguments — survive together only when every dirty
+        span provably stays inside them, as in the reference: a kept
+        violated constant would corrupt answers, a dropped valid one costs
+        a derivation.  A structural patch, or a gap the journal no longer
+        covers, drops them all.  The constants this port derives beside
+        them (the int32 narrowing's bounds, ``agg_fold``'s value bound,
+        the top-k digit's bounds) survive only with them and by their own
+        proof.  ``last_refresh`` records each field: "kept", "dropped" or
+        "absent"."""
+        for k in ("n_rows", "sparse_slots"):
+            meta.pop(k, None)
+        spans = _journal_spans(lineage, from_v, to_v)
+        planes = self._feed_planes(plan)
+        infos = [plan.scan.columns[ci] for ci, _dt in planes]
+        dtypes = meta.get("dtypes")
+        keep = spans is not None and (dtypes is None or _dtypes_hold(
+            spans, infos, planes, dtypes))
+        if keep and "hash_bounds" in meta:
+            keep = _keys_hold(spans, infos, plan.key_rpn,
+                              *meta["hash_bounds"])
+        if keep and "arg_nbytes" in meta:
+            keep = _widths_hold(spans, infos, plan.agg_rpns,
+                                meta["arg_nbytes"])
+        # the port's own constants: each kept by its own proof too
+        own = {"plan": lambda: meta.get("narrow_bounds") is None or
+               _bounds_hold(spans, infos, meta["narrow_bounds"]),
+               "fold_bound": lambda: _fold_bound_holds(
+                   spans, infos, plan.agg_rpns, dtypes, meta["fold_bound"]),
+               "order_bounds": lambda: _order_bounds_hold(
+                   spans, infos, plan.order_rpn, meta["order_bounds"])}
+        record = {"from": from_v, "to": to_v, "kept": keep}
+        for k in _DERIVED:
+            if k not in meta:
+                record[k] = "absent"
+                continue
+            ok = keep and (k not in own or own[k]())
+            if k == "arg_nbytes" and record["plan"] == "dropped":
+                # a computed argument's width is that of its narrowed dtype
+                ok = ok and all(_bare_col(r) is not None or not nb
+                                for r, nb in zip(plan.agg_rpns, meta[k]))
+            record[k] = "kept" if ok else "dropped"
+            if not ok:
+                meta.pop(k)
+        if "plan" not in meta:
+            meta.pop("narrow_bounds", None)
+        meta["lineage_v"] = to_v
+        self.last_refresh = record
+        self._note_route("kept" if keep else "dropped", self.memo_routes)
+        tracker.label("memo", "kept" if keep else "dropped")
+
+    def _feed_dtypes(self, st, plan, ranges, planes, get_batch, storage,
                      req_v=None) -> tuple:
         """The feed planes' dtypes on this snapshot: a column's device
         dtype depends on its values, so it is memoized per anchor, scan and
-        columns (every plan over them shares it) for one lineage version
-        at a time, as the plans' memos are."""
+        columns (every plan over them shares it), with the verdict of
+        ``FeedBeyondInt64``.  It rolls forward across the journal's patches
+        while every dirty span fits it, as the plans' memos do; an older
+        generation's read derives its own."""
         key = ("dtypes", _scan_key(plan.scan),
                tuple(plan.scan.columns[ci].col_id for ci, _ in planes),
                tuple(dt for _ci, dt in planes), ranges)
         got = st.get(key)
-        if got is None or got[0] != req_v:
+        if got is not None and got[0] != req_v:
+            gv = got[0]
+            if gv is not None and req_v is not None and gv > req_v:
+                got = None
+                st = {}     # derived for this read alone
+            elif gv is not None and req_v is not None and \
+                    got[1] is not None and _dtypes_hold(
+                        _journal_spans(storage.feed_lineage, gv, req_v),
+                        [plan.scan.columns[ci] for ci, _ in planes], planes,
+                        got[1]):
+                got = st[key] = (req_v, got[1])
+            else:
+                got = None
+        if got is None:
             batch = get_batch()
             if any(_beyond_int64(batch.columns[ci]) for ci, _dt in planes):
                 got = st[key] = (req_v, None)
@@ -2033,7 +2266,7 @@ class DeviceRunner:
                             st, plan, dag.ranges, planes,
                             lambda: storage.scan_columns(plan.scan,
                                                          dag.ranges),
-                            self._feed_version(storage))
+                            storage, self._feed_version(storage))
                     except FeedBeyondInt64:
                         # its solo dispatch raises it to the endpoint
                         return None
@@ -2073,16 +2306,19 @@ class DeviceRunner:
             raise _BatchUnavailable(f"device fault: {e}") from e
         return _BatchedSelectionGroup(self, gp, list(members))
 
-    def _member_plan(self, st, dag, host_cols, dtypes, req_v):
+    def _member_plan(self, st, storage, dag, host_cols, dtypes, req_v):
         """A stacked member's plan, narrowed on this snapshot as its own
         solo request would be (memoized in its meta)."""
-        meta = self._request_meta(st, dag, req_v)
+        plan = self._analyze(dag)[0]
+        meta = self._request_meta(st, dag, plan, storage, req_v)
+        _pin_dtypes(meta, dtypes)
         if "plan" not in meta:
-            plan = self._analyze(dag)[0]
-            meta["plan"] = self._narrowed(plan, host_cols, dtypes)
+            meta["plan"], meta["narrow_bounds"] = self._narrowed(
+                plan, host_cols, dtypes)
         return meta["plan"]
 
-    def _run_stacked(self, dags, st, feed, n, host_cols, dtypes, req_v):
+    def _run_stacked(self, dags, st, storage, feed, n, host_cols, dtypes,
+                     req_v):
         """The stacked selection (runner.py:4217-4245): every member's
         program, encoded against the same feed, runs as one lane of one
         ``sel_pred_batched`` launch; the whole group's counts and packed
@@ -2092,7 +2328,8 @@ class DeviceRunner:
         pdt = tuple(v.dtype for v, _ok in planes)
         plans, progs = [], []
         for dag in dags:
-            plan = self._member_plan(st, dag, host_cols, dtypes, req_v)
+            plan = self._member_plan(st, storage, dag, host_cols, dtypes,
+                                     req_v)
             if plan.sel_route != PRED_KERNEL:
                 raise _BatchUnavailable("a member off the sel_pred route")
             prog = plan.sel_programs.get(pdt)
@@ -2139,10 +2376,11 @@ class DeviceRunner:
     def _narrowed(plan, host_cols, dtypes):
         """``plan`` with its INT arithmetic kept in int32 wherever this
         snapshot's column bounds prove it exact (``narrow_int32``); every
-        other INT arithmetic call evaluates in int64."""
+        other INT arithmetic call evaluates in int64 → (plan, the bounds a
+        plane the proof used, or None where it used none)."""
         rpns = plan.sel_rpns + plan.agg_rpns + [plan.key_rpn, plan.order_rpn]
         if not _has_int64_calls(rpns):
-            return plan
+            return plan, None
         bounds = []
         for (v, _ok), d in zip(host_cols(), dtypes):
             if np.dtype(d).kind == "f":
@@ -2158,7 +2396,8 @@ class DeviceRunner:
             plan, sel_params=None, sel_programs={},
             sel_rpns=[narrow(r) for r in plan.sel_rpns],
             agg_rpns=[narrow(r) for r in plan.agg_rpns],
-            key_rpn=narrow(plan.key_rpn), order_rpn=narrow(plan.order_rpn))
+            key_rpn=narrow(plan.key_rpn),
+            order_rpn=narrow(plan.order_rpn)), tuple(bounds)
 
     @staticmethod
     def _apply_output_offsets(dag, result):

@@ -34,7 +34,11 @@ Counterpart of the JAX package's ``device/supervisor.py``:
   retired line drops its device feeds (``on_line_retired`` →
   ``drop_feed``).  Its scrub (``scrub``, on demand or from a thread every
   ``scrub_interval`` seconds) re-hashes every resident plane and
-  quarantines an anchor whose planes diverged from their record.
+  quarantines an anchor whose planes diverged from their record.  A role
+  change drives the replica-feed state machine (``on_role_change``,
+  :1199-1320): a demoted region's lines stay resident and patched, and a
+  leader gain over them re-verifies their planes' digests instead of
+  rebuilding (``promote_region``).
 
 - ``RemintGovernor`` (:952-1068): bounded, priority-ordered admission of
   cold builds (``RegionColumnarCache.remint_gate``): hot regions first,
@@ -677,7 +681,19 @@ class DeviceStateSupervisor(Observer):
     while the parent planes are still resident.  The ``device::device_split``
     failpoint, and any split that mints no child feed, count in
     ``split_fallbacks``: those children upload from host truth.  A split
-    kernel that fails to build or launch raises."""
+    kernel that fails to build or launch raises.
+
+    ``on_role_change(region_id, is_leader)`` (supervisor.py:1199-1320): a
+    leader loss keeps the region's lines resident as replica feeds (the
+    sink sees the follower's applies, so they stay patched) and counts a
+    demotion; a leader gain over a replica feed, or over lines still
+    resident, promotes it: ``promote_region`` re-hashes every resident
+    plane of the region on the device (``runner.scrub_feed``, one
+    ``digest.plane_digest`` a plane, under the dispatch lock), tracker
+    phase ``replica_promote``, and builds nothing.  A divergence, or the
+    ``copr::replica_promote`` failpoint, quarantines the anchor and
+    invalidates the region's lines: the next request pays the cold build,
+    counted in ``promotion_rebuilds``."""
 
     def __init__(self, runner=None, copr_cache=None, delta_sink=None,
                  scrub_interval: float = 0.0, scrub_max_lines: int = 0):
@@ -702,6 +718,16 @@ class DeviceStateSupervisor(Observer):
         # host-clock ms of the last split: the cache's line slicing and the
         # runner's device split
         self.split_phases_ms: dict = {}
+        # the replica-feed state machine: the regions whose lines this store
+        # keeps as follower feeds (demoted leaders, regions that served a
+        # stale read)
+        self._replica_feed_regions: set = set()
+        self.promotions = 0             # leader gains over a warm feed
+        self.promotion_rebuilds = 0     # promotions that failed to verify
+        self.demotions = 0              # leader losses (lines kept)
+        # the last promotion's verify: {lines, planes, divergences,
+        # quarantined_regions, ms}
+        self.last_promotion: dict = {}
         if copr_cache is not None and runner is not None:
             copr_cache.on_line_retired = self.on_line_retired
 
@@ -759,6 +785,86 @@ class DeviceStateSupervisor(Observer):
             self.split_phases_ms = {
                 "split_lines": (t1 - t0) * 1e3,
                 "device_split": (time.perf_counter() - t1) * 1e3}
+
+    # -- the replica-feed state machine -------------------------------
+
+    def on_role_change(self, region_id: int, is_leader: bool) -> None:
+        """A leader loss keeps the region's lines (a demotion); a leader
+        gain over a replica feed, or over lines still resident, promotes
+        it by a digest re-verify, never a build."""
+        if self._cache is None:
+            return
+        if not is_leader:
+            with self._mu:
+                self.demotions += 1
+                self._replica_feed_regions.add(region_id)
+            return
+        with self._mu:
+            was_replica = region_id in self._replica_feed_regions
+            self._replica_feed_regions.discard(region_id)
+        if was_replica or self._cache.region_resident(region_id):
+            self.promote_region(region_id)
+
+    def note_replica_feed(self, region_id: int) -> None:
+        """A stale read served from this store's line: the line is a live
+        replica feed."""
+        with self._mu:
+            self._replica_feed_regions.add(region_id)
+
+    def promote_region(self, region_id: int) -> bool:
+        """Warm promotion of the region's replica feeds → True when every
+        resident plane matched its recorded digest.  Otherwise (or when the
+        ``copr::replica_promote`` failpoint fires) the region's lines are
+        invalidated and the next request builds them again."""
+        from ..utils import tracker
+        ok = fail_point("copr::replica_promote") is None
+        if ok:
+            with tracker.phase("replica_promote"):
+                ok = self._verify_region_digests(region_id)
+        with self._mu:
+            self.promotions += 1
+            if not ok:
+                self.promotion_rebuilds += 1
+        if not ok:
+            n = self._cache.invalidate_region(region_id)
+            if n:
+                self._note_invalidations(n)
+        return ok
+
+    def _verify_region_digests(self, region_id: int) -> bool:
+        """Re-hash the region's resident feeds on the device against their
+        records, each anchor under the runner's dispatch lock (a patch
+        writes the planes in place); a diverged anchor is quarantined, as a
+        scrub hit is.  No runner: trivially clean."""
+        out = {"lines": 0, "planes": 0, "divergences": 0,
+               "quarantined_regions": []}
+        runner = self._runner
+        t0 = time.perf_counter()
+        clean = True
+        if runner is not None and hasattr(runner, "arena_items"):
+            dispatch_mu = getattr(runner, "_dispatch_mu", None) or \
+                contextlib.nullcontext()
+            for anchor, bucket in runner.arena_items():
+                if getattr(anchor, "region_hint", None) != region_id:
+                    continue
+                with dispatch_mu:
+                    feeds = [v for v in list(bucket.values())
+                             if isinstance(v, dict) and "flat" in v and
+                             v.get("digests") is not None]
+                    diverged = False
+                    for feed in feeds:
+                        out["planes"] += len(feed["digests"])
+                        if runner.scrub_feed(feed):
+                            diverged = True
+                            break
+                    if diverged:
+                        clean = False
+                        out["divergences"] += 1
+                        self._quarantine(runner, anchor, out)
+                out["lines"] += bool(feeds)
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        self.last_promotion = out
+        return clean
 
     def on_data_replaced(self, region_id: int, index: int) -> None:
         """A snapshot apply replaced the region's data: the sink has
@@ -909,6 +1015,10 @@ class DeviceStateSupervisor(Observer):
     def stats(self) -> dict:
         with self._mu:
             out = {"lifecycle_invalidations": self.lifecycle_invalidations,
+                   "promotions": self.promotions,
+                   "promotion_rebuilds": self.promotion_rebuilds,
+                   "demotions": self.demotions,
+                   "replica_feeds": len(self._replica_feed_regions),
                    "splits": self.splits,
                    "split_fallbacks": self.split_fallbacks,
                    "scrub_passes": self.scrub_passes,

@@ -375,10 +375,54 @@ class BatchColumnarTableScanExecutor(TimedExecutor):
         self._batch = snapshot.scan_columns(desc, ranges)
         self._pos = 0
         self._schema = list(desc.schema)
+        self._src = (snapshot, desc, ranges)
+        self._hcache = None
 
     @property
     def schema(self) -> list[FieldType]:
         return self._schema
+
+    # -- paging (endpoint.rs's paged requests) --
+    #
+    # A page resumes after the LAST RETURNED HANDLE, not at a row offset:
+    # each page may read a newer snapshot (writes land between pages), and
+    # a handle stays exact where an offset would skip or repeat rows.
+
+    def _scan_handles(self):
+        """The handles of the scan's rows in scan order, or None when the
+        scan cannot resume (an index scan, a descending scan, a storage
+        without handles)."""
+        if self._hcache is None:
+            snap, desc, ranges = self._src
+            tbl = snap if hasattr(snap, "_range_slices") else \
+                getattr(snap, "_tbl", None)     # MvccColumnarSnapshot
+            if tbl is None or isinstance(desc, IndexScanDesc) or desc.desc:
+                self._hcache = False
+            else:
+                alive = getattr(tbl, "alive", None)
+                parts = [tbl.handles[i:j] if alive is None
+                         else tbl.handles[i:j][alive[i:j]]
+                         for i, j in tbl._range_slices(ranges)]
+                self._hcache = parts[0] if len(parts) == 1 else (
+                    np.concatenate(parts) if parts else tbl.handles[:0])
+        return None if self._hcache is False else self._hcache
+
+    def resume_handle(self):
+        """The next page's token: the last consumed row's handle, or None
+        when nothing was consumed or the scan cannot resume."""
+        h = self._scan_handles()
+        if h is None or self._pos == 0:
+            return None
+        return int(h[self._pos - 1])
+
+    def skip_after_handle(self, token: int) -> None:
+        h = self._scan_handles()
+        if h is None:
+            raise ValueError("scan does not support handle resume")
+        self._pos = int(np.searchsorted(h, token, side="right"))
+
+    def supports_resume(self) -> bool:
+        return self._scan_handles() is not None
 
     def _next_batch(self, scan_rows: int) -> BatchExecuteResult:
         start = self._pos

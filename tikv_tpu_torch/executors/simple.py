@@ -97,4 +97,6 @@ def _ft_of(rpn) -> FieldType:
         return FieldType.var_char()
     if et is EvalType.DECIMAL:
         return FieldType.new_decimal()
+    if et is EvalType.JSON:
+        return FieldType.json()
     return FieldType.long()

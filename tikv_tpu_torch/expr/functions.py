@@ -25,7 +25,7 @@ strings, DECIMAL, time fields, enum/set and addresses — computes with
 numpy on the host pipeline whatever ``xp`` it is handed.  ``needs_ctx``
 sigs take the node's (collation, enum/set names) as ``ctx=``, ``needs_rows``
 sigs the row count as ``n_rows=`` (``eval.py``).  The JSON family
-(``impl_json``) is outside the port (ROADMAP.md queue 1).
+(``impl_json``) is host only, as in the reference.
 
 INT arithmetic (``PlusInt``, ``MinusInt``, ``MultiplyInt``,
 ``UnaryMinusInt``) and the shifts (``LeftShift``, ``RightShift``) carry
@@ -587,6 +587,7 @@ _register_cast()
 _register_math()
 
 # family modules (imported late: they need the registry decorator above)
+from . import impl_json as _impl_json      # noqa: E402
 from . import impl_like as _impl_like      # noqa: E402
 from . import impl_misc as _impl_misc      # noqa: E402
 from . import impl_string as _impl_string  # noqa: E402
@@ -597,4 +598,5 @@ _impl_string.register()
 _impl_like.register()
 _impl_time.register()
 _impl_types.register()
+_impl_json.register()
 _impl_misc.register()

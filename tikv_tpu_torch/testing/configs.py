@@ -66,6 +66,19 @@ The time-types cells (``TIME_CELLS``, ``build_time_table``, ``dag_time``,
 - cell tshift: ``COUNT(*) WHERE (k << 40) >> 38 > 1000`` over ``k``'s int32
   plane: the shifts in int64 on the torch route.
 
+Cell tj (``build_json_table``, ``dag_json``, ``json_truth``) is a table
+with a JSON column: ``id`` INT handle, ``k`` INT over 1024 groups, ``v``
+INT in [0, 1000), ``doc`` JSON ``{"k": k, "tag": "t<k % 8>", "n": [v, v +
+1]}``, NULL on 10%, seed 25:
+
+- tj1: ``COUNT(*), SUM(v) WHERE v > 500 GROUP BY k``: on the card; its feed
+  holds no plane of ``doc``;
+- tj2: ``COUNT(*) WHERE JSON_CONTAINS(JSON_EXTRACT(doc, '$.tag'),
+  CAST('"t3"' AS JSON)) GROUP BY k`` (neither registry has a JSON ``=``;
+  JSON_CONTAINS of two scalars is their equality): host only;
+- tjp: ``WHERE v > 500`` alone, the rows (``id, k, v``), the cell's paged
+  request.
+
 The plan-IR configurations (``PLAN_CELLS``, ``plan_truth``) run on config
 7's pair of tables (``build_join_pair``, ``bench.py:243-312``): a probe
 table ``(id, k ∈ [0, n_build), v ∈ [-1000, 1000))`` against a build table
@@ -820,6 +833,113 @@ def analyze_oversized_case(rows: int = 1 << 20) -> tuple:
     v = np.arange(rows, dtype=np.int32)
     v[taken] = (1 << 21) + np.arange(taken.size, dtype=np.int32) * (1 << 18)
     return v, np.ones(rows, np.bool_), rows, 256
+
+
+# ---------------------------------------------------------------------------
+# cell tj: a table with a JSON column
+# ---------------------------------------------------------------------------
+
+JSON_CELLS = ("tj1", "tj2", "tjp")
+JSON_THRESHOLD = 500
+
+
+def json_table(with_doc: bool = True) -> Table:
+    cols = [TableColumn("id", 1, FieldType.long(not_null=True),
+                        is_pk_handle=True),
+            TableColumn("k", 2, FieldType.long()),
+            TableColumn("v", 3, FieldType.long())]
+    if with_doc:
+        cols.append(TableColumn("doc", 4, FieldType.json()))
+    return Table(9625, tuple(cols))
+
+
+def build_json_table(n: int, seed: int = 25):
+    """→ (table, snapshot, the same snapshot without ``doc``: the same
+    arrays)."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, GROUPS, n).astype(np.int64)
+    v = rng.integers(0, 1000, n).astype(np.int64)
+    ok = rng.random(n) >= NULL_SHARE
+    docs = np.empty(n, dtype=object)       # None: the NULL rows' fill
+    kl, vl = k.tolist(), v.tolist()
+    for i in np.flatnonzero(ok).tolist():
+        docs[i] = {"k": kl[i], "tag": f"t{kl[i] % 8}",
+                   "n": [vl[i], vl[i] + 1]}
+    ones = np.ones(n, dtype=np.bool_)
+    h = np.arange(n, dtype=np.int64)
+    cols = {"k": Column(EvalType.INT, k, ones),
+            "v": Column(EvalType.INT, v, ones)}
+    table = json_table()
+    snap = ColumnarTable.from_arrays(
+        table, h, dict(cols, doc=Column(EvalType.JSON, docs, ok)))
+    return table, snap, ColumnarTable.from_arrays(json_table(False), h, cols)
+
+
+def dag_json(table: Table, cell: str):
+    s = DagSelect.from_table(table, ["id", "k", "v"] if cell != "tj2"
+                             else ["id", "k", "doc"])
+    b = EvalType.BYTES
+    if cell == "tj1":
+        return s.where(s.col("v") > JSON_THRESHOLD).aggregate(
+            [s.col("k")], [("count_star", None), ("sum", s.col("v"))]) \
+            .build()
+    if cell == "tj2":
+        return s.where(Expr.call(
+            "JsonContainsSig",
+            Expr.call("JsonExtractSig", s.col("doc"),
+                      Expr.const(b"$.tag", b)),
+            Expr.call("CastStringAsJson", Expr.const(b'"t3"', b)))) \
+            .aggregate([s.col("k")], [("count_star", None)]).build()
+    if cell == "tjp":
+        return s.where(s.col("v") > JSON_THRESHOLD).build()
+    raise ValueError(cell)
+
+
+def json_truth(cell: str, snap):
+    """The cell's answer from numpy alone: groups in ascending key order
+    (tj1, tj2), the selected ids (tjp)."""
+    k, v = snap.columns[2].values, snap.columns[3].values
+    if cell == "tjp":
+        return np.flatnonzero(v > JSON_THRESHOLD)
+    if cell == "tj1":
+        m = v > JSON_THRESHOLD
+        count = np.bincount(k[m], minlength=GROUPS)
+        total = np.bincount(k[m], weights=v[m], minlength=GROUPS)
+        return [(int(count[g]), int(total[g]), g)
+                for g in np.flatnonzero(count).tolist()]
+    if cell == "tj2":
+        ok = snap.columns[4].validity
+        count = np.bincount(k[ok & (k % 8 == 3)], minlength=GROUPS)
+        return [(int(count[g]), g) for g in np.flatnonzero(count).tolist()]
+    raise ValueError(cell)
+
+
+def json_doc_stats_truth(snap, buckets: int):
+    """``doc``'s ``ColumnStats`` from the arrays its documents were made
+    of: a document is its (k, v) pair, and the order of the documents is
+    the order of their canonical texts (``copr.analyze.json_sort_key``)."""
+    import json
+    from ..copr.analyze import ColumnStats
+    k, v = snap.columns[2].values, snap.columns[3].values
+    ok = snap.columns[4].validity
+    pair = k[ok] * 1000 + v[ok]
+    uniq, counts = np.unique(pair, return_counts=True)
+    texts = [json.dumps({"k": int(p // 1000), "n": [int(p % 1000),
+                                                     int(p % 1000) + 1],
+                         "tag": f"t{int(p // 1000) % 8}"}, sort_keys=True)
+             for p in uniq.tolist()]
+    order = sorted(range(len(uniq)), key=texts.__getitem__)
+    cum = np.cumsum(counts[order])
+    nv = int(ok.sum())
+    nb = max(1, min(buckets, nv))
+    ranks = np.arange(1, nb + 1, dtype=np.int64) * nv // nb - 1
+    at = np.searchsorted(cum, ranks, side="right")
+    out = []
+    for j, r in zip(at.tolist(), ranks.tolist()):
+        p = int(uniq[order[j]])
+        out.append(({"k": p // 1000, "tag": f"t{(p // 1000) % 8}",
+                     "n": [p % 1000, p % 1000 + 1]}, r + 1))
+    return ColumnStats(4, len(k), len(k) - nv, len(uniq), out)
 
 
 # ---------------------------------------------------------------------------
