@@ -4343,10 +4343,17 @@ def plan_kernels_at_main_shapes(pair, dev) -> tuple:
             "ms": cuda_ms(lambda: jp.join_probe(*built_r[:3], kr, None,
                                                 mask, k_cap, idx), 10,
                           queued=True),
+            "library_ms": cuda_ms(lambda: (
+                torch.searchsorted(built_r.sk, kr, right=False),
+                torch.searchsorted(built_r.sk, kr, right=True)), 5),
+            "library_call": "torch.searchsorted left and right of the "
+                            "route's probe keys into its sk (the runs, "
+                            "not the pairs)",
             "build_keys": "0..2^20-1" if route == "dense"
             else "(0..2^20-1) << 20, probe keys likewise"}
         print(f"join_probe at config 7: route {route}, "
-              f"{routes[route]['ms']} ms", flush=True)
+              f"{routes[route]['ms']} ms, searchsorted left + right "
+              f"{routes[route]['library_ms']} ms", flush=True)
         del built_r, kr, bkr
     del want
     t["join_probe"] = {
@@ -6362,6 +6369,402 @@ def run_ingest(runner) -> dict:
             "checksum": out["checksum"], "wall_s": out["wall_s"]}
 
 
+SRV_KEYS = INGEST_KEYS          # 6c's region, one region of 10 GiB
+SRV_CHUNK = INGEST_CHUNK        # bench.py:448's SST chunk
+SRV_PART = 4 << 20              # ImportUpload's part
+SRV_WARM = 5
+SRV_BUCKETS = 256               # TiDB's ANALYZE buckets
+SRV_BATCH = 64
+SRV_SCAN = 1000
+SRV_CHECKSUM = 1 << 16
+
+
+def srv_call(svc, method: str, req: dict, raw: bool = True) -> tuple:
+    """One request through ``KvService`` (packed bytes through
+    ``handle_raw``, or the dict through ``handle``) → (response, ms on
+    the host clock); an error response raises."""
+    from tikv_tpu_torch.server import wire
+    body = wire.pack(req) if raw else req
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp = svc.handle_raw(method, body) if raw else svc.handle(method, body)
+    ms = (time.perf_counter() - t0) * 1e3
+    assert isinstance(resp, dict) and not resp.get("error"), \
+        (method, resp.get("error") if isinstance(resp, dict) else resp)
+    return resp, ms
+
+
+def srv_logical_pairs(tid: int, h, c0, c1) -> tuple:
+    """The logical KV pairs of rows (``h``, ``c0``, ``c1``) — record key,
+    ``encode_row({2: c0, 3: c1})`` — built with numpy, independently of
+    the store (CHECKSUM folds XOR, so the pairs may come in any order):
+    → (keys, values) lists of bytes."""
+    sign = np.uint64(1 << 63)
+    n = len(h)
+    key = np.empty((n, 19), np.uint8)
+    key[:, 0] = ord("t")
+    key[:, 1:9] = np.frombuffer(
+        ((tid + (1 << 63)) % (1 << 64)).to_bytes(8, "big"), np.uint8)
+    key[:, 9], key[:, 10] = ord("_"), ord("r")
+    key[:, 11:] = (h.astype(np.uint64) ^ sign).astype(">u8").view(
+        np.uint8).reshape(n, 8)
+
+    def packed(v):
+        """msgpack's positive fixint / uint8 / uint16 forms of ``v``."""
+        w = np.where(v < 128, 1, np.where(v < 256, 2, 3))
+        out = np.zeros((len(v), 3), np.uint8)
+        out[w == 1, 0] = v[w == 1]
+        out[w == 2, 0], out[w == 2, 1] = 0xCC, v[w == 2]
+        out[w == 3, 0] = 0xCD
+        out[w == 3, 1], out[w == 3, 2] = v[w == 3] >> 8, v[w == 3] & 0xFF
+        return out, w
+
+    p0, w0 = packed(np.asarray(c0, np.int64))
+    p1, w1 = packed(np.asarray(c1, np.int64))
+    keys, vals = [], []
+    for a in (1, 2, 3):
+        for b in (1, 2, 3):
+            sel = (w0 == a) & (w1 == b)
+            m = int(sel.sum())
+            if not m:
+                continue
+            row = np.empty((m, 3 + a + b), np.uint8)
+            row[:, 0], row[:, 1] = 0x82, 0x02
+            row[:, 2:2 + a] = p0[sel, :a]
+            row[:, 2 + a] = 0x03
+            row[:, 3 + a:] = p1[sel, :b]
+            kb, vb, vw = key[sel].tobytes(), row.tobytes(), 3 + a + b
+            keys += [kb[i:i + 19] for i in range(0, len(kb), 19)]
+            vals += [vb[i:i + vw] for i in range(0, len(vb), vw)]
+    return keys, vals
+
+
+def run_srv(runner) -> dict:
+    """Cell srv: the port's store in process on the card — ``Node`` over
+    ``MockPd`` with the port's ``DeviceRunner()`` (one 10 GiB region: the
+    port has no split check; the config's defaults: coalescer window 2
+    ms, ``device_row_threshold`` 131072) and ``KvService``, every request
+    a user's RPC body:
+
+    1. load: ``ImportSwitchMode(True)``; 6c's table (``int_table(2)``,
+       ``c0 = h % 1024``, ``c1 = h % 1000``, 10·2^20 keys) as ten 2^20-key
+       SST v2 blobs (``fast_mvcc_table_sst``), each through
+       ``ImportUpload`` (4 MiB parts) and ``ImportIngest(region_id=1)`` —
+       one raft entry a blob, applied while the node's
+       ``ColdStreamBuilder`` parses and uploads each chunk —, then
+       ``ImportSwitchMode(False)``; the load's time by part and the host's
+       RSS after it (the raft log keeps the blobs);
+    2. read: GROUP BY c0: COUNT(*), SUM(c1) and the rows of ``c1 > 990``,
+       packed (``wire.pack``) through ``handle_raw("Coprocessor")``, cold
+       + 5 warm each: ``backend`` device, the numpy truth (every returned
+       row ``(id, c0, c1)`` of the selection), the cold build's rung (the
+       stream's take);
+    3. write: one transaction of 4,096 UPDATEs of c1 in 4 runs of 1,024
+       handles (6c-delta's w2) through ``KvPrewrite`` and ``KvCommit`` at
+       ``MockPd.tso()`` timestamps; both plans again: device, the new
+       truth, the feed patched in place (``feed_routes`` one patch, no
+       upload; no second ``mvcc_resolve``);
+    4. point reads: ``KvGet`` of an updated key, ``KvBatchGet`` of 64
+       keys, ``KvScan`` of 1,000 keys, against the model;
+    5. ANALYZE (tp 104, 256 buckets; ``analyze`` launches) of the region
+       and CHECKSUM (tp 105) of 2^16 rows around the first updated run,
+       against numpy truths (the CHECKSUM truth: the native fold over the
+       model's logical pairs, built apart from the store); one
+       GROUP BY with ``force_backend="host"``: the same answer, ``backend``
+       host;
+    6. ``node.stop()``: no thread of the node left, the arena pin-free and
+       empty.
+
+    Counts from 0 before the path, read after."""
+    import threading
+
+    from tikv_tpu_torch.codec.keys import table_record_key
+    from tikv_tpu_torch.codec.row import decode_row, encode_row
+    from tikv_tpu_torch.config import TikvConfig
+    from tikv_tpu_torch.copr.analyze import checksum_kv_pairs
+    from tikv_tpu_torch.copr.wire import enc_dag
+    from tikv_tpu_torch.pd.client import MockPd
+    from tikv_tpu_torch.server.node import Node
+    from tikv_tpu_torch.server.service import KvService
+    from tikv_tpu_torch.sst_importer import fast_mvcc_table_sst
+    from tikv_tpu_torch.testing import configs as cf
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.testing.dag import DagSelect
+    t_start = time.perf_counter()
+    table = tm.table_6c()
+    tid = table.table_id
+    cfg = TikvConfig()
+    pd = MockPd()
+    threads_before = {t.ident for t in threading.enumerate()}
+    set_counts({k: 0 for k in KERNELS})
+    node = Node("srv:0", pd, device_runner=runner, config=cfg)
+    node.start()
+    svc = KvService(node)
+    out = {"config": "srv", "keys": SRV_KEYS, "chunk_keys": SRV_CHUNK,
+           "part_bytes": SRV_PART}
+    model = DeltaModel(SRV_KEYS)
+    try:
+        # -- 1. load --------------------------------------------------
+        assert node.cold_stream is not None, "no cold stream on the node"
+        srv_call(svc, "ImportSwitchMode", {"import": True}, raw=False)
+        load_ts = pd.tso()
+        build_s = upload_s = ingest_s = 0.0
+        blob_bytes = 0
+        t0 = time.perf_counter()
+        for lo in range(0, SRV_KEYS, SRV_CHUNK):
+            h = np.arange(lo, lo + SRV_CHUNK, dtype=np.int64)
+            t1 = time.perf_counter()
+            blob = fast_mvcc_table_sst(tid, h, [(2, h % 1024, None),
+                                                (3, h % 1000, None)],
+                                       load_ts)
+            t2 = time.perf_counter()
+            uuid = f"srv-{lo}"
+            parts = -(-len(blob) // SRV_PART)
+            for i in range(parts):
+                resp, _ = srv_call(svc, "ImportUpload", {
+                    "uuid": uuid, "seq": i, "total": parts,
+                    "data": blob[i * SRV_PART:(i + 1) * SRV_PART]},
+                    raw=False)
+            assert resp["staged"] is True, resp
+            t3 = time.perf_counter()
+            resp, _ = srv_call(svc, "ImportIngest",
+                               {"uuid": uuid, "region_id": 1}, raw=False)
+            assert resp["ingested"] == SRV_CHUNK, resp
+            build_s += t2 - t1
+            upload_s += t3 - t2
+            ingest_s += time.perf_counter() - t3
+            blob_bytes += len(blob)
+            del blob
+        t1 = time.perf_counter()
+        assert node.cold_stream.wait_idle(600.0), "the stream did not drain"
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t1
+        srv_call(svc, "ImportSwitchMode", {"import": False}, raw=False)
+        with open("/proc/self/status") as f:
+            rss = next(int(line.split()[1]) << 10 for line in f
+                       if line.startswith("VmRSS:"))
+        out["load_s"] = {"total": time.perf_counter() - t0,
+                         "sst_build": build_s, "upload": upload_s,
+                         "propose_apply": ingest_s, "stream_drain": drain_s}
+        out["blob_bytes"] = blob_bytes
+        out["host_rss_bytes_after_load"] = rss
+        st = node.cold_stream.stats()
+        assert st["chunks_parsed"] == SRV_KEYS // SRV_CHUNK, st
+        print(f"srv load: {json.dumps(out['load_s'])} rss "
+              f"{rss / 2**30:.2f} GiB blobs {blob_bytes / 2**20:.1f} MiB",
+              flush=True)
+
+        # -- 2. read --------------------------------------------------
+        def dag(plan: str, ts: int, force=None) -> dict:
+            s = DagSelect.from_table(table, ["id", "c0", "c1"])
+            if plan == "sel":
+                d = s.where(s.col("c1") > 990)
+            else:
+                d = s.aggregate([s.col("c0")], [("count_star", None),
+                                                ("sum", s.col("c1"))])
+            req = {"dag": enc_dag(d.build(ts))}
+            if force is not None:
+                req["force_backend"] = force
+            return req
+
+        def ask(plan: str, backend: str = "device", force=None) -> dict:
+            resp, ms = srv_call(svc, "Coprocessor",
+                                dag(plan, pd.tso(), force))
+            assert resp["backend"] == backend, (plan, resp["backend"])
+            if plan == "sel":
+                # every returned row (id, c0, c1) against the model's rows
+                # at its mask
+                got = np.asarray(resp["rows"], np.int64).reshape(-1, 3)
+                m = model.c1 > 990
+                assert np.array_equal(got, np.stack(
+                    [model.h[m], model.c0[m], model.c1[m]], 1)), \
+                    "srv: wrong selection"
+            else:
+                got = sorted(map(tuple, resp["rows"]), key=lambda r: r[2])
+                assert got == model.truth("agg"), "srv: wrong GROUP BY"
+            td = resp["time_detail"]
+            return {"ms": ms, "labels": td["labels"],
+                    "phases_ms": td["phases_ms"], "rows": len(resp["rows"])}
+
+        resolver = node.copr_cache.device_resolver
+        routes0 = dict(runner.feed_routes)
+        reads = {}
+        for plan in ("agg", "sel"):
+            cold = ask(plan)
+            warm = [ask(plan)["ms"] for _ in range(SRV_WARM)]
+            reads[plan] = {"cold_ms": cold["ms"], "labels": cold["labels"],
+                           "phases_ms": cold["phases_ms"],
+                           "rows": cold["rows"], "warm_ms": warm,
+                           "warm_p50_ms": float(np.median(warm))}
+        # the cache's rung rides the request's labels and phases; the
+        # feed's route is the runner's (a coalesced dispatch runs on the
+        # coalescer's thread): the GROUP BY's feed minted from the
+        # stream's planes, the selection's (its own planes) uploaded from
+        # the line's host mirror
+        lab = reads["agg"]["labels"]
+        assert lab.get("cold_build") == "device", lab
+        assert "stream_take" in reads["agg"]["phases_ms"] and \
+            "mvcc_parse" not in reads["agg"]["phases_ms"], \
+            reads["agg"]["phases_ms"]
+        routes = {k: v - routes0.get(k, 0)
+                  for k, v in runner.feed_routes.items()
+                  if v - routes0.get(k, 0)}
+        assert routes == {"device_resolve": 1, "upload": 1}, routes
+        out["feed_routes"] = routes
+        st = node.cold_stream.stats()
+        assert (st["takes"], st["take_misses"]) == (1, 0), st
+        out["stream"] = {k: v for k, v in st.items() if k != "regions"}
+        out["mints"] = resolver.mints
+        assert resolver.mints == 1, resolver.mints
+        out["reads"] = reads
+        read_launches = counts()
+        assert read_launches["mvcc_resolve"] == 1, read_launches
+        print("srv reads: " + " ".join(
+            f"{p}: cold {r['cold_ms']:.2f} ms warm p50 "
+            f"{r['warm_p50_ms']:.3f} ms" for p, r in reads.items()) +
+            f"; rung {lab.get('cold_build')}, feed {json.dumps(routes)}; "
+            f"launches {json.dumps({k: v for k, v in read_launches.items() if v})}",
+            flush=True)
+
+        # -- 3. write: one 2PC transaction of 6c-delta's w2 -------------
+        hs = np.concatenate([np.arange(a, a + DELTA_RUN_ROWS)
+                             for a in DELTA_RUNS])
+        c1 = (hs * 7 + 1) % 1000
+        muts = [{"op": "put", "key": table_record_key(tid, int(x)),
+                 "value": encode_row({2: int(x) % model.groups,
+                                      3: int(y)})}
+                for x, y in zip(hs.tolist(), c1.tolist())]
+        routes_w = dict(runner.feed_routes)
+        spans0 = counts()["patch_spans"]
+        start = pd.tso()
+        _, prewrite_ms = srv_call(svc, "KvPrewrite", {
+            "mutations": muts, "primary": muts[0]["key"],
+            "start_version": start})
+        resp, commit_ms = srv_call(svc, "KvCommit", {
+            "keys": [m["key"] for m in muts], "start_version": start,
+            "commit_version": pd.tso()})
+        model.update(hs, c1)
+        after = {p: ask(p) for p in ("agg", "sel")}
+        first = after["agg"]
+        assert first["labels"].get("copr_cache") == "delta", \
+            first["labels"]
+        assert "feed_upload" not in first["phases_ms"] and \
+            "columnar_build" not in first["phases_ms"], first["phases_ms"]
+        # each plan's feed patched in place: one patch a feed, no upload
+        now = dict(runner.feed_routes)
+        assert now.get("patch", 0) == routes_w.get("patch", 0) + 2 and \
+            now.get("upload", 0) == routes_w.get("upload", 0), \
+            (routes_w, now)
+        assert counts()["mvcc_resolve"] == 1, "a second mint"
+        assert counts()["patch_spans"] - spans0 == 2, counts()
+        assert resolver.mints == 1, resolver.mints
+        out["write"] = {"rows": len(muts), "prewrite_ms": prewrite_ms,
+                        "commit_ms": commit_ms,
+                        "first_read_ms": first["ms"],
+                        "first_read_phases_ms": first["phases_ms"],
+                        "sel_after_ms": after["sel"]["ms"],
+                        "feed_routes": now}
+        print(f"srv write: prewrite {prewrite_ms:.1f} ms commit "
+              f"{commit_ms:.1f} ms, first GROUP BY after it "
+              f"{first['ms']:.2f} ms (delta_apply "
+              f"{first['phases_ms'].get('delta_apply', 0):.2f}, "
+              f"feed_patch {first['phases_ms'].get('feed_patch', 0):.2f}), "
+              f"selection {after['sel']['ms']:.2f} ms", flush=True)
+
+        # -- 4. point reads -------------------------------------------
+        def row_of(hh: int) -> dict:
+            return {2: int(model.c0[hh]), 3: int(model.c1[hh])}
+
+        k0 = int(hs[0])
+        resp, get_ms = srv_call(svc, "KvGet", {
+            "key": table_record_key(tid, k0), "version": pd.tso()})
+        assert decode_row(resp["value"]) == row_of(k0), resp
+        rng = np.random.default_rng(26)
+        pick = np.concatenate([rng.choice(hs, SRV_BATCH // 2, False),
+                               rng.choice(SRV_KEYS, SRV_BATCH // 2, False)])
+        resp, batch_ms = srv_call(svc, "KvBatchGet", {
+            "keys": [table_record_key(tid, int(x)) for x in pick],
+            "version": pd.tso()})
+        assert [decode_row(p["value"]) for p in resp["pairs"]] == \
+            [row_of(int(x)) for x in pick], "srv: KvBatchGet"
+        lo = DELTA_RUNS[0] - SRV_SCAN // 2
+        resp, scan_ms = srv_call(svc, "KvScan", {
+            "start_key": table_record_key(tid, lo), "limit": SRV_SCAN,
+            "version": pd.tso()})
+        assert [p["key"] for p in resp["pairs"]] == \
+            [table_record_key(tid, x) for x in range(lo, lo + SRV_SCAN)]
+        assert [decode_row(p["value"]) for p in resp["pairs"]] == \
+            [row_of(x) for x in range(lo, lo + SRV_SCAN)], "srv: KvScan"
+        out["point_ms"] = {"get": get_ms, "batch_get": batch_ms,
+                           "scan": scan_ms}
+
+        # -- 5. ANALYZE, CHECKSUM, a forced host read ------------------
+        full = enc_dag(DagSelect.from_table(table).build(pd.tso()))
+        before = counts()["analyze"]
+        resp, analyze_ms = srv_call(svc, "Coprocessor", {
+            "tp": 104, "dag": full, "buckets": SRV_BUCKETS})
+        assert counts()["analyze"] - before == 3, counts()["analyze"]
+        ones = np.ones(SRV_KEYS, np.bool_)
+        want = [cf.column_stats_truth(c, v, ones, SRV_BUCKETS)
+                for c, v in ((1, model.h), (2, model.c0), (3, model.c1))]
+        assert resp["columns"] == [
+            {"col_id": s.col_id, "total": s.total,
+             "null_count": s.null_count, "distinct": s.distinct,
+             "buckets": [[b, c] for b, c in s.buckets]} for s in want], \
+            "srv: wrong ANALYZE"
+        # CHECKSUM of 2^16 rows around the first updated run (the host
+        # re-encodes each row of the range: the whole region would take
+        # minutes)
+        lo = DELTA_RUNS[0] - SRV_CHECKSUM // 2
+        part = enc_dag(DagSelect.from_table(table).build(pd.tso()))
+        part["ranges"] = [{"s": table_record_key(tid, lo),
+                           "e": table_record_key(tid, lo + SRV_CHECKSUM)}]
+        resp, checksum_ms = srv_call(svc, "Coprocessor",
+                                     {"tp": 105, "dag": part})
+        t0 = time.perf_counter()
+        at = slice(lo, lo + SRV_CHECKSUM)
+        keys, vals = srv_logical_pairs(tid, model.h[at], model.c0[at],
+                                       model.c1[at])
+        truth = checksum_kv_pairs(keys, vals)
+        truth_s = time.perf_counter() - t0
+        del keys, vals
+        got = {k: resp[k] for k in ("checksum", "total_kvs", "total_bytes")}
+        assert got == truth and truth["total_kvs"] == SRV_CHECKSUM, \
+            (got, truth)
+        host = ask("agg", backend="host", force="host")
+        out["other_ms"] = {"analyze": analyze_ms, "checksum": checksum_ms,
+                           "checksum_rows": SRV_CHECKSUM,
+                           "checksum_truth_s": truth_s,
+                           "group_by_on_host": host["ms"]}
+        assert node.device_runner.hbm_stats()["pinned_lines"] == 0
+    finally:
+        # -- 6. stop ----------------------------------------------------
+        t0 = time.perf_counter()
+        node.stop()
+        out["stop_ms"] = (time.perf_counter() - t0) * 1e3
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    assert not left, f"srv: threads left after stop: {left}"
+    hbm = runner.hbm_stats()
+    assert hbm["pinned_lines"] == 0 and hbm["resident_lines"] == 0, hbm
+    launches = counts()
+    for name in ("hash_agg", "sel_pred", "sel_compact", "mvcc_resolve",
+                 "patch_spans", "analyze"):
+        assert launches[name] > 0, f"srv never launched {name}"
+    out["launches"] = launches
+    del node, svc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_start
+    print("srv cell: " + json.dumps(out, default=str), flush=True)
+    return {"config": "srv", "launches": launches, "load_s": out["load_s"],
+            "reads": {p: {x: r[x] for x in ("cold_ms", "warm_p50_ms")}
+                      for p, r in out["reads"].items()},
+            "write": {k: out["write"][k] for k in
+                      ("prewrite_ms", "commit_ms", "first_read_ms")},
+            "wall_s": out["wall_s"]}
+
+
 def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
     """``patch_feed_spans`` at 6c-delta's w1, w2 and w3 shapes over the
     selection feed's planes (three int32 planes of ``n_pad`` rows), values
@@ -6371,7 +6774,8 @@ def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
     every form timed queued on the same inputs — the kernel, the same
     rows through ``patch_feed_rows`` with host positions, and the library
     yardstick ``plane[lo:hi].copy_(vals)`` a plane a span (no digests)
-    from the same values in pinned host memory — and once more with the
+    from the same values in pinned host memory, and the rows form's,
+    ``index_put_`` a plane at the positions — and once more with the
     values on the card (the kernel and ``copy_``); the plain version as
     issued; the bound: rows × the planes' widths × 2 plus the payload, at
     3.35 TB/s → (the timings, the worst difference: 0).  Launches made
@@ -6398,6 +6802,14 @@ def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
         lay = dg.plan_spans([4] * 3, len(spans), m, [True] * 3, True)
         iters = 20 if m > 4096 else 50
         offs = np.concatenate([[0], np.cumsum([hi - lo for lo, hi in spans])])
+        pinned_pos = torch.as_tensor(np.asarray(pos, np.int64)).pin_memory()
+
+        def index_put_rows():
+            """The rows form's yardstick: ``index_put_`` a plane, the
+            positions and values copied from pinned host memory."""
+            at = pinned_pos.to(dev, non_blocking=True)
+            for a, v in zip(planes, pinned):
+                a.index_put_((at,), v.to(dev, non_blocking=True))
 
         def copy_from(src):
             def library():
@@ -6410,6 +6822,12 @@ def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
                       planes, spans, host, recs), iters, queued=True),
                   "rows_form_ms": cuda_ms(lambda: dg.patch_feed_rows(
                       planes, pos, host, recs), iters, queued=True),
+                  "rows_form_library_ms": cuda_ms(index_put_rows, iters,
+                                                  queued=True),
+                  "rows_form_library_call": "index_put_ a plane at the "
+                                            "positions, positions and "
+                                            "values from pinned host "
+                                            "memory (no digests)",
                   "plain_ms": cuda_ms(lambda: dg.patch_feed_spans_plain(
                       planes, spans, vals, recs), 10),
                   "library_ms": cuda_ms(copy_from(pinned), iters,
@@ -7516,6 +7934,9 @@ def main() -> int:
     elapsed("before the ingest cell")
     # a runner of its own: the cell's scrub covers its runner's anchors
     runs.append(run_ingest(DeviceRunner()))
+    elapsed("before the store in process")
+    # a runner of its own: the node closes it at its stop
+    runs.append(run_srv(DeviceRunner()))
     elapsed("before the mesh")
     from tikv_tpu_torch.testing import configs as cf
     mesh_runs += run_mesh(mesh_runner, runner, [

@@ -12,7 +12,10 @@ nor a write served through the delta path (``raftstore.cmd``,
 ``copr.delta``: the sink, the cache's bridge, the feed's patch, the scrub
 and its quarantine), nor the cold path (``native``, ``sst_importer``,
 ``copr.stream_build``: an SST ingest streamed, the device rung, the native
-rung, the re-mint governor, the native CHECKSUM fold), and nothing falls
+rung, the re-mint governor, the native CHECKSUM fold), nor the store in
+process (``raft``, ``raftstore``, ``storage``, ``kv``, ``pd.client``,
+``config``, ``server.node``, ``server.service``, ``server.wire``: a 2PC
+write and a coprocessor read through ``KvService``), and nothing falls
 back to the CPU without being asked.  The native module is the port's own
 source: its compile names ``tikv_tpu_torch/native/fastbuild.cpp`` and no
 file of the JAX package, and a failed compile raises."""
@@ -553,3 +556,83 @@ def test_a_failed_native_compile_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="error"):
         nv.checksum_pairs([b"a"], [b"b"])
     assert not list((tmp_path / "_build").glob("*"))
+
+
+# the store in process: every module of the slice is in the scan above
+STORE_MODULES = [
+    "tikv_tpu_torch/raft/raw_node.py", "tikv_tpu_torch/raft/network.py",
+    "tikv_tpu_torch/raft/storage.py", "tikv_tpu_torch/raft/messages.py",
+    "tikv_tpu_torch/raftstore/peer_storage.py",
+    "tikv_tpu_torch/raftstore/peer.py", "tikv_tpu_torch/raftstore/store.py",
+    "tikv_tpu_torch/raftstore/raftkv.py", "tikv_tpu_torch/kv/engine.py",
+    "tikv_tpu_torch/storage/__init__.py",
+    "tikv_tpu_torch/storage/mvcc/txn.py",
+    "tikv_tpu_torch/storage/concurrency_manager.py",
+    "tikv_tpu_torch/storage/txn/latch.py",
+    "tikv_tpu_torch/storage/txn/actions.py",
+    "tikv_tpu_torch/storage/txn/commands.py",
+    "tikv_tpu_torch/storage/txn/scheduler.py",
+    "tikv_tpu_torch/pd/client.py", "tikv_tpu_torch/config.py",
+    "tikv_tpu_torch/copr/storage_impl.py",
+    "tikv_tpu_torch/server/read_pool.py", "tikv_tpu_torch/server/wire.py",
+    "tikv_tpu_torch/server/service.py", "tikv_tpu_torch/server/node.py",
+    "tikv_tpu_torch/utils/error_code.py"]
+
+
+def test_store_modules_are_scanned():
+    assert set(STORE_MODULES) <= set(SOURCES)
+
+
+_SERVE_NODE = """
+import sys
+from tikv_tpu_torch.codec.keys import table_record_key
+from tikv_tpu_torch.codec.row import encode_row
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.pd.client import MockPd
+from tikv_tpu_torch.server import wire
+from tikv_tpu_torch.server.node import Node
+from tikv_tpu_torch.server.service import KvService
+from tikv_tpu_torch.testing import configs
+from tikv_tpu_torch.testing.dag import DagSelect
+pd = MockPd()
+node = Node("iso:0", pd, device_row_threshold=64,
+            device_runner=DeviceRunner(device="cpu"))
+node.start()
+try:
+    svc = KvService(node)
+    table = configs.bench_table()
+    rows = [(h, {2: h % 4, 3: h}) for h in range(300)]
+    muts = [{"op": "put", "key": table_record_key(table.table_id, h),
+             "value": encode_row(r)} for h, r in rows]
+    start = pd.tso()
+    r = svc.handle("KvPrewrite", {"mutations": muts,
+                                  "primary": muts[0]["key"],
+                                  "start_version": start})
+    assert not r.get("error"), r
+    r = svc.handle("KvCommit", {"keys": [m["key"] for m in muts],
+                                "start_version": start,
+                                "commit_version": pd.tso()})
+    assert not r.get("error"), r
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    dag = s.aggregate([s.col("k")], [("count_star", None),
+                                     ("sum", s.col("v"))]).build(pd.tso())
+    raw = wire.pack({"dag": enc_dag(dag)})
+    resp = svc.handle_raw("Coprocessor", raw)
+    assert not resp.get("error"), resp
+    assert resp["backend"] == "device", resp["backend"]
+    assert sum(row[0] for row in resp["rows"]) == 300, resp["rows"]
+finally:
+    node.stop()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("node served", len(resp["rows"]))
+"""
+
+
+def test_node_serving_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE_NODE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "node served 4"

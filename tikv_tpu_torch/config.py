@@ -1,0 +1,143 @@
+"""Configuration tree.
+
+A trimmed copy of the JAX package's ``config.py``: the fields the port's
+``Node`` reads, in the sections ``storage``, ``raftstore``,
+``coprocessor`` and ``readpool``, with their defaults, and ``TikvConfig``
+(from a TOML file or a dict, validated).  Every other setting of a
+reference config file (the ``server`` section, the split and raft-log
+knobs, paging, the mesh and slice knobs, tracing, the fast path, ...)
+loads and is ignored: the port has no code that reads it.  The online
+reconfiguration router (``ConfigController``) waits for the status
+server, its only caller.  ``Node`` refuses a value the port cannot honor
+(a data directory, a batch-system pool, digests switched off).
+
+Reference: src/config/mod.rs (``TikvConfig`` — one serde-TOML tree
+embedding every subsystem's config).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field, fields
+from typing import Optional
+
+
+@dataclass
+class StorageConfig:
+    data_dir: str = ""                  # only "" (the in-memory engine)
+
+
+@dataclass
+class RaftstoreConfig:
+    raft_heartbeat_ticks: int = 2
+    raft_election_timeout_ticks: int = 10
+    # batch-system pollers: only 0 (the synchronous drive loop)
+    store_pool_size: int = 0
+
+
+@dataclass
+class CoprocessorConfig:
+    # device routing crossover — rationale at
+    # copr/endpoint.py Endpoint.DEFAULT_DEVICE_ROW_THRESHOLD; raise to
+    # ~2^22 for tunneled (high-RTT) device transports
+    device_row_threshold: int = 131072
+    region_cache_capacity: int = 8
+    # incremental columnar cache maintenance (copr/region_cache.py):
+    # per-region committed-write delta log bounds — a data-version gap
+    # wider than the retained log rebuilds instead of patching
+    delta_log_entries: int = 1024
+    delta_log_rows: int = 1 << 16
+    # compact a delta-maintained line when pending delete tombstones
+    # exceed this fraction of its rows
+    tombstone_compact_ratio: float = 0.25
+    # device-state integrity (device/supervisor.py): HBM budget for the
+    # runner's feed arena in MiB (0 = unlimited — accounting only) and
+    # the background scrub cadence in seconds (0 = scrub on demand).
+    # scrub_digests records per-plane content digests at feed build and
+    # patch time — the audit the scrubber compares against; the port's
+    # runner always records them, so only True is accepted
+    device_hbm_budget_mb: int = 0
+    scrub_interval_s: float = 0.0
+    scrub_digests: bool = True
+    # cross-request device batching (server/coalescer.py): concurrent
+    # requests sharing a compile class + resident feed coalesce into
+    # one stacked dispatch under a bounded, deadline-aware collection
+    # window.  coalesce_window_ms = 0 disables the subsystem entirely
+    # (every device request dispatches solo); coalesce_max_group caps
+    # group size (also the stacked kernel's largest lane bucket)
+    coalesce_window_ms: float = 2.0
+    coalesce_max_group: int = 16
+    # cold-path kill (device/mvcc.py + copr/stream_build.py):
+    # device_cold_build enables the device rung of the columnar build
+    # ladder (flat-plane parse + on-device MVCC version resolution, the
+    # feed born resident); cold_stream additionally parses + uploads
+    # CF_WRITE planes of bulk-ingested SST chunks WHILE the load runs,
+    # so the first query's build degenerates to one resolve dispatch.
+    # cold_stream=None (the default) is AUTO: on iff the process has a
+    # spare core to run the parse worker on — the overlap premise is a
+    # second core, and on a single-CPU box the worker only steals
+    # cycles from the very ingest it shadows.  True/False force it.
+    # cold_stream_max_mb bounds the retained host planes per region
+    # (device planes shed first at half the cap); 0 = unlimited
+    device_cold_build: bool = True
+    cold_stream: Optional[bool] = None
+    cold_stream_max_mb: int = 1024
+    # re-mint storm control (device/supervisor.py RemintGovernor):
+    # remint_concurrency bounds concurrent cold columnar_build
+    # re-mints after a mass invalidation (0 = unthrottled — the
+    # pre-storm-control behavior); excess builds park in a priority
+    # queue (hot regions first, RU-debt tenants last) of at most
+    # remint_queue, past which the worst-priority waiter is shed with
+    # a ServerIsBusy carrying remint_retry_after_ms
+    remint_concurrency: int = 0
+    remint_queue: int = 32
+    remint_retry_after_ms: int = 50
+
+
+@dataclass
+class ReadPoolConfig:
+    concurrency: int = 8
+
+
+@dataclass
+class TikvConfig:
+    """The config tree (config/mod.rs TikvConfig analog), trimmed to the
+    fields the port's node reads."""
+
+    storage: StorageConfig = field(default_factory=StorageConfig)
+    raftstore: RaftstoreConfig = field(default_factory=RaftstoreConfig)
+    coprocessor: CoprocessorConfig = field(
+        default_factory=CoprocessorConfig)
+    readpool: ReadPoolConfig = field(default_factory=ReadPoolConfig)
+
+    @staticmethod
+    def from_file(path: str) -> "TikvConfig":
+        import tomllib
+        with open(path, "rb") as f:
+            raw = tomllib.load(f)
+        return TikvConfig.from_dict(raw)
+
+    @staticmethod
+    def from_dict(raw: dict) -> "TikvConfig":
+        cfg = TikvConfig()
+        for f in fields(cfg):
+            sub = raw.get(f.name.replace("_", "-"), raw.get(f.name))
+            if sub is None:
+                continue
+            target = getattr(cfg, f.name)
+            for sf in fields(target):
+                key = sf.name.replace("_", "-")
+                if key in sub or sf.name in sub:
+                    setattr(target, sf.name, sub.get(key, sub.get(sf.name)))
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        r = self.raftstore
+        if r.raft_heartbeat_ticks >= r.raft_election_timeout_ticks:
+            raise ValueError("heartbeat ticks must be < election ticks")
+        if self.readpool.concurrency < 1:
+            raise ValueError("readpool concurrency must be >= 1")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

@@ -158,6 +158,16 @@ class ColumnBatch:
             for i in range(len(batches[0].columns))])
 
     def rows(self) -> list[tuple]:
-        """Materialize as Python rows (tests / response encoding)."""
-        return [tuple(c.get(i) for c in self.columns)
-                for i in range(self.num_rows)]
+        """Materialize as Python rows (tests / response encoding): each
+        cell as ``Column.get`` gives it, a column at a time."""
+        cols = []
+        for c in self.columns:
+            vals = c.values.tolist()
+            if c.values.dtype == object:
+                vals = [v.item() if isinstance(v, np.generic) else v
+                        for v in vals]
+            if not c.validity.all():
+                vals = [v if ok else None
+                        for v, ok in zip(vals, c.validity.tolist())]
+            cols.append(vals)
+        return list(zip(*cols)) if cols else []

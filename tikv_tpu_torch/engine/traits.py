@@ -3,7 +3,7 @@
 A trimmed copy of the JAX package's ``engine/traits.py`` (reference:
 components/engine_traits/src/): the column families (cf_defs.rs:4-11) and
 the read protocols a snapshot offers (peekable.rs:11, iterable.rs:120,
-snapshot.rs:11).
+snapshot.rs:11), and the engine's own (engine.rs:13).
 """
 
 from __future__ import annotations
@@ -50,6 +50,25 @@ class Snapshot(Protocol):
     def get_value_cf(self, cf: str, key: bytes) -> Optional[bytes]: ...
 
     def get_value(self, key: bytes) -> Optional[bytes]: ...
+
+    def iterator_cf(self, cf: str,
+                    lower: Optional[bytes] = None,
+                    upper: Optional[bytes] = None) -> Iterator: ...
+
+
+class KvEngine(Protocol):
+    """Reference: engine.rs:13 (KvEngine: Peekable + Iterable + WriteBatchExt
+    + snapshot())."""
+
+    def snapshot(self) -> Snapshot: ...
+
+    def write_batch(self): ...
+
+    def write(self, batch) -> None:
+        """Apply a batch atomically."""
+        ...
+
+    def get_value_cf(self, cf: str, key: bytes) -> Optional[bytes]: ...
 
     def iterator_cf(self, cf: str,
                     lower: Optional[bytes] = None,

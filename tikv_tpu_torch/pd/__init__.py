@@ -1,2 +1,4 @@
-"""PD's placement policy one level down: the pure functions that place
-region feeds on a node's mesh slices (``scheduler.py``)."""
+"""PD one level up and one level down: the PD client trait and the
+in-memory PD a single store runs against (``client.py``), and the pure
+functions that place region feeds on a node's mesh slices
+(``scheduler.py``)."""

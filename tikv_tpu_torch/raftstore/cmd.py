@@ -1,9 +1,10 @@
-"""The data mutation of a raft command, as the apply path hands it to
-observers.
+"""Raft command payloads — what gets proposed into the raft log — and the
+data mutation of a raft command, as the apply path hands it to observers.
 
 A trimmed copy of the JAX package's ``raftstore/cmd.py`` (reference: the
-kvproto ``raft_cmdpb`` Put/Delete/DeleteRange/IngestSst requests): only
-``WriteOp`` and its tagged binary form.  ``exec_write_ops`` applies an
+kvproto ``raft_cmdpb`` Put/Delete/DeleteRange/IngestSst requests and the
+AdminCmdType requests): ``WriteOp``, ``AdminCmd`` and ``RaftCmd`` in the
+same tagged binary form, without the change-peer-v2 payload codec.  ``exec_write_ops`` applies an
 entry's ops to an engine write batch, as the apply path's data arm does
 (the JAX package's ``raftstore/peer.py`` ``_exec_write``); ``write_ops``
 turns a write batch back into the ops of the applied entry, the way the
@@ -15,8 +16,10 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
+from typing import Optional
 
 from ..codec.keys import DATA_PREFIX, data_key
+from .metapb import Peer, RegionEpoch
 
 
 def _pack_bytes(b: bytes) -> bytes:
@@ -50,6 +53,129 @@ class WriteOp:
         key, off = _unpack_bytes(buf, off)
         value, off = _unpack_bytes(buf, off)
         return WriteOp(op.decode(), cf.decode(), key, value), off
+
+
+@dataclass(frozen=True)
+class AdminCmd:
+    """Admin command.  kind: split | change_peer | compact_log |
+    prepare_merge | commit_merge | rollback_merge.
+
+    split: split_key + new_region_id + new_peer_ids
+    change_peer: change_type(add|remove|add_learner) + peer
+    compact_log: compact_index
+    prepare_merge: target region id rides new_region_id
+    commit_merge: extra = encoded source Region, merge_index = the
+        source's prepare-merge apply index (fsm/apply.rs merge cmds)
+    rollback_merge: merge_index = the prepare index being rolled back
+    """
+
+    kind: str
+    split_key: bytes = b""
+    new_region_id: int = 0
+    new_peer_ids: tuple = ()
+    change_type: str = ""
+    peer: Optional[Peer] = None
+    compact_index: int = 0
+    merge_index: int = 0
+    extra: bytes = b""          # commit_merge: encoded source region
+
+    def to_bytes(self) -> bytes:
+        parts = [_pack_bytes(self.kind.encode()), _pack_bytes(self.split_key),
+                 struct.pack(">QQ", self.new_region_id, self.compact_index),
+                 struct.pack(">I", len(self.new_peer_ids))]
+        parts += [struct.pack(">Q", p) for p in self.new_peer_ids]
+        parts.append(_pack_bytes(self.change_type.encode()))
+        if self.peer is not None:
+            parts.append(struct.pack(">BQQB", 1, self.peer.id,
+                                     self.peer.store_id,
+                                     int(self.peer.is_learner)))
+        else:
+            parts.append(struct.pack(">B", 0))
+        # trailing fields: absent in pre-merge logs, decoder tolerates
+        parts.append(struct.pack(">Q", self.merge_index))
+        parts.append(_pack_bytes(self.extra))
+        return b"".join(parts)
+
+    @staticmethod
+    def from_bytes(buf: bytes, off: int) -> tuple["AdminCmd", int]:
+        kind, off = _unpack_bytes(buf, off)
+        split_key, off = _unpack_bytes(buf, off)
+        new_region_id, compact_index = struct.unpack_from(">QQ", buf, off)
+        off += 16
+        (n,) = struct.unpack_from(">I", buf, off)
+        off += 4
+        ids = []
+        for _ in range(n):
+            (pid,) = struct.unpack_from(">Q", buf, off)
+            ids.append(pid)
+            off += 8
+        change_type, off = _unpack_bytes(buf, off)
+        (has_peer,) = struct.unpack_from(">B", buf, off)
+        off += 1
+        peer = None
+        if has_peer:
+            pid, sid, learner = struct.unpack_from(">QQB", buf, off)
+            off += 17
+            peer = Peer(pid, sid, bool(learner))
+        merge_index = 0
+        extra = b""
+        if off + 8 <= len(buf):     # logs from before the merge fields
+            (merge_index,) = struct.unpack_from(">Q", buf, off)
+            off += 8
+            extra, off = _unpack_bytes(buf, off)
+        return AdminCmd(kind.decode(), split_key, new_region_id, tuple(ids),
+                        change_type.decode(), peer, compact_index,
+                        merge_index, extra), off
+
+
+@dataclass(frozen=True)
+class RaftCmd:
+    """One proposed command: header (routing + epoch check) + payload."""
+
+    region_id: int
+    epoch: RegionEpoch
+    ops: tuple = ()                    # tuple[WriteOp]
+    admin: Optional[AdminCmd] = None
+
+    def to_bytes(self) -> bytes:
+        head = struct.pack(">QII", self.region_id, self.epoch.conf_ver,
+                           self.epoch.version)
+        if self.admin is not None:
+            return head + b"A" + self.admin.to_bytes()
+        # join, never body += op_bytes: quadratic concat turns a 20k-op
+        # batch proposal into seconds of memcpy
+        parts = [head, b"W", struct.pack(">I", len(self.ops))]
+        parts.extend(op.to_bytes() for op in self.ops)
+        return b"".join(parts)
+
+    @staticmethod
+    def peek_admin_kind(buf: bytes):
+        """Cheap wire peek: the admin kind string, or None for write
+        commands — without decoding the payload.  Owns the layout
+        knowledge (16-byte header + b"A" tag + length-prefixed kind) so
+        callers never hardcode offsets."""
+        if buf[16:17] != b"A":
+            return None
+        kind, _ = _unpack_bytes(buf, 17)
+        return kind.decode()
+
+    @staticmethod
+    def from_bytes(buf: bytes) -> "RaftCmd":
+        region_id, conf_ver, version = struct.unpack_from(">QII", buf, 0)
+        off = 16
+        tag = buf[off:off + 1]
+        off += 1
+        epoch = RegionEpoch(conf_ver, version)
+        if tag == b"A":
+            admin, _ = AdminCmd.from_bytes(buf, off)
+            return RaftCmd(region_id, epoch, (), admin)
+        (n,) = struct.unpack_from(">I", buf, off)
+        off += 4
+        ops = []
+        for _ in range(n):
+            op, off = WriteOp.from_bytes(buf, off)
+            ops.append(op)
+        return RaftCmd(region_id, epoch, tuple(ops))
 
 
 def exec_write_ops(wb, ops) -> None:

@@ -1,8 +1,9 @@
 """Cluster metadata types.
 
 A trimmed copy of the JAX package's ``raftstore/metapb.py`` (reference:
-the kvproto ``metapb`` messages): ``Peer``, ``RegionEpoch``, ``Region``
-and the region errors a region-clamped read raises.
+the kvproto ``metapb`` messages): ``Peer``, ``RegionEpoch``, ``Region``,
+``Store`` and the region errors the raftstore and a region-clamped read
+raise.
 """
 
 from __future__ import annotations
@@ -44,6 +45,25 @@ class Region:
             return False
         return not self.end_key or key < self.end_key
 
+    def peer_on_store(self, store_id: int):
+        for p in self.peers:
+            if p.store_id == store_id:
+                return p
+        return None
+
+
+@dataclass(frozen=True)
+class Store:
+    id: int
+    address: str = ""
+
+
+class NotLeaderError(Exception):
+    def __init__(self, region_id: int, leader=None):
+        super().__init__(f"region {region_id}: not leader")
+        self.region_id = region_id
+        self.leader = leader
+
 
 class EpochNotMatch(Exception):
     def __init__(self, current: Region):
@@ -56,3 +76,46 @@ class KeyNotInRegion(Exception):
         super().__init__(f"{key!r} not in region {region.id}")
         self.key = key
         self.region = region
+
+
+class RegionNotFound(Exception):
+    def __init__(self, region_id: int):
+        super().__init__(f"region {region_id} not found")
+        self.region_id = region_id
+
+
+class DataIsNotReady(Exception):
+    """A stale read's read_ts is above this replica's resolved-ts
+    watermark (kvproto errorpb DataIsNotReady): serving it could miss a
+    commit still in flight below read_ts.  The client falls back to a
+    leader or ReadIndex replica read."""
+
+    def __init__(self, region_id: int, safe_ts: int, read_ts: int):
+        super().__init__(f"region {region_id}: read_ts {read_ts} > "
+                         f"resolved_ts {safe_ts}")
+        self.region_id = region_id
+        self.safe_ts = safe_ts
+        self.read_ts = read_ts
+
+
+class RegionMerging(Exception):
+    """Writes rejected while a PrepareMerge is in flight (reference:
+    raftstore Error::ProposalInMergingMode) — retryable after the merge
+    commits or rolls back."""
+
+    def __init__(self, region_id: int):
+        super().__init__(f"region {region_id} is merging")
+        self.region_id = region_id
+
+
+class AdminNotSupported(Exception):
+    """An admin command (split, merge, change peer, compact log, compute
+    or verify hash) reached a peer of the single-store raftstore, which
+    applies data writes and read barriers only: it is refused at
+    proposal, never dropped."""
+
+    def __init__(self, region_id: int, kind: str):
+        super().__init__(f"region {region_id}: admin command {kind!r} is "
+                         "not supported by this raftstore")
+        self.region_id = region_id
+        self.kind = kind

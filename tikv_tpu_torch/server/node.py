@@ -1,0 +1,401 @@
+"""Node — one store in process: store lifecycle + drive loop + the
+coprocessor's path to the card.
+
+A trimmed copy of the JAX package's ``server/node.py`` for a single store
+on the in-memory engine: ``Node.__init__`` (reference :323-598) wires the
+raftstore, RaftKv, the transactional ``Storage``, the read pool, and the
+device serving stack whole — the delta sink, the region columnar cache,
+the request coalescer, the feed arena's budget, the
+``DeviceStateSupervisor`` on the coprocessor host, the ``RemintGovernor``,
+the device rung of the cold build and the ``ColdStreamBuilder``.  The
+runner defaults to ``DeviceRunner()`` on ``cuda:0`` (it raises without
+CUDA); a caller that wants the CPU passes ``DeviceRunner(device="cpu")``.
+``bootstrap_or_join``/``start``/``stop`` (:756-812), the drive loop
+(:821-906), ``_wait_driver`` (:985), ``_copr_snapshot`` (:1016-1070) and
+``ingest_sst``/``ingest_sst_blob`` (:1212-1274) follow the reference.
+
+Not here: the gRPC transport and server, the disk engine and encryption,
+CDC and resolved-ts, load split and the split checker, the feature gate,
+tracing and the flight recorder, the fast path, RU metering and resource
+control, the lock manager's deadlock detector, GC, and the admin
+operations (split, merge, change peer, transfer leader).
+
+Threading: one background drive thread owns raft progress (tick + ready);
+request threads propose under the node lock and block on completion
+events the drive thread fires.  No call into the device runner happens
+under the node lock: the cold build in ``copr_cache.get`` runs after
+``raft_kv.snapshot`` has returned.
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+import time
+from typing import Optional
+
+from ..copr.dag import TableScanDesc
+from ..copr.endpoint import Endpoint
+from ..copr.region_cache import RegionColumnarCache
+from ..copr.storage_impl import MvccScanStorage
+from ..engine.memory import MemoryEngine
+from ..engine.traits import CF_RAFT
+from ..kv.engine import SnapContext
+from ..pd.client import PdClient
+from ..raftstore import (
+    Peer,
+    RaftCmd,
+    RaftKv,
+    RaftStore,
+    Region,
+    RegionEpoch,
+    Transport,
+)
+from ..raftstore.metapb import Store as StoreMeta
+from ..storage import Storage
+from ..storage.mvcc.reader import MvccReader
+from ..storage.txn_types import encode_key
+
+# Reference: components/keys STORE_IDENT_KEY (0x01 0x01) — the store's
+# durable identity, read before talking to PD so a restarted store keeps
+# its id (src/server/node.rs check_store / bootstrap_store).
+STORE_IDENT_KEY = b"\x01ident"
+
+
+class Node:
+    def __init__(self, addr: str, pd: PdClient,
+                 engine: Optional[MemoryEngine] = None,
+                 store_id: Optional[int] = None,
+                 data_dir: Optional[str] = None,
+                 device_runner=None,
+                 device_row_threshold: Optional[int] = None,
+                 tick_interval: float = 0.01, config=None):
+        from ..config import TikvConfig
+        if config is None:
+            config = TikvConfig()
+            config.storage.data_dir = data_dir or ""
+        if device_row_threshold is not None:
+            # an explicit argument wins over the config file value
+            config.coprocessor.device_row_threshold = device_row_threshold
+        else:
+            device_row_threshold = config.coprocessor.device_row_threshold
+        if config.storage.data_dir or data_dir:
+            raise ValueError("the port's node runs on the in-memory engine "
+                             "only: storage.data_dir must be empty")
+        if config.raftstore.store_pool_size > 0:
+            raise ValueError("the port's raftstore has no batch-system "
+                             "pool: raftstore.store_pool_size must be 0")
+        if not config.coprocessor.scrub_digests:
+            raise ValueError("the port's runner records the digests of "
+                             "every feed: coprocessor.scrub_digests cannot "
+                             "be switched off")
+        if device_runner is None:
+            # the card (raises without CUDA); a CPU runner only when the
+            # caller passes one
+            from ..device import DeviceRunner
+            device_runner = DeviceRunner()
+        self.config = config
+        self.addr = addr
+        self.pd = pd
+        self.engine = engine if engine is not None else MemoryEngine()
+        self.lock = threading.RLock()
+        self._tick_interval = tick_interval
+        self._wake = threading.Condition(self.lock)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+        ident = self.engine.get_value_cf(CF_RAFT, STORE_IDENT_KEY)
+        if ident is not None:
+            persisted = struct.unpack(">Q", ident)[0]
+            if store_id is not None and store_id != persisted:
+                # reference: src/server/node.rs check_store — a store id
+                # clashing with the durable ident is a config error
+                raise ValueError(
+                    f"store_id {store_id} != persisted ident {persisted}")
+            store_id = persisted
+        self.store_id = store_id if store_id is not None else pd.alloc_id()
+        if ident is None:
+            self.engine.put_cf(CF_RAFT, STORE_IDENT_KEY,
+                               struct.pack(">Q", self.store_id))
+        pd.put_store(StoreMeta(self.store_id, addr))
+        # one store: its peers have no one to send raft messages to
+        self.transport = Transport()
+        self.raft_store = RaftStore(
+            self.store_id, self.engine, self.transport,
+            election_tick=config.raftstore.raft_election_timeout_ticks,
+            heartbeat_tick=config.raftstore.raft_heartbeat_ticks,
+            tick_interval=tick_interval)
+        # bulk-load import mode (sst_importer import_mode.rs)
+        self.import_mode = False
+        self.raft_kv = RaftKv(self.raft_store, driver=self._wait_driver,
+                              lock=self.lock)
+        self.storage = Storage(engine=self.raft_kv)
+        from .read_pool import ReadPool
+        self.read_pool = ReadPool(
+            max_concurrency=config.readpool.concurrency)
+        # incremental columnar cache maintenance: the apply path feeds
+        # committed-write deltas into the sink; the cache patches lines
+        # forward across data_index gaps instead of rebuilding
+        from ..copr.delta import DeltaSink
+        self.copr_delta_sink = DeltaSink(
+            max_entries=config.coprocessor.delta_log_entries,
+            max_rows=config.coprocessor.delta_log_rows)
+        self.raft_store.coprocessor_host.register(self.copr_delta_sink)
+        self.copr_cache = RegionColumnarCache(
+            capacity=config.coprocessor.region_cache_capacity,
+            delta_source=self.copr_delta_sink,
+            compact_ratio=config.coprocessor.tombstone_compact_ratio,
+            max_delta_rows=config.coprocessor.delta_log_rows)
+        self.device_runner = device_runner
+        # cross-request device batching: the coalescing dispatcher +
+        # cost-based admission router in front of the device backend
+        # (server/coalescer.py); window 0 disables it
+        coalescer = None
+        if config.coprocessor.coalesce_window_ms > 0:
+            from .coalescer import RequestCoalescer
+            coalescer = RequestCoalescer(
+                device_runner,
+                window_ms=config.coprocessor.coalesce_window_ms,
+                max_group=config.coprocessor.coalesce_max_group)
+        self.endpoint = Endpoint(self._copr_snapshot,
+                                 device_runner=device_runner,
+                                 device_row_threshold=device_row_threshold,
+                                 coalescer=coalescer)
+        # device-state supervisor: lifecycle events eagerly tear down the
+        # matching columnar cache lines and device feeds, the feed arena
+        # enforces the configured budget, and a background scrubber
+        # audits resident planes against their digests
+        from ..device.supervisor import DeviceStateSupervisor
+        if config.coprocessor.device_hbm_budget_mb > 0:
+            device_runner.set_hbm_budget(
+                config.coprocessor.device_hbm_budget_mb << 20)
+        self.device_supervisor = DeviceStateSupervisor(
+            runner=device_runner, copr_cache=self.copr_cache,
+            delta_sink=self.copr_delta_sink,
+            scrub_interval=config.coprocessor.scrub_interval_s)
+        self.copr_cache.on_line_retired = \
+            self.device_supervisor.on_line_retired
+        self.raft_store.coprocessor_host.register(self.device_supervisor)
+        self.device_supervisor.start()
+        # re-mint storm control: bound concurrent cold columnar_build
+        # re-mints behind a hot-first priority queue (0 = unthrottled)
+        if config.coprocessor.remint_concurrency > 0:
+            from ..device.supervisor import RemintGovernor
+            gov = RemintGovernor(
+                max_concurrent=config.coprocessor.remint_concurrency,
+                max_queue=config.coprocessor.remint_queue,
+                retry_after_ms=config.coprocessor.remint_retry_after_ms)
+            self.copr_cache.remint_gate = gov
+            self.device_supervisor.remint_governor = gov
+        # the device rung of the cold build, plus the streaming
+        # ingest→parse→H2D pipeline that runs it during bulk loads
+        self.cold_stream = None
+        resolver = None
+        if config.coprocessor.device_cold_build:
+            resolver = device_runner.mvcc_resolver()
+            self.copr_cache.device_resolver = resolver
+        stream_on = config.coprocessor.cold_stream
+        if stream_on is None:
+            # AUTO: the stream's overlap premise is a spare core for the
+            # parse worker; on a single-CPU box it only steals cycles
+            # from the ingest it shadows
+            from ..utils import spare_cores
+            stream_on = spare_cores() > 1
+        if resolver is not None and stream_on:
+            from ..copr.stream_build import ColdStreamBuilder
+            self.cold_stream = ColdStreamBuilder(
+                resolver,
+                max_bytes=config.coprocessor.cold_stream_max_mb << 20)
+            self.raft_store.coprocessor_host.register(self.cold_stream)
+            self.copr_cache.stream_source = self.cold_stream
+
+    # ---------------------------------------------------------- lifecycle
+
+    def bootstrap_or_join(self) -> None:
+        """The first store bootstraps region 1 (src/server/node.rs
+        bootstrap); a restart recovers its peers from the engine."""
+        self.raft_store.load_peers()
+        if self.raft_store.peers:
+            return      # restart: state recovered from the engine
+        if not self.pd.is_bootstrapped():
+            region_id = 1
+            peer = Peer(self.pd.alloc_id(), self.store_id)
+            region = Region(region_id, b"", b"", RegionEpoch(1, 1), (peer,))
+            self.raft_store.bootstrap_region(region)
+            self.pd.bootstrap_cluster(StoreMeta(self.store_id, self.addr),
+                                      region)
+            self.raft_store.region_peer(region_id).node.campaign(force=True)
+
+    def start(self) -> None:
+        self.bootstrap_or_join()
+        self._thread = threading.Thread(target=self._drive_loop,
+                                        daemon=True, name="raft-drive")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        self.device_supervisor.stop()
+        if self.cold_stream is not None:
+            self.cold_stream.stop()
+        # idle-drain the read pool, then retire (and JOIN) the endpoint's
+        # coalescer and completion-pool workers.  Order matters for the
+        # device runner: the endpoint close flushes the coalescer's
+        # parked members and drains the completion pool, so every
+        # in-flight deferred has resolved (and released its arena pin)
+        # before the runner teardown below asserts a pin-free arena.
+        self.read_pool.shutdown()
+        self.endpoint.close()
+        self.device_runner.close()
+
+    def _drive_loop(self) -> None:
+        last_tick = time.monotonic()
+        last_hb = 0.0
+        while not self._stop.is_set():
+            with self.lock:
+                now = time.monotonic()
+                if now - last_tick >= self._tick_interval:
+                    last_tick = now
+                    self.raft_store.tick()
+                did = self.raft_store.drive()
+                self._wake.notify_all()
+                # periodic PD reporting (worker/pd.rs heartbeat loop)
+                if now - last_hb >= self._tick_interval * 10:
+                    last_hb = now
+                    leaders = [(p.region, Peer(p.meta.id, self.store_id))
+                               for p in self.raft_store.peers.values()
+                               if p.is_leader()]
+                else:
+                    leaders = None
+            if leaders is not None:
+                try:
+                    for region, leader in leaders:
+                        self.pd.region_heartbeat(region, leader)
+                    hb = {"region_count": len(leaders)}
+                    # per-store HBM figures ride the heartbeat
+                    st = self.device_runner.hbm_stats()
+                    hb["device_hbm"] = {
+                        "budget_bytes": st.get("budget_bytes", 0),
+                        "resident_bytes": st.get("resident_bytes", 0)}
+                    self.pd.store_heartbeat(self.store_id, hb)
+                except Exception:   # noqa: BLE001 — PD outages must not
+                    pass            # stall raft
+            if did == 0:
+                time.sleep(self._tick_interval / 4)
+
+    def _wait_driver(self, done) -> None:
+        """RaftKv blocks here while the drive thread makes progress."""
+        deadline = time.monotonic() + 10.0
+        with self.lock:
+            self.raft_store.drive()
+            while not done():
+                if time.monotonic() > deadline:
+                    raise TimeoutError("raft command stalled")
+                self._wake.wait(timeout=0.05)
+                self.raft_store.drive()
+
+    # ---------------------------------------------------------- hooks
+
+    def _copr_snapshot(self, req):
+        """Coprocessor feed: MVCC over a region snapshot routed by the
+        request's first key range (endpoint.rs snapshot acquisition).
+
+        TableScan plans go through the per-region columnar cache so both
+        the host vectorized path and the device backend see dense tiles
+        with stable identity across requests (copr/region_cache.py);
+        everything else falls back to the row-at-a-time MVCC adapter.
+        """
+        start = req.dag.ranges[0].start if req.dag.ranges else b""
+        key_hint = encode_first(start)
+        # async-commit read protocol: bump max_ts, then check the
+        # in-memory lock table scoped to the REQUEST's key ranges
+        from ..utils import tracker
+        cm = self.storage.concurrency_manager
+        cm.update_max_ts(req.dag.start_ts)
+        if req.dag.ranges:
+            cm.read_ranges_check(req.dag.ranges, req.dag.start_ts)
+        else:
+            cm.read_range_check(None, None, req.dag.start_ts)
+        with tracker.phase("snapshot"):
+            snap = self.raft_kv.snapshot(SnapContext(key_hint=key_hint))
+        execs = req.dag.executors
+        if execs and isinstance(execs[0], TableScanDesc):
+            # outside the node lock: a cold build mints on the card
+            with tracker.phase("columnar_cache"):
+                ent = self.copr_cache.get(snap, req.dag)
+            if ent is not None:
+                return ent
+        return MvccScanStorage(MvccReader(snap), req.dag.start_ts)
+
+    # ---------------------------------------------------------- ingest
+
+    def _propose_and_wait(self, peer, cmd: RaftCmd):
+        box: dict = {}
+        peer.propose(cmd, lambda r: box.__setitem__("result", r))
+        return box
+
+    def ingest_sst(self, region_id: int, pairs) -> int:
+        """Atomically land pre-built SST pairs in one raft command on
+        the target region (sst_importer ingest; fsm/apply.rs IngestSst).
+        Keys must be engine-encoded and inside the region's range —
+        range violations are refused before proposing."""
+        from ..raftstore.cmd import WriteOp
+        from ..raftstore.metapb import KeyNotInRegion
+        from ..storage.txn_types import split_ts
+        from ..utils.failpoint import fail_point
+        fail_point("ingest::before_check")
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            region = peer.region
+            for _cf, key, _v in pairs:
+                bare = split_ts(key)[0] if len(key) > 8 else key
+                if not region.contains(bare):
+                    raise KeyNotInRegion(key, region)
+            ops = tuple(WriteOp("put", cf, key, value)
+                        for cf, key, value in pairs)
+            cmd = RaftCmd(region_id, region.epoch, ops=ops)
+            fail_point("ingest::before_propose")
+            box = self._propose_and_wait(peer, cmd)
+        self._wait_driver(lambda: "result" in box)
+        if isinstance(box["result"], Exception):
+            raise box["result"]
+        return len(ops)
+
+    def ingest_sst_blob(self, region_id: int, blob: bytes) -> int:
+        """Atomically land one v2 SST container with a single raft op
+        (fsm/apply.rs IngestSst): the file rides the log as one blob and
+        apply bulk-merges its sorted runs.  The range check touches only
+        each run's first/last key (runs are sorted)."""
+        from ..raftstore.cmd import WriteOp
+        from ..raftstore.metapb import KeyNotInRegion
+        from ..sst_importer import read_sst_cf
+        from ..storage.txn_types import split_ts
+        from ..utils.failpoint import fail_point
+        fail_point("ingest::before_blob_check")
+        cf_map = read_sst_cf(blob)      # validates checksum + key order
+        n_total = 0
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            region = peer.region
+            for _cf, (keys, _vals) in cf_map.items():
+                if not keys:
+                    continue
+                n_total += len(keys)
+                for key in (keys[0], keys[-1]):
+                    bare = split_ts(key)[0] if len(key) > 8 else key
+                    if not region.contains(bare):
+                        raise KeyNotInRegion(key, region)
+            cmd = RaftCmd(region_id, region.epoch,
+                          ops=(WriteOp("ingest", "", b"", blob),))
+            fail_point("ingest::before_blob_propose")
+            box = self._propose_and_wait(peer, cmd)
+        self._wait_driver(lambda: "result" in box)
+        if isinstance(box["result"], Exception):
+            raise box["result"]
+        return n_total
+
+
+def encode_first(start: bytes) -> bytes:
+    return encode_key(start) if start else b""

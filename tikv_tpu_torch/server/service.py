@@ -1,0 +1,398 @@
+"""The Tikv service handlers, in process.
+
+A trimmed copy of the JAX package's ``server/service.py``: ``KvService``
+with ``handle`` (dict requests, reference :84), ``handle_raw`` on its
+full-decode leg (packed requests, :123 — the reference's behaviour with
+no fast path), ``_dispatch_rpc`` with deadline admission and the read
+pool (:337), the transactional methods (``KvGet`` … ``KvTxnHeartBeat``,
+:541-655), the raw methods, ``Coprocessor`` (:716-782: DAG, plan IR,
+ANALYZE tp 104, CHECKSUM tp 105, paging and ``force_backend``) and the
+bulk-load import surface (``ImportUpload``, ``ImportIngest``,
+``ImportSwitchMode``, :1094-1138).
+
+Not here: the gRPC binding, the compiled fast path, causal tracing (a
+read response carries the port tracker's phases and labels as its
+``time_detail``), RU metering and resource groups, ``Detect`` and
+``KvGC``, the CDC, backup and coprocessor streams, and the debug service.
+
+Reference: src/server/service/kv.rs — the ``Tikv`` service's unary KV
+RPCs (:251-410) and ``coprocessor`` (:493).  Handlers are
+transport-agnostic callables dict → dict.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+from ..copr.endpoint import CopRequest, Endpoint, REQ_TYPE_DAG
+from ..storage import Storage
+from ..storage.txn import commands as cmds
+from ..storage.txn.actions import Mutation
+from ..utils import tracker
+from . import wire
+
+
+# read RPCs dispatched through the read pool (src/read_pool.rs: both
+# Storage reads and coprocessor share the unified pool); point reads get
+# high priority so scans can't starve them
+_READ_METHODS = {
+    "KvGet": "high", "KvBatchGet": "high", "KvScan": "normal",
+    "RawGet": "high", "RawBatchGet": "high", "RawScan": "normal",
+    "Coprocessor": "normal",
+}
+
+
+class KvService:
+    """All RPC handlers over one node's Storage + raftstore."""
+
+    def __init__(self, node):
+        self.node = node
+        self.storage: Storage = node.storage
+        self.endpoint: Endpoint = node.endpoint
+        self.read_pool = node.read_pool
+        # staged bulk-load SSTs by uuid (src/import/sst_service.rs)
+        self._import_lock = threading.Lock()
+        self._import_parts: dict = {}
+        self._import_staged: dict = {}
+
+    # ---------------------------------------------------------- helpers
+
+    def _guard(self, fn: Callable[[dict], dict], req: dict) -> dict:
+        try:
+            return fn(req)
+        except Exception as e:      # noqa: BLE001 — errors ride the wire
+            return {"error": wire.enc_error(e)}
+
+    def handle(self, method: str, req: dict) -> dict:
+        fn = getattr(self, method, None)
+        if fn is None or method.startswith("_") or \
+                not method[:1].isupper():
+            return {"error": {"kind": "unimplemented", "method": method}}
+        prio = _READ_METHODS.get(method)
+        if prio is None:
+            return self._dispatch_rpc(method, fn, req, None)
+        # one tracker per read, installed BEFORE admission/decode so even
+        # a shed or deadline-exceeded response carries its time_detail
+        tr, tok = tracker.install()
+        try:
+            resp = self._dispatch_rpc(method, fn, req, prio)
+        finally:
+            tracker.uninstall(tok)
+        if isinstance(resp, dict):
+            resp.setdefault("time_detail", {
+                "phases_ms": {k: v / 1e6 for k, v in tr.phases.items()},
+                "labels": dict(tr.labels)})
+        return resp
+
+    def handle_raw(self, method: str, raw: bytes):
+        """RAW-bytes entry for packed requests: the full-decode leg (the
+        reference's path when the node has no fast path)."""
+        return self.handle(method, wire.unpack(raw))
+
+    def _dispatch_rpc(self, method: str, fn, req: dict, prio) -> dict:
+        from ..utils import deadline as dl_mod
+        from ..utils.deadline import Deadline, DeadlineExceeded
+        # deadline admission (overload defense): the request carries its
+        # REMAINING budget at send time; work that is dead on arrival is
+        # shed before touching the read pool
+        dl = None
+        budget = req.get("deadline_ms") if isinstance(req, dict) else None
+        if budget is not None:
+            dl = Deadline.after_ms(budget)
+            try:
+                dl.check("admission")
+            except DeadlineExceeded as e:
+                return {"error": wire.enc_error(e)}
+        # read-pool compile-class key: the pool's service-time EWMA is
+        # keyed by the request's COST SHAPE — for coprocessor requests
+        # the const-blind plan class, the RPC method otherwise.  The
+        # decode is reused by the Coprocessor handler (stashed on the
+        # request), so the classing costs no second parse.
+        class_key = method if prio is not None else None
+        if method == "Coprocessor" and isinstance(req, dict) and \
+                "dag" in req:
+            try:
+                with tracker.phase("plan_decode"):
+                    dag_obj = wire.dec_dag(req["dag"])
+                req["__dag"] = dag_obj
+                class_key = ("copr", dag_obj.class_key())
+            except Exception:   # noqa: BLE001 — handler reports it
+                pass
+        elif method == "Coprocessor" and isinstance(req, dict) and \
+                "plan" in req:
+            try:
+                with tracker.phase("plan_decode"):
+                    plan_obj = wire.dec_plan(req["plan"])
+                req["__plan"] = plan_obj
+                class_key = ("copr_plan", plan_obj.class_key())
+            except Exception:   # noqa: BLE001 — handler reports it
+                pass
+        # the deadline rides a thread-local so the executor pipeline and
+        # the device dispatch path can shed without a parameter
+        dl_tok = dl_mod.install(dl) if dl is not None else None
+        try:
+            if prio is not None:
+                resp = self._guard(
+                    lambda r: self.read_pool.run(
+                        lambda: fn(r), prio, deadline=dl,
+                        class_key=class_key), req)
+                d = resp.pop("__deferred", None) \
+                    if isinstance(resp, dict) else None
+                if d is not None:
+                    # async copr: the read-pool slot covered only the
+                    # dispatch; the D2H fetch resolves on the endpoint's
+                    # completion pool while THIS thread parks here
+                    def _await(_r):
+                        with tracker.phase("await_deferred"):
+                            got = d.wait()
+                        return self._enc_cop_resp(got)
+                    resp = self._guard(_await, req)
+            else:
+                resp = self._guard(fn, req)
+        finally:
+            if dl is not None:
+                dl_mod.uninstall(dl_tok)
+        if dl is not None and dl.expired() and \
+                isinstance(resp, dict) and not resp.get("error"):
+            # an acknowledged response must NEVER come from work whose
+            # deadline passed mid-flight
+            resp = {"error": wire.enc_error(DeadlineExceeded(
+                "completion", overrun_ms=-dl.remaining() * 1e3))}
+        return resp
+
+    # ---------------------------------------------------------- txn KV
+
+    def KvGet(self, req: dict) -> dict:
+        with tracker.phase("kv_read"):
+            v = self.storage.get(req["key"], req["version"],
+                                 tuple(req.get("bypass_locks", ())),
+                                 replica_read=req.get("replica_read",
+                                                      False),
+                                 stale_read=req.get("stale_read", False))
+        return {"value": v, "not_found": v is None}
+
+    def KvBatchGet(self, req: dict) -> dict:
+        with tracker.phase("kv_read"):
+            pairs = self.storage.batch_get(req["keys"], req["version"])
+        return {"pairs": [{"key": k, "value": v} for k, v in pairs]}
+
+    def KvScan(self, req: dict) -> dict:
+        with tracker.phase("kv_read"):
+            pairs = self.storage.scan(req["start_key"],
+                                      req.get("end_key") or None,
+                                      req["limit"], req["version"],
+                                      req.get("reverse", False))
+        return {"pairs": [{"key": k, "value": v} for k, v in pairs]}
+
+    def KvPrewrite(self, req: dict) -> dict:
+        muts = [Mutation(m["op"], m["key"], m.get("value"))
+                for m in req["mutations"]]
+        return self.storage.sched_txn_command(cmds.Prewrite(
+            muts, req["primary"], req["start_version"],
+            lock_ttl=req.get("lock_ttl", 3000),
+            txn_size=req.get("txn_size", 0),
+            min_commit_ts=req.get("min_commit_ts", 0),
+            is_pessimistic_lock=req.get("is_pessimistic_lock", ()),
+            use_async_commit=req.get("use_async_commit", False),
+            secondaries=req.get("secondaries", ()),
+            try_one_pc=req.get("try_one_pc", False)))
+
+    def KvCheckSecondaryLocks(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.CheckSecondaryLocks(
+            req["keys"], req["start_version"]))
+
+    def KvCommit(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.Commit(
+            req["keys"], req["start_version"], req["commit_version"]))
+
+    def KvBatchRollback(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.Rollback(
+            req["keys"], req["start_version"]))
+
+    def KvCleanup(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.Cleanup(
+            req["key"], req["start_version"], req["current_ts"]))
+
+    def KvCheckTxnStatus(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.CheckTxnStatus(
+            req["primary_key"], req["lock_ts"], req["caller_start_ts"],
+            req["current_ts"]))
+
+    def KvResolveLock(self, req: dict) -> dict:
+        if req.get("keys"):
+            return self.storage.sched_txn_command(cmds.ResolveLockLite(
+                req["start_version"], req.get("commit_version", 0),
+                req["keys"]))
+        return self.storage.sched_txn_command(cmds.ResolveLock(
+            req["start_version"], req.get("commit_version", 0)))
+
+    def KvPessimisticLock(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.AcquirePessimisticLock(
+            req["keys"], req["primary"], req["start_version"],
+            req["for_update_ts"], req.get("lock_ttl", 3000),
+            req.get("return_values", False),
+            wait_timeout_s=req.get("wait_timeout_s", 0.0)))
+
+    def KvPessimisticRollback(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.PessimisticRollback(
+            req["keys"], req["start_version"], req["for_update_ts"]))
+
+    def KvTxnHeartBeat(self, req: dict) -> dict:
+        return self.storage.sched_txn_command(cmds.TxnHeartBeat(
+            req["primary_key"], req["start_version"], req["advise_ttl"]))
+
+    # ---------------------------------------------------------- raw KV
+
+    def RawGet(self, req: dict) -> dict:
+        v = self.storage.raw_get(req["key"])
+        return {"value": v, "not_found": v is None}
+
+    def RawBatchGet(self, req: dict) -> dict:
+        return {"pairs": [{"key": k, "value": v} for k, v in
+                          self.storage.raw_batch_get(req["keys"])]}
+
+    def RawPut(self, req: dict) -> dict:
+        self.storage.raw_put(req["key"], req["value"])
+        return {}
+
+    def RawBatchPut(self, req: dict) -> dict:
+        self.storage.raw_batch_put(
+            [(p["key"], p["value"]) for p in req["pairs"]])
+        return {}
+
+    def RawDelete(self, req: dict) -> dict:
+        self.storage.raw_delete(req["key"])
+        return {}
+
+    def RawDeleteRange(self, req: dict) -> dict:
+        self.storage.raw_delete_range(req["start_key"], req["end_key"])
+        return {}
+
+    def RawScan(self, req: dict) -> dict:
+        pairs = self.storage.raw_scan(req["start_key"],
+                                      req.get("end_key") or None,
+                                      req["limit"],
+                                      req.get("reverse", False))
+        return {"kvs": [{"key": k, "value": v} for k, v in pairs]}
+
+    # ---------------------------------------------------------- copr
+
+    @staticmethod
+    def _cop_envelope(resp) -> dict:
+        """The non-rows response fields."""
+        return {"backend": resp.backend,
+                "elapsed_ns": resp.elapsed_ns,
+                "is_drained": resp.is_drained,
+                "resume_token": resp.resume_token,
+                "exec_summaries": [
+                    {"rows": s.num_produced_rows,
+                     "iters": s.num_iterations,
+                     "time_ns": s.time_processed_ns}
+                    for s in resp.result.exec_summaries]}
+
+    def _enc_cop_resp(self, resp) -> dict:
+        with tracker.phase("resp_serialize"):
+            rows = wire.enc_rows(resp.rows())
+        return {"rows": rows, **self._cop_envelope(resp)}
+
+    def Coprocessor(self, req: dict) -> dict:
+        with tracker.phase("copr_handler"):
+            return self._coprocessor(req)
+
+    def _coprocessor(self, req: dict) -> dict:
+        tp = req.get("tp", REQ_TYPE_DAG)
+        # handle() stashed its class-keying decode; fall back to a fresh
+        # parse for direct callers
+        predec = req.pop("__dag", None)
+        if "plan" in req:
+            # plan-IR request: the operator superset (join/sort/window +
+            # mixed per-fragment routing, copr/plan_ir.py)
+            preq = req.pop("__plan", None) or wire.dec_plan(req["plan"])
+            resp = self.endpoint.handle_plan(
+                preq, force_backend=req.get("force_backend"))
+            return self._enc_cop_resp(resp)
+        if tp == 104:       # ANALYZE (endpoint.rs:275-312)
+            from ..copr.analyze import AnalyzeReq
+            dag = predec or wire.dec_dag(req["dag"])
+            stats = self.endpoint.handle_analyze(AnalyzeReq(
+                dag.executors[0], dag.ranges,
+                req.get("buckets", 64), dag.start_ts))
+            return {"columns": [
+                {"col_id": s.col_id, "total": s.total,
+                 "null_count": s.null_count, "distinct": s.distinct,
+                 "buckets": [[b, c] for b, c in s.buckets]}
+                for s in stats["columns"]]}
+        if tp == 105:       # CHECKSUM (checksum.rs)
+            from ..copr.analyze import ChecksumReq
+            dag = predec or wire.dec_dag(req["dag"])
+            return self.endpoint.handle_checksum(ChecksumReq(
+                dag.executors[0], dag.ranges, dag.start_ts))
+        if tp != REQ_TYPE_DAG:
+            raise ValueError(f"coprocessor request type {tp}")
+        dag = predec or wire.dec_dag(req["dag"])
+        creq = CopRequest(
+            REQ_TYPE_DAG, dag, req.get("force_backend"),
+            paging_size=req.get("paging_size", 0),
+            resume_token=req.get("resume_token"))
+        # dispatch under the read-pool slot, await outside it: handle()
+        # resolves the "__deferred" marker after the slot is released
+        d = self.endpoint.handle_async(creq)
+        if d.resolved:
+            return self._enc_cop_resp(d.wait())
+        return {"__deferred": d}
+
+    # ---------------------------------------------------------- import
+    #
+    # Bulk load (src/import/sst_service.rs): ImportUpload stages an SST
+    # in parts by uuid, ImportIngest lands it through one raft command,
+    # switch_mode pauses housekeeping during the bulk load.
+
+    _IMPORT_STAGE_MAX = 16
+
+    def ImportUpload(self, req: dict) -> dict:
+        uuid = req["uuid"]
+        with self._import_lock:
+            if uuid not in self._import_parts and \
+                    uuid not in self._import_staged and \
+                    (len(self._import_parts) +
+                     len(self._import_staged)) >= self._IMPORT_STAGE_MAX:
+                # refuse NEW uploads instead of silently evicting a
+                # fully-staged blob someone is about to ingest
+                return {"error": {"kind": "server_is_busy",
+                                  "reason": "import staging full"}}
+            parts = self._import_parts.setdefault(uuid, {})
+            parts[req["seq"]] = req["data"]
+            done = len(parts) == req["total"]
+            if done:
+                self._import_staged[uuid] = b"".join(
+                    parts[i] for i in range(req["total"]))
+                del self._import_parts[uuid]
+        return {"staged": done}
+
+    def ImportIngest(self, req: dict) -> dict:
+        from ..sst_importer import is_sst_v2, read_sst
+        uuid = req["uuid"]
+        with self._import_lock:
+            blob = self._import_staged.get(uuid)
+        if blob is None:
+            return {"error": {"kind": "other",
+                              "message": f"no staged sst {uuid!r}"}}
+        # the staged blob survives a FAILED ingest so the client can
+        # retry without re-uploading (sst_service keeps the file the same
+        # way)
+        if is_sst_v2(blob):
+            # v2 column-group container: ONE raft op carries the file,
+            # apply bulk-merges sorted runs — no per-row replay
+            n = self.node.ingest_sst_blob(req["region_id"], blob)
+        else:
+            pairs = read_sst(blob)  # ValueError on corruption → guard
+            n = self.node.ingest_sst(req["region_id"], pairs)
+        with self._import_lock:
+            self._import_staged.pop(uuid, None)
+        return {"ingested": n}
+
+    def ImportSwitchMode(self, req: dict) -> dict:
+        self.node.import_mode = bool(req["import"])
+        return {"import_mode": self.node.import_mode}
+
