@@ -171,9 +171,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    R' included), and naming the plane ``corrupt_resident_plane`` flipped
    (one ``patch_feed_rows`` launch) — with the kernels' launch counts
    read around that main path (``mvcc_resolve``, ``plane_digest``,
-   ``patch_rows`` and ``patch_spans`` must each launch); then two rounds of the device,
-   upload and resident routes (the planes in ``DeviceVersionPlanes``,
-   filled in chunks of 2^20 keys), the second in reverse order, each
+   ``patch_rows`` and ``patch_spans`` must each launch); then rounds of
+   the device, upload and resident routes (6c two, the second in reverse
+   order; 4h one, for the time limit; the planes in
+   ``DeviceVersionPlanes``, filled in chunks of 2^20 keys), each
    route a fresh snapshot by ``build_region_columnar_device``, every feed
    bit-equal to the main path's and that one to the plain version; cold
    ms by phase for each route in each round; and the three kernels timed
@@ -332,6 +333,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    its host mirror —, a clean scrub, and CHECKSUM of its rows through the
    native fold against the Python fold), every answer against numpy, the
    load's seconds and each read's cold ms by phase and warm p50 printed;
+   then cell srv (``run_srv``, a runner of its own: the port's ``Node``
+   and ``KvService`` in process, one region of partitioned-raft-kv's
+   size, 10·2^20 keys bulk-loaded through ``ImportUpload`` /
+   ``ImportIngest``, reads, a 2PC write patched in place, point reads,
+   ANALYZE, CHECKSUM, a forced host read) with its step 6: ``SplitRegion``
+   at handle 5·2^20 (raft apply slices the resident feeds: four
+   ``split_planes``, no mint, no upload, no fallback), both plans on each
+   child cold + 2 warm against the numpy truth of its handles, then
+   ``MergeRegion`` back (both lines drop, the merged region's read mints
+   once), the split's phases and the merge's ms printed; then cell rs3
+   (``run_rs3``: three stores of the port's ``Cluster`` at TiKV's classic
+   raft-kv defaults, stores 1 and 2 each with a runner of its own, 6c's
+   table at 2^22 keys in four raft ingest entries, the logs compacted:
+   the split checker's half-split and a PD split at 90% of the right
+   child, each slicing store 1's feeds by ``split_planes`` with no mint
+   and no upload; a 4,096-row 2PC write patched in place; a leader round
+   trip to store 2 and back, the promotion one ``plane_digest`` a
+   resident plane with no rebuild and no mint; ``check_consistency`` on
+   every region; store 3's peer removed and added back, caught up by a
+   raft snapshot, its CFs equal to store 1's; a merge dropping both
+   lines, the merged read minting once), every answer against numpy, the
+   RSS around the load and each step's ms printed;
 14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
    launch no kernel of ``selection.cu``, run while that source builds,
    after the ANALYZE cells): ``shard_psum``, ``shard_bucket_merge`` and
@@ -3522,7 +3545,7 @@ COLD_ROUNDS = (("device", "upload", "resident"),
 
 def run_cold(config: str, n_keys: int, runner) -> dict:
     """One cold-path configuration: its version history on the host, then
-    two rounds of three routes, each route a fresh snapshot by
+    rounds of three routes (6c two, 4h one), each route a fresh snapshot by
     ``build_region_columnar_device`` (its host mirror timed) serving cold
     + 5 warm requests: the device route (a feed minted by
     ``mvcc_resolve`` from planes uploaded at the mint), the upload route
@@ -3627,7 +3650,11 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
     del plain, args
 
     rounds = []
-    for order in COLD_ROUNDS:
+    # 4h's second round (three routes over 100·2^20 keys, about 27 s) is
+    # cut for the smoke's time limit; 6c's two rounds give the order's
+    # spread
+    orders = COLD_ROUNDS if config == "6c" else COLD_ROUNDS[:1]
+    for order in orders:
         rows = {}
         for route in order:
             if route == "device" and not rounds:
@@ -3666,7 +3693,7 @@ def run_cold(config: str, n_keys: int, runner) -> dict:
                               chunks=resident["chunks"])
     out = {"config": config, "keys": planes.n_keys, "versions": planes.n_ver,
            "rows": n, "generate_s": gen_s, "planes_bytes":
-           tm.planes_nbytes(planes), "rounds": [list(o) for o in COLD_ROUNDS],
+           tm.planes_nbytes(planes), "rounds": [list(o) for o in orders],
            "routes": routes, "launches": launches, "scrub_named": named,
            "timing": timing}
     print(f"cold config {config}: " + json.dumps(
@@ -6377,6 +6404,10 @@ SRV_BUCKETS = 256               # TiDB's ANALYZE buckets
 SRV_BATCH = 64
 SRV_SCAN = 1000
 SRV_CHECKSUM = 1 << 16
+# partitioned-raft-kv's region size (TiKV's configuration documentation:
+# coprocessor.region-split-size 10 GiB, region-max-size 15 GiB)
+SRV_SPLIT_MB = 10 << 10
+SRV_MAX_MB = 15 << 10
 
 
 def srv_call(svc, method: str, req: dict, raw: bool = True) -> tuple:
@@ -6441,10 +6472,13 @@ def srv_logical_pairs(tid: int, h, c0, c1) -> tuple:
 
 def run_srv(runner) -> dict:
     """Cell srv: the port's store in process on the card — ``Node`` over
-    ``MockPd`` with the port's ``DeviceRunner()`` (one 10 GiB region: the
-    port has no split check; the config's defaults: coalescer window 2
-    ms, ``device_row_threshold`` 131072) and ``KvService``, every request
-    a user's RPC body:
+    ``MockPd`` with the port's ``DeviceRunner()`` and ``KvService``, every
+    request a user's RPC body.  The region's size is partitioned-raft-kv's
+    (TiKV's configuration documentation, ``coprocessor.region-split-size``
+    10 GiB and ``region-max-size`` 15 GiB when ``storage.engine`` is
+    ``partitioned-raft-kv``): the drive loop's split checker scans the
+    loaded region and leaves it whole.  The config's other defaults:
+    coalescer window 2 ms, ``device_row_threshold`` 131072.
 
     1. load: ``ImportSwitchMode(True)``; 6c's table (``int_table(2)``,
        ``c0 = h % 1024``, ``c1 = h % 1000``, 10·2^20 keys) as ten 2^20-key
@@ -6453,7 +6487,10 @@ def run_srv(runner) -> dict:
        one raft entry a blob, applied while the node's
        ``ColdStreamBuilder`` parses and uploads each chunk —, then
        ``ImportSwitchMode(False)``; the load's time by part and the host's
-       RSS after it (the raft log keeps the blobs);
+       RSS after it (the raft log keeps the blobs); then the wait for the
+       drive loop's split checker, whose first pass out of import mode
+       scans the region (its approximate size and buckets printed; no
+       split at 10 GiB);
     2. read: GROUP BY c0: COUNT(*), SUM(c1) and the rows of ``c1 > 990``,
        packed (``wire.pack``) through ``handle_raw("Coprocessor")``, cold
        + 5 warm each: ``backend`` device, the numpy truth (every returned
@@ -6472,7 +6509,19 @@ def run_srv(runner) -> dict:
        model's logical pairs, built apart from the store); one
        GROUP BY with ``force_backend="host"``: the same answer, ``backend``
        host;
-    6. ``node.stop()``: no thread of the node left, the arena pin-free and
+    6. split and merge through raft: ``SplitRegion`` at handle 5·2^20
+       through ``KvService.handle``; the node's raft apply splits the
+       region and its supervisor slices the resident feeds with
+       ``split_planes`` (two children × two feeds: no ``mvcc_resolve``, no
+       upload, ``split_fallbacks`` 0); both plans on each child, cold + 2
+       warm through ``handle_raw`` with the child's range, each against
+       the numpy truth over its handles (step 3's write included; the
+       children's first requests take the sliced feeds); then
+       ``MergeRegion`` back: both children's lines drop, and the merged
+       region's next read mints once (``mvcc_resolve``) and equals the
+       truth; the split's phases (``split_lines``, ``device_split``), the
+       merge in ms and the launches printed;
+    7. ``node.stop()``: no thread of the node left, the arena pin-free and
        empty.
 
     Counts from 0 before the path, read after."""
@@ -6494,6 +6543,9 @@ def run_srv(runner) -> dict:
     table = tm.table_6c()
     tid = table.table_id
     cfg = TikvConfig()
+    cfg.raftstore.region_split_size_mb = SRV_SPLIT_MB
+    cfg.raftstore.region_max_size_mb = SRV_MAX_MB
+    cfg.validate()
     pd = MockPd()
     threads_before = {t.ident for t in threading.enumerate()}
     set_counts({k: 0 for k in KERNELS})
@@ -6540,9 +6592,26 @@ def run_srv(runner) -> dict:
         torch.cuda.synchronize()
         drain_s = time.perf_counter() - t1
         srv_call(svc, "ImportSwitchMode", {"import": False}, raw=False)
-        with open("/proc/self/status") as f:
-            rss = next(int(line.split()[1]) << 10 for line in f
-                       if line.startswith("VmRSS:"))
+        # out of import mode, the drive loop's split checker scans the
+        # loaded region (its size_diff_hint is past region_split_check_
+        # diff) under the node lock, and leaves it whole at 10 GiB: wait
+        # for that pass, so that the reads below do not share the host
+        # with it
+        t1 = time.perf_counter()
+        while True:
+            with node.lock:
+                peer = node.raft_store.region_peer(1)
+                checked = (peer.approximate_size, len(peer.buckets),
+                           len(node.raft_store.peers))
+            if checked[0]:
+                break
+            assert time.perf_counter() - t1 < 120, "no split check ran"
+            time.sleep(0.01)
+        assert checked[2] == 1, f"srv: the checker split the region {checked}"
+        out["split_check"] = {"wait_s": time.perf_counter() - t1,
+                              "approximate_size": checked[0],
+                              "buckets": checked[1]}
+        rss = rss_bytes()
         out["load_s"] = {"total": time.perf_counter() - t0,
                          "sst_build": build_s, "upload": upload_s,
                          "propose_apply": ingest_s, "stream_drain": drain_s}
@@ -6551,8 +6620,8 @@ def run_srv(runner) -> dict:
         st = node.cold_stream.stats()
         assert st["chunks_parsed"] == SRV_KEYS // SRV_CHUNK, st
         print(f"srv load: {json.dumps(out['load_s'])} rss "
-              f"{rss / 2**30:.2f} GiB blobs {blob_bytes / 2**20:.1f} MiB",
-              flush=True)
+              f"{rss / 2**30:.2f} GiB blobs {blob_bytes / 2**20:.1f} MiB; "
+              f"split check {json.dumps(out['split_check'])}", flush=True)
 
         # -- 2. read --------------------------------------------------
         def dag(plan: str, ts: int, force=None) -> dict:
@@ -6737,8 +6806,12 @@ def run_srv(runner) -> dict:
                            "checksum_truth_s": truth_s,
                            "group_by_on_host": host["ms"]}
         assert node.device_runner.hbm_stats()["pinned_lines"] == 0
+
+        # -- 6. split and merge through raft --------------------------
+        out["split_merge"] = srv_split_merge(node, svc, runner, model,
+                                             pd, table, dag, ask)
     finally:
-        # -- 6. stop ----------------------------------------------------
+        # -- 7. stop ----------------------------------------------------
         t0 = time.perf_counter()
         node.stop()
         out["stop_ms"] = (time.perf_counter() - t0) * 1e3
@@ -6763,6 +6836,550 @@ def run_srv(runner) -> dict:
             "write": {k: out["write"][k] for k in
                       ("prewrite_ms", "commit_ms", "first_read_ms")},
             "wall_s": out["wall_s"]}
+
+
+def srv_split_merge(node, svc, runner, model, pd, table, dag, ask) -> dict:
+    """Step 6 of cell srv (``run_srv``): ``SplitRegion`` at handle
+    ``SRV_KEYS // 2``, both plans on each child, ``MergeRegion`` back, the
+    merged region's read → the figures."""
+    from tikv_tpu_torch.codec.keys import table_record_key
+    tid = table.table_id
+    mid = SRV_KEYS // 2
+    sup = node.device_supervisor
+    resolver = node.copr_cache.device_resolver
+    c0, routes0, mints0 = counts(), dict(runner.feed_routes), resolver.mints
+    splits0 = (sup.splits, sup.split_fallbacks)
+    resp, split_ms = srv_call(svc, "SplitRegion", {
+        "split_key": table_record_key(tid, mid)}, raw=False)
+    right = resp["right"]["id"]
+    assert (sup.splits - splits0[0], sup.split_fallbacks - splits0[1]) == \
+        (1, 0), (sup.splits, sup.split_fallbacks)
+    split_phases = dict(sup.split_phases_ms)
+    launches = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    # two children × two feeds (the GROUP BY's and the selection's)
+    assert launches == {"split_planes": 4}, launches
+
+    def ask_range(plan: str, lo: int, hi: int) -> dict:
+        """``plan`` over handles [lo, hi) → the request's figures; the
+        answer against the model's rows in the range."""
+        rng = {"s": table_record_key(tid, lo), "e": table_record_key(tid, hi)}
+        req = dag(plan, pd.tso())
+        req["dag"]["ranges"] = [rng]
+        resp, ms = srv_call(svc, "Coprocessor", req)
+        assert resp["backend"] == "device", (plan, resp["backend"])
+        m = (model.h >= lo) & (model.h < hi)
+        if plan == "sel":
+            got = np.asarray(resp["rows"], np.int64).reshape(-1, 3)
+            m &= model.c1 > 990
+            assert np.array_equal(got, np.stack(
+                [model.h[m], model.c0[m], model.c1[m]], 1)), \
+                f"srv: wrong selection on [{lo}, {hi})"
+        else:
+            got = sorted(map(tuple, resp["rows"]), key=lambda r: r[2])
+            cnt = np.bincount(model.c0[m], minlength=model.groups)
+            sm = np.bincount(model.c0[m], weights=model.c1[m].astype(
+                np.float64), minlength=model.groups)
+            assert got == [(int(cnt[g]), int(sm[g]), g)
+                           for g in range(model.groups) if cnt[g]], \
+                f"srv: wrong GROUP BY on [{lo}, {hi})"
+        return {"ms": ms, "labels": resp["time_detail"]["labels"]}
+
+    children = {}
+    for name, lo, hi in (("left", 0, mid), ("right", mid, SRV_KEYS)):
+        for plan in ("agg", "sel"):
+            runs = [ask_range(plan, lo, hi) for _ in range(3)]
+            children[f"{name} {plan}"] = {
+                "cold_ms": runs[0]["ms"],
+                "warm_ms": [r["ms"] for r in runs[1:]]}
+    routes = {k: v - routes0.get(k, 0) for k, v in runner.feed_routes.items()
+              if v - routes0.get(k, 0)}
+    # each child's first request of each plan took its sliced feed
+    assert routes == {"split": 4}, routes
+    assert counts()["mvcc_resolve"] == c0["mvcc_resolve"] and \
+        resolver.mints == mints0, "a child minted"
+    inv0 = sup.lifecycle_invalidations
+    resp, merge_ms = srv_call(svc, "MergeRegion", {
+        "source_id": right, "target_id": 1}, raw=False)
+    assert (resp["region"]["start"], resp["region"]["end"]) == (b"", b"")
+    dropped = sup.lifecycle_invalidations - inv0
+    assert dropped >= 2 and node.copr_cache.region_resident(right) == 0, \
+        (dropped, node.copr_cache.region_resident(right))
+    with node.lock:
+        assert right not in node.raft_store.peers
+    c1 = counts()
+    merged = {plan: ask(plan) for plan in ("agg", "sel")}
+    assert counts()["mvcc_resolve"] - c1["mvcc_resolve"] == 1, \
+        "the merged region did not mint once"
+    assert resolver.mints == mints0 + 1, resolver.mints
+    launches = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    out = {"split_ms": split_ms, "split_phases_ms": split_phases,
+           "runner_split_phases_ms": dict(runner.split_phases_ms),
+           "children": children, "feed_routes": routes,
+           "merge_ms": merge_ms, "lines_dropped": dropped,
+           "merged_cold_ms": {p: r["ms"] for p, r in merged.items()},
+           "launches": launches}
+    print(f"srv split/merge: split {split_ms:.1f} ms "
+          f"{json.dumps(split_phases)}, children cold "
+          + " ".join(f"{k} {v['cold_ms']:.1f}" for k, v in children.items())
+          + f" ms; merge {merge_ms:.1f} ms, merged cold "
+          f"{merged['agg']['ms']:.1f} / {merged['sel']['ms']:.1f} ms; "
+          f"launches {json.dumps(launches)}", flush=True)
+    return out
+
+
+RS3_KEYS = 1 << 22              # 6c's table, about 240 MiB of it
+RS3_BLOBS = 4                   # 2^20 keys a blob (bench.py:448's chunk)
+RS3_WARM = 2
+
+
+class Rs3:
+    """Cell rs3's rig: the port's ``Cluster(n_stores=3, seed=0)`` at TiKV's
+    classic raft-kv defaults (the port's ``RaftstoreConfig``: region-split
+    -size 96 MiB, region-max-size 144 MiB; PD's 3 replicas), stores 1 and
+    2 each with a ``DeltaSink``, a ``RegionColumnarCache`` with the device
+    rung of the cold build, a ``DeviceStateSupervisor`` on the store's
+    coprocessor host and a ``DeviceRunner()`` of its own on ``cuda:0``;
+    store 3 host-only.  A read is the endpoint over a lease-read snapshot
+    of the store's ``RaftKv``, as ``Node._copr_snapshot`` takes it."""
+
+    def __init__(self):
+        from tikv_tpu_torch.copr.delta import DeltaSink
+        from tikv_tpu_torch.copr.endpoint import Endpoint
+        from tikv_tpu_torch.copr.region_cache import RegionColumnarCache
+        from tikv_tpu_torch.device import DeviceRunner
+        from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+        from tikv_tpu_torch.testing import mvcc as tm
+        from tikv_tpu_torch.testing.cluster import Cluster
+        self.table = tm.table_6c()
+        self.tid = self.table.table_id
+        self.c = Cluster(n_stores=3, seed=0)
+        self.c.bootstrap()
+        self.c.start()
+        self.model = DeltaModel(RS3_KEYS)
+        self.ts = 100
+        self.dev = {}
+        for sid in (1, 2):
+            runner = DeviceRunner()
+            sink = DeltaSink()
+            cache = RegionColumnarCache(delta_source=sink)
+            cache.device_resolver = runner.mvcc_resolver()
+            sup = DeviceStateSupervisor(runner=runner, copr_cache=cache,
+                                        delta_sink=sink)
+            host = self.c.stores[sid].coprocessor_host
+            host.register(sink)
+            host.register(sup)
+            self.dev[sid] = {"runner": runner, "cache": cache, "sup": sup,
+                             "region": 1}
+            self.dev[sid]["ep"] = Endpoint(
+                lambda req, sid=sid: self._provider(sid, req), runner)
+
+    def _provider(self, sid: int, req):
+        from tikv_tpu_torch.kv.engine import SnapContext
+        snap = self.c.kvs[sid].snapshot(
+            SnapContext(region_id=self.dev[sid]["region"]))
+        return self.dev[sid]["cache"].get(snap, req.dag)
+
+    def propose(self, region_id: int, make):
+        peer = self.c.leader_peer(region_id)
+        box: dict = {}
+        peer.propose(make(peer.region), lambda r: box.__setitem__("r", r))
+        self.c._drive_until(lambda: "r" in box)
+        if isinstance(box["r"], Exception):
+            raise box["r"]
+        return box["r"]
+
+    def compact(self, region_id: int) -> None:
+        from tikv_tpu_torch.raftstore import AdminCmd, RaftCmd
+        applied = self.c.leader_peer(region_id).node.applied
+        self.propose(region_id, lambda r: RaftCmd(
+            region_id, r.epoch, admin=AdminCmd("compact_log",
+                                               compact_index=applied)))
+
+    def bounds(self, region_id: int) -> tuple:
+        from tikv_tpu_torch.codec.keys import decode_record_handle
+        from tikv_tpu_torch.storage.txn_types import decode_key
+        r = self.c.stores[1].peers[region_id].region
+        lo = decode_record_handle(decode_key(r.start_key)) \
+            if r.start_key else 0
+        hi = decode_record_handle(decode_key(r.end_key)) \
+            if r.end_key else RS3_KEYS
+        return lo, hi
+
+    def ask(self, sid: int, region_id: int, plan: str) -> dict:
+        """One request of ``plan`` on ``region_id`` at store ``sid``, the
+        answer against the model over the region's handles → ms, the feed
+        label, the cache's label."""
+        from tikv_tpu_torch.convert import dag_from_wire
+        from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest
+        from tikv_tpu_torch.copr.wire import enc_dag
+        from tikv_tpu_torch.testing.dag import DagSelect
+        from tikv_tpu_torch.utils import tracker
+        lo, hi = self.bounds(region_id)
+        self.dev[sid]["region"] = region_id
+        s = DagSelect.from_table(self.table, ["id", "c0", "c1"])
+        d = s.where(s.col("c1") > 990) if plan == "sel" else s.aggregate(
+            [s.col("c0")], [("count_star", None), ("sum", s.col("c1"))])
+        dag = dag_from_wire(enc_dag(d.build(self.ts + 5)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr, tok = tracker.install()
+        try:
+            resp = self.dev[sid]["ep"].handle(CopRequest(
+                REQ_TYPE_DAG, dag, force_backend="device"))
+        finally:
+            tracker.uninstall(tok)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert resp.backend == "device", resp.backend
+        m = (self.model.h >= lo) & (self.model.h < hi)
+        if plan == "sel":
+            m &= self.model.c1 > 990
+            got = np.stack([np.asarray(col.values)
+                            for col in resp.result.batch.columns], 1)
+            assert np.array_equal(got, np.stack(
+                [self.model.h[m], self.model.c0[m], self.model.c1[m]], 1)), \
+                f"rs3: wrong selection on region {region_id} at {sid}"
+        else:
+            got = sorted(resp.rows(), key=lambda r: r[2])
+            c0, c1 = self.model.c0[m], self.model.c1[m]
+            cnt = np.bincount(c0, minlength=self.model.groups)
+            sm = np.bincount(c0, weights=c1.astype(np.float64),
+                             minlength=self.model.groups)
+            assert got == [(int(cnt[g]), int(sm[g]), g)
+                           for g in range(self.model.groups) if cnt[g]], \
+                f"rs3: wrong GROUP BY on region {region_id} at {sid}"
+        return {"ms": ms, "feed": tr.labels.get("device_feed"),
+                "cache": tr.labels.get("copr_cache")}
+
+    def both_plans(self, sid: int, region_id: int, warm: int = RS3_WARM):
+        """Both plans, cold + ``warm`` warm → {plan: [figures, ...]}."""
+        return {plan: [self.ask(sid, region_id, plan)
+                       for _ in range(1 + warm)]
+                for plan in ("agg", "sel")}
+
+    def update(self, hs, c1) -> float:
+        """One 2PC transaction of UPDATEs of c1 at the leader of the rows'
+        region → ms."""
+        from tikv_tpu_torch.codec.keys import table_record_key
+        from tikv_tpu_torch.codec.row import encode_row
+        self.ts += 10
+        muts = [("put", table_record_key(self.tid, int(h)),
+                 encode_row({2: int(h) % self.model.groups, 3: int(v)}))
+                for h, v in zip(hs, c1)]
+        t0 = time.perf_counter()
+        self.c.txn_write(muts, start_ts=self.ts, commit_ts=self.ts + 1)
+        self.ts += 2
+        self.model.update(np.asarray(hs), np.asarray(c1))
+        return (time.perf_counter() - t0) * 1e3
+
+    def feed_regions(self, sid: int) -> set:
+        return {getattr(a, "region_hint", None)
+                for a, b in self.dev[sid]["runner"].arena_items()
+                if any(isinstance(v, dict) and "flat" in v
+                       for v in b.values())}
+
+    def sup_counts(self, sid: int) -> dict:
+        sup = self.dev[sid]["sup"]
+        return {"splits": sup.splits,
+                "split_fallbacks": sup.split_fallbacks,
+                "promotions": sup.promotions,
+                "promotion_rebuilds": sup.promotion_rebuilds,
+                "demotions": sup.demotions,
+                "invalidations": sup.lifecycle_invalidations}
+
+    def close(self) -> None:
+        for d in self.dev.values():
+            d["ep"].close()
+            d["runner"].close()
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) << 10 for line in f
+                    if line.startswith("VmRSS:"))
+
+
+def run_rs3() -> dict:
+    """Cell rs3: three replicas at TiKV's classic raft-kv defaults
+    (``Rs3``), regions splitting, merging and moving under the card:
+
+    1. load: 6c's table (``int_table(2)``, ``c0 = h % 1024``, ``c1 = h %
+       1000``) at 2^22 keys as four 2^20-key SST v2 blobs
+       (``fast_mvcc_table_sst``), each one raft ingest entry on region 1
+       proposed at store 1 and applied on all three; then region 1's log
+       compacted to its applied index on every store; the host RSS
+       before and after;
+    2. read region 1: both plans (GROUP BY c0: COUNT(*), SUM(c1); ``c1 >
+       990``) at store 1, cold + 2 warm: only the cold requests mint;
+    3. split by the checker: ``split_check_all`` (region 1 at about 240
+       MiB is past 96 MiB: one half-split; the children wait for
+       ``region_split_check_diff`` bytes of writes before the next
+       check); store 1's resident feeds sliced by ``split_planes``; both
+       plans on both children (each child's truth, no ``mvcc_resolve``,
+       no upload);
+    4. split by PD: ``Cluster.split_region`` on the right child at 90% of
+       its rows (an odd handle): ``split_planes`` again, three regions
+       that each answer;
+    5. write: one 2PC transaction of 4,096 UPDATEs of c1 (4 runs of 1,024
+       handles inside the middle region) through the port's ``Storage``
+       over store 1's ``RaftKv``; both plans on that region: one
+       ``patch_spans`` a feed, no upload;
+    6. leader round trip: the middle region's leader to store 2, both
+       plans there (cold: store 2's own mint), one more UPDATE committed
+       through store 2 (store 1, a follower, takes it through its delta
+       sink), the leader back to store 1: its supervisor promotes the
+       region — one ``plane_digest`` a resident plane, ``promotions`` 1,
+       ``promotion_rebuilds`` 0, no mint — and both plans equal the truth
+       with both writes;
+    7. consistency: ``check_consistency`` on every region, every replica
+       the same hash;
+    8. snapshot catch-up: store 3's peer of the left region removed, the
+       log compacted, the peer added back: it catches up through
+       ``generate_snapshot`` / ``apply_snapshot``, and its CFs for the
+       region equal store 1's;
+    9. merge: the right region into the middle one (prepare, then
+       commit): on store 1 both lines drop, and the merged region's read
+       mints once and equals the truth; the source's peer is destroyed on
+       every store, and no arena holds a feed of it.
+
+    Counts from 0 before the path, read after."""
+    from tikv_tpu_torch.raftstore import Peer, RaftCmd, WriteOp
+    from tikv_tpu_torch.sst_importer import fast_mvcc_table_sst
+    t_start = time.perf_counter()
+    set_counts({k: 0 for k in KERNELS})
+    out = {"config": "rs3", "keys": RS3_KEYS, "blobs": RS3_BLOBS}
+    cell = Rs3()
+    c, model = cell.c, cell.model
+    steps: dict = {}
+    try:
+        # -- 1. load --------------------------------------------------
+        rss0 = rss_bytes()
+        t0 = time.perf_counter()
+        chunk = RS3_KEYS // RS3_BLOBS
+        for lo in range(0, RS3_KEYS, chunk):
+            h = model.h[lo:lo + chunk]
+            blob = fast_mvcc_table_sst(cell.tid, h, [(2, model.c0[h], None),
+                                                     (3, model.c1[h], None)],
+                                       cell.ts)
+            cell.propose(1, lambda r, b=blob: RaftCmd(
+                1, r.epoch, (WriteOp("ingest", "", b"", b),)))
+            del blob
+        load_s = time.perf_counter() - t0
+        rss_loaded = rss_bytes()
+        t1 = time.perf_counter()
+        cell.compact(1)
+        c.pump()
+        compact_ms = (time.perf_counter() - t1) * 1e3
+        gc.collect()
+        out["load"] = {"s": load_s, "compact_ms": compact_ms,
+                       "rss_before": rss0, "rss_after_load": rss_loaded,
+                       "rss_after_compact": rss_bytes()}
+        for sid in c.stores:
+            assert c.stores[sid].peers[1].node.storage.first_index() > 1
+        print(f"rs3 load: {load_s:.2f} s, RSS {rss0 / 2**30:.2f} → "
+              f"{rss_loaded / 2**30:.2f} GiB → compacted "
+              f"{out['load']['rss_after_compact'] / 2**30:.2f} GiB",
+              flush=True)
+
+        # -- 2. read region 1 -----------------------------------------
+        c0 = counts()
+        reads = cell.both_plans(1, 1)
+        assert [r["feed"] for r in reads["agg"]] == \
+            ["device_resolve", "hit", "hit"], reads["agg"]
+        assert [r["feed"] for r in reads["sel"]] == \
+            ["upload", "hit", "hit"], reads["sel"]
+        assert counts()["mvcc_resolve"] - c0["mvcc_resolve"] == 1
+        steps["read"] = reads
+
+        # -- 3. split by the checker ----------------------------------
+        peer1 = c.stores[1].peers[1]
+        c0, sup0 = counts(), cell.sup_counts(1)
+        t0 = time.perf_counter()
+        n_checked = c.split_check_all()
+        check_ms = (time.perf_counter() - t0) * 1e3
+        assert n_checked == 1, n_checked
+        rids = sorted(c.stores[1].peers)
+        assert len(rids) == 2, rids
+        left_id = 1
+        right_id = next(r for r in rids if r != 1)
+        split1 = {"checker_splits": n_checked, "ms": check_ms,
+                  "approximate_size": peer1.approximate_size,
+                  "buckets": len(peer1.buckets),
+                  "phases_ms": dict(cell.dev[1]["sup"].split_phases_ms),
+                  "bounds": {r: cell.bounds(r) for r in rids}}
+        kids = {r: cell.both_plans(1, r) for r in (left_id, right_id)}
+        for r, got in kids.items():
+            for plan, runs in got.items():
+                assert [x["feed"] for x in runs] == ["split", "hit", "hit"], \
+                    (r, plan, runs)
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("split_planes") == 4 and "mvcc_resolve" not in d, d
+        sup1 = cell.sup_counts(1)
+        assert sup1["splits"] - sup0["splits"] == 1 and \
+            sup1["split_fallbacks"] == 0, sup1
+        split1["children"] = kids
+        split1["launches"] = d
+        steps["split_checker"] = split1
+        print(f"rs3 split by the checker: {check_ms:.1f} ms, size "
+              f"{peer1.approximate_size / 2**20:.1f} MiB, "
+              f"{len(peer1.buckets)} buckets, phases "
+              f"{json.dumps(split1['phases_ms'])}, bounds "
+              f"{split1['bounds']}", flush=True)
+
+        # -- 4. split by PD -------------------------------------------
+        lo, hi = cell.bounds(right_id)
+        at = lo + int((hi - lo) * 0.9)
+        at += (at % 2 == 0)
+        from tikv_tpu_torch.codec.keys import table_record_key
+        from tikv_tpu_torch.storage.txn_types import encode_key
+        c0 = counts()
+        t0 = time.perf_counter()
+        new_right = c.split_region(right_id, encode_key(
+            table_record_key(cell.tid, at)))
+        pd_split_ms = (time.perf_counter() - t0) * 1e3
+        c.pump()
+        mid_id, far_id = right_id, new_right.id
+        regions = {r: cell.both_plans(1, r, warm=0)
+                   for r in (left_id, mid_id, far_id)}
+        for r in (mid_id, far_id):
+            assert [x["feed"] for p in regions[r].values() for x in p] == \
+                ["split", "split"], regions[r]
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("split_planes") == 4 and "mvcc_resolve" not in d, d
+        steps["split_pd"] = {"ms": pd_split_ms, "at": at,
+                             "phases_ms": dict(
+                                 cell.dev[1]["sup"].split_phases_ms),
+                             "launches": d}
+
+        # -- 5. write -------------------------------------------------
+        lo, hi = cell.bounds(mid_id)
+        step = (hi - lo) // 4
+        hs = np.concatenate([np.arange(lo + i * step + step // 2,
+                                       lo + i * step + step // 2 + 1024)
+                             for i in range(4)])
+        c0 = counts()
+        write_ms = cell.update(hs, (hs * 7 + 1) % 1000)
+        after = cell.both_plans(1, mid_id, warm=0)
+        assert [after[p][0]["feed"] for p in ("agg", "sel")] == \
+            ["patch", "patch"], after
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("patch_spans") == 2 and "mvcc_resolve" not in d, d
+        steps["write"] = {"ms": write_ms, "rows": len(hs),
+                          "first_read_ms": {p: after[p][0]["ms"]
+                                            for p in after},
+                          "launches": d}
+
+        # -- 6. leader round trip -------------------------------------
+        c0, sup0 = counts(), cell.sup_counts(1)
+        t0 = time.perf_counter()
+        c.transfer_leader(mid_id, 2)
+        assert c.leader_store(mid_id) == 2
+        away_ms = (time.perf_counter() - t0) * 1e3
+        at2 = cell.both_plans(2, mid_id, warm=0)
+        assert [at2[p][0]["feed"] for p in ("agg", "sel")] == \
+            ["device_resolve", "upload"], at2
+        d2 = counts()
+        assert d2["mvcc_resolve"] - c0["mvcc_resolve"] == 1, "store 2's mint"
+        one = int(hs[0]) + 1
+        store2_write_ms = cell.update([one], [993])
+        planes = sum(len(f["digests"])
+                     for _a, b in cell.dev[1]["runner"].arena_items()
+                     for f in b.values()
+                     if isinstance(f, dict) and "flat" in f and
+                     _a.region_hint == mid_id)
+        digests0 = counts()["plane_digest"]
+        t0 = time.perf_counter()
+        c.transfer_leader(mid_id, 1)
+        assert c.leader_store(mid_id) == 1
+        back_ms = (time.perf_counter() - t0) * 1e3
+        promote = cell.dev[1]["sup"].last_promotion
+        sup1 = cell.sup_counts(1)
+        assert sup1["promotions"] - sup0["promotions"] == 1 and \
+            sup1["promotion_rebuilds"] == sup0["promotion_rebuilds"], sup1
+        assert counts()["plane_digest"] - digests0 == planes > 0, \
+            (counts()["plane_digest"] - digests0, planes)
+        back = cell.both_plans(1, mid_id, warm=0)
+        assert [back[p][0]["feed"] for p in ("agg", "sel")] == \
+            ["patch", "patch"], back
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d["mvcc_resolve"] == 1, d        # store 2's, no other
+        steps["round_trip"] = {
+            "to_store2_ms": away_ms, "store2_cold_ms": {
+                p: at2[p][0]["ms"] for p in at2},
+            "store2_write_ms": store2_write_ms, "back_ms": back_ms,
+            "promotion": promote, "planes": planes,
+            "first_read_back_ms": {p: back[p][0]["ms"] for p in back},
+            "supervisor": sup1, "launches": d}
+        print(f"rs3 round trip: away {away_ms:.1f} ms, store 2 cold "
+              f"{at2['agg'][0]['ms']:.1f} / {at2['sel'][0]['ms']:.1f} ms, "
+              f"back {back_ms:.1f} ms, promotion {json.dumps(promote)}",
+              flush=True)
+
+        # -- 7. consistency -------------------------------------------
+        t0 = time.perf_counter()
+        hashes = {}
+        for rid in sorted(c.stores[1].peers):
+            hashes[rid] = c.check_consistency(rid)
+            states = {s.peers[rid].consistency_state
+                      for s in c.stores.values() if rid in s.peers}
+            assert len(states) == 1, (rid, states)
+        steps["consistency"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                "hashes": hashes}
+
+        # -- 8. snapshot catch-up -------------------------------------
+        t0 = time.perf_counter()
+        victim = c.stores[3].peers[left_id].meta
+        c.change_peer(left_id, "remove", victim)
+        c.pump()
+        assert left_id not in c.stores[3].peers
+        cell.compact(left_id)
+        c.change_peer(left_id, "add", Peer(c.pd.alloc_id(), 3))
+        c._drive_until(lambda: left_id in c.stores[3].peers and
+                       c.stores[3].peers[left_id].applied_engine >=
+                       c.leader_peer(left_id).node.commit)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        from tikv_tpu_torch.raftstore.peer_storage import region_data_bounds
+        lo_k, hi_k = region_data_bounds(c.stores[1].peers[left_id].region)
+        for cf in ("default", "lock", "write"):
+            a = c.engines[1].range_cf(cf, lo_k, hi_k)[:2]
+            b = c.engines[3].range_cf(cf, lo_k, hi_k)[:2]
+            assert a[0] == b[0] and a[1] == b[1], f"rs3: store 3's {cf}"
+        steps["snapshot"] = {"ms": snap_ms,
+                             "rows": len(c.engines[3].range_cf(
+                                 "write", lo_k, hi_k)[0])}
+
+        # -- 9. merge -------------------------------------------------
+        c0, inv0 = counts(), cell.sup_counts(1)["invalidations"]
+        t0 = time.perf_counter()
+        merged = c.merge_region(far_id, mid_id)
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        dropped = cell.sup_counts(1)["invalidations"] - inv0
+        assert dropped >= 2, dropped
+        for s in c.stores.values():
+            assert far_id not in s.peers
+        for sid in (1, 2):
+            assert far_id not in cell.feed_regions(sid), sid
+        re_read = cell.both_plans(1, merged.id, warm=0)
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("mvcc_resolve") == 1, d
+        steps["merge"] = {"ms": merge_ms, "lines_dropped": dropped,
+                          "merged_cold_ms": {p: re_read[p][0]["ms"]
+                                             for p in re_read},
+                          "launches": d}
+    finally:
+        cell.close()
+    launches = counts()
+    for name in ("split_planes", "plane_digest", "mvcc_resolve",
+                 "patch_spans", "hash_agg", "sel_pred"):
+        assert launches[name] > 0, f"rs3 never launched {name}"
+    out["steps"] = steps
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_start
+    del cell, c, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("rs3 cell: " + json.dumps(out, default=str), flush=True)
+    return {"config": "rs3", "launches": launches, "wall_s": out["wall_s"],
+            "load_s": out["load"]["s"]}
 
 
 def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
@@ -7937,6 +8554,9 @@ def main() -> int:
     elapsed("before the store in process")
     # a runner of its own: the node closes it at its stop
     runs.append(run_srv(DeviceRunner()))
+    elapsed("before the three replicas")
+    # runners of their own, closed at the cell's end
+    runs.append(run_rs3())
     elapsed("before the mesh")
     from tikv_tpu_torch.testing import configs as cf
     mesh_runs += run_mesh(mesh_runner, runner, [

@@ -15,8 +15,11 @@ and its quarantine), nor the cold path (``native``, ``sst_importer``,
 rung, the re-mint governor, the native CHECKSUM fold), nor the store in
 process (``raft``, ``raftstore``, ``storage``, ``kv``, ``pd.client``,
 ``config``, ``server.node``, ``server.service``, ``server.wire``: a 2PC
-write and a coprocessor read through ``KvService``), and nothing falls
-back to the CPU without being asked.  The native module is the port's own
+write and a coprocessor read through ``KvService``), nor a cluster of
+three stores (``testing.cluster``, ``storage.mvcc.consistency``: a split
+and a leader round trip under the card's feeds, a merge, a consistency
+check, a snapshot catch-up and the MVCC scan), and nothing falls back to
+the CPU without being asked.  The native module is the port's own
 source: its compile names ``tikv_tpu_torch/native/fastbuild.cpp`` and no
 file of the JAX package, and a failed compile raises."""
 
@@ -576,7 +579,9 @@ STORE_MODULES = [
     "tikv_tpu_torch/copr/storage_impl.py",
     "tikv_tpu_torch/server/read_pool.py", "tikv_tpu_torch/server/wire.py",
     "tikv_tpu_torch/server/service.py", "tikv_tpu_torch/server/node.py",
-    "tikv_tpu_torch/utils/error_code.py"]
+    "tikv_tpu_torch/utils/error_code.py",
+    "tikv_tpu_torch/testing/cluster.py",
+    "tikv_tpu_torch/storage/mvcc/consistency.py"]
 
 
 def test_store_modules_are_scanned():
@@ -636,3 +641,67 @@ def test_node_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "node served 4"
+
+
+_SERVE_CLUSTER = """
+import sys
+from tikv_tpu_torch.copr.delta import DeltaSink
+from tikv_tpu_torch.copr.endpoint import REQ_TYPE_DAG, CopRequest, Endpoint
+from tikv_tpu_torch.copr.region_cache import RegionColumnarCache
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.device.supervisor import DeviceStateSupervisor
+from tikv_tpu_torch.kv.engine import SnapContext
+from tikv_tpu_torch.raftstore import Peer
+from tikv_tpu_torch.storage.mvcc.consistency import check_mvcc_consistency
+from tikv_tpu_torch.testing.cluster import Cluster
+from tikv_tpu_torch.testing.dag import DagSelect
+from tikv_tpu_torch.testing.fixture import encode_table_row
+from tikv_tpu_torch.testing import mvcc as tm
+table = tm.table_6c()
+c = Cluster(3)
+c.bootstrap()
+c.start()
+runner = DeviceRunner(device="cpu")
+sink = DeltaSink()
+cache = RegionColumnarCache(delta_source=sink)
+sup = DeviceStateSupervisor(runner=runner, copr_cache=cache, delta_sink=sink)
+c.stores[1].coprocessor_host.register(sink)
+c.stores[1].coprocessor_host.register(sup)
+rid = [1]
+ep = Endpoint(lambda req: cache.get(c.kvs[1].snapshot(
+    SnapContext(region_id=rid[0])), req.dag), runner, device_row_threshold=1)
+c.txn_write([("put",) + encode_table_row(table, h, {"c0": h % 3, "c1": h})
+             for h in range(400)], start_ts=10, commit_ts=11)
+def count(region_id):
+    rid[0] = region_id
+    s = DagSelect.from_table(table, ["id", "c0", "c1"])
+    dag = s.aggregate([s.col("c0")], [("count_star", None)]).build(20)
+    r = ep.handle(CopRequest(REQ_TYPE_DAG, dag, force_backend="device"))
+    return sum(row[0] for row in r.rows())
+assert count(1) == 400
+from tikv_tpu_torch.storage.txn_types import encode_key
+right = c.split_region(1, encode_key(encode_table_row(table, 150, {})[0]))
+assert (count(1), count(right.id)) == (150, 250) and sup.splits == 1
+c.transfer_leader(right.id, 2)
+c.transfer_leader(right.id, 1)
+assert sup.promotions >= 1 and sup.promotion_rebuilds == 0
+c.check_consistency(1)
+c.change_peer(1, "remove", c.stores[3].peers[1].meta)
+c.change_peer(1, "add", Peer(c.pd.alloc_id(), 3))
+c.tick_all(8)
+merged = c.merge_region(right.id, 1)
+assert count(merged.id) == 400
+assert check_mvcc_consistency(c.kvs[1].snapshot(SnapContext(region_id=1))) \\
+    == []
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("cluster served", count(merged.id))
+"""
+
+
+def test_cluster_serving_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SERVE_CLUSTER], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "cluster served 400"

@@ -1,12 +1,12 @@
-"""The port's single-store raftstore (``RaftStore`` + ``RaftKv`` over one
+"""The port's raftstore on one store (``RaftStore`` + ``RaftKv`` over one
 region, ``tikv_tpu_torch/raftstore``) against the JAX package's.
 
 Both stores are driven with the same commands: writes through RaftKv and
 a transactional ``Storage`` on top, an SST v2 ``ingest`` op, lease reads
 and read barriers, ticks, and a restart through ``load_peers``.  The
 data CFs of the two engines must be equal byte for byte, and the raft
-state (applied index, term, data version) the same.  The port alone
-refuses an admin command with a named error.
+state (applied index, term, data version) the same.  The multi-store
+cases are in ``test_torch_cluster.py``.
 """
 
 import numpy as np
@@ -31,8 +31,6 @@ from tikv_tpu.storage.txn.actions import Mutation as RefMutation
 from tikv_tpu_torch.engine.memory import MemoryEngine
 from tikv_tpu_torch.kv.engine import SnapContext, WriteData
 from tikv_tpu_torch.raftstore import (
-    AdminCmd,
-    AdminNotSupported,
     Peer,
     RaftCmd,
     RaftKv,
@@ -229,21 +227,6 @@ def test_restart_through_load_peers():
     assert port[0] == [b"v%d" % i for i in range(12)]
 
 
-def test_admin_command_is_refused_not_dropped():
-    rig = Rig(PORT)
-    before = rig.state()
-    cmd = RaftCmd(1, rig.peer.region.epoch,
-                  admin=AdminCmd("split", split_key=b"m",
-                                 new_region_id=9, new_peer_ids=(10,)))
-    with pytest.raises(AdminNotSupported, match="split"):
-        rig.peer.propose(cmd, lambda r: None)
-    assert rig.state() == before
-    assert rig.peer.proposals == []
-    # the store still serves writes afterwards
-    rig.write([("put", "default", b"k", b"v")])
-    assert rig.kv.snapshot(SnapContext()).get_value(b"k") == b"v"
-
-
 def test_failpoints_are_torn_down():
     assert failpoint.fail_point("read::before_local_read") is None
 
@@ -306,3 +289,24 @@ def test_engine_batched_writes_match_reference(seed, sizes):
             got.append((it.key(), it.value()))
             ok = it.next()
         assert got == rows
+
+
+@pytest.mark.parametrize("runs", [
+    [[b"b", b"c"]],                     # between two keys: spliced
+    [[b"0", b"1"], [b"x", b"y"]],       # before the first, after the last
+    [[b"b", b"m"]],                     # across a key: merged
+    [[b"a"]], [[b"e", b"f"]],           # on a key: the ingest wins
+    [[b"b"], [b"c", b"d"], [b"bb"]],    # into gaps the last ingest left
+])
+def test_engine_ingest_into_gaps_matches_reference(runs):
+    port, ref = MemoryEngine(), RefEngine()
+    for eng in (port, ref):
+        wb = eng.write_batch()
+        for k in (b"a", b"e", b"k"):
+            wb.put_cf("write", k, b"old")
+        eng.write(wb)
+        for run in runs:
+            wb = eng.write_batch()
+            wb.ingest_cf("write", list(run), [b"new-" + k for k in run])
+            eng.write(wb)
+    assert _cfs(port) == _cfs(ref)

@@ -3,9 +3,9 @@
 package's ``Node`` + ``KvService`` on the same requests.
 
 One node of each package runs for the module, both with
-``device_row_threshold=128``; the reference's with the 10 GiB region of
-the chip smoke's ``srv`` cell (``region_split_size_mb=10240``, so it
-does not split; the port has no split check), and both get every request
+``device_row_threshold=128`` and the 10 GiB region of the chip smoke's
+``srv`` cell (``region_split_size_mb=10240``, so the split checker leaves
+it whole), and both get every request
 with the same timestamps (one clock): the body of
 ``test_analyze_checksum.py::test_analyze_and_checksum_over_network``; the
 in-process halves of ``test_server.py``'s txn, lock-resolution,
@@ -13,6 +13,11 @@ write-conflict, raw and coprocessor tests, ``backend == "device"``
 included; a write between two reads that patches the port's feed; an
 ``ImportIngest`` of a v2 blob; and ``handle_raw`` with packed bytes.
 Responses must carry equal rows, and error dicts equal field for field.
+A fresh pair of nodes then takes the region admin RPCs (``SplitRegion``,
+``RegionApplied``, ``MergeRegion``, ``RollbackMerge``) with the same
+bodies; the port's node alone splits a region with resident feeds through
+``SplitRegion`` (the children served from the sliced feeds) and runs the
+split checker from its drive loop, suspended in import mode.
 """
 
 import threading
@@ -43,6 +48,13 @@ def _ref_config():
     return cfg
 
 
+def _port_config():
+    cfg = TikvConfig()
+    cfg.raftstore.region_split_size_mb = 10240
+    cfg.raftstore.region_max_size_mb = 15360
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def pair():
     import jax
@@ -55,7 +67,7 @@ def pair():
     ref = RefNode("ref:0", ref_pd, config=rcfg, device_row_threshold=128,
                   device_runner=RefRunner(mesh=make_mesh(
                       jax.devices()[:1])))
-    port = Node("port:0", MockPd(), config=TikvConfig(),
+    port = Node("port:0", MockPd(), config=_port_config(),
                 device_row_threshold=128,
                 device_runner=DeviceRunner(device="cpu"))
     ref.start()
@@ -378,4 +390,183 @@ def test_config_loads_the_reference_template():
                 getattr(getattr(ref, section.name), f.name), \
                 (section.name, f.name)
             n += 1
-    assert n == 21
+    assert n == 25
+
+
+# ---------------------------------------------------------- admin RPCs
+
+
+@pytest.fixture
+def admin_pair():
+    import jax
+
+    from tikv_tpu.device.runner import DeviceRunner as RefRunner
+    from tikv_tpu.parallel import make_mesh
+    rcfg = _ref_config()
+    rcfg.coprocessor.fastpath_classes = 0
+    ref_pd = RefPd()
+    ref = RefNode("ref:0", ref_pd, config=rcfg, device_row_threshold=128,
+                  device_runner=RefRunner(mesh=make_mesh(
+                      jax.devices()[:1])))
+    port = Node("port:0", MockPd(), config=_port_config(),
+                device_row_threshold=128,
+                device_runner=DeviceRunner(device="cpu"))
+    ref.start()
+    port.start()
+    try:
+        yield {"ref": RefService(ref), "port": KvService(port),
+               "tso": ref_pd.tso, "ref_node": ref, "port_node": port}
+    finally:
+        port.stop()
+        ref.stop()
+
+
+def test_admin_rpcs_match_the_reference(admin_pair):
+    pair = admin_pair
+    table = int_table(2, table_id=751)
+    txn_write(pair, [("put",) + encode_table_row(
+        table, h, {"c0": h % 3, "c1": h}) for h in range(200)])
+    mid = encode_table_row(table, 100, {})[0]
+    r, p = both(pair, "SplitRegion", {"split_key": mid})
+    assert p == r and p["right"]["start"] != b""
+    right = p["right"]["id"]
+    r, p = both(pair, "RegionApplied", {"region_id": right})
+    assert p["applied"] >= 5 and r["applied"] >= 5
+    def count():
+        sel = DagSelect.from_table(table, ["id", "c0", "c1"])
+        dag = ref_wire.enc_dag(sel.aggregate(
+            [], [("count_star", None)]).build(start_ts=pair["tso"]()))
+        return same(pair, "Coprocessor", {"dag": dag})[1]["rows"]
+
+    assert count() == [[100]]   # the request's first range: the left
+    # errors travel alike: an unknown region, a non-adjacent merge
+    same(pair, "RegionApplied", {"region_id": 424242})
+    same(pair, "MergeRegion", {"source_id": right, "target_id": right})
+    r, p = both(pair, "MergeRegion", {"source_id": right, "target_id": 1})
+    assert p == r and (p["region"]["start"], p["region"]["end"]) == \
+        (b"", b"")
+    assert right not in pair["port_node"].raft_store.peers
+    r, p = both(pair, "RollbackMerge", {"region_id": 1})
+    assert p == r == {}
+    for node in ("ref_node", "port_node"):
+        region = pair[node].raft_store.region_peer(1).region
+        # split, the source's prepare, the commit, the rollback
+        assert region.epoch.version == 5
+    assert count() == [[200]]
+    txn_write(pair, [("put",) + encode_table_row(
+        table, 999, {"c0": 1, "c1": 1})])
+
+
+def _port_node(**raftstore):
+    cfg = TikvConfig()
+    for k, v in raftstore.items():
+        setattr(cfg.raftstore, k, v)
+    cfg.validate()
+    node = Node("port:0", MockPd(), config=cfg, device_row_threshold=64,
+                device_runner=DeviceRunner(device="cpu"))
+    node.start()
+    return node, KvService(node)
+
+
+def _load(svc, node, table, n: int) -> None:
+    muts = [{"op": "put", "key": k, "value": v} for k, v in (
+        encode_table_row(table, h, {"c0": h % 5, "c1": h % 1000})
+        for h in range(n))]
+    start = node.pd.tso()
+    assert "error" not in svc.handle("KvPrewrite", {
+        "mutations": muts, "primary": muts[0]["key"],
+        "start_version": start})
+    assert "error" not in svc.handle("KvCommit", {
+        "keys": [m["key"] for m in muts], "start_version": start,
+        "commit_version": node.pd.tso()})
+
+
+def test_split_region_slices_the_nodes_resident_feeds():
+    """``SplitRegion`` on a region whose feeds are resident: raft apply
+    slices them, the children's first requests take the slices, and each
+    child's answer is its rows'."""
+    import time
+    node, svc = _port_node(region_split_size_mb=10240,
+                           region_max_size_mb=15360)
+    try:
+        table = int_table(2, table_id=752)
+        _load(svc, node, table, 600)
+        def ask(lo: int, hi: int):
+            sel = DagSelect.from_table(table, ["id", "c0", "c1"])
+            d = sel.aggregate([sel.col("c0")], [("count_star", None),
+                                                ("sum", sel.col("c1"))])
+            dag = ref_wire.enc_dag(d.build(start_ts=node.pd.tso()))
+            dag["ranges"] = [{"s": encode_table_row(table, lo, {})[0],
+                              "e": encode_table_row(table, hi, {})[0]}]
+            # forced: the coalescer's cost router sends rows this few to
+            # the host
+            resp = svc.handle("Coprocessor", {"dag": dag,
+                                              "force_backend": "device"})
+            assert resp["backend"] == "device", resp
+            want = {}
+            for h in range(lo, hi):
+                cnt, s_ = want.get(h % 5, (0, 0))
+                want[h % 5] = (cnt + 1, s_ + h % 1000)
+            assert sorted(map(tuple, resp["rows"]), key=lambda r: r[2]) == \
+                [(c, s_, g) for g, (c, s_) in sorted(want.items())]
+
+        ask(0, 600)
+        routes = dict(node.device_runner.feed_routes)
+        resp = svc.handle("SplitRegion", {
+            "split_key": encode_table_row(table, 250, {})[0]})
+        assert "error" not in resp, resp
+        sup = node.device_supervisor
+        assert sup.splits == 1 and sup.split_fallbacks == 0
+        assert set(sup.split_phases_ms) == {"split_lines", "device_split"}
+        ask(0, 250)
+        ask(250, 600)
+        now = node.device_runner.feed_routes
+        assert now.get("split", 0) - routes.get("split", 0) == 2
+        assert now.get("upload", 0) == routes.get("upload", 0)
+        # merge back: both lines drop, the merged region builds once
+        t0 = time.monotonic()
+        resp = svc.handle("MergeRegion", {"source_id": resp["right"]["id"],
+                                          "target_id": 1})
+        assert "error" not in resp and time.monotonic() - t0 < 10
+        misses = node.copr_cache.misses
+        ask(0, 600)
+        assert node.copr_cache.misses == misses + 1
+    finally:
+        node.stop()
+
+
+def test_drive_loop_split_check_and_import_mode():
+    """The drive loop runs the split checker every
+    ``region_split_check_ticks`` ticks and splits a loaded region past a
+    tiny region-split-size; in import mode it does not."""
+    import time
+
+    def regions(node):
+        with node.lock:
+            return len(node.raft_store.peers)
+
+    node, svc = _port_node(region_split_size_mb=4 / 1024.0,
+                           region_max_size_mb=8 / 1024.0,
+                           region_split_check_ticks=2)
+    try:
+        svc.handle("ImportSwitchMode", {"import": True})
+        _load(svc, node, int_table(2, table_id=753), 400)
+        time.sleep(0.3)
+        assert regions(node) == 1       # suspended while importing
+        svc.handle("ImportSwitchMode", {"import": False})
+        deadline = time.monotonic() + 10
+        while regions(node) == 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert regions(node) >= 2
+        with node.lock:
+            peers = node.raft_store.peers_snapshot()
+            assert all(p.is_leader() or not p.region.peers for p in peers)
+    finally:
+        node.stop()
+
+
+def test_config_split_size_must_not_exceed_max():
+    with pytest.raises(ValueError, match="region-split-size"):
+        TikvConfig.from_dict({"raftstore": {"region-split-size-mb": 200}})
+    with pytest.raises(ValueError, match="region-split-size"):
+        RefConfig.from_dict({"raftstore": {"region-split-size-mb": 200}})

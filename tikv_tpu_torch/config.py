@@ -3,12 +3,12 @@
 A trimmed copy of the JAX package's ``config.py``: the fields the port's
 ``Node`` reads, in the sections ``storage``, ``raftstore``,
 ``coprocessor`` and ``readpool``, with their defaults, and ``TikvConfig``
-(from a TOML file or a dict, validated).  Every other setting of a
-reference config file (the ``server`` section, the split and raft-log
-knobs, paging, the mesh and slice knobs, tracing, the fast path, ...)
-loads and is ignored: the port has no code that reads it.  The online
-reconfiguration router (``ConfigController``) waits for the status
-server, its only caller.  ``Node`` refuses a value the port cannot honor
+(from a TOML file or a dict, validated; a region's split size must not
+exceed its max size).  Every other setting of a reference config file
+(the ``server`` section, paging, the mesh and slice knobs, tracing, the
+fast path, ...) loads and is ignored: the port has no code that reads
+it.  The online reconfiguration router (``ConfigController``) waits for
+the status server, its only caller.  ``Node`` refuses a value the port cannot honor
 (a data directory, a batch-system pool, digests switched off).
 
 Reference: src/config/mod.rs (``TikvConfig`` — one serde-TOML tree
@@ -31,6 +31,14 @@ class StorageConfig:
 class RaftstoreConfig:
     raft_heartbeat_ticks: int = 2
     raft_election_timeout_ticks: int = 10
+    # TiKV's classic raft-kv defaults (region-split-size 96 MiB,
+    # region-max-size 144 MiB): the split checker's threshold, run every
+    # region_split_check_ticks drive-loop ticks
+    region_split_size_mb: int = 96
+    region_max_size_mb: int = 144
+    region_split_check_ticks: int = 10
+    # sub-region bucket bounds the split checker's scan records
+    region_bucket_size_mb: float = 32.0
     # batch-system pollers: only 0 (the synchronous drive loop)
     store_pool_size: int = 0
 
@@ -136,6 +144,8 @@ class TikvConfig:
         r = self.raftstore
         if r.raft_heartbeat_ticks >= r.raft_election_timeout_ticks:
             raise ValueError("heartbeat ticks must be < election ticks")
+        if r.region_split_size_mb > r.region_max_size_mb:
+            raise ValueError("region-split-size must be <= region-max-size")
         if self.readpool.concurrency < 1:
             raise ValueError("readpool concurrency must be >= 1")
 

@@ -1291,6 +1291,13 @@ class DeviceRunner:
                               else valid, None))
         if len(hosts) != len(feed["flat"]):
             return None
+        if not hosts:
+            # a feed of no plane (COUNT(*) alone): the child's is empty
+            # too, and there is nothing to launch
+            return {"flat": (), "null_flags": feed["null_flags"],
+                    "n_pad": n_pad_child, "digests": (), "n_live": n_child,
+                    "lineage_v": child["lineage"].version,
+                    "positional": True, "pk_flags": feed["pk_flags"]}
 
         def add(name, t0):
             phases[name] = phases.get(name, 0.0) + \

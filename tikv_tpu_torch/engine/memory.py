@@ -258,6 +258,13 @@ class MemoryEngine:
             data.keys.extend(keys)
             data.vals.extend(vals)
             return
+        # a run that fits between two keys (a region's range just cleared,
+        # a snapshot's data landing in it) splices in one list operation
+        i = bisect.bisect_left(data.keys, keys[0])
+        if data.keys[i] > keys[-1]:
+            data.keys[i:i] = keys
+            data.vals[i:i] = vals
+            return
         ok, ov = data.keys, data.vals
         nk, nv = keys, vals
         mk: list = []

@@ -1,4 +1,4 @@
 """PD one level up and one level down: the PD client trait and the
-in-memory PD a single store runs against (``client.py``), and the pure
+in-memory PD the stores of one cluster run against (``client.py``), and the pure
 functions that place region feeds on a node's mesh slices
 (``scheduler.py``)."""

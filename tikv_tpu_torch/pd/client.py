@@ -1,11 +1,12 @@
 """PD client trait + in-memory mock.
 
 A trimmed copy of the JAX package's ``pd/client.py``: ``PdClient`` and
-``MockPd`` with the bookkeeping one store needs (bootstrap, ids, stores,
-regions and their heartbeats, store heartbeats and the TSO).  Not here:
-split ids, the GC safe point, the cluster version, the balance scheduler
-and its operators, replica-feed placement in the store-heartbeat
-response, buckets and the hot-region report.
+``MockPd`` with the bookkeeping the stores of one cluster need
+(bootstrap, ids, stores, regions, their leaders and buckets from the
+heartbeats, split ids, store heartbeats, the GC safe point and the TSO).
+Not here: the cluster version, the balance scheduler and its operators,
+replica-feed placement in the store-heartbeat response, the hot-region
+report and batched TSO.
 
 Reference: components/pd_client/src/lib.rs PdClient (bootstrap_cluster,
 alloc_id, region_heartbeat :418, ask_batch_split :446, store_heartbeat
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Optional, Protocol, Sequence
+from typing import Optional, Protocol
 
 from ..raftstore.metapb import Peer, Region, Store
 from ..storage.txn_types import compose_ts
@@ -41,11 +42,14 @@ class PdClient(Protocol):
     def region_heartbeat(self, region: Region, leader: Peer,
                          buckets=None) -> Optional[dict]: ...
 
+    def ask_split(self, region: Region) -> tuple[int, list[int]]: ...
+
     def store_heartbeat(self, store_id: int,
                         stats: dict) -> Optional[dict]: ...
 
-    def tso(self) -> int: ...
+    def get_gc_safe_point(self) -> int: ...
 
+    def tso(self) -> int: ...
 
 
 @dataclass
@@ -63,9 +67,13 @@ class MockPd:
         self._stores: dict[int, Store] = {}
         self._regions: dict[int, _RegionInfo] = {}
         self._bootstrapped = False
+        self._safe_point = 0
         self._tso_physical = 1
         self._tso_logical = 0
         self.store_stats: dict[int, dict] = {}
+        # region buckets: sub-range split points for finer coprocessor
+        # parallelism (pd_client/src/lib.rs:118-240)
+        self._buckets: dict[int, list] = {}
 
     # -- lifecycle --
 
@@ -93,6 +101,9 @@ class MockPd:
     def get_store(self, store_id: int) -> Store:
         return self._stores[store_id]
 
+    def stores(self) -> list[Store]:
+        return list(self._stores.values())
+
     # -- regions --
 
     def get_region(self, key: bytes) -> Region:
@@ -106,10 +117,15 @@ class MockPd:
         info = self._regions.get(region_id)
         return info.region if info else None
 
+    def leader_of(self, region_id: int) -> Optional[Peer]:
+        info = self._regions.get(region_id)
+        return info.leader if info else None
+
     def region_heartbeat(self, region: Region, leader: Peer,
                          buckets=None):
         """Reference: pd.rs handle_heartbeat — accept newer epochs only;
-        a newer region covering an older one's whole range evicts it.
+        a newer region covering an older one's whole range evicts it
+        (how PD learns a merge: the absorbed source simply vanishes).
         Returns the scheduling operator step: None, as no scheduler runs
         here."""
         with self._lock:
@@ -119,6 +135,8 @@ class MockPd:
                 if (ne.version, ne.conf_ver) < (ce.version, ce.conf_ver):
                     return None     # stale heartbeat
             self._regions[region.id] = _RegionInfo(region, leader)
+            if buckets is not None:
+                self._buckets[region.id] = list(buckets)
             for rid, info in list(self._regions.items()):
                 if rid == region.id:
                     continue
@@ -128,7 +146,24 @@ class MockPd:
                     (o.end_key and o.end_key <= region.end_key))
                 if covered and (o.epoch.version < region.epoch.version):
                     del self._regions[rid]
+                    # the absorbed region never heartbeats again
+                    self._buckets.pop(rid, None)
             return None
+
+    def get_buckets(self, region_id: int) -> list:
+        """Sub-region bucket boundaries (pd_client buckets API)."""
+        return list(self._buckets.get(region_id, ()))
+
+    def ask_split(self, region: Region) -> tuple[int, list[int]]:
+        """→ (new_region_id, new peer ids aligned with region.peers)."""
+        with self._lock:
+            self._next_id += 1
+            new_region_id = self._next_id
+            ids = []
+            for _ in region.peers:
+                self._next_id += 1
+                ids.append(self._next_id)
+            return new_region_id, ids
 
     def store_heartbeat(self, store_id: int, stats: dict
                         ) -> Optional[dict]:
@@ -137,6 +172,12 @@ class MockPd:
         with self._lock:
             self.store_stats[store_id] = stats
         return None
+
+    def set_gc_safe_point(self, ts: int) -> None:
+        self._safe_point = ts
+
+    def get_gc_safe_point(self) -> int:
+        return self._safe_point
 
     def tso(self) -> int:
         """Monotonic timestamp oracle (pd_client/src/tso.rs): physical =

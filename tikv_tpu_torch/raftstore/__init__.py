@@ -14,8 +14,8 @@ path, and RaftKv.
 
 from .cmd import AdminCmd, RaftCmd, WriteOp
 from .metapb import (
-    AdminNotSupported,
     EpochNotMatch,
+    InconsistentRegion,
     KeyNotInRegion,
     NotLeaderError,
     Peer,
@@ -29,7 +29,7 @@ from .raftkv import RaftKv
 from .store import RaftStore, Transport
 
 __all__ = [
-    "AdminCmd", "AdminNotSupported", "RaftCmd", "WriteOp", "EpochNotMatch",
+    "AdminCmd", "RaftCmd", "WriteOp", "EpochNotMatch", "InconsistentRegion",
     "KeyNotInRegion", "NotLeaderError", "Peer", "Region", "RegionEpoch",
     "RegionNotFound", "Store", "RaftPeer", "RegionSnapshot", "RaftKv",
     "RaftStore", "Transport",

@@ -4,7 +4,8 @@ data mutation of a raft command, as the apply path hands it to observers.
 A trimmed copy of the JAX package's ``raftstore/cmd.py`` (reference: the
 kvproto ``raft_cmdpb`` Put/Delete/DeleteRange/IngestSst requests and the
 AdminCmdType requests): ``WriteOp``, ``AdminCmd`` and ``RaftCmd`` in the
-same tagged binary form, without the change-peer-v2 payload codec.  ``exec_write_ops`` applies an
+same tagged binary form, and the change-peer-v2 payload codec
+(``encode_change_peer_v2``).  ``exec_write_ops`` applies an
 entry's ops to an engine write batch, as the apply path's data arm does
 (the JAX package's ``raftstore/peer.py`` ``_exec_write``); ``write_ops``
 turns a write batch back into the ops of the applied entry, the way the
@@ -57,8 +58,9 @@ class WriteOp:
 
 @dataclass(frozen=True)
 class AdminCmd:
-    """Admin command.  kind: split | change_peer | compact_log |
-    prepare_merge | commit_merge | rollback_merge.
+    """Admin command.  kind: split | change_peer | change_peer_v2 |
+    compact_log | prepare_merge | commit_merge | rollback_merge |
+    compute_hash | verify_hash.
 
     split: split_key + new_region_id + new_peer_ids
     change_peer: change_type(add|remove|add_learner) + peer
@@ -67,6 +69,9 @@ class AdminCmd:
     commit_merge: extra = encoded source Region, merge_index = the
         source's prepare-merge apply index (fsm/apply.rs merge cmds)
     rollback_merge: merge_index = the prepare index being rolled back
+    change_peer_v2: extra = ``encode_change_peer_v2`` payload
+    compute_hash: extra = >Q the leader's GC safe point
+    verify_hash: extra = >QI the compute index and the leader's digest
     """
 
     kind: str
@@ -126,6 +131,26 @@ class AdminCmd:
         return AdminCmd(kind.decode(), split_key, new_region_id, tuple(ids),
                         change_type.decode(), peer, compact_index,
                         merge_index, extra), off
+
+
+def encode_change_peer_v2(changes=(), leave: bool = False,
+                          target=None) -> bytes:
+    """The ONE encoder for change_peer_v2 admin payloads: ``changes`` =
+    [(type_str, Peer)], ``target`` = final peer list for LEAVE."""
+    import msgpack
+    return msgpack.packb({
+        "changes": [{"t": t, "peer": {"id": p.id, "store_id": p.store_id,
+                                      "learner": p.is_learner}}
+                    for t, p in changes],
+        "leave": leave,
+        "target": [{"id": p.id, "store_id": p.store_id,
+                    "learner": p.is_learner} for p in (target or ())],
+    }, use_bin_type=True)
+
+
+def decode_change_peer_v2(extra: bytes) -> dict:
+    import msgpack
+    return msgpack.unpackb(extra, raw=False)
 
 
 @dataclass(frozen=True)

@@ -2,13 +2,14 @@
 
 A trimmed copy of the JAX package's ``raftstore/metapb.py`` (reference:
 the kvproto ``metapb`` messages): ``Peer``, ``RegionEpoch``, ``Region``,
-``Store`` and the region errors the raftstore and a region-clamped read
-raise.
+``Store`` and the region errors the raftstore, a region-clamped read and
+the consistency check raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Sequence
 
 
 @dataclass(frozen=True)
@@ -44,6 +45,12 @@ class Region:
         if key < self.start_key:
             return False
         return not self.end_key or key < self.end_key
+
+    def with_peers(self, peers: Sequence[Peer],
+                   bump_conf: bool = True) -> "Region":
+        epoch = RegionEpoch(self.epoch.conf_ver + (1 if bump_conf else 0),
+                            self.epoch.version)
+        return replace(self, peers=tuple(peers), epoch=epoch)
 
     def peer_on_store(self, store_id: int):
         for p in self.peers:
@@ -108,14 +115,7 @@ class RegionMerging(Exception):
         self.region_id = region_id
 
 
-class AdminNotSupported(Exception):
-    """An admin command (split, merge, change peer, compact log, compute
-    or verify hash) reached a peer of the single-store raftstore, which
-    applies data writes and read barriers only: it is refused at
-    proposal, never dropped."""
-
-    def __init__(self, region_id: int, kind: str):
-        super().__init__(f"region {region_id}: admin command {kind!r} is "
-                         "not supported by this raftstore")
-        self.region_id = region_id
-        self.kind = kind
+class InconsistentRegion(Exception):
+    """Consistency check failed: this replica's data digest differs from
+    the leader's at the same applied index (the reference panics —
+    fsm/apply.rs exec_verify_hash)."""

@@ -1,11 +1,10 @@
 """RaftKv — the kv.Engine implemented by raft proposal + apply wait.
 
 A trimmed copy of the JAX package's ``raftstore/raftkv.py`` for the
-synchronous single-store drive: lease reads, read barriers through the
-log, and writes.  Stale reads and follower (replica) reads are not here:
-a stale read, or a replica read that reaches a follower, raises
-``ValueError``; a replica read the leader takes is a lease read, as in
-the reference.
+synchronous drive: lease reads, read barriers through the log, follower
+reads by read index, and writes.  Stale reads are not here (they need
+resolved-ts): one raises ``ValueError``.  A replica read the leader takes
+is a lease read, as in the reference.
 
 Reference: src/server/raftkv/mod.rs (RaftKv: async_snapshot :603 routes
 a read through the consensus/lease path; async_write :472 proposes a
@@ -56,9 +55,22 @@ class RaftKv:
 
     def snapshot(self, ctx: SnapContext):
         peer = self._route(ctx)
-        if ctx.stale_read or (ctx.replica_read and not peer.is_leader()):
-            raise ValueError("stale and follower reads are not served by "
-                             "the single-store raftstore")
+        if ctx.stale_read:
+            raise ValueError("stale reads are not served by this "
+                             "raftstore: it keeps no resolved-ts")
+        if ctx.replica_read and not peer.is_leader():
+            # follower read via ReadIndex: consistent at the leader's
+            # commit point, zero leader load.  Registration holds the
+            # node lock — the drive thread touches the same read state
+            box: dict = {}
+            cb = lambda r: box.__setitem__("result", r)  # noqa: E731
+            if self._lock is not None:
+                with self._lock:
+                    peer.replica_read(cb, ctx.read_ts)
+            else:
+                peer.replica_read(cb, ctx.read_ts)
+            self._wait(box)
+            return box["result"]
         # lease fast path (LocalReader): no proposal, no log barrier.
         # local_read serializes on the peer mutex; the node lock covers
         # the drive loop

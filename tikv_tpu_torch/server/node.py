@@ -14,17 +14,32 @@ CUDA); a caller that wants the CPU passes ``DeviceRunner(device="cpu")``.
 (:821-906), ``_wait_driver`` (:985), ``_copr_snapshot`` (:1016-1070) and
 ``ingest_sst``/``ingest_sst_blob`` (:1212-1274) follow the reference.
 
-Not here: the gRPC transport and server, the disk engine and encryption,
-CDC and resolved-ts, load split and the split checker, the feature gate,
-tracing and the flight recorder, the fast path, RU metering and resource
-control, the lock manager's deadlock detector, GC, and the admin
-operations (split, merge, change peer, transfer leader).
+The admin operations a store runs alone follow the reference too:
+``split_region`` (:1158-1176), ``region_applied`` (:1335), and
+``merge_region`` / ``rollback_merge`` (:1340-1428) in their one-store
+form (every source peer is on this node, so the prepare's apply index is
+read from the local store, not over gRPC); the drive loop runs the split
+checker every ``region_split_check_ticks`` ticks, suspended in import
+mode (:829-845).
+
+Not here: the gRPC transport and server, and with them ``change_peer``,
+``change_peer_v2`` and ``transfer_leader`` (the in-process ``Cluster``
+carries those), the disk engine and encryption, CDC and resolved-ts,
+load split, the feature gate, tracing and the flight recorder, the fast
+path, RU metering and resource control, the lock manager's deadlock
+detector and GC.
 
 Threading: one background drive thread owns raft progress (tick + ready);
 request threads propose under the node lock and block on completion
 events the drive thread fires.  No call into the device runner happens
-under the node lock: the cold build in ``copr_cache.get`` runs after
-``raft_kv.snapshot`` has returned.
+under the node lock on a read: the cold build in ``copr_cache.get`` runs
+after ``raft_kv.snapshot`` has returned.  Raft apply does enter the runner
+under the node lock, as the reference's does: a split slices the
+parent's resident feeds (``split_planes``) and a leader gain re-verifies
+them (``plane_digest``) inside apply, under the runner's dispatch lock.
+The order is always node lock, then dispatch lock: no thread holding the
+dispatch lock (a request's dispatch, the coalescer's, the scrubber's)
+ever waits on the node lock, so the two cannot invert.
 """
 
 from __future__ import annotations
@@ -43,6 +58,8 @@ from ..engine.traits import CF_RAFT
 from ..kv.engine import SnapContext
 from ..pd.client import PdClient
 from ..raftstore import (
+    AdminCmd,
+    NotLeaderError,
     Peer,
     RaftCmd,
     RaftKv,
@@ -125,6 +142,7 @@ class Node:
             election_tick=config.raftstore.raft_election_timeout_ticks,
             heartbeat_tick=config.raftstore.raft_heartbeat_ticks,
             tick_interval=tick_interval)
+        self.raft_store.config = config.raftstore
         # bulk-load import mode (sst_importer import_mode.rs)
         self.import_mode = False
         self.raft_kv = RaftKv(self.raft_store, driver=self._wait_driver,
@@ -253,12 +271,25 @@ class Node:
     def _drive_loop(self) -> None:
         last_tick = time.monotonic()
         last_hb = 0.0
+        ticks = 0
         while not self._stop.is_set():
             with self.lock:
                 now = time.monotonic()
                 if now - last_tick >= self._tick_interval:
                     last_tick = now
                     self.raft_store.tick()
+                    ticks += 1
+                    every = self.config.raftstore.region_split_check_ticks
+                    if every > 0 and ticks % every == 0 and \
+                            not self.import_mode:
+                        # import mode suspends split checks so a bulk
+                        # load isn't fighting auto-splits mid-ingest
+                        # (sst_importer import_mode.rs relaxes the
+                        # engine the same way)
+                        try:
+                            self.raft_store.split_check(self.pd)
+                        except Exception:   # noqa: BLE001 — PD outage:
+                            pass            # retry next interval
                 did = self.raft_store.drive()
                 self._wake.notify_all()
                 # periodic PD reporting (worker/pd.rs heartbeat loop)
@@ -329,12 +360,105 @@ class Node:
                 return ent
         return MvccScanStorage(MvccReader(snap), req.dag.start_ts)
 
-    # ---------------------------------------------------------- ingest
+    # ---------------------------------------------------------- admin ops
 
     def _propose_and_wait(self, peer, cmd: RaftCmd):
+        """Propose ``cmd`` on ``peer`` (the caller holds the node lock) →
+        the box its result lands in, which ``_wait_result`` awaits."""
         box: dict = {}
         peer.propose(cmd, lambda r: box.__setitem__("result", r))
         return box
+
+    def _wait_result(self, box: dict):
+        self._wait_driver(lambda: "result" in box)
+        if isinstance(box["result"], Exception):
+            raise box["result"]
+        return box["result"]
+
+    def split_region(self, region_id: int, split_key: bytes) -> Region:
+        """Split the region at the user key ``split_key`` (encoded first;
+        ``region_id`` 0 picks the region holding it) → the new right
+        region."""
+        enc_split = encode_key(split_key)
+        with self.lock:
+            if not region_id:
+                peer = self.raft_store.peer_by_key(enc_split)
+            else:
+                peer = self.raft_store.region_peer(region_id)
+            new_id, new_peer_ids = self.pd.ask_split(peer.region)
+            cmd = RaftCmd(peer.region.id, peer.region.epoch,
+                          admin=AdminCmd("split", split_key=enc_split,
+                                         new_region_id=new_id,
+                                         new_peer_ids=tuple(new_peer_ids)))
+            box = self._propose_and_wait(peer, cmd)
+        return self._wait_result(box)["right"]
+
+    def region_applied(self, region_id: int) -> int:
+        """Local peer's apply index (merge coordination probe)."""
+        with self.lock:
+            return self.raft_store.region_peer(region_id).node.applied
+
+    def merge_region(self, source_id: int, target_id: int) -> Region:
+        """Coordinated region merge (this node must lead BOTH regions):
+        PrepareMerge on the source, wait until every source peer applied
+        it, then CommitMerge on the target — the PD-scheduler protocol of
+        ``testing.cluster.Cluster.merge_region``.  Every source peer must
+        be on this node: the apply index is read from the local store
+        (peers on other stores need the gRPC transport).  A failure after
+        the prepare rolls the source back."""
+        from ..raftstore.peer_storage import encode_region
+        with self.lock:
+            src = self.raft_store.region_peer(source_id)
+            tgt = self.raft_store.region_peer(target_id)
+            if not tgt.is_leader():
+                # check BEFORE proposing PrepareMerge: discovering this
+                # after the prepare would leave the source write-dead
+                # until a rollback
+                raise NotLeaderError(target_id, tgt.leader_peer())
+            sr, tr = src.region, tgt.region
+            if sorted(p.store_id for p in sr.peers) != \
+                    sorted(p.store_id for p in tr.peers):
+                raise ValueError("merge requires colocated replicas")
+            if any(p.store_id != self.store_id for p in sr.peers):
+                raise ValueError("merge: a source peer on another store "
+                                 "needs the gRPC transport")
+            if not ((sr.end_key and sr.end_key == tr.start_key) or
+                    (tr.end_key and tr.end_key == sr.start_key)):
+                raise ValueError("merge requires adjacent regions")
+            box = self._propose_and_wait(src, RaftCmd(
+                source_id, sr.epoch, admin=AdminCmd(
+                    "prepare_merge", new_region_id=target_id)))
+        res = self._wait_result(box)
+        prepare_index = res["prepare_index"]
+        source_region = res["region"]
+        try:
+            self._wait_driver(
+                lambda: self.region_applied(source_id) >= prepare_index)
+            with self.lock:
+                box = self._propose_and_wait(tgt, RaftCmd(
+                    target_id, tgt.region.epoch, admin=AdminCmd(
+                        "commit_merge", merge_index=prepare_index,
+                        extra=encode_region(source_region))))
+            return self._wait_result(box)["region"]
+        except Exception:
+            # the merge cannot proceed: roll the source back so it is
+            # not left permanently write-dead (fsm RollbackMerge)
+            try:
+                self.rollback_merge(source_id)
+            except Exception:   # noqa: BLE001 — the original error wins
+                pass
+            raise
+
+    def rollback_merge(self, region_id: int) -> None:
+        """Abort an in-flight PrepareMerge (exec_rollback_merge)."""
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            box = self._propose_and_wait(peer, RaftCmd(
+                region_id, peer.region.epoch, admin=AdminCmd(
+                    "rollback_merge", merge_index=peer.merging or 0)))
+        self._wait_result(box)
+
+    # ---------------------------------------------------------- ingest
 
     def ingest_sst(self, region_id: int, pairs) -> int:
         """Atomically land pre-built SST pairs in one raft command on
@@ -358,9 +482,7 @@ class Node:
             cmd = RaftCmd(region_id, region.epoch, ops=ops)
             fail_point("ingest::before_propose")
             box = self._propose_and_wait(peer, cmd)
-        self._wait_driver(lambda: "result" in box)
-        if isinstance(box["result"], Exception):
-            raise box["result"]
+        self._wait_result(box)
         return len(ops)
 
     def ingest_sst_blob(self, region_id: int, blob: bytes) -> int:
@@ -391,9 +513,7 @@ class Node:
                           ops=(WriteOp("ingest", "", b"", blob),))
             fail_point("ingest::before_blob_propose")
             box = self._propose_and_wait(peer, cmd)
-        self._wait_driver(lambda: "result" in box)
-        if isinstance(box["result"], Exception):
-            raise box["result"]
+        self._wait_result(box)
         return n_total
 
 

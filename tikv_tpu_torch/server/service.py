@@ -6,14 +6,18 @@ full-decode leg (packed requests, :123 — the reference's behaviour with
 no fast path), ``_dispatch_rpc`` with deadline admission and the read
 pool (:337), the transactional methods (``KvGet`` … ``KvTxnHeartBeat``,
 :541-655), the raw methods, ``Coprocessor`` (:716-782: DAG, plan IR,
-ANALYZE tp 104, CHECKSUM tp 105, paging and ``force_backend``) and the
+ANALYZE tp 104, CHECKSUM tp 105, paging and ``force_backend``), the
 bulk-load import surface (``ImportUpload``, ``ImportIngest``,
-``ImportSwitchMode``, :1094-1138).
+``ImportSwitchMode``, :1094-1138), and the region admin RPCs a store runs
+alone (``SplitRegion``, ``MergeRegion``, ``RollbackMerge``,
+``RegionApplied``, :1026-1056).
 
 Not here: the gRPC binding, the compiled fast path, causal tracing (a
 read response carries the port tracker's phases and labels as its
 ``time_detail``), RU metering and resource groups, ``Detect`` and
-``KvGC``, the CDC, backup and coprocessor streams, and the debug service.
+``KvGC``, ``ChangePeer``, ``ChangePeerV2`` and ``TransferLeader`` (they
+need the gRPC transport), the CDC, backup and coprocessor streams, and the
+debug service.
 
 Reference: src/server/service/kv.rs — the ``Tikv`` service's unary KV
 RPCs (:251-410) and ``coprocessor`` (:493).  Handlers are
@@ -341,6 +345,28 @@ class KvService:
         if d.resolved:
             return self._enc_cop_resp(d.wait())
         return {"__deferred": d}
+
+    # ---------------------------------------------------------- admin
+    #
+    # The region admin RPCs a store runs alone (service.py :1026-1056):
+    # ChangePeer, ChangePeerV2 and TransferLeader need the gRPC transport.
+
+    def SplitRegion(self, req: dict) -> dict:
+        right = self.node.split_region(req.get("region_id", 0),
+                                       req["split_key"])
+        return {"right": wire.enc_region(right)}
+
+    def RegionApplied(self, req: dict) -> dict:
+        return {"applied": self.node.region_applied(req["region_id"])}
+
+    def MergeRegion(self, req: dict) -> dict:
+        merged = self.node.merge_region(req["source_id"],
+                                        req["target_id"])
+        return {"region": wire.enc_region(merged)}
+
+    def RollbackMerge(self, req: dict) -> dict:
+        self.node.rollback_merge(req["region_id"])
+        return {}
 
     # ---------------------------------------------------------- import
     #

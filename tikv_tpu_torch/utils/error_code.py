@@ -1,7 +1,6 @@
 """Stable error codes for every subsystem.
 
-A copy of the JAX package's ``utils/error_code.py``, with the port's
-refusal of an admin command on the single-store raftstore.
+A copy of the JAX package's ``utils/error_code.py``.
 
 Reference: components/error_code/ — each error type carries a stable
 ``KV:Subsystem:Name`` code so operators and tooling can match on
@@ -18,7 +17,6 @@ _CODES = {
     "EpochNotMatch": "KV:Raftstore:EpochNotMatch",
     "KeyNotInRegion": "KV:Raftstore:KeyNotInRegion",
     "RegionMerging": "KV:Raftstore:ProposalInMergingMode",
-    "AdminNotSupported": "KV:Raftstore:AdminNotSupported",
     # storage / mvcc
     "KeyIsLocked": "KV:Storage:KeyIsLocked",
     "WriteConflict": "KV:Storage:WriteConflict",
