@@ -354,7 +354,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    every region; store 3's peer removed and added back, caught up by a
    raft snapshot, its CFs equal to store 1's; a merge dropping both
    lines, the merged read minting once), every answer against numpy, the
-   RSS around the load and each step's ms printed;
+   RSS around the load and each step's ms printed; then cell net
+   (``run_net``: TiKV's minimum deployment on loopback in this process, a
+   ``PdServer`` and three ``TikvServer``s, each node with a runner of its
+   own on the card; region 1's peers added over gRPC, 6c's table at 2^22
+   keys through ``TxnClient.ingest_sst`` replicated by ``BatchRaft``, the
+   checker's split, both plans on every region, a region's selection
+   through ``CoprocessorStream`` and its GROUP BY on a ``BatchCommands``
+   stream, a 4,096-row 2PC, a split, a leader round trip and a merge
+   over RPC, the stop leaving no thread), every answer against numpy; and
+   phase cli (``start_cli`` before net, ``run_cli`` after: ``python -m
+   tikv_tpu_torch.server pd`` and ``tikv`` on the card with the config
+   template, ``ctl``'s commands, a GROUP BY from the card, the status
+   server's ``/status`` and ``/config``, SIGTERM exiting 0, no kernel
+   rebuilt);
 14. the mesh (its merge checks and the cells m3, m4, m4n and m4s, which
    launch no kernel of ``selection.cu``, run while that source builds,
    after the ANALYZE cells): ``shard_psum``, ``shard_bucket_merge`` and
@@ -7382,6 +7395,736 @@ def run_rs3() -> dict:
             "load_s": out["load"]["s"]}
 
 
+# ---------------------------------------------------------------------------
+# cell net and phase cli: the networked tikv-server
+# ---------------------------------------------------------------------------
+
+NET_KEYS = 1 << 22              # rs3's: 6c's table, about 240 MiB of it
+NET_BLOBS = 4                   # 2^20 keys a blob (bench.py:448's chunk)
+NET_PART = 4 << 20              # ImportUpload's part (srv's)
+NET_WARM = 2
+NET_RUN_ROWS = 1 << 10          # the write: 4 runs of 1,024 (w2's shape)
+NET_ELECTION_TICKS = 1000       # TiKV's 10 s election timeout at 10 ms
+
+
+class Net:
+    """Cell net's rig: TiKV's documented minimum deployment — one PD and
+    three TiKV stores, PD's ``replication.max-replicas = 3`` — at classic
+    raft-kv's region-split-size 96 MiB and region-max-size 144 MiB (the
+    port's ``RaftstoreConfig`` defaults, as rs3), all on loopback in this
+    process so that the kernels' counts see every launch: a ``PdServer``
+    and three ``TikvServer``s, each ``Node`` with its default runner, a
+    ``DeviceRunner()`` of its own on ``cuda:0``.  The election timeout is
+    TiKV's default 10 s (``raft-election-timeout-ticks`` 10 of
+    ``raft-base-tick-interval`` 1 s) at the port's 10 ms tick: 1,000
+    ticks.  At the port's default 10 ticks (100 ms) a leader holding the
+    node lock through the split checker's scan of the loaded region (1.5
+    to 3.5 s) misses its heartbeats, the followers elect another leader,
+    and that leader scans and splits again.  Every request below is
+    an RPC through ``TxnClient`` (or ``BatchCommandsClient``), and raft
+    runs between the stores over ``GrpcTransport``'s ``BatchRaft``."""
+
+    def __init__(self):
+        from tikv_tpu_torch.config import TikvConfig
+        from tikv_tpu_torch.raftstore.metapb import Store
+        from tikv_tpu_torch.server import (Node, PdServer, RemotePdClient,
+                                           TikvServer, TxnClient)
+        from tikv_tpu_torch.testing import mvcc as tm
+        self.table = tm.table_6c()
+        self.tid = self.table.table_id
+        self.model = DeltaModel(NET_KEYS)
+        self.pd = PdServer("127.0.0.1:0")
+        self.pd.start()
+        self.pd_addr = f"127.0.0.1:{self.pd.port}"
+        self.servers = []
+        for _ in range(3):
+            cfg = TikvConfig()
+            cfg.raftstore.raft_election_timeout_ticks = NET_ELECTION_TICKS
+            node = Node("127.0.0.1:0", RemotePdClient(self.pd_addr),
+                        config=cfg)
+            srv = TikvServer(node)
+            # the bound port into the node's address and PD before the
+            # start, or its peers dial port 0
+            node.addr = f"127.0.0.1:{srv.port}"
+            node.pd.put_store(Store(node.store_id, node.addr))
+            srv.start()
+            self.servers.append(srv)
+        self.store = {s.node.store_id: s for s in self.servers}
+        self.sids = [s.node.store_id for s in self.servers]
+        self.client = TxnClient(self.pd_addr)
+
+    def key(self, h: int) -> bytes:
+        from tikv_tpu_torch.codec.keys import table_record_key
+        return table_record_key(self.tid, int(h))
+
+    def regions(self) -> list:
+        """The table's regions as PD routes them, in key order → [(region
+        id, first handle, end handle, leader's store)]."""
+        from tikv_tpu_torch.codec.keys import decode_record_handle
+        from tikv_tpu_torch.storage.txn_types import decode_key, encode_key
+        out, h = [], 0
+        while h < NET_KEYS:
+            region, leader = self.client.pd.get_region_with_leader(
+                encode_key(self.key(h)))
+            end = region.end_key
+            hi = NET_KEYS if not end else min(
+                NET_KEYS, decode_record_handle(decode_key(end)))
+            out.append((region.id, h, hi, leader.store_id))
+            h = hi
+        return out
+
+    def wait_regions(self, n: int, timeout: float = 120.0) -> list:
+        """Wait until PD routes the table over ``n`` regions, every one of
+        them with a peer on each store → the regions."""
+        t0 = time.perf_counter()
+        while True:
+            try:
+                regs = self.regions()
+            except Exception:   # noqa: BLE001 — a split's routing gap
+                regs = []
+            if len(regs) == n and all(
+                    self.peer(s, r[0]) is not None
+                    for s in self.servers for r in regs):
+                return regs
+            assert time.perf_counter() - t0 < timeout, \
+                f"net: PD routes {regs}, not {n} regions on every store"
+            time.sleep(0.05)
+
+    @staticmethod
+    def peer(srv, region_id: int):
+        with srv.node.lock:
+            return srv.node.raft_store.peers.get(region_id)
+
+    def leader_store(self, region_id: int):
+        """The store whose peer leads the region, once no other store's
+        peer believes it leads (a transfer's old leader refuses proposals
+        until it steps down); None meanwhile."""
+        leads = [s.node.store_id for s in self.servers
+                 if self.peer(s, region_id) is not None and
+                 self.peer(s, region_id).is_leader()]
+        return leads[0] if len(leads) == 1 else None
+
+    def applied_everywhere(self, region_id: int) -> bool:
+        with self.servers[0].node.lock:
+            want = self.servers[0].node.raft_store.peers[region_id] \
+                .node.applied
+        return all(self.peer(s, region_id) is not None and
+                   self.peer(s, region_id).node.applied >= want
+                   for s in self.servers)
+
+    def dag(self, plan: str, lo: int, hi: int):
+        import dataclasses
+
+        from tikv_tpu_torch.executors.ranges import KeyRange
+        from tikv_tpu_torch.testing.dag import DagSelect
+        s = DagSelect.from_table(self.table, ["id", "c0", "c1"])
+        d = s.where(s.col("c1") > 990) if plan == "sel" else s.aggregate(
+            [s.col("c0")], [("count_star", None), ("sum", s.col("c1"))])
+        return dataclasses.replace(
+            d.build(self.client.tso()),
+            ranges=(KeyRange(self.key(lo), self.key(hi)),))
+
+    def check(self, plan: str, lo: int, hi: int, rows) -> None:
+        """``rows`` against the model over handles [lo, hi)."""
+        m = (self.model.h >= lo) & (self.model.h < hi)
+        if plan == "sel":
+            m &= self.model.c1 > 990
+            got = np.asarray(rows, np.int64).reshape(-1, 3)
+            assert np.array_equal(got, np.stack(
+                [self.model.h[m], self.model.c0[m], self.model.c1[m]], 1)), \
+                f"net: wrong selection on [{lo}, {hi})"
+        else:
+            c0, c1 = self.model.c0[m], self.model.c1[m]
+            cnt = np.bincount(c0, minlength=self.model.groups)
+            sm = np.bincount(c0, weights=c1.astype(np.float64),
+                             minlength=self.model.groups)
+            got = sorted(map(tuple, rows), key=lambda r: r[2])
+            assert got == [(int(cnt[g]), int(sm[g]), g)
+                           for g in range(self.model.groups) if cnt[g]], \
+                f"net: wrong GROUP BY on [{lo}, {hi})"
+
+    def ask(self, plan: str, lo: int, hi: int) -> dict:
+        """One ``plan`` over handles [lo, hi) through ``TxnClient
+        .coprocessor`` → ms on the host clock and the response's labels;
+        the answer against the model, served from the card."""
+        dag = self.dag(plan, lo, hi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = self.client.coprocessor(dag, timeout=120)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert resp["backend"] == "device", (plan, lo, hi, resp["backend"])
+        self.check(plan, lo, hi, resp["rows"])
+        return {"ms": ms, "labels": resp["time_detail"]["labels"]}
+
+    def both_plans(self, lo: int, hi: int, warm: int = NET_WARM) -> dict:
+        return {plan: [self.ask(plan, lo, hi) for _ in range(1 + warm)]
+                for plan in ("agg", "sel")}
+
+    def feed_routes(self) -> dict:
+        out: dict = {}
+        for s in self.servers:
+            for k, v in s.node.device_runner.feed_routes.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def raft_calls(self) -> dict:
+        return {"batch_raft": sum(s.service.raft_batches
+                                  for s in self.servers),
+                "snapshot_chunk": sum(s.service.snap_chunks
+                                      for s in self.servers),
+                "raft_msgs": sum(s.service.raft_msgs for s in self.servers),
+                "drops": [dict(s.node.transport.drops)
+                          for s in self.servers]}
+
+    def update(self, hs, c1) -> float:
+        """One 2PC transaction of UPDATEs of c1 through ``TxnClient
+        .txn_write`` → ms."""
+        from tikv_tpu_torch.codec.row import encode_row
+        muts = [("put", self.key(h),
+                 encode_row({2: int(h) % self.model.groups, 3: int(v)}))
+                for h, v in zip(np.asarray(hs).tolist(),
+                                np.asarray(c1).tolist())]
+        t0 = time.perf_counter()
+        self.client.txn_write(muts)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.model.update(np.asarray(hs), np.asarray(c1))
+        return ms
+
+    def transfer(self, region_id: int, to_store: int) -> float:
+        """The region's leader to ``to_store`` through the
+        ``TransferLeader`` RPC → ms until that store leads it."""
+        region = self.client.pd.get_region_by_id(region_id)
+        to_peer = next(p for p in region.peers if p.store_id == to_store)
+        t0 = time.perf_counter()
+        self.client._call_leader_by_region(region, "TransferLeader", {
+            "region_id": region_id, "to_peer_id": to_peer.id})
+        while self.leader_store(region_id) != to_store:
+            assert time.perf_counter() - t0 < 30, \
+                f"net: region {region_id} did not move to {to_store}"
+            time.sleep(0.005)
+        return (time.perf_counter() - t0) * 1e3
+
+    def stop(self) -> None:
+        self.client.close()
+        for s in self.servers:
+            s.stop()
+        self.pd.stop()
+
+
+def run_net(srv: dict) -> dict:
+    """Cell net: the networked tikv-server on the card (``Net``), every
+    hop a real RPC on loopback:
+
+    1. replicas: region 1 given peers on stores 2 and 3 through
+       ``TxnClient.add_peer`` (``ChangePeer`` over gRPC), before the load;
+    2. load: ``ImportSwitchMode(True)`` on every store; 6c's table at
+       rs3's 2^22 keys as four 2^20-key SST v2 blobs, each through
+       ``TxnClient.ingest_sst`` (``ImportUpload`` parts of 4 MiB, then
+       ``ImportIngest``: one raft entry a blob, of tens of MB, replicated
+       to the followers through ``BatchRaft``); the wait until all three
+       stores have applied it, and until each store's cold stream has
+       parsed and uploaded what it applied; import mode off, and the wait for the
+       leader's split checker to half-split the region (PD routing two
+       regions, each with a peer on every store; no write follows, so
+       neither half is scanned again); RSS before and after;
+    3. reads: on every region both plans (GROUP BY c0: COUNT(*), SUM(c1);
+       the rows of ``c1 > 990``) through ``TxnClient.coprocessor``, cold +
+       2 warm, each from the card and against the numpy model;
+    4. other routes: one region's selection through
+       ``TxnClient.coprocessor_stream`` (the host's pages over one
+       snapshot), and its GROUP BY through ``BatchCommandsClient``
+       together with a ``KvGet``;
+    5. write: one 2PC transaction of 6c-delta's w2 shape (4,096 UPDATEs in
+       4 runs of 1,024 at 1/8, 3/8, 5/8 and 7/8 of the keys) through
+       ``TxnClient.txn_write``; both plans on every region again;
+    6. region moves over RPC: ``TxnClient.split`` at an odd handle (90% of
+       the right region), both plans on each child; the middle region's
+       leader to store 2 (``TransferLeader``) and back, both plans after
+       each; ``TxnClient.merge`` of the right child into the middle one,
+       the merged region's read;
+    7. ``stop``: every server and PD stops, and no thread is left.
+
+    Printed: the load's s by part, cold ms and warm p50 per plan through
+    gRPC beside srv's in process, the write's and each move's ms, the
+    launches and ``feed_routes``, the ``BatchRaft`` and ``SnapshotChunk``
+    calls, RSS.  Counts from 0 before the path, read after."""
+    import threading
+
+    from tikv_tpu_torch.server.client import BatchCommandsClient
+    from tikv_tpu_torch.server import wire
+    from tikv_tpu_torch.sst_importer import fast_mvcc_table_sst
+    t_start = time.perf_counter()
+    threads_before = {t.ident for t in threading.enumerate()}
+    set_counts({k: 0 for k in KERNELS})
+    out = {"config": "net", "keys": NET_KEYS, "blobs": NET_BLOBS}
+    cell = Net()
+    model = cell.model
+    steps: dict = {}
+    try:
+        # -- 1. replicas ----------------------------------------------
+        t0 = time.perf_counter()
+        for sid in cell.sids[1:]:
+            cell.client.add_peer(1, sid)
+        cell.wait_regions(1)
+        steps["add_peers_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # -- 2. load --------------------------------------------------
+        rss0 = rss_bytes()
+        for sid in cell.sids:
+            assert cell.client.import_switch_mode(sid, True) is True
+        timings: dict = {}
+        build_s = 0.0
+        load_ts = cell.client.tso()
+        t0 = time.perf_counter()
+        chunk = NET_KEYS // NET_BLOBS
+        blob_bytes = 0
+        for lo in range(0, NET_KEYS, chunk):
+            h = model.h[lo:lo + chunk]
+            t1 = time.perf_counter()
+            blob = fast_mvcc_table_sst(cell.tid, h, [(2, model.c0[h], None),
+                                                     (3, model.c1[h], None)],
+                                       load_ts)
+            build_s += time.perf_counter() - t1
+            blob_bytes += len(blob)
+            n = cell.client.ingest_sst(blob, cell.key(lo), chunk=NET_PART,
+                                       timings=timings)
+            assert n == chunk, n
+            del blob
+        ingest_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        while not cell.applied_everywhere(1):
+            assert time.perf_counter() - t1 < 300, "net: a store lags"
+            time.sleep(0.01)
+        replicate_s = time.perf_counter() - t1
+        # every store's cold stream parses and uploads the chunks it
+        # applied, followers' too: the reads below wait for the three
+        t1 = time.perf_counter()
+        for srv_ in cell.servers:
+            cs_ = srv_.node.cold_stream
+            assert cs_ is None or cs_.wait_idle(600.0), \
+                "net: a store's stream did not drain"
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t1
+        rss_loaded = rss_bytes()
+        for sid in cell.sids:
+            assert cell.client.import_switch_mode(sid, False) is False
+        t1 = time.perf_counter()
+        regs = cell.wait_regions(2, timeout=300)
+        split_wait_s = time.perf_counter() - t1
+        load = {"total_s": time.perf_counter() - t0, "sst_build_s": build_s,
+                "upload_s": timings["upload_s"],
+                "ingest_s": timings["ingest_s"],
+                "replicate_s": replicate_s, "stream_drain_s": drain_s,
+                "split_wait_s": split_wait_s,
+                "blob_bytes": blob_bytes, "rss_before": rss0,
+                "rss_after_load": rss_loaded, "raft": cell.raft_calls()}
+        out["load"] = load
+        print(f"net load: {ingest_s:.2f} s through the leader (SST build "
+              f"{build_s:.2f}, uploads {timings['upload_s']:.2f}, ingests "
+              f"{timings['ingest_s']:.2f}), replication "
+              f"{replicate_s:.2f} s, the streams' drain {drain_s:.2f} s, "
+              f"split wait {split_wait_s:.2f} s, "
+              f"blobs {blob_bytes / 2**20:.1f} MiB, RSS "
+              f"{rss0 / 2**30:.2f} → {rss_loaded / 2**30:.2f} GiB, raft "
+              f"{json.dumps(load['raft'])}; regions {regs}", flush=True)
+
+        # -- 3. reads -------------------------------------------------
+        c0 = counts()
+        reads = {rid: cell.both_plans(lo, hi) for rid, lo, hi, _ in regs}
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("hash_agg") and d.get("sel_pred"), d
+        steps["reads"] = {"regions": regs, "runs": reads, "launches": d}
+        figures = {}
+        for plan in ("agg", "sel"):
+            runs = [r[plan] for r in reads.values()]
+            warm = [x["ms"] for r in runs for x in r[1:]]
+            figures[plan] = {"cold_ms": [r[0]["ms"] for r in runs],
+                             "warm_p50_ms": float(np.median(warm))}
+        out["reads"] = figures
+        print("net reads through gRPC: " + "; ".join(
+            f"{p}: cold {' / '.join(f'{x:.1f}' for x in f['cold_ms'])} ms, "
+            f"warm p50 {f['warm_p50_ms']:.3f} ms (srv in process: cold "
+            f"{srv['reads'][p]['cold_ms']:.1f}, warm p50 "
+            f"{srv['reads'][p]['warm_p50_ms']:.3f})"
+            for p, f in figures.items()) +
+            f"; launches {json.dumps(d)}", flush=True)
+
+        # -- 4. the stream and the mux --------------------------------
+        rid, lo, hi, _ = regs[0]
+        # about four pages of the region's selected rows
+        n_sel = int(((model.h >= lo) & (model.h < hi) &
+                     (model.c1 > 990)).sum())
+        t0 = time.perf_counter()
+        pages = list(cell.client.coprocessor_stream(
+            cell.dag("sel", lo, hi), paging_size=max(1, n_sel // 4),
+            timeout=300))
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        assert len(pages) >= 2 and pages[-1]["is_drained"], len(pages)
+        cell.check("sel", lo, hi, [r for p in pages for r in p["rows"]])
+        leader = cell.store[cell.leader_store(rid)].node
+        mux = BatchCommandsClient(leader.addr)
+        try:
+            got = {}
+            ts = cell.client.tso()
+
+            def one(name, method, req):
+                got[name] = mux.call(method, req, timeout=120)
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=one, args=(
+                "copr", "Coprocessor",
+                {"tp": 103, "dag": wire.enc_dag(cell.dag("agg", lo, hi))})),
+                threading.Thread(target=one, args=(
+                    "get", "KvGet", {"key": cell.key(lo + 7),
+                                     "version": ts}))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            mux_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            mux.close()
+        assert got["copr"]["backend"] == "device", got["copr"]["backend"]
+        cell.check("agg", lo, hi, got["copr"]["rows"])
+        from tikv_tpu_torch.codec.row import decode_row
+        assert decode_row(got["get"]["value"]) == {
+            2: int(model.c0[lo + 7]), 3: int(model.c1[lo + 7])}
+        steps["stream"] = {"ms": stream_ms, "pages": len(pages),
+                           "rows": n_sel}
+        steps["mux_ms"] = mux_ms
+
+        # -- 5. write -------------------------------------------------
+        hs = np.concatenate([
+            np.arange(NET_KEYS * (2 * i + 1) // 8,
+                      NET_KEYS * (2 * i + 1) // 8 + NET_RUN_ROWS)
+            for i in range(4)])
+        c0 = counts()
+        write_ms = cell.update(hs, (hs * 7 + 1) % 1000)
+        after = {rid: cell.both_plans(lo, hi, warm=0)
+                 for rid, lo, hi, _ in regs}
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("patch_spans") and "mvcc_resolve" not in d, d
+        steps["write"] = {"ms": write_ms, "rows": len(hs),
+                          "first_read": {r: {p: a[p][0] for p in a}
+                                         for r, a in after.items()},
+                          "launches": d}
+        print(f"net write: {write_ms:.1f} ms for {len(hs)} rows over "
+              f"{len(regs)} regions; first reads after it " + " ".join(
+                  f"{r}: {a['agg'][0]['ms']:.1f} / {a['sel'][0]['ms']:.1f}"
+                  f" ms ({a['agg'][0]['labels'].get('copr_cache')})"
+                  for r, a in after.items()) +
+              f"; launches {json.dumps(d)}", flush=True)
+
+        # -- 6. region moves over RPC ---------------------------------
+        mid_id, lo, hi, _ = regs[-1]
+        at = lo + int((hi - lo) * 0.9)
+        at += (at % 2 == 0)
+        c0 = counts()
+        t0 = time.perf_counter()
+        right = cell.client.split(cell.key(at))
+        split_ms = (time.perf_counter() - t0) * 1e3
+        regs = cell.wait_regions(len(regs) + 1)
+        far_id = right.id
+        kids = {r: cell.both_plans(l, h, warm=0)
+                for r, l, h, _ in regs if r in (mid_id, far_id)}
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        assert d.get("split_planes") and "mvcc_resolve" not in d, d
+        steps["split"] = {"ms": split_ms, "at": at, "regions": regs,
+                          "children": kids, "launches": d}
+        mlo, mhi = next((l, h) for r, l, h, _ in regs if r == mid_id)
+        c0 = counts()
+        away_ms = cell.transfer(mid_id, cell.sids[1])
+        at2 = cell.both_plans(mlo, mhi, warm=0)
+        back_ms = cell.transfer(mid_id, cell.sids[0])
+        back = cell.both_plans(mlo, mhi, warm=0)
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        steps["round_trip"] = {"to_store2_ms": away_ms, "at_store2": at2,
+                               "back_ms": back_ms, "back": back,
+                               "launches": d}
+        # the merge runs at a store that leads both regions
+        for rid in (far_id, mid_id):
+            if cell.leader_store(rid) != cell.sids[0]:
+                cell.transfer(rid, cell.sids[0])
+        c0 = counts()
+        t0 = time.perf_counter()
+        merged = cell.client.merge(far_id, mid_id)
+        merge_ms = (time.perf_counter() - t0) * 1e3
+        regs = cell.wait_regions(len(regs) - 1)
+        # every store destroys its source peer as it applies the commit
+        t0 = time.perf_counter()
+        while any(cell.peer(s, far_id) is not None for s in cell.servers):
+            assert time.perf_counter() - t0 < 30, "net: the source lives"
+            time.sleep(0.01)
+        mlo, mhi = next((l, h) for r, l, h, _ in regs if r == merged.id)
+        merged_read = cell.both_plans(mlo, mhi, warm=0)
+        d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        steps["merge"] = {"ms": merge_ms, "read": merged_read,
+                          "launches": d}
+        print(f"net moves: split {split_ms:.1f} ms at {at} (children cold "
+              + " ".join(f"{r}: {k['agg'][0]['ms']:.1f} / "
+                         f"{k['sel'][0]['ms']:.1f}" for r, k in kids.items())
+              + f" ms), leader to store 2 {away_ms:.1f} ms (read "
+              f"{at2['agg'][0]['ms']:.1f} / {at2['sel'][0]['ms']:.1f} ms), "
+              f"back {back_ms:.1f} ms (read {back['agg'][0]['ms']:.1f} / "
+              f"{back['sel'][0]['ms']:.1f} ms), merge {merge_ms:.1f} ms "
+              f"(read {merged_read['agg'][0]['ms']:.1f} / "
+              f"{merged_read['sel'][0]['ms']:.1f} ms)", flush=True)
+        out["raft"] = cell.raft_calls()
+        out["feed_routes"] = cell.feed_routes()
+        out["rss_end"] = rss_bytes()
+    finally:
+        # -- 7. stop ----------------------------------------------------
+        t0 = time.perf_counter()
+        cell.stop()
+        out["stop_ms"] = (time.perf_counter() - t0) * 1e3
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before and t.is_alive()]
+    assert not left, f"net: threads left after stop: {left}"
+    launches = counts()
+    for name in ("hash_agg", "sel_pred", "mvcc_resolve", "patch_spans",
+                 "split_planes"):
+        assert launches[name] > 0, f"net never launched {name}"
+    out["launches"] = launches
+    out["steps"] = steps
+    out["wall_s"] = time.perf_counter() - t_start
+    del cell, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"net: launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f", feed_routes {json.dumps(out['feed_routes'])}, raft calls "
+          f"{json.dumps(out['raft'])}, RSS at the end "
+          f"{out['rss_end'] / 2**30:.2f} GiB, stop {out['stop_ms']:.1f} ms, "
+          f"{out['wall_s']:.1f} s", flush=True)
+    print("net cell: " + json.dumps(out, default=str), flush=True)
+    return {"config": "net", "launches": launches, "wall_s": out["wall_s"],
+            "load": {k: v for k, v in out["load"].items() if k != "raft"},
+            "reads": out["reads"]}
+
+
+CLI_KEYS = 1 << 16
+CLI_STOP_S = 60.0               # SIGTERM to exit, at most
+
+
+class _Proc:
+    """A subprocess of ``python -m tikv_tpu_torch.server``, its output
+    read line by line on a thread (the pipe never fills)."""
+
+    def __init__(self, *args):
+        import threading
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "tikv_tpu_torch.server", *args],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.lines: list = []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self) -> None:
+        for line in self.p.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, prefix: str, timeout: float) -> str:
+        t0 = time.perf_counter()
+        while True:
+            for line in self.lines:
+                if line.startswith(prefix):
+                    return line
+            assert self.p.poll() is None, \
+                f"cli: exited {self.p.returncode}: {self.lines[-20:]}"
+            assert time.perf_counter() - t0 < timeout, \
+                f"cli: no {prefix!r} in {timeout} s: {self.lines[-20:]}"
+            time.sleep(0.05)
+
+    def stop(self, sig, timeout: float) -> int:
+        self.p.send_signal(sig)
+        rc = self.p.wait(timeout=timeout)
+        self._t.join(timeout=5)
+        return rc
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait(timeout=30)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_cli() -> dict:
+    """Phase cli's processes, started before cell net so that their start
+    (the store's imports, its CUDA context and runner) overlaps net:
+    ``python -m tikv_tpu_torch.server pd``, and once it listens ``...
+    tikv --pd ... --status-addr ... --config etc/config-template.toml`` on
+    free ports, the store on the card by default (a mesh runner over the
+    card, from the file's knobs).  ``run_cli`` waits for the store."""
+    from tikv_tpu_torch.device import build
+    out = {"libs": sorted(os.listdir(build.BUILD_DIR)),
+           "pd_addr": f"127.0.0.1:{free_port()}",
+           "kv_addr": f"127.0.0.1:{free_port()}",
+           "st_addr": f"127.0.0.1:{free_port()}",
+           "t0": time.perf_counter(), "procs": []}
+    try:
+        pd = _Proc("pd", "--addr", out["pd_addr"])
+        out["procs"].append(pd)
+        pd.wait_for("pd listening", 120)
+        out["procs"].append(_Proc(
+            "tikv", "--addr", out["kv_addr"], "--pd", out["pd_addr"],
+            "--status-addr", out["st_addr"],
+            "--config", "etc/config-template.toml"))
+    except BaseException:
+        for p in out["procs"]:
+            p.kill()
+        raise
+    return out
+
+
+def run_cli(started: dict) -> dict:
+    """Phase cli: the entry point as processes (``start_cli``'s): the
+    store, on the card, loads the kernels this smoke built (the build
+    directory must not change); ``ctl`` with ``put``, ``get``, ``region``,
+    ``split``, ``stores``, ``store-status`` and ``tso``, each output
+    checked; 2^16 rows of 6c's table ingested through this process's
+    ``TxnClient``, the GROUP BY (``force_backend`` device: the template's
+    ``device-row-threshold`` is 262,144) equal to the truth with
+    ``backend == "device"``; ``GET /status`` and ``/config``, ``POST
+    /config`` of ``coprocessor.region-cache-capacity`` read back, and a
+    field that is not online refused; then SIGTERM: the store exits 0
+    within ``CLI_STOP_S``."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from tikv_tpu_torch.device import build
+    from tikv_tpu_torch.server import TxnClient
+    from tikv_tpu_torch.sst_importer import fast_mvcc_table_sst
+    from tikv_tpu_torch.testing import mvcc as tm
+    from tikv_tpu_torch.testing.dag import DagSelect
+    t_start = time.perf_counter()
+    libs0 = started["libs"]
+    pd_addr, kv_addr, st_addr = (started["pd_addr"], started["kv_addr"],
+                                 started["st_addr"])
+    out: dict = {"config": "cli"}
+    procs = started["procs"]
+    pd, kv = procs
+    client = None
+    try:
+        line = kv.wait_for("tikv store ", 300)
+        store_id = int(line.split()[2])
+        # from the start to the store listening, and what of it the
+        # phases between did not hide
+        out["start_s"] = time.perf_counter() - started["t0"]
+        out["start_wait_s"] = time.perf_counter() - t_start
+
+        def ctl(*args) -> str:
+            r = subprocess.run(
+                [sys.executable, "-m", "tikv_tpu_torch.server", "ctl",
+                 "--pd", pd_addr, *args],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            assert r.returncode == 0, (args, r.returncode, r.stderr[-2000:])
+            return r.stdout.strip()
+
+        t0 = time.perf_counter()
+        assert ctl("put", "cli-k", "cli-v") == "OK"
+        with ThreadPoolExecutor(4) as ex:
+            got = dict(zip(("get", "region", "stores", "tso"), ex.map(
+                lambda a: ctl(*a), (("get", "cli-k"),
+                                    ("region", "--key", "cli-k"),
+                                    ("stores",), ("tso",)))))
+        assert got["get"] == "cli-v", got["get"]
+        region = json.loads(got["region"])
+        assert region["id"] == 1 and region["peers"][0][1] == store_id, \
+            region
+        assert got["stores"] == f"{store_id} {kv_addr}", got["stores"]
+        ts = int(got["tso"])
+        split = ctl("split", "cli-m")
+        assert split.startswith("new region "), split
+        right_id = int(split.split()[2])
+        status = json.loads(ctl("store-status", str(store_id)))
+        assert status["store_id"] == store_id and \
+            {r["region"]["id"] for r in status["regions"]} == {1, right_id}, \
+            status
+        assert int(ctl("tso")) > ts
+        out["ctl_s"] = time.perf_counter() - t0
+
+        # 2^16 rows of 6c's table, then the GROUP BY on the card
+        table = tm.table_6c()
+        client = TxnClient(pd_addr)
+        h = np.arange(CLI_KEYS, dtype=np.int64)
+        c0, c1 = h % 1024, h % 1000
+        blob = fast_mvcc_table_sst(table.table_id, h,
+                                   [(2, c0, None), (3, c1, None)],
+                                   client.tso())
+        t0 = time.perf_counter()
+        from tikv_tpu_torch.codec.keys import table_record_key
+        assert client.ingest_sst(blob, table_record_key(
+            table.table_id, 0)) == CLI_KEYS
+        out["ingest_ms"] = (time.perf_counter() - t0) * 1e3
+        s = DagSelect.from_table(table, ["id", "c0", "c1"])
+        dag = s.aggregate([s.col("c0")], [("count_star", None),
+                                          ("sum", s.col("c1"))]).build(
+            client.tso())
+        t0 = time.perf_counter()
+        resp = client.coprocessor(dag, force_backend="device", timeout=300)
+        out["group_by_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        assert resp["backend"] == "device", resp["backend"]
+        cnt = np.bincount(c0, minlength=1024)
+        sm = np.bincount(c0, weights=c1.astype(np.float64), minlength=1024)
+        assert sorted(map(tuple, resp["rows"]), key=lambda r: r[2]) == \
+            [(int(cnt[g]), int(sm[g]), g) for g in range(1024)], \
+            "cli: wrong GROUP BY"
+
+        # the status server
+        base = f"http://{st_addr}"
+
+        def http(path: str, body=None) -> tuple:
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(base + path, data=data,
+                                         method="GET" if body is None
+                                         else "POST")
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        code, st = http("/status")
+        assert code == 200 and st["store_id"] == store_id, (code, st)
+        code, cfg = http("/config")
+        assert code == 200 and \
+            cfg["coprocessor"]["region_cache_capacity"] == 8, cfg
+        code, r = http("/config", {"coprocessor.region-cache-capacity": 4})
+        assert code == 200 and r["applied"] == {
+            "coprocessor.region_cache_capacity": 4}, (code, r)
+        assert http("/config")[1]["coprocessor"][
+            "region_cache_capacity"] == 4
+        code, r = http("/config", {"storage.data-dir": "/x"})
+        assert code == 400 and "not an online-config field" in r["error"], \
+            (code, r)
+
+        # SIGTERM: a graceful exit
+        t0 = time.perf_counter()
+        rc = kv.stop(signal.SIGTERM, CLI_STOP_S)
+        out["sigterm_s"] = time.perf_counter() - t0
+        assert rc == 0, (rc, kv.lines[-20:])
+        pd.kill()
+    finally:
+        if client is not None:
+            client.close()
+        for p in procs:
+            p.kill()
+    assert sorted(os.listdir(build.BUILD_DIR)) == libs0, \
+        "cli: the store rebuilt a kernel"
+    out["wall_s"] = time.perf_counter() - t_start
+    print("cli phase: " + json.dumps(out), flush=True)
+    return {"config": "cli", "launches": {k: 0 for k in KERNELS},
+            "wall_s": out["wall_s"], "figures": out}
+
+
 def spans_at_main_shapes(dev, n_pad: int, shapes: dict) -> tuple:
     """``patch_feed_spans`` at 6c-delta's w1, w2 and w3 shapes over the
     selection feed's planes (three int32 planes of ``n_pad`` rows), values
@@ -8553,10 +9296,24 @@ def main() -> int:
     runs.append(run_ingest(DeviceRunner()))
     elapsed("before the store in process")
     # a runner of its own: the node closes it at its stop
-    runs.append(run_srv(DeviceRunner()))
+    srv = run_srv(DeviceRunner())
+    runs.append(srv)
     elapsed("before the three replicas")
     # runners of their own, closed at the cell's end
     runs.append(run_rs3())
+    elapsed("before the networked store")
+    # the CLI's processes start while net runs
+    cli = start_cli()
+    try:
+        # three servers, each node with a runner of its own on the card
+        runs.append(run_net(srv))
+    except BaseException:
+        for p in cli["procs"]:
+            p.kill()
+        raise
+    elapsed("before the CLI")
+    # processes of their own: the store's launches are not this process's
+    runs.append(run_cli(cli))
     elapsed("before the mesh")
     from tikv_tpu_torch.testing import configs as cf
     mesh_runs += run_mesh(mesh_runner, runner, [

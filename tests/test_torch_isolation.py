@@ -705,3 +705,98 @@ def test_cluster_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "cluster served 400"
+
+
+# the networked server's modules (the gRPC bind, the raft transport, PD
+# over gRPC, the client, TLS, the status server and the CLI)
+NET_MODULES = [
+    "tikv_tpu_torch/server/__init__.py", "tikv_tpu_torch/server/__main__.py",
+    "tikv_tpu_torch/server/cli.py", "tikv_tpu_torch/server/client.py",
+    "tikv_tpu_torch/server/pd_server.py",
+    "tikv_tpu_torch/server/security.py", "tikv_tpu_torch/server/server.py",
+    "tikv_tpu_torch/server/status_server.py",
+    "tikv_tpu_torch/service_event.py", "tikv_tpu_torch/utils/backoff.py",
+    "tikv_tpu_torch/utils/health.py",
+    "tikv_tpu_torch/storage/lock_manager.py"]
+
+
+def test_net_modules_are_scanned():
+    assert set(NET_MODULES) <= set(SOURCES)
+
+
+_SERVE_CLI = """
+import signal, socket, subprocess, sys, time
+from tikv_tpu_torch.server import TxnClient
+from tikv_tpu_torch.testing import configs
+from tikv_tpu_torch.testing.dag import DagSelect
+from tikv_tpu_torch.testing.fixture import encode_table_row
+def free():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+pd_addr, kv_addr = free(), free()
+import tempfile
+log = tempfile.TemporaryFile("w+")
+def start(*args, importtime=False):
+    # the import report goes to a file: a full stderr pipe would stall it
+    x = ["-X", "importtime"] if importtime else []
+    return subprocess.Popen([sys.executable, *x, "-m",
+                             "tikv_tpu_torch.server", *args],
+                            stdout=subprocess.PIPE,
+                            stderr=log if importtime else subprocess.DEVNULL,
+                            text=True)
+def wait(p, prefix):
+    while True:
+        line = p.stdout.readline()
+        assert line, p.poll()
+        if line.startswith(prefix):
+            return
+pd = start("pd", "--addr", pd_addr)
+kv = None
+try:
+    wait(pd, "pd listening")
+    kv = start("tikv", "--addr", kv_addr, "--pd", pd_addr, "--device",
+               "cpu", importtime=True)
+    wait(kv, "tikv store ")
+    c = TxnClient(pd_addr)
+    table = configs.bench_table()
+    c.txn_write([("put",) + encode_table_row(table, h, {"k": h % 4, "v": h})
+                 for h in range(300)])
+    s = DagSelect.from_table(table, ["id", "k", "v"])
+    dag = s.aggregate([s.col("k")], [("count_star", None)]).build(c.tso())
+    resp = c.coprocessor(dag, force_backend="device")
+    assert resp["backend"] == "device", resp["backend"]
+    assert sum(r[0] for r in resp["rows"]) == 300, resp["rows"]
+    c.close()
+    kv.send_signal(signal.SIGTERM)
+    kv.communicate(timeout=60)
+    log.seek(0)
+    err = log.read()
+    assert kv.returncode == 0, err[-2000:]
+finally:
+    for p in (kv, pd):
+        if p is None:
+            continue
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+loaded = [line.rsplit("|", 1)[1].strip() for line in err.splitlines()
+          if line.startswith("import time:") and "|" in line]
+assert "tikv_tpu_torch.server.node" in loaded, loaded[-20:]
+bad = [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+bad += [m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("cli served", len(resp["rows"]))
+"""
+
+
+def test_cli_serving_loads_no_jax():
+    """``python -m tikv_tpu_torch.server tikv --device cpu`` serving a
+    write and a coprocessor read over gRPC imports no module of JAX or of
+    the JAX package (its ``-X importtime`` report lists every import), nor
+    does the client process."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_CLI], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "cli served 4"

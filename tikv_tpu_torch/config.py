@@ -1,25 +1,39 @@
-"""Configuration tree.
+"""Configuration tree + online reconfiguration.
 
-A trimmed copy of the JAX package's ``config.py``: the fields the port's
-``Node`` reads, in the sections ``storage``, ``raftstore``,
-``coprocessor`` and ``readpool``, with their defaults, and ``TikvConfig``
-(from a TOML file or a dict, validated; a region's split size must not
-exceed its max size).  Every other setting of a reference config file
-(the ``server`` section, paging, the mesh and slice knobs, tracing, the
-fast path, ...) loads and is ignored: the port has no code that reads
-it.  The online reconfiguration router (``ConfigController``) waits for
-the status server, its only caller.  ``Node`` refuses a value the port cannot honor
-(a data directory, a batch-system pool, digests switched off).
+A trimmed copy of the JAX package's ``config.py``: the fields the port
+reads, in the sections ``server``, ``storage``, ``raftstore``,
+``coprocessor`` (with the mesh and slice knobs the CLI builds a mesh
+runner from, and the stream's page size), ``readpool`` and ``security``,
+with their defaults, and ``TikvConfig`` (from a TOML file or a dict,
+validated; a region's split size must not exceed its max size).  Every
+other setting of a reference config file (tracing, the fast path, RU
+metering, resource control, ...) loads and is ignored: the port has no
+code that reads it.  ``ConfigController`` routes a live change (the
+status server's ``POST /config``) to the manager a subsystem registered
+for its section; ``_ONLINE_FIELDS`` names the fields whose managers the
+port's ``Node`` applies.  ``Node`` refuses a value the port cannot
+honor (a data directory, a batch-system pool, digests switched off).
 
 Reference: src/config/mod.rs (``TikvConfig`` — one serde-TOML tree
-embedding every subsystem's config).
+embedding every subsystem's config), components/online_config
+(``OnlineConfig`` derive + ``ConfigManager`` trait, lib.rs:137) and the
+``ConfigController`` that routes live changes to registered managers.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import threading
 from dataclasses import dataclass, field, fields
-from typing import Optional
+from typing import Callable, Optional
+
+
+@dataclass
+class ServerConfig:
+    addr: str = "127.0.0.1:20160"
+    status_addr: str = ""               # "" = status server disabled
+    grpc_concurrency: int = 8
 
 
 @dataclass
@@ -50,6 +64,8 @@ class CoprocessorConfig:
     # ~2^22 for tunneled (high-RTT) device transports
     device_row_threshold: int = 131072
     region_cache_capacity: int = 8
+    # a CoprocessorStream page's rows when the request names none
+    response_page_rows: int = 1 << 20
     # incremental columnar cache maintenance (copr/region_cache.py):
     # per-region committed-write delta log bounds — a data-version gap
     # wider than the retained log rebuilds instead of patching
@@ -100,6 +116,21 @@ class CoprocessorConfig:
     remint_concurrency: int = 0
     remint_queue: int = 32
     remint_retry_after_ms: int = 50
+    # the mesh runner the CLI builds (parallel/mesh.py,
+    # device/placement.py): mesh_shape pins the ("range", "tile") mesh
+    # factorization ("2x4"; None lets the mesh pick the squarest split),
+    # device_placement turns on hot-region → slice routing, feeds of
+    # placement_rows rows or more shard over the whole mesh
+    mesh_shape: Optional[str] = None
+    device_placement: bool = False
+    placement_rows: int = 1 << 22
+    # the slices' failure domain (device/supervisor.py SliceHealth):
+    # strikes to quarantine a slice, the half-open probe's cooldown after
+    # a trip, and the fetch latency that strikes 0.25 (0: no latency
+    # strikes)
+    slice_trip_strikes: float = 3.0
+    slice_probe_cooldown_s: float = 0.25
+    slice_latency_outlier_s: float = 0.0
 
 
 @dataclass
@@ -108,15 +139,31 @@ class ReadPoolConfig:
 
 
 @dataclass
+class SecurityConfig:
+    """[security]: TLS for every gRPC channel (components/security);
+    ``server/security.py`` builds its manager from it."""
+
+    ca_path: str = ""
+    cert_path: str = ""
+    key_path: str = ""
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.ca_path or self.cert_path)
+
+
+@dataclass
 class TikvConfig:
     """The config tree (config/mod.rs TikvConfig analog), trimmed to the
     fields the port's node reads."""
 
+    server: ServerConfig = field(default_factory=ServerConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     raftstore: RaftstoreConfig = field(default_factory=RaftstoreConfig)
     coprocessor: CoprocessorConfig = field(
         default_factory=CoprocessorConfig)
     readpool: ReadPoolConfig = field(default_factory=ReadPoolConfig)
+    security: SecurityConfig = field(default_factory=SecurityConfig)
 
     @staticmethod
     def from_file(path: str) -> "TikvConfig":
@@ -151,3 +198,85 @@ class TikvConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+# fields changeable at runtime ("section.field" — OnlineConfig markers):
+# the raftstore's split knobs (read live by the split checker), the
+# coprocessor fields the node's manager applies or the stream reads live,
+# and the read pool's concurrency
+_ONLINE_FIELDS = {
+    "raftstore.region_split_size_mb",
+    "raftstore.region_max_size_mb",
+    "raftstore.region_split_check_ticks",
+    "coprocessor.device_row_threshold",
+    "coprocessor.region_cache_capacity",
+    "coprocessor.response_page_rows",
+    "coprocessor.tombstone_compact_ratio",
+    "coprocessor.device_hbm_budget_mb",
+    "coprocessor.coalesce_window_ms",
+    "coprocessor.coalesce_max_group",
+    "coprocessor.device_cold_build",
+    "coprocessor.remint_concurrency",
+    "readpool.concurrency",
+}
+
+
+class ConfigController:
+    """Live-change router (online_config ConfigController analog).
+
+    Subsystems register a manager callback per section; ``update``
+    validates the diff against _ONLINE_FIELDS, applies it to the config
+    tree, and dispatches {changed field: value} to the section manager.
+    """
+
+    def __init__(self, cfg: TikvConfig):
+        self.cfg = cfg
+        self._managers: dict[str, Callable[[dict], None]] = {}
+        self._lock = threading.Lock()
+
+    def register(self, section: str,
+                 manager: Callable[[dict], None]) -> None:
+        self._managers[section] = manager
+
+    def update(self, changes: dict) -> dict:
+        """changes: {"raftstore.region-split-size-mb": 64, ...} →
+        {applied field: value}.  Raises ValueError on unknown or
+        non-online fields (nothing is applied)."""
+        with self._lock:
+            parsed = []
+            for dotted, value in changes.items():
+                section, _, name = dotted.replace("-", "_").partition(".")
+                if not name:
+                    raise ValueError(f"bad config key {dotted!r}")
+                if f"{section}.{name}" not in _ONLINE_FIELDS:
+                    raise ValueError(
+                        f"{dotted!r} is not an online-config field")
+                target = getattr(self.cfg, section, None)
+                if target is None or not hasattr(target, name):
+                    raise ValueError(f"unknown config field {dotted!r}")
+                cur = getattr(target, name)
+                if cur is not None and value is not None and \
+                        not isinstance(value, type(cur)):
+                    if isinstance(cur, bool) or not (
+                            isinstance(cur, (int, float)) and
+                            isinstance(value, (int, float))):
+                        raise ValueError(
+                            f"{dotted!r}: want {type(cur).__name__}")
+                parsed.append((section, name, value))
+            # validate the tree with changes applied before committing
+            # (deep copy: replace() would share the nested sections)
+            trial = copy.deepcopy(self.cfg)
+            for section, name, value in parsed:
+                setattr(getattr(trial, section), name, value)
+            trial.validate()
+            applied: dict = {}
+            by_section: dict[str, dict] = {}
+            for section, name, value in parsed:
+                setattr(getattr(self.cfg, section), name, value)
+                applied[f"{section}.{name}"] = value
+                by_section.setdefault(section, {})[name] = value
+        for section, diff in by_section.items():
+            mgr = self._managers.get(section)
+            if mgr is not None:
+                mgr(diff)
+        return applied

@@ -294,6 +294,11 @@ class Endpoint:
         finally:
             tracker.uninstall(tok)
 
+    def snapshot_for(self, req: CopRequest):
+        """The snapshot seam for streaming handlers that drive their own
+        runner (``copr_stream``): the provider the unary path uses."""
+        return self._snapshot_provider(req)
+
     def handle_plan(self, preq, force_backend: Optional[str] = None
                     ) -> CopResponse:
         """A plan-IR request: one snapshot per scan leaf through the same

@@ -622,7 +622,7 @@ class DeviceRunner:
     single-device slices (``placer``), feeds of ``placement_rows`` rows or
     more (``placement.DEFAULT_WHOLE_MESH_ROWS``) on the whole mesh, and
     the slices' failure domain, a ``SliceHealthBoard``: a slice trips at
-    ``supervisor.DEFAULT_TRIP_STRIKES`` strikes, a served fetch of
+    ``slice_trip_strikes`` strikes (None: ``supervisor.DEFAULT_TRIP_STRIKES``), a served fetch of
     ``slice_latency_outlier_s`` seconds or more strikes 0.25 (None or 0:
     no latency strikes), and the half-open probe waits
     ``slice_probe_cooldown_s`` after a trip.
@@ -633,7 +633,8 @@ class DeviceRunner:
                  hbm_budget_bytes: int = 0, placement: bool = False,
                  placement_rows: Optional[int] = None,
                  slice_probe_cooldown_s: Optional[float] = None,
-                 slice_latency_outlier_s: Optional[float] = None):
+                 slice_latency_outlier_s: Optional[float] = None,
+                 slice_trip_strikes: Optional[float] = None):
         if device is not None and mesh is not None:
             raise ValueError("give a device or a mesh, not both")
         self._mesh = mesh
@@ -720,8 +721,11 @@ class DeviceRunner:
         if placement and not self._single:
             from .placement import DEFAULT_WHOLE_MESH_ROWS, SlicePlacer
             from .supervisor import DEFAULT_PROBE_COOLDOWN_S, SliceHealthBoard
+            from .supervisor import DEFAULT_TRIP_STRIKES
             self._board = SliceHealthBoard(
-                S, cooldown_s=DEFAULT_PROBE_COOLDOWN_S
+                S, trip_strikes=DEFAULT_TRIP_STRIKES
+                if slice_trip_strikes is None else slice_trip_strikes,
+                cooldown_s=DEFAULT_PROBE_COOLDOWN_S
                 if slice_probe_cooldown_s is None
                 else slice_probe_cooldown_s,
                 latency_outlier_s=slice_latency_outlier_s)

@@ -1,45 +1,51 @@
-"""Node — one store in process: store lifecycle + drive loop + the
-coprocessor's path to the card.
+"""Node — one tikv-server's store: store lifecycle + drive loop + the
+raft transport between stores + the coprocessor's path to the card.
 
-A trimmed copy of the JAX package's ``server/node.py`` for a single store
-on the in-memory engine: ``Node.__init__`` (reference :323-598) wires the
-raftstore, RaftKv, the transactional ``Storage``, the read pool, and the
-device serving stack whole — the delta sink, the region columnar cache,
-the request coalescer, the feed arena's budget, the
-``DeviceStateSupervisor`` on the coprocessor host, the ``RemintGovernor``,
-the device rung of the cold build and the ``ColdStreamBuilder``.  The
-runner defaults to ``DeviceRunner()`` on ``cuda:0`` (it raises without
-CUDA); a caller that wants the CPU passes ``DeviceRunner(device="cpu")``.
-``bootstrap_or_join``/``start``/``stop`` (:756-812), the drive loop
-(:821-906), ``_wait_driver`` (:985), ``_copr_snapshot`` (:1016-1070) and
-``ingest_sst``/``ingest_sst_blob`` (:1212-1274) follow the reference.
-
-The admin operations a store runs alone follow the reference too:
-``split_region`` (:1158-1176), ``region_applied`` (:1335), and
-``merge_region`` / ``rollback_merge`` (:1340-1428) in their one-store
-form (every source peer is on this node, so the prepare's apply index is
-read from the local store, not over gRPC); the drive loop runs the split
+A trimmed copy of the JAX package's ``server/node.py`` on the in-memory
+engine: ``Node.__init__`` (reference :323-598) wires the raftstore over
+the gRPC raft transport (``GrpcTransport``, :51-254: per-store queues
+batched into ``BatchRaft`` calls, reconnect backoff with PD address
+rediscovery, the breaker view, ``SnapshotChunk`` extraction for snapshots
+over 256 KiB), RaftKv, the transactional ``Storage``, the read pool, the
+online-config controller, and the device serving stack whole — the delta
+sink, the region columnar cache, the request coalescer, the feed arena's
+budget, the ``DeviceStateSupervisor`` on the coprocessor host, the
+``RemintGovernor``, the device rung of the cold build and the
+``ColdStreamBuilder``.  The runner defaults to ``DeviceRunner()`` on
+``cuda:0`` (it raises without CUDA); a caller that wants the CPU passes
+``DeviceRunner(device="cpu")``.  ``bootstrap_or_join``/``start``/``stop``
+(:756-812), the drive loop (:821-906, the transport flushed outside the
+node lock), ``_wait_driver`` (:985), ``on_raft_message`` (:1005),
+``_copr_snapshot`` (:1016-1070), ``ingest_sst``/``ingest_sst_blob``
+(:1212-1274), ``change_peer``/``change_peer_v2``/``transfer_leader``
+(:1276-1308), ``split_region`` (:1158), ``region_applied`` (:1335),
+``merge_region`` in its network form (:1340-1416: every source peer's
+apply index polled over ``RegionApplied``), ``rollback_merge`` and
+``status`` (:1446) follow the reference; the drive loop runs the split
 checker every ``region_split_check_ticks`` ticks, suspended in import
 mode (:829-845).
 
-Not here: the gRPC transport and server, and with them ``change_peer``,
-``change_peer_v2`` and ``transfer_leader`` (the in-process ``Cluster``
-carries those), the disk engine and encryption, CDC and resolved-ts,
-load split, the feature gate, tracing and the flight recorder, the fast
-path, RU metering and resource control, the lock manager's deadlock
-detector and GC.
+Not here: the disk engine and encryption, CDC and resolved-ts (with them
+the ``CheckLeader`` fan-out and ``status``'s ``resolved_ts``), the
+health controller, load split, the feature gate, PD's operators, tracing
+and the flight recorder, the fast path, RU metering and resource
+control, the proxy to the cluster's deadlock detector (the lock manager
+detects with this store's own graph) and GC.
 
-Threading: one background drive thread owns raft progress (tick + ready);
-request threads propose under the node lock and block on completion
-events the drive thread fires.  No call into the device runner happens
-under the node lock on a read: the cold build in ``copr_cache.get`` runs
+Threading: one background drive thread owns raft progress (tick + ready
++ the transport's flush); request threads propose under the node lock
+and block on completion events the drive thread fires.  No call into the
+device runner happens under the node lock from a request thread: the
+columnar cache is read
 after ``raft_kv.snapshot`` has returned.  Raft apply does enter the runner
 under the node lock, as the reference's does: a split slices the
 parent's resident feeds (``split_planes``) and a leader gain re-verifies
 them (``plane_digest``) inside apply, under the runner's dispatch lock.
 The order is always node lock, then dispatch lock: no thread holding the
 dispatch lock (a request's dispatch, the coalescer's, the scrubber's)
-ever waits on the node lock, so the two cannot invert.
+ever waits on the node lock, so the two cannot invert.  A raft message
+from another store (``on_raft_message``, the ``Raft``/``BatchRaft``
+handlers) steps under the node lock and never enters the runner.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from __future__ import annotations
 import struct
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 from ..copr.dag import TableScanDesc
@@ -72,6 +79,235 @@ from ..raftstore.metapb import Store as StoreMeta
 from ..storage import Storage
 from ..storage.mvcc.reader import MvccReader
 from ..storage.txn_types import encode_key
+from . import wire
+
+
+class _StoreConn:
+    """Per-peer-store connection state: bounded message queue, channel,
+    exponential backoff, address rediscovery.
+
+    Reference: src/server/raft_client.rs — ``Queue`` with overflow
+    (:198-226), reconnect backoff, and re-resolving the store address
+    through PD after failures (resolve.rs)."""
+
+    MAX_QUEUE = 4096
+    MAX_BATCH = 512
+    BACKOFF_BASE = 0.1
+    BACKOFF_MAX = 3.0
+    # a raft message queued longer than this is stale — its term/index
+    # have been superseded by retries; shipping it after a long backoff
+    # only wastes the reconnected channel's first batches
+    MSG_TTL = 10.0
+
+    def __init__(self, store_id: int):
+        from ..utils.backoff import Backoff
+        self.store_id = store_id
+        self.queue: deque = deque()     # (enqueue_monotonic, msg, bytes)
+        self.lock = threading.Lock()
+        self.channel = None
+        self.addr = None
+        self.fail_count = 0
+        self.next_attempt = 0.0     # monotonic deadline while backing off
+        # the tight (0.8, 1.0) jitter band keeps retries decorrelated
+        # across stores while still guaranteeing exponential growth
+        self._backoff = Backoff(base=self.BACKOFF_BASE,
+                                cap=self.BACKOFF_MAX, jitter=(0.8, 1.0))
+
+    def push(self, msg: dict, nbytes: int) -> bool:
+        """→ False when the queue is full (message dropped — raft
+        retries; the reference drops on a full Queue the same way)."""
+        with self.lock:
+            if len(self.queue) >= self.MAX_QUEUE:
+                return False
+            self.queue.append((time.monotonic(), msg, nbytes))
+            return True
+
+    def pop_batch(self, now: float, max_bytes: int) -> tuple[list, int]:
+        """→ (batch, n_expired): drop queued messages past their send
+        deadline, then take up to MAX_BATCH of what is still fresh and no
+        more than ``max_bytes`` of payload (the first message always)."""
+        with self.lock:
+            expired = 0
+            while self.queue and now - self.queue[0][0] > self.MSG_TTL:
+                self.queue.popleft()
+                expired += 1
+            out, size = [], 0
+            while self.queue and len(out) < self.MAX_BATCH:
+                nb = self.queue[0][2]
+                if out and size + nb > max_bytes:
+                    break
+                out.append(self.queue.popleft()[1])
+                size += nb
+            return out, expired
+
+    def on_failure(self, now: float) -> None:
+        self.fail_count += 1
+        self._backoff.attempt = self.fail_count - 1
+        self.next_attempt = now + self._backoff.next_delay()
+        # force address rediscovery: the store may have moved.  Close
+        # the channel (native sockets) rather than waiting for GC.
+        self.close()
+
+    def on_success(self) -> None:
+        self.fail_count = 0
+        self.next_attempt = 0.0
+
+    def close(self) -> None:
+        if self.channel is not None:
+            try:
+                self.channel.close()
+            except Exception:   # noqa: BLE001 — already broken
+                pass
+        self.channel = None
+        self.addr = None
+
+    def breaker_state(self) -> str:
+        """The conn's backoff state read as a circuit breaker: closed
+        (healthy), open (cooling off after failures), half_open (past
+        the cooldown — the next flush is the probe)."""
+        if self.fail_count == 0:
+            return "closed"
+        if time.monotonic() < self.next_attempt:
+            return "open"
+        return "half_open"
+
+
+class GrpcTransport(Transport):
+    """Store-to-store raft transport over gRPC.
+
+    Reference: src/server/raft_client.rs — per-store connections with
+    BatchRaftMessage buffering + overflow, exponential backoff with PD
+    address rediscovery on failure.  ``drops`` counts the messages lost by
+    reason (``failpoint``, ``full``, ``expired``, ``send_fail``);
+    ``batch_calls`` and ``snap_chunk_calls`` the ``BatchRaft`` and
+    ``SnapshotChunk`` RPCs sent."""
+
+    # per-batch RPC deadline: a hung peer must not pin the flush loop
+    # (and with it every region's outbound raft traffic) beyond this
+    SEND_DEADLINE = 5.0
+    # a batch's payload beyond this goes in the next call: one message
+    # alone may be larger (a raft entry carrying a bulk-loaded SST blob)
+    BATCH_BYTES = 64 << 20
+    # a snapshot payload beyond this rides the chunk stream instead of
+    # the raft message (src/server/snap.rs SNAP_CHUNK_LEN; the raft
+    # batch then stays small regardless of region size)
+    SNAP_CHUNK = 256 * 1024
+
+    def __init__(self, pd: PdClient):
+        self._pd = pd
+        self._conns: dict[int, _StoreConn] = {}
+        self._lock = threading.Lock()
+        self.drops: dict = {}
+        self.batch_calls = 0
+        self.snap_chunk_calls = 0
+
+    def _conn(self, store_id: int) -> _StoreConn:
+        with self._lock:
+            conn = self._conns.get(store_id)
+            if conn is None:
+                conn = self._conns[store_id] = _StoreConn(store_id)
+            return conn
+
+    def _drop(self, reason: str, n: int = 1) -> None:
+        with self._lock:
+            self.drops[reason] = self.drops.get(reason, 0) + n
+
+    def breaker_states(self) -> dict:
+        """Per-peer-store transport breaker view (/health route)."""
+        with self._lock:
+            conns = list(self._conns.values())
+        return {c.store_id: {"state": c.breaker_state(),
+                             "consecutive_failures": c.fail_count,
+                             "queued": len(c.queue)}
+                for c in conns}
+
+    def send(self, to_store, region_id, to_peer, from_peer, msg) -> None:
+        from ..utils.failpoint import fail_point
+        if fail_point("transport::grpc_drop") is not None:
+            self._drop("failpoint")
+            return
+        m = wire.enc_raft_msg(msg)
+        nbytes = sum(len(e) for e in m["e"]) + \
+            len(m.get("snap", {}).get("d", b""))
+        ok = self._conn(to_store).push({
+            "region_id": region_id,
+            "to_peer": wire.enc_peer(to_peer),
+            "from_peer": wire.enc_peer(from_peer),
+            "msg": m}, nbytes)
+        if not ok:
+            self._drop("full")
+
+    def flush(self) -> None:
+        """Ship every connection's queued messages (the drive loop calls
+        this outside the node lock)."""
+        from ..utils.failpoint import fail_point
+        now = time.monotonic()
+        with self._lock:
+            conns = list(self._conns.values())
+        for conn in conns:
+            while conn.queue and now >= conn.next_attempt:
+                msgs, expired = conn.pop_batch(now, self.BATCH_BYTES)
+                if expired:
+                    self._drop("expired", expired)
+                if not msgs:
+                    break
+                try:
+                    if fail_point("transport::before_batch_send") \
+                            is not None:
+                        raise ConnectionError("failpoint")
+                    chan = self._channel(conn)
+                    self._extract_snapshots(chan, msgs)
+                    call = chan.unary_unary(
+                        "/tikv.Tikv/BatchRaft",
+                        request_serializer=wire.pack,
+                        response_deserializer=wire.unpack)
+                    call({"msgs": msgs}, timeout=self.SEND_DEADLINE)
+                    self.batch_calls += 1
+                    conn.on_success()
+                except Exception:   # noqa: BLE001 — raft retries
+                    # raft tolerates the lost batch (protocol retries);
+                    # the conn backs off (with jitter) and re-resolves
+                    # its address
+                    conn.on_failure(time.monotonic())
+                    self._drop("send_fail", len(msgs))
+                    break
+
+    def _extract_snapshots(self, chan, msgs: list) -> None:
+        """Large snapshots: ship data as ordered SnapshotChunk RPCs,
+        leave only meta + the claim key on the raft message."""
+        for m in msgs:
+            snap = m["msg"].get("snap")
+            if snap is None or len(snap.get("d", b"")) <= self.SNAP_CHUNK:
+                continue
+            data = snap["d"]
+            key = (f"{m['region_id']}/{m['to_peer']['id']}/"
+                   f"{snap['i']}/{snap['t']}")
+            call = chan.unary_unary(
+                "/tikv.Tikv/SnapshotChunk",
+                request_serializer=wire.pack,
+                response_deserializer=wire.unpack)
+            total = -(-len(data) // self.SNAP_CHUNK)
+            for seq in range(total):
+                chunk = data[seq * self.SNAP_CHUNK:
+                             (seq + 1) * self.SNAP_CHUNK]
+                call({"key": key, "seq": seq, "total": total,
+                      "data": chunk}, timeout=10)
+                self.snap_chunk_calls += 1
+            snap["d"] = b""
+            snap["ext_key"] = key
+
+    def _channel(self, conn: _StoreConn):
+        if conn.channel is None:
+            conn.addr = self._pd.get_store(conn.store_id).address
+            from .security import make_channel
+            conn.channel = make_channel(conn.addr)
+        return conn.channel
+
+    def close(self) -> None:
+        with self._lock:
+            conns = list(self._conns.values())
+        for c in conns:
+            c.close()
 
 # Reference: components/keys STORE_IDENT_KEY (0x01 0x01) — the store's
 # durable identity, read before talking to PD so a restarted store keeps
@@ -87,7 +323,7 @@ class Node:
                  device_runner=None,
                  device_row_threshold: Optional[int] = None,
                  tick_interval: float = 0.01, config=None):
-        from ..config import TikvConfig
+        from ..config import ConfigController, TikvConfig
         if config is None:
             config = TikvConfig()
             config.storage.data_dir = data_dir or ""
@@ -112,6 +348,7 @@ class Node:
             from ..device import DeviceRunner
             device_runner = DeviceRunner()
         self.config = config
+        self.config_controller = ConfigController(config)
         self.addr = addr
         self.pd = pd
         self.engine = engine if engine is not None else MemoryEngine()
@@ -135,19 +372,26 @@ class Node:
             self.engine.put_cf(CF_RAFT, STORE_IDENT_KEY,
                                struct.pack(">Q", self.store_id))
         pd.put_store(StoreMeta(self.store_id, addr))
-        # one store: its peers have no one to send raft messages to
-        self.transport = Transport()
+        self.transport = GrpcTransport(pd)
         self.raft_store = RaftStore(
             self.store_id, self.engine, self.transport,
             election_tick=config.raftstore.raft_election_timeout_ticks,
             heartbeat_tick=config.raftstore.raft_heartbeat_ticks,
             tick_interval=tick_interval)
+        # the store reads its split thresholds live (the split checker),
+        # so online raftstore changes take effect without a restart
         self.raft_store.config = config.raftstore
+        self.raft_store.observers = [self._report_region]
         # bulk-load import mode (sst_importer import_mode.rs)
         self.import_mode = False
         self.raft_kv = RaftKv(self.raft_store, driver=self._wait_driver,
                               lock=self.lock)
-        self.storage = Storage(engine=self.raft_kv)
+        # pessimistic-lock waiters park until the holder releases; the
+        # deadlock detector is this store's own (the proxy to the
+        # cluster's detector leader waits for the Detect RPC)
+        from ..storage.lock_manager import LockManager
+        self.storage = Storage(engine=self.raft_kv,
+                               lock_manager=LockManager())
         from .read_pool import ReadPool
         self.read_pool = ReadPool(
             max_concurrency=config.readpool.concurrency)
@@ -226,6 +470,96 @@ class Node:
                 max_bytes=config.coprocessor.cold_stream_max_mb << 20)
             self.raft_store.coprocessor_host.register(self.cold_stream)
             self.copr_cache.stream_source = self.cold_stream
+        # online reconfig (online_config ConfigManager registrations)
+        self.config_controller.register("coprocessor", self._copr_cfg)
+        self.config_controller.register("readpool", self._readpool_cfg)
+
+    def _readpool_cfg(self, diff: dict) -> None:
+        if "concurrency" in diff:
+            self.read_pool.set_concurrency(int(diff["concurrency"]))
+
+    def _copr_cfg(self, diff: dict) -> None:
+        """The coprocessor's online fields (reference :631-700, trimmed to
+        what the port has; ``response_page_rows`` is read live by the
+        stream)."""
+        if "device_row_threshold" in diff:
+            self.endpoint._device_row_threshold = \
+                diff["device_row_threshold"]
+        if "region_cache_capacity" in diff:
+            self.copr_cache._capacity = diff["region_cache_capacity"]
+        if "remint_concurrency" in diff:
+            n = int(diff["remint_concurrency"])
+            if n <= 0:
+                self.copr_cache.remint_gate = None
+                self.device_supervisor.remint_governor = None
+            else:
+                gov = self.copr_cache.remint_gate
+                if gov is None:
+                    from ..device.supervisor import RemintGovernor
+                    gov = RemintGovernor(
+                        max_concurrent=n,
+                        max_queue=self.config.coprocessor.remint_queue,
+                        retry_after_ms=self.config.coprocessor
+                        .remint_retry_after_ms)
+                    self.copr_cache.remint_gate = gov
+                    self.device_supervisor.remint_governor = gov
+                else:
+                    gov.max_concurrent = n
+        if "tombstone_compact_ratio" in diff:
+            self.copr_cache._compact_ratio = \
+                diff["tombstone_compact_ratio"]
+        if "device_hbm_budget_mb" in diff:
+            self.device_runner.set_hbm_budget(
+                int(diff["device_hbm_budget_mb"]) << 20)
+        if "device_cold_build" in diff:
+            if not diff["device_cold_build"]:
+                self.copr_cache.device_resolver = None
+                # the stream exists only to feed the device rung: left
+                # running it would keep parsing every ingested chunk and
+                # retain host planes nothing can take — torn down with it
+                if self.cold_stream is not None:
+                    self.copr_cache.stream_source = None
+                    self.raft_store.coprocessor_host.unregister(
+                        self.cold_stream)
+                    self.cold_stream.stop()
+                    self.cold_stream = None
+            else:
+                resolver = self.device_runner.mvcc_resolver()
+                self.copr_cache.device_resolver = resolver
+                # re-enable restores the whole rung, under the gate the
+                # constructor used
+                if self.cold_stream is None:
+                    stream_on = self.config.coprocessor.cold_stream
+                    if stream_on is None:
+                        from ..utils import spare_cores
+                        stream_on = spare_cores() > 1
+                    if stream_on:
+                        from ..copr.stream_build import ColdStreamBuilder
+                        self.cold_stream = ColdStreamBuilder(
+                            resolver,
+                            max_bytes=self.config.coprocessor
+                            .cold_stream_max_mb << 20)
+                        self.raft_store.coprocessor_host.register(
+                            self.cold_stream)
+                        self.copr_cache.stream_source = self.cold_stream
+        coal = self.endpoint.coalescer
+        if coal is None and diff.get("coalesce_window_ms", 0):
+            # started with coalescing disabled (window 0: no coalescer):
+            # an online 0→N enable builds and wires it now
+            from .coalescer import RequestCoalescer
+            coal = RequestCoalescer(
+                self.device_runner,
+                window_ms=float(diff["coalesce_window_ms"]),
+                max_group=diff.get(
+                    "coalesce_max_group",
+                    self.config.coprocessor.coalesce_max_group))
+            coal.bind(self.endpoint)
+            self.endpoint.coalescer = coal
+        elif coal is not None and ("coalesce_window_ms" in diff or
+                                   "coalesce_max_group" in diff):
+            coal.configure(
+                window_ms=diff.get("coalesce_window_ms"),
+                max_group=diff.get("coalesce_max_group"))
 
     # ---------------------------------------------------------- lifecycle
 
@@ -267,12 +601,15 @@ class Node:
         self.read_pool.shutdown()
         self.endpoint.close()
         self.device_runner.close()
+        # the transport's channels hold real sockets
+        self.transport.close()
 
     def _drive_loop(self) -> None:
         last_tick = time.monotonic()
         last_hb = 0.0
         ticks = 0
         while not self._stop.is_set():
+            did = 0
             with self.lock:
                 now = time.monotonic()
                 if now - last_tick >= self._tick_interval:
@@ -300,6 +637,7 @@ class Node:
                                if p.is_leader()]
                 else:
                     leaders = None
+            self.transport.flush()
             if leaders is not None:
                 try:
                     for region, leader in leaders:
@@ -328,6 +666,17 @@ class Node:
                 self.raft_store.drive()
 
     # ---------------------------------------------------------- hooks
+
+    def on_raft_message(self, region_id, to_peer, from_peer, msg) -> None:
+        with self.lock:
+            self.raft_store.on_raft_message(region_id, to_peer, from_peer,
+                                            msg)
+            self._wake.notify_all()
+
+    def _report_region(self, store_id: int, region: Region) -> None:
+        peer = self.raft_store.peers.get(region.id)
+        if peer is not None and peer.is_leader():
+            self.pd.region_heartbeat(region, Peer(peer.meta.id, store_id))
 
     def _copr_snapshot(self, req):
         """Coprocessor feed: MVCC over a region snapshot routed by the
@@ -399,14 +748,15 @@ class Node:
             return self.raft_store.region_peer(region_id).node.applied
 
     def merge_region(self, source_id: int, target_id: int) -> Region:
-        """Coordinated region merge (this node must lead BOTH regions):
-        PrepareMerge on the source, wait until every source peer applied
-        it, then CommitMerge on the target — the PD-scheduler protocol of
-        ``testing.cluster.Cluster.merge_region``.  Every source peer must
-        be on this node: the apply index is read from the local store
-        (peers on other stores need the gRPC transport).  A failure after
-        the prepare rolls the source back."""
+        """Coordinated region merge over the network (this node must
+        lead BOTH regions): PrepareMerge on the source, poll every
+        source-peer store's apply index over gRPC (``RegionApplied``)
+        until the prepare is everywhere, then CommitMerge on the target
+        — the PD-scheduler protocol of ``testing.cluster.Cluster
+        .merge_region`` lifted onto real RPC.  A failure after the
+        prepare rolls the source back."""
         from ..raftstore.peer_storage import encode_region
+        from .client import StoreClient
         with self.lock:
             src = self.raft_store.region_peer(source_id)
             tgt = self.raft_store.region_peer(target_id)
@@ -419,9 +769,6 @@ class Node:
             if sorted(p.store_id for p in sr.peers) != \
                     sorted(p.store_id for p in tr.peers):
                 raise ValueError("merge requires colocated replicas")
-            if any(p.store_id != self.store_id for p in sr.peers):
-                raise ValueError("merge: a source peer on another store "
-                                 "needs the gRPC transport")
             if not ((sr.end_key and sr.end_key == tr.start_key) or
                     (tr.end_key and tr.end_key == sr.start_key)):
                 raise ValueError("merge requires adjacent regions")
@@ -432,8 +779,32 @@ class Node:
         prepare_index = res["prepare_index"]
         source_region = res["region"]
         try:
-            self._wait_driver(
-                lambda: self.region_applied(source_id) >= prepare_index)
+            deadline = time.monotonic() + 10.0
+            pending = {p.store_id for p in source_region.peers
+                       if p.store_id != self.store_id}
+            clients: dict = {}
+            try:
+                while pending:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"merge: stores {pending} lag the prepare")
+                    for sid in list(pending):
+                        try:
+                            c = clients.get(sid)
+                            if c is None:
+                                c = clients[sid] = StoreClient(
+                                    self.pd.get_store(sid).address)
+                            r = c.call("RegionApplied",
+                                       {"region_id": source_id})
+                            if r["applied"] >= prepare_index:
+                                pending.discard(sid)
+                        except Exception:   # noqa: BLE001 — poll again
+                            pass
+                    if pending:
+                        time.sleep(0.02)
+            finally:
+                for c in clients.values():
+                    c.close()
             with self.lock:
                 box = self._propose_and_wait(tgt, RaftCmd(
                     target_id, tgt.region.epoch, admin=AdminCmd(
@@ -457,6 +828,50 @@ class Node:
                 region_id, peer.region.epoch, admin=AdminCmd(
                     "rollback_merge", merge_index=peer.merging or 0)))
         self._wait_result(box)
+
+    def change_peer(self, region_id: int, change_type: str,
+                    peer_meta: Peer) -> None:
+        """Add (``add``, ``add_learner``) or remove (``remove``) one peer
+        of the region this node leads."""
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            box = self._propose_and_wait(peer, RaftCmd(
+                region_id, peer.region.epoch,
+                admin=AdminCmd("change_peer", change_type=change_type,
+                               peer=peer_meta)))
+        self._wait_result(box)
+
+    def change_peer_v2(self, region_id: int, changes) -> None:
+        """Atomic multi-peer change via joint consensus; ``changes`` =
+        [(type, Peer)] (raftstore ChangePeerV2)."""
+        from ..raftstore.cmd import encode_change_peer_v2
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            box = self._propose_and_wait(peer, RaftCmd(
+                region_id, peer.region.epoch, admin=AdminCmd(
+                    "change_peer_v2",
+                    extra=encode_change_peer_v2(changes))))
+        self._wait_result(box)
+
+    def transfer_leader(self, region_id: int, to_peer_id: int) -> None:
+        """Ask the region's leader here to hand leadership to the peer
+        ``to_peer_id`` (returns at once; the caller polls the leader)."""
+        with self.lock:
+            peer = self.raft_store.region_peer(region_id)
+            peer.node.transfer_leader(to_peer_id)
+
+    def status(self) -> dict:
+        with self.lock:
+            return {
+                "store_id": self.store_id,
+                "addr": self.addr,
+                "regions": [
+                    {"region": wire.enc_region(p.region),
+                     "leader": p.is_leader(),
+                     "term": p.node.term,
+                     "applied": p.node.applied}
+                    for p in self.raft_store.peers.values()],
+            }
 
     # ---------------------------------------------------------- ingest
 

@@ -171,6 +171,24 @@ class ReadPool:
                 if self._pending == 0:
                     self._idle.notify_all()
 
+    def set_concurrency(self, n: int) -> None:
+        """The online ``readpool.concurrency``: a raise frees slots at
+        once; a cut takes slots back as running reads release them (a
+        daemon thread absorbs them)."""
+        if n < 1:
+            raise ValueError("readpool concurrency must be >= 1")
+        with self._mu:
+            delta = n - self._max_concurrency
+            self._max_concurrency = n
+        for _ in range(max(0, delta)):
+            self._slots.release()
+        if delta < 0:
+            def absorb(k=-delta):
+                for _ in range(k):
+                    self._slots.acquire()
+            threading.Thread(target=absorb, daemon=True,
+                             name="read-pool-shrink").start()
+
     def shutdown(self, timeout: float = 5.0) -> bool:
         """Stop admitting and wait for in-flight reads to drain (node
         stop(): restarted-in-process nodes must not leave reads running

@@ -1,4 +1,4 @@
-"""The Tikv service handlers, in process.
+"""The Tikv service handlers.
 
 A trimmed copy of the JAX package's ``server/service.py``: ``KvService``
 with ``handle`` (dict requests, reference :84), ``handle_raw`` on its
@@ -7,21 +7,27 @@ no fast path), ``_dispatch_rpc`` with deadline admission and the read
 pool (:337), the transactional methods (``KvGet`` … ``KvTxnHeartBeat``,
 :541-655), the raw methods, ``Coprocessor`` (:716-782: DAG, plan IR,
 ANALYZE tp 104, CHECKSUM tp 105, paging and ``force_backend``), the
-bulk-load import surface (``ImportUpload``, ``ImportIngest``,
-``ImportSwitchMode``, :1094-1138), and the region admin RPCs a store runs
-alone (``SplitRegion``, ``MergeRegion``, ``RollbackMerge``,
-``RegionApplied``, :1026-1056).
+server-streamed coprocessor pages (``copr_stream``, :864-906: one
+snapshot a stream) and the ``batch_commands`` mux (:908-975), raft
+ingress (``SnapshotChunk``, ``Raft``, ``BatchRaft``, :977-1024), the
+region admin RPCs (``SplitRegion``, ``ChangePeer``, ``ChangePeerV2``,
+``TransferLeader``, ``RegionApplied``, ``MergeRegion``,
+``RollbackMerge``, ``Status``, :1026-1059), and the bulk-load import
+surface (``ImportUpload``, ``ImportIngest``, ``ImportSwitchMode``,
+:1094-1138).  ``paused`` is the service-event channel's PAUSE_GRPC.
 
-Not here: the gRPC binding, the compiled fast path, causal tracing (a
-read response carries the port tracker's phases and labels as its
-``time_detail``), RU metering and resource groups, ``Detect`` and
-``KvGC``, ``ChangePeer``, ``ChangePeerV2`` and ``TransferLeader`` (they
-need the gRPC transport), the CDC, backup and coprocessor streams, and the
-debug service.
+Refused by name (``_REFUSED``: an ``unimplemented`` error naming what
+the method waits for): ``KvGC``, ``Detect``, ``CheckLeader`` and the
+debug service's methods; the ``Cdc`` and ``Backup`` streams likewise
+(``refused_stream``).  Not here either: the compiled fast path, causal
+tracing (a read response carries the port tracker's phases and labels as
+its ``time_detail``), RU metering and resource groups.
 
 Reference: src/server/service/kv.rs — the ``Tikv`` service's unary KV
-RPCs (:251-410) and ``coprocessor`` (:493).  Handlers are
-transport-agnostic callables dict → dict.
+RPCs (:251-410), ``coprocessor`` (:493), ``coprocessor_stream`` (:632),
+raft ingress (:684, :737) and ``batch_commands`` (:921).  Handlers are
+transport-agnostic callables dict → dict; ``server.py`` binds them to
+gRPC methods.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from __future__ import annotations
 import threading
 from typing import Callable
 
-from ..copr.endpoint import CopRequest, Endpoint, REQ_TYPE_DAG
+from ..copr.endpoint import CopRequest, CopResponse, Endpoint, REQ_TYPE_DAG
 from ..storage import Storage
 from ..storage.txn import commands as cmds
 from ..storage.txn.actions import Mutation
@@ -46,6 +52,25 @@ _READ_METHODS = {
     "Coprocessor": "normal",
 }
 
+# methods of the reference's service the port refuses, by name → what
+# each waits for
+_REFUSED = {
+    "KvGC": "GC (storage/txn/gc.py)",
+    "Detect": "the lock manager's deadlock detector",
+    "CheckLeader": "resolved-ts and stale reads",
+    "Cdc": "CDC (cdc/)",
+    "Backup": "backup (backup.py)",
+    **{m: "the debug service (server/debug.py)" for m in (
+        "DebugGet", "DebugRegionInfo", "DebugRegionSize",
+        "DebugScanMvcc", "DebugRaftLog", "DebugRecoverRegion",
+        "DebugCompact")},
+}
+
+
+def refused(method: str) -> dict:
+    return {"kind": "unimplemented", "method": method,
+            "waits_for": _REFUSED[method]}
+
 
 class KvService:
     """All RPC handlers over one node's Storage + raftstore."""
@@ -55,10 +80,23 @@ class KvService:
         self.storage: Storage = node.storage
         self.endpoint: Endpoint = node.endpoint
         self.read_pool = node.read_pool
+        # partially-received chunked snapshots: key -> {seq: bytes};
+        # assembled payloads: key -> bytes (src/server/snap.rs recv task)
+        self._snap_parts: dict = {}
+        self._snap_ready: dict = {}
+        self._snap_lock = threading.Lock()
+        # raft ingress counts: BatchRaft calls and SnapshotChunk calls
+        # taken, raft messages stepped, snapshots dropped incomplete
+        self.raft_batches = 0
+        self.snap_chunks = 0
+        self.raft_msgs = 0
+        self.snap_incomplete = 0
         # staged bulk-load SSTs by uuid (src/import/sst_service.rs)
         self._import_lock = threading.Lock()
         self._import_parts: dict = {}
         self._import_staged: dict = {}
+        # ServiceEvent PAUSE_GRPC state (components/service)
+        self.paused = False
 
     # ---------------------------------------------------------- helpers
 
@@ -69,6 +107,13 @@ class KvService:
             return {"error": wire.enc_error(e)}
 
     def handle(self, method: str, req: dict) -> dict:
+        if self.paused:
+            # ServiceEvent.PAUSE_GRPC (components/service): reject
+            # instead of queueing — clients back off and retry
+            return {"error": {"kind": "server_is_busy",
+                              "reason": "service paused"}}
+        if method in _REFUSED:
+            return {"error": refused(method)}
         fn = getattr(self, method, None)
         if fn is None or method.startswith("_") or \
                 not method[:1].isupper():
@@ -346,15 +391,187 @@ class KvService:
             return self._enc_cop_resp(d.wait())
         return {"__deferred": d}
 
+    def copr_stream_rpc(self, req: dict, ctx=None):
+        yield from self.copr_stream(req)
+
+    def copr_stream(self, req: dict):
+        """Server-streamed coprocessor pages (service/kv.rs:632
+        coprocessor_stream).  One runner instance spans the stream, so
+        every page reads the SAME pinned snapshot — unlike offset-based
+        unary paging, concurrent writes cannot shift page boundaries.
+        The pages are the host pipeline's (``max_rows``)."""
+        import time as _time
+
+        from ..executors.runner import BatchExecutorsRunner
+        try:
+            dag = wire.dec_dag(req["dag"])
+            page = req.get("paging_size", 0) or \
+                self.node.config.coprocessor.response_page_rows
+            creq = CopRequest(REQ_TYPE_DAG, dag)
+            storage = self.endpoint.snapshot_for(creq)
+            runner = BatchExecutorsRunner(dag, storage)
+            while True:
+                t0 = _time.perf_counter_ns()
+                result = runner.handle_request(max_rows=page)
+                yield self._enc_cop_resp(CopResponse(
+                    result, _time.perf_counter_ns() - t0, "host"))
+                if result.is_drained:
+                    return
+        except Exception as e:      # noqa: BLE001 — errors ride the wire
+            yield {"error": wire.enc_error(e)}
+
+    def refused_stream(self, method: str):
+        """A stream of the reference's service the port refuses: one
+        message carrying the error."""
+        def stream(req: dict, ctx=None):
+            yield {"error": refused(method)}
+        return stream
+
+    def batch_commands(self, request_iterator):
+        """Bidirectional mux (service/kv.rs:921): inbound messages carry
+        (request_id, method, req) triples.  Each command dispatches on a
+        thread of its own and responses stream back AS THEY COMPLETE — a
+        parked command (pessimistic-lock wait) must not head-of-line
+        block the very commit that would release it."""
+        import queue as _q
+
+        done: "_q.Queue" = _q.Queue()
+        sentinel = object()
+        outstanding = [0]
+        drained = threading.Event()
+        mu = threading.Lock()
+
+        def run_one(ent):
+            try:
+                resp = self.handle(ent["method"], ent.get("req") or {})
+                done.put({"request_id": ent["request_id"],
+                          "response": resp})
+            finally:
+                with mu:
+                    outstanding[0] -= 1
+                    last = outstanding[0] == 0 and drained.is_set()
+                if last:
+                    done.put(sentinel)
+
+        def feeder():
+            # one thread per in-flight command, NOT a bounded pool: N
+            # parked pessimistic-lock waits must never occupy every
+            # worker and queue the releasing commit behind themselves
+            try:
+                for batch in request_iterator:
+                    for ent in batch.get("requests", ()):
+                        with mu:
+                            outstanding[0] += 1
+                        threading.Thread(target=run_one, args=(ent,),
+                                         daemon=True,
+                                         name="mux-command").start()
+            except Exception:   # noqa: BLE001 — the client went away
+                pass
+            finally:
+                with mu:
+                    drained.set()
+                    idle = outstanding[0] == 0
+                if idle:
+                    done.put(sentinel)
+
+        threading.Thread(target=feeder, daemon=True,
+                         name="mux-feeder").start()
+        while True:
+            item = done.get()
+            if item is sentinel:
+                return
+            out = [item]
+            while True:     # opportunistic batching of ready responses
+                try:
+                    nxt = done.get_nowait()
+                except _q.Empty:
+                    break
+                if nxt is sentinel:
+                    yield {"responses": out}
+                    return
+                out.append(nxt)
+            yield {"responses": out}
+
+    # ---------------------------------------------------------- raft
+
+    # bound on buffered in-flight snapshots: an unclaimed payload (the
+    # raft batch carrying its claim failed; the leader re-sends at a
+    # NEW index/key) must not leak for the process lifetime
+    _SNAP_BUF_MAX = 8
+
+    def SnapshotChunk(self, req: dict) -> dict:
+        """One chunk of a large region snapshot (src/server/snap.rs —
+        the dedicated snapshot stream; here ordered unary chunks).
+        The final chunk assembles the payload, which the matching raft
+        message (carrying only meta + the key) then claims."""
+        key = req["key"]
+        with self._snap_lock:
+            self.snap_chunks += 1
+            parts = self._snap_parts.setdefault(key, {})
+            parts[req["seq"]] = req["data"]
+            if len(parts) == req["total"]:
+                self._snap_ready[key] = b"".join(
+                    parts[i] for i in range(req["total"]))
+                del self._snap_parts[key]
+            # evict oldest unclaimed buffers (dict = insertion order)
+            for store in (self._snap_parts, self._snap_ready):
+                while len(store) > self._SNAP_BUF_MAX:
+                    store.pop(next(iter(store)))
+        return {}
+
+    def Raft(self, req: dict) -> dict:
+        msg = req["msg"]
+        snap = msg.get("snap")
+        if snap is not None and "ext_key" in snap:
+            with self._snap_lock:
+                data = self._snap_ready.pop(snap["ext_key"], None)
+                if data is None:
+                    # chunks lost/incomplete: drop — raft re-sends the
+                    # snapshot (snap.rs treats a broken stream the same)
+                    self.snap_incomplete += 1
+                    return {}
+            snap = dict(snap)
+            snap.pop("ext_key")
+            snap["d"] = data
+            msg = dict(msg)
+            msg["snap"] = snap
+        self.node.on_raft_message(
+            req["region_id"], wire.dec_peer(req["to_peer"]),
+            wire.dec_peer(req["from_peer"]),
+            wire.dec_raft_msg(msg))
+        self.raft_msgs += 1
+        return {}
+
+    def BatchRaft(self, req: dict) -> dict:
+        self.raft_batches += 1
+        for m in req["msgs"]:
+            self.Raft(m)
+        return {}
+
     # ---------------------------------------------------------- admin
-    #
-    # The region admin RPCs a store runs alone (service.py :1026-1056):
-    # ChangePeer, ChangePeerV2 and TransferLeader need the gRPC transport.
 
     def SplitRegion(self, req: dict) -> dict:
         right = self.node.split_region(req.get("region_id", 0),
                                        req["split_key"])
         return {"right": wire.enc_region(right)}
+
+    def ChangePeer(self, req: dict) -> dict:
+        self.node.change_peer(req["region_id"], req["change_type"],
+                              wire.dec_peer(req["peer"]))
+        return {}
+
+    def ChangePeerV2(self, req: dict) -> dict:
+        changes = [(c["type"], wire.dec_peer(c["peer"]))
+                   for c in req["changes"]]
+        self.node.change_peer_v2(req["region_id"], changes)
+        return {}
+
+    def TransferLeader(self, req: dict) -> dict:
+        self.node.transfer_leader(req["region_id"], req["to_peer_id"])
+        return {}
+
+    def Status(self, req: dict) -> dict:
+        return self.node.status()
 
     def RegionApplied(self, req: dict) -> dict:
         return {"applied": self.node.region_applied(req["region_id"])}

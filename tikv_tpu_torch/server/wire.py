@@ -2,10 +2,12 @@
 
 A trimmed copy of the JAX package's ``server/wire.py``: the msgpack body
 codec (``pack``, ``unpack``, ``pack_response``), the region and peer
-encoders, ``enc_error`` with the reference's error kinds and stable codes,
-and ``enc_rows``.  The DAG and plan codecs are the port's
-``copr/wire.py``, re-exported here.  The raft message codec rides the
-store-to-store transport, which a single in-process store has no use for.
+codecs, the raft message codec the store-to-store transport carries
+(``enc_raft_msg``/``dec_raft_msg``: entries in the raftstore's own binary
+form), ``enc_error`` with the reference's error kinds and stable codes,
+``RemoteError`` (a wire error dict surfaced at the client) and
+``enc_rows``.  The DAG and plan codecs are the port's ``copr/wire.py``,
+re-exported here.
 
 Reference: the kvproto/tipb protobufs; the schema mirrors kvproto field
 for field, with msgpack-encoded message bodies.
@@ -13,21 +15,26 @@ for field, with msgpack-encoded message bodies.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import msgpack
 
-from ..copr.wire import (  # noqa: F401 — the DAG and plan codecs
-    dec_dag,
-    dec_expr,
-    dec_field_type,
-    dec_plan,
-    enc_dag,
-    enc_expr,
-    enc_field_type,
-    enc_plan,
-)
-from ..raftstore.metapb import Peer, Region
+from ..raft.messages import Message, MsgType, Snapshot, SnapshotMetadata
+from ..raftstore.metapb import Peer, Region, RegionEpoch
+from ..raftstore.peer_storage import decode_entry, encode_entry
+
+# the DAG and plan codecs, loaded at their first use: a client that sends
+# no plan (``ctl``, the raft transport) never imports the expression layer
+_COPR_CODECS = ("dec_dag", "dec_expr", "dec_field_type", "dec_plan",
+                "enc_dag", "enc_expr", "enc_field_type", "enc_plan")
+
+
+def __getattr__(name: str):
+    if name in _COPR_CODECS:
+        from ..copr import wire as copr_wire
+        return getattr(copr_wire, name)
+    raise AttributeError(name)
+
 
 # the ExtType code of a DECIMAL datum (its ``format(d, "f")`` text), the
 # row codec's scheme
@@ -70,10 +77,52 @@ def enc_peer(p: Peer) -> dict:
     return {"id": p.id, "store_id": p.store_id, "learner": p.is_learner}
 
 
+def dec_peer(d: Optional[dict]) -> Optional[Peer]:
+    if d is None:
+        return None
+    return Peer(d["id"], d["store_id"], d.get("learner", False))
+
+
 def enc_region(r: Region) -> dict:
     return {"id": r.id, "start": r.start_key, "end": r.end_key,
             "conf_ver": r.epoch.conf_ver, "version": r.epoch.version,
             "peers": [enc_peer(p) for p in r.peers]}
+
+
+def dec_region(d: dict) -> Region:
+    return Region(d["id"], d["start"], d["end"],
+                  RegionEpoch(d["conf_ver"], d["version"]),
+                  tuple(dec_peer(p) for p in d["peers"]))
+
+
+# -- raft messages (eraftpb analog) --
+
+def enc_raft_msg(m: Message) -> dict:
+    out = {"t": m.msg_type.value, "to": m.to, "frm": m.frm,
+           "term": m.term, "lt": m.log_term, "i": m.index,
+           "c": m.commit, "rej": m.reject, "hint": m.reject_hint,
+           "ctx": m.ctx, "e": [encode_entry(e) for e in m.entries]}
+    if m.snapshot is not None:
+        meta = m.snapshot.metadata
+        out["snap"] = {"i": meta.index, "t": meta.term,
+                       "v": list(meta.voters), "l": list(meta.learners),
+                       "vo": list(meta.voters_outgoing),
+                       "d": m.snapshot.data}
+    return out
+
+
+def dec_raft_msg(d: dict) -> Message:
+    snap = None
+    if "snap" in d:
+        s = d["snap"]
+        snap = Snapshot(SnapshotMetadata(s["i"], s["t"], tuple(s["v"]),
+                                         tuple(s["l"]),
+                                         tuple(s.get("vo", ()))), s["d"])
+    return Message(MsgType(d["t"]), to=d["to"], frm=d["frm"],
+                   term=d["term"], log_term=d["lt"], index=d["i"],
+                   entries=tuple(decode_entry(e) for e in d["e"]),
+                   commit=d["c"], reject=d["rej"], reject_hint=d["hint"],
+                   ctx=d.get("ctx"), snapshot=snap)
 
 
 # -- errors (kvrpcpb errorpb analog: stable identities over the wire) --
@@ -139,6 +188,18 @@ def _enc_error_body(e: Exception) -> dict:
         return {"kind": "data_is_not_ready", "region_id": e.region_id,
                 "safe_ts": e.safe_ts, "read_ts": e.read_ts}
     return {"kind": "other", "message": str(e)}
+
+
+class RemoteError(Exception):
+    """Client-side surfacing of a wire error dict."""
+
+    def __init__(self, err: dict):
+        super().__init__(f"{err.get('kind')}: {err}")
+        self.err = err
+
+    @property
+    def kind(self) -> str:
+        return self.err.get("kind", "other")
 
 
 def enc_rows(rows) -> list:

@@ -1,9 +1,10 @@
 """Txn command scheduler — latch, snapshot, execute, flush.
 
-A copy of the JAX package's ``storage/txn/scheduler.py``, without the
-lock manager: ``lock_manager=None`` (the default here) parks no
-pessimistic waiter, so a conflicting pessimistic lock raises at once, as
-a request with no wait timeout does.  Reference: src/storage/txn/scheduler.rs — ``TxnScheduler``: every write
+A copy of the JAX package's ``storage/txn/scheduler.py``.  With
+``lock_manager=None`` (the default here; the node passes a
+``storage.lock_manager.LockManager``) no pessimistic waiter parks, so a
+conflicting pessimistic lock raises at once, as a request with no wait
+timeout does.  Reference: src/storage/txn/scheduler.rs — ``TxnScheduler``: every write
 command acquires latches on its keys (:396), takes an engine snapshot
 (:1174), runs ``process_write`` (:1252) buffering into MvccTxn, flushes
 through ``Engine::async_write``, then releases latches (:544) waking

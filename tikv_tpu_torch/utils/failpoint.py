@@ -20,7 +20,12 @@ migrated feed's plane flips one bit on arrival) and
 ``device::mesh_rebuild`` (the degraded submesh cannot be built); on the
 cold path ``apply::before_ingest`` (an SST ingest fails before its blob is
 read) and ``device::mvcc_resolve`` (the device rung of a cold build
-declines: the native rung serves).
+declines: the native rung serves); on the network
+``transport::grpc_drop`` (a raft message is dropped before it queues),
+``transport::before_batch_send`` (a raft batch's send fails: the
+connection backs off), ``client::before_retry`` and
+``backoff::before_sleep``.  ``list_cfg()`` reads what is armed (the
+status server's ``GET /fail_point``).
 
 A site costs one global read while nothing is armed.
 """
@@ -93,6 +98,15 @@ def remove(name: str) -> None:
     with _lock:
         if _registry is not None:
             _registry.pop(name, None)
+
+
+def list_cfg() -> dict:
+    """{armed site: [its actions' tasks]}."""
+    with _lock:
+        if not _registry:
+            return {}
+        return {name: [a.task for a in chain]
+                for name, chain in _registry.items()}
 
 
 def teardown() -> None:
