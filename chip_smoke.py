@@ -6426,12 +6426,15 @@ SRV_MAX_MB = 15 << 10
 def srv_call(svc, method: str, req: dict, raw: bool = True) -> tuple:
     """One request through ``KvService`` (packed bytes through
     ``handle_raw``, or the dict through ``handle``) → (response, ms on
-    the host clock); an error response raises."""
+    the host clock, a fast-path hit's packed answer unpacked within it);
+    an error response raises."""
     from tikv_tpu_torch.server import wire
     body = wire.pack(req) if raw else req
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     resp = svc.handle_raw(method, body) if raw else svc.handle(method, body)
+    if isinstance(resp, bytes):
+        resp = wire.unpack(resp)
     ms = (time.perf_counter() - t0) * 1e3
     assert isinstance(resp, dict) and not resp.get("error"), \
         (method, resp.get("error") if isinstance(resp, dict) else resp)
@@ -7512,23 +7515,31 @@ class Net:
                    self.peer(s, region_id).node.applied >= want
                    for s in self.servers)
 
-    def dag(self, plan: str, lo: int, hi: int):
+    def dag(self, plan: str, lo: int, hi: int, thr: int = 990, ts=None):
+        """``sel``: the rows of ``c1 > thr``; ``agg``: GROUP BY c0:
+        COUNT(*), SUM(c1); ``fagg``: the same GROUP BY ``WHERE c1 > thr``
+        — over handles [lo, hi), at ``ts`` (a fresh TSO by default)."""
         import dataclasses
 
         from tikv_tpu_torch.executors.ranges import KeyRange
         from tikv_tpu_torch.testing.dag import DagSelect
         s = DagSelect.from_table(self.table, ["id", "c0", "c1"])
-        d = s.where(s.col("c1") > 990) if plan == "sel" else s.aggregate(
-            [s.col("c0")], [("count_star", None), ("sum", s.col("c1"))])
+        if plan in ("sel", "fagg"):
+            s = s.where(s.col("c1") > thr)
+        if plan != "sel":
+            s = s.aggregate([s.col("c0")], [("count_star", None),
+                                            ("sum", s.col("c1"))])
         return dataclasses.replace(
-            d.build(self.client.tso()),
+            s.build(self.client.tso() if ts is None else ts),
             ranges=(KeyRange(self.key(lo), self.key(hi)),))
 
-    def check(self, plan: str, lo: int, hi: int, rows) -> None:
+    def check(self, plan: str, lo: int, hi: int, rows,
+              thr: int = 990) -> None:
         """``rows`` against the model over handles [lo, hi)."""
         m = (self.model.h >= lo) & (self.model.h < hi)
+        if plan in ("sel", "fagg"):
+            m &= self.model.c1 > thr
         if plan == "sel":
-            m &= self.model.c1 > 990
             got = np.asarray(rows, np.int64).reshape(-1, 3)
             assert np.array_equal(got, np.stack(
                 [self.model.h[m], self.model.c0[m], self.model.c1[m]], 1)), \
@@ -7604,11 +7615,300 @@ class Net:
             time.sleep(0.005)
         return (time.perf_counter() - t0) * 1e3
 
+    def fast_stats(self) -> dict:
+        """The three stores' fast-path counts, summed (reasons merged)."""
+        out: dict = {"learned": 0, "hit": 0, "miss": 0, "bypass": 0,
+                     "fallback": 0, "invalidate": 0, "reasons": {}}
+        for s in self.servers:
+            st = s.node.fastpath.stats()
+            for k in out:
+                if k != "reasons":
+                    out[k] += st[k]
+            for k, v in st["reasons"].items():
+                out["reasons"][k] = out["reasons"].get(k, 0) + v
+        return out
+
+    def set_fastpath(self, classes: int) -> None:
+        """``coprocessor.fastpath_classes`` on every store, through the
+        online config (each applied diff also bumps ``config_gen``)."""
+        for s in self.servers:
+            s.node.config_controller.update(
+                {"coprocessor.fastpath_classes": classes})
+
+    def followers(self, region_id: int) -> list:
+        lead = self.leader_store(region_id)
+        return [sid for sid in self.sids if sid != lead]
+
+    def wait_resolved(self, ts: int, want: dict,
+                      timeout: float = 30.0) -> float:
+        """Wait until each store of ``want`` ({region id: [store ids]})
+        reports, through ``Status``, a resolved_ts at or above ``ts`` for
+        the region → s waited."""
+        t0 = time.perf_counter()
+        while True:
+            behind = []
+            for rid, sids in want.items():
+                for sid in sids:
+                    regions = self.client.status(sid)["regions"]
+                    rts = next((r["resolved_ts"] for r in regions
+                                if r["region"]["id"] == rid), 0)
+                    if rts < ts:
+                        behind.append((rid, sid, rts))
+            if not behind:
+                return time.perf_counter() - t0
+            assert time.perf_counter() - t0 < timeout, \
+                f"net: resolved_ts behind {ts}: {behind}"
+            time.sleep(0.01)
+
+    def replica(self, plan: str, lo: int, hi: int, store_id: int,
+                ts: int) -> dict:
+        """One stale read of ``plan`` at ``ts`` from ``store_id``'s own
+        feed (``TxnClient.coprocessor_replica``) → ms on the host clock
+        and the labels; the answer against the model, from the card."""
+        dag = self.dag(plan, lo, hi, ts=ts)
+        t0 = time.perf_counter()
+        resp = self.client.coprocessor_replica(dag, store_id=store_id,
+                                               timeout=120)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert resp["backend"] == "device", (plan, store_id,
+                                             resp["backend"])
+        self.check(plan, lo, hi, resp["rows"])
+        return {"ms": ms, "labels": resp["time_detail"]["labels"]}
+
     def stop(self) -> None:
         self.client.close()
         for s in self.servers:
             s.stop()
         self.pd.stop()
+
+
+NET_THRESHOLDS = range(980, 996)    # 6b-ep's: 16 constants a shape
+NET_SLOW_LEADER_MS = 500            # the leader's slowed read (failpoint)
+
+
+def net_fast_path(cell: Net, regs: list) -> dict:
+    """Cell net's step 5a: the compiled request fast path.  On each
+    region, the GROUP BY c0: COUNT(*), SUM(c1) ``WHERE c1 > thr`` and the
+    rows of ``c1 > thr``, ``thr`` over 980..995, each through
+    ``TxnClient.coprocessor`` (the raw ``Coprocessor`` method: packed
+    bytes into ``KvService.handle_raw``) and against the model: a first
+    pass (each shape learns, the rest hit), the timed pass of hits, and
+    the same sequence with ``coprocessor.fastpath_classes`` 0 (the full
+    decode); the cache back on — the next request misses and learns; one
+    2PC UPDATE in region 1 — the next request falls back (``generation``)
+    with the write in its answer, the one after learns, the third hits."""
+    def ask(plan, lo, hi, thr):
+        dag = cell.dag(plan, lo, hi, thr)
+        t0 = time.perf_counter()
+        resp = cell.client.coprocessor(dag, timeout=120)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert resp["backend"] == "device", (plan, thr, resp["backend"])
+        cell.check(plan, lo, hi, resp["rows"], thr)
+        return ms, resp["time_detail"]["labels"].get("fastpath")
+
+    def sequence():
+        out = []
+        for _rid, lo, hi, _ in regs:
+            for plan in ("fagg", "sel"):
+                for thr in NET_THRESHOLDS:
+                    out.append((plan,) + ask(plan, lo, hi, thr))
+        return out
+
+    st0, c0 = cell.fast_stats(), counts()
+    first = sequence()
+    d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    # every (region, shape) learns on its first request at most; the
+    # rest hit, on hash_agg and sel_pred
+    per = len(NET_THRESHOLDS)
+    for i in range(0, len(first), per):
+        assert all(leg == "hit" for _p, _ms, leg in first[i + 1:i + per]), \
+            first[i:i + per]
+    assert d.get("hash_agg") and d.get("sel_pred"), d
+    # timed once every constant's plan has been seen (its memo warm), as
+    # the full decode's pass below sees them: each request a hit
+    fast = sequence()
+    assert all(leg == "hit" for _p, _ms, leg in fast), fast
+    st1 = cell.fast_stats()
+    cell.set_fastpath(0)
+    full = sequence()
+    assert all(leg is None for _p, _ms, leg in full), full
+    cell.set_fastpath(64)
+    rid, lo, hi, _ = regs[0]
+    st2 = cell.fast_stats()
+    _ms, leg = ask("sel", lo, hi, 985)
+    st3 = cell.fast_stats()
+    assert leg is None and st3["miss"] == st2["miss"] + 1 and \
+        st3["learned"] == st2["learned"] + 1, (st2, st3)
+    # one UPDATE of a row of region 1 into the selection
+    h = lo + int(np.argmax(cell.model.c1[lo:hi] <= 980))
+    write_ms = cell.update([h], [999])
+    legs = [ask("sel", lo, hi, thr) for thr in (985, 986, 987)]
+    st4 = cell.fast_stats()
+    assert [leg for _ms, leg in legs] == ["fallback", None, "hit"], legs
+    assert st4["reasons"].get("fallback:generation", 0) == \
+        st3["reasons"].get("fallback:generation", 0) + 1, st4
+    assert st4["learned"] == st3["learned"] + 1, (st3, st4)
+
+    def p50(rows, plan, hit):
+        return float(np.median([ms for p, ms, leg in rows
+                                if p == plan and (leg == "hit") == hit]))
+    out = {"hit_p50_ms": {p: p50(fast, p, True) for p in ("fagg", "sel")},
+           "full_decode_p50_ms": {p: p50(full, p, False)
+                                  for p in ("fagg", "sel")},
+           "first_pass_hit_p50_ms": {p: p50(first, p, True)
+                                     for p in ("fagg", "sel")},
+           "requests": 3 * len(fast) + 4, "launches": d,
+           "write_ms": write_ms,
+           "after_write_ms": [ms for ms, _leg in legs],
+           "stats": {k: cell.fast_stats()[k] - st0[k] for k in st0
+                     if k != "reasons"},
+           "reasons": {k: v - st0["reasons"].get(k, 0)
+                       for k, v in cell.fast_stats()["reasons"].items()
+                       if v - st0["reasons"].get(k, 0)},
+           "hits_before_off": st1["hit"] - st0["hit"]}
+    print(f"net fast path: hit p50 GROUP BY {out['hit_p50_ms']['fagg']:.3f}"
+          f" / selection {out['hit_p50_ms']['sel']:.3f} ms beside the full "
+          f"decode's {out['full_decode_p50_ms']['fagg']:.3f} / "
+          f"{out['full_decode_p50_ms']['sel']:.3f} ms (host clock, gRPC, "
+          f"{len(fast)} requests each; the first pass's hits, each "
+          f"constant's first request: "
+          f"{out['first_pass_hit_p50_ms']['fagg']:.3f} / "
+          f"{out['first_pass_hit_p50_ms']['sel']:.3f} ms); after the "
+          f"UPDATE: fallback "
+          f"{legs[0][0]:.1f}, learn {legs[1][0]:.1f}, hit {legs[2][0]:.1f} "
+          f"ms; stats {json.dumps(out['stats'])} reasons "
+          f"{json.dumps(out['reasons'])}; launches of the hits "
+          f"{json.dumps(d)}", flush=True)
+    return out
+
+
+def net_stale_reads(cell: Net, regs: list) -> dict:
+    """Cell net's step 5b: stale reads under resolved-ts.  The wait until
+    every follower reports (``Status``) a resolved_ts at or above a fresh
+    TSO; both plans on each region from each follower's own feed
+    (``TxnClient.coprocessor_replica``: each follower mints its feed,
+    ``mvcc_resolve``); a read above the watermark refused with
+    ``DataIsNotReady``; a hedged read (``TxnClient(hedge_reads=True)``,
+    the leader slowed by the ``read::before_leader_read`` failpoint) whose
+    follower refuses — above the watermark, then under
+    ``device::replica_stale`` — answered by the leader; one UPDATE, the
+    watermark past it, and a stale read that holds it from the
+    follower's patched feed (``patch_spans``, no mint); a hedged get,
+    the leader slowed, answered by the follower."""
+    from tikv_tpu_torch.codec.row import decode_row
+    from tikv_tpu_torch.server import RemoteError, TxnClient
+    from tikv_tpu_torch.storage.txn_types import compose_ts
+    from tikv_tpu_torch.utils import failpoint
+    follow = {rid: cell.followers(rid) for rid, *_ in regs}
+    ts = cell.client.tso()
+    wait_s = cell.wait_resolved(ts, follow)
+    c0 = counts()
+    routes0 = {sid: dict(cell.store[sid].node.device_runner.feed_routes)
+               for sid in cell.sids}
+    reads = {}
+    for rid, lo, hi, _ in regs:
+        for sid in follow[rid]:
+            for plan in ("agg", "sel"):
+                reads[f"{rid}/{sid}/{plan}"] = cell.replica(plan, lo, hi,
+                                                            sid, ts)
+    d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    n_feeds = sum(len(v) for v in follow.values())
+    # each follower mints its own feed of each region it follows
+    assert d.get("mvcc_resolve") == n_feeds and d.get("hash_agg") and \
+        d.get("sel_pred"), d
+    routes = {sid: {k: v - routes0[sid].get(k, 0) for k, v in
+                    cell.store[sid].node.device_runner.feed_routes.items()
+                    if v - routes0[sid].get(k, 0)} for sid in cell.sids}
+    for sid in set(s for v in follow.values() for s in v):
+        served = cell.store[sid].node.replica_serving_stats()
+        want = {rid for rid, sids in follow.items() if sid in sids}
+        assert want <= set(served["replica_regions"]), (sid, served)
+    # refusals, and the hedge's fall-through to the leader
+    rid, lo, hi, _ = regs[0]
+    future = compose_ts(int(time.time() * 1000) + 10_000, 0)
+    try:
+        cell.client.coprocessor_replica(cell.dag("sel", lo, hi, ts=future),
+                                        store_id=follow[rid][0])
+        raise AssertionError("net: a stale read above the watermark served")
+    except RemoteError as e:
+        refusal = dict(e.err)
+    assert refusal["kind"] == "data_is_not_ready" and \
+        refusal["region_id"] == rid and refusal["read_ts"] == future and \
+        0 < refusal["safe_ts"] < future, refusal
+    hc = TxnClient(cell.pd_addr, hedge_reads=True)
+    hedged = {}
+    try:
+        for case, read_ts, arm in (("above", future, None),
+                                   ("replica_stale", ts,
+                                    "device::replica_stale")):
+            failpoint.cfg("read::before_leader_read",
+                          f"1*sleep({NET_SLOW_LEADER_MS})")
+            if arm is not None:
+                failpoint.cfg(arm, "1*return")
+            t0 = time.perf_counter()
+            r = hc.coprocessor(cell.dag("sel", lo, hi, ts=read_ts),
+                               timeout=120)
+            hedged[case] = (time.perf_counter() - t0) * 1e3
+            failpoint.teardown()
+            cell.check("sel", lo, hi, r["rows"])
+        assert hc.hedges == {"copr_fired": 2, "copr_stale_refused": 2,
+                             "copr_leader_won": 2}, hc.hedges
+    finally:
+        failpoint.teardown()
+        hc.close()
+    # a write reaches the followers' feeds as a patch
+    h = lo + int(np.argmax(cell.model.c1[lo:hi] <= 990))
+    cell.update([h], [995])
+    ts2 = cell.client.tso()
+    cell.wait_resolved(ts2, {rid: follow[rid]})
+    c0 = counts()
+    routes0 = {sid: dict(cell.store[sid].node.device_runner.feed_routes)
+               for sid in follow[rid]}
+    patched = {sid: cell.replica("sel", lo, hi, sid, ts2)
+               for sid in follow[rid]}
+    dw = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+    assert dw.get("patch_spans") and "mvcc_resolve" not in dw, dw
+    for sid, r in patched.items():
+        # the runner's own labels stay on the coalescer's thread: its
+        # feed routes say how the feed was brought forward
+        got = {k: v - routes0[sid].get(k, 0) for k, v in
+               cell.store[sid].node.device_runner.feed_routes.items()
+               if v - routes0[sid].get(k, 0)}
+        assert r["labels"].get("copr_cache") == "delta" and \
+            got == {"patch": 1}, (sid, r, got)
+    # a hedged get, the leader slowed: the follower's stale read answers
+    h2 = lo + 7
+    ts3 = cell.client.tso()
+    cell.wait_resolved(ts3, {rid: follow[rid]})
+    hc = TxnClient(cell.pd_addr, hedge_reads=True)
+    try:
+        failpoint.cfg("read::before_leader_read",
+                      f"1*sleep({2 * NET_SLOW_LEADER_MS})")
+        value = hc.get(cell.key(h2), version=ts3)
+    finally:
+        failpoint.teardown()
+        hc.close()
+    assert decode_row(value) == {2: int(cell.model.c0[h2]),
+                                 3: int(cell.model.c1[h2])}, value
+    assert hc.hedges == {"fired": 1, "follower_won": 1}, hc.hedges
+    out = {"wait_s": wait_s, "reads": reads, "launches": d,
+           "feed_routes": routes, "refusal": refusal,
+           "hedged_ms": hedged, "patched": patched, "patch_launches": dw,
+           "replica_serving": {sid: cell.store[sid].node
+                               .replica_serving_stats()
+                               for sid in cell.sids}}
+    cold = [r["ms"] for k, r in reads.items()]
+    print(f"net stale reads: watermark wait {wait_s:.3f} s; follower reads "
+          + " ".join(f"{k}: {r['ms']:.1f}" for k, r in reads.items())
+          + f" ms (first of each store and region cold, max "
+          f"{max(cold):.1f}); launches {json.dumps(d)}, feed routes "
+          f"{json.dumps(routes)}; refusal {json.dumps(refusal)}; hedged "
+          f"fall-through ms {json.dumps(hedged)}; after a write the "
+          f"followers' reads " + " ".join(
+              f"{sid}: {r['ms']:.1f} ms" for sid, r in patched.items())
+          + f" (launches {json.dumps(dw)}); the hedged get answered by a "
+          f"follower", flush=True)
+    return out
 
 
 def run_net(srv: dict) -> dict:
@@ -7637,15 +7937,22 @@ def run_net(srv: dict) -> dict:
     5. write: one 2PC transaction of 6c-delta's w2 shape (4,096 UPDATEs in
        4 runs of 1,024 at 1/8, 3/8, 5/8 and 7/8 of the keys) through
        ``TxnClient.txn_write``; both plans on every region again;
+    5a. the compiled request fast path (``net_fast_path``);
+    5b. stale reads under resolved-ts on the followers' own feeds, the
+       refusals and the hedged reads (``net_stale_reads``);
     6. region moves over RPC: ``TxnClient.split`` at an odd handle (90% of
-       the right region), both plans on each child; the middle region's
-       leader to store 2 (``TransferLeader``) and back, both plans after
-       each; ``TxnClient.merge`` of the right child into the middle one,
-       the merged region's read;
+       the right region), both plans on each child; store 2's stale reads
+       of the middle child (its sliced replica feed), the middle region's
+       leader to store 2 (``TransferLeader``: the replica feed promoted by
+       ``plane_digest``, no mint, no upload, no rebuild) and back, both
+       plans after each; ``TxnClient.merge`` of the right child into the
+       middle one, the merged region's read;
     7. ``stop``: every server and PD stops, and no thread is left.
 
     Printed: the load's s by part, cold ms and warm p50 per plan through
-    gRPC beside srv's in process, the write's and each move's ms, the
+    gRPC beside srv's in process, the write's and each move's ms, the fast
+    path's hit p50 beside the full decode's and its counts, the follower
+    reads' ms, the promotion's ms and store 2's first reads after it, the
     launches and ``feed_routes``, the ``BatchRaft`` and ``SnapshotChunk``
     calls, RSS.  Counts from 0 before the path, read after."""
     import threading
@@ -7814,6 +8121,14 @@ def run_net(srv: dict) -> dict:
                   for r, a in after.items()) +
               f"; launches {json.dumps(d)}", flush=True)
 
+        # -- 5a. the fast path -----------------------------------------
+        steps["fast_path"] = net_fast_path(cell, regs)
+        out["fast_path"] = {k: steps["fast_path"][k] for k in
+                            ("hit_p50_ms", "full_decode_p50_ms")}
+
+        # -- 5b. stale reads under resolved-ts ---------------------------
+        steps["stale_reads"] = net_stale_reads(cell, regs)
+
         # -- 6. region moves over RPC ---------------------------------
         mid_id, lo, hi, _ = regs[-1]
         at = lo + int((hi - lo) * 0.9)
@@ -7831,13 +8146,39 @@ def run_net(srv: dict) -> dict:
         steps["split"] = {"ms": split_ms, "at": at, "regions": regs,
                           "children": kids, "launches": d}
         mlo, mhi = next((l, h) for r, l, h, _ in regs if r == mid_id)
+        # store 2 follows the middle child: a stale read there takes the
+        # feeds its split sliced (a replica feed the transfer promotes)
+        s2 = cell.sids[1]
+        node2 = cell.store[s2].node
+        ts = cell.client.tso()
+        cell.wait_resolved(ts, {mid_id: [s2]})
+        replica2 = {p: cell.replica(p, mlo, mhi, s2, ts)
+                    for p in ("agg", "sel")}
+        sup2 = node2.device_supervisor
+        promos0, rebuilds0 = sup2.promotions, sup2.promotion_rebuilds
+        routes0 = dict(node2.device_runner.feed_routes)
         c0 = counts()
-        away_ms = cell.transfer(mid_id, cell.sids[1])
+        away_ms = cell.transfer(mid_id, s2)
         at2 = cell.both_plans(mlo, mhi, warm=0)
+        d2 = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
+        routes2 = {k: v - routes0.get(k, 0) for k, v in
+                   node2.device_runner.feed_routes.items()
+                   if v - routes0.get(k, 0)}
+        promotion = dict(sup2.last_promotion)
+        assert sup2.promotions > promos0 and \
+            sup2.promotion_rebuilds == rebuilds0 == 0, sup2.stats()
+        assert d2.get("plane_digest") and "mvcc_resolve" not in d2 and \
+            promotion.get("planes"), (d2, promotion)
+        assert not routes2.get("upload") and \
+            not routes2.get("device_resolve"), routes2
         back_ms = cell.transfer(mid_id, cell.sids[0])
         back = cell.both_plans(mlo, mhi, warm=0)
         d = {k: v - c0[k] for k, v in counts().items() if v - c0[k]}
-        steps["round_trip"] = {"to_store2_ms": away_ms, "at_store2": at2,
+        steps["round_trip"] = {"replica_at_store2": replica2,
+                               "to_store2_ms": away_ms, "at_store2": at2,
+                               "promotion": promotion,
+                               "store2_launches": d2,
+                               "store2_feed_routes": routes2,
                                "back_ms": back_ms, "back": back,
                                "launches": d}
         # the merge runs at a store that leads both regions
@@ -7862,8 +8203,14 @@ def run_net(srv: dict) -> dict:
         print(f"net moves: split {split_ms:.1f} ms at {at} (children cold "
               + " ".join(f"{r}: {k['agg'][0]['ms']:.1f} / "
                          f"{k['sel'][0]['ms']:.1f}" for r, k in kids.items())
-              + f" ms), leader to store 2 {away_ms:.1f} ms (read "
-              f"{at2['agg'][0]['ms']:.1f} / {at2['sel'][0]['ms']:.1f} ms), "
+              + f" ms), store 2's replica reads "
+              f"{replica2['agg']['ms']:.1f} / {replica2['sel']['ms']:.1f} ms, "
+              f"leader to "
+              f"store 2 {away_ms:.1f} ms (promotion {promotion.get('ms', 0):.2f}"
+              f" ms, {promotion.get('planes')} planes; read "
+              f"{at2['agg'][0]['ms']:.1f} / {at2['sel'][0]['ms']:.1f} ms, "
+              f"launches {json.dumps(d2)}, feed routes "
+              f"{json.dumps(routes2)}), "
               f"back {back_ms:.1f} ms (read {back['agg'][0]['ms']:.1f} / "
               f"{back['sel'][0]['ms']:.1f} ms), merge {merge_ms:.1f} ms "
               f"(read {merged_read['agg'][0]['ms']:.1f} / "

@@ -385,8 +385,9 @@ def test_store_status(pair):
             sorted(st["regions"][0])
     ref, port = both(pair, run)
     assert port[:2] == ref[:2] == (True, True)
-    # the port's status has no resolved-ts (it waits for resolved-ts)
-    assert port[2] == sorted(set(ref[2]) - {"resolved_ts"})
+    # each region's entry carries the reference's fields, resolved_ts
+    # among them
+    assert port[2] == ref[2]
 
 
 def test_region_meta_consistent_across_stores(pair):

@@ -800,3 +800,76 @@ def test_cli_serving_loads_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "cli served 4"
+
+
+# the store's read legs: the compiled fast path and resolved-ts
+READ_LEG_MODULES = ["tikv_tpu_torch/server/fastpath.py",
+                    "tikv_tpu_torch/cdc/__init__.py",
+                    "tikv_tpu_torch/cdc/resolved_ts.py"]
+
+
+def test_read_leg_modules_are_scanned():
+    assert set(READ_LEG_MODULES) <= set(SOURCES)
+
+
+_SERVE_READ_LEGS = """
+import sys
+import tikv_tpu_torch.cdc
+import tikv_tpu_torch.server.fastpath
+from tikv_tpu_torch.codec.keys import table_record_key
+from tikv_tpu_torch.codec.row import encode_row
+from tikv_tpu_torch.copr.wire import enc_dag
+from tikv_tpu_torch.device import DeviceRunner
+from tikv_tpu_torch.pd.client import MockPd
+from tikv_tpu_torch.server import wire
+from tikv_tpu_torch.server.node import Node
+from tikv_tpu_torch.server.service import KvService
+from tikv_tpu_torch.testing import configs
+from tikv_tpu_torch.testing.dag import DagSelect
+pd = MockPd()
+node = Node("iso:0", pd, device_row_threshold=64,
+            device_runner=DeviceRunner(device="cpu"))
+node.start()
+try:
+    svc = KvService(node)
+    table = configs.bench_table()
+    muts = [{"op": "put", "key": table_record_key(table.table_id, h),
+             "value": encode_row({2: h % 4, 3: h})} for h in range(300)]
+    start = pd.tso()
+    r = svc.handle("KvPrewrite", {"mutations": muts,
+                                  "primary": muts[0]["key"],
+                                  "start_version": start})
+    assert not r.get("error"), r
+    r = svc.handle("KvCommit", {"keys": [m["key"] for m in muts],
+                                "start_version": start,
+                                "commit_version": pd.tso()})
+    assert not r.get("error"), r
+    rows = []
+    for thr in (10, 20):
+        s = DagSelect.from_table(table, ["id", "k", "v"])
+        dag = s.where(s.col("v") > thr).build(pd.tso())
+        out = svc.handle_raw("Coprocessor", wire.pack({"dag": enc_dag(dag)}))
+        rows.append(len(wire.unpack(out)["rows"]) if isinstance(out, bytes)
+                    else len(out["rows"]))
+    assert node.fastpath.stats()["hit"] == 1, node.fastpath.stats()
+    import time
+    t0 = time.monotonic()
+    while node.status()["regions"][0]["resolved_ts"] == 0:
+        assert time.monotonic() - t0 < 30, "no resolved-ts advance"
+        time.sleep(0.01)
+finally:
+    node.stop()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "tikv_tpu")]
+assert not bad, bad
+print("read legs served", rows)
+"""
+
+
+def test_read_legs_load_no_jax():
+    """A fast-path hit, and the resolved-ts a node advances, import no
+    module of JAX or of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _SERVE_READ_LEGS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "read legs served [289, 279]"

@@ -390,7 +390,7 @@ def test_config_loads_the_reference_template():
                 getattr(getattr(ref, section.name), f.name), \
                 (section.name, f.name)
             n += 1
-    assert n == 38
+    assert n == 39
 
 
 # ---------------------------------------------------------- admin RPCs

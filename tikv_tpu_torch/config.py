@@ -6,8 +6,8 @@ reads, in the sections ``server``, ``storage``, ``raftstore``,
 runner from, and the stream's page size), ``readpool`` and ``security``,
 with their defaults, and ``TikvConfig`` (from a TOML file or a dict,
 validated; a region's split size must not exceed its max size).  Every
-other setting of a reference config file (tracing, the fast path, RU
-metering, resource control, ...) loads and is ignored: the port has no
+other setting of a reference config file (tracing, RU metering, resource
+control, ...) loads and is ignored: the port has no
 code that reads it.  ``ConfigController`` routes a live change (the
 status server's ``POST /config``) to the manager a subsystem registered
 for its section; ``_ONLINE_FIELDS`` names the fields whose managers the
@@ -91,6 +91,10 @@ class CoprocessorConfig:
     # group size (also the stacked kernel's largest lane bucket)
     coalesce_window_ms: float = 2.0
     coalesce_max_group: int = 16
+    # the compiled request fast path (server/fastpath.py): the learned
+    # wire-template classes kept (0 disables it: every request takes the
+    # full decode)
+    fastpath_classes: int = 64
     # cold-path kill (device/mvcc.py + copr/stream_build.py):
     # device_cold_build enables the device rung of the columnar build
     # ladder (flat-plane parse + on-device MVCC version resolution, the
@@ -215,6 +219,7 @@ _ONLINE_FIELDS = {
     "coprocessor.device_hbm_budget_mb",
     "coprocessor.coalesce_window_ms",
     "coprocessor.coalesce_max_group",
+    "coprocessor.fastpath_classes",
     "coprocessor.device_cold_build",
     "coprocessor.remint_concurrency",
     "readpool.concurrency",

@@ -38,10 +38,18 @@ src/coprocessor/endpoint.rs ``parse_and_handle_unary_request``):
   ``resume_token`` the next page's request carries (the handle of the last
   row served, so a page resumes exactly after it over a newer snapshot).
 
+- ``handle_async_fast(req, storage, ent, consts)``: a hit of the compiled
+  request fast path (``server/fastpath.py``) over the warm snapshot the
+  node already vouched for; the router's live figures still decide its
+  route (``CostRouter.route_fast``), the deadline is still checked before
+  the dispatch, and a device fault still degrades it to the host.  A
+  request learning a class carries ``fp_learn``, a dict the endpoint and
+  the node fill with what its execution decided (storage, backend,
+  route, batch key, region).
+
 Each DAG request gets a ``utils.tracker.Tracker`` (unless its caller has
 one current): its phases and labels come back on ``CopResponse.tracker``.
-The fast path and resource tags are outside the port (ROADMAP.md queue 1
-item 7).
+Resource tags are outside the port (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -74,6 +82,13 @@ class CopRequest:
     # row), None for the first page
     paging_size: int = 0
     resume_token: object = None
+    # kvproto Context.stale_read: served from THIS replica's applied state
+    # with no consensus round trip, gated at the node on dag.start_ts ≤
+    # the region's resolved-ts watermark (DataIsNotReady above it)
+    stale_read: bool = False
+    # the fast path's learning channel: the endpoint and the node fill it
+    # with what the execution decided (server/fastpath.py)
+    fp_learn: Optional[dict] = None
 
 
 @dataclass
@@ -196,6 +211,9 @@ class Endpoint:
         t0 = time.perf_counter_ns()
         storage = self._snapshot_provider(req)
         backend = self._pick_backend(req, storage)
+        learn = req.fp_learn
+        if learn is not None:
+            learn.update(storage=storage, backend=backend)
         if req.paging_size > 0:
             # pages are a host-pipeline contract (endpoint.py:398-406)
             from ..executors.runner import BatchExecutorsRunner
@@ -214,8 +232,16 @@ class Endpoint:
         check_current("device_dispatch")
         coal = self.coalescer
         if coal is not None and req.force_backend is None:
-            from ..server.coalescer import DEVICE_BATCHED, HOST, SHED
+            from ..server.coalescer import (DEVICE_BATCHED, DEVICE_SOLO,
+                                            HOST, SHED)
             decision, bkey, hint = coal.route(req.dag, storage)
+            if learn is not None:
+                learn.update(decision=decision, bkey=bkey)
+                if decision in (DEVICE_BATCHED, DEVICE_SOLO):
+                    est = getattr(storage, "estimated_rows", None)
+                    n = est() if callable(est) else None
+                    learn["n_est"] = n
+                    learn["d2h_bytes"] = coal.router._d2h_bytes(req.dag, n)
             if decision == SHED:
                 from ..server.read_pool import ServerIsBusy
                 raise ServerIsBusy("device router: remaining budget below "
@@ -229,7 +255,57 @@ class Endpoint:
                 fut = coal.submit(bkey, req.dag, storage)
                 return CopDeferred(self, req, storage, t0, backend, tr,
                                    future=fut)
+        elif learn is not None:
+            learn.update(decision="device_solo", bkey=None)
         return self._dispatch_device_solo(req, storage, t0, backend, tr)
+
+    def handle_async_fast(self, req: CopRequest, storage, ent,
+                          consts) -> "CopDeferred":
+        """A fast-path hit (endpoint.py:519-560): the decode products are
+        pre-bound on the class entry ``ent`` and ``storage`` is the warm
+        columnar snapshot the node vouched for — no provider walk, no plan
+        analysis.  What is live is still read: the cost router's measured
+        launch and backlog figures (``route_fast``), the deadline, and the
+        degrade-to-host contract, so a hit sheds, overflows to the host,
+        batches and degrades as its full-decode twin would."""
+        from ..server.coalescer import DEVICE_BATCHED, HOST, SHED
+        from ..utils.deadline import check_current
+        tr, tok = tracker.current(), None
+        if tr is None:
+            tr, tok = tracker.install()
+        try:
+            t0 = time.perf_counter_ns()
+            tracker.label("backend", "device")
+            check_current("device_dispatch")
+            coal = self.coalescer
+            if coal is not None:
+                bkey = None
+                if coal.enabled:
+                    bkey = ent.bkey if ent.share_fill is None \
+                        else ent.share_fill(consts)
+                decision, bkey, hint = coal.router.route_fast(
+                    ent.n_est, ent.d2h_bytes, bkey)
+                if decision == SHED:
+                    from ..server.read_pool import ServerIsBusy
+                    raise ServerIsBusy("device router: remaining budget "
+                                       "below the modeled request cost",
+                                       retry_after_ms=hint)
+                if decision == HOST:
+                    # the device backlog overflows a learned device class
+                    # to the host, as the full-decode path would
+                    tracker.label("backend", "host")
+                    return CopDeferred(self, req, storage, t0, "host", tr,
+                                       result=self._host_exec(req,
+                                                              storage))
+                if decision == DEVICE_BATCHED and bkey is not None:
+                    fut = coal.submit(bkey, req.dag, storage)
+                    return CopDeferred(self, req, storage, t0, "device",
+                                       tr, future=fut)
+            return self._dispatch_device_solo(req, storage, t0, "device",
+                                              tr)
+        finally:
+            if tok is not None:
+                tracker.uninstall(tok)
 
     def _dispatch_device_solo(self, req: CopRequest, storage, t0: int,
                               backend: str, tr) -> "CopDeferred":

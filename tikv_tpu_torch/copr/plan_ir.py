@@ -172,6 +172,14 @@ class PlanRequest:
     output_offsets: Optional[tuple] = None
     encode_type: str = "chunk"
 
+    def class_key(self) -> tuple:
+        """Const-blind compile-class identity (plan_ir.py:190) —
+        ``DAGRequest.class_key`` for plans: numeric constant values erased
+        (their device dtype bucket kept), start_ts and key ranges left
+        out.  Keys the read pool's per-class service-time EWMA and the
+        fast path's plan-tier classes."""
+        return ("plan", _class_node_key(self.root), self.output_offsets)
+
     def scan_leaves(self) -> list[ScanNode]:
         out: list[ScanNode] = []
 
@@ -200,6 +208,61 @@ def _iter_nodes(n: PlanNode):
         yield from _iter_nodes(n.right)
         return
     yield from _iter_nodes(n.child)
+
+
+def _class_expr_key(e: Expr):
+    if e.kind == "const":
+        v = e.value
+        et = e.eval_type.value if e.eval_type else None
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            from ..datatype import device_const_dtype
+            return ("c?", device_const_dtype(v), et)
+        return ("c", repr(v), et)
+    if e.kind == "column":
+        return ("col", e.col_idx, e.eval_type.value if e.eval_type else None)
+    return ("f", e.sig, tuple(_class_expr_key(c) for c in e.children))
+
+
+def _class_node_key(n: PlanNode) -> tuple:
+    """plan_ir.py:246 ``_node_key`` with ``class_blind=True``."""
+    nk, ek = _class_node_key, _class_expr_key
+    if isinstance(n, ScanNode):
+        kind = "iscan" if isinstance(n.scan, IndexScanDesc) else "tscan"
+        return (kind, n.scan.table_id,
+                tuple((c.col_id, c.field_type.tp, c.is_pk_handle)
+                      for c in n.scan.columns), bool(n.scan.desc), ())
+    if isinstance(n, SelectNode):
+        return ("sel", nk(n.child), tuple(ek(e) for e in n.conditions))
+    if isinstance(n, ProjectNode):
+        return ("proj", nk(n.child), tuple(ek(e) for e in n.exprs))
+    if isinstance(n, AggNode):
+        d = n.desc
+        return ("agg", nk(n.child), tuple(ek(e) for e in d.group_by),
+                tuple((a.kind, ek(a.arg) if a.arg else None)
+                      for a in d.aggs), d.streamed)
+    if isinstance(n, TopNNode):
+        return ("topn", nk(n.child),
+                tuple((ek(e), dsc) for e, dsc in n.desc.order_by),
+                n.desc.limit)
+    if isinstance(n, PartTopNNode):
+        return ("ptopn", nk(n.child),
+                tuple(ek(e) for e in n.desc.partition_by),
+                tuple((ek(e), dsc) for e, dsc in n.desc.order_by),
+                n.desc.limit)
+    if isinstance(n, LimitNode):
+        return ("limit", nk(n.child), n.limit)
+    if isinstance(n, JoinNode):
+        return ("join", nk(n.left), nk(n.right), n.left_key, n.right_key,
+                n.join_type)
+    if isinstance(n, SortNode):
+        return ("sort", nk(n.child),
+                tuple((ek(e), dsc) for e, dsc in n.order_by))
+    if isinstance(n, WindowNode):
+        return ("window", nk(n.child), tuple(ek(e) for e in n.partition_by),
+                tuple((ek(e), dsc) for e, dsc in n.order_by),
+                tuple((f.kind, ek(f.arg) if f.arg else None, f.offset)
+                      for f in n.funcs))
+    raise TypeError(n)
 
 
 def from_dag(dag: DAGRequest) -> PlanRequest:

@@ -48,7 +48,12 @@ A cold build first takes a permit from ``remint_gate`` when one is wired
 A read below a line's safe_ts parks its exact-ts build on the line (four
 at most); the same read again takes it, and a newer line carries them.
 
-Trimmed (ROADMAP.md queue 1 item 6): ``get_fast``; the gauges and metrics.
+The compiled request fast path (``server/fastpath.py``) reads through
+``get_fast`` (a warm hit of a key derived once, at learn time; it never
+builds) after ``is_current`` has vouched that its learned snapshot is the
+line's newest generation.
+
+Trimmed (ROADMAP.md queue 1 item 6): the gauges and metrics.
 """
 
 from __future__ import annotations
@@ -1094,6 +1099,41 @@ class RegionColumnarCache:
                     ev.set()
         lock_src.check_locks(dag.ranges, start_ts)
         return ent
+
+    def get_fast(self, snap, base_key: tuple, ranges,
+                 start_ts: int) -> Optional[MvccColumnarSnapshot]:
+        """Warm-hit-only lookup for the compiled request fast path
+        (``server/fastpath.py``): ``base_key`` was derived once, when the
+        class was learned, so a repeat request pays one dict probe.  None
+        whenever the snapshot's region or epoch no longer matches the
+        learned key or the line cannot serve warm: the caller then takes
+        the full ceremony (build, bridge, park); this never builds.
+        Raises ``KeyIsLocked`` exactly as ``get`` does."""
+        region = getattr(snap, "region", None)
+        data_index = getattr(snap, "data_index", None)
+        if region is None or data_index is None or \
+                (region.id, region.epoch.version) != base_key[:2]:
+            return None
+        self._note_heat(region.id)
+        with self._lock:
+            line = self._lines.get(base_key)
+            got = self._lookup_locked(line, data_index, start_ts)
+            if got is None:
+                return None
+            ent, lock_src = got
+            self._lines.move_to_end(base_key)
+            self.hits += 1
+        lock_src.check_locks(ranges, start_ts)
+        return ent
+
+    def is_current(self, base_key: tuple, snap) -> bool:
+        """Non-building peek: is ``snap`` still the line's newest
+        generation?  The fast path checks its learned snapshot with this
+        before it serves a hit; a delta patch, a rebuild, an epoch sweep
+        or an eviction answers False, and the class re-learns."""
+        with self._lock:
+            line = self._lines.get(base_key)
+            return line is not None and line.snap is snap
 
     @staticmethod
     def _lookup_locked(line, data_index: int, start_ts: int):

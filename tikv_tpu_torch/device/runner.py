@@ -1154,6 +1154,12 @@ class DeviceRunner:
         return {k: v for k, v in (bucket or {}).items()
                 if isinstance(v, dict) and "flat" in v}
 
+    def pinned_readback_stats(self) -> dict:
+        """The pinned D2H staging pool's rollup (``/health``'s fastpath
+        block; runner.py:1862)."""
+        from .deferred import HOST_STAGER
+        return HOST_STAGER.stats()
+
     def hbm_stats(self) -> dict:
         """The arena's accounting and the anchors quarantined; a placement
         mesh adds its slices' and its degraded submesh's (runner.py:

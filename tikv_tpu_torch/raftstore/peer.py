@@ -9,9 +9,10 @@ every admin command (split, prepare / commit / rollback merge, change peer
 and its joint v2 form, compact log, compute and verify hash), region
 snapshots for followers, the split checker's bookkeeping, lease reads
 (``local_read``), read barriers through the log (``propose_read``) and
-follower reads by read index (``replica_read``).  Not here: the
-batch-system apply pool and async log writes, hibernation, and stale reads
-(they need resolved-ts).
+follower reads by read index (``replica_read``) and stale reads
+(``stale_snapshot``: applied state with no consensus round trip, for a
+read at or below the region's resolved-ts watermark).  Not here: the
+batch-system apply pool and async log writes, and hibernation.
 
 Reference: components/raftstore/src/store/peer.rs (Peer: propose :3612,
 handle_raft_ready_append :2565) and fsm/apply.rs (exec_raft_cmd
@@ -310,6 +311,15 @@ class RaftPeer:
         snap.data_index = self.data_index_engine
         snap.apply_index = apply_index
         return snap
+
+    def stale_snapshot(self) -> RegionSnapshot:
+        """Engine snapshot with NO consensus round trip — only safe for
+        reads at or below the region's resolved-ts watermark (closed
+        timestamps: no commit at ts ≤ resolved_ts can newly appear), a
+        gate the node enforces before calling this.  Serves from any
+        replica, leader or not (kvproto Context stale_read)."""
+        with self.mu:
+            return self._snapshot(self.applied_engine)
 
     def local_read(self) -> Optional[RegionSnapshot]:
         """Lease-based local read: serve an engine snapshot with NO raft

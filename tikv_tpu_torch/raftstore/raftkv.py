@@ -2,9 +2,11 @@
 
 A trimmed copy of the JAX package's ``raftstore/raftkv.py`` for the
 synchronous drive: lease reads, read barriers through the log, follower
-reads by read index, and writes.  Stale reads are not here (they need
-resolved-ts): one raises ``ValueError``.  A replica read the leader takes
-is a lease read, as in the reference.
+reads by read index, stale reads (applied state, gated on the resolved-ts
+watermark by the caller) and writes.  A replica read the leader takes is
+a lease read, as in the reference.  The ``read::before_leader_read``
+failpoint (``sleep(ms)``) slows the reads a leader serves — lease reads
+and read barriers — and no stale or follower read.
 
 Reference: src/server/raftkv/mod.rs (RaftKv: async_snapshot :603 routes
 a read through the consensus/lease path; async_write :472 proposes a
@@ -35,6 +37,7 @@ class RaftKv:
         self._lock = lock
         self.lease_reads = 0
         self.barrier_reads = 0
+        self.stale_reads = 0
 
     def _local_drive(self, done: Callable[[], bool]) -> None:
         for _ in range(10000):
@@ -56,8 +59,12 @@ class RaftKv:
     def snapshot(self, ctx: SnapContext):
         peer = self._route(ctx)
         if ctx.stale_read:
-            raise ValueError("stale reads are not served by this "
-                             "raftstore: it keeps no resolved-ts")
+            # resolved-ts-gated local snapshot: correctness rests on the
+            # caller's read_ts ≤ resolved_ts check (the node and the
+            # service) — below the watermark no new commit can appear, so
+            # any replica's applied state answers the MVCC read exactly
+            self.stale_reads += 1
+            return peer.stale_snapshot()
         if ctx.replica_read and not peer.is_leader():
             # follower read via ReadIndex: consistent at the leader's
             # commit point, zero leader load.  Registration holds the
@@ -71,6 +78,8 @@ class RaftKv:
                 peer.replica_read(cb, ctx.read_ts)
             self._wait(box)
             return box["result"]
+        from ..utils.failpoint import fail_point
+        fail_point("read::before_leader_read")
         # lease fast path (LocalReader): no proposal, no log barrier.
         # local_read serializes on the peer mutex; the node lock covers
         # the drive loop

@@ -7,9 +7,12 @@ Percolator 2PC ``txn_write`` with lock resolution, ``get``/``scan``/
 ``put``/``delete``, raw, ``coprocessor``, ``coprocessor_plan``,
 ``coprocessor_paged``, ``coprocessor_stream``, ``analyze``, ``checksum``,
 ``split``, ``add_peer``, ``remove_peer``, ``change_peers_joint``,
-``merge``, ``status``, ``ingest_sst`` and ``import_switch_mode``.  Not
-here: hedged and replica reads (they wait for stale reads with
-resolved-ts), the CDC stream, backup and restore, and the debug service.
+``merge``, ``status``, ``ingest_sst`` and ``import_switch_mode``; the
+tail-tolerant reads: ``hedge_reads`` (a point get or a coprocessor read
+re-issued to a follower after an adaptive P95 delay: a resolved-ts stale
+read first, a ReadIndex replica read as a get's fallback), ``replica_get``
+and ``coprocessor_replica`` (a follower's own answer).  Not here: the CDC
+stream, backup and restore, and the debug service.
 
 Reference: the store stub mirrors what TiDB holds per TiKV
 (src/server/service/kv.rs surface); ``TxnClient`` plays the client-go
@@ -170,14 +173,29 @@ class TxnClient:
 
     Reads/writes route to the region leader by key; on KeyIsLocked the
     client resolves via CheckTxnStatus + ResolveLock (the reference's
-    client-side lock resolution protocol).  Every store's transport
-    rides a per-store circuit breaker (client-go shape): consecutive
-    transport failures trip it open, a half-open probe re-tests after
-    the cooldown, and an open breaker fails sends fast instead of
-    feeding a dead or hung store its full RPC timeout.
+    client-side lock resolution protocol).  Tail tolerance (client-go
+    shape):
+
+    - every store's transport rides a per-store circuit breaker:
+      consecutive transport failures trip it open, a half-open probe
+      re-tests after the cooldown, and an open breaker fails sends fast
+      instead of feeding a dead or hung store its full RPC timeout;
+    - with ``hedge_reads=True``, idempotent point gets and coprocessor
+      reads re-issue to a follower replica after an adaptive P95-based
+      delay (a resolved-ts stale read first; a get falls back to a
+      ReadIndex replica read when the watermark lags); the first usable
+      answer wins, the loser is abandoned.  ``hedges`` counts the
+      outcomes by name (the reference's HEDGE_COUNTER labels).
     """
 
-    def __init__(self, pd_addr: str, breaker_threshold: int = 3,
+    # hedge delay bounds: never hedge inside normal jitter (floor), never
+    # wait out most of a deadline before hedging (ceiling)
+    HEDGE_DELAY_MIN = 0.002
+    HEDGE_DELAY_MAX = 0.5
+    HEDGE_LAT_WINDOW = 128
+
+    def __init__(self, pd_addr: str, hedge_reads: bool = False,
+                 breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 1.0):
         self.pd = RemotePdClient(pd_addr)
         self._stores: dict[int, StoreClient] = {}
@@ -187,6 +205,14 @@ class TxnClient:
         self._region_cache: dict[int, tuple[Region, Peer]] = {}
         self._breaker_cfg = (breaker_threshold, breaker_cooldown_s)
         self._breakers: dict = {}
+        self.hedge_reads = hedge_reads
+        self._hedge_pool = None
+        self._hedge_mu = threading.Lock()
+        # recent point-read latencies (seconds) → the adaptive P95 delay
+        self._read_lat: list = []
+        self.hedges_fired = 0
+        self.hedges_won = 0
+        self.hedges: dict = {}
 
     # -- routing --
 
@@ -359,7 +385,13 @@ class TxnClient:
                 req["deadline_ms"] = dl.to_wire_ms()
                 timeout = max(0.001, dl.remaining())
             try:
-                r = self._call_leader(key, "KvGet", req, timeout=timeout)
+                t0 = time.monotonic()
+                if self.hedge_reads:
+                    r = self._hedged_get(key, dict(req), timeout, dl)
+                else:
+                    r = self._call_leader(key, "KvGet", req,
+                                          timeout=timeout)
+                self._note_read_latency(time.monotonic() - t0)
                 return r.get("value")
             except wire.RemoteError as e:
                 if resolve and e.kind == "key_is_locked":
@@ -367,6 +399,141 @@ class TxnClient:
                     continue
                 raise
         raise TxnError(f"unresolved lock on {key!r}")
+
+    # -- hedged and replica reads (tail tolerance) --
+
+    def _hedge(self, outcome: str) -> None:
+        with self._hedge_mu:
+            self.hedges[outcome] = self.hedges.get(outcome, 0) + 1
+
+    def _note_read_latency(self, dt: float) -> None:
+        lat = self._read_lat
+        lat.append(dt)
+        if len(lat) > self.HEDGE_LAT_WINDOW:
+            del lat[:len(lat) - self.HEDGE_LAT_WINDOW]
+
+    def hedge_delay(self) -> float:
+        """The adaptive hedge trigger: the P95 of recent point reads — a
+        read slower than 95% of its peers is likely stuck on a slow store,
+        so a duplicate is cheap insurance."""
+        lat = sorted(self._read_lat)
+        if not lat:
+            return 0.05
+        p95 = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+        return min(self.HEDGE_DELAY_MAX, max(self.HEDGE_DELAY_MIN, p95))
+
+    def _followers(self, region: Region, leader: Optional[Peer]) -> list:
+        return [p for p in region.peers
+                if (leader is None or p.store_id != leader.store_id)
+                and not p.is_learner]
+
+    def _race(self, f_leader, f_follow, timeout: float, tag: str):
+        """The first usable answer of the two legs.  An error from the
+        early finisher falls through to (and waits on) the other leg; both
+        failing surfaces the leader's error (the follower's is usually
+        the less meaningful DataIsNotReady)."""
+        import concurrent.futures as cf
+        done, _ = cf.wait({f_leader, f_follow}, timeout=timeout + 1,
+                          return_when=cf.FIRST_COMPLETED)
+        order = sorted([f_leader, f_follow],
+                       key=lambda f: (f not in done, f is f_follow))
+        for fut in order:
+            try:
+                r = fut.result(timeout=timeout + 1)
+            except wire.RemoteError as e:
+                if fut is f_follow and e.kind == "data_is_not_ready":
+                    # a lagging replica refused: the leader's leg is the
+                    # consistent fallback
+                    self._hedge(tag + "stale_refused")
+                continue
+            except Exception:   # noqa: BLE001 — try the other leg
+                continue
+            if fut is f_follow:
+                self.hedges_won += 1
+                self._hedge(tag + "follower_won")
+            else:
+                self._hedge(tag + "leader_won")
+            return r
+        return f_leader.result(timeout=timeout + 1)
+
+    def _hedged_get(self, key: bytes, req: dict, timeout: float,
+                    dl=None) -> dict:
+        """A leader read, hedged to a follower after the adaptive delay;
+        the first usable answer wins (a gRPC unary call cannot be recalled:
+        the loser's reply is discarded).  Safe because a get at a FIXED
+        version is idempotent and the follower's leg stays linearizable:
+        its stale read serves only at or below its watermark, and its
+        fallback is a ReadIndex replica read."""
+        import concurrent.futures as cf
+        region, leader = self._lookup_region(key)
+        pool = self._hedge_executor()
+        f_leader = pool.submit(self._call_leader, key, "KvGet", req, 8,
+                               timeout)
+        try:
+            r = f_leader.result(timeout=self.hedge_delay())
+            self._hedge("leader_fast")
+            return r
+        except cf.TimeoutError:
+            pass
+        except wire.RemoteError as e:
+            if e.kind == "key_is_locked":
+                raise   # the follower would see the same lock
+            # the leader failed FAST (busy, deadline, breaker): the
+            # follower's leg below is the recovery, not a duplicate
+        followers = self._followers(region, leader)
+        if not followers:
+            return f_leader.result(timeout=timeout + 1)
+        self.hedges_fired += 1
+        self._hedge("fired")
+        target = followers[self.hedges_fired % len(followers)]
+        freq = dict(req)
+        if dl is not None:
+            # the follower's leg carries the REMAINING budget
+            freq["deadline_ms"] = dl.to_wire_ms()
+        f_follow = pool.submit(self._follower_get, target.store_id, freq,
+                               timeout)
+        return self._race(f_leader, f_follow, timeout, "")
+
+    def _follower_get(self, store_id: int, req: dict,
+                      timeout: float) -> dict:
+        """The hedge's follower leg: a resolved-ts stale read first (no
+        leader involved at all), a ReadIndex replica read when the
+        follower's watermark has not reached read_ts yet."""
+        stale = dict(req)
+        stale["stale_read"] = True
+        try:
+            return self._store_call(store_id, "KvGet", stale,
+                                    timeout=timeout)
+        except wire.RemoteError as e:
+            if e.kind != "data_is_not_ready":
+                raise
+        replica = dict(req)
+        replica["replica_read"] = True
+        return self._store_call(store_id, "KvGet", replica,
+                                timeout=timeout)
+
+    def _hedge_executor(self):
+        import concurrent.futures as cf
+        with self._hedge_mu:
+            if self._hedge_pool is None:
+                self._hedge_pool = cf.ThreadPoolExecutor(
+                    max_workers=8, thread_name_prefix="hedge")
+            return self._hedge_pool
+
+    def replica_get(self, key: bytes, version: Optional[int] = None,
+                    stale: bool = False) -> Optional[bytes]:
+        """Read from a FOLLOWER replica — consistent at the leader's commit
+        point by ReadIndex (``replica_read``) or, with ``stale=True``,
+        served locally under the resolved-ts watermark (raises
+        ``data_is_not_ready`` when the watermark lags read_ts)."""
+        ts = version if version is not None else self.tso()
+        region, leader = self._lookup_region(key)
+        followers = [p for p in region.peers
+                     if leader is None or p.store_id != leader.store_id]
+        target = followers[0] if followers else leader
+        req = {"key": key, "version": ts}
+        req["stale_read" if stale else "replica_read"] = True
+        return self._store_call(target.store_id, "KvGet", req).get("value")
 
     def put(self, key: bytes, value: bytes) -> None:
         self.txn_write([("put", key, value)])
@@ -500,8 +667,67 @@ class TxnClient:
             # executor batches, and before the device dispatch
             req["deadline_ms"] = deadline_ms
             timeout = min(timeout, deadline_ms / 1000.0)
+        if self.hedge_reads and not paging_size and resume_token is None:
+            # a snapshot read at a fixed start_ts is idempotent, so the
+            # adaptive-P95 hedge applies; its second leg is a follower
+            # answering from its own device feed (paged requests carry
+            # resume state and stay on the leader)
+            return self._hedged_coprocessor(key, req, timeout)
         return self._call_leader(key, "Coprocessor", req,
                                  timeout=timeout)
+
+    def _hedged_coprocessor(self, key: bytes, req: dict,
+                            timeout: float) -> dict:
+        """A leader coprocessor read, hedged to a follower's replica feed
+        after the adaptive delay: a ``stale_read`` call the follower
+        answers from its own delta-patched line.  A follower whose
+        watermark lags start_ts refuses with DataIsNotReady and the leader's
+        leg answers; the per-store breakers gate both legs."""
+        import concurrent.futures as cf
+        region, leader = self._lookup_region(key)
+        pool = self._hedge_executor()
+        f_leader = pool.submit(self._call_leader, key, "Coprocessor", req,
+                               8, timeout)
+        try:
+            r = f_leader.result(timeout=self.hedge_delay())
+            self._hedge("copr_leader_fast")
+            return r
+        except cf.TimeoutError:
+            pass
+        except wire.RemoteError as e:
+            if e.kind == "key_is_locked":
+                raise   # resolution, not hedging, unblocks this read
+        followers = self._followers(region, leader)
+        if not followers:
+            return f_leader.result(timeout=timeout + 1)
+        self.hedges_fired += 1
+        self._hedge("copr_fired")
+        target = followers[self.hedges_fired % len(followers)]
+        stale = dict(req)
+        stale["stale_read"] = True
+        f_follow = pool.submit(self._store_call, target.store_id,
+                               "Coprocessor", stale, timeout)
+        return self._race(f_leader, f_follow, timeout, "copr_")
+
+    def coprocessor_replica(self, dag, key_hint: Optional[bytes] = None,
+                            timeout: float = 10,
+                            store_id: Optional[int] = None) -> dict:
+        """A follower's device read (a ``stale_read`` coprocessor call):
+        served from the follower's own columnar line under its resolved-ts
+        watermark, by ``store_id`` or the region's first follower.  Raises
+        ``data_is_not_ready`` when the watermark lags the snapshot ts —
+        a caller wanting the fallback hedges (``hedge_reads=True``)."""
+        key = key_hint if key_hint is not None else \
+            (dag.ranges[0].start if dag.ranges else b"")
+        if store_id is None:
+            region, leader = self._lookup_region(key)
+            followers = self._followers(region, leader)
+            store_id = (followers[0] if followers else leader).store_id
+        req = {"tp": 103, "dag": wire.enc_dag(dag),
+               "force_backend": None, "paging_size": 0,
+               "resume_token": None, "stale_read": True}
+        return self._store_call(store_id, "Coprocessor", req,
+                                timeout=timeout)
 
     def coprocessor_plan(self, preq, key_hint: Optional[bytes] = None,
                          force_backend: Optional[str] = None,
@@ -651,7 +877,13 @@ class TxnClient:
         return self._store_client(store_id).call("Status", {})
 
     def close(self) -> None:
-        """Close every channel this client opened."""
+        """Close every channel this client opened, and join the hedge
+        executor's threads: an abandoned leg ends within its RPC timeout
+        (the reference leaves them running past ``close``)."""
+        with self._hedge_mu:
+            pool, self._hedge_pool = self._hedge_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
         for c in self._stores.values():
             c.close()
         self._stores.clear()

@@ -140,11 +140,22 @@ class CostRouter:
         n = est() if callable(est) else None
         key = self._runner.batch_class(dag, storage) if coal.enabled \
             else None
+        return self.route_fast(n, self._d2h_bytes(dag, n), key)
+
+    def route_fast(self, n, d2h_bytes: float, key) -> tuple:
+        """``route()`` for the compiled fast path (``server/fastpath.py``):
+        the per-plan figures — the estimated rows ``n``, the modeled D2H
+        bytes and the batch key — were computed on the class's learning
+        request and ride its entry, so a hit pays no plan analysis; every
+        live figure (launch EWMA, occupancy, backlog, the open window,
+        the deadline) is read as ``route()`` reads it, so shed, host and
+        batching decisions keep tracking the measured load."""
+        coal = self._coalescer
         with self._mu:
             launch = self.launch_ewma
             occ = max(1.0, self.occupancy_ewma)
         busy = coal.busy()
-        d2h_s = self._d2h_bytes(dag, n) / self.D2H_BYTES_PER_S
+        d2h_s = d2h_bytes / self.D2H_BYTES_PER_S
         # what each option consumes: dispatches serialize, so each member
         # in the backlog is about one launch ahead of this request; a
         # group absorbs the backlog max_group at a time.  The collection

@@ -11,12 +11,21 @@ online-config controller, and the device serving stack whole — the delta
 sink, the region columnar cache, the request coalescer, the feed arena's
 budget, the ``DeviceStateSupervisor`` on the coprocessor host, the
 ``RemintGovernor``, the device rung of the cold build and the
-``ColdStreamBuilder``.  The runner defaults to ``DeviceRunner()`` on
+``ColdStreamBuilder``; the compiled request fast path's class cache
+(``fastpath``, sized by ``coprocessor.fastpath_classes``, its
+``config_gen`` bumped by every applied online diff) and the resolved-ts
+observer (``resolved_ts``).  The runner defaults to ``DeviceRunner()`` on
 ``cuda:0`` (it raises without CUDA); a caller that wants the CPU passes
 ``DeviceRunner(device="cpu")``.  ``bootstrap_or_join``/``start``/``stop``
 (:756-812), the drive loop (:821-906, the transport flushed outside the
 node lock), ``_wait_driver`` (:985), ``on_raft_message`` (:1005),
-``_copr_snapshot`` (:1016-1070), ``ingest_sst``/``ingest_sst_blob``
+``_copr_snapshot`` (:1016-1070: its stale leg and the fast path's learn
+fields), ``fastpath_snapshot`` (:1133-1155), the resolved-ts advance at
+the drive loop's PD beat and its ``CheckLeader`` fan-out to the followers
+(:893-957, both on the fan-out's thread), ``_check_replica_freshness``
+(:1073-1093, with the ``device::replica_stale`` failpoint),
+``_note_replica_read`` and
+``replica_serving_stats`` (:1094-1131), ``ingest_sst``/``ingest_sst_blob``
 (:1212-1274), ``change_peer``/``change_peer_v2``/``transfer_leader``
 (:1276-1308), ``split_region`` (:1158), ``region_applied`` (:1335),
 ``merge_region`` in its network form (:1340-1416: every source peer's
@@ -25,12 +34,11 @@ apply index polled over ``RegionApplied``), ``rollback_merge`` and
 checker every ``region_split_check_ticks`` ticks, suspended in import
 mode (:829-845).
 
-Not here: the disk engine and encryption, CDC and resolved-ts (with them
-the ``CheckLeader`` fan-out and ``status``'s ``resolved_ts``), the
-health controller, load split, the feature gate, PD's operators, tracing
-and the flight recorder, the fast path, RU metering and resource
-control, the proxy to the cluster's deadlock detector (the lock manager
-detects with this store's own graph) and GC.
+Not here: the disk engine and encryption, CDC, PD's replica hints
+(``_apply_replica_hints``), the health controller, load split, the
+feature gate, PD's operators, tracing and the flight recorder, RU
+metering and resource control, the proxy to the cluster's deadlock
+detector (the lock manager detects with this store's own graph) and GC.
 
 Threading: one background drive thread owns raft progress (tick + ready
 + the transport's flush); request threads propose under the node lock
@@ -45,7 +53,10 @@ The order is always node lock, then dispatch lock: no thread holding the
 dispatch lock (a request's dispatch, the coalescer's, the scrubber's)
 ever waits on the node lock, so the two cannot invert.  A raft message
 from another store (``on_raft_message``, the ``Raft``/``BatchRaft``
-handlers) steps under the node lock and never enters the runner.
+handlers) steps under the node lock and never enters the runner, and so
+does a ``CheckLeader``.  The fast leg reads the cache (``get_fast``) after
+``raft_kv.snapshot`` has returned, outside the node lock, as
+``_copr_snapshot`` does.
 """
 
 from __future__ import annotations
@@ -392,6 +403,25 @@ class Node:
         from ..storage.lock_manager import LockManager
         self.storage = Storage(engine=self.raft_kv,
                                lock_manager=LockManager())
+        # resolved-ts: registered before the delta sink, in the
+        # reference's order (its CDC observer, then this, then the sink):
+        # an applied lock reaches the watermark's lock set before any
+        # consumer of the same apply acts on it
+        from ..cdc import ResolvedTsObserver
+        self.resolved_ts = ResolvedTsObserver()
+        self.raft_store.coprocessor_host.register(self.resolved_ts)
+        # the CheckLeader fan-out: at most one in flight, its clients
+        # reused across beats
+        self._rts_fanout_busy = threading.Lock()
+        self._rts_thread: Optional[threading.Thread] = None
+        self._rts_clients: dict = {}
+        # replica device serving (stale reads at the coprocessor):
+        # follower reads served from this store's own lines, the regions
+        # they covered, and the resolved-ts refusals
+        self._replica_mu = threading.Lock()
+        self._replica_reads = 0
+        self._replica_refused = 0
+        self._replica_regions: set = set()
         from .read_pool import ReadPool
         self.read_pool = ReadPool(
             max_concurrency=config.readpool.concurrency)
@@ -470,18 +500,37 @@ class Node:
                 max_bytes=config.coprocessor.cold_stream_max_mb << 20)
             self.raft_store.coprocessor_host.register(self.cold_stream)
             self.copr_cache.stream_source = self.cold_stream
+        # the compiled request fast path: per-class wire templates learned
+        # from full-decode requests; a repeat skips the msgpack and DAG
+        # decode and goes to the coalescer (capacity 0 disables it)
+        from .fastpath import FastPathCache
+        self.fastpath = FastPathCache(
+            capacity=config.coprocessor.fastpath_classes)
         # online reconfig (online_config ConfigManager registrations)
         self.config_controller.register("coprocessor", self._copr_cfg)
         self.config_controller.register("readpool", self._readpool_cfg)
+        # the split checker reads its knobs live; the fast path's
+        # templates still retire on the change
+        self.config_controller.register(
+            "raftstore", lambda diff: self._fastpath_config_changed())
+
+    def _fastpath_config_changed(self) -> None:
+        """Any applied online-config diff retires every learned fast-path
+        template (thresholds, windows and knobs feed decisions a template
+        pre-bound); one full-decode request a class re-learns it."""
+        self.fastpath.bump_config_gen()
 
     def _readpool_cfg(self, diff: dict) -> None:
         if "concurrency" in diff:
             self.read_pool.set_concurrency(int(diff["concurrency"]))
+        self._fastpath_config_changed()
 
     def _copr_cfg(self, diff: dict) -> None:
         """The coprocessor's online fields (reference :631-700, trimmed to
         what the port has; ``response_page_rows`` is read live by the
         stream)."""
+        if "fastpath_classes" in diff:
+            self.fastpath.configure(capacity=int(diff["fastpath_classes"]))
         if "device_row_threshold" in diff:
             self.endpoint._device_row_threshold = \
                 diff["device_row_threshold"]
@@ -560,6 +609,7 @@ class Node:
             coal.configure(
                 window_ms=diff.get("coalesce_window_ms"),
                 max_group=diff.get("coalesce_max_group"))
+        self._fastpath_config_changed()
 
     # ---------------------------------------------------------- lifecycle
 
@@ -589,6 +639,13 @@ class Node:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        # the last CheckLeader fan-out (each call's timeout is 1 s)
+        t = self._rts_thread
+        if t is not None:
+            t.join(timeout=10)
+        for c in self._rts_clients.values():
+            c.close()
+        self._rts_clients.clear()
         self.device_supervisor.stop()
         if self.cold_stream is not None:
             self.cold_stream.stop()
@@ -651,8 +708,89 @@ class Node:
                     self.pd.store_heartbeat(self.store_id, hb)
                 except Exception:   # noqa: BLE001 — PD outages must not
                     pass            # stall raft
+                # the resolved-ts advance rides the same cadence
+                self._advance_resolved_ts(leaders)
             if did == 0:
                 time.sleep(self._tick_interval / 4)
+
+    def _advance_resolved_ts(self, leaders) -> None:
+        """The resolved-ts advance worker's beat (reference :893-902) and
+        its push to the follower stores (``CheckLeader``,
+        ``_fanout_resolved_ts`` :908-957), so they can serve stale reads.
+        On a thread of its own, at most one in flight: the reference takes
+        the TSO on its drive thread, where a round trip to PD on a loaded
+        host delays the ticks of a 100 ms election timeout; here the drive
+        loop only hands the beat's leaders over, and a dead peer store
+        stalls nothing."""
+        if not leaders or not self._rts_fanout_busy.acquire(
+                blocking=False):
+            return      # no leader here, or the last beat still runs
+
+        def run():
+            try:
+                self._fanout_resolved_ts(leaders)
+            except Exception:   # noqa: BLE001 — a PD outage: next beat
+                pass
+            finally:
+                self._rts_fanout_busy.release()
+
+        self._rts_thread = threading.Thread(target=run, daemon=True,
+                                            name="rts-fanout")
+        self._rts_thread.start()
+
+    def _fanout_resolved_ts(self, leaders) -> None:
+        from .client import StoreClient
+        # a fresh TSO into the concurrency manager FIRST, so a later async
+        # commit or 1PC finalizes above the watermark, then the advance
+        ts = self.pd.tso()
+        self.storage.concurrency_manager.update_max_ts(ts)
+        advanced = self.resolved_ts.advance_all(
+            ts, [r.id for r, _l in leaders])
+        per_store: dict = {}
+        for region, _leader in leaders:
+            rts = advanced.get(region.id, 0)
+            peer = self.raft_store.peers.get(region.id)
+            if rts <= 0 or peer is None:
+                continue
+            # the apply index read NOW, after the advance: a commit
+            # applied between the beat's snapshot and the watermark has
+            # commit_ts < rts, and pairing rts with an older index would
+            # let a follower lacking that commit serve without it.  A
+            # fresher index only raises the bar
+            applied = peer.applied_engine
+            for p in region.peers:
+                if p.store_id != self.store_id:
+                    per_store.setdefault(p.store_id, []).append(
+                        {"region_id": region.id, "resolved_ts": rts,
+                         "applied_index": applied})
+        for sid, regions in per_store.items():
+            try:
+                addr = self.pd.get_store(sid).address
+                c = self._rts_clients.get(addr)
+                if c is None:
+                    c = self._rts_clients[addr] = StoreClient(addr)
+                c.call("CheckLeader", {"regions": regions}, timeout=1)
+            except Exception:   # noqa: BLE001 — the next beat
+                pass
+
+    def check_leader(self, regions) -> dict:
+        """The follower's half of ``CheckLeader``: a region's resolver
+        advances to the leader's watermark only once this store's own
+        apply has reached the leader's applied index (every commit the
+        watermark covers is then in its applied state), and never past
+        its own pending locks → {str(region id): resolved_ts}, string
+        keys because msgpack's strict map keys refuse int keys."""
+        out = {}
+        with self.lock:
+            for ent in regions:
+                rid = ent["region_id"]
+                peer = self.raft_store.peers.get(rid)
+                if peer is None or \
+                        peer.applied_engine < ent.get("applied_index", 0):
+                    continue
+                out[str(rid)] = self.resolved_ts.resolver(rid).advance(
+                    ent["resolved_ts"])
+        return out
 
     def _wait_driver(self, done) -> None:
         """RaftKv blocks here while the drive thread makes progress."""
@@ -686,6 +824,13 @@ class Node:
         the host vectorized path and the device backend see dense tiles
         with stable identity across requests (copr/region_cache.py);
         everything else falls back to the row-at-a-time MVCC adapter.
+
+        ``req.stale_read`` is the follower device-serving path: this
+        replica mints and patches its OWN columnar line from applied state
+        (the delta sink sees a follower's applies too) and serves it with
+        no consensus round trip, gated on ``start_ts ≤ resolved_ts``
+        (``DataIsNotReady`` above it: the client falls through to the
+        leader).
         """
         start = req.dag.ranges[0].start if req.dag.ranges else b""
         key_hint = encode_first(start)
@@ -698,16 +843,96 @@ class Node:
             cm.read_ranges_check(req.dag.ranges, req.dag.start_ts)
         else:
             cm.read_range_check(None, None, req.dag.start_ts)
+        stale = req.stale_read
+        if stale:
+            self._check_replica_freshness(key_hint, req.dag.start_ts)
         with tracker.phase("snapshot"):
-            snap = self.raft_kv.snapshot(SnapContext(key_hint=key_hint))
+            snap = self.raft_kv.snapshot(
+                SnapContext(key_hint=key_hint, stale_read=stale))
         execs = req.dag.executors
         if execs and isinstance(execs[0], TableScanDesc):
-            # outside the node lock: a cold build mints on the card
-            with tracker.phase("columnar_cache"):
+            # outside the node lock: a cold build mints on the card.  The
+            # replica leg names its cache access replica_patch, keeping a
+            # follower feed's latency apart from the leader's
+            with tracker.phase("replica_patch" if stale
+                               else "columnar_cache"):
                 ent = self.copr_cache.get(snap, req.dag)
             if ent is not None:
+                if stale:
+                    self._note_replica_read(snap.region.id)
+                learn = req.fp_learn
+                if learn is not None:
+                    # the snapshot's region identity anchors the learned
+                    # class's cache key: an epoch bump or a split changes
+                    # it and the class misses
+                    learn["region"] = snap.region.id
+                    learn["epoch_version"] = snap.region.epoch.version
                 return ent
         return MvccScanStorage(MvccReader(snap), req.dag.start_ts)
+
+    def _check_replica_freshness(self, key_hint: bytes,
+                                 read_ts: int) -> int:
+        """The resolved-ts gate of a follower read: closed timestamps
+        guarantee that no commit at ts ≤ resolved_ts can newly appear, so
+        applied state is exact for a read at or below the watermark.
+        Above it the replica refuses (``DataIsNotReady``) rather than
+        serve a possibly incomplete answer.  The ``device::replica_stale``
+        failpoint forces the refusal."""
+        from ..raftstore.metapb import DataIsNotReady
+        from ..utils.failpoint import fail_point
+        peer = self.raft_store.peer_by_key(key_hint)
+        rts = self.resolved_ts.resolver(peer.region.id).resolved_ts
+        if fail_point("device::replica_stale") is not None:
+            rts = 0
+        if read_ts > rts:
+            with self._replica_mu:
+                self._replica_refused += 1
+            raise DataIsNotReady(peer.region.id, rts, read_ts)
+        return peer.region.id
+
+    def _note_replica_read(self, region_id: int) -> None:
+        """A follower device read served: its region's line is now a live
+        replica feed, kept patched by the delta stream — a leader gain
+        promotes it by digest."""
+        with self._replica_mu:
+            self._replica_reads += 1
+            first = region_id not in self._replica_regions
+            self._replica_regions.add(region_id)
+        if first:
+            self.device_supervisor.note_replica_feed(region_id)
+
+    def replica_serving_stats(self) -> dict:
+        """``/health``'s ``replica_serving`` rollup."""
+        sup = self.device_supervisor
+        with self._replica_mu:
+            return {"replica_reads": self._replica_reads,
+                    "refused": self._replica_refused,
+                    "replica_regions": sorted(self._replica_regions),
+                    "promotions": sup.promotions,
+                    "demotions": sup.demotions,
+                    "promotion_rebuilds": sup.promotion_rebuilds}
+
+    def fastpath_snapshot(self, ent, start_ts: int):
+        """The slim snapshot of a fast-path hit (``server/fastpath.py``):
+        the safety steps ``_copr_snapshot`` runs — the max_ts bump, the
+        in-memory lock check, the raft lease read — with the key hint,
+        ranges and cache key pre-derived on the class entry.  → the
+        current warm columnar snapshot, or None (a cold line, a moved
+        epoch): the caller then takes the full ceremony with the DAG in
+        hand.  The cache is read after ``raft_kv.snapshot`` returns,
+        outside the node lock."""
+        from ..utils import tracker
+        cm = self.storage.concurrency_manager
+        cm.update_max_ts(start_ts)
+        if ent.ranges:
+            cm.read_ranges_check(ent.ranges, start_ts)
+        else:
+            cm.read_range_check(None, None, start_ts)
+        with tracker.phase("snapshot"):
+            snap = self.raft_kv.snapshot(SnapContext(key_hint=ent.key_hint))
+        with tracker.phase("columnar_cache"):
+            return self.copr_cache.get_fast(snap, ent.base_key, ent.ranges,
+                                            start_ts)
 
     # ---------------------------------------------------------- admin ops
 
@@ -869,7 +1094,9 @@ class Node:
                     {"region": wire.enc_region(p.region),
                      "leader": p.is_leader(),
                      "term": p.node.term,
-                     "applied": p.node.applied}
+                     "applied": p.node.applied,
+                     "resolved_ts": self.resolved_ts.resolver(
+                         p.region.id).resolved_ts}
                     for p in self.raft_store.peers.values()],
             }
 

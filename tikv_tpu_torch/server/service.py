@@ -1,27 +1,33 @@
 """The Tikv service handlers.
 
 A trimmed copy of the JAX package's ``server/service.py``: ``KvService``
-with ``handle`` (dict requests, reference :84), ``handle_raw`` on its
-full-decode leg (packed requests, :123 — the reference's behaviour with
-no fast path), ``_dispatch_rpc`` with deadline admission and the read
-pool (:337), the transactional methods (``KvGet`` … ``KvTxnHeartBeat``,
-:541-655), the raw methods, ``Coprocessor`` (:716-782: DAG, plan IR,
-ANALYZE tp 104, CHECKSUM tp 105, paging and ``force_backend``), the
+with ``handle`` (dict requests, reference :84), ``handle_raw`` (packed
+requests, :123-300: the compiled fast path first — a template hit skips
+``wire.unpack``, the DAG decode and the plan analysis and returns a
+pre-packed response; a miss takes the full decode, which learns the
+class for its next repeat), ``_dispatch_rpc`` with deadline admission
+and the read pool (:337), the transactional methods (``KvGet`` with its
+resolved-ts gate for a stale read … ``KvTxnHeartBeat``, :541-655), the
+raw methods, ``Coprocessor`` (:716-782: DAG, plan IR, ANALYZE tp 104,
+CHECKSUM tp 105, paging, ``force_backend`` and ``stale_read``), the
 server-streamed coprocessor pages (``copr_stream``, :864-906: one
 snapshot a stream) and the ``batch_commands`` mux (:908-975), raft
 ingress (``SnapshotChunk``, ``Raft``, ``BatchRaft``, :977-1024), the
 region admin RPCs (``SplitRegion``, ``ChangePeer``, ``ChangePeerV2``,
 ``TransferLeader``, ``RegionApplied``, ``MergeRegion``,
-``RollbackMerge``, ``Status``, :1026-1059), and the bulk-load import
-surface (``ImportUpload``, ``ImportIngest``, ``ImportSwitchMode``,
-:1094-1138).  ``paused`` is the service-event channel's PAUSE_GRPC.
+``RollbackMerge``, ``Status``, :1026-1059), ``CheckLeader`` (the
+follower's half of the resolved-ts fan-out, :1061-1084), and the
+bulk-load import surface (``ImportUpload``, ``ImportIngest``,
+``ImportSwitchMode``, :1094-1138).  ``paused`` is the service-event
+channel's PAUSE_GRPC.
 
 Refused by name (``_REFUSED``: an ``unimplemented`` error naming what
-the method waits for): ``KvGC``, ``Detect``, ``CheckLeader`` and the
-debug service's methods; the ``Cdc`` and ``Backup`` streams likewise
-(``refused_stream``).  Not here either: the compiled fast path, causal
-tracing (a read response carries the port tracker's phases and labels as
-its ``time_detail``), RU metering and resource groups.
+the method waits for): ``KvGC``, ``Detect`` and the debug service's
+methods; the ``Cdc`` and ``Backup`` streams likewise
+(``refused_stream``).  Not here either: causal tracing (a read response,
+a fast-path hit's too, carries the port tracker's phases and labels as
+its ``time_detail``; the label ``fastpath`` names the fast leg a hit
+took), RU metering and resource groups.
 
 Reference: src/server/service/kv.rs — the ``Tikv`` service's unary KV
 RPCs (:251-410), ``coprocessor`` (:493), ``coprocessor_stream`` (:632),
@@ -57,7 +63,6 @@ _READ_METHODS = {
 _REFUSED = {
     "KvGC": "GC (storage/txn/gc.py)",
     "Detect": "the lock manager's deadlock detector",
-    "CheckLeader": "resolved-ts and stale reads",
     "Cdc": "CDC (cdc/)",
     "Backup": "backup (backup.py)",
     **{m: "the debug service (server/debug.py)" for m in (
@@ -106,6 +111,11 @@ class KvService:
         except Exception as e:      # noqa: BLE001 — errors ride the wire
             return {"error": wire.enc_error(e)}
 
+    @staticmethod
+    def _time_detail(tr) -> dict:
+        return {"phases_ms": {k: v / 1e6 for k, v in tr.phases.items()},
+                "labels": dict(tr.labels)}
+
     def handle(self, method: str, req: dict) -> dict:
         if self.paused:
             # ServiceEvent.PAUSE_GRPC (components/service): reject
@@ -129,15 +139,157 @@ class KvService:
         finally:
             tracker.uninstall(tok)
         if isinstance(resp, dict):
-            resp.setdefault("time_detail", {
-                "phases_ms": {k: v / 1e6 for k, v in tr.phases.items()},
-                "labels": dict(tr.labels)})
+            resp.setdefault("time_detail", self._time_detail(tr))
         return resp
 
     def handle_raw(self, method: str, raw: bytes):
-        """RAW-bytes entry for packed requests: the full-decode leg (the
-        reference's path when the node has no fast path)."""
-        return self.handle(method, wire.unpack(raw))
+        """RAW-bytes entry for packed requests (the server binds the raw
+        ``Coprocessor`` method here): the compiled fast path
+        (``server/fastpath.py``) template-matches the bytes first — a hit
+        skips ``wire.unpack``, the DAG decode and the plan analysis and
+        returns a PRE-PACKED response body; any miss takes the full
+        decode, which doubles as the learner of the shape's next repeat."""
+        fp = self.node.fastpath
+        if self.paused or method != "Coprocessor" or not fp.enabled:
+            return self.handle(method, wire.unpack(raw))
+        out = self._fastpath_serve(fp, raw)
+        if out is not None:
+            return out
+        req = wire.unpack(raw)
+        learnable = isinstance(req, dict) and \
+            ("dag" in req or "plan" in req) and \
+            req.get("force_backend") is None and \
+            not req.get("paging_size") and \
+            req.get("resume_token") is None and \
+            not req.get("stale_read") and \
+            req.get("tp", REQ_TYPE_DAG) == REQ_TYPE_DAG
+        if learnable:
+            # the learning channel: the endpoint and the node fill in what
+            # the execution decides (storage, backend, route, region)
+            req["__fp_learn"] = {}
+        resp = self.handle(method, req)
+        learn = req.pop("__fp_learn", None) if isinstance(req, dict) \
+            else None
+        if learn and ("dag" in learn or "plan" in learn) and \
+                isinstance(resp, dict) and not resp.get("error"):
+            # from a FRESH unpack: the executed dict was mutated by the
+            # handlers (stashes popped, keys added)
+            try:
+                fp.learn(raw, wire.unpack(raw), learn)
+            except Exception:   # noqa: BLE001 — learning is optional
+                import logging
+                logging.getLogger(__name__).warning(
+                    "fastpath learn failed", exc_info=True)
+        return resp
+
+    def _fastpath_serve(self, fp, raw: bytes):
+        """One fast-path attempt → packed response bytes (a hit), an error
+        dict (a hit that failed: the server packs it), or None (no
+        template, or the learned generation moved: take the full decode)."""
+        ent, values = fp.find(raw)
+        if ent is None:
+            return None
+        storage = None
+        if ent.tier == "dispatch":
+            # the generation guard: the learned snapshot must still be its
+            # line's NEWEST generation — a delta patch, a rebuild, an
+            # epoch sweep or an eviction since the learn retires the entry
+            # and this request re-learns.  The decode and plan tiers replay
+            # the full ceremony, which decides freshness itself
+            storage = ent.storage()
+            if storage is None or not self.node.copr_cache.is_current(
+                    ent.base_key, storage):
+                fp.drop(ent, "generation")
+                return None
+        consts = []
+        start_ts = 0
+        deadline_ms = None
+        for slot, v in zip(ent.template.slots, values):
+            if slot.kind == "const":
+                consts.append(v)
+            elif slot.kind == "start_ts":
+                start_ts = v
+            elif slot.kind == "deadline_ms":
+                deadline_ms = v
+        tr, tok = tracker.install()
+        try:
+            env, result = self._fastpath_dispatch(
+                fp, ent, storage, consts, start_ts, deadline_ms)
+        finally:
+            tracker.uninstall(tok)
+        env["time_detail"] = self._time_detail(tr)
+        if result is None:
+            return env      # an error: a dict, the server packs it
+        from .fastpath import encode_response
+        return encode_response(env, result)
+
+    def _fastpath_dispatch(self, fp, ent, storage, consts,
+                           start_ts: int, deadline_ms):
+        """The fast leg of ``_dispatch_rpc``: deadline admission → a
+        read-pool slot → the validated snapshot → the coalescer or a solo
+        dispatch → the await outside the slot.  → (response envelope,
+        SelectResult, or None with an error envelope)."""
+        from ..utils import deadline as dl_mod
+        from ..utils.deadline import Deadline, DeadlineExceeded
+        tracker.label("fastpath",
+                      "hit" if ent.tier == "dispatch" else ent.tier)
+        dl = None
+        if deadline_ms is not None:
+            dl = Deadline.after_ms(deadline_ms)
+            try:
+                dl.check("admission")
+            except DeadlineExceeded as e:
+                return {"error": wire.enc_error(e)}, None
+        if ent.tier == "plan":
+            preq = ent.make_plan(start_ts)
+        else:
+            dag = ent.make_dag(consts, start_ts)
+
+        def dispatch():
+            if ent.tier == "plan":
+                # the wire decode and the plan analysis are hoisted;
+                # handle_plan runs its per-leaf snapshot and fragment
+                # routing as always
+                fp.note_hit(ent)
+                return self.endpoint.handle_plan(preq)
+            creq = CopRequest(REQ_TYPE_DAG, dag)
+            if ent.tier == "decode":
+                # only the wire decode is skipped: the full ceremony
+                # (snapshot, routing, freshness) runs again
+                fp.note_hit(ent)
+                return self.endpoint.handle_async(creq)
+            got = self.node.fastpath_snapshot(ent, start_ts)
+            if got is None or got is not storage:
+                # the generation moved between the guard and the slot (a
+                # racing write or split): serve the CURRENT data through
+                # the full ceremony, the decoded DAG in hand, and retire
+                # the entry for a re-learn
+                fp.drop(ent, "generation")
+                fp.note_fallback("generation")
+                tracker.label("fastpath", "fallback")
+                return self.endpoint.handle_async(creq)
+            fp.note_hit(ent)
+            return self.endpoint.handle_async_fast(creq, got, ent, consts)
+
+        dl_tok = dl_mod.install(dl) if dl is not None else None
+        try:
+            d = self.read_pool.run(dispatch, "normal", deadline=dl,
+                                   class_key=ent.class_key)
+            with tracker.phase("await_deferred"):
+                # the plan tier answers at once (handle_plan is
+                # synchronous); the DAG tiers park on the device fetch
+                resp = d.wait() if hasattr(d, "wait") else d
+        except Exception as e:  # noqa: BLE001 — errors ride the wire
+            return {"error": wire.enc_error(e)}, None
+        finally:
+            if dl is not None:
+                dl_mod.uninstall(dl_tok)
+        if dl is not None and dl.expired():
+            # an acknowledged response never comes from work whose
+            # deadline passed mid-flight
+            return {"error": wire.enc_error(DeadlineExceeded(
+                "completion", overrun_ms=-dl.remaining() * 1e3))}, None
+        return self._cop_envelope(resp), resp.result
 
     def _dispatch_rpc(self, method: str, fn, req: dict, prio) -> dict:
         from ..utils import deadline as dl_mod
@@ -166,6 +318,7 @@ class KvService:
                     dag_obj = wire.dec_dag(req["dag"])
                 req["__dag"] = dag_obj
                 class_key = ("copr", dag_obj.class_key())
+                req["__trace_class"] = class_key
             except Exception:   # noqa: BLE001 — handler reports it
                 pass
         elif method == "Coprocessor" and isinstance(req, dict) and \
@@ -175,6 +328,7 @@ class KvService:
                     plan_obj = wire.dec_plan(req["plan"])
                 req["__plan"] = plan_obj
                 class_key = ("copr_plan", plan_obj.class_key())
+                req["__trace_class"] = class_key
             except Exception:   # noqa: BLE001 — handler reports it
                 pass
         # the deadline rides a thread-local so the executor pipeline and
@@ -213,12 +367,26 @@ class KvService:
     # ---------------------------------------------------------- txn KV
 
     def KvGet(self, req: dict) -> dict:
+        stale = req.get("stale_read", False)
+        if stale:
+            # the stale-read rule: a follower serves locally ONLY when
+            # read_ts ≤ its resolved-ts watermark — below it no new commit
+            # can appear, so applied state answers the MVCC read exactly;
+            # above it DataIsNotReady sends the client to the leader or a
+            # ReadIndex read
+            from ..raftstore.metapb import DataIsNotReady
+            from ..storage.txn_types import encode_key
+            peer = self.node.raft_store.peer_by_key(encode_key(req["key"]))
+            rts = self.node.resolved_ts.resolver(
+                peer.region.id).resolved_ts
+            if req["version"] > rts:
+                raise DataIsNotReady(peer.region.id, rts, req["version"])
         with tracker.phase("kv_read"):
             v = self.storage.get(req["key"], req["version"],
                                  tuple(req.get("bypass_locks", ())),
                                  replica_read=req.get("replica_read",
                                                       False),
-                                 stale_read=req.get("stale_read", False))
+                                 stale_read=stale)
         return {"value": v, "not_found": v is None}
 
     def KvBatchGet(self, req: dict) -> dict:
@@ -358,6 +526,12 @@ class KvService:
             # plan-IR request: the operator superset (join/sort/window +
             # mixed per-fragment routing, copr/plan_ir.py)
             preq = req.pop("__plan", None) or wire.dec_plan(req["plan"])
+            learn = req.get("__fp_learn")
+            if learn is not None:
+                # the plan tier learns from the decoded request and its
+                # class key alone (a hit replays the full ceremony)
+                learn["plan"] = preq
+                learn["class_key"] = req.get("__trace_class")
             resp = self.endpoint.handle_plan(
                 preq, force_backend=req.get("force_backend"))
             return self._enc_cop_resp(resp)
@@ -380,10 +554,17 @@ class KvService:
         if tp != REQ_TYPE_DAG:
             raise ValueError(f"coprocessor request type {tp}")
         dag = predec or wire.dec_dag(req["dag"])
+        learn = req.get("__fp_learn")
+        if learn is not None:
+            # the fast path's learning: the decoded DAG and its class key;
+            # the endpoint and the node fill in storage, route and region
+            learn["dag"] = dag
+            learn["class_key"] = req.get("__trace_class")
         creq = CopRequest(
             REQ_TYPE_DAG, dag, req.get("force_backend"),
             paging_size=req.get("paging_size", 0),
-            resume_token=req.get("resume_token"))
+            resume_token=req.get("resume_token"),
+            stale_read=req.get("stale_read", False), fp_learn=learn)
         # dispatch under the read-pool slot, await outside it: handle()
         # resolves the "__deferred" marker after the slot is released
         d = self.endpoint.handle_async(creq)
@@ -572,6 +753,14 @@ class KvService:
 
     def Status(self, req: dict) -> dict:
         return self.node.status()
+
+    def CheckLeader(self, req: dict) -> dict:
+        """Leader→follower resolved-ts propagation (resolved_ts/advance.rs
+        check-leader): the leader pushes its watermark and the apply index
+        it was computed at; this store advances a region's resolver only
+        once its OWN apply has reached that index, never past its own
+        pending locks — a lagging replica never over-promises."""
+        return {"advanced": self.node.check_leader(req.get("regions", ()))}
 
     def RegionApplied(self, req: dict) -> dict:
         return {"applied": self.node.region_applied(req["region_id"])}

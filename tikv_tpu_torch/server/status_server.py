@@ -3,7 +3,9 @@
 A trimmed copy of the JAX package's ``server/status_server.py``: ``GET
 /status`` (the node's stores and regions), ``GET /health`` (the read
 pool, the raft transport's per-store breakers, the columnar cache, the
-coalescer, the device-state supervisor and the cold stream), ``GET`` and
+coalescer, the fast path's class cache with the pinned readback pool,
+the follower reads of ``replica_serving``, the device-state supervisor
+and the cold stream), ``GET`` and
 ``POST /config`` (the live tree; a change goes through the node's
 ``ConfigController``, which refuses a field that is not online and then
 applies nothing), ``GET /region/<id>`` and ``GET``/``POST /fail_point``
@@ -37,6 +39,12 @@ def health(node) -> dict:
     coal = node.endpoint.coalescer
     if coal is not None:
         body["coalescer"] = coal.stats()
+    # the fast path: learned classes, hit / miss / bypass / fallback /
+    # invalidate counts by reason, and the pinned D2H staging pool
+    body["fastpath"] = node.fastpath.stats()
+    body["fastpath"]["pinned_readback"] = \
+        node.device_runner.pinned_readback_stats()
+    body["replica_serving"] = node.replica_serving_stats()
     if node.cold_stream is not None:
         body["cold_stream"] = node.cold_stream.stats()
     return body

@@ -3,8 +3,9 @@
 A trimmed copy of the JAX package's ``utils/failpoint.py`` (the ``fail``
 crate's grammar): ``cfg(name, actions)`` arms a site, ``fail_point(name)``
 is the site, ``teardown()`` disarms every site.  Actions, chained with
-``->``, each ``[pct%][cnt*]task[(arg)]``; tasks ``off`` and ``return``
-(``pct%``: the action fires on that share of hits, at random).  The
+``->``, each ``[pct%][cnt*]task[(arg)]``; tasks ``off``, ``return`` and
+``sleep(ms)`` (the site waits, then goes on as if unarmed; ``pct%``: the
+action fires on that share of hits, at random).  The
 port's sites: ``device::join_dispatch`` (the probe dispatch of a device
 join), ``copr::plan_route`` (every fragment of a plan to the host),
 ``device::before_dispatch`` and ``device::before_fetch`` (a device fault
@@ -24,7 +25,12 @@ declines: the native rung serves); on the network
 ``transport::grpc_drop`` (a raft message is dropped before it queues),
 ``transport::before_batch_send`` (a raft batch's send fails: the
 connection backs off), ``client::before_retry`` and
-``backoff::before_sleep``.  ``list_cfg()`` reads what is armed (the
+``backoff::before_sleep``; on the read legs ``copr::fastpath`` (the fast
+path: ``return(miss)`` and ``return(full)`` take the full decode,
+``return(corrupt)`` flips a byte of a learned template first),
+``device::replica_stale`` (a follower refuses a stale read with
+``DataIsNotReady``) and ``read::before_leader_read`` (``sleep(ms)``: a
+slowed leader).  ``list_cfg()`` reads what is armed (the
 status server's ``GET /fail_point``).
 
 A site costs one global read while nothing is armed.
@@ -34,11 +40,12 @@ from __future__ import annotations
 
 import random
 import threading
+import time
 from typing import Optional
 
 _lock = threading.Lock()
 _registry: Optional[dict] = None          # None: nothing armed
-_TASKS = ("off", "return")
+_TASKS = ("off", "return", "sleep")
 
 
 class _Action:
@@ -125,6 +132,7 @@ def fail_point(name: str):
     chain = reg.get(name)
     if chain is None:
         return None
+    fired = None
     with _lock:
         for action in chain:
             if action.cnt is not None and action.fired >= action.cnt:
@@ -133,7 +141,12 @@ def fail_point(name: str):
                     random.random() * 100.0 >= action.pct:
                 continue
             action.fired += 1
-            if action.task == "off":
-                return None
-            return _Return(action.arg)
-    return None
+            fired = action
+            break
+    if fired is None or fired.task == "off":
+        return None
+    if fired.task == "sleep":
+        # outside the registry's lock: a sleeping site holds up no other
+        time.sleep(float(fired.arg or 0) / 1e3)
+        return None
+    return _Return(fired.arg)
